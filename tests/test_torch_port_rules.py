@@ -1,0 +1,111 @@
+"""Rules the PyTorch port keeps, checked on the CPU.
+
+  * the port and ``chip_smoke.py`` import neither JAX nor the JAX package;
+  * entry points run on ``cuda`` unless the caller asks for the CPU, and with
+    no card they raise instead of falling back;
+  * what is not ported raises and names its ROADMAP item: image data
+    augmentation, bf16 compute, other tasks and methods.
+"""
+
+import ast
+import os
+
+import pytest
+import torch
+
+from wmfml_tpu_torch.aug.pipeline import build_episode_processor
+from wmfml_tpu_torch.cli import train_cli
+from wmfml_tpu_torch.configs import Config, resolve_device
+from wmfml_tpu_torch.data.factory import build_data
+from wmfml_tpu_torch.models.registry import build_model
+from wmfml_tpu_torch.train.steps import build_train_step, init_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "wmfml_tpu_torch")
+MAIN_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "wmfml_tpu"}
+
+
+def _port_sources():
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    sources = list(_port_sources())
+    assert len(sources) > 30
+    for path in sources:
+        bad = FORBIDDEN.intersection(_imported_roots(path))
+        assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
+
+
+def _config(*overrides):
+    return Config(MAIN_YAML, ["aug_list=[task_aug]", *overrides],
+                  make_dirs=False)
+
+
+def test_default_device_is_cuda():
+    assert _config().device == "cuda"                  # the YAML says tpu
+    assert _config("device=cpu").device == "cpu"
+    assert resolve_device("gpu:1") == "cuda:1"
+    cfg = dict(method="ANPShapeNet1D", task="shapenet_1d", tasks_per_batch=2,
+               max_ctx_num=4, lr=1e-4, seed=0)
+    assert Config.from_dict(cfg).device == "cuda"
+    with pytest.raises(ValueError):
+        resolve_device("tpu_v5e")
+
+
+def test_without_a_card_entry_points_raise(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    cfg = _config(f"data_path={tmp_path}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.build_trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_model(cfg)
+    assert not os.listdir(tmp_path)          # raised before touching data
+
+
+def test_image_data_augmentation_raises():
+    with pytest.raises(NotImplementedError, match="DA: ROADMAP A7"):
+        build_episode_processor("shapenet_1d", ["task_aug", "data_aug"],
+                                train=True)
+    cfg = Config(MAIN_YAML, ["device=cpu", "dim_w=16"], make_dirs=False)
+    assert "data_aug" in cfg.aug_list                  # the shipped YAML
+    model = build_model(cfg)
+    with pytest.raises(NotImplementedError, match="DA: ROADMAP A7"):
+        build_train_step(model, torch.optim.Adam(model.parameters()), cfg)
+
+
+@pytest.mark.parametrize("override,error", [
+    ("compute_dtype=bfloat16", NotImplementedError),
+    ("method=MAMLShapeNet1D", NotImplementedError),
+    ("method=NoSuchMethod", NameError),
+    ("agg_mode=max", TypeError),
+])
+def test_unported_options_raise(override, error):
+    with pytest.raises(error):
+        build_model(_config("device=cpu", override))
+
+
+def test_unported_task_raises(tmp_path):
+    cfg = Config.from_dict(dict(method="CondNeuralProcess", task="shapenet_3d",
+                                tasks_per_batch=2, max_ctx_num=4, lr=1e-4,
+                                seed=0, device="cpu", data_path=str(tmp_path)))
+    with pytest.raises(NotImplementedError, match="A12"):
+        build_data(cfg)
+    with pytest.raises(NotImplementedError):
+        build_episode_processor("shapenet_3d", [], train=False)

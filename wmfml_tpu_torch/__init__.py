@@ -1,0 +1,14 @@
+"""PyTorch + CUDA port of ``wmfml_tpu`` for NVIDIA Hopper (H100).
+
+A package of its own beside the JAX one: it imports ``torch`` and numpy,
+never ``jax`` and nothing of ``wmfml_tpu``. Entry points run on ``cuda``
+unless the caller passes ``device=cpu``; the hand-written kernels live in
+``csrc/`` and are bound in ``kernels/``.
+
+Ported so far: ShapeNet1D meta-training of the four literature-encoder
+methods (CNPShapeNet1D, ANPShapeNet1D, CNPVanillaPascal1D's model,
+ANPVanillaPascal1D's model) with task augmentation. ROADMAP.md lists what
+is still to port.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,1 @@
+"""aug of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,50 @@
+"""Checkpoints with the reference's names, written with ``torch.save``.
+
+Under ``<run>/models/``: ``model_best_{split}.pt`` (best per split),
+``model_intermediate.pt`` (every 1000 iterations) and
+``model_end_{iterations}.pt`` (at the end), plus ``best_{split}_error.txt``
+in the run directory. A file holds ``{"step", "model", "optimizer"}``;
+``model`` is a plain ``state_dict`` with the reference's keys.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+class CheckpointManager:
+    def __init__(self, run_dir: str):
+        self.models_dir = os.path.abspath(os.path.join(run_dir, "models"))
+        os.makedirs(self.models_dir, exist_ok=True)
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.models_dir, f"{name}.pt")
+
+    def save(self, name: str, step: int, model, optimizer=None):
+        payload = {"step": int(step), "model": model.state_dict(),
+                   "optimizer": optimizer.state_dict() if optimizer else None}
+        tmp = self.path(name) + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self.path(name))
+
+    def restore(self, name_or_path: str, model, optimizer=None,
+                map_location=None) -> int:
+        """Load a port checkpoint (model and optimizer state) or a bare
+        reference ``state_dict`` (model only); return the saved step."""
+        path = (name_or_path if os.path.exists(name_or_path)
+                else self.path(name_or_path))
+        payload = torch.load(path, map_location=map_location, weights_only=True)
+        if "model" not in payload:                 # reference .pt state_dict
+            model.load_state_dict(payload)
+            return 0
+        model.load_state_dict(payload["model"])
+        if optimizer is not None and payload.get("optimizer"):
+            optimizer.load_state_dict(payload["optimizer"])
+        return int(payload["step"])
+
+    @staticmethod
+    def save_best_error(run_dir: str, split: str, step: int, error: float):
+        with open(os.path.join(run_dir, f"best_{split}_error.txt"), "w") as f:
+            f.write(f"iter: {step}, {split} error: {error}\n")

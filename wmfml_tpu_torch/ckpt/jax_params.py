@@ -1,0 +1,112 @@
+"""Carry JAX package weights into the port: the inverse of
+``wmfml_tpu/ckpt/torch_import.py:import_small_cnp``.
+
+``load_jax_variables(model, variables)`` takes a SmallCNP's JAX variables
+``{"params": ..., ["favor": ...]}`` as nested dicts of numpy arrays and
+fills the port's ``SmallCNP`` in place. Layout rules:
+
+  * conv kernels: flax HWIO -> torch OIHW;
+  * dense kernels: flax [in, out] -> torch [out, in];
+  * the fc after the flatten reads an HWC-flattened map in JAX and a
+    CHW-flattened one here; (C, h, w) comes from the model's image size;
+  * the stacked W_k/W_v/W_q [in, H*d] (head-major columns) split into the
+    per-head ``_W_*.{i}.linear`` layers;
+  * W_out's input axis is head-major in JAX (head * d + dim) and dim-major
+    in the reference layout (dim * H + head);
+  * the FAVOR projection goes to the ``attn.projection_matrix`` buffer.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(kernel) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
+def _dense(kernel) -> torch.Tensor:
+    return _t(np.asarray(kernel).T)
+
+
+def _dense_after_flatten(kernel, chw: Tuple[int, int, int]) -> torch.Tensor:
+    c, h, w = chw
+    k = np.asarray(kernel)                        # [(h, w, c), out]
+    out = k.shape[1]
+    return _t(k.reshape(h, w, c, out).transpose(3, 2, 0, 1).reshape(out, c * h * w))
+
+
+def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
+    """The port ``state_dict`` that ``variables`` describe for ``model``."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def dense(prefix, node, kernel=_dense):
+        sd[f"{prefix}.weight"] = kernel(node["kernel"])
+        sd[f"{prefix}.bias"] = _t(node["bias"])
+
+    for key, value in encoder_state_dict(
+            p["encoder_w0"], model.encoder_w0.flatten_chw).items():
+        sd[f"encoder_w0.{key}"] = value
+    dense("transform_y", p["transform_y"]["Dense_0"])
+    mlp0 = p["encoder_r"]["MLP_0"]
+    for i in range(len(mlp0)):
+        dense(f"encoder_r.layers.{2 * i}", mlp0[f"Dense_{i}"]["Dense_0"])
+    dense("r_to_z", p["r_to_z"]["Dense_0"])
+    for i in range(len(p["decoder0"])):
+        dense(f"decoder0.{2 * i}", p["decoder0"][f"Dense_{i}"]["Dense_0"])
+    if model.agg_mode == "baco":
+        dense("rs_to_mu", p["rs_to_mu"]["Dense_0"])
+        dense("rs_to_var", p["rs_to_var"]["Dense_0"])
+    if model.agg_mode == "attention":
+        sd.update(attention_state_dict(
+            p["cross_attn"], variables["favor"]["cross_attn"]["favor"]["projection"],
+            n_heads=len(model._W_k)))
+    return sd
+
+
+def encoder_state_dict(params, chw: Tuple[int, int, int]) -> Dict[str, torch.Tensor]:
+    """``LiteratureEncoder`` params (conv0/conv1/conv2/fc) -> the port
+    encoder's ``state_dict``; ``chw`` is the (C, h, w) map the fc reads."""
+    sd: Dict[str, torch.Tensor] = {}
+    for idx, name in (("0", "conv0"), ("2", "conv1"), ("5", "conv2")):
+        sd[f"{idx}.weight"] = _conv(params[name]["kernel"])
+        sd[f"{idx}.bias"] = _t(params[name]["bias"])
+    sd["8.weight"] = _dense_after_flatten(params["fc"]["Dense_0"]["kernel"], chw)
+    sd["8.bias"] = _t(params["fc"]["Dense_0"]["bias"])
+    return sd
+
+
+def attention_state_dict(params, projection, n_heads: int = 8):
+    """``MultiheadFavorCrossAttention`` params (W_k/W_v/W_q/W_out) and its
+    FAVOR projection -> the port block's ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for jax_name, torch_name in (("W_k", "_W_k"), ("W_v", "_W_v"),
+                                 ("W_q", "_W_q")):
+        kernel = np.asarray(params[jax_name]["kernel"])         # [in, H*d]
+        bias = np.asarray(params[jax_name]["bias"])
+        d = kernel.shape[1] // n_heads
+        for i in range(n_heads):
+            sd[f"{torch_name}.{i}.linear.weight"] = _t(kernel[:, i * d:(i + 1) * d].T)
+            sd[f"{torch_name}.{i}.linear.bias"] = _t(bias[i * d:(i + 1) * d])
+    w = np.asarray(params["W_out"]["kernel"]).T                 # [out, H*d] head-major
+    out, hd = w.shape
+    sd["_W.linear.weight"] = _t(
+        w.reshape(out, n_heads, hd // n_heads).transpose(0, 2, 1).reshape(out, hd))
+    sd["_W.linear.bias"] = _t(params["W_out"]["bias"])
+    sd["attn.projection_matrix"] = _t(projection)
+    return sd
+
+
+def load_jax_variables(model, variables):
+    """Fill ``model`` (any device) with the JAX ``variables``; strict."""
+    sd = jax_to_state_dict(model, variables)
+    model.load_state_dict(sd, strict=True)
+    return model

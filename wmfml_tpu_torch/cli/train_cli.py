@@ -1,0 +1,47 @@
+"""Meta-training CLI of the port.
+
+Usage::
+
+    python -m wmfml_tpu_torch.cli.train_cli --config cfg/train/ANP_DA+TA_ShapeNet1D.yaml \
+        aug_list='[task_aug]' [key=value ...]
+
+Runs on ``cuda`` (the YAMLs' ``device: tpu`` maps there); ``device=cpu``
+runs on the CPU. Exits 1 on a non-finite loss.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from wmfml_tpu_torch.cli.common import parse_args
+from wmfml_tpu_torch.configs import Config
+from wmfml_tpu_torch.data.factory import build_data
+from wmfml_tpu_torch.models.registry import build_model
+from wmfml_tpu_torch.obs.guards import NonFiniteLossError
+from wmfml_tpu_torch.train.steps import require_device
+from wmfml_tpu_torch.train.trainer import ModelTrainer
+
+
+def build_trainer(config: Config) -> ModelTrainer:
+    require_device(config.device)        # before any data is generated
+    return ModelTrainer(build_model(config), config, build_data(config))
+
+
+def train(config: Config) -> ModelTrainer:
+    trainer = build_trainer(config)
+    trainer.train()
+    return trainer
+
+
+def main(argv=None):
+    args = parse_args("meta-training (PyTorch port)", argv)
+    config = Config(args.config, overrides=args.overrides)
+    try:
+        train(config)
+    except NonFiniteLossError as e:
+        config.logger.error(str(e))
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

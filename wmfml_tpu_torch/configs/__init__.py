@@ -1,0 +1,3 @@
+from wmfml_tpu_torch.configs.config import Config, TASK_SHAPES, resolve_device
+
+__all__ = ["Config", "TASK_SHAPES", "resolve_device"]

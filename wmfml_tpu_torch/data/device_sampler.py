@@ -1,0 +1,64 @@
+"""Device-resident episode sampling: the train split lives on the card.
+
+The ShapeNet1D train split is small (60 x 50 x 128 x 128 uint8 = 49 MB), so
+it is uploaded once and every training episode is gathered on the device
+from a ``torch.Generator`` on that device; no image crosses the host link
+after set-up. Semantics of the JAX package's sampler
+(``wmfml_tpu/data/device_sampler.py:72-101``):
+
+  * class per task uniform; instances without replacement through one
+    argsort of uniforms per task (the first ``max_ctx`` rows are context,
+    the next ``query`` rows are queries);
+  * shot ~ U[shot_min, max_ctx] once per batch, realised as ``ctx_mask``;
+  * labels scaled by ``label_scale`` (2*pi for ShapeNet1D).
+
+The draws differ from the JAX package's (Philox against threefry); the
+distribution is the same.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+class DeviceEpisodeSampler:
+    """Wraps a dense train split [groups, instances, ...] on ``device``."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, max_ctx: int, query: int,
+                 shot_min: int, label_scale: float, device):
+        self.max_ctx, self.query, self.shot_min = max_ctx, query, shot_min
+        self.label_scale = label_scale
+        self.n_groups, self.n_inst = x.shape[0], x.shape[1]
+        if self.n_inst < max_ctx + query:
+            raise ValueError(f"need {max_ctx + query} instances per class, "
+                             f"have {self.n_inst}")
+        self.x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        self.y = torch.from_numpy(np.asarray(y, np.float32)).to(device)
+
+    @classmethod
+    def from_dataset(cls, data, config, device) -> "DeviceEpisodeSampler":
+        if getattr(data, "task_name", None) != "shapenet_1d":
+            raise NotImplementedError(
+                "device sampling is ported for shapenet_1d only")
+        return cls(data.x_train, data.y_train, max_ctx=config.max_ctx_num,
+                   query=config.query_num, shot_min=3,
+                   label_scale=2.0 * np.pi, device=device)
+
+    def sample(self, tasks_per_batch: int,
+               generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        t, s, q = tasks_per_batch, self.max_ctx, self.query
+        dev = self.x.device
+        cls = torch.randint(0, self.n_groups, (t,), device=dev,
+                            generator=generator)
+        u = torch.rand((t, self.n_inst), device=dev, generator=generator)
+        take = torch.argsort(u, dim=-1)[:, :s + q]             # [T, S+Q]
+        xs = self.x[cls[:, None], take]                        # [T, S+Q, H, W, C]
+        ys = self.y[cls[:, None], take] * self.label_scale     # [T, S+Q, Dy]
+        shot = torch.randint(self.shot_min, s + 1, (), device=dev,
+                             generator=generator)
+        mask = (torch.arange(s, device=dev)[None, :] < shot).expand(t, s)
+        return dict(ctx_x=xs[:, :s], ctx_y=ys[:, :s], ctx_mask=mask,
+                    qry_x=xs[:, s:], qry_y=ys[:, s:])

@@ -1,0 +1,1 @@
+"""losses of the PyTorch port (see the package docstring)."""

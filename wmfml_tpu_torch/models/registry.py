@@ -1,0 +1,88 @@
+"""Model registry: reference method names -> port modules.
+
+The four literature-encoder methods of ``wmfml_tpu/models/registry.py:60-81``
+are ported; every other method raises and names the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from wmfml_tpu_torch.models.neural_process import SmallCNP
+
+_REGISTRY: Dict[str, Callable] = {}
+
+NOT_PORTED = {
+    "CondNeuralProcess": "A12", "ANP": "A12", "CNPDistractor": "A12",
+    "ANPDistractor": "A12", "CNPMR": "A13", "CNPMRShapeNet1D": "A13",
+    "ANPMR": "A13", "ANPMRShapeNet1D": "A13", "ANPMRShapeNet3D": "A13",
+    "FCLCNPShapeNet1D": "A13", "FCLCNPDistractor": "A13", "FCLANP": "A13",
+    "MAMLShapeNet1D": "A15", "VanillaMAML": "A15", "MAMLMR": "A15",
+    "MAMLMRShapeNet1D": "A15", "MMAMLShapeNet1D": "A16",
+    "SingleTaskShapeNet1D": "A14", "SingleTaskShapeNet3D": "A14",
+    "SingleTaskDistractor": "A14",
+}
+
+
+def register(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def available_methods():
+    return sorted(_REGISTRY)
+
+
+def build_model(config, generator: Optional[torch.Generator] = None):
+    """Build ``config.method`` on the CPU, its weights drawn from
+    ``generator`` (default: seeded with ``config.seed``)."""
+    if config.method in NOT_PORTED:
+        raise NotImplementedError(
+            f"method {config.method!r} is not ported yet "
+            f"(ROADMAP.md {NOT_PORTED[config.method]})")
+    if config.method not in _REGISTRY:
+        raise NameError(
+            f"method {config.method!r} unknown; available: {available_methods()}")
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(config.seed))
+    return _REGISTRY[config.method](config, generator)
+
+
+def _small(config, agg_mode, tanh_out, generator):
+    return SmallCNP(
+        dim_w=config.dim_w, n_hidden_units_r=tuple(config.n_hidden_units_r),
+        dim_r=config.dim_r, dim_z=config.dim_z, y_dim=config.output_dim,
+        label_dim=config.input_dim, agg_mode=agg_mode, tanh_out=tanh_out,
+        img_size=config.img_size, generator=generator)
+
+
+def _attention_only(config):
+    if config.agg_mode != "attention":
+        raise TypeError("agg_mode is not applicable for ANP, choose from ['attention']")
+
+
+@register("CNPShapeNet1D")
+def _(config, generator):
+    return _small(config, config.agg_mode, True, generator)
+
+
+@register("ANPShapeNet1D")
+def _(config, generator):
+    _attention_only(config)
+    return _small(config, "attention", True, generator)
+
+
+@register("CNPVanillaPascal1D")
+def _(config, generator):
+    return _small(config, config.agg_mode, False, generator)
+
+
+@register("ANPVanillaPascal1D")
+def _(config, generator):
+    _attention_only(config)
+    return _small(config, "attention", False, generator)

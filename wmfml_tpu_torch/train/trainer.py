@@ -1,0 +1,113 @@
+"""Meta-training loop for the CNP/ANP family (``wmfml_tpu/train/trainer.py``).
+
+  * iteration loop; each pass of the loop runs ``steps_per_call`` steps (a
+    Python loop of K steps) on episodes sampled on the device;
+  * validation when ``it % val_freq < K`` on the validation AND test splits
+    (test skipped for pascal_1d), on host episodes from streams reset to
+    RandomState 42 before every sweep;
+  * best-per-split checkpoints + ``best_{split}_error.txt``, an intermediate
+    checkpoint when ``it % 1000 < K`` and a final one at the end;
+  * NaN guard: the loss stays on the device and is read at the validation
+    cadence; a non-finite loss raises ``NonFiniteLossError``.
+
+``timing`` holds the training steps and host seconds between the first and
+the last loss read (each read waits for the card), validation excluded.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from wmfml_tpu_torch.ckpt.checkpoint import CheckpointManager
+from wmfml_tpu_torch.data.device_sampler import DeviceEpisodeSampler
+from wmfml_tpu_torch.obs.guards import check_finite
+from wmfml_tpu_torch.obs.metrics import MetricsWriter
+from wmfml_tpu_torch.train.state import build_optimizer
+from wmfml_tpu_torch.train.steps import (build_eval_step, build_train_step,
+                                         require_device)
+
+
+def episode_to_device(batch, device):
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+class ModelTrainer:
+    def __init__(self, model, config, data):
+        self.config = config
+        self.data = data
+        self.logger = config.logger
+        self.device = require_device(config.device)
+        self.model = model.to(self.device)
+        self.optimizer = build_optimizer(config, self.model.parameters())
+        self.sampler = DeviceEpisodeSampler.from_dataset(data, config,
+                                                         self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(config.seed))
+        self.train_step = build_train_step(self.model, self.optimizer, config)
+        self.eval_step = build_eval_step(self.model, config)
+        self.writer = MetricsWriter(config.save_path)
+        self.ckpt = CheckpointManager(config.save_path)
+        self.best_loss = {"validation": 50000.0, "test": 20000.0}
+        self.steps_per_call = max(int(config.steps_per_call or 1), 1)
+        self.step = 0
+        self.timing = {"steps": 0, "seconds": 0.0}
+        if config.checkpoint:
+            self.step = self.ckpt.restore(config.checkpoint, self.model,
+                                          self.optimizer,
+                                          map_location=self.device)
+            self.logger.info(f"resumed from {config.checkpoint} at step {self.step}")
+
+    def _save(self, name: str):
+        self.ckpt.save(name, self.step, self.model, self.optimizer)
+
+    def train(self):
+        cfg = self.config
+        k = self.steps_per_call
+        pending = None       # (iteration, mean loss of its K steps on device)
+        timer = None         # (host time, steps) at the last loss read
+        for it in range(self.step, cfg.iterations, k):
+            losses = [self.train_step(
+                self.sampler.sample(cfg.tasks_per_batch, self.generator),
+                self.generator) for _ in range(k)]
+            self.step += k
+            pending = (it, torch.stack(losses).mean())
+            if it % cfg.val_freq < k:
+                train_loss = check_finite(pending[1], it, self.logger)
+                pending = None
+                self._tick(timer)
+                self.writer.add_scalar("Loss/train", train_loss, it)
+                self.logger.info(f"Iteration: {it}, loss: {train_loss:.4f}")
+                self.validate(it, "validation")
+                if cfg.task != "pascal_1d":
+                    self.validate(it, "test")
+                timer = (time.perf_counter(), self.step)
+            if it % 1000 < k:
+                self._save("model_intermediate")
+        if pending is not None:
+            check_finite(pending[1], pending[0], self.logger)
+            self._tick(timer)
+        self._save(f"model_end_{cfg.iterations}")
+
+    def _tick(self, timer):
+        if timer is not None:
+            self.timing["seconds"] += time.perf_counter() - timer[0]
+            self.timing["steps"] += self.step - timer[1]
+
+    def validate(self, it: int, source: str) -> float:
+        """One deterministic sweep of ``val_iters`` episodes."""
+        cfg = self.config
+        self.data.reset_eval(source, seed=42)
+        losses = [self.eval_step(episode_to_device(
+            self.data.get_batch(source, cfg.tasks_per_batch, cfg.max_ctx_num),
+            self.device)) for _ in range(cfg.val_iters)]
+        loss = float(np.mean([float(x) for x in losses]))
+        self.writer.add_scalar(f"Loss/{source}", loss, it)
+        self.logger.info(f"[{source}] iteration {it}: loss {loss:.4f}")
+        if loss < self.best_loss[source]:
+            self.best_loss[source] = loss
+            self._save(f"model_best_{source}")
+            self.ckpt.save_best_error(cfg.save_path, source, it, loss)
+        return loss
