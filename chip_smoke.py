@@ -3,24 +3,37 @@
 
     python3 chip_smoke.py            # what a check of the port runs
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
-                                     # training step (top kernels, busy share)
+                                     # ANP and MAML training steps (top
+                                     # kernels, busy share)
 
 Phases, each fatal on failure (nothing is caught and reported as ok):
   1. the card's name and power limit (nvidia-smi); TF32 off for cuDNN and
      matmul, so every float32 comparison below is a float32 one;
-  2. build of every kernel of the main path from ``wmfml_tpu_torch/csrc``
-     (one nvcc per source, all started together);
-  3. each kernel at the main path's shapes against its plain PyTorch twin on
-     the same inputs, within the tolerance stated beside it; kernel, plain
-     and library times by CUDA events;
-  4. the main path itself: ANPShapeNet1D meta-training through
+  2. build of every kernel from ``wmfml_tpu_torch/csrc`` (one nvcc per
+     source, all started together);
+  3. each kernel at its path's shapes against its plain PyTorch twin on the
+     same inputs, within the tolerance stated beside it: K1 with shared
+     weights (ANP, 300 images) and per task (MAML, 10 x 15 images), K2, and
+     K3 masked (shots 3..15) and unmasked; kernel, plain and library times
+     by CUDA events;
+  4. the ANP path: ANPShapeNet1D meta-training through
      ``wmfml_tpu_torch.cli.train_cli`` at full width (T=10, 15 + 15,
      128x128x1, dim_w 64, 8 FAVOR heads, m=266) on synthetic ShapeNet1D
      ``data_size=large`` with task augmentation, 24 steps and one validation;
      launch counts are zeroed just before and read just after, and each
      kernel must have launched; the trained model's output on a validation
      episode must agree with the same model run through the plain twins;
-  5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+  5. the MAML path: second-order MAMLShapeNet1D meta-training through
+     ``train_cli`` (``cfg/train/MAML_DA_ShapeNet1D.yaml`` with
+     ``aug_list=[]``: T=10, 15 + 15, dim_w 196 -> 14x14, 4 blocks of 64
+     filters, 5 inner steps at update_lr 0.002, 20 at validation), 12 steps
+     and one validation; K1 and K3 must have launched exactly as often as
+     the code says; the trained model's validation loss on one episode must
+     agree between the card and the CPU;
+  6. the second-order outer gradient of one full-width MAML batch through
+     the kernels against the same gradient by plain autograd through the
+     twins (no custom autograd Function at all), on the card;
+  7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository around it.
@@ -40,6 +53,10 @@ MAIN_YAML = os.path.join(HERE, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")
 TRAIN_OVERRIDES = ["aug_list=[task_aug]", "data_size=large",
                    "synthetic_data=true", "iterations=24", "val_freq=1000",
                    "val_iters=2", "steps_per_call=1", "device=cuda"]
+MAML_YAML = os.path.join(HERE, "cfg", "train", "MAML_DA_ShapeNet1D.yaml")
+MAML_OVERRIDES = ["aug_list=[]", "data_size=large", "synthetic_data=true",
+                  "iterations=12", "val_freq=1000", "val_iters=1",
+                  "steps_per_call=1", "device=cuda"]
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
@@ -47,8 +64,24 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # max |kernel - plain| <= ATOL + RTOL * |plain|, elementwise; both sides are
 # float32 sums taken in another order (<= 297 terms for the stem, 64 + 266
-# for FAVOR+), so they agree to a few float32 ulps of the largest term
-TOL = {"literature_stem": (1e-4, 1e-4), "favor_attention": (1e-5, 1e-4)}
+# for FAVOR+), so they agree to a few float32 ulps of the largest term. K3:
+# each layer sums 576 products per output and 2940 values per channel
+# statistic in another order, then divides by the channel's std, three
+# times over; its O(1) outputs keep about five digits
+TOL = {"literature_stem": (1e-4, 1e-4), "favor_attention": (1e-5, 1e-4),
+       "maml_features": (1e-4, 1e-4)}
+# the second-order outer gradient against float64 plain autograd, per
+# parameter as max |difference| / max |float64|. The one-pass batch norm
+# (E[x^2] - E[x]^2 in float32, as the JAX package computes it) cancels
+# wherever a channel's mean dwarfs its spread, so five inner steps amplify
+# rounding: the kernels must come within GRAD_TOL of float64, or within
+# GRAD_FACTOR times the error of the plain float32 twins (two float32 sums in
+# another order err about equally)
+GRAD_TOL, GRAD_FACTOR = 1e-3, 3.0
+# validation degree loss after 20 inner steps, card against CPU: float32
+# sums in another order move each adapted weight a little at every step;
+# |card - CPU| <= VAL_TOL * (|CPU| + 1) degrees
+VAL_TOL = 1e-3
 
 
 def log(msg):
@@ -111,7 +144,7 @@ def check_close(name, got, want):
 
 
 def check_stem(model, gen):
-    """K1 at the main path's shape: the merged ctx+qry batch, 300 images."""
+    """K1 at the ANP path's shape: the merged ctx+qry batch, 300 images."""
     import torch
     import torch.nn.functional as F
 
@@ -141,7 +174,8 @@ def check_stem(model, gen):
     nbytes = 4 * (x.numel() + got.numel() + sum(t.numel() for t in
                                                  (w0, b0, w1, b1)))
     bound_ms, bound_by = bound(flops, nbytes)
-    return dict(name="literature_stem", route="cuda",
+    return dict(name="literature_stem", route="cuda", path="ANP",
+                shape="shared weights, [300, 128, 128, 1]",
                 source="wmfml_tpu_torch/csrc/stem.cu",
                 replaces="wmfml_tpu/nn/encoders.py:230",
                 max_abs_err=err, max_rel_err=rel, **times, bound_ms=bound_ms,
@@ -149,7 +183,7 @@ def check_stem(model, gen):
 
 
 def check_favor(model, gen):
-    """K2 at the main path's shape, with shots 3..15 across the 10 tasks."""
+    """K2 at the ANP path's shape, with shots 3..15 across the 10 tasks."""
     import torch
 
     from wmfml_tpu_torch.kernels import favor
@@ -173,31 +207,147 @@ def check_favor(model, gen):
     flops = 2 * t_ * h * (2 * n * m * d + n * n * m + n * n * e + n * n)
     nbytes = 4 * (4 * q.numel() + proj.numel()) + mask.numel()
     bound_ms, bound_by = bound(flops, nbytes)
-    return dict(name="favor_attention", route="cuda",
+    return dict(name="favor_attention", route="cuda", path="ANP",
+                shape="q, k, v [10, 8, 15, 64], m 266, shots 3..15",
                 source="wmfml_tpu_torch/csrc/favor.cu",
                 replaces="wmfml_tpu/nn/attention.py:93",
                 max_abs_err=err, max_rel_err=rel, **times, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def train_phase(card):
-    """Drive the port's main path; return (trainer, launches per kernel)."""
+def per_task(w, tasks, gen, scale=0.05):
+    """``tasks`` copies of ``w`` [T, ...], each moved off it a little."""
+    import torch
+
+    noise = torch.randn((tasks, *w.shape), generator=gen, device=w.device)
+    return (w.unsqueeze(0) + scale * w.abs().mean() * noise).contiguous()
+
+
+def check_stem_per_task(model, gen):
+    """K1 with per-task weights at the MAML path's shape: 10 tasks x 15
+    images, against ``stem_plain`` applied task by task."""
+    import torch
+    import torch.nn.functional as F
+
+    from wmfml_tpu_torch.kernels import stem
+
+    enc = model.encoder_w
+    t_, n, h, w = 10, 15, 128, 128
+    w0, b0, w1, b1 = (per_task(p.detach(), t_, gen) for p in (
+        enc.layer1.conv.weight, enc.layer1.conv.bias, enc.layer2.conv.weight,
+        enc.layer2.conv.bias))
+    x = torch.rand((t_ * n, h, w, 1), generator=gen, device="cuda")
+    got = stem.stem_launch(x, w0, b0, w1, b1)
+    want = torch.cat([stem.stem_plain(x[i * n:(i + 1) * n], w0[i], b0[i],
+                                      w1[i], b1[i]) for i in range(t_)])
+    torch.cuda.synchronize()
+    err, rel = check_close("literature_stem", got, want)
+    xg = x.reshape(t_, n, h, w).transpose(0, 1).contiguous()   # [N, T, H, W]
+
+    def library():      # cuDNN grouped convs, NCHW; never called by the port
+        a = F.relu(F.conv2d(xg, w0.flatten(0, 1), b0.flatten(), stride=2,
+                            padding=1, groups=t_))
+        a = F.relu(F.conv2d(a, w1.flatten(0, 1), b1.flatten(), stride=2,
+                            padding=1, groups=t_))
+        return F.max_pool2d(a, 2)
+
+    times = in_turns({"ms": lambda: stem.stem_launch(x, w0, b0, w1, b1),
+                      "plain_ms": lambda: stem.stem_plain(x, w0, b0, w1, b1),
+                      "library_ms": library})
+    b = t_ * n
+    flops = 2 * b * ((h // 2) * (w // 2) * 32 * 9 * 1
+                     + (h // 4) * (w // 4) * 48 * 9 * 32)
+    nbytes = 4 * (x.numel() + got.numel() + sum(a.numel() for a in
+                                                 (w0, b0, w1, b1)))
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(name="literature_stem", route="cuda", path="MAML",
+                shape="per-task weights, [10 x 15, 128, 128, 1]",
+                source="wmfml_tpu_torch/csrc/stem.cu",
+                replaces="wmfml_tpu/nn/encoders.py:230",
+                max_abs_err=err, max_rel_err=rel, **times, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def check_features(model, gen):
+    """K3 at the MAML path's shape [10, 15, 14, 14, 64], masked with shots
+    3..15 across the tasks (the context passes) and unmasked (the query
+    pass), against ``features_plain``."""
+    import torch
+    import torch.nn.functional as F
+
+    from wmfml_tpu_torch.kernels import features
+
+    t_, n, s, c = 10, 15, 14, 64
+    layers = [getattr(model.features, f"layer{i}") for i in (2, 3, 4)]
+    w = torch.stack([per_task(blk.conv.weight.detach(), t_, gen)
+                     for blk in layers], 1)                    # [T, 3, C, C, 3, 3]
+    b = torch.stack([per_task(blk.conv.bias.detach(), t_, gen)
+                     for blk in layers], 1)
+    scale = 1.0 + 0.1 * torch.randn((3, c), generator=gen, device="cuda")
+    shift = 0.1 * torch.randn((3, c), generator=gen, device="cuda")
+    x = torch.relu(torch.randn((t_, n, s, s, c), generator=gen,
+                               device="cuda"))
+    shots = torch.tensor([3 + (12 * i) // (t_ - 1) for i in range(t_)],
+                         device="cuda")
+    mask = torch.arange(n, device="cuda")[None, :] < shots[:, None]
+    res = {}
+    for key, m in (("", mask), ("_unmasked", None)):
+        got = features.features_launch(x, w, b, scale, shift, m)
+        want = features.features_plain(x, w, b, scale, shift, m)
+        torch.cuda.synchronize()
+        res["max_abs_err" + key], res["max_rel_err" + key] = check_close(
+            "maml_features", got, want)
+    xn = x.permute(1, 0, 4, 2, 3).reshape(n, t_ * c, s, s).contiguous()
+    wg = [w[:, i].flatten(0, 1).contiguous() for i in range(3)]
+    bg = [b[:, i].flatten().contiguous() for i in range(3)]
+    sg = [scale[i].repeat(t_) for i in range(3)]
+    hg = [shift[i].repeat(t_) for i in range(3)]
+
+    def library():      # unmasked: cuDNN grouped conv + batch_norm + ReLU
+        h = xn
+        for i in range(3):
+            h = F.conv2d(h, wg[i], bg[i], padding=1, groups=t_)
+            h = F.relu(F.batch_norm(h, None, None, sg[i], hg[i],
+                                    training=True, eps=features.EPS))
+        return h
+
+    times = in_turns({
+        "ms": lambda: features.features_launch(x, w, b, scale, shift, mask),
+        "plain_ms": lambda: features.features_plain(x, w, b, scale, shift,
+                                                    mask),
+        "ms_unmasked": lambda: features.features_launch(x, w, b, scale,
+                                                        shift),
+        "plain_ms_unmasked": lambda: features.features_plain(x, w, b, scale,
+                                                             shift),
+        "library_ms": library})
+    flops = 2 * t_ * 3 * (n * s * s) * c * c * 9
+    nbytes = 4 * (2 * x.numel() + w.numel() + b.numel() + 6 * c) + mask.numel()
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(name="maml_features", route="cuda", path="MAML",
+                shape="[10, 15, 14, 14, 64], 3 layers, shots 3..15",
+                source="wmfml_tpu_torch/csrc/features.cu",
+                replaces="scripts/proto_maml_pallas_conv.py:96",
+                **res, **times, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def train_phase(card, yaml, overrides, counters):
+    """Drive one path through ``train_cli``; return (trainer, launches per
+    kernel in that run)."""
     import torch
 
     from wmfml_tpu_torch.cli import train_cli
     from wmfml_tpu_torch.configs import Config
-    from wmfml_tpu_torch.kernels.favor import favor_attention
-    from wmfml_tpu_torch.kernels.stem import literature_stem
 
-    config = Config(MAIN_YAML, TRAIN_OVERRIDES)
-    literature_stem.launches = 0
-    favor_attention.launches = 0
+    config = Config(yaml, overrides)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = train_cli.train(config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"literature_stem": literature_stem.launches,
-                "favor_attention": favor_attention.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {name: fn.launches for name, fn in counters.items()}
 
     with open(os.path.join(config.save_path, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
@@ -207,23 +357,38 @@ def train_phase(card):
     if not all(math.isfinite(r["value"]) for r in records):
         raise AssertionError(f"non-finite loss in {records}")
     steps, secs = trainer.timing["steps"], trainer.timing["seconds"]
-    if trainer.step != 24 or steps <= 0:
+    if trainer.step != config.iterations or steps <= 0:
         raise AssertionError(f"trainer ran {trainer.step} steps "
                              f"({steps} timed)")
     ms_step = 1e3 * secs / steps
-    log(f"train: {trainer.step} steps in {wall:.3f} s wall; "
+    tag = config.method
+    log(f"train {tag}: {trainer.step} steps in {wall:.3f} s wall; "
         f"{ms_step} ms/step, {config.tasks_per_batch * 1e3 / ms_step} "
-        f"tasks/s over {steps} timed steps on {card}")
-    log("train: " + ", ".join(f"{r['tag']} {r['value']}" for r in records))
+        f"tasks/s over {steps} timed steps on {card}; peak device memory "
+        f"{peak_gib} GiB")
+    log(f"train {tag}: " + ", ".join(f"{r['tag']} {r['value']}"
+                                     for r in records))
     for name, n in launches.items():
-        log(f"train: {name} launches {n}")
+        log(f"train {tag}: {name} launches {n}")
         if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+            raise AssertionError(f"{name} never launched on the {tag} path")
     return trainer, launches
 
 
+def check_maml_launches(trainer, launches):
+    """K1 and K3 run once per forward: (num_steps + 1) per training step,
+    (test_num_steps + 1) per validation episode, validation and test."""
+    cfg = trainer.config
+    sweeps = sum(1 for it in range(cfg.iterations) if it % cfg.val_freq < 1)
+    want = (cfg.iterations * (cfg.num_steps + 1)
+            + 2 * sweeps * cfg.val_iters * (cfg.test_num_steps + 1))
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"MAML path launched {launches}, the code "
+                             f"says {want} each")
+
+
 def check_trained_output(trainer):
-    """The trained model on a validation episode: kernels vs plain twins."""
+    """The trained ANP model on a validation episode: kernels vs plain twins."""
     import copy
 
     import torch
@@ -253,12 +418,111 @@ def check_trained_output(trainer):
         raise AssertionError(f"card and CPU outputs differ by {err}")
 
 
+def check_maml_validation(trainer):
+    """The trained MAML model's validation loss (20 inner steps, degrees) on
+    one episode: the card (kernels) against the CPU (plain twins)."""
+    import copy
+
+    from wmfml_tpu_torch.train.maml import build_maml_eval_step
+    from wmfml_tpu_torch.train.trainer import episode_to_device
+
+    cfg, data = trainer.config, trainer.data
+    data.reset_eval("validation", seed=42)
+    raw = data.get_batch("validation", cfg.tasks_per_batch, cfg.max_ctx_num)
+    got = float(trainer.eval_step(episode_to_device(raw, "cuda")))
+    cpu_step = build_maml_eval_step(copy.deepcopy(trainer.model).cpu(), cfg)
+    want = float(cpu_step(episode_to_device(raw, "cpu")))
+    err = abs(got - want)
+    log(f"output: MAML validation loss on one episode: card {got}, CPU "
+        f"{want} degrees; abs err {err} (tolerance {VAL_TOL} x |CPU| + "
+        f"{VAL_TOL})")
+    if not math.isfinite(got) or err > VAL_TOL * (abs(want) + 1.0):
+        raise AssertionError(f"MAML validation loss: card {got}, CPU {want}")
+
+
+def check_second_order_grad(trainer, gen):
+    """One full-width MAML training batch: the second-order outer gradient
+    through K1 and K3 against plain autograd through the twins, which never
+    enters a custom autograd Function (a backward that dropped its
+    second-order terms would show here), in float32 and in float64. The
+    first-order gradient says how large the second-order terms are."""
+    import copy
+
+    import torch
+
+    from wmfml_tpu_torch.aug import pipeline
+    from wmfml_tpu_torch.kernels import features, stem
+    from wmfml_tpu_torch.models import maml as maml_model
+    from wmfml_tpu_torch.nn import encoders
+    from wmfml_tpu_torch.train.maml import build_maml_outer
+
+    cfg = trainer.config
+    batch = trainer.sampler.sample(cfg.tasks_per_batch, gen)
+
+    def grads(model, first_order=False, plain=False):
+        saved = (cfg.first_order, encoders.literature_stem,
+                 maml_model.maml_features, pipeline._to_float)
+        cfg.first_order = first_order
+        if plain:
+            encoders.literature_stem = stem.stem_plain
+            maml_model.maml_features = features.features_plain
+        dtype = next(model.parameters()).dtype
+        pipeline._to_float = lambda x: saved[3](x).to(dtype)
+        try:
+            outer = build_maml_outer(model, cfg, int(cfg.num_steps),
+                                     train=True, test=False)
+            names, params = zip(*model.named_parameters())
+            g = torch.autograd.grad(outer(batch)[0], params)
+        finally:
+            (cfg.first_order, encoders.literature_stem,
+             maml_model.maml_features, pipeline._to_float) = saved
+        return {n: v.double() for n, v in zip(names, g)}
+
+    kernel = grads(trainer.model)
+    plain = grads(trainer.model, plain=True)
+    exact = grads(copy.deepcopy(trainer.model).double(), plain=True)
+    first = grads(trainer.model, first_order=True)
+    torch.cuda.synchronize()
+
+    # the features blocks' conv biases feed a batch norm, which removes any
+    # per-channel shift: their true gradient is 0 and float32 computes noise
+    # around it, so they are held against the model's largest gradient entry
+    scale = max(g.abs().max().item() for g in exact.values())
+
+    def rel(a, b, n):
+        shift_free = n.startswith("features.") and n.endswith(".conv.bias")
+        den = scale if shift_free else b[n].abs().max().item()
+        return (a[n] - b[n]).abs().max().item() / den
+
+    def worst(a, b):
+        errs = sorted(((rel(a, b, n), n) for n in exact), reverse=True)
+        return errs[0][0], errs[:3]
+
+    err, top = worst(kernel, exact)
+    err_plain, top_plain = worst(plain, exact)
+    err_pair, _ = worst(kernel, plain)
+    second_share, _ = worst(exact, first)
+    log(f"grad: second-order outer gradient over {len(exact)} parameters, "
+        f"max rel err against float64 plain autograd: kernels {err} "
+        f"({top}), plain float32 twins {err_plain} ({top_plain}); kernels "
+        f"against plain float32 {err_pair}; second-order part of the "
+        f"gradient {second_share}")
+    if not err <= max(GRAD_TOL, GRAD_FACTOR * err_plain):
+        raise AssertionError(f"second-order gradient through the kernels is "
+                             f"{err} from float64, the twins' {err_plain}")
+    if not second_share > 10 * err:
+        raise AssertionError(f"second-order part {second_share} is not "
+                             f"above the error {err}: the check is blind")
+    return err, err_plain, err_pair, second_share
+
+
 def profile_steps(trainer, steps=8):
     """torch.profiler over a few training steps: top kernels, busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     cfg = trainer.config
+    tag = cfg.method
     for _ in range(2):
         trainer.train_step(trainer.sampler.sample(cfg.tasks_per_batch,
                                                   trainer.generator),
@@ -282,17 +546,17 @@ def profile_steps(trainer, steps=8):
                              for e in kernels):
         busy_us += max(0.0, end - max(start, last_end))
         last_end = max(last_end, end)
-    log(f"profile: {steps} steps, {wall_us / steps} us/step wall, device "
-        f"busy {busy_us / steps} us/step = {busy_us / wall_us} of the wall "
-        f"time ({len(kernels) / steps} kernels/step)")
+    log(f"profile {tag}: {steps} steps, {wall_us / steps} us/step wall, "
+        f"device busy {busy_us / steps} us/step = {busy_us / wall_us} of the "
+        f"wall time ({len(kernels) / steps} kernels/step)")
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        log(f"profile: {us / steps:10.3f} us/step  {name[:110]}")
+        log(f"profile {tag}: {us / steps:10.3f} us/step  {name[:110]}")
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     prof.export_chrome_trace(os.path.join(HERE, "results",
-                                          "train_step_trace.json"))
+                                          f"train_step_trace_{tag}.json"))
 
 
 def main(argv):
@@ -304,6 +568,9 @@ def main(argv):
     sys.path.insert(0, HERE)
     from wmfml_tpu_torch.configs import Config
     from wmfml_tpu_torch.kernels import build
+    from wmfml_tpu_torch.kernels.favor import favor_attention
+    from wmfml_tpu_torch.kernels.features import maml_features
+    from wmfml_tpu_torch.kernels.stem import literature_stem
     from wmfml_tpu_torch.models.registry import build_model
 
     torch.backends.cudnn.allow_tf32 = False
@@ -321,24 +588,45 @@ def main(argv):
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
 
-    model = build_model(Config(MAIN_YAML, TRAIN_OVERRIDES,
-                               make_dirs=False)).cuda()
+    anp = build_model(Config(MAIN_YAML, TRAIN_OVERRIDES,
+                             make_dirs=False)).cuda()
+    maml = build_model(Config(MAML_YAML, MAML_OVERRIDES,
+                              make_dirs=False)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_stem(model, gen), check_favor(model, gen)]
+    rows = [check_stem(anp, gen), check_favor(anp, gen),
+            check_stem_per_task(maml, gen), check_features(maml, gen)]
     for r in rows:
-        log(f"kernel: {r['name']}: max abs err {r['max_abs_err']}, max rel "
-            f"err {r['max_rel_err']} (atol, rtol {TOL[r['name']]}); "
-            f"{r['ms']} ms, plain "
-            f"{r['plain_ms']} ms, library {r['library_ms']} ms, bound "
-            f"{r['bound_ms']} ms by {r['bound_by']}")
+        extra = ""
+        if "ms_unmasked" in r:
+            extra = (f"; unmasked: max abs err {r['max_abs_err_unmasked']}, "
+                     f"{r['ms_unmasked']} ms, plain "
+                     f"{r['plain_ms_unmasked']} ms")
+        log(f"kernel: {r['name']} ({r['shape']}): max abs err "
+            f"{r['max_abs_err']}, max rel err {r['max_rel_err']} (atol, rtol "
+            f"{TOL[r['name']]}); {r['ms']} ms, plain {r['plain_ms']} ms, "
+            f"library {r['library_ms']} ms, bound {r['bound_ms']} ms by "
+            f"{r['bound_by']}{extra}")
 
-    trainer, launches = train_phase(card)
+    trainer, anp_launches = train_phase(
+        card, MAIN_YAML, TRAIN_OVERRIDES,
+        {"literature_stem": literature_stem,
+         "favor_attention": favor_attention})
     check_trained_output(trainer)
     if "--profile" in argv:
         profile_steps(trainer)
 
+    mtrainer, maml_launches = train_phase(
+        card, MAML_YAML, MAML_OVERRIDES,
+        {"literature_stem": literature_stem, "maml_features": maml_features})
+    check_maml_launches(mtrainer, maml_launches)
+    check_maml_validation(mtrainer)
+    check_second_order_grad(mtrainer, gen)
+    if "--profile" in argv:
+        profile_steps(mtrainer, steps=4)
+
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = (maml_launches if r["path"] == "MAML"
+                         else anp_launches)[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,14 @@ CPU-only run. On a machine with a card:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q -m cuda
 
 Tolerance: elementwise |kernel - plain| <= atol + rtol * |plain|, the same
-as ``chip_smoke.py``: both sides are float32 sums in another order.
+as ``chip_smoke.py``: both sides are float32 sums in another order. Second
+derivatives compare per tensor, max |difference| <= 1e-3 max |plain|.
 """
 
 import pytest
 import torch
 
-from wmfml_tpu_torch.kernels import favor, stem
+from wmfml_tpu_torch.kernels import favor, features, stem
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +71,66 @@ def test_favor_kernel_matches_plain(dev, t, h, n, d, m):
     mask[0] = False                         # an empty task: NaN on both sides
     _close(favor.favor_launch(q, k, v, proj, mask),
            favor.favor_plain(q, k, v, proj, mask), 1e-5, 1e-4)
+
+
+@pytest.mark.parametrize("t,n", [(2, 2), (10, 15)])
+def test_per_task_stem_kernel_matches_plain(dev, t, n):
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.rand((t * n, 128, 128, 1), generator=g, device=dev)
+    ws = [scale * torch.randn((t, *shape), generator=g, device=dev)
+          for scale, shape in ((0.3, (32, 1, 3, 3)), (0.1, (32,)),
+                               (0.06, (48, 32, 3, 3)), (0.1, (48,)))]
+    want = torch.cat([stem.stem_plain(x[i * n:(i + 1) * n],
+                                      *(w[i] for w in ws)) for i in range(t)])
+    _close(stem.stem_launch(x, *ws), want, 1e-4, 1e-4)
+
+
+def _features_inputs(dev, t, n, s, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.relu(torch.randn((t, n, s, s, 64), generator=g, device=dev))
+    w = 0.04 * torch.randn((t, 3, 64, 64, 3, 3), generator=g, device=dev)
+    b = 0.1 * torch.randn((t, 3, 64), generator=g, device=dev)
+    scale = 1.0 + 0.1 * torch.randn((3, 64), generator=g, device=dev)
+    shift = 0.1 * torch.randn((3, 64), generator=g, device=dev)
+    shots = torch.randint(1, n + 1, (t, 1), generator=g, device=dev)
+    mask = torch.arange(n, device=dev)[None] < shots
+    return x, w, b, scale, shift, mask
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("t,n,s", [(2, 3, 6), (3, 4, 13), (10, 15, 14)])
+def test_features_kernel_matches_plain(dev, t, n, s, masked):
+    *args, mask = _features_inputs(dev, t, n, s)
+    mask = mask if masked else None
+    _close(features.features_launch(*args, mask),
+           features.features_plain(*args, mask), 1e-4, 1e-4)
+
+
+def test_kernel_functions_count_launches_and_differentiate_twice(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x, w, b, scale, shift, mask = _features_inputs(dev, 2, 3, 14, seed=1)
+    sw = [(0.1 * torch.randn(s, generator=g, device=dev)).requires_grad_(True)
+          for s in ((2, 32, 1, 3, 3), (2, 32), (2, 48, 32, 3, 3), (2, 48))]
+    img = torch.rand((6, 32, 32, 1), generator=g, device=dev)
+    # fixed random read-outs, so no gradient cancels to noise (a sum of
+    # squares of batch-normed outputs barely depends on their input); the
+    # conv bias b feeds the batch norm, which removes it: not compared
+    r_feat = torch.randn(x.shape, generator=g, device=dev)
+    r_stem = torch.randn((6, 4, 4, 48), generator=g, device=dev)
+    params = [a.requires_grad_(True) for a in (x, w, scale, shift)]
+
+    def second_order(stem_fn, features_fn):
+        y = (features_fn(x, w, b, scale, shift, mask) * r_feat).sum()
+        y = y + (stem_fn(img, *sw) * r_stem).sum()
+        gs = torch.autograd.grad(y, params + sw, create_graph=True)
+        return torch.autograd.grad(sum(g.square().sum() for g in gs),
+                                   params + sw)
+
+    before = (stem.literature_stem.launches, features.maml_features.launches)
+    got = second_order(stem.literature_stem, features.maml_features)
+    assert (stem.literature_stem.launches,
+            features.maml_features.launches) == (before[0] + 1, before[1] + 1)
+    want = second_order(stem.stem_plain, features.features_plain)
+    torch.cuda.synchronize()
+    for a, b_ in zip(got, want):     # float32 second derivatives, per tensor
+        assert float((a - b_).abs().max()) <= 1e-3 * float(b_.abs().max())

@@ -1,11 +1,17 @@
 """Port modules that hold a kernel, against the JAX package on the CPU.
 
 K1, the fused stem (``kernels/stem.py``), against the JAX
-``LiteratureEncoder`` on both of its stem lowerings; K2, the masked FAVOR+
-core (``kernels/favor.py``), against ``favor_attention`` and the multi-head
+``LiteratureEncoder`` on both of its stem lowerings, and its per-task form
+against the shared one task by task; K2, the masked FAVOR+ core
+(``kernels/favor.py``), against ``favor_attention`` and the multi-head
 block. On the CPU each wrapper runs its plain PyTorch twin, which is what
 these tests check; the kernels themselves are held against the same twins on
-the card (``test_torch_port_cuda.py``, ``chip_smoke.py``).
+the card (``test_torch_port_cuda.py``, ``chip_smoke.py``). K3's twin is held
+against JAX in ``test_torch_port_maml.py``.
+
+The K1 and K3 ``autograd.Function``s run here with the kernel launch swapped
+for the plain twin, in float64, through ``gradgradcheck``: second-order MAML
+differentiates their backward again.
 """
 
 import jax
@@ -23,6 +29,7 @@ from wmfml_tpu.nn.encoders import LiteratureEncoder as JaxEncoder
 from wmfml_tpu_torch.ckpt.jax_params import (attention_state_dict,
                                              encoder_state_dict)
 from wmfml_tpu_torch.kernels import favor as kfavor
+from wmfml_tpu_torch.kernels import features as kfeatures
 from wmfml_tpu_torch.kernels import stem as kstem
 from wmfml_tpu_torch.nn.attention import MultiheadFavorCrossAttention
 from wmfml_tpu_torch.nn.encoders import LiteratureEncoder
@@ -58,6 +65,50 @@ def test_stem_gradient_reaches_weights_only():
     assert tuple(y.shape) == (2, 2, 2, 48)
     y.sum().backward()
     assert x.grad is None and enc[0].weight.grad is not None
+
+
+def _stem_weights(lead, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [(scale * torch.randn(*lead, *shape, dtype=dtype, generator=g))
+            for scale, shape in ((0.3, (32, 1, 3, 3)), (0.1, (32,)),
+                                 (0.06, (48, 32, 3, 3)), (0.1, (48,)))]
+
+
+def test_per_task_stem_is_the_shared_stem_task_by_task():
+    x = torch.rand(6, 16, 16, 1, generator=torch.Generator().manual_seed(1))
+    ws = _stem_weights((3,), torch.float32)
+    got = kstem.stem_plain(x, *ws)
+    want = torch.cat([kstem.stem_plain(x[2 * i:2 * i + 2],
+                                       *(w[i] for w in ws)) for i in range(3)])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["shared", "per_task"])
+def test_stem_function_is_twice_differentiable(monkeypatch, lead):
+    monkeypatch.setattr(kstem, "stem_launch", kstem.stem_plain)
+    x = torch.rand(4, 16, 16, 1, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(2))
+    ws = [w.requires_grad_(True) for w in _stem_weights(lead, torch.float64)]
+    fn = lambda *w: kstem._FusedStem.apply(x, *w)       # noqa: E731
+    assert torch.autograd.gradcheck(fn, ws, fast_mode=True)
+    assert torch.autograd.gradgradcheck(fn, ws, fast_mode=True)
+
+
+def test_features_function_is_twice_differentiable(monkeypatch):
+    monkeypatch.setattr(kfeatures, "features_launch", kfeatures.features_plain)
+    g = torch.Generator().manual_seed(3)
+    t_, n, hw, c, layers = 2, 3, 4, 4, 3
+    f64 = dict(dtype=torch.float64, generator=g)
+    inputs = [torch.randn(t_, n, hw, hw, c, **f64),
+              0.3 * torch.randn(t_, layers, c, c, 3, 3, **f64),
+              0.1 * torch.randn(t_, layers, c, **f64),
+              1.0 + 0.1 * torch.randn(layers, c, **f64),
+              0.1 * torch.randn(layers, c, **f64)]
+    inputs = [a.requires_grad_(True) for a in inputs]
+    mask = torch.tensor([[True, True, True], [True, True, False]])
+    fn = lambda *a: kfeatures._Features.apply(*a, mask)  # noqa: E731
+    assert torch.autograd.gradcheck(fn, inputs, fast_mode=True)
+    assert torch.autograd.gradgradcheck(fn, inputs, fast_mode=True)
 
 
 # -- K2: FAVOR+ core ---------------------------------------------------------
@@ -174,3 +225,8 @@ def test_launchers_refuse_cpu_tensors():
     q, k, v = (t(a) for a in _qkv(0))
     with pytest.raises(TypeError):
         kfavor.favor_launch(q, k, v, t(_projection()))
+    with pytest.raises(TypeError):
+        kfeatures.features_launch(torch.rand(2, 3, 4, 4, 64),
+                                  torch.rand(2, 3, 64, 64, 3, 3),
+                                  torch.rand(2, 3, 64), torch.rand(3, 64),
+                                  torch.rand(3, 64))

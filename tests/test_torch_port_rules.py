@@ -92,13 +92,50 @@ def test_image_data_augmentation_raises():
 
 @pytest.mark.parametrize("override,error", [
     ("compute_dtype=bfloat16", NotImplementedError),
-    ("method=MAMLShapeNet1D", NotImplementedError),
+    ("method=MAMLMRShapeNet1D", NotImplementedError),
+    ("method=MMAMLShapeNet1D", NotImplementedError),
     ("method=NoSuchMethod", NameError),
     ("agg_mode=max", TypeError),
 ])
 def test_unported_options_raise(override, error):
     with pytest.raises(error):
         build_model(_config("device=cpu", override))
+
+
+@pytest.mark.parametrize("method,item", [
+    ("MAMLMR", "A13"), ("MAMLMRShapeNet1D", "A13"), ("ANPMR", "A13"),
+    ("MMAMLShapeNet1D", "A16"), ("ANP", "A12"), ("SingleTaskShapeNet1D", "A14"),
+])
+def test_unported_methods_name_their_roadmap_item(method, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        build_model(_config("device=cpu", f"method={method}"))
+
+
+def test_unported_maml_options_raise(tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError, match="A19"):
+        _config("device=cpu", "maml_remat=step")
+    monkeypatch.chdir(tmp_path)
+    cfg = _config("device=cpu", "method=MMAMLShapeNet1D")
+    with pytest.raises(NotImplementedError, match="A16"):
+        train_cli.build_trainer(cfg)
+    assert not os.listdir(tmp_path)          # raised before touching data
+
+
+def test_maml_yaml_builds_a_second_order_cuda_trainer_config(monkeypatch,
+                                                            tmp_path):
+    yaml = os.path.join(REPO, "cfg", "train", "MAML_DA_ShapeNet1D.yaml")
+    cfg = Config(yaml, ["aug_list=[]"], make_dirs=False)
+    assert cfg.device == "cuda" and cfg.first_order is False
+    assert (cfg.num_steps, cfg.test_num_steps, cfg.dim_hidden) == (5, 20, 64)
+    model = build_model(Config(yaml, ["aug_list=[]", "device=cpu"],
+                               make_dirs=False))
+    assert type(model).__name__ == "MAMLRegressor" and model.side == 14
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.build_trainer(Config(yaml, ["aug_list=[]",
+                                              f"data_path={tmp_path}"]))
+    assert os.listdir(tmp_path) == ["results"]     # the run dir, no data
 
 
 def test_unported_task_raises(tmp_path):

@@ -1,9 +1,11 @@
 """Carry JAX package weights into the port: the inverse of
-``wmfml_tpu/ckpt/torch_import.py:import_small_cnp``.
+``wmfml_tpu/ckpt/torch_import.py:import_small_cnp`` and ``import_maml``.
 
 ``load_jax_variables(model, variables)`` takes a SmallCNP's JAX variables
-``{"params": ..., ["favor": ...]}`` as nested dicts of numpy arrays and
-fills the port's ``SmallCNP`` in place. Layout rules:
+``{"params": ..., ["favor": ...]}`` or a MAMLRegressor's ``{"params": ...}``
+(``{"params": {"net": ..., "step_size": ...}}`` with learnable step sizes)
+as nested dicts of numpy arrays and fills the port's model in place. Layout
+rules:
 
   * conv kernels: flax HWIO -> torch OIHW;
   * dense kernels: flax [in, out] -> torch [out, in];
@@ -13,7 +15,12 @@ fills the port's ``SmallCNP`` in place. Layout rules:
     per-head ``_W_*.{i}.linear`` layers;
   * W_out's input axis is head-major in JAX (head * d + dim) and dim-major
     in the reference layout (dim * H + head);
-  * the FAVOR projection goes to the ``attn.projection_matrix`` buffer.
+  * the FAVOR projection goes to the ``attn.projection_matrix`` buffer;
+  * MAML: ``encoder_w/conv{0,1,2}`` -> ``encoder_w.layer{1,2,3}.conv``,
+    ``encoder_w/fc`` -> ``encoder_w.linear``, ``features_{i}_conv`` and
+    ``features_{i}_bn_{scale,bias}`` -> ``features.layer{i}.{conv,norm}``,
+    ``regressor`` -> ``regressor.regressor`` / ``regressor``; step sizes
+    keyed ``"encoder_w/conv0/kernel"`` go to ``step_size.<port name>``.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from wmfml_tpu_torch.models.maml import MAMLRegressor, step_size_key
 
 
 def _t(a) -> torch.Tensor:
@@ -45,6 +54,8 @@ def _dense_after_flatten(kernel, chw: Tuple[int, int, int]) -> torch.Tensor:
 
 def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
     """The port ``state_dict`` that ``variables`` describe for ``model``."""
+    if isinstance(model, MAMLRegressor):
+        return maml_state_dict(model, variables)
     p = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
 
@@ -81,6 +92,48 @@ def encoder_state_dict(params, chw: Tuple[int, int, int]) -> Dict[str, torch.Ten
         sd[f"{idx}.bias"] = _t(params[name]["bias"])
     sd["8.weight"] = _dense_after_flatten(params["fc"]["Dense_0"]["kernel"], chw)
     sd["8.bias"] = _t(params["fc"]["Dense_0"]["bias"])
+    return sd
+
+
+def _maml_layers(model):
+    """(port module, JAX path, kind) of each MAMLRegressor layer."""
+    layers = [(f"encoder_w.layer{i + 1}.conv", ("encoder_w", f"conv{i}"), "conv")
+              for i in range(3)]
+    layers.append(("encoder_w.linear", ("encoder_w", "fc", "Dense_0"), "fc"))
+    layers += [(f"features.layer{i}.conv", (f"features_{i}_conv",), "conv")
+               for i in range(1, 5)]
+    layers.append((model.reg_name, ("regressor", "Dense_0"), "dense"))
+    return layers
+
+
+def maml_state_dict(model, variables) -> Dict[str, torch.Tensor]:
+    """MAMLRegressor variables (``wmfml_tpu/models/maml.py``) -> the port
+    model's ``state_dict``."""
+    p = variables["params"]
+    net = p["net"] if "net" in p else p
+    chw = model.encoder_w.flatten_chw
+    kernels = {"conv": _conv, "dense": _dense,
+               "fc": lambda k: _dense_after_flatten(k, chw)}
+    sd: Dict[str, torch.Tensor] = {}
+    jax_names = {}
+    for prefix, path, kind in _maml_layers(model):
+        node = net
+        for key in path:
+            node = node[key]
+        sd[f"{prefix}.weight"] = kernels[kind](node["kernel"])
+        sd[f"{prefix}.bias"] = _t(node["bias"])
+        jax_names["/".join(path + ("kernel",))] = f"{prefix}.weight"
+        jax_names["/".join(path + ("bias",))] = f"{prefix}.bias"
+    for i in range(1, 5):
+        sd[f"features.layer{i}.norm.weight"] = _t(net[f"features_{i}_bn_scale"])
+        sd[f"features.layer{i}.norm.bias"] = _t(net[f"features_{i}_bn_bias"])
+    if "step_size" in p:
+        ss = p["step_size"]
+        if isinstance(ss, dict):
+            for key, value in ss.items():
+                sd[f"step_size.{step_size_key(jax_names[key])}"] = _t(value)
+        else:
+            sd["step_size"] = _t(ss)
     return sd
 
 

@@ -4,6 +4,12 @@ Usage::
 
     python -m wmfml_tpu_torch.cli.train_cli --config cfg/train/ANP_DA+TA_ShapeNet1D.yaml \
         aug_list='[task_aug]' [key=value ...]
+    python -m wmfml_tpu_torch.cli.train_cli --config cfg/train/MAML_DA_ShapeNet1D.yaml \
+        'aug_list=[]' [key=value ...]
+
+MAML methods train with ``MAMLTrainer`` (second-order inner loop), the
+others with ``ModelTrainer``; methods not ported yet (MMAML, MAMLMR, ...)
+raise in the registry, before any data is touched.
 
 Runs on ``cuda`` (the YAMLs' ``device: tpu`` maps there); ``device=cpu``
 runs on the CPU. Exits 1 on a non-finite loss.
@@ -18,13 +24,15 @@ from wmfml_tpu_torch.configs import Config
 from wmfml_tpu_torch.data.factory import build_data
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.obs.guards import NonFiniteLossError
+from wmfml_tpu_torch.train.maml import MAMLTrainer
 from wmfml_tpu_torch.train.steps import require_device
 from wmfml_tpu_torch.train.trainer import ModelTrainer
 
 
 def build_trainer(config: Config) -> ModelTrainer:
     require_device(config.device)        # before any data is generated
-    return ModelTrainer(build_model(config), config, build_data(config))
+    cls = MAMLTrainer if "MAML" in config.method else ModelTrainer
+    return cls(build_model(config), config, build_data(config))
 
 
 def train(config: Config) -> ModelTrainer:

@@ -10,6 +10,14 @@ Port-specific rules:
     ``cuda``, as do ``gpu`` and ``cuda``. Only ``device=cpu`` runs on the
     CPU, and only when the caller asks for it.
   * ``compute_dtype: bfloat16`` is not ported yet and raises.
+  * MAML keys as in the JAX package (``num_updates`` -> ``num_steps``,
+    ``test_num_updates`` -> ``test_num_steps``, ``num_filters`` ->
+    ``dim_hidden``). ``maml_remat`` takes only ``none`` (rematerialisation
+    is not ported). Accepted and ignored: ``maml_unroll``, an XLA scheduling
+    knob with no effect on results, and ``maml_pool_impl``, the JAX
+    package's pool lowering, whose forward is the same for every choice and
+    whose gradients differ only at ties, which sit at ReLU zeros where the
+    gradient is 0: the port always pools in K1.
 """
 
 from __future__ import annotations
@@ -101,6 +109,19 @@ class Config:
         self.dim_r = get("dim_r", None)
         self.dim_z = get("dim_z", None)
         self.beta = get("beta", 0)
+        # MAML family (wmfml_tpu/configs/config.py:126-140, 192)
+        self.num_steps = get("num_updates", None)
+        self.test_num_steps = get("test_num_updates", None)
+        self.dim_hidden = get("num_filters", None)
+        self.first_order = get("first_order", None)
+        self.update_lr = get("update_lr", None)
+        self.learn_step_size = get("learn_step_size", False)
+        self.per_param_step_size = get("per_param_step_size", False)
+        self.maml_remat = get("maml_remat", "none")
+        if self.maml_remat != "none":
+            raise NotImplementedError(
+                f"maml_remat={self.maml_remat!r}: only 'none' is ported "
+                "(ROADMAP.md A19)")
         self.lr = cfg["lr"]
         self.weight_decay = get("weight_decay", False)
         self.optimizer = get("optimizer", "Adam")

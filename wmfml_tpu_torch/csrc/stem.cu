@@ -14,8 +14,12 @@
 // f32 arithmetic on the CUDA cores (~0.14 ms at 67 TFLOP/s), not by bytes.
 //
 // Design: one block per (image, 4x4 tile of pool outputs), walked by a
-// persistent grid so each block stages the conv1 weights (55 KB) in shared
-// memory once. For its tile the block computes the 17x17x32 conv0 patch it
+// persistent grid; each block takes one contiguous run of tiles, so it
+// stages the conv1 weights (55 KB) in shared memory once when the weights
+// are shared, and again only when its run crosses into the next task when
+// they are per task (MAML's inner loop: image b uses task b / n_per_task;
+// a run of ~9 tiles crosses at most one task boundary at T=10, N=15).
+// For its tile the block computes the 17x17x32 conv0 patch it
 // needs into shared memory (in 2x2 phase layout, so conv1's stride-2 reads
 // hit consecutive banks), then 8x8x48 conv1 outputs (one pixel x 12 output
 // channels per thread; the weight reads are warp-wide broadcasts), then the
@@ -47,7 +51,7 @@ __global__ void __launch_bounds__(THREADS)
 stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
                 const float* __restrict__ b0, const float* __restrict__ w1,
                 const float* __restrict__ b1, float* __restrict__ out,
-                int B, int H, int W, int Ci) {
+                int B, int H, int W, int Ci, int n_per_task) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* w1s = smem;                    // [C0*9][C1]  (ci, kh, kw) major
@@ -59,27 +63,40 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   float* a1s = a0s;                     // [C1][T1][T1] after conv1
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < C0 * 9 * C1; i += THREADS) w1s[i] = w1[i];
-  for (int i = tid; i < Ci * 9 * C0; i += THREADS) w0s[i] = w0[i];
-  if (tid < C0) b0s[tid] = b0[tid];
-  if (tid < C1) b1s[tid] = b1[tid];
-
   const int H0 = H / 2, W0 = W / 2, Ho = H / 8, Wo = W / 8;
   const int tiles_y = (Ho + TP - 1) / TP, tiles_x = (Wo + TP - 1) / TP;
   const long long ntiles = (long long)B * tiles_y * tiles_x;
+  const long long per_block = (ntiles + gridDim.x - 1) / gridDim.x;
+  const long long first = (long long)blockIdx.x * per_block;
+  const long long last = first + per_block < ntiles ? first + per_block : ntiles;
 
   const int warp = tid >> 5, lane = tid & 31;
   const int cg = warp >> 1;                       // channel group 0..3
   const int pix = (warp & 1) * 32 + lane;         // conv1 pixel 0..63
   const int py = pix / T1, px = pix % T1;
 
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  int staged = -1;                                // task whose weights are in smem
+  for (long long tile = first; tile < last; ++tile) {
     const int b = (int)(tile / (tiles_y * tiles_x));
     const int rem = (int)(tile % (tiles_y * tiles_x));
     const int ty = rem / tiles_x, tx = rem % tiles_x;
     const int r1 = ty * T1, s1 = tx * T1;         // first conv1 row / col
     const int r0 = 2 * r1 - 1, s0 = 2 * s1 - 1;   // first conv0 row / col
     const int rx = 2 * r0 - 1, sx = 2 * s0 - 1;   // first input row / col
+
+    // (re)stage the task's weights; uniform over the block. The previous
+    // tile's last weight read (conv1) is behind the __syncthreads() that
+    // follows it, so no thread still reads the old weights.
+    const int task = b / n_per_task;
+    if (task != staged) {
+      const float* w1t = w1 + (size_t)task * C0 * 9 * C1;
+      const float* w0t = w0 + (size_t)task * Ci * 9 * C0;
+      for (int i = tid; i < C0 * 9 * C1; i += THREADS) w1s[i] = w1t[i];
+      for (int i = tid; i < Ci * 9 * C0; i += THREADS) w0s[i] = w0t[i];
+      if (tid < C0) b0s[tid] = b0[task * C0 + tid];
+      if (tid < C1) b1s[tid] = b1[task * C1 + tid];
+      staged = task;
+    }
 
     __syncthreads();  // weights staged; previous tile's pool reads done
     for (int i = tid; i < Ci * TX * TX; i += THREADS) {
@@ -167,18 +184,19 @@ extern "C" int wmfml_stem_smem_bytes(int ci) {
   return smem_floats(ci) * (int)sizeof(float);
 }
 
-// x [B,H,W,Ci]; w0 [Ci,3,3,32]; b0 [32]; w1 [32,3,3,48]; b1 [48];
-// out [B,H/8,W/8,48]. All contiguous f32 on the device. Returns the
-// cudaError_t of the launch.
+// x [B,H,W,Ci]; with T = B / n_per_task tasks: w0 [T,Ci,3,3,32];
+// b0 [T,32]; w1 [T,32,3,3,48]; b1 [T,48] (T = 1, n_per_task = B for
+// weights shared by the batch); out [B,H/8,W/8,48]. All contiguous f32 on
+// the device. Returns the cudaError_t of the launch.
 extern "C" int wmfml_stem_fwd(const float* x, const float* w0, const float* b0,
                               const float* w1, const float* b1, float* out,
-                              int B, int H, int W, int Ci, int grid,
-                              void* stream) {
+                              int B, int H, int W, int Ci, int n_per_task,
+                              int grid, void* stream) {
   const int smem = wmfml_stem_smem_bytes(Ci);
   cudaError_t err = cudaFuncSetAttribute(
       stem_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   stem_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, w0, b0, w1, b1, out, B, H, W, Ci);
+      x, w0, b0, w1, b1, out, B, H, W, Ci, n_per_task);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,166 @@
+"""K3: the MAML features block (layers 2-4 of ``MAMLRegressor``), per task.
+
+Replaces ``scripts/proto_maml_pallas_conv.py:96 features_block_pallas``:
+per task, L x {3x3 stride-1 same conv with per-task weights and bias,
+batch-statistics BN over the task's real context rows, shared scale/bias,
+ReLU}. ``csrc/features.cu`` says what bounds the kernel (f32 arithmetic)
+and why it runs one launch per layer where the TPU kernel held a whole task
+in fast memory.
+
+``masked_batch_norm`` is ``wmfml_tpu/models/maml.py:40`` with a task axis:
+one pass (E[x^2] - E[x]^2, summed in float32 or wider), var clamped at 0,
+denominator ``max(sum(mask) * H * W, 1)``, eps 1e-5.
+
+``maml_features`` is the wrapper the model calls. A CPU tensor takes the
+plain twin ``features_plain``; a CUDA tensor launches the kernel or raises.
+The JAX package has no backward kernel for this block, so the backward
+recomputes through the plain twin on the saved tensors with
+``create_graph=torch.is_grad_enabled()``: the inner loop's gradient is
+differentiable again, as second-order MAML needs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from wmfml_tpu_torch.kernels import build
+
+C = 64            # the kernel's channel count (num_filters of every shipped YAML)
+EPS = 1e-5
+MAX_TILE = 128    # pixels of one block's band: 32 lanes x 4
+
+
+def masked_batch_norm(x, mask: Optional[torch.Tensor], scale=None, bias=None,
+                      eps: float = EPS):
+    """BN over (N, H, W) of each task, counting only mask == True rows.
+
+    x [T, N, H, W, C]; mask [T, N] bool or None; scale/bias [C] or None."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    t, n, h, w, _ = x.shape
+    if mask is None:
+        denom = torch.tensor(float(n * h * w), dtype=acc, device=x.device)
+        s1 = x.sum((1, 2, 3), dtype=acc)
+        s2 = x.square().sum((1, 2, 3), dtype=acc)
+    else:
+        m = mask[:, :, None, None, None].to(x.dtype)
+        denom = (m.sum((1, 2, 3, 4), dtype=acc) * (h * w)).clamp_min(1.0)[:, None]
+        s1 = (x * m).sum((1, 2, 3), dtype=acc)
+        s2 = (x.square() * m).sum((1, 2, 3), dtype=acc)
+    mean = s1 / denom                                        # [T, C]
+    var = (s2 / denom - mean.square()).clamp_min(0.0)
+    shape = (t, 1, 1, 1, -1)
+    y = ((x - mean.to(x.dtype).reshape(shape))
+         * torch.rsqrt(var + eps).to(x.dtype).reshape(shape))
+    if scale is None:
+        return y
+    return y * scale + bias
+
+
+def features_plain(x, w, b, scale, bias, mask: Optional[torch.Tensor] = None):
+    """x [T, N, H, W, C] NHWC; w [T, L, C, C, 3, 3] (per task, OIHW per
+    layer); b [T, L, C]; scale, bias [L, C] shared; mask [T, N] bool or None.
+    Returns ReLU(BN(conv(...))) after L layers, [T, N, H, W, C]."""
+    t, n, h, wd, c = x.shape
+    for layer in range(w.shape[1]):
+        hh = x.permute(1, 0, 4, 2, 3).reshape(n, t * c, h, wd)
+        hh = F.conv2d(hh, w[:, layer].reshape(t * c, c, 3, 3),
+                      b[:, layer].reshape(-1), padding=1, groups=t)
+        x = hh.reshape(n, t, c, h, wd).permute(1, 0, 3, 4, 2)
+        x = F.relu(masked_batch_norm(x, mask, scale[layer], bias[layer]))
+    return x
+
+
+def tile_rows(h: int, w: int) -> int:
+    """Rows of one block's band: as even a split of the image as keeps a
+    band within ``MAX_TILE`` pixels (14x14 -> two bands of 7 rows)."""
+    bands = math.ceil(h * w / MAX_TILE)
+    while math.ceil(h / bands) * w > MAX_TILE:
+        bands += 1
+    return math.ceil(h / bands)
+
+
+def features_launch(x, w, b, scale, bias, mask: Optional[torch.Tensor] = None):
+    """Run the CUDA kernels once (no autograd, no launch count)."""
+    tensors = (x, w, b, scale, bias)
+    if any(a.device.type != "cuda" or a.dtype != torch.float32
+           for a in tensors):
+        raise TypeError("features kernel takes float32 CUDA tensors only")
+    if x.dim() != 5 or x.shape[-1] != C:
+        raise ValueError(f"features kernel takes x [T, N, H, W, {C}]; "
+                         f"got {tuple(x.shape)}")
+    t, n, h, wd, _ = x.shape
+    layers = w.shape[1] if w.dim() == 6 else 0
+    if (layers < 1 or tuple(w.shape) != (t, layers, C, C, 3, 3)
+            or tuple(b.shape) != (t, layers, C)
+            or tuple(scale.shape) != (layers, C)
+            or tuple(bias.shape) != (layers, C)):
+        raise ValueError(f"features kernel weights must be [T, L, {C}, {C}, 3, 3] "
+                         f"with biases [T, L, {C}] and BN scale/bias [L, {C}]; "
+                         f"got {tuple(w.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(scale.shape)}, {tuple(bias.shape)}")
+    if wd > MAX_TILE:
+        raise ValueError(f"features kernel needs W <= {MAX_TILE}; got {wd}")
+    if mask is not None and (tuple(mask.shape) != (t, n)
+                             or mask.device != x.device):
+        raise ValueError(f"features mask must be [T, N] = {(t, n)} on the "
+                         f"same device; got {tuple(mask.shape)}")
+    lib = build.load("features")
+    rows = tile_rows(h, wd)
+    x = x.contiguous()
+    # [T, L, Ci, 3, 3, Co]; the permutation always copies into a fresh,
+    # aligned buffer (the kernel reads the weights as float4)
+    wk = w.permute(0, 1, 3, 4, 5, 2).contiguous()
+    b, scale, bias = b.contiguous(), scale.contiguous(), bias.contiguous()
+    mask_u8 = None if mask is None else mask.to(torch.uint8).contiguous()
+    y0 = torch.empty_like(x)
+    y1 = torch.empty_like(x) if layers > 1 else y0
+    part = torch.empty((layers, t, n * math.ceil(h / rows), 2, C),
+                       device=x.device, dtype=torch.float32)
+    out = torch.empty_like(x)
+    fn = lib.wmfml_features_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), scale.data_ptr(),
+             bias.data_ptr(), None if mask_u8 is None else mask_u8.data_ptr(),
+             y0.data_ptr(), y1.data_ptr(), part.data_ptr(), out.data_ptr(),
+             t, n, h, wd, layers, rows, EPS,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"features kernel launch failed: cudaError {err}")
+    return out
+
+
+class _Features(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, scale, bias, mask):
+        ctx.save_for_backward(x, w, b, scale, bias, mask)
+        out = features_launch(x, w, b, scale, bias, mask)
+        maml_features.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        wanted = [a for a, n in zip(inputs, need) if n]
+        with torch.enable_grad():
+            y = features_plain(*inputs, mask)
+        grads = iter(torch.autograd.grad(
+            y, wanted, g, create_graph=torch.is_grad_enabled()))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def maml_features(x, w, b, scale, bias, mask: Optional[torch.Tensor] = None):
+    """The features block; shapes as in ``features_plain``."""
+    if x.device.type == "cpu":
+        return features_plain(x, w, b, scale, bias, mask)
+    return _Features.apply(x, w, b, scale, bias, mask)
+
+
+maml_features.launches = 0

@@ -1,17 +1,25 @@
 """K1: the fused literature stem (conv0 + ReLU + conv1 + ReLU + 2x2 max pool).
 
 Replaces ``wmfml_tpu/nn/encoders.py:_s2d_stem`` (+ ``_s2d``) and the
-``max_pool2(..., "window")`` that follows it in ``LiteratureEncoder``. The
-CUDA source, ``csrc/stem.cu``, says what bounds the kernel and how its
-design answers that; in short it keeps the [B, H/2, W/2, 32] conv0 map in
-shared memory and is bound by f32 arithmetic.
+``max_pool2`` that follows it in ``LiteratureEncoder``. The CUDA source,
+``csrc/stem.cu``, says what bounds the kernel and how its design answers
+that; in short it keeps the [B, H/2, W/2, 32] conv0 map in shared memory and
+is bound by f32 arithmetic.
 
-``literature_stem`` is the wrapper the encoder calls. A CPU tensor takes the
+Weights are shared by the whole batch (conv0 [32, Ci, 3, 3], the CNP/ANP
+encoder) or per task (conv0 [T, 32, Ci, 3, 3], the MAML inner loop): image
+``b`` then uses task ``b // (B / T)``'s weights.
+
+``literature_stem`` is the wrapper the encoders call. A CPU tensor takes the
 plain PyTorch twin ``stem_plain``; a CUDA tensor launches the kernel or
 raises. The JAX package has no backward kernel for the stem (plain
-autodiff), so the backward recomputes through the plain twin and returns
-gradients for the weights only: images are leaves. ``F.max_pool2d`` routes a
-pool gradient to the first maximum in raster order, as ``window`` does.
+autodiff), so the backward recomputes through the plain twin on the saved
+tensors themselves and returns gradients for the weights only (images are
+leaves). Under ``create_graph`` that recomputation is recorded, so the
+gradient is differentiable again, as second-order MAML needs.
+``F.max_pool2d`` routes a pool gradient to the first maximum in raster
+order; JAX's ``slice`` pool routes ties elsewhere, but ties sit at ReLU
+zeros, where the gradient is 0 either way.
 """
 
 from __future__ import annotations
@@ -27,12 +35,24 @@ C0, C1 = 32, 48
 
 
 def stem_plain(x, w0, b0, w1, b1):
-    """x [B, H, W, Ci]; w0 [32, Ci, 3, 3]; w1 [48, 32, 3, 3] (torch OIHW).
-    Returns [B, H/8, W/8, 48] (NHWC, like the JAX stem + pool)."""
-    h = x.permute(0, 3, 1, 2)
-    h = F.relu(F.conv2d(h, w0, b0, stride=2, padding=1))
-    h = F.relu(F.conv2d(h, w1, b1, stride=2, padding=1))
-    return F.max_pool2d(h, 2).permute(0, 2, 3, 1)
+    """x [B, H, W, Ci]; w0 [32, Ci, 3, 3] or [T, 32, Ci, 3, 3] per task
+    (torch OIHW), likewise b0, w1 [(T,) 48, 32, 3, 3], b1. Returns
+    [B, H/8, W/8, 48] (NHWC, like the JAX stem + pool)."""
+    if w0.dim() == 4:                     # shared: the one-task case
+        w0, b0, w1, b1 = (w.unsqueeze(0) for w in (w0, b0, w1, b1))
+    # the tasks side by side on the channel axis, grouped convolutions
+    t = w0.shape[0]
+    b, hh, ww, ci = x.shape
+    n = b // t
+    h = x.reshape(t, n, hh, ww, ci).permute(1, 0, 4, 2, 3).reshape(
+        n, t * ci, hh, ww)
+    h = F.relu(F.conv2d(h, w0.reshape(t * C0, ci, 3, 3), b0.reshape(-1),
+                        stride=2, padding=1, groups=t))
+    h = F.relu(F.conv2d(h, w1.reshape(t * C1, C0, 3, 3), b1.reshape(-1),
+                        stride=2, padding=1, groups=t))
+    h = F.max_pool2d(h, 2)
+    return h.reshape(n, t, C1, hh // 8, ww // 8).permute(1, 0, 3, 4, 2).reshape(
+        b, hh // 8, ww // 8, C1)
 
 
 def _check(x, w0, b0, w1, b1):
@@ -44,10 +64,16 @@ def _check(x, w0, b0, w1, b1):
         raise ValueError(f"fused stem needs [B, H, W, C] with H, W % 8 == 0; "
                          f"got {tuple(x.shape)}")
     ci = x.shape[3]
-    if (tuple(w0.shape) != (C0, ci, 3, 3) or tuple(b0.shape) != (C0,)
-            or tuple(w1.shape) != (C1, C0, 3, 3) or tuple(b1.shape) != (C1,)):
-        raise ValueError("fused stem weights must be conv0 [32, Ci, 3, 3] and "
-                         "conv1 [48, 32, 3, 3] with matching biases")
+    lead = tuple(w0.shape[:1]) if w0.dim() == 5 else ()   # (T,) per task
+    if (tuple(w0.shape) != (*lead, C0, ci, 3, 3)
+            or tuple(b0.shape) != (*lead, C0)
+            or tuple(w1.shape) != (*lead, C1, C0, 3, 3)
+            or tuple(b1.shape) != (*lead, C1)):
+        raise ValueError("fused stem weights must be conv0 [(T,) 32, Ci, 3, 3] "
+                         "and conv1 [(T,) 48, 32, 3, 3] with matching biases")
+    if lead and x.shape[0] % lead[0]:
+        raise ValueError(f"{x.shape[0]} images do not split into {lead[0]} "
+                         "tasks")
 
 
 def stem_launch(x, w0, b0, w1, b1):
@@ -56,8 +82,9 @@ def stem_launch(x, w0, b0, w1, b1):
     lib = build.load("stem")
     x = x.contiguous()
     b, h, w, ci = x.shape
-    w0k = w0.permute(1, 2, 3, 0).contiguous()           # [Ci, 3, 3, 32]
-    w1k = w1.permute(1, 2, 3, 0).contiguous()           # [32, 3, 3, 48]
+    tasks = w0.shape[0] if w0.dim() == 5 else 1
+    w0k = w0.reshape(tasks, C0, ci, 3, 3).permute(0, 2, 3, 4, 1).contiguous()
+    w1k = w1.reshape(tasks, C1, C0, 3, 3).permute(0, 2, 3, 4, 1).contiguous()
     b0c, b1c = b0.contiguous(), b1.contiguous()
     out = torch.empty((b, h // 8, w // 8, C1), device=x.device,
                       dtype=torch.float32)
@@ -65,10 +92,10 @@ def stem_launch(x, w0, b0, w1, b1):
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = max(1, min(tiles, 2 * sms))
     fn = lib.wmfml_stem_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), w0k.data_ptr(), b0c.data_ptr(), w1k.data_ptr(),
-             b1c.data_ptr(), out.data_ptr(), b, h, w, ci, grid,
+             b1c.data_ptr(), out.data_ptr(), b, h, w, ci, b // tasks, grid,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused stem launch failed: cudaError {err}")
@@ -86,14 +113,18 @@ class _FusedStem(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, *weights = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        wanted = [w for w, n in zip(weights, need) if n]
         with torch.enable_grad():
-            ws = [t.detach().requires_grad_(True) for t in weights]
-            y = stem_plain(x.detach(), *ws)
-        return (None, *torch.autograd.grad(y, ws, g))
+            y = stem_plain(x, *weights)
+        grads = iter(torch.autograd.grad(
+            y, wanted, g, create_graph=torch.is_grad_enabled()))
+        return (None, *(next(grads) if n else None for n in need))
 
 
 def literature_stem(x, w0, b0, w1, b1):
-    """conv0 (s2) + ReLU + conv1 (s2) + ReLU + 2x2 max pool, NHWC in/out."""
+    """conv0 (s2) + ReLU + conv1 (s2) + ReLU + 2x2 max pool, NHWC in/out;
+    weights shared or per task, as in ``stem_plain``."""
     if x.device.type == "cpu":
         return stem_plain(x, w0, b0, w1, b1)
     return _FusedStem.apply(x, w0, b0, w1, b1)

@@ -1,7 +1,8 @@
 """Model registry: reference method names -> port modules.
 
 The four literature-encoder methods of ``wmfml_tpu/models/registry.py:60-81``
-are ported; every other method raises and names the ROADMAP item.
+and MAMLShapeNet1D / VanillaMAML (``:182-192``) are ported; every other
+method raises and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from wmfml_tpu_torch.models.maml import MAMLRegressor
 from wmfml_tpu_torch.models.neural_process import SmallCNP
 
 _REGISTRY: Dict[str, Callable] = {}
@@ -19,8 +21,7 @@ NOT_PORTED = {
     "ANPDistractor": "A12", "CNPMR": "A13", "CNPMRShapeNet1D": "A13",
     "ANPMR": "A13", "ANPMRShapeNet1D": "A13", "ANPMRShapeNet3D": "A13",
     "FCLCNPShapeNet1D": "A13", "FCLCNPDistractor": "A13", "FCLANP": "A13",
-    "MAMLShapeNet1D": "A15", "VanillaMAML": "A15", "MAMLMR": "A15",
-    "MAMLMRShapeNet1D": "A15", "MMAMLShapeNet1D": "A16",
+    "MAMLMR": "A13", "MAMLMRShapeNet1D": "A13", "MMAMLShapeNet1D": "A16",
     "SingleTaskShapeNet1D": "A14", "SingleTaskShapeNet3D": "A14",
     "SingleTaskDistractor": "A14",
 }
@@ -86,3 +87,23 @@ def _(config, generator):
 def _(config, generator):
     _attention_only(config)
     return _small(config, "attention", False, generator)
+
+
+def _maml(config, tanh_out, generator):
+    return MAMLRegressor(
+        dim_w=config.dim_w, dim_hidden=config.dim_hidden or 64,
+        output_dim=config.output_dim, tanh_out=tanh_out,
+        img_size=config.img_size,
+        learn_step_size=bool(config.learn_step_size),
+        per_param_step_size=bool(config.per_param_step_size),
+        update_lr=float(config.update_lr or 0.0), generator=generator)
+
+
+@register("MAMLShapeNet1D")
+def _(config, generator):
+    return _maml(config, True, generator)
+
+
+@register("VanillaMAML")
+def _(config, generator):
+    return _maml(config, False, generator)

@@ -8,11 +8,18 @@ reference's ``nn.Sequential``, so its ``state_dict`` keys are
 stem) through the fused kernel ``kernels/stem.py`` (K1) and the rest on
 cuDNN/cuBLAS. Input is channel-last [B, H, W, C] like the JAX package's;
 the flatten is CHW like the reference's.
+
+``PerTaskLiteratureEncoder`` is the same stack as MAML's encoder: the
+reference's torchmeta keys (``layer{1,2,3}.conv``, ``linear``) and a
+forward over per-task weights [T, ...] and images [T, N, H, W, C], as the
+JAX package's ``vmap`` over tasks computes it. The stem runs through K1
+with per-task weights, conv2 is a grouped convolution (``groups=T``), the fc
+a batched matrix product.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -40,3 +47,45 @@ class LiteratureEncoder(nn.Sequential):
                             conv1.bias)                       # [B, H/8, W/8, 48]
         h = F.relu(conv2(h.permute(0, 3, 1, 2)))              # [B, 64, H/16, W/16]
         return fc(h.flatten(1))
+
+
+class _Conv(nn.Module):
+    """torchmeta's ``layer{i}`` block: a ``conv`` child."""
+
+    def __init__(self, conv: nn.Conv2d):
+        super().__init__()
+        self.conv = conv
+
+
+class PerTaskLiteratureEncoder(nn.Module):
+    def __init__(self, dim_w: int, img_size: Sequence[int]):
+        super().__init__()
+        h, w, c = img_size
+        if h % 16 or w % 16:
+            raise ValueError(f"literature encoder needs H, W % 16 == 0; "
+                             f"got {h}x{w}")
+        self.layer1 = _Conv(nn.Conv2d(c, 32, 3, 2, 1))
+        self.layer2 = _Conv(nn.Conv2d(32, 48, 3, 2, 1))
+        self.layer3 = _Conv(nn.Conv2d(48, 64, 3, 2, 1))
+        self.linear = nn.Linear(64 * (h // 16) * (w // 16), dim_w)
+        self.flatten_chw = (64, h // 16, w // 16)   # what the fc consumes
+
+    def forward(self, x: torch.Tensor,
+                params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """x [T, N, H, W, C]; ``params`` maps each parameter name to its
+        per-task value [T, ...]. Returns [T, N, dim_w]."""
+        t, n = x.shape[:2]
+        h = literature_stem(x.flatten(0, 1), params["layer1.conv.weight"],
+                            params["layer1.conv.bias"],
+                            params["layer2.conv.weight"],
+                            params["layer2.conv.bias"])       # [T*N, h, w, 48]
+        _, h8, w8, c1 = h.shape
+        h = h.reshape(t, n, h8, w8, c1).permute(1, 0, 4, 2, 3).reshape(
+            n, t * c1, h8, w8)
+        w2 = params["layer3.conv.weight"]
+        h = F.relu(F.conv2d(h, w2.flatten(0, 1),
+                            params["layer3.conv.bias"].flatten(), stride=2,
+                            padding=1, groups=t))             # [N, T*64, h/2, w/2]
+        h = h.reshape(n, t, -1).transpose(0, 1)               # CHW flatten
+        return torch.baddbmm(params["linear.bias"][:, None, :], h,
+                             params["linear.weight"].transpose(1, 2))

@@ -1,0 +1,136 @@
+"""MAML meta-training (``wmfml_tpu/train/maml.py``).
+
+The JAX package ``vmap``s one task's inner loop and ``lax.scan``s its SGD
+steps; here the tasks sit side by side on a written-out axis and the steps
+are a Python loop:
+
+  * every adapted parameter gets a per-task copy [T, ...]; each inner step
+    takes ``torch.autograd.grad`` of the SUM of the per-task inner losses
+    with respect to those copies, which gives each task exactly its own
+    gradient (as ``vmap(grad)`` does; a mean would scale it by 1/T);
+  * second order by default: the inner gradient is taken with
+    ``create_graph=True`` and the outer backward goes through it;
+    ``first_order`` takes it without a graph (FOMAML);
+  * step sizes: ``update_lr``, or the model's learnable ``step_size``
+    (one scalar, or one per adapted parameter) when ``learn_step_size``;
+  * outer loss = mean over tasks of (query loss + beta * kl), kl = 0 here
+    (no Bayes-by-Backprop encoder); the query loss is taken in float32;
+  * validation adapts with ``test_num_steps`` steps, so it needs autograd
+    (without a graph of the gradient), and reports the degree metric.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from wmfml_tpu_torch.aug.pipeline import build_episode_processor
+from wmfml_tpu_torch.losses.losses import LossFunc
+from wmfml_tpu_torch.models.maml import step_size_key
+from wmfml_tpu_torch.train.trainer import ModelTrainer
+
+
+def task_losses(loss_func: LossFunc, out, y, test: bool = False, mask=None):
+    """The loss of each task over its own rows, [T]."""
+    if mask is None:
+        return torch.func.vmap(
+            lambda o, g: loss_func.calc_loss(o, None, g, test=test))(out, y)
+    return torch.func.vmap(
+        lambda o, g, m: loss_func.calc_loss(o, None, g, test=test, mask=m))(
+            out, y, mask)
+
+
+def build_maml_outer(model, config, num_steps: int, train: bool,
+                     test: bool) -> Callable:
+    """Return ``outer(batch, generator=None, ta_idx=None) -> (outer_loss,
+    pre_loss)`` over a raw episode; its inner steps need grad enabled."""
+    loss_func = LossFunc(config.loss_type, config.task)
+    process = build_episode_processor(config.task,
+                                      config.aug_list if train else [],
+                                      train=train)
+    create_graph = train and not config.first_order
+    beta = float(config.beta or 0.0)
+    update_lr = float(config.update_lr)
+    learned = getattr(model, "step_size", None)
+
+    def step_size(name: str):
+        if learned is None:
+            return update_lr
+        if isinstance(learned, torch.nn.ParameterDict):
+            return learned[step_size_key(name)]
+        return learned
+
+    def outer(batch: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator] = None,
+              ta_idx: Optional[torch.Tensor] = None):
+        pbatch = process(batch, generator, ta_idx)
+        mask = pbatch["ctx_mask"]
+        params = model.task_params(pbatch["ctx_x"].shape[0])
+        names = [k for k in params if model.adaptable(k)]
+        for _ in range(num_steps):
+            out = model(pbatch["ctx_x"], mask, params)
+            inner = task_losses(loss_func, out, pbatch["ctx_y"],
+                                mask=mask).sum()
+            grads = torch.autograd.grad(inner, [params[k] for k in names],
+                                        create_graph=create_graph)
+            params = dict(params)
+            for k, g in zip(names, grads):
+                params[k] = params[k] - step_size(k) * g
+        with torch.set_grad_enabled(train):
+            out = model(pbatch["qry_x"], None, params)
+            losses = task_losses(loss_func, out.float(), pbatch["qry_y"],
+                                 test=test)
+        kl = 0.0     # no Bayes-by-Backprop encoder here (MAMLMR: ROADMAP A13)
+        return (losses + beta * kl).mean(), losses.mean()
+
+    return outer
+
+
+def _num_steps(config):
+    # None-checks: an explicit num_updates: 0 is a real zero-adaptation run
+    num_steps = 5 if config.num_steps is None else int(config.num_steps)
+    test_steps = (num_steps if config.test_num_steps is None
+                  else int(config.test_num_steps))
+    return num_steps, test_steps
+
+
+def build_maml_train_step(model, optimizer, config) -> Callable:
+    outer = build_maml_outer(model, config, _num_steps(config)[0],
+                             train=True, test=False)
+    inv_beta = 1.0 / float(config.beta) if config.beta else 0.0
+
+    def train_step(batch, generator: Optional[torch.Generator] = None,
+                   ta_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        model.train()
+        loss, pre = outer(batch, generator, ta_idx)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        loss, pre = loss.detach(), pre.detach()
+        # the JAX step's metrics (train/maml.py:192-196), kept on the device
+        train_step.metrics = {"loss": loss, "task_loss": pre,
+                              "kl": (loss - pre) * inv_beta, "contra": 0.0}
+        return loss
+
+    return train_step
+
+
+def build_maml_eval_step(model, config) -> Callable:
+    outer = build_maml_outer(model, config, _num_steps(config)[1],
+                             train=False, test=True)
+
+    def eval_step(batch) -> torch.Tensor:
+        model.eval()
+        with torch.enable_grad():        # the inner steps take gradients
+            return outer(batch)[1].detach()
+
+    return eval_step
+
+
+class MAMLTrainer(ModelTrainer):
+    """The port's trainer loop with MAML steps underneath."""
+
+    def _build_steps(self):
+        return (build_maml_train_step(self.model, self.optimizer, self.config),
+                build_maml_eval_step(self.model, self.config))

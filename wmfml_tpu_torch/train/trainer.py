@@ -1,4 +1,6 @@
-"""Meta-training loop for the CNP/ANP family (``wmfml_tpu/train/trainer.py``).
+"""Meta-training loop for the CNP/ANP family (``wmfml_tpu/train/trainer.py``);
+``train/maml.py:MAMLTrainer`` runs the same loop with MAML steps
+(``_build_steps``).
 
   * iteration loop; each pass of the loop runs ``steps_per_call`` steps (a
     Python loop of K steps) on episodes sampled on the device;
@@ -46,8 +48,7 @@ class ModelTrainer:
                                                          self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(config.seed))
-        self.train_step = build_train_step(self.model, self.optimizer, config)
-        self.eval_step = build_eval_step(self.model, config)
+        self.train_step, self.eval_step = self._build_steps()
         self.writer = MetricsWriter(config.save_path)
         self.ckpt = CheckpointManager(config.save_path)
         self.best_loss = {"validation": 50000.0, "test": 20000.0}
@@ -59,6 +60,11 @@ class ModelTrainer:
                                           self.optimizer,
                                           map_location=self.device)
             self.logger.info(f"resumed from {config.checkpoint} at step {self.step}")
+
+    def _build_steps(self):
+        """(train_step, eval_step) of this model family."""
+        return (build_train_step(self.model, self.optimizer, self.config),
+                build_eval_step(self.model, self.config))
 
     def _save(self, name: str):
         self.ckpt.save(name, self.step, self.model, self.optimizer)
