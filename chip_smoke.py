@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
                                      # ANP and MAML training steps (top
                                      # kernels, busy share)
+    python3 chip_smoke.py --grad-spread  # also phase 6's comparison on
+                                     # phase 5's own state, for 8 batches
 
 Phases, each fatal on failure (nothing is caught and reported as ok):
   1. the card's name and power limit (nvidia-smi); TF32 off for cuDNN and
@@ -15,7 +17,12 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      same inputs, within the tolerance stated beside it: K1 with shared
      weights (ANP, 300 images) and per task (MAML, 10 x 15 images), K2, and
      K3 masked (shots 3..15) and unmasked; kernel, plain and library times
-     by CUDA events;
+     by CUDA events, and the device time of one kernel call (the summed
+     durations of its launches, torch.profiler). K1's conv1 and K3's
+     convolutions run on the tensor cores in 3xTF32 (float32 accuracy from
+     split TF32 operands), so their bound counts 3 TF32 products per
+     product at the tensor cores' rate, with the float32 CUDA-core bound
+     beside it;
   4. the ANP path: ANPShapeNet1D meta-training through
      ``wmfml_tpu_torch.cli.train_cli`` at full width (T=10, 15 + 15,
      128x128x1, dim_w 64, 8 FAVOR heads, m=266) on synthetic ShapeNet1D
@@ -32,7 +39,9 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      agree between the card and the CPU;
   6. the second-order outer gradient of one full-width MAML batch through
      the kernels against the same gradient by plain autograd through the
-     twins (no custom autograd Function at all), on the card;
+     twins (no custom autograd Function at all), on the card, on phase 5's
+     training replayed under deterministic algorithms, so that its state,
+     its sums and its verdict are the same on every run;
   7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -58,8 +67,10 @@ MAML_OVERRIDES = ["aug_list=[]", "data_size=large", "synthetic_data=true",
                   "iterations=12", "val_freq=1000", "val_iters=1",
                   "steps_per_call=1", "device=cuda"]
 
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
+# on the tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # max |kernel - plain| <= ATOL + RTOL * |plain|, elementwise; both sides are
@@ -121,10 +132,35 @@ def in_turns(fns, rounds=2):
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def device_ms(fn, iters=20) -> float:
+    """Device time of one call (ms): the summed durations of the kernels it
+    launches, from torch.profiler. Beside ``cuda_ms``, which also counts the
+    gaps while the host enqueues, it says how far a wrapper is host-bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1e3
+
+
+def bound(flops: float, nbytes: float, split_flops: float = 0.0):
+    """Least time (ms), what sets it, and the float32 CUDA-core bound (ms)
+    of the same work. ``flops`` run in float32 on the CUDA cores,
+    ``split_flops`` in 3xTF32 on the tensor cores (three TF32 products
+    each)."""
+    t_ops = flops / PEAK_F32_FLOPS + 3 * split_flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_f32 = max((flops + split_flops) / PEAK_F32_FLOPS, t_bytes)
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_f32_ms=t_f32 * 1e3)
 
 
 def check_close(name, got, want):
@@ -141,6 +177,12 @@ def check_close(name, got, want):
     finite = ~torch.isnan(want)
     rel = (err[finite] / want[finite].abs().clamp_min(atol)).max().item()
     return err[finite].max().item(), rel
+
+
+def stem_bound(b, h, w, nbytes):
+    """``bound`` of the stem: conv0 on the CUDA cores, conv1 in 3xTF32."""
+    return bound(2 * b * (h // 2) * (w // 2) * 32 * 9 * 1, nbytes,
+                 split_flops=2 * b * (h // 4) * (w // 4) * 48 * 9 * 32)
 
 
 def check_stem(model, gen):
@@ -169,17 +211,15 @@ def check_stem(model, gen):
     times = in_turns({"ms": lambda: stem.stem_launch(x, w0, b0, w1, b1),
                       "plain_ms": lambda: stem.stem_plain(x, w0, b0, w1, b1),
                       "library_ms": library})
-    flops = 2 * b * ((h // 2) * (w // 2) * 32 * 9 * 1
-                     + (h // 4) * (w // 4) * 48 * 9 * 32)
+    times["device_ms"] = device_ms(lambda: stem.stem_launch(x, w0, b0, w1, b1))
     nbytes = 4 * (x.numel() + got.numel() + sum(t.numel() for t in
                                                  (w0, b0, w1, b1)))
-    bound_ms, bound_by = bound(flops, nbytes)
     return dict(name="literature_stem", route="cuda", path="ANP",
                 shape="shared weights, [300, 128, 128, 1]",
                 source="wmfml_tpu_torch/csrc/stem.cu",
                 replaces="wmfml_tpu/nn/encoders.py:230",
-                max_abs_err=err, max_rel_err=rel, **times, bound_ms=bound_ms,
-                bound_by=bound_by)
+                max_abs_err=err, max_rel_err=rel, **times,
+                **stem_bound(b, h, w, nbytes))
 
 
 def check_favor(model, gen):
@@ -202,17 +242,18 @@ def check_favor(model, gen):
     times = in_turns({"ms": lambda: favor.favor_launch(q, k, v, proj, mask),
                       "plain_ms": lambda: favor.favor_plain(q, k, v, proj,
                                                             mask)})
+    times["device_ms"] = device_ms(
+        lambda: favor.favor_launch(q, k, v, proj, mask))
     m, e = proj.shape[0], v.shape[-1]
     # the kernel's form: features of q and k, A = q' k'^T, A v and row sums
     flops = 2 * t_ * h * (2 * n * m * d + n * n * m + n * n * e + n * n)
     nbytes = 4 * (4 * q.numel() + proj.numel()) + mask.numel()
-    bound_ms, bound_by = bound(flops, nbytes)
     return dict(name="favor_attention", route="cuda", path="ANP",
                 shape="q, k, v [10, 8, 15, 64], m 266, shots 3..15",
                 source="wmfml_tpu_torch/csrc/favor.cu",
                 replaces="wmfml_tpu/nn/attention.py:93",
                 max_abs_err=err, max_rel_err=rel, **times, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by)
+                **bound(flops, nbytes))
 
 
 def per_task(w, tasks, gen, scale=0.05):
@@ -254,18 +295,15 @@ def check_stem_per_task(model, gen):
     times = in_turns({"ms": lambda: stem.stem_launch(x, w0, b0, w1, b1),
                       "plain_ms": lambda: stem.stem_plain(x, w0, b0, w1, b1),
                       "library_ms": library})
-    b = t_ * n
-    flops = 2 * b * ((h // 2) * (w // 2) * 32 * 9 * 1
-                     + (h // 4) * (w // 4) * 48 * 9 * 32)
+    times["device_ms"] = device_ms(lambda: stem.stem_launch(x, w0, b0, w1, b1))
     nbytes = 4 * (x.numel() + got.numel() + sum(a.numel() for a in
                                                  (w0, b0, w1, b1)))
-    bound_ms, bound_by = bound(flops, nbytes)
     return dict(name="literature_stem", route="cuda", path="MAML",
                 shape="per-task weights, [10 x 15, 128, 128, 1]",
                 source="wmfml_tpu_torch/csrc/stem.cu",
                 replaces="wmfml_tpu/nn/encoders.py:230",
-                max_abs_err=err, max_rel_err=rel, **times, bound_ms=bound_ms,
-                bound_by=bound_by)
+                max_abs_err=err, max_rel_err=rel, **times,
+                **stem_bound(t_ * n, h, w, nbytes))
 
 
 def check_features(model, gen):
@@ -320,14 +358,15 @@ def check_features(model, gen):
         "plain_ms_unmasked": lambda: features.features_plain(x, w, b, scale,
                                                              shift),
         "library_ms": library})
+    times["device_ms"] = device_ms(
+        lambda: features.features_launch(x, w, b, scale, shift, mask))
     flops = 2 * t_ * 3 * (n * s * s) * c * c * 9
     nbytes = 4 * (2 * x.numel() + w.numel() + b.numel() + 6 * c) + mask.numel()
-    bound_ms, bound_by = bound(flops, nbytes)
     return dict(name="maml_features", route="cuda", path="MAML",
                 shape="[10, 15, 14, 14, 64], 3 layers, shots 3..15",
                 source="wmfml_tpu_torch/csrc/features.cu",
                 replaces="scripts/proto_maml_pallas_conv.py:96",
-                **res, **times, bound_ms=bound_ms, bound_by=bound_by)
+                **res, **times, **bound(0.0, nbytes, split_flops=flops))
 
 
 def train_phase(card, yaml, overrides, counters):
@@ -440,12 +479,56 @@ def check_maml_validation(trainer):
         raise AssertionError(f"MAML validation loss: card {got}, CPU {want}")
 
 
-def check_second_order_grad(trainer, gen):
+def check_second_order_grad(gen):
     """One full-width MAML training batch: the second-order outer gradient
     through K1 and K3 against plain autograd through the twins, which never
     enters a custom autograd Function (a backward that dropped its
     second-order terms would show here), in float32 and in float64. The
-    first-order gradient says how large the second-order terms are."""
+    first-order gradient says how large the second-order terms are.
+
+    float32's error in this gradient swings with the last bits of any sum
+    before it: cuDNN's default backward sums in no fixed order, and two
+    runs on one state and batch can differ several times over in their
+    distance from float64 (``--grad-spread``). Phase 5's training is
+    therefore replayed (untimed, from the same seed) and the gradients
+    taken under deterministic algorithms, which fixes the state, the batch
+    and every sum."""
+    import torch
+
+    from wmfml_tpu_torch.cli import train_cli
+    from wmfml_tpu_torch.configs import Config
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainer = train_cli.train(Config(MAML_YAML, MAML_OVERRIDES))
+        err, err_plain, _, second_share = second_order_errors(trainer, gen)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not err <= max(GRAD_TOL, GRAD_FACTOR * err_plain):
+        raise AssertionError(f"second-order gradient through the kernels is "
+                             f"{err} from float64, the twins' {err_plain}")
+    if not second_share > 10 * err:
+        raise AssertionError(f"second-order part {second_share} is not "
+                             f"above the error {err}: the check is blind")
+
+
+def grad_spread(trainer, batches=8):
+    """``--grad-spread``: phase 6's numbers on phase 5's own state and with
+    cuDNN's default algorithms, for the first batch twice, then for more."""
+    import torch
+
+    for seed in [0, *range(batches)]:
+        err, err_plain, _, second_share = second_order_errors(
+            trainer, torch.Generator(device="cuda").manual_seed(seed))
+        log(f"grad spread: batch seed {seed}: kernels {err}, plain float32 "
+            f"twins {err_plain}, second-order part {second_share} "
+            f"({second_share / err} times the kernels' error)")
+
+
+def second_order_errors(trainer, gen):
+    """Phase 6's comparison on ``trainer``'s model and one batch: the
+    kernels' and the twins' distance from float64, the kernels' from the
+    twins, and the second-order part of the gradient."""
     import copy
 
     import torch
@@ -507,12 +590,6 @@ def check_second_order_grad(trainer, gen):
         f"({top}), plain float32 twins {err_plain} ({top_plain}); kernels "
         f"against plain float32 {err_pair}; second-order part of the "
         f"gradient {second_share}")
-    if not err <= max(GRAD_TOL, GRAD_FACTOR * err_plain):
-        raise AssertionError(f"second-order gradient through the kernels is "
-                             f"{err} from float64, the twins' {err_plain}")
-    if not second_share > 10 * err:
-        raise AssertionError(f"second-order part {second_share} is not "
-                             f"above the error {err}: the check is blind")
     return err, err_plain, err_pair, second_share
 
 
@@ -581,11 +658,16 @@ def main(argv):
         f"{torch.cuda.get_device_name(0)}, TF32 off for cuDNN and matmul")
 
     t0 = time.perf_counter()
-    build.load_all()
+    libs = build.load_all()
     log(f"build: {', '.join(build.SOURCES)} in {time.perf_counter() - t0} s")
+    log(f"build: dynamic shared memory per block: stem "
+        f"{libs['stem'].wmfml_stem_smem_bytes(1, 2)} B (Ci = 1, two "
+        f"warpgroups), features conv "
+        f"{libs['features'].wmfml_features_smem_bytes(14)} B (W = 14)")
     for name, text in build.ptxas_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 log(f"build: {name}: {line.strip()}")
 
     anp = build_model(Config(MAIN_YAML, TRAIN_OVERRIDES,
@@ -603,9 +685,11 @@ def main(argv):
                      f"{r['plain_ms_unmasked']} ms")
         log(f"kernel: {r['name']} ({r['shape']}): max abs err "
             f"{r['max_abs_err']}, max rel err {r['max_rel_err']} (atol, rtol "
-            f"{TOL[r['name']]}); {r['ms']} ms, plain {r['plain_ms']} ms, "
+            f"{TOL[r['name']]}); {r['ms']} ms ({r['device_ms']} ms of it on "
+            f"the device), plain {r['plain_ms']} ms, "
             f"library {r['library_ms']} ms, bound {r['bound_ms']} ms by "
-            f"{r['bound_by']}{extra}")
+            f"{r['bound_by']} (float32 CUDA-core bound {r['bound_f32_ms']} "
+            f"ms){extra}")
 
     trainer, anp_launches = train_phase(
         card, MAIN_YAML, TRAIN_OVERRIDES,
@@ -620,7 +704,9 @@ def main(argv):
         {"literature_stem": literature_stem, "maml_features": maml_features})
     check_maml_launches(mtrainer, maml_launches)
     check_maml_validation(mtrainer)
-    check_second_order_grad(mtrainer, gen)
+    check_second_order_grad(gen)
+    if "--grad-spread" in argv:
+        grad_spread(mtrainer)
     if "--profile" in argv:
         profile_steps(mtrainer, steps=4)
 

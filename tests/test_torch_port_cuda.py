@@ -46,6 +46,15 @@ def test_stem_kernel_matches_plain(dev, b, h, w):
            stem.stem_plain(x, w0, b0, w1, b1), 1e-4, 1e-4)
 
 
+def test_stem_kernel_takes_several_input_channels(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((2, 3, 40, 32, 3), generator=g, device=dev).flatten(0, 1)
+    ws = [scale * torch.randn((2, *shape), generator=g, device=dev)
+          for scale, shape in ((0.3, (32, 3, 3, 3)), (0.1, (32,)),
+                               (0.06, (48, 32, 3, 3)), (0.1, (48,)))]
+    _close(stem.stem_launch(x, *ws), stem.stem_plain(x, *ws), 1e-4, 1e-4)
+
+
 def test_stem_wrapper_counts_launches_and_backpropagates(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand((4, 32, 32, 1), generator=g, device=dev)
@@ -134,3 +143,69 @@ def test_kernel_functions_count_launches_and_differentiate_twice(dev):
     torch.cuda.synchronize()
     for a, b_ in zip(got, want):     # float32 second derivatives, per tensor
         assert float((a - b_).abs().max()) <= 1e-3 * float(b_.abs().max())
+
+
+# -- 3xTF32 on the tensor cores ------------------------------------------------
+
+@pytest.mark.parametrize("kernel", ["stem", "features"])
+def test_kernels_keep_float32_on_inputs_offset_by_100(dev, kernel):
+    # x = 100 + unit spread: one TF32 product would err by ~100 * 2^-11 per
+    # term, far outside the tolerance; the split keeps float32's accuracy
+    g = torch.Generator(device=dev).manual_seed(7)
+    if kernel == "stem":
+        x = 100.0 + torch.rand((6, 64, 64, 1), generator=g, device=dev)
+        ws = [scale * torch.randn((2, *shape), generator=g, device=dev)
+              for scale, shape in ((0.3, (32, 1, 3, 3)), (0.1, (32,)),
+                                   (0.06, (48, 32, 3, 3)), (0.1, (48,)))]
+        _close(stem.stem_launch(x, *ws), stem.stem_plain(x, *ws), 1e-4, 1e-4)
+    else:
+        x, w, b, scale, shift, mask = _features_inputs(dev, 10, 15, 14, seed=7)
+        x = 100.0 + torch.randn(x.shape, generator=g, device=dev)
+        # zero-sum filters: the offset cancels inside the image and not at
+        # its border, so the batch norm sees a spread, not only a mean
+        w = w - w.mean((3, 4, 5), keepdim=True)
+        _close(features.features_launch(x, w, b, scale, shift, mask),
+               features.features_plain(x, w, b, scale, shift, mask),
+               1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("kernel", ["stem", "features"])
+def test_weight_packing_on_the_card_is_its_plain_twin_bit_for_bit(dev, kernel):
+    # the kernels split their weights with cvt.rna.tf32.f32 into wgmma B
+    # order; kernels/tf32.py's split, held against numpy on the CPU, is the
+    # twin
+    g = torch.Generator(device=dev).manual_seed(11)
+    if kernel == "stem":
+        w1 = 0.06 * torch.randn((3, 48, 32, 3, 3), generator=g, device=dev)
+        got, want = stem.pack_conv1_launch(w1, 3), stem.pack_conv1(w1, 3)
+    else:
+        w = 0.04 * torch.randn((2, 3, 64, 64, 3, 3), generator=g, device=dev)
+        got, want = features.pack_launch(w), features.pack_weights(w)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_features_kernel_is_bit_reproducible(dev):
+    *args, mask = _features_inputs(dev, 10, 15, 14, seed=3)
+    first = features.features_launch(*args, mask)
+    second = features.features_launch(*args, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("name", ["stem", "features"])
+def test_kernels_run_on_tensor_cores(dev, name):
+    import os
+    import shutil
+    import subprocess
+
+    from wmfml_tpu_torch.kernels import build
+
+    build.load(name)
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = build._lib_path(name)
+    assert os.path.exists(lib), lib
+    sass = subprocess.run([tool, "--dump-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    assert "HGMMA" in sass

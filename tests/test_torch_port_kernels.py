@@ -94,6 +94,23 @@ def test_stem_function_is_twice_differentiable(monkeypatch, lead):
     assert torch.autograd.gradgradcheck(fn, ws, fast_mode=True)
 
 
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["shared", "per_task"])
+def test_stem_function_gives_the_image_gradient(monkeypatch, lead):
+    # the JAX stem is plain autodiff, so its images have a gradient too
+    monkeypatch.setattr(kstem, "stem_launch", kstem.stem_plain)
+    x = torch.rand(4, 16, 16, 1, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(4))
+    inputs = [x.requires_grad_(True)] + [
+        w.requires_grad_(True) for w in _stem_weights(lead, torch.float64, 5)]
+    fn = kstem._FusedStem.apply
+    assert torch.autograd.gradcheck(fn, inputs, fast_mode=True)
+    assert torch.autograd.gradgradcheck(fn, inputs, fast_mode=True)
+    y = fn(*inputs)
+    (gx,) = torch.autograd.grad(y.sum(), x)
+    (want,) = torch.autograd.grad(kstem.stem_plain(*inputs).sum(), x)
+    torch.testing.assert_close(gx, want)
+
+
 def test_features_function_is_twice_differentiable(monkeypatch):
     monkeypatch.setattr(kfeatures, "features_launch", kfeatures.features_plain)
     g = torch.Generator().manual_seed(3)

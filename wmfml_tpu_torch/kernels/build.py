@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``wmfml_tpu_torch/_build/lib<name>_<hash>.so`` for ``sm_90a`` (no
 PyTorch headers, so a build takes seconds, not minutes). The content hash
-in the file name makes a stale library impossible to load. ``load_all``
+in the file name (the source and the ``csrc/*.cuh`` headers it may include)
+makes a stale library impossible to load. ``load_all``
 starts one nvcc per source at once and waits for all of them.
 """
 
@@ -39,8 +40,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    # the source, every shared header beside it, and the flags
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

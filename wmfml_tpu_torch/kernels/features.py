@@ -3,9 +3,10 @@
 Replaces ``scripts/proto_maml_pallas_conv.py:96 features_block_pallas``:
 per task, L x {3x3 stride-1 same conv with per-task weights and bias,
 batch-statistics BN over the task's real context rows, shared scale/bias,
-ReLU}. ``csrc/features.cu`` says what bounds the kernel (f32 arithmetic)
-and why it runs one launch per layer where the TPU kernel held a whole task
-in fast memory.
+ReLU}. ``csrc/features.cu`` says what bounds the kernel (tensor-core
+operations) and how it runs each layer as an implicit GEMM per task on the
+tensor cores, in 3xTF32 so that its results keep float32's accuracy; the
+``torch.backends`` TF32 flags do not reach it.
 
 ``masked_batch_norm`` is ``wmfml_tpu/models/maml.py:40`` with a task axis:
 one pass (E[x^2] - E[x]^2, summed in float32 or wider), var clamped at 0,
@@ -29,10 +30,12 @@ import torch
 import torch.nn.functional as F
 
 from wmfml_tpu_torch.kernels import build
+from wmfml_tpu_torch.kernels.tf32 import gmma_b_layout, tf32_split
 
 C = 64            # the kernel's channel count (num_filters of every shipped YAML)
 EPS = 1e-5
-MAX_TILE = 128    # pixels of one block's band: 32 lanes x 4
+TILE = 128        # pixel rows of one block: two warpgroups of 64
+MAX_W = 128       # widest image whose staged rows fit a block
 
 
 def masked_batch_norm(x, mask: Optional[torch.Tensor], scale=None, bias=None,
@@ -75,13 +78,31 @@ def features_plain(x, w, b, scale, bias, mask: Optional[torch.Tensor] = None):
     return x
 
 
-def tile_rows(h: int, w: int) -> int:
-    """Rows of one block's band: as even a split of the image as keeps a
-    band within ``MAX_TILE`` pixels (14x14 -> two bands of 7 rows)."""
-    bands = math.ceil(h * w / MAX_TILE)
-    while math.ceil(h / bands) * w > MAX_TILE:
-        bands += 1
-    return math.ceil(h / bands)
+def pack_weights(w):
+    """[T, L, Co, Ci, 3, 3] -> [T, L, 9, 2, Co * Ci]: per task, layer and
+    tap the weights split big | small, each in wgmma B order. The plain twin
+    of the kernel's own packing launch (``pack_launch``)."""
+    t, layers = w.shape[:2]
+    taps = w.permute(0, 1, 4, 5, 2, 3).reshape(t, layers, 9, C, C)
+    return torch.stack([gmma_b_layout(p) for p in tf32_split(
+        taps.contiguous())], 3).reshape(t, layers, 9, 2, C * C)
+
+
+def pack_launch(w):
+    """The kernel's weight packing alone, on the card (for tests)."""
+    lib = build.load("features")
+    w = w.contiguous()
+    wk = torch.empty((*w.shape[:2], 9, 2, C * C), device=w.device,
+                     dtype=torch.float32)
+    fn = lib.wmfml_features_pack
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(w.data_ptr(), wk.data_ptr(), w.shape[0] * w.shape[1],
+             torch.cuda.current_stream(w.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"features pack launch failed: cudaError {err}")
+    return wk
 
 
 def features_launch(x, w, b, scale, bias, mask: Optional[torch.Tensor] = None):
@@ -103,33 +124,37 @@ def features_launch(x, w, b, scale, bias, mask: Optional[torch.Tensor] = None):
                          f"with biases [T, L, {C}] and BN scale/bias [L, {C}]; "
                          f"got {tuple(w.shape)}, {tuple(b.shape)}, "
                          f"{tuple(scale.shape)}, {tuple(bias.shape)}")
-    if wd > MAX_TILE:
-        raise ValueError(f"features kernel needs W <= {MAX_TILE}; got {wd}")
+    if wd > MAX_W:
+        raise ValueError(f"features kernel needs W <= {MAX_W}; got {wd}")
     if mask is not None and (tuple(mask.shape) != (t, n)
                              or mask.device != x.device):
         raise ValueError(f"features mask must be [T, N] = {(t, n)} on the "
                          f"same device; got {tuple(mask.shape)}")
     lib = build.load("features")
-    rows = tile_rows(h, wd)
     x = x.contiguous()
-    # [T, L, Ci, 3, 3, Co]; the permutation always copies into a fresh,
-    # aligned buffer (the kernel reads the weights as float4)
-    wk = w.permute(0, 1, 3, 4, 5, 2).contiguous()
-    b, scale, bias = b.contiguous(), scale.contiguous(), bias.contiguous()
-    mask_u8 = None if mask is None else mask.to(torch.uint8).contiguous()
+    if x.data_ptr() % 16:                 # the kernel reads x as float4
+        x = x.clone()
+    w, b = w.contiguous(), b.contiguous()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    # the kernel reads one byte per row, 0 for a padded one: bool as it is
+    mask_u8 = None if mask is None else mask.to(torch.bool).contiguous()
+    # scratch for the split weights; fresh, so 16-byte aligned
+    wk = torch.empty((t, layers, 9, 2, C * C), device=x.device,
+                     dtype=torch.float32)
     y0 = torch.empty_like(x)
     y1 = torch.empty_like(x) if layers > 1 else y0
-    part = torch.empty((layers, t, n * math.ceil(h / rows), 2, C),
+    part = torch.empty((layers, t, math.ceil(n * h * wd / TILE), 2, C),
                        device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     fn = lib.wmfml_features_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), scale.data_ptr(),
-             bias.data_ptr(), None if mask_u8 is None else mask_u8.data_ptr(),
+    err = fn(x.data_ptr(), w.data_ptr(), wk.data_ptr(), b.data_ptr(),
+             scale.data_ptr(), bias.data_ptr(),
+             None if mask_u8 is None else mask_u8.data_ptr(),
              y0.data_ptr(), y1.data_ptr(), part.data_ptr(), out.data_ptr(),
-             t, n, h, wd, layers, rows, EPS,
+             t, n, h, wd, layers, EPS,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"features kernel launch failed: cudaError {err}")

@@ -4,18 +4,22 @@ Replaces ``wmfml_tpu/nn/encoders.py:_s2d_stem`` (+ ``_s2d``) and the
 ``max_pool2`` that follows it in ``LiteratureEncoder``. The CUDA source,
 ``csrc/stem.cu``, says what bounds the kernel and how its design answers
 that; in short it keeps the [B, H/2, W/2, 32] conv0 map in shared memory and
-is bound by f32 arithmetic.
+is bound by arithmetic.
 
 Weights are shared by the whole batch (conv0 [32, Ci, 3, 3], the CNP/ANP
 encoder) or per task (conv0 [T, 32, Ci, 3, 3], the MAML inner loop): image
 ``b`` then uses task ``b // (B / T)``'s weights.
 
+conv1 runs on the tensor cores in 3xTF32 (``kernels/tf32.py``), so its
+results keep float32's accuracy; the ``torch.backends`` TF32 flags do not
+reach it.
+
 ``literature_stem`` is the wrapper the encoders call. A CPU tensor takes the
 plain PyTorch twin ``stem_plain``; a CUDA tensor launches the kernel or
 raises. The JAX package has no backward kernel for the stem (plain
 autodiff), so the backward recomputes through the plain twin on the saved
-tensors themselves and returns gradients for the weights only (images are
-leaves). Under ``create_graph`` that recomputation is recorded, so the
+tensors themselves and returns the gradients asked for, the images' among
+them. Under ``create_graph`` that recomputation is recorded, so the
 gradient is differentiable again, as second-order MAML needs.
 ``F.max_pool2d`` routes a pool gradient to the first maximum in raster
 order; JAX's ``slice`` pool routes ties elsewhere, but ties sit at ReLU
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from wmfml_tpu_torch.kernels import build
+from wmfml_tpu_torch.kernels.tf32 import gmma_b_layout, tf32_split
 
 C0, C1 = 32, 48
 
@@ -76,6 +81,33 @@ def _check(x, w0, b0, w1, b1):
                          "tasks")
 
 
+def pack_conv1(w1, tasks):
+    """conv1 [(T,) 48, 32, 3, 3] -> [T, 2, 48 * 288]: K = (kh, kw, c_in),
+    split big | small, each in wgmma B order. The plain twin of the packing
+    the kernel does as it stages the weights (``pack_conv1_launch``)."""
+    k = w1.reshape(tasks, C1, C0, 3, 3).permute(0, 1, 3, 4, 2).reshape(
+        tasks, C1, 9 * C0)
+    return torch.stack([gmma_b_layout(p) for p in tf32_split(k.contiguous())],
+                       1).reshape(tasks, 2, C1 * 9 * C0)
+
+
+def pack_conv1_launch(w1, tasks):
+    """The kernel's conv1 packing alone, on the card (for tests)."""
+    lib = build.load("stem")
+    w1 = w1.contiguous()
+    out = torch.empty((tasks, 2, C1 * 9 * C0), device=w1.device,
+                      dtype=torch.float32)
+    fn = lib.wmfml_stem_pack
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(w1.data_ptr(), out.data_ptr(), tasks,
+             torch.cuda.current_stream(w1.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stem pack launch failed: cudaError {err}")
+    return out
+
+
 def stem_launch(x, w0, b0, w1, b1):
     """Run the CUDA kernel once (no autograd, no launch count)."""
     _check(x, w0, b0, w1, b1)
@@ -83,19 +115,14 @@ def stem_launch(x, w0, b0, w1, b1):
     x = x.contiguous()
     b, h, w, ci = x.shape
     tasks = w0.shape[0] if w0.dim() == 5 else 1
-    w0k = w0.reshape(tasks, C0, ci, 3, 3).permute(0, 2, 3, 4, 1).contiguous()
-    w1k = w1.reshape(tasks, C1, C0, 3, 3).permute(0, 2, 3, 4, 1).contiguous()
-    b0c, b1c = b0.contiguous(), b1.contiguous()
+    w0, b0, w1, b1 = (a.contiguous() for a in (w0, b0, w1, b1))
     out = torch.empty((b, h // 8, w // 8, C1), device=x.device,
                       dtype=torch.float32)
-    tiles = b * ((h // 8 + 3) // 4) * ((w // 8 + 3) // 4)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = max(1, min(tiles, 2 * sms))
     fn = lib.wmfml_stem_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), w0k.data_ptr(), b0c.data_ptr(), w1k.data_ptr(),
-             b1c.data_ptr(), out.data_ptr(), b, h, w, ci, b // tasks, grid,
+    err = fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+             b1.data_ptr(), out.data_ptr(), b, h, w, ci, b // tasks,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused stem launch failed: cudaError {err}")
@@ -112,14 +139,14 @@ class _FusedStem(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, *weights = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:]
-        wanted = [w for w, n in zip(weights, need) if n]
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        wanted = [a for a, n in zip(inputs, need) if n]
         with torch.enable_grad():
-            y = stem_plain(x, *weights)
+            y = stem_plain(*inputs)
         grads = iter(torch.autograd.grad(
             y, wanted, g, create_graph=torch.is_grad_enabled()))
-        return (None, *(next(grads) if n else None for n in need))
+        return tuple(next(grads) if n else None for n in need)
 
 
 def literature_stem(x, w0, b0, w1, b1):
