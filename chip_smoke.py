@@ -17,12 +17,13 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      same inputs, within the tolerance stated beside it: K1 with shared
      weights (ANP, 300 images) and per task (MAML, 10 x 15 images), K2, and
      K3 masked (shots 3..15) and unmasked; kernel, plain and library times
-     by CUDA events, and the device time of one kernel call (the summed
-     durations of its launches, torch.profiler). K1's conv1 and K3's
-     convolutions run on the tensor cores in 3xTF32 (float32 accuracy from
-     split TF32 operands), so their bound counts 3 TF32 products per
-     product at the tensor cores' rate, with the float32 CUDA-core bound
-     beside it;
+     by CUDA events, the device time of one kernel call (the summed
+     durations of its launches, torch.profiler) and its number of kernels
+     (K2: one), and the floor, the device time of a one-element torch.add.
+     K1's conv1, K2's feature products and K3's convolutions run on the
+     tensor cores in 3xTF32 (float32 accuracy from split TF32 operands), so
+     their bound counts 3 TF32 products per product at the tensor cores'
+     rate, with the float32 CUDA-core bound beside it;
   4. the ANP path: ANPShapeNet1D meta-training through
      ``wmfml_tpu_torch.cli.train_cli`` at full width (T=10, 15 + 15,
      128x128x1, dim_w 64, 8 FAVOR heads, m=266) on synthetic ShapeNet1D
@@ -132,10 +133,12 @@ def in_turns(fns, rounds=2):
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
-def device_ms(fn, iters=20) -> float:
-    """Device time of one call (ms): the summed durations of the kernels it
-    launches, from torch.profiler. Beside ``cuda_ms``, which also counts the
-    gaps while the host enqueues, it says how far a wrapper is host-bound."""
+def device_profile(fn, iters=20, names=None):
+    """Device time of one call (ms), the summed durations of the kernels it
+    launches, and the number of kernels it launches, from torch.profiler.
+    Beside ``cuda_ms``, which also counts the gaps while the host enqueues,
+    the time says how far a wrapper is host-bound. ``names``, a set, gets
+    the names of the kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -145,9 +148,25 @@ def device_ms(fn, iters=20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters / 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    if names is not None:
+        names.update(e.name for e in kernels)
+    return dict(device_ms=us / iters / 1e3, kernels_per_call=len(kernels) / iters)
+
+
+def floor_ms() -> float:
+    """The least device time any launch takes on this card: that of a
+    one-element ``torch.add``."""
+    import torch
+
+    x = torch.ones(1, device="cuda")
+    prof = device_profile(lambda: torch.add(x, x))
+    if prof["kernels_per_call"] != 1:
+        raise AssertionError(f"torch.add launched {prof['kernels_per_call']} "
+                             f"kernels per call")
+    return prof["device_ms"]
 
 
 def bound(flops: float, nbytes: float, split_flops: float = 0.0):
@@ -211,7 +230,7 @@ def check_stem(model, gen):
     times = in_turns({"ms": lambda: stem.stem_launch(x, w0, b0, w1, b1),
                       "plain_ms": lambda: stem.stem_plain(x, w0, b0, w1, b1),
                       "library_ms": library})
-    times["device_ms"] = device_ms(lambda: stem.stem_launch(x, w0, b0, w1, b1))
+    times.update(device_profile(lambda: stem.stem_launch(x, w0, b0, w1, b1)))
     nbytes = 4 * (x.numel() + got.numel() + sum(t.numel() for t in
                                                  (w0, b0, w1, b1)))
     return dict(name="literature_stem", route="cuda", path="ANP",
@@ -223,15 +242,17 @@ def check_stem(model, gen):
 
 
 def check_favor(model, gen):
-    """K2 at the ANP path's shape, with shots 3..15 across the 10 tasks."""
+    """K2 at the ANP path's shape, with shots 3..15 across the 10 tasks; q,
+    k, v are [T, N, H, d] transposed to [T, H, N, d], as the attention block
+    hands them over. One call must issue one kernel."""
     import torch
 
     from wmfml_tpu_torch.kernels import favor
 
     proj = model.attn.projection_matrix
     t_, h, n, d = 10, 8, 15, proj.shape[1]
-    q, k, v = (torch.randn((t_, h, n, d), generator=gen, device="cuda")
-               for _ in range(3))
+    q, k, v = (torch.randn((t_, n, h, d), generator=gen,
+                           device="cuda").transpose(1, 2) for _ in range(3))
     shots = torch.tensor([3 + (12 * i) // (t_ - 1) for i in range(t_)],
                          device="cuda")
     mask = torch.arange(n, device="cuda")[None, :] < shots[:, None]
@@ -242,18 +263,50 @@ def check_favor(model, gen):
     times = in_turns({"ms": lambda: favor.favor_launch(q, k, v, proj, mask),
                       "plain_ms": lambda: favor.favor_plain(q, k, v, proj,
                                                             mask)})
-    times["device_ms"] = device_ms(
-        lambda: favor.favor_launch(q, k, v, proj, mask))
+    names = set()
+    times.update(device_profile(
+        lambda: favor.favor_launch(q, k, v, proj, mask), names=names))
+    # one kernel and nothing else (the profiler may drop an event now and
+    # then, so the count may read just under 1, never over)
+    if len(names) != 1 or times["kernels_per_call"] > 1:
+        raise AssertionError(f"favor_attention issued "
+                             f"{times['kernels_per_call']} kernels per call: "
+                             f"{sorted(names)}")
+    times["phase_us"] = favor_phases(q, k, v, proj, mask)
     m, e = proj.shape[0], v.shape[-1]
-    # the kernel's form: features of q and k, A = q' k'^T, A v and row sums
-    flops = 2 * t_ * h * (2 * n * m * d + n * n * m + n * n * e + n * n)
+    # the kernel's form: dash = [q; k] P^T in 3xTF32 on the tensor cores;
+    # A = q' k'^T, A v and the row sums on the CUDA cores
+    split_flops = 2 * t_ * h * (2 * n) * m * d
+    flops = 2 * t_ * h * (n * n * m + n * n * e + n * n)
     nbytes = 4 * (4 * q.numel() + proj.numel()) + mask.numel()
     return dict(name="favor_attention", route="cuda", path="ANP",
                 shape="q, k, v [10, 8, 15, 64], m 266, shots 3..15",
                 source="wmfml_tpu_torch/csrc/favor.cu",
                 replaces="wmfml_tpu/nn/attention.py:93",
                 max_abs_err=err, max_rel_err=rel, **times, library_ms=None,
-                **bound(flops, nbytes))
+                **bound(flops, nbytes, split_flops=split_flops))
+
+
+def favor_phases(q, k, v, proj, mask, runs=10):
+    """K2's phase clock (the global timer, ns, read by each block's first
+    thread; ``favor.PHASES``): microseconds from the first block's start
+    until the last block reached each point; medians over ``runs``
+    launches."""
+    import statistics
+
+    import torch
+
+    from wmfml_tpu_torch.kernels import favor
+
+    runs_us = []
+    for _ in range(runs):
+        stamps = torch.full((q.shape[0] * q.shape[1], favor.STAMPS), -1,
+                            dtype=torch.int64, device="cuda")
+        favor.favor_launch(q, k, v, proj, mask, stamps=stamps)
+        s = stamps[stamps[:, 0] >= 0].cpu().double()
+        runs_us.append((s.max(0).values - s[:, 0].min()) / 1e3)
+    return {name: statistics.median(float(r[j]) for r in runs_us)
+            for j, name in enumerate(favor.PHASES)}
 
 
 def per_task(w, tasks, gen, scale=0.05):
@@ -295,7 +348,7 @@ def check_stem_per_task(model, gen):
     times = in_turns({"ms": lambda: stem.stem_launch(x, w0, b0, w1, b1),
                       "plain_ms": lambda: stem.stem_plain(x, w0, b0, w1, b1),
                       "library_ms": library})
-    times["device_ms"] = device_ms(lambda: stem.stem_launch(x, w0, b0, w1, b1))
+    times.update(device_profile(lambda: stem.stem_launch(x, w0, b0, w1, b1)))
     nbytes = 4 * (x.numel() + got.numel() + sum(a.numel() for a in
                                                  (w0, b0, w1, b1)))
     return dict(name="literature_stem", route="cuda", path="MAML",
@@ -358,8 +411,8 @@ def check_features(model, gen):
         "plain_ms_unmasked": lambda: features.features_plain(x, w, b, scale,
                                                              shift),
         "library_ms": library})
-    times["device_ms"] = device_ms(
-        lambda: features.features_launch(x, w, b, scale, shift, mask))
+    times.update(device_profile(
+        lambda: features.features_launch(x, w, b, scale, shift, mask)))
     flops = 2 * t_ * 3 * (n * s * s) * c * c * 9
     nbytes = 4 * (2 * x.numel() + w.numel() + b.numel() + 6 * c) + mask.numel()
     return dict(name="maml_features", route="cuda", path="MAML",
@@ -663,11 +716,14 @@ def main(argv):
     log(f"build: dynamic shared memory per block: stem "
         f"{libs['stem'].wmfml_stem_smem_bytes(1, 2)} B (Ci = 1, two "
         f"warpgroups), features conv "
-        f"{libs['features'].wmfml_features_smem_bytes(14)} B (W = 14)")
+        f"{libs['features'].wmfml_features_smem_bytes(14)} B (W = 14), "
+        f"favor {libs['favor'].wmfml_favor_smem_bytes(15, 15, 64, 266)} B used "
+        f"of the 231424 B it requests (Nq = Nk = 15, m = 266); favor "
+        f"co-resident blocks {libs['favor'].wmfml_favor_coresident()}")
     for name, text in build.ptxas_log.items():
         for line in text.splitlines():
             if any(k in line for k in ("entry function", "registers",
-                                       "spill")):
+                                       "spill", "arning", "erformance")):
                 log(f"build: {name}: {line.strip()}")
 
     anp = build_model(Config(MAIN_YAML, TRAIN_OVERRIDES,
@@ -677,7 +733,11 @@ def main(argv):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_stem(anp, gen), check_favor(anp, gen),
             check_stem_per_task(maml, gen), check_features(maml, gen)]
+    floor = floor_ms()
+    log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
+        f"time, the least any launch takes on this card")
     for r in rows:
+        r["floor_ms"] = floor
         extra = ""
         if "ms_unmasked" in r:
             extra = (f"; unmasked: max abs err {r['max_abs_err_unmasked']}, "
@@ -686,10 +746,14 @@ def main(argv):
         log(f"kernel: {r['name']} ({r['shape']}): max abs err "
             f"{r['max_abs_err']}, max rel err {r['max_rel_err']} (atol, rtol "
             f"{TOL[r['name']]}); {r['ms']} ms ({r['device_ms']} ms of it on "
-            f"the device), plain {r['plain_ms']} ms, "
+            f"the device, {r['kernels_per_call']} kernels per call), plain "
+            f"{r['plain_ms']} ms, "
             f"library {r['library_ms']} ms, bound {r['bound_ms']} ms by "
             f"{r['bound_by']} (float32 CUDA-core bound {r['bound_f32_ms']} "
             f"ms){extra}")
+        if "phase_us" in r:
+            log(f"kernel: {r['name']} phase clock (us from the first block's "
+                f"start, medians of 10 launches): {r['phase_us']}")
 
     trainer, anp_launches = train_phase(
         card, MAIN_YAML, TRAIN_OVERRIDES,

@@ -69,17 +69,107 @@ def test_stem_wrapper_counts_launches_and_backpropagates(dev):
         _close(a.grad, b.grad, 1e-4, 1e-4)
 
 
-@pytest.mark.parametrize("t,h,n,d,m", [(2, 3, 4, 8, 20), (10, 8, 15, 64, 266)])
-def test_favor_kernel_matches_plain(dev, t, h, n, d, m):
-    g = torch.Generator(device=dev).manual_seed(n)
-    q, k, v = (torch.randn((t, h, n, d), generator=g, device=dev)
-               for _ in range(3))
+def _favor_inputs(dev, t, h, nq, nk, d, m, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((t, h, nq, d), generator=g, device=dev)
+    k, v = (torch.randn((t, h, nk, d), generator=g, device=dev)
+            for _ in range(2))
     proj = torch.randn((m, d), generator=g, device=dev)
-    shots = torch.randint(1, n + 1, (t, 1), generator=g, device=dev)
-    mask = torch.arange(n, device=dev)[None] < shots
+    shots = torch.randint(1, nk + 1, (t, 1), generator=g, device=dev)
+    mask = torch.arange(nk, device=dev)[None] < shots
     mask[0] = False                         # an empty task: NaN on both sides
+    return q, k, v, proj, mask
+
+
+# T = 64: 512 (task, head) items, more than the co-resident blocks, so the
+# persistent blocks loop; Nq 15 against Nk 10
+@pytest.mark.parametrize("t,h,nq,nk,d,m", [
+    (2, 3, 4, 4, 8, 20), (10, 8, 15, 15, 64, 266), (64, 8, 15, 15, 64, 266),
+    (10, 8, 15, 10, 64, 266)])
+def test_favor_kernel_matches_plain(dev, t, h, nq, nk, d, m):
+    q, k, v, proj, mask = _favor_inputs(dev, t, h, nq, nk, d, m, seed=nq)
     _close(favor.favor_launch(q, k, v, proj, mask),
            favor.favor_plain(q, k, v, proj, mask), 1e-5, 1e-4)
+
+
+def _block_views(dev, t=10, h=8, n=15, d=64, m=266, seed=5):
+    """q, k, v as the attention block passes them ([T, N, H, d] transposed
+    to [T, H, N, d]) and the mask as the sampler makes it (expanded)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((t, n, h, d), generator=g, device=dev
+                           ).transpose(1, 2) for _ in range(3))
+    proj = torch.randn((m, d), generator=g, device=dev)
+    mask = (torch.arange(n, device=dev)[None, :] < 7).expand(t, n)
+    return q, k, v, proj, mask
+
+
+def test_favor_kernel_reads_the_attention_blocks_views(dev):
+    q, k, v, proj, mask = _block_views(dev)
+    assert not q.is_contiguous() and mask.stride(0) == 0
+    _close(favor.favor_launch(q, k, v, proj, mask),
+           favor.favor_plain(q, k, v, proj, mask), 1e-5, 1e-4)
+    _close(favor.favor_launch(q, k, v, proj),
+           favor.favor_plain(q, k, v, proj), 1e-5, 1e-4)
+
+
+def test_favor_kernel_is_bit_reproducible(dev):
+    args = _favor_inputs(dev, 64, 8, 15, 15, 64, 266, seed=4)
+    first = favor.favor_launch(*args)
+    second = favor.favor_launch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first.nan_to_num(), second.nan_to_num())
+    assert torch.equal(first.isnan(), second.isnan())
+
+
+def test_favor_call_issues_one_kernel(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _block_views(dev)
+    favor.favor_launch(*args)
+    torch.cuda.synchronize()
+    calls = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            favor.favor_launch(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # one kernel a call and nothing else; the profiler may drop an event
+    assert len(set(names)) == 1 and calls - 1 <= len(names) <= calls, names
+
+
+def _favor_one_tf32_product(q, k, v, proj, mask):
+    """``favor_plain`` with dash from TF32-rounded operands, as one TF32
+    tensor-core product (no split) would compute it."""
+    from wmfml_tpu_torch.kernels.tf32 import tf32_round
+
+    def features(x, is_query):
+        dn = x.shape[-1] ** -0.25
+        dash = torch.matmul(tf32_round((dn * x).contiguous()),
+                            tf32_round(proj).t())
+        diag = (x ** 2).sum(-1, keepdim=True) / 2.0 * dn ** 2
+        stab = dash.amax(-1, keepdim=True) if is_query else dash.amax()
+        return proj.shape[0] ** -0.5 * (torch.exp(dash - diag - stab)
+                                        + favor.EPS)
+
+    k_prime = features(k, False) * mask[:, None, :, None]
+    return favor.linear_attention(features(q, True), k_prime, v)
+
+
+def test_favor_kernel_keeps_float32_where_dash_spans_20(dev):
+    # the exp turns an absolute error of dash into a relative error of the
+    # features: with dash spanning 20, one TF32 product misses the
+    # tolerance, and the 3xTF32 split keeps float32's accuracy
+    q, k, v, proj, mask = _favor_inputs(dev, 10, 8, 15, 15, 64, 266, seed=9)
+    dash = torch.matmul(64 ** -0.25 * torch.cat([q, k], 2), proj.t())
+    scale = 20.0 / float(dash.max() - dash.min())
+    q, k = scale * q, scale * k
+    dash = torch.matmul(64 ** -0.25 * torch.cat([q, k], 2), proj.t())
+    assert 19.0 < float(dash.max() - dash.min()) < 21.0
+    want = favor.favor_plain(q, k, v, proj, mask)
+    with pytest.raises(AssertionError):
+        _close(_favor_one_tf32_product(q, k, v, proj, mask), want, 1e-5, 1e-4)
+    _close(favor.favor_launch(q, k, v, proj, mask), want, 1e-5, 1e-4)
 
 
 @pytest.mark.parametrize("t,n", [(2, 2), (10, 15)])
@@ -193,7 +283,7 @@ def test_features_kernel_is_bit_reproducible(dev):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("name", ["stem", "features"])
+@pytest.mark.parametrize("name", ["stem", "favor", "features"])
 def test_kernels_run_on_tensor_cores(dev, name):
     import os
     import shutil

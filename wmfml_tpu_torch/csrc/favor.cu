@@ -1,10 +1,10 @@
-// Masked FAVOR+ cross-attention core (Performer positive random features,
-// non-causal linear attention).
+// K2: masked FAVOR+ cross-attention core (Performer positive random
+// features, non-causal linear attention), one cooperative launch per call.
 //
 // Replaces wmfml_tpu/nn/attention.py:softmax_kernel_features,
 // linear_attention and favor_attention. Math kept exactly:
 //   dash  = (d^-1/4 x) . P^T                       P: [m, d] projection
-//   diag  = |x|^2 / 2 * d^-1/2
+//   diag  = |x|^2 / 2 * d^-1/2                     (from the unscaled rows)
 //   q'    = m^-1/2 (exp(dash_q - diag_q - max_row(dash_q)) + eps)
 //   k'    = m^-1/2 (exp(dash_k - diag_k - max_all(dash_k)) + eps) * mask
 //   out   = q' (k'^T v) / (q' . sum_n k')
@@ -13,194 +13,633 @@
 // no context rows divides 0 by 0 (NaN), which the model gates to 0.
 //
 // Bound: at the ANPShapeNet1D shapes (T=10, H=8, Nq=Nk=15, d=e=64, m=266)
-// the whole call is ~0.2 GFLOP and ~1.3 MB, a few microseconds of the card
-// either way; launch latency dominates.
+// the call does 82 MFLOP of feature products (dash) and 12 MFLOP of the rest
+// and moves about 1.3 MB: 0.0007 ms with dash in 3xTF32 on the tensor cores,
+// 0.0014 ms all in float32 on the CUDA cores. Both are below the device
+// time of any launch on the card (a one-element torch.add: 0.0012 ms). What
+// bounds this kernel is latency: a chain of dependent steps (loads, the
+// products, block reductions, the grid barrier), each a few microseconds.
+// The two-launch form this file replaces ran 0.0707 ms of device time in a
+// 0.0750 ms call (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py): not launch
+// overhead, but its kernels' own time.
+// What held them back: dash_k computed twice (a max pre-pass, then again),
+// every product of dash a serial 64-step fmaf chain with two shared loads a
+// step, 80 blocks of 8 warps on 132 SMs, the projection restaged with a
+// div/mod per element by every block of both launches, A = q'k'^T as 225
+// serial 266-step chains, and a third kernel casting the mask.
 //
-// Design: the global key max cannot come from one block, so a first pass
-// (favor_kmax_kernel, one block per (task, head)) writes each block's max of
-// dash_k; the main kernel (favor_fwd_kernel, one block per (task, head))
-// reduces those T*H values itself, so no atomics and no scratch to zero. The
-// main kernel holds the projection (row stride d+1: conflict-free dot
-// products), q, k, v and both feature maps in dynamic shared memory. With
-// N << m it forms A = q' k'^T [Nq, Nk] and out = A v / rowsum(A), which is
-// q' (k'^T v) / (q' . sum k') reassociated: 7x fewer FLOPs at N=15, m=266.
+// Design:
+//   * One launch, cooperative (cudaLaunchKernelEx with
+//     cudaLaunchAttributeCooperative), on a persistent grid of
+//     min(T*H, co-resident blocks); the co-resident count is queried once
+//     per device. A refused launch is an error: there is no second path.
+//     Blocks of 12 warps (three warpgroups: everything here waits on
+//     memory or on a reduction, so warps are what hides it) loop over
+//     (task, head) items in both phases. The other candidate, a cluster of
+//     up to 16 CTAs exchanging maxima through distributed shared memory,
+//     cannot hold T*H = 80 items in one cluster of 16 without looping
+//     inside it anyway, and a cluster's barrier does not reach the other
+//     clusters whose keys share the max; the grid barrier does, once.
+//   * Phase 1, per item: dash^T = P [q; k]^T on the tensor cores in 3xTF32
+//     (wgmma m64n32k8 .tf32). A is the projection, from registers: each
+//     warpgroup copies the fragments of its 64-row tiles of P (5 at
+//     m = 266, the fifth 10 rows deep; at most two a warpgroup) straight
+//     from global memory into a per-thread stash in shared memory with
+//     cp.async, in the same round of loads as the rows, and splits them
+//     with cvt.rna as it loads them into registers. B is the item's rows,
+//     q then k (15 + 15 of a 32-row tile), scaled by d^-1/4 and split as
+//     they are staged, in the operand order below. Per k-step: small*big,
+//     big*small, big*big. The item's max of dash_k over its real columns
+//     (padded columns 266..271 excluded, masked rows included) goes to
+//     block_maxima[item]. With one item a block (T*H <= co-resident
+//     blocks, as at the ANP shape), dash, v, the unscaled rows and the mask
+//     stay in shared memory through the barrier; otherwise dash goes to a
+//     scratch tensor the wrapper allocates (L2-resident) and phase 2 loads
+//     its item's inputs again. The first design kept P resident in shared
+//     memory as B (139 KB split, each block restaging it, rows as A, m64n64
+//     then m64n128 products); its staging and its wgmma chains took longer
+//     than the whole of this phase does now (PERF.md).
+//   * grid.sync(): every item's dash and max are written.
+//   * Phase 2: every block reduces all T*H maxima in the same fixed order,
+//     so every block holds the same gmax bit for bit; no atomics anywhere.
+//     Per item, a warp per row: diag from the unscaled row, the row max for
+//     q, then q' or k' in place (0 in the padded columns). A = q' k'^T by
+//     warps over tiles of 2 q rows x 4 k rows, the lanes splitting each
+//     266-long sum four columns at a time, reduced by 9 shuffles; out =
+//     A v / rowsum(A), one output per thread: q' (k'^T v) / (q' . sum k')
+//     reassociated, 7x fewer FLOPs at N=15, m=266.
+//   * The call's whole cost on the host is this one launch: q, k, v are
+//     read through their strides (the attention block hands over transposed
+//     views), the bool mask's bytes through theirs (the sampler's mask is an
+//     expanded view), the shared-memory attribute is set once per device,
+//     and nothing is allocated here.
+//   * Every global read is latency-bound, so loads are issued in rounds with
+//     all of a thread's loads in flight before the first use (batched).
+//   * An optional phase clock (stamps) records the global timer at nine
+//     points per block; chip_smoke.py prints it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_gmma.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int WGS = 3;              // warpgroups: 12 warps to hide latency
+constexpr int THREADS = 128 * WGS;
+constexpr int WARPS = THREADS / 32;
+constexpr int DP = 64;              // the head width d, zero-padded: d <= 64
+constexpr int NT = 32;              // item rows per wgmma B tile (N)
+constexpr int MAX_MP = 512;         // m padded: 4 float4 a lane per row
+// dynamic shared memory requested whatever the shape, so the occupancy (one
+// block per SM) is one number per device; 1 KB below the 227 KB limit
+constexpr int SMEM_BYTES = 231424;
+constexpr int MAX_DEVICES = 64;
+// phase clock points per block: start, staged, dash done, phase 1 done,
+// barrier passed, loaded, features done, A done, end (the later ones at the
+// block's last item)
+constexpr int STAMPS = 9;
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* proj;
+  const unsigned char* mask;        // [T, Nk] bytes 0/1, or null: all real
+  float* dash;                      // scratch [items][R][MP], R = Nq + Nk
+  float* maxima;                    // scratch [items]
+  float* out;                       // [items][Nq][e]
+  long long* stamps;                // [gridDim][STAMPS] or null
+  long long qs_t, qs_h, qs_n, ks_t, ks_h, ks_n, vs_t, vs_h, vs_n, ms_t, ms_n;
+  int items, H, Nq, Nk, d, e, m, MP;
+  float dn, dn2, ratio, eps;
+};
+
+__host__ __device__ inline int m_pad(int m) { return (m + 15) / 16 * 16; }
+__host__ __device__ inline int row_tiles(int Nq, int Nk) {
+  return (Nq + Nk + NT - 1) / NT;
+}
+// Shared memory: features (dash first) [R][MP] | v [Nk][e] | unscaled rows
+// [R][DP] | A [Nq][Nk] | key mask [Nk], rounded up to 128 bytes (the
+// operand rows after it are read through wgmma descriptors) | operand rows,
+// big | small [tiles * NT * DP each] (phase 1) | fragment stash
+// [2][DP / 2][THREADS] (phase 1) | red [WARPS]
+__host__ __device__ inline int phase2_floats(int Nq, int Nk, int e, int MP) {
+  const int R = Nq + Nk;
+  return (R * MP + Nk * e + R * DP + Nq * Nk + Nk + 31) / 32 * 32;
+}
+__host__ __device__ inline int red_offset(int Nq, int Nk, int e, int MP) {
+  return phase2_floats(Nq, Nk, e, MP) + 2 * row_tiles(Nq, Nk) * NT * DP +
+         2 * (DP / 2) * THREADS;
+}
 
 __device__ inline float warp_max(float v) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-__device__ inline float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ inline float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// every thread gets the same value: the warps' maxima in warp order
+__device__ float block_max(float v, float* red) {
   v = warp_max(v);
+  __syncthreads();                  // red is free
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = (threadIdx.x < THREADS / 32) ? red[threadIdx.x] : -INFINITY;
-  if (warp == 0) v = warp_max(v);
-  if (threadIdx.x == 0) red[0] = v;
-  __syncthreads();
-  return red[0];
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) r = fmaxf(r, red[w]);
+  return r;
 }
 
-// dot of a scaled data row (shared) with projection row j (shared, stride
-// d+1). Both kernels use this one routine, so pass 1's max is bit-equal to
-// one of the values the main kernel subtracts it from.
-__device__ inline float proj_dot(const float* xs, const float* ps, int d) {
-  float acc = 0.f;
-  for (int l = 0; l < d; ++l) acc = fmaf(xs[l], ps[l], acc);
-  return acc;
+// Sums of 8 values over the 32 lanes, scattered: lane l returns the total
+// of v[l / 4] (9 shuffles instead of 8 x 5). The halves a lane sends and
+// keeps follow its lane bits, so every sum is taken in one fixed order.
+__device__ inline float warp_sum8(float (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float lo = v[j], hi = v[j + 4];
+    v[j] = (b4 ? hi : lo) + __shfl_xor_sync(0xffffffffu, b4 ? lo : hi, 16);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float lo = v[j], hi = v[j + 2];
+    v[j] = (b3 ? hi : lo) + __shfl_xor_sync(0xffffffffu, b3 ? lo : hi, 8);
+  }
+  float s = (b2 ? v[1] : v[0]) +
+            __shfl_xor_sync(0xffffffffu, b2 ? v[0] : v[1], 4);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s + __shfl_xor_sync(0xffffffffu, s, 1);
 }
 
-__global__ void __launch_bounds__(THREADS)
-favor_kmax_kernel(const float* __restrict__ k, const float* __restrict__ proj,
-                  float* __restrict__ block_maxima, int Nk, int d, int m,
-                  float dn) {
-  extern __shared__ float smem[];
-  float* ps = smem;                    // [m][d+1]
-  float* ks = ps + m * (d + 1);        // [Nk][d], scaled by dn
-  float* red = ks + Nk * d;            // [32]
-  const int bh = blockIdx.x;
-  for (int i = threadIdx.x; i < m * d; i += THREADS)
-    ps[(i / d) * (d + 1) + i % d] = proj[i];
-  for (int i = threadIdx.x; i < Nk * d; i += THREADS)
-    ks[i] = dn * k[(size_t)bh * Nk * d + i];
-  __syncthreads();
-  float mx = -INFINITY;
-  for (int i = threadIdx.x; i < Nk * m; i += THREADS)
-    mx = fmaxf(mx, proj_dot(ks + (i / m) * d, ps + (i % m) * (d + 1), d));
-  mx = block_max(mx, red);
-  if (threadIdx.x == 0) block_maxima[bh] = mx;
+__device__ inline void stamp(const Params& p, int j) {
+  if (p.stamps != nullptr && threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    p.stamps[blockIdx.x * STAMPS + j] = t;
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-favor_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ proj,
-                 const unsigned char* __restrict__ mask,
-                 const float* __restrict__ block_maxima,
-                 float* __restrict__ out, int n_blocks, int H, int Nq, int Nk,
-                 int d, int e, int m, float dn, float ratio, float eps) {
-  extern __shared__ float smem[];
-  float* ps = smem;                    // [m][d+1]
-  float* qs = ps + m * (d + 1);        // [Nq][d] scaled by dn
-  float* ks = qs + Nq * d;             // [Nk][d] scaled by dn
-  float* vs = ks + Nk * d;             // [Nk][e]
-  float* qp = vs + Nk * e;             // [Nq][m]
-  float* kp = qp + Nq * m;             // [Nk][m]
-  float* A = kp + Nk * m;              // [Nq][Nk]
-  float* diag = A + Nq * Nk;           // [Nq + Nk]
-  float* rowmax = diag + Nq + Nk;      // [Nq]
-  float* red = rowmax + Nq;            // [32]
-
-  const int bh = blockIdx.x, t = bh / H;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t qo = (size_t)bh * Nq * d, ko = (size_t)bh * Nk * d;
-
-  float g = -INFINITY;
-  for (int i = tid; i < n_blocks; i += THREADS) g = fmaxf(g, block_maxima[i]);
-  const float gmax = block_max(g, red);
-
-  for (int i = tid; i < m * d; i += THREADS)
-    ps[(i / d) * (d + 1) + i % d] = proj[i];
-  for (int i = tid; i < Nq * d; i += THREADS) qs[i] = dn * q[qo + i];
-  for (int i = tid; i < Nk * d; i += THREADS) ks[i] = dn * k[ko + i];
-  for (int i = tid; i < Nk * e; i += THREADS) vs[i] = v[(size_t)bh * Nk * e + i];
-  // diag from the unscaled rows, as the reference computes it
-  for (int r = warp; r < Nq + Nk; r += THREADS / 32) {
-    const float* row = r < Nq ? q + qo + (size_t)r * d : k + ko + (size_t)(r - Nq) * d;
-    float s = 0.f;
-    for (int l = lane; l < d; l += 32) s = fmaf(row[l], row[l], s);
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) diag[r] = s / 2.0f * (dn * dn);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < Nq * m; i += THREADS)
-    qp[i] = proj_dot(qs + (i / m) * d, ps + (i % m) * (d + 1), d);
-  for (int i = tid; i < Nk * m; i += THREADS)
-    kp[i] = proj_dot(ks + (i / m) * d, ps + (i % m) * (d + 1), d);
-  __syncthreads();
-
-  for (int r = warp; r < Nq; r += THREADS / 32) {
-    float mx = -INFINITY;
-    for (int j = lane; j < m; j += 32) mx = fmaxf(mx, qp[r * m + j]);
-    mx = warp_max(mx);
-    if (lane == 0) rowmax[r] = mx;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < Nq * m; i += THREADS) {
-    const int r = i / m;
-    qp[i] = ratio * (expf(qp[i] - diag[r] - rowmax[r]) + eps);
-  }
-  for (int i = tid; i < Nk * m; i += THREADS) {
-    const int n = i / m;
-    const float keep = mask[(size_t)t * Nk + n] ? 1.f : 0.f;
-    kp[i] = ratio * (expf(kp[i] - diag[Nq + n] - gmax) + eps) * keep;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < Nq * Nk; i += THREADS) {
-    const float* a = qp + (i / Nk) * m;
-    const float* b = kp + (i % Nk) * m;
-    float s = 0.f;
-    for (int j = 0; j < m; ++j) s = fmaf(a[j], b[j], s);
-    A[i] = s;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < Nq * e; i += THREADS) {
-    const int r = i / e, c = i % e;
-    float num = 0.f, den = 0.f;
-    for (int n = 0; n < Nk; ++n) {
-      const float a = A[r * Nk + n];
-      num = fmaf(a, vs[n * e + c], num);
-      den += a;
+// n float4 copies, load(i) then store(i, x), with U loads in flight per
+// thread before the first store: every global read here is latency-bound
+template <int U, class Load, class Store>
+__device__ __forceinline__ void batched(int n, Load load, Store store) {
+  for (int base = threadIdx.x; base < n; base += THREADS * U) {
+    float4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * THREADS;
+      x[u] = i < n ? load(i) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    out[(size_t)bh * Nq * e + i] = num / den;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * THREADS;
+      if (i < n) store(i, x[u]);
+    }
   }
 }
+
+__device__ inline float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The wgmma B operand order of the item's rows, K = DP = 64 columns: in
+// float4 units, i = ((g * 8 + s) * 2 + half) * 8 + r holds row g * 8 + r,
+// columns s * 8 + half * 4 .. + 3. A k-step s of row groups g.. starts at
+// float (g * 8 + s) * 64, its K halves 128 B apart (the descriptor's leading
+// byte offset) and its row groups 2048 B apart (its stride byte offset);
+// eight consecutive threads store 128 consecutive bytes, and no index needs
+// a division.
+__device__ inline int op_row(int i) { return (i >> 7) * 8 + (i & 7); }
+__device__ inline int op_col(int i) { return ((i >> 4) & 7) * 8 + ((i >> 3) & 1) * 4; }
+
+// x -> big and small, in place of float4 i of each part
+__device__ void split_store(float* big, int part, int i, float4 x) {
+  uint32_t b[4], sm[4];
+  tc::split(x.x, b[0], sm[0]);
+  tc::split(x.y, b[1], sm[1]);
+  tc::split(x.z, b[2], sm[2]);
+  tc::split(x.w, b[3], sm[3]);
+  reinterpret_cast<float4*>(big)[i] =
+      make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                  __uint_as_float(b[2]), __uint_as_float(b[3]));
+  reinterpret_cast<float4*>(big + part)[i] =
+      make_float4(__uint_as_float(sm[0]), __uint_as_float(sm[1]),
+                  __uint_as_float(sm[2]), __uint_as_float(sm[3]));
+}
+
+// the item's q rows, then its k rows, zero-padded to the NT-row tiles
+__device__ float4 row_load(const Params& p, int item, int i) {
+  const int t = item / p.H, h = item % p.H;
+  const int r = op_row(i), c = op_col(i);
+  if (r >= p.Nq + p.Nk || c >= p.d) return make_float4(0.f, 0.f, 0.f, 0.f);
+  return r < p.Nq ? ldg4(p.q + t * p.qs_t + h * p.qs_h + r * p.qs_n + c)
+                  : ldg4(p.k + t * p.ks_t + h * p.ks_h + (r - p.Nq) * p.ks_n +
+                         c);
+}
+// the B operand: scaled by d^-1/4 as the reference scales them, then split
+__device__ void row_store(const Params& p, float* rows, int part, int i,
+                          float4 x) {
+  split_store(rows, part, i,
+              make_float4(p.dn * x.x, p.dn * x.y, p.dn * x.z, p.dn * x.w));
+}
+
+// This thread's A fragments of projection tile mt (wgmma A from registers,
+// tf32_gmma.cuh): rows 64 mt + 16 w + g and + 8, columns 8 s + t and + 4,
+// zero past m and d; element (s, q) at stash[(4 s + q) * THREADS + tid].
+// Copied global -> shared by cp.async, so they hold no registers while in
+// flight; a k-step of a warp reads 16 rows x 32 contiguous bytes, and the
+// projection never passes through shared memory in any other form.
+__device__ __forceinline__ void stash_fragments(const Params& p, int mt,
+                                                float* stash) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int j0 = mt * 64 + warp * 16 + (lane >> 2), c0 = lane & 3;
+#pragma unroll
+  for (int s = 0; s < DP / 8; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + (q & 1) * 8, c = 8 * s + c0 + (q >> 1) * 4;
+      const bool ok = j < p.m && c < p.d;
+      tc::cp_async4(stash + (4 * s + q) * THREADS + threadIdx.x,
+                    ok ? p.proj + j * p.d + c : p.proj, ok);
+    }
+}
+
+// One unit of phase 1 for this warpgroup: dash^T of projection tile mt (64
+// features) against item row tile nt (NT rows), from the stashed fragments;
+// small*big, big*small, big*big per k-step. Stores the real rows to dst
+// ([R][MP]) and returns kmax raised by the unit's key values in real
+// columns.
+__device__ __forceinline__ float dash_unit(const Params& p, float* dst,
+                                           int mt, int nt, const float* stash,
+                                           const float* rows, int part,
+                                           float kmax) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  uint32_t ab[DP / 8][4], as[DP / 8][4];
+#pragma unroll
+  for (int s = 0; s < DP / 8; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      tc::split(stash[(4 * s + q) * THREADS + threadIdx.x], ab[s][q], as[s][q]);
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+  tc::fence();
+#pragma unroll
+  for (int s = 0; s < DP / 8; ++s) {
+    const float* b = rows + (nt * NT + s) * 64;   // row group 4 nt, k-step s
+    const uint64_t big = tc::desc_b(b, 128, 2048);
+    const uint64_t small = tc::desc_b(b + part, 128, 2048);
+    tc::mma_n32(acc, as[s][0], as[s][1], as[s][2], as[s][3], big);
+    tc::mma_n32(acc, ab[s][0], ab[s][1], ab[s][2], ab[s][3], small);
+    tc::mma_n32(acc, ab[s][0], ab[s][1], ab[s][2], ab[s][3], big);
+  }
+  tc::commit();
+  tc::wait<0>();
+  tc::pin(acc);
+
+  // acc holds dash[n][j] at feature j = 64 mt + 16 w + g (+ 8), item row
+  // n = NT nt + 8 jj + 2 t (+ 1)
+  const int R = p.Nq + p.Nk, j0 = mt * 64 + warp * 16 + g;
+#pragma unroll
+  for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + (e >> 1) * 8, n = nt * NT + 8 * jj + 2 * tq + (e & 1);
+      const float val = acc[4 * jj + e];
+      if (j < p.MP && n < R) dst[(size_t)n * p.MP + j] = val;
+      if (j < p.m && n >= p.Nq && n < R) kmax = fmaxf(kmax, val);
+    }
+  }
+  return kmax;
+}
+
+// q' or k' of four consecutive columns c.. of a row
+__device__ inline float4 features4(const Params& p, float4 x, int c,
+                                   float diag, float stab, float keep) {
+  float y[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    y[j] = c + j < p.m
+               ? p.ratio * (expf(y[j] - diag - stab) + p.eps) * keep
+               : 0.f;
+  return make_float4(y[0], y[1], y[2], y[3]);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) favor_kernel(const Params p) {
+  extern __shared__ __align__(128) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = p.Nq + p.Nk, M4 = p.MP / 4, tiles = row_tiles(p.Nq, p.Nk);
+  float* F = smem;                  // [R][MP]: dash, then q' and k'
+  float* V = F + R * p.MP;          // [Nk][e]
+  float* X = V + p.Nk * p.e;        // [R][DP], unscaled
+  float* A = X + R * DP;            // [Nq][Nk]
+  float* keep = A + p.Nq * p.Nk;    // [Nk]
+  float* rows = smem + phase2_floats(p.Nq, p.Nk, p.e, p.MP);
+  float* stash = rows + 2 * tiles * NT * DP;
+  float* red = smem + red_offset(p.Nq, p.Nk, p.e, p.MP);
+  float4* F4 = reinterpret_cast<float4*>(F);
+  const int part = tiles * NT * DP, nr = part / 4, nv = p.Nk * p.e / 4;
+  // with one item a block, dash, v, the rows and the mask stay in shared
+  // memory from phase 1 to phase 2; otherwise dash goes through scratch and
+  // phase 2 loads its item's inputs again
+  const bool resident = p.items <= (int)gridDim.x;
+  stamp(p, 0);
+
+  // -- phase 1: dash and each item's key max ---------------------------------
+  {
+    const int mtiles = (p.MP + 63) / 64, units = mtiles * tiles;
+    // unit u: projection tile (u + block) % mtiles, so that the blocks do not
+    // all ask the same L2 lines at once, and row tile u / mtiles
+    const int u0 = tid >> 7;
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const int t = item / p.H, h = item % p.H;
+      // one round of loads: this warpgroup's first two units' fragments,
+      // the rows and, resident, v and the mask; block_max below ended the
+      // previous item's reads of rows and stash
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        if (u0 + k * WGS < units)
+          stash_fragments(p, (u0 + k * WGS + blockIdx.x) % mtiles,
+                          stash + k * (DP / 2) * THREADS);
+      tc::cp_async_commit();
+      const bool kept = tid < p.Nk && (p.mask == nullptr ||
+                                       p.mask[t * p.ms_t + tid * p.ms_n]);
+      const float* vb = p.v + t * p.vs_t + h * p.vs_h;
+      const int e4 = p.e / 4;
+      batched<3>(
+          nr + (resident ? nv : 0),
+          [&](int i) {
+            return i < nr ? row_load(p, item, i)
+                          : ldg4(vb + (i - nr) / e4 * p.vs_n + (i - nr) % e4 * 4);
+          },
+          [&](int i, float4 x) {
+            if (i >= nr) {
+              reinterpret_cast<float4*>(V)[i - nr] = x;
+              return;
+            }
+            row_store(p, rows, part, i, x);
+            const int r = op_row(i);
+            if (resident && r < R)
+              *reinterpret_cast<float4*>(X + r * DP + op_col(i)) = x;
+          });
+      if (resident && tid < p.Nk) keep[tid] = kept ? 1.f : 0.f;
+      tc::cp_async_wait<0>();       // this thread's own stash
+      tc::fence_async_smem();       // the operands, for wgmma's reads
+      __syncthreads();
+      stamp(p, 1);
+      float* dst = resident ? F : p.dash + (size_t)item * R * p.MP;
+      float kmax = -INFINITY;
+      for (int k = 0, u = u0; u < units; ++k, u += WGS) {
+        const int mt = (u + blockIdx.x) % mtiles;
+        float* st = stash + (k & 1) * (DP / 2) * THREADS;
+        if (k >= 2) {               // more units than stashed (large shapes)
+          stash_fragments(p, mt, st);
+          tc::cp_async_commit();
+          tc::cp_async_wait<0>();
+        }
+        kmax = dash_unit(p, dst, mt, u / mtiles, st, rows, part, kmax);
+      }
+      stamp(p, 2);
+      kmax = block_max(kmax, red);
+      if (tid == 0) p.maxima[item] = kmax;
+    }
+  }
+  stamp(p, 3);
+
+  cg::this_grid().sync();
+  stamp(p, 4);
+
+  // -- phase 2: features, A = q'k'^T, out = A v / rowsum(A) --------------------
+  // the block's first share of the maxima
+  const float g0 = tid < p.items ? __ldcg(p.maxima + tid) : -INFINITY;
+  float gmax = -INFINITY;
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const int t = item / p.H, h = item % p.H;
+    if (!resident) {
+      __syncthreads();              // the previous item's reads are done
+      // the item's dash, v and rows in one round of loads, straight into
+      // F | V | X, and the key mask's bytes
+      const float4* src =
+          reinterpret_cast<const float4*>(p.dash + (size_t)item * R * p.MP);
+      const float* vb = p.v + t * p.vs_t + h * p.vs_h;
+      const float* qb = p.q + t * p.qs_t + h * p.qs_h;
+      const float* kb = p.k + t * p.ks_t + h * p.ks_h;
+      const int nf = R * M4, e4 = p.e / 4;
+      const bool kept = tid < p.Nk && (p.mask == nullptr ||
+                                       p.mask[t * p.ms_t + tid * p.ms_n]);
+      batched<7>(
+          nf + nv + R * DP / 4,
+          [&](int i) {
+            if (i < nf) return __ldcg(src + i);
+            if (i < nf + nv)
+              return ldg4(vb + (i - nf) / e4 * p.vs_n + (i - nf) % e4 * 4);
+            const int j = i - nf - nv, r = j / (DP / 4), c = j % (DP / 4) * 4;
+            if (c >= p.d) return make_float4(0.f, 0.f, 0.f, 0.f);
+            return r < p.Nq ? ldg4(qb + r * p.qs_n + c)
+                            : ldg4(kb + (r - p.Nq) * p.ks_n + c);
+          },
+          [&](int i, float4 x) { F4[i] = x; });
+      if (tid < p.Nk) keep[tid] = kept ? 1.f : 0.f;
+    }
+    if (item == blockIdx.x) {       // every thread holds the same gmax
+      float g = g0;
+      for (int i = tid + THREADS; i < p.items; i += THREADS)
+        g = fmaxf(g, __ldcg(p.maxima + i));
+      gmax = block_max(g, red);
+    } else {
+      __syncthreads();
+    }
+    stamp(p, 5);
+
+    // a warp per row: diag from the unscaled row, the row max for q, then
+    // q' or k' in place (0 in the padded columns)
+    for (int r = warp; r < R; r += WARPS) {
+      const float x0 = X[r * DP + lane], x1 = X[r * DP + lane + 32];
+      const float diag = warp_sum(fmaf(x1, x1, x0 * x0)) / 2.0f * p.dn2;
+      float4 x[MAX_MP / 128];
+#pragma unroll
+      for (int j = 0; j < MAX_MP / 128; ++j) {
+        const int c4 = lane + 32 * j;
+        x[j] = c4 < M4 ? F4[r * M4 + c4] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float stab = gmax, kp = 1.f;
+      if (r < p.Nq) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < MAX_MP / 128; ++j) {
+          const int c = 4 * (lane + 32 * j);
+          if (c < p.m) mx = fmaxf(mx, x[j].x);
+          if (c + 1 < p.m) mx = fmaxf(mx, x[j].y);
+          if (c + 2 < p.m) mx = fmaxf(mx, x[j].z);
+          if (c + 3 < p.m) mx = fmaxf(mx, x[j].w);
+        }
+        stab = warp_max(mx);
+      } else {
+        kp = keep[r - p.Nq];
+      }
+#pragma unroll
+      for (int j = 0; j < MAX_MP / 128; ++j) {
+        const int c4 = lane + 32 * j;
+        if (c4 < M4) F4[r * M4 + c4] = features4(p, x[j], 4 * c4, diag, stab, kp);
+      }
+    }
+    __syncthreads();
+    stamp(p, 6);
+
+    // A = q' k'^T: a warp per tile of 2 q rows x 4 k rows, the lanes
+    // splitting the sum over the features four columns at a time
+    const int tk = (p.Nk + 3) / 4, ntiles = (p.Nq + 1) / 2 * tk;
+    for (int tile = warp; tile < ntiles; tile += WARPS) {
+      const int i0 = tile / tk * 2, n0 = tile % tk * 4;
+      const float4* fq[2];
+      const float4* fk[4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) fq[a] = F4 + min(i0 + a, p.Nq - 1) * M4;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        fk[b] = F4 + (p.Nq + min(n0 + b, p.Nk - 1)) * M4;
+      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int c4 = lane; c4 < M4; c4 += 32) {
+        float4 x[2], y[4];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) x[a] = fq[a][c4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) y[b] = fk[b][c4];
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            float& s = acc[a * 4 + b];
+            s = fmaf(x[a].x, y[b].x, s);
+            s = fmaf(x[a].y, y[b].y, s);
+            s = fmaf(x[a].z, y[b].z, s);
+            s = fmaf(x[a].w, y[b].w, s);
+          }
+      }
+      const float sum = warp_sum8(acc);
+      const int i = i0 + (lane >> 4), n = n0 + ((lane >> 2) & 3);
+      if ((lane & 3) == 0 && i < p.Nq && n < p.Nk) A[i * p.Nk + n] = sum;
+    }
+    __syncthreads();
+    stamp(p, 7);
+
+    // out = A v / rowsum(A): four outputs a thread, their sums interleaved
+    float* ob = p.out + (size_t)item * p.Nq * p.e;
+    const int no = p.Nq * p.e;
+    for (int o0 = tid; o0 < no; o0 += 4 * THREADS) {
+      float num[4] = {0.f, 0.f, 0.f, 0.f}, den[4] = {0.f, 0.f, 0.f, 0.f};
+      int ii[4], cc[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int o = min(o0 + u * THREADS, no - 1);
+        ii[u] = o / p.e;
+        cc[u] = o % p.e;
+      }
+      for (int n = 0; n < p.Nk; ++n) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float a = A[ii[u] * p.Nk + n];
+          num[u] = fmaf(a, V[n * p.e + cc[u]], num[u]);
+          den[u] += a;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (o0 + u * THREADS < no) ob[o0 + u * THREADS] = num[u] / den[u];
+    }
+  }
+  stamp(p, 8);
+}
+
+int coresident[MAX_DEVICES];        // blocks that fit the card at once; 0 =
+                                    // not queried on that device yet
 
 }  // namespace
 
-extern "C" int wmfml_favor_kmax_smem_bytes(int Nk, int d, int m) {
-  return (m * (d + 1) + Nk * d + 32) * (int)sizeof(float);
+// Shared memory the shape needs (bytes); the launch takes SMEM_BYTES.
+extern "C" int wmfml_favor_smem_bytes(int Nq, int Nk, int e, int m) {
+  return (red_offset(Nq, Nk, e, m_pad(m)) + WARPS) * (int)sizeof(float);
 }
 
-extern "C" int wmfml_favor_fwd_smem_bytes(int Nq, int Nk, int d, int e, int m) {
-  return (m * (d + 1) + Nq * d + Nk * d + Nk * e + Nq * m + Nk * m + Nq * Nk +
-          Nq + Nk + Nq + 32) * (int)sizeof(float);
+// Co-resident blocks on the current device (queried once per device), or a
+// negative cudaError_t.
+extern "C" int wmfml_favor_coresident() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev >= MAX_DEVICES) return -(int)cudaErrorInvalidDevice;
+  if (coresident[dev] == 0) {
+    err = cudaFuncSetAttribute(
+        favor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return -(int)err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return -(int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, favor_kernel,
+                                                        THREADS, SMEM_BYTES);
+    if (err != cudaSuccess) return -(int)err;
+    if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+    coresident[dev] = per_sm * sms;
+  }
+  return coresident[dev];
 }
 
-// q [BH, Nq, d]; k [BH, Nk, d]; v [BH, Nk, e]; proj [m, d]; mask [BH/H, Nk]
-// uint8; block_maxima [BH] scratch; out [BH, Nq, e]. Two launches on
-// `stream`; returns the first non-zero cudaError_t.
+// q [T,H,Nq,d], k [T,H,Nk,d], v [T,H,Nk,e] at element strides (t, h, n),
+// each a multiple of 4, unit stride along the last axis and 16-byte aligned;
+// proj [m, d] contiguous, 16-byte aligned; d and e multiples of 4, d <= 64;
+// mask [T, Nk] bytes at strides (t, n), or null; scratch
+// [T*H * ((Nq + Nk) * MP + 1)] floats, 16-byte aligned, with MP = m rounded
+// up to 16, m <= 512 (dash, then the items' key maxima); out [T,H,Nq,e]
+// contiguous; stamps null, or [T*H, 9] int64 for the phase clock. One
+// cooperative launch on `stream`. Returns its cudaError_t, or -1 when the
+// shape does not fit the kernel.
 extern "C" int wmfml_favor_fwd(const float* q, const float* k, const float* v,
                                const float* proj, const unsigned char* mask,
-                               float* block_maxima, float* out, int BH, int H,
+                               float* scratch, float* out, long long* stamps,
+                               long long qs_t, long long qs_h, long long qs_n,
+                               long long ks_t, long long ks_h, long long ks_n,
+                               long long vs_t, long long vs_h, long long vs_n,
+                               long long ms_t, long long ms_n, int T, int H,
                                int Nq, int Nk, int d, int e, int m, float dn,
-                               float ratio, float eps, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int smem1 = wmfml_favor_kmax_smem_bytes(Nk, d, m);
-  cudaError_t err = cudaFuncSetAttribute(
-      favor_kmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+                               float dn2, float ratio, float eps,
+                               void* stream) {
+  if (d < 1 || d > DP || d % 4 || e < 1 || e % 4 || Nq < 1 || Nk < 1 ||
+      m < 1 || m_pad(m) > MAX_MP ||
+      wmfml_favor_smem_bytes(Nq, Nk, e, m) > SMEM_BYTES)
+    return -1;
+  const int items = T * H;
+  if (items == 0) return 0;
+  const int blocks = wmfml_favor_coresident();
+  if (blocks < 0) return -blocks;
+  const int MP = m_pad(m);
+  float* maxima = scratch + (size_t)items * (Nq + Nk) * MP;
+  const Params p{q,    k,    v,    proj, mask, scratch, maxima, out,
+                 stamps, qs_t, qs_h, qs_n, ks_t, ks_h, ks_n, vs_t, vs_h,
+                 vs_n, ms_t, ms_n, items, H, Nq, Nk, d, e, m, MP,
+                 dn,   dn2,  ratio, eps};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(items < blocks ? items : blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, favor_kernel, p);
   if (err != cudaSuccess) return (int)err;
-  favor_kmax_kernel<<<BH, THREADS, smem1, s>>>(k, proj, block_maxima, Nk, d, m, dn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int smem2 = wmfml_favor_fwd_smem_bytes(Nq, Nk, d, e, m);
-  err = cudaFuncSetAttribute(
-      favor_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
-  if (err != cudaSuccess) return (int)err;
-  favor_fwd_kernel<<<BH, THREADS, smem2, s>>>(q, k, v, proj, mask, block_maxima,
-                                             out, BH, H, Nq, Nk, d, e, m, dn,
-                                             ratio, eps);
   return (int)cudaGetLastError();
 }

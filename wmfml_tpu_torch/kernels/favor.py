@@ -2,8 +2,9 @@
 
 Replaces ``wmfml_tpu/nn/attention.py:softmax_kernel_features``,
 ``linear_attention`` and ``favor_attention``. ``csrc/favor.cu`` says what
-bounds the kernel (launch latency: the work is a few microseconds) and how
-it takes the one global key max that no single block can see.
+bounds the kernel and how one cooperative launch takes the one global key
+max that no single block can see (a grid barrier between the feature
+products and the rest).
 
 ``favor_attention`` is the wrapper the attention block calls. A CPU tensor
 takes the plain twin (the JAX math, op for op); a CUDA tensor launches the
@@ -22,7 +23,11 @@ import torch
 from wmfml_tpu_torch.kernels import build
 
 EPS = 1e-4
-SMEM_LIMIT = 232_448   # bytes of dynamic shared memory a Hopper block may use
+MAX_D = 64             # widest head the kernel takes (zero-padded to 64)
+# the kernel's phase clock (csrc/favor.cu: stamp)
+PHASES = ("start", "staged", "dash_done", "phase1_done", "barrier_passed",
+          "loaded", "features_done", "a_done", "end")
+STAMPS = len(PHASES)
 
 
 def softmax_kernel_features(data, projection, is_query: bool, eps=EPS):
@@ -56,11 +61,41 @@ def favor_plain(q, k, v, projection, mask: Optional[torch.Tensor] = None):
     return linear_attention(q_prime, k_prime, v)
 
 
-def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None):
-    """Run the CUDA kernels once (no autograd, no launch count)."""
-    tensors = (q, k, v, projection)
-    if any(t.device.type != "cuda" or t.dtype != torch.float32
-           for t in tensors):
+_fwd = None
+
+
+def _kernel():
+    """The launch function, its ctypes signature set once, at first load."""
+    global _fwd
+    if _fwd is None:
+        fn = build.load("favor").wmfml_favor_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 11
+                       + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fwd = fn
+    return _fwd
+
+
+def _aligned(a):
+    """``a`` itself where the kernel can read it in float4s (unit last
+    stride, other strides multiples of 4, 16-byte aligned), else a copy."""
+    if (a.stride(-1) == 1 and all(s % 4 == 0 for s in a.stride()[:-1])
+            and a.data_ptr() % 16 == 0):
+        return a
+    return a.clone(memory_format=torch.contiguous_format)
+
+
+def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
+                 stamps: Optional[torch.Tensor] = None):
+    """Run the CUDA kernel once (no autograd, no launch count): one
+    cooperative launch, and nothing else on the card. ``stamps`` (int64
+    [T * H, STAMPS], for ``chip_smoke.py``) turns on the kernel's phase
+    clock: block b writes the global timer (ns) to row b at the points
+    ``PHASES`` names (those after the grid barrier at its last item); rows
+    past the grid are left as they are."""
+    if any(not t.is_cuda or t.dtype != torch.float32
+           for t in (q, k, v, projection)):
         raise TypeError("FAVOR kernel takes float32 CUDA tensors only")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("FAVOR kernel takes q, k, v as [T, H, N, d]")
@@ -71,31 +106,44 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None):
         raise ValueError(f"FAVOR shapes disagree: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"projection {tuple(projection.shape)}")
-    if mask is None:
-        mask = torch.ones((t, nk), dtype=torch.bool, device=q.device)
-    if tuple(mask.shape) != (t, nk) or mask.device != q.device:
-        raise ValueError(f"FAVOR mask must be [T, Nk] = {(t, nk)} on the "
-                         f"same device; got {tuple(mask.shape)}")
-    lib = build.load("favor")
-    smem = lib.wmfml_favor_fwd_smem_bytes(nq, nk, d, e, m)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"FAVOR kernel needs {smem} B of shared memory "
-                         f"(> {SMEM_LIMIT}) at Nq={nq}, Nk={nk}, d={d}, m={m}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    proj = projection.contiguous()
-    mask_u8 = mask.to(torch.uint8).contiguous()
-    block_maxima = torch.empty(t * h, device=q.device, dtype=torch.float32)
+    if d > MAX_D or d % 4 or e % 4:
+        raise ValueError(f"FAVOR kernel takes d <= {MAX_D} and d, e "
+                         f"multiples of 4; got d={d}, e={e}")
+    if mask is not None and (tuple(mask.shape) != (t, nk)
+                             or mask.device != q.device
+                             or mask.dtype != torch.bool):
+        raise ValueError(f"FAVOR mask must be bool [T, Nk] = {(t, nk)} on "
+                         f"the same device; got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if stamps is not None and (stamps.device != q.device
+                               or stamps.dtype != torch.int64
+                               or tuple(stamps.shape) != (t * h, STAMPS)):
+        raise ValueError(f"FAVOR stamps must be int64 [T * H, {STAMPS}] on "
+                         f"the card")
+    # the kernel reads q, k, v and the mask's bytes through their strides:
+    # the attention block passes transposed views, the sampler an expanded
+    # mask, and neither is copied
+    q, k, v = (_aligned(a) for a in (q, k, v))
+    proj = _aligned(projection)
+    # dash [T*H, Nq+Nk, m rounded up to 16], then the items' key maxima
+    mp = -(-m // 16) * 16
+    scratch = torch.empty(t * h * ((nq + nk) * mp + 1),
+                          device=q.device, dtype=torch.float32)
     out = torch.empty((t, h, nq, e), device=q.device, dtype=torch.float32)
-    fn = lib.wmfml_favor_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
-             mask_u8.data_ptr(), block_maxima.data_ptr(), out.data_ptr(),
-             t * h, h, nq, nk, d, e, m, d ** -0.25, m ** -0.5, EPS,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    mask_args = ((0, 0, 0) if mask is None
+                 else (mask.data_ptr(), *mask.stride()))
+    err = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
+        mask_args[0], scratch.data_ptr(), out.data_ptr(),
+        0 if stamps is None else stamps.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *mask_args[1:],
+        t, h, nq, nk, d, e, m, d ** -0.25, d ** -0.5, m ** -0.5, EPS,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err == -1:
+        raise ValueError(f"FAVOR kernel does not fit Nq={nq}, Nk={nk}, "
+                         f"e={e}, m={m} in shared memory")
     if err != 0:
-        raise RuntimeError(f"FAVOR launch failed: cudaError {err}")
+        raise RuntimeError(f"FAVOR cooperative launch failed: cudaError {err}")
     return out
 
 
