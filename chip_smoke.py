@@ -5,8 +5,8 @@
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
                                      # ANP and MAML training steps (top
                                      # kernels, busy share)
-    python3 chip_smoke.py --grad-spread  # also phase 6's comparison on
-                                     # phase 5's own state, for 8 batches
+    python3 chip_smoke.py --grad-spread  # also phase 8's comparison on
+                                     # phase 7's own state, for 8 batches
 
 Phases, each fatal on failure (nothing is caught and reported as ok):
   1. the card's name and power limit (nvidia-smi); TF32 off for cuDNN and
@@ -15,35 +15,49 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      source, all started together);
   3. each kernel at its path's shapes against its plain PyTorch twin on the
      same inputs, within the tolerance stated beside it: K1 with shared
-     weights (ANP, 300 images) and per task (MAML, 10 x 15 images), K2, and
-     K3 masked (shots 3..15) and unmasked; kernel, plain and library times
-     by CUDA events, the device time of one kernel call (the summed
+     weights (ANP, 300 images) and per task (MAML, 10 x 15 images), K2, K3
+     masked (shots 3..15) and unmasked, K4 (the DA warp chain, 150 images,
+     two stages and one stage with nearest taps) and K5 (the DA hash masks,
+     Dropout and CoarseDropout, bit for bit); kernel, plain and library
+     times by CUDA events, the device time of one kernel call (the summed
      durations of its launches, torch.profiler) and its number of kernels
      (K2: one), and the floor, the device time of a one-element torch.add.
      K1's conv1, K2's feature products and K3's convolutions run on the
      tensor cores in 3xTF32 (float32 accuracy from split TF32 operands), so
      their bound counts 3 TF32 products per product at the tensor cores'
      rate, with the float32 CUDA-core bound beside it;
-  4. the ANP path: ANPShapeNet1D meta-training through
-     ``wmfml_tpu_torch.cli.train_cli`` at full width (T=10, 15 + 15,
-     128x128x1, dim_w 64, 8 FAVOR heads, m=266) on synthetic ShapeNet1D
-     ``data_size=large`` with task augmentation, 24 steps and one validation;
-     launch counts are zeroed just before and read just after, and each
-     kernel must have launched; the trained model's output on a validation
-     episode must agree with the same model run through the plain twins;
-  5. the MAML path: second-order MAMLShapeNet1D meta-training through
-     ``train_cli`` (``cfg/train/MAML_DA_ShapeNet1D.yaml`` with
-     ``aug_list=[]``: T=10, 15 + 15, dim_w 196 -> 14x14, 4 blocks of 64
-     filters, 5 inner steps at update_lr 0.002, 20 at validation), 12 steps
-     and one validation; K1 and K3 must have launched exactly as often as
-     the code says; the trained model's validation loss on one episode must
-     agree between the card and the CPU;
-  6. the second-order outer gradient of one full-width MAML batch through
-     the kernels against the same gradient by plain autograd through the
-     twins (no custom autograd Function at all), on the card, on phase 5's
-     training replayed under deterministic algorithms, so that its state,
-     its sums and its verdict are the same on every run;
-  7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+  4. the ANP path: ``cfg/train/ANP_DA+TA_ShapeNet1D.yaml`` as shipped (task
+     and image augmentation) through ``wmfml_tpu_torch.cli.train_cli`` at
+     full width (T=10, 15 + 15, 128x128x1, dim_w 64, 8 FAVOR heads, m=266)
+     on synthetic ShapeNet1D ``data_size=large``, 24 steps and one
+     validation; launch counts are zeroed just before and read just after,
+     each kernel must have launched, and K4 and K5 exactly as often as the
+     op orders the run drew imply; the trained model's output on a
+     validation episode must agree with the same model run through the
+     plain twins;
+  5. image DA on one full-width training batch (150 context and 150 query
+     images), in each of the six op orders, through K4 and K5 against the
+     twins at the same parameters, and its time per training step;
+  6. evaluation: ``wmfml_tpu_torch.cli.evaluation_cli``'s ``evaluate`` with
+     ``cfg/evaluation/ANP_ShapeNet1D.yaml`` (max_ctx_num 25, 10 episodes a
+     point, validation and test) over phase 4's final checkpoint; both loss
+     files must hold 25 finite rows of 3 columns, and one point's loss must
+     agree with the same evaluation on the CPU;
+  7. the MAML path: second-order MAMLShapeNet1D meta-training through
+     ``train_cli`` (``cfg/train/MAML_DA_ShapeNet1D.yaml`` as shipped, image
+     DA its only augmentation: T=10, 15 + 15, dim_w 196 -> 14x14, 4 blocks
+     of 64 filters, 5 inner steps at update_lr 0.002, 20 at validation), 12
+     steps and one validation; K1 and K3 must have launched exactly as often
+     as the code says, K4 and K5 as the drawn orders imply; the trained
+     model's validation loss on one episode must agree between the card and
+     the CPU;
+  8. the second-order outer gradient of one full-width MAML batch (augmented
+     once through K4 and K5: DA has no gradient) through the kernels against
+     the same gradient by plain autograd through the twins (no custom
+     autograd Function at all), on the card, on phase 7's training replayed
+     under deterministic algorithms, so that its state, its sums and its
+     verdict are the same on every run;
+  9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository around it.
@@ -60,19 +74,24 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN_YAML = os.path.join(HERE, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")
-TRAIN_OVERRIDES = ["aug_list=[task_aug]", "data_size=large",
-                   "synthetic_data=true", "iterations=24", "val_freq=1000",
-                   "val_iters=2", "steps_per_call=1", "device=cuda"]
+TRAIN_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=24",
+                   "val_freq=1000", "val_iters=2", "steps_per_call=1",
+                   "device=cuda"]
 MAML_YAML = os.path.join(HERE, "cfg", "train", "MAML_DA_ShapeNet1D.yaml")
-MAML_OVERRIDES = ["aug_list=[]", "data_size=large", "synthetic_data=true",
-                  "iterations=12", "val_freq=1000", "val_iters=1",
-                  "steps_per_call=1", "device=cuda"]
+MAML_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=12",
+                  "val_freq=1000", "val_iters=1", "steps_per_call=1",
+                  "device=cuda"]
+EVAL_YAML = os.path.join(HERE, "cfg", "evaluation", "ANP_ShapeNet1D.yaml")
+EVAL_OVERRIDES = ["synthetic_data=true", "device=cuda"]
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# integer operations (K5's hash): 64 INT32 lanes per SM (Hopper
+# architecture white paper) x 132 SMs x 1.98 GHz boost clock
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
 
 # max |kernel - plain| <= ATOL + RTOL * |plain|, elementwise; both sides are
 # float32 sums taken in another order (<= 297 terms for the stem, 64 + 266
@@ -81,7 +100,11 @@ PEAK_BYTES_PER_S = 3.35e12
 # statistic in another order, then divides by the channel's std, three
 # times over; its O(1) outputs keep about five digits
 TOL = {"literature_stem": (1e-4, 1e-4), "favor_attention": (1e-5, 1e-4),
-       "maml_features": (1e-4, 1e-4)}
+       "maml_features": (1e-4, 1e-4), "warp_chain": (1e-5, 1e-5),
+       "hash_dropout": (0.0, 0.0)}
+# K4 sums at most 16 taps of values in [0, 1] plus the fill in another order
+# than the dense twin's matrix products; K5 is integer arithmetic and must
+# equal its twin bit for bit
 # the second-order outer gradient against float64 plain autograd, per
 # parameter as max |difference| / max |float64|. The one-pass batch norm
 # (E[x^2] - E[x]^2 in float32, as the JAX package computes it) cancels
@@ -422,6 +445,122 @@ def check_features(model, gen):
                 **res, **times, **bound(0.0, nbytes, split_flops=flops))
 
 
+def da_params(gen, b, h, w, ops):
+    """Sampler draws for ``b`` images with the gates of ``ops`` (and the
+    dropout op) on, so that every image is warped or masked; Affine's
+    nearest taps as drawn (about half the images)."""
+    import torch
+
+    from wmfml_tpu_torch.aug.image_aug import ShapeNet1DAugmenter
+
+    p = ShapeNet1DAugmenter().sample((b, h, w, 1), gen, "cuda")
+    for op in ops:
+        p.warp[:, op, 6] = 1.0
+    p.drop[:, 0] = 1.0
+    torch.cuda.synchronize()
+    return p
+
+
+def check_warp(gen, ops):
+    """K4 at the DA call's shape, [150, 128, 128, 1] (10 tasks x 15 images),
+    every gate of ``ops`` on, against the dense twin. The library yardstick
+    is the dense form's image mix as two ``torch.bmm`` on prebuilt [150,
+    128, 128] matrices (My img, then Mx^T), without the fill."""
+    import torch
+
+    from wmfml_tpu_torch.aug import image_aug
+    from wmfml_tpu_torch.kernels import warp
+
+    b, h, w = 150, 128, 128
+    p = da_params(gen, b, h, w, ops)
+    x = torch.rand((b, h, w, 1), generator=gen, device="cuda")
+    got = warp.warp_launch(x, p.warp, ops)
+    want = warp.warp_plain(x, p.warp, ops)
+    torch.cuda.synchronize()
+    err, rel = check_close("warp_chain", got, want)
+    my = mx = None
+    for st in image_aug.stages_from_params(p.warp, ops):
+        wy, wx = image_aug.stage_matrices(h, w, st["scale"], st["translate"],
+                                          st["nearest"], st["gate"])
+        my = wy if my is None else wy @ my
+        mx = wx if mx is None else wx @ mx
+    x2, mxt = x[..., 0], mx.transpose(1, 2).contiguous()
+
+    def library():      # the dense form's mix; never called by the port
+        return torch.bmm(torch.bmm(my, x2), mxt)
+
+    times = in_turns({"ms": lambda: warp.warp_launch(x, p.warp, ops),
+                      "plain_ms": lambda: warp.warp_plain(x, p.warp, ops),
+                      "library_ms": library})
+    times.update(device_profile(lambda: warp.warp_launch(x, p.warp, ops)))
+    # this run's work: per pixel a multiply-add per (row tap, column tap) of
+    # the composed rows, and the fill (3 operations for one stage, 8 for two)
+    taps = ((my != 0).sum(-1).double()[:, :, None]
+            * (mx != 0).sum(-1).double()[:, None, :])
+    flops = float(2 * taps.sum()) + (3 if len(ops) == 1 else 8) * b * h * w
+    nbytes = 4 * (x.numel() + got.numel() + p.warp.numel())
+    dense = 2 * b * h * w * (h + w)
+    label = "two stages (CropAndPad, Affine)" if len(ops) == 2 else \
+        "one stage (Affine, nearest taps on about half the images)"
+    return dict(name="warp_chain", route="cuda", path="ANP" if len(ops) == 2
+                else "MAML", shape=f"[150, 128, 128, 1], {label}",
+                source="wmfml_tpu_torch/csrc/warp.cu",
+                replaces="wmfml_tpu/aug/image_aug.py:120",
+                library="two torch.bmm of the dense form, prebuilt matrices",
+                max_abs_err=err, max_rel_err=rel, **times,
+                dense_flops=dense, dense_bound_ms=dense / PEAK_F32_FLOPS * 1e3,
+                **bound(flops, nbytes))
+
+
+# integer and float operations of K5 per element whose gate is on: the id
+# (Dropout 3; CoarseDropout 2 multiplies, 2 divisions, 2 floors, a
+# multiply-add and the cast, 9), the key mix (xor, multiply, add), two
+# murmur3 finalizers (3 xors, 3 shifts, 2 multiplies each), the uniform
+# (convert, scale, compare) and the mask multiply
+HASH_OPS = {1.0: 3 + 3 + 16 + 3 + 1, 0.0: 9 + 3 + 16 + 3 + 1}
+
+
+def check_hash(gen, pick):
+    """K5 at the DA call's shape, every gate on, Dropout (``pick`` 1) or
+    CoarseDropout (0): bit for bit against the twin."""
+    import torch
+
+    from wmfml_tpu_torch.kernels import hash_mask
+
+    b, h, w = 150, 128, 128
+    p = da_params(gen, b, h, w, ())
+    p.drop[:, 1] = pick
+    x = torch.rand((b, h, w, 1), generator=gen, device="cuda")
+    got = hash_mask.hash_dropout_launch(x, p.drop, p.keys)
+    want = hash_mask.hash_dropout_plain(x, p.drop, p.keys)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"hash_dropout ({'Dropout' if pick else 'Coarse'}"
+                             f"Dropout) differs from its twin at "
+                             f"{int((got != want).sum())} elements")
+    dropped = float((got != x).double().mean())
+    times = in_turns({
+        "ms": lambda: hash_mask.hash_dropout_launch(x, p.drop, p.keys),
+        "plain_ms": lambda: hash_mask.hash_dropout_plain(x, p.drop, p.keys)})
+    times.update(device_profile(
+        lambda: hash_mask.hash_dropout_launch(x, p.drop, p.keys)))
+    n_on = x.numel()                              # every gate is on
+    t_ops = HASH_OPS[pick] * n_on / PEAK_INT32_OPS
+    nbytes = 4 * (x.numel() + got.numel() + p.drop.numel() + p.keys.numel())
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    kind = "Dropout" if pick else "CoarseDropout"
+    return dict(name="hash_dropout", route="cuda",
+                path="ANP" if pick else "MAML",
+                shape=f"[150, 128, 128, 1], {kind}, all gates on",
+                source="wmfml_tpu_torch/csrc/hash_mask.cu",
+                replaces="wmfml_tpu/aug/image_aug.py:287",
+                max_abs_err=0.0, max_rel_err=0.0, dropped_share=dropped,
+                **times, library_ms=None,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_f32_ms=max(t_ops, t_bytes) * 1e3)
+
+
 def train_phase(card, yaml, overrides, counters):
     """Drive one path through ``train_cli``; return (trainer, launches per
     kernel in that run)."""
@@ -465,6 +604,114 @@ def train_phase(card, yaml, overrides, counters):
         if n <= 0:
             raise AssertionError(f"{name} never launched on the {tag} path")
     return trainer, launches
+
+
+def check_da_launches(trainer, launches):
+    """K4 and K5 launch exactly as the op orders the run drew imply: two
+    augmenter calls a training step, each order's runs of warp ops one K4
+    launch and its dropout op one K5 launch; the orders replayed from the
+    CPU stream the trainer seeded with ``config.seed``."""
+    from wmfml_tpu_torch.aug import image_aug
+
+    cfg = trainer.config
+    stream = image_aug.order_generator(cfg.seed)
+    orders = [image_aug.draw_order(stream) for _ in range(2 * cfg.iterations)]
+    want = {"warp_chain": 0, "hash_dropout": 0}
+    for o in orders:
+        for k, n in image_aug.launches_of(o).items():
+            want[k] += n
+    got = {k: launches[k] for k in want}
+    log(f"train {cfg.method}: DA orders drawn {orders}; K4/K5 launches "
+        f"{got}, the orders imply {want}")
+    if got != want:
+        raise AssertionError(f"{cfg.method}: DA launched {got}, the drawn "
+                             f"orders imply {want}")
+
+
+def check_da_batch(trainer):
+    """Image DA on one full-width training batch (context and query, 150
+    images each) in each of the six op orders: through K4 and K5 and through
+    the twins at the same parameters. Then the device time of one training
+    step's DA (sampling and both calls), in the order it draws."""
+    import torch
+
+    from wmfml_tpu_torch.aug import image_aug, pipeline
+
+    cfg = trainer.config
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = trainer.sampler.sample(cfg.tasks_per_batch, gen)
+    aug = image_aug.ShapeNet1DAugmenter(seed=1)
+    worst = 0.0
+    for key in ("ctx_x", "qry_x"):
+        x = pipeline._to_float(batch[key])
+        params = aug.sample(x.reshape(-1, *x.shape[-3:]).shape, gen, "cuda")
+        for order in range(len(image_aug.ORDERS)):
+            params.order = order
+            got = aug(x, params=params)
+            want = image_aug.ShapeNet1DAugmenter()(x.cpu(), params=(
+                image_aug.DAParams(order, params.warp.cpu(),
+                                   params.drop.cpu(), params.keys.cpu())))
+            err, _ = check_close("warp_chain", got.cpu(), want)
+            worst = max(worst, err)
+            if torch.equal(got.cpu(), x.cpu()):
+                raise AssertionError(f"DA left the {key} batch unchanged")
+    step = pipeline.build_episode_processor(cfg.task, cfg.aug_list,
+                                            train=True, seed=cfg.seed)
+
+    def da_step():
+        return step.augment(pipeline._to_float(batch["ctx_x"]), gen), \
+            step.augment(pipeline._to_float(batch["qry_x"]), gen)
+
+    times = dict(ms=cuda_ms(da_step), **device_profile(da_step))
+    log(f"da: one full-width batch, six orders, kernels vs twins (on the "
+        f"CPU): max abs err {worst} (atol, rtol {TOL['warp_chain']}); one "
+        f"training step's DA (uint8 -> float, sampling, two calls): "
+        f"{times['ms']} ms, {times['device_ms']} ms of device time, "
+        f"{times['kernels_per_call']} kernels")
+    return times
+
+
+def check_evaluation(anp_trainer):
+    """``evaluation_cli`` over the ANP path's final checkpoint; both loss
+    files 25 x 3 and finite; one context point's validation loss on the
+    card against the same evaluation on the CPU (plain twins), which
+    restores the checkpoint itself."""
+    import copy
+
+    import numpy as np
+
+    from wmfml_tpu_torch.cli import evaluation_cli
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.data.factory import build_data
+    from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
+    from wmfml_tpu_torch.models.registry import build_model
+
+    ckpt = anp_trainer.ckpt.path(f"model_end_{anp_trainer.config.iterations}")
+    config = Config(EVAL_YAML, EVAL_OVERRIDES + [f"checkpoint={ckpt}"])
+    t0 = time.perf_counter()
+    val, test = evaluation_cli.evaluate(config)
+    wall = time.perf_counter() - t0
+    n = config.max_ctx_num
+    for name in ("val_losses.txt", "test_losses.txt"):
+        arr = np.loadtxt(os.path.join(config.save_path, name))
+        if arr.shape != (n, 3) or not np.isfinite(arr).all() or list(
+                arr[:, 0]) != list(range(1, n + 1)):
+            raise AssertionError(f"{name}: {arr.shape}, {arr}")
+    log(f"eval: {config.method} over {ckpt}, ctx 1..{n}, {config.val_iters} "
+        f"episodes a point, validation and test, in {wall} s; validation "
+        f"loss {val}; test loss {test}")
+    point = n
+    cpu_cfg = copy.copy(config)
+    cpu_cfg.device = "cpu"
+    cpu_eval = ModelEvaluator(build_model(cpu_cfg), cpu_cfg,
+                              build_data(cpu_cfg))
+    want, _ = cpu_eval._validate_iter("validation", point)
+    got = val[point - 1]
+    err = abs(got - want)
+    log(f"eval: validation loss at ctx {point}: card {got}, CPU {want}; abs "
+        f"err {err} (tolerance {VAL_TOL} x |CPU| + {VAL_TOL})")
+    if err > VAL_TOL * (abs(want) + 1.0):
+        raise AssertionError(f"evaluation: card {got}, CPU {want}")
 
 
 def check_maml_launches(trainer, launches):
@@ -542,7 +789,7 @@ def check_second_order_grad(gen):
     float32's error in this gradient swings with the last bits of any sum
     before it: cuDNN's default backward sums in no fixed order, and two
     runs on one state and batch can differ several times over in their
-    distance from float64 (``--grad-spread``). Phase 5's training is
+    distance from float64 (``--grad-spread``). Phase 7's training is
     therefore replayed (untimed, from the same seed) and the gradients
     taken under deterministic algorithms, which fixes the state, the batch
     and every sum."""
@@ -566,7 +813,7 @@ def check_second_order_grad(gen):
 
 
 def grad_spread(trainer, batches=8):
-    """``--grad-spread``: phase 6's numbers on phase 5's own state and with
+    """``--grad-spread``: phase 8's numbers on phase 7's own state and with
     cuDNN's default algorithms, for the first batch twice, then for more."""
     import torch
 
@@ -579,7 +826,7 @@ def grad_spread(trainer, batches=8):
 
 
 def second_order_errors(trainer, gen):
-    """Phase 6's comparison on ``trainer``'s model and one batch: the
+    """Phase 8's comparison on ``trainer``'s model and one batch: the
     kernels' and the twins' distance from float64, the kernels' from the
     twins, and the second-order part of the gradient."""
     import copy
@@ -594,6 +841,15 @@ def second_order_errors(trainer, gen):
 
     cfg = trainer.config
     batch = trainer.sampler.sample(cfg.tasks_per_batch, gen)
+    # DA has no gradient: the batch is augmented once, through K4 and K5,
+    # and every gradient below is taken on those images with no DA inside
+    augment = pipeline.build_episode_processor(
+        cfg.task, cfg.aug_list, train=True, seed=cfg.seed).augment
+    if augment is not None:
+        batch = dict(batch, **{k: augment(pipeline._to_float(batch[k]), gen)
+                               for k in ("ctx_x", "qry_x")})
+    cfg = copy.copy(cfg)
+    cfg.aug_list = [a for a in cfg.aug_list if a != "data_aug"]
 
     def grads(model, first_order=False, plain=False):
         saved = (cfg.first_order, encoders.literature_stem,
@@ -682,6 +938,10 @@ def profile_steps(trainer, steps=8):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    da_us = sum(us for name, us in by_name.items()
+                if "warp_chain_kernel" in name or "hash_dropout_kernel" in name)
+    log(f"profile {tag}: K4 + K5 (DA) {da_us / steps} us/step of device time "
+        f"= {da_us / busy_us} of the busy time")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"profile {tag}: {us / steps:10.3f} us/step  {name[:110]}")
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
@@ -700,7 +960,9 @@ def main(argv):
     from wmfml_tpu_torch.kernels import build
     from wmfml_tpu_torch.kernels.favor import favor_attention
     from wmfml_tpu_torch.kernels.features import maml_features
+    from wmfml_tpu_torch.kernels.hash_mask import hash_dropout
     from wmfml_tpu_torch.kernels.stem import literature_stem
+    from wmfml_tpu_torch.kernels.warp import warp_chain_op
     from wmfml_tpu_torch.models.registry import build_model
 
     torch.backends.cudnn.allow_tf32 = False
@@ -719,7 +981,8 @@ def main(argv):
         f"{libs['features'].wmfml_features_smem_bytes(14)} B (W = 14), "
         f"favor {libs['favor'].wmfml_favor_smem_bytes(15, 15, 64, 266)} B used "
         f"of the 231424 B it requests (Nq = Nk = 15, m = 266); favor "
-        f"co-resident blocks {libs['favor'].wmfml_favor_coresident()}")
+        f"co-resident blocks {libs['favor'].wmfml_favor_coresident()}, "
+        f"warp {libs['warp'].wmfml_warp_smem_bytes(128)} B (W = 128)")
     for name, text in build.ptxas_log.items():
         for line in text.splitlines():
             if any(k in line for k in ("entry function", "registers",
@@ -732,7 +995,9 @@ def main(argv):
                               make_dirs=False)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_stem(anp, gen), check_favor(anp, gen),
-            check_stem_per_task(maml, gen), check_features(maml, gen)]
+            check_stem_per_task(maml, gen), check_features(maml, gen),
+            check_warp(gen, (0, 1)), check_warp(gen, (1,)),
+            check_hash(gen, 1.0), check_hash(gen, 0.0)]
     floor = floor_ms()
     log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
         f"time, the least any launch takes on this card")
@@ -743,6 +1008,12 @@ def main(argv):
             extra = (f"; unmasked: max abs err {r['max_abs_err_unmasked']}, "
                      f"{r['ms_unmasked']} ms, plain "
                      f"{r['plain_ms_unmasked']} ms")
+        if "dense_bound_ms" in r:
+            extra = (f"; library = {r['library']}; the dense form's float32 "
+                     f"bound {r['dense_bound_ms']} ms ({r['dense_flops']} "
+                     f"FLOP)")
+        if "dropped_share" in r:
+            extra = f"; share of elements dropped {r['dropped_share']}"
         log(f"kernel: {r['name']} ({r['shape']}): max abs err "
             f"{r['max_abs_err']}, max rel err {r['max_rel_err']} (atol, rtol "
             f"{TOL[r['name']]}); {r['ms']} ms ({r['device_ms']} ms of it on "
@@ -755,18 +1026,25 @@ def main(argv):
             log(f"kernel: {r['name']} phase clock (us from the first block's "
                 f"start, medians of 10 launches): {r['phase_us']}")
 
+    da_kernels = {"warp_chain": warp_chain_op, "hash_dropout": hash_dropout}
     trainer, anp_launches = train_phase(
         card, MAIN_YAML, TRAIN_OVERRIDES,
         {"literature_stem": literature_stem,
-         "favor_attention": favor_attention})
+         "favor_attention": favor_attention, **da_kernels})
+    check_da_launches(trainer, anp_launches)
     check_trained_output(trainer)
+    check_da_batch(trainer)
+    check_evaluation(trainer)
     if "--profile" in argv:
         profile_steps(trainer)
 
     mtrainer, maml_launches = train_phase(
         card, MAML_YAML, MAML_OVERRIDES,
-        {"literature_stem": literature_stem, "maml_features": maml_features})
-    check_maml_launches(mtrainer, maml_launches)
+        {"literature_stem": literature_stem, "maml_features": maml_features,
+         **da_kernels})
+    check_maml_launches(mtrainer, {k: maml_launches[k] for k in (
+        "literature_stem", "maml_features")})
+    check_da_launches(mtrainer, maml_launches)
     check_maml_validation(mtrainer)
     check_second_order_grad(gen)
     if "--grad-spread" in argv:

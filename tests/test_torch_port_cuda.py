@@ -7,13 +7,15 @@ CPU-only run. On a machine with a card:
 
 Tolerance: elementwise |kernel - plain| <= atol + rtol * |plain|, the same
 as ``chip_smoke.py``: both sides are float32 sums in another order. Second
-derivatives compare per tensor, max |difference| <= 1e-3 max |plain|.
+derivatives compare per tensor, max |difference| <= 1e-3 max |plain|. K5
+(hash dropout) is integer arithmetic and must equal its twin bit for bit.
 """
 
 import pytest
 import torch
 
-from wmfml_tpu_torch.kernels import favor, features, stem
+from wmfml_tpu_torch.aug import image_aug
+from wmfml_tpu_torch.kernels import favor, features, hash_mask, stem, warp
 
 pytestmark = pytest.mark.cuda
 
@@ -299,3 +301,88 @@ def test_kernels_run_on_tensor_cores(dev, name):
     sass = subprocess.run([tool, "--dump-sass", lib], check=True,
                           capture_output=True, text=True).stdout
     assert "HGMMA" in sass
+
+
+# -- K4 (warp chain) and K5 (hash dropout) --------------------------------------
+
+WARP_TOL = (1e-5, 1e-5)
+
+
+def _da_params(dev, b, h, w, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return image_aug.ShapeNet1DAugmenter(seed).sample((b, h, w, 1), g, dev)
+
+
+@pytest.mark.parametrize("ops", [(0, 1), (1, 0), (0,), (1,)])
+@pytest.mark.parametrize("b,h,w,c", [(150, 128, 128, 1), (3, 40, 24, 2)])
+def test_warp_kernel_matches_plain(dev, ops, b, h, w, c):
+    p = _da_params(dev, b, h, w, seed=b + len(ops))
+    x = torch.rand((b, h, w, c), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(1))
+    _close(warp.warp_launch(x, p.warp, ops), warp.warp_plain(x, p.warp, ops),
+           *WARP_TOL)
+
+
+def test_warp_kernel_snaps_nearest_like_the_twin_on_half_boundaries(dev):
+    """Scales and shifts that put sample positions on .5, where one ulp of
+    the position flips a nearest tap to the next pixel (an O(1) error)."""
+    scales = [2.0, 1.25, 0.8, 1.0, 0.5, 1.2, 0.85, 1.1]
+    shifts = [0.5, -0.5, 0.25, 0.1, -1.5, 0.3, 2.5, -0.7]
+    rows = [[s, s, t, t, 0.3, 1.0, 1.0] for s in scales for t in shifts]
+    b = len(rows)
+    params = torch.tensor(rows, device=dev)[:, None].repeat(1, 2, 1)
+    x = torch.rand((b, 128, 128, 1), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(2))
+    for ops in ((1,), (0, 1)):
+        _close(warp.warp_launch(x, params, ops),
+               warp.warp_plain(x, params, ops), *WARP_TOL)
+
+
+def test_warp_kernel_gate_off_is_the_identity(dev):
+    p = _da_params(dev, 8, 32, 32)
+    p.warp[..., 6] = 0.0
+    x = torch.rand((8, 32, 32, 1), device=dev)
+    assert torch.equal(warp.warp_launch(x, p.warp, (0, 1)), x)
+
+
+@pytest.mark.parametrize("pick", [1.0, 0.0])
+@pytest.mark.parametrize("b,h,w,c", [(150, 128, 128, 1), (5, 40, 24, 3)])
+def test_hash_dropout_kernel_equals_plain_bit_for_bit(dev, pick, b, h, w, c):
+    p = _da_params(dev, b, h, w, seed=c)
+    p.drop[:, 1] = pick
+    p.drop[::2, 0] = 1.0                       # at least half the gates on
+    p.drop[:, 2] *= 5                          # rates up to .5: masks show
+    x = torch.rand((b, h, w, c), device=dev) - 0.25   # signs, -0.0 kept
+    got = hash_mask.hash_dropout_launch(x, p.drop, p.keys)
+    want = hash_mask.hash_dropout_plain(x, p.drop, p.keys)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got == 0).any()) and bool((got == x).any())
+
+
+def test_da_kernels_are_bit_reproducible(dev):
+    p = _da_params(dev, 20, 128, 128)
+    x = torch.rand((20, 128, 128, 1), device=dev)
+    for fn in (lambda: warp.warp_launch(x, p.warp, (1, 0)),
+               lambda: hash_mask.hash_dropout_launch(x, p.drop, p.keys)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("order", range(6))
+def test_augmenter_on_the_card_counts_its_launches(dev, order):
+    aug = image_aug.ShapeNet1DAugmenter()
+    p = _da_params(dev, 30, 128, 128, seed=order)
+    p.order = order
+    x = torch.rand((2, 15, 128, 128, 1), device=dev)
+    before = (warp.warp_chain_op.launches, hash_mask.hash_dropout.launches)
+    got = aug(x, params=p)
+    want = image_aug.ShapeNet1DAugmenter()(x.cpu(), params=image_aug.DAParams(
+        order, p.warp.cpu(), p.drop.cpu(), p.keys.cpu()))
+    _close(got.cpu(), want, *WARP_TOL)
+    n = image_aug.launches_of(order)
+    assert (warp.warp_chain_op.launches - before[0],
+            hash_mask.hash_dropout.launches - before[1]) == (
+                n["warp_chain"], n["hash_dropout"])

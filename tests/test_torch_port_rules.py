@@ -3,8 +3,9 @@
   * the port and ``chip_smoke.py`` import neither JAX nor the JAX package;
   * entry points run on ``cuda`` unless the caller asks for the CPU, and with
     no card they raise instead of falling back;
-  * what is not ported raises and names its ROADMAP item: image data
-    augmentation, bf16 compute, other tasks and methods.
+  * what is not ported raises and names its ROADMAP item: the fixed-order
+    DA pipeline, DA for other tasks, bf16 compute, other tasks and methods;
+    the shipped ShapeNet1D YAMLs, image DA included, build as they are.
 """
 
 import ast
@@ -13,6 +14,7 @@ import os
 import pytest
 import torch
 
+from wmfml_tpu_torch.aug.image_aug import build_augmenter
 from wmfml_tpu_torch.aug.pipeline import build_episode_processor
 from wmfml_tpu_torch.cli import train_cli
 from wmfml_tpu_torch.configs import Config, resolve_device
@@ -80,14 +82,35 @@ def test_without_a_card_entry_points_raise(monkeypatch, tmp_path):
 
 
 def test_image_data_augmentation_raises():
-    with pytest.raises(NotImplementedError, match="DA: ROADMAP A7"):
-        build_episode_processor("shapenet_1d", ["task_aug", "data_aug"],
-                                train=True)
+    """Image DA builds for shapenet_1d, as the shipped YAML asks; what is
+    not ported of it raises and names its ROADMAP item."""
+    process = build_episode_processor("shapenet_1d", ["task_aug", "data_aug"],
+                                      train=True)
+    assert process.augment is not None
     cfg = Config(MAIN_YAML, ["device=cpu", "dim_w=16"], make_dirs=False)
-    assert "data_aug" in cfg.aug_list                  # the shipped YAML
+    assert cfg.aug_list == ["task_aug", "data_aug"]    # the shipped YAML
+    assert cfg.aug_random_order is True
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="DA: ROADMAP A7"):
-        build_train_step(model, torch.optim.Adam(model.parameters()), cfg)
+    build_train_step(model, torch.optim.Adam(model.parameters()), cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A20"):
+        Config(MAIN_YAML, ["device=cpu", "aug_random_order=false"],
+               make_dirs=False)
+    with pytest.raises(NotImplementedError, match="A12"):
+        build_episode_processor("pascal_1d", ["data_aug"], train=True)
+    with pytest.raises(NotImplementedError, match="A12"):
+        build_augmenter("distractor")
+
+
+def test_fixed_order_perf_yaml_raises_instead_of_running_random_order():
+    """``aug_random_order: false`` selects the JAX package's fused
+    fixed-order pipeline; the port has only the random-order one and must
+    not run it in its place."""
+    yaml = os.path.join(REPO, "cfg", "train", "perf",
+                        "ANP_DA+TA_ShapeNet1D_tpu.yaml")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A20"):
+        Config(yaml, ["compute_dtype=float32"], make_dirs=False)
+    assert _config("prng_impl=rbg").prng_impl == "rbg"
+    assert _config().prng_impl == "threefry"
 
 
 @pytest.mark.parametrize("override,error", [

@@ -1,20 +1,25 @@
-"""Device-side episode processing: normalise, task augmentation, labels.
+"""Device-side episode processing: normalise, image and task augmentation,
+labels.
 
-``build_episode_processor(task, aug_list, train)`` returns
-``process(batch, generator=None, ta_idx=None)`` that turns a raw episode
-(uint8 images, raw labels, on any device) into the model-facing batch, as
-``wmfml_tpu/aug/pipeline.py:58-76`` does for ShapeNet1D:
+``build_episode_processor(task, aug_list, train, seed)`` returns
+``process(batch, generator=None, ta_idx=None, da_params=None)`` that turns
+a raw episode (uint8 images, raw labels, on any device) into the
+model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` does for
+ShapeNet1D:
 
   * uint8 images -> float32 / 255;
+  * image data augmentation (train only, ``data_aug`` in ``aug_list``):
+    two augmenter calls, context then query, each with its own op order
+    and per-image parameters (``aug/image_aug.py``: K4 and K5 on the card);
+    ``da_params`` (a (context, query) pair of ``DAParams``) feeds a draw
+    in, else it is drawn from ``generator`` and, for the order, from a CPU
+    stream seeded with ``seed``;
   * task augmentation (train only, ``task_aug`` in ``aug_list``): one angle
     offset per task from ``linspace(0, 2, 16)[:-1]``, added mod 2*pi to
     context and query labels; ``ta_idx`` [T] feeds the offsets' indices in
     (tests hand both frameworks the same noise), else they are drawn from
     ``generator``;
   * labels -> ``[cos a, sin a, a]``.
-
-Image data augmentation (``data_aug``) is not ported yet and raises: the
-port never drops an augmentation silently.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-DA_NOT_PORTED = "DA: ROADMAP A7"
+from wmfml_tpu_torch.aug.image_aug import build_augmenter
 
 
 def _to_float(x: torch.Tensor) -> torch.Tensor:
@@ -37,18 +42,30 @@ def _encode_angle(y: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cos(y), torch.sin(y), y], dim=-1)
 
 
-def build_episode_processor(task: str, aug_list, train: bool) -> Callable:
+def build_episode_processor(task: str, aug_list, train: bool,
+                            seed: int = 0) -> Callable:
     if task != "shapenet_1d":
         raise NotImplementedError(
             f"episode processing for {task!r} is not ported yet "
             "(ROADMAP.md A12)")
-    if "data_aug" in aug_list:
-        raise NotImplementedError(DA_NOT_PORTED)
     task_aug = train and "task_aug" in aug_list
+    augment = (build_augmenter(task, seed)
+               if train and "data_aug" in aug_list else None)
+
+    def augment_pair(cx, qx, generator, da_params):
+        """DA for ctx and qry: always two calls, as the JAX package makes."""
+        if augment is None:
+            return cx, qx
+        pc, pq = da_params if da_params is not None else (None, None)
+        return augment(cx, generator, pc), augment(qx, generator, pq)
 
     def process(batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
-                ta_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                ta_idx: Optional[torch.Tensor] = None,
+                da_params=None) -> Dict[str, torch.Tensor]:
+        ctx_x, qry_x = augment_pair(_to_float(batch["ctx_x"]),
+                                    _to_float(batch["qry_x"]), generator,
+                                    da_params)
         ctx_y, qry_y = batch["ctx_y"], batch["qry_y"]
         if task_aug:
             if ta_idx is None:
@@ -60,8 +77,8 @@ def build_episode_processor(task: str, aug_list, train: bool) -> Callable:
             noise = noise_vals[ta_idx.to(ctx_y.device)][:, None, None]
             ctx_y = torch.remainder(ctx_y + noise, 2.0 * math.pi)
             qry_y = torch.remainder(qry_y + noise, 2.0 * math.pi)
-        return dict(batch, ctx_x=_to_float(batch["ctx_x"]),
-                    qry_x=_to_float(batch["qry_x"]),
+        return dict(batch, ctx_x=ctx_x, qry_x=qry_x,
                     ctx_y=_encode_angle(ctx_y), qry_y=_encode_angle(qry_y))
 
+    process.augment = augment
     return process

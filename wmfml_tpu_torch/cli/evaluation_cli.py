@@ -1,0 +1,45 @@
+"""Statistical evaluation CLI of the port (``wmfml_tpu/cli/evaluation_cli.py``).
+
+Usage::
+
+    python -m wmfml_tpu_torch.cli.evaluation_cli \\
+        --config cfg/evaluation/ANP_ShapeNet1D.yaml \\
+        checkpoint=<run>/models/model_end_<N>.pt [key=value ...]
+
+The loss against the context count over ctx in 1..max_ctx_num,
+``val_iters`` episodes per point (``eval/evaluator.py``); writes
+``{val,test}_losses.txt`` and, where matplotlib is installed,
+``loss_vs_ctx_num.png`` under ``results/{mode}/{method}/...`` (``mode: eval``
+in the shipped YAMLs; an empty or ``train`` mode becomes ``evaluation``,
+as in the JAX package). ``checkpoint`` takes a port checkpoint or a bare
+reference ``state_dict``. Runs on ``cuda``; ``device=cpu`` runs on the CPU.
+Methods the port lacks raise, as in training.
+"""
+
+from __future__ import annotations
+
+from wmfml_tpu_torch.cli.common import parse_args
+from wmfml_tpu_torch.configs import Config
+from wmfml_tpu_torch.data.factory import build_data
+from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
+from wmfml_tpu_torch.models.registry import build_model
+from wmfml_tpu_torch.train.steps import require_device
+
+
+def evaluate(config: Config):
+    """(validation losses, test losses) over ctx = 1..max_ctx_num."""
+    require_device(config.device)        # before any data is generated
+    model = build_model(config)
+    return ModelEvaluator(model, config, build_data(config)).evaluate()
+
+
+def main(argv=None):
+    args = parse_args("statistical evaluation (PyTorch port)", argv)
+    config = Config(args.config, overrides=args.overrides)
+    if not config.mode or config.mode == "train":
+        config.mode = "evaluation"
+    return evaluate(config)
+
+
+if __name__ == "__main__":
+    main()

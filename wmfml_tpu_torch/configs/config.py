@@ -18,6 +18,17 @@ Port-specific rules:
     package's pool lowering, whose forward is the same for every choice and
     whose gradients differ only at ties, which sit at ReLU zeros where the
     gradient is 0: the port always pools in K1.
+  * ``aug_random_order`` (default true, imgaug's per-batch random op order)
+    is read; ``false`` selects the JAX package's fused fixed-order
+    pipeline, which is not ported yet and raises.
+  * ``prng_impl`` is read and kept, but the port's random stream is
+    PyTorch's Philox whatever it says: the JAX package's ``threefry`` and
+    ``rbg`` differ in their bits only, and so does Philox, so no
+    distribution changes.
+  * Evaluation reads the same keys as training (``checkpoint``,
+    ``max_ctx_num``, ``val_iters``, ``tasks_per_batch``); ``mode`` (``eval``
+    in the shipped evaluation YAMLs) names the results directory, as in the
+    JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +59,9 @@ DEFAULT_QUERY_NUM = {
 }
 
 DEVICE_ALIASES = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
+
+FIXED_ORDER_NOT_PORTED = ("aug_random_order=false: the fused fixed-order DA "
+                          "pipeline is not ported yet (ROADMAP.md A20)")
 
 
 def _parse_override(value: str) -> Any:
@@ -136,6 +150,10 @@ class Config:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: the port computes in "
                 "float32 only (bf16 is queued in ROADMAP.md)")
+        self.aug_random_order = get("aug_random_order", True)
+        if not self.aug_random_order:
+            raise NotImplementedError(FIXED_ORDER_NOT_PORTED)
+        self.prng_impl = get("prng_impl", "threefry")
         self.data_path = get("data_path", None)
         self.synthetic_data = get("synthetic_data", False)
         # training steps per call of the trainer loop (a Python loop of K

@@ -43,12 +43,14 @@ def task_losses(loss_func: LossFunc, out, y, test: bool = False, mask=None):
 
 def build_maml_outer(model, config, num_steps: int, train: bool,
                      test: bool) -> Callable:
-    """Return ``outer(batch, generator=None, ta_idx=None) -> (outer_loss,
-    pre_loss)`` over a raw episode; its inner steps need grad enabled."""
+    """Return ``outer(batch, generator=None, ta_idx=None, da_params=None)
+    -> (outer_loss, pre_loss)`` over a raw episode, processed once (image
+    and task augmentation in training only); its inner steps need grad
+    enabled."""
     loss_func = LossFunc(config.loss_type, config.task)
     process = build_episode_processor(config.task,
                                       config.aug_list if train else [],
-                                      train=train)
+                                      train=train, seed=config.seed)
     create_graph = train and not config.first_order
     beta = float(config.beta or 0.0)
     update_lr = float(config.update_lr)
@@ -63,8 +65,8 @@ def build_maml_outer(model, config, num_steps: int, train: bool,
 
     def outer(batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator] = None,
-              ta_idx: Optional[torch.Tensor] = None):
-        pbatch = process(batch, generator, ta_idx)
+              ta_idx: Optional[torch.Tensor] = None, da_params=None):
+        pbatch = process(batch, generator, ta_idx, da_params)
         mask = pbatch["ctx_mask"]
         params = model.task_params(pbatch["ctx_x"].shape[0])
         names = [k for k in params if model.adaptable(k)]
@@ -101,9 +103,10 @@ def build_maml_train_step(model, optimizer, config) -> Callable:
     inv_beta = 1.0 / float(config.beta) if config.beta else 0.0
 
     def train_step(batch, generator: Optional[torch.Generator] = None,
-                   ta_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   ta_idx: Optional[torch.Tensor] = None,
+                   da_params=None) -> torch.Tensor:
         model.train()
-        loss, pre = outer(batch, generator, ta_idx)
+        loss, pre = outer(batch, generator, ta_idx, da_params)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()

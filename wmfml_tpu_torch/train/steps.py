@@ -1,7 +1,7 @@
 """Train and eval steps (``wmfml_tpu/train/steps.py``).
 
-A train step processes the raw episode on the device (normalise, task
-augmentation, label encoding), runs the model, and takes one optimizer
+A train step processes the raw episode on the device (normalise, image and
+task augmentation, label encoding), runs the model, and takes one optimizer
 step on ``total = task_loss + beta * kl``. It returns the loss as a device
 tensor: the trainer reads it on the host only at its validation cadence,
 so the host never waits on the card in between.
@@ -42,14 +42,16 @@ def _apply(model, batch: Dict[str, torch.Tensor]):
 
 
 def build_train_step(model, optimizer, config) -> Callable:
-    process = build_episode_processor(config.task, config.aug_list, train=True)
+    process = build_episode_processor(config.task, config.aug_list, train=True,
+                                      seed=config.seed)
     loss_func = LossFunc(config.loss_type, config.task)
     beta = float(config.beta or 0.0)
 
     def train_step(batch, generator: Optional[torch.Generator] = None,
-                   ta_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   ta_idx: Optional[torch.Tensor] = None,
+                   da_params=None) -> torch.Tensor:
         model.train()
-        pbatch = process(batch, generator, ta_idx)
+        pbatch = process(batch, generator, ta_idx, da_params)
         out = _apply(model, pbatch)
         loss = loss_func.calc_loss(out.mu.float(), out.var, pbatch["qry_y"])
         loss = loss + beta * out.kl
