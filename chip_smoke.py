@@ -5,8 +5,9 @@
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
                                      # ANP and MAML training steps (top
                                      # kernels, busy share)
-    python3 chip_smoke.py --grad-spread  # also phase 8's comparison on
-                                     # phase 7's own state, for 8 batches
+    python3 chip_smoke.py --grad-spread  # also phase 8's comparison on 8
+                                     # batches, each again on 3 copies
+                                     # moved by one ulp (grad_spread)
 
 Phases, each fatal on failure (nothing is caught and reported as ok):
   1. the card's name and power limit (nvidia-smi); TF32 off for cuDNN and
@@ -16,12 +17,16 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
   3. each kernel at its path's shapes against its plain PyTorch twin on the
      same inputs, within the tolerance stated beside it: K1 with shared
      weights (ANP, 300 images) and per task (MAML, 10 x 15 images), K2, K3
-     masked (shots 3..15) and unmasked, K4 (the DA warp chain, 150 images,
-     two stages and one stage with nearest taps) and K5 (the DA hash masks,
-     Dropout and CoarseDropout, bit for bit); kernel, plain and library
+     masked (shots 3..15) and unmasked, K6 (image DA, one launch an
+     augmenter call: 150 uint8 images, every gate on, in each of the six op
+     orders against the twin on the card and on the CPU; with the warps
+     off, its Dropout and CoarseDropout masks bit for bit; the parameters
+     it computed bit for bit against ``params_from_draw``; its phase
+     clock); kernel, plain and library
      times by CUDA events, the device time of one kernel call (the summed
      durations of its launches, torch.profiler) and its number of kernels
-     (K2: one), and the floor, the device time of a one-element torch.add.
+     (K2 and K6: one), and the floor, the device time of a one-element
+     torch.add.
      K1's conv1, K2's feature products and K3's convolutions run on the
      tensor cores in 3xTF32 (float32 accuracy from split TF32 operands), so
      their bound counts 3 TF32 products per product at the tensor cores'
@@ -31,13 +36,15 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      full width (T=10, 15 + 15, 128x128x1, dim_w 64, 8 FAVOR heads, m=266)
      on synthetic ShapeNet1D ``data_size=large``, 24 steps and one
      validation; launch counts are zeroed just before and read just after,
-     each kernel must have launched, and K4 and K5 exactly as often as the
-     op orders the run drew imply; the trained model's output on a
-     validation episode must agree with the same model run through the
-     plain twins;
+     each kernel must have launched, and K6 exactly twice a step (one launch
+     an augmenter call, whatever the order drawn on the card); the trained
+     model's output on a validation episode must agree with the same model
+     run through the plain twins;
   5. image DA on one full-width training batch (150 context and 150 query
-     images), in each of the six op orders, through K4 and K5 against the
-     twins at the same parameters, and its time per training step;
+     images), in each of the six op orders, through K6 against the twin on
+     the CPU at the same draw, and its time per training step; one step's
+     DA runs under ``torch.cuda.set_sync_debug_mode("error")``: the host
+     reads none of its draws;
   6. evaluation: ``wmfml_tpu_torch.cli.evaluation_cli``'s ``evaluate`` with
      ``cfg/evaluation/ANP_ShapeNet1D.yaml`` (max_ctx_num 25, 10 episodes a
      point, validation and test) over phase 4's final checkpoint; both loss
@@ -48,11 +55,12 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      DA its only augmentation: T=10, 15 + 15, dim_w 196 -> 14x14, 4 blocks
      of 64 filters, 5 inner steps at update_lr 0.002, 20 at validation), 12
      steps and one validation; K1 and K3 must have launched exactly as often
-     as the code says, K4 and K5 as the drawn orders imply; the trained
+     as the code says, K6 twice a step; the trained
      model's validation loss on one episode must agree between the card and
      the CPU;
-  8. the second-order outer gradient of one full-width MAML batch (augmented
-     once through K4 and K5: DA has no gradient) through the kernels against
+  8. the second-order outer gradient of one full-width MAML batch (the
+     replayed training's first, augmented once through K6: DA has no
+     gradient) through the kernels against
      the same gradient by plain autograd through the twins (no custom
      autograd Function at all), on the card, on phase 7's training replayed
      under deterministic algorithms, so that its state, its sums and its
@@ -89,7 +97,7 @@ EVAL_OVERRIDES = ["synthetic_data=true", "device=cuda"]
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# integer operations (K5's hash): 64 INT32 lanes per SM (Hopper
+# integer operations (K6's hashes): 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x 1.98 GHz boost clock
 PEAK_INT32_OPS = 64 * 132 * 1.98e9
 
@@ -100,11 +108,11 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 # statistic in another order, then divides by the channel's std, three
 # times over; its O(1) outputs keep about five digits
 TOL = {"literature_stem": (1e-4, 1e-4), "favor_attention": (1e-5, 1e-4),
-       "maml_features": (1e-4, 1e-4), "warp_chain": (1e-5, 1e-5),
-       "hash_dropout": (0.0, 0.0)}
-# K4 sums at most 16 taps of values in [0, 1] plus the fill in another order
-# than the dense twin's matrix products; K5 is integer arithmetic and must
-# equal its twin bit for bit
+       "maml_features": (1e-4, 1e-4), "warp_chain": (1e-5, 1e-5)}
+# K6's warps sum at most 16 taps of values in [0, 1] plus the fill in
+# another order than the dense twin's matrix products; its masks are
+# integer arithmetic and its parameters the twin's float32 steps, so both
+# must equal the twin's bit for bit
 # the second-order outer gradient against float64 plain autograd, per
 # parameter as max |difference| / max |float64|. The one-pass batch norm
 # (E[x^2] - E[x]^2 in float32, as the JAX package computes it) cancels
@@ -161,22 +169,45 @@ def device_profile(fn, iters=20, names=None):
     launches, and the number of kernels it launches, from torch.profiler.
     Beside ``cuda_ms``, which also counts the gaps while the host enqueues,
     the time says how far a wrapper is host-bound. ``names``, a set, gets
-    the names of the kernels."""
+    the names of the kernels.
+
+    The profiler drops some of the events it should record (1 of 160 and 2
+    of 10 seen on the H100), so the trace's sum over ``iters`` would read
+    low. Each kernel name's launches a call are its events over ``iters``,
+    rounded (at least one), its time the mean of the events recorded, and a
+    call's device time the sum over names of the two multiplied; a trace
+    with fewer events than that implies is logged. A trace that holds no
+    device event at all is logged and taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    us = sum(e.time_range.elapsed_us() for e in kernels)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+        log(f"profile: a trace of {iters} calls holds no device event "
+            f"(attempt {attempt + 1} of 3)")
+    by_name = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    per_call = {n: max(1, round(len(v) / iters)) for n, v in by_name.items()}
+    us = sum(per_call[n] * sum(v) / len(v) for n, v in by_name.items())
+    implied = iters * sum(per_call.values())
+    if len(kernels) != implied:
+        log(f"profile: a trace of {iters} calls holds {len(kernels)} of the "
+            f"{implied} device events its kernels imply; each kernel's time "
+            f"is the mean of its recorded events")
     if names is not None:
-        names.update(e.name for e in kernels)
-    return dict(device_ms=us / iters / 1e3, kernels_per_call=len(kernels) / iters)
+        names.update(by_name)
+    return dict(device_ms=us / 1e3, kernels_per_call=sum(per_call.values()),
+                events_recorded=len(kernels), events_implied=implied)
 
 
 def floor_ms() -> float:
@@ -291,7 +322,7 @@ def check_favor(model, gen):
         lambda: favor.favor_launch(q, k, v, proj, mask), names=names))
     # one kernel and nothing else (the profiler may drop an event now and
     # then, so the count may read just under 1, never over)
-    if len(names) != 1 or times["kernels_per_call"] > 1:
+    if len(names) != 1 or times["kernels_per_call"] != 1:
         raise AssertionError(f"favor_attention issued "
                              f"{times['kernels_per_call']} kernels per call: "
                              f"{sorted(names)}")
@@ -445,120 +476,203 @@ def check_features(model, gen):
                 **res, **times, **bound(0.0, nbytes, split_flops=flops))
 
 
-def da_params(gen, b, h, w, ops):
-    """Sampler draws for ``b`` images with the gates of ``ops`` (and the
-    dropout op) on, so that every image is warped or masked; Affine's
-    nearest taps as drawn (about half the images)."""
-    import torch
+# integer operations of K6's masks: per Dropout pixel the id (3), the key
+# mix (xor, multiply, add), two murmur3 finalizers (3 xors, 3 shifts, 2
+# multiplies each), the uniform (convert, scale, compare) and the mask
+# multiply; per CoarseDropout cell the same hash, and a mask multiply per
+# pixel
+HASH_OPS = 3 + 3 + 16 + 3 + 1
 
+
+def da_draw(gen, b):
+    """A call's raw draw for ``b`` images with CropAndPad's, Affine's and the
+    dropout op's gates on, so that every image is warped and masked;
+    Affine's nearest taps and Dropout or CoarseDropout as drawn (about half
+    the images each)."""
     from wmfml_tpu_torch.aug.image_aug import ShapeNet1DAugmenter
 
-    p = ShapeNet1DAugmenter().sample((b, h, w, 1), gen, "cuda")
-    for op in ops:
-        p.warp[:, op, 6] = 1.0
-    p.drop[:, 0] = 1.0
-    torch.cuda.synchronize()
-    return p
+    u, keys, _ = ShapeNet1DAugmenter().sample(b, gen, "cuda")
+    u[:, 13] = u[:, 14] = u[:, 16] = 0.25
+    return u, keys
 
 
-def check_warp(gen, ops):
-    """K4 at the DA call's shape, [150, 128, 128, 1] (10 tasks x 15 images),
-    every gate of ``ops`` on, against the dense twin. The library yardstick
-    is the dense form's image mix as two ``torch.bmm`` on prebuilt [150,
-    128, 128] matrices (My img, then Mx^T), without the fill."""
+def da_work(p, order, h, w):
+    """(float operations, integer operations) of K6 on this draw in
+    ``order``: a multiply-add per nonzero (row tap, column tap) of each warp
+    chain's composed rows, then its fill, the division by 255 and the add
+    (5 operations a pixel for one stage, 10 for two); the hashes of the
+    dropout op where its gate is on."""
     import torch
 
     from wmfml_tpu_torch.aug import image_aug
-    from wmfml_tpu_torch.kernels import warp
 
-    b, h, w = 150, 128, 128
-    p = da_params(gen, b, h, w, ops)
-    x = torch.rand((b, h, w, 1), generator=gen, device="cuda")
-    got = warp.warp_launch(x, p.warp, ops)
-    want = warp.warp_plain(x, p.warp, ops)
-    torch.cuda.synchronize()
-    err, rel = check_close("warp_chain", got, want)
-    my = mx = None
-    for st in image_aug.stages_from_params(p.warp, ops):
-        wy, wx = image_aug.stage_matrices(h, w, st["scale"], st["translate"],
-                                          st["nearest"], st["gate"])
-        my = wy if my is None else wy @ my
-        mx = wx if mx is None else wx @ mx
-    x2, mxt = x[..., 0], mx.transpose(1, 2).contiguous()
-
-    def library():      # the dense form's mix; never called by the port
-        return torch.bmm(torch.bmm(my, x2), mxt)
-
-    times = in_turns({"ms": lambda: warp.warp_launch(x, p.warp, ops),
-                      "plain_ms": lambda: warp.warp_plain(x, p.warp, ops),
-                      "library_ms": library})
-    times.update(device_profile(lambda: warp.warp_launch(x, p.warp, ops)))
-    # this run's work: per pixel a multiply-add per (row tap, column tap) of
-    # the composed rows, and the fill (3 operations for one stage, 8 for two)
-    taps = ((my != 0).sum(-1).double()[:, :, None]
-            * (mx != 0).sum(-1).double()[:, None, :])
-    flops = float(2 * taps.sum()) + (3 if len(ops) == 1 else 8) * b * h * w
-    nbytes = 4 * (x.numel() + got.numel() + p.warp.numel())
-    dense = 2 * b * h * w * (h + w)
-    label = "two stages (CropAndPad, Affine)" if len(ops) == 2 else \
-        "one stage (Affine, nearest taps on about half the images)"
-    return dict(name="warp_chain", route="cuda", path="ANP" if len(ops) == 2
-                else "MAML", shape=f"[150, 128, 128, 1], {label}",
-                source="wmfml_tpu_torch/csrc/warp.cu",
-                replaces="wmfml_tpu/aug/image_aug.py:120",
-                library="two torch.bmm of the dense form, prebuilt matrices",
-                max_abs_err=err, max_rel_err=rel, **times,
-                dense_flops=dense, dense_bound_ms=dense / PEAK_F32_FLOPS * 1e3,
-                **bound(flops, nbytes))
+    b = p.warp.shape[0]
+    flops = 0.0
+    for run in image_aug.order_runs(image_aug.ORDERS[order]):
+        if run == (image_aug.DROP,):
+            continue
+        my = mx = None
+        for st in image_aug.stages_from_params(p.warp, run):
+            wy, wx = image_aug.stage_matrices(h, w, st["scale"],
+                                              st["translate"], st["nearest"],
+                                              st["gate"])
+            my = wy if my is None else wy @ my
+            mx = wx if mx is None else wx @ mx
+        taps = ((my != 0).sum(-1).double()[:, :, None]
+                * (mx != 0).sum(-1).double()[:, None, :])
+        flops += float(2 * taps.sum()) + (5 if len(run) == 1 else 10) * b * h * w
+    gate, pick = p.drop[:, 0] > 0.5, p.drop[:, 1] > 0.5
+    cells = (torch.clamp_min(torch.round(h * p.drop[:, 3]), 1.0)
+             * torch.clamp_min(torch.round(w * p.drop[:, 3]), 1.0)).double()
+    iops = float((gate & pick).sum()) * HASH_OPS * h * w + float(
+        (cells[gate & ~pick] * HASH_OPS + h * w).sum())
+    return flops, iops
 
 
-# integer and float operations of K5 per element whose gate is on: the id
-# (Dropout 3; CoarseDropout 2 multiplies, 2 divisions, 2 floors, a
-# multiply-add and the cast, 9), the key mix (xor, multiply, add), two
-# murmur3 finalizers (3 xors, 3 shifts, 2 multiplies each), the uniform
-# (convert, scale, compare) and the mask multiply
-HASH_OPS = {1.0: 3 + 3 + 16 + 3 + 1, 0.0: 9 + 3 + 16 + 3 + 1}
+def da_phases(x, u, keys, order, runs=10):
+    """K6's phase clock (the global timer, ns, read by each block's first
+    thread; ``image_da.PHASES``): the mean over the blocks of the time from
+    a block's start to each point, and the span from the first block's start
+    to the last block's end, in microseconds; medians over ``runs``."""
+    import statistics
 
-
-def check_hash(gen, pick):
-    """K5 at the DA call's shape, every gate on, Dropout (``pick`` 1) or
-    CoarseDropout (0): bit for bit against the twin."""
     import torch
 
-    from wmfml_tpu_torch.kernels import hash_mask
+    from wmfml_tpu_torch.kernels import image_da as kda
 
-    b, h, w = 150, 128, 128
-    p = da_params(gen, b, h, w, ())
-    p.drop[:, 1] = pick
-    x = torch.rand((b, h, w, 1), generator=gen, device="cuda")
-    got = hash_mask.hash_dropout_launch(x, p.drop, p.keys)
-    want = hash_mask.hash_dropout_plain(x, p.drop, p.keys)
+    per_run = []
+    for _ in range(runs):
+        stamps = torch.full((u.shape[0], kda.STAMPS), -1, dtype=torch.int64,
+                            device="cuda")
+        kda.image_da_launch(x, u, keys, order, stamps=stamps)
+        s = stamps.cpu().double()
+        row = {name: float((s[:, j] - s[:, 0]).mean()) / 1e3
+               for j, name in enumerate(kda.PHASES) if j}
+        row["span"] = float(s[:, -1].max() - s[:, 0].min()) / 1e3
+        per_run.append(row)
+    return {k: statistics.median(r[k] for r in per_run) for k in per_run[0]}
+
+
+def check_image_da(gen):
+    """K6 at the DA call's shape: the context slice of a [10, 30, 128, 128,
+    1] uint8 batch (150 images, read through its strides), every gate on.
+    Its parameters bit for bit against ``params_from_draw`` on the card;
+    with both warps off, its Dropout and CoarseDropout masks bit for bit
+    against the twin on the card and on the CPU in every order; then each of
+    the six orders against both twins within ``TOL["warp_chain"]``, timed,
+    with its phase clock. The library yardstick, never called by the port:
+    ``F.grid_sample`` (bilinear, zeros, ``align_corners=True``) of the
+    float images on a prebuilt grid, Affine's warp alone with cval 0. Rows
+    for the ``kernels`` line: order (0, 1, 2), the two warps chained then
+    the mask (ANP), and (0, 2, 1), warp, mask, warp (MAML)."""
+    import torch
+    import torch.nn.functional as F
+
+    from wmfml_tpu_torch.aug import image_aug
+    from wmfml_tpu_torch.kernels import image_da as kda
+
+    t_, s_, h, w = 10, 15, 128, 128
+    b = t_ * s_
+    batch = torch.randint(0, 256, (t_, 2 * s_, h, w, 1), dtype=torch.uint8,
+                          generator=gen, device="cuda")
+    x = batch[:, :s_]
+    u, keys = da_draw(gen, b)
+    xc, uc, kc = x.cpu(), u.cpu(), keys.cpu()
+
+    def order_t(o, dev="cuda"):
+        return torch.tensor([o], device=dev)
+
+    got_p = torch.empty((b, kda.NPARAMS), device="cuda")
+    kda.image_da_launch(x, u, keys, order_t(0), params_out=got_p)
+    p = image_aug.params_from_draw(u, keys, order_t(0), h, w)
+    want_p = torch.cat([p.warp.flatten(1), p.drop], 1)
     torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        raise AssertionError(f"hash_dropout ({'Dropout' if pick else 'Coarse'}"
-                             f"Dropout) differs from its twin at "
-                             f"{int((got != want).sum())} elements")
-    dropped = float((got != x).double().mean())
-    times = in_turns({
-        "ms": lambda: hash_mask.hash_dropout_launch(x, p.drop, p.keys),
-        "plain_ms": lambda: hash_mask.hash_dropout_plain(x, p.drop, p.keys)})
-    times.update(device_profile(
-        lambda: hash_mask.hash_dropout_launch(x, p.drop, p.keys)))
-    n_on = x.numel()                              # every gate is on
-    t_ops = HASH_OPS[pick] * n_on / PEAK_INT32_OPS
-    nbytes = 4 * (x.numel() + got.numel() + p.drop.numel() + p.keys.numel())
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    kind = "Dropout" if pick else "CoarseDropout"
-    return dict(name="hash_dropout", route="cuda",
-                path="ANP" if pick else "MAML",
-                shape=f"[150, 128, 128, 1], {kind}, all gates on",
-                source="wmfml_tpu_torch/csrc/hash_mask.cu",
-                replaces="wmfml_tpu/aug/image_aug.py:287",
-                max_abs_err=0.0, max_rel_err=0.0, dropped_share=dropped,
-                **times, library_ms=None,
-                bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                bound_f32_ms=max(t_ops, t_bytes) * 1e3)
+    if not torch.equal(got_p.view(torch.int32), want_p.view(torch.int32)):
+        raise AssertionError(f"image_da: its parameters differ from "
+                             f"params_from_draw's at "
+                             f"{int((got_p != want_p).sum())} entries")
+    dropped = {}
+    for pick, kind in ((0.25, "Dropout"), (0.75, "CoarseDropout")):
+        um = u.clone()
+        um[:, 13] = um[:, 14] = 0.75
+        um[:, 17] = pick
+        for o in range(len(image_aug.ORDERS)):
+            got = kda.image_da_launch(x, um, keys, order_t(o))
+            for want in (kda.image_da_plain(x, um, keys, order_t(o)).cpu(),
+                         kda.image_da_plain(xc, um.cpu(), kc,
+                                            order_t(o, "cpu"))):
+                if not torch.equal(got.cpu().view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(
+                        f"image_da ({kind}, order {o}): the mask differs from "
+                        f"the twin's at {int((got.cpu() != want).sum())} "
+                        f"elements")
+        dropped[kind] = float((got.cpu() == 0).double().mean()
+                              - (xc == 0).double().mean())
+
+    xf = (xc.float() / 255.0).reshape(b, 1, h, w).cuda()
+    sx, sy, tx, ty = p.warp[:, 1, :4].unbind(-1)
+
+    def axis_grid(n, scale, shift):    # (j - c - shift) / scale + c -> [-1, 1]
+        c = (n - 1) / 2.0
+        j = torch.arange(n, device="cuda", dtype=torch.float32)
+        src = (j[None] - c - shift[:, None]) / scale[:, None] + c
+        return 2.0 * src / (n - 1) - 1.0
+
+    gx, gy = axis_grid(w, sx, tx), axis_grid(h, sy, ty)
+    grid = torch.stack([gx[:, None, :].expand(b, h, w),
+                        gy[:, :, None].expand(b, h, w)], -1).contiguous()
+    library_ms = cuda_ms(lambda: F.grid_sample(
+        xf, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+
+    rows = {}
+    nbytes = 5 * x.numel() + 4 * (u.numel() + keys.numel()) + 8
+    for o, ops in enumerate(image_aug.ORDERS):
+        ot = order_t(o)
+        got = kda.image_da_launch(x, u, keys, ot)
+        want = kda.image_da_plain(x, u, keys, ot)
+        torch.cuda.synchronize()
+        err, rel = check_close("warp_chain", got, want)
+        err_cpu, _ = check_close("warp_chain", got.cpu(), kda.image_da_plain(
+            xc, uc, kc, order_t(o, "cpu")))
+        times = in_turns({
+            "ms": lambda: kda.image_da_launch(x, u, keys, ot),
+            "plain_ms": lambda: kda.image_da_plain(x, u, keys, ot)})
+        names = set()
+        times.update(device_profile(
+            lambda: kda.image_da_launch(x, u, keys, ot), names=names))
+        if len(names) != 1 or times["kernels_per_call"] != 1:
+            raise AssertionError(f"image_da issued {times['kernels_per_call']} "
+                                 f"kernels per call: {sorted(names)}")
+        flops, iops = da_work(p, o, h, w)
+        t_ops = flops / PEAK_F32_FLOPS + iops / PEAK_INT32_OPS
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        rows[o] = dict(
+            name="image_da", route="cuda", path="MAML" if o == 1 else "ANP",
+            tol="warp_chain",
+            shape=f"[10, 15 of 30, 128, 128, 1] uint8, order {ops}, every "
+                  f"gate on", source="wmfml_tpu_torch/csrc/image_da.cu",
+            replaces="wmfml_tpu/aug/image_aug.py:537",
+            library="F.grid_sample, bilinear, zeros, Affine alone, cval 0",
+            max_abs_err=max(err, err_cpu), max_rel_err=rel,
+            max_abs_err_card_twin=err, max_abs_err_cpu_twin=err_cpu, **times,
+            library_ms=library_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_f32_ms=max(t_ops, t_bytes) * 1e3, flops=flops, int_ops=iops,
+            phase_us=da_phases(x, u, keys, ot), dropped_share=dropped)
+    for o in range(1, len(image_aug.ORDERS)):   # order 0 is printed in the table
+        r = rows[o]
+        log(f"kernel: image_da order {image_aug.ORDERS[o]}: max abs err "
+            f"{r['max_abs_err']} (card twin {r['max_abs_err_card_twin']}, CPU "
+            f"twin {r['max_abs_err_cpu_twin']}); {r['ms']} ms ({r['device_ms']} "
+            f"ms of it on the device, {r['kernels_per_call']} kernels per "
+            f"call), plain {r['plain_ms']} ms, library {library_ms} ms, bound "
+            f"{r['bound_ms']} ms by {r['bound_by']}; phase clock (us) "
+            f"{r['phase_us']}")
+    log(f"kernel: image_da: parameters equal params_from_draw's bit for bit; "
+        f"masks with the warps off equal the twins' bit for bit in every "
+        f"order (share of pixels dropped beyond the zeros of x: {dropped})")
+    return [rows[0], rows[1]]
 
 
 def train_phase(card, yaml, overrides, counters):
@@ -607,67 +721,76 @@ def train_phase(card, yaml, overrides, counters):
 
 
 def check_da_launches(trainer, launches):
-    """K4 and K5 launch exactly as the op orders the run drew imply: two
-    augmenter calls a training step, each order's runs of warp ops one K4
-    launch and its dropout op one K5 launch; the orders replayed from the
-    CPU stream the trainer seeded with ``config.seed``."""
-    from wmfml_tpu_torch.aug import image_aug
-
+    """K6 launches exactly once per augmenter call, two calls a training
+    step, whatever the op orders drawn on the card."""
     cfg = trainer.config
-    stream = image_aug.order_generator(cfg.seed)
-    orders = [image_aug.draw_order(stream) for _ in range(2 * cfg.iterations)]
-    want = {"warp_chain": 0, "hash_dropout": 0}
-    for o in orders:
-        for k, n in image_aug.launches_of(o).items():
-            want[k] += n
-    got = {k: launches[k] for k in want}
-    log(f"train {cfg.method}: DA orders drawn {orders}; K4/K5 launches "
-        f"{got}, the orders imply {want}")
-    if got != want:
-        raise AssertionError(f"{cfg.method}: DA launched {got}, the drawn "
-                             f"orders imply {want}")
+    want = 2 * cfg.iterations
+    log(f"train {cfg.method}: K6 launches {launches['image_da']}, two a "
+        f"step imply {want}")
+    if launches["image_da"] != want:
+        raise AssertionError(f"{cfg.method}: K6 launched "
+                             f"{launches['image_da']} times, not {want}")
 
 
 def check_da_batch(trainer):
     """Image DA on one full-width training batch (context and query, 150
-    images each) in each of the six op orders: through K4 and K5 and through
-    the twins at the same parameters. Then the device time of one training
-    step's DA (sampling and both calls), in the order it draws."""
+    images each, the sampler's uint8 slices) in each of the six op orders:
+    through K6 and through the twin on the CPU at the same draw. Then one
+    training step's DA (the draws and both calls): once under
+    ``set_sync_debug_mode("error")``, which raises if the host reads a
+    draw, then its card time, device time, kernels and host time."""
     import torch
 
     from wmfml_tpu_torch.aug import image_aug, pipeline
+    from wmfml_tpu_torch.kernels import image_da as kda
 
     cfg = trainer.config
     gen = torch.Generator(device="cuda").manual_seed(1)
     batch = trainer.sampler.sample(cfg.tasks_per_batch, gen)
-    aug = image_aug.ShapeNet1DAugmenter(seed=1)
+    aug = image_aug.ShapeNet1DAugmenter()
     worst = 0.0
     for key in ("ctx_x", "qry_x"):
-        x = pipeline._to_float(batch[key])
-        params = aug.sample(x.reshape(-1, *x.shape[-3:]).shape, gen, "cuda")
+        x = batch[key]
+        u, keys, _ = aug.sample(x.shape[0] * x.shape[1], gen, "cuda")
+        xc, uc, kc = x.cpu(), u.cpu(), keys.cpu()
         for order in range(len(image_aug.ORDERS)):
-            params.order = order
-            got = aug(x, params=params)
-            want = image_aug.ShapeNet1DAugmenter()(x.cpu(), params=(
-                image_aug.DAParams(order, params.warp.cpu(),
-                                   params.drop.cpu(), params.keys.cpu())))
-            err, _ = check_close("warp_chain", got.cpu(), want)
+            got = kda.image_da_launch(x, u, keys, torch.tensor(
+                [order], device="cuda")).cpu()
+            want = kda.image_da_plain(xc, uc, kc, torch.tensor([order]))
+            err, _ = check_close("warp_chain", got, want)
             worst = max(worst, err)
-            if torch.equal(got.cpu(), x.cpu()):
+            if torch.equal(got, image_aug.to_unit(xc)):
                 raise AssertionError(f"DA left the {key} batch unchanged")
     step = pipeline.build_episode_processor(cfg.task, cfg.aug_list,
-                                            train=True, seed=cfg.seed)
+                                            train=True)
 
     def da_step():
-        return step.augment(pipeline._to_float(batch["ctx_x"]), gen), \
-            step.augment(pipeline._to_float(batch["qry_x"]), gen)
+        return (step.augment(batch["ctx_x"], gen),
+                step.augment(batch["qry_x"], gen))
 
+    da_step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        da_step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     times = dict(ms=cuda_ms(da_step), **device_profile(da_step))
-    log(f"da: one full-width batch, six orders, kernels vs twins (on the "
-        f"CPU): max abs err {worst} (atol, rtol {TOL['warp_chain']}); one "
-        f"training step's DA (uint8 -> float, sampling, two calls): "
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        da_step()
+    times["host_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
+    log(f"da: one full-width batch, six orders, K6 vs the twin on the CPU: "
+        f"max abs err {worst} (atol, rtol {TOL['warp_chain']}); one training "
+        f"step's DA (draws and two K6 calls) ran with no host sync; "
         f"{times['ms']} ms, {times['device_ms']} ms of device time, "
-        f"{times['kernels_per_call']} kernels")
+        f"{times['kernels_per_call']} kernels, {times['host_ms']} ms of host "
+        f"time to issue")
+    if times["kernels_per_call"] > 8:
+        raise AssertionError(f"DA issued {times['kernels_per_call']} kernels "
+                             f"a step")
     return times
 
 
@@ -779,31 +902,38 @@ def check_maml_validation(trainer):
         raise AssertionError(f"MAML validation loss: card {got}, CPU {want}")
 
 
-def check_second_order_grad(gen):
+def replay_maml():
+    """Phase 7's training replayed (untimed, from the same seed) under
+    deterministic algorithms, which the caller has switched on.
+
+    float32's error in phase 8's gradient swings with the last bits of any
+    sum before it: cuDNN's default backward sums in no fixed order, and two
+    runs on one state and batch can differ several times over in their
+    distance from float64. The replay and the gradients taken on it under
+    deterministic algorithms fix the state and every sum, so phase 8's
+    verdict is the same on every run."""
+    from wmfml_tpu_torch.cli import train_cli
+    from wmfml_tpu_torch.configs import Config
+
+    return train_cli.train(Config(MAML_YAML, MAML_OVERRIDES))
+
+
+def check_second_order_grad(trainer):
     """One full-width MAML training batch: the second-order outer gradient
     through K1 and K3 against plain autograd through the twins, which never
     enters a custom autograd Function (a backward that dropped its
     second-order terms would show here), in float32 and in float64. The
     first-order gradient says how large the second-order terms are.
-
-    float32's error in this gradient swings with the last bits of any sum
-    before it: cuDNN's default backward sums in no fixed order, and two
-    runs on one state and batch can differ several times over in their
-    distance from float64 (``--grad-spread``). Phase 7's training is
-    therefore replayed (untimed, from the same seed) and the gradients
-    taken under deterministic algorithms, which fixes the state, the batch
-    and every sum."""
+    ``trainer`` is ``replay_maml``'s. The batch is the replayed training's
+    first one: drawn and augmented from a generator seeded with the
+    config's seed, as the trainer draws its first step, so that no other
+    phase's draws move it."""
     import torch
 
-    from wmfml_tpu_torch.cli import train_cli
-    from wmfml_tpu_torch.configs import Config
-
-    torch.use_deterministic_algorithms(True)
-    try:
-        trainer = train_cli.train(Config(MAML_YAML, MAML_OVERRIDES))
-        err, err_plain, _, second_share = second_order_errors(trainer, gen)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    first_batch = torch.Generator(device="cuda").manual_seed(
+        int(trainer.config.seed))
+    err, err_plain, _, second_share = second_order_errors(trainer,
+                                                          first_batch)
     if not err <= max(GRAD_TOL, GRAD_FACTOR * err_plain):
         raise AssertionError(f"second-order gradient through the kernels is "
                              f"{err} from float64, the twins' {err_plain}")
@@ -812,23 +942,57 @@ def check_second_order_grad(gen):
                              f"above the error {err}: the check is blind")
 
 
-def grad_spread(trainer, batches=8):
-    """``--grad-spread``: phase 8's numbers on phase 7's own state and with
-    cuDNN's default algorithms, for the first batch twice, then for more."""
-    import torch
+def grad_spread(trainer, gens, jitters=3):
+    """``--grad-spread``: how far phase 8's kernels-to-twins ratio moves
+    with float32 rounding alone. On ``replay_maml``'s state, under
+    deterministic algorithms, for each batch (``gens``: name -> a
+    generator to draw and augment it from), phase 8's comparison as it
+    stands, then ``jitters`` times on the same images with a random half of
+    their nonzero pixels moved one float32 ulp up or down (the float64
+    reference takes the same images): a relative change below 1.2e-7 that
+    moves no true gradient, only every rounding after it. A kernel at fault
+    stays far from the twins on every copy; rounding noise crosses over.
+    On the jittered copies a third witness, ``shuffled_twin``: the twins
+    with K1's and K3's forward differences from them added in a random
+    order, which says whether the size of the kernels' rounding alone
+    explains their distance from float64."""
+    rows = []
+    for name, gen in gens.items():
+        state = gen.get_state()
+        runs = []
+        for jitter in (None, *range(jitters)):
+            gen.set_state(state)
+            err, err_plain, err_mixed, _ = second_order_errors(trainer, gen,
+                                                               jitter)
+            runs.append((err, err_plain, err_mixed))
+        (err, err_plain, _), jittered = runs[0], runs[1:]
+        row = dict(batch=name, kernels=err, twins=err_plain,
+                   ratio=err / err_plain,
+                   jittered_kernels=[r[0] for r in jittered],
+                   jittered_twins=[r[1] for r in jittered],
+                   jittered_ratios=[r[0] / r[1] for r in jittered],
+                   jittered_shuffled=[r[2] for r in jittered],
+                   jittered_shuffled_ratios=[r[2] / r[1] for r in jittered])
+        rows.append(row)
+        log(f"grad spread: {json.dumps(row)}")
+    for key, what in (("ratio", "kernels / twins, as phase 8 reads them"),
+                      ("jittered_ratios", "kernels / twins, jittered"),
+                      ("jittered_shuffled_ratios",
+                       "shuffled twins / twins, jittered")):
+        v = sorted(x for r in rows
+                   for x in (r[key] if isinstance(r[key], list)
+                             else [r[key]]))
+        log(f"grad spread: {what}: {len(v)} values {min(v)} .. {max(v)}, "
+            f"median {v[len(v) // 2]}, {sum(x > GRAD_FACTOR for x in v)} "
+            f"above GRAD_FACTOR {GRAD_FACTOR}")
 
-    for seed in [0, *range(batches)]:
-        err, err_plain, _, second_share = second_order_errors(
-            trainer, torch.Generator(device="cuda").manual_seed(seed))
-        log(f"grad spread: batch seed {seed}: kernels {err}, plain float32 "
-            f"twins {err_plain}, second-order part {second_share} "
-            f"({second_share / err} times the kernels' error)")
 
-
-def second_order_errors(trainer, gen):
+def second_order_errors(trainer, gen, jitter=None):
     """Phase 8's comparison on ``trainer``'s model and one batch: the
     kernels' and the twins' distance from float64, the kernels' from the
-    twins, and the second-order part of the gradient."""
+    twins, and the second-order part of the gradient. ``jitter``, a seed,
+    moves a random half of the augmented images' nonzero pixels one ulp
+    (``grad_spread``)."""
     import copy
 
     import torch
@@ -841,23 +1005,37 @@ def second_order_errors(trainer, gen):
 
     cfg = trainer.config
     batch = trainer.sampler.sample(cfg.tasks_per_batch, gen)
-    # DA has no gradient: the batch is augmented once, through K4 and K5,
-    # and every gradient below is taken on those images with no DA inside
+    # DA has no gradient: the batch is augmented once, through K6, and
+    # every gradient below is taken on those images with no DA inside
     augment = pipeline.build_episode_processor(
-        cfg.task, cfg.aug_list, train=True, seed=cfg.seed).augment
+        cfg.task, cfg.aug_list, train=True).augment
     if augment is not None:
-        batch = dict(batch, **{k: augment(pipeline._to_float(batch[k]), gen)
+        batch = dict(batch, **{k: augment(batch[k], gen)
                                for k in ("ctx_x", "qry_x")})
+    if jitter is not None:
+        jg = torch.Generator(device="cuda").manual_seed(jitter)
+        for k in ("ctx_x", "qry_x"):
+            x = pipeline._to_float(batch[k])
+            up = torch.rand(x.shape, generator=jg, device=x.device) < 0.5
+            move = (torch.rand(x.shape, generator=jg, device=x.device) < 0.5
+                    ) & (x != 0)
+            batch[k] = torch.where(move, torch.nextafter(
+                x, torch.where(up, 2.0, -1.0)), x)
     cfg = copy.copy(cfg)
     cfg.aug_list = [a for a in cfg.aug_list if a != "data_aug"]
 
-    def grads(model, first_order=False, plain=False):
+    def grads(model, first_order=False, plain=False, shuffled=False):
         saved = (cfg.first_order, encoders.literature_stem,
                  maml_model.maml_features, pipeline._to_float)
         cfg.first_order = first_order
         if plain:
             encoders.literature_stem = stem.stem_plain
             maml_model.maml_features = features.features_plain
+        if shuffled:
+            encoders.literature_stem = shuffled_twin(stem.stem_plain,
+                                                     saved[1])
+            maml_model.maml_features = shuffled_twin(features.features_plain,
+                                                     saved[2])
         dtype = next(model.parameters()).dtype
         pipeline._to_float = lambda x: saved[3](x).to(dtype)
         try:
@@ -874,6 +1052,8 @@ def second_order_errors(trainer, gen):
     plain = grads(trainer.model, plain=True)
     exact = grads(copy.deepcopy(trainer.model).double(), plain=True)
     first = grads(trainer.model, first_order=True)
+    mixed = grads(trainer.model, shuffled=True) if jitter is not None \
+        else None
     torch.cuda.synchronize()
 
     # the features blocks' conv biases feed a batch norm, which removes any
@@ -894,12 +1074,35 @@ def second_order_errors(trainer, gen):
     err_plain, top_plain = worst(plain, exact)
     err_pair, _ = worst(kernel, plain)
     second_share, _ = worst(exact, first)
+    err_mixed = None if mixed is None else worst(mixed, exact)
     log(f"grad: second-order outer gradient over {len(exact)} parameters, "
         f"max rel err against float64 plain autograd: kernels {err} "
         f"({top}), plain float32 twins {err_plain} ({top_plain}); kernels "
         f"against plain float32 {err_pair}; second-order part of the "
-        f"gradient {second_share}")
-    return err, err_plain, err_pair, second_share
+        f"gradient {second_share}"
+        + ("" if mixed is None else f"; twins with the kernels' forward "
+           f"differences shuffled {err_mixed[0]} ({err_mixed[1]})"))
+    if jitter is None:
+        return err, err_plain, err_pair, second_share
+    return err, err_plain, err_mixed[0], second_share
+
+
+def shuffled_twin(plain_fn, kernel_fn):
+    """``plain_fn`` whose forward value is moved by the kernel's own
+    differences from it on the same inputs, in a random order (the
+    backward stays ``plain_fn``'s, as the kernels' does): a perturbation of
+    the kernel's size that carries none of its structure."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def fn(*args, **kwargs):
+        out = plain_fn(*args, **kwargs)
+        with torch.no_grad():
+            d = torch.nan_to_num(kernel_fn(*args, **kwargs) - out).flatten()
+            d = d[torch.randperm(d.numel(), generator=gen, device=d.device)]
+        return out + d.view_as(out)
+    return fn
 
 
 def profile_steps(trainer, steps=8):
@@ -938,10 +1141,14 @@ def profile_steps(trainer, steps=8):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    da_us = sum(us for name, us in by_name.items()
-                if "warp_chain_kernel" in name or "hash_dropout_kernel" in name)
-    log(f"profile {tag}: K4 + K5 (DA) {da_us / steps} us/step of device time "
-        f"= {da_us / busy_us} of the busy time")
+    # K6 launches twice a step; its events' mean, as device_profile takes
+    # it, since the profiler may drop some of them
+    k6 = [e.time_range.elapsed_us() for e in kernels
+          if "image_da_kernel" in e.name]
+    da_us = 2 * steps * sum(k6) / max(len(k6), 1)
+    log(f"profile {tag}: K6 (DA) {da_us / steps} us/step of device time "
+        f"= {da_us / busy_us} of the busy time ({len(k6)} of "
+        f"{2 * steps} K6 events recorded)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"profile {tag}: {us / steps:10.3f} us/step  {name[:110]}")
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
@@ -960,9 +1167,8 @@ def main(argv):
     from wmfml_tpu_torch.kernels import build
     from wmfml_tpu_torch.kernels.favor import favor_attention
     from wmfml_tpu_torch.kernels.features import maml_features
-    from wmfml_tpu_torch.kernels.hash_mask import hash_dropout
+    from wmfml_tpu_torch.kernels.image_da import image_da
     from wmfml_tpu_torch.kernels.stem import literature_stem
-    from wmfml_tpu_torch.kernels.warp import warp_chain_op
     from wmfml_tpu_torch.models.registry import build_model
 
     torch.backends.cudnn.allow_tf32 = False
@@ -982,7 +1188,8 @@ def main(argv):
         f"favor {libs['favor'].wmfml_favor_smem_bytes(15, 15, 64, 266)} B used "
         f"of the 231424 B it requests (Nq = Nk = 15, m = 266); favor "
         f"co-resident blocks {libs['favor'].wmfml_favor_coresident()}, "
-        f"warp {libs['warp'].wmfml_warp_smem_bytes(128)} B (W = 128)")
+        f"image_da {libs['image_da'].wmfml_image_da_smem_bytes(128, 128)} B "
+        f"(128 x 128)")
     for name, text in build.ptxas_log.items():
         for line in text.splitlines():
             if any(k in line for k in ("entry function", "registers",
@@ -996,8 +1203,10 @@ def main(argv):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_stem(anp, gen), check_favor(anp, gen),
             check_stem_per_task(maml, gen), check_features(maml, gen),
-            check_warp(gen, (0, 1)), check_warp(gen, (1,)),
-            check_hash(gen, 1.0), check_hash(gen, 0.0)]
+            *check_image_da(gen)]
+    # the batch phase 8 drew before it took the config's seed
+    after_phase3 = torch.Generator(device="cuda")
+    after_phase3.set_state(gen.get_state())
     floor = floor_ms()
     log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
         f"time, the least any launch takes on this card")
@@ -1008,25 +1217,23 @@ def main(argv):
             extra = (f"; unmasked: max abs err {r['max_abs_err_unmasked']}, "
                      f"{r['ms_unmasked']} ms, plain "
                      f"{r['plain_ms_unmasked']} ms")
-        if "dense_bound_ms" in r:
-            extra = (f"; library = {r['library']}; the dense form's float32 "
-                     f"bound {r['dense_bound_ms']} ms ({r['dense_flops']} "
-                     f"FLOP)")
-        if "dropped_share" in r:
-            extra = f"; share of elements dropped {r['dropped_share']}"
+        if "library" in r:
+            extra = (f"; library = {r['library']}; {r['flops']} float and "
+                     f"{r['int_ops']} integer operations")
         log(f"kernel: {r['name']} ({r['shape']}): max abs err "
             f"{r['max_abs_err']}, max rel err {r['max_rel_err']} (atol, rtol "
-            f"{TOL[r['name']]}); {r['ms']} ms ({r['device_ms']} ms of it on "
+            f"{TOL[r.get('tol', r['name'])]}); {r['ms']} ms ({r['device_ms']} "
+            f"ms of it on "
             f"the device, {r['kernels_per_call']} kernels per call), plain "
             f"{r['plain_ms']} ms, "
             f"library {r['library_ms']} ms, bound {r['bound_ms']} ms by "
             f"{r['bound_by']} (float32 CUDA-core bound {r['bound_f32_ms']} "
             f"ms){extra}")
         if "phase_us" in r:
-            log(f"kernel: {r['name']} phase clock (us from the first block's "
-                f"start, medians of 10 launches): {r['phase_us']}")
+            log(f"kernel: {r['name']} phase clock (us, medians of 10 "
+                f"launches; favor_phases, da_phases): {r['phase_us']}")
 
-    da_kernels = {"warp_chain": warp_chain_op, "hash_dropout": hash_dropout}
+    da_kernels = {"image_da": image_da}
     trainer, anp_launches = train_phase(
         card, MAIN_YAML, TRAIN_OVERRIDES,
         {"literature_stem": literature_stem,
@@ -1046,9 +1253,21 @@ def main(argv):
         "literature_stem", "maml_features")})
     check_da_launches(mtrainer, maml_launches)
     check_maml_validation(mtrainer)
-    check_second_order_grad(gen)
-    if "--grad-spread" in argv:
-        grad_spread(mtrainer)
+    torch.use_deterministic_algorithms(True)
+    try:
+        replayed = replay_maml()
+        check_second_order_grad(replayed)
+        if "--grad-spread" in argv:
+            seed = int(replayed.config.seed)
+            gens = {f"phase 8's, seed {seed}": seed,
+                    "after phase 3's draws": after_phase3,
+                    **{f"seed {seed + i}": seed + i for i in range(1, 7)}}
+            grad_spread(replayed, {
+                k: v if isinstance(v, torch.Generator)
+                else torch.Generator(device="cuda").manual_seed(v)
+                for k, v in gens.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
     if "--profile" in argv:
         profile_steps(mtrainer, steps=4)
 

@@ -5,9 +5,9 @@ chain, the murmur3 masks), the whole ShapeNet1D augmenter for every one of
 its six op orders, the DA + TA episode processor and one ANP train step with
 DA. The JAX package draws its parameters from threefry keys; a helper here
 replays its key derivation and hands the port the same draws
-(``DAParams``). On the CPU the augmenter's K4 and K5 wrappers run their
-plain twins; the kernels are held against the same twins on the card
-(``test_torch_port_cuda.py``, ``chip_smoke.py``).
+(``DAParams``). On the CPU the augmenter's K6 wrapper runs its plain twin
+(``params_from_draw``, then the dense twins); the kernel is held against
+the same twin on the card (``test_torch_port_cuda.py``, ``chip_smoke.py``).
 
 Tolerances: warps rtol 1e-5 / atol 1e-5 (float32 sums of the same terms in
 another order); hash masks bit for bit (integer arithmetic, two float32
@@ -15,6 +15,8 @@ steps done alike); the train step as ``test_torch_port_train.py``.
 """
 
 import itertools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ import torch
 
 from torch_port_common import ATOL, RTOL, WIDTHS, jax_grads_as_port, t, to_numpy
 from wmfml_tpu.aug import image_aug as jaug
+from wmfml_tpu.aug.pipeline import _to_float as jax_to_float
 from wmfml_tpu.aug.pipeline import build_episode_processor as jax_processor
 from wmfml_tpu.configs import Config as JaxConfig
 from wmfml_tpu.models.registry import build_model as jax_build_model
@@ -34,13 +37,13 @@ from wmfml_tpu_torch.aug import image_aug as paug
 from wmfml_tpu_torch.aug.pipeline import build_episode_processor
 from wmfml_tpu_torch.ckpt.jax_params import load_jax_variables
 from wmfml_tpu_torch.configs import Config
-from wmfml_tpu_torch.kernels.hash_mask import hash_dropout
-from wmfml_tpu_torch.kernels.warp import warp_chain_op
+from wmfml_tpu_torch.kernels import image_da as kda
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import build_train_step
 
 PERMS = list(itertools.permutations(range(3)))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _close(got, want, err_msg=""):
@@ -233,45 +236,124 @@ def test_dropout_masks_are_bit_exact(op, c):
 
 # -- 4. the whole augmenter, every order -------------------------------------------
 
+def _images(seed, shape):
+    return np.random.RandomState(seed).randint(0, 256, shape).astype(np.uint8)
+
+
 @pytest.mark.parametrize("order", range(6))
 def test_augmenter_matches_jax_for_each_order(order):
+    """uint8 images through the twin (x / 255, then the order) against the
+    JAX package's ``_to_float``, then ``build_augmenter``."""
     b, h, w = 8, 32, 32
     key = _key_for_order(order)
-    img = np.random.RandomState(order).rand(2, b // 2, h, w, 1).astype(
-        np.float32)
-    want = jaug.build_augmenter("shapenet_1d")(key, img)
+    img = _images(order, (2, b // 2, h, w, 1))
+    want = jaug.build_augmenter("shapenet_1d")(
+        key, jax_to_float(jnp.asarray(img), jnp.float32))
     params = jax_da_params(key, b, h, w)
     assert params.order == order
     got = paug.ShapeNet1DAugmenter()(t(img), params=params)
-    assert got.shape == img.shape
+    assert got.shape == img.shape and got.dtype == torch.float32
     _close(got, want)
-    assert not np.allclose(np.asarray(want), img)     # something was applied
+    assert not np.allclose(np.asarray(want), img / 255.0)   # something applied
 
 
 def test_augmenter_at_full_size_with_nearest_and_gates_mixed():
     key = _key_for_order(2)                       # affine + crop chained
-    img = np.random.RandomState(1).rand(4, 128, 128, 1).astype(np.float32)
+    img = _images(1, (4, 128, 128, 1))
     params = jax_da_params(key, 4, 128, 128)
     _close(paug.ShapeNet1DAugmenter()(t(img), params=params),
-           jaug.build_augmenter("shapenet_1d")(key, img))
+           jaug.build_augmenter("shapenet_1d")(
+               key, jax_to_float(jnp.asarray(img), jnp.float32)))
 
 
-def test_order_runs_give_one_or_two_warp_launches_and_one_mask():
-    assert paug.ORDERS == tuple(PERMS)
+def test_kernel_order_table_is_orders_and_runs_group_adjacent_warps():
+    """The order table compiled into K6 (``csrc/image_da.cu``) is
+    ``ORDERS``, parsed from the source so that the two cannot drift; the
+    twin's ``order_runs`` groups adjacent warps as ``perm_chain`` does."""
+    path = os.path.join(REPO, "wmfml_tpu_torch", "csrc", "image_da.cu")
+    with open(path) as f:
+        body = re.search(r"ORDERS\[6\]\[3\]\s*=\s*\{(.*?)\};", f.read(),
+                         re.S).group(1)
+    table = tuple(tuple(int(v) for v in row) for row in
+                  re.findall(r"\{\s*(\d+),\s*(\d+),\s*(\d+)\s*\}", body))
+    assert table == paug.ORDERS == tuple(PERMS)
     runs = [paug.order_runs(o) for o in paug.ORDERS]
     assert runs[0] == [(0, 1), (2,)] and runs[1] == [(0,), (2,), (1,)]
     assert runs[4] == [(2,), (0, 1)] and runs[5] == [(2,), (1, 0)]
-    for i in range(6):
-        n = paug.launches_of(i)
-        assert n["hash_dropout"] == 1 and n["warp_chain"] in (1, 2)
 
 
-def test_cpu_wrappers_take_the_twins_and_count_no_launch():
-    params = jax_da_params(_key_for_order(1), 2, 16, 16)
-    img = torch.rand(2, 16, 16, 1, generator=torch.Generator().manual_seed(0))
-    before = (warp_chain_op.launches, hash_dropout.launches)
-    paug.apply(img, params)
-    assert (warp_chain_op.launches, hash_dropout.launches) == before
+def _kernel_source():
+    with open(os.path.join(REPO, "wmfml_tpu_torch", "csrc",
+                           "image_da.cu")) as f:
+        return f.read()
+
+
+def test_twin_reads_the_order_modulo_six_as_the_kernel_does():
+    assert "((a.order[0] % 6) + 6) % 6" in _kernel_source()
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randint(0, 256, (4, 16, 16, 1), dtype=torch.uint8,
+                      generator=gen)
+    u, keys, _ = paug.ShapeNet1DAugmenter().sample(4, gen, "cpu")
+    u[:, 13:17] = 0.25                             # every gate on
+    for o in (-7, -1, 6, 7, 11):
+        assert torch.equal(kda.image_da_plain(x, u, keys, torch.tensor([o])),
+                           kda.image_da_plain(x, u, keys,
+                                              torch.tensor([o % 6])))
+
+
+def test_coarse_dropout_grid_fits_the_kernels_cell_table():
+    """K6 keeps one keep bit per CoarseDropout cell in a table of
+    (H/4 + 1) (W/4 + 1) entries (``layout``'s ``cap``): the grid at the
+    largest size fraction the draw gives (u = 1 - 2^-24, just below 0.25)
+    fits for every shape the kernel takes."""
+    assert "L.cap = (H / 4 + 1) * (W / 4 + 1);" in _kernel_source()
+    u, keys = torch.zeros((1, 19)), torch.zeros((1, 2), dtype=torch.int32)
+    u[:, 12] = 1.0 - 2.0 ** -24
+    for h in range(1, 257):
+        for w in range(4, 129, 4):
+            sp = paug.params_from_draw(u, keys, 0, h, w).drop[0, 3]
+            grid = (torch.clamp_min(torch.round(h * sp), 1.0)
+                    * torch.clamp_min(torch.round(w * sp), 1.0))
+            assert 0.2499 < float(sp) < 0.25
+            assert int(grid) <= (h // 4 + 1) * (w // 4 + 1), (h, w)
+
+
+def test_store_layout_probe_still_applies_to_the_kernel():
+    """``kernels/image_da_probe.py`` builds its float4-store variant from
+    the shipped source by text substitution; each must still match once."""
+    from wmfml_tpu_torch.kernels import image_da_probe
+
+    src = _kernel_source()
+    for old, new in image_da_probe.SUBSTITUTIONS:
+        assert src.count(old) == 1 and new not in src
+
+
+def test_to_unit_is_a_true_division_where_a_reciprocal_product_is_not():
+    """x / 255 as JAX's ``_to_float`` rounds it; the card's ``x / 255.0``
+    (a CUDA tensor divided by a Python scalar) multiplies by the float32
+    reciprocal instead, which misses the quotient for 126 of the 256
+    values, so the twin divides through a tensor."""
+    x = np.arange(256, dtype=np.uint8)
+    want = np.asarray(jax_to_float(jnp.asarray(x), jnp.float32))
+    np.testing.assert_array_equal(paug.to_unit(t(x)).numpy(), want)
+    product = x.astype(np.float32) * (np.float32(1) / np.float32(255))
+    assert int((product != want).sum()) == 126
+
+
+def test_cpu_image_da_takes_the_twin_and_counts_no_launch():
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randint(0, 256, (2, 3, 16, 16, 1), dtype=torch.uint8,
+                      generator=gen)
+    u, keys, order = paug.ShapeNet1DAugmenter().sample(6, gen, "cpu")
+    before = kda.image_da.launches
+    got = kda.image_da(x, u, keys, order)
+    assert kda.image_da.launches == before
+    params = paug.params_from_draw(u, keys, order, 16, 16)
+    want = paug.apply(paug.to_unit(x.reshape(6, 16, 16, 1)), params)
+    assert torch.equal(got, want.reshape(x.shape))
+    # injected parameters are for the CPU only
+    with pytest.raises(ValueError, match="CPU only"):
+        paug.ShapeNet1DAugmenter()(x.to("meta"), params=params)
 
 
 # -- 5. the episode processor with DA and TA --------------------------------------
@@ -350,10 +432,12 @@ def test_one_train_step_with_da_matches_jax():
 # -- 7. the port's own sampler, by distribution ---------------------------------------
 
 def test_sampler_distributions():
-    aug = paug.ShapeNet1DAugmenter(seed=0)
+    aug = paug.ShapeNet1DAugmenter()
     gen = torch.Generator().manual_seed(0)
     n, h, w = 4000, 128, 96
-    p = aug.sample((n, h, w, 1), gen, "cpu")
+    u, keys, order = aug.sample(n, gen, "cpu")
+    assert u.shape == (n, 19) and keys.shape == (n, 2) and order.shape == (1,)
+    p = paug.params_from_draw(u, keys, order, h, w)
     assert p.warp.shape == (n, 2, 7) and p.drop.shape == (n, 5)
     assert p.keys.dtype == torch.int32 and bool((p.keys < 0).any())
     sx, sy, tx, ty, cval, nearest, gate = p.warp.unbind(-1)
@@ -379,20 +463,22 @@ def test_sampler_distributions():
     assert 0.02 <= float(sp.min()) and float(sp.max()) < 0.25
     assert abs(float(pc[pick].mean()) - 0.5) < 0.05
     assert abs(float(pc[~pick].mean()) - 0.2) < 0.05
-    orders = {aug.sample((1, h, w, 1), gen, "cpu").order for _ in range(200)}
-    assert orders == set(range(6))
-    # the order stream is a CPU generator's (no read of the card picks an
-    # order), seeded like the trainer's
-    a, b = paug.ShapeNet1DAugmenter(seed=5), paug.ShapeNet1DAugmenter(seed=5)
-    assert a.order_gen.device.type == "cpu"
-    assert ([paug.draw_order(a.order_gen) for _ in range(20)]
-            == [paug.draw_order(b.order_gen) for _ in range(20)])
+    # the order: uniform over the six, one per call, from the same generator
+    # 1200 calls, each count within 4.6 sigma of 200
+    counts = torch.bincount(torch.cat([aug.sample(1, gen, "cpu")[2]
+                                       for _ in range(1200)]), minlength=6)
+    assert counts.shape == (6,) and int((counts - 200).abs().max()) < 60
+    a = aug.sample(3, torch.Generator().manual_seed(5), "cpu")
+    b = aug.sample(3, torch.Generator().manual_seed(5), "cpu")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_augmenter_keeps_hash_masks_and_warps_in_range():
-    aug = paug.ShapeNet1DAugmenter(seed=3)
+    aug = paug.ShapeNet1DAugmenter()
     gen = torch.Generator().manual_seed(3)
-    img = torch.rand(2, 8, 32, 32, 1, generator=gen)
+    img = torch.randint(0, 256, (2, 8, 32, 32, 1), dtype=torch.uint8,
+                        generator=gen)
     out = aug(img, gen)
-    assert out.shape == img.shape and bool(torch.isfinite(out).all())
+    assert out.shape == img.shape and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
     assert float(out.min()) >= -1e-6 and float(out.max()) <= 1 + 1e-6

@@ -7,15 +7,16 @@ CPU-only run. On a machine with a card:
 
 Tolerance: elementwise |kernel - plain| <= atol + rtol * |plain|, the same
 as ``chip_smoke.py``: both sides are float32 sums in another order. Second
-derivatives compare per tensor, max |difference| <= 1e-3 max |plain|. K5
-(hash dropout) is integer arithmetic and must equal its twin bit for bit.
+derivatives compare per tensor, max |difference| <= 1e-3 max |plain|. K6
+(image DA) holds its warps to the twin within 1e-5 and its masks, its
+parameters and, with every gate off, its x / 255 bit for bit.
 """
 
 import pytest
 import torch
 
 from wmfml_tpu_torch.aug import image_aug
-from wmfml_tpu_torch.kernels import favor, features, hash_mask, stem, warp
+from wmfml_tpu_torch.kernels import favor, features, image_da, stem
 
 pytestmark = pytest.mark.cuda
 
@@ -303,86 +304,222 @@ def test_kernels_run_on_tensor_cores(dev, name):
     assert "HGMMA" in sass
 
 
-# -- K4 (warp chain) and K5 (hash dropout) --------------------------------------
+# -- K6 (image DA: the warp chain and the hash masks in one launch) -----------
 
 WARP_TOL = (1e-5, 1e-5)
 
 
-def _da_params(dev, b, h, w, seed=0):
+def _draw(dev, b, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return image_aug.ShapeNet1DAugmenter(seed).sample((b, h, w, 1), g, dev)
+    return image_aug.ShapeNet1DAugmenter().sample(b, g, dev)
 
 
-@pytest.mark.parametrize("ops", [(0, 1), (1, 0), (0,), (1,)])
-@pytest.mark.parametrize("b,h,w,c", [(150, 128, 128, 1), (3, 40, 24, 2)])
-def test_warp_kernel_matches_plain(dev, ops, b, h, w, c):
-    p = _da_params(dev, b, h, w, seed=b + len(ops))
-    x = torch.rand((b, h, w, c), device=dev,
-                   generator=torch.Generator(device=dev).manual_seed(1))
-    _close(warp.warp_launch(x, p.warp, ops), warp.warp_plain(x, p.warp, ops),
+def _images(dev, shape, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, shape, dtype=torch.uint8, generator=g,
+                         device=dev)
+
+
+def _order(dev, order):
+    return torch.tensor([order], device=dev)
+
+
+def _twin_cpu(x, u, keys, order):
+    return image_da.image_da_plain(x.cpu(), u.cpu(), keys.cpu(), order.cpu())
+
+
+@pytest.mark.parametrize("order", range(6))
+@pytest.mark.parametrize("shape", [(10, 15, 128, 128, 1), (3, 40, 24, 1)])
+def test_image_da_kernel_matches_the_twin_in_every_order(dev, order, shape):
+    b = shape[0] * shape[1] if len(shape) == 5 else shape[0]
+    u, keys, _ = _draw(dev, b, seed=order)
+    u[:, 13:17] = 0.25                 # every gate on
+    x = _images(dev, shape)
+    got = image_da.image_da_launch(x, u, keys, _order(dev, order))
+    _close(got, image_da.image_da_plain(x, u, keys, _order(dev, order)),
            *WARP_TOL)
+    _close(got.cpu(), _twin_cpu(x, u, keys, _order(dev, order)), *WARP_TOL)
 
 
-def test_warp_kernel_snaps_nearest_like_the_twin_on_half_boundaries(dev):
-    """Scales and shifts that put sample positions on .5, where one ulp of
-    the position flips a nearest tap to the next pixel (an O(1) error)."""
+def test_image_da_kernel_reads_the_samplers_slices_through_their_strides(dev):
+    x = _images(dev, (4, 9, 32, 32, 1))
+    ctx, qry = x[:, :5], x[:, 5:]
+    assert not ctx.is_contiguous()
+    for part in (ctx, qry):
+        u, keys, order = _draw(dev, part.shape[0] * part.shape[1])
+        _close(image_da.image_da_launch(part, u, keys, order),
+               image_da.image_da_plain(part.contiguous(), u, keys, order),
+               *WARP_TOL)
+
+
+def _u_for(value, lo, span):
+    """A float32 uniform u with fl(fl(u span) + lo) == value, where one
+    exists near (value - lo) / span (u may leave [0, 1): the kernel takes
+    any)."""
+    import numpy as np
+
+    f32 = np.float32
+    u0 = f32((value - lo) / span)
+    cands = u0 + np.arange(-4096, 4097, dtype=np.float32) * np.spacing(u0)
+    vals = f32(cands * f32(span)) + f32(lo)
+    hit = np.flatnonzero(vals == f32(value))
+    return float(cands[hit[0]] if len(hit) else u0)
+
+
+def test_image_da_kernel_snaps_nearest_like_the_twin_on_half_boundaries(dev):
+    """Affine scales and shifts that put sample positions on .5, where one
+    ulp of the position flips a nearest tap to the next pixel (an O(1)
+    error)."""
+    h = w = 128
     scales = [2.0, 1.25, 0.8, 1.0, 0.5, 1.2, 0.85, 1.1]
     shifts = [0.5, -0.5, 0.25, 0.1, -1.5, 0.3, 2.5, -0.7]
-    rows = [[s, s, t, t, 0.3, 1.0, 1.0] for s in scales for t in shifts]
+    rows = []
+    for sc in scales:
+        for sh in shifts:
+            r = [0.9] * 19                       # gates off, no dropout
+            r[5] = r[6] = _u_for(sc, 0.8, 0.4)
+            r[7] = _u_for(sh, -0.1 * w, 0.2 * w)
+            r[8] = _u_for(sh, -0.1 * h, 0.2 * h)
+            r[9], r[14], r[15] = 0.3, 0.1, 0.1   # Affine on, nearest
+            rows.append(r)
     b = len(rows)
-    params = torch.tensor(rows, device=dev)[:, None].repeat(1, 2, 1)
-    x = torch.rand((b, 128, 128, 1), device=dev,
-                   generator=torch.Generator(device=dev).manual_seed(2))
-    for ops in ((1,), (0, 1)):
-        _close(warp.warp_launch(x, params, ops),
-               warp.warp_plain(x, params, ops), *WARP_TOL)
+    u = torch.tensor(rows, device=dev)
+    keys = torch.zeros((b, 2), dtype=torch.int32, device=dev)
+    x = _images(dev, (b, h, w, 1), seed=2)
+    params = image_aug.params_from_draw(u.cpu(), keys.cpu(), 0, h, w)
+    assert float(params.warp[:, 1, 0].eq(2.0).float().sum()) == len(shifts)
+    assert bool((params.warp[:, 1, 2] == 0.5).any())
+    for crop in (0.9, 0.1):                      # Affine alone, then chained
+        u[:, 13] = crop
+        for order in (0, 2):
+            got = image_da.image_da_launch(x, u, keys, _order(dev, order))
+            _close(got.cpu(), _twin_cpu(x, u, keys, _order(dev, order)),
+                   *WARP_TOL)
 
 
-def test_warp_kernel_gate_off_is_the_identity(dev):
-    p = _da_params(dev, 8, 32, 32)
-    p.warp[..., 6] = 0.0
-    x = torch.rand((8, 32, 32, 1), device=dev)
-    assert torch.equal(warp.warp_launch(x, p.warp, (0, 1)), x)
+def test_image_da_kernel_with_every_gate_off_is_x_over_255(dev):
+    x = _images(dev, (2, 15, 128, 128, 1))
+    u, keys, _ = _draw(dev, 30)
+    u[:, 13:17] = 0.75
+    want = x.cpu().float() / 255.0               # true division on the CPU
+    for order in range(6):
+        got = image_da.image_da_launch(x, u, keys, _order(dev, order))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("pick", [1.0, 0.0])
-@pytest.mark.parametrize("b,h,w,c", [(150, 128, 128, 1), (5, 40, 24, 3)])
-def test_hash_dropout_kernel_equals_plain_bit_for_bit(dev, pick, b, h, w, c):
-    p = _da_params(dev, b, h, w, seed=c)
-    p.drop[:, 1] = pick
-    p.drop[::2, 0] = 1.0                       # at least half the gates on
-    p.drop[:, 2] *= 5                          # rates up to .5: masks show
-    x = torch.rand((b, h, w, c), device=dev) - 0.25   # signs, -0.0 kept
-    got = hash_mask.hash_dropout_launch(x, p.drop, p.keys)
-    want = hash_mask.hash_dropout_plain(x, p.drop, p.keys)
+@pytest.mark.parametrize("pick", [0.25, 0.75])    # Dropout, CoarseDropout
+@pytest.mark.parametrize("b,h,w", [(150, 128, 128), (5, 40, 24)])
+def test_image_da_masks_equal_the_twin_bit_for_bit(dev, pick, b, h, w):
+    u, keys, _ = _draw(dev, b, seed=b)
+    u[:, 13:15] = 0.75                           # both warps off
+    u[:, 16], u[:, 17] = 0.25, pick              # the dropout op on
+    u[:, 10], u[:, 11] = 5.0, 9.0                # rates ~.46 and .45
+    x = _images(dev, (b, h, w, 1))
+    for order in range(6):
+        got = image_da.image_da_launch(x, u, keys, _order(dev, order)).cpu()
+        want = _twin_cpu(x, u, keys, _order(dev, order))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+@pytest.mark.parametrize("b,h,w", [(150, 128, 128), (5, 46, 24)])
+def test_image_da_coarse_dropout_at_its_largest_grid_equals_the_twin(dev, b,
+                                                                     h, w):
+    u, keys, _ = _draw(dev, b, seed=7)
+    u[:, 13:15] = 0.75                           # both warps off
+    u[:, 16], u[:, 17] = 0.25, 0.75              # CoarseDropout on
+    u[:, 11] = 9.0                               # rate ~.45
+    u[:, 12] = 1.0 - 2.0 ** -24                  # the largest size fraction
+    x = _images(dev, (b, h, w, 1))
+    for order in range(6):
+        got = image_da.image_da_launch(x, u, keys, _order(dev, order)).cpu()
+        want = _twin_cpu(x, u, keys, _order(dev, order))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_image_da_reads_the_order_modulo_six_as_the_twin_does(dev):
+    u, keys, _ = _draw(dev, 150, seed=8)
+    u[:, 13:17] = 0.25                           # every gate on
+    x = _images(dev, (10, 15, 128, 128, 1))
+    for o in (-7, -1, 6, 11):
+        got = image_da.image_da_launch(x, u, keys, _order(dev, o))
+        want = image_da.image_da_launch(x, u, keys, _order(dev, o % 6))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        _close(got.cpu(), _twin_cpu(x, u, keys, _order(dev, o)), *WARP_TOL)
+
+
+def test_image_da_parameters_equal_params_from_draw_bit_for_bit(dev):
+    u, keys, order = _draw(dev, 150, seed=3)
+    x = _images(dev, (150, 128, 128, 1))
+    out = torch.empty((150, image_da.NPARAMS), device=dev)
+    image_da.image_da_launch(x, u, keys, order, params_out=out)
+    p = image_aug.params_from_draw(u, keys, order, 128, 128)
+    want = torch.cat([p.warp.flatten(1), p.drop], 1)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert bool((got == 0).any()) and bool((got == x).any())
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
-def test_da_kernels_are_bit_reproducible(dev):
-    p = _da_params(dev, 20, 128, 128)
-    x = torch.rand((20, 128, 128, 1), device=dev)
-    for fn in (lambda: warp.warp_launch(x, p.warp, (1, 0)),
-               lambda: hash_mask.hash_dropout_launch(x, p.drop, p.keys)):
-        first, second = fn(), fn()
+def test_image_da_kernel_is_bit_reproducible(dev):
+    u, keys, _ = _draw(dev, 150, seed=5)
+    x = _images(dev, (10, 15, 128, 128, 1))
+    for order in range(6):
+        first = image_da.image_da_launch(x, u, keys, _order(dev, order))
+        second = image_da.image_da_launch(x, u, keys, _order(dev, order))
         torch.cuda.synchronize()
         assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("order", range(6))
-def test_augmenter_on_the_card_counts_its_launches(dev, order):
+def test_image_da_call_is_one_launch_in_every_order(dev, order):
+    from torch.profiler import ProfilerActivity, profile
+
+    u, keys, _ = _draw(dev, 150, seed=order)
+    x = _images(dev, (10, 15, 128, 128, 1))
+    o = _order(dev, order)
+    image_da.image_da(x, u, keys, o)
+    torch.cuda.synchronize()
+    calls = 10
+    before = image_da.image_da.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            got = image_da.image_da(x, u, keys, o)
+        torch.cuda.synchronize()
+    assert image_da.image_da.launches == before + calls
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # K6 and nothing else, never more than one kernel a call; the profiler
+    # drops some events of these ctypes launches (8 of 10 seen), so the
+    # launch count above, not the trace, says that every call launched
+    assert len(set(names)) == 1 and "image_da_kernel" in names[0], names
+    assert 1 <= len(names) <= calls, names
+    _close(got.cpu(), _twin_cpu(x, u, keys, o), *WARP_TOL)
+
+
+def test_augmenter_reads_nothing_back_to_the_host(dev):
     aug = image_aug.ShapeNet1DAugmenter()
-    p = _da_params(dev, 30, 128, 128, seed=order)
-    p.order = order
-    x = torch.rand((2, 15, 128, 128, 1), device=dev)
-    before = (warp.warp_chain_op.launches, hash_mask.hash_dropout.launches)
-    got = aug(x, params=p)
-    want = image_aug.ShapeNet1DAugmenter()(x.cpu(), params=image_aug.DAParams(
-        order, p.warp.cpu(), p.drop.cpu(), p.keys.cpu()))
-    _close(got.cpu(), want, *WARP_TOL)
-    n = image_aug.launches_of(order)
-    assert (warp.warp_chain_op.launches - before[0],
-            hash_mask.hash_dropout.launches - before[1]) == (
-                n["warp_chain"], n["hash_dropout"])
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = _images(dev, (10, 15, 128, 128, 1))
+    aug(x, g)                                    # builds and loads K6
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            out = aug(x, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == x.shape and out.dtype == torch.float32
+
+
+def test_image_da_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    u, keys, order = _draw(dev, 4)
+    with pytest.raises(ValueError, match="A12c"):
+        image_da.image_da(_images(dev, (4, 32, 32, 3)), u, keys, order)
+    with pytest.raises(ValueError, match="A12c"):
+        image_da.image_da(_images(dev, (4, 32, 30, 1)), u, keys, order)
+    with pytest.raises(ValueError, match="A12c"):
+        image_da.image_da(_images(dev, (4, 16, 132, 1)), u, keys, order)
+    with pytest.raises(TypeError):
+        image_da.image_da(_images(dev, (4, 32, 32, 1)).float(), u, keys,
+                          order)

@@ -265,11 +265,42 @@ def test_trainer_resumes_from_its_checkpoint(data_dir, tmp_path, monkeypatch):
         "iterations=6", f"checkpoint={ckpt}"]))
     assert second.step == 6
     resumed = torch.load(ckpt, weights_only=True)["model"]
-    # a bare reference state_dict restores too (model only, step 0)
+    # the checkpoint gives its generator state back; a bare reference
+    # state_dict restores too (model only, step 0, the generator as seeded)
     model = build_model(Config(MAIN_YAML, overrides, make_dirs=False))
-    assert second.ckpt.restore(ckpt, model) == 4
+    gen = torch.Generator().manual_seed(7)
+    assert second.ckpt.restore(ckpt, model, generator=gen) == 4
+    assert torch.equal(gen.get_state(),
+                       torch.load(ckpt, weights_only=True)["generator"])
     bare = str(tmp_path / "bare.pt")
     torch.save(resumed, bare)
-    assert second.ckpt.restore(bare, model) == 0
+    seeded = torch.Generator().manual_seed(7)
+    assert second.ckpt.restore(bare, model, generator=seeded) == 0
+    assert torch.equal(seeded.get_state(),
+                       torch.Generator().manual_seed(7).get_state())
     for k, v in model.state_dict().items():
         assert torch.equal(v, resumed[k]), k
+
+
+def test_resumed_run_draws_what_an_unbroken_run_draws(data_dir, tmp_path,
+                                                      monkeypatch):
+    """4 steps, then a run resumed from their checkpoint to 6, with image
+    and task augmentation, equal one unbroken run of 6 steps: the
+    checkpoint holds the generator that draws every episode, DA and TA
+    draw (the JAX trainer keys step ``it`` by ``fold_in(base_key, it)``)."""
+    monkeypatch.chdir(tmp_path)
+    overrides = ["aug_list=[data_aug,task_aug]", "device=cpu",
+                 f"data_path={data_dir}", "data_size=small", "val_freq=100",
+                 "val_iters=1", f"tasks_per_batch={T_}", f"max_ctx_num={S_}",
+                 "dim_w=16", "dim_r=12", "dim_z=8", "steps_per_call=2"]
+    first = train_cli.train(Config(MAIN_YAML, overrides + ["iterations=4"]))
+    resumed = train_cli.train(Config(MAIN_YAML, overrides + [
+        "iterations=6", f"checkpoint={first.ckpt.path('model_end_4')}"]))
+    whole = train_cli.train(Config(MAIN_YAML, overrides + ["iterations=6"]))
+    assert resumed.step == whole.step == 6
+    want = whole.model.state_dict()
+    for k, v in resumed.model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=0,
+                                   atol=1e-6, err_msg=k)
+    assert torch.equal(resumed.generator.get_state(),
+                       whole.generator.get_state())

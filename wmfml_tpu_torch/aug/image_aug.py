@@ -13,11 +13,13 @@ Two layers:
     ``warp_chain`` (dense tent matrices and the rank-1 fill terms),
     ``fmix32`` / ``hash_keep`` (murmur3 keep bits, uint32 arithmetic held
     in int64), the Dropout and CoarseDropout ids and their keep mask
-    (``dropout_mask``, ``one_of_dropout``). The kernels' plain versions
-    (``kernels/warp.py``, ``kernels/hash_mask.py``) are these;
-  * ``ShapeNet1DAugmenter``: draws the parameters (``sample``) and applies
-    one order as a sequence of K4 (``warp_chain``) and K5
-    (``hash_dropout``) launches (``apply``).
+    (``dropout_mask``, ``one_of_dropout``); ``params_from_draw`` and
+    ``apply`` chain them into K6's plain version
+    (``kernels/image_da.py:image_da_plain``);
+  * ``ShapeNet1DAugmenter``: one call draws its raw draw on the images'
+    device (``sample``: uniforms, key words and the op order) and issues
+    one K6 launch (``kernels/image_da.py``), which computes the parameters
+    and applies the order on the card.
 
 Parameters of one augmenter call (``DAParams``), per image b:
 
@@ -27,25 +29,25 @@ Parameters of one augmenter call (``DAParams``), per image b:
     Dropout (1) or CoarseDropout (0), ``p`` the drop rate, ``sp`` the
     coarse grid's size fraction;
   * ``keys[b]``: the hash's two 32-bit key words (int32 bit patterns);
-  * ``order``: an index into ``ORDERS``, shared by the whole call.
+  * ``order``: an index into ``ORDERS``, shared by the whole call (an int,
+    or a one-element tensor as drawn), read modulo 6.
 
-The order comes from a CPU generator (``order_generator``), so the host
-knows which launches to issue without reading the card; the per-image
-parameters are drawn on the images' device from the caller's generator
-(Philox on the card: the JAX package's threefry bits are not reproduced,
-their distribution is). Tests inject JAX's own draws instead.
+The draws come from the caller's generator on the images' device (Philox on
+the card: the JAX package's threefry bits are not reproduced, their
+distribution is), the order too, so the host reads none of them. Tests
+inject JAX's own draws as ``DAParams``, on the CPU.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 
-from wmfml_tpu_torch.kernels.hash_mask import hash_dropout
-from wmfml_tpu_torch.kernels.warp import warp_chain_op
+from wmfml_tpu_torch.kernels.image_da import image_da
 
 # reference declaration order (dataset/shapenet_1d.py:34-71)
 CROP, AFFINE, DROP = 0, 1, 2
@@ -56,15 +58,15 @@ OTHER_TASKS = "DA for {task!r} (FULL/PASCAL/DISTRACTOR ops): ROADMAP.md A12"
 
 @dataclass
 class DAParams:
-    order: int
+    order: Union[int, torch.Tensor]
     warp: torch.Tensor        # [B, 2, 7] float32
     drop: torch.Tensor        # [B, 5] float32
     keys: torch.Tensor        # [B, 2] int32
 
 
 def order_runs(order: Sequence[int]) -> List[tuple]:
-    """The launches of one op order: maximal runs of adjacent warp ops (one
-    K4 launch each, stages in order) and the dropout op (one K5 launch);
+    """The steps of one op order: maximal runs of adjacent warp ops (one
+    warp chain each, stages in order) and the dropout op;
     ``perm_chain``'s grouping (``wmfml_tpu/aug/image_aug.py:510-535``)."""
     runs, i = [], 0
     while i < len(order):
@@ -80,20 +82,11 @@ def order_runs(order: Sequence[int]) -> List[tuple]:
     return runs
 
 
-def launches_of(order_idx: int) -> Dict[str, int]:
-    """K4 and K5 launches of one augmenter call in order ``order_idx``."""
-    runs = order_runs(ORDERS[order_idx])
-    return {"warp_chain": sum(r != (DROP,) for r in runs),
-            "hash_dropout": sum(r == (DROP,) for r in runs)}
-
-
-def order_generator(seed: int) -> torch.Generator:
-    return torch.Generator().manual_seed(int(seed))
-
-
-def draw_order(generator: torch.Generator) -> int:
-    """One op order out of the six, uniform, from a CPU generator."""
-    return int(torch.randint(len(ORDERS), (1,), generator=generator))
+def to_unit(x: torch.Tensor) -> torch.Tensor:
+    """uint8 -> float32 / 255 as a true division (``_to_float``), also on
+    the card, where dividing by a Python scalar multiplies by its
+    reciprocal and differs in the last bit for 126 of the 256 values."""
+    return x.to(torch.float32) / torch.full((), 255.0, device=x.device)
 
 
 # -- warp: dense twins of _interp_matrix .. _warp_chain ------------------------
@@ -269,90 +262,99 @@ def one_of_dropout(img: torch.Tensor, drop: torch.Tensor,
 
 # -- the augmenter ---------------------------------------------------------------
 
+def _columns(h: int, w: int):
+    """(lo, span) of each of the 19 uniform columns (``sample``'s
+    docstring): value = u * span + lo."""
+    lo = [0.0] * 4 + [0.0, 0.8, 0.8, -0.1 * w, -0.1 * h, 0.0, 0.01, 0.0,
+                      0.02] + [0.0] * 6
+    span = [0.05] * 4 + [1.0, 0.4, 0.4, 0.2 * w, 0.2 * h, 1.0, 0.09, 0.05,
+                         0.23] + [1.0] * 6
+    return lo, span
+
+
+def params_from_draw(u: torch.Tensor, keys: torch.Tensor, order, h: int,
+                     w: int) -> DAParams:
+    """The parameters of [B, H, W, C] images from the raw draw (``sample``):
+    the formulas of the JAX package's ``_sample_crop_params``,
+    ``_sample_affine_params``, ``dropout``, ``coarse_dropout`` and the
+    ``sometimes`` gates. One float32 operation a step, none fused (no
+    ``addcmul``), so that the card and the CPU round each step alike and K6
+    (``csrc/image_da.cu:draw_params``) computes the same bits."""
+    lo, span = (torch.tensor(c, dtype=torch.float32, device=u.device)
+                for c in _columns(h, w))
+    v = u * span + lo
+    n = u.shape[0]
+    on = u[:, 13:18] < 0.5
+    bits = on.float()
+    # CropAndPad then resize back: per axis scale 1 / (1 + both pads),
+    # content moved toward the more padded side
+    first, second = v[:, 0:2], v[:, 2:4]
+    half = torch.tensor([w / 2.0, h / 2.0], device=u.device)
+    scale = 1.0 / (1.0 + first + second)
+    shift = scale * (first - second) * half
+    warp = torch.cat([scale, shift, v[:, 4:5], torch.zeros_like(v[:, :1]),
+                      bits[:, 0:1], v[:, 5:10], bits[:, 2:3],
+                      bits[:, 1:2]], 1).view(n, 2, 7)
+    pick = on[:, 4]
+    per_channel = u[:, 18] < torch.where(pick, 0.5, 0.2)
+    drop = torch.stack([bits[:, 3], bits[:, 4],
+                        torch.where(pick, v[:, 10], v[:, 11]), v[:, 12],
+                        per_channel.float()], -1)
+    return DAParams(order, warp, drop, keys)
+
+
 class ShapeNet1DAugmenter:
-    """``build_augmenter("shapenet_1d")`` (:537-565) for the port: one op
-    order per call, each run of warp ops one K4 launch, the dropout op one
-    K5 launch. ``seed`` seeds the CPU order stream."""
+    """``build_augmenter("shapenet_1d")`` (:537-565) for the port: each call
+    draws its raw draw and issues one K6 launch."""
 
-    def __init__(self, seed: int = 0):
-        self.order_gen = order_generator(seed)
-        self._ranges = {}
-
-    def _uniform_ranges(self, device, h: int, w: int):
-        """(lo, span) of each column of ``sample``'s uniforms, on ``device``
-        (built once per device and image size)."""
-        key = (str(device), h, w)
-        if key not in self._ranges:
-            lo = [0.0] * 4 + [0.0, 0.8, 0.8, -0.1 * w, -0.1 * h, 0.0,
-                              0.01, 0.0, 0.02] + [0.0] * 6
-            span = [0.05] * 4 + [1.0, 0.4, 0.4, 0.2 * w, 0.2 * h, 1.0,
-                                 0.09, 0.05, 0.23] + [1.0] * 6
-            half = [w / 2.0, h / 2.0]
-            self._ranges[key] = tuple(torch.tensor(v, device=device)
-                                      for v in (lo, span, half))
-        return self._ranges[key]
-
-    def sample(self, shape, generator: Optional[torch.Generator],
-               device) -> DAParams:
-        """Parameters for [B, H, W, C] images with the JAX package's
-        distributions (``_sample_crop_params``, ``_sample_affine_params``,
-        ``_crop_stage`` / ``_affine_stage``, ``dropout``,
-        ``coarse_dropout``, the ``sometimes`` gates): one ``torch.rand`` of
-        19 uniforms and one ``torch.randint`` of two key words per image on
-        ``device`` and a few elementwise kernels, the order from the CPU
-        stream. Columns of the uniforms: 0-3 CropAndPad's pad fractions
-        (left, top, right, bottom) ~ U[0, .05); 4 its cval; 5-6 Affine's
-        scale ~ U[.8, 1.2) per axis; 7-8 its translation ~ U[-.1, .1) of
-        the width and height; 9 its cval; 10 Dropout's rate ~ U[.01, .1);
-        11 CoarseDropout's ~ U[0, .05); 12 its size fraction ~ U[.02,
-        .25); 13-17 Bernoulli(.5) bits: CropAndPad's gate, Affine's gate,
-        Affine's order 0 (nearest), the dropout op's gate, Dropout (1) or
-        CoarseDropout (0); 18 per channel, w.p. .5 for Dropout and .2 for
-        CoarseDropout."""
-        n, h, w = shape[0], shape[1], shape[2]
+    def sample(self, n: int, generator: Optional[torch.Generator], device):
+        """The raw draw of one call for ``n`` images, on ``device``: one
+        ``torch.rand`` of 19 uniforms and one ``torch.randint`` of two key
+        words per image, and the op order, uniform over the six
+        (``torch.randint``, so exactly uniform). Columns of the uniforms:
+        0-3 CropAndPad's pad fractions (left, top, right, bottom) ~ U[0,
+        .05); 4 its cval; 5-6 Affine's scale ~ U[.8, 1.2) per axis; 7-8 its
+        translation ~ U[-.1, .1) of the width and height; 9 its cval; 10
+        Dropout's rate ~ U[.01, .1); 11 CoarseDropout's ~ U[0, .05); 12 its
+        size fraction ~ U[.02, .25); 13-17 Bernoulli(.5) bits: CropAndPad's
+        gate, Affine's gate, Affine's order 0 (nearest), the dropout op's
+        gate, Dropout (1) or CoarseDropout (0); 18 per channel, w.p. .5 for
+        Dropout and .2 for CoarseDropout."""
         u = torch.rand((n, 19), generator=generator, device=device)
         keys = torch.randint(-2 ** 31, 2 ** 31, (n, 2), dtype=torch.int32,
                              generator=generator, device=device)
-        lo, span, half = self._uniform_ranges(device, h, w)
-        v = torch.addcmul(lo, u, span)
-        on = u[:, 13:18] < 0.5
-        bits = on.float()
-        # CropAndPad then resize back: per axis scale 1 / (1 + both pads),
-        # content moved toward the more padded side
-        first, second = v[:, 0:2], v[:, 2:4]
-        scale = 1.0 / (1.0 + first + second)
-        shift = scale * (first - second) * half
-        warp = torch.cat([scale, shift, v[:, 4:5], torch.zeros_like(v[:, :1]),
-                          bits[:, 0:1], v[:, 5:10], bits[:, 2:3],
-                          bits[:, 1:2]], 1).view(n, 2, 7)
-        pick = on[:, 4]
-        per_channel = u[:, 18] < torch.where(pick, 0.5, 0.2)
-        drop = torch.stack([bits[:, 3], bits[:, 4],
-                            torch.where(pick, v[:, 10], v[:, 11]), v[:, 12],
-                            per_channel.float()], -1)
-        return DAParams(draw_order(self.order_gen), warp, drop, keys)
+        order = torch.randint(len(ORDERS), (1,), generator=generator,
+                              device=device)
+        return u, keys, order
 
     def __call__(self, images: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  params: Optional[DAParams] = None) -> torch.Tensor:
-        """Augment [..., H, W, C] float images; ``params`` injects a draw."""
-        flat = images.reshape((-1,) + tuple(images.shape[-3:]))
-        if params is None:
-            params = self.sample(flat.shape, generator, flat.device)
-        return apply(flat, params).reshape(images.shape)
+        """Augment [..., H, W, C] uint8 images into float32; ``params``
+        injects a draw (on the CPU only: the card computes the parameters
+        in K6)."""
+        if params is not None:
+            if images.device.type != "cpu":
+                raise ValueError("DAParams are injected on the CPU only")
+            flat = images.reshape((-1,) + tuple(images.shape[-3:]))
+            return apply(to_unit(flat), params).reshape(images.shape)
+        u, keys, order = self.sample(math.prod(images.shape[:-3]), generator,
+                                     images.device)
+        return image_da(images, u, keys, order)
 
 
 def apply(flat: torch.Tensor, params: DAParams) -> torch.Tensor:
-    """One order of ``SHAPENET1D_OPS`` on [B, H, W, C] through K4 and K5."""
-    for run in order_runs(ORDERS[params.order]):
+    """One order of ``SHAPENET1D_OPS`` on [B, H, W, C] float images through
+    the dense twins. The order index is read modulo 6, as K6 reads it."""
+    for run in order_runs(ORDERS[int(params.order) % len(ORDERS)]):
         if run == (DROP,):
-            flat = hash_dropout(flat, params.drop, params.keys)
+            flat = one_of_dropout(flat, params.drop, params.keys)
         else:
-            flat = warp_chain_op(flat, params.warp, run)
+            flat = warp_chain(flat, stages_from_params(params.warp, run))
     return flat
 
 
-def build_augmenter(task: str, seed: int = 0) -> ShapeNet1DAugmenter:
+def build_augmenter(task: str) -> ShapeNet1DAugmenter:
     if task != "shapenet_1d":
         raise NotImplementedError(OTHER_TASKS.format(task=task))
-    return ShapeNet1DAugmenter(seed)
+    return ShapeNet1DAugmenter()

@@ -1,19 +1,19 @@
 """Device-side episode processing: normalise, image and task augmentation,
 labels.
 
-``build_episode_processor(task, aug_list, train, seed)`` returns
+``build_episode_processor(task, aug_list, train)`` returns
 ``process(batch, generator=None, ta_idx=None, da_params=None)`` that turns
 a raw episode (uint8 images, raw labels, on any device) into the
 model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` does for
 ShapeNet1D:
 
-  * uint8 images -> float32 / 255;
+  * uint8 images -> float32 / 255, in the augmenter when image DA is on;
   * image data augmentation (train only, ``data_aug`` in ``aug_list``):
-    two augmenter calls, context then query, each with its own op order
-    and per-image parameters (``aug/image_aug.py``: K4 and K5 on the card);
-    ``da_params`` (a (context, query) pair of ``DAParams``) feeds a draw
-    in, else it is drawn from ``generator`` and, for the order, from a CPU
-    stream seeded with ``seed``;
+    two augmenter calls on the raw uint8 images, context then query, each
+    with its own op order and per-image parameters (``aug/image_aug.py``:
+    one K6 launch a call on the card); ``da_params`` (a (context, query)
+    pair of ``DAParams``) feeds a draw in on the CPU, else it is drawn from
+    ``generator``;
   * task augmentation (train only, ``task_aug`` in ``aug_list``): one angle
     offset per task from ``linspace(0, 2, 16)[:-1]``, added mod 2*pi to
     context and query labels; ``ta_idx`` [T] feeds the offsets' indices in
@@ -42,20 +42,19 @@ def _encode_angle(y: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cos(y), torch.sin(y), y], dim=-1)
 
 
-def build_episode_processor(task: str, aug_list, train: bool,
-                            seed: int = 0) -> Callable:
+def build_episode_processor(task: str, aug_list, train: bool) -> Callable:
     if task != "shapenet_1d":
         raise NotImplementedError(
             f"episode processing for {task!r} is not ported yet "
             "(ROADMAP.md A12)")
     task_aug = train and "task_aug" in aug_list
-    augment = (build_augmenter(task, seed)
+    augment = (build_augmenter(task)
                if train and "data_aug" in aug_list else None)
 
     def augment_pair(cx, qx, generator, da_params):
         """DA for ctx and qry: always two calls, as the JAX package makes."""
         if augment is None:
-            return cx, qx
+            return _to_float(cx), _to_float(qx)
         pc, pq = da_params if da_params is not None else (None, None)
         return augment(cx, generator, pc), augment(qx, generator, pq)
 
@@ -63,9 +62,8 @@ def build_episode_processor(task: str, aug_list, train: bool,
                 generator: Optional[torch.Generator] = None,
                 ta_idx: Optional[torch.Tensor] = None,
                 da_params=None) -> Dict[str, torch.Tensor]:
-        ctx_x, qry_x = augment_pair(_to_float(batch["ctx_x"]),
-                                    _to_float(batch["qry_x"]), generator,
-                                    da_params)
+        ctx_x, qry_x = augment_pair(batch["ctx_x"], batch["qry_x"],
+                                    generator, da_params)
         ctx_y, qry_y = batch["ctx_y"], batch["qry_y"]
         if task_aug:
             if ta_idx is None:

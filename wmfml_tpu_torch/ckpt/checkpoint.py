@@ -3,8 +3,11 @@
 Under ``<run>/models/``: ``model_best_{split}.pt`` (best per split),
 ``model_intermediate.pt`` (every 1000 iterations) and
 ``model_end_{iterations}.pt`` (at the end), plus ``best_{split}_error.txt``
-in the run directory. A file holds ``{"step", "model", "optimizer"}``;
-``model`` is a plain ``state_dict`` with the reference's keys.
+in the run directory. A file holds ``{"step", "model", "optimizer",
+"generator"}``; ``model`` is a plain ``state_dict`` with the reference's
+keys, ``generator`` the trainer's random generator state (a uint8 tensor),
+so that a resumed run draws what an unbroken run draws (the JAX trainer
+keys each step by its index, ``wmfml_tpu/train/trainer.py:200``).
 """
 
 from __future__ import annotations
@@ -22,17 +25,20 @@ class CheckpointManager:
     def path(self, name: str) -> str:
         return os.path.join(self.models_dir, f"{name}.pt")
 
-    def save(self, name: str, step: int, model, optimizer=None):
+    def save(self, name: str, step: int, model, optimizer=None,
+             generator=None):
         payload = {"step": int(step), "model": model.state_dict(),
-                   "optimizer": optimizer.state_dict() if optimizer else None}
+                   "optimizer": optimizer.state_dict() if optimizer else None,
+                   "generator": generator.get_state() if generator else None}
         tmp = self.path(name) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self.path(name))
 
     def restore(self, name_or_path: str, model, optimizer=None,
-                map_location=None) -> int:
-        """Load a port checkpoint (model and optimizer state) or a bare
-        reference ``state_dict`` (model only); return the saved step."""
+                map_location=None, generator=None) -> int:
+        """Load a port checkpoint (model, optimizer and generator state) or
+        a bare reference ``state_dict`` (model only: the generator keeps its
+        seed); return the saved step."""
         path = (name_or_path if os.path.exists(name_or_path)
                 else self.path(name_or_path))
         payload = torch.load(path, map_location=map_location, weights_only=True)
@@ -42,6 +48,8 @@ class CheckpointManager:
         model.load_state_dict(payload["model"])
         if optimizer is not None and payload.get("optimizer"):
             optimizer.load_state_dict(payload["optimizer"])
+        if generator is not None and payload.get("generator") is not None:
+            generator.set_state(payload["generator"].cpu())
         return int(payload["step"])
 
     @staticmethod

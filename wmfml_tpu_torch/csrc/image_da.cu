@@ -1,0 +1,464 @@
+// K6: image data augmentation of one augmenter call in one launch. For
+// [B, H, W, 1] uint8 images (the sampler's context or query slice, read
+// through its task and image strides) and the call's raw draws (19
+// uniforms and two key words per image, one op order for the call), it
+// computes x / 255, then ShapeNet1D's CropAndPad, Affine and OneOf(Dropout,
+// CoarseDropout), each under Sometimes(0.5), in the drawn order, and writes
+// [B, H, W, 1] float32.
+//
+// Replaces wmfml_tpu/aug/pipeline.py:_to_float (:34) and image_aug.py's
+// _warp_chain (:120), _fmix32 .. one_of_dropout (:277-375) and the
+// enumerated-order augment (:537-565), which draws the order as device
+// data (:556) and switches to one fused branch per order (:562). Here too
+// the order is device data: every call is the same single launch, whatever
+// the order, and the per-image parameters are computed in the kernel from
+// the raw draws.
+//
+// Bound: the bytes (each image read once as uint8 and written once as
+// float32, 5 B a pixel: 12.3 MB for 150 images of 128 x 128, 3.7 us at
+// 3.35 TB/s) and Dropout's hash on every pixel (26 integer operations, 3.8
+// us at 64 INT32 lanes per SM); the taps are a few tens of float
+// operations a pixel.
+//
+// Design: one block of 256 threads per image.
+//   * Thread 0 starts a bulk copy (TMA without a tensor map) of the image's
+//     H W bytes into shared memory and, while it runs, computes the image's
+//     parameters from its uniforms with the formulas of
+//     aug/image_aug.py:params_from_draw, one IEEE operation at a time (the
+//     _rn intrinsics, no FMA): nearest snapping moves a whole pixel on one
+//     ulp of the scale or the shift.
+//   * The threads build the tap tables once per image: for the warp ops
+//     before the dropout op (chain A) and after it (chain B), one entry per
+//     output row and column (csrc/warp.cuh); for CoarseDropout, the cell of
+//     every row and column and the keep bit of every cell, so its mask costs
+//     a table read a pixel. The grid is round(H sp) x round(W sp), and the
+//     size fraction's draw, 0.02 + 0.23 u for u in [0, 1), stays below
+//     0.25, so the grid never holds more than (H/4 + 1) (W/4 + 1)
+//     cells (1,089 hashes at 128 x 128), the table's room. Dropout hashes
+//     each pixel once, where the order applies it.
+//   * Then, by the order's shape (ORDERS below), with f a float32 image in
+//     shared memory:
+//       A then mask:  f = x / 255; out = keep * chainA(f)
+//       mask then B:  f = keep * x / 255; out = chainB(f)
+//       A, mask, B:   f = keep * chainA(x / 255); out = chainB(f)
+//     x / 255 comes from a table of the 256 quotients (true divisions,
+//     __fdiv_rn, as the twin divides): with every warp gate off the output
+//     is x / 255 exactly, and elsewhere the taps' float32 sums differ from
+//     the twin's only in their order. A warp walks rows and lane l owns
+//     columns l + 32 k (their table entries in registers): the 32 lanes of
+//     a tap read neighbouring words of f, so a tap is one shared-memory
+//     wavefront, and each warp store writes 128 contiguous bytes. The
+//     number of taps is a template constant (1, 2 or 4 per axis, from the
+//     stages' gates and nearest flags), so the loops unroll and no integer
+//     division is left in them.
+//     Four adjacent columns a lane would allow float4 stores, but then
+//     the lanes of a float32 tap read every fourth word (a 4-way bank
+//     conflict on every tap), and taps through the quotient table conflict
+//     at random; a division a pixel after the taps costs more than the
+//     table.
+// Shared memory: the image (H W bytes), f (4 H W), the tables; 105.7 KB at
+// 128 x 128, so two blocks fit an SM and 150 images run in one wave on 132
+// SMs (18 of them hold two). No atomics, nothing allocated: two calls give
+// the same bits.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hash_mask.cuh"
+#include "tf32_gmma.cuh"
+#include "warp.cuh"
+
+namespace {
+
+using da::Axis;
+using da::ND;
+using da::NP;
+
+constexpr int THREADS = 256;
+constexpr int COLS = 4;                // columns a lane owns: W <= 128
+constexpr int NU = 19;                 // uniforms per image
+constexpr int NPARAMS = 2 * NP + ND;   // the debug output's row
+constexpr int STAMPS = 5;
+constexpr int DROP = 2;
+constexpr int MAX_SMEM = 232448;       // shared memory a block may use
+
+// The six op orders, aug/image_aug.py:ORDERS (0 CropAndPad, 1 Affine, 2 the
+// dropout op), in itertools.permutations order.
+__constant__ int ORDERS[6][3] = {{0, 1, 2}, {0, 2, 1}, {1, 0, 2},
+                                 {1, 2, 0}, {2, 0, 1}, {2, 1, 0}};
+
+struct Shared {
+  float warp[2][NP];
+  float drop[ND];
+  uint32_t k0, k1;
+  int order;
+};
+
+struct Layout {
+  int f, tab, lut, frow, fcol, cell, cap, par, bar, total;
+};
+
+__host__ __device__ inline Layout layout(int H, int W) {
+  Layout L;
+  const int HW = H * W;
+  L.f = (HW + 15) & ~15;                         // the uint8 image at 0
+  L.tab = L.f + 4 * HW;
+  L.lut = L.tab + 2 * (H + W) * (int)sizeof(Axis);
+  L.frow = L.lut + 4 * 256;
+  L.fcol = L.frow + 4 * H;
+  L.cell = L.fcol + 4 * W;
+  L.cap = (H / 4 + 1) * (W / 4 + 1);          // CoarseDropout's largest grid
+  L.par = (L.cell + L.cap + 15) & ~15;
+  L.bar = L.par + (((int)sizeof(Shared) + 15) & ~15);
+  L.total = L.bar + 16;
+  return L;
+}
+
+struct Args {
+  const uint8_t* x;
+  long long st, ss;          // bytes between tasks and between images
+  int S;                     // images per task
+  const float* u;            // [B, 19]
+  const int* keys;           // [B, 2]
+  const long long* order;    // [1]
+  float* out;                // [B, H, W]
+  float* params_out;         // [B, 19] or null
+  long long* stamps;         // [B, STAMPS] or null
+  int H, W;
+};
+
+__device__ inline void stamp(const Args& a, int j) {
+  if (a.stamps != nullptr && threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[blockIdx.x * STAMPS + j] = t;
+  }
+}
+
+// aug/image_aug.py:params_from_draw for one image, operation for operation.
+__device__ void draw_params(const float* u, int H, int W, Shared* P) {
+  const float lo[13] = {0.f, 0.f, 0.f, 0.f, 0.f, (float)0.8, (float)0.8,
+                        (float)(-0.1 * W), (float)(-0.1 * H), 0.f,
+                        (float)0.01, 0.f, (float)0.02};
+  const float span[13] = {(float)0.05, (float)0.05, (float)0.05,
+                          (float)0.05, 1.f, (float)0.4, (float)0.4,
+                          (float)(0.2 * W), (float)(0.2 * H), 1.f,
+                          (float)0.09, (float)0.05, (float)0.23};
+  float v[13];
+#pragma unroll
+  for (int i = 0; i < 13; ++i) v[i] = __fadd_rn(__fmul_rn(u[i], span[i]), lo[i]);
+  // CropAndPad: per axis scale 1 / (1 + both pads), shifted toward the
+  // more padded side
+  const float sx = __frcp_rn(__fadd_rn(__fadd_rn(1.f, v[0]), v[2]));
+  const float sy = __frcp_rn(__fadd_rn(__fadd_rn(1.f, v[1]), v[3]));
+  const float w0[NP] = {
+      sx, sy, __fmul_rn(__fmul_rn(sx, __fsub_rn(v[0], v[2])), 0.5f * W),
+      __fmul_rn(__fmul_rn(sy, __fsub_rn(v[1], v[3])), 0.5f * H), v[4], 0.f,
+      u[13] < 0.5f ? 1.f : 0.f};
+  const float w1[NP] = {v[5], v[6], v[7], v[8], v[9],
+                        u[15] < 0.5f ? 1.f : 0.f, u[14] < 0.5f ? 1.f : 0.f};
+  const bool pick = u[17] < 0.5f;
+  const float d[ND] = {u[16] < 0.5f ? 1.f : 0.f, pick ? 1.f : 0.f,
+                       pick ? v[10] : v[11], v[12],
+                       u[18] < (pick ? 0.5f : (float)0.2) ? 1.f : 0.f};
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    P->warp[0][i] = w0[i];
+    P->warp[1][i] = w1[i];
+  }
+#pragma unroll
+  for (int i = 0; i < ND; ++i) P->drop[i] = d[i];
+}
+
+struct Mask {
+  bool on, pick;
+  float p;
+  uint32_t k0, k1;
+  int W, wl;
+  const int* frow;
+  const int* fcol;
+  const uint8_t* cell;
+};
+
+// the id CoarseDropout hashes for cell (fy, fx): fy W + fx in float32
+__device__ __forceinline__ uint32_t cell_id(int fy, int fx, int W) {
+  return (uint32_t)__fadd_rn(__fmul_rn((float)fy, (float)W), (float)fx);
+}
+
+__device__ __forceinline__ bool keep(const Mask& m, int y, int x) {
+  if (!m.on) return true;
+  if (m.pick) return da::hash_keep(m.k0, m.k1, (uint32_t)(y * m.W + x), m.p);
+  return m.cell[m.frow[y] * m.wl + m.fcol[x]] != 0;
+}
+
+// a tap of the uint8 image reads x / 255 from a table of the 256 quotients
+struct SrcU8 {
+  const uint8_t* s;
+  const float* lut;
+  __device__ __forceinline__ float operator()(int i) const {
+    return lut[s[i]];
+  }
+};
+
+struct SrcF32 {
+  const float* f;
+  __device__ __forceinline__ float operator()(int i) const { return f[i]; }
+};
+
+struct Chain {
+  const Axis* tab;           // [H] rows, then [W] columns
+  float c0, c1;
+  bool two;
+};
+
+// dst[y, x] = (mask ? keep : 1) * (taps of src + fill) over the image. A
+// warp walks rows; lane l owns columns l, l + 32, l + 64, l + 96, so the
+// lanes of one tap read neighbouring words (no bank conflict) and each
+// store of a warp writes 128 contiguous bytes.
+template <int NT, class Src>
+__device__ void run_chain(const Chain& ch, int H, int W, Src src, float* dst,
+                          const Mask& mask, bool apply_mask) {
+  const int lane = threadIdx.x & 31;
+  const Axis* rows = ch.tab;
+  const Axis* cols = ch.tab + H;
+  int ci[COLS][NT];
+  float cw[COLS][NT], cr[COLS], cp[COLS];
+#pragma unroll
+  for (int k = 0; k < COLS; ++k) {
+    const Axis& e = cols[min(lane + 32 * k, W - 1)];
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      ci[k][q] = e.idx[q];
+      cw[k][q] = e.w[q];
+    }
+    cr[k] = e.r;
+    cp[k] = e.p;
+  }
+  for (int y = threadIdx.x >> 5; y < H; y += THREADS / 32) {
+    const Axis& ay = rows[y];
+    float acc[COLS] = {};
+#pragma unroll
+    for (int a = 0; a < NT; ++a) {
+      const int base = ay.idx[a] * W;
+      const float wa = ay.w[a];
+#pragma unroll
+      for (int k = 0; k < COLS; ++k) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < NT; ++q) s = fmaf(cw[k][q], src(base + ci[k][q]), s);
+        acc[k] = fmaf(wa, s, acc[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < COLS; ++k) {
+      const int x = lane + 32 * k;
+      if (x >= W) break;
+      float v = __fadd_rn(acc[k], da::chain_fill(ay.r, ay.p, cr[k], cp[k],
+                                                 ch.c0, ch.c1, ch.two));
+      if (apply_mask) v = __fmul_rn(v, keep(mask, y, x) ? 1.f : 0.f);
+      dst[y * W + x] = v;
+    }
+  }
+}
+
+template <class Src>
+__device__ void run_any(int nt, const Chain& ch, int H, int W, Src src,
+                        float* dst, const Mask& mask, bool apply_mask) {
+  if (nt == 1)
+    run_chain<1>(ch, H, W, src, dst, mask, apply_mask);
+  else if (nt == 2)
+    run_chain<2>(ch, H, W, src, dst, mask, apply_mask);
+  else
+    run_chain<4>(ch, H, W, src, dst, mask, apply_mask);
+}
+
+// f = x / 255 (through the table), 0 where the mask drops a pixel when
+// apply_mask (x / 255 * 0 = 0, so f equals the twin's masked image bit for
+// bit). A warp converts a row, 4 pixels a lane.
+__device__ void to_float(const uint8_t* img, const float* lut, float* f,
+                         int H, int W, const Mask& mask, bool apply_mask) {
+  const int x0 = (threadIdx.x & 31) * 4;
+  if (x0 >= W) return;
+  for (int y = threadIdx.x >> 5; y < H; y += THREADS / 32) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(img + y * W + x0);
+    float o[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      o[c] = lut[(v >> (8 * c)) & 0xFFu];
+      if (apply_mask && !keep(mask, y, x0 + c)) o[c] = 0.f;
+    }
+    *reinterpret_cast<float4*>(f + y * W + x0) =
+        make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+__device__ inline int chain_taps(const float* s0, const float* s1) {
+  return da::stage_taps(s0) * (s1 ? da::stage_taps(s1) : 1);
+}
+
+__global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = a.H, W = a.W, HW = H * W;
+  const Layout L = layout(H, W);
+  uint8_t* src8 = smem;
+  float* fbuf = reinterpret_cast<float*>(smem + L.f);
+  Axis* tab = reinterpret_cast<Axis*>(smem + L.tab);   // chain A, chain B
+  float* lut = reinterpret_cast<float*>(smem + L.lut);
+  int* frow = reinterpret_cast<int*>(smem + L.frow);
+  int* fcol = reinterpret_cast<int*>(smem + L.fcol);
+  uint8_t* cell = smem + L.cell;
+  Shared* P = reinterpret_cast<Shared*>(smem + L.par);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  const int tid = threadIdx.x, b = blockIdx.x;
+
+  stamp(a, 0);
+  if (tid == 0) {
+    tc::bar_init(bar, 1);
+    tc::bar_init_fence();
+    const int t = b / a.S, s = b - t * a.S;
+    tc::bulk_load(src8, a.x + t * a.st + s * a.ss, HW, bar);
+    const float* u = a.u + (size_t)b * NU;
+    draw_params(u, H, W, P);
+    P->k0 = (uint32_t)a.keys[2 * b];
+    P->k1 = (uint32_t)a.keys[2 * b + 1];
+    P->order = (int)(((a.order[0] % 6) + 6) % 6);   // as the twin reads it
+    if (a.params_out != nullptr) {
+      float* o = a.params_out + (size_t)b * NPARAMS;
+      for (int i = 0; i < NP; ++i) {
+        o[i] = P->warp[0][i];
+        o[NP + i] = P->warp[1][i];
+      }
+      for (int i = 0; i < ND; ++i) o[2 * NP + i] = P->drop[i];
+    }
+  }
+  __syncthreads();
+
+  // the order's shape: the warp ops before the dropout op (chain A) and
+  // after it (chain B)
+  const int* ops = ORDERS[P->order];
+  const float* st[2][2] = {{nullptr, nullptr}, {nullptr, nullptr}};
+  int n[2] = {0, 0}, side = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (ops[i] == DROP)
+      side = 1;
+    else
+      st[side][n[side]++] = P->warp[ops[i]];
+  }
+  const int nt[2] = {n[0] ? chain_taps(st[0][0], st[0][1]) : 0,
+                     n[1] ? chain_taps(st[1][0], st[1][1]) : 0};
+  for (int i = tid; i < 256; i += THREADS) lut[i] = __fdiv_rn((float)i, 255.f);
+  for (int e = tid; e < 2 * (H + W); e += THREADS) {
+    const int c = e >= H + W;
+    const int i = e - c * (H + W);
+    if (!n[c]) continue;
+    if (i < H)
+      da::axis_entry(i, H, st[c][0], st[c][1], 1, nt[c], &tab[e]);
+    else
+      da::axis_entry(i - H, W, st[c][0], st[c][1], 0, nt[c], &tab[e]);
+  }
+
+  Mask mask;
+  mask.on = P->drop[0] > 0.5f;
+  mask.pick = P->drop[1] > 0.5f;
+  mask.p = P->drop[2];
+  mask.k0 = P->k0;
+  mask.k1 = P->k1;
+  mask.W = W;
+  mask.frow = frow;
+  mask.fcol = fcol;
+  mask.cell = cell;
+  const float hl = da::coarse_size(H, P->drop[3]);
+  const float wl = da::coarse_size(W, P->drop[3]);
+  mask.wl = (int)wl;
+  if (mask.on && !mask.pick) {
+    for (int e = tid; e < H + W; e += THREADS) {
+      if (e < H)
+        frow[e] = da::coarse_cell(e, hl, H);
+      else
+        fcol[e - H] = da::coarse_cell(e - H, wl, W);
+    }
+    // min: a size column outside [0, 1) breaks the contract, not the block
+    const int cells = min((int)hl * mask.wl, L.cap);
+    for (int e = tid; e < cells; e += THREADS) {
+      const int cy = e / mask.wl, cx = e - cy * mask.wl;
+      cell[e] = da::hash_keep(mask.k0, mask.k1, cell_id(cy, cx, W), mask.p);
+    }
+  }
+  __syncthreads();
+  stamp(a, 1);
+  tc::bar_wait(bar, 0);
+  stamp(a, 2);
+
+  float* out = a.out + (size_t)b * HW;
+  const SrcU8 x8{src8, lut};
+  const Chain A{tab, n[0] ? st[0][0][4] : 0.f,
+                n[0] == 2 ? st[0][1][4] : 0.f, n[0] == 2};
+  const Chain B{tab + H + W, n[1] ? st[1][0][4] : 0.f,
+                n[1] == 2 ? st[1][1][4] : 0.f, n[1] == 2};
+  const SrcF32 xf{fbuf};
+  if (n[1] == 0) {                      // A, then the mask
+    to_float(src8, lut, fbuf, H, W, mask, false);
+    __syncthreads();
+    stamp(a, 3);
+    run_any(nt[0], A, H, W, xf, out, mask, true);
+  } else if (n[0] == 0) {               // the mask, then B
+    to_float(src8, lut, fbuf, H, W, mask, mask.on);
+    __syncthreads();
+    stamp(a, 3);
+    run_any(nt[1], B, H, W, xf, out, mask, false);
+  } else {                              // A, the mask, B
+    run_any(nt[0], A, H, W, x8, fbuf, mask, true);
+    __syncthreads();
+    stamp(a, 3);
+    run_any(nt[1], B, H, W, xf, out, mask, false);
+  }
+  if (a.stamps != nullptr) {
+    __syncthreads();
+    stamp(a, 4);
+  }
+}
+
+constexpr int MAX_DEVICES = 64;
+int configured_smem[MAX_DEVICES];   // the attribute set on each device so far
+
+}  // namespace
+
+extern "C" int wmfml_image_da_smem_bytes(int H, int W) {
+  return layout(H, W).total;
+}
+
+// x: uint8 images, image (t, s) at x + t st + s ss (bytes), each H x W x 1
+// contiguous and 16-byte aligned, B = T S of them with S per task; u [B,
+// 19] f32 (column 12 in [0, 1)), keys [B, 2] i32, order [1] i64 (read
+// modulo 6), out [B, H, W] f32, all contiguous on the current device;
+// params_out null or [B, 19] f32 (the parameters the kernel computed:
+// warp [2, 7], then drop [5]); stamps null or [B, 5] i64 (the phase
+// clock). W a multiple of 4 and at most 128, H W a multiple of 16, the
+// image in one block's shared memory. Returns the cudaError_t of the
+// launch, or -1 for a shape the kernel does not take.
+extern "C" int wmfml_image_da_fwd(const unsigned char* x, long long st,
+                                  long long ss, int S, int B, const float* u,
+                                  const int* keys, const long long* order,
+                                  float* out, float* params_out,
+                                  long long* stamps, int H, int W,
+                                  void* stream) {
+  if (B < 1 || S < 1 || H < 1 || W < 4 || W % 4 || W > 32 * COLS ||
+      (H * W) % 16)
+    return -1;
+  const int smem = layout(H, W).total;
+  if (smem > MAX_SMEM) return -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > configured_smem[dev]) {
+    err = cudaFuncSetAttribute(
+        image_da_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    configured_smem[dev] = smem;
+  }
+  const Args a{x, st, ss, S, u, keys, order, out, params_out, stamps, H, W};
+  image_da_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}

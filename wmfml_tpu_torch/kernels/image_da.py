@@ -1,0 +1,135 @@
+"""K6: image data augmentation of one augmenter call in one launch.
+
+Replaces ``wmfml_tpu/aug/pipeline.py:_to_float`` and the ShapeNet1D
+augmenter of ``wmfml_tpu/aug/image_aug.py`` (``_warp_chain``, the murmur3
+masks, the enumerated-order ``augment``) for one call: uint8 images in,
+float32 images out, the op order and every image's parameters computed on
+the card from the call's raw draws. ``csrc/image_da.cu`` says what bounds
+the kernel and how its block of one image stages the image, builds its tap
+and mask tables once and applies the order.
+
+``image_da(x, u, keys, order)`` is the wrapper the augmenter calls:
+``x`` uint8 [B, H, W, 1] or [T, S, H, W, 1] (read through its T and S
+strides, not copied), ``u`` float32 [B, 19] (the uniforms of
+``aug/image_aug.py:params_from_draw``; column 12, which sizes the
+CoarseDropout grid, in [0, 1)), ``keys`` int32 [B, 2], ``order``
+int64 [1] (an index into ``ORDERS``, read modulo 6). A CPU tensor takes the
+plain twin ``image_da_plain`` (``params_from_draw``, then the dense twins);
+a CUDA tensor launches the kernel or raises. Augmentation is not
+differentiated, so there is no backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from wmfml_tpu_torch.kernels import build
+
+NU = 19                 # uniforms per image
+NPARAMS = 2 * 7 + 5     # the kernel's parameter row: warp [2, 7], drop [5]
+# the kernel's phase clock (csrc/image_da.cu: stamp)
+PHASES = ("start", "tables_built", "image_staged", "mask_or_first_pass_done",
+          "end")
+STAMPS = len(PHASES)
+UNSUPPORTED = ("image DA kernel takes uint8 [B, H, W, 1] or [T, S, H, W, 1] "
+               "images with W a multiple of 4 (at most 128), H W a multiple "
+               "of 16 and the image in one block's shared memory; other "
+               "channel counts and sizes (ShapeNet3D's RGB, larger images) "
+               "are ROADMAP.md A12c")
+
+
+def image_da_plain(x, u, keys, order):
+    """The twin: ``params_from_draw``, then x / 255 through ``apply``."""
+    from wmfml_tpu_torch.aug.image_aug import apply, params_from_draw, to_unit
+
+    h, w = x.shape[-3], x.shape[-2]
+    flat = x.reshape((-1,) + tuple(x.shape[-3:]))
+    params = params_from_draw(u, keys, order, h, w)
+    return apply(to_unit(flat), params).reshape(x.shape)
+
+
+_fwd = None
+
+
+def _kernel():
+    """The launch function, its ctypes signature set once, at first load."""
+    global _fwd
+    if _fwd is None:
+        fn = build.load("image_da").wmfml_image_da_fwd
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fwd = fn
+    return _fwd
+
+
+def image_da_launch(x, u, keys, order,
+                    params_out: Optional[torch.Tensor] = None,
+                    stamps: Optional[torch.Tensor] = None):
+    """Run the CUDA kernel once (no launch count). ``params_out`` (float32
+    [B, 19]) receives the parameters the kernel computed, ``stamps`` (int64
+    [B, STAMPS]) its phase clock (the global timer, ns, at ``PHASES``); both
+    are for tests and ``chip_smoke.py``, null on the path."""
+    if (not x.is_cuda or x.dtype != torch.uint8
+            or any(t.device != x.device for t in (u, keys, order))
+            or u.dtype != torch.float32 or keys.dtype != torch.int32
+            or order.dtype != torch.int64):
+        raise TypeError("image DA kernel takes uint8 images, float32 "
+                        "uniforms, int32 keys and an int64 order, all on one "
+                        "CUDA device")
+    if x.dim() == 4:
+        t_, s_, st, ss = x.shape[0], 1, x.stride(0), 0
+    elif x.dim() == 5:
+        t_, s_, st, ss = x.shape[0], x.shape[1], x.stride(0), x.stride(1)
+    else:
+        raise ValueError(f"{UNSUPPORTED}; got {tuple(x.shape)}")
+    h, w, c = x.shape[-3:]
+    b = t_ * s_
+    if (c != 1 or w % 4 or w > 128 or (h * w) % 16
+            or x.stride()[-3:] != (w * c, c, 1) or x.data_ptr() % 16
+            or st % 16 or ss % 16):
+        raise ValueError(f"{UNSUPPORTED}; got {tuple(x.shape)} with strides "
+                         f"{x.stride()}")
+    if (tuple(u.shape) != (b, NU) or tuple(keys.shape) != (b, 2)
+            or order.numel() != 1):
+        raise ValueError(f"image DA takes u [{b}, {NU}], keys [{b}, 2] and "
+                         f"one order; got {tuple(u.shape)}, "
+                         f"{tuple(keys.shape)}, {tuple(order.shape)}")
+    for name, t, shape, dtype in (("params_out", params_out, (b, NPARAMS),
+                                   torch.float32),
+                                  ("stamps", stamps, (b, STAMPS),
+                                   torch.int64)):
+        if t is not None and (t.device != x.device or t.dtype != dtype
+                              or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be {dtype} {list(shape)} on the "
+                             f"images' device")
+    u, keys, order = u.contiguous(), keys.contiguous(), order.contiguous()
+    out = torch.empty(x.shape, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):   # the launcher sets up the current one
+        err = _kernel()(x.data_ptr(), st, ss, s_, b, u.data_ptr(),
+                        keys.data_ptr(), order.data_ptr(), out.data_ptr(),
+                        0 if params_out is None else params_out.data_ptr(),
+                        0 if stamps is None else stamps.data_ptr(), h, w,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if err == -1:
+        raise ValueError(f"{UNSUPPORTED}; got {tuple(x.shape)}")
+    if err != 0:
+        raise RuntimeError(f"image DA launch failed: cudaError {err}")
+    return out
+
+
+def image_da(x, u, keys, order):
+    """One augmenter call: float32 images of ``x``'s shape."""
+    if x.device.type == "cpu":
+        return image_da_plain(x, u, keys, order)
+    out = image_da_launch(x, u, keys, order)
+    image_da.launches += 1
+    return out
+
+
+image_da.launches = 0

@@ -50,7 +50,7 @@ def build_maml_outer(model, config, num_steps: int, train: bool,
     loss_func = LossFunc(config.loss_type, config.task)
     process = build_episode_processor(config.task,
                                       config.aug_list if train else [],
-                                      train=train, seed=config.seed)
+                                      train=train)
     create_graph = train and not config.first_order
     beta = float(config.beta or 0.0)
     update_lr = float(config.update_lr)

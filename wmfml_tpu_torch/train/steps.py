@@ -42,8 +42,7 @@ def _apply(model, batch: Dict[str, torch.Tensor]):
 
 
 def build_train_step(model, optimizer, config) -> Callable:
-    process = build_episode_processor(config.task, config.aug_list, train=True,
-                                      seed=config.seed)
+    process = build_episode_processor(config.task, config.aug_list, train=True)
     loss_func = LossFunc(config.loss_type, config.task)
     beta = float(config.beta or 0.0)
 

@@ -10,7 +10,10 @@
   * best-per-split checkpoints + ``best_{split}_error.txt``, an intermediate
     checkpoint when ``it % 1000 < K`` and a final one at the end;
   * NaN guard: the loss stays on the device and is read at the validation
-    cadence; a non-finite loss raises ``NonFiniteLossError``.
+    cadence; a non-finite loss raises ``NonFiniteLossError``;
+  * one random generator on the device draws every episode, DA and TA draw
+    of training; checkpoints hold its state, so a run resumed from one
+    draws what an unbroken run would have drawn.
 
 ``timing`` holds the training steps and host seconds between the first and
 the last loss read (each read waits for the card), validation excluded.
@@ -58,7 +61,8 @@ class ModelTrainer:
         if config.checkpoint:
             self.step = self.ckpt.restore(config.checkpoint, self.model,
                                           self.optimizer,
-                                          map_location=self.device)
+                                          map_location=self.device,
+                                          generator=self.generator)
             self.logger.info(f"resumed from {config.checkpoint} at step {self.step}")
 
     def _build_steps(self):
@@ -67,7 +71,8 @@ class ModelTrainer:
                 build_eval_step(self.model, self.config))
 
     def _save(self, name: str):
-        self.ckpt.save(name, self.step, self.model, self.optimizer)
+        self.ckpt.save(name, self.step, self.model, self.optimizer,
+                       self.generator)
 
     def train(self):
         cfg = self.config
