@@ -65,7 +65,27 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      autograd Function at all), on the card, on phase 7's training replayed
      under deterministic algorithms, so that its state, its sums and its
      verdict are the same on every run;
-  9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+  9. the bfloat16 ANP path (``compute_dtype: bfloat16``, ``bench.py``'s
+     headline configuration): ``ANP_DA+TA_ShapeNet1D.yaml`` with
+     ``compute_dtype=bfloat16``, as phase 4; every launch of K1, K2 and K6
+     must be a bfloat16 one, K6 twice a step; the trained model's
+     validation loss on one episode, card against the CPU, within the
+     bfloat16 rule (``check_bf16``);
+ 10. the bfloat16 MAML path: ``cfg/train/perf/MAML_DA_ShapeNet1D_tpu.yaml``
+     as shipped (bfloat16, 4 steps a call), 8 steps and one validation;
+     K1 and K3 launched in bfloat16 exactly as often as the code says, K6
+     twice a step; the validation loss on one episode's first tasks, card
+     against the CPU, within the bfloat16 rule;
+ 11. ms/step of each path in float32 and in bfloat16, timed in turns
+     (float32, bfloat16, bfloat16, float32) on the trained trainers;
+ 12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+
+Phase 3 holds each kernel's bfloat16 path too (K1 both forms, K2, K3 masked
+and unmasked, K6 in every order) against its bfloat16 twin at the same
+shapes: within ``check_bf16``'s rule, K1's and K3's values within 2
+bfloat16 ulps of each element (``BF16_FLOOR`` beside it), and K6's
+parameters and masks bit for bit, its values within 2 bfloat16 ulps of each
+element. Phase 8's float64 check stays on float32.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository around it.
@@ -89,6 +109,11 @@ MAML_YAML = os.path.join(HERE, "cfg", "train", "MAML_DA_ShapeNet1D.yaml")
 MAML_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=12",
                   "val_freq=1000", "val_iters=1", "steps_per_call=1",
                   "device=cuda"]
+BF16_OVERRIDES = TRAIN_OVERRIDES + ["compute_dtype=bfloat16"]
+PERF_MAML_YAML = os.path.join(HERE, "cfg", "train", "perf",
+                              "MAML_DA_ShapeNet1D_tpu.yaml")
+PERF_MAML_OVERRIDES = ["synthetic_data=true", "iterations=8", "val_freq=1000",
+                       "val_iters=1"]
 EVAL_YAML = os.path.join(HERE, "cfg", "evaluation", "ANP_ShapeNet1D.yaml")
 EVAL_OVERRIDES = ["synthetic_data=true", "device=cuda"]
 
@@ -96,6 +121,7 @@ EVAL_OVERRIDES = ["synthetic_data=true", "device=cuda"]
 # on the tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # integer operations (K6's hashes): 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x 1.98 GHz boost clock
@@ -121,6 +147,20 @@ TOL = {"literature_stem": (1e-4, 1e-4), "favor_attention": (1e-5, 1e-4),
 # GRAD_FACTOR times the error of the plain float32 twins (two float32 sums in
 # another order err about equally)
 GRAD_TOL, GRAD_FACTOR = 1e-3, 3.0
+# bfloat16 (check_bf16): the kernel and its bfloat16 twin round at the same
+# points after float32 sums taken in another order, so a sum near a rounding
+# boundary can round the other way and carry one ulp on. A kernel passes when
+# max |kernel - twin| <= 2 max |twin - twin_f32| + 2^-7 max |twin_f32| (the
+# size of bfloat16's own effect; twin_f32 is the twin on the same inputs in
+# float32; the CPU parity tests' rule) and its mean error is below the
+# twin's own mean distance from float32. K1 and K3 in bfloat16 also come
+# within BF16_ULPS of each element of the twin, an element below
+# BF16_FLOOR times the twin's largest measured in the spacing at that size
+# (where a sum cancels, two float32 orders differ by about 2^-20 of its
+# largest term, which no longer fits an ulp of the small result). K6 in
+# bfloat16: values within BF16_ULPS of each element, with no floor,
+# parameters and masks bit for bit.
+BF16_ULPS, BF16_FLOOR = 2.0, 2.0 ** -8
 # validation degree loss after 20 inner steps, card against CPU: float32
 # sums in another order move each adapted weight a little at every step;
 # |card - CPU| <= VAL_TOL * (|CPU| + 1) degrees
@@ -164,6 +204,12 @@ def in_turns(fns, rounds=2):
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
+# how often torch.profiler loses device events of this run's traces: traces
+# taken, traces that held no device event, traces that held fewer events
+# than their kernels imply (``device_profile``; logged at the end)
+TRACES = {"taken": 0, "empty": 0, "short": 0}
+
+
 def device_profile(fn, iters=20, names=None):
     """Device time of one call (ms), the summed durations of the kernels it
     launches, and the number of kernels it launches, from torch.profiler.
@@ -190,8 +236,10 @@ def device_profile(fn, iters=20, names=None):
             torch.cuda.synchronize()
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        TRACES["taken"] += 1
         if kernels:
             break
+        TRACES["empty"] += 1
         log(f"profile: a trace of {iters} calls holds no device event "
             f"(attempt {attempt + 1} of 3)")
     by_name = {}
@@ -201,6 +249,7 @@ def device_profile(fn, iters=20, names=None):
     us = sum(per_call[n] * sum(v) / len(v) for n, v in by_name.items())
     implied = iters * sum(per_call.values())
     if len(kernels) != implied:
+        TRACES["short"] += 1
         log(f"profile: a trace of {iters} calls holds {len(kernels)} of the "
             f"{implied} device events its kernels imply; each kernel's time "
             f"is the mean of its recorded events")
@@ -223,14 +272,20 @@ def floor_ms() -> float:
     return prof["device_ms"]
 
 
-def bound(flops: float, nbytes: float, split_flops: float = 0.0):
+def bound(flops: float, nbytes: float, split_flops: float = 0.0,
+          split_products: int = 3, bf16_flops: float = 0.0):
     """Least time (ms), what sets it, and the float32 CUDA-core bound (ms)
     of the same work. ``flops`` run in float32 on the CUDA cores,
-    ``split_flops`` in 3xTF32 on the tensor cores (three TF32 products
-    each)."""
-    t_ops = flops / PEAK_F32_FLOPS + 3 * split_flops / PEAK_TF32_FLOPS
+    ``split_flops`` in split TF32 on the tensor cores (``split_products``
+    TF32 products each: 3 for float32 operands, 2 where one operand is
+    bfloat16, exact in TF32), ``bf16_flops`` in bfloat16 on the tensor
+    cores. The CUDA cores and the tensor cores run side by side, so the
+    operations take the longer of their two times, not the sum."""
+    t_ops = max(flops / PEAK_F32_FLOPS,
+                split_products * split_flops / PEAK_TF32_FLOPS
+                + bf16_flops / PEAK_BF16_FLOPS)
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_f32 = max((flops + split_flops) / PEAK_F32_FLOPS, t_bytes)
+    t_f32 = max((flops + split_flops + bf16_flops) / PEAK_F32_FLOPS, t_bytes)
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 bound_f32_ms=t_f32 * 1e3)
@@ -252,28 +307,91 @@ def check_close(name, got, want):
     return err[finite].max().item(), rel
 
 
-def stem_bound(b, h, w, nbytes):
-    """``bound`` of the stem: conv0 on the CUDA cores, conv1 in 3xTF32."""
-    return bound(2 * b * (h // 2) * (w // 2) * 32 * 9 * 1, nbytes,
-                 split_flops=2 * b * (h // 4) * (w // 4) * 48 * 9 * 32)
+def check_bf16(name, got, want, want_f32):
+    """A bfloat16 kernel against its bfloat16 twin (the rule beside
+    ``BF16_ULPS``); returns (max abs err, max err relative to max |twin|)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} from "
+                             f"the kernel, {want.dtype} {tuple(want.shape)} "
+                             f"from the twin")
+    g, w, f = got.float(), want.float(), want_f32.float()
+    err, own = (g - w).abs(), (w - f).abs()
+    limit = 2 * own.max().item() + 2.0 ** -7 * f.abs().max().item()
+    if (not bool(torch.isfinite(g).all()) or err.max().item() > limit
+            or err.mean().item() > own.mean().item()):
+        raise AssertionError(
+            f"{name} (bfloat16): kernel disagrees with its plain twin: max "
+            f"abs err {err.max().item()} (limit {limit}), mean "
+            f"{err.mean().item()} (twin's own from float32 "
+            f"{own.mean().item()})")
+    if got.dtype == torch.bfloat16:
+        ulps = bf16_ulps(got, want, BF16_FLOOR * w.abs().max().item())
+        log(f"kernel: {name} (bfloat16): {ulps} bfloat16 ulps from the twin "
+            f"at most")
+        if ulps > BF16_ULPS:
+            raise AssertionError(f"{name} (bfloat16): an element lies {ulps} "
+                                 f"bfloat16 ulps from the twin's")
+    return err.max().item(), err.max().item() / w.abs().max().item()
 
 
-def check_stem(model, gen):
-    """K1 at the ANP path's shape: the merged ctx+qry batch, 300 images."""
+def check_kernel(name, got, want, plain_f32):
+    """``check_close`` for float32, ``check_bf16`` for bfloat16
+    (``plain_f32`` gives the twin's float32 value on the same inputs)."""
+    import torch
+
+    if got.dtype == torch.float32 and want.dtype == torch.float32 and \
+            plain_f32 is None:
+        return check_close(name, got, want)
+    return check_bf16(name, got, want, plain_f32())
+
+
+def stem_bound(b, h, w, nbytes, bf16=False):
+    """``bound`` of the stem: in float32 conv0 on the CUDA cores, conv1 in
+    3xTF32; in bfloat16 both convs' products are bfloat16 summed in float32,
+    what the tensor cores do at their bfloat16 rate (the kernel runs conv0,
+    one input channel, on the CUDA cores all the same)."""
+    conv0 = 2 * b * (h // 2) * (w // 2) * 32 * 9 * 1
+    conv1 = 2 * b * (h // 4) * (w // 4) * 48 * 9 * 32
+    if bf16:
+        return bound(0.0, nbytes, bf16_flops=conv0 + conv1)
+    return bound(conv0, nbytes, split_flops=conv1)
+
+
+def _rows(name, dtype, path):
+    """The identifying keys of a kernel row: the wrapper (``kernel``), the
+    row's name (``_bf16`` for the bfloat16 path), its dtype and the path
+    whose launch count it reports."""
+    import torch
+
+    bf16 = dtype == torch.bfloat16
+    return dict(name=name + ("_bf16" if bf16 else ""), kernel=name,
+                dtype="bfloat16" if bf16 else "float32",
+                path=path + (" bf16" if bf16 else ""), route="cuda")
+
+
+def check_stem(model, gen, dtype=None):
+    """K1 at the ANP path's shape: the merged ctx+qry batch, 300 images,
+    in float32 or (``dtype``) bfloat16."""
     import torch
     import torch.nn.functional as F
 
     from wmfml_tpu_torch.kernels import stem
 
+    dtype = dtype or torch.float32
     enc = model.encoder_w0
-    w0, b0, w1, b1 = (p.detach() for p in (enc[0].weight, enc[0].bias,
-                                           enc[2].weight, enc[2].bias))
+    w0, b0, w1, b1 = (p.detach().to(dtype) for p in (
+        enc[0].weight, enc[0].bias, enc[2].weight, enc[2].bias))
     b, h, w = 10 * 30, 128, 128
-    x = torch.rand((b, h, w, 1), generator=gen, device="cuda")
-    got = stem.stem_launch(x, w0, b0, w1, b1)
-    want = stem.stem_plain(x, w0, b0, w1, b1)
-    torch.cuda.synchronize()
-    err, rel = check_close("literature_stem", got, want)
+    x = torch.rand((b, h, w, 1), generator=gen, device="cuda").to(dtype)
+    args = (x, w0, b0, w1, b1)
+    got = stem.stem_launch(*args)
+    want = stem.stem_plain(*args)
+    f32 = None if dtype == torch.float32 else (
+        lambda: stem.stem_plain(*(a.float() for a in args)))
+    err, rel = check_kernel("literature_stem", got, want, f32)
     xn = x.permute(0, 3, 1, 2).contiguous()
 
     def library():      # cuDNN yardstick, NCHW; never called by the port
@@ -281,39 +399,42 @@ def check_stem(model, gen):
         a = F.relu(F.conv2d(a, w1, b1, stride=2, padding=1))
         return F.max_pool2d(a, 2)
 
-    times = in_turns({"ms": lambda: stem.stem_launch(x, w0, b0, w1, b1),
-                      "plain_ms": lambda: stem.stem_plain(x, w0, b0, w1, b1),
+    times = in_turns({"ms": lambda: stem.stem_launch(*args),
+                      "plain_ms": lambda: stem.stem_plain(*args),
                       "library_ms": library})
-    times.update(device_profile(lambda: stem.stem_launch(x, w0, b0, w1, b1)))
-    nbytes = 4 * (x.numel() + got.numel() + sum(t.numel() for t in
-                                                 (w0, b0, w1, b1)))
-    return dict(name="literature_stem", route="cuda", path="ANP",
+    times.update(device_profile(lambda: stem.stem_launch(*args)))
+    nbytes = x.element_size() * (x.numel() + got.numel() + sum(
+        t.numel() for t in (w0, b0, w1, b1)))
+    return dict(**_rows("literature_stem", dtype, "ANP"),
                 shape="shared weights, [300, 128, 128, 1]",
                 source="wmfml_tpu_torch/csrc/stem.cu",
                 replaces="wmfml_tpu/nn/encoders.py:230",
                 max_abs_err=err, max_rel_err=rel, **times,
-                **stem_bound(b, h, w, nbytes))
+                **stem_bound(b, h, w, nbytes, dtype == torch.bfloat16))
 
 
-def check_favor(model, gen):
+def check_favor(model, gen, dtype=None):
     """K2 at the ANP path's shape, with shots 3..15 across the 10 tasks; q,
     k, v are [T, N, H, d] transposed to [T, H, N, d], as the attention block
-    hands them over. One call must issue one kernel."""
+    hands them over, float32 or (``dtype``) bfloat16. One call must issue
+    one kernel."""
     import torch
 
     from wmfml_tpu_torch.kernels import favor
 
+    dtype = dtype or torch.float32
     proj = model.attn.projection_matrix
     t_, h, n, d = 10, 8, 15, proj.shape[1]
-    q, k, v = (torch.randn((t_, n, h, d), generator=gen,
-                           device="cuda").transpose(1, 2) for _ in range(3))
+    q, k, v = (torch.randn((t_, n, h, d), generator=gen, device="cuda").to(
+        dtype).transpose(1, 2) for _ in range(3))
     shots = torch.tensor([3 + (12 * i) // (t_ - 1) for i in range(t_)],
                          device="cuda")
     mask = torch.arange(n, device="cuda")[None, :] < shots[:, None]
     got = favor.favor_launch(q, k, v, proj, mask)
     want = favor.favor_plain(q, k, v, proj, mask)
-    torch.cuda.synchronize()
-    err, rel = check_close("favor_attention", got, want)
+    f32 = None if dtype == torch.float32 else (lambda: favor.favor_plain(
+        q.float(), k.float(), v.float(), proj, mask))
+    err, rel = check_kernel("favor_attention", got, want, f32)
     times = in_turns({"ms": lambda: favor.favor_launch(q, k, v, proj, mask),
                       "plain_ms": lambda: favor.favor_plain(q, k, v, proj,
                                                             mask)})
@@ -326,19 +447,23 @@ def check_favor(model, gen):
         raise AssertionError(f"favor_attention issued "
                              f"{times['kernels_per_call']} kernels per call: "
                              f"{sorted(names)}")
-    times["phase_us"] = favor_phases(q, k, v, proj, mask)
+    if dtype == torch.float32:
+        times["phase_us"] = favor_phases(q, k, v, proj, mask)
     m, e = proj.shape[0], v.shape[-1]
-    # the kernel's form: dash = [q; k] P^T in 3xTF32 on the tensor cores;
-    # A = q' k'^T, A v and the row sums on the CUDA cores
+    # the kernel's form: dash = [q; k] P^T in split TF32 on the tensor cores
+    # (bfloat16 rows are exact in TF32: two products, not three); A = q'
+    # k'^T, A v and the row sums on the CUDA cores
     split_flops = 2 * t_ * h * (2 * n) * m * d
     flops = 2 * t_ * h * (n * n * m + n * n * e + n * n)
-    nbytes = 4 * (4 * q.numel() + proj.numel()) + mask.numel()
-    return dict(name="favor_attention", route="cuda", path="ANP",
+    nbytes = (q.element_size() * 3 * q.numel() + 4 * (q.numel() + proj.numel())
+              + mask.numel())
+    return dict(**_rows("favor_attention", dtype, "ANP"),
                 shape="q, k, v [10, 8, 15, 64], m 266, shots 3..15",
                 source="wmfml_tpu_torch/csrc/favor.cu",
                 replaces="wmfml_tpu/nn/attention.py:93",
                 max_abs_err=err, max_rel_err=rel, **times, library_ms=None,
-                **bound(flops, nbytes, split_flops=split_flops))
+                **bound(flops, nbytes, split_flops=split_flops,
+                        split_products=3 if dtype == torch.float32 else 2))
 
 
 def favor_phases(q, k, v, proj, mask, runs=10):
@@ -371,25 +496,34 @@ def per_task(w, tasks, gen, scale=0.05):
     return (w.unsqueeze(0) + scale * w.abs().mean() * noise).contiguous()
 
 
-def check_stem_per_task(model, gen):
+def check_stem_per_task(model, gen, dtype=None):
     """K1 with per-task weights at the MAML path's shape: 10 tasks x 15
-    images, against ``stem_plain`` applied task by task."""
+    images, against ``stem_plain`` applied task by task; float32 or
+    (``dtype``) bfloat16."""
     import torch
     import torch.nn.functional as F
 
     from wmfml_tpu_torch.kernels import stem
 
+    dtype = dtype or torch.float32
     enc = model.encoder_w
     t_, n, h, w = 10, 15, 128, 128
-    w0, b0, w1, b1 = (per_task(p.detach(), t_, gen) for p in (
+    w0, b0, w1, b1 = (per_task(p.detach(), t_, gen).to(dtype) for p in (
         enc.layer1.conv.weight, enc.layer1.conv.bias, enc.layer2.conv.weight,
         enc.layer2.conv.bias))
-    x = torch.rand((t_ * n, h, w, 1), generator=gen, device="cuda")
-    got = stem.stem_launch(x, w0, b0, w1, b1)
-    want = torch.cat([stem.stem_plain(x[i * n:(i + 1) * n], w0[i], b0[i],
-                                      w1[i], b1[i]) for i in range(t_)])
-    torch.cuda.synchronize()
-    err, rel = check_close("literature_stem", got, want)
+    x = torch.rand((t_ * n, h, w, 1), generator=gen, device="cuda").to(dtype)
+    args = (x, w0, b0, w1, b1)
+
+    def by_task(*a):
+        return torch.cat([stem.stem_plain(a[0][i * n:(i + 1) * n],
+                                          *(p[i] for p in a[1:]))
+                          for i in range(t_)])
+
+    got = stem.stem_launch(*args)
+    want = by_task(*args)
+    f32 = None if dtype == torch.float32 else (
+        lambda: by_task(*(a.float() for a in args)))
+    err, rel = check_kernel("literature_stem", got, want, f32)
     xg = x.reshape(t_, n, h, w).transpose(0, 1).contiguous()   # [N, T, H, W]
 
     def library():      # cuDNN grouped convs, NCHW; never called by the port
@@ -399,29 +533,30 @@ def check_stem_per_task(model, gen):
                             padding=1, groups=t_))
         return F.max_pool2d(a, 2)
 
-    times = in_turns({"ms": lambda: stem.stem_launch(x, w0, b0, w1, b1),
-                      "plain_ms": lambda: stem.stem_plain(x, w0, b0, w1, b1),
+    times = in_turns({"ms": lambda: stem.stem_launch(*args),
+                      "plain_ms": lambda: stem.stem_plain(*args),
                       "library_ms": library})
-    times.update(device_profile(lambda: stem.stem_launch(x, w0, b0, w1, b1)))
-    nbytes = 4 * (x.numel() + got.numel() + sum(a.numel() for a in
-                                                 (w0, b0, w1, b1)))
-    return dict(name="literature_stem", route="cuda", path="MAML",
+    times.update(device_profile(lambda: stem.stem_launch(*args)))
+    nbytes = x.element_size() * (x.numel() + got.numel() + sum(
+        a.numel() for a in (w0, b0, w1, b1)))
+    return dict(**_rows("literature_stem", dtype, "MAML"),
                 shape="per-task weights, [10 x 15, 128, 128, 1]",
                 source="wmfml_tpu_torch/csrc/stem.cu",
                 replaces="wmfml_tpu/nn/encoders.py:230",
                 max_abs_err=err, max_rel_err=rel, **times,
-                **stem_bound(t_ * n, h, w, nbytes))
+                **stem_bound(t_ * n, h, w, nbytes, dtype == torch.bfloat16))
 
 
-def check_features(model, gen):
+def check_features(model, gen, dtype=None):
     """K3 at the MAML path's shape [10, 15, 14, 14, 64], masked with shots
     3..15 across the tasks (the context passes) and unmasked (the query
-    pass), against ``features_plain``."""
+    pass), against ``features_plain``; float32 or (``dtype``) bfloat16."""
     import torch
     import torch.nn.functional as F
 
     from wmfml_tpu_torch.kernels import features
 
+    dtype = dtype or torch.float32
     t_, n, s, c = 10, 15, 14, 64
     layers = [getattr(model.features, f"layer{i}") for i in (2, 3, 4)]
     w = torch.stack([per_task(blk.conv.weight.detach(), t_, gen)
@@ -432,21 +567,24 @@ def check_features(model, gen):
     shift = 0.1 * torch.randn((3, c), generator=gen, device="cuda")
     x = torch.relu(torch.randn((t_, n, s, s, c), generator=gen,
                                device="cuda"))
+    x, w, b, scale, shift = (a.to(dtype) for a in (x, w, b, scale, shift))
+    args = (x, w, b, scale, shift)
     shots = torch.tensor([3 + (12 * i) // (t_ - 1) for i in range(t_)],
                          device="cuda")
     mask = torch.arange(n, device="cuda")[None, :] < shots[:, None]
     res = {}
     for key, m in (("", mask), ("_unmasked", None)):
-        got = features.features_launch(x, w, b, scale, shift, m)
-        want = features.features_plain(x, w, b, scale, shift, m)
-        torch.cuda.synchronize()
-        res["max_abs_err" + key], res["max_rel_err" + key] = check_close(
-            "maml_features", got, want)
+        got = features.features_launch(*args, m)
+        want = features.features_plain(*args, m)
+        f32 = None if dtype == torch.float32 else (
+            lambda: features.features_plain(*(a.float() for a in args), m))
+        res["max_abs_err" + key], res["max_rel_err" + key] = check_kernel(
+            "maml_features", got, want, f32)
     xn = x.permute(1, 0, 4, 2, 3).reshape(n, t_ * c, s, s).contiguous()
     wg = [w[:, i].flatten(0, 1).contiguous() for i in range(3)]
     bg = [b[:, i].flatten().contiguous() for i in range(3)]
-    sg = [scale[i].repeat(t_) for i in range(3)]
-    hg = [shift[i].repeat(t_) for i in range(3)]
+    sg = [scale[i].float().repeat(t_) for i in range(3)]
+    hg = [shift[i].float().repeat(t_) for i in range(3)]
 
     def library():      # unmasked: cuDNN grouped conv + batch_norm + ReLU
         h = xn
@@ -457,23 +595,23 @@ def check_features(model, gen):
         return h
 
     times = in_turns({
-        "ms": lambda: features.features_launch(x, w, b, scale, shift, mask),
-        "plain_ms": lambda: features.features_plain(x, w, b, scale, shift,
-                                                    mask),
-        "ms_unmasked": lambda: features.features_launch(x, w, b, scale,
-                                                        shift),
-        "plain_ms_unmasked": lambda: features.features_plain(x, w, b, scale,
-                                                             shift),
+        "ms": lambda: features.features_launch(*args, mask),
+        "plain_ms": lambda: features.features_plain(*args, mask),
+        "ms_unmasked": lambda: features.features_launch(*args),
+        "plain_ms_unmasked": lambda: features.features_plain(*args),
         "library_ms": library})
     times.update(device_profile(
-        lambda: features.features_launch(x, w, b, scale, shift, mask)))
+        lambda: features.features_launch(*args, mask)))
     flops = 2 * t_ * 3 * (n * s * s) * c * c * 9
-    nbytes = 4 * (2 * x.numel() + w.numel() + b.numel() + 6 * c) + mask.numel()
-    return dict(name="maml_features", route="cuda", path="MAML",
+    nbytes = x.element_size() * (2 * x.numel() + w.numel() + b.numel()
+                                 + 6 * c) + mask.numel()
+    ops = (dict(bf16_flops=flops) if dtype == torch.bfloat16
+           else dict(split_flops=flops))
+    return dict(**_rows("maml_features", dtype, "MAML"),
                 shape="[10, 15, 14, 14, 64], 3 layers, shots 3..15",
                 source="wmfml_tpu_torch/csrc/features.cu",
                 replaces="scripts/proto_maml_pallas_conv.py:96",
-                **res, **times, **bound(0.0, nbytes, split_flops=flops))
+                **res, **times, **bound(0.0, nbytes, **ops))
 
 
 # integer operations of K6's masks: per Dropout pixel the id (3), the key
@@ -553,24 +691,42 @@ def da_phases(x, u, keys, order, runs=10):
     return {k: statistics.median(r[k] for r in per_run) for k in per_run[0]}
 
 
-def check_image_da(gen):
+def bf16_ulps(got, want, floor=0.0):
+    """max |got - want| over bfloat16 tensors, in units of each element's
+    spacing (the gap from |want| to the next bfloat16 above it); an element
+    with |want| below ``floor`` is measured in the spacing at ``floor``."""
+    import torch
+
+    w = want.abs().clamp_min(floor).contiguous()
+    gap = (w.view(torch.int16) + 1).view(torch.bfloat16).float() - w.float()
+    return ((got.float() - want.float()).abs() / gap).max().item()
+
+
+def check_image_da(gen, dtype=None):
     """K6 at the DA call's shape: the context slice of a [10, 30, 128, 128,
-    1] uint8 batch (150 images, read through its strides), every gate on.
-    Its parameters bit for bit against ``params_from_draw`` on the card;
-    with both warps off, its Dropout and CoarseDropout masks bit for bit
-    against the twin on the card and on the CPU in every order; then each of
-    the six orders against both twins within ``TOL["warp_chain"]``, timed,
-    with its phase clock. The library yardstick, never called by the port:
-    ``F.grid_sample`` (bilinear, zeros, ``align_corners=True``) of the
-    float images on a prebuilt grid, Affine's warp alone with cval 0. Rows
-    for the ``kernels`` line: order (0, 1, 2), the two warps chained then
-    the mask (ANP), and (0, 2, 1), warp, mask, warp (MAML)."""
+    1] uint8 batch (150 images, read through its strides), every gate on,
+    writing float32 or (``dtype``) bfloat16. Its parameters bit for bit
+    against ``params_from_draw`` on the card; with both warps off, its
+    Dropout and CoarseDropout masks bit for bit against the twin on the
+    card and on the CPU in every order; then each of the six orders against
+    both twins (float32 within ``TOL["warp_chain"]``, bfloat16 within
+    ``BF16_ULPS`` of each element), timed, with its phase clock in float32.
+    The library yardstick, never called by the port: ``F.grid_sample``
+    (bilinear, zeros, ``align_corners=True``) of the images in the same
+    dtype on a prebuilt grid, Affine's warp alone with cval 0. Rows for the
+    ``kernels`` line: order (0, 1, 2), the two warps chained then the mask
+    (ANP), and (0, 2, 1), warp, mask, warp (MAML); the bound counts uint8
+    in and the output's width out."""
     import torch
     import torch.nn.functional as F
 
     from wmfml_tpu_torch.aug import image_aug
     from wmfml_tpu_torch.kernels import image_da as kda
 
+    dtype = dtype or torch.float32
+    f32 = dtype == torch.float32
+    bits = torch.int32 if f32 else torch.int16
+    tag = "image_da" + ("" if f32 else "_bf16")
     t_, s_, h, w = 10, 15, 128, 128
     b = t_ * s_
     batch = torch.randint(0, 256, (t_, 2 * s_, h, w, 1), dtype=torch.uint8,
@@ -582,13 +738,16 @@ def check_image_da(gen):
     def order_t(o, dev="cuda"):
         return torch.tensor([o], device=dev)
 
+    def launch(uu, o):
+        return kda.image_da_launch(x, uu, keys, o, dtype)
+
     got_p = torch.empty((b, kda.NPARAMS), device="cuda")
-    kda.image_da_launch(x, u, keys, order_t(0), params_out=got_p)
+    kda.image_da_launch(x, u, keys, order_t(0), dtype, params_out=got_p)
     p = image_aug.params_from_draw(u, keys, order_t(0), h, w)
     want_p = torch.cat([p.warp.flatten(1), p.drop], 1)
     torch.cuda.synchronize()
     if not torch.equal(got_p.view(torch.int32), want_p.view(torch.int32)):
-        raise AssertionError(f"image_da: its parameters differ from "
+        raise AssertionError(f"{tag}: its parameters differ from "
                              f"params_from_draw's at "
                              f"{int((got_p != want_p).sum())} entries")
     dropped = {}
@@ -597,20 +756,20 @@ def check_image_da(gen):
         um[:, 13] = um[:, 14] = 0.75
         um[:, 17] = pick
         for o in range(len(image_aug.ORDERS)):
-            got = kda.image_da_launch(x, um, keys, order_t(o))
-            for want in (kda.image_da_plain(x, um, keys, order_t(o)).cpu(),
+            got = launch(um, order_t(o))
+            for want in (kda.image_da_plain(x, um, keys, order_t(o),
+                                            dtype).cpu(),
                          kda.image_da_plain(xc, um.cpu(), kc,
-                                            order_t(o, "cpu"))):
-                if not torch.equal(got.cpu().view(torch.int32),
-                                   want.view(torch.int32)):
+                                            order_t(o, "cpu"), dtype)):
+                if not torch.equal(got.cpu().view(bits), want.view(bits)):
                     raise AssertionError(
-                        f"image_da ({kind}, order {o}): the mask differs from "
+                        f"{tag} ({kind}, order {o}): the mask differs from "
                         f"the twin's at {int((got.cpu() != want).sum())} "
                         f"elements")
         dropped[kind] = float((got.cpu() == 0).double().mean()
                               - (xc == 0).double().mean())
 
-    xf = (xc.float() / 255.0).reshape(b, 1, h, w).cuda()
+    xf = (xc.float() / 255.0).reshape(b, 1, h, w).cuda().to(dtype)
     sx, sy, tx, ty = p.warp[:, 1, :4].unbind(-1)
 
     def axis_grid(n, scale, shift):    # (j - c - shift) / scale + c -> [-1, 1]
@@ -621,55 +780,71 @@ def check_image_da(gen):
 
     gx, gy = axis_grid(w, sx, tx), axis_grid(h, sy, ty)
     grid = torch.stack([gx[:, None, :].expand(b, h, w),
-                        gy[:, :, None].expand(b, h, w)], -1).contiguous()
+                        gy[:, :, None].expand(b, h, w)], -1).to(dtype)
     library_ms = cuda_ms(lambda: F.grid_sample(
         xf, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
 
     rows = {}
-    nbytes = 5 * x.numel() + 4 * (u.numel() + keys.numel()) + 8
+    nbytes = (1 + xf.element_size()) * x.numel() + 4 * (
+        u.numel() + keys.numel()) + 8
     for o, ops in enumerate(image_aug.ORDERS):
         ot = order_t(o)
-        got = kda.image_da_launch(x, u, keys, ot)
-        want = kda.image_da_plain(x, u, keys, ot)
+        got = launch(u, ot)
+        want = kda.image_da_plain(x, u, keys, ot, dtype)
+        want_cpu = kda.image_da_plain(xc, uc, kc, order_t(o, "cpu"), dtype)
         torch.cuda.synchronize()
-        err, rel = check_close("warp_chain", got, want)
-        err_cpu, _ = check_close("warp_chain", got.cpu(), kda.image_da_plain(
-            xc, uc, kc, order_t(o, "cpu")))
+        if f32:
+            err, rel = check_close("warp_chain", got, want)
+            err_cpu, _ = check_close("warp_chain", got.cpu(), want_cpu)
+            ulps = {}
+        else:
+            ulps = dict(max_ulps_card_twin=bf16_ulps(got, want),
+                        max_ulps_cpu_twin=bf16_ulps(got.cpu(), want_cpu))
+            if max(ulps.values()) > BF16_ULPS:
+                raise AssertionError(f"{tag} (order {ops}): {ulps} bfloat16 "
+                                     f"ulps from the twins")
+            err = (got.float() - want.float()).abs().max().item()
+            err_cpu = (got.cpu().float() - want_cpu.float()).abs().max().item()
+            rel = None
         times = in_turns({
-            "ms": lambda: kda.image_da_launch(x, u, keys, ot),
-            "plain_ms": lambda: kda.image_da_plain(x, u, keys, ot)})
+            "ms": lambda: launch(u, ot),
+            "plain_ms": lambda: kda.image_da_plain(x, u, keys, ot, dtype)})
         names = set()
-        times.update(device_profile(
-            lambda: kda.image_da_launch(x, u, keys, ot), names=names))
+        times.update(device_profile(lambda: launch(u, ot), names=names))
         if len(names) != 1 or times["kernels_per_call"] != 1:
-            raise AssertionError(f"image_da issued {times['kernels_per_call']} "
+            raise AssertionError(f"{tag} issued {times['kernels_per_call']} "
                                  f"kernels per call: {sorted(names)}")
+        if f32:
+            times["phase_us"] = da_phases(x, u, keys, ot)
         flops, iops = da_work(p, o, h, w)
-        t_ops = flops / PEAK_F32_FLOPS + iops / PEAK_INT32_OPS
+        # the FP32 and INT32 lanes are separate pipes that run side by side
+        t_ops = max(flops / PEAK_F32_FLOPS, iops / PEAK_INT32_OPS)
         t_bytes = nbytes / PEAK_BYTES_PER_S
         rows[o] = dict(
-            name="image_da", route="cuda", path="MAML" if o == 1 else "ANP",
+            **_rows("image_da", dtype, "MAML" if o == 1 else "ANP"),
             tol="warp_chain",
-            shape=f"[10, 15 of 30, 128, 128, 1] uint8, order {ops}, every "
-                  f"gate on", source="wmfml_tpu_torch/csrc/image_da.cu",
+            shape=f"[10, 15 of 30, 128, 128, 1] uint8 -> {xf.dtype}, order "
+                  f"{ops}, every gate on",
+            source="wmfml_tpu_torch/csrc/image_da.cu",
             replaces="wmfml_tpu/aug/image_aug.py:537",
             library="F.grid_sample, bilinear, zeros, Affine alone, cval 0",
             max_abs_err=max(err, err_cpu), max_rel_err=rel,
-            max_abs_err_card_twin=err, max_abs_err_cpu_twin=err_cpu, **times,
-            library_ms=library_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+            max_abs_err_card_twin=err, max_abs_err_cpu_twin=err_cpu, **ulps,
+            **times, library_ms=library_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             bound_f32_ms=max(t_ops, t_bytes) * 1e3, flops=flops, int_ops=iops,
-            phase_us=da_phases(x, u, keys, ot), dropped_share=dropped)
+            dropped_share=dropped)
     for o in range(1, len(image_aug.ORDERS)):   # order 0 is printed in the table
         r = rows[o]
-        log(f"kernel: image_da order {image_aug.ORDERS[o]}: max abs err "
+        log(f"kernel: {tag} order {image_aug.ORDERS[o]}: max abs err "
             f"{r['max_abs_err']} (card twin {r['max_abs_err_card_twin']}, CPU "
-            f"twin {r['max_abs_err_cpu_twin']}); {r['ms']} ms ({r['device_ms']} "
-            f"ms of it on the device, {r['kernels_per_call']} kernels per "
-            f"call), plain {r['plain_ms']} ms, library {library_ms} ms, bound "
+            f"twin {r['max_abs_err_cpu_twin']}{'; ' if ulps else ''}"
+            f"{ulps or ''}); {r['ms']} ms ({r['device_ms']} ms of it on the "
+            f"device, {r['kernels_per_call']} kernels per call), plain "
+            f"{r['plain_ms']} ms, library {library_ms} ms, bound "
             f"{r['bound_ms']} ms by {r['bound_by']}; phase clock (us) "
-            f"{r['phase_us']}")
-    log(f"kernel: image_da: parameters equal params_from_draw's bit for bit; "
+            f"{r.get('phase_us')}")
+    log(f"kernel: {tag}: parameters equal params_from_draw's bit for bit; "
         f"masks with the warps off equal the twins' bit for bit in every "
         f"order (share of pixels dropped beyond the zeros of x: {dropped})")
     return [rows[0], rows[1]]
@@ -677,7 +852,8 @@ def check_image_da(gen):
 
 def train_phase(card, yaml, overrides, counters):
     """Drive one path through ``train_cli``; return (trainer, launches per
-    kernel in that run)."""
+    kernel in that run). In ``compute_dtype: bfloat16`` every launch must
+    have been a bfloat16 one."""
     import torch
 
     from wmfml_tpu_torch.cli import train_cli
@@ -685,7 +861,7 @@ def train_phase(card, yaml, overrides, counters):
 
     config = Config(yaml, overrides)
     for fn in counters.values():
-        fn.launches = 0
+        fn.launches = fn.bf16_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = train_cli.train(config)
@@ -693,6 +869,11 @@ def train_phase(card, yaml, overrides, counters):
     wall = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {name: fn.launches for name, fn in counters.items()}
+    bf16 = config.compute_dtype == "bfloat16"
+    in_bf16 = {name: fn.bf16_launches for name, fn in counters.items()}
+    if in_bf16 != (launches if bf16 else {k: 0 for k in launches}):
+        raise AssertionError(f"{config.method} in {config.compute_dtype}: "
+                             f"launches {launches}, in bfloat16 {in_bf16}")
 
     with open(os.path.join(config.save_path, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
@@ -706,7 +887,7 @@ def train_phase(card, yaml, overrides, counters):
         raise AssertionError(f"trainer ran {trainer.step} steps "
                              f"({steps} timed)")
     ms_step = 1e3 * secs / steps
-    tag = config.method
+    tag = config.method + (" bf16" if bf16 else "")
     log(f"train {tag}: {trainer.step} steps in {wall:.3f} s wall; "
         f"{ms_step} ms/step, {config.tasks_per_batch * 1e3 / ms_step} "
         f"tasks/s over {steps} timed steps on {card}; peak device memory "
@@ -841,7 +1022,9 @@ def check_maml_launches(trainer, launches):
     """K1 and K3 run once per forward: (num_steps + 1) per training step,
     (test_num_steps + 1) per validation episode, validation and test."""
     cfg = trainer.config
-    sweeps = sum(1 for it in range(cfg.iterations) if it % cfg.val_freq < 1)
+    k = cfg.steps_per_call
+    sweeps = sum(1 for it in range(0, cfg.iterations, k)
+                 if it % cfg.val_freq < k)
     want = (cfg.iterations * (cfg.num_steps + 1)
             + 2 * sweeps * cfg.val_iters * (cfg.test_num_steps + 1))
     if any(n != want for n in launches.values()):
@@ -900,6 +1083,77 @@ def check_maml_validation(trainer):
         f"{VAL_TOL})")
     if not math.isfinite(got) or err > VAL_TOL * (abs(want) + 1.0):
         raise AssertionError(f"MAML validation loss: card {got}, CPU {want}")
+
+
+def check_bf16_validation(trainer, tasks=None):
+    """The bfloat16 model's validation loss on one episode (its first
+    ``tasks`` tasks): the card (kernels, bfloat16) against the CPU (plain
+    twins) in bfloat16, within the bfloat16 rule against the CPU's float32
+    loss of the same weights: |card - CPU bf16| <= 2 |CPU bf16 - CPU f32|
+    + 2^-7 |CPU f32|."""
+    import copy
+
+    from wmfml_tpu_torch.configs import torch_dtype
+    from wmfml_tpu_torch.ops.cast import set_compute_dtype
+    from wmfml_tpu_torch.train.maml import build_maml_eval_step
+    from wmfml_tpu_torch.train.steps import build_eval_step
+    from wmfml_tpu_torch.train.trainer import episode_to_device
+
+    cfg, data = trainer.config, trainer.data
+    data.reset_eval("validation", seed=42)
+    raw = data.get_batch("validation", cfg.tasks_per_batch, cfg.max_ctx_num)
+    raw = {k: v[:tasks] for k, v in raw.items()}
+    got = float(trainer.eval_step(episode_to_device(raw, "cuda")))
+    build = build_maml_eval_step if "MAML" in cfg.method else build_eval_step
+    cpu = {}
+    for dtype in ("bfloat16", "float32"):
+        c = copy.copy(cfg)
+        c.compute_dtype, c.device = dtype, "cpu"
+        model = set_compute_dtype(copy.deepcopy(trainer.model).cpu(),
+                                  torch_dtype(c))
+        cpu[dtype] = float(build(model, c)(episode_to_device(raw, "cpu")))
+    limit = (2 * abs(cpu["bfloat16"] - cpu["float32"])
+             + 2.0 ** -7 * abs(cpu["float32"]))
+    err = abs(got - cpu["bfloat16"])
+    log(f"output: {cfg.method} bf16 validation loss on one episode "
+        f"({len(raw['ctx_x'])} tasks): card {got}, CPU bf16 "
+        f"{cpu['bfloat16']}, CPU f32 {cpu['float32']}; abs err {err} "
+        f"(limit {limit})")
+    if not math.isfinite(got) or err > limit:
+        raise AssertionError(f"{cfg.method} bf16 validation loss: card {got}, "
+                             f"CPU {cpu}")
+
+
+def dtype_turns(pairs, steps):
+    """ms/step of each (float32, bfloat16) trainer pair, timed in turns
+    f32, bf16, bf16, f32 on the same card: host clock over ``steps``
+    training steps ending in a device sync, after one untimed step."""
+    import torch
+
+    def ms(trainer):
+        cfg = trainer.config
+
+        def step():
+            trainer.train_step(trainer.sampler.sample(cfg.tasks_per_batch,
+                                                      trainer.generator),
+                               trainer.generator)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps[cfg.method]):
+            step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps[cfg.method]
+
+    out = {}
+    for name, (f32, bf16) in pairs.items():
+        runs = [ms(tr) for tr in (f32, bf16, bf16, f32)]
+        out[name] = dict(f32_ms=(runs[0] + runs[3]) / 2,
+                         bf16_ms=(runs[1] + runs[2]) / 2, turns_ms=runs)
+        log(f"turns: {name}: float32 {out[name]['f32_ms']} ms/step, bfloat16 "
+            f"{out[name]['bf16_ms']} ms/step (f32, bf16, bf16, f32: {runs}; "
+            f"{steps[f32.config.method]} steps each)")
+    return out
 
 
 def replay_maml():
@@ -1037,7 +1291,7 @@ def second_order_errors(trainer, gen, jitter=None):
             maml_model.maml_features = shuffled_twin(features.features_plain,
                                                      saved[2])
         dtype = next(model.parameters()).dtype
-        pipeline._to_float = lambda x: saved[3](x).to(dtype)
+        pipeline._to_float = lambda x, _=None: saved[3](x).to(dtype)
         try:
             outer = build_maml_outer(model, cfg, int(cfg.num_steps),
                                      train=True, test=False)
@@ -1111,7 +1365,7 @@ def profile_steps(trainer, steps=8):
     from torch.profiler import ProfilerActivity, profile
 
     cfg = trainer.config
-    tag = cfg.method
+    tag = cfg.method + ("_bf16" if cfg.compute_dtype == "bfloat16" else "")
     for _ in range(2):
         trainer.train_step(trainer.sampler.sample(cfg.tasks_per_batch,
                                                   trainer.generator),
@@ -1207,6 +1461,13 @@ def main(argv):
     # the batch phase 8 drew before it took the config's seed
     after_phase3 = torch.Generator(device="cuda")
     after_phase3.set_state(gen.get_state())
+    # the bfloat16 paths, from a generator of their own
+    gen_bf16 = torch.Generator(device="cuda").manual_seed(1)
+    bf = torch.bfloat16
+    rows += [check_stem(anp, gen_bf16, bf), check_favor(anp, gen_bf16, bf),
+             check_stem_per_task(maml, gen_bf16, bf),
+             check_features(maml, gen_bf16, bf),
+             *check_image_da(gen_bf16, bf)]
     floor = floor_ms()
     log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
         f"time, the least any launch takes on this card")
@@ -1220,10 +1481,11 @@ def main(argv):
         if "library" in r:
             extra = (f"; library = {r['library']}; {r['flops']} float and "
                      f"{r['int_ops']} integer operations")
+        rule = ("the bfloat16 rule" if r["dtype"] == "bfloat16" else
+                f"atol, rtol {TOL[r.get('tol', r['name'])]}")
         log(f"kernel: {r['name']} ({r['shape']}): max abs err "
-            f"{r['max_abs_err']}, max rel err {r['max_rel_err']} (atol, rtol "
-            f"{TOL[r.get('tol', r['name'])]}); {r['ms']} ms ({r['device_ms']} "
-            f"ms of it on "
+            f"{r['max_abs_err']}, max rel err {r['max_rel_err']} ({rule}); "
+            f"{r['ms']} ms ({r['device_ms']} ms of it on "
             f"the device, {r['kernels_per_call']} kernels per call), plain "
             f"{r['plain_ms']} ms, "
             f"library {r['library_ms']} ms, bound {r['bound_ms']} ms by "
@@ -1271,9 +1533,35 @@ def main(argv):
     if "--profile" in argv:
         profile_steps(mtrainer, steps=4)
 
+    # bfloat16: bench.py's headline configuration and the MAML perf YAML
+    btrainer, anp_bf16 = train_phase(
+        card, MAIN_YAML, BF16_OVERRIDES,
+        {"literature_stem": literature_stem,
+         "favor_attention": favor_attention, **da_kernels})
+    check_da_launches(btrainer, anp_bf16)
+    check_bf16_validation(btrainer)
+    bmtrainer, maml_bf16 = train_phase(
+        card, PERF_MAML_YAML, PERF_MAML_OVERRIDES,
+        {"literature_stem": literature_stem, "maml_features": maml_features,
+         **da_kernels})
+    check_maml_launches(bmtrainer, {k: maml_bf16[k] for k in (
+        "literature_stem", "maml_features")})
+    check_da_launches(bmtrainer, maml_bf16)
+    check_bf16_validation(bmtrainer, tasks=3)
+    if "--profile" in argv:
+        profile_steps(btrainer)
+        profile_steps(bmtrainer, steps=4)
+    dtype_turns({"ANPShapeNet1D": (trainer, btrainer),
+                 "MAMLShapeNet1D": (mtrainer, bmtrainer)},
+                {"ANPShapeNet1D": 16, "MAMLShapeNet1D": 4})
+
+    launches = {"ANP": anp_launches, "MAML": maml_launches,
+                "ANP bf16": anp_bf16, "MAML bf16": maml_bf16}
     for r in rows:
-        r["launches"] = (maml_launches if r["path"] == "MAML"
-                         else anp_launches)[r["name"]]
+        r["launches"] = launches[r["path"]][r["kernel"]]
+    log(f"profile: {TRACES['taken']} traces of torch.profiler, "
+        f"{TRACES['empty']} holding no device event, {TRACES['short']} "
+        f"fewer device events than their kernels imply")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,20 @@ as ``chip_smoke.py``: both sides are float32 sums in another order. Second
 derivatives compare per tensor, max |difference| <= 1e-3 max |plain|. K6
 (image DA) holds its warps to the twin within 1e-5 and its masks, its
 parameters and, with every gate off, its x / 255 bit for bit.
+
+bfloat16 (``compute_dtype: bfloat16``): each kernel's bfloat16 path against
+its bfloat16 twin on the same inputs. Both round at the same points, after
+float32 sums taken in another order, so a sum near a rounding boundary can
+round the other way and carry one ulp on: max |kernel - twin| <= 2 max
+|twin - twin_f32| + 2^-7 max |twin_f32| (the size of bfloat16's own effect,
+twin_f32 the twin on the same inputs in float32; the CPU tests' rule), and
+on average the kernel is closer to its twin than the twin is to float32.
+A bfloat16 output (K1, K3) also lies within 2 bfloat16 ulps of each element
+of the twin, an element below 2^-8 of the twin's largest measured in the
+spacing at that size (where a sum cancels, two float32 orders differ by
+about 2^-20 of its largest term, more than an ulp of the small result).
+K6 in bfloat16: parameters and masks bit for bit, values within 2 bfloat16
+ulps of each element, with no floor.
 """
 
 import pytest
@@ -286,6 +300,18 @@ def test_features_kernel_is_bit_reproducible(dev):
     assert torch.equal(first, second)
 
 
+def test_unmasked_batch_norm_divides_as_the_masked_one_does(dev):
+    # both divide the channel sums by a tensor (a true division, as the
+    # kernel's load_bn and JAX do); a Python divisor would multiply by its
+    # reciprocal on the card and miss the quotient in some channels
+    x = _features_inputs(dev, 10, 15, 14, seed=5)[0]
+    every = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+    got = features.masked_batch_norm(x, None)
+    want = features.masked_batch_norm(x, every)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("name", ["stem", "favor", "features"])
 def test_kernels_run_on_tensor_cores(dev, name):
     import os
@@ -481,17 +507,21 @@ def test_image_da_call_is_one_launch_in_every_order(dev, order):
     image_da.image_da(x, u, keys, o)
     torch.cuda.synchronize()
     calls = 10
-    before = image_da.image_da.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            got = image_da.image_da(x, u, keys, o)
-        torch.cuda.synchronize()
-    assert image_da.image_da.launches == before + calls
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        before = image_da.image_da.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                got = image_da.image_da(x, u, keys, o)
+            torch.cuda.synchronize()
+        assert image_da.image_da.launches == before + calls
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:       # a trace can hold no device event at all: take again
+            break
     # K6 and nothing else, never more than one kernel a call; the profiler
-    # drops some events of these ctypes launches (8 of 10 seen), so the
-    # launch count above, not the trace, says that every call launched
+    # drops some events of these ctypes launches (8 of 10 seen, and all 10
+    # in 2 of 12 traces), so the launch count above, not the trace, says
+    # that every call launched
     assert len(set(names)) == 1 and "image_da_kernel" in names[0], names
     assert 1 <= len(names) <= calls, names
     _close(got.cpu(), _twin_cpu(x, u, keys, o), *WARP_TOL)
@@ -523,3 +553,190 @@ def test_image_da_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError):
         image_da.image_da(_images(dev, (4, 32, 32, 1)).float(), u, keys,
                           order)
+
+
+# -- bfloat16 paths -------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _bf16_close(got, want, want_f32):
+    """The module docstring's bfloat16 rule."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w, f = got.float(), want.float(), want_f32.float()
+    assert bool(torch.isfinite(g).all())
+    err, own = (g - w).abs(), (w - f).abs()
+    bound = 2 * float(own.max()) + 2.0 ** -7 * float(f.abs().max())
+    assert float(err.max()) <= bound, (float(err.max()), bound)
+    assert float(err.mean()) <= float(own.mean()), (float(err.mean()),
+                                                    float(own.mean()))
+    if got.dtype == BF16:
+        ulps = _ulps(got, want, 2.0 ** -8 * float(w.abs().max()))
+        assert float(ulps.max()) <= 2.0, float(ulps.max())
+
+
+def _stem_weights(dev, lead, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [scale * torch.randn((*lead, *shape), generator=g, device=dev)
+            for scale, shape in ((0.3, (32, 1, 3, 3)), (0.1, (32,)),
+                                 (0.06, (48, 32, 3, 3)), (0.1, (48,)))]
+
+
+@pytest.mark.parametrize("lead,b", [((), 300), ((10,), 150), ((2,), 6)],
+                         ids=["shared", "per_task", "small"])
+def test_stem_bf16_kernel_matches_its_twin(dev, lead, b):
+    g = torch.Generator(device=dev).manual_seed(b)
+    hw = 32 if b == 6 else 128
+    x = torch.rand((b, hw, hw, 1), generator=g, device=dev)
+    ws = _stem_weights(dev, lead, b)
+    args = [a.to(BF16) for a in (x, *ws)]
+    got = stem.stem_launch(*args)
+    assert got.dtype == BF16
+    _bf16_close(got, stem.stem_plain(*args),
+                stem.stem_plain(*(a.float() for a in args)))
+
+
+@pytest.mark.parametrize("t", [10, 64])     # 64: more items than blocks
+def test_favor_bf16_kernel_matches_its_twin(dev, t):
+    g = torch.Generator(device=dev).manual_seed(t)
+    h, n, d, m = 8, 15, 64, 266
+    proj = torch.randn((m, d), generator=g, device=dev) * 0.5
+    # [T, N, H, d] transposed, as the attention block hands them over
+    q, k, v = (torch.randn((t, n, h, d), generator=g, device=dev).to(
+        BF16).transpose(1, 2) for _ in range(3))
+    shots = torch.randint(1, n + 1, (t, 1), generator=g, device=dev)
+    mask = torch.arange(n, device=dev)[None] < shots
+    got = favor.favor_launch(q, k, v, proj, mask)
+    assert got.dtype == torch.float32
+    _bf16_close(got, favor.favor_plain(q, k, v, proj, mask),
+                favor.favor_plain(q.float(), k.float(), v.float(), proj,
+                                  mask))
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("t,n,s", [(2, 3, 6), (10, 15, 14)])
+def test_features_bf16_kernel_matches_its_twin(dev, t, n, s, masked):
+    *args, mask = _features_inputs(dev, t, n, s, seed=s)
+    mask = mask if masked else None
+    args = [a.to(BF16) for a in args]
+    got = features.features_launch(*args, mask)
+    assert got.dtype == BF16
+    _bf16_close(got, features.features_plain(*args, mask),
+                features.features_plain(*(a.float() for a in args), mask))
+
+
+@pytest.mark.parametrize("kernel", ["stem", "features"])
+def test_bf16_weight_packing_on_the_card_is_its_plain_twin_bit_for_bit(
+        dev, kernel):
+    # bfloat16 weights go to the tensor cores as they are, in the k16 B
+    # order of kernels/tf32.py:gmma_b_layout on a bfloat16 tensor
+    g = torch.Generator(device=dev).manual_seed(12)
+    if kernel == "stem":
+        w1 = (0.06 * torch.randn((3, 48, 32, 3, 3), generator=g,
+                                 device=dev)).to(BF16)
+        got, want = stem.pack_conv1_launch(w1, 3), stem.pack_conv1(w1, 3)
+    else:
+        w = (0.04 * torch.randn((2, 3, 64, 64, 3, 3), generator=g,
+                                device=dev)).to(BF16)
+        got, want = features.pack_launch(w), features.pack_weights(w)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_bf16_wrappers_count_their_launches_and_differentiate_twice(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    x, w, b, scale, shift, mask = (a.to(BF16) if a.is_floating_point() else a
+                                   for a in _features_inputs(dev, 2, 3, 14,
+                                                             seed=2))
+    sw = [w_.to(BF16).requires_grad_(True)
+          for w_ in _stem_weights(dev, (2,), 3)]
+    img = torch.rand((6, 32, 32, 1), generator=g, device=dev).to(BF16)
+    r_feat = torch.randn(x.shape, generator=g, device=dev).to(BF16)
+    r_stem = torch.randn((6, 4, 4, 48), generator=g, device=dev).to(BF16)
+    params = [a.requires_grad_(True) for a in (x, w, scale, shift)]
+
+    def second_order(stem_fn, features_fn):
+        y = (features_fn(x, w, b, scale, shift, mask) * r_feat).float().sum()
+        y = y + (stem_fn(img, *sw) * r_stem).float().sum()
+        gs = torch.autograd.grad(y, params + sw, create_graph=True)
+        return torch.autograd.grad(sum(g.float().square().sum() for g in gs),
+                                   params + sw)
+
+    before = [(fn.launches, fn.bf16_launches) for fn in (
+        stem.literature_stem, features.maml_features)]
+    got = second_order(stem.literature_stem, features.maml_features)
+    after = [(fn.launches, fn.bf16_launches) for fn in (
+        stem.literature_stem, features.maml_features)]
+    assert after == [(a + 1, c + 1) for a, c in before]
+    # the backward recomputes through the bfloat16 twins either way
+    want = second_order(stem.stem_plain, features.features_plain)
+    torch.cuda.synchronize()
+    for a, b_ in zip(got, want):
+        assert a.dtype == BF16
+        assert float((a - b_).float().abs().max()) <= 1e-3 * float(
+            b_.float().abs().max())
+
+
+def _ulps(got, want, floor=0.0):
+    """|got - want| in units of want's bfloat16 spacing (the gap from |want|
+    to the next bfloat16 above it); an element with |want| below ``floor``
+    is measured in the spacing at ``floor``."""
+    w = want.abs().clamp_min(floor).contiguous()
+    gap = (w.view(torch.int16) + 1).view(BF16).float() - w.float()
+    return (got.float() - want.float()).abs() / gap
+
+
+@pytest.mark.parametrize("order", range(6))
+def test_image_da_bf16_kernel_matches_the_twin_in_every_order(dev, order):
+    u, keys, _ = _draw(dev, 150, seed=order)
+    u[:, 13:17] = 0.25                 # every gate on
+    x = _images(dev, (10, 15, 128, 128, 1))
+    o = _order(dev, order)
+    params = torch.empty((150, image_da.NPARAMS), device=dev)
+    got = image_da.image_da_launch(x, u, keys, o, BF16, params_out=params)
+    assert got.dtype == BF16
+    p = image_aug.params_from_draw(u, keys, o, 128, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(params.view(torch.int32),
+                       torch.cat([p.warp.flatten(1), p.drop], 1).view(
+                           torch.int32))
+    for want in (image_da.image_da_plain(x, u, keys, o, BF16).cpu(),
+                 image_da.image_da_plain(x.cpu(), u.cpu(), keys.cpu(),
+                                         o.cpu(), BF16)):
+        assert want.dtype == BF16
+        assert float(_ulps(got.cpu(), want).max()) <= 2.0
+
+
+@pytest.mark.parametrize("pick", [0.25, 0.75])    # Dropout, CoarseDropout
+def test_image_da_bf16_masks_equal_the_twin_bit_for_bit(dev, pick):
+    u, keys, _ = _draw(dev, 150, seed=9)
+    u[:, 13:15] = 0.75                           # both warps off
+    u[:, 16], u[:, 17] = 0.25, pick              # the dropout op on
+    u[:, 10], u[:, 11] = 5.0, 9.0                # rates ~.46 and .45
+    x = _images(dev, (150, 128, 128, 1))
+    for order in range(6):
+        o = _order(dev, order)
+        got = image_da.image_da_launch(x, u, keys, o, BF16).cpu()
+        want = image_da.image_da_plain(x.cpu(), u.cpu(), keys.cpu(), o.cpu(),
+                                       BF16)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+def test_bf16_augmenter_counts_its_launches_and_reads_nothing_back(dev):
+    aug = image_aug.ShapeNet1DAugmenter(BF16)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = _images(dev, (10, 15, 128, 128, 1))
+    aug(x, g)
+    torch.cuda.synchronize()
+    before = (image_da.image_da.launches, image_da.image_da.bf16_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = aug(x, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (image_da.image_da.launches,
+            image_da.image_da.bf16_launches) == (before[0] + 1, before[1] + 1)
+    assert out.shape == x.shape and out.dtype == BF16

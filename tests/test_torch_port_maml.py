@@ -151,6 +151,19 @@ def test_masked_batch_norm_matches_jax(masked):
                                atol=ATOL)
 
 
+def test_unmasked_batch_norm_equals_the_all_rows_mask_bit_for_bit():
+    """Without a mask the statistics divide by the count, a scalar filled on
+    the data's device (no host copy each call): the same true division as
+    the masked form's, to the bit (on the card: ``test_torch_port_cuda``)."""
+    rng = np.random.RandomState(8)
+    x = t((rng.randn(T_, S_, 5, 5, 4) * 2 + 1).astype(np.float32))
+    scale, bias = t(rng.rand(4).astype(np.float32)), t(rng.randn(4).astype(
+        np.float32))
+    every = torch.ones((T_, S_), dtype=torch.bool)
+    assert torch.equal(kfeatures.masked_batch_norm(x, None, scale, bias),
+                       kfeatures.masked_batch_norm(x, every, scale, bias))
+
+
 # -- (c) the per-task encoder and the whole regressor -----------------------------
 
 def _per_task(tree, seed):

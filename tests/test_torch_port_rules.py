@@ -113,8 +113,19 @@ def test_fixed_order_perf_yaml_raises_instead_of_running_random_order():
     assert _config().prng_impl == "threefry"
 
 
+def test_fixed_order_perf_yaml_raises_naming_a20_with_bf16_accepted():
+    """With ``compute_dtype: bfloat16`` ported, the shipped ANP perf YAML
+    (bfloat16 and ``aug_random_order: false``) still raises, and names the
+    fixed-order pipeline: bf16 no longer stops it first."""
+    yaml = os.path.join(REPO, "cfg", "train", "perf",
+                        "ANP_DA+TA_ShapeNet1D_tpu.yaml")
+    assert _config("compute_dtype=bfloat16").compute_dtype == "bfloat16"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A20"):
+        Config(yaml, [], make_dirs=False)
+
+
 @pytest.mark.parametrize("override,error", [
-    ("compute_dtype=bfloat16", NotImplementedError),
+    ("compute_dtype=float16", NotImplementedError),
     ("method=MAMLMRShapeNet1D", NotImplementedError),
     ("method=MMAMLShapeNet1D", NotImplementedError),
     ("method=NoSuchMethod", NameError),

@@ -124,19 +124,22 @@ def stage_matrices(h: int, w: int, scale_xy, translate_xy, nearest=None,
 def affine_warp(img: torch.Tensor, scale_xy, translate_xy, cval,
                 nearest=None) -> torch.Tensor:
     """One warp with constant fill (``_affine_warp``, :97-117); img
-    [B, H, W, C]."""
+    [B, H, W, C], computed in float32 and returned in img's dtype."""
     _, h, w, _ = img.shape
     wy, wx = stage_matrices(h, w, scale_xy, translate_xy, nearest)
     out = torch.einsum("bih,bhwc,bjw->bijc", wy, img.float(), wx)
     coverage = wy.sum(-1)[:, :, None] * wx.sum(-1)[:, None, :]
-    return out + (cval[:, None, None] * (1.0 - coverage))[..., None]
+    return (out + (cval[:, None, None] * (1.0 - coverage))[..., None]).to(
+        img.dtype)
 
 
 def warp_chain(img: torch.Tensor, stages: List[dict]) -> torch.Tensor:
     """Sequential warps in one image mix, exact (``_warp_chain``,
     :120-151): ``stages`` are dicts {scale, translate, cval, nearest?,
     gate?} of [B] tensors, applied first to last; each stage's fill field
-    cval (1⊗1 - ry⊗rx) is pushed through the later stages' matrices."""
+    cval (1⊗1 - ry⊗rx) is pushed through the later stages' matrices. The
+    chain is computed in float32 and rounds once, to img's dtype, at its
+    end."""
     b, h, w, _ = img.shape
     ones_h = torch.ones((b, h), device=img.device)
     ones_w = torch.ones((b, w), device=img.device)
@@ -157,7 +160,7 @@ def warp_chain(img: torch.Tensor, stages: List[dict]) -> torch.Tensor:
     fill = torch.zeros((b, h, w), device=img.device)
     for c, a, v in terms:
         fill = fill + c[:, None, None] * (a[:, :, None] * v[:, None, :])
-    return out + fill[..., None]
+    return (out + fill[..., None]).to(img.dtype)
 
 
 def stages_from_params(warp: torch.Tensor, ops: Sequence[int]) -> List[dict]:
@@ -305,7 +308,12 @@ def params_from_draw(u: torch.Tensor, keys: torch.Tensor, order, h: int,
 
 class ShapeNet1DAugmenter:
     """``build_augmenter("shapenet_1d")`` (:537-565) for the port: each call
-    draws its raw draw and issues one K6 launch."""
+    draws its raw draw and issues one K6 launch. Images come out in
+    ``dtype``, float32 or bfloat16: as in the JAX package, x / 255 and
+    every warp chain round to it (the masks are exact)."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        self.dtype = dtype
 
     def sample(self, n: int, generator: Optional[torch.Generator], device):
         """The raw draw of one call for ``n`` images, on ``device``: one
@@ -330,22 +338,24 @@ class ShapeNet1DAugmenter:
     def __call__(self, images: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  params: Optional[DAParams] = None) -> torch.Tensor:
-        """Augment [..., H, W, C] uint8 images into float32; ``params``
-        injects a draw (on the CPU only: the card computes the parameters
-        in K6)."""
+        """Augment [..., H, W, C] uint8 images into ``self.dtype``;
+        ``params`` injects a draw (on the CPU only: the card computes the
+        parameters in K6)."""
         if params is not None:
             if images.device.type != "cpu":
                 raise ValueError("DAParams are injected on the CPU only")
             flat = images.reshape((-1,) + tuple(images.shape[-3:]))
-            return apply(to_unit(flat), params).reshape(images.shape)
+            return apply(to_unit(flat).to(self.dtype), params).reshape(
+                images.shape)
         u, keys, order = self.sample(math.prod(images.shape[:-3]), generator,
                                      images.device)
-        return image_da(images, u, keys, order)
+        return image_da(images, u, keys, order, self.dtype)
 
 
 def apply(flat: torch.Tensor, params: DAParams) -> torch.Tensor:
     """One order of ``SHAPENET1D_OPS`` on [B, H, W, C] float images through
-    the dense twins. The order index is read modulo 6, as K6 reads it."""
+    the dense twins, in their dtype. The order index is read modulo 6, as
+    K6 reads it."""
     for run in order_runs(ORDERS[int(params.order) % len(ORDERS)]):
         if run == (DROP,):
             flat = one_of_dropout(flat, params.drop, params.keys)
@@ -354,7 +364,8 @@ def apply(flat: torch.Tensor, params: DAParams) -> torch.Tensor:
     return flat
 
 
-def build_augmenter(task: str) -> ShapeNet1DAugmenter:
+def build_augmenter(task: str,
+                    dtype: torch.dtype = torch.float32) -> ShapeNet1DAugmenter:
     if task != "shapenet_1d":
         raise NotImplementedError(OTHER_TASKS.format(task=task))
-    return ShapeNet1DAugmenter()
+    return ShapeNet1DAugmenter(dtype)

@@ -1,13 +1,16 @@
 """Device-side episode processing: normalise, image and task augmentation,
 labels.
 
-``build_episode_processor(task, aug_list, train)`` returns
+``build_episode_processor(task, aug_list, train, dtype)`` returns
 ``process(batch, generator=None, ta_idx=None, da_params=None)`` that turns
 a raw episode (uint8 images, raw labels, on any device) into the
 model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` does for
 ShapeNet1D:
 
-  * uint8 images -> float32 / 255, in the augmenter when image DA is on;
+  * uint8 images -> x / 255 in the compute dtype ``dtype`` (float32 or
+    bfloat16, rounded from the float32 quotient as JAX's
+    ``x.astype(dtype) / 255.0`` rounds it), in the augmenter when image DA
+    is on; labels and task augmentation stay float32;
   * image data augmentation (train only, ``data_aug`` in ``aug_list``):
     two augmenter calls on the raw uint8 images, context then query, each
     with its own op order and per-image parameters (``aug/image_aug.py``:
@@ -32,29 +35,30 @@ import torch
 from wmfml_tpu_torch.aug.image_aug import build_augmenter
 
 
-def _to_float(x: torch.Tensor) -> torch.Tensor:
+def _to_float(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     if x.dtype == torch.uint8:
-        return x.to(torch.float32) / 255.0
-    return x.to(torch.float32)
+        return (x.to(torch.float32) / 255.0).to(dtype)
+    return x.to(dtype)
 
 
 def _encode_angle(y: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cos(y), torch.sin(y), y], dim=-1)
 
 
-def build_episode_processor(task: str, aug_list, train: bool) -> Callable:
+def build_episode_processor(task: str, aug_list, train: bool,
+                            dtype: torch.dtype = torch.float32) -> Callable:
     if task != "shapenet_1d":
         raise NotImplementedError(
             f"episode processing for {task!r} is not ported yet "
             "(ROADMAP.md A12)")
     task_aug = train and "task_aug" in aug_list
-    augment = (build_augmenter(task)
+    augment = (build_augmenter(task, dtype)
                if train and "data_aug" in aug_list else None)
 
     def augment_pair(cx, qx, generator, da_params):
         """DA for ctx and qry: always two calls, as the JAX package makes."""
         if augment is None:
-            return _to_float(cx), _to_float(qx)
+            return _to_float(cx, dtype), _to_float(qx, dtype)
         pc, pq = da_params if da_params is not None else (None, None)
         return augment(cx, generator, pc), augment(qx, generator, pq)
 

@@ -1,3 +1,4 @@
-from wmfml_tpu_torch.configs.config import Config, TASK_SHAPES, resolve_device
+from wmfml_tpu_torch.configs.config import (Config, TASK_SHAPES, resolve_device,
+                                            torch_dtype)
 
-__all__ = ["Config", "TASK_SHAPES", "resolve_device"]
+__all__ = ["Config", "TASK_SHAPES", "resolve_device", "torch_dtype"]

@@ -9,7 +9,9 @@ Port-specific rules:
   * ``device`` names where tensors live. The YAMLs say ``tpu``; it maps to
     ``cuda``, as do ``gpu`` and ``cuda``. Only ``device=cpu`` runs on the
     CPU, and only when the caller asks for it.
-  * ``compute_dtype: bfloat16`` is not ported yet and raises.
+  * ``compute_dtype``: ``float32`` (the default) or ``bfloat16``, with the
+    JAX package's rounding (``torch_dtype``); any other value raises, where
+    the JAX package reads it as float32.
   * MAML keys as in the JAX package (``num_updates`` -> ``num_steps``,
     ``test_num_updates`` -> ``test_num_steps``, ``num_filters`` ->
     ``dim_hidden``). ``maml_remat`` takes only ``none`` (rematerialisation
@@ -39,6 +41,7 @@ import os
 from time import strftime
 from typing import Any, Dict, List, Optional
 
+import torch
 import yaml
 
 # Task name -> ([H, W, C], input label dim, output dim); images are
@@ -60,6 +63,8 @@ DEFAULT_QUERY_NUM = {
 
 DEVICE_ALIASES = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 FIXED_ORDER_NOT_PORTED = ("aug_random_order=false: the fused fixed-order DA "
                           "pipeline is not ported yet (ROADMAP.md A20)")
 
@@ -73,6 +78,13 @@ def _parse_override(value: str) -> Any:
             return yaml.safe_load(value)
         except yaml.YAMLError:
             return value
+
+
+def torch_dtype(config) -> torch.dtype:
+    """The dtype ``config.compute_dtype`` names. As with Flax's ``dtype=``,
+    parameters stay float32; each layer casts its input and its weights to
+    this dtype and returns it, and losses and metrics are taken in float32."""
+    return COMPUTE_DTYPES[config.compute_dtype]
 
 
 def resolve_device(name: str) -> str:
@@ -146,10 +158,10 @@ class Config:
         self.seed = cfg["seed"]
         self.timestamp = strftime("%Y-%m-%d_%H-%M-%S")
         self.compute_dtype = get("compute_dtype", "float32")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: the port computes in "
-                "float32 only (bf16 is queued in ROADMAP.md)")
+                f"{' or '.join(COMPUTE_DTYPES)}")
         self.aug_random_order = get("aug_random_order", True)
         if not self.aug_random_order:
             raise NotImplementedError(FIXED_ORDER_NOT_PORTED)

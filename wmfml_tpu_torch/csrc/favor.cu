@@ -14,8 +14,9 @@
 //
 // Bound: at the ANPShapeNet1D shapes (T=10, H=8, Nq=Nk=15, d=e=64, m=266)
 // the call does 82 MFLOP of feature products (dash) and 12 MFLOP of the rest
-// and moves about 1.3 MB: 0.0007 ms with dash in 3xTF32 on the tensor cores,
-// 0.0014 ms all in float32 on the CUDA cores. Both are below the device
+// and moves about 1.3 MB: 0.0005 ms with dash in 3xTF32 on the tensor cores
+// beside the rest on the CUDA cores, 0.0014 ms all in float32 on the CUDA
+// cores. Both are below the device
 // time of any launch on the card (a one-element torch.add: 0.0012 ms). What
 // bounds this kernel is latency: a chain of dependent steps (loads, the
 // products, block reductions, the grid barrier), each a few microseconds.
@@ -77,11 +78,22 @@
 //     all of a thread's loads in flight before the first use (batched).
 //   * An optional phase clock (stamps) records the global timer at nine
 //     points per block; chip_smoke.py prints it.
+//
+// bfloat16 q, k, v (compute_dtype: bfloat16; favor_kernel<__nv_bfloat16>):
+// the JAX core promotes a bfloat16 data against the float32 projection, so
+// the output stays float32 and only two steps round to bfloat16 first:
+// dn x (dn itself rounded: JAX casts the Python scalar) and the diagonal
+// term, bf16(bf16(sum of bf16(x^2)) / 2 * dn^2) (dn^2 rounded). The rows are
+// read through their strides four values (8 bytes) a load and converted to
+// float32 exactly; their rounded scaled values are exact in TF32, so their
+// small part is 0 and dash takes two products a k-step, not three.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bf16_gmma.cuh"
 #include "tf32_gmma.cuh"
 
 namespace cg = cooperative_groups;
@@ -104,9 +116,9 @@ constexpr int MAX_DEVICES = 64;
 constexpr int STAMPS = 9;
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;                    // float or __nv_bfloat16, as the kernel's T
+  const void* k;
+  const void* v;
   const float* proj;
   const unsigned char* mask;        // [T, Nk] bytes 0/1, or null: all real
   float* dash;                      // scratch [items][R][MP], R = Nq + Nk
@@ -213,6 +225,18 @@ __device__ inline float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// four consecutive elements as float4: float32 as they are, bfloat16
+// converted (exactly)
+__device__ inline float4 ld4(const float* p) { return ldg4(p); }
+__device__ inline float4 ld4(const __nv_bfloat16* p) {
+  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(tc::bf16_lo(r.x), tc::bf16_hi(r.x), tc::bf16_lo(r.y),
+                     tc::bf16_hi(r.y));
+}
+
+template <class T>
+__device__ inline const T* qkv(const void* a) { return static_cast<const T*>(a); }
+
 // The wgmma B operand order of the item's rows, K = DP = 64 columns: in
 // float4 units, i = ((g * 8 + s) * 2 + half) * 8 + r holds row g * 8 + r,
 // columns s * 8 + half * 4 .. + 3. A k-step s of row groups g.. starts at
@@ -239,19 +263,26 @@ __device__ void split_store(float* big, int part, int i, float4 x) {
 }
 
 // the item's q rows, then its k rows, zero-padded to the NT-row tiles
+template <class T>
 __device__ float4 row_load(const Params& p, int item, int i) {
   const int t = item / p.H, h = item % p.H;
   const int r = op_row(i), c = op_col(i);
   if (r >= p.Nq + p.Nk || c >= p.d) return make_float4(0.f, 0.f, 0.f, 0.f);
-  return r < p.Nq ? ldg4(p.q + t * p.qs_t + h * p.qs_h + r * p.qs_n + c)
-                  : ldg4(p.k + t * p.ks_t + h * p.ks_h + (r - p.Nq) * p.ks_n +
-                         c);
+  return r < p.Nq
+             ? ld4(qkv<T>(p.q) + t * p.qs_t + h * p.qs_h + r * p.qs_n + c)
+             : ld4(qkv<T>(p.k) + t * p.ks_t + h * p.ks_h + (r - p.Nq) * p.ks_n +
+                   c);
 }
-// the B operand: scaled by d^-1/4 as the reference scales them, then split
+// the B operand: scaled by d^-1/4 as the reference scales them (rounded to
+// bfloat16 for bfloat16 rows), then split
+template <class T>
 __device__ void row_store(const Params& p, float* rows, int part, int i,
                           float4 x) {
-  split_store(rows, part, i,
-              make_float4(p.dn * x.x, p.dn * x.y, p.dn * x.z, p.dn * x.w));
+  float4 y = make_float4(p.dn * x.x, p.dn * x.y, p.dn * x.z, p.dn * x.w);
+  if constexpr (sizeof(T) == 2)
+    y = make_float4(tc::bf16r(y.x), tc::bf16r(y.y), tc::bf16r(y.z),
+                    tc::bf16r(y.w));
+  split_store(rows, part, i, y);
 }
 
 // This thread's A fragments of projection tile mt (wgmma A from registers,
@@ -277,9 +308,11 @@ __device__ __forceinline__ void stash_fragments(const Params& p, int mt,
 
 // One unit of phase 1 for this warpgroup: dash^T of projection tile mt (64
 // features) against item row tile nt (NT rows), from the stashed fragments;
-// small*big, big*small, big*big per k-step. Stores the real rows to dst
+// small*big, big*small, big*big per k-step (kRowsExact: the rows' small
+// part is 0, and its product is skipped). Stores the real rows to dst
 // ([R][MP]) and returns kmax raised by the unit's key values in real
 // columns.
+template <bool kRowsExact>
 __device__ __forceinline__ float dash_unit(const Params& p, float* dst,
                                            int mt, int nt, const float* stash,
                                            const float* rows, int part,
@@ -302,7 +335,8 @@ __device__ __forceinline__ float dash_unit(const Params& p, float* dst,
     const uint64_t big = tc::desc_b(b, 128, 2048);
     const uint64_t small = tc::desc_b(b + part, 128, 2048);
     tc::mma_n32(acc, as[s][0], as[s][1], as[s][2], as[s][3], big);
-    tc::mma_n32(acc, ab[s][0], ab[s][1], ab[s][2], ab[s][3], small);
+    if constexpr (!kRowsExact)
+      tc::mma_n32(acc, ab[s][0], ab[s][1], ab[s][2], ab[s][3], small);
     tc::mma_n32(acc, ab[s][0], ab[s][1], ab[s][2], ab[s][3], big);
   }
   tc::commit();
@@ -337,7 +371,9 @@ __device__ inline float4 features4(const Params& p, float4 x, int c,
   return make_float4(y[0], y[1], y[2], y[3]);
 }
 
+template <class T>
 __global__ void __launch_bounds__(THREADS, 1) favor_kernel(const Params p) {
+  constexpr bool kBF = sizeof(T) == 2;
   extern __shared__ __align__(128) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = p.Nq + p.Nk, M4 = p.MP / 4, tiles = row_tiles(p.Nq, p.Nk);
@@ -376,20 +412,20 @@ __global__ void __launch_bounds__(THREADS, 1) favor_kernel(const Params p) {
       tc::cp_async_commit();
       const bool kept = tid < p.Nk && (p.mask == nullptr ||
                                        p.mask[t * p.ms_t + tid * p.ms_n]);
-      const float* vb = p.v + t * p.vs_t + h * p.vs_h;
+      const T* vb = qkv<T>(p.v) + t * p.vs_t + h * p.vs_h;
       const int e4 = p.e / 4;
       batched<3>(
           nr + (resident ? nv : 0),
           [&](int i) {
-            return i < nr ? row_load(p, item, i)
-                          : ldg4(vb + (i - nr) / e4 * p.vs_n + (i - nr) % e4 * 4);
+            return i < nr ? row_load<T>(p, item, i)
+                          : ld4(vb + (i - nr) / e4 * p.vs_n + (i - nr) % e4 * 4);
           },
           [&](int i, float4 x) {
             if (i >= nr) {
               reinterpret_cast<float4*>(V)[i - nr] = x;
               return;
             }
-            row_store(p, rows, part, i, x);
+            row_store<T>(p, rows, part, i, x);
             const int r = op_row(i);
             if (resident && r < R)
               *reinterpret_cast<float4*>(X + r * DP + op_col(i)) = x;
@@ -409,7 +445,7 @@ __global__ void __launch_bounds__(THREADS, 1) favor_kernel(const Params p) {
           tc::cp_async_commit();
           tc::cp_async_wait<0>();
         }
-        kmax = dash_unit(p, dst, mt, u / mtiles, st, rows, part, kmax);
+        kmax = dash_unit<kBF>(p, dst, mt, u / mtiles, st, rows, part, kmax);
       }
       stamp(p, 2);
       kmax = block_max(kmax, red);
@@ -433,9 +469,9 @@ __global__ void __launch_bounds__(THREADS, 1) favor_kernel(const Params p) {
       // F | V | X, and the key mask's bytes
       const float4* src =
           reinterpret_cast<const float4*>(p.dash + (size_t)item * R * p.MP);
-      const float* vb = p.v + t * p.vs_t + h * p.vs_h;
-      const float* qb = p.q + t * p.qs_t + h * p.qs_h;
-      const float* kb = p.k + t * p.ks_t + h * p.ks_h;
+      const T* vb = qkv<T>(p.v) + t * p.vs_t + h * p.vs_h;
+      const T* qb = qkv<T>(p.q) + t * p.qs_t + h * p.qs_h;
+      const T* kb = qkv<T>(p.k) + t * p.ks_t + h * p.ks_h;
       const int nf = R * M4, e4 = p.e / 4;
       const bool kept = tid < p.Nk && (p.mask == nullptr ||
                                        p.mask[t * p.ms_t + tid * p.ms_n]);
@@ -444,11 +480,11 @@ __global__ void __launch_bounds__(THREADS, 1) favor_kernel(const Params p) {
           [&](int i) {
             if (i < nf) return __ldcg(src + i);
             if (i < nf + nv)
-              return ldg4(vb + (i - nf) / e4 * p.vs_n + (i - nf) % e4 * 4);
+              return ld4(vb + (i - nf) / e4 * p.vs_n + (i - nf) % e4 * 4);
             const int j = i - nf - nv, r = j / (DP / 4), c = j % (DP / 4) * 4;
             if (c >= p.d) return make_float4(0.f, 0.f, 0.f, 0.f);
-            return r < p.Nq ? ldg4(qb + r * p.qs_n + c)
-                            : ldg4(kb + (r - p.Nq) * p.ks_n + c);
+            return r < p.Nq ? ld4(qb + r * p.qs_n + c)
+                            : ld4(kb + (r - p.Nq) * p.ks_n + c);
           },
           [&](int i, float4 x) { F4[i] = x; });
       if (tid < p.Nk) keep[tid] = kept ? 1.f : 0.f;
@@ -467,7 +503,13 @@ __global__ void __launch_bounds__(THREADS, 1) favor_kernel(const Params p) {
     // q' or k' in place (0 in the padded columns)
     for (int r = warp; r < R; r += WARPS) {
       const float x0 = X[r * DP + lane], x1 = X[r * DP + lane + 32];
-      const float diag = warp_sum(fmaf(x1, x1, x0 * x0)) / 2.0f * p.dn2;
+      float diag;
+      if constexpr (kBF)
+        diag = tc::bf16r(
+            tc::bf16r(warp_sum(tc::bf16r(x0 * x0) + tc::bf16r(x1 * x1))) /
+            2.0f * p.dn2);
+      else
+        diag = warp_sum(fmaf(x1, x1, x0 * x0)) / 2.0f * p.dn2;
       float4 x[MAX_MP / 128];
 #pragma unroll
       for (int j = 0; j < MAX_MP / 128; ++j) {
@@ -573,23 +615,30 @@ extern "C" int wmfml_favor_smem_bytes(int Nq, int Nk, int e, int m) {
   return (red_offset(Nq, Nk, e, m_pad(m)) + WARPS) * (int)sizeof(float);
 }
 
-// Co-resident blocks on the current device (queried once per device), or a
-// negative cudaError_t.
+// Co-resident blocks on the current device (queried once per device, the
+// fewer of the two element types' kernels), or a negative cudaError_t.
+template <class T>
+cudaError_t per_sm_blocks(int& per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      favor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, favor_kernel<T>,
+                                                       THREADS, SMEM_BYTES);
+}
+
 extern "C" int wmfml_favor_coresident() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
   if (dev >= MAX_DEVICES) return -(int)cudaErrorInvalidDevice;
   if (coresident[dev] == 0) {
-    err = cudaFuncSetAttribute(
-        favor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return -(int)err;
-    int sms = 0, per_sm = 0;
+    int sms = 0, per_f32 = 0, per_bf16 = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return -(int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, favor_kernel,
-                                                        THREADS, SMEM_BYTES);
-    if (err != cudaSuccess) return -(int)err;
+    if ((err = per_sm_blocks<float>(per_f32)) != cudaSuccess) return -(int)err;
+    if ((err = per_sm_blocks<__nv_bfloat16>(per_bf16)) != cudaSuccess)
+      return -(int)err;
+    const int per_sm = per_f32 < per_bf16 ? per_f32 : per_bf16;
     if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
     coresident[dev] = per_sm * sms;
   }
@@ -597,7 +646,9 @@ extern "C" int wmfml_favor_coresident() {
 }
 
 // q [T,H,Nq,d], k [T,H,Nk,d], v [T,H,Nk,e] at element strides (t, h, n),
-// each a multiple of 4, unit stride along the last axis and 16-byte aligned;
+// each a multiple of 4, unit stride along the last axis and aligned to four
+// elements; float32, or bfloat16 with bf16 set (then dn and dn2 the
+// bfloat16-rounded normalizers);
 // proj [m, d] contiguous, 16-byte aligned; d and e multiples of 4, d <= 64;
 // mask [T, Nk] bytes at strides (t, n), or null; scratch
 // [T*H * ((Nq + Nk) * MP + 1)] floats, 16-byte aligned, with MP = m rounded
@@ -605,15 +656,15 @@ extern "C" int wmfml_favor_coresident() {
 // contiguous; stamps null, or [T*H, 9] int64 for the phase clock. One
 // cooperative launch on `stream`. Returns its cudaError_t, or -1 when the
 // shape does not fit the kernel.
-extern "C" int wmfml_favor_fwd(const float* q, const float* k, const float* v,
+extern "C" int wmfml_favor_fwd(const void* q, const void* k, const void* v,
                                const float* proj, const unsigned char* mask,
                                float* scratch, float* out, long long* stamps,
                                long long qs_t, long long qs_h, long long qs_n,
                                long long ks_t, long long ks_h, long long ks_n,
                                long long vs_t, long long vs_h, long long vs_n,
                                long long ms_t, long long ms_n, int T, int H,
-                               int Nq, int Nk, int d, int e, int m, float dn,
-                               float dn2, float ratio, float eps,
+                               int Nq, int Nk, int d, int e, int m, int bf16,
+                               float dn, float dn2, float ratio, float eps,
                                void* stream) {
   if (d < 1 || d > DP || d % 4 || e < 1 || e % 4 || Nq < 1 || Nk < 1 ||
       m < 1 || m_pad(m) > MAX_MP ||
@@ -639,7 +690,9 @@ extern "C" int wmfml_favor_fwd(const float* q, const float* k, const float* v,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, favor_kernel, p);
+  const cudaError_t err =
+      bf16 ? cudaLaunchKernelEx(&cfg, favor_kernel<__nv_bfloat16>, p)
+           : cudaLaunchKernelEx(&cfg, favor_kernel<float>, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

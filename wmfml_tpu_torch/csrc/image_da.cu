@@ -4,7 +4,7 @@
 // uniforms and two key words per image, one op order for the call), it
 // computes x / 255, then ShapeNet1D's CropAndPad, Affine and OneOf(Dropout,
 // CoarseDropout), each under Sometimes(0.5), in the drawn order, and writes
-// [B, H, W, 1] float32.
+// [B, H, W, 1] float32, or bfloat16 for compute_dtype: bfloat16.
 //
 // Replaces wmfml_tpu/aug/pipeline.py:_to_float (:34) and image_aug.py's
 // _warp_chain (:120), _fmix32 .. one_of_dropout (:277-375) and the
@@ -56,11 +56,19 @@
 //     conflict on every tap), and taps through the quotient table conflict
 //     at random; a division a pixel after the taps costs more than the
 //     table.
+// bfloat16 output: the JAX package rounds an image to its dtype where an op
+// returns img.dtype: x / 255 (pipeline.py:34, the float32 quotient rounded)
+// and the end of each run of adjacent warps (_warp_chain, :151); its masks
+// multiply by 0 or 1, exactly. The kernel keeps f in float32 and rounds at
+// those points: the quotient table holds the rounded quotients, chain A
+// rounds as it writes f, and the output store rounds. Where a mask follows a
+// chain, rounding then masking equals masking then rounding.
 // Shared memory: the image (H W bytes), f (4 H W), the tables; 105.7 KB at
 // 128 x 128, so two blocks fit an SM and 150 images run in one wave on 132
 // SMs (18 of them hold two). No atomics, nothing allocated: two calls give
 // the same bits.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -121,10 +129,11 @@ struct Args {
   const float* u;            // [B, 19]
   const int* keys;           // [B, 2]
   const long long* order;    // [1]
-  float* out;                // [B, H, W]
+  void* out;                 // [B, H, W] float32, or bfloat16 when bf16
   float* params_out;         // [B, 19] or null
   long long* stamps;         // [B, STAMPS] or null
   int H, W;
+  int bf16;                  // the output type: 0 float32, 1 bfloat16
 };
 
 __device__ inline void stamp(const Args& a, int j) {
@@ -205,6 +214,29 @@ struct SrcF32 {
   __device__ __forceinline__ float operator()(int i) const { return f[i]; }
 };
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Where a pass writes its pixels: float32 as it is, float32 rounded to
+// bfloat16 (chain A into f, bfloat16 output), or bfloat16
+struct OutF32 {
+  float* p;
+  __device__ __forceinline__ void operator()(int i, float v) const { p[i] = v; }
+};
+struct OutRounded {
+  float* p;
+  __device__ __forceinline__ void operator()(int i, float v) const {
+    p[i] = bf16_round(v);
+  }
+};
+struct OutBF16 {
+  __nv_bfloat16* p;
+  __device__ __forceinline__ void operator()(int i, float v) const {
+    p[i] = __float2bfloat16_rn(v);
+  }
+};
+
 struct Chain {
   const Axis* tab;           // [H] rows, then [W] columns
   float c0, c1;
@@ -215,8 +247,8 @@ struct Chain {
 // warp walks rows; lane l owns columns l, l + 32, l + 64, l + 96, so the
 // lanes of one tap read neighbouring words (no bank conflict) and each
 // store of a warp writes 128 contiguous bytes.
-template <int NT, class Src>
-__device__ void run_chain(const Chain& ch, int H, int W, Src src, float* dst,
+template <int NT, class Src, class Dst>
+__device__ void run_chain(const Chain& ch, int H, int W, Src src, Dst dst,
                           const Mask& mask, bool apply_mask) {
   const int lane = threadIdx.x & 31;
   const Axis* rows = ch.tab;
@@ -256,14 +288,14 @@ __device__ void run_chain(const Chain& ch, int H, int W, Src src, float* dst,
       float v = __fadd_rn(acc[k], da::chain_fill(ay.r, ay.p, cr[k], cp[k],
                                                  ch.c0, ch.c1, ch.two));
       if (apply_mask) v = __fmul_rn(v, keep(mask, y, x) ? 1.f : 0.f);
-      dst[y * W + x] = v;
+      dst(y * W + x, v);
     }
   }
 }
 
-template <class Src>
+template <class Src, class Dst>
 __device__ void run_any(int nt, const Chain& ch, int H, int W, Src src,
-                        float* dst, const Mask& mask, bool apply_mask) {
+                        Dst dst, const Mask& mask, bool apply_mask) {
   if (nt == 1)
     run_chain<1>(ch, H, W, src, dst, mask, apply_mask);
   else if (nt == 2)
@@ -294,6 +326,34 @@ __device__ void to_float(const uint8_t* img, const float* lut, float* f,
 
 __device__ inline int chain_taps(const float* s0, const float* s1) {
   return da::stage_taps(s0) * (s1 ? da::stage_taps(s1) : 1);
+}
+
+// The order's shape over f (the header's three cases); Mid writes chain A
+// into f, Out the output
+template <class Out, class Mid>
+__device__ void run_order(const Args& a, const int (&n)[2],
+                          const int (&nt)[2], const Chain& A, const Chain& B,
+                          const uint8_t* src8, const float* lut, float* fbuf,
+                          const Mask& mask, Out out, Mid mid) {
+  const int H = a.H, W = a.W;
+  const SrcU8 x8{src8, lut};
+  const SrcF32 xf{fbuf};
+  if (n[1] == 0) {                      // A, then the mask
+    to_float(src8, lut, fbuf, H, W, mask, false);
+    __syncthreads();
+    stamp(a, 3);
+    run_any(nt[0], A, H, W, xf, out, mask, true);
+  } else if (n[0] == 0) {               // the mask, then B
+    to_float(src8, lut, fbuf, H, W, mask, mask.on);
+    __syncthreads();
+    stamp(a, 3);
+    run_any(nt[1], B, H, W, xf, out, mask, false);
+  } else {                              // A, the mask, B
+    run_any(nt[0], A, H, W, x8, mid, mask, true);
+    __syncthreads();
+    stamp(a, 3);
+    run_any(nt[1], B, H, W, xf, out, mask, false);
+  }
 }
 
 __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
@@ -347,7 +407,10 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
   }
   const int nt[2] = {n[0] ? chain_taps(st[0][0], st[0][1]) : 0,
                      n[1] ? chain_taps(st[1][0], st[1][1]) : 0};
-  for (int i = tid; i < 256; i += THREADS) lut[i] = __fdiv_rn((float)i, 255.f);
+  for (int i = tid; i < 256; i += THREADS) {
+    const float q = __fdiv_rn((float)i, 255.f);
+    lut[i] = a.bf16 ? bf16_round(q) : q;
+  }
   for (int e = tid; e < 2 * (H + W); e += THREADS) {
     const int c = e >= H + W;
     const int i = e - c * (H + W);
@@ -390,29 +453,18 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
   tc::bar_wait(bar, 0);
   stamp(a, 2);
 
-  float* out = a.out + (size_t)b * HW;
-  const SrcU8 x8{src8, lut};
   const Chain A{tab, n[0] ? st[0][0][4] : 0.f,
                 n[0] == 2 ? st[0][1][4] : 0.f, n[0] == 2};
   const Chain B{tab + H + W, n[1] ? st[1][0][4] : 0.f,
                 n[1] == 2 ? st[1][1][4] : 0.f, n[1] == 2};
-  const SrcF32 xf{fbuf};
-  if (n[1] == 0) {                      // A, then the mask
-    to_float(src8, lut, fbuf, H, W, mask, false);
-    __syncthreads();
-    stamp(a, 3);
-    run_any(nt[0], A, H, W, xf, out, mask, true);
-  } else if (n[0] == 0) {               // the mask, then B
-    to_float(src8, lut, fbuf, H, W, mask, mask.on);
-    __syncthreads();
-    stamp(a, 3);
-    run_any(nt[1], B, H, W, xf, out, mask, false);
-  } else {                              // A, the mask, B
-    run_any(nt[0], A, H, W, x8, fbuf, mask, true);
-    __syncthreads();
-    stamp(a, 3);
-    run_any(nt[1], B, H, W, xf, out, mask, false);
-  }
+  if (a.bf16)
+    run_order(a, n, nt, A, B, src8, lut, fbuf, mask,
+              OutBF16{static_cast<__nv_bfloat16*>(a.out) + (size_t)b * HW},
+              OutRounded{fbuf});
+  else
+    run_order(a, n, nt, A, B, src8, lut, fbuf, mask,
+              OutF32{static_cast<float*>(a.out) + (size_t)b * HW},
+              OutF32{fbuf});
   if (a.stamps != nullptr) {
     __syncthreads();
     stamp(a, 4);
@@ -431,7 +483,8 @@ extern "C" int wmfml_image_da_smem_bytes(int H, int W) {
 // x: uint8 images, image (t, s) at x + t st + s ss (bytes), each H x W x 1
 // contiguous and 16-byte aligned, B = T S of them with S per task; u [B,
 // 19] f32 (column 12 in [0, 1)), keys [B, 2] i32, order [1] i64 (read
-// modulo 6), out [B, H, W] f32, all contiguous on the current device;
+// modulo 6), out [B, H, W] f32 (bf16 = 0) or bf16 (bf16 = 1), all
+// contiguous on the current device;
 // params_out null or [B, 19] f32 (the parameters the kernel computed:
 // warp [2, 7], then drop [5]); stamps null or [B, 5] i64 (the phase
 // clock). W a multiple of 4 and at most 128, H W a multiple of 16, the
@@ -440,8 +493,8 @@ extern "C" int wmfml_image_da_smem_bytes(int H, int W) {
 extern "C" int wmfml_image_da_fwd(const unsigned char* x, long long st,
                                   long long ss, int S, int B, const float* u,
                                   const int* keys, const long long* order,
-                                  float* out, float* params_out,
-                                  long long* stamps, int H, int W,
+                                  void* out, float* params_out,
+                                  long long* stamps, int H, int W, int bf16,
                                   void* stream) {
   if (B < 1 || S < 1 || H < 1 || W < 4 || W % 4 || W > 32 * COLS ||
       (H * W) % 16)
@@ -458,7 +511,8 @@ extern "C" int wmfml_image_da_fwd(const unsigned char* x, long long st,
     if (err != cudaSuccess) return (int)err;
     configured_smem[dev] = smem;
   }
-  const Args a{x, st, ss, S, u, keys, order, out, params_out, stamps, H, W};
+  const Args a{x,   st,         ss,     S, u, keys, order,
+               out, params_out, stamps, H, W, bf16 != 0};
   image_da_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

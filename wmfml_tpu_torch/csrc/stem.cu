@@ -11,9 +11,9 @@
 //
 // Bound: at B=300, H=W=128 the stem does 9.2 GFLOP (conv1 8.5, conv0 0.7)
 // and must move only ~34 MB (input + output + weights). conv1 runs in
-// 3xTF32 on the tensor cores (3 x 8.5 GFLOP at 495 TFLOP/s) and conv0 in
-// f32 on the CUDA cores (0.7 GFLOP at 67 TFLOP/s): 0.062 ms, bound by
-// operations, not by bytes.
+// 3xTF32 on the tensor cores (3 x 8.5 GFLOP at 495 TFLOP/s, 0.051 ms) and
+// conv0 in f32 on the CUDA cores (0.7 GFLOP at 67 TFLOP/s, 0.011 ms), the
+// two side by side: 0.051 ms, bound by operations, not by bytes.
 //
 // Design: a tile is one image's 4x4 pool outputs = 8x8 conv1 outputs =
 // exactly the 64 rows of one wgmma. A persistent grid, sized from the
@@ -43,9 +43,30 @@
 // 1,472 B + 2 x (patch 46,656 B + input double buffer 9,800 B) = 224,976 B
 // of the 232,448 a block may have; one block of 256 threads per SM. A wider
 // input that does not fit two warpgroups runs one.
+//
+// bfloat16 (compute_dtype: bfloat16; stem_fwd_kernel<__nv_bfloat16>): x,
+// the weights and the output are bfloat16, and the rounding is the JAX
+// stem's (encoders.py:266-314 in bf16): each conv sums in float32 and
+// rounds to bfloat16, its bias add rounds again, ReLU, and the pool takes
+// the rounded values. conv0 runs on the CUDA cores as above, from the
+// bfloat16 input (converted exactly to float32 as a tile's window is
+// staged, a plain load a value: cp.async moves 4 bytes at least) and writes
+// the patch in bfloat16 (stride 40 values = 20 words, so a warp's
+// A-fragment loads still hit 32 banks). conv1 is wgmma m64n48k16 .bf16: 18
+// k-steps of one product each, A packed from the patch two values a
+// register, B the task's weights as they are (27,648 B in wgmma B order; no
+// split). The epilogue pools the float32 sums, rounds, adds the bias and
+// rounds (both roundings are monotone, so pooling first gives the pool of
+// the rounded values), ReLU, and stores two channels a word. One kernel
+// body serves both types; the element type picks the helpers that differ.
+// Its bound at B=300: both convs' 9.2 GFLOP are bfloat16 products summed in
+// float32, which the tensor cores do at 989 TFLOP/s (the kernel runs conv0,
+// one input channel, on the CUDA cores all the same): 0.0093 ms, against
+// ~17 MB moved (0.005 ms): operations.
 
 #include <cuda_runtime.h>
 
+#include "bf16_gmma.cuh"
 #include "tf32_gmma.cuh"
 
 namespace {
@@ -66,6 +87,17 @@ constexpr int MAX_SMEM = 232448;
 __host__ __device__ inline int smem_floats(int ci, int wgs) {
   // w1 big | small | w0 | b0 | b1 | patch per warpgroup | 2 inputs per wg
   return 2 * W1 + ci * 9 * C0 + C0 + C1 + wgs * (PATCH + 2 * ci * TX * TX);
+}
+
+// bfloat16 path: patch stride (values) and shared memory (bytes): w1 | w0,
+// b0, b1 as floats | per warpgroup a bfloat16 patch and one float input
+constexpr int PSB = C0 + 8;
+constexpr int PATCH_B = 4 * PH * PH * PSB;
+__host__ __device__ inline int wg_bytes_bf16(int ci) {   // 16-byte aligned
+  return (2 * PATCH_B + 4 * ci * TX * TX + 15) & ~15;
+}
+__host__ __device__ inline int smem_bytes_bf16(int ci, int wgs) {
+  return 2 * W1 + 4 * (ci * 9 * C0 + C0 + C1) + wgs * wg_bytes_bf16(ci);
 }
 
 // Where element j of a task's conv1 weights (torch OIHW, [48][32][3][3])
@@ -99,23 +131,154 @@ __global__ void pack_kernel(const float* __restrict__ w1,
              threadIdx.x, blockDim.x);
 }
 
-// kOne: one input channel, and each thread keeps the conv0 weights of its
-// 8 channels in registers for the whole run
-template <bool kOne>
+// The bfloat16 layout: k-steps of 16, element (n, k) of the [48][288]
+// operand at (((k / 16) * 6 + n / 8) * 2 + (k / 8) % 2) * 64 + (n % 8) * 8 +
+// k % 8
+__device__ inline int conv1_b_index_bf16(int j) {
+  const int n = j / K1, c = j % K1 / 9, tap = j % 9;
+  const int k = tap * C0 + c;
+  return (((k >> 4) * (C1 / 8) + (n >> 3)) * 2 + ((k >> 3) & 1)) * 64 +
+         (n & 7) * 8 + (k & 7);
+}
+
+__device__ inline void pack_conv1_bf16(const __nv_bfloat16* __restrict__ w1t,
+                                       __nv_bfloat16* dst, int j0,
+                                       int stride) {
+#pragma unroll 4
+  for (int j = j0; j < W1; j += stride) dst[conv1_b_index_bf16(j)] = w1t[j];
+}
+
+__global__ void pack_bf16_kernel(const __nv_bfloat16* __restrict__ w1,
+                                 __nv_bfloat16* __restrict__ dst) {
+  pack_conv1_bf16(w1 + (size_t)blockIdx.x * W1,
+                  dst + (size_t)blockIdx.x * W1, threadIdx.x, blockDim.x);
+}
+
+// shared memory bytes of the kernel for T: float (smem_floats) or bfloat16
+template <class T>
+__host__ __device__ inline int stem_smem_bytes(int ci, int wgs) {
+  return sizeof(T) == 4 ? smem_floats(ci, wgs) * 4 : smem_bytes_bf16(ci, wgs);
+}
+
+// conv0's output at one position and channel: the float32 sum (the bias
+// already in it) through ReLU; bfloat16: the sum rounded, the bias add
+// rounded, ReLU
+__device__ inline float conv0_out(float a, float, float) {
+  return fmaxf(a, 0.f);
+}
+__device__ inline float conv0_out(float a, float b, __nv_bfloat16) {
+  return fmaxf(tc::bf16r(tc::bf16r(a) + b), 0.f);
+}
+
+// eight channels of a conv0 position into the patch
+__device__ inline void store_patch8(float* p, const float (&a)[8]) {
+  float4* dst = reinterpret_cast<float4*>(p);
+  dst[0] = make_float4(a[0], a[1], a[2], a[3]);
+  dst[1] = make_float4(a[4], a[5], a[6], a[7]);
+}
+__device__ inline void store_patch8(__nv_bfloat16* p, const float (&a)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(tc::pack_bf16(a[0], a[1]), tc::pack_bf16(a[2], a[3]),
+                 tc::pack_bf16(a[4], a[5]), tc::pack_bf16(a[6], a[7]));
+}
+
+// One tap of conv1 into acc, the rows' A read from the patch at pa (row r)
+// and pa + one phase-plane row (r + 8). 3xTF32: four k8 steps, A split
+// big/small as it is loaded, small*big, big*small, big*big each.
+__device__ inline void conv1_tap(float (&acc)[24], const float* pa,
+                                 const float* w1s, int tap, int tq) {
+  pa += tq;
+  const float* pb = pa + PH * PS;
+  uint32_t ab[4][4], as[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    tc::split(pa[8 * s], ab[s][0], as[s][0]);
+    tc::split(pb[8 * s], ab[s][1], as[s][1]);
+    tc::split(pa[8 * s + 4], ab[s][2], as[s][2]);
+    tc::split(pb[8 * s + 4], ab[s][3], as[s][3]);
+  }
+  tc::fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const float* wstep = w1s + (tap * 4 + s) * (C1 * 8);
+    const uint64_t big = tc::desc_b(wstep, 128, 256);
+    const uint64_t small = tc::desc_b(wstep + W1, 128, 256);
+    tc::mma_n48(acc, as[s][0], as[s][1], as[s][2], as[s][3], big);
+    tc::mma_n48(acc, ab[s][0], ab[s][1], ab[s][2], ab[s][3], small);
+    tc::mma_n48(acc, ab[s][0], ab[s][1], ab[s][2], ab[s][3], big);
+  }
+  tc::commit();
+  tc::wait<1>();
+}
+
+// bfloat16: two k16 steps of one product, word 8 s + t (+ 4) of the row's
+// 20
+__device__ inline void conv1_tap(float (&acc)[24], const __nv_bfloat16* p,
+                                 const __nv_bfloat16* w1s, int tap, int tq) {
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(p) + tq;
+  const uint32_t* pb = pa + PH * PSB / 2;
+  uint32_t a[2][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    a[s][0] = pa[8 * s];
+    a[s][1] = pb[8 * s];
+    a[s][2] = pa[8 * s + 4];
+    a[s][3] = pb[8 * s + 4];
+  }
+  tc::fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    tc::mma_bf16_n48(acc, a[s][0], a[s][1], a[s][2], a[s][3],
+                     tc::desc_b(w1s + (tap * 2 + s) * (C1 * 16), 128, 256));
+  tc::commit();
+  tc::wait<1>();
+}
+
+// a pooled float32 sum plus the bias, through ReLU; bfloat16: the pooled
+// sum rounded, the bias add rounded (both roundings are monotone, so this
+// is the pool of the rounded values), ReLU
+__device__ inline float conv1_out(float m, float b, float) {
+  return fmaxf(m + b, 0.f);
+}
+__device__ inline float conv1_out(float m, float b, __nv_bfloat16) {
+  return fmaxf(tc::bf16r(tc::bf16r(m) + b), 0.f);
+}
+
+// The stem for T = float (3xTF32) or __nv_bfloat16. kOne: one input
+// channel, and each thread keeps the conv0 weights of its 8 channels in
+// registers for the whole run. In float32 the next tile's input window
+// arrives by cp.async into the second of two buffers while this tile
+// computes; in bfloat16 each warpgroup stages its tile's window itself,
+// converted to float32 (cp.async moves 4 bytes at least).
+template <class T, bool kOne>
 __global__ void __launch_bounds__(256, 1)
-stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
-                const float* __restrict__ b0, const float* __restrict__ w1,
-                const float* __restrict__ b1, float* __restrict__ out,
-                int H, int W, int Ci, int n_per_task, int blocks_per_task) {
-  extern __shared__ __align__(128) float smem[];
+stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0,
+                const T* __restrict__ b0, const T* __restrict__ w1,
+                const T* __restrict__ b1, T* __restrict__ out, int H, int W,
+                int Ci, int n_per_task, int blocks_per_task) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int PST = kF32 ? PS : PSB;     // patch position stride
+  extern __shared__ __align__(128) unsigned char smem[];
   const int wgs = blockDim.x / 128;
-  float* w1s = smem;                    // [2][36 k-steps][48 x 8], B order
-  float* w0s = w1s + 2 * W1;            // [Ci * 9][C0]
+  // w1 in B order (float32: big | small) | w0 [Ci * 9][C0], b0, b1 as
+  // floats | float32: every warpgroup's patch, then its two input buffers;
+  // bfloat16: per warpgroup its patch and one input buffer
+  T* w1s = reinterpret_cast<T*>(smem);
+  float* w0s = reinterpret_cast<float*>(smem + (kF32 ? 2 : 1) * W1 * sizeof(T));
   float* b0s = w0s + Ci * 9 * C0;
   float* b1s = b0s + C0;
   const int tid = threadIdx.x, wg = tid >> 7, lt = tid & 127;
-  float* patch = b1s + C1 + wg * PATCH; // [4][PH][PH][PS]
-  float* xbuf = b1s + C1 + wgs * PATCH + wg * 2 * Ci * TX * TX;
+  T* patch;                              // [4][PH][PH][PST]
+  float* xbuf;
+  if constexpr (kF32) {
+    patch = b1s + C1 + wg * PATCH;
+    xbuf = b1s + C1 + wgs * PATCH + wg * 2 * Ci * TX * TX;
+  } else {
+    unsigned char* wgbase =
+        reinterpret_cast<unsigned char*>(b1s + C1) + wg * wg_bytes_bf16(Ci);
+    patch = reinterpret_cast<T*>(wgbase);
+    xbuf = reinterpret_cast<float*>(wgbase + 2 * PATCH_B);
+  }
 
   const int Ho = H / 8, Wo = W / 8, H0 = H / 2, W0 = W / 2;
   const int tiles_y = (Ho + TP - 1) / TP, tiles_x = (Wo + TP - 1) / TP;
@@ -126,15 +289,18 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   const long long first = task_tiles * chunk / blocks_per_task;
   const long long last = task_tiles * (chunk + 1) / blocks_per_task;
 
-  // the task's weights, once: conv1 split into wgmma B order, conv0 as
-  // [ci][kh][kw][c]
+  // the task's weights, once: conv1 into wgmma B order (float32: split),
+  // conv0 as [ci][kh][kw][c]
   {
-    pack_conv1(w1 + (size_t)task * W1, w1s, tid, blockDim.x);
-    const float* w0t = w0 + (size_t)task * C0 * Ci * 9;
+    if constexpr (kF32)
+      pack_conv1(w1 + (size_t)task * W1, w1s, tid, blockDim.x);
+    else
+      pack_conv1_bf16(w1 + (size_t)task * W1, w1s, tid, blockDim.x);
+    const T* w0t = w0 + (size_t)task * C0 * Ci * 9;
     for (int i = tid; i < Ci * 9 * C0; i += blockDim.x)
-      w0s[i] = w0t[(i % C0) * Ci * 9 + i / C0];
-    if (tid < C0) b0s[tid] = b0[task * C0 + tid];
-    if (tid < C1) b1s[tid] = b1[task * C1 + tid];
+      w0s[i] = tc::to_float(w0t[(i % C0) * Ci * 9 + i / C0]);
+    if (tid < C0) b0s[tid] = tc::to_float(b0[task * C0 + tid]);
+    if (tid < C1) b1s[tid] = tc::to_float(b1[task * C1 + tid]);
     tc::fence_async_smem();
     __syncthreads();
   }
@@ -145,8 +311,9 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
     ty = rem / tiles_x;
     tx = rem % tiles_x;
   };
-  // cp.async of a tile's input window into buf, zeros outside the image
-  auto prefetch = [&](long long tile, float* buf) {
+  // a tile's input window into buf, zeros outside the image: float32 by
+  // cp.async, bfloat16 by plain loads, converted
+  auto window = [&](long long tile, float* buf) {
     int b, ty, tx;
     origin(tile, b, ty, tx);
     // first input row / col: 2 * (first conv0 row) - 1
@@ -155,8 +322,13 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
       const int c = i / (TX * TX), p = i % (TX * TX);
       const int gy = rx + p / TX, gx = sx + p % TX;
       const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      tc::cp_async4(buf + i,
-                    in ? x + ((size_t)(b * H + gy) * W + gx) * Ci + c : x, in);
+      if constexpr (kF32)
+        tc::cp_async4(buf + i,
+                      in ? x + ((size_t)(b * H + gy) * W + gx) * Ci + c : x,
+                      in);
+      else
+        buf[i] = in ? tc::to_float(x[((size_t)(b * H + gy) * W + gx) * Ci + c])
+                    : 0.f;
     }
   };
 
@@ -169,22 +341,34 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   }
 
   long long tile = first + wg;
-  if (tile < last) prefetch(tile, xbuf);
-  tc::cp_async_commit();
-  for (int i = 0; tile < last; ++i, tile += wgs) {
-    if (tile + wgs < last) prefetch(tile + wgs, xbuf + ((i + 1) & 1) * Ci * TX * TX);
+  if constexpr (kF32) {
+    if (tile < last) window(tile, xbuf);
     tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    // this tile's input has landed; the previous tile's patch reads are done
-    tc::named_sync(bar_id, 128);
+  }
+  for (int i = 0; tile < last; ++i, tile += wgs) {
+    if constexpr (kF32) {
+      if (tile + wgs < last)
+        window(tile + wgs, xbuf + ((i + 1) & 1) * Ci * TX * TX);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+      // this tile's input has landed; the previous tile's patch reads are
+      // done
+      tc::named_sync(bar_id, 128);
+    } else {
+      // the previous tile's reads of the window and the patch are done
+      tc::named_sync(bar_id, 128);
+      window(tile, xbuf);
+      tc::named_sync(bar_id, 128);
+    }
 
     int b, ty, tx;
     origin(tile, b, ty, tx);
-    const float* xs = xbuf + (i & 1) * Ci * TX * TX;
+    const float* xs = xbuf + (kF32 ? (i & 1) * Ci * TX * TX : 0);
     const int r0 = 2 * ty * T1 - 1, s0 = 2 * tx * T1 - 1;   // first conv0 row / col
 
     // conv0 + bias + ReLU over the 17x17 patch: item (position, group of 8
-    // channels); the group is this thread's for every item (128 % 4 == 0)
+    // channels); the group is this thread's for every item (128 % 4 == 0).
+    // float32 starts the sum at the bias, bfloat16 adds it after rounding
     for (int item = lt; item < T0 * T0 * 4; item += 128) {
       const int pos = item >> 2;
       const int ly = pos / T0, lx = pos % T0;
@@ -192,7 +376,7 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
       float a[8];
       if (gy >= 0 && gy < H0 && gx >= 0 && gx < W0) {
 #pragma unroll
-        for (int c = 0; c < 8; ++c) a[c] = b0s[8 * cg + c];
+        for (int c = 0; c < 8; ++c) a[c] = kF32 ? b0s[8 * cg + c] : 0.f;
         for (int ci = 0; ci < (kOne ? 1 : Ci); ++ci) {
           const float* xp = xs + (ci * TX + 2 * ly) * TX + 2 * lx;
 #pragma unroll
@@ -208,16 +392,13 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
           }
         }
 #pragma unroll
-        for (int c = 0; c < 8; ++c) a[c] = fmaxf(a[c], 0.f);
+        for (int c = 0; c < 8; ++c) a[c] = conv0_out(a[c], b0s[8 * cg + c], T());
       } else {
 #pragma unroll
         for (int c = 0; c < 8; ++c) a[c] = 0.f;   // conv1's zero padding
       }
-      float4* dst = reinterpret_cast<float4*>(
-          patch + (((ly & 1) * 2 + (lx & 1)) * PH * PH + (ly >> 1) * PH + (lx >> 1)) * PS +
-          8 * cg);
-      dst[0] = make_float4(a[0], a[1], a[2], a[3]);
-      dst[1] = make_float4(a[4], a[5], a[6], a[7]);
+      store_patch8(patch + (((ly & 1) * 2 + (lx & 1)) * PH * PH + (ly >> 1) * PH +
+                            (lx >> 1)) * PST + 8 * cg, a);
     }
     tc::named_sync(bar_id, 128);
 
@@ -230,29 +411,9 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int kh = tap / 3, kw = tap % 3;
-      const float* pa = patch + (((kh & 1) * 2 + (kw & 1)) * PH * PH +
-                                 (2 * warp + (kh >> 1)) * PH + g + (kw >> 1)) * PS + tq;
-      const float* pb = pa + PH * PS;
-      uint32_t ab[4][4], as[4][4];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        tc::split(pa[8 * s], ab[s][0], as[s][0]);
-        tc::split(pb[8 * s], ab[s][1], as[s][1]);
-        tc::split(pa[8 * s + 4], ab[s][2], as[s][2]);
-        tc::split(pb[8 * s + 4], ab[s][3], as[s][3]);
-      }
-      tc::fence();
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const float* wstep = w1s + (tap * 4 + s) * (C1 * 8);
-        const uint64_t big = tc::desc_b(wstep, 128, 256);
-        const uint64_t small = tc::desc_b(wstep + W1, 128, 256);
-        tc::mma_n48(acc, as[s][0], as[s][1], as[s][2], as[s][3], big);
-        tc::mma_n48(acc, ab[s][0], ab[s][1], ab[s][2], ab[s][3], small);
-        tc::mma_n48(acc, ab[s][0], ab[s][1], ab[s][2], ab[s][3], big);
-      }
-      tc::commit();
-      tc::wait<1>();
+      conv1_tap(acc, patch + (((kh & 1) * 2 + (kw & 1)) * PH * PH +
+                              (2 * warp + (kh >> 1)) * PH + g + (kw >> 1)) * PST,
+                w1s, tap, tq);
     }
     tc::wait<0>();
     tc::pin(acc);
@@ -261,50 +422,56 @@ stem_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
     // in lanes l, l ^ 4
     const int oy = ty * TP + warp, ox = tx * TP + (g >> 1);
     const bool store = (g & 1) == 0 && oy < Ho && ox < Wo;
-    float* o = out + ((size_t)(b * Ho + oy) * Wo + ox) * C1 + 2 * tq;
+    T* o = out + ((size_t)(b * Ho + oy) * Wo + ox) * C1 + 2 * tq;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
       float m[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float v = fmaxf(acc[4 * j + e], acc[4 * j + 2 + e]);
-        m[e] = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        m[e] = conv1_out(fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4)),
+                         b1s[8 * j + 2 * tq + e], T());
       }
-      if (store)
-        *reinterpret_cast<float2*>(o + 8 * j) =
-            make_float2(fmaxf(m[0] + b1s[8 * j + 2 * tq], 0.f),
-                        fmaxf(m[1] + b1s[8 * j + 2 * tq + 1], 0.f));
+      if (store) tc::store2(o + 8 * j, m[0], m[1]);
     }
   }
-  tc::cp_async_wait<0>();
+  if constexpr (kF32) tc::cp_async_wait<0>();
 }
 
 }  // namespace
 
 extern "C" int wmfml_stem_smem_bytes(int ci, int wgs) {
-  return smem_floats(ci, wgs) * (int)sizeof(float);
+  return stem_smem_bytes<float>(ci, wgs);
 }
 
-// The conv1 packing alone (for tests): w1 [T,48,32,3,3] -> dst [T,2,48*288],
-// big | small in wgmma B order.
-extern "C" int wmfml_stem_pack(const float* w1, float* dst, int T,
+extern "C" int wmfml_stem_smem_bytes_bf16(int ci, int wgs) {
+  return stem_smem_bytes<__nv_bfloat16>(ci, wgs);
+}
+
+// The conv1 packing alone (for tests): w1 [T,48,32,3,3] -> dst [T,2,48*288]
+// f32, big | small in wgmma B order, or (bf16) [T,1,48*288] bf16 in its
+// wgmma B order.
+extern "C" int wmfml_stem_pack(const void* w1, void* dst, int T, int bf16,
                                void* stream) {
-  pack_kernel<<<T, 256, 0, (cudaStream_t)stream>>>(w1, dst);
+  if (bf16)
+    pack_bf16_kernel<<<T, 256, 0, (cudaStream_t)stream>>>(
+        static_cast<const __nv_bfloat16*>(w1), static_cast<__nv_bfloat16*>(dst));
+  else
+    pack_kernel<<<T, 256, 0, (cudaStream_t)stream>>>(
+        static_cast<const float*>(w1), static_cast<float*>(dst));
   return (int)cudaGetLastError();
 }
 
 // x [B,H,W,Ci]; with T = B / n_per_task tasks: w0 [T,32,Ci,3,3]; b0 [T,32];
 // w1 [T,48,32,3,3]; b1 [T,48] (torch OIHW; T = 1, n_per_task = B for
-// weights shared by the batch); out [B,H/8,W/8,48]. All contiguous f32 on
-// the device. Returns the cudaError_t of the launch.
-extern "C" int wmfml_stem_fwd(const float* x, const float* w0, const float* b0,
-                              const float* w1, const float* b1, float* out,
-                              int B, int H, int W, int Ci, int n_per_task,
-                              void* stream) {
-  const int wgs = wmfml_stem_smem_bytes(Ci, 2) <= MAX_SMEM ? 2 : 1;
-  const int smem = wmfml_stem_smem_bytes(Ci, wgs);
+// weights shared by the batch); out [B,H/8,W/8,48]. All contiguous on the
+// device, f32, or bf16 when bf16 is set. Returns the cudaError_t of the
+// launch.
+template <class T, class Kernel>
+int launch_stem(Kernel kernel, int smem, int wgs, const T* x, const T* w0,
+                const T* b0, const T* w1, const T* b1, T* out, int B, int H,
+                int W, int Ci, int n_per_task, cudaStream_t stream) {
   const int threads = 128 * wgs;
-  const auto kernel = Ci == 1 ? stem_fwd_kernel<true> : stem_fwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -320,7 +487,31 @@ extern "C" int wmfml_stem_fwd(const float* x, const float* w0, const float* b0,
   const int tiles = n_per_task * ((H / 8 + TP - 1) / TP) * ((W / 8 + TP - 1) / TP);
   int bpt = per_sm * sms / tasks;
   bpt = bpt < 1 ? 1 : (bpt > tiles ? tiles : bpt);
-  kernel<<<tasks * bpt, threads, smem, (cudaStream_t)stream>>>(
-      x, w0, b0, w1, b1, out, H, W, Ci, n_per_task, bpt);
+  kernel<<<tasks * bpt, threads, smem, stream>>>(x, w0, b0, w1, b1, out, H,
+                                                  W, Ci, n_per_task, bpt);
   return (int)cudaGetLastError();
+}
+
+// launch_stem with the kernel for T and Ci, on two warpgroups where their
+// shared memory fits, else one
+template <class T>
+int run_stem(const void* x, const void* w0, const void* b0, const void* w1,
+             const void* b1, void* out, int B, int H, int W, int Ci,
+             int n_per_task, cudaStream_t s) {
+  const int wgs = stem_smem_bytes<T>(Ci, 2) <= MAX_SMEM ? 2 : 1;
+  return launch_stem(Ci == 1 ? stem_fwd_kernel<T, true> : stem_fwd_kernel<T, false>,
+                     stem_smem_bytes<T>(Ci, wgs), wgs, static_cast<const T*>(x),
+                     static_cast<const T*>(w0), static_cast<const T*>(b0),
+                     static_cast<const T*>(w1), static_cast<const T*>(b1),
+                     static_cast<T*>(out), B, H, W, Ci, n_per_task, s);
+}
+
+extern "C" int wmfml_stem_fwd(const void* x, const void* w0, const void* b0,
+                              const void* w1, const void* b1, void* out,
+                              int B, int H, int W, int Ci, int n_per_task,
+                              int bf16, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) return run_stem<__nv_bfloat16>(x, w0, b0, w1, b1, out, B, H, W,
+                                           Ci, n_per_task, s);
+  return run_stem<float>(x, w0, b0, w1, b1, out, B, H, W, Ci, n_per_task, s);
 }

@@ -11,6 +11,17 @@ takes the plain twin (the JAX math, op for op); a CUDA tensor launches the
 kernel or raises. The JAX package has no custom VJP here, so the backward
 recomputes through the plain twin; gradients flow through both maxima, as
 they do under JAX autodiff (``amax`` splits a tie evenly, like ``jnp.max``).
+
+bfloat16 (``compute_dtype: bfloat16``): q, k, v come in as bfloat16 and the
+core returns float32, as the JAX core does: there a bfloat16 ``data`` meets
+the float32 projection in ``einsum`` and in ``linear_attention`` and
+promotes. Two roundings happen in bfloat16 before that, and the twin and
+the kernel both take them: ``data_normalizer * data`` (the scalar rounded
+to bfloat16 first, as JAX casts a Python scalar) and the diagonal term
+``sum(data**2) / 2 * normalizer**2`` (each square, the sum and the product
+rounded). The kernel reads the bfloat16 rows through their strides (no
+float32 copy); their values are exact in TF32, so dash needs no small part
+for them.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from typing import Optional
 import torch
 
 from wmfml_tpu_torch.kernels import build
+from wmfml_tpu_torch.ops.cast import rounded
 
 EPS = 1e-4
 MAX_D = 64             # widest head the kernel takes (zero-padded to 64)
@@ -28,15 +40,23 @@ MAX_D = 64             # widest head the kernel takes (zero-padded to 64)
 PHASES = ("start", "staged", "dash_done", "phase1_done", "barrier_passed",
           "loaded", "features_done", "a_done", "end")
 STAMPS = len(PHASES)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _normalizers(d: int, dtype):
+    """d^-1/4 and (d^-1/4)^2 as ``dtype`` holds them."""
+    n = d ** -0.25
+    return rounded(n, dtype), rounded(n ** 2, dtype)
 
 
 def softmax_kernel_features(data, projection, is_query: bool, eps=EPS):
-    """Positive random features; data [..., N, d], projection [m, d]."""
-    d = data.shape[-1]
-    data_normalizer = d ** -0.25
+    """Positive random features; data [..., N, d] (float32 or bfloat16),
+    projection [m, d] float32; returns float32 [..., N, m]."""
+    data_normalizer, normalizer_sq = _normalizers(data.shape[-1], data.dtype)
     ratio = projection.shape[0] ** -0.5
-    data_dash = torch.matmul(data_normalizer * data, projection.t())
-    diag_data = (data ** 2).sum(-1, keepdim=True) / 2.0 * data_normalizer ** 2
+    data_dash = torch.matmul((data_normalizer * data).to(projection.dtype),
+                             projection.t())
+    diag_data = (data ** 2).sum(-1, keepdim=True) / 2.0 * normalizer_sq
     if is_query:
         stab = data_dash.amax(-1, keepdim=True)
     else:
@@ -58,7 +78,7 @@ def favor_plain(q, k, v, projection, mask: Optional[torch.Tensor] = None):
     k_prime = softmax_kernel_features(k, projection, is_query=False)
     if mask is not None:
         k_prime = k_prime * mask[:, None, :, None].to(k_prime.dtype)
-    return linear_attention(q_prime, k_prime, v)
+    return linear_attention(q_prime, k_prime, v.to(k_prime.dtype))
 
 
 _fwd = None
@@ -70,7 +90,7 @@ def _kernel():
     if _fwd is None:
         fn = build.load("favor").wmfml_favor_fwd
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 11
-                       + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+                       + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fwd = fn
@@ -78,10 +98,11 @@ def _kernel():
 
 
 def _aligned(a):
-    """``a`` itself where the kernel can read it in float4s (unit last
-    stride, other strides multiples of 4, 16-byte aligned), else a copy."""
+    """``a`` itself where the kernel can read it four elements at a time
+    (unit last stride, other strides multiples of 4, the first element
+    aligned to four), else a copy."""
     if (a.stride(-1) == 1 and all(s % 4 == 0 for s in a.stride()[:-1])
-            and a.data_ptr() % 16 == 0):
+            and a.data_ptr() % (4 * a.element_size()) == 0):
         return a
     return a.clone(memory_format=torch.contiguous_format)
 
@@ -94,9 +115,11 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     clock: block b writes the global timer (ns) to row b at the points
     ``PHASES`` names (those after the grid barrier at its last item); rows
     past the grid are left as they are."""
-    if any(not t.is_cuda or t.dtype != torch.float32
-           for t in (q, k, v, projection)):
-        raise TypeError("FAVOR kernel takes float32 CUDA tensors only")
+    if (any(not t.is_cuda for t in (q, k, v, projection))
+            or q.dtype not in DTYPES or k.dtype != q.dtype
+            or v.dtype != q.dtype or projection.dtype != torch.float32):
+        raise TypeError("FAVOR kernel takes CUDA tensors: q, k, v all float32 "
+                        "or all bfloat16, the projection float32")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("FAVOR kernel takes q, k, v as [T, H, N, d]")
     t, h, nq, d = q.shape
@@ -132,12 +155,15 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     out = torch.empty((t, h, nq, e), device=q.device, dtype=torch.float32)
     mask_args = ((0, 0, 0) if mask is None
                  else (mask.data_ptr(), *mask.stride()))
+    bf16 = q.dtype == torch.bfloat16
+    # bfloat16: the kernel scales by the rounded normalizers and rounds
+    dn, dn2 = _normalizers(d, q.dtype) if bf16 else (d ** -0.25, d ** -0.5)
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
         mask_args[0], scratch.data_ptr(), out.data_ptr(),
         0 if stamps is None else stamps.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *mask_args[1:],
-        t, h, nq, nk, d, e, m, d ** -0.25, d ** -0.5, m ** -0.5, EPS,
+        t, h, nq, nk, d, e, m, int(bf16), dn, dn2, m ** -0.5, EPS,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err == -1:
         raise ValueError(f"FAVOR kernel does not fit Nq={nq}, Nk={nk}, "
@@ -153,6 +179,7 @@ class _Favor(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, projection, mask)
         out = favor_launch(q, k, v, projection, mask)
         favor_attention.launches += 1
+        favor_attention.bf16_launches += q.dtype == torch.bfloat16
         return out
 
     @staticmethod
@@ -171,4 +198,5 @@ def favor_attention(q, k, v, projection, mask: Optional[torch.Tensor] = None):
     return _Favor.apply(q, k, v, projection, mask)
 
 
-favor_attention.launches = 0
+favor_attention.launches = 0          # every launch on the path
+favor_attention.bf16_launches = 0     # those that read bfloat16

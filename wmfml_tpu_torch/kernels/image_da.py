@@ -4,16 +4,21 @@ Replaces ``wmfml_tpu/aug/pipeline.py:_to_float`` and the ShapeNet1D
 augmenter of ``wmfml_tpu/aug/image_aug.py`` (``_warp_chain``, the murmur3
 masks, the enumerated-order ``augment``) for one call: uint8 images in,
 float32 images out, the op order and every image's parameters computed on
-the card from the call's raw draws. ``csrc/image_da.cu`` says what bounds
-the kernel and how its block of one image stages the image, builds its tap
-and mask tables once and applies the order.
+the card from the call's raw draws. The images come out in float32 or,
+for ``compute_dtype: bfloat16``, in bfloat16, rounded where the JAX package
+rounds them: x / 255 and the end of every run of adjacent warps (its
+``_warp_chain`` returns ``img.dtype``); the masks are exact.
+``csrc/image_da.cu`` says what bounds the kernel and how its block of one
+image stages the image, builds its tap and mask tables once and applies the
+order.
 
-``image_da(x, u, keys, order)`` is the wrapper the augmenter calls:
+``image_da(x, u, keys, order, dtype)`` is the wrapper the augmenter calls:
 ``x`` uint8 [B, H, W, 1] or [T, S, H, W, 1] (read through its T and S
 strides, not copied), ``u`` float32 [B, 19] (the uniforms of
 ``aug/image_aug.py:params_from_draw``; column 12, which sizes the
 CoarseDropout grid, in [0, 1)), ``keys`` int32 [B, 2], ``order``
-int64 [1] (an index into ``ORDERS``, read modulo 6). A CPU tensor takes the
+int64 [1] (an index into ``ORDERS``, read modulo 6), ``dtype`` float32 or
+bfloat16, that of the output. A CPU tensor takes the
 plain twin ``image_da_plain`` (``params_from_draw``, then the dense twins);
 a CUDA tensor launches the kernel or raises. Augmentation is not
 differentiated, so there is no backward.
@@ -41,14 +46,18 @@ UNSUPPORTED = ("image DA kernel takes uint8 [B, H, W, 1] or [T, S, H, W, 1] "
                "are ROADMAP.md A12c")
 
 
-def image_da_plain(x, u, keys, order):
-    """The twin: ``params_from_draw``, then x / 255 through ``apply``."""
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def image_da_plain(x, u, keys, order, dtype=torch.float32):
+    """The twin: ``params_from_draw``, then x / 255 (rounded to ``dtype``)
+    through ``apply``."""
     from wmfml_tpu_torch.aug.image_aug import apply, params_from_draw, to_unit
 
     h, w = x.shape[-3], x.shape[-2]
     flat = x.reshape((-1,) + tuple(x.shape[-3:]))
     params = params_from_draw(u, keys, order, h, w)
-    return apply(to_unit(flat), params).reshape(x.shape)
+    return apply(to_unit(flat).to(dtype), params).reshape(x.shape)
 
 
 _fwd = None
@@ -61,13 +70,13 @@ def _kernel():
         fn = build.load("image_da").wmfml_image_da_fwd
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fwd = fn
     return _fwd
 
 
-def image_da_launch(x, u, keys, order,
+def image_da_launch(x, u, keys, order, dtype=torch.float32,
                     params_out: Optional[torch.Tensor] = None,
                     stamps: Optional[torch.Tensor] = None):
     """Run the CUDA kernel once (no launch count). ``params_out`` (float32
@@ -81,6 +90,9 @@ def image_da_launch(x, u, keys, order,
         raise TypeError("image DA kernel takes uint8 images, float32 "
                         "uniforms, int32 keys and an int64 order, all on one "
                         "CUDA device")
+    if dtype not in DTYPES:
+        raise TypeError(f"image DA kernel writes float32 or bfloat16; got "
+                        f"{dtype}")
     if x.dim() == 4:
         t_, s_, st, ss = x.shape[0], 1, x.stride(0), 0
     elif x.dim() == 5:
@@ -99,22 +111,23 @@ def image_da_launch(x, u, keys, order,
         raise ValueError(f"image DA takes u [{b}, {NU}], keys [{b}, 2] and "
                          f"one order; got {tuple(u.shape)}, "
                          f"{tuple(keys.shape)}, {tuple(order.shape)}")
-    for name, t, shape, dtype in (("params_out", params_out, (b, NPARAMS),
+    for name, t, shape, want in (("params_out", params_out, (b, NPARAMS),
                                    torch.float32),
                                   ("stamps", stamps, (b, STAMPS),
                                    torch.int64)):
-        if t is not None and (t.device != x.device or t.dtype != dtype
+        if t is not None and (t.device != x.device or t.dtype != want
                               or tuple(t.shape) != shape
                               or not t.is_contiguous()):
-            raise ValueError(f"{name} must be {dtype} {list(shape)} on the "
+            raise ValueError(f"{name} must be {want} {list(shape)} on the "
                              f"images' device")
     u, keys, order = u.contiguous(), keys.contiguous(), order.contiguous()
-    out = torch.empty(x.shape, device=x.device, dtype=torch.float32)
+    out = torch.empty(x.shape, device=x.device, dtype=dtype)
     with torch.cuda.device(x.device):   # the launcher sets up the current one
         err = _kernel()(x.data_ptr(), st, ss, s_, b, u.data_ptr(),
                         keys.data_ptr(), order.data_ptr(), out.data_ptr(),
                         0 if params_out is None else params_out.data_ptr(),
                         0 if stamps is None else stamps.data_ptr(), h, w,
+                        int(dtype == torch.bfloat16),
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err == -1:
         raise ValueError(f"{UNSUPPORTED}; got {tuple(x.shape)}")
@@ -123,13 +136,15 @@ def image_da_launch(x, u, keys, order,
     return out
 
 
-def image_da(x, u, keys, order):
-    """One augmenter call: float32 images of ``x``'s shape."""
+def image_da(x, u, keys, order, dtype=torch.float32):
+    """One augmenter call: ``dtype`` images of ``x``'s shape."""
     if x.device.type == "cpu":
-        return image_da_plain(x, u, keys, order)
-    out = image_da_launch(x, u, keys, order)
+        return image_da_plain(x, u, keys, order, dtype)
+    out = image_da_launch(x, u, keys, order, dtype)
     image_da.launches += 1
+    image_da.bf16_launches += dtype == torch.bfloat16
     return out
 
 
-image_da.launches = 0
+image_da.launches = 0           # every launch on the path
+image_da.bf16_launches = 0      # those that wrote bfloat16

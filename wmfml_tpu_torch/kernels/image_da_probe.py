@@ -9,7 +9,8 @@ neighbouring words of the float32 image in shared memory, and each warp
 store writes 128 contiguous bytes. The variant, made here from the shipped
 source by two text substitutions and built beside it into
 ``wmfml_tpu_torch/_build/``, gives lane l the columns 4l .. 4l + 3 and
-stores them as one float4 (vectorised float32 stores): its taps of the
+stores them as one float4 (vectorised float32 stores; float32 output
+only): its taps of the
 float32 image read every fourth word. Both compute the same
 sums in the same order, so their outputs must be equal bit for bit; the
 probe checks that, then times both in each of the six op orders on the
@@ -42,7 +43,7 @@ SUBSTITUTIONS = (
       float v = __fadd_rn(acc[k], da::chain_fill(ay.r, ay.p, cr[k], cp[k],
                                                  ch.c0, ch.c1, ch.two));
       if (apply_mask) v = __fmul_rn(v, keep(mask, y, x) ? 1.f : 0.f);
-      dst[y * W + x] = v;
+      dst(y * W + x, v);
     }""",
      """    if (4 * lane >= W) continue;
     float o[COLS];
@@ -54,7 +55,7 @@ SUBSTITUTIONS = (
       if (apply_mask) v = __fmul_rn(v, keep(mask, y, x) ? 1.f : 0.f);
       o[k] = v;
     }
-    *reinterpret_cast<float4*>(dst + y * W + 4 * lane) =
+    *reinterpret_cast<float4*>(dst.p + y * W + 4 * lane) =
         make_float4(o[0], o[1], o[2], o[3]);"""),
 )
 
@@ -94,7 +95,7 @@ def launcher(fn, x, u, keys, order):
     def launch():
         err = fn(x.data_ptr(), st, ss, s_, t_ * s_, u.data_ptr(),
                  keys.data_ptr(), order.data_ptr(), out.data_ptr(), 0, 0, h,
-                 w, stream)
+                 w, 0, stream)
         if err != 0:
             raise RuntimeError(f"launch failed: {err}")
         return out

@@ -1,4 +1,5 @@
-"""Operands for the 3xTF32 tensor-core products of K1 and K3.
+"""Operands for the tensor-core products of K1, K2 and K3: 3xTF32 for
+float32, one bfloat16 product for ``compute_dtype: bfloat16``.
 
 A TF32 tensor-core product reads 10 of a float32's 23 mantissa bits. Split
 each operand as ``big = tf32(x)``, ``small = tf32(x - big)`` and accumulate
@@ -10,11 +11,13 @@ kernels, which split their activations that way when they load them; the
 wrappers split the weights here, once per call.
 
 ``gmma_b_layout`` packs a [..., N, K] operand for ``wgmma``'s B descriptor
-without swizzle, K-major: 8 x 4 float "core matrices" (128 contiguous
-bytes: 8 rows of N, 4 consecutive K), ordered (k-step of 8, row group of 8,
-K half) so that one k-step's B is 64 * N contiguous bytes with the K halves
-128 bytes apart (the descriptor's leading byte offset) and the row groups
-256 bytes apart (its stride byte offset).
+without swizzle, K-major: "core matrices" of 8 rows of N by 16 bytes of K
+(128 contiguous bytes: 4 floats or 8 bfloat16 a row), ordered (k-step of
+32 bytes, row group of 8, K half) so that one k-step's B is 64 * N
+contiguous bytes with the K halves 128 bytes apart (the descriptor's
+leading byte offset) and the row groups 256 bytes apart (its stride byte
+offset). A float32 k-step is 8 deep (``.tf32``, k8), a bfloat16 one 16
+(``.bf16``, k16); the layout is the same in bytes.
 """
 
 from __future__ import annotations
@@ -43,10 +46,13 @@ def tf32_split(x: torch.Tensor):
 
 
 def gmma_b_layout(w: torch.Tensor) -> torch.Tensor:
-    """[..., N, K] -> [..., K/8, N/8, 2, 8, 4] contiguous (see module doc)."""
+    """[..., N, K] -> [..., K/(2e), N/8, 2, 8, e] contiguous, e = 16 bytes
+    of elements: 4 for float32, 8 for bfloat16 (see module doc)."""
     *lead, n, k = w.shape
-    if n % 8 or k % 8:
-        raise ValueError(f"wgmma B operand needs N, K % 8 == 0; got {n}, {k}")
+    e = 16 // w.element_size()
+    if n % 8 or k % (2 * e):
+        raise ValueError(f"wgmma B operand needs N % 8 == 0 and K % "
+                         f"{2 * e} == 0; got {n}, {k}")
     d = len(lead)
-    w = w.reshape(*lead, n // 8, 8, k // 8, 2, 4)
+    w = w.reshape(*lead, n // 8, 8, k // (2 * e), 2, e)
     return w.permute(*range(d), d + 2, d, d + 3, d + 1, d + 4).contiguous()

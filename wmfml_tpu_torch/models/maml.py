@@ -12,7 +12,10 @@ instead). The encoder's stem runs through K1 with per-task weights, layers
 a grouped convolution plus the plain masked BN, the mean, the regressor and
 the Tanh are plain torch. BN uses batch statistics at train and eval time,
 over the task's real context rows (``mask``), or over every row (the
-queries: ``mask=None``).
+queries: ``mask=None``). In ``compute_dtype`` bfloat16 the forward casts
+the images and every parameter to bfloat16 and computes each layer in it,
+as the JAX package's ``dtype=`` does (``ops/cast.py``); the parameters, and
+the inner loop's per-task copies and gradients, stay float32.
 
 Parameter names are the reference's torchmeta keys
 (``wmfml_tpu/ckpt/torch_import.py:352-376``): ``encoder_w.layer{1,2,3}.conv``,
@@ -36,6 +39,7 @@ from torch import nn
 from wmfml_tpu_torch.kernels.features import maml_features, masked_batch_norm
 from wmfml_tpu_torch.nn.encoders import PerTaskLiteratureEncoder
 from wmfml_tpu_torch.nn.init import init_parameters
+from wmfml_tpu_torch.ops.cast import bmm_bias, conv2d
 
 
 class _Norm(nn.Module):
@@ -60,6 +64,8 @@ def step_size_key(name: str) -> str:
 
 
 class MAMLRegressor(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, dim_w: int = 196, dim_hidden: int = 64,
                  output_dim: int = 2, tanh_out: bool = True,
                  img_size: Sequence[int] = (128, 128, 1),
@@ -113,15 +119,19 @@ class MAMLRegressor(nn.Module):
         Returns [T, N, output_dim]."""
         t, n = x.shape[:2]
         p = self.task_params(t) if params is None else params
+        d = self.compute_dtype
+        if d != torch.float32:
+            x = x.to(d)
+            p = {k: v.to(d) for k, v in p.items()}
         enc = {k[len("encoder_w."):]: v for k, v in p.items()
                if k.startswith("encoder_w.")}
         s = self.side
         h = self.encoder_w(x, enc).reshape(t, n, s, s)        # the 1-channel map
         # layer 1, the 1 -> C lift: grouped conv + masked BN + ReLU
         w1 = p["features.layer1.conv.weight"]                 # [T, C, 1, 3, 3]
-        h = F.conv2d(h.transpose(0, 1), w1.flatten(0, 1),
-                     p["features.layer1.conv.bias"].flatten(), padding=1,
-                     groups=t)                                # [N, T*C, s, s]
+        h = conv2d(h.transpose(0, 1), w1.flatten(0, 1),
+                   p["features.layer1.conv.bias"].flatten(), padding=1,
+                   groups=t)                                  # [N, T*C, s, s]
         c = w1.shape[1]
         h = h.reshape(n, t, c, s, s).permute(1, 0, 3, 4, 2)   # [T, N, s, s, C]
         h = F.relu(masked_batch_norm(h, mask, p["features.layer1.norm.weight"],
@@ -135,6 +145,6 @@ class MAMLRegressor(nn.Module):
             torch.stack([p[b + "norm.weight"] for b in blocks]),
             torch.stack([p[b + "norm.bias"] for b in blocks]), mask)
         h = h.mean((2, 3))                                    # [T, N, C]
-        out = torch.baddbmm(p[f"{self.reg_name}.bias"][:, None, :], h,
-                            p[f"{self.reg_name}.weight"].transpose(1, 2))
+        out = bmm_bias(h, p[f"{self.reg_name}.weight"],
+                       p[f"{self.reg_name}.bias"])
         return torch.tanh(out) if self.tanh_out else out

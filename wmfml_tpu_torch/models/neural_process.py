@@ -11,7 +11,10 @@ As in the JAX package:
     T * (S + Q) images (the JAX package's ``MERGE_CTX_QRY``), 300 images at
     the main path's shapes, so the stem kernel runs once per step;
   * padded context rows are masked in every aggregation, and a task with no
-    context row gets z = 0 (``_gate_zero_ctx``).
+    context row gets z = 0 (``_gate_zero_ctx``);
+  * with ``compute_dtype`` bfloat16 (``ops/cast.py:set_compute_dtype``)
+    every layer and the aggregation compute in bfloat16 and ``mu`` is
+    bfloat16; the caller takes its loss on ``mu.float()``.
 
 Parameter names follow the reference torch models (``encoder_w0.{0,2,5,8}``,
 ``transform_y``, ``encoder_r.layers.{0,2,4}``, ``r_to_z``,
@@ -31,7 +34,7 @@ from wmfml_tpu_torch.models.base import ModelOutput
 from wmfml_tpu_torch.nn.attention import MultiheadFavorCrossAttention
 from wmfml_tpu_torch.nn.encoders import LiteratureEncoder
 from wmfml_tpu_torch.nn.init import init_parameters
-from wmfml_tpu_torch.nn.mlp import EncoderFC, mlp
+from wmfml_tpu_torch.nn.mlp import EncoderFC, Linear, mlp
 from wmfml_tpu_torch.ops.setops import baco, masked_max, masked_mean
 
 AGG_MODES = ("mean", "max", "baco", "attention")
@@ -56,12 +59,12 @@ class SmallCNP(nn.Module):
             raise TypeError(f"agg_mode is not applicable, choose from {list(AGG_MODES)}")
         self.agg_mode = agg_mode
         self.encoder_w0 = LiteratureEncoder(dim_w, img_size)
-        self.transform_y = nn.Linear(label_dim, dim_w // 4)
+        self.transform_y = Linear(label_dim, dim_w // 4)
         self.encoder_r = EncoderFC(dim_w + dim_w // 4, n_hidden_units_r, dim_r)
         if agg_mode == "baco":
-            self.rs_to_mu = nn.Linear(dim_r, dim_r)
-            self.rs_to_var = nn.Linear(dim_r, dim_r)
-        self.r_to_z = nn.Linear(dim_w if agg_mode == "attention" else dim_r, dim_z)
+            self.rs_to_mu = Linear(dim_r, dim_r)
+            self.rs_to_var = Linear(dim_r, dim_r)
+        self.r_to_z = Linear(dim_w if agg_mode == "attention" else dim_r, dim_z)
         self.decoder0 = mlp(dim_w + dim_z, (100, 100), y_dim,
                             "tanh" if tanh_out else None)
         self.cross_attn = None

@@ -11,8 +11,10 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.models.maml import MAMLRegressor
 from wmfml_tpu_torch.models.neural_process import SmallCNP
+from wmfml_tpu_torch.ops.cast import set_compute_dtype
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -41,7 +43,8 @@ def available_methods():
 
 def build_model(config, generator: Optional[torch.Generator] = None):
     """Build ``config.method`` on the CPU, its weights drawn from
-    ``generator`` (default: seeded with ``config.seed``)."""
+    ``generator`` (default: seeded with ``config.seed``), computing in
+    ``config.compute_dtype``."""
     if config.method in NOT_PORTED:
         raise NotImplementedError(
             f"method {config.method!r} is not ported yet "
@@ -51,7 +54,8 @@ def build_model(config, generator: Optional[torch.Generator] = None):
             f"method {config.method!r} unknown; available: {available_methods()}")
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.seed))
-    return _REGISTRY[config.method](config, generator)
+    return set_compute_dtype(_REGISTRY[config.method](config, generator),
+                             torch_dtype(config))
 
 
 def _small(config, agg_mode, tanh_out, generator):

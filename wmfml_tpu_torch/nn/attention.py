@@ -12,7 +12,10 @@ The block keeps the reference's torch layout, which fixes its
 projections run as one matmul over the stacked head weights, and the head
 outputs are flattened dim-major (index = dim * H + head), as the reference
 does. The projection is drawn once at construction; nothing in training
-redraws it.
+redraws it. In ``compute_dtype`` bfloat16 the projections and ``_W`` compute
+in bfloat16 as Flax's ``Dense(dtype=...)`` does; the core takes the
+bfloat16 q, k, v and returns float32, as the JAX core promotes against the
+float32 projection (``kernels/favor.py``).
 """
 
 from __future__ import annotations
@@ -67,10 +70,12 @@ class FastAttention(nn.Module):
 
 
 def _stacked(heads: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
-    """All heads' projections in one matmul: [T, N, in] -> [T, H, N, d]."""
-    w = torch.cat([m.linear.weight for m in heads], 0)       # [H*d, in]
-    b = torch.cat([m.linear.bias for m in heads], 0)
-    y = torch.matmul(x, w.t()) + b
+    """All heads' projections in one matmul, in the heads' compute dtype:
+    [T, N, in] -> [T, H, N, d]."""
+    dtype = heads[0].linear.compute_dtype
+    w = torch.cat([m.linear.weight for m in heads], 0).to(dtype)  # [H*d, in]
+    b = torch.cat([m.linear.bias for m in heads], 0).to(dtype)
+    y = torch.matmul(x.to(dtype), w.t()) + b
     t, n = y.shape[:2]
     return y.reshape(t, n, len(heads), -1).transpose(1, 2)
 

@@ -18,13 +18,16 @@ import math
 import torch
 from torch import nn
 
+from wmfml_tpu_torch.nn.mlp import Linear
+
 
 class AttnLinear(nn.Module):
-    """Reference ``AttnLinear``: a ``linear`` child with N(0, fan_in^-0.5) W."""
+    """Reference ``AttnLinear``: a ``linear`` child with N(0, fan_in^-0.5) W
+    (``nn/mlp.py:Linear``)."""
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
-        self.linear = nn.Linear(in_dim, out_dim)
+        self.linear = Linear(in_dim, out_dim)
 
     def forward(self, x):
         return self.linear(x)

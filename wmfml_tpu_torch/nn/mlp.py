@@ -1,10 +1,28 @@
-"""MLP blocks with the reference's torch layouts (``nn.Sequential`` indices)."""
+"""MLP blocks with the reference's torch layouts (``nn.Sequential`` indices).
+
+Their ``Linear`` layers compute in ``compute_dtype`` as Flax's
+``Dense(dtype=...)`` does (``ops/cast.py``).
+"""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import torch
 from torch import nn
+
+from wmfml_tpu_torch.ops.cast import linear
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (same parameters and ``state_dict``) computed in
+    ``compute_dtype``: float32 parameters cast to it, bfloat16 out when it
+    is bfloat16."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias, self.compute_dtype)
 
 
 def mlp(in_dim: int, hidden: Sequence[int], out: int,
@@ -14,9 +32,9 @@ def mlp(in_dim: int, hidden: Sequence[int], out: int,
     ``mlp(i, [h0, h1], o)`` has Linear layers at indices 0, 2, 4."""
     layers = []
     for h in hidden:
-        layers += [nn.Linear(in_dim, h), nn.ReLU()]
+        layers += [Linear(in_dim, h), nn.ReLU()]
         in_dim = h
-    layers.append(nn.Linear(in_dim, out))
+    layers.append(Linear(in_dim, out))
     if final_activation == "tanh":
         layers.append(nn.Tanh())
     elif final_activation == "relu":

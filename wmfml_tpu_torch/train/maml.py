@@ -15,6 +15,10 @@ are a Python loop:
     (one scalar, or one per adapted parameter) when ``learn_step_size``;
   * outer loss = mean over tasks of (query loss + beta * kl), kl = 0 here
     (no Bayes-by-Backprop encoder); the query loss is taken in float32;
+  * in ``compute_dtype`` bfloat16 the episode's images and the forward are
+    bfloat16 while the per-task copies, their inner SGD steps and every
+    gradient stay float32; the inner loss meets float32 labels and so is
+    float32, as in the JAX package (``train/maml.py:129``);
   * validation adapts with ``test_num_steps`` steps, so it needs autograd
     (without a graph of the gradient), and reports the degree metric.
 """
@@ -26,6 +30,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from wmfml_tpu_torch.aug.pipeline import build_episode_processor
+from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.losses.losses import LossFunc
 from wmfml_tpu_torch.models.maml import step_size_key
 from wmfml_tpu_torch.train.trainer import ModelTrainer
@@ -50,7 +55,7 @@ def build_maml_outer(model, config, num_steps: int, train: bool,
     loss_func = LossFunc(config.loss_type, config.task)
     process = build_episode_processor(config.task,
                                       config.aug_list if train else [],
-                                      train=train)
+                                      train=train, dtype=torch_dtype(config))
     create_graph = train and not config.first_order
     beta = float(config.beta or 0.0)
     update_lr = float(config.update_lr)

@@ -2,7 +2,9 @@
 
 A train step processes the raw episode on the device (normalise, image and
 task augmentation, label encoding), runs the model, and takes one optimizer
-step on ``total = task_loss + beta * kl``. It returns the loss as a device
+step on ``total = task_loss + beta * kl``, the task loss taken on
+``mu.float()`` whatever the compute dtype (the JAX package's
+``out.mu.astype(float32)``). It returns the loss as a device
 tensor: the trainer reads it on the host only at its validation cadence,
 so the host never waits on the card in between.
 
@@ -17,6 +19,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from wmfml_tpu_torch.aug.pipeline import build_episode_processor
+from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.losses.losses import LossFunc
 from wmfml_tpu_torch.models.registry import build_model
 
@@ -42,7 +45,8 @@ def _apply(model, batch: Dict[str, torch.Tensor]):
 
 
 def build_train_step(model, optimizer, config) -> Callable:
-    process = build_episode_processor(config.task, config.aug_list, train=True)
+    process = build_episode_processor(config.task, config.aug_list, train=True,
+                                      dtype=torch_dtype(config))
     loss_func = LossFunc(config.loss_type, config.task)
     beta = float(config.beta or 0.0)
 
@@ -63,7 +67,8 @@ def build_train_step(model, optimizer, config) -> Callable:
 
 
 def build_eval_step(model, config) -> Callable:
-    process = build_episode_processor(config.task, [], train=False)
+    process = build_episode_processor(config.task, [], train=False,
+                                      dtype=torch_dtype(config))
     loss_func = LossFunc(config.loss_type, config.task)
 
     @torch.no_grad()
