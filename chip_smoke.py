@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # what a check of the port runs
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
-                                     # ANP and MAML training steps (top
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
+                                     # each path's graph replay and of its
+                                     # steps issued from the host (top
                                      # kernels, busy share)
     python3 chip_smoke.py --grad-spread  # also phase 8's comparison on 8
                                      # batches, each again on 3 copies
@@ -32,14 +33,22 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      their bound counts 3 TF32 products per product at the tensor cores'
      rate, with the float32 CUDA-core bound beside it;
   4. the ANP path: ``cfg/train/ANP_DA+TA_ShapeNet1D.yaml`` as shipped (task
-     and image augmentation) through ``wmfml_tpu_torch.cli.train_cli`` at
-     full width (T=10, 15 + 15, 128x128x1, dim_w 64, 8 FAVOR heads, m=266)
-     on synthetic ShapeNet1D ``data_size=large``, 24 steps and one
-     validation; launch counts are zeroed just before and read just after,
-     each kernel must have launched, and K6 exactly twice a step (one launch
-     an augmenter call, whatever the order drawn on the card); the trained
-     model's output on a validation episode must agree with the same model
-     run through the plain twins;
+     and image augmentation) through ``wmfml_tpu_torch.cli.train_cli``'s
+     trainer at full width (T=10, 15 + 15, 128x128x1, dim_w 64, 8 FAVOR
+     heads, m=266) on synthetic ShapeNet1D ``data_size=large``, 32 steps, 8
+     a call: one eager warm-up call, then one CUDA graph of 8 steps,
+     captured and replayed (``train/steps.py:FusedSteps``), and one
+     validation. Launch counts are zeroed just before and read just after;
+     the launches on the card (those the host issued, each captured one
+     counted once per replay) must equal what the code says for every
+     kernel (K1 and K2 once a step and a validation episode, K6 twice a
+     step: one launch an augmenter call, whatever the order drawn on the
+     card), the captured graph's DOT (``debug_dump``) must hold as many
+     nodes of each kernel as the capture issued, and a trace of one more
+     replay must show each (taken again, up to three times, where the
+     profiler lost one). The trained model's output on a validation
+     episode must agree with the same model run through the plain twins.
+     Phases 7, 9 and 10 train through graphs and are checked the same way;
   5. image DA on one full-width training batch (150 context and 150 query
      images), in each of the six op orders, through K6 against the twin on
      the CPU at the same draw, and its time per training step; one step's
@@ -54,7 +63,8 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      ``train_cli`` (``cfg/train/MAML_DA_ShapeNet1D.yaml`` as shipped, image
      DA its only augmentation: T=10, 15 + 15, dim_w 196 -> 14x14, 4 blocks
      of 64 filters, 5 inner steps at update_lr 0.002, 20 at validation), 12
-     steps and one validation; K1 and K3 must have launched exactly as often
+     steps, 4 a call (a warm-up call, then a graph of 4 second-order steps),
+     and one validation; K1 and K3 must have launched exactly as often
      as the code says, K6 twice a step; the trained
      model's validation loss on one episode must agree between the card and
      the CPU;
@@ -66,8 +76,10 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      under deterministic algorithms, so that its state, its sums and its
      verdict are the same on every run;
   9. the bfloat16 ANP path (``compute_dtype: bfloat16``, ``bench.py``'s
-     headline configuration): ``ANP_DA+TA_ShapeNet1D.yaml`` with
-     ``compute_dtype=bfloat16``, as phase 4; every launch of K1, K2 and K6
+     headline configuration, as ``bench.py`` runs it: 64 steps a call):
+     ``ANP_DA+TA_ShapeNet1D.yaml`` with ``compute_dtype=bfloat16``, 192
+     steps (a warm-up call, the capture and its replay, one more replay),
+     as phase 4; every launch of K1, K2 and K6
      must be a bfloat16 one, K6 twice a step; the trained model's
      validation loss on one episode, card against the CPU, within the
      bfloat16 rule (``check_bf16``);
@@ -76,9 +88,20 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      K1 and K3 launched in bfloat16 exactly as often as the code says, K6
      twice a step; the validation loss on one episode's first tasks, card
      against the CPU, within the bfloat16 rule;
- 11. ms/step of each path in float32 and in bfloat16, timed in turns
-     (float32, bfloat16, bfloat16, float32) on the trained trainers;
- 12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+ 11. ms/step of each path's graph replays in float32 and in bfloat16, timed
+     in turns (float32, bfloat16, bfloat16, float32) on the trained
+     trainers;
+ 12. graph against loop: for each of the four training configurations, two
+     trainers from one seed under deterministic algorithms, one calling
+     the fused step three times (warm-up, capture and replay, replay), the
+     other issuing the same steps from the host: every call's metrics, the
+     weights, Adam's state and the generator's state equal bit for bit.
+     Then, on phases 4, 7, 9 and 10's trainers, ms/step and tasks/s of graph
+     replays against the loop, timed in turns (graph, loop, loop, graph),
+     with the graph's nodes, its capture's and instantiation's host seconds
+     and its memory pool's bytes; with ``--profile`` the card's busy share
+     of a call of each;
+ 13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Phase 3 holds each kernel's bfloat16 path too (K1 both forms, K2, K3 masked
 and unmasked, K6 in every order) against its bfloat16 twin at the same
@@ -102,14 +125,18 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN_YAML = os.path.join(HERE, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")
-TRAIN_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=24",
-                   "val_freq=1000", "val_iters=2", "steps_per_call=1",
+TRAIN_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=32",
+                   "val_freq=1000", "val_iters=2", "steps_per_call=8",
                    "device=cuda"]
 MAML_YAML = os.path.join(HERE, "cfg", "train", "MAML_DA_ShapeNet1D.yaml")
 MAML_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=12",
-                  "val_freq=1000", "val_iters=1", "steps_per_call=1",
+                  "val_freq=1000", "val_iters=1", "steps_per_call=4",
                   "device=cuda"]
-BF16_OVERRIDES = TRAIN_OVERRIDES + ["compute_dtype=bfloat16"]
+# bench.py's headline (bench.py:56-81): bfloat16, 64 steps a call; 192
+# iterations are a warm-up call, the capture and its replay, and one replay
+BF16_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=192",
+                  "val_freq=1000", "val_iters=2", "steps_per_call=64",
+                  "device=cuda", "compute_dtype=bfloat16"]
 PERF_MAML_YAML = os.path.join(HERE, "cfg", "train", "perf",
                               "MAML_DA_ShapeNet1D_tpu.yaml")
 PERF_MAML_OVERRIDES = ["synthetic_data=true", "iterations=8", "val_freq=1000",
@@ -850,10 +877,112 @@ def check_image_da(gen, dtype=None):
     return [rows[0], rows[1]]
 
 
+# a kernel wrapper -> the kernel function whose nodes in a captured graph
+# (and events in a trace) count its launches: K3's call also packs its
+# weights and runs one conv_kernel a layer, then one bn_relu_kernel
+GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
+              "favor_attention": "favor_kernel",
+              "maml_features": "bn_relu_kernel",
+              "image_da": "image_da_kernel"}
+
+
+def graph_nodes(dot_path):
+    """Nodes of a captured graph from ``debug_dump``'s DOT (a node's record
+    label spans several lines): all of them, the kernel nodes, and those of
+    each of ``GRAPH_NODE``'s kernels."""
+    import re
+
+    with open(dot_path) as f:
+        text = f.read()
+    nodes = re.split(r'^[ \t]*(?="graph_\d+_node_\d+"\[)', text,
+                     flags=re.M)[1:]
+    kernels = [n for n in nodes if 'label="{KERNEL' in n]
+    return dict(nodes=len(nodes), kernel_nodes=len(kernels),
+                **{k: sum(name in n for n in kernels)
+                   for k, name in GRAPH_NODE.items()})
+
+
+def launches_per_step(trainer):
+    """What the code says each kernel launches: per training step, and per
+    validation episode (both splits are swept)."""
+    cfg = trainer.config
+    if "MAML" in cfg.method:
+        inner, test = cfg.num_steps + 1, cfg.test_num_steps + 1
+        return ({"literature_stem": inner, "maml_features": inner,
+                 "image_da": 2},
+                {"literature_stem": test, "maml_features": test})
+    return ({"literature_stem": 1, "favor_attention": 1, "image_da": 2},
+            {"literature_stem": 1, "favor_attention": 1})
+
+
+def card_launches(trainer, issued):
+    """Launches on the card from those the host issued (the counters): each
+    captured launch was issued once and ran once per replay."""
+    fused = trainer.train_step
+    return {k: n + fused.captured_launches.get(k, 0) * (fused.replays - 1)
+            for k, n in issued.items()}
+
+
+def check_launches(trainer, launches):
+    """Every kernel of the path launched on the card exactly as often as the
+    code says (``launches_per_step``: K6 once per augmenter call, two calls
+    a training step, whatever the op orders drawn on the card), and the
+    capture held ``steps_per_call`` steps' launches."""
+    cfg, fused = trainer.config, trainer.train_step
+    step, episode = launches_per_step(trainer)
+    k = fused.k
+    sweeps = sum(1 for it in range(0, trainer.step, k)
+                 if it % cfg.val_freq < k)
+    want = {name: trainer.step * n + 2 * sweeps * cfg.val_iters
+            * episode.get(name, 0) for name, n in step.items()}
+    captured = {name: k * n for name, n in step.items()}
+    tag = cfg.method + (" bf16" if cfg.compute_dtype == "bfloat16" else "")
+    log(f"train {tag}: launches on the card {launches}, the code says "
+        f"{want}; captured {fused.captured_launches}")
+    if launches != want or any(fused.captured_launches[name] != n
+                               for name, n in captured.items()):
+        raise AssertionError(f"{tag}: launches {launches}, captured "
+                             f"{fused.captured_launches}; the code says "
+                             f"{want} and {captured}")
+
+
+def replay_trace(trainer, tag):
+    """One replay of the trained path's graph under torch.profiler: each
+    kernel the capture holds shows in its trace, no more often than
+    captured. A trace missing a kernel (the profiler loses events of
+    ctypes launches now and then, PERF.md §7) is taken again, up to three
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fused = trainer.train_step
+    want = {k: n for k, n in fused.captured_launches.items() if n}
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fused(trainer.generator)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        got = {k: sum(GRAPH_NODE[k] in n for n in names) for k in want}
+        TRACES["taken"] += 1
+        log(f"train {tag}: one replay's trace: {len(names)} device events, "
+            f"{got} of the captured {want} (attempt {attempt + 1} of 3)")
+        if all(0 < got[k] <= want[k] for k in want):
+            return got
+        TRACES["empty" if not names else "short"] += 1
+    raise AssertionError(f"{tag}: no trace of a replay showed every kernel "
+                         f"of the capture {want}")
+
+
 def train_phase(card, yaml, overrides, counters):
-    """Drive one path through ``train_cli``; return (trainer, launches per
-    kernel in that run). In ``compute_dtype: bfloat16`` every launch must
-    have been a bfloat16 one."""
+    """Drive one path through ``train_cli``'s trainer, which trains through
+    CUDA graph replays (``FusedSteps``); return (trainer, launches per
+    kernel on the card in that run, the graph's nodes). In ``compute_dtype: bfloat16`` every
+    launch must have been a bfloat16 one. The captured graph's DOT must
+    hold as many nodes of each kernel as the capture issued, and a trace of
+    one more replay must show them."""
+    import tempfile
+
     import torch
 
     from wmfml_tpu_torch.cli import train_cli
@@ -864,16 +993,22 @@ def train_phase(card, yaml, overrides, counters):
         fn.launches = fn.bf16_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = train_cli.train(config)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    trainer = train_cli.build_trainer(config)
+    fused = trainer.train_step
+    with tempfile.TemporaryDirectory() as tmp:
+        fused.dot_path = os.path.join(tmp, "step.dot")
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        issued = {name: fn.launches for name, fn in counters.items()}
+        nodes = graph_nodes(fused.dot_path)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = card_launches(trainer, issued)
     bf16 = config.compute_dtype == "bfloat16"
     in_bf16 = {name: fn.bf16_launches for name, fn in counters.items()}
-    if in_bf16 != (launches if bf16 else {k: 0 for k in launches}):
+    if in_bf16 != (issued if bf16 else {k: 0 for k in issued}):
         raise AssertionError(f"{config.method} in {config.compute_dtype}: "
-                             f"launches {launches}, in bfloat16 {in_bf16}")
+                             f"launches {issued}, in bfloat16 {in_bf16}")
 
     with open(os.path.join(config.save_path, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
@@ -886,31 +1021,35 @@ def train_phase(card, yaml, overrides, counters):
     if trainer.step != config.iterations or steps <= 0:
         raise AssertionError(f"trainer ran {trainer.step} steps "
                              f"({steps} timed)")
+    if fused.replays < 1:
+        raise AssertionError(f"{config.method}: no graph replay in "
+                             f"{fused.calls} calls")
     ms_step = 1e3 * secs / steps
     tag = config.method + (" bf16" if bf16 else "")
-    log(f"train {tag}: {trainer.step} steps in {wall:.3f} s wall; "
-        f"{ms_step} ms/step, {config.tasks_per_batch * 1e3 / ms_step} "
-        f"tasks/s over {steps} timed steps on {card}; peak device memory "
+    log(f"train {tag}: {trainer.step} steps in {wall:.3f} s wall, "
+        f"{fused.k} a call: {fused.warm_calls} eager warm-up call(s), the "
+        f"capture, {fused.replays} replay(s); {ms_step} ms/step, "
+        f"{config.tasks_per_batch * 1e3 / ms_step} tasks/s over {steps} "
+        f"timed steps (the capture included) on {card}; peak device memory "
         f"{peak_gib} GiB")
+    log(f"train {tag}: graph of {fused.k} steps: {nodes['nodes']} nodes, "
+        f"{nodes['kernel_nodes']} kernel nodes ({nodes['kernel_nodes'] / fused.k} "
+        f"a step); capture {fused.graph_stats}")
     log(f"train {tag}: " + ", ".join(f"{r['tag']} {r['value']}"
                                      for r in records))
     for name, n in launches.items():
-        log(f"train {tag}: {name} launches {n}")
+        log(f"train {tag}: {name} launches on the card {n} (host-issued "
+            f"{issued[name]}, captured {fused.captured_launches[name]}, "
+            f"graph nodes {nodes[name]})")
         if n <= 0:
             raise AssertionError(f"{name} never launched on the {tag} path")
-    return trainer, launches
-
-
-def check_da_launches(trainer, launches):
-    """K6 launches exactly once per augmenter call, two calls a training
-    step, whatever the op orders drawn on the card."""
-    cfg = trainer.config
-    want = 2 * cfg.iterations
-    log(f"train {cfg.method}: K6 launches {launches['image_da']}, two a "
-        f"step imply {want}")
-    if launches["image_da"] != want:
-        raise AssertionError(f"{cfg.method}: K6 launched "
-                             f"{launches['image_da']} times, not {want}")
+        if nodes[name] != fused.captured_launches[name]:
+            raise AssertionError(f"{tag}: the graph holds {nodes[name]} "
+                                 f"{GRAPH_NODE[name]} nodes, the capture "
+                                 f"issued {fused.captured_launches[name]}")
+    check_launches(trainer, launches)
+    replay_trace(trainer, tag)
+    return trainer, launches, nodes
 
 
 def check_da_batch(trainer):
@@ -1018,20 +1157,6 @@ def check_evaluation(anp_trainer):
         raise AssertionError(f"evaluation: card {got}, CPU {want}")
 
 
-def check_maml_launches(trainer, launches):
-    """K1 and K3 run once per forward: (num_steps + 1) per training step,
-    (test_num_steps + 1) per validation episode, validation and test."""
-    cfg = trainer.config
-    k = cfg.steps_per_call
-    sweeps = sum(1 for it in range(0, cfg.iterations, k)
-                 if it % cfg.val_freq < k)
-    want = (cfg.iterations * (cfg.num_steps + 1)
-            + 2 * sweeps * cfg.val_iters * (cfg.test_num_steps + 1))
-    if any(n != want for n in launches.values()):
-        raise AssertionError(f"MAML path launched {launches}, the code "
-                             f"says {want} each")
-
-
 def check_trained_output(trainer):
     """The trained ANP model on a validation episode: kernels vs plain twins."""
     import copy
@@ -1124,35 +1249,109 @@ def check_bf16_validation(trainer, tasks=None):
                              f"CPU {cpu}")
 
 
-def dtype_turns(pairs, steps):
-    """ms/step of each (float32, bfloat16) trainer pair, timed in turns
-    f32, bf16, bf16, f32 on the same card: host clock over ``steps``
-    training steps ending in a device sync, after one untimed step."""
+def call_ms(trainer, calls, loop=False):
+    """ms/step of ``calls`` calls of the trainer's fused step, graph replays
+    or (``loop``) the same steps issued from the host: host clock over the
+    calls, ending in a device sync, after one untimed call."""
     import torch
 
-    def ms(trainer):
-        cfg = trainer.config
+    fused = trainer.train_step
+    fn = fused.loop if loop else fused
+    fn(trainer.generator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(trainer.generator)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / (calls * fused.k)
 
-        def step():
-            trainer.train_step(trainer.sampler.sample(cfg.tasks_per_batch,
-                                                      trainer.generator),
-                               trainer.generator)
-        step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps[cfg.method]):
-            step()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / steps[cfg.method]
 
+def dtype_turns(pairs, calls):
+    """ms/step of each (float32, bfloat16) trainer pair's graph replays,
+    timed in turns f32, bf16, bf16, f32 on the same card."""
     out = {}
     for name, (f32, bf16) in pairs.items():
-        runs = [ms(tr) for tr in (f32, bf16, bf16, f32)]
+        runs = [call_ms(tr, calls) for tr in (f32, bf16, bf16, f32)]
         out[name] = dict(f32_ms=(runs[0] + runs[3]) / 2,
                          bf16_ms=(runs[1] + runs[2]) / 2, turns_ms=runs)
         log(f"turns: {name}: float32 {out[name]['f32_ms']} ms/step, bfloat16 "
             f"{out[name]['bf16_ms']} ms/step (f32, bf16, bf16, f32: {runs}; "
-            f"{steps[f32.config.method]} steps each)")
+            f"{calls} calls of {f32.train_step.k} and "
+            f"{bf16.train_step.k} steps each)")
+    return out
+
+
+def graph_equals_loop(yaml, overrides, calls=3):
+    """Two trainers from one seed under deterministic algorithms: one takes
+    ``calls`` fused calls (an eager warm-up, the capture and its replay,
+    replays), the other the same steps issued from the host (``loop``).
+    Every call's metrics, the weights, Adam's state and the generator's
+    state must be equal bit for bit."""
+    import torch
+
+    from wmfml_tpu_torch.cli import train_cli
+    from wmfml_tpu_torch.configs import Config
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        graph, loop = (train_cli.build_trainer(Config(yaml, overrides))
+                       for _ in range(2))
+        for i in range(calls):
+            got = {k: v.clone() if torch.is_tensor(v) else v
+                   for k, v in graph.train_step(graph.generator).items()}
+            want = loop.train_step.loop(loop.generator)
+            torch.cuda.synchronize()
+            bad = [k for k in want if not torch.equal(
+                torch.as_tensor(got[k]), torch.as_tensor(want[k]))]
+            if bad or got.keys() != want.keys():
+                raise AssertionError(f"call {i}: graph metrics {got}, loop "
+                                     f"{want}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    fused, cfg = graph.train_step, graph.config
+    tensors = []
+    for tr in (graph, loop):
+        state = tr.optimizer.state_dict()["state"]
+        tensors.append([p.detach() for p in tr.model.parameters()]
+                       + [v for s in state.values() for v in s.values()]
+                       + [tr.generator.get_state()])
+    differ = sum(not torch.equal(a, b) for a, b in zip(*tensors))
+    tag = cfg.method + (" bf16" if cfg.compute_dtype == "bfloat16" else "")
+    log(f"graph vs loop {tag}: {calls} calls of {fused.k} steps ({fused.replays} "
+        f"replays): metrics, {len(tensors[0]) - 1} weight and Adam tensors and "
+        f"the generator state, {differ} of them differ")
+    if differ or fused.replays < 1 or len(tensors[0]) != len(tensors[1]):
+        raise AssertionError(f"{tag}: the graph path left {differ} tensors "
+                             f"unlike the loop's")
+
+
+def graph_loop_turns(trainers, calls, nodes, profile):
+    """ms/step of graph replays against the same steps issued from the host
+    (``loop``), timed in turns graph, loop, loop, graph on each trained
+    trainer (``calls`` calls each), beside the graph's size, its capture's
+    and instantiation's host seconds and its pool's bytes; with
+    ``profile``, the card's busy share of one call of each."""
+    out = {}
+    for tag, trainer in trainers.items():
+        fused = trainer.train_step
+        runs = [call_ms(trainer, calls[tag], loop=lp)
+                for lp in (False, True, True, False)]
+        row = dict(graph_ms=(runs[0] + runs[3]) / 2,
+                   loop_ms=(runs[1] + runs[2]) / 2, turns_ms=runs,
+                   steps_per_call=fused.k, **fused.graph_stats,
+                   **nodes[tag])
+        if profile:
+            row["graph_profile"] = profile_calls(trainer, f"{tag} graph")
+            row["loop_profile"] = profile_calls(trainer, f"{tag} loop",
+                                                loop=True)
+        t_ = trainer.config.tasks_per_batch
+        log(f"graph vs loop {tag}: graph {row['graph_ms']} ms/step "
+            f"({t_ * 1e3 / row['graph_ms']} tasks/s), loop {row['loop_ms']} "
+            f"ms/step ({t_ * 1e3 / row['loop_ms']} tasks/s), "
+            f"{row['loop_ms'] / row['graph_ms']}x (graph, loop, loop, graph: "
+            f"{runs}; {calls[tag]} calls of {fused.k} steps each); "
+            f"{json.dumps({k: v for k, v in row.items() if k not in ('turns_ms', 'graph_ms', 'loop_ms')})}")
+        out[tag] = row
     return out
 
 
@@ -1359,25 +1558,23 @@ def shuffled_twin(plain_fn, kernel_fn):
     return fn
 
 
-def profile_steps(trainer, steps=8):
-    """torch.profiler over a few training steps: top kernels, busy share."""
+def profile_calls(trainer, tag, loop=False, calls=1):
+    """torch.profiler over ``calls`` calls of the trainer's fused step (graph
+    replays, or with ``loop`` the same steps issued from the host): the
+    card's busy share of the wall time, kernels a step, the top kernels and
+    DA's share; writes a Chrome trace to results/."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = trainer.config
-    tag = cfg.method + ("_bf16" if cfg.compute_dtype == "bfloat16" else "")
-    for _ in range(2):
-        trainer.train_step(trainer.sampler.sample(cfg.tasks_per_batch,
-                                                  trainer.generator),
-                           trainer.generator)
+    fused = trainer.train_step
+    fn = fused.loop if loop else fused
+    steps = calls * fused.k
+    fn(trainer.generator)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step(trainer.sampler.sample(cfg.tasks_per_batch,
-                                                      trainer.generator),
-                               trainer.generator)
+        for _ in range(calls):
+            fn(trainer.generator)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -1401,13 +1598,17 @@ def profile_steps(trainer, steps=8):
           if "image_da_kernel" in e.name]
     da_us = 2 * steps * sum(k6) / max(len(k6), 1)
     log(f"profile {tag}: K6 (DA) {da_us / steps} us/step of device time "
-        f"= {da_us / busy_us} of the busy time ({len(k6)} of "
+        f"= {da_us / max(busy_us, 1e-9)} of the busy time ({len(k6)} of "
         f"{2 * steps} K6 events recorded)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"profile {tag}: {us / steps:10.3f} us/step  {name[:110]}")
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
-    prof.export_chrome_trace(os.path.join(HERE, "results",
-                                          f"train_step_trace_{tag}.json"))
+    prof.export_chrome_trace(os.path.join(
+        HERE, "results", f"train_step_trace_{tag.replace(' ', '_')}.json"))
+    return dict(wall_ms_step=wall_us / steps / 1e3,
+                busy_ms_step=busy_us / steps / 1e3,
+                busy_share=busy_us / wall_us,
+                kernels_per_step=len(kernels) / steps)
 
 
 def main(argv):
@@ -1496,24 +1697,18 @@ def main(argv):
                 f"launches; favor_phases, da_phases): {r['phase_us']}")
 
     da_kernels = {"image_da": image_da}
-    trainer, anp_launches = train_phase(
-        card, MAIN_YAML, TRAIN_OVERRIDES,
-        {"literature_stem": literature_stem,
-         "favor_attention": favor_attention, **da_kernels})
-    check_da_launches(trainer, anp_launches)
+    anp_kernels = {"literature_stem": literature_stem,
+                   "favor_attention": favor_attention, **da_kernels}
+    maml_kernels = {"literature_stem": literature_stem,
+                    "maml_features": maml_features, **da_kernels}
+    trainer, anp_launches, anp_nodes = train_phase(
+        card, MAIN_YAML, TRAIN_OVERRIDES, anp_kernels)
     check_trained_output(trainer)
     check_da_batch(trainer)
     check_evaluation(trainer)
-    if "--profile" in argv:
-        profile_steps(trainer)
 
-    mtrainer, maml_launches = train_phase(
-        card, MAML_YAML, MAML_OVERRIDES,
-        {"literature_stem": literature_stem, "maml_features": maml_features,
-         **da_kernels})
-    check_maml_launches(mtrainer, {k: maml_launches[k] for k in (
-        "literature_stem", "maml_features")})
-    check_da_launches(mtrainer, maml_launches)
+    mtrainer, maml_launches, maml_nodes = train_phase(
+        card, MAML_YAML, MAML_OVERRIDES, maml_kernels)
     check_maml_validation(mtrainer)
     torch.use_deterministic_algorithms(True)
     try:
@@ -1530,30 +1725,32 @@ def main(argv):
                 for k, v in gens.items()})
     finally:
         torch.use_deterministic_algorithms(False)
-    if "--profile" in argv:
-        profile_steps(mtrainer, steps=4)
 
     # bfloat16: bench.py's headline configuration and the MAML perf YAML
-    btrainer, anp_bf16 = train_phase(
-        card, MAIN_YAML, BF16_OVERRIDES,
-        {"literature_stem": literature_stem,
-         "favor_attention": favor_attention, **da_kernels})
-    check_da_launches(btrainer, anp_bf16)
+    btrainer, anp_bf16, anp_bf16_nodes = train_phase(
+        card, MAIN_YAML, BF16_OVERRIDES, anp_kernels)
     check_bf16_validation(btrainer)
-    bmtrainer, maml_bf16 = train_phase(
-        card, PERF_MAML_YAML, PERF_MAML_OVERRIDES,
-        {"literature_stem": literature_stem, "maml_features": maml_features,
-         **da_kernels})
-    check_maml_launches(bmtrainer, {k: maml_bf16[k] for k in (
-        "literature_stem", "maml_features")})
-    check_da_launches(bmtrainer, maml_bf16)
+    bmtrainer, maml_bf16, maml_bf16_nodes = train_phase(
+        card, PERF_MAML_YAML, PERF_MAML_OVERRIDES, maml_kernels)
     check_bf16_validation(bmtrainer, tasks=3)
-    if "--profile" in argv:
-        profile_steps(btrainer)
-        profile_steps(bmtrainer, steps=4)
     dtype_turns({"ANPShapeNet1D": (trainer, btrainer),
-                 "MAMLShapeNet1D": (mtrainer, bmtrainer)},
-                {"ANPShapeNet1D": 16, "MAMLShapeNet1D": 4})
+                 "MAMLShapeNet1D": (mtrainer, bmtrainer)}, calls=2)
+
+    # graph replays against the same steps issued from the host
+    for yaml, overrides in ((MAIN_YAML, TRAIN_OVERRIDES),
+                            (MAIN_YAML, BF16_OVERRIDES),
+                            (MAML_YAML, MAML_OVERRIDES),
+                            (PERF_MAML_YAML, PERF_MAML_OVERRIDES)):
+        graph_equals_loop(yaml, overrides)
+    graph_loop_turns(
+        {"ANPShapeNet1D": trainer, "ANPShapeNet1D bf16": btrainer,
+         "MAMLShapeNet1D": mtrainer, "MAMLShapeNet1D bf16": bmtrainer},
+        calls={"ANPShapeNet1D": 4, "ANPShapeNet1D bf16": 2,
+               "MAMLShapeNet1D": 2, "MAMLShapeNet1D bf16": 2},
+        nodes={"ANPShapeNet1D": anp_nodes, "ANPShapeNet1D bf16": anp_bf16_nodes,
+               "MAMLShapeNet1D": maml_nodes,
+               "MAMLShapeNet1D bf16": maml_bf16_nodes},
+        profile="--profile" in argv)
 
     launches = {"ANP": anp_launches, "MAML": maml_launches,
                 "ANP bf16": anp_bf16, "MAML bf16": maml_bf16}

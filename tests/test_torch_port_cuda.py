@@ -24,13 +24,31 @@ spacing at that size (where a sum cancels, two float32 orders differ by
 about 2^-20 of its largest term, more than an ulp of the small result).
 K6 in bfloat16: parameters and masks bit for bit, values within 2 bfloat16
 ulps of each element, with no floor.
+
+The fused K-step training call (``train/steps.py:FusedSteps``): its CUDA
+graph replays against the same steps issued from the host, bit for bit
+under deterministic algorithms (float32 and bfloat16 ANP, bfloat16 MAML);
+a run resumed after replays against an unbroken one, bit for bit; K2
+captured as one cooperative node and replayed; the capture's launch counts
+against the graph's kernel nodes (``debug_dump``'s DOT).
 """
 
+import os
+import re
+import types
+
+import numpy as np
 import pytest
 import torch
 
+from torch_port_adam import optax_adam
 from wmfml_tpu_torch.aug import image_aug
+from wmfml_tpu_torch.cli import train_cli
+from wmfml_tpu_torch.configs import Config
+from wmfml_tpu_torch.data.synthetic import generate_shapenet1d
 from wmfml_tpu_torch.kernels import favor, features, image_da, stem
+from wmfml_tpu_torch.train.state import build_optimizer
+from wmfml_tpu_torch.train.steps import KERNELS
 
 pytestmark = pytest.mark.cuda
 
@@ -740,3 +758,217 @@ def test_bf16_augmenter_counts_its_launches_and_reads_nothing_back(dev):
     assert (image_da.image_da.launches,
             image_da.image_da.bf16_launches) == (before[0] + 1, before[1] + 1)
     assert out.shape == x.shape and out.dtype == BF16
+
+
+# -- K training steps as one CUDA graph replay (train/steps.py:FusedSteps) --
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")
+PERF_MAML_YAML = os.path.join(REPO, "cfg", "train", "perf",
+                              "MAML_DA_ShapeNet1D_tpu.yaml")
+# a kernel wrapper -> the kernel function whose graph nodes count its
+# launches (K3's call also packs its weights and runs one conv_kernel a layer)
+GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
+              "favor_attention": "favor_kernel",
+              "maml_features": "bn_relu_kernel",
+              "image_da": "image_da_kernel"}
+
+
+def _dot_kernels(dot_path):
+    """The captured graph's kernel nodes, each node's text from
+    ``debug_dump``'s DOT (a node's record label spans several lines)."""
+    with open(dot_path) as f:
+        text = f.read()
+    nodes = re.split(r'^[ \t]*(?="graph_\d+_node_\d+"\[)', text, flags=re.M)
+    return [n for n in nodes[1:] if 'label="{KERNEL' in n]
+
+
+def _kernel_nodes(dot_path):
+    """How many of the captured graph's kernel nodes run each of
+    ``GRAPH_NODE``'s kernels."""
+    nodes = _dot_kernels(dot_path)
+    return {k: sum(name in n for n in nodes) for k, name in GRAPH_NODE.items()}
+
+
+@pytest.fixture(scope="module")
+def graph_data(tmp_path_factory):
+    """A small synthetic ShapeNet1D split with room for T = 10, 15 + 15."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = str(tmp_path_factory.mktemp("sn1d"))
+    generate_shapenet1d(root, seed=0, instances=31, val_classes=2,
+                        test_classes=2)
+    return root
+
+
+def _graph_config(data, yaml, *overrides):
+    return Config(yaml, [f"data_path={data}", "data_size=small",
+                         "device=cuda", "val_freq=1000", "val_iters=1",
+                         *overrides])
+
+
+def _train_state(trainer):
+    opt = trainer.optimizer.state_dict()["state"]
+    return ([p.detach().clone() for p in trainer.model.parameters()],
+            [v.clone() for s in opt.values() for v in s.values()],
+            trainer.generator.get_state())
+
+
+def _assert_equal_states(a, b):
+    for x, y in zip(a[0] + a[1], b[0] + b[1]):
+        assert torch.equal(x, y)
+    assert len(a[0]) == len(b[0]) and len(a[1]) == len(b[1]) and a[1]
+    assert torch.equal(a[2], b[2])
+
+
+@pytest.mark.parametrize("path", ["anp_f32", "anp_bf16", "maml_bf16"])
+def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
+                                                        tmp_path, monkeypatch,
+                                                        path):
+    """Three calls at K = 4 (one eager warm-up, the capture and its replay,
+    one more replay) against the same twelve steps issued from the host,
+    under deterministic algorithms: weights, Adam state, generator state
+    and each call's metrics, bit for bit.
+
+    A third trainer takes one call first and is dropped: the process's
+    first call of cuDNN's bfloat16 grouped convolution [15, 640, 14, 14] x
+    [640, 64, 3, 3] (K3's twin, recomputed in its backward) loads its
+    kernels lazily and runs another engine than every later call, so the
+    first bfloat16 MAML step of a process differs from later ones in the
+    last bits, graph or loop alike."""
+    monkeypatch.chdir(tmp_path)
+    yaml, extra = {"anp_f32": (ANP_YAML, ["steps_per_call=4"]),
+                   "anp_bf16": (ANP_YAML, ["steps_per_call=4",
+                                           "compute_dtype=bfloat16"]),
+                   "maml_bf16": (PERF_MAML_YAML, [])}[path]
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, graph, loop = (train_cli.build_trainer(
+            _graph_config(graph_data, yaml, *extra)) for _ in range(3))
+        first.train_step.loop(first.generator)
+        assert graph.train_step.k == 4
+        for _ in range(3):
+            got = {k: v.clone() if torch.is_tensor(v) else v
+                   for k, v in graph.train_step(graph.generator).items()}
+            want = loop.train_step.loop(loop.generator)
+            torch.cuda.synchronize()
+            assert got.keys() == want.keys()
+            for k in want:
+                assert torch.equal(torch.as_tensor(got[k]),
+                                   torch.as_tensor(want[k])), k
+        assert graph.train_step.replays == 2 and loop.train_step.graph is None
+        _assert_equal_states(_train_state(graph), _train_state(loop))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_resumed_run_after_replays_draws_what_an_unbroken_run_draws(
+        dev, graph_data, tmp_path, monkeypatch):
+    """8 steps at K = 2 (two eager calls, a capture, a replay), then a run
+    resumed from their checkpoint to 12, against one unbroken run of 12,
+    with image and task augmentation, under deterministic algorithms: the
+    checkpoint holds the generator's state after replays and the
+    capturable Adam's state, bit for bit."""
+    monkeypatch.chdir(tmp_path)
+    k = ["steps_per_call=2"]
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = train_cli.train(_graph_config(graph_data, ANP_YAML, *k,
+                                              "iterations=8"))
+        assert first.train_step.replays == 2
+        resumed = train_cli.train(_graph_config(
+            graph_data, ANP_YAML, *k, "iterations=12",
+            f"checkpoint={first.ckpt.path('model_end_8')}"))
+        whole = train_cli.train(_graph_config(graph_data, ANP_YAML, *k,
+                                              "iterations=12"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert resumed.step == whole.step == 12 and whole.train_step.replays == 4
+    _assert_equal_states(_train_state(resumed), _train_state(whole))
+
+
+def test_favor_kernel_is_captured_and_replayed(dev, tmp_path):
+    """K2's cooperative launch inside a CUDA graph: one cooperative kernel
+    node, and each replay on new inputs (copied into the captured
+    attention-block views) equals an eager launch bit for bit."""
+    q, k, v, proj, mask = _block_views(dev)
+    favor.favor_launch(q, k, v, proj, mask)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        out = favor.favor_launch(q, k, v, proj, mask)
+    graph.instantiate()
+    dot = str(tmp_path / "favor.dot")
+    graph.debug_dump(dot)
+    nodes = _dot_kernels(dot)
+    assert len(nodes) == 1 and "favor_kernel" in nodes[0]
+    assert "{cooperative | 1}" in nodes[0]
+    for seed in (1, 2):
+        for dst, src in zip((q, k, v), _block_views(dev, seed=seed)[:3]):
+            dst.copy_(src)
+        graph.replay()
+        want = favor.favor_launch(q, k, v, proj, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("path", ["anp", "maml"])
+def test_captured_launches_match_the_graphs_kernel_nodes(dev, graph_data,
+                                                         tmp_path,
+                                                         monkeypatch, path):
+    """The fused step's ``captured_launches`` (its wrappers' counters over
+    the capture) equal the kernel nodes of each kernel in the captured
+    graph, and the counters read warm-up + capture."""
+    monkeypatch.chdir(tmp_path)
+    yaml, extra = {"anp": (ANP_YAML, ["steps_per_call=2", "iterations=6"]),
+                   "maml": (PERF_MAML_YAML, ["iterations=8"])}[path]
+    trainer = train_cli.build_trainer(_graph_config(graph_data, yaml, *extra))
+    fused = trainer.train_step
+    fused.dot_path = str(tmp_path / "step.dot")
+    before = {name: fn.launches for name, fn in KERNELS.items()}
+    trainer.train()
+    nodes = _kernel_nodes(fused.dot_path)
+    assert fused.replays == 1 and nodes == fused.captured_launches
+    per_step = {"anp": {"literature_stem": 1, "favor_attention": 1,
+                        "maml_features": 0, "image_da": 2},
+                "maml": {"literature_stem": 6, "favor_attention": 0,
+                         "maml_features": 6, "image_da": 2}}[path]
+    assert fused.captured_launches == {k: n * fused.k
+                                       for k, n in per_step.items()}
+    warm = fused.warm_calls * fused.k
+    for name, fn in KERNELS.items():
+        if name == "image_da":      # validation runs no image DA
+            assert fn.launches - before[name] == (warm + fused.k) * 2
+        else:
+            assert fn.launches - before[name] >= (warm + fused.k) * per_step[
+                name]
+
+
+def test_optimizer_is_capturable_on_cuda_parameters(dev):
+    for name, want in (("Adam", torch.optim.Adam),
+                       ("AdamW", torch.optim.AdamW)):
+        p = torch.nn.Parameter(torch.randn(8, device=dev))
+        opt = build_optimizer(types.SimpleNamespace(
+            optimizer=name, lr=1e-3, weight_decay=False), [p])
+        assert type(opt) is want and opt.param_groups[0]["capturable"]
+        p.grad = torch.ones_like(p)
+        opt.step()
+        assert opt.state[p]["step"].device.type == "cuda"
+
+
+def test_capturable_adam_matches_optax_within_float32_tolerance(dev):
+    """The card's Adam (capturable: bias corrections on the device, in
+    float32) against optax's update (``torch_port_adam.optax_adam``) over
+    10 steps of gradients spanning five decades: rtol = atol = 1e-5."""
+    rng = np.random.RandomState(0)
+    p0 = rng.randn(256).astype(np.float32)
+    grads = [(rng.randn(256) * 10.0 ** rng.uniform(-4, 1, 256)).astype(
+        np.float32) for _ in range(10)]
+    p = torch.nn.Parameter(torch.from_numpy(p0).to(dev))
+    opt = build_optimizer(types.SimpleNamespace(
+        optimizer="Adam", lr=1e-3, weight_decay=False), [p])
+    for g, want in zip(grads, optax_adam(p0, grads, 1e-3)):
+        p.grad = torch.from_numpy(g).to(dev)
+        opt.step()
+        np.testing.assert_allclose(p.detach().cpu().numpy(), want,
+                                   rtol=1e-5, atol=1e-5)

@@ -7,7 +7,15 @@ in the run directory. A file holds ``{"step", "model", "optimizer",
 "generator"}``; ``model`` is a plain ``state_dict`` with the reference's
 keys, ``generator`` the trainer's random generator state (a uint8 tensor),
 so that a resumed run draws what an unbroken run draws (the JAX trainer
-keys each step by its index, ``wmfml_tpu/train/trainer.py:200``).
+keys each step by its index, ``wmfml_tpu/train/trainer.py:200``). After
+CUDA graph replays the generator's state holds the offsets the replays
+drew (each replay moves it), and a capturable Adam's state (its step
+counts on the card) saves as any other tensor.
+
+A restored optimizer keeps its own ``capturable`` flag, whichever device
+wrote the checkpoint: capturable on the card, where the fused step
+captures it, and not on the CPU (``train/state.py``); its step counts go
+where that flag puts them.
 """
 
 from __future__ import annotations
@@ -47,7 +55,12 @@ class CheckpointManager:
             return 0
         model.load_state_dict(payload["model"])
         if optimizer is not None and payload.get("optimizer"):
-            optimizer.load_state_dict(payload["optimizer"])
+            saved = payload["optimizer"]
+            for group, live in zip(saved["param_groups"],
+                                   optimizer.param_groups):
+                if "capturable" in live:
+                    group["capturable"] = live["capturable"]
+            optimizer.load_state_dict(saved)
         if generator is not None and payload.get("generator") is not None:
             generator.set_state(payload["generator"].cpu())
         return int(payload["step"])

@@ -14,6 +14,14 @@ after set-up. Semantics of the JAX package's sampler
 
 The draws differ from the JAX package's (Philox against threefry); the
 distribution is the same.
+
+Each training step samples its own episode, inside the step. The JAX fused
+step draws its K episodes in one ``vmap`` ahead of its ``scan``
+(``wmfml_tpu/train/steps.py:200-208``); the port's fused step
+(``train/steps.py:FusedSteps``) captures K steps, each drawing as the eager
+loop draws, so that a CUDA graph replay draws exactly what K eager steps
+draw from the same generator state. ``sample`` reads nothing back to the
+host, so it can be captured.
 """
 
 from __future__ import annotations

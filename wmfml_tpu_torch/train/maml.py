@@ -20,7 +20,11 @@ are a Python loop:
     gradient stay float32; the inner loss meets float32 labels and so is
     float32, as in the JAX package (``train/maml.py:129``);
   * validation adapts with ``test_num_steps`` steps, so it needs autograd
-    (without a graph of the gradient), and reports the degree metric.
+    (without a graph of the gradient), and reports the degree metric;
+  * training runs ``steps_per_call`` outer steps a call
+    (``build_maml_device_train_step``, the JAX package's
+    ``build_maml_device_train_step``): on the card one CUDA graph replay
+    (``train/steps.py:FusedSteps``), the second-order inner loop included.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from wmfml_tpu_torch.aug.pipeline import build_episode_processor
 from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.losses.losses import LossFunc
 from wmfml_tpu_torch.models.maml import step_size_key
+from wmfml_tpu_torch.train.steps import FusedSteps
 from wmfml_tpu_torch.train.trainer import ModelTrainer
 
 
@@ -124,6 +129,23 @@ def build_maml_train_step(model, optimizer, config) -> Callable:
     return train_step
 
 
+def build_maml_device_train_step(model, optimizer, config, sampler,
+                                 steps_per_call: int) -> FusedSteps:
+    """``steps_per_call`` of ``build_maml_train_step``'s outer steps per
+    call, on episodes drawn on the device, each step drawing its own
+    (``FusedSteps``); a call returns the JAX step's metrics
+    (``wmfml_tpu/train/maml.py:192-196``): ``loss``, the mean of the K
+    losses, and ``task_loss``, ``kl`` and ``contra`` of the K-th step."""
+    step = build_maml_train_step(model, optimizer, config)
+
+    def reduce(losses):
+        return {"loss": torch.stack(losses).mean(),
+                **{k: step.metrics[k] for k in ("task_loss", "kl", "contra")}}
+
+    return FusedSteps(step, sampler, config.tasks_per_batch, steps_per_call,
+                      optimizer, reduce)
+
+
 def build_maml_eval_step(model, config) -> Callable:
     outer = build_maml_outer(model, config, _num_steps(config)[1],
                              train=False, test=True)
@@ -140,5 +162,7 @@ class MAMLTrainer(ModelTrainer):
     """The port's trainer loop with MAML steps underneath."""
 
     def _build_steps(self):
-        return (build_maml_train_step(self.model, self.optimizer, self.config),
+        return (build_maml_device_train_step(self.model, self.optimizer,
+                                             self.config, self.sampler,
+                                             self.steps_per_call),
                 build_maml_eval_step(self.model, self.config))

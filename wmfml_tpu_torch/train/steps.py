@@ -8,18 +8,28 @@ step on ``total = task_loss + beta * kl``, the task loss taken on
 tensor: the trainer reads it on the host only at its validation cadence,
 so the host never waits on the card in between.
 
+``build_device_data_train_step`` runs ``steps_per_call`` such steps on
+episodes sampled on the device as one call (``FusedSteps``), the JAX
+package's fused dispatch (``wmfml_tpu/train/steps.py:166-232``): on the card
+one CUDA graph replay, on the CPU a loop.
+
 ``init_model`` builds ``config.method`` with weights drawn from
 ``config.seed`` and moves it to the config's device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from wmfml_tpu_torch.aug.pipeline import build_episode_processor
 from wmfml_tpu_torch.configs.config import torch_dtype
+from wmfml_tpu_torch.kernels.favor import favor_attention
+from wmfml_tpu_torch.kernels.features import maml_features
+from wmfml_tpu_torch.kernels.image_da import image_da
+from wmfml_tpu_torch.kernels.stem import literature_stem
 from wmfml_tpu_torch.losses.losses import LossFunc
 from wmfml_tpu_torch.models.registry import build_model
 
@@ -64,6 +74,134 @@ def build_train_step(model, optimizer, config) -> Callable:
         return loss.detach()
 
     return train_step
+
+
+# the kernel wrappers whose launch counters a capture reads
+KERNELS = {fn.__name__: fn for fn in (literature_stem, favor_attention,
+                                      maml_features, image_da)}
+
+
+class FusedSteps:
+    """``steps_per_call`` training steps as one call: ``call(generator)``
+    draws each step's episode with ``sampler.sample(tasks_per_batch,
+    generator)``, runs ``step(episode, generator)`` on it and returns
+    ``reduce(losses)``, a dict of device tensors, which it also keeps as
+    ``metrics``.
+
+    On the CPU a call is the loop (``loop``). On the card:
+
+      * the first ``ceil(3 / K)`` calls run the loop on a side stream: real
+        steps, in which the kernels build and set their attributes and
+        cuBLAS, cuDNN, autograd and the optimizer create their lazy state;
+      * the next call sets the gradients to None, registers ``generator``
+        with a ``torch.cuda.CUDAGraph``, captures the loop into it (with
+        the host's syncs made errors), instantiates it and replays it; every
+        later call replays it. A replay draws from the generator's offset at
+        that moment what the loop would draw, and moves the offset as far,
+        so graph and loop are one random stream;
+      * the returned tensors are the graph's static outputs, which the next
+        replay overwrites: a caller that keeps them clones them.
+
+    A capture or replay that fails raises; nothing falls back to the loop.
+    Nothing may reallocate a parameter or the optimizer's state once the
+    graph is captured (a checkpoint is restored before).
+
+    Launch accounting: the wrappers' counters (``KERNELS``) count the
+    launches the host issued, so a replay does not move them.
+    ``captured_launches`` holds how far each moved during the capture and
+    ``replays`` how many replays ran: the card launched each kernel its
+    counter's count minus ``captured_launches`` plus ``captured_launches``
+    times ``replays``. ``graph_stats`` holds the capture's and the
+    instantiation's host seconds and the bytes the graph's private memory
+    pool reserved; ``dot_path``, set before the capture, has the captured
+    graph written there as DOT (``debug_dump``)."""
+
+    def __init__(self, step: Callable, sampler, tasks_per_batch: int,
+                 steps_per_call: int, optimizer, reduce: Callable):
+        self.step, self.sampler, self.reduce = step, sampler, reduce
+        self.tasks, self.k = tasks_per_batch, max(int(steps_per_call), 1)
+        self.optimizer = optimizer
+        self.device = optimizer.param_groups[0]["params"][0].device
+        self.warm_calls = -(-3 // self.k)
+        self.calls = self.replays = 0
+        self.graph = self.out = self.dot_path = None
+        self.metrics: Dict[str, torch.Tensor] = {}
+        self.captured_launches: Dict[str, int] = {}
+        self.graph_stats: Dict[str, float] = {}
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+
+    def loop(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The K steps, each kernel issued by the host."""
+        return self.reduce([self.step(self.sampler.sample(self.tasks,
+                                                          generator),
+                                      generator) for _ in range(self.k)])
+
+    def __call__(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        self.calls += 1
+        if self.stream is None:
+            self.metrics = self.loop(generator)
+        elif self.calls <= self.warm_calls:
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                self.metrics = self.loop(generator)
+            current.wait_stream(self.stream)
+        else:
+            if self.graph is None:
+                self._capture(generator)
+            self.graph.replay()
+            self.replays += 1
+            self.metrics = self.out
+        return self.metrics
+
+    def _capture(self, generator: torch.Generator):
+        self.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.register_generator_state(generator)
+        if self.dot_path is not None:
+            graph.enable_debug_mode()
+        before = {name: fn.launches for name, fn in KERNELS.items()}
+        mode = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.graph(graph, stream=self.stream):
+            t0 = time.perf_counter()
+            reserved = torch.cuda.memory_reserved(self.device)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = self.loop(generator)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            t1 = time.perf_counter()
+        t2 = time.perf_counter()
+        graph.instantiate()
+        self.graph_stats = dict(
+            capture_s=t1 - t0, end_capture_s=t2 - t1,
+            instantiate_s=time.perf_counter() - t2,
+            pool_bytes=torch.cuda.memory_reserved(self.device) - reserved)
+        self.captured_launches = {name: fn.launches - before[name]
+                                  for name, fn in KERNELS.items()}
+        if self.dot_path is not None:
+            graph.debug_dump(self.dot_path)
+        self.graph, self.out = graph, out
+
+
+def anp_metrics(losses: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The JAX fused step's metrics (``steps.py:217``)."""
+    return {"loss": torch.stack(losses).mean(), "last_loss": losses[-1]}
+
+
+def build_device_data_train_step(model, optimizer, config, sampler,
+                                 steps_per_call: int) -> FusedSteps:
+    """``steps_per_call`` of ``build_train_step``'s steps per call, on
+    episodes drawn on the device (``FusedSteps``); a call returns
+    ``{"loss": mean of the K losses, "last_loss": the K-th}``.
+
+    The JAX step draws its K episodes in one ``vmap`` ahead of its scan;
+    here each step draws its own, in the eager loop's order, so that a
+    replay draws exactly what K eager steps draw."""
+    return FusedSteps(build_train_step(model, optimizer, config), sampler,
+                      config.tasks_per_batch, steps_per_call, optimizer,
+                      anp_metrics)
 
 
 def build_eval_step(model, config) -> Callable:

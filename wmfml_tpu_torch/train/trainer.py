@@ -2,15 +2,18 @@
 ``train/maml.py:MAMLTrainer`` runs the same loop with MAML steps
 (``_build_steps``).
 
-  * iteration loop; each pass of the loop runs ``steps_per_call`` steps (a
-    Python loop of K steps) on episodes sampled on the device;
+  * iteration loop; each pass of the loop is one call of the fused step
+    (``train/steps.py:FusedSteps``): ``steps_per_call`` steps on episodes
+    sampled on the device, one CUDA graph replay on the card, a loop on
+    the CPU;
   * validation when ``it % val_freq < K`` on the validation AND test splits
     (test skipped for pascal_1d), on host episodes from streams reset to
     RandomState 42 before every sweep;
   * best-per-split checkpoints + ``best_{split}_error.txt``, an intermediate
     checkpoint when ``it % 1000 < K`` and a final one at the end;
-  * NaN guard: the loss stays on the device and is read at the validation
-    cadence; a non-finite loss raises ``NonFiniteLossError``;
+  * NaN guard: the loss (a clone of the call's mean loss: the next replay
+    overwrites the graph's outputs) stays on the device and is read at the
+    validation cadence; a non-finite loss raises ``NonFiniteLossError``;
   * one random generator on the device draws every episode, DA and TA draw
     of training; checkpoints hold its state, so a run resumed from one
     draws what an unbroken run would have drawn.
@@ -31,8 +34,8 @@ from wmfml_tpu_torch.data.device_sampler import DeviceEpisodeSampler
 from wmfml_tpu_torch.obs.guards import check_finite
 from wmfml_tpu_torch.obs.metrics import MetricsWriter
 from wmfml_tpu_torch.train.state import build_optimizer
-from wmfml_tpu_torch.train.steps import (build_eval_step, build_train_step,
-                                         require_device)
+from wmfml_tpu_torch.train.steps import (build_device_data_train_step,
+                                         build_eval_step, require_device)
 
 
 def episode_to_device(batch, device):
@@ -51,11 +54,11 @@ class ModelTrainer:
                                                          self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(config.seed))
+        self.steps_per_call = max(int(config.steps_per_call or 1), 1)
         self.train_step, self.eval_step = self._build_steps()
         self.writer = MetricsWriter(config.save_path)
         self.ckpt = CheckpointManager(config.save_path)
         self.best_loss = {"validation": 50000.0, "test": 20000.0}
-        self.steps_per_call = max(int(config.steps_per_call or 1), 1)
         self.step = 0
         self.timing = {"steps": 0, "seconds": 0.0}
         if config.checkpoint:
@@ -66,8 +69,10 @@ class ModelTrainer:
             self.logger.info(f"resumed from {config.checkpoint} at step {self.step}")
 
     def _build_steps(self):
-        """(train_step, eval_step) of this model family."""
-        return (build_train_step(self.model, self.optimizer, self.config),
+        """(the fused K-step train call, eval_step) of this model family."""
+        return (build_device_data_train_step(self.model, self.optimizer,
+                                             self.config, self.sampler,
+                                             self.steps_per_call),
                 build_eval_step(self.model, self.config))
 
     def _save(self, name: str):
@@ -80,11 +85,9 @@ class ModelTrainer:
         pending = None       # (iteration, mean loss of its K steps on device)
         timer = None         # (host time, steps) at the last loss read
         for it in range(self.step, cfg.iterations, k):
-            losses = [self.train_step(
-                self.sampler.sample(cfg.tasks_per_batch, self.generator),
-                self.generator) for _ in range(k)]
+            loss = self.train_step(self.generator)["loss"]
             self.step += k
-            pending = (it, torch.stack(losses).mean())
+            pending = (it, loss.clone())
             if it % cfg.val_freq < k:
                 train_loss = check_finite(pending[1], it, self.logger)
                 pending = None
