@@ -101,7 +101,36 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      with the graph's nodes, its capture's and instantiation's host seconds
      and its memory pool's bytes; with ``--profile`` the card's busy share
      of a call of each;
- 13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+ 13. the Pascal1D and fixed-order paths (K6's programs 1-3), each through
+     ``train_phase`` as phase 4 (launches on the card as the code says, all
+     of K6's of the path's program, graph nodes, one replay's trace) and
+     its validation loss on one episode, card against the CPU:
+     P1 ``cfg/train/ANP_DA+TA_Pascal1D.yaml`` as shipped (ANPVanillaPascal1D,
+     the five-op chain), 32 steps, 8 a call; the same with
+     ``aug_random_order=false`` (Pascal1D's fixed program), 16 steps;
+     P2 ``cfg/train/MAML_DA+TA_Pascal1D.yaml`` as shipped (second-order
+     VanillaMAML), 8 steps, 4 a call; P3
+     ``cfg/train/perf/ANP_DA+TA_ShapeNet1D_tpu.yaml`` as shipped (bfloat16,
+     ShapeNet1D's fixed program, 64 steps a call), 128 steps, every launch
+     a bfloat16 one, and its ``_T40`` variant (T = 40), 128 steps, its
+     validation loss on one episode of all 40 tasks; P4
+     ``evaluation_cli`` over P1's final checkpoint (15 points, validation
+     only: no test file), one point again on the CPU; graph against loop
+     bit for bit on P1, P3 and P3 at T = 40 (phase 12's check);
+ 14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+
+Phase 3 also holds K6's programs 1-3 at full width (150 uint8 images, every
+gate on) against their twins on the card: Pascal1D's chain in 12 of its 120
+orders (the identity and the reverse among them), 2 of them again against
+the CPU twin, in float32 within ``TOL["pixel_ops"]`` and in two orders in
+bfloat16 within ``check_bf16``'s rule; both fixed programs in float32 and
+bfloat16 (ShapeNet1D's, one warp and the mask, also within 2 bfloat16
+ulps of each element, as program 0); every program's parameters and, with
+the warps and pixel ops off, its masks bit for bit; each timed (card,
+device, plain, library ms and bound). At P3's T = 40 shapes it holds K1
+(1,200 images), K2 (T = 40) and ShapeNet1D's fixed program (600 images)
+again in bfloat16, as rows of their own (``_T40``) that report the T = 40
+path's launches.
 
 Phase 3 holds each kernel's bfloat16 path too (K1 both forms, K2, K3 masked
 and unmasked, K6 in every order) against its bfloat16 twin at the same
@@ -143,6 +172,27 @@ PERF_MAML_OVERRIDES = ["synthetic_data=true", "iterations=8", "val_freq=1000",
                        "val_iters=1"]
 EVAL_YAML = os.path.join(HERE, "cfg", "evaluation", "ANP_ShapeNet1D.yaml")
 EVAL_OVERRIDES = ["synthetic_data=true", "device=cuda"]
+# the Pascal1D and fixed-order paths (phase 13): P1, its fixed-order twin,
+# P2, P3 and P3 at T = 40, all as shipped but for their depth
+PASCAL_YAML = os.path.join(HERE, "cfg", "train", "ANP_DA+TA_Pascal1D.yaml")
+PASCAL_OVERRIDES = ["synthetic_data=true", "iterations=32", "val_freq=1000",
+                    "val_iters=2", "steps_per_call=8", "device=cuda"]
+PASCAL_FIXED_OVERRIDES = ["synthetic_data=true", "iterations=16",
+                          "val_freq=1000", "val_iters=1", "steps_per_call=8",
+                          "device=cuda", "aug_random_order=false"]
+PASCAL_MAML_YAML = os.path.join(HERE, "cfg", "train",
+                                "MAML_DA+TA_Pascal1D.yaml")
+PASCAL_MAML_OVERRIDES = ["synthetic_data=true", "iterations=8",
+                         "val_freq=1000", "val_iters=1", "steps_per_call=4",
+                         "device=cuda"]
+PERF_ANP_YAML = os.path.join(HERE, "cfg", "train", "perf",
+                             "ANP_DA+TA_ShapeNet1D_tpu.yaml")
+PERF_ANP_T40_YAML = os.path.join(HERE, "cfg", "train", "perf",
+                                 "ANP_DA+TA_ShapeNet1D_tpu_T40.yaml")
+# 128 iterations at 64 a call: a warm-up call, the capture and its replay;
+# validation at the YAML's cadence (it 0 and 64)
+PERF_ANP_OVERRIDES = ["synthetic_data=true", "iterations=128", "val_iters=1"]
+PASCAL_EVAL_OVERRIDES = ["synthetic_data=true", "device=cuda", "mode=eval"]
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -161,7 +211,12 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 # statistic in another order, then divides by the channel's std, three
 # times over; its O(1) outputs keep about five digits
 TOL = {"literature_stem": (1e-4, 1e-4), "favor_attention": (1e-5, 1e-4),
-       "maml_features": (1e-4, 1e-4), "warp_chain": (1e-5, 1e-5)}
+       "maml_features": (1e-4, 1e-4), "warp_chain": (1e-5, 1e-5),
+       "pixel_ops": (1e-5, 1e-5)}
+# K6's programs 1-3 (pixel_ops): every term of every sum is nonnegative
+# (taps, fill, blur windows), so kernel and twin differ by a few float32
+# ulps of each value; the card's powf and the twin's pow differ by a few
+# more, and gamma <= 2 at most doubles a relative error
 # K6's warps sum at most 16 taps of values in [0, 1] plus the fill in
 # another order than the dense twin's matrix products; its masks are
 # integer arithmetic and its parameters the twin's float32 steps, so both
@@ -334,9 +389,10 @@ def check_close(name, got, want):
     return err[finite].max().item(), rel
 
 
-def check_bf16(name, got, want, want_f32):
+def check_bf16(name, got, want, want_f32, element_ulps=True):
     """A bfloat16 kernel against its bfloat16 twin (the rule beside
-    ``BF16_ULPS``); returns (max abs err, max err relative to max |twin|)."""
+    ``BF16_ULPS``; ``element_ulps`` false leaves out the per-element ulp
+    bound); returns (max abs err, max err relative to max |twin|)."""
     import torch
 
     torch.cuda.synchronize()
@@ -354,7 +410,7 @@ def check_bf16(name, got, want, want_f32):
             f"abs err {err.max().item()} (limit {limit}), mean "
             f"{err.mean().item()} (twin's own from float32 "
             f"{own.mean().item()})")
-    if got.dtype == torch.bfloat16:
+    if got.dtype == torch.bfloat16 and element_ulps:
         ulps = bf16_ulps(got, want, BF16_FLOOR * w.abs().max().item())
         log(f"kernel: {name} (bfloat16): {ulps} bfloat16 ulps from the twin "
             f"at most")
@@ -387,21 +443,23 @@ def stem_bound(b, h, w, nbytes, bf16=False):
     return bound(conv0, nbytes, split_flops=conv1)
 
 
-def _rows(name, dtype, path):
+def _rows(name, dtype, path, tasks=10):
     """The identifying keys of a kernel row: the wrapper (``kernel``), the
-    row's name (``_bf16`` for the bfloat16 path), its dtype and the path
-    whose launch count it reports."""
+    row's name (``_bf16`` for the bfloat16 path, ``_T40`` for T = 40), its
+    dtype and the path whose launch count it reports."""
     import torch
 
     bf16 = dtype == torch.bfloat16
-    return dict(name=name + ("_bf16" if bf16 else ""), kernel=name,
+    return dict(name=name + ("_bf16" if bf16 else "")
+                + ("" if tasks == 10 else f"_T{tasks}"), kernel=name,
                 dtype="bfloat16" if bf16 else "float32",
                 path=path + (" bf16" if bf16 else ""), route="cuda")
 
 
-def check_stem(model, gen, dtype=None):
-    """K1 at the ANP path's shape: the merged ctx+qry batch, 300 images,
-    in float32 or (``dtype``) bfloat16."""
+def check_stem(model, gen, dtype=None, tasks=10, path="ANP"):
+    """K1 at the ANP path's shape: the merged ctx+qry batch, 30 images a
+    task (300 at T = 10, 1,200 at ``tasks`` = 40), in float32 or
+    (``dtype``) bfloat16; the row reports ``path``'s launches."""
     import torch
     import torch.nn.functional as F
 
@@ -411,7 +469,7 @@ def check_stem(model, gen, dtype=None):
     enc = model.encoder_w0
     w0, b0, w1, b1 = (p.detach().to(dtype) for p in (
         enc[0].weight, enc[0].bias, enc[2].weight, enc[2].bias))
-    b, h, w = 10 * 30, 128, 128
+    b, h, w = tasks * 30, 128, 128
     x = torch.rand((b, h, w, 1), generator=gen, device="cuda").to(dtype)
     args = (x, w0, b0, w1, b1)
     got = stem.stem_launch(*args)
@@ -432,26 +490,27 @@ def check_stem(model, gen, dtype=None):
     times.update(device_profile(lambda: stem.stem_launch(*args)))
     nbytes = x.element_size() * (x.numel() + got.numel() + sum(
         t.numel() for t in (w0, b0, w1, b1)))
-    return dict(**_rows("literature_stem", dtype, "ANP"),
-                shape="shared weights, [300, 128, 128, 1]",
+    return dict(**_rows("literature_stem", dtype, path, tasks),
+                shape=f"shared weights, [{b}, 128, 128, 1]",
                 source="wmfml_tpu_torch/csrc/stem.cu",
                 replaces="wmfml_tpu/nn/encoders.py:230",
                 max_abs_err=err, max_rel_err=rel, **times,
                 **stem_bound(b, h, w, nbytes, dtype == torch.bfloat16))
 
 
-def check_favor(model, gen, dtype=None):
-    """K2 at the ANP path's shape, with shots 3..15 across the 10 tasks; q,
-    k, v are [T, N, H, d] transposed to [T, H, N, d], as the attention block
-    hands them over, float32 or (``dtype``) bfloat16. One call must issue
-    one kernel."""
+def check_favor(model, gen, dtype=None, tasks=10, path="ANP"):
+    """K2 at the ANP path's shape, T = ``tasks`` (10, or 40: more (task,
+    head) items than co-resident blocks), with shots 3..15 across the
+    tasks; q, k, v are [T, N, H, d] transposed to [T, H, N, d], as the
+    attention block hands them over, float32 or (``dtype``) bfloat16. One
+    call must issue one kernel. The row reports ``path``'s launches."""
     import torch
 
     from wmfml_tpu_torch.kernels import favor
 
     dtype = dtype or torch.float32
     proj = model.attn.projection_matrix
-    t_, h, n, d = 10, 8, 15, proj.shape[1]
+    t_, h, n, d = tasks, 8, 15, proj.shape[1]
     q, k, v = (torch.randn((t_, n, h, d), generator=gen, device="cuda").to(
         dtype).transpose(1, 2) for _ in range(3))
     shots = torch.tensor([3 + (12 * i) // (t_ - 1) for i in range(t_)],
@@ -474,7 +533,7 @@ def check_favor(model, gen, dtype=None):
         raise AssertionError(f"favor_attention issued "
                              f"{times['kernels_per_call']} kernels per call: "
                              f"{sorted(names)}")
-    if dtype == torch.float32:
+    if dtype == torch.float32 and tasks == 10:
         times["phase_us"] = favor_phases(q, k, v, proj, mask)
     m, e = proj.shape[0], v.shape[-1]
     # the kernel's form: dash = [q; k] P^T in split TF32 on the tensor cores
@@ -484,8 +543,8 @@ def check_favor(model, gen, dtype=None):
     flops = 2 * t_ * h * (n * n * m + n * n * e + n * n)
     nbytes = (q.element_size() * 3 * q.numel() + 4 * (q.numel() + proj.numel())
               + mask.numel())
-    return dict(**_rows("favor_attention", dtype, "ANP"),
-                shape="q, k, v [10, 8, 15, 64], m 266, shots 3..15",
+    return dict(**_rows("favor_attention", dtype, path, tasks),
+                shape=f"q, k, v [{t_}, 8, 15, 64], m 266, shots 3..15",
                 source="wmfml_tpu_torch/csrc/favor.cu",
                 replaces="wmfml_tpu/nn/attention.py:93",
                 max_abs_err=err, max_rel_err=rel, **times, library_ms=None,
@@ -797,19 +856,7 @@ def check_image_da(gen, dtype=None):
                               - (xc == 0).double().mean())
 
     xf = (xc.float() / 255.0).reshape(b, 1, h, w).cuda().to(dtype)
-    sx, sy, tx, ty = p.warp[:, 1, :4].unbind(-1)
-
-    def axis_grid(n, scale, shift):    # (j - c - shift) / scale + c -> [-1, 1]
-        c = (n - 1) / 2.0
-        j = torch.arange(n, device="cuda", dtype=torch.float32)
-        src = (j[None] - c - shift[:, None]) / scale[:, None] + c
-        return 2.0 * src / (n - 1) - 1.0
-
-    gx, gy = axis_grid(w, sx, tx), axis_grid(h, sy, ty)
-    grid = torch.stack([gx[:, None, :].expand(b, h, w),
-                        gy[:, :, None].expand(b, h, w)], -1).to(dtype)
-    library_ms = cuda_ms(lambda: F.grid_sample(
-        xf, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+    library_ms = library_warp_ms(xf, p.warp[:, 1])
 
     rows = {}
     nbytes = (1 + xf.element_size()) * x.numel() + 4 * (
@@ -877,6 +924,253 @@ def check_image_da(gen, dtype=None):
     return [rows[0], rows[1]]
 
 
+def library_warp_ms(xf, row):
+    """The library yardstick of K6, never called by the port: ``F.grid_sample``
+    (bilinear, zeros, ``align_corners=True``) of the images ``xf`` [B, 1, H,
+    W] in their dtype on a prebuilt grid, one warp stage (``row`` [B, 7]:
+    scale, shift) alone with cval 0."""
+    import torch
+    import torch.nn.functional as F
+
+    b, _, h, w = xf.shape
+    sx, sy, tx, ty = row[:, :4].unbind(-1)
+
+    def axis_grid(n, scale, shift):    # (j - c - shift) / scale + c -> [-1, 1]
+        c = (n - 1) / 2.0
+        j = torch.arange(n, device="cuda", dtype=torch.float32)
+        src = (j[None] - c - shift[:, None]) / scale[:, None] + c
+        return 2.0 * src / (n - 1) - 1.0
+
+    gx, gy = axis_grid(w, sx, tx), axis_grid(h, sy, ty)
+    grid = torch.stack([gx[:, None, :].expand(b, h, w),
+                        gy[:, :, None].expand(b, h, w)], -1).to(xf.dtype)
+    return cuda_ms(lambda: F.grid_sample(
+        xf, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+
+
+# K6's programs 1-3 -> the training phase whose launches their rows report
+PROGRAM_PATHS = {"pascal_1d": "Pascal ANP", "pascal_1d_fixed":
+                 "Pascal ANP fixed", "shapenet_1d_fixed": "ANP fixed"}
+# float operations a pixel of GammaContrast (the clamp's two, pow as a
+# logarithm, a multiply and an exponential) and of the blur's division
+GAMMA_OPS = 5
+
+
+def program_draw(program, gen, b):
+    """A call's raw draw for ``program`` with every gate on (the warps,
+    gamma, the blur at k = 3 for even images and 2 for odd ones, the
+    dropout op); Affine's nearest taps and Dropout or CoarseDropout as
+    drawn."""
+    import torch
+
+    from wmfml_tpu_torch.aug import image_aug
+
+    u, keys, _ = image_aug.Augmenter(program=program).sample(b, gen, "cuda")
+    u[:, 13] = u[:, 14] = u[:, 16] = 0.25
+    if u.shape[1] > 19:
+        u[:, 19] = u[:, 21] = 0.25
+        u[:, 22] = torch.where(torch.arange(b, device="cuda") % 2 == 0, 0.9,
+                               0.5)
+    return u, keys
+
+
+def pixel_work(program, p, h, w):
+    """(float operations, integer operations) of K6's ``program`` on this
+    draw: a multiply-add per nonzero (row tap, column tap) of each warp op
+    applied, and its fill (4 a pixel); GAMMA_OPS a pixel for gamma; k^2 - 1
+    adds and a division a pixel for the blur; the dropout op's hashes as
+    ``da_work``'s (the fixed grid's cells as CoarseDropout's)."""
+    import torch
+
+    from wmfml_tpu_torch.aug import image_aug
+    from wmfml_tpu_torch.kernels import image_da as kda
+
+    b = p.warp.shape[0]
+    fixed = kda.PROGRAM_ORDERS[program] == 1
+    flops = 0.0
+    for row in p.warp.unbind(1)[:1 if fixed else 2]:
+        gate = row[:, 6] > 0.5
+        st = image_aug.stages_from_params(row[:, None], [0])[0]
+        wy, wx = image_aug.stage_matrices(h, w, st["scale"], st["translate"],
+                                          st["nearest"], st["gate"])
+        taps = ((wy != 0).sum(-1).double()[:, :, None]
+                * (wx != 0).sum(-1).double()[:, None, :])
+        flops += float((2 * taps.sum((1, 2)) + 4 * h * w)[gate].sum())
+    if p.pixel is not None:
+        g_on, _, b_on, k = p.pixel.unbind(-1)
+        flops += float((g_on > 0.5).sum()) * GAMMA_OPS * h * w
+        kk = k[(b_on > 0.5) & (k > 1.5)].double()
+        flops += float((kk * kk).sum()) * h * w
+    gate, pick = p.drop[:, 0] > 0.5, p.drop[:, 1] > 0.5
+    if fixed:
+        gh, gw = image_aug.fixed_grid(h, w)
+        cells = torch.full((b,), float(gh * gw), dtype=torch.float64,
+                           device=p.drop.device)
+    else:
+        cells = (torch.clamp_min(torch.round(h * p.drop[:, 3]), 1.0)
+                 * torch.clamp_min(torch.round(w * p.drop[:, 3]), 1.0)
+                 ).double()
+    iops = float((gate & pick).sum()) * HASH_OPS * h * w + float(
+        (cells[gate & ~pick] * HASH_OPS + h * w).sum())
+    return flops, iops
+
+
+def check_image_da_programs(gen, programs=("pascal_1d", "shapenet_1d_fixed",
+                                           "pascal_1d_fixed"), tasks=10):
+    """K6's ``programs`` at the DA call's shape (the context slice of a [T,
+    30, 128, 128, 1] uint8 batch, 15 T images: 150 at T = 10, 600 at
+    ``tasks`` = 40), every gate on, against their
+    twins: each program's parameters bit for bit against its
+    ``params_from_draw`` (``params_for``) on the card; with the warps and
+    pixel ops off and the dropout op on (Dropout, then CoarseDropout), its
+    masks bit for bit against the twin on the card and on the CPU, float32
+    and bfloat16; Pascal1D's chain in 12 orders (the identity, the reverse
+    and 10 drawn) against the card twin and in 2 of them against the CPU
+    twin (``TOL["pixel_ops"]``), and in bfloat16 in 2 orders
+    (``check_bf16``); each fixed program against both twins in float32 and
+    bfloat16. Timed: Pascal1D's chain in its identity order and Pascal1D's
+    fixed program in float32 (P1's and its fixed twin's dtype), ShapeNet1D's
+    fixed program in bfloat16 (P3's); the library yardstick is
+    ``library_warp_ms`` of the program's first warp."""
+    import torch
+
+    from wmfml_tpu_torch.aug import image_aug
+    from wmfml_tpu_torch.kernels import image_da as kda
+
+    t_, s_, h, w = tasks, 15, 128, 128
+    b = t_ * s_
+    batch = torch.randint(0, 256, (t_, 2 * s_, h, w, 1), dtype=torch.uint8,
+                          generator=gen, device="cuda")
+    x = batch[:, :s_]
+    xc = x.cpu()
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    drawn = torch.randperm(118, generator=torch.Generator().manual_seed(3))
+    for program in programs:
+        fixed = kda.PROGRAM_ORDERS[program] == 1
+        u, keys = program_draw(program, gen, b)
+        uc, kc = u.cpu(), keys.cpu()
+        orders = ([None] if fixed else
+                  [0, 119] + [int(o) + 1 for o in drawn[:10]])
+
+        def order_t(o, dev="cuda"):
+            return None if o is None else torch.tensor([o], device=dev)
+
+        # the order tensors made once: a launch in the timed loops copies
+        # nothing from the host
+        on_card = {o: order_t(o) for o in orders}
+
+        def launch(uu, o, dtype=f32, **kw):
+            return kda.image_da_launch(x, uu, keys, on_card[o], dtype,
+                                       program=program, **kw)
+
+        def twin(uu, o, dtype=f32, cpu=False):
+            if cpu:
+                return kda.image_da_plain(xc, uu.cpu(), kc, order_t(o, "cpu"),
+                                          dtype, program)
+            return kda.image_da_plain(x, uu, keys, on_card[o], dtype,
+                                      program)
+
+        got_p = torch.empty((b, kda.nparams(program)), device="cuda")
+        launch(u, orders[0], params_out=got_p)
+        p = image_aug.params_for(program, u, keys, on_card[orders[0]], h, w)
+        want_p = image_aug.params_row(p)
+        torch.cuda.synchronize()
+        if not torch.equal(got_p.view(torch.int32), want_p.view(torch.int32)):
+            raise AssertionError(f"image_da {program}: its parameters differ "
+                                 f"from the twin's at "
+                                 f"{int((got_p != want_p).sum())} entries")
+        dropped = {}
+        for pick, kind in ((0.25, "Dropout"), (0.75, "CoarseDropout")):
+            um = u.clone()
+            um[:, 13] = um[:, 14] = 0.75
+            if um.shape[1] > 19:
+                um[:, 19] = um[:, 21] = 0.75
+            um[:, 17] = pick
+            for dtype, bits in ((f32, torch.int32), (bf16, torch.int16)):
+                for o in orders[:2]:
+                    got = launch(um, o, dtype).cpu()
+                    for want in (twin(um, o, dtype).cpu(),
+                                 twin(um, o, dtype, cpu=True)):
+                        if not torch.equal(got.view(bits), want.view(bits)):
+                            raise AssertionError(
+                                f"image_da {program} ({kind}, {dtype}, order "
+                                f"{o}): the mask differs from the twin's at "
+                                f"{int((got != want).sum())} elements")
+            dropped[kind] = float((got == 0).double().mean()
+                                  - (xc == 0).double().mean())
+        worst = {"card twin": 0.0, "CPU twin": 0.0}
+        for i, o in enumerate(orders):
+            got = launch(u, o)
+            err, _ = check_close("pixel_ops", got, twin(u, o))
+            worst["card twin"] = max(worst["card twin"], err)
+            if i < 2:
+                err, _ = check_close("pixel_ops", got.cpu(),
+                                     twin(u, o, cpu=True))
+                worst["CPU twin"] = max(worst["CPU twin"], err)
+            if torch.equal(got.cpu(), image_aug.to_unit(xc)):
+                raise AssertionError(f"image_da {program}: order {o} left "
+                                     f"the images unchanged")
+        # each Pascal1D op rounds to bfloat16 at its end: a sum near a
+        # rounding boundary that rounds the other way moves on through the
+        # next warp, gamma and the blur's window, so no per-element ulp
+        # bound there, the rule alone; ShapeNet1D's fixed program (one
+        # warp, then the mask) keeps it, as program 0 does
+        bf16_err = [check_bf16(f"image_da {program} order {o}",
+                               launch(u, o, bf16), twin(u, o, bf16),
+                               twin(u, o),
+                               element_ulps=program == "shapenet_1d_fixed")[0]
+                    for o in orders[:2]]
+        log(f"kernel: image_da {program}: parameters bit for bit; masks bit "
+            f"for bit in float32 and bfloat16 (share of pixels dropped beyond "
+            f"the zeros of x: {dropped}); float32 in {len(orders)} order(s) "
+            f"{orders}: max abs err {worst} (atol, rtol "
+            f"{TOL['pixel_ops']}); bfloat16 in {orders[:2]}: max abs err "
+            f"{bf16_err} (the bfloat16 rule)")
+
+        dtype = bf16 if program == "shapenet_1d_fixed" else f32
+        o = orders[0]
+        got = launch(u, o, dtype)
+        want = twin(u, o, dtype)
+        err = (got.float() - want.float()).abs().max().item()
+        times = in_turns({"ms": lambda: launch(u, o, dtype),
+                          "plain_ms": lambda: twin(u, o, dtype)})
+        names = set()
+        times.update(device_profile(lambda: launch(u, o, dtype),
+                                    names=names))
+        if len(names) != 1 or times["kernels_per_call"] != 1:
+            raise AssertionError(f"image_da {program} issued "
+                                 f"{times['kernels_per_call']} kernels per "
+                                 f"call: {sorted(names)}")
+        xf = (xc.float() / 255.0).reshape(b, 1, h, w).cuda().to(dtype)
+        library_ms = library_warp_ms(xf, p.warp[:, 0])
+        flops, iops = pixel_work(program, p, h, w)
+        nbytes = (1 + xf.element_size()) * x.numel() + 4 * (
+            u.numel() + keys.numel()) + (0 if fixed else 8)
+        t_ops = max(flops / PEAK_F32_FLOPS, iops / PEAK_INT32_OPS)
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        order_txt = ("fixed order" if fixed else
+                     f"order {image_aug.PASCAL_ORDERS[o]}")
+        ids = _rows(f"image_da_{program}", dtype, PROGRAM_PATHS[program]
+                    + ("" if tasks == 10 else f" T{tasks}"), tasks)
+        ids["kernel"] = "image_da"
+        rows.append(dict(
+            **ids, tol="pixel_ops", program=program,
+            shape=f"[{t_}, 15 of 30, 128, 128, 1] uint8 -> {dtype}, "
+                  f"{order_txt}, every gate on",
+            source="wmfml_tpu_torch/csrc/image_da.cu",
+            replaces=("wmfml_tpu/aug/image_aug.py:578" if fixed else
+                      "wmfml_tpu/aug/image_aug.py:569"),
+            library="F.grid_sample, bilinear, zeros, one warp stage, cval 0",
+            max_abs_err=err, max_rel_err=None, max_abs_err_orders=worst,
+            **times, library_ms=library_ms,
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_f32_ms=max(t_ops, t_bytes) * 1e3, flops=flops,
+            int_ops=iops, dropped_share=dropped))
+    return rows
+
+
 # a kernel wrapper -> the kernel function whose nodes in a captured graph
 # (and events in a trace) count its launches: K3's call also packs its
 # weights and runs one conv_kernel a layer, then one bn_relu_kernel
@@ -933,7 +1227,8 @@ def check_launches(trainer, launches):
     k = fused.k
     sweeps = sum(1 for it in range(0, trainer.step, k)
                  if it % cfg.val_freq < k)
-    want = {name: trainer.step * n + 2 * sweeps * cfg.val_iters
+    splits = 1 if cfg.task == "pascal_1d" else 2     # Pascal1D: no test
+    want = {name: trainer.step * n + splits * sweeps * cfg.val_iters
             * episode.get(name, 0) for name, n in step.items()}
     captured = {name: k * n for name, n in step.items()}
     tag = cfg.method + (" bf16" if cfg.compute_dtype == "bfloat16" else "")
@@ -978,9 +1273,11 @@ def train_phase(card, yaml, overrides, counters):
     """Drive one path through ``train_cli``'s trainer, which trains through
     CUDA graph replays (``FusedSteps``); return (trainer, launches per
     kernel on the card in that run, the graph's nodes). In ``compute_dtype: bfloat16`` every
-    launch must have been a bfloat16 one. The captured graph's DOT must
-    hold as many nodes of each kernel as the capture issued, and a trace of
-    one more replay must show them."""
+    launch must have been a bfloat16 one, and every K6 launch one of the
+    path's program (its task's, ``_fixed`` for ``aug_random_order:
+    false``). The captured graph's DOT must hold as many nodes of each
+    kernel as the capture issued, and a trace of one more replay must show
+    them."""
     import tempfile
 
     import torch
@@ -991,6 +1288,8 @@ def train_phase(card, yaml, overrides, counters):
     config = Config(yaml, overrides)
     for fn in counters.values():
         fn.launches = fn.bf16_launches = 0
+        if hasattr(fn, "program_launches"):
+            fn.program_launches = dict.fromkeys(fn.program_launches, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = train_cli.build_trainer(config)
@@ -1009,12 +1308,21 @@ def train_phase(card, yaml, overrides, counters):
     if in_bf16 != (issued if bf16 else {k: 0 for k in issued}):
         raise AssertionError(f"{config.method} in {config.compute_dtype}: "
                              f"launches {issued}, in bfloat16 {in_bf16}")
+    program = config.task + ("" if config.aug_random_order else "_fixed")
+    by_program = counters["image_da"].program_launches
+    if by_program[program] != issued["image_da"]:
+        raise AssertionError(f"{config.method}: K6 launches by program "
+                             f"{by_program}, {issued['image_da']} in all; the "
+                             f"path's program is {program}")
 
     with open(os.path.join(config.save_path, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     tags = {r["tag"] for r in records}
-    if not {"Loss/train", "Loss/validation", "Loss/test"} <= tags:
-        raise AssertionError(f"missing metrics: {sorted(tags)}")
+    want_tags = {"Loss/train", "Loss/validation"} | (
+        set() if config.task == "pascal_1d" else {"Loss/test"})
+    if not want_tags <= tags or "Loss/test" in tags - want_tags:
+        raise AssertionError(f"metrics: {sorted(tags)}, want "
+                             f"{sorted(want_tags)}")
     if not all(math.isfinite(r["value"]) for r in records):
         raise AssertionError(f"non-finite loss in {records}")
     steps, secs = trainer.timing["steps"], trainer.timing["seconds"]
@@ -1025,7 +1333,12 @@ def train_phase(card, yaml, overrides, counters):
         raise AssertionError(f"{config.method}: no graph replay in "
                              f"{fused.calls} calls")
     ms_step = 1e3 * secs / steps
-    tag = config.method + (" bf16" if bf16 else "")
+    tag = config.method + (" bf16" if bf16 else "") + (
+        "" if config.aug_random_order else " fixed order") + (
+        f" T={config.tasks_per_batch}" if config.tasks_per_batch != 10
+        else "")
+    log(f"train {tag}: K6 program {program}, {by_program[program]} "
+        f"host-issued launches")
     log(f"train {tag}: {trainer.step} steps in {wall:.3f} s wall, "
         f"{fused.k} a call: {fused.warm_calls} eager warm-up call(s), the "
         f"capture, {fused.replays} replay(s); {ms_step} ms/step, "
@@ -1188,26 +1501,76 @@ def check_trained_output(trainer):
         raise AssertionError(f"card and CPU outputs differ by {err}")
 
 
-def check_maml_validation(trainer):
-    """The trained MAML model's validation loss (20 inner steps, degrees) on
-    one episode: the card (kernels) against the CPU (plain twins)."""
+def check_validation_loss(trainer):
+    """The trained model's validation loss on one episode (MAML: after 20
+    inner steps; ShapeNet1D in degrees, Pascal1D's MSE of labels x 10): the
+    card (kernels) against the CPU (plain twins)."""
     import copy
 
     from wmfml_tpu_torch.train.maml import build_maml_eval_step
+    from wmfml_tpu_torch.train.steps import build_eval_step
     from wmfml_tpu_torch.train.trainer import episode_to_device
 
     cfg, data = trainer.config, trainer.data
     data.reset_eval("validation", seed=42)
     raw = data.get_batch("validation", cfg.tasks_per_batch, cfg.max_ctx_num)
     got = float(trainer.eval_step(episode_to_device(raw, "cuda")))
-    cpu_step = build_maml_eval_step(copy.deepcopy(trainer.model).cpu(), cfg)
+    build = build_maml_eval_step if "MAML" in cfg.method else build_eval_step
+    cpu_step = build(copy.deepcopy(trainer.model).cpu(), cfg)
     want = float(cpu_step(episode_to_device(raw, "cpu")))
     err = abs(got - want)
-    log(f"output: MAML validation loss on one episode: card {got}, CPU "
-        f"{want} degrees; abs err {err} (tolerance {VAL_TOL} x |CPU| + "
-        f"{VAL_TOL})")
+    log(f"output: {cfg.method} ({cfg.task}) validation loss on one episode: "
+        f"card {got}, CPU {want}; abs err {err} (tolerance {VAL_TOL} x |CPU| "
+        f"+ {VAL_TOL})")
     if not math.isfinite(got) or err > VAL_TOL * (abs(want) + 1.0):
-        raise AssertionError(f"MAML validation loss: card {got}, CPU {want}")
+        raise AssertionError(f"{cfg.method} validation loss: card {got}, CPU "
+                             f"{want}")
+
+
+def check_pascal_evaluation(trainer):
+    """``evaluation_cli`` over P1's final checkpoint with P1's YAML
+    (``mode=eval``): 15 context points, ``val_iters`` episodes each,
+    validation only; ``val_losses.txt`` must hold 15 finite rows of 3
+    columns and no ``test_losses.txt`` may be written (Pascal1D has no test
+    split); the last point's loss against the same evaluation on the
+    CPU."""
+    import copy
+
+    import numpy as np
+
+    from wmfml_tpu_torch.cli import evaluation_cli
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.data.factory import build_data
+    from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
+    from wmfml_tpu_torch.models.registry import build_model
+
+    ckpt = trainer.ckpt.path(f"model_end_{trainer.config.iterations}")
+    config = Config(PASCAL_YAML, PASCAL_EVAL_OVERRIDES + [f"checkpoint={ckpt}"])
+    t0 = time.perf_counter()
+    val, test = evaluation_cli.evaluate(config)
+    wall = time.perf_counter() - t0
+    n = config.max_ctx_num
+    arr = np.loadtxt(os.path.join(config.save_path, "val_losses.txt"))
+    if (arr.shape != (n, 3) or not np.isfinite(arr).all()
+            or list(arr[:, 0]) != list(range(1, n + 1)) or test
+            or os.path.exists(os.path.join(config.save_path,
+                                           "test_losses.txt"))):
+        raise AssertionError(f"Pascal1D evaluation: val_losses {arr.shape}, "
+                             f"test {test}, files "
+                             f"{sorted(os.listdir(config.save_path))}")
+    cpu_cfg = copy.copy(config)
+    cpu_cfg.device = "cpu"
+    cpu_eval = ModelEvaluator(build_model(cpu_cfg), cpu_cfg,
+                              build_data(cpu_cfg))
+    want, _ = cpu_eval._validate_iter("validation", n)
+    err = abs(val[n - 1] - want)
+    log(f"eval: {config.method} over {ckpt}, ctx 1..{n}, {config.val_iters} "
+        f"episodes a point, validation only (no test file), in {wall} s; "
+        f"validation loss {val}; at ctx {n}: card {val[n - 1]}, CPU {want}, "
+        f"abs err {err} (tolerance {VAL_TOL} x |CPU| + {VAL_TOL})")
+    if err > VAL_TOL * (abs(want) + 1.0):
+        raise AssertionError(f"Pascal1D evaluation: card {val[n - 1]}, CPU "
+                             f"{want}")
 
 
 def check_bf16_validation(trainer, tasks=None):
@@ -1316,7 +1679,9 @@ def graph_equals_loop(yaml, overrides, calls=3):
                        + [v for s in state.values() for v in s.values()]
                        + [tr.generator.get_state()])
     differ = sum(not torch.equal(a, b) for a, b in zip(*tensors))
-    tag = cfg.method + (" bf16" if cfg.compute_dtype == "bfloat16" else "")
+    tag = cfg.method + (" bf16" if cfg.compute_dtype == "bfloat16" else "") + (
+        "" if cfg.aug_random_order else " fixed order") + (
+        f" T={cfg.tasks_per_batch}" if cfg.tasks_per_batch != 10 else "")
     log(f"graph vs loop {tag}: {calls} calls of {fused.k} steps ({fused.replays} "
         f"replays): metrics, {len(tensors[0]) - 1} weight and Adam tensors and "
         f"the generator state, {differ} of them differ")
@@ -1622,7 +1987,7 @@ def main(argv):
     from wmfml_tpu_torch.kernels import build
     from wmfml_tpu_torch.kernels.favor import favor_attention
     from wmfml_tpu_torch.kernels.features import maml_features
-    from wmfml_tpu_torch.kernels.image_da import image_da
+    from wmfml_tpu_torch.kernels.image_da import PROGRAMS, image_da
     from wmfml_tpu_torch.kernels.stem import literature_stem
     from wmfml_tpu_torch.models.registry import build_model
 
@@ -1643,8 +2008,9 @@ def main(argv):
         f"favor {libs['favor'].wmfml_favor_smem_bytes(15, 15, 64, 266)} B used "
         f"of the 231424 B it requests (Nq = Nk = 15, m = 266); favor "
         f"co-resident blocks {libs['favor'].wmfml_favor_coresident()}, "
-        f"image_da {libs['image_da'].wmfml_image_da_smem_bytes(128, 128)} B "
-        f"(128 x 128)")
+        f"image_da (128 x 128) " + ", ".join(
+            f"{p} {libs['image_da'].wmfml_image_da_smem_bytes(i, 128, 128)} B"
+            for i, p in enumerate(PROGRAMS)))
     for name, text in build.ptxas_log.items():
         for line in text.splitlines():
             if any(k in line for k in ("entry function", "registers",
@@ -1669,6 +2035,15 @@ def main(argv):
              check_stem_per_task(maml, gen_bf16, bf),
              check_features(maml, gen_bf16, bf),
              *check_image_da(gen_bf16, bf)]
+    # K6's programs 1-3, from a generator of their own
+    rows += check_image_da_programs(torch.Generator(device="cuda")
+                                    .manual_seed(2))
+    # P3 at T = 40: K1, K2 and K6's ShapeNet1D fixed program in bfloat16 at
+    # that path's shapes (1,200 images, T = 40, 600 images a DA call)
+    gen_t40 = torch.Generator(device="cuda").manual_seed(4)
+    rows += [check_stem(anp, gen_t40, bf, 40, "ANP fixed T40"),
+             check_favor(anp, gen_t40, bf, 40, "ANP fixed T40"),
+             *check_image_da_programs(gen_t40, ("shapenet_1d_fixed",), 40)]
     floor = floor_ms()
     log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
         f"time, the least any launch takes on this card")
@@ -1709,7 +2084,7 @@ def main(argv):
 
     mtrainer, maml_launches, maml_nodes = train_phase(
         card, MAML_YAML, MAML_OVERRIDES, maml_kernels)
-    check_maml_validation(mtrainer)
+    check_validation_loss(mtrainer)
     torch.use_deterministic_algorithms(True)
     try:
         replayed = replay_maml()
@@ -1736,26 +2111,63 @@ def main(argv):
     dtype_turns({"ANPShapeNet1D": (trainer, btrainer),
                  "MAMLShapeNet1D": (mtrainer, bmtrainer)}, calls=2)
 
+    # phase 13: the Pascal1D and fixed-order paths (K6's programs 1-3)
+    ptrainer, pascal_launches, pascal_nodes = train_phase(
+        card, PASCAL_YAML, PASCAL_OVERRIDES, anp_kernels)
+    check_validation_loss(ptrainer)
+    check_pascal_evaluation(ptrainer)
+    pftrainer, pascal_fixed, pascal_fixed_nodes = train_phase(
+        card, PASCAL_YAML, PASCAL_FIXED_OVERRIDES, anp_kernels)
+    check_validation_loss(pftrainer)
+    pmtrainer, pascal_maml, pascal_maml_nodes = train_phase(
+        card, PASCAL_MAML_YAML, PASCAL_MAML_OVERRIDES, maml_kernels)
+    check_validation_loss(pmtrainer)
+    ftrainer, anp_fixed, anp_fixed_nodes = train_phase(
+        card, PERF_ANP_YAML, PERF_ANP_OVERRIDES, anp_kernels)
+    check_bf16_validation(ftrainer)
+    f40trainer, anp_fixed40, anp_fixed40_nodes = train_phase(
+        card, PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES, anp_kernels)
+    check_bf16_validation(f40trainer)
+
     # graph replays against the same steps issued from the host
     for yaml, overrides in ((MAIN_YAML, TRAIN_OVERRIDES),
                             (MAIN_YAML, BF16_OVERRIDES),
                             (MAML_YAML, MAML_OVERRIDES),
-                            (PERF_MAML_YAML, PERF_MAML_OVERRIDES)):
+                            (PERF_MAML_YAML, PERF_MAML_OVERRIDES),
+                            (PASCAL_YAML, PASCAL_OVERRIDES),
+                            (PERF_ANP_YAML, PERF_ANP_OVERRIDES),
+                            (PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES)):
         graph_equals_loop(yaml, overrides)
     graph_loop_turns(
         {"ANPShapeNet1D": trainer, "ANPShapeNet1D bf16": btrainer,
-         "MAMLShapeNet1D": mtrainer, "MAMLShapeNet1D bf16": bmtrainer},
+         "MAMLShapeNet1D": mtrainer, "MAMLShapeNet1D bf16": bmtrainer,
+         "ANPVanillaPascal1D": ptrainer, "VanillaMAML Pascal1D": pmtrainer,
+         "ANPShapeNet1D fixed bf16": ftrainer,
+         "ANPShapeNet1D fixed bf16 T40": f40trainer},
         calls={"ANPShapeNet1D": 4, "ANPShapeNet1D bf16": 2,
-               "MAMLShapeNet1D": 2, "MAMLShapeNet1D bf16": 2},
+               "MAMLShapeNet1D": 2, "MAMLShapeNet1D bf16": 2,
+               "ANPVanillaPascal1D": 4, "VanillaMAML Pascal1D": 2,
+               "ANPShapeNet1D fixed bf16": 2,
+               "ANPShapeNet1D fixed bf16 T40": 1},
         nodes={"ANPShapeNet1D": anp_nodes, "ANPShapeNet1D bf16": anp_bf16_nodes,
                "MAMLShapeNet1D": maml_nodes,
-               "MAMLShapeNet1D bf16": maml_bf16_nodes},
+               "MAMLShapeNet1D bf16": maml_bf16_nodes,
+               "ANPVanillaPascal1D": pascal_nodes,
+               "VanillaMAML Pascal1D": pascal_maml_nodes,
+               "ANPShapeNet1D fixed bf16": anp_fixed_nodes,
+               "ANPShapeNet1D fixed bf16 T40": anp_fixed40_nodes},
         profile="--profile" in argv)
 
     launches = {"ANP": anp_launches, "MAML": maml_launches,
-                "ANP bf16": anp_bf16, "MAML bf16": maml_bf16}
+                "ANP bf16": anp_bf16, "MAML bf16": maml_bf16,
+                "Pascal ANP": pascal_launches, "Pascal ANP fixed": pascal_fixed,
+                "Pascal MAML": pascal_maml, "ANP fixed bf16": anp_fixed,
+                "ANP fixed T40 bf16": anp_fixed40}
     for r in rows:
         r["launches"] = launches[r["path"]][r["kernel"]]
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']}: no launch on the {r['path']} "
+                                 f"path")
     log(f"profile: {TRACES['taken']} traces of torch.profiler, "
         f"{TRACES['empty']} holding no device event, {TRACES['short']} "
         f"fewer device events than their kernels imply")

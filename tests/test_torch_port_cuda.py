@@ -45,7 +45,8 @@ from torch_port_adam import optax_adam
 from wmfml_tpu_torch.aug import image_aug
 from wmfml_tpu_torch.cli import train_cli
 from wmfml_tpu_torch.configs import Config
-from wmfml_tpu_torch.data.synthetic import generate_shapenet1d
+from wmfml_tpu_torch.data.synthetic import (generate_pascal1d,
+                                            generate_shapenet1d)
 from wmfml_tpu_torch.kernels import favor, features, image_da, stem
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import KERNELS
@@ -760,12 +761,197 @@ def test_bf16_augmenter_counts_its_launches_and_reads_nothing_back(dev):
     assert out.shape == x.shape and out.dtype == BF16
 
 
+# -- K6's programs 1-3: Pascal1D's chain and the fixed-order pipelines ------
+
+NEW_PROGRAMS = ("pascal_1d", "shapenet_1d_fixed", "pascal_1d_fixed")
+# float32: every term of every sum is nonnegative (taps, fill, windows), so
+# kernel and twin differ by a few float32 ulps of each value, powf by a few
+# more (the card's and the CPU's pow are not bit-equal), and gamma <= 2 at
+# most doubles a relative error: within the warps' 1e-5
+PIXEL_TOL = WARP_TOL
+
+
+def _program_draw(dev, program, b, seed=0, on=True):
+    """A call's raw draw for ``program`` with every gate on (``on``: warps,
+    gamma, blur at k = 3 for half the images and 2 for the rest, the
+    dropout op) or every gate off."""
+    aug = image_aug.Augmenter(program=program)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u, keys, order = aug.sample(b, g, dev)
+    u[:, 13:17] = 0.25 if on else 0.75
+    if u.shape[1] > 19:
+        u[:, 19] = u[:, 21] = 0.25 if on else 0.75
+        u[:, 22] = torch.where(torch.arange(b, device=dev) % 2 == 0, 0.9,
+                               0.5)
+    return u, keys, order
+
+
+def _pascal_order(dev, order):
+    return torch.tensor([order], device=dev)
+
+
+@pytest.mark.parametrize("program", NEW_PROGRAMS)
+@pytest.mark.parametrize("shape", [(10, 15, 128, 128, 1), (3, 48, 24, 1)])
+def test_image_da_new_programs_match_their_twins(dev, program, shape):
+    b = shape[0] * shape[1] if len(shape) == 5 else shape[0]
+    u, keys, order = _program_draw(dev, program, b, seed=len(shape))
+    x = _images(dev, shape)
+    orders = [None] if order is None else [_pascal_order(dev, o)
+                                           for o in (0, 119, 57)]
+    for o in orders:
+        got = image_da.image_da_launch(x, u, keys, o, program=program)
+        _close(got, image_da.image_da_plain(x, u, keys, o, program=program),
+               *PIXEL_TOL)
+        _close(got.cpu(), image_da.image_da_plain(
+            x.cpu(), u.cpu(), keys.cpu(), None if o is None else o.cpu(),
+            program=program), *PIXEL_TOL)
+        assert not torch.equal(got.cpu(), image_aug.to_unit(x.cpu()))
+
+
+@pytest.mark.parametrize("program", NEW_PROGRAMS)
+def test_image_da_new_programs_parameters_equal_the_twins_bit_for_bit(
+        dev, program):
+    u, keys, order = _program_draw(dev, program, 150, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    u = torch.where(torch.rand(u.shape, generator=g, device=dev) < 0.5, u,
+                    torch.rand(u.shape, generator=g, device=dev))
+    x = _images(dev, (150, 128, 128, 1))
+    out = torch.empty((150, image_da.nparams(program)), device=dev)
+    image_da.image_da_launch(x, u, keys, order, params_out=out,
+                             program=program)
+    want = image_aug.params_row(image_aug.params_for(program, u, keys, order,
+                                                     128, 128))
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("pick", [0.25, 0.75])    # Dropout, CoarseDropout
+@pytest.mark.parametrize("program", NEW_PROGRAMS)
+def test_image_da_new_programs_masks_equal_the_twin_bit_for_bit(dev, program,
+                                                                 pick):
+    """Warps, gamma and blur off (the fixed programs' one warp is then the
+    identity), the dropout op on: the output is x / 255 masked, bit for
+    bit, in float32 and in bfloat16 (the fixed grid's hashed cells, or the
+    random-size grid's, or Dropout's pixels)."""
+    u, keys, order = _program_draw(dev, program, 150, seed=9, on=False)
+    u[:, 16], u[:, 17] = 0.25, pick              # the dropout op on
+    u[:, 10], u[:, 11] = 5.0, 9.0                # rates ~.46 and .45
+    x = _images(dev, (150, 128, 128, 1))
+    orders = [None] if order is None else [_pascal_order(dev, o)
+                                           for o in (0, 33, 119)]
+    for dtype, bits in ((torch.float32, torch.int32), (BF16, torch.int16)):
+        for o in orders:
+            got = image_da.image_da_launch(x, u, keys, o, dtype,
+                                           program=program).cpu()
+            want = image_da.image_da_plain(
+                x.cpu(), u.cpu(), keys.cpu(), None if o is None else o.cpu(),
+                dtype, program)
+            assert torch.equal(got.view(bits), want.view(bits))
+            assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+@pytest.mark.parametrize("program", NEW_PROGRAMS)
+def test_image_da_new_programs_with_every_gate_off_are_x_over_255(dev,
+                                                                  program):
+    u, keys, order = _program_draw(dev, program, 30, seed=2, on=False)
+    x = _images(dev, (2, 15, 128, 128, 1))
+    got = image_da.image_da_launch(x, u, keys, order, program=program)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), x.cpu().float() / 255.0)
+
+
+@pytest.mark.parametrize("program", NEW_PROGRAMS)
+def test_image_da_new_programs_bf16_match_their_twins(dev, program):
+    """Each op rounds to bfloat16 where the JAX op returns img.dtype; the
+    kernel and the twin round at the same points after float32 sums in
+    another order: the module docstring's bfloat16 rule."""
+    u, keys, order = _program_draw(dev, program, 150, seed=6)
+    x = _images(dev, (10, 15, 128, 128, 1))
+    orders = [None] if order is None else [_pascal_order(dev, o)
+                                           for o in (0, 119, 70)]
+    for o in orders:
+        got = image_da.image_da_launch(x, u, keys, o, BF16, program=program)
+        assert got.dtype == BF16
+        for dev_ in ("cuda", "cpu"):
+            oo = None if o is None else o.to(dev_)
+            want = image_da.image_da_plain(x.to(dev_), u.to(dev_),
+                                           keys.to(dev_), oo, BF16, program)
+            want_f32 = image_da.image_da_plain(x.to(dev_), u.to(dev_),
+                                               keys.to(dev_), oo,
+                                               torch.float32, program)
+            g = got.to(dev_)
+            err, own = (g.float() - want.float()).abs(), (
+                want.float() - want_f32).abs()
+            bound = 2 * float(own.max()) + 2.0 ** -7 * float(
+                want_f32.abs().max())
+            assert float(err.max()) <= bound, (dev_, float(err.max()), bound)
+            assert float(err.mean()) <= float(own.mean())
+
+
+def test_pascal_program_is_one_launch_in_every_order_sampled(dev):
+    """24 orders drawn as the augmenter draws them, the identity and the
+    reverse added: each call one launch (the counters, by program) and the
+    twin's result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    aug = image_aug.Augmenter(program="pascal_1d")
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = _images(dev, (10, 15, 128, 128, 1))
+    u, keys, _ = _program_draw(dev, "pascal_1d", 150, seed=12)
+    orders = [0, 119] + [int(aug.sample(1, g, dev)[2]) for _ in range(24)]
+    for o in orders:
+        before = dict(image_da.image_da.program_launches)
+        total = image_da.image_da.launches
+        order = _pascal_order(dev, o)     # its host copy outside the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = image_da.image_da(x, u, keys, order, program="pascal_1d")
+            torch.cuda.synchronize()
+        after = image_da.image_da.program_launches
+        assert after["pascal_1d"] == before["pascal_1d"] + 1
+        assert image_da.image_da.launches == total + 1
+        assert all(after[p] == before[p] for p in after if p != "pascal_1d")
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) <= 1 and all("image_da_kernel" in n for n in names)
+        _close(got.cpu(), image_da.image_da_plain(
+            x.cpu(), u.cpu(), keys.cpu(), torch.tensor([o]),
+            program="pascal_1d"), *PIXEL_TOL)
+
+
+def test_new_augmenters_read_nothing_back_to_the_host(dev):
+    x = _images(dev, (10, 15, 128, 128, 1))
+    augs = [image_aug.Augmenter(program="pascal_1d"),
+            image_aug.Augmenter(BF16, "shapenet_1d_fixed"),
+            image_aug.Augmenter(program="pascal_1d_fixed")]
+    g = torch.Generator(device=dev).manual_seed(0)
+    for aug in augs:
+        aug(x, g)                                # builds and loads K6
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [aug(x, g) for aug in augs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [o.dtype for o in outs] == [torch.float32, BF16, torch.float32]
+
+
+def test_fixed_programs_refuse_a_grid_that_does_not_divide_the_image(dev):
+    u, keys, _ = _program_draw(dev, "shapenet_1d_fixed", 2)
+    with pytest.raises(ValueError, match="A12c"):
+        image_da.image_da(_images(dev, (2, 50, 48, 1)), u, keys, None,
+                          program="shapenet_1d_fixed")
+
+
 # -- K training steps as one CUDA graph replay (train/steps.py:FusedSteps) --
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")
 PERF_MAML_YAML = os.path.join(REPO, "cfg", "train", "perf",
                               "MAML_DA_ShapeNet1D_tpu.yaml")
+PERF_ANP_YAML = os.path.join(REPO, "cfg", "train", "perf",
+                             "ANP_DA+TA_ShapeNet1D_tpu.yaml")
+PASCAL_ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_Pascal1D.yaml")
 # a kernel wrapper -> the kernel function whose graph nodes count its
 # launches (K3's call also packs its weights and runs one conv_kernel a layer)
 GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
@@ -801,6 +987,17 @@ def graph_data(tmp_path_factory):
     return root
 
 
+@pytest.fixture(scope="module")
+def pascal_data(tmp_path_factory):
+    """A small synthetic Pascal1D split with room for 15 + 15."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = str(tmp_path_factory.mktemp("pascal"))
+    generate_pascal1d(root, seed=5, train_classes=3, val_classes=2,
+                      instances=31)
+    return root
+
+
 def _graph_config(data, yaml, *overrides):
     return Config(yaml, [f"data_path={data}", "data_size=small",
                          "device=cuda", "val_freq=1000", "val_iters=1",
@@ -821,8 +1018,10 @@ def _assert_equal_states(a, b):
     assert torch.equal(a[2], b[2])
 
 
-@pytest.mark.parametrize("path", ["anp_f32", "anp_bf16", "maml_bf16"])
+@pytest.mark.parametrize("path", ["anp_f32", "anp_bf16", "maml_bf16",
+                                  "pascal_anp", "anp_fixed_bf16"])
 def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
+                                                        pascal_data,
                                                         tmp_path, monkeypatch,
                                                         path):
     """Three calls at K = 4 (one eager warm-up, the capture and its replay,
@@ -840,11 +1039,17 @@ def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
     yaml, extra = {"anp_f32": (ANP_YAML, ["steps_per_call=4"]),
                    "anp_bf16": (ANP_YAML, ["steps_per_call=4",
                                            "compute_dtype=bfloat16"]),
-                   "maml_bf16": (PERF_MAML_YAML, [])}[path]
+                   "maml_bf16": (PERF_MAML_YAML, []),
+                   # P1 as shipped (Pascal1D's five-op chain) and P3 (the
+                   # perf YAML: bf16, fixed order) at K = 4
+                   "pascal_anp": (PASCAL_ANP_YAML, ["steps_per_call=4"]),
+                   "anp_fixed_bf16": (PERF_ANP_YAML,
+                                      ["steps_per_call=4"])}[path]
+    data = pascal_data if path == "pascal_anp" else graph_data
     torch.use_deterministic_algorithms(True)
     try:
         first, graph, loop = (train_cli.build_trainer(
-            _graph_config(graph_data, yaml, *extra)) for _ in range(3))
+            _graph_config(data, yaml, *extra)) for _ in range(3))
         first.train_step.loop(first.generator)
         assert graph.train_step.k == 4
         for _ in range(3):

@@ -3,9 +3,11 @@
   * the port and ``chip_smoke.py`` import neither JAX nor the JAX package;
   * entry points run on ``cuda`` unless the caller asks for the CPU, and with
     no card they raise instead of falling back;
-  * what is not ported raises and names its ROADMAP item: the fixed-order
-    DA pipeline, DA for other tasks, bf16 compute, other tasks and methods;
-    the shipped ShapeNet1D YAMLs, image DA included, build as they are.
+  * what is not ported raises and names its ROADMAP item: DA (random or
+    fixed order) for the Distractor and ShapeNet3D tasks, other compute
+    dtypes, other tasks and methods; the shipped ShapeNet1D and Pascal1D
+    YAMLs, image DA and the fixed-order perf YAMLs included, build as they
+    are.
 """
 
 import ast
@@ -82,46 +84,74 @@ def test_without_a_card_entry_points_raise(monkeypatch, tmp_path):
 
 
 def test_image_data_augmentation_raises():
-    """Image DA builds for shapenet_1d, as the shipped YAML asks; what is
-    not ported of it raises and names its ROADMAP item."""
+    """Image DA builds for shapenet_1d and pascal_1d, in random order (the
+    shipped YAMLs) and in the fixed order (``aug_random_order: false``);
+    DA for the tasks not ported raises and names its ROADMAP item."""
     process = build_episode_processor("shapenet_1d", ["task_aug", "data_aug"],
                                       train=True)
-    assert process.augment is not None
+    assert process.augment.program == "shapenet_1d"
     cfg = Config(MAIN_YAML, ["device=cpu", "dim_w=16"], make_dirs=False)
     assert cfg.aug_list == ["task_aug", "data_aug"]    # the shipped YAML
     assert cfg.aug_random_order is True
     model = build_model(cfg)
     build_train_step(model, torch.optim.Adam(model.parameters()), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A20"):
-        Config(MAIN_YAML, ["device=cpu", "aug_random_order=false"],
-               make_dirs=False)
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_episode_processor("pascal_1d", ["data_aug"], train=True)
-    with pytest.raises(NotImplementedError, match="A12"):
+    cfg = Config(MAIN_YAML, ["device=cpu", "aug_random_order=false"],
+                 make_dirs=False)
+    assert build_episode_processor(
+        cfg.task, cfg.aug_list, train=True,
+        aug_random_order=cfg.aug_random_order).augment.program == \
+        "shapenet_1d_fixed"
+    assert build_episode_processor("pascal_1d", ["data_aug"], train=True
+                                   ).augment.program == "pascal_1d"
+    with pytest.raises(NotImplementedError, match="A12b"):
         build_augmenter("distractor")
+    with pytest.raises(NotImplementedError, match="A12c"):
+        build_augmenter("shapenet_3d", random_order=False)
 
 
 def test_fixed_order_perf_yaml_raises_instead_of_running_random_order():
     """``aug_random_order: false`` selects the JAX package's fused
-    fixed-order pipeline; the port has only the random-order one and must
-    not run it in its place."""
+    fixed-order pipeline: the perf YAML's train step runs the fixed
+    program, never the random-order one in its place; for the tasks whose
+    fixed-order pipeline is not ported, the config raises instead. (The
+    name is from when every task raised; it is kept so that the test's
+    record runs on.)"""
     yaml = os.path.join(REPO, "cfg", "train", "perf",
                         "ANP_DA+TA_ShapeNet1D_tpu.yaml")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A20"):
-        Config(yaml, ["compute_dtype=float32"], make_dirs=False)
+    cfg = Config(yaml, ["compute_dtype=float32", "device=cpu"],
+                 make_dirs=False)
+    assert cfg.aug_random_order is False
+    model = build_model(cfg)
+    step = build_train_step(model, torch.optim.Adam(model.parameters()), cfg)
+    assert step is not None
+    assert build_episode_processor(
+        cfg.task, cfg.aug_list, train=True,
+        aug_random_order=False).augment.program == "shapenet_1d_fixed"
+    for task, item in (("distractor", "A12b"), ("shapenet_3d", "A12c")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            Config(yaml, [f"task={task}"], make_dirs=False)
     assert _config("prng_impl=rbg").prng_impl == "rbg"
     assert _config().prng_impl == "threefry"
 
 
 def test_fixed_order_perf_yaml_raises_naming_a20_with_bf16_accepted():
-    """With ``compute_dtype: bfloat16`` ported, the shipped ANP perf YAML
-    (bfloat16 and ``aug_random_order: false``) still raises, and names the
-    fixed-order pipeline: bf16 no longer stops it first."""
-    yaml = os.path.join(REPO, "cfg", "train", "perf",
-                        "ANP_DA+TA_ShapeNet1D_tpu.yaml")
+    """The shipped ANP perf YAMLs (bfloat16 and ``aug_random_order:
+    false``, T = 10 and T = 40) build as they are, bfloat16 with the fixed
+    program; bf16 and the fixed order no longer stop them. (The name is
+    from when these YAMLs raised naming ROADMAP.md A20, now done; it is
+    kept so that the test's record runs on.)"""
     assert _config("compute_dtype=bfloat16").compute_dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A20"):
-        Config(yaml, [], make_dirs=False)
+    for name in ("ANP_DA+TA_ShapeNet1D_tpu.yaml",
+                 "ANP_DA+TA_ShapeNet1D_tpu_T40.yaml"):
+        cfg = Config(os.path.join(REPO, "cfg", "train", "perf", name), [],
+                     make_dirs=False)
+        assert (cfg.compute_dtype, cfg.aug_random_order, cfg.device) == (
+            "bfloat16", False, "cuda")
+        augment = build_episode_processor(
+            cfg.task, cfg.aug_list, train=True, dtype=torch.bfloat16,
+            aug_random_order=cfg.aug_random_order).augment
+        assert (augment.program, augment.dtype) == ("shapenet_1d_fixed",
+                                                    torch.bfloat16)
 
 
 @pytest.mark.parametrize("override,error", [

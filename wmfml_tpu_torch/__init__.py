@@ -5,10 +5,12 @@ never ``jax`` and nothing of ``wmfml_tpu``. Entry points run on ``cuda``
 unless the caller passes ``device=cpu``; the hand-written kernels live in
 ``csrc/`` and are bound in ``kernels/``.
 
-Ported so far: ShapeNet1D meta-training of the four literature-encoder
-methods (CNPShapeNet1D, ANPShapeNet1D, CNPVanillaPascal1D's model,
-ANPVanillaPascal1D's model) with task augmentation. ROADMAP.md lists what
-is still to port.
+Ported so far: ShapeNet1D and Pascal1D meta-training of the four
+literature-encoder methods (CNPShapeNet1D, ANPShapeNet1D,
+CNPVanillaPascal1D, ANPVanillaPascal1D) and second-order MAML
+(MAMLShapeNet1D, VanillaMAML), with image augmentation in random or fixed
+order and task augmentation, in float32 or bf16, and the statistical
+evaluation CLI. ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

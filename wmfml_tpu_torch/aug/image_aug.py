@@ -1,36 +1,54 @@
-"""Image data augmentation for ShapeNet1D (``wmfml_tpu/aug/image_aug.py``).
+"""Image data augmentation for ShapeNet1D and Pascal1D
+(``wmfml_tpu/aug/image_aug.py``).
 
-The reference pipeline is ``SHAPENET1D_OPS``: ``Sometimes(0.5)`` of
-CropAndPad, of Affine and of OneOf(Dropout, CoarseDropout), applied in an
-op order drawn per augmenter call out of the 3! = 6 orders
-(``iaa.Sequential(random_order=True)``). Adjacent CropAndPad and Affine
-compose into one warp chain, as the JAX package's ``perm_chain`` does.
+The reference pipelines, each op under its ``Sometimes(0.5)`` gate:
+
+  * ``SHAPENET1D_OPS``: CropAndPad, Affine and OneOf(Dropout,
+    CoarseDropout) in an op order drawn per augmenter call out of the 3! =
+    6 orders (``iaa.Sequential(random_order=True)``); adjacent CropAndPad
+    and Affine compose into one warp chain, as the JAX package's
+    ``perm_chain`` does;
+  * ``PASCAL_OPS``: CropAndPad, GammaContrast, AverageBlur, Affine and the
+    dropout op in one of the 5! = 120 orders; with five ops the JAX
+    package runs its per-step switch chain (:567-577), each op applied
+    alone to the whole batch and returning the image's dtype, no warps
+    composed;
+  * ``FUSED_PIPELINES`` (``aug_random_order: false``): ``geometric`` (one
+    warp with CropAndPad's and Affine's parameters composed), then for
+    Pascal1D GammaContrast and AverageBlur, then OneOf(Dropout, the fixed
+    16-pixel grid CoarseDropout), in that order.
 
 Two layers:
 
   * the plain twins, the JAX math op for op on a batch with per-image
     parameters: ``interp_matrix``, ``stage_matrices``, ``affine_warp`` and
     ``warp_chain`` (dense tent matrices and the rank-1 fill terms),
-    ``fmix32`` / ``hash_keep`` (murmur3 keep bits, uint32 arithmetic held
-    in int64), the Dropout and CoarseDropout ids and their keep mask
-    (``dropout_mask``, ``one_of_dropout``); ``params_from_draw`` and
-    ``apply`` chain them into K6's plain version
-    (``kernels/image_da.py:image_da_plain``);
-  * ``ShapeNet1DAugmenter``: one call draws its raw draw on the images'
-    device (``sample``: uniforms, key words and the op order) and issues
-    one K6 launch (``kernels/image_da.py``), which computes the parameters
-    and applies the order on the card.
+    ``gamma_contrast`` and ``average_blur``, ``fmix32`` / ``hash_keep``
+    (murmur3 keep bits, uint32 arithmetic held in int64), the Dropout,
+    CoarseDropout and fixed-grid ids and their keep masks;
+    ``params_for`` and ``apply_program`` chain them into K6's plain version
+    (``kernels/image_da.py:image_da_plain``), one op program each
+    (``kernels/image_da.py:PROGRAMS``);
+  * the augmenter (``Augmenter``, one per program): one call draws its
+    raw draw on the images' device (``sample``: uniforms, key words and
+    the op order) and issues one K6 launch (``kernels/image_da.py``),
+    which computes the parameters and runs the program on the card.
 
 Parameters of one augmenter call (``DAParams``), per image b:
 
   * ``warp[b, op]`` for op 0 (CropAndPad) and 1 (Affine):
-    ``(sx, sy, tx, ty, cval, nearest, gate)``, booleans as 0/1;
+    ``(sx, sy, tx, ty, cval, nearest, gate)``, booleans as 0/1; in the
+    fixed programs row 0 is ``geometric``'s one warp and row 1 is unused;
   * ``drop[b]``: ``(gate, pick, p, sp, per_channel)``; ``pick`` selects
     Dropout (1) or CoarseDropout (0), ``p`` the drop rate, ``sp`` the
-    coarse grid's size fraction;
+    coarse grid's size fraction (unused by the fixed grid);
   * ``keys[b]``: the hash's two 32-bit key words (int32 bit patterns);
-  * ``order``: an index into ``ORDERS``, shared by the whole call (an int,
-    or a one-element tensor as drawn), read modulo 6.
+  * ``pixel[b]`` (Pascal1D): ``(gamma gate, gamma, blur gate, k)``;
+  * ``order``: an index into ``ORDERS`` or ``PASCAL_ORDERS``, shared by the
+    whole call (an int, or a one-element tensor as drawn), read modulo
+    their count; None for the fixed programs;
+  * ``cells`` (tests only, on the CPU): the fixed grid's keep bits [B, gh,
+    gw], in place of the hashed ones.
 
 The draws come from the caller's generator on the images' device (Philox on
 the card: the JAX package's threefry bits are not reproduced, their
@@ -47,21 +65,45 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
+from wmfml_tpu_torch.kernels import image_da as kda
 from wmfml_tpu_torch.kernels.image_da import image_da
 
 # reference declaration order (dataset/shapenet_1d.py:34-71)
 CROP, AFFINE, DROP = 0, 1, 2
 SHAPENET1D_OPS = ("crop_and_pad", "affine", "one_of_dropout")
 ORDERS = tuple(itertools.permutations(range(len(SHAPENET1D_OPS))))
-OTHER_TASKS = "DA for {task!r} (FULL/PASCAL/DISTRACTOR ops): ROADMAP.md A12"
+# Pascal1D's ops (utils/augment.py:82-141, no brightness;
+# wmfml_tpu/aug/image_aug.py:442) and their 5! orders
+P_CROP, P_GAMMA, P_BLUR, P_AFFINE, P_DROP = range(5)
+PASCAL_OPS = ("crop_and_pad", "gamma_contrast", "average_blur", "affine",
+              "one_of_dropout")
+PASCAL_ORDERS = tuple(itertools.permutations(range(len(PASCAL_OPS))))
+# tasks whose DA is not ported -> their ROADMAP item
+OTHER_TASKS = {"distractor": "A12b", "shapenet_3d": "A12c"}
 
 
 @dataclass
 class DAParams:
-    order: Union[int, torch.Tensor]
+    order: Union[int, torch.Tensor, None]
     warp: torch.Tensor        # [B, 2, 7] float32
     drop: torch.Tensor        # [B, 5] float32
     keys: torch.Tensor        # [B, 2] int32
+    pixel: Optional[torch.Tensor] = None     # [B, 4] float32 (Pascal1D)
+    cells: Optional[torch.Tensor] = None     # [B, gh, gw] bool (tests)
+
+
+def decode_order(index: int, n: int) -> tuple:
+    """Permutation number ``index`` of ``itertools.permutations(range(n))``,
+    decoded as K6 decodes it (``csrc/pixel_ops.cuh:decode_order``, Lehmer
+    code): the digit of position j counts in (n - 1 - j)!."""
+    rest, perm = list(range(n)), []
+    f = math.factorial(n - 1)
+    for j in range(n):
+        d, index = divmod(index, f)
+        perm.append(rest.pop(d))
+        if n - 1 - j > 0:
+            f //= n - 1 - j
+    return tuple(perm)
 
 
 def order_runs(order: Sequence[int]) -> List[tuple]:
@@ -174,6 +216,51 @@ def stages_from_params(warp: torch.Tensor, ops: Sequence[int]) -> List[dict]:
     return stages
 
 
+# -- pixel ops: twins of gamma_contrast and average_blur -------------------------
+
+def gamma_contrast(img: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """clip(x, 1e-6, 1) ** gamma in float32, returned in img's dtype
+    (``gamma_contrast``, :211-216); ``gamma`` [B]. Black pixels come out as
+    1e-6 ** gamma, not 0."""
+    out = torch.clamp(img.float(), 1e-6, 1.0) ** gamma[:, None, None, None]
+    return out.to(img.dtype)
+
+
+def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    # a true division, also on the card (see to_unit)
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def average_blur(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """k x k mean filter with edge padding, k [B] in {1, 2, 3}; k = 1 is the
+    identity and k = 2 takes the pixel and its top and left neighbours
+    (``average_blur``, :243-257). The windows are summed in the JAX order
+    (dy-major, from the first slice) in img's dtype, so in bfloat16 every
+    add rounds, then divided by 9 or 4."""
+    _, h, w, _ = img.shape
+    ys = torch.clamp(torch.arange(-1, h + 1, device=img.device), 0, h - 1)
+    xs = torch.clamp(torch.arange(-1, w + 1, device=img.device), 0, w - 1)
+    pad = img[:, ys][:, :, xs]
+
+    def window(n):
+        acc = None
+        for dy in range(n):
+            for dx in range(n):
+                t = pad[:, dy:dy + h, dx:dx + w]
+                acc = t if acc is None else acc + t
+        return _divide(acc, float(n * n))
+
+    kk = k[:, None, None, None]
+    return torch.where(kk == 3, window(3), torch.where(kk == 2, window(2),
+                                                       img))
+
+
+def sometimes(gate: torch.Tensor, out: torch.Tensor,
+              img: torch.Tensor) -> torch.Tensor:
+    """``sometimes`` (:420-426) at the given gates [B] (0/1)."""
+    return torch.where((gate > 0.5)[:, None, None, None], out, img)
+
+
 # -- hash masks: twins of _fmix32 .. coarse_dropout -----------------------------
 # uint32 values live in int64 tensors; every product keeps its low 32 bits
 # by splitting the constant into 16-bit halves (a full 32 x 32-bit product
@@ -263,7 +350,56 @@ def one_of_dropout(img: torch.Tensor, drop: torch.Tensor,
     return torch.where(gate, img * keep.to(img.dtype), img)
 
 
-# -- the augmenter ---------------------------------------------------------------
+def fixed_grid(h: int, w: int):
+    """``coarse_dropout_fixed``'s grid (:365-367): (gh, gw) cells of (h //
+    gh, w // gw) pixels; the JAX package's ``jnp.repeat`` only fits the
+    image where those divide it, so other sizes raise."""
+    gh, gw = max(h // 16, 1), max(w // 16, 1)
+    if h % gh or w % gw:
+        raise ValueError(f"the fixed dropout grid of {gh} x {gw} cells does "
+                         f"not divide a {h} x {w} image")
+    return gh, gw
+
+
+def fixed_cell_ids(h: int, w: int, device) -> torch.Tensor:
+    """[H, W] cell ids gy gw + gx of the fixed grid, nearest-upsampled."""
+    gh, gw = fixed_grid(h, w)
+    rows = torch.arange(h, device=device) // (h // gh)
+    cols = torch.arange(w, device=device) // (w // gw)
+    return rows[:, None] * gw + cols[None, :]
+
+
+def dropout_mask_fixed(shape, drop: torch.Tensor, keys: torch.Tensor,
+                       cells: Optional[torch.Tensor] = None):
+    """Keep bits [B, H, W, C] of OneOf(Dropout, fixed-grid CoarseDropout)
+    (``one_of_dropout_fixed``, :378-383): ``dropout`` where pick, else one
+    bit a cell of the fixed grid, the same for every channel. A cell keeps
+    its bit from the murmur3 hash of its id at the image's key words (the
+    JAX package draws ``bernoulli(1 - p)`` a cell: the same distribution);
+    ``cells`` [B, gh, gw] (bool) injects the bits instead."""
+    b, h, w, c = shape
+    pick, p, per_channel = drop[:, 1] > 0.5, drop[:, 2], drop[:, 4] > 0.5
+    k = keys.to(torch.int64) & _M32
+    bcast = (slice(None), None, None, None)
+    k0, k1 = k[:, 0][bcast], k[:, 1][bcast]
+    keep_d = hash_keep(k0, k1, dropout_ids(shape, per_channel), p[bcast])
+    ids = fixed_cell_ids(h, w, drop.device)
+    if cells is None:
+        keep_c = hash_keep(k0, k1, ids[None, :, :, None], p[bcast])
+    else:
+        keep_c = cells.reshape(b, -1)[:, ids][..., None]
+    return torch.where(pick[bcast], keep_d, keep_c.expand(*shape))
+
+
+def one_of_dropout_fixed(img: torch.Tensor, drop: torch.Tensor,
+                         keys: torch.Tensor,
+                         cells: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sometimes(one_of_dropout_fixed)`` (:456, :378-383)."""
+    keep = dropout_mask_fixed(img.shape, drop, keys, cells)
+    return sometimes(drop[:, 0], img * keep.to(img.dtype), img)
+
+
+# -- the programs' parameters -----------------------------------------------------
 
 def _columns(h: int, w: int):
     """(lo, span) of each of the 19 uniform columns (``sample``'s
@@ -275,6 +411,12 @@ def _columns(h: int, w: int):
     return lo, span
 
 
+def _scaled(u: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    lo, span = (torch.tensor(c, dtype=torch.float32, device=u.device)
+                for c in _columns(h, w))
+    return u[:, :19] * span + lo
+
+
 def params_from_draw(u: torch.Tensor, keys: torch.Tensor, order, h: int,
                      w: int) -> DAParams:
     """The parameters of [B, H, W, C] images from the raw draw (``sample``):
@@ -283,9 +425,7 @@ def params_from_draw(u: torch.Tensor, keys: torch.Tensor, order, h: int,
     ``sometimes`` gates. One float32 operation a step, none fused (no
     ``addcmul``), so that the card and the CPU round each step alike and K6
     (``csrc/image_da.cu:draw_params``) computes the same bits."""
-    lo, span = (torch.tensor(c, dtype=torch.float32, device=u.device)
-                for c in _columns(h, w))
-    v = u * span + lo
+    v = _scaled(u, h, w)
     n = u.shape[0]
     on = u[:, 13:18] < 0.5
     bits = on.float()
@@ -306,51 +446,55 @@ def params_from_draw(u: torch.Tensor, keys: torch.Tensor, order, h: int,
     return DAParams(order, warp, drop, keys)
 
 
-class ShapeNet1DAugmenter:
-    """``build_augmenter("shapenet_1d")`` (:537-565) for the port: each call
-    draws its raw draw and issues one K6 launch. Images come out in
-    ``dtype``, float32 or bfloat16: as in the JAX package, x / 255 and
-    every warp chain round to it (the masks are exact)."""
+def pixel_from_draw(u: torch.Tensor) -> torch.Tensor:
+    """[B, 4] GammaContrast's and AverageBlur's parameters from columns
+    19-22 (K6's ``draw_pixel``): the gates (u < .5), gamma = 1.5 u + .5 ~
+    U[.5, 2) and k = floor(3 u) + 1 ~ U{1, 2, 3}."""
+    return torch.stack([(u[:, 19] < 0.5).float(), u[:, 20] * 1.5 + 0.5,
+                        (u[:, 21] < 0.5).float(),
+                        torch.clamp(torch.floor(u[:, 22] * 3.0), 0.0, 2.0)
+                        + 1.0], -1)
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
-        self.dtype = dtype
 
-    def sample(self, n: int, generator: Optional[torch.Generator], device):
-        """The raw draw of one call for ``n`` images, on ``device``: one
-        ``torch.rand`` of 19 uniforms and one ``torch.randint`` of two key
-        words per image, and the op order, uniform over the six
-        (``torch.randint``, so exactly uniform). Columns of the uniforms:
-        0-3 CropAndPad's pad fractions (left, top, right, bottom) ~ U[0,
-        .05); 4 its cval; 5-6 Affine's scale ~ U[.8, 1.2) per axis; 7-8 its
-        translation ~ U[-.1, .1) of the width and height; 9 its cval; 10
-        Dropout's rate ~ U[.01, .1); 11 CoarseDropout's ~ U[0, .05); 12 its
-        size fraction ~ U[.02, .25); 13-17 Bernoulli(.5) bits: CropAndPad's
-        gate, Affine's gate, Affine's order 0 (nearest), the dropout op's
-        gate, Dropout (1) or CoarseDropout (0); 18 per channel, w.p. .5 for
-        Dropout and .2 for CoarseDropout."""
-        u = torch.rand((n, 19), generator=generator, device=device)
-        keys = torch.randint(-2 ** 31, 2 ** 31, (n, 2), dtype=torch.int32,
-                             generator=generator, device=device)
-        order = torch.randint(len(ORDERS), (1,), generator=generator,
-                              device=device)
-        return u, keys, order
+def geometric_from_draw(u: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, 2, 7]: ``geometric``'s one warp (:386-417) in row 0, row 1 zero
+    (K6's ``draw_geometric``). CropAndPad's symmetric pad p (column 0 ~
+    U[0, .05)) gives s1 = 1 / (1 + 2 p) where its gate (column 13) is on;
+    Affine's scale (5-6) and shift (7-8) apply where its gate (14) is on;
+    the warp has scale s1 s per axis, shift t, cval (column 9), bilinear,
+    and is applied whatever the gates (off, it is the identity)."""
+    v = _scaled(u, h, w)
+    one, zero = torch.ones_like(v[:, 0]), torch.zeros_like(v[:, 0])
+    s1 = torch.where(u[:, 13] < 0.5, 1.0 / (1.0 + 2.0 * v[:, 0]), one)
+    g2 = u[:, 14] < 0.5
+    row = torch.stack([s1 * torch.where(g2, v[:, 5], one),
+                       s1 * torch.where(g2, v[:, 6], one),
+                       torch.where(g2, v[:, 7], zero),
+                       torch.where(g2, v[:, 8], zero), v[:, 9], zero, one],
+                      -1)
+    return torch.stack([row, torch.zeros_like(row)], 1)
 
-    def __call__(self, images: torch.Tensor,
-                 generator: Optional[torch.Generator] = None,
-                 params: Optional[DAParams] = None) -> torch.Tensor:
-        """Augment [..., H, W, C] uint8 images into ``self.dtype``;
-        ``params`` injects a draw (on the CPU only: the card computes the
-        parameters in K6)."""
-        if params is not None:
-            if images.device.type != "cpu":
-                raise ValueError("DAParams are injected on the CPU only")
-            flat = images.reshape((-1,) + tuple(images.shape[-3:]))
-            return apply(to_unit(flat).to(self.dtype), params).reshape(
-                images.shape)
-        u, keys, order = self.sample(math.prod(images.shape[:-3]), generator,
-                                     images.device)
-        return image_da(images, u, keys, order, self.dtype)
 
+def params_for(program: str, u: torch.Tensor, keys: torch.Tensor, order,
+               h: int, w: int) -> DAParams:
+    """``program``'s parameters from its raw draw, as K6 computes them."""
+    p = params_from_draw(u, keys, order, h, w)
+    if kda.PROGRAM_ORDERS[program] == 1:
+        p.warp = geometric_from_draw(u, h, w)
+    if program != "shapenet_1d":
+        pixel_ops = kda.PROGRAM_NU[program] == kda.NU_PIXEL
+        p.pixel = (pixel_from_draw(u) if pixel_ops
+                   else torch.zeros((u.shape[0], 4), device=u.device))
+    return p
+
+
+def params_row(p: DAParams) -> torch.Tensor:
+    """The kernel's parameter row (``params_out``): warp, drop, pixel."""
+    rows = [p.warp.flatten(1), p.drop]
+    return torch.cat(rows + ([p.pixel] if p.pixel is not None else []), 1)
+
+
+# -- the programs -----------------------------------------------------------------
 
 def apply(flat: torch.Tensor, params: DAParams) -> torch.Tensor:
     """One order of ``SHAPENET1D_OPS`` on [B, H, W, C] float images through
@@ -364,8 +508,118 @@ def apply(flat: torch.Tensor, params: DAParams) -> torch.Tensor:
     return flat
 
 
-def build_augmenter(task: str,
-                    dtype: torch.dtype = torch.float32) -> ShapeNet1DAugmenter:
-    if task != "shapenet_1d":
-        raise NotImplementedError(OTHER_TASKS.format(task=task))
-    return ShapeNet1DAugmenter(dtype)
+def _warp_op(flat: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """One warp stage alone (``_affine_warp``) at rows [B, 7]."""
+    sx, sy, tx, ty, cval, nearest, _ = row.unbind(-1)
+    return affine_warp(flat, (sx, sy), (tx, ty), cval, nearest > 0.5)
+
+
+def apply_pascal(flat: torch.Tensor, params: DAParams) -> torch.Tensor:
+    """One order of ``PASCAL_OPS`` (the JAX package's per-step switch
+    chain, :567-577): each op alone on the whole batch under its gate, in
+    the image's dtype. The order index is read modulo 120, as K6 reads
+    it."""
+    g_on, gamma, b_on, k = params.pixel.unbind(-1)
+    for op in PASCAL_ORDERS[int(params.order) % len(PASCAL_ORDERS)]:
+        if op in (P_CROP, P_AFFINE):
+            row = params.warp[:, int(op == P_AFFINE)]
+            flat = sometimes(row[:, 6], _warp_op(flat, row), flat)
+        elif op == P_GAMMA:
+            flat = sometimes(g_on, gamma_contrast(flat, gamma), flat)
+        elif op == P_BLUR:
+            flat = sometimes(b_on, average_blur(flat, k), flat)
+        else:
+            flat = one_of_dropout(flat, params.drop, params.keys)
+    return flat
+
+
+def apply_fixed(flat: torch.Tensor, params: DAParams,
+                pixel_ops: bool) -> torch.Tensor:
+    """``FUSED_PIPELINES`` (:457-462) for ShapeNet1D or (``pixel_ops``)
+    Pascal1D: ``geometric``, [GammaContrast, AverageBlur], then the
+    fixed-grid dropout op."""
+    flat = _warp_op(flat, params.warp[:, 0])
+    if pixel_ops:
+        g_on, gamma, b_on, k = params.pixel.unbind(-1)
+        flat = sometimes(g_on, gamma_contrast(flat, gamma), flat)
+        flat = sometimes(b_on, average_blur(flat, k), flat)
+    return one_of_dropout_fixed(flat, params.drop, params.keys, params.cells)
+
+
+def apply_program(program: str, flat: torch.Tensor,
+                  params: DAParams) -> torch.Tensor:
+    """K6's program ``program`` on [B, H, W, C] float images (x / 255 in
+    the output dtype) through the twins."""
+    if program == "shapenet_1d":
+        return apply(flat, params)
+    if program == "pascal_1d":
+        return apply_pascal(flat, params)
+    return apply_fixed(flat, params, program == "pascal_1d_fixed")
+
+
+# -- the augmenters ---------------------------------------------------------------
+
+class Augmenter:
+    """``build_augmenter`` (:537-583) for the port: K6's op program
+    ``program`` (``kernels/image_da.py:PROGRAMS``); each call draws its raw
+    draw and issues one K6 launch. Images come out in ``dtype``, float32
+    or bfloat16: as in the JAX package, x / 255 and the end of every op
+    (or ShapeNet1D's warp chain) round to it (the masks are exact)."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 program: str = "shapenet_1d"):
+        self.dtype, self.program = dtype, program
+        self.nu = kda.PROGRAM_NU[program]           # uniforms per image
+        self.orders = kda.PROGRAM_ORDERS[program]   # 1: a fixed order
+
+    def sample(self, n: int, generator: Optional[torch.Generator], device):
+        """The raw draw of one call for ``n`` images, on ``device``: one
+        ``torch.rand`` of ``nu`` uniforms and one ``torch.randint`` of two
+        key words per image, and the op order, uniform over the program's
+        orders (``torch.randint``, so exactly uniform; None for a fixed
+        order). Columns of the uniforms: 0-3 CropAndPad's pad fractions
+        (left, top, right, bottom) ~ U[0, .05) (the fixed programs' one
+        symmetric pad: column 0); 4 its cval; 5-6 Affine's scale ~ U[.8,
+        1.2) per axis; 7-8 its translation ~ U[-.1, .1) of the width and
+        height; 9 its cval (the fixed programs' one cval); 10 Dropout's
+        rate ~ U[.01, .1); 11 CoarseDropout's ~ U[0, .05); 12 its size
+        fraction ~ U[.02, .25); 13-17 Bernoulli(.5) bits: CropAndPad's gate,
+        Affine's gate, Affine's order 0 (nearest), the dropout op's gate,
+        Dropout (1) or CoarseDropout (0); 18 per channel, w.p. .5 for
+        Dropout and .2 for CoarseDropout; Pascal1D's 19-22: GammaContrast's
+        gate and gamma, AverageBlur's gate and k (``pixel_from_draw``)."""
+        u = torch.rand((n, self.nu), generator=generator, device=device)
+        keys = torch.randint(-2 ** 31, 2 ** 31, (n, 2), dtype=torch.int32,
+                             generator=generator, device=device)
+        order = (torch.randint(self.orders, (1,), generator=generator,
+                               device=device) if self.orders > 1 else None)
+        return u, keys, order
+
+    def __call__(self, images: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 params: Optional[DAParams] = None) -> torch.Tensor:
+        """Augment [..., H, W, C] uint8 images into ``self.dtype``;
+        ``params`` injects a draw (on the CPU only: the card computes the
+        parameters in K6)."""
+        if params is not None:
+            if images.device.type != "cpu":
+                raise ValueError("DAParams are injected on the CPU only")
+            flat = images.reshape((-1,) + tuple(images.shape[-3:]))
+            return apply_program(self.program, to_unit(flat).to(self.dtype),
+                                 params).reshape(images.shape)
+        u, keys, order = self.sample(math.prod(images.shape[:-3]), generator,
+                                     images.device)
+        return image_da(images, u, keys, order, self.dtype, self.program)
+
+
+# program 0's augmenter, under the name of the slices before the others
+ShapeNet1DAugmenter = Augmenter
+
+
+def build_augmenter(task: str, dtype: torch.dtype = torch.float32,
+                    random_order: bool = True) -> Augmenter:
+    if task not in ("shapenet_1d", "pascal_1d"):
+        raise NotImplementedError(
+            f"DA for {task!r} is not ported yet (ROADMAP.md "
+            f"{OTHER_TASKS.get(task, 'A12')})")
+    return Augmenter(dtype, task if random_order else f"{task}_fixed")

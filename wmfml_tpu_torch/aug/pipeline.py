@@ -1,11 +1,11 @@
 """Device-side episode processing: normalise, image and task augmentation,
 labels.
 
-``build_episode_processor(task, aug_list, train, dtype)`` returns
-``process(batch, generator=None, ta_idx=None, da_params=None)`` that turns
-a raw episode (uint8 images, raw labels, on any device) into the
-model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` does for
-ShapeNet1D:
+``build_episode_processor(task, aug_list, train, dtype, aug_random_order)``
+returns ``process(batch, generator=None, ta_idx=None, da_params=None)``
+that turns a raw episode (uint8 images, raw labels, on any device) into the
+model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` (ShapeNet1D)
+and ``:116-131`` (Pascal1D) do:
 
   * uint8 images -> x / 255 in the compute dtype ``dtype`` (float32 or
     bfloat16, rounded from the float32 quotient as JAX's
@@ -13,16 +13,18 @@ ShapeNet1D:
     is on; labels and task augmentation stay float32;
   * image data augmentation (train only, ``data_aug`` in ``aug_list``):
     two augmenter calls on the raw uint8 images, context then query, each
-    with its own op order and per-image parameters (``aug/image_aug.py``:
-    one K6 launch a call on the card); ``da_params`` (a (context, query)
-    pair of ``DAParams``) feeds a draw in on the CPU, else it is drawn from
+    with its own draw (``aug/image_aug.py``: one K6 launch a call on the
+    card; ``aug_random_order`` false selects the fixed-order pipeline);
+    ``da_params`` (a (context, query) pair of ``DAParams``) feeds a draw in
+    on the CPU, else it is drawn from ``generator``;
+  * task augmentation (train only, ``task_aug`` in ``aug_list``): one
+    offset per task, added to context and query labels: ShapeNet1D's angle
+    from ``linspace(0, 2, 16)[:-1]`` mod 2 pi, Pascal1D's from {0, .25,
+    .5, .75} mod 1; ``ta_idx`` [T] feeds the offsets' indices in (tests
+    hand both frameworks the same noise), else they are drawn from
     ``generator``;
-  * task augmentation (train only, ``task_aug`` in ``aug_list``): one angle
-    offset per task from ``linspace(0, 2, 16)[:-1]``, added mod 2*pi to
-    context and query labels; ``ta_idx`` [T] feeds the offsets' indices in
-    (tests hand both frameworks the same noise), else they are drawn from
-    ``generator``;
-  * labels -> ``[cos a, sin a, a]``.
+  * labels: ShapeNet1D's -> ``[cos a, sin a, a]``; Pascal1D's x 10, in
+    training and in evaluation alike.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from wmfml_tpu_torch.aug.image_aug import build_augmenter
+
+TASKS = ("shapenet_1d", "pascal_1d")
 
 
 def _to_float(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -46,14 +50,20 @@ def _encode_angle(y: torch.Tensor) -> torch.Tensor:
 
 
 def build_episode_processor(task: str, aug_list, train: bool,
-                            dtype: torch.dtype = torch.float32) -> Callable:
-    if task != "shapenet_1d":
+                            dtype: torch.dtype = torch.float32,
+                            aug_random_order: bool = True) -> Callable:
+    if task not in TASKS:
         raise NotImplementedError(
             f"episode processing for {task!r} is not ported yet "
-            "(ROADMAP.md A12)")
+            "(ROADMAP.md A12b, A12c)")
     task_aug = train and "task_aug" in aug_list
-    augment = (build_augmenter(task, dtype)
+    augment = (build_augmenter(task, dtype, aug_random_order)
                if train and "data_aug" in aug_list else None)
+    if task == "pascal_1d":
+        # offsets {0, .25, .5, .75}[randint(4)] mod 1, labels x 10
+        n_offsets, modulus, scale = 4, 1.0, 10.0
+    else:
+        n_offsets, modulus, scale = 15, 2.0 * math.pi, None
 
     def augment_pair(cx, qx, generator, da_params):
         """DA for ctx and qry: always two calls, as the JAX package makes."""
@@ -71,16 +81,23 @@ def build_episode_processor(task: str, aug_list, train: bool,
         ctx_y, qry_y = batch["ctx_y"], batch["qry_y"]
         if task_aug:
             if ta_idx is None:
-                ta_idx = torch.randint(0, 15, (ctx_y.shape[0],),
+                ta_idx = torch.randint(0, n_offsets, (ctx_y.shape[0],),
                                        device=ctx_y.device,
                                        generator=generator)
-            noise_vals = torch.linspace(0.0, 2.0, 16,
-                                        device=ctx_y.device)[:-1]
-            noise = noise_vals[ta_idx.to(ctx_y.device)][:, None, None]
-            ctx_y = torch.remainder(ctx_y + noise, 2.0 * math.pi)
-            qry_y = torch.remainder(qry_y + noise, 2.0 * math.pi)
-        return dict(batch, ctx_x=ctx_x, qry_x=qry_x,
-                    ctx_y=_encode_angle(ctx_y), qry_y=_encode_angle(qry_y))
+            idx = ta_idx.to(ctx_y.device)
+            if scale is None:
+                noise = torch.linspace(0.0, 2.0, 16,
+                                       device=ctx_y.device)[:-1][idx]
+            else:       # {0, .25, .5, .75}[idx], exactly (no host copy)
+                noise = idx.to(torch.float32) * 0.25
+            noise = noise[:, None, None]
+            ctx_y = torch.remainder(ctx_y + noise, modulus)
+            qry_y = torch.remainder(qry_y + noise, modulus)
+        if scale is None:
+            ctx_y, qry_y = _encode_angle(ctx_y), _encode_angle(qry_y)
+        else:
+            ctx_y, qry_y = ctx_y * scale, qry_y * scale
+        return dict(batch, ctx_x=ctx_x, qry_x=qry_x, ctx_y=ctx_y, qry_y=qry_y)
 
     process.augment = augment
     return process

@@ -20,9 +20,10 @@ Port-specific rules:
     package's pool lowering, whose forward is the same for every choice and
     whose gradients differ only at ties, which sit at ReLU zeros where the
     gradient is 0: the port always pools in K1.
-  * ``aug_random_order`` (default true, imgaug's per-batch random op order)
-    is read; ``false`` selects the JAX package's fused fixed-order
-    pipeline, which is not ported yet and raises.
+  * ``aug_random_order`` (default true, imgaug's per-batch random op order);
+    ``false`` selects the JAX package's fused fixed-order pipeline
+    (``FUSED_PIPELINES``), ported for ``shapenet_1d`` and ``pascal_1d``;
+    for the other tasks it raises and names the slice that ports them.
   * ``prng_impl`` is read and kept, but the port's random stream is
     PyTorch's Philox whatever it says: the JAX package's ``threefry`` and
     ``rbg`` differ in their bits only, and so does Philox, so no
@@ -65,8 +66,9 @@ DEVICE_ALIASES = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-FIXED_ORDER_NOT_PORTED = ("aug_random_order=false: the fused fixed-order DA "
-                          "pipeline is not ported yet (ROADMAP.md A20)")
+# tasks whose fixed-order DA pipeline is not ported -> their ROADMAP item
+FIXED_ORDER_NOT_PORTED = {"distractor": "A12b", "shapenet_3d": "A12c",
+                          "shapenet_3d_segmentation": "A12c"}
 
 
 def _parse_override(value: str) -> Any:
@@ -163,8 +165,11 @@ class Config:
                 f"compute_dtype={self.compute_dtype!r}: the port computes in "
                 f"{' or '.join(COMPUTE_DTYPES)}")
         self.aug_random_order = get("aug_random_order", True)
-        if not self.aug_random_order:
-            raise NotImplementedError(FIXED_ORDER_NOT_PORTED)
+        if not self.aug_random_order and self.task in FIXED_ORDER_NOT_PORTED:
+            raise NotImplementedError(
+                f"aug_random_order=false for {self.task!r}: its fixed-order "
+                f"DA pipeline is not ported yet (ROADMAP.md "
+                f"{FIXED_ORDER_NOT_PORTED[self.task]})")
         self.prng_impl = get("prng_impl", "threefry")
         self.data_path = get("data_path", None)
         self.synthetic_data = get("synthetic_data", False)

@@ -1,18 +1,32 @@
 // K6: image data augmentation of one augmenter call in one launch. For
 // [B, H, W, 1] uint8 images (the sampler's context or query slice, read
-// through its task and image strides) and the call's raw draws (19
+// through its task and image strides) and the call's raw draws (19 or 23
 // uniforms and two key words per image, one op order for the call), it
-// computes x / 255, then ShapeNet1D's CropAndPad, Affine and OneOf(Dropout,
-// CoarseDropout), each under Sometimes(0.5), in the drawn order, and writes
-// [B, H, W, 1] float32, or bfloat16 for compute_dtype: bfloat16.
+// computes x / 255, then one op program on each image, and writes
+// [B, H, W, 1] float32, or bfloat16 for compute_dtype: bfloat16. The
+// programs (Program below; aug/image_aug.py:PROGRAMS):
+//   0 ShapeNet1D: CropAndPad, Affine and OneOf(Dropout, CoarseDropout),
+//     each under Sometimes(0.5), in one of the 3! orders, adjacent warps
+//     composed into one chain (the section "Design" below);
+//   1 Pascal1D: CropAndPad, GammaContrast, AverageBlur, Affine and the
+//     dropout op in one of the 5! orders, each op applied alone and
+//     rounded to the image's type at its end (the JAX package's per-step
+//     switch chain: with 5 ops it composes no warps);
+//   2 ShapeNet1D fixed order: geometric (CropAndPad and Affine as one warp
+//     with composed parameters), then OneOf(Dropout, fixed-grid
+//     CoarseDropout);
+//   3 Pascal1D fixed order: geometric, GammaContrast, AverageBlur, then the
+//     fixed-grid dropout op.
 //
 // Replaces wmfml_tpu/aug/pipeline.py:_to_float (:34) and image_aug.py's
-// _warp_chain (:120), _fmix32 .. one_of_dropout (:277-375) and the
-// enumerated-order augment (:537-565), which draws the order as device
-// data (:556) and switches to one fused branch per order (:562). Here too
-// the order is device data: every call is the same single launch, whatever
-// the order, and the per-image parameters are computed in the kernel from
-// the raw draws.
+// _warp_chain (:120), _affine_warp (:97), gamma_contrast and average_blur
+// (:211-257), _fmix32 .. one_of_dropout_fixed (:277-383), geometric
+// (:386-417), the enumerated-order augment (:537-565), which draws the
+// order as device data (:556) and switches to one fused branch per order
+// (:562), the per-step switch chain (:567-577) and the fixed-order chain
+// (:578-580). Here the order is device data in every program: every call
+// is the same single launch, whatever the order, and the per-image
+// parameters are computed in the kernel from the raw draws.
 //
 // Bound: the bytes (each image read once as uint8 and written once as
 // float32, 5 B a pixel: 12.3 MB for 150 images of 128 x 128, 3.7 us at
@@ -67,12 +81,24 @@
 // 128 x 128, so two blocks fit an SM and 150 images run in one wave on 132
 // SMs (18 of them hold two). No atomics, nothing allocated: two calls give
 // the same bits.
+//
+// Programs 1-3 (run_pixel_program) run their ops one at a time on f and a
+// second float32 image g in shared memory: x / 255 into f, then each op a
+// pass (a warp or a blur from one image into the other, gamma and the
+// mask in place), the last op writing the output. A warp op builds its
+// one-stage tap table first and fills with _affine_warp's cval (1 - ry rx);
+// GammaContrast and AverageBlur are csrc/pixel_ops.cuh. In bfloat16 each
+// op's result rounds to bfloat16 where the JAX op returns img.dtype (the
+// blur's sums at every add). The fixed programs' CoarseDropout keeps one
+// hashed bit per cell of the fixed grid (pixel_ops.cuh). With g the Pascal
+// programs take 171 KB of shared memory at 128 x 128: one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hash_mask.cuh"
+#include "pixel_ops.cuh"
 #include "tf32_gmma.cuh"
 #include "warp.cuh"
 
@@ -82,13 +108,31 @@ using da::Axis;
 using da::ND;
 using da::NP;
 
+using da::NX;
+
 constexpr int THREADS = 256;
 constexpr int COLS = 4;                // columns a lane owns: W <= 128
-constexpr int NU = 19;                 // uniforms per image
+constexpr int NU = 19;                 // uniforms per image (ShapeNet1D)
+constexpr int NU_PIXEL = NU + NX;      // with the pixel ops' four (Pascal1D)
 constexpr int NPARAMS = 2 * NP + ND;   // the debug output's row
+constexpr int NPARAMS_PIXEL = NPARAMS + NX;
 constexpr int STAMPS = 5;
 constexpr int DROP = 2;
 constexpr int MAX_SMEM = 232448;       // shared memory a block may use
+
+enum Program { SHAPENET1D = 0, PASCAL = 1, SHAPENET1D_FIXED = 2,
+               PASCAL_FIXED = 3, NPROGRAMS = 4 };
+
+// Pascal1D's ops, aug/image_aug.py:PASCAL_OPS (image_aug.py:442's order)
+enum PascalOp { P_CROP = 0, P_GAMMA = 1, P_BLUR = 2, P_AFFINE = 3,
+                P_DROP = 4, NPASCAL = 5 };
+
+__host__ __device__ constexpr bool pixel_ops(int prog) {
+  return prog == PASCAL || prog == PASCAL_FIXED;
+}
+__host__ __device__ constexpr bool fixed_order(int prog) {
+  return prog == SHAPENET1D_FIXED || prog == PASCAL_FIXED;
+}
 
 // The six op orders, aug/image_aug.py:ORDERS (0 CropAndPad, 1 Affine, 2 the
 // dropout op), in itertools.permutations order.
@@ -98,19 +142,23 @@ __constant__ int ORDERS[6][3] = {{0, 1, 2}, {0, 2, 1}, {1, 0, 2},
 struct Shared {
   float warp[2][NP];
   float drop[ND];
+  float pixel[NX];
   uint32_t k0, k1;
   int order;
+  int perm[NPASCAL];
 };
 
 struct Layout {
-  int f, tab, lut, frow, fcol, cell, cap, par, bar, total;
+  int f, g, tab, lut, frow, fcol, cell, cap, par, bar, total;
 };
 
-__host__ __device__ inline Layout layout(int H, int W) {
+// two: a second float32 image g (the Pascal programs)
+__host__ __device__ inline Layout layout(int H, int W, bool two = false) {
   Layout L;
   const int HW = H * W;
   L.f = (HW + 15) & ~15;                         // the uint8 image at 0
-  L.tab = L.f + 4 * HW;
+  L.g = L.f + 4 * HW;
+  L.tab = L.g + (two ? 4 * HW : 0);
   L.lut = L.tab + 2 * (H + W) * (int)sizeof(Axis);
   L.frow = L.lut + 4 * 256;
   L.fcol = L.frow + 4 * H;
@@ -126,11 +174,11 @@ struct Args {
   const uint8_t* x;
   long long st, ss;          // bytes between tasks and between images
   int S;                     // images per task
-  const float* u;            // [B, 19]
+  const float* u;            // [B, 19] or [B, 23] (Pascal programs)
   const int* keys;           // [B, 2]
-  const long long* order;    // [1]
+  const long long* order;    // [1]; null for the fixed programs
   void* out;                 // [B, H, W] float32, or bfloat16 when bf16
-  float* params_out;         // [B, 19] or null
+  float* params_out;         // [B, 19] ([B, 23] but program 0) or null
   long long* stamps;         // [B, STAMPS] or null
   int H, W;
   int bf16;                  // the output type: 0 float32, 1 bfloat16
@@ -144,8 +192,8 @@ __device__ inline void stamp(const Args& a, int j) {
   }
 }
 
-// aug/image_aug.py:params_from_draw for one image, operation for operation.
-__device__ void draw_params(const float* u, int H, int W, Shared* P) {
+// The 13 scaled uniforms v = u span + lo (aug/image_aug.py:_columns).
+__device__ void columns(const float* u, int H, int W, float* v) {
   const float lo[13] = {0.f, 0.f, 0.f, 0.f, 0.f, (float)0.8, (float)0.8,
                         (float)(-0.1 * W), (float)(-0.1 * H), 0.f,
                         (float)0.01, 0.f, (float)0.02};
@@ -153,9 +201,14 @@ __device__ void draw_params(const float* u, int H, int W, Shared* P) {
                           (float)0.05, 1.f, (float)0.4, (float)0.4,
                           (float)(0.2 * W), (float)(0.2 * H), 1.f,
                           (float)0.09, (float)0.05, (float)0.23};
-  float v[13];
 #pragma unroll
   for (int i = 0; i < 13; ++i) v[i] = __fadd_rn(__fmul_rn(u[i], span[i]), lo[i]);
+}
+
+// aug/image_aug.py:params_from_draw for one image, operation for operation.
+__device__ void draw_params(const float* u, int H, int W, Shared* P) {
+  float v[13];
+  columns(u, H, W, v);
   // CropAndPad: per axis scale 1 / (1 + both pads), shifted toward the
   // more padded side
   const float sx = __frcp_rn(__fadd_rn(__fadd_rn(1.f, v[0]), v[2]));
@@ -177,6 +230,37 @@ __device__ void draw_params(const float* u, int H, int W, Shared* P) {
   }
 #pragma unroll
   for (int i = 0; i < ND; ++i) P->drop[i] = d[i];
+}
+
+// aug/image_aug.py:geometric_from_draw: the fixed programs' one warp in
+// row 0 (row 1 zero): CropAndPad's symmetric pad p = v0 gives s1 = 1 / (1
+// + 2 p) where its gate (u13) is on, Affine's scale and shift where its
+// gate (u14) is on, composed as scale s1 s_affine and shift t_affine; cval
+// v9; bilinear, applied whatever the gates (off, it is the identity).
+__device__ void draw_geometric(const float* u, int H, int W, Shared* P) {
+  float v[13];
+  columns(u, H, W, v);
+  const float s1 = u[13] < 0.5f
+                       ? __frcp_rn(__fadd_rn(1.f, __fmul_rn(2.f, v[0])))
+                       : 1.f;
+  const bool g2 = u[14] < 0.5f;
+  const float w0[NP] = {__fmul_rn(s1, g2 ? v[5] : 1.f),
+                        __fmul_rn(s1, g2 ? v[6] : 1.f), g2 ? v[7] : 0.f,
+                        g2 ? v[8] : 0.f, v[9], 0.f, 1.f};
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    P->warp[0][i] = w0[i];
+    P->warp[1][i] = 0.f;
+  }
+}
+
+// aug/image_aug.py:pixel_from_draw: GammaContrast's gate (u19) and gamma ~
+// U[.5, 2) (u20), AverageBlur's gate (u21) and k ~ U{1, 2, 3} (u22).
+__device__ void draw_pixel(const float* u, Shared* P) {
+  P->pixel[0] = u[19] < 0.5f ? 1.f : 0.f;
+  P->pixel[1] = __fadd_rn(__fmul_rn(u[20], 1.5f), 0.5f);
+  P->pixel[2] = u[21] < 0.5f ? 1.f : 0.f;
+  P->pixel[3] = fminf(fmaxf(floorf(__fmul_rn(u[22], 3.f)), 0.f), 2.f) + 1.f;
 }
 
 struct Mask {
@@ -240,7 +324,7 @@ struct OutBF16 {
 struct Chain {
   const Axis* tab;           // [H] rows, then [W] columns
   float c0, c1;
-  bool two;
+  int form;                  // da::Fill
 };
 
 // dst[y, x] = (mask ? keep : 1) * (taps of src + fill) over the image. A
@@ -286,7 +370,7 @@ __device__ void run_chain(const Chain& ch, int H, int W, Src src, Dst dst,
       const int x = lane + 32 * k;
       if (x >= W) break;
       float v = __fadd_rn(acc[k], da::chain_fill(ay.r, ay.p, cr[k], cp[k],
-                                                 ch.c0, ch.c1, ch.two));
+                                                 ch.c0, ch.c1, ch.form));
       if (apply_mask) v = __fmul_rn(v, keep(mask, y, x) ? 1.f : 0.f);
       dst(y * W + x, v);
     }
@@ -356,43 +440,184 @@ __device__ void run_order(const Args& a, const int (&n)[2],
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H = a.H, W = a.W, HW = H * W;
-  const Layout L = layout(H, W);
-  uint8_t* src8 = smem;
-  float* fbuf = reinterpret_cast<float*>(smem + L.f);
-  Axis* tab = reinterpret_cast<Axis*>(smem + L.tab);   // chain A, chain B
-  float* lut = reinterpret_cast<float*>(smem + L.lut);
-  int* frow = reinterpret_cast<int*>(smem + L.frow);
-  int* fcol = reinterpret_cast<int*>(smem + L.fcol);
-  uint8_t* cell = smem + L.cell;
-  Shared* P = reinterpret_cast<Shared*>(smem + L.par);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
-  const int tid = threadIdx.x, b = blockIdx.x;
-
-  stamp(a, 0);
-  if (tid == 0) {
-    tc::bar_init(bar, 1);
-    tc::bar_init_fence();
-    const int t = b / a.S, s = b - t * a.S;
-    tc::bulk_load(src8, a.x + t * a.st + s * a.ss, HW, bar);
-    const float* u = a.u + (size_t)b * NU;
-    draw_params(u, H, W, P);
-    P->k0 = (uint32_t)a.keys[2 * b];
-    P->k1 = (uint32_t)a.keys[2 * b + 1];
-    P->order = (int)(((a.order[0] % 6) + 6) % 6);   // as the twin reads it
-    if (a.params_out != nullptr) {
-      float* o = a.params_out + (size_t)b * NPARAMS;
-      for (int i = 0; i < NP; ++i) {
-        o[i] = P->warp[0][i];
-        o[NP + i] = P->warp[1][i];
+// The mask of the dropout op: Dropout hashes each pixel where it applies;
+// for CoarseDropout the threads build the cell of every row and column and
+// the keep bit of every cell: the random-size grid (programs 0 and 1) or
+// the fixed grid (programs 2 and 3).
+__device__ Mask build_mask(const Shared* P, int H, int W, bool fixed,
+                           int cap, int* frow, int* fcol, uint8_t* cell) {
+  Mask mask;
+  mask.on = P->drop[0] > 0.5f;
+  mask.pick = P->drop[1] > 0.5f;
+  mask.p = P->drop[2];
+  mask.k0 = P->k0;
+  mask.k1 = P->k1;
+  mask.W = W;
+  mask.frow = frow;
+  mask.fcol = fcol;
+  mask.cell = cell;
+  const int tid = threadIdx.x;
+  if (fixed) {
+    const int gh = da::fixed_cells(H), gw = da::fixed_cells(W);
+    mask.wl = gw;
+    if (mask.on && !mask.pick) {
+      for (int e = tid; e < H + W; e += THREADS) {
+        if (e < H)
+          frow[e] = e / (H / gh);
+        else
+          fcol[e - H] = (e - H) / (W / gw);
       }
-      for (int i = 0; i < ND; ++i) o[2 * NP + i] = P->drop[i];
+      for (int e = tid; e < gh * gw; e += THREADS)
+        cell[e] = da::hash_keep(mask.k0, mask.k1, (uint32_t)e, mask.p);
+    }
+    return mask;
+  }
+  const float hl = da::coarse_size(H, P->drop[3]);
+  const float wl = da::coarse_size(W, P->drop[3]);
+  mask.wl = (int)wl;
+  if (mask.on && !mask.pick) {
+    for (int e = tid; e < H + W; e += THREADS) {
+      if (e < H)
+        frow[e] = da::coarse_cell(e, hl, H);
+      else
+        fcol[e - H] = da::coarse_cell(e - H, wl, W);
+    }
+    // min: a size column outside [0, 1) breaks the contract, not the block
+    const int cells = min((int)hl * mask.wl, cap);
+    for (int e = tid; e < cells; e += THREADS) {
+      const int cy = e / mask.wl, cx = e - cy * mask.wl;
+      cell[e] = da::hash_keep(mask.k0, mask.k1, cell_id(cy, cx, W), mask.p);
     }
   }
-  __syncthreads();
+  return mask;
+}
 
+// -- programs 1-3: one op a pass over the float32 images f and g ------------
+
+// One warp stage st alone (_affine_warp): its tap table, then src -> dst,
+// masked where apply_mask.
+template <class Dst>
+__device__ void warp_op(const float* st, Axis* tab, int H, int W,
+                        const float* src, Dst dst, const Mask& mask,
+                        bool apply_mask) {
+  const int nt = da::stage_taps(st);
+  for (int e = threadIdx.x; e < H + W; e += THREADS) {
+    if (e < H)
+      da::axis_entry(e, H, st, nullptr, 1, nt, &tab[e]);
+    else
+      da::axis_entry(e - H, W, st, nullptr, 0, nt, &tab[e]);
+  }
+  __syncthreads();
+  run_any(nt, Chain{tab, st[4], 0.f, da::AFFINE}, H, W, SrcF32{src}, dst,
+          mask, apply_mask);
+}
+
+// A pixel op: dst[y, x] = op(src, y, x), masked where apply_mask. A warp
+// walks rows and its lanes neighbouring columns.
+template <class Dst, class Op>
+__device__ void pixel_pass(int H, int W, Dst dst, const Mask& mask,
+                           bool apply_mask, Op op) {
+  const int lane = threadIdx.x & 31;
+  for (int y = threadIdx.x >> 5; y < H; y += THREADS / 32) {
+    for (int x = lane; x < W; x += 32) {
+      float v = op(y, x);
+      if (apply_mask) v = __fmul_rn(v, keep(mask, y, x) ? 1.f : 0.f);
+      dst(y * W + x, v);
+    }
+  }
+}
+
+// Whether Pascal1D's op `op` changes the image: its Sometimes gate is on
+// (and, for the blur, k > 1).
+__device__ __forceinline__ bool pascal_on(int op, const Shared* P,
+                                          const Mask& mask) {
+  switch (op) {
+    case P_CROP: return P->warp[0][6] > 0.5f;
+    case P_GAMMA: return P->pixel[0] > 0.5f;
+    case P_BLUR: return P->pixel[2] > 0.5f && P->pixel[3] > 1.5f;
+    case P_AFFINE: return P->warp[1][6] > 0.5f;
+    default: return mask.on;
+  }
+}
+
+// Pascal1D's op `op` on src, into dst (the other image for a warp or the
+// blur, src itself otherwise, or the output). An op that is off is the
+// identity: a copy.
+template <class Dst, class Round>
+__device__ void pascal_op(int op, const Shared* P, Axis* tab, int H, int W,
+                          const float* src, Dst dst, const Mask& mask,
+                          Round round) {
+  const int k = (int)P->pixel[3];
+  if (!pascal_on(op, P, mask)) {
+    pixel_pass(H, W, dst, mask, false,
+               [&](int y, int x) { return src[y * W + x]; });
+  } else if (op == P_CROP || op == P_AFFINE) {
+    warp_op(P->warp[op == P_AFFINE], tab, H, W, src, dst, mask, false);
+  } else if (op == P_GAMMA) {
+    const float g = P->pixel[1];
+    pixel_pass(H, W, dst, mask, false,
+               [&](int y, int x) { return da::gamma_px(src[y * W + x], g); });
+  } else if (op == P_BLUR) {
+    pixel_pass(H, W, dst, mask, false, [&](int y, int x) {
+      return da::blur_px(src, H, W, y, x, k, round);
+    });
+  } else {
+    pixel_pass(H, W, dst, mask, true,
+               [&](int y, int x) { return src[y * W + x]; });
+  }
+}
+
+// Programs 1-3 on f = x / 255 (with g the second image): Out writes the
+// output, Mid an image in shared memory (rounded to bfloat16 in bfloat16).
+template <int PROG, class Out, class Mid, class Round>
+__device__ void run_pixel_program(const Args& a, const Shared* P, Axis* tab,
+                                  float* f, float* g, const Mask& mask,
+                                  Out out, Round round) {
+  const int H = a.H, W = a.W;
+  if constexpr (PROG == SHAPENET1D_FIXED) {     // geometric, then the mask
+    warp_op(P->warp[0], tab, H, W, f, out, mask, true);
+  } else if constexpr (PROG == PASCAL_FIXED) {  // geometric, gamma, blur,
+    warp_op(P->warp[0], tab, H, W, f, Mid{g}, mask, false);    // the mask
+    __syncthreads();
+    if (P->pixel[0] > 0.5f) {
+      const float gm = P->pixel[1];
+      pixel_pass(H, W, Mid{g}, mask, false,
+                 [&](int y, int x) { return da::gamma_px(g[y * W + x], gm); });
+      __syncthreads();
+    }
+    const int k = (int)P->pixel[3];
+    const bool blur = P->pixel[2] > 0.5f && k > 1;
+    pixel_pass(H, W, out, mask, mask.on, [&](int y, int x) {
+      return blur ? da::blur_px(g, H, W, y, x, k, round) : g[y * W + x];
+    });
+  } else {                                      // Pascal1D, drawn order
+    float* cur = f;
+    float* other = g;
+    for (int s = 0; s < NPASCAL; ++s) {
+      const int op = P->perm[s];
+      const bool moves = op == P_CROP || op == P_AFFINE || op == P_BLUR;
+      if (s == NPASCAL - 1) {
+        pascal_op(op, P, tab, H, W, cur, out, mask, round);
+      } else if (pascal_on(op, P, mask)) {
+        pascal_op(op, P, tab, H, W, cur, Mid{moves ? other : cur}, mask,
+                  round);
+        if (moves) {
+          float* t = cur;
+          cur = other;
+          other = t;
+        }
+        __syncthreads();
+      }
+    }
+  }
+}
+
+// Program 0 after the staging (the header's "Design").
+__device__ void run_shapenet1d(const Args& a, const Layout& L, Shared* P,
+                               uint8_t* src8, float* fbuf, Axis* tab,
+                               float* lut, int* frow, int* fcol,
+                               uint8_t* cell, uint64_t* bar) {
+  const int H = a.H, W = a.W, tid = threadIdx.x;
   // the order's shape: the warp ops before the dropout op (chain A) and
   // after it (chain B)
   const int* ops = ORDERS[P->order];
@@ -420,34 +645,7 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
     else
       da::axis_entry(i - H, W, st[c][0], st[c][1], 0, nt[c], &tab[e]);
   }
-
-  Mask mask;
-  mask.on = P->drop[0] > 0.5f;
-  mask.pick = P->drop[1] > 0.5f;
-  mask.p = P->drop[2];
-  mask.k0 = P->k0;
-  mask.k1 = P->k1;
-  mask.W = W;
-  mask.frow = frow;
-  mask.fcol = fcol;
-  mask.cell = cell;
-  const float hl = da::coarse_size(H, P->drop[3]);
-  const float wl = da::coarse_size(W, P->drop[3]);
-  mask.wl = (int)wl;
-  if (mask.on && !mask.pick) {
-    for (int e = tid; e < H + W; e += THREADS) {
-      if (e < H)
-        frow[e] = da::coarse_cell(e, hl, H);
-      else
-        fcol[e - H] = da::coarse_cell(e - H, wl, W);
-    }
-    // min: a size column outside [0, 1) breaks the contract, not the block
-    const int cells = min((int)hl * mask.wl, L.cap);
-    for (int e = tid; e < cells; e += THREADS) {
-      const int cy = e / mask.wl, cx = e - cy * mask.wl;
-      cell[e] = da::hash_keep(mask.k0, mask.k1, cell_id(cy, cx, W), mask.p);
-    }
-  }
+  const Mask mask = build_mask(P, H, W, false, L.cap, frow, fcol, cell);
   __syncthreads();
   stamp(a, 1);
   tc::bar_wait(bar, 0);
@@ -457,6 +655,7 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
                 n[0] == 2 ? st[0][1][4] : 0.f, n[0] == 2};
   const Chain B{tab + H + W, n[1] ? st[1][0][4] : 0.f,
                 n[1] == 2 ? st[1][1][4] : 0.f, n[1] == 2};
+  const int HW = H * W, b = blockIdx.x;
   if (a.bf16)
     run_order(a, n, nt, A, B, src8, lut, fbuf, mask,
               OutBF16{static_cast<__nv_bfloat16*>(a.out) + (size_t)b * HW},
@@ -465,6 +664,85 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
     run_order(a, n, nt, A, B, src8, lut, fbuf, mask,
               OutF32{static_cast<float*>(a.out) + (size_t)b * HW},
               OutF32{fbuf});
+}
+
+template <int PROG>
+__global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = a.H, W = a.W, HW = H * W;
+  const Layout L = layout(H, W, pixel_ops(PROG));
+  uint8_t* src8 = smem;
+  float* fbuf = reinterpret_cast<float*>(smem + L.f);
+  float* gbuf = reinterpret_cast<float*>(smem + L.g);
+  Axis* tab = reinterpret_cast<Axis*>(smem + L.tab);   // chain A, chain B
+  float* lut = reinterpret_cast<float*>(smem + L.lut);
+  int* frow = reinterpret_cast<int*>(smem + L.frow);
+  int* fcol = reinterpret_cast<int*>(smem + L.fcol);
+  uint8_t* cell = smem + L.cell;
+  Shared* P = reinterpret_cast<Shared*>(smem + L.par);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  const int tid = threadIdx.x, b = blockIdx.x;
+
+  stamp(a, 0);
+  if (tid == 0) {
+    tc::bar_init(bar, 1);
+    tc::bar_init_fence();
+    const int t = b / a.S, s = b - t * a.S;
+    tc::bulk_load(src8, a.x + t * a.st + s * a.ss, HW, bar);
+    const float* u = a.u + (size_t)b * (pixel_ops(PROG) ? NU_PIXEL : NU);
+    draw_params(u, H, W, P);
+    if (fixed_order(PROG)) draw_geometric(u, H, W, P);
+    if (pixel_ops(PROG)) draw_pixel(u, P);
+    P->k0 = (uint32_t)a.keys[2 * b];
+    P->k1 = (uint32_t)a.keys[2 * b + 1];
+    if (PROG == SHAPENET1D)
+      P->order = (int)(((a.order[0] % 6) + 6) % 6);   // as the twin reads it
+    if (PROG == PASCAL) {
+      P->order = (int)(((a.order[0] % 120) + 120) % 120);
+      da::decode_order(P->order, NPASCAL, P->perm);
+    }
+    if (a.params_out != nullptr) {
+      const int width = PROG == SHAPENET1D ? NPARAMS : NPARAMS_PIXEL;
+      float* o = a.params_out + (size_t)b * width;
+      for (int i = 0; i < NP; ++i) {
+        o[i] = P->warp[0][i];
+        o[NP + i] = P->warp[1][i];
+      }
+      for (int i = 0; i < ND; ++i) o[2 * NP + i] = P->drop[i];
+      if (PROG != SHAPENET1D)
+        for (int i = 0; i < NX; ++i)
+          o[NPARAMS + i] = pixel_ops(PROG) ? P->pixel[i] : 0.f;
+    }
+  }
+  __syncthreads();
+
+  if constexpr (PROG == SHAPENET1D) {
+    run_shapenet1d(a, L, P, src8, fbuf, tab, lut, frow, fcol, cell, bar);
+  } else {
+    for (int i = tid; i < 256; i += THREADS) {
+      const float q = __fdiv_rn((float)i, 255.f);
+      lut[i] = a.bf16 ? bf16_round(q) : q;
+    }
+    const Mask mask = build_mask(P, H, W, fixed_order(PROG), L.cap, frow,
+                                 fcol, cell);
+    __syncthreads();
+    stamp(a, 1);
+    tc::bar_wait(bar, 0);
+    stamp(a, 2);
+    to_float(src8, lut, fbuf, H, W, mask, false);
+    __syncthreads();
+    stamp(a, 3);
+    if (a.bf16)
+      run_pixel_program<PROG, OutBF16, OutRounded>(
+          a, P, tab, fbuf, gbuf, mask,
+          OutBF16{static_cast<__nv_bfloat16*>(a.out) + (size_t)b * HW},
+          da::RoundBF16{});
+    else
+      run_pixel_program<PROG, OutF32, OutF32>(
+          a, P, tab, fbuf, gbuf, mask,
+          OutF32{static_cast<float*>(a.out) + (size_t)b * HW},
+          da::RoundF32{});
+  }
   if (a.stamps != nullptr) {
     __syncthreads();
     stamp(a, 4);
@@ -472,47 +750,72 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
 }
 
 constexpr int MAX_DEVICES = 64;
-int configured_smem[MAX_DEVICES];   // the attribute set on each device so far
+// the attribute set on each program's kernel on each device so far
+int configured_smem[NPROGRAMS][MAX_DEVICES];
+
+template <int PROG>
+cudaError_t launch(const Args& a, int B, int smem, int dev,
+                   cudaStream_t stream) {
+  if (smem > configured_smem[PROG][dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        image_da_kernel<PROG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    configured_smem[PROG][dev] = smem;
+  }
+  image_da_kernel<PROG><<<B, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
-extern "C" int wmfml_image_da_smem_bytes(int H, int W) {
-  return layout(H, W).total;
+// the dynamic shared memory a block of ``program`` takes for H x W images
+extern "C" int wmfml_image_da_smem_bytes(int program, int H, int W) {
+  return layout(H, W, pixel_ops(program)).total;
 }
 
 // x: uint8 images, image (t, s) at x + t st + s ss (bytes), each H x W x 1
 // contiguous and 16-byte aligned, B = T S of them with S per task; u [B,
-// 19] f32 (column 12 in [0, 1)), keys [B, 2] i32, order [1] i64 (read
-// modulo 6), out [B, H, W] f32 (bf16 = 0) or bf16 (bf16 = 1), all
-// contiguous on the current device;
-// params_out null or [B, 19] f32 (the parameters the kernel computed:
-// warp [2, 7], then drop [5]); stamps null or [B, 5] i64 (the phase
-// clock). W a multiple of 4 and at most 128, H W a multiple of 16, the
-// image in one block's shared memory. Returns the cudaError_t of the
-// launch, or -1 for a shape the kernel does not take.
+// 19] f32 ([B, 23] for the Pascal programs; column 12 in [0, 1)), keys [B,
+// 2] i32, order [1] i64 (read modulo 6, or 120 for Pascal1D; null for the
+// fixed programs), out [B, H, W] f32 (bf16 = 0) or bf16 (bf16 = 1), all
+// contiguous on the current device; params_out null or [B, 19] f32 for
+// program 0, [B, 23] for the others (the parameters the kernel computed:
+// warp [2, 7], drop [5], then the pixel ops' [4]); stamps null or [B, 5]
+// i64 (the phase clock); program 0-3 (Program). W a multiple of 4 and at
+// most 128, H W a multiple of 16, the image in one block's shared memory;
+// the fixed programs also need H and W multiples of their grid's cells.
+// Returns the cudaError_t of the launch, or -1 for a shape or program the
+// kernel does not take.
 extern "C" int wmfml_image_da_fwd(const unsigned char* x, long long st,
                                   long long ss, int S, int B, const float* u,
                                   const int* keys, const long long* order,
                                   void* out, float* params_out,
                                   long long* stamps, int H, int W, int bf16,
-                                  void* stream) {
+                                  int program, void* stream) {
   if (B < 1 || S < 1 || H < 1 || W < 4 || W % 4 || W > 32 * COLS ||
-      (H * W) % 16)
+      (H * W) % 16 || program < 0 || program >= NPROGRAMS)
     return -1;
-  const int smem = layout(H, W).total;
+  if (fixed_order(program) &&
+      (H % da::fixed_cells(H) || W % da::fixed_cells(W)))
+    return -1;
+  if (!fixed_order(program) && order == nullptr) return -1;
+  const int smem = layout(H, W, pixel_ops(program)).total;
   if (smem > MAX_SMEM) return -1;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (smem > configured_smem[dev]) {
-    err = cudaFuncSetAttribute(
-        image_da_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    configured_smem[dev] = smem;
-  }
   const Args a{x,   st,         ss,     S, u, keys, order,
                out, params_out, stamps, H, W, bf16 != 0};
-  image_da_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (program) {
+    case SHAPENET1D: err = launch<SHAPENET1D>(a, B, smem, dev, s); break;
+    case PASCAL: err = launch<PASCAL>(a, B, smem, dev, s); break;
+    case SHAPENET1D_FIXED:
+      err = launch<SHAPENET1D_FIXED>(a, B, smem, dev, s);
+      break;
+    default: err = launch<PASCAL_FIXED>(a, B, smem, dev, s); break;
+  }
+  return (int)err;
 }

@@ -1,8 +1,9 @@
 // The warp stages of image data augmentation, as device functions: the
 // scale/translate warps of CropAndPad and Affine (each under its Sometimes
-// gate) and their composition into one chain with constant fill.
-// csrc/image_da.cu includes them; an op list of another task adds its warp
-// ops here as more stage bodies, not as kernels.
+// gate), their composition into one chain with constant fill, and a warp
+// applied alone (_affine_warp: Pascal1D's chain, the fixed-order
+// pipelines' geometric). csrc/image_da.cu includes them; an op list of
+// another task adds its warp ops here as more stage bodies, not as kernels.
 //
 // Replaces wmfml_tpu/aug/image_aug.py:_interp_matrix, _stage_matrices and
 // _warp_chain (:57-151). The JAX package builds per-image [H, H] and [W, W]
@@ -15,7 +16,8 @@
 //   p, for two stages, the first stage's coverage pushed through the second.
 // The fill is _warp_chain's sum of rank-1 terms, in its order:
 //   one stage:  c0 - c0 ry rx
-//   two stages: c0 ry2 rx2 - c0 py px + c1 - c1 ry2 rx2.
+//   two stages: c0 ry2 rx2 - c0 py px + c1 - c1 ry2 rx2;
+// a warp alone fills as _affine_warp: c0 (1 - ry rx).
 // A gate that is off makes a stage the identity with no fill, exactly.
 //
 // Nearest snapping decides which pixel a tap reads, so one ulp matters: the
@@ -111,13 +113,19 @@ __device__ void axis_entry(int i, int n, const float* st0, const float* st1,
   e->p = p;
 }
 
+// How a chain's fill is summed: _warp_chain's rank-1 terms of one stage or
+// of two, or _affine_warp's cval (1 - ry rx) for a warp op applied alone
+// (the Pascal1D chain and the fixed-order pipelines' geometric)
+enum Fill { CHAIN_ONE = 0, CHAIN_TWO = 1, AFFINE = 2 };
+
 // The fill of one output pixel from its row and column entries; c0 (and c1
 // for two stages) the stages' cvals.
 __device__ __forceinline__ float chain_fill(float ry, float py, float rx,
                                             float px, float c0, float c1,
-                                            bool two) {
+                                            int form) {
   const float rr = __fmul_rn(ry, rx);
-  if (!two) return __fadd_rn(c0, __fmul_rn(-c0, rr));
+  if (form == AFFINE) return __fmul_rn(c0, __fsub_rn(1.f, rr));
+  if (form == CHAIN_ONE) return __fadd_rn(c0, __fmul_rn(-c0, rr));
   float fill = __fmul_rn(c0, rr);
   fill = __fadd_rn(fill, __fmul_rn(-c0, __fmul_rn(py, px)));
   fill = __fadd_rn(fill, c1);

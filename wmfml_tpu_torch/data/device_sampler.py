@@ -1,16 +1,20 @@
 """Device-resident episode sampling: the train split lives on the card.
 
-The ShapeNet1D train split is small (60 x 50 x 128 x 128 uint8 = 49 MB), so
-it is uploaded once and every training episode is gathered on the device
-from a ``torch.Generator`` on that device; no image crosses the host link
-after set-up. Semantics of the JAX package's sampler
+The train splits are small (ShapeNet1D 60 x 50 x 128 x 128 uint8 = 49 MB,
+synthetic Pascal1D 40 x 50 x 128 x 128 = 33 MB), so the split is uploaded
+once and every training episode is gathered on the device from a
+``torch.Generator`` on that device; no image crosses the host link after
+set-up. Semantics of the JAX package's sampler
 (``wmfml_tpu/data/device_sampler.py:72-101``):
 
   * class per task uniform; instances without replacement through one
     argsort of uniforms per task (the first ``max_ctx`` rows are context,
     the next ``query`` rows are queries);
-  * shot ~ U[shot_min, max_ctx] once per batch, realised as ``ctx_mask``;
-  * labels scaled by ``label_scale`` (2*pi for ShapeNet1D).
+  * shot ~ U[shot_min, max_ctx] once per batch, realised as ``ctx_mask``
+    (``shot_min`` 3 for ShapeNet1D; ``max_ctx`` for Pascal1D, whose shot is
+    fixed, ``from_dataset`` as ``:125-127``);
+  * labels scaled by ``label_scale`` (2*pi for ShapeNet1D, 1 for Pascal1D,
+    whose labels the episode processor scales).
 
 The draws differ from the JAX package's (Philox against threefry); the
 distribution is the same.
@@ -46,14 +50,21 @@ class DeviceEpisodeSampler:
         self.x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
         self.y = torch.from_numpy(np.asarray(y, np.float32)).to(device)
 
+    # task -> (shot_min, label_scale); shot_min None is max_ctx_num
+    TASKS = {"shapenet_1d": (3, 2.0 * np.pi), "pascal_1d": (None, 1.0)}
+
     @classmethod
     def from_dataset(cls, data, config, device) -> "DeviceEpisodeSampler":
-        if getattr(data, "task_name", None) != "shapenet_1d":
+        task = getattr(data, "task_name", None)
+        if task not in cls.TASKS:
             raise NotImplementedError(
-                "device sampling is ported for shapenet_1d only")
+                f"device sampling is ported for {sorted(cls.TASKS)}; got "
+                f"{task!r}")
+        shot_min, label_scale = cls.TASKS[task]
         return cls(data.x_train, data.y_train, max_ctx=config.max_ctx_num,
-                   query=config.query_num, shot_min=3,
-                   label_scale=2.0 * np.pi, device=device)
+                   query=config.query_num,
+                   shot_min=config.max_ctx_num if shot_min is None
+                   else shot_min, label_scale=label_scale, device=device)
 
     def sample(self, tasks_per_batch: int,
                generator: torch.Generator) -> Dict[str, torch.Tensor]:

@@ -1,32 +1,37 @@
 """Dataset factory: config -> episodic sampler.
 
-Data root: ``config.data_path`` if set, else ``./data/ShapeNet1D`` (the
-reference layout) when it holds the files, else a generated synthetic
-dataset under ``./data_synth/ShapeNet1D``. ``synthetic_data: true`` forces
-the synthetic set. Only ``shapenet_1d`` is ported; the other tasks raise.
+Data root: ``config.data_path`` if set, else ``./data/<subdir>`` (the
+reference layout: ``ShapeNet1D``, ``Pascal1D``) when it holds the task's
+files, else a generated synthetic dataset under ``./data_synth/<subdir>``.
+``synthetic_data: true`` forces the synthetic set. ``shapenet_1d`` and
+``pascal_1d`` are ported; the other tasks raise.
 """
 
 from __future__ import annotations
 
 import os
 
+from wmfml_tpu_torch.data.pascal_1d import Pascal1D
 from wmfml_tpu_torch.data.shapenet_1d import ShapeNet1D
 from wmfml_tpu_torch.data.synthetic import ensure_dataset
 
+REFERENCE_SUBDIRS = {"shapenet_1d": "ShapeNet1D", "pascal_1d": "Pascal1D"}
+_PROBE_FILES = {"shapenet_1d": "val_data.pkl",
+                "pascal_1d": "train_data_ins.pkl"}
+
 NOT_PORTED = {
-    "shapenet_3d": "ROADMAP.md A12 (LargeCNP slice)",
-    "shapenet_3d_segmentation": "ROADMAP.md A12 (LargeCNP slice)",
-    "distractor": "ROADMAP.md A12 (LargeCNP slice)",
-    "pascal_1d": "ROADMAP.md A12 (Pascal1D sampler)",
+    "shapenet_3d": "ROADMAP.md A12c (ShapeNet3D slice)",
+    "shapenet_3d_segmentation": "ROADMAP.md A12c (ShapeNet3D slice)",
+    "distractor": "ROADMAP.md A12b (Distractor slice)",
 }
 
 
 def resolve_data_path(config) -> str:
     if config.data_path:
         return config.data_path
-    real = os.path.join("data", "ShapeNet1D")
+    real = os.path.join("data", REFERENCE_SUBDIRS[config.task])
     if not config.synthetic_data and os.path.exists(
-            os.path.join(real, "val_data.pkl")):
+            os.path.join(real, _PROBE_FILES[config.task])):
         return real
     config.logger.info(
         f"real {config.task} data not found under {real}; using synthetic dataset")
@@ -35,11 +40,13 @@ def resolve_data_path(config) -> str:
 
 def build_data(config):
     """Host sampler for ``config.task`` (seed 42, as in the JAX package)."""
-    if config.task != "shapenet_1d":
+    if config.task not in REFERENCE_SUBDIRS:
         raise NotImplementedError(
             f"task {config.task!r} is not ported yet: "
             f"{NOT_PORTED.get(config.task, 'unknown task')}")
-    return ShapeNet1D(resolve_data_path(config), img_size=config.img_size,
-                      seed=42, data_size=config.data_size,
-                      aug=config.aug_list, max_ctx=config.max_ctx_num,
-                      query_num=config.query_num)
+    common = dict(img_size=config.img_size, seed=42, aug=config.aug_list,
+                  max_ctx=config.max_ctx_num, query_num=config.query_num)
+    path = resolve_data_path(config)
+    if config.task == "pascal_1d":
+        return Pascal1D(path, **common)
+    return ShapeNet1D(path, data_size=config.data_size, **common)

@@ -1,10 +1,17 @@
-"""Procedural synthetic ShapeNet1D in the reference's on-disk format.
+"""Procedural synthetic ShapeNet1D and Pascal1D in the reference's on-disk
+formats.
 
 The real data ships as git-LFS pointers, so training without it runs on a
-generated dataset: ``train_data_{small,middle,large}.pkl``, ``val_data.pkl``
-and ``test_data.pkl``, each ``(x [C, I, 128, 128, 1] uint8, y [C, I, 1])``
-with the angle in [0, 1). Each class is a union of soft ellipses rendered
-analytically in rotated coordinates, so every azimuth is exact.
+generated dataset:
+
+  * ShapeNet1D: ``train_data_{small,middle,large}.pkl``, ``val_data.pkl``
+    and ``test_data.pkl``;
+  * Pascal1D: ``train_data_ins.pkl`` (40 classes) and ``val_data_ins.pkl``
+    (10 classes); it has no test split.
+
+Each file is ``(x [C, I, 128, 128, 1] uint8, y [C, I, 1])`` with the angle
+in [0, 1). Each class is a union of soft ellipses rendered analytically in
+rotated coordinates, so every angle is exact.
 
 With the same seed the files are byte-identical to the JAX package's
 (``wmfml_tpu/data/synthetic.py``): the same numpy ``RandomState`` draws in
@@ -78,7 +85,31 @@ def generate_shapenet1d(root: str, seed: int = 0, instances: int = 50,
             pickle.dump((x, y), f)
 
 
-GENERATORS = {"shapenet_1d": ("ShapeNet1D", generate_shapenet1d)}
+def generate_pascal1d(root: str, seed: int = 5, train_classes: int = 40,
+                      val_classes: int = 10, instances: int = 50):
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+
+    def make_split(n_classes: int):
+        xs = np.zeros((n_classes, instances, 128, 128, 1), np.uint8)
+        ys = np.zeros((n_classes, instances, 1), np.float32)
+        for c in range(n_classes):
+            params = _random_shape_params(rng, 4, 34.0, (5.0, 20.0))
+            angles = rng.uniform(0.0, 1.0, size=instances)
+            for i, a in enumerate(angles):
+                img = _render_blob_2d(128, *params, angle_rad=a * 2 * np.pi)
+                xs[c, i, :, :, 0] = (img * 255).astype(np.uint8)
+                ys[c, i, 0] = a
+        return xs, ys
+
+    for name, n in [("train_data_ins.pkl", train_classes),
+                    ("val_data_ins.pkl", val_classes)]:
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump(make_split(n), f)
+
+
+GENERATORS = {"shapenet_1d": ("ShapeNet1D", generate_shapenet1d),
+              "pascal_1d": ("Pascal1D", generate_pascal1d)}
 
 
 def ensure_dataset(task: str, data_root: str = "data_synth") -> str:

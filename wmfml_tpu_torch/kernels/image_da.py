@@ -1,26 +1,33 @@
 """K6: image data augmentation of one augmenter call in one launch.
 
-Replaces ``wmfml_tpu/aug/pipeline.py:_to_float`` and the ShapeNet1D
-augmenter of ``wmfml_tpu/aug/image_aug.py`` (``_warp_chain``, the murmur3
-masks, the enumerated-order ``augment``) for one call: uint8 images in,
-float32 images out, the op order and every image's parameters computed on
-the card from the call's raw draws. The images come out in float32 or,
-for ``compute_dtype: bfloat16``, in bfloat16, rounded where the JAX package
-rounds them: x / 255 and the end of every run of adjacent warps (its
-``_warp_chain`` returns ``img.dtype``); the masks are exact.
-``csrc/image_da.cu`` says what bounds the kernel and how its block of one
-image stages the image, builds its tap and mask tables once and applies the
-order.
+Replaces ``wmfml_tpu/aug/pipeline.py:_to_float`` and the augmenters of
+``wmfml_tpu/aug/image_aug.py`` for one call: uint8 images in, float32
+images out, the op order and every image's parameters computed on the card
+from the call's raw draws. The images come out in float32 or, for
+``compute_dtype: bfloat16``, in bfloat16, rounded where the JAX package
+rounds them: x / 255 and the end of every op (or run of adjacent warps)
+that returns ``img.dtype``; the masks are exact. ``csrc/image_da.cu`` says
+what bounds the kernel and how its block of one image stages the image,
+builds its tap and mask tables and runs its op program.
 
-``image_da(x, u, keys, order, dtype)`` is the wrapper the augmenter calls:
-``x`` uint8 [B, H, W, 1] or [T, S, H, W, 1] (read through its T and S
-strides, not copied), ``u`` float32 [B, 19] (the uniforms of
-``aug/image_aug.py:params_from_draw``; column 12, which sizes the
-CoarseDropout grid, in [0, 1)), ``keys`` int32 [B, 2], ``order``
-int64 [1] (an index into ``ORDERS``, read modulo 6), ``dtype`` float32 or
-bfloat16, that of the output. A CPU tensor takes the
-plain twin ``image_da_plain`` (``params_from_draw``, then the dense twins);
-a CUDA tensor launches the kernel or raises. Augmentation is not
+The op programs (``PROGRAMS``; ``aug/image_aug.py`` has each one's twin):
+
+  * ``shapenet_1d``: ShapeNet1D's three ops in one of 3! drawn orders;
+  * ``pascal_1d``: Pascal1D's five ops in one of 5! drawn orders;
+  * ``shapenet_1d_fixed`` and ``pascal_1d_fixed``: the fixed-order
+    pipelines (``aug_random_order: false``).
+
+``image_da(x, u, keys, order, dtype, program)`` is the wrapper the
+augmenters call: ``x`` uint8 [B, H, W, 1] or [T, S, H, W, 1] (read through
+its T and S strides, not copied), ``u`` float32 [B, NU[program]] (the
+uniforms of the program's ``params_from_draw``; column 12, which sizes the
+CoarseDropout grid, in [0, 1)), ``keys`` int32 [B, 2], ``order`` int64 [1]
+(an index into the program's orders, read modulo their count; None for the
+fixed programs), ``dtype`` float32 or bfloat16, that of the output. A CPU
+tensor takes the plain twin ``image_da_plain`` (the program's
+``params_from_draw``, then its dense twins); a CUDA tensor launches the
+kernel or raises. Each launch counts in ``image_da.launches`` and in
+``image_da.program_launches[program]``. Augmentation is not
 differentiated, so there is no backward.
 """
 
@@ -33,31 +40,51 @@ import torch
 
 from wmfml_tpu_torch.kernels import build
 
-NU = 19                 # uniforms per image
+# K6's op programs, in csrc/image_da.cu's order (its Program)
+PROGRAMS = ("shapenet_1d", "pascal_1d", "shapenet_1d_fixed",
+            "pascal_1d_fixed")
+NU = 19                 # uniforms per image (ShapeNet1D's programs)
+NU_PIXEL = NU + 4       # with the pixel ops' (Pascal1D's programs)
+PROGRAM_NU = {"shapenet_1d": NU, "pascal_1d": NU_PIXEL,
+              "shapenet_1d_fixed": NU, "pascal_1d_fixed": NU_PIXEL}
+# op orders a call draws from (3! and 5!; 1: the fixed programs, no order)
+PROGRAM_ORDERS = {"shapenet_1d": 6, "pascal_1d": 120,
+                  "shapenet_1d_fixed": 1, "pascal_1d_fixed": 1}
 NPARAMS = 2 * 7 + 5     # the kernel's parameter row: warp [2, 7], drop [5]
+NPARAMS_PIXEL = NPARAMS + 4    # then the pixel ops' [4] (programs 1-3)
 # the kernel's phase clock (csrc/image_da.cu: stamp)
 PHASES = ("start", "tables_built", "image_staged", "mask_or_first_pass_done",
           "end")
 STAMPS = len(PHASES)
 UNSUPPORTED = ("image DA kernel takes uint8 [B, H, W, 1] or [T, S, H, W, 1] "
                "images with W a multiple of 4 (at most 128), H W a multiple "
-               "of 16 and the image in one block's shared memory; other "
-               "channel counts and sizes (ShapeNet3D's RGB, larger images) "
-               "are ROADMAP.md A12c")
+               "of 16 and the image in one block's shared memory (the fixed "
+               "programs: H and W multiples of their grid's max(n // 16, 1) "
+               "cells, as the JAX package's repeat needs); other channel "
+               "counts and sizes (ShapeNet3D's RGB, larger images) are "
+               "ROADMAP.md A12c")
 
 
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def image_da_plain(x, u, keys, order, dtype=torch.float32):
-    """The twin: ``params_from_draw``, then x / 255 (rounded to ``dtype``)
-    through ``apply``."""
-    from wmfml_tpu_torch.aug.image_aug import apply, params_from_draw, to_unit
+def nparams(program: str) -> int:
+    """The width of the kernel's parameter row (``params_out``)."""
+    return NPARAMS if program == "shapenet_1d" else NPARAMS_PIXEL
+
+
+def image_da_plain(x, u, keys, order, dtype=torch.float32,
+                   program="shapenet_1d"):
+    """The twin: the program's ``params_from_draw``, then x / 255 (rounded
+    to ``dtype``) through its ``apply``."""
+    from wmfml_tpu_torch.aug.image_aug import (apply_program, params_for,
+                                               to_unit)
 
     h, w = x.shape[-3], x.shape[-2]
     flat = x.reshape((-1,) + tuple(x.shape[-3:]))
-    params = params_from_draw(u, keys, order, h, w)
-    return apply(to_unit(flat).to(dtype), params).reshape(x.shape)
+    params = params_for(program, u, keys, order, h, w)
+    return apply_program(program, to_unit(flat).to(dtype), params).reshape(
+        x.shape)
 
 
 _fwd = None
@@ -70,7 +97,7 @@ def _kernel():
         fn = build.load("image_da").wmfml_image_da_fwd
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fwd = fn
     return _fwd
@@ -78,15 +105,24 @@ def _kernel():
 
 def image_da_launch(x, u, keys, order, dtype=torch.float32,
                     params_out: Optional[torch.Tensor] = None,
-                    stamps: Optional[torch.Tensor] = None):
+                    stamps: Optional[torch.Tensor] = None,
+                    program: str = "shapenet_1d"):
     """Run the CUDA kernel once (no launch count). ``params_out`` (float32
-    [B, 19]) receives the parameters the kernel computed, ``stamps`` (int64
-    [B, STAMPS]) its phase clock (the global timer, ns, at ``PHASES``); both
-    are for tests and ``chip_smoke.py``, null on the path."""
+    [B, nparams(program)]) receives the parameters the kernel computed,
+    ``stamps`` (int64 [B, STAMPS]) its phase clock (the global timer, ns,
+    at ``PHASES``); both are for tests and ``chip_smoke.py``, null on the
+    path."""
+    if program not in PROGRAMS:
+        raise ValueError(f"image DA program {program!r}: one of {PROGRAMS}")
+    fixed = PROGRAM_ORDERS[program] == 1
+    if (order is None) != fixed:
+        raise ValueError(f"image DA program {program!r} takes "
+                         f"{'no' if fixed else 'an'} order")
     if (not x.is_cuda or x.dtype != torch.uint8
-            or any(t.device != x.device for t in (u, keys, order))
+            or any(t.device != x.device for t in (u, keys))
             or u.dtype != torch.float32 or keys.dtype != torch.int32
-            or order.dtype != torch.int64):
+            or (order is not None and (order.device != x.device
+                                       or order.dtype != torch.int64))):
         raise TypeError("image DA kernel takes uint8 images, float32 "
                         "uniforms, int32 keys and an int64 order, all on one "
                         "CUDA device")
@@ -106,13 +142,15 @@ def image_da_launch(x, u, keys, order, dtype=torch.float32,
             or st % 16 or ss % 16):
         raise ValueError(f"{UNSUPPORTED}; got {tuple(x.shape)} with strides "
                          f"{x.stride()}")
-    if (tuple(u.shape) != (b, NU) or tuple(keys.shape) != (b, 2)
-            or order.numel() != 1):
-        raise ValueError(f"image DA takes u [{b}, {NU}], keys [{b}, 2] and "
+    nu = PROGRAM_NU[program]
+    if (tuple(u.shape) != (b, nu) or tuple(keys.shape) != (b, 2)
+            or (order is not None and order.numel() != 1)):
+        raise ValueError(f"image DA takes u [{b}, {nu}], keys [{b}, 2] and "
                          f"one order; got {tuple(u.shape)}, "
-                         f"{tuple(keys.shape)}, {tuple(order.shape)}")
-    for name, t, shape, want in (("params_out", params_out, (b, NPARAMS),
-                                   torch.float32),
+                         f"{tuple(keys.shape)}, "
+                         f"{None if order is None else tuple(order.shape)}")
+    for name, t, shape, want in (("params_out", params_out,
+                                   (b, nparams(program)), torch.float32),
                                   ("stamps", stamps, (b, STAMPS),
                                    torch.int64)):
         if t is not None and (t.device != x.device or t.dtype != want
@@ -120,14 +158,17 @@ def image_da_launch(x, u, keys, order, dtype=torch.float32,
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be {want} {list(shape)} on the "
                              f"images' device")
-    u, keys, order = u.contiguous(), keys.contiguous(), order.contiguous()
+    u, keys = u.contiguous(), keys.contiguous()
+    order = None if order is None else order.contiguous()
     out = torch.empty(x.shape, device=x.device, dtype=dtype)
     with torch.cuda.device(x.device):   # the launcher sets up the current one
         err = _kernel()(x.data_ptr(), st, ss, s_, b, u.data_ptr(),
-                        keys.data_ptr(), order.data_ptr(), out.data_ptr(),
+                        keys.data_ptr(),
+                        0 if order is None else order.data_ptr(),
+                        out.data_ptr(),
                         0 if params_out is None else params_out.data_ptr(),
                         0 if stamps is None else stamps.data_ptr(), h, w,
-                        int(dtype == torch.bfloat16),
+                        int(dtype == torch.bfloat16), PROGRAMS.index(program),
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err == -1:
         raise ValueError(f"{UNSUPPORTED}; got {tuple(x.shape)}")
@@ -136,15 +177,17 @@ def image_da_launch(x, u, keys, order, dtype=torch.float32,
     return out
 
 
-def image_da(x, u, keys, order, dtype=torch.float32):
+def image_da(x, u, keys, order, dtype=torch.float32, program="shapenet_1d"):
     """One augmenter call: ``dtype`` images of ``x``'s shape."""
     if x.device.type == "cpu":
-        return image_da_plain(x, u, keys, order, dtype)
-    out = image_da_launch(x, u, keys, order, dtype)
+        return image_da_plain(x, u, keys, order, dtype, program)
+    out = image_da_launch(x, u, keys, order, dtype, program=program)
     image_da.launches += 1
     image_da.bf16_launches += dtype == torch.bfloat16
+    image_da.program_launches[program] += 1
     return out
 
 
 image_da.launches = 0           # every launch on the path
 image_da.bf16_launches = 0      # those that wrote bfloat16
+image_da.program_launches = dict.fromkeys(PROGRAMS, 0)   # by program

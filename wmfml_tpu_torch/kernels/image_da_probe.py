@@ -41,7 +41,7 @@ SUBSTITUTIONS = (
       const int x = lane + 32 * k;
       if (x >= W) break;
       float v = __fadd_rn(acc[k], da::chain_fill(ay.r, ay.p, cr[k], cp[k],
-                                                 ch.c0, ch.c1, ch.two));
+                                                 ch.c0, ch.c1, ch.form));
       if (apply_mask) v = __fmul_rn(v, keep(mask, y, x) ? 1.f : 0.f);
       dst(y * W + x, v);
     }""",
@@ -51,7 +51,7 @@ SUBSTITUTIONS = (
     for (int k = 0; k < COLS; ++k) {
       const int x = 4 * lane + k;
       float v = __fadd_rn(acc[k], da::chain_fill(ay.r, ay.p, cr[k], cp[k],
-                                                 ch.c0, ch.c1, ch.two));
+                                                 ch.c0, ch.c1, ch.form));
       if (apply_mask) v = __fmul_rn(v, keep(mask, y, x) ? 1.f : 0.f);
       o[k] = v;
     }
@@ -95,7 +95,7 @@ def launcher(fn, x, u, keys, order):
     def launch():
         err = fn(x.data_ptr(), st, ss, s_, t_ * s_, u.data_ptr(),
                  keys.data_ptr(), order.data_ptr(), out.data_ptr(), 0, 0, h,
-                 w, 0, stream)
+                 w, 0, 0, stream)           # float32, program 0 (ShapeNet1D)
         if err != 0:
             raise RuntimeError(f"launch failed: {err}")
         return out

@@ -60,7 +60,8 @@ def build_maml_outer(model, config, num_steps: int, train: bool,
     loss_func = LossFunc(config.loss_type, config.task)
     process = build_episode_processor(config.task,
                                       config.aug_list if train else [],
-                                      train=train, dtype=torch_dtype(config))
+                                      train=train, dtype=torch_dtype(config),
+                                      aug_random_order=config.aug_random_order)
     create_graph = train and not config.first_order
     beta = float(config.beta or 0.0)
     update_lr = float(config.update_lr)

@@ -55,8 +55,9 @@ def _apply(model, batch: Dict[str, torch.Tensor]):
 
 
 def build_train_step(model, optimizer, config) -> Callable:
-    process = build_episode_processor(config.task, config.aug_list, train=True,
-                                      dtype=torch_dtype(config))
+    process = build_episode_processor(
+        config.task, config.aug_list, train=True, dtype=torch_dtype(config),
+        aug_random_order=config.aug_random_order)
     loss_func = LossFunc(config.loss_type, config.task)
     beta = float(config.beta or 0.0)
 
