@@ -117,7 +117,31 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      ``evaluation_cli`` over P1's final checkpoint (15 points, validation
      only: no test file), one point again on the CPU; graph against loop
      bit for bit on P1, P3 and P3 at T = 40 (phase 12's check);
- 14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+ 14. the Distractor paths (LargeCNP on the ResNet trunk, whose convolutions
+     cuDNN runs with TF32 off; K2's wide form; K6's programs 4 and 5), each
+     through ``train_phase`` (launches on the card as the code says, every
+     K6 launch of the path's program, every K2 launch a wide one, graph
+     nodes, one replay's trace) and its validation loss on one full T = 20
+     episode, card against the CPU: D1 ``cfg/train/ANP_DA+TA_Distractor.yaml``
+     as shipped (ANPDistractor: 15 context rows, shot ~ U[1, 15], 18
+     queries, d = e = 256, m = 1419), 32 steps, 8 a call; D2
+     ``cfg/train/CNP_max_DA+TA_Distractor.yaml`` as shipped (CNPDistractor,
+     max aggregation, no K2), 16 steps; D3 D1 with
+     ``aug_random_order=false`` (program 5), 16 steps; D4 ``evaluation_cli``
+     with ``cfg/evaluation/CNP_max_Distractor.yaml`` (25 points x 2
+     episodes x 2 splits, all 36 views as queries) over D2's checkpoint,
+     then with ``method=ANPDistractor agg_mode=attention`` over D1's (K2
+     wide at Nq 36, Nk 25), both loss files, one point again on the CPU;
+     graph against loop bit for bit on D1 (phase 12's check) and D1's and
+     D2's graph and loop ms/step in turns;
+ 15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+
+Phase 3 also holds the Distractor paths' kernels: K2's wide form at D1's
+shape (q [20, 8, 18, 256], k, v [20, 8, 15, 256], m 1419, shots 1..15) and
+D4's (Nq 36, Nk 25) against ``favor_plain`` (``TOL["favor_attention_wide"]``),
+and K6's programs 4 (both orders) and 5 at D1's two DA calls (300 and 360
+images): parameters bit for bit, masks on 1 - x / 255 bit for bit, values
+within ``TOL["warp_chain"]`` of the card twin and the CPU twin; each timed.
 
 Phase 3 also holds K6's programs 1-3 at full width (150 uint8 images, every
 gate on) against their twins on the card: Pascal1D's chain in 12 of its 120
@@ -193,6 +217,26 @@ PERF_ANP_T40_YAML = os.path.join(HERE, "cfg", "train", "perf",
 # validation at the YAML's cadence (it 0 and 64)
 PERF_ANP_OVERRIDES = ["synthetic_data=true", "iterations=128", "val_iters=1"]
 PASCAL_EVAL_OVERRIDES = ["synthetic_data=true", "device=cuda", "mode=eval"]
+# the Distractor paths (phase 14), as shipped but for their depth: D1
+# ANPDistractor (32 steps, 8 a call), D2 CNPDistractor with max aggregation
+# (16 steps), D3 D1 in the fixed order (16 steps); D4 the evaluation YAML
+# over D2's checkpoint, then over D1's as ANPDistractor, 2 episodes a point
+DISTRACTOR_YAML = os.path.join(HERE, "cfg", "train",
+                               "ANP_DA+TA_Distractor.yaml")
+DISTRACTOR_CNP_YAML = os.path.join(HERE, "cfg", "train",
+                                   "CNP_max_DA+TA_Distractor.yaml")
+DISTRACTOR_OVERRIDES = ["synthetic_data=true", "iterations=32",
+                        "val_freq=1000", "val_iters=1", "steps_per_call=8",
+                        "device=cuda"]
+DISTRACTOR_SHORT_OVERRIDES = ["synthetic_data=true", "iterations=16",
+                              "val_freq=1000", "val_iters=1",
+                              "steps_per_call=8", "device=cuda"]
+DISTRACTOR_FIXED_OVERRIDES = DISTRACTOR_SHORT_OVERRIDES + [
+    "aug_random_order=false"]
+DISTRACTOR_EVAL_YAML = os.path.join(HERE, "cfg", "evaluation",
+                                    "CNP_max_Distractor.yaml")
+DISTRACTOR_EVAL_OVERRIDES = ["synthetic_data=true", "device=cuda",
+                             "val_iters=2"]
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -211,6 +255,7 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 # statistic in another order, then divides by the channel's std, three
 # times over; its O(1) outputs keep about five digits
 TOL = {"literature_stem": (1e-4, 1e-4), "favor_attention": (1e-5, 1e-4),
+       "favor_attention_wide": (1e-5, 1e-4),
        "maml_features": (1e-4, 1e-4), "warp_chain": (1e-5, 1e-5),
        "pixel_ops": (1e-5, 1e-5)}
 # K6's programs 1-3 (pixel_ops): every term of every sum is nonnegative
@@ -988,7 +1033,11 @@ def pixel_work(program, p, h, w):
     b = p.warp.shape[0]
     fixed = kda.PROGRAM_ORDERS[program] == 1
     flops = 0.0
-    for row in p.warp.unbind(1)[:1 if fixed else 2]:
+    # the warp rows the program applies: geometric's one warp (row 0),
+    # Distractor's Affine alone (row 1), or CropAndPad and Affine
+    used = ([0] if program in kda.GEOMETRIC else
+            [1] if program.startswith("distractor") else [0, 1])
+    for row in (p.warp[:, i] for i in used):
         gate = row[:, 6] > 0.5
         st = image_aug.stages_from_params(row[:, None], [0])[0]
         wy, wx = image_aug.stage_matrices(h, w, st["scale"], st["translate"],
@@ -1171,6 +1220,269 @@ def check_image_da_programs(gen, programs=("pascal_1d", "shapenet_1d_fixed",
     return rows
 
 
+def check_favor_wide(proj, gen, nq, nk, name, path):
+    """K2's wide form at a Distractor path's shape: T = 20, 8 heads of d = e
+    = 256 with ANPDistractor's projection (m = 1419); q [20, 8, nq, 256], k
+    and v [20, 8, nk, 256] as the attention block hands them over ([T, N,
+    H, d] transposed), shots 1..nk across the tasks (masked rows present,
+    a task with one real row). One call must issue one kernel, the wide
+    one. The row reports ``path``'s launches."""
+    import torch
+
+    from wmfml_tpu_torch.kernels import favor
+
+    t_, h, d = 20, 8, proj.shape[1]
+    q = torch.randn((t_, nq, h, d), generator=gen, device="cuda").transpose(
+        1, 2)
+    k, v = (torch.randn((t_, nk, h, d), generator=gen, device="cuda"
+                        ).transpose(1, 2) for _ in range(2))
+    shots = torch.tensor([1 + ((nk - 1) * i) // (t_ - 1) for i in range(t_)],
+                         device="cuda")
+    mask = torch.arange(nk, device="cuda")[None, :] < shots[:, None]
+    got = favor.favor_launch(q, k, v, proj, mask)
+    err, rel = check_close("favor_attention_wide", got,
+                           favor.favor_plain(q, k, v, proj, mask))
+    times = in_turns({"ms": lambda: favor.favor_launch(q, k, v, proj, mask),
+                      "plain_ms": lambda: favor.favor_plain(q, k, v, proj,
+                                                            mask)})
+    names = set()
+    times.update(device_profile(
+        lambda: favor.favor_launch(q, k, v, proj, mask), names=names))
+    if (len(names) != 1 or times["kernels_per_call"] != 1
+            or "favor_kernel_wide" not in next(iter(names))):
+        raise AssertionError(f"{name} issued {times['kernels_per_call']} "
+                             f"kernels per call: {sorted(names)}")
+    times["phase_us"] = favor_wide_phases(q, k, v, proj, mask)
+    m, e, items, r = proj.shape[0], v.shape[-1], t_ * h, nq + nk
+    # dash in split TF32 on the tensor cores; A, A v and the row sums on
+    # the CUDA cores; the bytes: each input read once, the output written
+    # once, and dash written to global memory and read back once
+    split_flops = 2 * items * r * m * d
+    flops = 2 * items * (nq * nk * m + nq * nk * e + nq * nk)
+    nbytes = (4 * (q.numel() + k.numel() + v.numel() + proj.numel()
+                   + got.numel()) + mask.numel() + 2 * 4 * items * r * m)
+    ids = _rows(name, torch.float32, path)
+    ids["kernel"] = "favor_attention"
+    return dict(**ids, tol="favor_attention_wide",
+                shape=f"q [20, 8, {nq}, 256], k, v [20, 8, {nk}, 256], m "
+                      f"{m}, shots 1..{nk}",
+                source="wmfml_tpu_torch/csrc/favor.cu",
+                replaces="wmfml_tpu/nn/attention.py:93",
+                max_abs_err=err, max_rel_err=rel, **times, library_ms=None,
+                **bound(flops, nbytes, split_flops=split_flops))
+
+
+def favor_wide_phases(q, k, v, proj, mask, runs=10):
+    """K2 wide's phase clock (``favor.WIDE_PHASES``, the global timer read
+    by each block's first thread): microseconds from the first block's
+    start until the last block reached each point, and each phase's mean
+    over the blocks; medians over ``runs`` launches."""
+    import statistics
+
+    import torch
+
+    from wmfml_tpu_torch.kernels import favor
+
+    rows = favor.wide_grid(q.shape[0] * q.shape[1], proj.shape[0])
+    per_run = []
+    for _ in range(runs):
+        st = torch.full((rows, len(favor.WIDE_PHASES)), -1,
+                        dtype=torch.int64, device="cuda")
+        favor.favor_launch(q, k, v, proj, mask, stamps=st)
+        s = st.cpu().double()
+        row = {name: float(s[:, j].max() - s[:, 0].min()) / 1e3
+               for j, name in enumerate(favor.WIDE_PHASES) if j}
+        row["phase1_mean"] = float((s[:, 1] - s[:, 0]).mean()) / 1e3
+        row["phase2_mean"] = float((s[:, 3] - s[:, 2]).mean()) / 1e3
+        per_run.append(row)
+    return {k: statistics.median(r[k] for r in per_run) for k in per_run[0]}
+
+
+def check_image_da_distractor(gen):
+    """K6's Distractor programs at D1's (and D3's) two DA calls: the context
+    slice of a [20, 33, 128, 128, 1] uint8 batch (300 images) and its query
+    slice (360), read through their strides, every gate on. Per program
+    and call: its parameters bit for bit against ``params_for`` on the
+    card; with Affine off and the dropout op on (Dropout, then
+    CoarseDropout), its masks on 1 - x / 255 bit for bit against the twin
+    on the card and on the CPU, in each order; its output against both
+    twins in each order (program 4: 2; ``TOL["warp_chain"]``); timed in
+    order 0 (program 4) or the fixed order, with ``library_warp_ms`` of
+    Affine's warp on the inverted images as the library yardstick."""
+    import torch
+
+    from wmfml_tpu_torch.aug import image_aug
+    from wmfml_tpu_torch.kernels import image_da as kda
+
+    t_, s_, q_, h, w = 20, 15, 18, 128, 128
+    batch = torch.randint(0, 256, (t_, s_ + q_, h, w, 1), dtype=torch.uint8,
+                          generator=gen, device="cuda")
+    f32 = torch.float32
+    rows = []
+    for program in ("distractor", "distractor_fixed"):
+        fixed = program == "distractor_fixed"
+        orders = [None] if fixed else [0, 1]
+        on_card = {o: None if o is None else torch.tensor([o], device="cuda")
+                   for o in orders}
+        for call, x in (("", batch[:, :s_]), ("_qry", batch[:, s_:])):
+            b, xc = t_ * x.shape[1], x.cpu()
+            u, keys = program_draw(program, gen, b)
+
+            def launch(uu, o, **kw):
+                return kda.image_da_launch(x, uu, keys, on_card[o],
+                                           program=program, **kw)
+
+            def twin(uu, o, cpu=False):
+                if cpu:
+                    return kda.image_da_plain(
+                        xc, uu.cpu(), keys.cpu(),
+                        None if o is None else on_card[o].cpu(), f32, program)
+                return kda.image_da_plain(x, uu, keys, on_card[o], f32,
+                                          program)
+
+            got_p = torch.empty((b, kda.nparams(program)), device="cuda")
+            launch(u, orders[0], params_out=got_p)
+            p = image_aug.params_for(program, u, keys, on_card[orders[0]], h,
+                                     w)
+            want_p = image_aug.params_row(p)
+            torch.cuda.synchronize()
+            if not torch.equal(got_p.view(torch.int32),
+                               want_p.view(torch.int32)):
+                raise AssertionError(f"image_da {program}: its parameters "
+                                     f"differ from the twin's at "
+                                     f"{int((got_p != want_p).sum())} entries")
+            dropped = {}
+            for pick, kind in ((0.25, "Dropout"), (0.75, "CoarseDropout")):
+                um = u.clone()
+                um[:, 14], um[:, 17] = 0.75, pick      # Affine off
+                for o in orders:
+                    got = launch(um, o).cpu()
+                    for want in (twin(um, o).cpu(), twin(um, o, cpu=True)):
+                        if not torch.equal(got.view(torch.int32),
+                                           want.view(torch.int32)):
+                            raise AssertionError(
+                                f"image_da {program} ({kind}, order {o}): the "
+                                f"mask differs from the twin's at "
+                                f"{int((got != want).sum())} elements")
+                dropped[kind] = float((got == 0).double().mean()
+                                      - (xc == 255).double().mean())
+            worst = {"card twin": 0.0, "CPU twin": 0.0}
+            for o in orders:
+                got = launch(u, o)
+                worst["card twin"] = max(worst["card twin"], check_close(
+                    "warp_chain", got, twin(u, o))[0])
+                worst["CPU twin"] = max(worst["CPU twin"], check_close(
+                    "warp_chain", got.cpu(), twin(u, o, cpu=True))[0])
+            log(f"kernel: image_da {program}{call} ({b} images): parameters "
+                f"bit for bit; masks bit for bit in orders {orders} (share "
+                f"of pixels dropped beyond the zeros of 1 - x / 255: "
+                f"{dropped}); max abs err {worst} (atol, rtol "
+                f"{TOL['warp_chain']})")
+            o = orders[0]
+            err = (launch(u, o) - twin(u, o)).abs().max().item()
+            times = in_turns({"ms": lambda: launch(u, o),
+                              "plain_ms": lambda: twin(u, o)})
+            names = set()
+            times.update(device_profile(lambda: launch(u, o), names=names))
+            if len(names) != 1 or times["kernels_per_call"] != 1:
+                raise AssertionError(f"image_da {program} issued "
+                                     f"{times['kernels_per_call']} kernels "
+                                     f"per call: {sorted(names)}")
+            xf = (1.0 - xc.float() / 255.0).reshape(b, 1, h, w).cuda()
+            library_ms = library_warp_ms(xf, p.warp[:, 1])
+            flops, iops = pixel_work(program, p, h, w)
+            nbytes = 5 * x.numel() + 4 * (u.numel() + keys.numel()) + (
+                0 if fixed else 8)
+            t_ops = max(flops / PEAK_F32_FLOPS, iops / PEAK_INT32_OPS)
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            ids = _rows(f"image_da_{program}{call}", f32,
+                        "Distractor ANP" + (" fixed" if fixed else ""))
+            ids["kernel"] = "image_da"
+            rows.append(dict(
+                **ids, tol="warp_chain", program=program,
+                shape=f"[20, {x.shape[1]} of 33, 128, 128, 1] uint8 -> "
+                      f"float32, {'fixed order' if fixed else 'order 0'}, "
+                      f"every gate on",
+                source="wmfml_tpu_torch/csrc/image_da.cu",
+                replaces=("wmfml_tpu/aug/image_aug.py:580" if fixed else
+                          "wmfml_tpu/aug/image_aug.py:562"),
+                library="F.grid_sample, bilinear, zeros, Affine's warp, "
+                        "cval 0",
+                max_abs_err=err, max_rel_err=None, max_abs_err_orders=worst,
+                **times, library_ms=library_ms,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_f32_ms=max(t_ops, t_bytes) * 1e3, flops=flops,
+                int_ops=iops, dropped_share=dropped))
+    return rows
+
+
+def check_distractor_evaluation(cnp_trainer, anp_trainer):
+    """D4: ``evaluation_cli`` with ``cfg/evaluation/CNP_max_Distractor.yaml``
+    over D2's final checkpoint, then with ``method=ANPDistractor
+    agg_mode=attention`` over D1's (eval-mode data: validation from the
+    test categories, all 36 views as queries; max_ctx_num 25, so K2's wide
+    form at Nq 36, Nk 25 under no_grad): both loss files 25 x 3 and
+    finite, K2 launched once an episode on the ANP sweep and never on the
+    CNP one, and the last point's validation loss against the same
+    evaluation on the CPU. Returns the ANP sweep's K2 launches."""
+    import copy
+
+    import numpy as np
+
+    from wmfml_tpu_torch.cli import evaluation_cli
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.data.factory import build_data
+    from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
+    from wmfml_tpu_torch.kernels.favor import favor_attention
+    from wmfml_tpu_torch.models.registry import build_model
+
+    launches = 0
+    for trainer, extra in ((cnp_trainer, []),
+                           (anp_trainer, ["method=ANPDistractor",
+                                          "agg_mode=attention"])):
+        ckpt = trainer.ckpt.path(f"model_end_{trainer.config.iterations}")
+        config = Config(DISTRACTOR_EVAL_YAML, DISTRACTOR_EVAL_OVERRIDES
+                        + extra + [f"checkpoint={ckpt}"])
+        favor_attention.launches = favor_attention.wide_launches = 0
+        t0 = time.perf_counter()
+        val, test = evaluation_cli.evaluate(config)
+        wall = time.perf_counter() - t0
+        n = config.max_ctx_num
+        for name in ("val_losses.txt", "test_losses.txt"):
+            arr = np.loadtxt(os.path.join(config.save_path, name))
+            if arr.shape != (n, 3) or not np.isfinite(arr).all() or list(
+                    arr[:, 0]) != list(range(1, n + 1)):
+                raise AssertionError(f"{name}: {arr.shape}, {arr}")
+        attention = config.method == "ANPDistractor"
+        want = 2 * n * config.val_iters if attention else 0
+        if (favor_attention.launches, favor_attention.wide_launches) != (
+                want, want):
+            raise AssertionError(f"D4 {config.method}: K2 launches "
+                                 f"{favor_attention.launches}, wide "
+                                 f"{favor_attention.wide_launches}; the "
+                                 f"sweep says {want}")
+        if attention:
+            launches = favor_attention.launches
+        cpu_cfg = copy.copy(config)
+        cpu_cfg.device = "cpu"
+        cpu_eval = ModelEvaluator(build_model(cpu_cfg), cpu_cfg,
+                                  build_data(cpu_cfg, mode="eval"))
+        want_loss, _ = cpu_eval._validate_iter("validation", n)
+        err = abs(val[n - 1] - want_loss)
+        log(f"eval: D4 {config.method} over {ckpt}, ctx 1..{n}, "
+            f"{config.val_iters} episodes a point of {config.tasks_per_batch} "
+            f"tasks x 36 queries, validation and test, in {wall} s; K2 wide "
+            f"launches {favor_attention.wide_launches}; validation loss "
+            f"(pixels) {val}; test loss {test}; at ctx {n}: card "
+            f"{val[n - 1]}, CPU {want_loss}, abs err {err} (tolerance "
+            f"{VAL_TOL} x |CPU| + {VAL_TOL})")
+        if err > VAL_TOL * (abs(want_loss) + 1.0):
+            raise AssertionError(f"D4 {config.method}: card {val[n - 1]}, "
+                                 f"CPU {want_loss}")
+    return launches
+
+
 # a kernel wrapper -> the kernel function whose nodes in a captured graph
 # (and events in a trace) count its launches: K3's call also packs its
 # weights and runs one conv_kernel a layer, then one bn_relu_kernel
@@ -1205,6 +1517,10 @@ def launches_per_step(trainer):
         return ({"literature_stem": inner, "maml_features": inner,
                  "image_da": 2},
                 {"literature_stem": test, "maml_features": test})
+    if cfg.task == "distractor":      # LargeCNP: the trunk on cuDNN
+        attention = {"favor_attention": 1} if cfg.method.startswith(
+            "ANP") else {}
+        return {**attention, "image_da": 2}, attention
     return ({"literature_stem": 1, "favor_attention": 1, "image_da": 2},
             {"literature_stem": 1, "favor_attention": 1})
 
@@ -1288,6 +1604,8 @@ def train_phase(card, yaml, overrides, counters):
     config = Config(yaml, overrides)
     for fn in counters.values():
         fn.launches = fn.bf16_launches = 0
+        if hasattr(fn, "wide_launches"):
+            fn.wide_launches = 0
         if hasattr(fn, "program_launches"):
             fn.program_launches = dict.fromkeys(fn.program_launches, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -1308,6 +1626,14 @@ def train_phase(card, yaml, overrides, counters):
     if in_bf16 != (issued if bf16 else {k: 0 for k in issued}):
         raise AssertionError(f"{config.method} in {config.compute_dtype}: "
                              f"launches {issued}, in bfloat16 {in_bf16}")
+    if "favor_attention" in counters:     # K2's wide form: Distractor's
+        wide = counters["favor_attention"].wide_launches
+        want_wide = (issued["favor_attention"] if config.task == "distractor"
+                     else 0)
+        if wide != want_wide:
+            raise AssertionError(f"{config.method}: {wide} of "
+                                 f"{issued['favor_attention']} K2 launches "
+                                 f"wide, the path says {want_wide}")
     program = config.task + ("" if config.aug_random_order else "_fixed")
     by_program = counters["image_da"].program_launches
     if by_program[program] != issued["image_da"]:
@@ -2007,7 +2333,8 @@ def main(argv):
         f"{libs['features'].wmfml_features_smem_bytes(14)} B (W = 14), "
         f"favor {libs['favor'].wmfml_favor_smem_bytes(15, 15, 64, 266)} B used "
         f"of the 231424 B it requests (Nq = Nk = 15, m = 266); favor "
-        f"co-resident blocks {libs['favor'].wmfml_favor_coresident()}, "
+        f"co-resident blocks {libs['favor'].wmfml_favor_coresident()}, wide "
+        f"form {libs['favor'].wmfml_favor_wide_coresident()}, "
         f"image_da (128 x 128) " + ", ".join(
             f"{p} {libs['image_da'].wmfml_image_da_smem_bytes(i, 128, 128)} B"
             for i, p in enumerate(PROGRAMS)))
@@ -2044,6 +2371,17 @@ def main(argv):
     rows += [check_stem(anp, gen_t40, bf, 40, "ANP fixed T40"),
              check_favor(anp, gen_t40, bf, 40, "ANP fixed T40"),
              *check_image_da_programs(gen_t40, ("shapenet_1d_fixed",), 40)]
+    # the Distractor paths' kernels: K2's wide form at D1's shape (Nq 18, Nk
+    # 15) and D4's (Nq 36, Nk 25) with ANPDistractor's projection, K6's
+    # programs 4 and 5 at D1's two DA calls (300 and 360 images)
+    proj = build_model(Config(DISTRACTOR_YAML, DISTRACTOR_OVERRIDES,
+                              make_dirs=False)).attn.projection_matrix.cuda()
+    gen_d = torch.Generator(device="cuda").manual_seed(5)
+    rows += [check_favor_wide(proj, gen_d, 18, 15, "favor_attention_wide",
+                              "Distractor ANP"),
+             check_favor_wide(proj, gen_d, 36, 25, "favor_attention_wide_eval",
+                              "Distractor eval"),
+             *check_image_da_distractor(gen_d)]
     floor = floor_ms()
     log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
         f"time, the least any launch takes on this card")
@@ -2069,7 +2407,8 @@ def main(argv):
             f"ms){extra}")
         if "phase_us" in r:
             log(f"kernel: {r['name']} phase clock (us, medians of 10 "
-                f"launches; favor_phases, da_phases): {r['phase_us']}")
+                f"launches; favor_phases, favor_wide_phases, da_phases): "
+                f"{r['phase_us']}")
 
     da_kernels = {"image_da": image_da}
     anp_kernels = {"literature_stem": literature_stem,
@@ -2129,6 +2468,20 @@ def main(argv):
         card, PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES, anp_kernels)
     check_bf16_validation(f40trainer)
 
+    # phase 14: the Distractor paths (LargeCNP on the ResNet trunk, K2's
+    # wide form, K6's programs 4 and 5)
+    d_anp_kernels = {"favor_attention": favor_attention, **da_kernels}
+    d1trainer, d1_launches, d1_nodes = train_phase(
+        card, DISTRACTOR_YAML, DISTRACTOR_OVERRIDES, d_anp_kernels)
+    check_validation_loss(d1trainer)
+    d2trainer, d2_launches, d2_nodes = train_phase(
+        card, DISTRACTOR_CNP_YAML, DISTRACTOR_SHORT_OVERRIDES, da_kernels)
+    check_validation_loss(d2trainer)
+    d3trainer, d3_launches, _ = train_phase(
+        card, DISTRACTOR_YAML, DISTRACTOR_FIXED_OVERRIDES, d_anp_kernels)
+    check_validation_loss(d3trainer)
+    d4_launches = check_distractor_evaluation(d2trainer, d1trainer)
+
     # graph replays against the same steps issued from the host
     for yaml, overrides in ((MAIN_YAML, TRAIN_OVERRIDES),
                             (MAIN_YAML, BF16_OVERRIDES),
@@ -2136,33 +2489,40 @@ def main(argv):
                             (PERF_MAML_YAML, PERF_MAML_OVERRIDES),
                             (PASCAL_YAML, PASCAL_OVERRIDES),
                             (PERF_ANP_YAML, PERF_ANP_OVERRIDES),
-                            (PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES)):
+                            (PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES),
+                            (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES)):
         graph_equals_loop(yaml, overrides)
     graph_loop_turns(
         {"ANPShapeNet1D": trainer, "ANPShapeNet1D bf16": btrainer,
          "MAMLShapeNet1D": mtrainer, "MAMLShapeNet1D bf16": bmtrainer,
          "ANPVanillaPascal1D": ptrainer, "VanillaMAML Pascal1D": pmtrainer,
          "ANPShapeNet1D fixed bf16": ftrainer,
-         "ANPShapeNet1D fixed bf16 T40": f40trainer},
+         "ANPShapeNet1D fixed bf16 T40": f40trainer,
+         "ANPDistractor": d1trainer, "CNPDistractor": d2trainer},
         calls={"ANPShapeNet1D": 4, "ANPShapeNet1D bf16": 2,
                "MAMLShapeNet1D": 2, "MAMLShapeNet1D bf16": 2,
                "ANPVanillaPascal1D": 4, "VanillaMAML Pascal1D": 2,
                "ANPShapeNet1D fixed bf16": 2,
-               "ANPShapeNet1D fixed bf16 T40": 1},
+               "ANPShapeNet1D fixed bf16 T40": 1, "ANPDistractor": 2,
+               "CNPDistractor": 2},
         nodes={"ANPShapeNet1D": anp_nodes, "ANPShapeNet1D bf16": anp_bf16_nodes,
                "MAMLShapeNet1D": maml_nodes,
                "MAMLShapeNet1D bf16": maml_bf16_nodes,
                "ANPVanillaPascal1D": pascal_nodes,
                "VanillaMAML Pascal1D": pascal_maml_nodes,
                "ANPShapeNet1D fixed bf16": anp_fixed_nodes,
-               "ANPShapeNet1D fixed bf16 T40": anp_fixed40_nodes},
+               "ANPShapeNet1D fixed bf16 T40": anp_fixed40_nodes,
+               "ANPDistractor": d1_nodes, "CNPDistractor": d2_nodes},
         profile="--profile" in argv)
 
     launches = {"ANP": anp_launches, "MAML": maml_launches,
                 "ANP bf16": anp_bf16, "MAML bf16": maml_bf16,
                 "Pascal ANP": pascal_launches, "Pascal ANP fixed": pascal_fixed,
                 "Pascal MAML": pascal_maml, "ANP fixed bf16": anp_fixed,
-                "ANP fixed T40 bf16": anp_fixed40}
+                "ANP fixed T40 bf16": anp_fixed40,
+                "Distractor ANP": d1_launches, "Distractor CNP": d2_launches,
+                "Distractor ANP fixed": d3_launches,
+                "Distractor eval": {"favor_attention": d4_launches}}
     for r in rows:
         r["launches"] = launches[r["path"]][r["kernel"]]
         if r["launches"] <= 0:

@@ -25,6 +25,10 @@ about 2^-20 of its largest term, more than an ulp of the small result).
 K6 in bfloat16: parameters and masks bit for bit, values within 2 bfloat16
 ulps of each element, with no floor.
 
+K2's wide form (LargeCNP's heads, d = e = 256, m = 1419) at D1's and D4's
+shapes, and K6's Distractor programs 4 and 5 (the inverted image), against
+their twins at the same tolerances; graph = loop on a short D1 run.
+
 The fused K-step training call (``train/steps.py:FusedSteps``): its CUDA
 graph replays against the same steps issued from the host, bit for bit
 under deterministic algorithms (float32 and bfloat16 ANP, bfloat16 MAML);
@@ -45,7 +49,8 @@ from torch_port_adam import optax_adam
 from wmfml_tpu_torch.aug import image_aug
 from wmfml_tpu_torch.cli import train_cli
 from wmfml_tpu_torch.configs import Config
-from wmfml_tpu_torch.data.synthetic import (generate_pascal1d,
+from wmfml_tpu_torch.data.synthetic import (generate_distractor,
+                                            generate_pascal1d,
                                             generate_shapenet1d)
 from wmfml_tpu_torch.kernels import favor, features, image_da, stem
 from wmfml_tpu_torch.train.state import build_optimizer
@@ -126,6 +131,77 @@ def test_favor_kernel_matches_plain(dev, t, h, nq, nk, d, m):
     q, k, v, proj, mask = _favor_inputs(dev, t, h, nq, nk, d, m, seed=nq)
     _close(favor.favor_launch(q, k, v, proj, mask),
            favor.favor_plain(q, k, v, proj, mask), 1e-5, 1e-4)
+
+
+# K2 wide: D1 (ANPDistractor training: T 20, Nq 18, Nk 15) and D4
+# (evaluation: Nq 36, Nk 25), a small odd shape (m not a multiple of the
+# feature tile, d not of the k-step), and a 1-row context task beside the
+# empty one
+@pytest.mark.parametrize("t,h,nq,nk,d,m", [
+    (20, 8, 18, 15, 256, 1419), (20, 8, 36, 25, 256, 1419),
+    (2, 3, 5, 4, 68, 300), (3, 2, 40, 24, 128, 700)])
+def test_favor_wide_kernel_matches_plain(dev, t, h, nq, nk, d, m):
+    q, k, v, proj, mask = _favor_inputs(dev, t, h, nq, nk, d, m, seed=nq)
+    mask[1] = torch.arange(nk, device=dev) < 1
+    assert favor.is_wide(d, m)
+    _close(favor.favor_launch(q, k, v, proj, mask),
+           favor.favor_plain(q, k, v, proj, mask), 1e-5, 1e-4)
+
+
+def test_favor_wide_kernel_reads_views_reproducibly_in_one_launch(dev):
+    """The attention block's transposed views and an expanded mask at D1's
+    shape: no copy needed, two calls bit-equal, one kernel a call, the
+    wrapper counting a wide launch."""
+    q, k, v, proj, mask = _block_views(dev, t=20, n=15, d=256, m=1419)
+    assert not q.is_contiguous() and mask.stride(0) == 0
+    a = favor.favor_launch(q, k, v, proj, mask)
+    b = favor.favor_launch(q, k, v, proj, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a, favor.favor_plain(q, k, v, proj, mask), 1e-5, 1e-4)
+    before = (favor.favor_attention.launches,
+              favor.favor_attention.wide_launches)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        favor.favor_attention(q, k, v, proj, mask)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) <= 1 and all("favor_kernel_wide" in n for n in names)
+    assert (favor.favor_attention.launches,
+            favor.favor_attention.wide_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+
+
+def test_favor_wide_kernel_phase_clock_orders_its_phases(dev):
+    """The wide kernel's clock: one row a block of its grid, each block's
+    points in order, the output as without the clock."""
+    q, k, v, proj, mask = _favor_inputs(dev, 4, 8, 18, 15, 256, 1419)
+    rows = favor.wide_grid(32, 1419)
+    assert rows == min(32 * 12, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    st = torch.full((rows, len(favor.WIDE_PHASES)), -1, dtype=torch.int64,
+                    device=dev)
+    got = favor.favor_launch(q, k, v, proj, mask, stamps=st)
+    torch.cuda.synchronize()
+    assert bool((st[:, 1:] >= st[:, :-1]).all()) and bool((st >= 0).all())
+    assert torch.equal(got.nan_to_num(), favor.favor_launch(
+        q, k, v, proj, mask).nan_to_num())
+    with pytest.raises(ValueError, match="stamps"):
+        favor.favor_launch(q, k, v, proj, mask, stamps=st[:, :3])
+
+
+def test_favor_wide_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v, proj, mask = _favor_inputs(dev, 2, 2, 40, 30, 256, 1419)
+    with pytest.raises(ValueError, match="Nq \\+ Nk <= 64"):
+        favor.favor_launch(q, k, v, proj, mask)
+    q, k, v, proj, mask = _favor_inputs(dev, 2, 2, 4, 4, 260, 1419)
+    with pytest.raises(ValueError, match="d <= 256"):
+        favor.favor_launch(q, k, v, proj, mask)
+    q, k, v, proj, mask = _favor_inputs(dev, 2, 2, 4, 4, 256, 1419)
+    with pytest.raises(ValueError, match="float32"):
+        favor.favor_launch(q.bfloat16(), k.bfloat16(), v.bfloat16(), proj,
+                           mask)
 
 
 def _block_views(dev, t=10, h=8, n=15, d=64, m=266, seed=5):
@@ -945,6 +1021,110 @@ def test_fixed_programs_refuse_a_grid_that_does_not_divide_the_image(dev):
 
 # -- K training steps as one CUDA graph replay (train/steps.py:FusedSteps) --
 
+# -- Distractor's programs 4 and 5: Affine and the dropout op on 1 - x / 255 --
+
+DISTRACTOR_PROGRAMS = ("distractor", "distractor_fixed")
+
+
+def _distractor_orders(dev, program):
+    # 3 reads as order 1, as the twin reads it
+    return ([None] if program == "distractor_fixed"
+            else [_pascal_order(dev, o) for o in (0, 1, 3)])
+
+
+@pytest.mark.parametrize("program", DISTRACTOR_PROGRAMS)
+@pytest.mark.parametrize("shape", [(20, 15, 128, 128, 1),
+                                   (20, 18, 128, 128, 1), (3, 48, 24, 1)])
+def test_image_da_distractor_programs_match_their_twins(dev, program, shape):
+    """D1's context and query calls (300 and 360 images) and a small shape,
+    every gate on, in both orders: within the warps' tolerance of the card
+    twin and of the CPU twin."""
+    b = shape[0] * shape[1] if len(shape) == 5 else shape[0]
+    u, keys, _ = _program_draw(dev, program, b, seed=len(shape) + b)
+    x = _images(dev, shape)
+    for o in _distractor_orders(dev, program):
+        got = image_da.image_da_launch(x, u, keys, o, program=program)
+        _close(got, image_da.image_da_plain(x, u, keys, o, program=program),
+               *WARP_TOL)
+        _close(got.cpu(), image_da.image_da_plain(
+            x.cpu(), u.cpu(), keys.cpu(), None if o is None else o.cpu(),
+            program=program), *WARP_TOL)
+
+
+@pytest.mark.parametrize("program", DISTRACTOR_PROGRAMS)
+def test_image_da_distractor_parameters_equal_the_twins_bit_for_bit(
+        dev, program):
+    u, keys, order = _program_draw(dev, program, 300, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    u = torch.where(torch.rand(u.shape, generator=g, device=dev) < 0.5, u,
+                    torch.rand(u.shape, generator=g, device=dev))
+    x = _images(dev, (300, 128, 128, 1))
+    out = torch.empty((300, image_da.nparams(program)), device=dev)
+    image_da.image_da_launch(x, u, keys, order, params_out=out,
+                             program=program)
+    want = image_aug.params_row(image_aug.params_for(program, u, keys, order,
+                                                     128, 128))
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("pick", [0.25, 0.75])    # Dropout, CoarseDropout
+@pytest.mark.parametrize("program", DISTRACTOR_PROGRAMS)
+def test_image_da_distractor_masks_equal_the_twin_bit_for_bit(dev, program,
+                                                              pick):
+    """Affine off, the dropout op on: the output is 1 - x / 255 masked, bit
+    for bit (the fixed grid's cells, the random-size grid's, or Dropout's
+    pixels), in both orders."""
+    u, keys, _ = _program_draw(dev, program, 300, seed=9, on=False)
+    u[:, 16], u[:, 17] = 0.25, pick
+    u[:, 10], u[:, 11] = 5.0, 9.0                # rates ~.46 and .45
+    x = _images(dev, (20, 15, 128, 128, 1))
+    for o in _distractor_orders(dev, program):
+        got = image_da.image_da_launch(x, u, keys, o, program=program).cpu()
+        want = image_da.image_da_plain(x.cpu(), u.cpu(), keys.cpu(),
+                                       None if o is None else o.cpu(),
+                                       program=program)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+@pytest.mark.parametrize("program", DISTRACTOR_PROGRAMS)
+def test_image_da_distractor_with_every_gate_off_is_the_inverted_image(
+        dev, program):
+    """1 - x / 255 bit for bit: the correctly rounded quotient, then the
+    subtraction (the card's x / 255.0 misses 126 of the 256 quotients)."""
+    u, keys, _ = _program_draw(dev, program, 30, seed=2, on=False)
+    x = _images(dev, (2, 15, 128, 128, 1))
+    for o in _distractor_orders(dev, program):
+        got = image_da.image_da_launch(x, u, keys, o, program=program)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), 1.0 - image_aug.to_unit(x.cpu()))
+
+
+def test_image_da_distractor_programs_are_float32_only(dev):
+    x = _images(dev, (4, 32, 32, 1))
+    for program in DISTRACTOR_PROGRAMS:
+        u, keys, order = _program_draw(dev, program, 4)
+        with pytest.raises(TypeError, match="float32"):
+            image_da.image_da(x, u, keys, order, BF16, program)
+
+
+def test_distractor_augmenter_is_one_launch_reading_nothing_back(dev):
+    """The Distractor augmenter draws on the card and issues one launch of
+    its program, under set_sync_debug_mode("error")."""
+    aug = image_aug.build_augmenter("distractor")
+    x = _images(dev, (20, 15, 128, 128, 1))
+    g = torch.Generator(device=dev).manual_seed(0)
+    before = image_da.image_da.program_launches["distractor"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = aug(x, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == x.shape and out.dtype == torch.float32
+    assert image_da.image_da.program_launches["distractor"] == before + 1
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")
 PERF_MAML_YAML = os.path.join(REPO, "cfg", "train", "perf",
@@ -952,6 +1132,8 @@ PERF_MAML_YAML = os.path.join(REPO, "cfg", "train", "perf",
 PERF_ANP_YAML = os.path.join(REPO, "cfg", "train", "perf",
                              "ANP_DA+TA_ShapeNet1D_tpu.yaml")
 PASCAL_ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_Pascal1D.yaml")
+DISTRACTOR_ANP_YAML = os.path.join(REPO, "cfg", "train",
+                                   "ANP_DA+TA_Distractor.yaml")
 # a kernel wrapper -> the kernel function whose graph nodes count its
 # launches (K3's call also packs its weights and runs one conv_kernel a layer)
 GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
@@ -998,6 +1180,17 @@ def pascal_data(tmp_path_factory):
     return root
 
 
+@pytest.fixture(scope="module")
+def distractor_data(tmp_path_factory):
+    """A small synthetic Distractor set: one object a category (8 train
+    objects), 36 views each, room for 15 + 18."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = str(tmp_path_factory.mktemp("distractor"))
+    generate_distractor(root, objects_per_categ=1)
+    return root
+
+
 def _graph_config(data, yaml, *overrides):
     return Config(yaml, [f"data_path={data}", "data_size=small",
                          "device=cuda", "val_freq=1000", "val_iters=1",
@@ -1019,9 +1212,11 @@ def _assert_equal_states(a, b):
 
 
 @pytest.mark.parametrize("path", ["anp_f32", "anp_bf16", "maml_bf16",
-                                  "pascal_anp", "anp_fixed_bf16"])
+                                  "pascal_anp", "anp_fixed_bf16",
+                                  "distractor_anp"])
 def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
                                                         pascal_data,
+                                                        distractor_data,
                                                         tmp_path, monkeypatch,
                                                         path):
     """Three calls at K = 4 (one eager warm-up, the capture and its replay,
@@ -1044,8 +1239,12 @@ def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
                    # perf YAML: bf16, fixed order) at K = 4
                    "pascal_anp": (PASCAL_ANP_YAML, ["steps_per_call=4"]),
                    "anp_fixed_bf16": (PERF_ANP_YAML,
+                                      ["steps_per_call=4"]),
+                   # D1 as shipped (ANPDistractor, K2 wide, program 4)
+                   "distractor_anp": (DISTRACTOR_ANP_YAML,
                                       ["steps_per_call=4"])}[path]
-    data = pascal_data if path == "pascal_anp" else graph_data
+    data = {"pascal_anp": pascal_data,
+            "distractor_anp": distractor_data}.get(path, graph_data)
     torch.use_deterministic_algorithms(True)
     try:
         first, graph, loop = (train_cli.build_trainer(

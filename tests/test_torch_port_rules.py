@@ -4,10 +4,9 @@
   * entry points run on ``cuda`` unless the caller asks for the CPU, and with
     no card they raise instead of falling back;
   * what is not ported raises and names its ROADMAP item: DA (random or
-    fixed order) for the Distractor and ShapeNet3D tasks, other compute
-    dtypes, other tasks and methods; the shipped ShapeNet1D and Pascal1D
-    YAMLs, image DA and the fixed-order perf YAMLs included, build as they
-    are.
+    fixed order) for the ShapeNet3D task, other compute dtypes, other tasks
+    and methods; the shipped ShapeNet1D, Pascal1D and Distractor YAMLs,
+    image DA and the fixed-order perf YAMLs included, build as they are.
 """
 
 import ast
@@ -84,9 +83,11 @@ def test_without_a_card_entry_points_raise(monkeypatch, tmp_path):
 
 
 def test_image_data_augmentation_raises():
-    """Image DA builds for shapenet_1d and pascal_1d, in random order (the
-    shipped YAMLs) and in the fixed order (``aug_random_order: false``);
-    DA for the tasks not ported raises and names its ROADMAP item."""
+    """Image DA builds for shapenet_1d, pascal_1d and distractor, in random
+    order (the shipped YAMLs) and in the fixed order (``aug_random_order:
+    false``); DA for the task not ported (ShapeNet3D) raises and names its
+    ROADMAP item. (The name is from when Distractor raised too; it is kept
+    so that the test's record runs on.)"""
     process = build_episode_processor("shapenet_1d", ["task_aug", "data_aug"],
                                       train=True)
     assert process.augment.program == "shapenet_1d"
@@ -103,8 +104,9 @@ def test_image_data_augmentation_raises():
         "shapenet_1d_fixed"
     assert build_episode_processor("pascal_1d", ["data_aug"], train=True
                                    ).augment.program == "pascal_1d"
-    with pytest.raises(NotImplementedError, match="A12b"):
-        build_augmenter("distractor")
+    assert build_augmenter("distractor").program == "distractor"
+    assert build_augmenter("distractor", random_order=False).program == \
+        "distractor_fixed"
     with pytest.raises(NotImplementedError, match="A12c"):
         build_augmenter("shapenet_3d", random_order=False)
 
@@ -113,9 +115,9 @@ def test_fixed_order_perf_yaml_raises_instead_of_running_random_order():
     """``aug_random_order: false`` selects the JAX package's fused
     fixed-order pipeline: the perf YAML's train step runs the fixed
     program, never the random-order one in its place; for the tasks whose
-    fixed-order pipeline is not ported, the config raises instead. (The
-    name is from when every task raised; it is kept so that the test's
-    record runs on.)"""
+    fixed-order pipeline is not ported (ShapeNet3D), the config raises
+    instead; Distractor's (float32 only) builds. (The name is from when
+    every task raised; it is kept so that the test's record runs on.)"""
     yaml = os.path.join(REPO, "cfg", "train", "perf",
                         "ANP_DA+TA_ShapeNet1D_tpu.yaml")
     cfg = Config(yaml, ["compute_dtype=float32", "device=cpu"],
@@ -127,9 +129,14 @@ def test_fixed_order_perf_yaml_raises_instead_of_running_random_order():
     assert build_episode_processor(
         cfg.task, cfg.aug_list, train=True,
         aug_random_order=False).augment.program == "shapenet_1d_fixed"
-    for task, item in (("distractor", "A12b"), ("shapenet_3d", "A12c")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            Config(yaml, [f"task={task}"], make_dirs=False)
+    cfg = Config(yaml, ["task=distractor", "compute_dtype=float32"],
+                 make_dirs=False)
+    assert cfg.aug_random_order is False
+    assert build_episode_processor(
+        cfg.task, cfg.aug_list, train=True,
+        aug_random_order=False).augment.program == "distractor_fixed"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A12c"):
+        Config(yaml, ["task=shapenet_3d"], make_dirs=False)
     assert _config("prng_impl=rbg").prng_impl == "rbg"
     assert _config().prng_impl == "threefry"
 

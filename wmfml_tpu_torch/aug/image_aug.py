@@ -1,4 +1,4 @@
-"""Image data augmentation for ShapeNet1D and Pascal1D
+"""Image data augmentation for ShapeNet1D, Pascal1D and Distractor
 (``wmfml_tpu/aug/image_aug.py``).
 
 The reference pipelines, each op under its ``Sometimes(0.5)`` gate:
@@ -16,7 +16,14 @@ The reference pipelines, each op under its ``Sometimes(0.5)`` gate:
   * ``FUSED_PIPELINES`` (``aug_random_order: false``): ``geometric`` (one
     warp with CropAndPad's and Affine's parameters composed), then for
     Pascal1D GammaContrast and AverageBlur, then OneOf(Dropout, the fixed
-    16-pixel grid CoarseDropout), in that order.
+    16-pixel grid CoarseDropout), in that order;
+  * ``DISTRACTOR_OPS``: Affine and the dropout op in one of the 2! orders;
+    with one warp op the JAX package's enumerated path runs Affine alone
+    (``_affine_warp``), as Pascal1D's chain does; its fixed order
+    (``aug_random_order: false``) is Affine, then the fixed-grid dropout
+    op. Distractor's images are inverted first (``1 - x / 255``), so its
+    programs take the inversion as part of the uint8 -> float step
+    (``program_input``).
 
 Two layers:
 
@@ -78,8 +85,13 @@ P_CROP, P_GAMMA, P_BLUR, P_AFFINE, P_DROP = range(5)
 PASCAL_OPS = ("crop_and_pad", "gamma_contrast", "average_blur", "affine",
               "one_of_dropout")
 PASCAL_ORDERS = tuple(itertools.permutations(range(len(PASCAL_OPS))))
-# tasks whose DA is not ported -> their ROADMAP item
-OTHER_TASKS = {"distractor": "A12b", "shapenet_3d": "A12c"}
+# Distractor's ops (dataset/shapenet_distractor.py:54-81;
+# wmfml_tpu/aug/image_aug.py:444) and their 2! orders
+D_AFFINE, D_DROP = range(2)
+DISTRACTOR_OPS = ("affine", "one_of_dropout")
+DISTRACTOR_ORDERS = tuple(itertools.permutations(range(len(DISTRACTOR_OPS))))
+# the task whose DA is not ported -> its ROADMAP item
+OTHER_TASKS = {"shapenet_3d": "A12c"}
 
 
 @dataclass
@@ -129,6 +141,16 @@ def to_unit(x: torch.Tensor) -> torch.Tensor:
     the card, where dividing by a Python scalar multiplies by its
     reciprocal and differs in the last bit for 126 of the 256 values."""
     return x.to(torch.float32) / torch.full((), 255.0, device=x.device)
+
+
+def program_input(program: str, x: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The float image a program starts from: x / 255 in ``dtype``, and
+    for Distractor's programs 1 - x / 255 in float32 (the JAX package
+    inverts before DA: ``1.0 - _to_float(x)``)."""
+    if program.startswith("distractor"):
+        return 1.0 - to_unit(x)
+    return to_unit(x).to(dtype)
 
 
 # -- warp: dense twins of _interp_matrix .. _warp_chain ------------------------
@@ -479,7 +501,7 @@ def params_for(program: str, u: torch.Tensor, keys: torch.Tensor, order,
                h: int, w: int) -> DAParams:
     """``program``'s parameters from its raw draw, as K6 computes them."""
     p = params_from_draw(u, keys, order, h, w)
-    if kda.PROGRAM_ORDERS[program] == 1:
+    if program in kda.GEOMETRIC:
         p.warp = geometric_from_draw(u, h, w)
     if program != "shapenet_1d":
         pixel_ops = kda.PROGRAM_NU[program] == kda.NU_PIXEL
@@ -546,14 +568,36 @@ def apply_fixed(flat: torch.Tensor, params: DAParams,
     return one_of_dropout_fixed(flat, params.drop, params.keys, params.cells)
 
 
+def apply_distractor(flat: torch.Tensor, params: DAParams,
+                     fixed: bool = False) -> torch.Tensor:
+    """One order of ``DISTRACTOR_OPS`` (the order index read modulo 2, as
+    K6 reads it) or, ``fixed``, the fixed order (:461): ``sometimes``
+    Affine (``_affine_warp`` at ``warp`` row 1), then the dropout op, the
+    fixed-grid one when ``fixed``."""
+    order = (0 if fixed else
+             int(params.order) % len(DISTRACTOR_ORDERS))
+    for op in DISTRACTOR_ORDERS[order]:
+        if op == D_AFFINE:
+            row = params.warp[:, 1]
+            flat = sometimes(row[:, 6], _warp_op(flat, row), flat)
+        elif fixed:
+            flat = one_of_dropout_fixed(flat, params.drop, params.keys,
+                                        params.cells)
+        else:
+            flat = one_of_dropout(flat, params.drop, params.keys)
+    return flat
+
+
 def apply_program(program: str, flat: torch.Tensor,
                   params: DAParams) -> torch.Tensor:
-    """K6's program ``program`` on [B, H, W, C] float images (x / 255 in
-    the output dtype) through the twins."""
+    """K6's program ``program`` on [B, H, W, C] float images (its
+    ``program_input``) through the twins."""
     if program == "shapenet_1d":
         return apply(flat, params)
     if program == "pascal_1d":
         return apply_pascal(flat, params)
+    if program.startswith("distractor"):
+        return apply_distractor(flat, params, program == "distractor_fixed")
     return apply_fixed(flat, params, program == "pascal_1d_fixed")
 
 
@@ -564,7 +608,8 @@ class Augmenter:
     ``program`` (``kernels/image_da.py:PROGRAMS``); each call draws its raw
     draw and issues one K6 launch. Images come out in ``dtype``, float32
     or bfloat16: as in the JAX package, x / 255 and the end of every op
-    (or ShapeNet1D's warp chain) round to it (the masks are exact)."""
+    (or ShapeNet1D's warp chain) round to it (the masks are exact).
+    Distractor's programs write float32 only."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
                  program: str = "shapenet_1d"):
@@ -605,8 +650,8 @@ class Augmenter:
             if images.device.type != "cpu":
                 raise ValueError("DAParams are injected on the CPU only")
             flat = images.reshape((-1,) + tuple(images.shape[-3:]))
-            return apply_program(self.program, to_unit(flat).to(self.dtype),
-                                 params).reshape(images.shape)
+            return apply_program(self.program, program_input(
+                self.program, flat, self.dtype), params).reshape(images.shape)
         u, keys, order = self.sample(math.prod(images.shape[:-3]), generator,
                                      images.device)
         return image_da(images, u, keys, order, self.dtype, self.program)
@@ -618,7 +663,7 @@ ShapeNet1DAugmenter = Augmenter
 
 def build_augmenter(task: str, dtype: torch.dtype = torch.float32,
                     random_order: bool = True) -> Augmenter:
-    if task not in ("shapenet_1d", "pascal_1d"):
+    if task not in ("shapenet_1d", "pascal_1d", "distractor"):
         raise NotImplementedError(
             f"DA for {task!r} is not ported yet (ROADMAP.md "
             f"{OTHER_TASKS.get(task, 'A12')})")

@@ -4,13 +4,15 @@ labels.
 ``build_episode_processor(task, aug_list, train, dtype, aug_random_order)``
 returns ``process(batch, generator=None, ta_idx=None, da_params=None)``
 that turns a raw episode (uint8 images, raw labels, on any device) into the
-model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` (ShapeNet1D)
-and ``:116-131`` (Pascal1D) do:
+model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` (ShapeNet1D),
+``:99-112`` (Distractor) and ``:116-131`` (Pascal1D) do:
 
   * uint8 images -> x / 255 in the compute dtype ``dtype`` (float32 or
     bfloat16, rounded from the float32 quotient as JAX's
     ``x.astype(dtype) / 255.0`` rounds it), in the augmenter when image DA
-    is on; labels and task augmentation stay float32;
+    is on; labels and task augmentation stay float32; Distractor's images
+    are inverted first, 1 - x / 255 in float32 (in the augmenter's
+    program when image DA is on);
   * image data augmentation (train only, ``data_aug`` in ``aug_list``):
     two augmenter calls on the raw uint8 images, context then query, each
     with its own draw (``aug/image_aug.py``: one K6 launch a call on the
@@ -20,11 +22,12 @@ and ``:116-131`` (Pascal1D) do:
   * task augmentation (train only, ``task_aug`` in ``aug_list``): one
     offset per task, added to context and query labels: ShapeNet1D's angle
     from ``linspace(0, 2, 16)[:-1]`` mod 2 pi, Pascal1D's from {0, .25,
-    .5, .75} mod 1; ``ta_idx`` [T] feeds the offsets' indices in (tests
-    hand both frameworks the same noise), else they are drawn from
-    ``generator``;
-  * labels: ShapeNet1D's -> ``[cos a, sin a, a]``; Pascal1D's x 10, in
-    training and in evaluation alike.
+    .5, .75} mod 1, Distractor's integer pixel shift in [0, 16) per task
+    and coordinate, mod 128; ``ta_idx`` ([T] offset indices, Distractor's
+    [T, 1, 2] shifts) feeds them in (tests hand both frameworks the same
+    noise), else they are drawn from ``generator``;
+  * labels: ShapeNet1D's -> ``[cos a, sin a, a]``; Pascal1D's x 10;
+    Distractor's stay pixel centres; in training and in evaluation alike.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from wmfml_tpu_torch.aug.image_aug import build_augmenter
+from wmfml_tpu_torch.aug.image_aug import build_augmenter, to_unit
 
-TASKS = ("shapenet_1d", "pascal_1d")
+TASKS = ("shapenet_1d", "pascal_1d", "distractor")
 
 
 def _to_float(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -55,20 +58,28 @@ def build_episode_processor(task: str, aug_list, train: bool,
     if task not in TASKS:
         raise NotImplementedError(
             f"episode processing for {task!r} is not ported yet "
-            "(ROADMAP.md A12b, A12c)")
+            "(ROADMAP.md A12c)")
     task_aug = train and "task_aug" in aug_list
     augment = (build_augmenter(task, dtype, aug_random_order)
                if train and "data_aug" in aug_list else None)
     if task == "pascal_1d":
         # offsets {0, .25, .5, .75}[randint(4)] mod 1, labels x 10
         n_offsets, modulus, scale = 4, 1.0, 10.0
+    elif task == "distractor":
+        # shifts randint(0, 16) per task and coordinate, mod 128, raw labels
+        n_offsets, modulus, scale = 16, 128.0, 1.0
     else:
         n_offsets, modulus, scale = 15, 2.0 * math.pi, None
+
+    def to_input(x):
+        if task == "distractor":        # inverted before any DA
+            return 1.0 - to_unit(x) if x.dtype == torch.uint8 else 1.0 - x
+        return _to_float(x, dtype)
 
     def augment_pair(cx, qx, generator, da_params):
         """DA for ctx and qry: always two calls, as the JAX package makes."""
         if augment is None:
-            return _to_float(cx, dtype), _to_float(qx, dtype)
+            return to_input(cx), to_input(qx)
         pc, pq = da_params if da_params is not None else (None, None)
         return augment(cx, generator, pc), augment(qx, generator, pq)
 
@@ -80,22 +91,26 @@ def build_episode_processor(task: str, aug_list, train: bool,
                                     generator, da_params)
         ctx_y, qry_y = batch["ctx_y"], batch["qry_y"]
         if task_aug:
+            shape = ((ctx_y.shape[0], 1, 2) if task == "distractor"
+                     else (ctx_y.shape[0],))
             if ta_idx is None:
-                ta_idx = torch.randint(0, n_offsets, (ctx_y.shape[0],),
+                ta_idx = torch.randint(0, n_offsets, shape,
                                        device=ctx_y.device,
                                        generator=generator)
             idx = ta_idx.to(ctx_y.device)
-            if scale is None:
+            if task == "distractor":
+                noise = idx.to(torch.float32)
+            elif scale is None:
                 noise = torch.linspace(0.0, 2.0, 16,
                                        device=ctx_y.device)[:-1][idx]
             else:       # {0, .25, .5, .75}[idx], exactly (no host copy)
                 noise = idx.to(torch.float32) * 0.25
-            noise = noise[:, None, None]
+            noise = noise.reshape(ctx_y.shape[0], 1, -1)
             ctx_y = torch.remainder(ctx_y + noise, modulus)
             qry_y = torch.remainder(qry_y + noise, modulus)
         if scale is None:
             ctx_y, qry_y = _encode_angle(ctx_y), _encode_angle(qry_y)
-        else:
+        elif scale != 1.0:
             ctx_y, qry_y = ctx_y * scale, qry_y * scale
         return dict(batch, ctx_x=ctx_x, qry_x=qry_x, ctx_y=ctx_y, qry_y=qry_y)
 

@@ -1,8 +1,9 @@
 """Carry JAX package weights into the port: the inverse of
 ``wmfml_tpu/ckpt/torch_import.py:import_small_cnp`` and ``import_maml``.
 
-``load_jax_variables(model, variables)`` takes a SmallCNP's JAX variables
-``{"params": ..., ["favor": ...]}`` or a MAMLRegressor's ``{"params": ...}``
+``load_jax_variables(model, variables)`` takes a SmallCNP's or a
+LargeCNP's JAX variables ``{"params": ..., ["favor": ...]}`` or a
+MAMLRegressor's ``{"params": ...}``
 (``{"params": {"net": ..., "step_size": ...}}`` with learnable step sizes)
 as nested dicts of numpy arrays and fills the port's model in place. Layout
 rules:
@@ -11,6 +12,12 @@ rules:
   * dense kernels: flax [in, out] -> torch [out, in];
   * the fc after the flatten reads an HWC-flattened map in JAX and a
     CHW-flattened one here; (C, h, w) comes from the model's image size;
+  * LargeCNP: every consumer of the ResNet trunk's flattened features
+    (``task_encoder.0``, the attention block's ``W_k`` and ``W_q``,
+    ``decoder.fc_mu.0``) reads them HWC in JAX and CHW here, its trailing
+    inputs (the label embedding, the latent) in the same order; the trunk
+    convs ``conv1``, ``layer{i}/{conv1,conv2,downsample}`` go to
+    ``conv1`` and ``resnet.layer{i}.0.{conv1,conv2,downsample.0}``;
   * the stacked W_k/W_v/W_q [in, H*d] (head-major columns) split into the
     per-head ``_W_*.{i}.linear`` layers;
   * W_out's input axis is head-major in JAX (head * d + dim) and dim-major
@@ -31,6 +38,8 @@ import numpy as np
 import torch
 
 from wmfml_tpu_torch.models.maml import MAMLRegressor, step_size_key
+from wmfml_tpu_torch.models.neural_process import LargeCNP
+from wmfml_tpu_torch.nn.encoders import trunk_chw
 
 
 def _t(a) -> torch.Tensor:
@@ -45,17 +54,25 @@ def _dense(kernel) -> torch.Tensor:
     return _t(np.asarray(kernel).T)
 
 
-def _dense_after_flatten(kernel, chw: Tuple[int, int, int]) -> torch.Tensor:
+def _dense_after_flatten(kernel, chw) -> torch.Tensor:
+    """A flax kernel [in, out] whose first C h w inputs read an
+    HWC-flattened map -> the torch weight [out, in] reading it CHW; the
+    inputs after the map keep their order. ``chw`` None: a plain dense."""
+    k = np.asarray(kernel)
+    if chw is None:
+        return _t(k.T)
     c, h, w = chw
-    k = np.asarray(kernel)                        # [(h, w, c), out]
-    out = k.shape[1]
-    return _t(k.reshape(h, w, c, out).transpose(3, 2, 0, 1).reshape(out, c * h * w))
+    n = c * h * w
+    img = k[:n].reshape(h, w, c, -1).transpose(3, 2, 0, 1).reshape(-1, n)
+    return _t(np.concatenate([img, k[n:].T], axis=1))
 
 
 def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
     """The port ``state_dict`` that ``variables`` describe for ``model``."""
     if isinstance(model, MAMLRegressor):
         return maml_state_dict(model, variables)
+    if isinstance(model, LargeCNP):
+        return large_cnp_state_dict(model, variables)
     p = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
 
@@ -80,6 +97,55 @@ def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
         sd.update(attention_state_dict(
             p["cross_attn"], variables["favor"]["cross_attn"]["favor"]["projection"],
             n_heads=len(model._W_k)))
+    return sd
+
+
+def trunk_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``ResNetTrunk`` params -> the port trunk's ``state_dict``."""
+    sd = {"conv1.weight": _conv(params["conv1"]["kernel"]),
+          "conv1.bias": _t(params["conv1"]["bias"])}
+    for i in range(1, 5):
+        layer = params[f"layer{i}"]
+        for jax_name, name in (("conv1", "conv1"), ("conv2", "conv2"),
+                               ("downsample", "downsample.0")):
+            sd[f"resnet.layer{i}.0.{name}.weight"] = _conv(
+                layer[jax_name]["kernel"])
+    return sd
+
+
+def large_cnp_state_dict(model, variables) -> Dict[str, torch.Tensor]:
+    """LargeCNP variables (``wmfml_tpu/models/neural_process.py``) -> the
+    port model's ``state_dict``."""
+    p = variables["params"]
+    trunk = model.img_encoder
+    chw = trunk_chw(trunk.img_agg, model.img_hw)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def dense(prefix, node, chw=None):
+        sd[f"{prefix}.weight"] = _dense_after_flatten(node["kernel"], chw)
+        sd[f"{prefix}.bias"] = _t(node["bias"])
+
+    for prefix, params in (("img_encoder", p["img_encoder"]),
+                           ("decoder", p["decoder"]["trunk"])):
+        sd.update({f"{prefix}.{k}": v
+                   for k, v in trunk_state_dict(params).items()})
+    if model.transform_y is not None:
+        dense("transform_y", p["transform_y"]["Dense_0"])
+    for i in range(3):
+        dense(f"task_encoder.{2 * i}",
+              p["task_encoder"][f"Dense_{i}"]["Dense_0"], chw if i == 0 else None)
+        dense(f"decoder.fc_mu.{2 * i}",
+              p["decoder"]["fc_mu"][f"Dense_{i}"]["Dense_0"],
+              chw if i == 0 else None)
+    dense("mu", p["mu"]["Dense_0"])
+    if model.agg_mode == "baco":
+        dense("latent_mu", p["latent_mu"]["Dense_0"])
+        dense("latent_var", p["latent_var"]["Dense_0"])
+    if model.agg_mode == "attention":
+        sd.update(attention_state_dict(
+            p["cross_attn"],
+            variables["favor"]["cross_attn"]["favor"]["projection"],
+            n_heads=len(model._W_k), kq_chw=chw))
     return sd
 
 
@@ -137,17 +203,21 @@ def maml_state_dict(model, variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def attention_state_dict(params, projection, n_heads: int = 8):
+def attention_state_dict(params, projection, n_heads: int = 8,
+                         kq_chw=None):
     """``MultiheadFavorCrossAttention`` params (W_k/W_v/W_q/W_out) and its
-    FAVOR projection -> the port block's ``state_dict``."""
+    FAVOR projection -> the port block's ``state_dict``; ``kq_chw`` is the
+    (C, h, w) map whose HWC flatten k and q are (LargeCNP), else None."""
     sd: Dict[str, torch.Tensor] = {}
     for jax_name, torch_name in (("W_k", "_W_k"), ("W_v", "_W_v"),
                                  ("W_q", "_W_q")):
         kernel = np.asarray(params[jax_name]["kernel"])         # [in, H*d]
         bias = np.asarray(params[jax_name]["bias"])
         d = kernel.shape[1] // n_heads
+        chw = None if jax_name == "W_v" else kq_chw
         for i in range(n_heads):
-            sd[f"{torch_name}.{i}.linear.weight"] = _t(kernel[:, i * d:(i + 1) * d].T)
+            sd[f"{torch_name}.{i}.linear.weight"] = _dense_after_flatten(
+                kernel[:, i * d:(i + 1) * d], chw)
             sd[f"{torch_name}.{i}.linear.bias"] = _t(bias[i * d:(i + 1) * d])
     w = np.asarray(params["W_out"]["kernel"]).T                 # [out, H*d] head-major
     out, hd = w.shape

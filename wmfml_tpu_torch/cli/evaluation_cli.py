@@ -12,8 +12,11 @@ The loss against the context count over ctx in 1..max_ctx_num,
 ``loss_vs_ctx_num.png`` under ``results/{mode}/{method}/...`` (``mode: eval``
 in the shipped YAMLs; an empty or ``train`` mode becomes ``evaluation``,
 as in the JAX package). ``checkpoint`` takes a port checkpoint or a bare
-reference ``state_dict``. Runs on ``cuda``; ``device=cpu`` runs on the CPU.
-Methods the port lacks raise, as in training.
+reference ``state_dict``. The data are built in eval mode, as the JAX
+package builds them (``build_data(config, mode="eval")``): Distractor's
+validation split then comes from its test categories and its queries are
+all 36 views. Runs on ``cuda``; ``device=cpu`` runs on the CPU. Methods the
+port lacks raise, as in training.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ def evaluate(config: Config):
     """(validation losses, test losses) over ctx = 1..max_ctx_num."""
     require_device(config.device)        # before any data is generated
     model = build_model(config)
-    return ModelEvaluator(model, config, build_data(config)).evaluate()
+    return ModelEvaluator(model, config,
+                          build_data(config, mode="eval")).evaluate()
 
 
 def main(argv=None):

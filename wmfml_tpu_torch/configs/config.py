@@ -22,8 +22,14 @@ Port-specific rules:
     gradient is 0: the port always pools in K1.
   * ``aug_random_order`` (default true, imgaug's per-batch random op order);
     ``false`` selects the JAX package's fused fixed-order pipeline
-    (``FUSED_PIPELINES``), ported for ``shapenet_1d`` and ``pascal_1d``;
-    for the other tasks it raises and names the slice that ports them.
+    (``FUSED_PIPELINES``), ported for ``shapenet_1d``, ``pascal_1d`` and
+    ``distractor``; for ShapeNet3D it raises and names the slice that
+    ports it.
+  * ``trunk_stem`` (the ResNet trunk's stem lowering): only ``conv``, the
+    stock convolution; the JAX package's phase-layout ``s2d`` stem is not
+    ported (ROADMAP.md B8b) and raises.
+  * Distractor's methods compute in float32 only: ``compute_dtype:
+    bfloat16`` with one of them raises (ROADMAP.md A24).
   * ``prng_impl`` is read and kept, but the port's random stream is
     PyTorch's Philox whatever it says: the JAX package's ``threefry`` and
     ``rbg`` differ in their bits only, and so does Philox, so no
@@ -67,7 +73,7 @@ DEVICE_ALIASES = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # tasks whose fixed-order DA pipeline is not ported -> their ROADMAP item
-FIXED_ORDER_NOT_PORTED = {"distractor": "A12b", "shapenet_3d": "A12c",
+FIXED_ORDER_NOT_PORTED = {"shapenet_3d": "A12c",
                           "shapenet_3d_segmentation": "A12c"}
 
 
@@ -170,6 +176,16 @@ class Config:
                 f"aug_random_order=false for {self.task!r}: its fixed-order "
                 f"DA pipeline is not ported yet (ROADMAP.md "
                 f"{FIXED_ORDER_NOT_PORTED[self.task]})")
+        self.trunk_stem = get("trunk_stem", "conv")
+        if self.trunk_stem != "conv":
+            raise NotImplementedError(
+                f"trunk_stem={self.trunk_stem!r}: only the stock 'conv' stem "
+                "is ported (ROADMAP.md B8b)")
+        if self.task == "distractor" and self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={self.compute_dtype!r} for {self.method!r}: "
+                "Distractor's methods compute in float32 only (ROADMAP.md "
+                "A24)")
         self.prng_impl = get("prng_impl", "threefry")
         self.data_path = get("data_path", None)
         self.synthetic_data = get("synthetic_data", False)

@@ -16,7 +16,13 @@
 //     with composed parameters), then OneOf(Dropout, fixed-grid
 //     CoarseDropout);
 //   3 Pascal1D fixed order: geometric, GammaContrast, AverageBlur, then the
-//     fixed-grid dropout op.
+//     fixed-grid dropout op;
+//   4 Distractor: Affine and OneOf(Dropout, CoarseDropout), each under
+//     Sometimes(0.5), in one of the 2! orders, on the inverted image
+//     1 - x / 255 (one warp op: the JAX package's enumerated path applies
+//     Affine alone, _affine_warp, as program 1 does);
+//   5 Distractor fixed order: Affine, then the fixed-grid dropout op, on
+//     the inverted image.
 //
 // Replaces wmfml_tpu/aug/pipeline.py:_to_float (:34) and image_aug.py's
 // _warp_chain (:120), _affine_warp (:97), gamma_contrast and average_blur
@@ -24,7 +30,8 @@
 // (:386-417), the enumerated-order augment (:537-565), which draws the
 // order as device data (:556) and switches to one fused branch per order
 // (:562), the per-step switch chain (:567-577) and the fixed-order chain
-// (:578-580). Here the order is device data in every program: every call
+// (:578-580), and pipeline.py's inversion 1.0 - _to_float(x) (:105) for
+// programs 4 and 5. Here the order is device data in every program: every call
 // is the same single launch, whatever the order, and the per-image
 // parameters are computed in the kernel from the raw draws.
 //
@@ -92,6 +99,14 @@
 // blur's sums at every add). The fixed programs' CoarseDropout keeps one
 // hashed bit per cell of the fixed grid (pixel_ops.cuh). With g the Pascal
 // programs take 171 KB of shared memory at 128 x 128: one block an SM.
+//
+// Programs 4 and 5 (Distractor) need no g: x / 255 comes from the table of
+// inverted quotients 1 - i / 255 (the correctly rounded quotient, then the
+// subtraction, as the twin and the JAX package compute it; the warp's fill
+// applies to the inverted image), then Affine alone from f into the output
+// with the mask applied as it writes (Affine first), or the mask in place on
+// f and Affine from f into the output (the mask first); Affine's gate off,
+// the masked copy. They write float32 only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,7 +136,8 @@ constexpr int DROP = 2;
 constexpr int MAX_SMEM = 232448;       // shared memory a block may use
 
 enum Program { SHAPENET1D = 0, PASCAL = 1, SHAPENET1D_FIXED = 2,
-               PASCAL_FIXED = 3, NPROGRAMS = 4 };
+               PASCAL_FIXED = 3, DISTRACTOR = 4, DISTRACTOR_FIXED = 5,
+               NPROGRAMS = 6 };
 
 // Pascal1D's ops, aug/image_aug.py:PASCAL_OPS (image_aug.py:442's order)
 enum PascalOp { P_CROP = 0, P_GAMMA = 1, P_BLUR = 2, P_AFFINE = 3,
@@ -131,7 +147,16 @@ __host__ __device__ constexpr bool pixel_ops(int prog) {
   return prog == PASCAL || prog == PASCAL_FIXED;
 }
 __host__ __device__ constexpr bool fixed_order(int prog) {
+  return prog == SHAPENET1D_FIXED || prog == PASCAL_FIXED ||
+         prog == DISTRACTOR_FIXED;
+}
+// the programs whose first op is geometric (draw_geometric's one warp)
+__host__ __device__ constexpr bool geometric(int prog) {
   return prog == SHAPENET1D_FIXED || prog == PASCAL_FIXED;
+}
+// Distractor's programs: the inverted image, float32 output only
+__host__ __device__ constexpr bool inverted(int prog) {
+  return prog == DISTRACTOR || prog == DISTRACTOR_FIXED;
 }
 
 // The six op orders, aug/image_aug.py:ORDERS (0 CropAndPad, 1 Affine, 2 the
@@ -576,6 +601,19 @@ __device__ void run_pixel_program(const Args& a, const Shared* P, Axis* tab,
   const int H = a.H, W = a.W;
   if constexpr (PROG == SHAPENET1D_FIXED) {     // geometric, then the mask
     warp_op(P->warp[0], tab, H, W, f, out, mask, true);
+  } else if constexpr (inverted(PROG)) {      // Affine and the mask
+    const auto copy = [&](int y, int x) { return f[y * W + x]; };
+    if (P->warp[1][6] <= 0.5f) {                // Affine's gate off
+      pixel_pass(H, W, out, mask, mask.on, copy);
+    } else if (PROG == DISTRACTOR_FIXED || P->order == 0) {   // Affine first
+      warp_op(P->warp[1], tab, H, W, f, out, mask, true);
+    } else {                                    // the mask first
+      if (mask.on) {
+        pixel_pass(H, W, Mid{f}, mask, true, copy);
+        __syncthreads();
+      }
+      warp_op(P->warp[1], tab, H, W, f, out, mask, false);
+    }
   } else if constexpr (PROG == PASCAL_FIXED) {  // geometric, gamma, blur,
     warp_op(P->warp[0], tab, H, W, f, Mid{g}, mask, false);    // the mask
     __syncthreads();
@@ -691,7 +729,7 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
     tc::bulk_load(src8, a.x + t * a.st + s * a.ss, HW, bar);
     const float* u = a.u + (size_t)b * (pixel_ops(PROG) ? NU_PIXEL : NU);
     draw_params(u, H, W, P);
-    if (fixed_order(PROG)) draw_geometric(u, H, W, P);
+    if (geometric(PROG)) draw_geometric(u, H, W, P);
     if (pixel_ops(PROG)) draw_pixel(u, P);
     P->k0 = (uint32_t)a.keys[2 * b];
     P->k1 = (uint32_t)a.keys[2 * b + 1];
@@ -701,6 +739,7 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
       P->order = (int)(((a.order[0] % 120) + 120) % 120);
       da::decode_order(P->order, NPASCAL, P->perm);
     }
+    if (PROG == DISTRACTOR) P->order = (int)(((a.order[0] % 2) + 2) % 2);
     if (a.params_out != nullptr) {
       const int width = PROG == SHAPENET1D ? NPARAMS : NPARAMS_PIXEL;
       float* o = a.params_out + (size_t)b * width;
@@ -721,7 +760,7 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
   } else {
     for (int i = tid; i < 256; i += THREADS) {
       const float q = __fdiv_rn((float)i, 255.f);
-      lut[i] = a.bf16 ? bf16_round(q) : q;
+      lut[i] = inverted(PROG) ? __fsub_rn(1.f, q) : a.bf16 ? bf16_round(q) : q;
     }
     const Mask mask = build_mask(P, H, W, fixed_order(PROG), L.cap, frow,
                                  fcol, cell);
@@ -777,12 +816,13 @@ extern "C" int wmfml_image_da_smem_bytes(int program, int H, int W) {
 // x: uint8 images, image (t, s) at x + t st + s ss (bytes), each H x W x 1
 // contiguous and 16-byte aligned, B = T S of them with S per task; u [B,
 // 19] f32 ([B, 23] for the Pascal programs; column 12 in [0, 1)), keys [B,
-// 2] i32, order [1] i64 (read modulo 6, or 120 for Pascal1D; null for the
-// fixed programs), out [B, H, W] f32 (bf16 = 0) or bf16 (bf16 = 1), all
+// 2] i32, order [1] i64 (read modulo 6, 120 for Pascal1D or 2 for
+// Distractor; null for the fixed programs), out [B, H, W] f32 (bf16 = 0) or
+// bf16 (bf16 = 1; not for programs 4 and 5), all
 // contiguous on the current device; params_out null or [B, 19] f32 for
 // program 0, [B, 23] for the others (the parameters the kernel computed:
 // warp [2, 7], drop [5], then the pixel ops' [4]); stamps null or [B, 5]
-// i64 (the phase clock); program 0-3 (Program). W a multiple of 4 and at
+// i64 (the phase clock); program 0-5 (Program). W a multiple of 4 and at
 // most 128, H W a multiple of 16, the image in one block's shared memory;
 // the fixed programs also need H and W multiples of their grid's cells.
 // Returns the cudaError_t of the launch, or -1 for a shape or program the
@@ -800,6 +840,7 @@ extern "C" int wmfml_image_da_fwd(const unsigned char* x, long long st,
       (H % da::fixed_cells(H) || W % da::fixed_cells(W)))
     return -1;
   if (!fixed_order(program) && order == nullptr) return -1;
+  if (inverted(program) && bf16) return -1;
   const int smem = layout(H, W, pixel_ops(program)).total;
   if (smem > MAX_SMEM) return -1;
   int dev = 0;
@@ -815,7 +856,9 @@ extern "C" int wmfml_image_da_fwd(const unsigned char* x, long long st,
     case SHAPENET1D_FIXED:
       err = launch<SHAPENET1D_FIXED>(a, B, smem, dev, s);
       break;
-    default: err = launch<PASCAL_FIXED>(a, B, smem, dev, s); break;
+    case PASCAL_FIXED: err = launch<PASCAL_FIXED>(a, B, smem, dev, s); break;
+    case DISTRACTOR: err = launch<DISTRACTOR>(a, B, smem, dev, s); break;
+    default: err = launch<DISTRACTOR_FIXED>(a, B, smem, dev, s); break;
   }
   return (int)err;
 }

@@ -1,7 +1,8 @@
 """Device-resident episode sampling: the train split lives on the card.
 
 The train splits are small (ShapeNet1D 60 x 50 x 128 x 128 uint8 = 49 MB,
-synthetic Pascal1D 40 x 50 x 128 x 128 = 33 MB), so the split is uploaded
+synthetic Pascal1D 40 x 50 x 128 x 128 = 33 MB, synthetic Distractor 48
+objects x 36 views x 128 x 128 = 28 MB), so the split is uploaded
 once and every training episode is gathered on the device from a
 ``torch.Generator`` on that device; no image crosses the host link after
 set-up. Semantics of the JAX package's sampler
@@ -11,10 +12,11 @@ set-up. Semantics of the JAX package's sampler
     argsort of uniforms per task (the first ``max_ctx`` rows are context,
     the next ``query`` rows are queries);
   * shot ~ U[shot_min, max_ctx] once per batch, realised as ``ctx_mask``
-    (``shot_min`` 3 for ShapeNet1D; ``max_ctx`` for Pascal1D, whose shot is
-    fixed, ``from_dataset`` as ``:125-127``);
-  * labels scaled by ``label_scale`` (2*pi for ShapeNet1D, 1 for Pascal1D,
-    whose labels the episode processor scales).
+    (``shot_min`` 3 for ShapeNet1D, 1 for Distractor; ``max_ctx`` for
+    Pascal1D, whose shot is fixed, ``from_dataset`` as ``:125-136``);
+  * labels scaled by ``label_scale`` (2*pi for ShapeNet1D; 1 for Pascal1D,
+    whose labels the episode processor scales, and for Distractor, whose
+    labels are the objects' pixel centres).
 
 The draws differ from the JAX package's (Philox against threefry); the
 distribution is the same.
@@ -51,7 +53,8 @@ class DeviceEpisodeSampler:
         self.y = torch.from_numpy(np.asarray(y, np.float32)).to(device)
 
     # task -> (shot_min, label_scale); shot_min None is max_ctx_num
-    TASKS = {"shapenet_1d": (3, 2.0 * np.pi), "pascal_1d": (None, 1.0)}
+    TASKS = {"shapenet_1d": (3, 2.0 * np.pi), "pascal_1d": (None, 1.0),
+             "distractor": (1, 1.0)}
 
     @classmethod
     def from_dataset(cls, data, config, device) -> "DeviceEpisodeSampler":

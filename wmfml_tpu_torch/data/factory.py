@@ -1,10 +1,11 @@
 """Dataset factory: config -> episodic sampler.
 
 Data root: ``config.data_path`` if set, else ``./data/<subdir>`` (the
-reference layout: ``ShapeNet1D``, ``Pascal1D``) when it holds the task's
-files, else a generated synthetic dataset under ``./data_synth/<subdir>``.
-``synthetic_data: true`` forces the synthetic set. ``shapenet_1d`` and
-``pascal_1d`` are ported; the other tasks raise.
+reference layout: ``ShapeNet1D``, ``Pascal1D``, ``distractor``) when it
+holds the task's files, else a generated synthetic dataset under
+``./data_synth/<subdir>``. ``synthetic_data: true`` forces the synthetic
+set. ``shapenet_1d``, ``pascal_1d`` and ``distractor`` are ported;
+ShapeNet3D raises.
 """
 
 from __future__ import annotations
@@ -13,16 +14,18 @@ import os
 
 from wmfml_tpu_torch.data.pascal_1d import Pascal1D
 from wmfml_tpu_torch.data.shapenet_1d import ShapeNet1D
+from wmfml_tpu_torch.data.shapenet_distractor import ShapeNetDistractor
 from wmfml_tpu_torch.data.synthetic import ensure_dataset
 
-REFERENCE_SUBDIRS = {"shapenet_1d": "ShapeNet1D", "pascal_1d": "Pascal1D"}
+REFERENCE_SUBDIRS = {"shapenet_1d": "ShapeNet1D", "pascal_1d": "Pascal1D",
+                     "distractor": "distractor"}
 _PROBE_FILES = {"shapenet_1d": "val_data.pkl",
-                "pascal_1d": "train_data_ins.pkl"}
+                "pascal_1d": "train_data_ins.pkl",
+                "distractor": "04530566_multi.npy"}
 
 NOT_PORTED = {
     "shapenet_3d": "ROADMAP.md A12c (ShapeNet3D slice)",
     "shapenet_3d_segmentation": "ROADMAP.md A12c (ShapeNet3D slice)",
-    "distractor": "ROADMAP.md A12b (Distractor slice)",
 }
 
 
@@ -38,8 +41,12 @@ def resolve_data_path(config) -> str:
     return ensure_dataset(config.task, "data_synth")
 
 
-def build_data(config):
-    """Host sampler for ``config.task`` (seed 42, as in the JAX package)."""
+def build_data(config, mode: str = "train", test_categ=None):
+    """Host sampler for ``config.task`` (seed 42, as in the JAX package).
+    ``mode="eval"`` (the evaluation CLI) and ``test_categ`` (the test
+    split's categories) reach Distractor only: in eval mode its validation
+    split comes from the test categories and its queries are all 36
+    views."""
     if config.task not in REFERENCE_SUBDIRS:
         raise NotImplementedError(
             f"task {config.task!r} is not ported yet: "
@@ -49,4 +56,8 @@ def build_data(config):
     path = resolve_data_path(config)
     if config.task == "pascal_1d":
         return Pascal1D(path, **common)
+    if config.task == "distractor":
+        return ShapeNetDistractor(path, mode=mode,
+                                  load_test_categ_only=mode == "eval",
+                                  test_categ=test_categ, **common)
     return ShapeNet1D(path, data_size=config.data_size, **common)

@@ -1,5 +1,5 @@
-"""Procedural synthetic ShapeNet1D and Pascal1D in the reference's on-disk
-formats.
+"""Procedural synthetic ShapeNet1D, Pascal1D and Distractor in the
+reference's on-disk formats.
 
 The real data ships as git-LFS pointers, so training without it runs on a
 generated dataset:
@@ -7,16 +7,21 @@ generated dataset:
   * ShapeNet1D: ``train_data_{small,middle,large}.pkl``, ``val_data.pkl``
     and ``test_data.pkl``;
   * Pascal1D: ``train_data_ins.pkl`` (40 classes) and ``val_data_ins.pkl``
-    (10 classes); it has no test split.
+    (10 classes); it has no test split;
+  * Distractor: ``{categ}_multi.npy`` for the 10 train and 2 test ShapeNet
+    category ids, each an object array of 6 objects x 36 views of
+    ``(image [128, 128, 1] float32 in [0, 1], 0, view index, centre [2])``.
 
-Each file is ``(x [C, I, 128, 128, 1] uint8, y [C, I, 1])`` with the angle
-in [0, 1). Each class is a union of soft ellipses rendered analytically in
-rotated coordinates, so every angle is exact.
+The ShapeNet1D and Pascal1D files are ``(x [C, I, 128, 128, 1] uint8, y [C,
+I, 1])`` with the angle in [0, 1). Each class is a union of soft ellipses
+rendered analytically in rotated coordinates, so every angle is exact; a
+Distractor view places the object's shape (turned by the view's angle) at
+its labelled pixel centre and a second shape, the distractor, elsewhere.
 
 With the same seed the files are byte-identical to the JAX package's
 (``wmfml_tpu/data/synthetic.py``): the same numpy ``RandomState`` draws in
-the same order and the same float32 rendering. The other tasks' generators
-are not ported yet (ROADMAP.md, queue A).
+the same order and the same float32 rendering. ShapeNet3D's generator is
+not ported yet (ROADMAP.md A12c).
 """
 
 from __future__ import annotations
@@ -108,15 +113,59 @@ def generate_pascal1d(root: str, seed: int = 5, train_classes: int = 40,
             pickle.dump(make_split(n), f)
 
 
+# real ShapeNet category ids, so the reference's loader reads the files
+DISTRACTOR_TRAIN_CATEGS = [
+    "02691156", "02828884", "02933112", "02958343", "02992529",
+    "03001627", "03211117", "03636649", "03691459", "04379243",
+]
+DISTRACTOR_TEST_CATEGS = ["04256520", "04530566"]
+
+
+def generate_distractor(root: str, seed: int = 3, objects_per_categ: int = 6,
+                        views: int = 36):
+    """Per-category ``.npy`` object lists; view v of an object turns its
+    shape by 2 pi v / views and draws its centre (the label, pixels) and
+    the distractor's centre ~ U[24, 104)^2."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+
+    def make_categ():
+        objects = []
+        for _ in range(objects_per_categ):
+            params = _random_shape_params(rng, 3, 14.0, (4.0, 12.0))
+            d_params = _random_shape_params(rng, 2, 10.0, (3.0, 9.0))
+            instances = []
+            for v in range(views):
+                angle = v * 2 * np.pi / views
+                center = rng.uniform(24, 104, size=2)      # (x, y)
+                d_center = rng.uniform(24, 104, size=2)
+                obj = _render_blob_2d(48, *params, angle_rad=angle)
+                dis = _render_blob_2d(48, *d_params, angle_rad=-angle)
+                canvas = np.zeros((128, 128), np.float32)
+                for patch, (cx, cy) in [(obj, center), (dis, d_center)]:
+                    x0, y0 = int(cx) - 24, int(cy) - 24
+                    canvas[y0:y0 + 48, x0:x0 + 48] = np.maximum(
+                        canvas[y0:y0 + 48, x0:x0 + 48], patch)
+                instances.append((canvas[..., None].astype(np.float32), 0, v,
+                                  center.astype(np.float32)))
+            objects.append(instances)
+        return np.asarray(objects, dtype=object)
+
+    for categ in DISTRACTOR_TRAIN_CATEGS + DISTRACTOR_TEST_CATEGS:
+        np.save(os.path.join(root, f"{categ}_multi.npy"), make_categ(),
+                allow_pickle=True)
+
+
 GENERATORS = {"shapenet_1d": ("ShapeNet1D", generate_shapenet1d),
-              "pascal_1d": ("Pascal1D", generate_pascal1d)}
+              "pascal_1d": ("Pascal1D", generate_pascal1d),
+              "distractor": ("distractor", generate_distractor)}
 
 
 def ensure_dataset(task: str, data_root: str = "data_synth") -> str:
     """Generate the synthetic dataset for ``task`` if missing; return its dir."""
     if task not in GENERATORS:
         raise NotImplementedError(
-            f"synthetic {task!r} data is not ported yet (ROADMAP.md A12)")
+            f"synthetic {task!r} data is not ported yet (ROADMAP.md A12c)")
     subdir, gen = GENERATORS[task]
     path = os.path.join(data_root, subdir)
     marker = os.path.join(path, ".complete")

@@ -5,7 +5,10 @@
 episodes, except for pascal_1d), the split's stream reseeded to
 RandomState 42 before each point, so every point and every run sees the
 same episodes as the JAX package's host sweep (``_sweep_source`` /
-``_validate_iter``, :128-154). It writes ``val_losses.txt`` and
+``_validate_iter``, :128-154). With Distractor's eval-mode data
+(``build_data(config, mode="eval")``) an episode's queries are all 36 views
+of its object, the context views among them, and its loss is the mean pixel
+distance. It writes ``val_losses.txt`` and
 ``test_losses.txt`` (index, mean loss, std over the episodes with
 ddof = 1, ``%1.4f``), saves the model as ``models/model.pt`` and draws
 ``loss_vs_ctx_num.png`` where matplotlib is installed (where it is not, it

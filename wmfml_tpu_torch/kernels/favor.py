@@ -6,6 +6,14 @@ bounds the kernel and how one cooperative launch takes the one global key
 max that no single block can see (a grid barrier between the feature
 products and the rest).
 
+K2 has two forms, both in ``csrc/favor.cu``, one cooperative launch each:
+the narrow kernel for heads of d <= 64 with m <= 512 features (SmallCNP's,
+d = 64, m = 266), whose item's features stay in shared memory, and the wide
+kernel for d <= 256 at any m (LargeCNP's full-width heads, d = 256, m =
+1419), whose features stream through shared memory in chunks, float32
+only, Nq + Nk <= 64. ``favor_launch`` picks the form by d and m; a shape
+neither takes raises.
+
 ``favor_attention`` is the wrapper the attention block calls. A CPU tensor
 takes the plain twin (the JAX math, op for op); a CUDA tensor launches the
 kernel or raises. The JAX package has no custom VJP here, so the backward
@@ -35,11 +43,16 @@ from wmfml_tpu_torch.kernels import build
 from wmfml_tpu_torch.ops.cast import rounded
 
 EPS = 1e-4
-MAX_D = 64             # widest head the kernel takes (zero-padded to 64)
+MAX_D = 64             # widest head the narrow kernel takes (padded to 64)
+MAX_MP = 512           # most features it takes, m rounded up to 16
+WIDE_MAX_D = 256       # the wide kernel: widest head and widest v row
+WIDE_MAX_ROWS = 64     # and most rows an item, Nq + Nk
 # the kernel's phase clock (csrc/favor.cu: stamp)
 PHASES = ("start", "staged", "dash_done", "phase1_done", "barrier_passed",
           "loaded", "features_done", "a_done", "end")
 STAMPS = len(PHASES)
+# the wide kernel's phase clock (csrc/favor.cu: wide::stamp)
+WIDE_PHASES = ("start", "phase1_done", "barrier_passed", "end")
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -82,6 +95,7 @@ def favor_plain(q, k, v, projection, mask: Optional[torch.Tensor] = None):
 
 
 _fwd = None
+_fwd_wide = None
 
 
 def _kernel():
@@ -95,6 +109,38 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fwd = fn
     return _fwd
+
+
+def _kernel_wide():
+    """The wide kernel's launch function and its scratch size function."""
+    global _fwd_wide
+    if _fwd_wide is None:
+        lib = build.load("favor")
+        fn = lib.wmfml_favor_wide_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 11
+                       + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        size = lib.wmfml_favor_wide_scratch_floats
+        size.argtypes = [ctypes.c_int] * 4
+        size.restype = ctypes.c_longlong
+        _fwd_wide = fn, size
+    return _fwd_wide
+
+
+def is_wide(d: int, m: int) -> bool:
+    """Whether heads of width d with m features take the wide kernel."""
+    return d > MAX_D or -(-m // 16) * 16 > MAX_MP
+
+
+def wide_grid(items: int, m: int) -> int:
+    """The wide kernel's grid: its phase-1 units (items x 128-feature
+    tiles), at most the co-resident blocks."""
+    blocks = build.load("favor").wmfml_favor_wide_coresident()
+    if blocks < 0:
+        raise RuntimeError(f"FAVOR wide occupancy query failed: cudaError "
+                           f"{-blocks}")
+    return min(items * -(-m // 128), blocks)
 
 
 def _aligned(a):
@@ -114,7 +160,9 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     [T * H, STAMPS], for ``chip_smoke.py``) turns on the kernel's phase
     clock: block b writes the global timer (ns) to row b at the points
     ``PHASES`` names (those after the grid barrier at its last item); rows
-    past the grid are left as they are."""
+    past the grid are left as they are. The wide kernel's clock is
+    ``stamps`` int64 [``wide_grid``, 4], one row a block, at
+    ``WIDE_PHASES``."""
     if (any(not t.is_cuda for t in (q, k, v, projection))
             or q.dtype not in DTYPES or k.dtype != q.dtype
             or v.dtype != q.dtype or projection.dtype != torch.float32):
@@ -129,25 +177,30 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
         raise ValueError(f"FAVOR shapes disagree: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"projection {tuple(projection.shape)}")
-    if d > MAX_D or d % 4 or e % 4:
-        raise ValueError(f"FAVOR kernel takes d <= {MAX_D} and d, e "
-                         f"multiples of 4; got d={d}, e={e}")
+    if d % 4 or e % 4:
+        raise ValueError(f"FAVOR kernel takes d, e multiples of 4; got "
+                         f"d={d}, e={e}")
     if mask is not None and (tuple(mask.shape) != (t, nk)
                              or mask.device != q.device
                              or mask.dtype != torch.bool):
         raise ValueError(f"FAVOR mask must be bool [T, Nk] = {(t, nk)} on "
                          f"the same device; got {mask.dtype} "
                          f"{tuple(mask.shape)}")
-    if stamps is not None and (stamps.device != q.device
-                               or stamps.dtype != torch.int64
-                               or tuple(stamps.shape) != (t * h, STAMPS)):
-        raise ValueError(f"FAVOR stamps must be int64 [T * H, {STAMPS}] on "
-                         f"the card")
+    wide = is_wide(d, m)
+    if stamps is not None:
+        shape = ((wide_grid(t * h, m), len(WIDE_PHASES)) if wide
+                 else (t * h, STAMPS))
+        if (stamps.device != q.device or stamps.dtype != torch.int64
+                or tuple(stamps.shape) != shape):
+            raise ValueError(f"FAVOR stamps must be int64 {list(shape)} on "
+                             f"the card")
     # the kernel reads q, k, v and the mask's bytes through their strides:
     # the attention block passes transposed views, the sampler an expanded
     # mask, and neither is copied
     q, k, v = (_aligned(a) for a in (q, k, v))
     proj = _aligned(projection)
+    if wide:
+        return _wide_launch(q, k, v, proj, mask, stamps)
     # dash [T*H, Nq+Nk, m rounded up to 16], then the items' key maxima
     mp = -(-m // 16) * 16
     scratch = torch.empty(t * h * ((nq + nk) * mp + 1),
@@ -173,6 +226,35 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     return out
 
 
+def _wide_launch(q, k, v, proj, mask, stamps):
+    """The wide kernel (``favor_launch``'s checks done, q, k, v aligned)."""
+    t, h, nq, d = q.shape
+    nk, e, m = k.shape[2], v.shape[3], proj.shape[0]
+    if (q.dtype != torch.float32 or d > WIDE_MAX_D or e > WIDE_MAX_D
+            or nq + nk > WIDE_MAX_ROWS):
+        raise ValueError(
+            f"the wide FAVOR kernel takes float32 heads of d <= {WIDE_MAX_D}, "
+            f"e <= {WIDE_MAX_D} and Nq + Nk <= {WIDE_MAX_ROWS}; got "
+            f"{q.dtype}, d={d}, e={e}, Nq={nq}, Nk={nk}")
+    fwd, size = _kernel_wide()
+    scratch = torch.empty(size(t * h, nq, nk, m), device=q.device,
+                          dtype=torch.float32)
+    out = torch.empty((t, h, nq, e), device=q.device, dtype=torch.float32)
+    mask_args = ((0, 0, 0) if mask is None
+                 else (mask.data_ptr(), *mask.stride()))
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
+              mask_args[0], scratch.data_ptr(), out.data_ptr(),
+              0 if stamps is None else stamps.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+              *mask_args[1:], t, h, nq, nk, d, e, m, d ** -0.25, d ** -0.5,
+              m ** -0.5, EPS, torch.cuda.current_stream(q.device).cuda_stream)
+    if err == -1:
+        raise ValueError(f"the wide FAVOR kernel does not take Nq={nq}, "
+                         f"Nk={nk}, d={d}, e={e}, m={m}")
+    if err != 0:
+        raise RuntimeError(f"FAVOR cooperative launch failed: cudaError {err}")
+    return out
+
+
 class _Favor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, projection, mask):
@@ -180,6 +262,7 @@ class _Favor(torch.autograd.Function):
         out = favor_launch(q, k, v, projection, mask)
         favor_attention.launches += 1
         favor_attention.bf16_launches += q.dtype == torch.bfloat16
+        favor_attention.wide_launches += is_wide(*projection.shape[::-1])
         return out
 
     @staticmethod
@@ -200,3 +283,4 @@ def favor_attention(q, k, v, projection, mask: Optional[torch.Tensor] = None):
 
 favor_attention.launches = 0          # every launch on the path
 favor_attention.bf16_launches = 0     # those that read bfloat16
+favor_attention.wide_launches = 0     # those of the wide kernel

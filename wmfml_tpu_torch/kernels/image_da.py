@@ -15,7 +15,11 @@ The op programs (``PROGRAMS``; ``aug/image_aug.py`` has each one's twin):
   * ``shapenet_1d``: ShapeNet1D's three ops in one of 3! drawn orders;
   * ``pascal_1d``: Pascal1D's five ops in one of 5! drawn orders;
   * ``shapenet_1d_fixed`` and ``pascal_1d_fixed``: the fixed-order
-    pipelines (``aug_random_order: false``).
+    pipelines (``aug_random_order: false``);
+  * ``distractor``: Distractor's two ops (Affine alone, the dropout op) in
+    one of 2! drawn orders, on the inverted image 1 - x / 255;
+    ``distractor_fixed``: Affine, then the fixed-grid dropout op, on the
+    inverted image. Both write float32 only (ROADMAP.md A24).
 
 ``image_da(x, u, keys, order, dtype, program)`` is the wrapper the
 augmenters call: ``x`` uint8 [B, H, W, 1] or [T, S, H, W, 1] (read through
@@ -42,14 +46,22 @@ from wmfml_tpu_torch.kernels import build
 
 # K6's op programs, in csrc/image_da.cu's order (its Program)
 PROGRAMS = ("shapenet_1d", "pascal_1d", "shapenet_1d_fixed",
-            "pascal_1d_fixed")
+            "pascal_1d_fixed", "distractor", "distractor_fixed")
 NU = 19                 # uniforms per image (ShapeNet1D's programs)
 NU_PIXEL = NU + 4       # with the pixel ops' (Pascal1D's programs)
 PROGRAM_NU = {"shapenet_1d": NU, "pascal_1d": NU_PIXEL,
-              "shapenet_1d_fixed": NU, "pascal_1d_fixed": NU_PIXEL}
-# op orders a call draws from (3! and 5!; 1: the fixed programs, no order)
+              "shapenet_1d_fixed": NU, "pascal_1d_fixed": NU_PIXEL,
+              "distractor": NU, "distractor_fixed": NU}
+# op orders a call draws from (3!, 5! and 2!; 1: the fixed programs, no
+# order)
 PROGRAM_ORDERS = {"shapenet_1d": 6, "pascal_1d": 120,
-                  "shapenet_1d_fixed": 1, "pascal_1d_fixed": 1}
+                  "shapenet_1d_fixed": 1, "pascal_1d_fixed": 1,
+                  "distractor": 2, "distractor_fixed": 1}
+# the programs whose first op is ``geometric`` (CropAndPad and Affine as one
+# warp: ``aug/image_aug.py:geometric_from_draw``)
+GEOMETRIC = ("shapenet_1d_fixed", "pascal_1d_fixed")
+# the programs that take float32 output only (Distractor's)
+FLOAT32_ONLY = ("distractor", "distractor_fixed")
 NPARAMS = 2 * 7 + 5     # the kernel's parameter row: warp [2, 7], drop [5]
 NPARAMS_PIXEL = NPARAMS + 4    # then the pixel ops' [4] (programs 1-3)
 # the kernel's phase clock (csrc/image_da.cu: stamp)
@@ -75,16 +87,17 @@ def nparams(program: str) -> int:
 
 def image_da_plain(x, u, keys, order, dtype=torch.float32,
                    program="shapenet_1d"):
-    """The twin: the program's ``params_from_draw``, then x / 255 (rounded
-    to ``dtype``) through its ``apply``."""
+    """The twin: the program's ``params_from_draw``, then its
+    ``program_input`` (x / 255 rounded to ``dtype``, or Distractor's
+    1 - x / 255) through its ``apply``."""
     from wmfml_tpu_torch.aug.image_aug import (apply_program, params_for,
-                                               to_unit)
+                                               program_input)
 
     h, w = x.shape[-3], x.shape[-2]
     flat = x.reshape((-1,) + tuple(x.shape[-3:]))
     params = params_for(program, u, keys, order, h, w)
-    return apply_program(program, to_unit(flat).to(dtype), params).reshape(
-        x.shape)
+    return apply_program(program, program_input(program, flat, dtype),
+                         params).reshape(x.shape)
 
 
 _fwd = None
@@ -126,9 +139,10 @@ def image_da_launch(x, u, keys, order, dtype=torch.float32,
         raise TypeError("image DA kernel takes uint8 images, float32 "
                         "uniforms, int32 keys and an int64 order, all on one "
                         "CUDA device")
-    if dtype not in DTYPES:
-        raise TypeError(f"image DA kernel writes float32 or bfloat16; got "
-                        f"{dtype}")
+    dtypes = (torch.float32,) if program in FLOAT32_ONLY else DTYPES
+    if dtype not in dtypes:
+        raise TypeError(f"image DA program {program!r} writes one of "
+                        f"{dtypes}; got {dtype}")
     if x.dim() == 4:
         t_, s_, st, ss = x.shape[0], 1, x.stride(0), 0
     elif x.dim() == 5:

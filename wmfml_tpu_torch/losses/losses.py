@@ -4,7 +4,9 @@
   * shapenet_1d (test)  — mean angular error in degrees, min over +-360
                           wraps, acos decode with the sin branch, computed
                           in float32 whatever the model's dtype;
-  * pascal_1d           — plain MSE.
+  * pascal_1d           — plain MSE;
+  * distractor          — mean Euclidean distance in pixels, train and
+                          test alike.
 
 As in the JAX package, ``degree_loss`` clips cos into [-1, 1] before acos.
 """
@@ -41,6 +43,14 @@ def degree_loss(q_gt, q_pr, mask=None):
     return _masked_mean(errors.amin(-1), mask)
 
 
+def euclidean_distance_loss(gt_y, pr_mu, mask=None):
+    """Mean Euclidean distance (pixels). ``sqrt`` as the JAX package takes
+    it, with no epsilon: at a zero distance its gradient is not finite
+    there either."""
+    d = torch.sqrt(((gt_y - pr_mu) ** 2).sum(-1))
+    return _masked_mean(d, mask)
+
+
 def mean_square_loss(q_gt, q_pr, mask=None):
     se = (q_gt - q_pr) ** 2
     return _masked_mean(se, None if mask is None else mask[..., None])
@@ -53,13 +63,15 @@ class LossFunc:
         if loss_type != "mse":
             raise NotImplementedError(
                 f"loss_type={loss_type!r}: only 'mse' is implemented")
-        if task not in ("shapenet_1d", "pascal_1d"):
+        if task not in ("shapenet_1d", "pascal_1d", "distractor"):
             raise NotImplementedError(
                 f"losses for {task!r} are not ported yet (ROADMAP.md A6)")
         self.task = task
 
     def calc_loss(self, pr_mu, pr_var, gt_y, test: bool = False, mask=None):
         del pr_var
+        if self.task == "distractor":
+            return euclidean_distance_loss(gt_y, pr_mu, mask)
         if self.task == "shapenet_1d":
             return (degree_loss(gt_y, pr_mu, mask) if test
                     else azimuth_loss(gt_y, pr_mu, mask))

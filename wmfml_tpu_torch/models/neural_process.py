@@ -1,4 +1,5 @@
-"""Conditional and attentive neural processes, literature-encoder family.
+"""Conditional and attentive neural processes: the literature-encoder
+family (``SmallCNP``) and the ResNet-trunk family (``LargeCNP``).
 
 ``SmallCNP`` is ``wmfml_tpu/models/neural_process.py:SmallCNP`` (the
 reference's CNPShapeNet1D, ANPShapeNet1D and the Pascal1D variants): conv
@@ -20,6 +21,21 @@ Parameter names follow the reference torch models (``encoder_w0.{0,2,5,8}``,
 ``transform_y``, ``encoder_r.layers.{0,2,4}``, ``r_to_z``,
 ``decoder0.{0,2,4}``, ``rs_to_mu``/``rs_to_var`` for baco and the attention
 block's ``_W_k``/``_W_v``/``_W_q``/``_W``/``attn`` at the top level).
+
+``LargeCNP`` is ``wmfml_tpu/models/neural_process.py:LargeCNP`` (the
+reference's CNPDistractor and ANPDistractor; CondNeuralProcess and ANP with
+ShapeNet3D's data, ROADMAP.md A12c): ``ResNetTrunk`` image features
+(``img_agg``); the label embedded to ``label_embed_dim`` (Distractor:
+dim_w) or taken raw; a 3-layer task encoder over [feature, label] with a
+final ReLU; mean / max / baco aggregation then the ``mu`` head, or FAVOR
+attention (k, q the trunk features, v the task features, 8 full-width
+heads) then ``mu``; ``_gate_zero_ctx``; ``NPDecoder``: its own trunk over
+the query images and ``fc_mu`` (256, 256) over [query feature, latent].
+With attention the context and query images go through the encoder trunk
+as one batch (``MERGE_CTX_QRY``). Keys: ``img_encoder.{conv1,resnet.*}``,
+``transform_y``, ``task_encoder.{0,2,4}``, ``mu``, ``latent_mu`` /
+``latent_var`` (baco), the attention block's layers at the top level and
+``decoder.{conv1,resnet.*,fc_mu.{0,2,4}}``. It computes in float32.
 """
 
 from __future__ import annotations
@@ -32,7 +48,8 @@ from torch import nn
 
 from wmfml_tpu_torch.models.base import ModelOutput
 from wmfml_tpu_torch.nn.attention import MultiheadFavorCrossAttention
-from wmfml_tpu_torch.nn.encoders import LiteratureEncoder
+from wmfml_tpu_torch.nn.encoders import (LiteratureEncoder, ResNetTrunk,
+                                         trunk_feature_dim)
 from wmfml_tpu_torch.nn.init import init_parameters
 from wmfml_tpu_torch.nn.mlp import EncoderFC, Linear, mlp
 from wmfml_tpu_torch.ops.setops import baco, masked_max, masked_mean
@@ -46,6 +63,14 @@ def _gate_zero_ctx(z: torch.Tensor, ctx_mask: Optional[torch.Tensor]):
         return z
     has_ctx = ctx_mask.any(1)[:, None, None]
     return torch.where(has_ctx, z, torch.zeros_like(z))
+
+
+def _register_attention(model: nn.Module, attn: nn.Module):
+    """The reference keeps the attention block's layers at the model's top
+    level: register them there and keep the block unregistered."""
+    for name, child in attn.named_children():
+        model.add_module(name, child)
+    object.__setattr__(model, "cross_attn", attn)
 
 
 class SmallCNP(nn.Module):
@@ -100,3 +125,79 @@ class SmallCNP(nn.Module):
         z = _gate_zero_ctx(z, ctx_mask)
         mu = self.decoder0(torch.cat([x_qry, z], -1))
         return ModelOutput(mu=mu, extras={"qry_feat": x_qry, "z": z})
+
+
+class NPDecoder(ResNetTrunk):
+    """The query trunk and ``fc_mu`` (``NPDecoder``): [T, Q, H, W, C] query
+    images and the latent [T, Q, h] -> mu [T, Q, y_dim]."""
+
+    def __init__(self, img_agg: str, in_ch: int, in_dim: int, y_dim: int):
+        super().__init__(img_agg, in_ch)
+        self.fc_mu = mlp(in_dim, (256, 256), y_dim)
+
+    def forward(self, qry_x, sample):
+        t, q = qry_x.shape[:2]
+        feats = super().forward(qry_x.flatten(0, 1)).reshape(t, q, -1)
+        return self.fc_mu(torch.cat([feats, sample], -1))
+
+
+class LargeCNP(nn.Module):
+    def __init__(self, img_agg: str = "max", agg_mode: str = "max",
+                 y_dim: int = 2, label_dim: int = 2, h_dim: int = 256,
+                 label_embed_dim: Optional[int] = None,
+                 img_size: Sequence[int] = (128, 128, 1),
+                 bbb_trunk: bool = False, fcl: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if agg_mode not in AGG_MODES:
+            raise TypeError(f"agg_mode is not applicable, choose from {list(AGG_MODES)}")
+        if bbb_trunk or fcl:
+            raise NotImplementedError(
+                "LargeCNP's BBB trunk and FCL views are not ported yet "
+                "(ROADMAP.md A13)")
+        self.agg_mode = agg_mode
+        h, (hw, _, c) = h_dim, img_size
+        self.img_hw = hw
+        trunk = trunk_feature_dim(img_agg, hw)
+        self.img_encoder = ResNetTrunk(img_agg, c)
+        self.transform_y = (Linear(label_dim, label_embed_dim)
+                            if label_embed_dim else None)
+        self.task_encoder = mlp(trunk + (label_embed_dim or label_dim),
+                                (h, h), h, "relu")
+        self.mu = Linear(h, h)
+        if agg_mode == "baco":
+            self.latent_mu = Linear(h, h)
+            self.latent_var = Linear(h, h)
+        self.cross_attn = None
+        if agg_mode == "attention":
+            _register_attention(self, MultiheadFavorCrossAttention(
+                h, h, n_heads=8, generator=generator, kq_dim=trunk))
+        self.decoder = NPDecoder(img_agg, c, trunk + h, y_dim)
+        init_parameters(self, generator)
+
+    def forward(self, ctx_x, ctx_y, qry_x, ctx_mask=None) -> ModelOutput:
+        t, s = ctx_x.shape[:2]
+        q = qry_x.shape[1]
+        if self.agg_mode == "attention":     # one trunk batch, ctx + qry
+            both = torch.cat([ctx_x, qry_x], 1)
+            feats = self.img_encoder(both.flatten(0, 1)).reshape(t, s + q, -1)
+            x_ctx, x_qry = feats[:, :s], feats[:, s:]
+        else:
+            x_ctx = self.img_encoder(ctx_x.flatten(0, 1)).reshape(t, s, -1)
+        y_in = ctx_y if self.transform_y is None else self.transform_y(ctx_y)
+        reps = self.task_encoder(torch.cat([x_ctx, y_in], -1))
+        if self.agg_mode == "attention":
+            sample = self.mu(self.cross_attn(x_ctx, reps, x_qry,
+                                             mask=ctx_mask))
+        else:
+            if self.agg_mode == "mean":
+                r = masked_mean(reps, ctx_mask)
+            elif self.agg_mode == "max":
+                r = masked_max(reps, ctx_mask)
+            else:
+                var = 1e-5 + F.softplus(self.latent_var(reps))
+                r, _ = baco(self.latent_mu(reps), var, ctx_mask)
+            sample = self.mu(r)[:, None, :].expand(t, q, -1)
+        sample = _gate_zero_ctx(sample, ctx_mask)
+        mu = self.decoder(qry_x, sample)
+        return ModelOutput(mu=mu, extras={"sample_features": sample})

@@ -1,8 +1,9 @@
 """Model registry: reference method names -> port modules.
 
-The four literature-encoder methods of ``wmfml_tpu/models/registry.py:60-81``
-and MAMLShapeNet1D / VanillaMAML (``:182-192``) are ported; every other
-method raises and names the ROADMAP item that ports it.
+The four literature-encoder methods of ``wmfml_tpu/models/registry.py:60-81``,
+CNPDistractor / ANPDistractor (``:86-111``) and MAMLShapeNet1D /
+VanillaMAML (``:182-192``) are ported; every other method raises and names
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -13,14 +14,13 @@ import torch
 
 from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.models.maml import MAMLRegressor
-from wmfml_tpu_torch.models.neural_process import SmallCNP
+from wmfml_tpu_torch.models.neural_process import LargeCNP, SmallCNP
 from wmfml_tpu_torch.ops.cast import set_compute_dtype
 
 _REGISTRY: Dict[str, Callable] = {}
 
 NOT_PORTED = {
-    "CondNeuralProcess": "A12", "ANP": "A12", "CNPDistractor": "A12",
-    "ANPDistractor": "A12", "CNPMR": "A13", "CNPMRShapeNet1D": "A13",
+    "CondNeuralProcess": "A12c", "ANP": "A12c", "CNPMR": "A13", "CNPMRShapeNet1D": "A13",
     "ANPMR": "A13", "ANPMRShapeNet1D": "A13", "ANPMRShapeNet3D": "A13",
     "FCLCNPShapeNet1D": "A13", "FCLCNPDistractor": "A13", "FCLANP": "A13",
     "MAMLMR": "A13", "MAMLMRShapeNet1D": "A13", "MMAMLShapeNet1D": "A16",
@@ -91,6 +91,23 @@ def _(config, generator):
 def _(config, generator):
     _attention_only(config)
     return _small(config, "attention", False, generator)
+
+
+def _large(config, agg_mode, generator):
+    return LargeCNP(
+        img_agg=config.img_agg, agg_mode=agg_mode, y_dim=config.output_dim,
+        label_dim=config.input_dim, label_embed_dim=config.dim_w,
+        img_size=config.img_size, generator=generator)
+
+
+@register("CNPDistractor")
+def _(config, generator):
+    return _large(config, config.agg_mode, generator)
+
+
+@register("ANPDistractor")
+def _(config, generator):
+    return _large(config, "attention", generator)
 
 
 def _maml(config, tanh_out, generator):

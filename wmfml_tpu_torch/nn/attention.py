@@ -82,15 +82,20 @@ def _stacked(heads: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
 
 class MultiheadFavorCrossAttention(nn.Module):
     """k: context image features, v: context task features, q: query image
-    features, [T, N, *]; mask [T, Nk] bool. Returns [T, Nq, h_dim]."""
+    features, [T, N, *]; mask [T, Nk] bool. Returns [T, Nq, h_dim].
+    ``kq_dim`` is the width of k and q (default ``h_dim``): the LargeCNP
+    family feeds them the ResNet trunk's features (256 at ``img_agg:
+    max``, 64 h w at ``reshape``)."""
 
     def __init__(self, h_dim: int, v_dim: int, n_heads: int = 8,
                  nb_features: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 kq_dim: Optional[int] = None):
         super().__init__()
-        self._W_k = nn.ModuleList([AttnLinear(h_dim, h_dim) for _ in range(n_heads)])
+        kq_dim = kq_dim or h_dim
+        self._W_k = nn.ModuleList([AttnLinear(kq_dim, h_dim) for _ in range(n_heads)])
         self._W_v = nn.ModuleList([AttnLinear(v_dim, h_dim) for _ in range(n_heads)])
-        self._W_q = nn.ModuleList([AttnLinear(h_dim, h_dim) for _ in range(n_heads)])
+        self._W_q = nn.ModuleList([AttnLinear(kq_dim, h_dim) for _ in range(n_heads)])
         self._W = AttnLinear(n_heads * h_dim, h_dim)
         self.attn = FastAttention(h_dim, nb_features, generator)
 

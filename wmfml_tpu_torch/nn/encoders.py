@@ -1,4 +1,5 @@
-"""The literature image encoder (ShapeNet1D / Pascal1D families).
+"""The image encoders: the literature encoder (ShapeNet1D / Pascal1D
+families) and the ResNet trunk (the LargeCNP family: Distractor).
 
 conv3x3 s2 (C->32) / ReLU / conv3x3 s2 (32->48) / ReLU / maxpool2 /
 conv3x3 s2 (48->64) / ReLU / flatten / linear(->dim_w), as
@@ -18,6 +19,18 @@ JAX package's ``vmap`` over tasks computes it. The stem runs through K1
 with per-task weights, conv2 is a grouped convolution (``groups=T``), the fc
 a batched matrix product, all in the dtype of the images and parameters it
 is given.
+
+``ResNetTrunk`` is ``wmfml_tpu/nn/encoders.py:ResNetTrunk`` with its stock
+``conv`` stem (the phase-layout ``s2d`` stem is ROADMAP.md B8b): conv5x5 s2
+(C -> 64) / ReLU, then four ``BasicBlockNoBN`` stages of 64 channels at
+stride 2, then ``img_agg``: mean -> the global average (64 features),
+max / baco -> ``adaptive_max_pool`` to 2 x 2 (256), reshape -> the whole map
+(64 h w). Its keys are the reference ImageEncoder's (``conv1``, then
+``resnet.layer{i}.0.{conv1,conv2,downsample.0}``); its maps are flattened
+CHW, as the reference flattens them (the JAX package flattens HWC:
+``ckpt/jax_params.py`` permutes every consumer). These are plain dense
+convolutions, which the JAX package leaves to XLA outside any Pallas
+kernel; here cuDNN runs them, in float32.
 """
 
 from __future__ import annotations
@@ -31,6 +44,8 @@ from torch import nn
 from wmfml_tpu_torch.kernels.stem import literature_stem
 from wmfml_tpu_torch.nn.mlp import Linear
 from wmfml_tpu_torch.ops.cast import bmm_bias, conv2d
+
+IMG_AGGS = ("mean", "max", "baco", "reshape")
 
 
 class LiteratureEncoder(nn.Sequential):
@@ -97,3 +112,85 @@ class PerTaskLiteratureEncoder(nn.Module):
                           padding=1, groups=t))               # [N, T*64, h/2, w/2]
         h = h.reshape(n, t, -1).transpose(0, 1)               # CHW flatten
         return bmm_bias(h, params["linear.weight"], params["linear.bias"])
+
+
+def adaptive_max_pool(x: torch.Tensor, out_hw: int = 2) -> torch.Tensor:
+    """AdaptiveMaxPool2d((2, 2)) of [B, C, H, W] maps with even H and W
+    (``wmfml_tpu/nn/encoders.py:adaptive_max_pool``)."""
+    b, c, h, w = x.shape
+    if h % out_hw or w % out_hw:
+        raise ValueError(f"adaptive_max_pool needs H, W % {out_hw} == 0; "
+                         f"got {h}x{w}")
+    return x.reshape(b, c, out_hw, h // out_hw, out_hw, w // out_hw).amax(
+        (3, 5))
+
+
+def _kaiming_conv(c_in: int, c_out: int, k: int, stride: int,
+                  padding: int = 0) -> nn.Conv2d:
+    """A bias-free conv that ``init_parameters`` draws from
+    N(0, sqrt(2 / fan_out)), the reference ResNet's kaiming_normal."""
+    conv = nn.Conv2d(c_in, c_out, k, stride, padding, bias=False)
+    conv.kaiming_fan_out = True
+    return conv
+
+
+class BasicBlockNoBN(nn.Module):
+    """ResNet BasicBlock without batch norm (``BasicBlockNoBN``):
+    relu(conv2(relu(conv1(x))) + downsample(x)), conv1 3x3 at ``stride``,
+    the downsample a 1x1 conv at ``stride`` (``downsample.0``)."""
+
+    def __init__(self, planes: int = 64, stride: int = 2):
+        super().__init__()
+        self.conv1 = _kaiming_conv(planes, planes, 3, stride, 1)
+        self.conv2 = _kaiming_conv(planes, planes, 3, 1, 1)
+        self.downsample = nn.Sequential(_kaiming_conv(planes, planes, 1,
+                                                      stride))
+
+    def forward(self, x):
+        out = F.relu(self.conv1(x))
+        return F.relu(self.conv2(out) + self.downsample(x))
+
+
+class ResNetTrunk(nn.Module):
+    """[B, H, W, C] images -> [B, trunk_feature_dim] features."""
+
+    def __init__(self, img_agg: str = "max", in_ch: int = 1):
+        super().__init__()
+        if img_agg not in IMG_AGGS:
+            raise ValueError(f"img_agg {img_agg!r} not in {IMG_AGGS}")
+        self.img_agg = img_agg
+        self.conv1 = nn.Conv2d(in_ch, 64, 5, 2, 2)
+        self.resnet = nn.Module()
+        for i in range(1, 5):
+            self.resnet.add_module(f"layer{i}",
+                                   nn.Sequential(BasicBlockNoBN(64, 2)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.conv1(x.permute(0, 3, 1, 2)))
+        for i in range(1, 5):
+            x = getattr(self.resnet, f"layer{i}")(x)
+        if self.img_agg == "mean":
+            return x.mean((2, 3))
+        if self.img_agg in ("max", "baco"):
+            x = adaptive_max_pool(x, 2)
+        return x.flatten(1)
+
+
+def trunk_feature_dim(img_agg: str, img_hw: int) -> int:
+    """Features of ``ResNetTrunk`` for a square input of side ``img_hw``."""
+    if img_agg == "mean":
+        return 64
+    if img_agg in ("max", "baco"):
+        return 64 * 4
+    if img_agg == "reshape":
+        return 64 * (img_hw // 32) ** 2
+    raise ValueError(f"img_agg {img_agg!r} not in {IMG_AGGS}")
+
+
+def trunk_chw(img_agg: str, img_hw: int):
+    """(C, h, w) of the map the trunk flattens, or None where ``mean``
+    leaves no spatial structure."""
+    if img_agg == "mean":
+        return None
+    hw = 2 if img_agg in ("max", "baco") else img_hw // 32
+    return (64, hw, hw)

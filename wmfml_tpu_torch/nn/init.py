@@ -5,7 +5,10 @@ The same distributions as the reference torch models and the JAX package
 
   * ``nn.Linear`` / ``nn.Conv2d``: W, b ~ U(+-1/sqrt(fan_in)) (torch default);
   * attention projections (``AttnLinear``): W ~ N(0, fan_in^-0.5), default
-    bias.
+    bias;
+  * the ResNet trunk's block convolutions (``kaiming_fan_out`` set):
+    W ~ N(0, sqrt(2 / fan_out)), the reference ResNet's kaiming_normal
+    (the JAX package truncates it at two standard deviations).
 
 Modules are built on the CPU, initialised here from a seeded CPU generator
 and then moved, so one seed gives the same weights on every device.
@@ -37,7 +40,11 @@ class AttnLinear(nn.Module):
 def init_parameters(module: nn.Module, generator: torch.Generator):
     """Re-draw every Linear/Conv2d (and AttnLinear) parameter of ``module``."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if getattr(m, "kaiming_fan_out", False):       # bias-free
+            fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
+            m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
+                             generator=generator)
+        elif isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
