@@ -11,8 +11,11 @@
                                      # moved by one ulp (grad_spread)
 
 Phases, each fatal on failure (nothing is caught and reported as ok):
-  1. the card's name and power limit (nvidia-smi); TF32 off for cuDNN and
-     matmul, so every float32 comparison below is a float32 one;
+  1. the card's name and power limit (nvidia-smi); the port's numeric
+     settings (``wmfml_tpu_torch/cli/common.py:set_numerics``, which every
+     entry point also calls: TF32 off for cuDNN and matmul, cuDNN's
+     determinism as the port sets it), so every float32 comparison below is
+     a float32 one and every check runs what the CLIs run;
   2. build of every kernel from ``wmfml_tpu_torch/csrc`` (one nvcc per
      source, all started together);
   3. each kernel at its path's shapes against its plain PyTorch twin on the
@@ -91,7 +94,7 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
  11. ms/step of each path's graph replays in float32 and in bfloat16, timed
      in turns (float32, bfloat16, bfloat16, float32) on the trained
      trainers;
- 12. graph against loop: for each of the four training configurations, two
+ 12. graph against loop: for each of the training configurations, two
      trainers from one seed under deterministic algorithms, one calling
      the fused step three times (warm-up, capture and replay, replay), the
      other issuing the same steps from the host: every call's metrics, the
@@ -100,7 +103,10 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      replays against the loop, timed in turns (graph, loop, loop, graph),
      with the graph's nodes, its capture's and instantiation's host seconds
      and its memory pool's bytes; with ``--profile`` the card's busy share
-     of a call of each;
+     of a call of each. Then cuDNN's determinism (ROADMAP.md C2): on ANP
+     f32, MAML f32, D1 and S1, two fresh trainers each, one capturing its
+     graph with ``torch.backends.cudnn.deterministic`` off, one with it on,
+     their replays timed in turns (off, on, on, off);
  13. the Pascal1D and fixed-order paths (K6's programs 1-3), each through
      ``train_phase`` as phase 4 (launches on the card as the code says, all
      of K6's of the path's program, graph nodes, one replay's trace) and
@@ -134,6 +140,24 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      wide at Nq 36, Nk 25), both loss files, one point again on the CPU;
      graph against loop bit for bit on D1 (phase 12's check) and D1's and
      D2's graph and loop ms/step in turns;
+ 16. the ShapeNet3D paths (LargeCNP on RGB, 64 x 64, ``img_agg: reshape``:
+     the trunk's 64 x 2 x 2 = 256 features; quaternion labels and loss;
+     backgrounds composited on the card per batch; K6's programs 6 and 7;
+     K2's wide form), each through ``train_phase`` (launches on the card as
+     the code says, every K6 launch of the path's program, every K2 launch
+     a wide one, graph nodes, one replay's trace) and its validation loss
+     on one full T = 20 episode, card against the CPU: S1
+     ``cfg/train/ANP_DA+TA_ShapeNet3D.yaml`` as shipped (ANP: 15 context
+     rows, shot ~ U[1, 15], 15 queries, d = e = 256, m = 1419), 32 steps, 8
+     a call, on the synthetic split at the generator's default (240 items x
+     30 views, 472 MB on the card, and its 200 backgrounds); S2
+     ``cfg/train/CNP_ShapeNet3D.yaml`` as shipped (CondNeuralProcess, baco,
+     no K2), 16 steps; S3 S1 with ``aug_random_order=false`` (program 7),
+     16 steps; S4 ``evaluation_cli`` with ``cfg/evaluation/ANP_ShapeNet3D.yaml``
+     (25 points x 2 episodes x 2 splits, all 30 views as queries: K2 wide
+     at Nq 30, Nk 25) over S1's checkpoint, both loss files, one point on
+     the CPU; graph against loop bit for bit on S1 (phase 12's check) and
+     S1's and S2's graph and loop ms/step in turns;
  15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Phase 3 also holds the Distractor paths' kernels: K2's wide form at D1's
@@ -142,6 +166,16 @@ D4's (Nq 36, Nk 25) against ``favor_plain`` (``TOL["favor_attention_wide"]``),
 and K6's programs 4 (both orders) and 5 at D1's two DA calls (300 and 360
 images): parameters bit for bit, masks on 1 - x / 255 bit for bit, values
 within ``TOL["warp_chain"]`` of the card twin and the CPU twin; each timed.
+
+Phase 3 also holds the ShapeNet3D paths' kernels: K2's wide form at S1's
+shape (q, k, v [20, 8, 15, 256], shots 1..15) and S4's (Nq 30, Nk 25), and
+K6's programs 6 (ten of its 720 orders: the identity, the reverse and 8
+drawn) and 7 at S1's two DA calls (300 and 300 images, the RGB channels of
+a float32 RGBA batch read through their strides): parameters bit for bit,
+masks bit for bit with every other op off, values within
+``TOL["pixel_ops"]`` of the card twin (and of the CPU twin in two orders);
+each timed, with ``F.grid_sample`` of one warp stage at [300, 3, 64, 64]
+as the library yardstick.
 
 Phase 3 also holds K6's programs 1-3 at full width (150 uint8 images, every
 gate on) against their twins on the card: Pascal1D's chain in 12 of its 120
@@ -237,6 +271,16 @@ DISTRACTOR_EVAL_YAML = os.path.join(HERE, "cfg", "evaluation",
                                     "CNP_max_Distractor.yaml")
 DISTRACTOR_EVAL_OVERRIDES = ["synthetic_data=true", "device=cuda",
                              "val_iters=2"]
+# the ShapeNet3D paths (phase 16), as shipped but for their depth: S1 ANP
+# (32 steps, 8 a call), S2 CondNeuralProcess (16 steps), S3 S1 in the fixed
+# order (16 steps); S4 the evaluation YAML over S1's checkpoint
+S3D_YAML = os.path.join(HERE, "cfg", "train", "ANP_DA+TA_ShapeNet3D.yaml")
+S3D_CNP_YAML = os.path.join(HERE, "cfg", "train", "CNP_ShapeNet3D.yaml")
+S3D_OVERRIDES = DISTRACTOR_OVERRIDES
+S3D_SHORT_OVERRIDES = DISTRACTOR_SHORT_OVERRIDES
+S3D_FIXED_OVERRIDES = DISTRACTOR_FIXED_OVERRIDES
+S3D_EVAL_YAML = os.path.join(HERE, "cfg", "evaluation", "ANP_ShapeNet3D.yaml")
+S3D_EVAL_OVERRIDES = DISTRACTOR_EVAL_OVERRIDES
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -993,12 +1037,18 @@ def library_warp_ms(xf, row):
         xf, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
 
 
-# K6's programs 1-3 -> the training phase whose launches their rows report
+# K6's programs 1-3, 6 and 7 -> the training phase whose launches their
+# rows report
 PROGRAM_PATHS = {"pascal_1d": "Pascal ANP", "pascal_1d_fixed":
-                 "Pascal ANP fixed", "shapenet_1d_fixed": "ANP fixed"}
-# float operations a pixel of GammaContrast (the clamp's two, pow as a
-# logarithm, a multiply and an exponential) and of the blur's division
+                 "Pascal ANP fixed", "shapenet_1d_fixed": "ANP fixed",
+                 "shapenet_3d": "ShapeNet3D ANP",
+                 "shapenet_3d_fixed": "ShapeNet3D ANP fixed"}
+# float operations an element of GammaContrast (the clamp's two, pow as a
+# logarithm, a multiply and an exponential), and a pixel of
+# AddToBrightness (V's two maxima, the add, the clamp's two, the
+# denominator's maximum, the division, three multiplies)
 GAMMA_OPS = 5
+BRIGHT_OPS = 10
 
 
 def program_draw(program, gen, b):
@@ -1019,12 +1069,14 @@ def program_draw(program, gen, b):
     return u, keys
 
 
-def pixel_work(program, p, h, w):
+def pixel_work(program, p, h, w, c=1):
     """(float operations, integer operations) of K6's ``program`` on this
-    draw: a multiply-add per nonzero (row tap, column tap) of each warp op
-    applied, and its fill (4 a pixel); GAMMA_OPS a pixel for gamma; k^2 - 1
-    adds and a division a pixel for the blur; the dropout op's hashes as
-    ``da_work``'s (the fixed grid's cells as CoarseDropout's)."""
+    draw of ``c``-channel images: a multiply-add per nonzero (row tap,
+    column tap) and channel of each warp op applied, and its fill (4 a
+    pixel); GAMMA_OPS an element for gamma; k^2 - 1 adds and a division an
+    element for the blur; BRIGHT_OPS a pixel for brightness; the dropout
+    op's hashes as ``da_work``'s (the fixed grid's cells as CoarseDropout's),
+    per channel where the draw says so."""
     import torch
 
     from wmfml_tpu_torch.aug import image_aug
@@ -1044,13 +1096,16 @@ def pixel_work(program, p, h, w):
                                           st["nearest"], st["gate"])
         taps = ((wy != 0).sum(-1).double()[:, :, None]
                 * (wx != 0).sum(-1).double()[:, None, :])
-        flops += float((2 * taps.sum((1, 2)) + 4 * h * w)[gate].sum())
+        flops += float((2 * c * taps.sum((1, 2)) + 4 * h * w)[gate].sum())
     if p.pixel is not None:
-        g_on, _, b_on, k = p.pixel.unbind(-1)
-        flops += float((g_on > 0.5).sum()) * GAMMA_OPS * h * w
+        g_on, _, b_on, k = p.pixel[:, :4].unbind(-1)
+        flops += float((g_on > 0.5).sum()) * GAMMA_OPS * h * w * c
         kk = k[(b_on > 0.5) & (k > 1.5)].double()
-        flops += float((kk * kk).sum()) * h * w
+        flops += float((kk * kk).sum()) * h * w * c
+        if p.pixel.shape[1] == 6:
+            flops += float((p.pixel[:, 4] > 0.5).sum()) * BRIGHT_OPS * h * w
     gate, pick = p.drop[:, 0] > 0.5, p.drop[:, 1] > 0.5
+    per_channel = torch.where(p.drop[:, 4] > 0.5, float(c), 1.0).double()
     if fixed:
         gh, gw = image_aug.fixed_grid(h, w)
         cells = torch.full((b,), float(gh * gw), dtype=torch.float64,
@@ -1058,9 +1113,9 @@ def pixel_work(program, p, h, w):
     else:
         cells = (torch.clamp_min(torch.round(h * p.drop[:, 3]), 1.0)
                  * torch.clamp_min(torch.round(w * p.drop[:, 3]), 1.0)
-                 ).double()
-    iops = float((gate & pick).sum()) * HASH_OPS * h * w + float(
-        (cells[gate & ~pick] * HASH_OPS + h * w).sum())
+                 ).double() * per_channel
+    iops = float(per_channel[gate & pick].sum()) * HASH_OPS * h * w + float(
+        (cells[gate & ~pick] * HASH_OPS + h * w * c).sum())
     return flops, iops
 
 
@@ -1217,6 +1272,151 @@ def check_image_da_programs(gen, programs=("pascal_1d", "shapenet_1d_fixed",
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             bound_f32_ms=max(t_ops, t_bytes) * 1e3, flops=flops,
             int_ops=iops, dropped_share=dropped))
+    return rows
+
+
+def rgba_batch(gen, shape):
+    """Float RGBA images [*shape, 64, 64, 4] as the sampler composites them:
+    alpha 1 on about a third of the pixels, some black foreground pixels
+    (brightness's gray branch)."""
+    import torch
+
+    x = torch.rand(shape + (64, 64, 4), generator=gen, device="cuda")
+    x[..., 3] = torch.where(torch.rand(shape + (64, 64), generator=gen,
+                                       device="cuda") < 0.35, 1.0,
+                            x[..., 3] * 0.9)
+    x[..., :3] *= torch.rand(shape + (64, 64, 1), generator=gen,
+                             device="cuda") > 0.05
+    return x
+
+
+def check_image_da_rgb(gen):
+    """K6's ShapeNet3D programs at S1's (and S3's) two DA calls: the RGB
+    channels of the context and query slices of a [20, 30, 64, 64, 4]
+    float32 RGBA batch (300 images each), read through their strides,
+    every gate on. Per program and call: its parameters bit for bit against
+    ``params_for`` on the card; with every other op off and the dropout op
+    on (Dropout, then CoarseDropout, per channel where drawn), its masks bit
+    for bit against the twin on the card and on the CPU, in two orders; its
+    output against the card twin in ten orders (program 6: the identity,
+    the reverse and 8 drawn of the 720) and the CPU twin in two
+    (``TOL["pixel_ops"]``); timed in the identity or the fixed order, with
+    ``library_warp_ms`` of CropAndPad's (or geometric's) warp on [300, 3,
+    64, 64] as the library yardstick."""
+    import torch
+
+    from wmfml_tpu_torch.aug import image_aug
+    from wmfml_tpu_torch.kernels import image_da as kda
+
+    t_, s_, h, w = 20, 15, 64, 64
+    batch = rgba_batch(gen, (t_, 2 * s_))
+    f32 = torch.float32
+    drawn = torch.randperm(718, generator=torch.Generator().manual_seed(6))
+    rows = []
+    for program in ("shapenet_3d", "shapenet_3d_fixed"):
+        fixed = program == "shapenet_3d_fixed"
+        orders = ([None] if fixed else
+                  [0, 719] + [int(o) + 1 for o in drawn[:8]])
+        on_card = {o: None if o is None else torch.tensor([o], device="cuda")
+                   for o in orders}
+        for call, x in (("", batch[:, :s_, ..., :3]),
+                        ("_qry", batch[:, s_:, ..., :3])):
+            b, xc = t_ * s_, x.cpu()
+            u, keys = program_draw(program, gen, b)
+            u[:, 23] = 0.25                        # brightness on
+
+            def launch(uu, o, **kw):
+                return kda.image_da_launch(x, uu, keys, on_card[o],
+                                           program=program, **kw)
+
+            def twin(uu, o, cpu=False):
+                if cpu:
+                    return kda.image_da_plain(
+                        xc, uu.cpu(), keys.cpu(),
+                        None if o is None else on_card[o].cpu(), f32, program)
+                return kda.image_da_plain(x, uu, keys, on_card[o], f32,
+                                          program)
+
+            got_p = torch.empty((b, kda.nparams(program)), device="cuda")
+            launch(u, orders[0], params_out=got_p)
+            p = image_aug.params_for(program, u, keys, on_card[orders[0]], h,
+                                     w)
+            want_p = image_aug.params_row(p)
+            torch.cuda.synchronize()
+            if not torch.equal(got_p.view(torch.int32),
+                               want_p.view(torch.int32)):
+                raise AssertionError(f"image_da {program}: its parameters "
+                                     f"differ from the twin's at "
+                                     f"{int((got_p != want_p).sum())} entries")
+            dropped = {}
+            for pick, kind in ((0.25, "Dropout"), (0.75, "CoarseDropout")):
+                um = u.clone()
+                um[:, [13, 14, 19, 21, 23]] = 0.75    # the other ops off
+                um[:, 17] = pick
+                for o in orders[:2]:
+                    got = launch(um, o).cpu()
+                    for want in (twin(um, o).cpu(), twin(um, o, cpu=True)):
+                        if not torch.equal(got.view(torch.int32),
+                                           want.view(torch.int32)):
+                            raise AssertionError(
+                                f"image_da {program} ({kind}, order {o}): the "
+                                f"mask differs from the twin's at "
+                                f"{int((got != want).sum())} elements")
+                dropped[kind] = float((got == 0).double().mean()
+                                      - (xc == 0).double().mean())
+            worst = {"card twin": 0.0, "CPU twin": 0.0}
+            for i, o in enumerate(orders):
+                got = launch(u, o)
+                worst["card twin"] = max(worst["card twin"], check_close(
+                    "pixel_ops", got, twin(u, o))[0])
+                if i < 2:
+                    worst["CPU twin"] = max(worst["CPU twin"], check_close(
+                        "pixel_ops", got.cpu(), twin(u, o, cpu=True))[0])
+                if torch.equal(got.cpu(), xc):
+                    raise AssertionError(f"image_da {program}: order {o} "
+                                         f"left the images unchanged")
+            log(f"kernel: image_da {program}{call} ({b} images of 64 x 64 x "
+                f"3 from RGBA): parameters bit for bit; masks bit for bit in "
+                f"orders {orders[:2]} (share of elements dropped beyond the "
+                f"zeros of x: {dropped}); {len(orders)} order(s) {orders}: "
+                f"max abs err {worst} (atol, rtol {TOL['pixel_ops']})")
+            o = orders[0]
+            err = (launch(u, o) - twin(u, o)).abs().max().item()
+            times = in_turns({"ms": lambda: launch(u, o),
+                              "plain_ms": lambda: twin(u, o)})
+            names = set()
+            times.update(device_profile(lambda: launch(u, o), names=names))
+            if len(names) != 1 or times["kernels_per_call"] != 1:
+                raise AssertionError(f"image_da {program} issued "
+                                     f"{times['kernels_per_call']} kernels "
+                                     f"per call: {sorted(names)}")
+            xf = x.permute(0, 1, 4, 2, 3).reshape(b, 3, h, w).contiguous()
+            library_ms = library_warp_ms(xf, p.warp[:, 0])
+            flops, iops = pixel_work(program, p, h, w, c=3)
+            # RGBA read once (16 B a pixel), RGB written once (12 B)
+            nbytes = 28 * b * h * w + 4 * (u.numel() + keys.numel()) + (
+                0 if fixed else 8)
+            t_ops = max(flops / PEAK_F32_FLOPS, iops / PEAK_INT32_OPS)
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            ids = _rows(f"image_da_{program}{call}", f32,
+                        PROGRAM_PATHS[program])
+            ids["kernel"] = "image_da"
+            rows.append(dict(
+                **ids, tol="pixel_ops", program=program,
+                shape=f"[20, 15 of 30, 64, 64, 3 of 4] float32 -> float32, "
+                      f"{'fixed order' if fixed else 'order 0'}, every gate "
+                      f"on",
+                source="wmfml_tpu_torch/csrc/image_da.cu",
+                replaces=("wmfml_tpu/aug/image_aug.py:578" if fixed else
+                          "wmfml_tpu/aug/image_aug.py:569"),
+                library="F.grid_sample, bilinear, zeros, one warp stage at "
+                        "[300, 3, 64, 64], cval 0",
+                max_abs_err=err, max_rel_err=None, max_abs_err_orders=worst,
+                **times, library_ms=library_ms,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_f32_ms=max(t_ops, t_bytes) * 1e3, flops=flops,
+                int_ops=iops, dropped_share=dropped))
     return rows
 
 
@@ -1417,15 +1617,18 @@ def check_image_da_distractor(gen):
     return rows
 
 
-def check_distractor_evaluation(cnp_trainer, anp_trainer):
-    """D4: ``evaluation_cli`` with ``cfg/evaluation/CNP_max_Distractor.yaml``
-    over D2's final checkpoint, then with ``method=ANPDistractor
-    agg_mode=attention`` over D1's (eval-mode data: validation from the
-    test categories, all 36 views as queries; max_ctx_num 25, so K2's wide
-    form at Nq 36, Nk 25 under no_grad): both loss files 25 x 3 and
-    finite, K2 launched once an episode on the ANP sweep and never on the
-    CNP one, and the last point's validation loss against the same
-    evaluation on the CPU. Returns the ANP sweep's K2 launches."""
+def check_large_evaluation(tag, yaml, overrides, runs):
+    """An evaluation sweep of a LargeCNP path: ``evaluation_cli`` with
+    ``yaml`` over each (trainer's final checkpoint, extra overrides) of
+    ``runs``. D4: ``cfg/evaluation/CNP_max_Distractor.yaml`` over D2's, then
+    with ``method=ANPDistractor agg_mode=attention`` over D1's (eval-mode
+    data: validation from the test categories, all 36 views as queries);
+    S4: ``cfg/evaluation/ANP_ShapeNet3D.yaml`` over S1's (all 30 views as
+    queries). max_ctx_num 25, so K2's wide form runs at Nq 36 or 30, Nk 25
+    under no_grad. Both loss files 25 x 3 and finite, K2 launched once an
+    episode on an ANP sweep and never on a CNP one, and the last point's
+    validation loss against the same evaluation on the CPU. Returns the
+    ANP sweep's K2 launches."""
     import copy
 
     import numpy as np
@@ -1438,12 +1641,9 @@ def check_distractor_evaluation(cnp_trainer, anp_trainer):
     from wmfml_tpu_torch.models.registry import build_model
 
     launches = 0
-    for trainer, extra in ((cnp_trainer, []),
-                           (anp_trainer, ["method=ANPDistractor",
-                                          "agg_mode=attention"])):
+    for trainer, extra in runs:
         ckpt = trainer.ckpt.path(f"model_end_{trainer.config.iterations}")
-        config = Config(DISTRACTOR_EVAL_YAML, DISTRACTOR_EVAL_OVERRIDES
-                        + extra + [f"checkpoint={ckpt}"])
+        config = Config(yaml, overrides + extra + [f"checkpoint={ckpt}"])
         favor_attention.launches = favor_attention.wide_launches = 0
         t0 = time.perf_counter()
         val, test = evaluation_cli.evaluate(config)
@@ -1454,11 +1654,11 @@ def check_distractor_evaluation(cnp_trainer, anp_trainer):
             if arr.shape != (n, 3) or not np.isfinite(arr).all() or list(
                     arr[:, 0]) != list(range(1, n + 1)):
                 raise AssertionError(f"{name}: {arr.shape}, {arr}")
-        attention = config.method == "ANPDistractor"
+        attention = config.agg_mode == "attention"
         want = 2 * n * config.val_iters if attention else 0
         if (favor_attention.launches, favor_attention.wide_launches) != (
                 want, want):
-            raise AssertionError(f"D4 {config.method}: K2 launches "
+            raise AssertionError(f"{tag} {config.method}: K2 launches "
                                  f"{favor_attention.launches}, wide "
                                  f"{favor_attention.wide_launches}; the "
                                  f"sweep says {want}")
@@ -1470,16 +1670,17 @@ def check_distractor_evaluation(cnp_trainer, anp_trainer):
                                   build_data(cpu_cfg, mode="eval"))
         want_loss, _ = cpu_eval._validate_iter("validation", n)
         err = abs(val[n - 1] - want_loss)
-        log(f"eval: D4 {config.method} over {ckpt}, ctx 1..{n}, "
+        log(f"eval: {tag} {config.method} over {ckpt}, ctx 1..{n}, "
             f"{config.val_iters} episodes a point of {config.tasks_per_batch} "
-            f"tasks x 36 queries, validation and test, in {wall} s; K2 wide "
+            f"tasks x {cpu_eval.data.query_num} queries, validation and "
+            f"test, in {wall} s; K2 wide "
             f"launches {favor_attention.wide_launches}; validation loss "
-            f"(pixels) {val}; test loss {test}; at ctx {n}: card "
+            f"{val}; test loss {test}; at ctx {n}: card "
             f"{val[n - 1]}, CPU {want_loss}, abs err {err} (tolerance "
             f"{VAL_TOL} x |CPU| + {VAL_TOL})")
         if err > VAL_TOL * (abs(want_loss) + 1.0):
-            raise AssertionError(f"D4 {config.method}: card {val[n - 1]}, "
-                                 f"CPU {want_loss}")
+            raise AssertionError(f"{tag} {config.method}: card "
+                                 f"{val[n - 1]}, CPU {want_loss}")
     return launches
 
 
@@ -1517,7 +1718,7 @@ def launches_per_step(trainer):
         return ({"literature_stem": inner, "maml_features": inner,
                  "image_da": 2},
                 {"literature_stem": test, "maml_features": test})
-    if cfg.task == "distractor":      # LargeCNP: the trunk on cuDNN
+    if cfg.task in ("distractor", "shapenet_3d"):   # LargeCNP: cuDNN trunk
         attention = {"favor_attention": 1} if cfg.method.startswith(
             "ANP") else {}
         return {**attention, "image_da": 2}, attention
@@ -1626,10 +1827,10 @@ def train_phase(card, yaml, overrides, counters):
     if in_bf16 != (issued if bf16 else {k: 0 for k in issued}):
         raise AssertionError(f"{config.method} in {config.compute_dtype}: "
                              f"launches {issued}, in bfloat16 {in_bf16}")
-    if "favor_attention" in counters:     # K2's wide form: Distractor's
+    if "favor_attention" in counters:     # K2's wide form: LargeCNP's
         wide = counters["favor_attention"].wide_launches
-        want_wide = (issued["favor_attention"] if config.task == "distractor"
-                     else 0)
+        want_wide = (issued["favor_attention"]
+                     if config.task in ("distractor", "shapenet_3d") else 0)
         if wide != want_wide:
             raise AssertionError(f"{config.method}: {wide} of "
                                  f"{issued['favor_attention']} K2 launches "
@@ -2046,6 +2247,48 @@ def graph_loop_turns(trainers, calls, nodes, profile):
     return out
 
 
+def determinism_turns(paths, calls):
+    """ROADMAP.md C2: what ``torch.backends.cudnn.deterministic`` costs a
+    graph replay. For each path (yaml, overrides), two fresh trainers: one
+    runs its eager warm-up calls and captures its graph with the flag off,
+    the other with it on (the algorithms are chosen then, and the graph
+    keeps them); their replays are timed in turns off, on, on, off. The
+    port's setting is restored at the end."""
+    import torch
+
+    from wmfml_tpu_torch.cli import train_cli
+    from wmfml_tpu_torch.cli.common import set_numerics
+    from wmfml_tpu_torch.configs import Config
+
+    out = {}
+    try:
+        for tag, (yaml, overrides) in paths.items():
+            trainers = {}
+            for det in (False, True):
+                tr = train_cli.build_trainer(Config(yaml, overrides))
+                torch.backends.cudnn.deterministic = det
+                for _ in range(tr.train_step.warm_calls + 1):
+                    tr.train_step(tr.generator)
+                torch.cuda.synchronize()
+                trainers[det] = tr
+            runs = [call_ms(trainers[det], calls[tag])
+                    for det in (False, True, True, False)]
+            off, on = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+            out[tag] = dict(graph_ms=off, deterministic_ms=on,
+                            cost=on / off - 1.0, turns_ms=runs)
+            log(f"determinism {tag}: graph {off} ms/step with cuDNN's "
+                f"default algorithms, {on} ms/step with "
+                f"torch.backends.cudnn.deterministic (off, on, on, off: "
+                f"{runs}; {calls[tag]} calls of "
+                f"{trainers[False].train_step.k} steps each): "
+                f"{100 * (on / off - 1.0)}% a step")
+            del trainers, tr
+            torch.cuda.empty_cache()
+    finally:
+        set_numerics()
+    return out
+
+
 def replay_maml():
     """Phase 7's training replayed (untimed, from the same seed) under
     deterministic algorithms, which the caller has switched on.
@@ -2309,20 +2552,23 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from wmfml_tpu_torch.cli.common import set_numerics
     from wmfml_tpu_torch.configs import Config
     from wmfml_tpu_torch.kernels import build
     from wmfml_tpu_torch.kernels.favor import favor_attention
     from wmfml_tpu_torch.kernels.features import maml_features
-    from wmfml_tpu_torch.kernels.image_da import PROGRAMS, image_da
+    from wmfml_tpu_torch.kernels.image_da import PROGRAMS, RGB, image_da
     from wmfml_tpu_torch.kernels.stem import literature_stem
     from wmfml_tpu_torch.models.registry import build_model
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_numerics()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}, TF32 off for cuDNN and matmul")
+        f"{torch.cuda.get_device_name(0)}; the port's settings: cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN deterministic "
+        f"{torch.backends.cudnn.deterministic}")
 
     t0 = time.perf_counter()
     libs = build.load_all()
@@ -2337,7 +2583,10 @@ def main(argv):
         f"form {libs['favor'].wmfml_favor_wide_coresident()}, "
         f"image_da (128 x 128) " + ", ".join(
             f"{p} {libs['image_da'].wmfml_image_da_smem_bytes(i, 128, 128)} B"
-            for i, p in enumerate(PROGRAMS)))
+            for i, p in enumerate(PROGRAMS) if p not in RGB)
+        + "; image_da (64 x 64) " + ", ".join(
+            f"{p} {libs['image_da'].wmfml_image_da_smem_bytes(i, 64, 64)} B"
+            for i, p in enumerate(PROGRAMS) if p in RGB))
     for name, text in build.ptxas_log.items():
         for line in text.splitlines():
             if any(k in line for k in ("entry function", "registers",
@@ -2382,6 +2631,17 @@ def main(argv):
              check_favor_wide(proj, gen_d, 36, 25, "favor_attention_wide_eval",
                               "Distractor eval"),
              *check_image_da_distractor(gen_d)]
+    # the ShapeNet3D paths' kernels: K2's wide form at S1's shape (Nq 15, Nk
+    # 15) and S4's (Nq 30, Nk 25) with ANP's projection, K6's programs 6 and
+    # 7 at S1's two DA calls (300 images each)
+    proj = build_model(Config(S3D_YAML, S3D_OVERRIDES, make_dirs=False)
+                       ).attn.projection_matrix.cuda()
+    gen_s = torch.Generator(device="cuda").manual_seed(7)
+    rows += [check_favor_wide(proj, gen_s, 15, 15, "favor_attention_wide_s1",
+                              "ShapeNet3D ANP"),
+             check_favor_wide(proj, gen_s, 30, 25, "favor_attention_wide_s4",
+                              "ShapeNet3D eval"),
+             *check_image_da_rgb(gen_s)]
     floor = floor_ms()
     log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
         f"time, the least any launch takes on this card")
@@ -2480,7 +2740,25 @@ def main(argv):
     d3trainer, d3_launches, _ = train_phase(
         card, DISTRACTOR_YAML, DISTRACTOR_FIXED_OVERRIDES, d_anp_kernels)
     check_validation_loss(d3trainer)
-    d4_launches = check_distractor_evaluation(d2trainer, d1trainer)
+    d4_launches = check_large_evaluation(
+        "D4", DISTRACTOR_EVAL_YAML, DISTRACTOR_EVAL_OVERRIDES,
+        [(d2trainer, []),
+         (d1trainer, ["method=ANPDistractor", "agg_mode=attention"])])
+
+    # phase 16: the ShapeNet3D paths (LargeCNP on RGB, backgrounds
+    # composited per batch on the card, K2's wide form, K6's programs 6 and
+    # 7)
+    s1trainer, s1_launches, s1_nodes = train_phase(
+        card, S3D_YAML, S3D_OVERRIDES, d_anp_kernels)
+    check_validation_loss(s1trainer)
+    s2trainer, s2_launches, s2_nodes = train_phase(
+        card, S3D_CNP_YAML, S3D_SHORT_OVERRIDES, da_kernels)
+    check_validation_loss(s2trainer)
+    s3trainer, s3_launches, _ = train_phase(
+        card, S3D_YAML, S3D_FIXED_OVERRIDES, d_anp_kernels)
+    check_validation_loss(s3trainer)
+    s4_launches = check_large_evaluation(
+        "S4", S3D_EVAL_YAML, S3D_EVAL_OVERRIDES, [(s1trainer, [])])
 
     # graph replays against the same steps issued from the host
     for yaml, overrides in ((MAIN_YAML, TRAIN_OVERRIDES),
@@ -2490,7 +2768,8 @@ def main(argv):
                             (PASCAL_YAML, PASCAL_OVERRIDES),
                             (PERF_ANP_YAML, PERF_ANP_OVERRIDES),
                             (PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES),
-                            (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES)):
+                            (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES),
+                            (S3D_YAML, S3D_OVERRIDES)):
         graph_equals_loop(yaml, overrides)
     graph_loop_turns(
         {"ANPShapeNet1D": trainer, "ANPShapeNet1D bf16": btrainer,
@@ -2498,13 +2777,16 @@ def main(argv):
          "ANPVanillaPascal1D": ptrainer, "VanillaMAML Pascal1D": pmtrainer,
          "ANPShapeNet1D fixed bf16": ftrainer,
          "ANPShapeNet1D fixed bf16 T40": f40trainer,
-         "ANPDistractor": d1trainer, "CNPDistractor": d2trainer},
+         "ANPDistractor": d1trainer, "CNPDistractor": d2trainer,
+         "ANP ShapeNet3D": s1trainer,
+         "CondNeuralProcess ShapeNet3D": s2trainer},
         calls={"ANPShapeNet1D": 4, "ANPShapeNet1D bf16": 2,
                "MAMLShapeNet1D": 2, "MAMLShapeNet1D bf16": 2,
                "ANPVanillaPascal1D": 4, "VanillaMAML Pascal1D": 2,
                "ANPShapeNet1D fixed bf16": 2,
                "ANPShapeNet1D fixed bf16 T40": 1, "ANPDistractor": 2,
-               "CNPDistractor": 2},
+               "CNPDistractor": 2, "ANP ShapeNet3D": 2,
+               "CondNeuralProcess ShapeNet3D": 2},
         nodes={"ANPShapeNet1D": anp_nodes, "ANPShapeNet1D bf16": anp_bf16_nodes,
                "MAMLShapeNet1D": maml_nodes,
                "MAMLShapeNet1D bf16": maml_bf16_nodes,
@@ -2512,8 +2794,18 @@ def main(argv):
                "VanillaMAML Pascal1D": pascal_maml_nodes,
                "ANPShapeNet1D fixed bf16": anp_fixed_nodes,
                "ANPShapeNet1D fixed bf16 T40": anp_fixed40_nodes,
-               "ANPDistractor": d1_nodes, "CNPDistractor": d2_nodes},
+               "ANPDistractor": d1_nodes, "CNPDistractor": d2_nodes,
+               "ANP ShapeNet3D": s1_nodes,
+               "CondNeuralProcess ShapeNet3D": s2_nodes},
         profile="--profile" in argv)
+    # cuDNN's determinism: its cost a step on four paths (ROADMAP.md C2)
+    determinism_turns(
+        {"ANPShapeNet1D": (MAIN_YAML, TRAIN_OVERRIDES),
+         "MAMLShapeNet1D": (MAML_YAML, MAML_OVERRIDES),
+         "ANPDistractor": (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES),
+         "ANP ShapeNet3D": (S3D_YAML, S3D_OVERRIDES)},
+        calls={"ANPShapeNet1D": 4, "MAMLShapeNet1D": 2, "ANPDistractor": 2,
+               "ANP ShapeNet3D": 2})
 
     launches = {"ANP": anp_launches, "MAML": maml_launches,
                 "ANP bf16": anp_bf16, "MAML bf16": maml_bf16,
@@ -2522,7 +2814,10 @@ def main(argv):
                 "ANP fixed T40 bf16": anp_fixed40,
                 "Distractor ANP": d1_launches, "Distractor CNP": d2_launches,
                 "Distractor ANP fixed": d3_launches,
-                "Distractor eval": {"favor_attention": d4_launches}}
+                "Distractor eval": {"favor_attention": d4_launches},
+                "ShapeNet3D ANP": s1_launches, "ShapeNet3D CNP": s2_launches,
+                "ShapeNet3D ANP fixed": s3_launches,
+                "ShapeNet3D eval": {"favor_attention": s4_launches}}
     for r in rows:
         r["launches"] = launches[r["path"]][r["kernel"]]
         if r["launches"] <= 0:

@@ -25,9 +25,18 @@ about 2^-20 of its largest term, more than an ulp of the small result).
 K6 in bfloat16: parameters and masks bit for bit, values within 2 bfloat16
 ulps of each element, with no floor.
 
-K2's wide form (LargeCNP's heads, d = e = 256, m = 1419) at D1's and D4's
-shapes, and K6's Distractor programs 4 and 5 (the inverted image), against
-their twins at the same tolerances; graph = loop on a short D1 run.
+K2's wide form (LargeCNP's heads, d = e = 256, m = 1419) at D1's, D4's,
+S1's and S4's shapes, K6's Distractor programs 4 and 5 (the inverted image)
+and ShapeNet3D's programs 6 and 7 (float RGB: parameters and masks bit for
+bit, values within 1e-5 in ten of the 720 orders and the fixed one),
+against their twins at the same tolerances; graph = loop on short D1 and
+S1 runs.
+
+The numeric settings the entry points make (``cli/common.py:
+set_numerics``, which the ``dev`` fixture calls too, so that every test
+runs what the CLIs run): TF32 off after ``train_cli.build_trainer``, and
+what two same-seed trainers give with no deterministic switch of their
+own.
 
 The fused K-step training call (``train/steps.py:FusedSteps``): its CUDA
 graph replays against the same steps issued from the host, bit for bit
@@ -37,6 +46,7 @@ captured as one cooperative node and replayed; the capture's launch counts
 against the graph's kernel nodes (``debug_dump``'s DOT).
 """
 
+import math
 import os
 import re
 import types
@@ -49,9 +59,11 @@ from torch_port_adam import optax_adam
 from wmfml_tpu_torch.aug import image_aug
 from wmfml_tpu_torch.cli import train_cli
 from wmfml_tpu_torch.configs import Config
+from wmfml_tpu_torch.cli.common import set_numerics
 from wmfml_tpu_torch.data.synthetic import (generate_distractor,
                                             generate_pascal1d,
-                                            generate_shapenet1d)
+                                            generate_shapenet1d,
+                                            generate_shapenet3d)
 from wmfml_tpu_torch.kernels import favor, features, image_da, stem
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import KERNELS
@@ -63,8 +75,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_numerics()          # the entry points' settings: TF32 off
     return torch.device("cuda")
 
 
@@ -139,8 +150,11 @@ def test_favor_kernel_matches_plain(dev, t, h, nq, nk, d, m):
 # empty one
 @pytest.mark.parametrize("t,h,nq,nk,d,m", [
     (20, 8, 18, 15, 256, 1419), (20, 8, 36, 25, 256, 1419),
-    (2, 3, 5, 4, 68, 300), (3, 2, 40, 24, 128, 700)])
+    (2, 3, 5, 4, 68, 300), (3, 2, 40, 24, 128, 700),
+    (20, 8, 15, 15, 256, 1419), (20, 8, 30, 25, 256, 1419)])
 def test_favor_wide_kernel_matches_plain(dev, t, h, nq, nk, d, m):
+    """The last two are S1 (ANP ShapeNet3D training: Nq 15, Nk 15) and S4
+    (its evaluation: Nq 30, Nk 25, R = 55)."""
     q, k, v, proj, mask = _favor_inputs(dev, t, h, nq, nk, d, m, seed=nq)
     mask[1] = torch.arange(nk, device=dev) < 1
     assert favor.is_wide(d, m)
@@ -639,11 +653,11 @@ def test_augmenter_reads_nothing_back_to_the_host(dev):
 
 def test_image_da_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     u, keys, order = _draw(dev, 4)
-    with pytest.raises(ValueError, match="A12c"):
+    with pytest.raises(ValueError, match="image DA kernel takes"):
         image_da.image_da(_images(dev, (4, 32, 32, 3)), u, keys, order)
-    with pytest.raises(ValueError, match="A12c"):
+    with pytest.raises(ValueError, match="image DA kernel takes"):
         image_da.image_da(_images(dev, (4, 32, 30, 1)), u, keys, order)
-    with pytest.raises(ValueError, match="A12c"):
+    with pytest.raises(ValueError, match="image DA kernel takes"):
         image_da.image_da(_images(dev, (4, 16, 132, 1)), u, keys, order)
     with pytest.raises(TypeError):
         image_da.image_da(_images(dev, (4, 32, 32, 1)).float(), u, keys,
@@ -1014,9 +1028,145 @@ def test_new_augmenters_read_nothing_back_to_the_host(dev):
 
 def test_fixed_programs_refuse_a_grid_that_does_not_divide_the_image(dev):
     u, keys, _ = _program_draw(dev, "shapenet_1d_fixed", 2)
-    with pytest.raises(ValueError, match="A12c"):
+    with pytest.raises(ValueError, match="image DA kernel takes"):
         image_da.image_da(_images(dev, (2, 50, 48, 1)), u, keys, None,
                           program="shapenet_1d_fixed")
+
+
+# -- ShapeNet3D's programs 6 and 7: float RGB read from RGBA ----------------
+
+RGB_PROGRAMS = ("shapenet_3d", "shapenet_3d_fixed")
+
+
+def _rgba(dev, shape, seed=0):
+    """Float RGBA [*shape, 4]: alpha 1 (background) on about a third of the
+    pixels, some black foreground pixels (brightness's gray branch)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(shape + (4,), generator=g, device=dev)
+    x[..., 3] = torch.where(torch.rand(shape, generator=g, device=dev) < .35,
+                            1.0, x[..., 3] * 0.9)
+    x[..., :3] *= torch.rand(shape + (1,), generator=g, device=dev) > 0.05
+    return x
+
+
+def _rgb_draw(dev, program, b, seed=0, on=True):
+    """``_program_draw`` with brightness's gate too."""
+    u, keys, order = _program_draw(dev, program, b, seed, on)
+    u[:, 23] = 0.25 if on else 0.75
+    return u, keys, order
+
+
+def _rgb_orders(dev, program):
+    """The identity, its reverse and 8 random orders of the 720 (as device
+    data), or the fixed program's none."""
+    if program == "shapenet_3d_fixed":
+        return [None]
+    rand = torch.randint(1, 719, (8,), generator=torch.Generator()
+                         .manual_seed(7)).tolist()
+    return [_pascal_order(dev, o) for o in [0, 719] + rand]
+
+
+@pytest.mark.parametrize("program", RGB_PROGRAMS)
+@pytest.mark.parametrize("shape", [(20, 15, 64, 64), (3, 32, 24),
+                                   (2, 32, 96)])
+def test_image_da_rgb_programs_match_their_twins(dev, program, shape):
+    """S1's context call (300 images of 64 x 64, the RGB view of the RGBA
+    batch, read through its strides) and two small shapes (96 columns: four
+    a lane), every gate on, in ten orders: within the warps' tolerance of
+    the card twin, and of the CPU twin in the first."""
+    b = math.prod(shape[:-2])
+    x = _rgba(dev, shape, seed=b)[..., :3]
+    u, keys, _ = _rgb_draw(dev, program, b, seed=b)
+    for i, o in enumerate(_rgb_orders(dev, program)):
+        got = image_da.image_da_launch(x, u, keys, o, program=program)
+        assert got.shape == x.shape and got.is_contiguous()
+        _close(got, image_da.image_da_plain(x, u, keys, o, program=program),
+               *WARP_TOL)
+        if i == 0:
+            _close(got.cpu(), image_da.image_da_plain(
+                x.cpu(), u.cpu(), keys.cpu(), None if o is None else o.cpu(),
+                program=program), *WARP_TOL)
+
+
+@pytest.mark.parametrize("program", RGB_PROGRAMS)
+def test_image_da_rgb_parameters_equal_the_twins_bit_for_bit(dev, program):
+    u, keys, order = _rgb_draw(dev, program, 300, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    u = torch.where(torch.rand(u.shape, generator=g, device=dev) < 0.5, u,
+                    torch.rand(u.shape, generator=g, device=dev))
+    x = _rgba(dev, (300, 64, 64))[..., :3]
+    out = torch.empty((300, image_da.nparams(program)), device=dev)
+    image_da.image_da_launch(x, u, keys, order, params_out=out,
+                             program=program)
+    want = image_aug.params_row(image_aug.params_for(program, u, keys, order,
+                                                     64, 64))
+    torch.cuda.synchronize()
+    assert out.shape == (300, 25)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("pick", [0.25, 0.75])    # Dropout, CoarseDropout
+@pytest.mark.parametrize("program", RGB_PROGRAMS)
+def test_image_da_rgb_masks_equal_the_twin_bit_for_bit(dev, program, pick):
+    """Every op off but the dropout op: the image masked, bit for bit, per
+    channel where the draw says so (the random grid's (cell, channel) bits,
+    Dropout's (pixel, channel) ids; the fixed grid's one bit a cell), in
+    three orders; program 7's geometric at the identity."""
+    u, keys, _ = _rgb_draw(dev, program, 300, seed=9, on=False)
+    u[:, 16], u[:, 17] = 0.25, pick
+    u[:, 10], u[:, 11] = 5.0, 9.0                # rates ~.46 and .45
+    x = _rgba(dev, (20, 15, 64, 64), seed=1)[..., :3]
+    for o in _rgb_orders(dev, program)[:3]:
+        got = image_da.image_da_launch(x, u, keys, o, program=program).cpu()
+        want = image_da.image_da_plain(x.cpu(), u.cpu(), keys.cpu(),
+                                       None if o is None else o.cpu(),
+                                       program=program)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        dropped = (got == 0) & (x.cpu() != 0)
+        assert bool(dropped.any()) and bool((got != 0).any())
+        if pick == 0.25 or program == "shapenet_3d":
+            per_channel = dropped.any(-1) & ~dropped.all(-1)
+            assert bool(per_channel.any())
+
+
+@pytest.mark.parametrize("program", RGB_PROGRAMS)
+def test_image_da_rgb_with_every_gate_off_is_the_image(dev, program):
+    u, keys, _ = _rgb_draw(dev, program, 30, seed=2, on=False)
+    x = _rgba(dev, (2, 15, 64, 64))[..., :3]
+    for o in _rgb_orders(dev, program)[:3]:
+        got = image_da.image_da_launch(x, u, keys, o, program=program)
+        torch.cuda.synchronize()
+        assert torch.equal(got, x)
+
+
+def test_image_da_rgb_programs_take_only_float32_rgba(dev):
+    """bfloat16 output, uint8 input and a dense RGB tensor (pixels 3 floats
+    apart) raise; nothing falls back."""
+    x = _rgba(dev, (4, 32, 32))
+    for program in RGB_PROGRAMS:
+        u, keys, order = _rgb_draw(dev, program, 4)
+        with pytest.raises(TypeError, match="float32"):
+            image_da.image_da(x[..., :3], u, keys, order, BF16, program)
+        with pytest.raises(TypeError):
+            image_da.image_da(_images(dev, (4, 32, 32, 3)), u, keys, order,
+                              program=program)
+        with pytest.raises(ValueError, match="image DA kernel takes"):
+            image_da.image_da(x[..., :3].contiguous(), u, keys, order,
+                              program=program)
+
+
+def test_rgb_augmenter_is_one_launch_reading_nothing_back(dev):
+    aug = image_aug.build_augmenter("shapenet_3d")
+    x = _rgba(dev, (20, 15, 64, 64))[..., :3]
+    g = torch.Generator(device=dev).manual_seed(0)
+    before = image_da.image_da.program_launches["shapenet_3d"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = aug(x, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == x.shape and out.dtype == torch.float32
+    assert image_da.image_da.program_launches["shapenet_3d"] == before + 1
 
 
 # -- K training steps as one CUDA graph replay (train/steps.py:FusedSteps) --
@@ -1134,6 +1284,7 @@ PERF_ANP_YAML = os.path.join(REPO, "cfg", "train", "perf",
 PASCAL_ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_Pascal1D.yaml")
 DISTRACTOR_ANP_YAML = os.path.join(REPO, "cfg", "train",
                                    "ANP_DA+TA_Distractor.yaml")
+S3D_ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet3D.yaml")
 # a kernel wrapper -> the kernel function whose graph nodes count its
 # launches (K3's call also packs its weights and runs one conv_kernel a layer)
 GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
@@ -1191,6 +1342,17 @@ def distractor_data(tmp_path_factory):
     return root
 
 
+@pytest.fixture(scope="module")
+def s3d_data(tmp_path_factory):
+    """The small synthetic ShapeNet3D split (30 / 8 / 8 items of 30
+    views)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = str(tmp_path_factory.mktemp("shapenet3d"))
+    generate_shapenet3d(root, small=True)
+    return root
+
+
 def _graph_config(data, yaml, *overrides):
     return Config(yaml, [f"data_path={data}", "data_size=small",
                          "device=cuda", "val_freq=1000", "val_iters=1",
@@ -1213,10 +1375,11 @@ def _assert_equal_states(a, b):
 
 @pytest.mark.parametrize("path", ["anp_f32", "anp_bf16", "maml_bf16",
                                   "pascal_anp", "anp_fixed_bf16",
-                                  "distractor_anp"])
+                                  "distractor_anp", "s3d_anp"])
 def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
                                                         pascal_data,
                                                         distractor_data,
+                                                        s3d_data,
                                                         tmp_path, monkeypatch,
                                                         path):
     """Three calls at K = 4 (one eager warm-up, the capture and its replay,
@@ -1242,9 +1405,12 @@ def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
                                       ["steps_per_call=4"]),
                    # D1 as shipped (ANPDistractor, K2 wide, program 4)
                    "distractor_anp": (DISTRACTOR_ANP_YAML,
-                                      ["steps_per_call=4"])}[path]
-    data = {"pascal_anp": pascal_data,
-            "distractor_anp": distractor_data}.get(path, graph_data)
+                                      ["steps_per_call=4"]),
+                   # S1 as shipped (ANP ShapeNet3D: backgrounds composited
+                   # per batch, program 6, pose noise, K2 wide)
+                   "s3d_anp": (S3D_ANP_YAML, ["steps_per_call=4"])}[path]
+    data = {"pascal_anp": pascal_data, "distractor_anp": distractor_data,
+            "s3d_anp": s3d_data}.get(path, graph_data)
     torch.use_deterministic_algorithms(True)
     try:
         first, graph, loop = (train_cli.build_trainer(
@@ -1289,6 +1455,48 @@ def test_resumed_run_after_replays_draws_what_an_unbroken_run_draws(
         torch.use_deterministic_algorithms(False)
     assert resumed.step == whole.step == 12 and whole.train_step.replays == 4
     _assert_equal_states(_train_state(resumed), _train_state(whole))
+
+
+def test_train_cli_sets_tf32_off_itself(dev, graph_data, tmp_path,
+                                       monkeypatch):
+    """``train_cli.build_trainer`` sets the TF32 flags off (and cuDNN's
+    default algorithms), whatever they were: the card's float32 runs
+    compute in float32 (ROADMAP.md C1)."""
+    monkeypatch.chdir(tmp_path)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.deterministic = True
+    try:
+        train_cli.build_trainer(_graph_config(graph_data, ANP_YAML))
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.deterministic is False
+    finally:
+        set_numerics()
+
+
+def test_same_seed_trainers_give_what_the_setting_says(dev, graph_data,
+                                                       tmp_path, monkeypatch):
+    """Two ANPShapeNet1D trainers from one seed through ``train_cli``, with
+    no deterministic switch of their own, each one eager call and one graph
+    call of 4 steps (ROADMAP.md C2): cuDNN's default backward may sum in
+    another order from run to run, so they must agree within float32's
+    reach after 8 Adam steps (rtol 1e-3, atol 1e-6: an update moves a
+    weight by at most lr = 1e-4, and rounding by a few ulps of that), and
+    their generators bit for bit."""
+    monkeypatch.chdir(tmp_path)
+    runs = []
+    for _ in range(2):
+        trainer = train_cli.build_trainer(_graph_config(
+            graph_data, ANP_YAML, "steps_per_call=4"))
+        losses = [trainer.train_step(trainer.generator)["loss"].clone()
+                  for _ in range(2)]
+        assert trainer.train_step.replays == 1
+        runs.append((losses, _train_state(trainer)))
+    (la, sa), (lb, sb) = runs
+    for a, b in zip(la + sa[0] + sa[1], lb + sb[0] + sb[1]):
+        _close(a, b, 1e-6, 1e-3)
+    assert torch.equal(sa[2], sb[2])
 
 
 def test_favor_kernel_is_captured_and_replayed(dev, tmp_path):

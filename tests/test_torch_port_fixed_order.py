@@ -270,22 +270,28 @@ def test_kernel_program_table_is_the_wrappers():
     want = {"shapenet_1d": "SHAPENET1D", "pascal_1d": "PASCAL",
             "shapenet_1d_fixed": "SHAPENET1D_FIXED",
             "pascal_1d_fixed": "PASCAL_FIXED", "distractor": "DISTRACTOR",
-            "distractor_fixed": "DISTRACTOR_FIXED"}
+            "distractor_fixed": "DISTRACTOR_FIXED",
+            "shapenet_3d": "SHAPENET3D",
+            "shapenet_3d_fixed": "SHAPENET3D_FIXED"}
     assert names == [(want[p], str(i)) for i, p in enumerate(kda.PROGRAMS)]
     assert kda.PROGRAM_NU == {"shapenet_1d": 19, "pascal_1d": 23,
                               "shapenet_1d_fixed": 19, "pascal_1d_fixed": 23,
-                              "distractor": 19, "distractor_fixed": 19}
+                              "distractor": 19, "distractor_fixed": 19,
+                              "shapenet_3d": 25, "shapenet_3d_fixed": 25}
     nu = int(re.search(r"constexpr int NU = (\d+);", src).group(1))
     with open(os.path.join(REPO, "wmfml_tpu_torch", "csrc",
                            "pixel_ops.cuh")) as f:
         nx = int(re.search(r"constexpr int NX = (\d+);", f.read()).group(1))
-    assert (nu, nu + nx) == (kda.NU, kda.NU_PIXEL)
+    nb = int(re.search(r"constexpr int NB = (\d+);", src).group(1))
+    assert (nu, nu + nx, nu + nx + nb) == (kda.NU, kda.NU_PIXEL, kda.NU_RGB)
     assert kda.PROGRAM_ORDERS == {"shapenet_1d": len(paug.ORDERS),
                                   "pascal_1d": len(paug.PASCAL_ORDERS),
                                   "shapenet_1d_fixed": 1,
                                   "pascal_1d_fixed": 1,
                                   "distractor": len(paug.DISTRACTOR_ORDERS),
-                                  "distractor_fixed": 1}
+                                  "distractor_fixed": 1,
+                                  "shapenet_3d": len(paug.SHAPENET3D_ORDERS),
+                                  "shapenet_3d_fixed": 1}
 
 
 # -- 2. configs and the perf YAMLs ----------------------------------------------------
@@ -318,22 +324,17 @@ def test_pascal_fixed_order_config_selects_its_program():
 @pytest.mark.parametrize("task,item", [("distractor", "A12b"),
                                        ("shapenet_3d", "A12c")])
 def test_fixed_order_for_unported_tasks_raises_naming_the_slice(task, item):
-    """ShapeNet3D's fixed-order pipeline is not ported and raises naming
-    its slice; Distractor's (its slice, A12b, now done) builds its fixed
-    program. (The name and cases are from when both raised; they are kept
-    so that the test's record runs on.)"""
+    """Distractor's and ShapeNet3D's fixed-order pipelines (their slices,
+    A12b and A12c, now done) build their fixed programs. (The name and
+    cases are from when both raised; they are kept so that the test's
+    record runs on.)"""
     cfg = dict(method="ANPShapeNet1D", task=task, tasks_per_batch=2,
                max_ctx_num=4, lr=1e-4, seed=0, device="cpu",
                aug_random_order=False)
-    if task == "distractor":
-        assert Config.from_dict(cfg).aug_random_order is False
-        assert paug.build_augmenter(task, random_order=False).program == \
-            "distractor_fixed"
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        Config.from_dict(cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        paug.build_augmenter(task, random_order=False)
+    assert Config.from_dict(cfg).aug_random_order is False
+    assert paug.build_augmenter(task, random_order=False).program == \
+        f"{task}_fixed"
+    assert item in ("A12b", "A12c")
 
 
 def test_fused_call_equals_k_single_steps_on_p3():

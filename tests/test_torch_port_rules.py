@@ -3,10 +3,11 @@
   * the port and ``chip_smoke.py`` import neither JAX nor the JAX package;
   * entry points run on ``cuda`` unless the caller asks for the CPU, and with
     no card they raise instead of falling back;
-  * what is not ported raises and names its ROADMAP item: DA (random or
-    fixed order) for the ShapeNet3D task, other compute dtypes, other tasks
-    and methods; the shipped ShapeNet1D, Pascal1D and Distractor YAMLs,
-    image DA and the fixed-order perf YAMLs included, build as they are.
+  * what is not ported raises and names its ROADMAP item: LargeCNP in
+    bfloat16, other compute dtypes, other methods; the task with no loader
+    (``shapenet_3d_segmentation``) raises; the shipped ShapeNet1D,
+    Pascal1D, Distractor and ShapeNet3D YAMLs, image DA and the fixed-order
+    perf YAMLs included, build as they are.
 """
 
 import ast
@@ -83,11 +84,11 @@ def test_without_a_card_entry_points_raise(monkeypatch, tmp_path):
 
 
 def test_image_data_augmentation_raises():
-    """Image DA builds for shapenet_1d, pascal_1d and distractor, in random
-    order (the shipped YAMLs) and in the fixed order (``aug_random_order:
-    false``); DA for the task not ported (ShapeNet3D) raises and names its
-    ROADMAP item. (The name is from when Distractor raised too; it is kept
-    so that the test's record runs on.)"""
+    """Image DA builds for every task with a loader, in random order (the
+    shipped YAMLs) and in the fixed order (``aug_random_order: false``);
+    DA for a task without one raises. (The name is from when Distractor
+    and ShapeNet3D raised too; it is kept so that the test's record runs
+    on.)"""
     process = build_episode_processor("shapenet_1d", ["task_aug", "data_aug"],
                                       train=True)
     assert process.augment.program == "shapenet_1d"
@@ -107,17 +108,21 @@ def test_image_data_augmentation_raises():
     assert build_augmenter("distractor").program == "distractor"
     assert build_augmenter("distractor", random_order=False).program == \
         "distractor_fixed"
-    with pytest.raises(NotImplementedError, match="A12c"):
-        build_augmenter("shapenet_3d", random_order=False)
+    assert build_augmenter("shapenet_3d").program == "shapenet_3d"
+    assert build_augmenter("shapenet_3d", random_order=False).program == \
+        "shapenet_3d_fixed"
+    with pytest.raises(NotImplementedError, match="no image DA"):
+        build_augmenter("shapenet_3d_segmentation")
 
 
 def test_fixed_order_perf_yaml_raises_instead_of_running_random_order():
     """``aug_random_order: false`` selects the JAX package's fused
     fixed-order pipeline: the perf YAML's train step runs the fixed
-    program, never the random-order one in its place; for the tasks whose
-    fixed-order pipeline is not ported (ShapeNet3D), the config raises
-    instead; Distractor's (float32 only) builds. (The name is from when
-    every task raised; it is kept so that the test's record runs on.)"""
+    program, never the random-order one in its place; Distractor's and
+    ShapeNet3D's fixed programs build in float32, and in bfloat16 (the
+    perf YAML's) the config raises naming ROADMAP.md A24 (LargeCNP in
+    bfloat16). (The name is from when every task raised; it is kept so
+    that the test's record runs on.)"""
     yaml = os.path.join(REPO, "cfg", "train", "perf",
                         "ANP_DA+TA_ShapeNet1D_tpu.yaml")
     cfg = Config(yaml, ["compute_dtype=float32", "device=cpu"],
@@ -135,8 +140,14 @@ def test_fixed_order_perf_yaml_raises_instead_of_running_random_order():
     assert build_episode_processor(
         cfg.task, cfg.aug_list, train=True,
         aug_random_order=False).augment.program == "distractor_fixed"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12c"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A24"):
         Config(yaml, ["task=shapenet_3d"], make_dirs=False)
+    cfg = Config(yaml, ["task=shapenet_3d", "compute_dtype=float32"],
+                 make_dirs=False)
+    assert build_episode_processor(
+        cfg.task, cfg.aug_list, train=True,
+        aug_random_order=cfg.aug_random_order).augment.program == \
+        "shapenet_3d_fixed"
     assert _config("prng_impl=rbg").prng_impl == "rbg"
     assert _config().prng_impl == "threefry"
 
@@ -178,6 +189,14 @@ def test_unported_options_raise(override, error):
     ("MMAMLShapeNet1D", "A16"), ("ANP", "A12"), ("SingleTaskShapeNet1D", "A14"),
 ])
 def test_unported_methods_name_their_roadmap_item(method, item):
+    """(The case of ANP, whose slice, A12c, is done, now builds ShapeNet3D's
+    ANP; it is kept so that the case's record runs on.)"""
+    if method == "ANP":
+        yaml = os.path.join(REPO, "cfg", "train", "ANP_ShapeNet3D.yaml")
+        model = build_model(Config(yaml, ["device=cpu"], make_dirs=False))
+        assert type(model).__name__ == "LargeCNP"
+        assert model.agg_mode == "attention"
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         build_model(_config("device=cpu", f"method={method}"))
 
@@ -210,10 +229,17 @@ def test_maml_yaml_builds_a_second_order_cuda_trainer_config(monkeypatch,
 
 
 def test_unported_task_raises(tmp_path):
-    cfg = Config.from_dict(dict(method="CondNeuralProcess", task="shapenet_3d",
+    """The task the JAX package has a shape for and no loader
+    (``shapenet_3d_segmentation``) raises; ShapeNet3D (ROADMAP.md A12c,
+    done) builds its processor. (The name is from when ShapeNet3D raised;
+    it is kept so that the test's record runs on.)"""
+    cfg = Config.from_dict(dict(method="CondNeuralProcess",
+                                task="shapenet_3d_segmentation",
                                 tasks_per_batch=2, max_ctx_num=4, lr=1e-4,
                                 seed=0, device="cpu", data_path=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="no loader"):
         build_data(cfg)
     with pytest.raises(NotImplementedError):
-        build_episode_processor("shapenet_3d", [], train=False)
+        build_episode_processor("shapenet_3d_segmentation", [], train=False)
+    assert build_episode_processor("shapenet_3d", [], train=False).augment \
+        is None

@@ -8,8 +8,10 @@ unless the caller passes ``device=cpu``; the hand-written kernels live in
 Ported so far: ShapeNet1D and Pascal1D meta-training of the four
 literature-encoder methods (CNPShapeNet1D, ANPShapeNet1D,
 CNPVanillaPascal1D, ANPVanillaPascal1D) and second-order MAML
-(MAMLShapeNet1D, VanillaMAML), with image augmentation in random or fixed
-order and task augmentation, in float32 or bf16, and the statistical
+(MAMLShapeNet1D, VanillaMAML), in float32 or bf16; Distractor's and
+ShapeNet3D's LargeCNP methods (CNPDistractor, ANPDistractor,
+CondNeuralProcess, ANP) in float32; image augmentation in random or fixed
+order and task augmentation for all four tasks, and the statistical
 evaluation CLI. ROADMAP.md lists what is still to port.
 """
 

@@ -1,5 +1,5 @@
-"""Image data augmentation for ShapeNet1D, Pascal1D and Distractor
-(``wmfml_tpu/aug/image_aug.py``).
+"""Image data augmentation for ShapeNet1D, Pascal1D, Distractor and
+ShapeNet3D (``wmfml_tpu/aug/image_aug.py``).
 
 The reference pipelines, each op under its ``Sometimes(0.5)`` gate:
 
@@ -23,14 +23,23 @@ The reference pipelines, each op under its ``Sometimes(0.5)`` gate:
     (``aug_random_order: false``) is Affine, then the fixed-grid dropout
     op. Distractor's images are inverted first (``1 - x / 255``), so its
     programs take the inversion as part of the uint8 -> float step
-    (``program_input``).
+    (``program_input``);
+  * ``SHAPENET3D_OPS`` (``FULL_OPS``): CropAndPad, GammaContrast,
+    AddToBrightness, AverageBlur, Affine and the dropout op on float RGB
+    in one of the 6! = 720 orders, each op alone as in Pascal1D's chain
+    (the JAX package's per-step switch chain, its ops more than
+    ``_ENUM_MAX``); its fixed order is ``geometric``, GammaContrast,
+    AddToBrightness, AverageBlur, then the fixed-grid dropout op. The
+    images are the sampler's float RGBA without its alpha, so the
+    uint8 -> float step is a cast.
 
 Two layers:
 
   * the plain twins, the JAX math op for op on a batch with per-image
     parameters: ``interp_matrix``, ``stage_matrices``, ``affine_warp`` and
     ``warp_chain`` (dense tent matrices and the rank-1 fill terms),
-    ``gamma_contrast`` and ``average_blur``, ``fmix32`` / ``hash_keep``
+    ``gamma_contrast``, ``brightness`` and ``average_blur``, ``fmix32`` /
+    ``hash_keep``
     (murmur3 keep bits, uint32 arithmetic held in int64), the Dropout,
     CoarseDropout and fixed-grid ids and their keep masks;
     ``params_for`` and ``apply_program`` chain them into K6's plain version
@@ -50,10 +59,12 @@ Parameters of one augmenter call (``DAParams``), per image b:
     Dropout (1) or CoarseDropout (0), ``p`` the drop rate, ``sp`` the
     coarse grid's size fraction (unused by the fixed grid);
   * ``keys[b]``: the hash's two 32-bit key words (int32 bit patterns);
-  * ``pixel[b]`` (Pascal1D): ``(gamma gate, gamma, blur gate, k)``;
-  * ``order``: an index into ``ORDERS`` or ``PASCAL_ORDERS``, shared by the
-    whole call (an int, or a one-element tensor as drawn), read modulo
-    their count; None for the fixed programs;
+  * ``pixel[b]`` (Pascal1D): ``(gamma gate, gamma, blur gate, k)``, and
+    for ShapeNet3D ``(..., brightness gate, brightness offset)``;
+  * ``order``: an index into the program's orders (``ORDERS``,
+    ``PASCAL_ORDERS``, ``DISTRACTOR_ORDERS``, ``SHAPENET3D_ORDERS``),
+    shared by the whole call (an int, or a one-element tensor as drawn),
+    read modulo their count; None for the fixed programs;
   * ``cells`` (tests only, on the CPU): the fixed grid's keep bits [B, gh,
     gw], in place of the hashed ones.
 
@@ -90,8 +101,15 @@ PASCAL_ORDERS = tuple(itertools.permutations(range(len(PASCAL_OPS))))
 D_AFFINE, D_DROP = range(2)
 DISTRACTOR_OPS = ("affine", "one_of_dropout")
 DISTRACTOR_ORDERS = tuple(itertools.permutations(range(len(DISTRACTOR_OPS))))
-# the task whose DA is not ported -> its ROADMAP item
-OTHER_TASKS = {"shapenet_3d": "A12c"}
+# ShapeNet3D's ops (FULL_OPS, utils/augment.py:34-60;
+# wmfml_tpu/aug/image_aug.py:441) and their 6! orders
+S_CROP, S_GAMMA, S_BRIGHT, S_BLUR, S_AFFINE, S_DROP = range(6)
+SHAPENET3D_OPS = ("crop_and_pad", "gamma_contrast", "brightness",
+                  "average_blur", "affine", "one_of_dropout")
+SHAPENET3D_ORDERS = tuple(itertools.permutations(range(len(SHAPENET3D_OPS))))
+# AddToBrightness(-30..30) on [0, 1] images: offset = u span + lo
+BRIGHT_LO, BRIGHT_SPAN = -30.0 / 255.0, 60.0 / 255.0
+TASKS = ("shapenet_1d", "pascal_1d", "distractor", "shapenet_3d")
 
 
 @dataclass
@@ -145,9 +163,12 @@ def to_unit(x: torch.Tensor) -> torch.Tensor:
 
 def program_input(program: str, x: torch.Tensor,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The float image a program starts from: x / 255 in ``dtype``, and
-    for Distractor's programs 1 - x / 255 in float32 (the JAX package
-    inverts before DA: ``1.0 - _to_float(x)``)."""
+    """The float image a program starts from: x / 255 in ``dtype``, for
+    Distractor's programs 1 - x / 255 in float32 (the JAX package inverts
+    before DA: ``1.0 - _to_float(x)``), and ShapeNet3D's float images cast
+    to ``dtype``."""
+    if x.is_floating_point():
+        return x.to(dtype)
     if program.startswith("distractor"):
         return 1.0 - to_unit(x)
     return to_unit(x).to(dtype)
@@ -246,6 +267,25 @@ def gamma_contrast(img: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     1e-6 ** gamma, not 0."""
     out = torch.clamp(img.float(), 1e-6, 1.0) ** gamma[:, None, None, None]
     return out.to(img.dtype)
+
+
+def brightness(img: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """AddToBrightness as an offset ``b`` [B] of HSV's V (``brightness``,
+    :219-240), in float32, returned in img's dtype: gray images take the
+    plain clipped add; an RGB pixel with V = max(R, G, B) > 1e-6 scales
+    its channels by clip(V + b, 0, 1) / V, a black one turns the gray
+    clip(max(b, 0), 0, 1)."""
+    xf = img.float()
+    bb = b[:, None, None, None]
+    if img.shape[-1] == 1:
+        return torch.clamp(xf + bb, 0.0, 1.0).to(img.dtype)
+    v = xf.amax(-1, keepdim=True)
+    on = v > 1e-6
+    scale = torch.where(on, torch.clamp(v + bb, 0.0, 1.0)
+                        / torch.clamp_min(v, 1e-6), torch.zeros_like(v))
+    gray = torch.clamp(torch.zeros_like(xf) + torch.clamp_min(bb, 0.0), 0.0,
+                       1.0)
+    return torch.where(on, xf * scale, gray).to(img.dtype)
 
 
 def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -478,6 +518,14 @@ def pixel_from_draw(u: torch.Tensor) -> torch.Tensor:
                         + 1.0], -1)
 
 
+def bright_from_draw(u: torch.Tensor) -> torch.Tensor:
+    """[B, 2] AddToBrightness's gate (column 23, u < .5) and offset ~
+    U[-30/255, 30/255) (column 24) (K6's ``draw_bright``)."""
+    lo, span = (torch.tensor(c, dtype=torch.float32, device=u.device)
+                for c in (BRIGHT_LO, BRIGHT_SPAN))
+    return torch.stack([(u[:, 23] < 0.5).float(), u[:, 24] * span + lo], -1)
+
+
 def geometric_from_draw(u: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """[B, 2, 7]: ``geometric``'s one warp (:386-417) in row 0, row 1 zero
     (K6's ``draw_geometric``). CropAndPad's symmetric pad p (column 0 ~
@@ -504,9 +552,11 @@ def params_for(program: str, u: torch.Tensor, keys: torch.Tensor, order,
     if program in kda.GEOMETRIC:
         p.warp = geometric_from_draw(u, h, w)
     if program != "shapenet_1d":
-        pixel_ops = kda.PROGRAM_NU[program] == kda.NU_PIXEL
-        p.pixel = (pixel_from_draw(u) if pixel_ops
+        nu = kda.PROGRAM_NU[program]
+        p.pixel = (pixel_from_draw(u) if nu >= kda.NU_PIXEL
                    else torch.zeros((u.shape[0], 4), device=u.device))
+        if nu == kda.NU_RGB:
+            p.pixel = torch.cat([p.pixel, bright_from_draw(u)], 1)
     return p
 
 
@@ -555,15 +605,40 @@ def apply_pascal(flat: torch.Tensor, params: DAParams) -> torch.Tensor:
     return flat
 
 
+def apply_shapenet3d(flat: torch.Tensor, params: DAParams) -> torch.Tensor:
+    """One order of ``SHAPENET3D_OPS`` (the per-step switch chain,
+    :567-580): each op alone on the whole batch under its gate. The order
+    index is read modulo 720 and decoded as K6 decodes it."""
+    g_on, gamma, b_on, k, br_on, br = params.pixel.unbind(-1)
+    order = decode_order(int(params.order) % len(SHAPENET3D_ORDERS), 6)
+    for op in order:
+        if op in (S_CROP, S_AFFINE):
+            row = params.warp[:, int(op == S_AFFINE)]
+            flat = sometimes(row[:, 6], _warp_op(flat, row), flat)
+        elif op == S_GAMMA:
+            flat = sometimes(g_on, gamma_contrast(flat, gamma), flat)
+        elif op == S_BRIGHT:
+            flat = sometimes(br_on, brightness(flat, br), flat)
+        elif op == S_BLUR:
+            flat = sometimes(b_on, average_blur(flat, k), flat)
+        else:
+            flat = one_of_dropout(flat, params.drop, params.keys)
+    return flat
+
+
 def apply_fixed(flat: torch.Tensor, params: DAParams,
                 pixel_ops: bool) -> torch.Tensor:
     """``FUSED_PIPELINES`` (:457-462) for ShapeNet1D or (``pixel_ops``)
-    Pascal1D: ``geometric``, [GammaContrast, AverageBlur], then the
+    Pascal1D and ShapeNet3D: ``geometric``, [GammaContrast,
+    AddToBrightness (ShapeNet3D: a pixel row of 6), AverageBlur], then the
     fixed-grid dropout op."""
     flat = _warp_op(flat, params.warp[:, 0])
     if pixel_ops:
-        g_on, gamma, b_on, k = params.pixel.unbind(-1)
+        g_on, gamma, b_on, k = params.pixel[:, :4].unbind(-1)
         flat = sometimes(g_on, gamma_contrast(flat, gamma), flat)
+        if params.pixel.shape[1] == 6:
+            br_on, br = params.pixel[:, 4:].unbind(-1)
+            flat = sometimes(br_on, brightness(flat, br), flat)
         flat = sometimes(b_on, average_blur(flat, k), flat)
     return one_of_dropout_fixed(flat, params.drop, params.keys, params.cells)
 
@@ -596,9 +671,12 @@ def apply_program(program: str, flat: torch.Tensor,
         return apply(flat, params)
     if program == "pascal_1d":
         return apply_pascal(flat, params)
+    if program == "shapenet_3d":
+        return apply_shapenet3d(flat, params)
     if program.startswith("distractor"):
         return apply_distractor(flat, params, program == "distractor_fixed")
-    return apply_fixed(flat, params, program == "pascal_1d_fixed")
+    return apply_fixed(flat, params, program in ("pascal_1d_fixed",
+                                                 "shapenet_3d_fixed"))
 
 
 # -- the augmenters ---------------------------------------------------------------
@@ -609,7 +687,7 @@ class Augmenter:
     draw and issues one K6 launch. Images come out in ``dtype``, float32
     or bfloat16: as in the JAX package, x / 255 and the end of every op
     (or ShapeNet1D's warp chain) round to it (the masks are exact).
-    Distractor's programs write float32 only."""
+    Distractor's and ShapeNet3D's programs write float32 only."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
                  program: str = "shapenet_1d"):
@@ -631,8 +709,10 @@ class Augmenter:
         fraction ~ U[.02, .25); 13-17 Bernoulli(.5) bits: CropAndPad's gate,
         Affine's gate, Affine's order 0 (nearest), the dropout op's gate,
         Dropout (1) or CoarseDropout (0); 18 per channel, w.p. .5 for
-        Dropout and .2 for CoarseDropout; Pascal1D's 19-22: GammaContrast's
-        gate and gamma, AverageBlur's gate and k (``pixel_from_draw``)."""
+        Dropout and .2 for CoarseDropout; Pascal1D's and ShapeNet3D's
+        19-22: GammaContrast's gate and gamma, AverageBlur's gate and k
+        (``pixel_from_draw``); ShapeNet3D's 23-24: AddToBrightness's gate
+        and offset (``bright_from_draw``)."""
         u = torch.rand((n, self.nu), generator=generator, device=device)
         keys = torch.randint(-2 ** 31, 2 ** 31, (n, 2), dtype=torch.int32,
                              generator=generator, device=device)
@@ -643,7 +723,8 @@ class Augmenter:
     def __call__(self, images: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  params: Optional[DAParams] = None) -> torch.Tensor:
-        """Augment [..., H, W, C] uint8 images into ``self.dtype``;
+        """Augment [..., H, W, C] uint8 images (ShapeNet3D's: float RGB)
+        into ``self.dtype``;
         ``params`` injects a draw (on the CPU only: the card computes the
         parameters in K6)."""
         if params is not None:
@@ -663,8 +744,7 @@ ShapeNet1DAugmenter = Augmenter
 
 def build_augmenter(task: str, dtype: torch.dtype = torch.float32,
                     random_order: bool = True) -> Augmenter:
-    if task not in ("shapenet_1d", "pascal_1d", "distractor"):
+    if task not in TASKS:
         raise NotImplementedError(
-            f"DA for {task!r} is not ported yet (ROADMAP.md "
-            f"{OTHER_TASKS.get(task, 'A12')})")
+            f"task {task!r} has no image DA, in the JAX package either")
     return Augmenter(dtype, task if random_order else f"{task}_fixed")

@@ -5,7 +5,8 @@ labels.
 returns ``process(batch, generator=None, ta_idx=None, da_params=None)``
 that turns a raw episode (uint8 images, raw labels, on any device) into the
 model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` (ShapeNet1D),
-``:99-112`` (Distractor) and ``:116-131`` (Pascal1D) do:
+``:78-96`` (ShapeNet3D), ``:99-112`` (Distractor) and ``:116-131``
+(Pascal1D) do:
 
   * uint8 images -> x / 255 in the compute dtype ``dtype`` (float32 or
     bfloat16, rounded from the float32 quotient as JAX's
@@ -23,11 +24,16 @@ model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` (ShapeNet1D),
     offset per task, added to context and query labels: ShapeNet1D's angle
     from ``linspace(0, 2, 16)[:-1]`` mod 2 pi, Pascal1D's from {0, .25,
     .5, .75} mod 1, Distractor's integer pixel shift in [0, 16) per task
-    and coordinate, mod 128; ``ta_idx`` ([T] offset indices, Distractor's
-    [T, 1, 2] shifts) feeds them in (tests hand both frameworks the same
-    noise), else they are drawn from ``generator``;
+    and coordinate, mod 128, ShapeNet3D's Euler noise in degrees, ele ~
+    U{-5..9} (0 with ``azimuth_only``) and azi ~ U{-10..19} a task,
+    composed onto the quaternions (``utils/quaternion.py:
+    task_augment_quat``); ``ta_idx`` ([T] offset indices, Distractor's
+    [T, 1, 2] shifts, ShapeNet3D's [T, 2] (ele, azi)) feeds them in (tests
+    hand both frameworks the same noise), else they are drawn from
+    ``generator``;
   * labels: ShapeNet1D's -> ``[cos a, sin a, a]``; Pascal1D's x 10;
-    Distractor's stay pixel centres; in training and in evaluation alike.
+    Distractor's stay pixel centres, ShapeNet3D's quaternions; in training
+    and in evaluation alike.
 """
 
 from __future__ import annotations
@@ -37,9 +43,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from wmfml_tpu_torch.aug.image_aug import build_augmenter, to_unit
-
-TASKS = ("shapenet_1d", "pascal_1d", "distractor")
+from wmfml_tpu_torch.aug.image_aug import TASKS, build_augmenter, to_unit
+from wmfml_tpu_torch.utils.quaternion import task_augment_quat
 
 
 def _to_float(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -52,13 +57,31 @@ def _encode_angle(y: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cos(y), torch.sin(y), y], dim=-1)
 
 
+def _pose_noise(ctx_y, qry_y, azimuth_only, generator, ta_idx):
+    """ShapeNet3D's task augmentation: ta_idx [T, 2] (ele, azi) degrees,
+    drawn on the labels' device unless given."""
+    t = ctx_y.shape[0]
+    if ta_idx is None:
+        ele = (torch.zeros((t,), dtype=torch.int64, device=ctx_y.device)
+               if azimuth_only else
+               torch.randint(-5, 10, (t,), device=ctx_y.device,
+                             generator=generator))
+        azi = torch.randint(-10, 20, (t,), device=ctx_y.device,
+                            generator=generator)
+    else:
+        ele, azi = ta_idx.to(ctx_y.device).unbind(-1)
+    ele, azi = ele.to(ctx_y.dtype), azi.to(ctx_y.dtype)
+    return (task_augment_quat(ctx_y, ele, azi),
+            task_augment_quat(qry_y, ele, azi))
+
+
 def build_episode_processor(task: str, aug_list, train: bool,
                             dtype: torch.dtype = torch.float32,
                             aug_random_order: bool = True) -> Callable:
     if task not in TASKS:
         raise NotImplementedError(
-            f"episode processing for {task!r} is not ported yet "
-            "(ROADMAP.md A12c)")
+            f"task {task!r} has no episode processing, in the JAX package "
+            "either")
     task_aug = train and "task_aug" in aug_list
     augment = (build_augmenter(task, dtype, aug_random_order)
                if train and "data_aug" in aug_list else None)
@@ -76,6 +99,9 @@ def build_episode_processor(task: str, aug_list, train: bool,
             return 1.0 - to_unit(x) if x.dtype == torch.uint8 else 1.0 - x
         return _to_float(x, dtype)
 
+    def strip_alpha(x):
+        return x[..., :3] if task == "shapenet_3d" else x
+
     def augment_pair(cx, qx, generator, da_params):
         """DA for ctx and qry: always two calls, as the JAX package makes."""
         if augment is None:
@@ -87,9 +113,17 @@ def build_episode_processor(task: str, aug_list, train: bool,
                 generator: Optional[torch.Generator] = None,
                 ta_idx: Optional[torch.Tensor] = None,
                 da_params=None) -> Dict[str, torch.Tensor]:
-        ctx_x, qry_x = augment_pair(batch["ctx_x"], batch["qry_x"],
-                                    generator, da_params)
+        ctx_x, qry_x = augment_pair(strip_alpha(batch["ctx_x"]),
+                                    strip_alpha(batch["qry_x"]), generator,
+                                    da_params)
         ctx_y, qry_y = batch["ctx_y"], batch["qry_y"]
+        if task == "shapenet_3d":
+            if task_aug:
+                ctx_y, qry_y = _pose_noise(ctx_y, qry_y,
+                                           "azimuth_only" in aug_list,
+                                           generator, ta_idx)
+            return dict(batch, ctx_x=ctx_x, qry_x=qry_x, ctx_y=ctx_y,
+                        qry_y=qry_y)
         if task_aug:
             shape = ((ctx_y.shape[0], 1, 2) if task == "distractor"
                      else (ctx_y.shape[0],))

@@ -21,7 +21,7 @@ port lacks raise, as in training.
 
 from __future__ import annotations
 
-from wmfml_tpu_torch.cli.common import parse_args
+from wmfml_tpu_torch.cli.common import parse_args, set_numerics
 from wmfml_tpu_torch.configs import Config
 from wmfml_tpu_torch.data.factory import build_data
 from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
@@ -32,6 +32,7 @@ from wmfml_tpu_torch.train.steps import require_device
 def evaluate(config: Config):
     """(validation losses, test losses) over ctx = 1..max_ctx_num."""
     require_device(config.device)        # before any data is generated
+    set_numerics()
     model = build_model(config)
     return ModelEvaluator(model, config,
                           build_data(config, mode="eval")).evaluate()

@@ -12,14 +12,15 @@ others with ``ModelTrainer``; methods not ported yet (MMAML, MAMLMR, ...)
 raise in the registry, before any data is touched.
 
 Runs on ``cuda`` (the YAMLs' ``device: tpu`` maps there); ``device=cpu``
-runs on the CPU. Exits 1 on a non-finite loss.
+runs on the CPU. TF32 is off and cuDNN's determinism set as
+``cli/common.py:set_numerics`` says. Exits 1 on a non-finite loss.
 """
 
 from __future__ import annotations
 
 import sys
 
-from wmfml_tpu_torch.cli.common import parse_args
+from wmfml_tpu_torch.cli.common import parse_args, set_numerics
 from wmfml_tpu_torch.configs import Config
 from wmfml_tpu_torch.data.factory import build_data
 from wmfml_tpu_torch.models.registry import build_model
@@ -31,6 +32,7 @@ from wmfml_tpu_torch.train.trainer import ModelTrainer
 
 def build_trainer(config: Config) -> ModelTrainer:
     require_device(config.device)        # before any data is generated
+    set_numerics()
     cls = MAMLTrainer if "MAML" in config.method else ModelTrainer
     return cls(build_model(config), config, build_data(config))
 

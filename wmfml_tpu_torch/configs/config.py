@@ -22,14 +22,19 @@ Port-specific rules:
     gradient is 0: the port always pools in K1.
   * ``aug_random_order`` (default true, imgaug's per-batch random op order);
     ``false`` selects the JAX package's fused fixed-order pipeline
-    (``FUSED_PIPELINES``), ported for ``shapenet_1d``, ``pascal_1d`` and
-    ``distractor``; for ShapeNet3D it raises and names the slice that
-    ports it.
+    (``FUSED_PIPELINES``), ported for every task with a loader.
   * ``trunk_stem`` (the ResNet trunk's stem lowering): only ``conv``, the
     stock convolution; the JAX package's phase-layout ``s2d`` stem is not
     ported (ROADMAP.md B8b) and raises.
-  * Distractor's methods compute in float32 only: ``compute_dtype:
-    bfloat16`` with one of them raises (ROADMAP.md A24).
+  * Distractor's and ShapeNet3D's methods (LargeCNP) compute in float32
+    only: ``compute_dtype: bfloat16`` with one of them raises (ROADMAP.md
+    A24).
+  * ShapeNet3D's backgrounds: ``gen_bg`` (default true) recomposites the
+    host splits when training starts and composites every training batch
+    on the device; ``bg_gen_freq`` (default 1000) is read and kept, as in
+    the JAX package, whose device sampler does not use it either.
+  * ``shapenet_3d_segmentation`` has a shape here, as in the JAX package,
+    and no loader or model there either: building its data raises.
   * ``prng_impl`` is read and kept, but the port's random stream is
     PyTorch's Philox whatever it says: the JAX package's ``threefry`` and
     ``rbg`` differ in their bits only, and so does Philox, so no
@@ -72,9 +77,8 @@ DEVICE_ALIASES = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# tasks whose fixed-order DA pipeline is not ported -> their ROADMAP item
-FIXED_ORDER_NOT_PORTED = {"shapenet_3d": "A12c",
-                          "shapenet_3d_segmentation": "A12c"}
+# the tasks whose methods run LargeCNP, float32 only until ROADMAP.md A24
+LARGE_CNP_TASKS = ("distractor", "shapenet_3d")
 
 
 def _parse_override(value: str) -> Any:
@@ -171,21 +175,18 @@ class Config:
                 f"compute_dtype={self.compute_dtype!r}: the port computes in "
                 f"{' or '.join(COMPUTE_DTYPES)}")
         self.aug_random_order = get("aug_random_order", True)
-        if not self.aug_random_order and self.task in FIXED_ORDER_NOT_PORTED:
-            raise NotImplementedError(
-                f"aug_random_order=false for {self.task!r}: its fixed-order "
-                f"DA pipeline is not ported yet (ROADMAP.md "
-                f"{FIXED_ORDER_NOT_PORTED[self.task]})")
+        self.gen_bg = get("gen_bg", True)
+        self.bg_gen_freq = get("bg_gen_freq", 1000)
         self.trunk_stem = get("trunk_stem", "conv")
         if self.trunk_stem != "conv":
             raise NotImplementedError(
                 f"trunk_stem={self.trunk_stem!r}: only the stock 'conv' stem "
                 "is ported (ROADMAP.md B8b)")
-        if self.task == "distractor" and self.compute_dtype != "float32":
+        if self.task in LARGE_CNP_TASKS and self.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r} for {self.method!r}: "
-                "Distractor's methods compute in float32 only (ROADMAP.md "
-                "A24)")
+                f"{self.task}'s methods (LargeCNP) compute in float32 only "
+                "(ROADMAP.md A24)")
         self.prng_impl = get("prng_impl", "threefry")
         self.data_path = get("data_path", None)
         self.synthetic_data = get("synthetic_data", False)

@@ -22,7 +22,13 @@
 //     1 - x / 255 (one warp op: the JAX package's enumerated path applies
 //     Affine alone, _affine_warp, as program 1 does);
 //   5 Distractor fixed order: Affine, then the fixed-grid dropout op, on
-//     the inverted image.
+//     the inverted image;
+//   6 ShapeNet3D: CropAndPad, GammaContrast, AddToBrightness, AverageBlur,
+//     Affine and the dropout op, each under Sometimes(0.5), in one of the 6!
+//     orders, on float RGB (the RGBA batch's first three channels), each op
+//     applied alone (the JAX package's per-step switch chain);
+//   7 ShapeNet3D fixed order: geometric, GammaContrast, AddToBrightness,
+//     AverageBlur, then the fixed-grid dropout op, on float RGB.
 //
 // Replaces wmfml_tpu/aug/pipeline.py:_to_float (:34) and image_aug.py's
 // _warp_chain (:120), _affine_warp (:97), gamma_contrast and average_blur
@@ -31,7 +37,9 @@
 // order as device data (:556) and switches to one fused branch per order
 // (:562), the per-step switch chain (:567-577) and the fixed-order chain
 // (:578-580), and pipeline.py's inversion 1.0 - _to_float(x) (:105) for
-// programs 4 and 5. Here the order is device data in every program: every call
+// programs 4 and 5, and image_aug.py's brightness (:219-240) and the
+// float input's cast for programs 6 and 7. Here the order is device data in
+// every program: every call
 // is the same single launch, whatever the order, and the per-image
 // parameters are computed in the kernel from the raw draws.
 //
@@ -107,6 +115,26 @@
 // with the mask applied as it writes (Affine first), or the mask in place on
 // f and Affine from f into the output (the mask first); Affine's gate off,
 // the masked copy. They write float32 only.
+//
+// Programs 6 and 7 (ShapeNet3D, run_rgb_program) read float32 RGBA and
+// write float32 RGB, [B, H, W, 3]. Bound: the bytes, 16 read and 12 written
+// a pixel (34.4 MB for 300 images of 64 x 64, 10.3 us at 3.35 TB/s). There
+// is no uint8 stage and no quotient table: the threads load each pixel as
+// one float4 (the image's rows are contiguous, 16 bytes a pixel) and keep
+// its three channels in f as three planes, so the lanes of a warp read and
+// write neighbouring words of a plane. Each op is one pass from f into g or
+// in place (a warp: its one-stage tap table, then the taps of all three
+// planes from one table entry; AverageBlur from one image into the other;
+// GammaContrast, AddToBrightness and the mask in place), the last one
+// writing the output, interleaved. A thread holds a pixel's three
+// channels, which brightness needs: V = max(R, G, B), then every channel
+// scaled by clip(V + b, 0, 1) / V in float32, or, where V <= 1e-6, the gray
+// clip(max(b, 0), 0, 1), as the twin computes it. With three channels the
+// masks are per channel where the draw says so: Dropout hashes y W + x,
+// times 3 plus the channel; CoarseDropout keeps a bit for each (cell,
+// channel), the cell's id times 3 plus the channel; the fixed grid one bit
+// a cell for all three. Shared memory at 64 x 64: f and g 48 KB each, one
+// tap table and the cells' bits: about 104 KB, two blocks an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,30 +157,49 @@ constexpr int THREADS = 256;
 constexpr int COLS = 4;                // columns a lane owns: W <= 128
 constexpr int NU = 19;                 // uniforms per image (ShapeNet1D)
 constexpr int NU_PIXEL = NU + NX;      // with the pixel ops' four (Pascal1D)
+constexpr int NB = 2;                  // brightness: gate, offset
+constexpr int NU_RGB = NU_PIXEL + NB;  // and brightness's (ShapeNet3D)
 constexpr int NPARAMS = 2 * NP + ND;   // the debug output's row
 constexpr int NPARAMS_PIXEL = NPARAMS + NX;
+constexpr int NPARAMS_RGB = NPARAMS_PIXEL + NB;
+constexpr int RGB_C = 3;               // channels of programs 6 and 7
 constexpr int STAMPS = 5;
 constexpr int DROP = 2;
 constexpr int MAX_SMEM = 232448;       // shared memory a block may use
 
 enum Program { SHAPENET1D = 0, PASCAL = 1, SHAPENET1D_FIXED = 2,
                PASCAL_FIXED = 3, DISTRACTOR = 4, DISTRACTOR_FIXED = 5,
-               NPROGRAMS = 6 };
+               SHAPENET3D = 6, SHAPENET3D_FIXED = 7, NPROGRAMS = 8 };
 
 // Pascal1D's ops, aug/image_aug.py:PASCAL_OPS (image_aug.py:442's order)
 enum PascalOp { P_CROP = 0, P_GAMMA = 1, P_BLUR = 2, P_AFFINE = 3,
                 P_DROP = 4, NPASCAL = 5 };
+// ShapeNet3D's ops, aug/image_aug.py:SHAPENET3D_OPS (FULL_OPS, :441)
+enum RgbOp { S_CROP = 0, S_GAMMA = 1, S_BRIGHT = 2, S_BLUR = 3,
+             S_AFFINE = 4, S_DROP = 5, NRGB = 6 };
 
+// ShapeNet3D's programs: float RGB read from RGBA
+__host__ __device__ constexpr bool rgb(int prog) {
+  return prog == SHAPENET3D || prog == SHAPENET3D_FIXED;
+}
 __host__ __device__ constexpr bool pixel_ops(int prog) {
-  return prog == PASCAL || prog == PASCAL_FIXED;
+  return prog == PASCAL || prog == PASCAL_FIXED || rgb(prog);
 }
 __host__ __device__ constexpr bool fixed_order(int prog) {
   return prog == SHAPENET1D_FIXED || prog == PASCAL_FIXED ||
-         prog == DISTRACTOR_FIXED;
+         prog == DISTRACTOR_FIXED || prog == SHAPENET3D_FIXED;
 }
 // the programs whose first op is geometric (draw_geometric's one warp)
 __host__ __device__ constexpr bool geometric(int prog) {
-  return prog == SHAPENET1D_FIXED || prog == PASCAL_FIXED;
+  return prog == SHAPENET1D_FIXED || prog == PASCAL_FIXED ||
+         prog == SHAPENET3D_FIXED;
+}
+__host__ __device__ constexpr int program_nu(int prog) {
+  return rgb(prog) ? NU_RGB : pixel_ops(prog) ? NU_PIXEL : NU;
+}
+__host__ __device__ constexpr int program_nparams(int prog) {
+  return prog == SHAPENET1D ? NPARAMS
+                            : rgb(prog) ? NPARAMS_RGB : NPARAMS_PIXEL;
 }
 // Distractor's programs: the inverted image, float32 output only
 __host__ __device__ constexpr bool inverted(int prog) {
@@ -167,43 +214,51 @@ __constant__ int ORDERS[6][3] = {{0, 1, 2}, {0, 2, 1}, {1, 0, 2},
 struct Shared {
   float warp[2][NP];
   float drop[ND];
-  float pixel[NX];
+  float pixel[NX + NB];
   uint32_t k0, k1;
   int order;
-  int perm[NPASCAL];
+  int perm[NRGB];
 };
 
 struct Layout {
   int f, g, tab, lut, frow, fcol, cell, cap, par, bar, total;
 };
 
-// two: a second float32 image g (the Pascal programs)
-__host__ __device__ inline Layout layout(int H, int W, bool two = false) {
+// The dynamic shared memory of a block of program prog: the uint8 image
+// (not for the RGB programs, which load their pixels straight into f), f,
+// for the Pascal and RGB programs a second image g, the tap tables (two
+// chains for program 0, one warp for the others), the quotient table, the
+// coarse grid's rows, columns and cells (a bit for each (cell, channel) in
+// RGB), the parameters and the barrier.
+__host__ __device__ inline Layout layout(int H, int W, int prog) {
   Layout L;
   const int HW = H * W;
-  L.f = (HW + 15) & ~15;                         // the uint8 image at 0
-  L.g = L.f + 4 * HW;
-  L.tab = L.g + (two ? 4 * HW : 0);
-  L.lut = L.tab + 2 * (H + W) * (int)sizeof(Axis);
+  const int planes = rgb(prog) ? RGB_C : 1;
+  L.f = rgb(prog) ? 0 : (HW + 15) & ~15;       // the uint8 image at 0
+  L.g = L.f + 4 * planes * HW;
+  L.tab = L.g + (pixel_ops(prog) ? 4 * planes * HW : 0);
+  L.lut = L.tab + (rgb(prog) ? 1 : 2) * (H + W) * (int)sizeof(Axis);
   L.frow = L.lut + 4 * 256;
   L.fcol = L.frow + 4 * H;
   L.cell = L.fcol + 4 * W;
   L.cap = (H / 4 + 1) * (W / 4 + 1);          // CoarseDropout's largest grid
-  L.par = (L.cell + L.cap + 15) & ~15;
+  L.par = (L.cell + planes * L.cap + 15) & ~15;
   L.bar = L.par + (((int)sizeof(Shared) + 15) & ~15);
   L.total = L.bar + 16;
   return L;
 }
 
 struct Args {
-  const uint8_t* x;
+  const void* x;             // uint8 images, or float32 RGBA (programs 6, 7)
   long long st, ss;          // bytes between tasks and between images
   int S;                     // images per task
-  const float* u;            // [B, 19] or [B, 23] (Pascal programs)
+  const float* u;            // [B, program_nu]: 19 (programs 0, 2, 4,
+                             // 5), 23 (1, 3) or 25 (6, 7)
   const int* keys;           // [B, 2]
   const long long* order;    // [1]; null for the fixed programs
   void* out;                 // [B, H, W] float32, or bfloat16 when bf16
-  float* params_out;         // [B, 19] ([B, 23] but program 0) or null
+                             // ([B, H, W, 3] float32: programs 6, 7)
+  float* params_out;         // [B, program_nparams] or null
   long long* stamps;         // [B, STAMPS] or null
   int H, W;
   int bf16;                  // the output type: 0 float32, 1 bfloat16
@@ -288,8 +343,18 @@ __device__ void draw_pixel(const float* u, Shared* P) {
   P->pixel[3] = fminf(fmaxf(floorf(__fmul_rn(u[22], 3.f)), 0.f), 2.f) + 1.f;
 }
 
+// aug/image_aug.py:bright_from_draw: AddToBrightness's gate (u23) and offset
+// ~ U[-30/255, 30/255) (u24).
+__device__ void draw_bright(const float* u, Shared* P) {
+  P->pixel[NX] = u[23] < 0.5f ? 1.f : 0.f;
+  P->pixel[NX + 1] = __fadd_rn(__fmul_rn(u[24], (float)(60.0 / 255.0)),
+                               (float)(-30.0 / 255.0));
+}
+
 struct Mask {
   bool on, pick;
+  bool per_channel;          // RGB: Dropout and CoarseDropout per channel
+  bool fixed;                // the fixed grid: one bit a cell
   float p;
   uint32_t k0, k1;
   int W, wl;
@@ -307,6 +372,18 @@ __device__ __forceinline__ bool keep(const Mask& m, int y, int x) {
   if (!m.on) return true;
   if (m.pick) return da::hash_keep(m.k0, m.k1, (uint32_t)(y * m.W + x), m.p);
   return m.cell[m.frow[y] * m.wl + m.fcol[x]] != 0;
+}
+
+// channel c of an RGB pixel (image_aug.py's dropout ids y W + x, times 3
+// plus the channel when per channel; coarse cells likewise)
+__device__ __forceinline__ bool keep_rgb(const Mask& m, int y, int x, int c) {
+  if (!m.on) return true;
+  const uint32_t yx = (uint32_t)(y * m.W + x);
+  if (m.pick)
+    return da::hash_keep(m.k0, m.k1, m.per_channel ? yx * RGB_C + c : yx,
+                         m.p);
+  const int e = m.frow[y] * m.wl + m.fcol[x];
+  return m.cell[m.per_channel && !m.fixed ? e * RGB_C + c : e] != 0;
 }
 
 // a tap of the uint8 image reads x / 255 from a table of the 256 quotients
@@ -467,13 +544,17 @@ __device__ void run_order(const Args& a, const int (&n)[2],
 
 // The mask of the dropout op: Dropout hashes each pixel where it applies;
 // for CoarseDropout the threads build the cell of every row and column and
-// the keep bit of every cell: the random-size grid (programs 0 and 1) or
-// the fixed grid (programs 2 and 3).
+// the keep bit of every cell: the random-size grid (programs 0, 1, 4, 6) or
+// the fixed grid (programs 2, 3, 5, 7). With C = 3 channels and the draw's
+// per-channel bit, the random grid keeps a bit for each (cell, channel).
 __device__ Mask build_mask(const Shared* P, int H, int W, bool fixed,
-                           int cap, int* frow, int* fcol, uint8_t* cell) {
+                           int cap, int* frow, int* fcol, uint8_t* cell,
+                           int C = 1) {
   Mask mask;
   mask.on = P->drop[0] > 0.5f;
   mask.pick = P->drop[1] > 0.5f;
+  mask.per_channel = C > 1 && P->drop[4] > 0.5f;
+  mask.fixed = fixed;
   mask.p = P->drop[2];
   mask.k0 = P->k0;
   mask.k1 = P->k1;
@@ -509,9 +590,13 @@ __device__ Mask build_mask(const Shared* P, int H, int W, bool fixed,
     }
     // min: a size column outside [0, 1) breaks the contract, not the block
     const int cells = min((int)hl * mask.wl, cap);
-    for (int e = tid; e < cells; e += THREADS) {
-      const int cy = e / mask.wl, cx = e - cy * mask.wl;
-      cell[e] = da::hash_keep(mask.k0, mask.k1, cell_id(cy, cx, W), mask.p);
+    const int nc = mask.per_channel ? C : 1;
+    for (int e = tid; e < cells * nc; e += THREADS) {
+      const int ce = e / nc, ch = e - ce * nc;
+      const int cy = ce / mask.wl, cx = ce - cy * mask.wl;
+      const uint32_t id = cell_id(cy, cx, W);
+      cell[e] = da::hash_keep(mask.k0, mask.k1,
+                              mask.per_channel ? id * C + ch : id, mask.p);
     }
   }
   return mask;
@@ -650,6 +735,230 @@ __device__ void run_pixel_program(const Args& a, const Shared* P, Axis* tab,
   }
 }
 
+// -- programs 6 and 7: float RGB, three planes in f and g ---------------------
+
+// Where an RGB pass writes channel c of pixel i = y W + x: a plane of an
+// image in shared memory, or the output, interleaved.
+struct Planes {
+  float* p;
+  int HW;
+  __device__ __forceinline__ void operator()(int c, int i, float v) const {
+    p[c * HW + i] = v;
+  }
+};
+struct OutRGB {
+  float* p;
+  __device__ __forceinline__ void operator()(int c, int i, float v) const {
+    p[i * RGB_C + c] = v;
+  }
+};
+
+// One warp stage alone (_affine_warp) on the three planes of src: a warp
+// walks rows, lane l owns columns l + 32 k (k < NCOL), and each tap's
+// table entry serves all three channels.
+template <int NT, int NCOL, class Dst>
+__device__ void warp_rgb_pass(const Axis* tab, float cval, int H, int W,
+                              const float* src, Dst dst) {
+  const int lane = threadIdx.x & 31, HW = H * W;
+  const Axis* rows = tab;
+  const Axis* cols = tab + H;
+  int ci[NCOL][NT];
+  float cw[NCOL][NT], cr[NCOL];
+#pragma unroll
+  for (int k = 0; k < NCOL; ++k) {
+    const int col = min(lane + 32 * k, W - 1);
+    const Axis& e = cols[col];
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      ci[k][q] = e.idx[q];
+      cw[k][q] = e.w[q];
+    }
+    cr[k] = e.r;
+  }
+  for (int y = threadIdx.x >> 5; y < H; y += THREADS / 32) {
+    const Axis& ay = rows[y];
+    float acc[NCOL][RGB_C] = {};
+#pragma unroll
+    for (int a = 0; a < NT; ++a) {
+      const int base = ay.idx[a] * W;
+      const float wa = ay.w[a];
+#pragma unroll
+      for (int k = 0; k < NCOL; ++k) {
+#pragma unroll
+        for (int c = 0; c < RGB_C; ++c) {
+          float s = 0.f;
+#pragma unroll
+          for (int q = 0; q < NT; ++q)
+            s = fmaf(cw[k][q], src[c * HW + base + ci[k][q]], s);
+          acc[k][c] = fmaf(wa, s, acc[k][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NCOL; ++k) {
+      const int x = lane + 32 * k;
+      if (x >= W) break;
+      const float fill =
+          da::chain_fill(ay.r, 0.f, cr[k], 0.f, cval, 0.f, da::AFFINE);
+#pragma unroll
+      for (int c = 0; c < RGB_C; ++c)
+        dst(c, y * W + x, __fadd_rn(acc[k][c], fill));
+    }
+  }
+}
+
+// Warp stage st alone: its tap table (H rows, then W columns), then src ->
+// dst.
+template <class Dst>
+__device__ void warp_rgb(const float* st, Axis* tab, int H, int W,
+                         const float* src, Dst dst) {
+  const int nt = da::stage_taps(st);
+  for (int e = threadIdx.x; e < H + W; e += THREADS) {
+    if (e < H)
+      da::axis_entry(e, H, st, nullptr, 1, nt, &tab[e]);
+    else
+      da::axis_entry(e - H, W, st, nullptr, 0, nt, &tab[e]);
+  }
+  __syncthreads();
+  if (W <= 64) {
+    if (nt == 1)
+      warp_rgb_pass<1, 2>(tab, st[4], H, W, src, dst);
+    else
+      warp_rgb_pass<2, 2>(tab, st[4], H, W, src, dst);
+  } else {
+    if (nt == 1)
+      warp_rgb_pass<1, COLS>(tab, st[4], H, W, src, dst);
+    else
+      warp_rgb_pass<2, COLS>(tab, st[4], H, W, src, dst);
+  }
+}
+
+// A pixel op on RGB: op(i, y, x, v) gives pixel i's three channels, which
+// dst writes (times the mask's keep bits where apply_mask). A thread holds
+// one pixel; the lanes of a warp take neighbouring pixels.
+template <class Dst, class Op>
+__device__ void rgb_pass(int H, int W, Dst dst, const Mask& mask,
+                         bool apply_mask, Op op) {
+  for (int i = threadIdx.x; i < H * W; i += THREADS) {
+    const int y = i / W, x = i - y * W;
+    float v[RGB_C];
+    op(i, y, x, v);
+#pragma unroll
+    for (int c = 0; c < RGB_C; ++c) {
+      float o = v[c];
+      if (apply_mask) o = __fmul_rn(o, keep_rgb(mask, y, x, c) ? 1.f : 0.f);
+      dst(c, i, o);
+    }
+  }
+}
+
+// AddToBrightness (image_aug.py:brightness): V = max(R, G, B); V > 1e-6
+// scales every channel by clip(V + b, 0, 1) / max(V, 1e-6), else the gray
+// clip(max(b, 0), 0, 1).
+__device__ __forceinline__ void bright_px(const float (&x)[RGB_C], float b,
+                                          float (&o)[RGB_C]) {
+  const float v = fmaxf(fmaxf(x[0], x[1]), x[2]);
+  if (v > 1e-6f) {
+    const float scale = __fdiv_rn(fminf(fmaxf(__fadd_rn(v, b), 0.f), 1.f),
+                                  fmaxf(v, 1e-6f));
+#pragma unroll
+    for (int c = 0; c < RGB_C; ++c) o[c] = __fmul_rn(x[c], scale);
+  } else {
+    const float gray = fminf(fmaxf(__fadd_rn(0.f, fmaxf(b, 0.f)), 0.f), 1.f);
+#pragma unroll
+    for (int c = 0; c < RGB_C; ++c) o[c] = gray;
+  }
+}
+
+// Whether ShapeNet3D's op `op` changes the image: its Sometimes gate is on
+// (the blur's with k > 1; program 7's geometric has its gate set).
+__device__ __forceinline__ bool rgb_on(int op, const Shared* P,
+                                       const Mask& mask) {
+  switch (op) {
+    case S_CROP: return P->warp[0][6] > 0.5f;
+    case S_GAMMA: return P->pixel[0] > 0.5f;
+    case S_BRIGHT: return P->pixel[NX] > 0.5f;
+    case S_BLUR: return P->pixel[2] > 0.5f && P->pixel[3] > 1.5f;
+    case S_AFFINE: return P->warp[1][6] > 0.5f;
+    default: return mask.on;
+  }
+}
+
+// ShapeNet3D's op `op` on the planes of src into dst (the other image for a
+// warp or the blur, src itself otherwise, or the output); an op that is off
+// is a copy.
+template <class Dst>
+__device__ void rgb_op(int op, const Shared* P, Axis* tab, int H, int W,
+                       const float* src, Dst dst, const Mask& mask) {
+  const int HW = H * W;
+  const auto load = [&](int i, float (&v)[RGB_C]) {
+#pragma unroll
+    for (int c = 0; c < RGB_C; ++c) v[c] = src[c * HW + i];
+  };
+  const auto copy = [&](int i, int, int, float (&v)[RGB_C]) { load(i, v); };
+  if (!rgb_on(op, P, mask)) {
+    rgb_pass(H, W, dst, mask, false, copy);
+  } else if (op == S_CROP || op == S_AFFINE) {
+    warp_rgb(P->warp[op == S_AFFINE], tab, H, W, src, dst);
+  } else if (op == S_GAMMA) {
+    const float g = P->pixel[1];
+    rgb_pass(H, W, dst, mask, false, [&](int i, int, int, float (&v)[RGB_C]) {
+      load(i, v);
+#pragma unroll
+      for (int c = 0; c < RGB_C; ++c) v[c] = da::gamma_px(v[c], g);
+    });
+  } else if (op == S_BRIGHT) {
+    const float b = P->pixel[NX + 1];
+    rgb_pass(H, W, dst, mask, false, [&](int i, int, int, float (&v)[RGB_C]) {
+      float x[RGB_C];
+      load(i, x);
+      bright_px(x, b, v);
+    });
+  } else if (op == S_BLUR) {
+    const int k = (int)P->pixel[3];
+    rgb_pass(H, W, dst, mask, false,
+             [&](int, int y, int x, float (&v)[RGB_C]) {
+#pragma unroll
+               for (int c = 0; c < RGB_C; ++c)
+                 v[c] = da::blur_px(src + c * HW, H, W, y, x, k,
+                                    da::RoundF32{});
+             });
+  } else {
+    rgb_pass(H, W, dst, mask, true, copy);
+  }
+}
+
+// Programs 6 and 7 on f (the image's three planes), with g the second image:
+// program 6's drawn order of the six ops, or program 7's fixed one
+// (geometric, the warp of row 0 with its gate set, then GammaContrast,
+// AddToBrightness, AverageBlur and the fixed-grid mask); the last op writes
+// the output.
+template <int PROG>
+__device__ void run_rgb_program(const Shared* P, Axis* tab, int H, int W,
+                                float* f, float* g, const Mask& mask,
+                                float* out) {
+  const int FIXED[5] = {S_CROP, S_GAMMA, S_BRIGHT, S_BLUR, S_DROP};
+  constexpr int n = PROG == SHAPENET3D_FIXED ? 5 : NRGB;
+  float* cur = f;
+  float* other = g;
+  for (int s = 0; s < n; ++s) {
+    const int op = PROG == SHAPENET3D_FIXED ? FIXED[s] : P->perm[s];
+    const bool moves = op == S_CROP || op == S_AFFINE || op == S_BLUR;
+    if (s == n - 1) {
+      rgb_op(op, P, tab, H, W, cur, OutRGB{out}, mask);
+    } else if (rgb_on(op, P, mask)) {
+      rgb_op(op, P, tab, H, W, cur, Planes{moves ? other : cur, H * W},
+             mask);
+      if (moves) {
+        float* t = cur;
+        cur = other;
+        other = t;
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // Program 0 after the staging (the header's "Design").
 __device__ void run_shapenet1d(const Args& a, const Layout& L, Shared* P,
                                uint8_t* src8, float* fbuf, Axis* tab,
@@ -708,7 +1017,7 @@ template <int PROG>
 __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = a.H, W = a.W, HW = H * W;
-  const Layout L = layout(H, W, pixel_ops(PROG));
+  const Layout L = layout(H, W, PROG);
   uint8_t* src8 = smem;
   float* fbuf = reinterpret_cast<float*>(smem + L.f);
   float* gbuf = reinterpret_cast<float*>(smem + L.g);
@@ -721,16 +1030,20 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
   const int tid = threadIdx.x, b = blockIdx.x;
 
+  const int t = b / a.S, s = b - t * a.S;
+  const char* image = static_cast<const char*>(a.x) + t * a.st + s * a.ss;
   stamp(a, 0);
   if (tid == 0) {
-    tc::bar_init(bar, 1);
-    tc::bar_init_fence();
-    const int t = b / a.S, s = b - t * a.S;
-    tc::bulk_load(src8, a.x + t * a.st + s * a.ss, HW, bar);
-    const float* u = a.u + (size_t)b * (pixel_ops(PROG) ? NU_PIXEL : NU);
+    if constexpr (!rgb(PROG)) {
+      tc::bar_init(bar, 1);
+      tc::bar_init_fence();
+      tc::bulk_load(src8, image, HW, bar);
+    }
+    const float* u = a.u + (size_t)b * program_nu(PROG);
     draw_params(u, H, W, P);
     if (geometric(PROG)) draw_geometric(u, H, W, P);
     if (pixel_ops(PROG)) draw_pixel(u, P);
+    if (rgb(PROG)) draw_bright(u, P);
     P->k0 = (uint32_t)a.keys[2 * b];
     P->k1 = (uint32_t)a.keys[2 * b + 1];
     if (PROG == SHAPENET1D)
@@ -740,23 +1053,43 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
       da::decode_order(P->order, NPASCAL, P->perm);
     }
     if (PROG == DISTRACTOR) P->order = (int)(((a.order[0] % 2) + 2) % 2);
+    if (PROG == SHAPENET3D) {
+      P->order = (int)(((a.order[0] % 720) + 720) % 720);
+      da::decode_order(P->order, NRGB, P->perm);
+    }
     if (a.params_out != nullptr) {
-      const int width = PROG == SHAPENET1D ? NPARAMS : NPARAMS_PIXEL;
+      const int width = program_nparams(PROG);
       float* o = a.params_out + (size_t)b * width;
       for (int i = 0; i < NP; ++i) {
         o[i] = P->warp[0][i];
         o[NP + i] = P->warp[1][i];
       }
       for (int i = 0; i < ND; ++i) o[2 * NP + i] = P->drop[i];
-      if (PROG != SHAPENET1D)
-        for (int i = 0; i < NX; ++i)
-          o[NPARAMS + i] = pixel_ops(PROG) ? P->pixel[i] : 0.f;
+      for (int i = NPARAMS; i < width; ++i)
+        o[i] = pixel_ops(PROG) ? P->pixel[i - NPARAMS] : 0.f;
     }
   }
   __syncthreads();
 
   if constexpr (PROG == SHAPENET1D) {
     run_shapenet1d(a, L, P, src8, fbuf, tab, lut, frow, fcol, cell, bar);
+  } else if constexpr (rgb(PROG)) {
+    const Mask mask = build_mask(P, H, W, fixed_order(PROG), L.cap, frow,
+                                 fcol, cell, RGB_C);
+    stamp(a, 1);
+    // the RGBA image's first three channels into f's three planes
+    const float4* x4 = reinterpret_cast<const float4*>(image);
+    for (int i = tid; i < HW; i += THREADS) {
+      const float4 v = x4[i];
+      fbuf[i] = v.x;
+      fbuf[HW + i] = v.y;
+      fbuf[2 * HW + i] = v.z;
+    }
+    __syncthreads();
+    stamp(a, 2);
+    stamp(a, 3);
+    run_rgb_program<PROG>(P, tab, H, W, fbuf, gbuf, mask,
+                          static_cast<float*>(a.out) + (size_t)b * HW * RGB_C);
   } else {
     for (int i = tid; i < 256; i += THREADS) {
       const float q = __fdiv_rn((float)i, 255.f);
@@ -810,24 +1143,27 @@ cudaError_t launch(const Args& a, int B, int smem, int dev,
 
 // the dynamic shared memory a block of ``program`` takes for H x W images
 extern "C" int wmfml_image_da_smem_bytes(int program, int H, int W) {
-  return layout(H, W, pixel_ops(program)).total;
+  return layout(H, W, program).total;
 }
 
 // x: uint8 images, image (t, s) at x + t st + s ss (bytes), each H x W x 1
-// contiguous and 16-byte aligned, B = T S of them with S per task; u [B,
-// 19] f32 ([B, 23] for the Pascal programs; column 12 in [0, 1)), keys [B,
-// 2] i32, order [1] i64 (read modulo 6, 120 for Pascal1D or 2 for
-// Distractor; null for the fixed programs), out [B, H, W] f32 (bf16 = 0) or
-// bf16 (bf16 = 1; not for programs 4 and 5), all
-// contiguous on the current device; params_out null or [B, 19] f32 for
-// program 0, [B, 23] for the others (the parameters the kernel computed:
-// warp [2, 7], drop [5], then the pixel ops' [4]); stamps null or [B, 5]
-// i64 (the phase clock); program 0-5 (Program). W a multiple of 4 and at
-// most 128, H W a multiple of 16, the image in one block's shared memory;
-// the fixed programs also need H and W multiples of their grid's cells.
+// contiguous and 16-byte aligned (programs 6 and 7: float32 RGBA, H x W x 4
+// contiguous), B = T S of them with S per task; u [B, 19] f32 ([B, 23] for
+// the Pascal programs, [B, 25] for ShapeNet3D's; column 12 in [0, 1)), keys
+// [B, 2] i32, order [1] i64 (read modulo 6, 120 for Pascal1D, 2 for
+// Distractor or 720 for ShapeNet3D; null for the fixed programs), out [B,
+// H, W] f32 (bf16 = 0) or bf16 (bf16 = 1; not for programs 4-7; programs 6
+// and 7 write [B, H, W, 3] f32), all contiguous on the current device;
+// params_out null or [B, 19] f32 for program 0, [B, 25] for programs 6 and
+// 7, [B, 23] for the others (the parameters the kernel computed: warp [2,
+// 7], drop [5], then the pixel ops' [4] and brightness's [2]); stamps null
+// or [B, 5] i64 (the phase clock); program 0-7 (Program). W a multiple of 4
+// and at most 128, H W a multiple of 16, the image in one block's shared
+// memory; the fixed programs also need H and W multiples of their grid's
+// cells.
 // Returns the cudaError_t of the launch, or -1 for a shape or program the
 // kernel does not take.
-extern "C" int wmfml_image_da_fwd(const unsigned char* x, long long st,
+extern "C" int wmfml_image_da_fwd(const void* x, long long st,
                                   long long ss, int S, int B, const float* u,
                                   const int* keys, const long long* order,
                                   void* out, float* params_out,
@@ -840,8 +1176,8 @@ extern "C" int wmfml_image_da_fwd(const unsigned char* x, long long st,
       (H % da::fixed_cells(H) || W % da::fixed_cells(W)))
     return -1;
   if (!fixed_order(program) && order == nullptr) return -1;
-  if (inverted(program) && bf16) return -1;
-  const int smem = layout(H, W, pixel_ops(program)).total;
+  if ((inverted(program) || rgb(program)) && bf16) return -1;
+  const int smem = layout(H, W, program).total;
   if (smem > MAX_SMEM) return -1;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -858,7 +1194,11 @@ extern "C" int wmfml_image_da_fwd(const unsigned char* x, long long st,
       break;
     case PASCAL_FIXED: err = launch<PASCAL_FIXED>(a, B, smem, dev, s); break;
     case DISTRACTOR: err = launch<DISTRACTOR>(a, B, smem, dev, s); break;
-    default: err = launch<DISTRACTOR_FIXED>(a, B, smem, dev, s); break;
+    case DISTRACTOR_FIXED:
+      err = launch<DISTRACTOR_FIXED>(a, B, smem, dev, s);
+      break;
+    case SHAPENET3D: err = launch<SHAPENET3D>(a, B, smem, dev, s); break;
+    default: err = launch<SHAPENET3D_FIXED>(a, B, smem, dev, s); break;
   }
   return (int)err;
 }

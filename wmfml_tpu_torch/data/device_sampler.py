@@ -2,7 +2,9 @@
 
 The train splits are small (ShapeNet1D 60 x 50 x 128 x 128 uint8 = 49 MB,
 synthetic Pascal1D 40 x 50 x 128 x 128 = 33 MB, synthetic Distractor 48
-objects x 36 views x 128 x 128 = 28 MB), so the split is uploaded
+objects x 36 views x 128 x 128 = 28 MB, synthetic ShapeNet3D 240 items x
+30 views x 64 x 64 x 4 float32 = 472 MB and its 200 backgrounds of 64 x 64
+x 3 float32, 9.8 MB), so the split is uploaded
 once and every training episode is gathered on the device from a
 ``torch.Generator`` on that device; no image crosses the host link after
 set-up. Semantics of the JAX package's sampler
@@ -15,8 +17,14 @@ set-up. Semantics of the JAX package's sampler
     (``shot_min`` 3 for ShapeNet1D, 1 for Distractor; ``max_ctx`` for
     Pascal1D, whose shot is fixed, ``from_dataset`` as ``:125-136``);
   * labels scaled by ``label_scale`` (2*pi for ShapeNet1D; 1 for Pascal1D,
-    whose labels the episode processor scales, and for Distractor, whose
-    labels are the objects' pixel centres).
+    whose labels the episode processor scales, for Distractor, whose
+    labels are the objects' pixel centres, and for ShapeNet3D's
+    quaternions);
+  * ShapeNet3D with ``gen_bg``: every batch is composited on backgrounds
+    drawn for it (``composite``: ``randint(0, 200, [T, N])`` from the
+    generator, the context's draw, then the queries'), with the bank
+    resident on the card, as ``wmfml_tpu/data/device_sampler.py:96-110``
+    composites it; plain elementwise work inside the captured step.
 
 The draws differ from the JAX package's (Philox against threefry); the
 distribution is the same.
@@ -32,7 +40,7 @@ host, so it can be captured.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -42,7 +50,8 @@ class DeviceEpisodeSampler:
     """Wraps a dense train split [groups, instances, ...] on ``device``."""
 
     def __init__(self, x: np.ndarray, y: np.ndarray, max_ctx: int, query: int,
-                 shot_min: int, label_scale: float, device):
+                 shot_min: int, label_scale: float, device,
+                 bg: Optional[np.ndarray] = None):
         self.max_ctx, self.query, self.shot_min = max_ctx, query, shot_min
         self.label_scale = label_scale
         self.n_groups, self.n_inst = x.shape[0], x.shape[1]
@@ -51,10 +60,12 @@ class DeviceEpisodeSampler:
                              f"have {self.n_inst}")
         self.x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
         self.y = torch.from_numpy(np.asarray(y, np.float32)).to(device)
+        self.bg = (None if bg is None else
+                   torch.from_numpy(np.asarray(bg, np.float32)).to(device))
 
     # task -> (shot_min, label_scale); shot_min None is max_ctx_num
     TASKS = {"shapenet_1d": (3, 2.0 * np.pi), "pascal_1d": (None, 1.0),
-             "distractor": (1, 1.0)}
+             "distractor": (1, 1.0), "shapenet_3d": (1, 1.0)}
 
     @classmethod
     def from_dataset(cls, data, config, device) -> "DeviceEpisodeSampler":
@@ -64,10 +75,20 @@ class DeviceEpisodeSampler:
                 f"device sampling is ported for {sorted(cls.TASKS)}; got "
                 f"{task!r}")
         shot_min, label_scale = cls.TASKS[task]
+        gen_bg = task == "shapenet_3d" and config.gen_bg
         return cls(data.x_train, data.y_train, max_ctx=config.max_ctx_num,
                    query=config.query_num,
                    shot_min=config.max_ctx_num if shot_min is None
-                   else shot_min, label_scale=label_scale, device=device)
+                   else shot_min, label_scale=label_scale, device=device,
+                   bg=data.bg_imgs if gen_bg else None)
+
+    def composite(self, images: torch.Tensor,
+                  idx: torch.Tensor) -> torch.Tensor:
+        """RGBA ``images`` [T, N, H, W, 4] on backgrounds ``idx`` [T, N]:
+        ``rgb fg + bg[idx] (1 - fg)`` with fg = alpha < 1, alpha kept."""
+        fg = (images[..., 3:4] < 1.0).to(images.dtype)
+        rgb = images[..., :3] * fg + self.bg[idx] * (1.0 - fg)
+        return torch.cat([rgb, images[..., 3:4]], -1)
 
     def sample(self, tasks_per_batch: int,
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -82,5 +103,11 @@ class DeviceEpisodeSampler:
         shot = torch.randint(self.shot_min, s + 1, (), device=dev,
                              generator=generator)
         mask = (torch.arange(s, device=dev)[None, :] < shot).expand(t, s)
-        return dict(ctx_x=xs[:, :s], ctx_y=ys[:, :s], ctx_mask=mask,
-                    qry_x=xs[:, s:], qry_y=ys[:, s:])
+        ctx_x, qry_x = xs[:, :s], xs[:, s:]
+        if self.bg is not None:
+            n_bg = self.bg.shape[0]
+            ctx_x, qry_x = (self.composite(x, torch.randint(
+                0, n_bg, x.shape[:2], device=dev, generator=generator))
+                for x in (ctx_x, qry_x))
+        return dict(ctx_x=ctx_x, ctx_y=ys[:, :s], ctx_mask=mask,
+                    qry_x=qry_x, qry_y=ys[:, s:])

@@ -8,7 +8,9 @@ same episodes as the JAX package's host sweep (``_sweep_source`` /
 ``_validate_iter``, :128-154). With Distractor's eval-mode data
 (``build_data(config, mode="eval")``) an episode's queries are all 36 views
 of its object, the context views among them, and its loss is the mean pixel
-distance. It writes ``val_losses.txt`` and
+distance; with ShapeNet3D's they are all 30 views of the item, the loss the
+quaternion L1, and the backgrounds are the pickles' (the JAX evaluator
+recomposites only in ``refine``). It writes ``val_losses.txt`` and
 ``test_losses.txt`` (index, mean loss, std over the episodes with
 ddof = 1, ``%1.4f``), saves the model as ``models/model.pt`` and draws
 ``loss_vs_ctx_num.png`` where matplotlib is installed (where it is not, it
@@ -25,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 
 from wmfml_tpu_torch.ckpt.checkpoint import CheckpointManager
+from wmfml_tpu_torch.cli.common import set_numerics
 from wmfml_tpu_torch.train.maml import build_maml_eval_step
 from wmfml_tpu_torch.train.steps import build_eval_step, require_device
 from wmfml_tpu_torch.train.trainer import episode_to_device
@@ -36,6 +39,7 @@ class ModelEvaluator:
         self.data = data
         self.logger = config.logger
         self.device = require_device(config.device)
+        set_numerics()
         self.model = model.to(self.device)
         self.ckpt = CheckpointManager(config.save_path)
         self.step = 0

@@ -1,9 +1,10 @@
 """K6: image data augmentation of one augmenter call in one launch.
 
 Replaces ``wmfml_tpu/aug/pipeline.py:_to_float`` and the augmenters of
-``wmfml_tpu/aug/image_aug.py`` for one call: uint8 images in, float32
-images out, the op order and every image's parameters computed on the card
-from the call's raw draws. The images come out in float32 or, for
+``wmfml_tpu/aug/image_aug.py`` for one call: uint8 images in (ShapeNet3D's:
+float32 RGB, the RGB channels of the sampler's RGBA batch), float32 images
+out, the op order and every image's parameters computed on the card from
+the call's raw draws. The images come out in float32 or, for
 ``compute_dtype: bfloat16``, in bfloat16, rounded where the JAX package
 rounds them: x / 255 and the end of every op (or run of adjacent warps)
 that returns ``img.dtype``; the masks are exact. ``csrc/image_da.cu`` says
@@ -19,11 +20,18 @@ The op programs (``PROGRAMS``; ``aug/image_aug.py`` has each one's twin):
   * ``distractor``: Distractor's two ops (Affine alone, the dropout op) in
     one of 2! drawn orders, on the inverted image 1 - x / 255;
     ``distractor_fixed``: Affine, then the fixed-grid dropout op, on the
-    inverted image. Both write float32 only (ROADMAP.md A24).
+    inverted image. Both write float32 only (ROADMAP.md A24);
+  * ``shapenet_3d``: ShapeNet3D's six ops (CropAndPad, GammaContrast,
+    AddToBrightness, AverageBlur, Affine, the dropout op) in one of 6!
+    drawn orders on float RGB, each op alone; ``shapenet_3d_fixed``:
+    geometric, GammaContrast, AddToBrightness, AverageBlur, then the
+    fixed-grid dropout op. Both write float32 only (ROADMAP.md A24).
 
 ``image_da(x, u, keys, order, dtype, program)`` is the wrapper the
 augmenters call: ``x`` uint8 [B, H, W, 1] or [T, S, H, W, 1] (read through
-its T and S strides, not copied), ``u`` float32 [B, NU[program]] (the
+its T and S strides, not copied; ShapeNet3D's programs: float32 [..., H, W,
+3], the RGB view of an RGBA tensor, pixels 4 floats apart), ``u`` float32
+[B, NU[program]] (the
 uniforms of the program's ``params_from_draw``; column 12, which sizes the
 CoarseDropout grid, in [0, 1)), ``keys`` int32 [B, 2], ``order`` int64 [1]
 (an index into the program's orders, read modulo their count; None for the
@@ -46,35 +54,43 @@ from wmfml_tpu_torch.kernels import build
 
 # K6's op programs, in csrc/image_da.cu's order (its Program)
 PROGRAMS = ("shapenet_1d", "pascal_1d", "shapenet_1d_fixed",
-            "pascal_1d_fixed", "distractor", "distractor_fixed")
+            "pascal_1d_fixed", "distractor", "distractor_fixed",
+            "shapenet_3d", "shapenet_3d_fixed")
 NU = 19                 # uniforms per image (ShapeNet1D's programs)
 NU_PIXEL = NU + 4       # with the pixel ops' (Pascal1D's programs)
+NU_RGB = NU_PIXEL + 2   # and brightness's (ShapeNet3D's programs)
 PROGRAM_NU = {"shapenet_1d": NU, "pascal_1d": NU_PIXEL,
               "shapenet_1d_fixed": NU, "pascal_1d_fixed": NU_PIXEL,
-              "distractor": NU, "distractor_fixed": NU}
-# op orders a call draws from (3!, 5! and 2!; 1: the fixed programs, no
+              "distractor": NU, "distractor_fixed": NU,
+              "shapenet_3d": NU_RGB, "shapenet_3d_fixed": NU_RGB}
+# op orders a call draws from (3!, 5!, 2! and 6!; 1: the fixed programs, no
 # order)
 PROGRAM_ORDERS = {"shapenet_1d": 6, "pascal_1d": 120,
                   "shapenet_1d_fixed": 1, "pascal_1d_fixed": 1,
-                  "distractor": 2, "distractor_fixed": 1}
+                  "distractor": 2, "distractor_fixed": 1,
+                  "shapenet_3d": 720, "shapenet_3d_fixed": 1}
 # the programs whose first op is ``geometric`` (CropAndPad and Affine as one
 # warp: ``aug/image_aug.py:geometric_from_draw``)
-GEOMETRIC = ("shapenet_1d_fixed", "pascal_1d_fixed")
-# the programs that take float32 output only (Distractor's)
-FLOAT32_ONLY = ("distractor", "distractor_fixed")
+GEOMETRIC = ("shapenet_1d_fixed", "pascal_1d_fixed", "shapenet_3d_fixed")
+# the programs on float RGB (ShapeNet3D's: C = 3, read from RGBA)
+RGB = ("shapenet_3d", "shapenet_3d_fixed")
+# the programs that take float32 output only (Distractor's, ShapeNet3D's)
+FLOAT32_ONLY = ("distractor", "distractor_fixed") + RGB
 NPARAMS = 2 * 7 + 5     # the kernel's parameter row: warp [2, 7], drop [5]
-NPARAMS_PIXEL = NPARAMS + 4    # then the pixel ops' [4] (programs 1-3)
+NPARAMS_PIXEL = NPARAMS + 4    # then the pixel ops' [4] (programs 1-5)
+NPARAMS_RGB = NPARAMS_PIXEL + 2    # and brightness's [2] (programs 6, 7)
 # the kernel's phase clock (csrc/image_da.cu: stamp)
 PHASES = ("start", "tables_built", "image_staged", "mask_or_first_pass_done",
           "end")
 STAMPS = len(PHASES)
 UNSUPPORTED = ("image DA kernel takes uint8 [B, H, W, 1] or [T, S, H, W, 1] "
-               "images with W a multiple of 4 (at most 128), H W a multiple "
-               "of 16 and the image in one block's shared memory (the fixed "
-               "programs: H and W multiples of their grid's max(n // 16, 1) "
-               "cells, as the JAX package's repeat needs); other channel "
-               "counts and sizes (ShapeNet3D's RGB, larger images) are "
-               "ROADMAP.md A12c")
+               "images (ShapeNet3D's programs: float32 [..., H, W, 3], the "
+               "RGB channels of an RGBA tensor) with W a multiple of 4 (at "
+               "most 128), H W a multiple of 16 and the image in one "
+               "block's shared memory (the fixed programs: H and W "
+               "multiples of their grid's max(n // 16, 1) cells, as the JAX "
+               "package's repeat needs); no shipped configuration has "
+               "other channel counts or sizes")
 
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -82,14 +98,16 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def nparams(program: str) -> int:
     """The width of the kernel's parameter row (``params_out``)."""
-    return NPARAMS if program == "shapenet_1d" else NPARAMS_PIXEL
+    if program == "shapenet_1d":
+        return NPARAMS
+    return NPARAMS_RGB if program in RGB else NPARAMS_PIXEL
 
 
 def image_da_plain(x, u, keys, order, dtype=torch.float32,
                    program="shapenet_1d"):
     """The twin: the program's ``params_from_draw``, then its
-    ``program_input`` (x / 255 rounded to ``dtype``, or Distractor's
-    1 - x / 255) through its ``apply``."""
+    ``program_input`` (x / 255 rounded to ``dtype``, Distractor's
+    1 - x / 255, or ShapeNet3D's float images) through its ``apply``."""
     from wmfml_tpu_torch.aug.image_aug import (apply_program, params_for,
                                                program_input)
 
@@ -131,14 +149,15 @@ def image_da_launch(x, u, keys, order, dtype=torch.float32,
     if (order is None) != fixed:
         raise ValueError(f"image DA program {program!r} takes "
                          f"{'no' if fixed else 'an'} order")
-    if (not x.is_cuda or x.dtype != torch.uint8
+    rgb = program in RGB
+    if (not x.is_cuda or x.dtype != (torch.float32 if rgb else torch.uint8)
             or any(t.device != x.device for t in (u, keys))
             or u.dtype != torch.float32 or keys.dtype != torch.int32
             or (order is not None and (order.device != x.device
                                        or order.dtype != torch.int64))):
-        raise TypeError("image DA kernel takes uint8 images, float32 "
-                        "uniforms, int32 keys and an int64 order, all on one "
-                        "CUDA device")
+        raise TypeError("image DA kernel takes uint8 images (ShapeNet3D's "
+                        "programs: float32), float32 uniforms, int32 keys "
+                        "and an int64 order, all on one CUDA device")
     dtypes = (torch.float32,) if program in FLOAT32_ONLY else DTYPES
     if dtype not in dtypes:
         raise TypeError(f"image DA program {program!r} writes one of "
@@ -151,8 +170,12 @@ def image_da_launch(x, u, keys, order, dtype=torch.float32,
         raise ValueError(f"{UNSUPPORTED}; got {tuple(x.shape)}")
     h, w, c = x.shape[-3:]
     b = t_ * s_
-    if (c != 1 or w % 4 or w > 128 or (h * w) % 16
-            or x.stride()[-3:] != (w * c, c, 1) or x.data_ptr() % 16
+    # element strides of a pixel, a row and an image: uint8 C = 1 dense, or
+    # RGB read from RGBA, 4 floats a pixel
+    pix = 4 if rgb else 1
+    st, ss = st * x.element_size(), ss * x.element_size()
+    if (c != (3 if rgb else 1) or w % 4 or w > 128 or (h * w) % 16
+            or x.stride()[-3:] != (w * pix, pix, 1) or x.data_ptr() % 16
             or st % 16 or ss % 16):
         raise ValueError(f"{UNSUPPORTED}; got {tuple(x.shape)} with strides "
                          f"{x.stride()}")

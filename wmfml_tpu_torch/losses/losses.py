@@ -6,7 +6,10 @@
                           in float32 whatever the model's dtype;
   * pascal_1d           — plain MSE;
   * distractor          — mean Euclidean distance in pixels, train and
-                          test alike.
+                          test alike;
+  * shapenet_3d         — L1 between the label quaternion and the unit-
+                          normalised prediction, the smaller over the
+                          prediction's two signs, train and test alike.
 
 As in the JAX package, ``degree_loss`` clips cos into [-1, 1] before acos.
 """
@@ -51,6 +54,16 @@ def euclidean_distance_loss(gt_y, pr_mu, mask=None):
     return _masked_mean(d, mask)
 
 
+def quaternion_loss(q_gt, q_pr, mask=None, eps: float = 1e-12):
+    """L1 between ``q_gt`` and ``q_pr`` / max(|q_pr|, eps), min over the
+    antipodes."""
+    norm = torch.sqrt((q_pr ** 2).sum(-1, keepdim=True))
+    q_pr = q_pr / norm.clamp_min(eps)
+    pos = (q_gt - q_pr).abs().sum(-1)
+    neg = (-q_gt - q_pr).abs().sum(-1)
+    return _masked_mean(torch.minimum(pos, neg), mask)
+
+
 def mean_square_loss(q_gt, q_pr, mask=None):
     se = (q_gt - q_pr) ** 2
     return _masked_mean(se, None if mask is None else mask[..., None])
@@ -63,15 +76,18 @@ class LossFunc:
         if loss_type != "mse":
             raise NotImplementedError(
                 f"loss_type={loss_type!r}: only 'mse' is implemented")
-        if task not in ("shapenet_1d", "pascal_1d", "distractor"):
+        if task not in ("shapenet_1d", "pascal_1d", "distractor",
+                        "shapenet_3d"):
             raise NotImplementedError(
-                f"losses for {task!r} are not ported yet (ROADMAP.md A6)")
+                f"task {task!r} has no loss, in the JAX package either")
         self.task = task
 
     def calc_loss(self, pr_mu, pr_var, gt_y, test: bool = False, mask=None):
         del pr_var
         if self.task == "distractor":
             return euclidean_distance_loss(gt_y, pr_mu, mask)
+        if self.task == "shapenet_3d":
+            return quaternion_loss(gt_y, pr_mu, mask)
         if self.task == "shapenet_1d":
             return (degree_loss(gt_y, pr_mu, mask) if test
                     else azimuth_loss(gt_y, pr_mu, mask))

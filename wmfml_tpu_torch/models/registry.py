@@ -1,9 +1,9 @@
 """Model registry: reference method names -> port modules.
 
 The four literature-encoder methods of ``wmfml_tpu/models/registry.py:60-81``,
-CNPDistractor / ANPDistractor (``:86-111``) and MAMLShapeNet1D /
-VanillaMAML (``:182-192``) are ported; every other method raises and names
-the ROADMAP item that ports it.
+ShapeNet3D's CondNeuralProcess / ANP and CNPDistractor / ANPDistractor
+(``:86-111``) and MAMLShapeNet1D / VanillaMAML (``:182-192``) are ported;
+every other method raises and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from wmfml_tpu_torch.ops.cast import set_compute_dtype
 _REGISTRY: Dict[str, Callable] = {}
 
 NOT_PORTED = {
-    "CondNeuralProcess": "A12c", "ANP": "A12c", "CNPMR": "A13", "CNPMRShapeNet1D": "A13",
+    "CNPMR": "A13", "CNPMRShapeNet1D": "A13",
     "ANPMR": "A13", "ANPMRShapeNet1D": "A13", "ANPMRShapeNet3D": "A13",
     "FCLCNPShapeNet1D": "A13", "FCLCNPDistractor": "A13", "FCLANP": "A13",
     "MAMLMR": "A13", "MAMLMRShapeNet1D": "A13", "MMAMLShapeNet1D": "A16",
@@ -93,21 +93,36 @@ def _(config, generator):
     return _small(config, "attention", False, generator)
 
 
-def _large(config, agg_mode, generator):
+def _large(config, agg_mode, generator, label_embed=None):
+    """LargeCNP on the task's images; ShapeNet3D's alpha is stripped before
+    the model (``aug/pipeline.py``), so its trunk reads 3 channels of 4."""
+    h, w, c = config.img_size
+    if config.task == "shapenet_3d":
+        c -= 1
     return LargeCNP(
         img_agg=config.img_agg, agg_mode=agg_mode, y_dim=config.output_dim,
-        label_dim=config.input_dim, label_embed_dim=config.dim_w,
-        img_size=config.img_size, generator=generator)
+        label_dim=config.input_dim, label_embed_dim=label_embed,
+        img_size=(h, w, c), generator=generator)
 
 
-@register("CNPDistractor")
+@register("CondNeuralProcess")
 def _(config, generator):
     return _large(config, config.agg_mode, generator)
 
 
-@register("ANPDistractor")
+@register("ANP")
 def _(config, generator):
     return _large(config, "attention", generator)
+
+
+@register("CNPDistractor")
+def _(config, generator):
+    return _large(config, config.agg_mode, generator, config.dim_w)
+
+
+@register("ANPDistractor")
+def _(config, generator):
+    return _large(config, "attention", generator, config.dim_w)
 
 
 def _maml(config, tanh_out, generator):

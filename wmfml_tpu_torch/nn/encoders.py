@@ -1,5 +1,6 @@
 """The image encoders: the literature encoder (ShapeNet1D / Pascal1D
-families) and the ResNet trunk (the LargeCNP family: Distractor).
+families) and the ResNet trunk (the LargeCNP family: Distractor,
+ShapeNet3D).
 
 conv3x3 s2 (C->32) / ReLU / conv3x3 s2 (32->48) / ReLU / maxpool2 /
 conv3x3 s2 (48->64) / ReLU / flatten / linear(->dim_w), as
@@ -30,7 +31,9 @@ max / baco -> ``adaptive_max_pool`` to 2 x 2 (256), reshape -> the whole map
 CHW, as the reference flattens them (the JAX package flattens HWC:
 ``ckpt/jax_params.py`` permutes every consumer). These are plain dense
 convolutions, which the JAX package leaves to XLA outside any Pallas
-kernel; here cuDNN runs them, in float32.
+kernel; here cuDNN runs them, in float32. ``load_pretrained_resnet`` copies
+a torchvision-style ResNet's compatible block convolutions into a trunk
+from a ``state_dict`` the caller has loaded; nothing is fetched.
 """
 
 from __future__ import annotations
@@ -174,6 +177,28 @@ class ResNetTrunk(nn.Module):
         if self.img_agg in ("max", "baco"):
             x = adaptive_max_pool(x, 2)
         return x.flatten(1)
+
+
+def load_pretrained_resnet(trunk: ResNetTrunk, state_dict_numpy):
+    """Copy every ``layer{i}.0.conv{j}.weight`` of a torchvision-style
+    ResNet ``state_dict`` (numpy arrays, OIHW) whose shape fits into
+    ``trunk`` (``wmfml_tpu/nn/encoders.py:566 load_pretrained_resnet``);
+    return the keys it skipped. The reference's own pretrained branch loads
+    resnet18 strictly into its modified trunk and fails; this hook copies
+    what fits and says what did not."""
+    skipped = []
+    for key, val in state_dict_numpy.items():
+        parts = key.split(".")
+        if (len(parts) == 4 and parts[0] in {f"layer{i}" for i in range(1, 5)}
+                and parts[1] == "0" and parts[2] in ("conv1", "conv2")
+                and parts[3] == "weight"):
+            conv = getattr(getattr(trunk.resnet, parts[0])[0], parts[2])
+            if tuple(conv.weight.shape) == tuple(val.shape):
+                with torch.no_grad():
+                    conv.weight.copy_(torch.as_tensor(val))
+                continue
+        skipped.append(key)
+    return skipped
 
 
 def trunk_feature_dim(img_agg: str, img_hw: int) -> int:

@@ -16,7 +16,12 @@
     validation cadence; a non-finite loss raises ``NonFiniteLossError``;
   * one random generator on the device draws every episode, DA and TA draw
     of training; checkpoints hold its state, so a run resumed from one
-    draws what an unbroken run would have drawn.
+    draws what an unbroken run would have drawn;
+  * ShapeNet3D with ``gen_bg``: ``train()`` first composites new
+    backgrounds into the host splits (``data.gen_bg``), after the device
+    sampler took the train split in ``__init__``, as the JAX trainer
+    orders them; validation reads those host splits, and every training
+    batch is composited on the card by the sampler.
 
 ``timing`` holds the training steps and host seconds between the first and
 the last loss read (each read waits for the card), validation excluded.
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from wmfml_tpu_torch.ckpt.checkpoint import CheckpointManager
+from wmfml_tpu_torch.cli.common import set_numerics
 from wmfml_tpu_torch.data.device_sampler import DeviceEpisodeSampler
 from wmfml_tpu_torch.obs.guards import check_finite
 from wmfml_tpu_torch.obs.metrics import MetricsWriter
@@ -48,6 +54,7 @@ class ModelTrainer:
         self.data = data
         self.logger = config.logger
         self.device = require_device(config.device)
+        set_numerics()
         self.model = model.to(self.device)
         self.optimizer = build_optimizer(config, self.model.parameters())
         self.sampler = DeviceEpisodeSampler.from_dataset(data, config,
@@ -84,6 +91,8 @@ class ModelTrainer:
         k = self.steps_per_call
         pending = None       # (iteration, mean loss of its K steps on device)
         timer = None         # (host time, steps) at the last loss read
+        if cfg.task == "shapenet_3d" and cfg.gen_bg:
+            self.data.gen_bg(cfg)
         for it in range(self.step, cfg.iterations, k):
             loss = self.train_step(self.generator)["loss"]
             self.step += k
