@@ -158,6 +158,22 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      at Nq 30, Nk 25) over S1's checkpoint, both loss files, one point on
      the CPU; graph against loop bit for bit on S1 (phase 12's check) and
      S1's and S2's graph and loop ms/step in turns;
+ 17. LargeCNP in bfloat16 (K2's wide form and K6's programs 4 and 6 in
+     bfloat16, the trunks' convolutions on cuDNN in bfloat16), each through
+     ``train_phase`` (launches on the card as the code says, every K6
+     launch a bfloat16 one of the path's program, every K2 launch a
+     bfloat16 wide one, graph nodes, one replay's trace) and its
+     validation loss on one full T = 20 episode, card against the CPU,
+     within ``check_bf16``'s rule: S5
+     ``cfg/train/perf/CondNeuralProcess_DA+TA_ShapeNet3D_tpu.yaml`` as
+     shipped (bfloat16, baco, 64 steps a call, the split and its
+     backgrounds kept in bfloat16 on the card), 192 steps; S6 S1 with
+     ``compute_dtype=bfloat16``, 32 steps, 8 a call; D5 D1 with
+     ``compute_dtype=bfloat16``, 32 steps; then float32 against bfloat16
+     graph ms/step and tasks/s in turns on D1/D5, S1/S6 and S2/S5 (with
+     ``--profile`` each one's busy share); graph against loop bit for bit
+     on S5 (phase 12's check) and S5's, S6's and D5's graph and loop
+     ms/step in turns;
  15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Phase 3 also holds the Distractor paths' kernels: K2's wide form at D1's
@@ -176,6 +192,21 @@ masks bit for bit with every other op off, values within
 ``TOL["pixel_ops"]`` of the card twin (and of the CPU twin in two orders);
 each timed, with ``F.grid_sample`` of one warp stage at [300, 3, 64, 64]
 as the library yardstick.
+
+Phase 3 also holds phase 17's kernels in bfloat16: K2's wide form at S6's
+(Nq 15, Nk 15) and D5's (Nq 18, Nk 15) shapes within the float32
+tolerance of the bfloat16 twin (at d = 256 bfloat16 moves only the
+diagonal term), K6's programs 6 and 7 at S1's two DA calls on bfloat16
+RGBA and 4 and 5 at D1's into bfloat16 (parameters and masks bit for
+bit, values within ``check_bf16``'s rule of the card twin and the CPU
+twin in every order run, and within ``BF16_K6_ULPS`` of each element:
+1 ulp for programs 4 and 5, 4 for 6 and 7, whose elements may differ on
+at most ``BF16_K6_SHARE`` of them), and K2's wide form at 100 rows an
+item (Nq 50, Nk 50) in float32 and bfloat16
+(``favor_attention_wide_R100``), a shape no shipped configuration reaches.
+No path runs programs 5 and 7 in bfloat16 or K2 wide at 100 rows: those
+rows carry ``off_path`` (why) and 0 launches. Every other K6 row reports
+its own program's launches on its path.
 
 Phase 3 also holds K6's programs 1-3 at full width (150 uint8 images, every
 gate on) against their twins on the card: Pascal1D's chain in 12 of its 120
@@ -281,6 +312,15 @@ S3D_SHORT_OVERRIDES = DISTRACTOR_SHORT_OVERRIDES
 S3D_FIXED_OVERRIDES = DISTRACTOR_FIXED_OVERRIDES
 S3D_EVAL_YAML = os.path.join(HERE, "cfg", "evaluation", "ANP_ShapeNet3D.yaml")
 S3D_EVAL_OVERRIDES = DISTRACTOR_EVAL_OVERRIDES
+# LargeCNP in bfloat16 (phase 17): S5 the ShapeNet3D perf YAML as shipped
+# (bfloat16, 64 steps a call) but for its depth, 192 steps (a warm-up call,
+# the capture and its replay, one more replay) and one validation of one
+# episode a split; S6 and D5 are S1 and D1 (32 steps, 8 a call) in bfloat16
+S3D_PERF_YAML = os.path.join(HERE, "cfg", "train", "perf",
+                             "CondNeuralProcess_DA+TA_ShapeNet3D_tpu.yaml")
+S5_OVERRIDES = ["synthetic_data=true", "iterations=192", "val_freq=1000",
+                "val_iters=1", "device=cuda"]
+BF16 = ["compute_dtype=bfloat16"]
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -332,6 +372,18 @@ GRAD_TOL, GRAD_FACTOR = 1e-3, 3.0
 # bfloat16: values within BF16_ULPS of each element, with no floor,
 # parameters and masks bit for bit.
 BF16_ULPS, BF16_FLOOR = 2.0, 2.0 ** -8
+# K6's programs 4-7 in bfloat16: every op rounds where the twin rounds, so
+# an element can differ only where a float32 sum taken in another order
+# (a warp's taps, a blur's window, powf's last bits) lands on the other
+# side of a rounding boundary. Distractor's programs round once (Affine):
+# within one bfloat16 ulp of the twin. ShapeNet3D's chain six ops that
+# each round, and a later op carries a flipped value on and can widen it
+# (gamma's exponent up to 2, the blur's sums rounded at every add): within
+# 4 ulps of each element, on at most BF16_K6_SHARE of the elements (4 ulps
+# and a share of 1.1e-5 measured on the H100), beside ``check_bf16``'s rule
+BF16_K6_ULPS = {"distractor": 1.0, "distractor_fixed": 1.0,
+                "shapenet_3d": 4.0, "shapenet_3d_fixed": 4.0}
+BF16_K6_SHARE = 1e-4
 # validation degree loss after 20 inner steps, card against CPU: float32
 # sums in another order move each adapted weight a little at every step;
 # |card - CPU| <= VAL_TOL * (|CPU| + 1) degrees
@@ -377,8 +429,9 @@ def in_turns(fns, rounds=2):
 
 # how often torch.profiler loses device events of this run's traces: traces
 # taken, traces that held no device event, traces that held fewer events
-# than their kernels imply (``device_profile``; logged at the end)
-TRACES = {"taken": 0, "empty": 0, "short": 0}
+# than their kernels imply, and calls measured from a CUDA graph after
+# three empty traces (``device_profile``; logged at the end)
+TRACES = {"taken": 0, "empty": 0, "short": 0, "graph": 0}
 
 
 def device_profile(fn, iters=20, names=None):
@@ -394,7 +447,10 @@ def device_profile(fn, iters=20, names=None):
     rounded (at least one), its time the mean of the events recorded, and a
     call's device time the sum over names of the two multiplied; a trace
     with fewer events than that implies is logged. A trace that holds no
-    device event at all is logged and taken again, up to three times."""
+    device event at all is logged and taken again, up to three times; after
+    three such traces (seen on the H100, in a row, now and then) the call is
+    measured by ``graph_profile`` instead, and the result says which way
+    (``device_ms_by``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -413,6 +469,9 @@ def device_profile(fn, iters=20, names=None):
         TRACES["empty"] += 1
         log(f"profile: a trace of {iters} calls holds no device event "
             f"(attempt {attempt + 1} of 3)")
+    else:
+        TRACES["graph"] += 1
+        return graph_profile(fn, iters, names)
     by_name = {}
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
@@ -427,7 +486,64 @@ def device_profile(fn, iters=20, names=None):
     if names is not None:
         names.update(by_name)
     return dict(device_ms=us / 1e3, kernels_per_call=sum(per_call.values()),
-                events_recorded=len(kernels), events_implied=implied)
+                events_recorded=len(kernels), events_implied=implied,
+                device_ms_by="torch.profiler")
+
+
+# kernel names a graph's DOT is searched for (``graph_profile``); the longer
+# of two that overlap comes first
+DOT_KERNELS = ("favor_kernel_wide", "favor_kernel", "image_da_kernel",
+               "stem_fwd_kernel", "bn_relu_kernel")
+
+
+def graph_profile(fn, iters=20, names=None):
+    """``device_profile``'s numbers without torch.profiler: ``iters`` calls
+    captured into one CUDA graph, its kernel nodes counted from the DOT
+    (``debug_dump``) and named by the first of ``DOT_KERNELS`` each holds
+    (else by the function's mangled name in its ID field), and a
+    call's device time that of one replay over ``iters``, by CUDA events
+    (the replay runs its kernels back to back, so this counts the gaps
+    between them, no host time)."""
+    import re
+    import tempfile
+
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.instantiate()
+    with tempfile.TemporaryDirectory() as tmp:
+        dot = os.path.join(tmp, "calls.dot")
+        graph.debug_dump(dot)
+        with open(dot) as f:
+            text = f.read()
+    nodes = re.split(r'^[ \t]*(?="graph_\d+_node_\d+"\[)', text,
+                     flags=re.M)[1:]
+    found = []
+    for node in nodes:
+        if 'label="{KERNEL' not in node:
+            continue
+        known = [k for k in DOT_KERNELS if k in node]
+        func = re.search(r"\{ID \|[^|]*\| ([^}\\]+)", node)
+        found.append(known[0] if known else
+                     func.group(1).strip() if func else node[:80])
+    ms = min(cuda_ms(graph.replay, iters=5, warmup=2) for _ in range(3))
+    del graph
+    log(f"profile: {iters} calls measured from a CUDA graph instead: "
+        f"{len(found)} kernel nodes of {len(nodes)}, {sorted(set(found))}")
+    if names is not None:
+        names.update(found)
+    return dict(device_ms=ms / iters, kernels_per_call=len(found) / iters,
+                events_recorded=None, events_implied=None,
+                device_ms_by="CUDA graph replay, CUDA events")
 
 
 def floor_ms() -> float:
@@ -1290,27 +1406,32 @@ def rgba_batch(gen, shape):
     return x
 
 
-def check_image_da_rgb(gen):
+def check_image_da_rgb(gen, dtype=None):
     """K6's ShapeNet3D programs at S1's (and S3's) two DA calls: the RGB
     channels of the context and query slices of a [20, 30, 64, 64, 4]
-    float32 RGBA batch (300 images each), read through their strides,
-    every gate on. Per program and call: its parameters bit for bit against
-    ``params_for`` on the card; with every other op off and the dropout op
-    on (Dropout, then CoarseDropout, per channel where drawn), its masks bit
-    for bit against the twin on the card and on the CPU, in two orders; its
-    output against the card twin in ten orders (program 6: the identity,
-    the reverse and 8 drawn of the 720) and the CPU twin in two
-    (``TOL["pixel_ops"]``); timed in the identity or the fixed order, with
-    ``library_warp_ms`` of CropAndPad's (or geometric's) warp on [300, 3,
-    64, 64] as the library yardstick."""
+    RGBA batch (300 images each), float32 or (``dtype``, S5's and S6's)
+    bfloat16, read through their strides, every gate on. Per program and
+    call: its parameters bit for bit against ``params_for`` on the card;
+    with every other op off and the dropout op on (Dropout, then
+    CoarseDropout, per channel where drawn), its masks bit for bit against
+    the twin on the card and on the CPU, in two orders; its output against
+    the card twin and the CPU twin in ten orders (program 6: the identity,
+    the reverse and 8 drawn of the 720; float32 within
+    ``TOL["pixel_ops"]``; bfloat16 within ``BF16_K6_ULPS`` of each element,
+    differing on at most ``BF16_K6_SHARE`` of them, and within
+    ``check_bf16``'s rule); timed in the identity or the fixed order,
+    with ``library_warp_ms`` of CropAndPad's (or geometric's) warp on [300,
+    3, 64, 64] as the library yardstick."""
     import torch
 
     from wmfml_tpu_torch.aug import image_aug
     from wmfml_tpu_torch.kernels import image_da as kda
 
+    f32 = dtype or torch.float32      # the images' and the output's dtype
+    bf16 = f32 == torch.bfloat16
+    bits = torch.int16 if bf16 else torch.int32
     t_, s_, h, w = 20, 15, 64, 64
-    batch = rgba_batch(gen, (t_, 2 * s_))
-    f32 = torch.float32
+    batch = rgba_batch(gen, (t_, 2 * s_)).to(f32)
     drawn = torch.randperm(718, generator=torch.Generator().manual_seed(6))
     rows = []
     for program in ("shapenet_3d", "shapenet_3d_fixed"):
@@ -1326,15 +1447,15 @@ def check_image_da_rgb(gen):
             u[:, 23] = 0.25                        # brightness on
 
             def launch(uu, o, **kw):
-                return kda.image_da_launch(x, uu, keys, on_card[o],
+                return kda.image_da_launch(x, uu, keys, on_card[o], f32,
                                            program=program, **kw)
 
-            def twin(uu, o, cpu=False):
+            def twin(uu, o, cpu=False, dt=f32):
                 if cpu:
                     return kda.image_da_plain(
                         xc, uu.cpu(), keys.cpu(),
-                        None if o is None else on_card[o].cpu(), f32, program)
-                return kda.image_da_plain(x, uu, keys, on_card[o], f32,
+                        None if o is None else on_card[o].cpu(), dt, program)
+                return kda.image_da_plain(x, uu, keys, on_card[o], dt,
                                           program)
 
             got_p = torch.empty((b, kda.nparams(program)), device="cuda")
@@ -1356,8 +1477,7 @@ def check_image_da_rgb(gen):
                 for o in orders[:2]:
                     got = launch(um, o).cpu()
                     for want in (twin(um, o).cpu(), twin(um, o, cpu=True)):
-                        if not torch.equal(got.view(torch.int32),
-                                           want.view(torch.int32)):
+                        if not torch.equal(got.view(bits), want.view(bits)):
                             raise AssertionError(
                                 f"image_da {program} ({kind}, order {o}): the "
                                 f"mask differs from the twin's at "
@@ -1365,23 +1485,46 @@ def check_image_da_rgb(gen):
                 dropped[kind] = float((got == 0).double().mean()
                                       - (xc == 0).double().mean())
             worst = {"card twin": 0.0, "CPU twin": 0.0}
-            for i, o in enumerate(orders):
+            differ = dict(worst)
+            for o in orders:
                 got = launch(u, o)
-                worst["card twin"] = max(worst["card twin"], check_close(
-                    "pixel_ops", got, twin(u, o))[0])
-                if i < 2:
-                    worst["CPU twin"] = max(worst["CPU twin"], check_close(
-                        "pixel_ops", got.cpu(), twin(u, o, cpu=True))[0])
+                for where in ("card twin", "CPU twin"):
+                    cpu = where == "CPU twin"
+                    g, want = (got.cpu() if cpu else got), twin(u, o, cpu)
+                    if not bf16:
+                        err = check_close("pixel_ops", g, want)[0]
+                    else:
+                        err = bf16_ulps(g, want)
+                        share = float((g != want).double().mean())
+                        if (err > BF16_K6_ULPS[program]
+                                or share > BF16_K6_SHARE):
+                            raise AssertionError(
+                                f"image_da {program} bfloat16 (order {o}): "
+                                f"elements lie up to {err} bfloat16 ulps "
+                                f"from the {where}'s, {share} of them "
+                                f"differ")
+                        differ[where] = max(differ[where], share)
+                    worst[where] = max(worst[where], err)
+                if bf16:
+                    check_bf16(f"image_da_{program}", got, twin(u, o),
+                               twin(u, o, dt=torch.float32),
+                               element_ulps=False)
                 if torch.equal(got.cpu(), xc):
                     raise AssertionError(f"image_da {program}: order {o} "
                                          f"left the images unchanged")
             log(f"kernel: image_da {program}{call} ({b} images of 64 x 64 x "
-                f"3 from RGBA): parameters bit for bit; masks bit for bit in "
+                f"3 from {'bfloat16' if bf16 else 'float32'} RGBA): "
+                f"parameters bit for bit; masks bit for bit in "
                 f"orders {orders[:2]} (share of elements dropped beyond the "
                 f"zeros of x: {dropped}); {len(orders)} order(s) {orders}: "
-                f"max abs err {worst} (atol, rtol {TOL['pixel_ops']})")
+                f"max {'bfloat16 ulps' if bf16 else 'abs err'} {worst}"
+                + (f", largest share of elements that differ {differ} (at "
+                   f"most {BF16_K6_ULPS[program]} ulps on {BF16_K6_SHARE} of "
+                   f"them, and the bfloat16 rule)" if bf16 else
+                   f" (atol, rtol {TOL['pixel_ops']})"))
             o = orders[0]
-            err = (launch(u, o) - twin(u, o)).abs().max().item()
+            err = (launch(u, o).float() - twin(u, o).float()).abs().max(
+                ).item()
             times = in_turns({"ms": lambda: launch(u, o),
                               "plain_ms": lambda: twin(u, o)})
             names = set()
@@ -1393,24 +1536,34 @@ def check_image_da_rgb(gen):
             xf = x.permute(0, 1, 4, 2, 3).reshape(b, 3, h, w).contiguous()
             library_ms = library_warp_ms(xf, p.warp[:, 0])
             flops, iops = pixel_work(program, p, h, w, c=3)
-            # RGBA read once (16 B a pixel), RGB written once (12 B)
-            nbytes = 28 * b * h * w + 4 * (u.numel() + keys.numel()) + (
-                0 if fixed else 8)
+            # RGBA read once (16 B a pixel, bfloat16 8), RGB written once
+            # (12 B, bfloat16 6)
+            nbytes = (14 if bf16 else 28) * b * h * w + 4 * (
+                u.numel() + keys.numel()) + (0 if fixed else 8)
             t_ops = max(flops / PEAK_F32_FLOPS, iops / PEAK_INT32_OPS)
             t_bytes = nbytes / PEAK_BYTES_PER_S
             ids = _rows(f"image_da_{program}{call}", f32,
                         PROGRAM_PATHS[program])
             ids["kernel"] = "image_da"
+            if bf16:
+                # S6 runs program 6 in bfloat16 (S5 too); no path runs
+                # program 7 in bfloat16
+                ids["path"] = "ShapeNet3D ANP bf16"
+                if fixed:
+                    ids["path"] = None
+                    ids["off_path"] = ("no path runs program 7 in bfloat16 "
+                                       "(S3 runs it in float32)")
             rows.append(dict(
                 **ids, tol="pixel_ops", program=program,
-                shape=f"[20, 15 of 30, 64, 64, 3 of 4] float32 -> float32, "
+                shape=f"[20, 15 of 30, 64, 64, 3 of 4] {ids['dtype']} -> "
+                      f"{ids['dtype']}, "
                       f"{'fixed order' if fixed else 'order 0'}, every gate "
                       f"on",
                 source="wmfml_tpu_torch/csrc/image_da.cu",
                 replaces=("wmfml_tpu/aug/image_aug.py:578" if fixed else
                           "wmfml_tpu/aug/image_aug.py:569"),
-                library="F.grid_sample, bilinear, zeros, one warp stage at "
-                        "[300, 3, 64, 64], cval 0",
+                library=f"F.grid_sample, bilinear, zeros, one warp stage "
+                        f"at [300, 3, 64, 64], cval 0, {ids['dtype']}",
                 max_abs_err=err, max_rel_err=None, max_abs_err_orders=worst,
                 **times, library_ms=library_ms,
                 bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -1420,28 +1573,36 @@ def check_image_da_rgb(gen):
     return rows
 
 
-def check_favor_wide(proj, gen, nq, nk, name, path):
+def check_favor_wide(proj, gen, nq, nk, name, path, dtype=None,
+                     off_path=None):
     """K2's wide form at a Distractor path's shape: T = 20, 8 heads of d = e
     = 256 with ANPDistractor's projection (m = 1419); q [20, 8, nq, 256], k
     and v [20, 8, nk, 256] as the attention block hands them over ([T, N,
-    H, d] transposed), shots 1..nk across the tasks (masked rows present,
-    a task with one real row). One call must issue one kernel, the wide
-    one. The row reports ``path``'s launches."""
+    H, d] transposed), float32 or (``dtype``) bfloat16, shots 1..nk across
+    the tasks (masked rows present, a task with one real row), within
+    ``TOL["favor_attention_wide"]`` of the twin in the same dtype. One call
+    must issue one kernel, the wide one. The row reports ``path``'s
+    launches, or none where ``off_path`` says why no path runs the shape."""
     import torch
 
     from wmfml_tpu_torch.kernels import favor
 
+    dtype = dtype or torch.float32
     t_, h, d = 20, 8, proj.shape[1]
-    q = torch.randn((t_, nq, h, d), generator=gen, device="cuda").transpose(
-        1, 2)
+    q = torch.randn((t_, nq, h, d), generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
     k, v = (torch.randn((t_, nk, h, d), generator=gen, device="cuda"
-                        ).transpose(1, 2) for _ in range(2))
+                        ).to(dtype).transpose(1, 2) for _ in range(2))
     shots = torch.tensor([1 + ((nk - 1) * i) // (t_ - 1) for i in range(t_)],
                          device="cuda")
     mask = torch.arange(nk, device="cuda")[None, :] < shots[:, None]
     got = favor.favor_launch(q, k, v, proj, mask)
-    err, rel = check_close("favor_attention_wide", got,
-                           favor.favor_plain(q, k, v, proj, mask))
+    want = favor.favor_plain(q, k, v, proj, mask)
+    # bfloat16: at d = 256 the normalizer 256^-1/4 = 1/4 is exact, so dn x
+    # rounds nothing and bfloat16 moves only the diagonal term, below
+    # float32's summation noise: the kernel is held to its bfloat16 twin
+    # within the float32 tolerance, far inside check_bf16's bound
+    err, rel = check_close("favor_attention_wide", got, want)
     times = in_turns({"ms": lambda: favor.favor_launch(q, k, v, proj, mask),
                       "plain_ms": lambda: favor.favor_plain(q, k, v, proj,
                                                             mask)})
@@ -1454,22 +1615,28 @@ def check_favor_wide(proj, gen, nq, nk, name, path):
                              f"kernels per call: {sorted(names)}")
     times["phase_us"] = favor_wide_phases(q, k, v, proj, mask)
     m, e, items, r = proj.shape[0], v.shape[-1], t_ * h, nq + nk
-    # dash in split TF32 on the tensor cores; A, A v and the row sums on
-    # the CUDA cores; the bytes: each input read once, the output written
-    # once, and dash written to global memory and read back once
+    # dash in split TF32 on the tensor cores (bfloat16 rows are exact in
+    # TF32: two products, not three); A, A v and the row sums on the CUDA
+    # cores; the bytes: each input read once, the output written once (the
+    # kernel's round trip of dash through global memory is its own choice,
+    # not the function's)
     split_flops = 2 * items * r * m * d
     flops = 2 * items * (nq * nk * m + nq * nk * e + nq * nk)
-    nbytes = (4 * (q.numel() + k.numel() + v.numel() + proj.numel()
-                   + got.numel()) + mask.numel() + 2 * 4 * items * r * m)
-    ids = _rows(name, torch.float32, path)
-    ids["kernel"] = "favor_attention"
+    nbytes = (q.element_size() * (q.numel() + k.numel() + v.numel())
+              + 4 * (proj.numel() + got.numel()) + mask.numel())
+    ids = _rows(name, torch.float32, path or "")
+    ids.update(kernel="favor_attention",
+               dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    if off_path:
+        ids.update(path=None, off_path=off_path)
     return dict(**ids, tol="favor_attention_wide",
-                shape=f"q [20, 8, {nq}, 256], k, v [20, 8, {nk}, 256], m "
-                      f"{m}, shots 1..{nk}",
+                shape=f"q [20, 8, {nq}, 256], k, v [20, 8, {nk}, 256] "
+                      f"{ids['dtype']}, m {m}, shots 1..{nk}",
                 source="wmfml_tpu_torch/csrc/favor.cu",
                 replaces="wmfml_tpu/nn/attention.py:93",
                 max_abs_err=err, max_rel_err=rel, **times, library_ms=None,
-                **bound(flops, nbytes, split_flops=split_flops))
+                **bound(flops, nbytes, split_flops=split_flops,
+                        split_products=3 if dtype == torch.float32 else 2))
 
 
 def favor_wide_phases(q, k, v, proj, mask, runs=10):
@@ -1498,26 +1665,31 @@ def favor_wide_phases(q, k, v, proj, mask, runs=10):
     return {k: statistics.median(r[k] for r in per_run) for k in per_run[0]}
 
 
-def check_image_da_distractor(gen):
+def check_image_da_distractor(gen, dtype=None):
     """K6's Distractor programs at D1's (and D3's) two DA calls: the context
     slice of a [20, 33, 128, 128, 1] uint8 batch (300 images) and its query
-    slice (360), read through their strides, every gate on. Per program
-    and call: its parameters bit for bit against ``params_for`` on the
-    card; with Affine off and the dropout op on (Dropout, then
-    CoarseDropout), its masks on 1 - x / 255 bit for bit against the twin
-    on the card and on the CPU, in each order; its output against both
-    twins in each order (program 4: 2; ``TOL["warp_chain"]``); timed in
-    order 0 (program 4) or the fixed order, with ``library_warp_ms`` of
-    Affine's warp on the inverted images as the library yardstick."""
+    slice (360), read through their strides, every gate on, into float32
+    or (``dtype``, D5's) bfloat16. Per program and call: its parameters bit
+    for bit against ``params_for`` on the card; with Affine off and the
+    dropout op on (Dropout, then CoarseDropout), its masks on 1 - x / 255
+    (in bfloat16 the twice-rounded 1 - bf16(x / 255)) bit for bit against
+    the twin on the card and on the CPU, in each order; its output against
+    both twins in each order (program 4: 2; float32 within
+    ``TOL["warp_chain"]``, bfloat16 within 1 bfloat16 ulp of each element
+    and ``check_bf16``'s rule); timed in order 0 (program 4) or the fixed
+    order, with ``library_warp_ms`` of Affine's warp on the inverted images
+    as the library yardstick."""
     import torch
 
     from wmfml_tpu_torch.aug import image_aug
     from wmfml_tpu_torch.kernels import image_da as kda
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     t_, s_, q_, h, w = 20, 15, 18, 128, 128
     batch = torch.randint(0, 256, (t_, s_ + q_, h, w, 1), dtype=torch.uint8,
                           generator=gen, device="cuda")
-    f32 = torch.float32
+    bits = torch.int16 if bf16 else torch.int32
     rows = []
     for program in ("distractor", "distractor_fixed"):
         fixed = program == "distractor_fixed"
@@ -1529,15 +1701,15 @@ def check_image_da_distractor(gen):
             u, keys = program_draw(program, gen, b)
 
             def launch(uu, o, **kw):
-                return kda.image_da_launch(x, uu, keys, on_card[o],
+                return kda.image_da_launch(x, uu, keys, on_card[o], dtype,
                                            program=program, **kw)
 
-            def twin(uu, o, cpu=False):
+            def twin(uu, o, cpu=False, dt=dtype):
                 if cpu:
                     return kda.image_da_plain(
                         xc, uu.cpu(), keys.cpu(),
-                        None if o is None else on_card[o].cpu(), f32, program)
-                return kda.image_da_plain(x, uu, keys, on_card[o], f32,
+                        None if o is None else on_card[o].cpu(), dt, program)
+                return kda.image_da_plain(x, uu, keys, on_card[o], dt,
                                           program)
 
             got_p = torch.empty((b, kda.nparams(program)), device="cuda")
@@ -1558,8 +1730,7 @@ def check_image_da_distractor(gen):
                 for o in orders:
                     got = launch(um, o).cpu()
                     for want in (twin(um, o).cpu(), twin(um, o, cpu=True)):
-                        if not torch.equal(got.view(torch.int32),
-                                           want.view(torch.int32)):
+                        if not torch.equal(got.view(bits), want.view(bits)):
                             raise AssertionError(
                                 f"image_da {program} ({kind}, order {o}): the "
                                 f"mask differs from the twin's at "
@@ -1569,17 +1740,34 @@ def check_image_da_distractor(gen):
             worst = {"card twin": 0.0, "CPU twin": 0.0}
             for o in orders:
                 got = launch(u, o)
-                worst["card twin"] = max(worst["card twin"], check_close(
-                    "warp_chain", got, twin(u, o))[0])
-                worst["CPU twin"] = max(worst["CPU twin"], check_close(
-                    "warp_chain", got.cpu(), twin(u, o, cpu=True))[0])
-            log(f"kernel: image_da {program}{call} ({b} images): parameters "
+                for where, want in (("card twin", twin(u, o)),
+                                    ("CPU twin", twin(u, o, cpu=True))):
+                    g = got if where == "card twin" else got.cpu()
+                    if not bf16:
+                        err = check_close("warp_chain", g, want)[0]
+                    else:
+                        err = bf16_ulps(g, want)
+                        if err > BF16_K6_ULPS[program]:
+                            raise AssertionError(
+                                f"image_da {program} bfloat16 (order {o}): "
+                                f"an element lies {err} bfloat16 ulps from "
+                                f"the {where}'s")
+                    worst[where] = max(worst[where], err)
+                if bf16:
+                    check_bf16(f"image_da_{program}", got, twin(u, o),
+                               twin(u, o, dt=torch.float32),
+                               element_ulps=False)
+            log(f"kernel: image_da {program}{call} ({b} images, "
+                f"{'bfloat16' if bf16 else 'float32'} out): parameters "
                 f"bit for bit; masks bit for bit in orders {orders} (share "
                 f"of pixels dropped beyond the zeros of 1 - x / 255: "
-                f"{dropped}); max abs err {worst} (atol, rtol "
-                f"{TOL['warp_chain']})")
+                f"{dropped}); max {'bfloat16 ulps' if bf16 else 'abs err'} "
+                f"{worst} (" + (f"at most {BF16_K6_ULPS[program]} ulps and the "
+                                f"bfloat16 rule" if bf16 else
+                                f"atol, rtol {TOL['warp_chain']}") + ")")
             o = orders[0]
-            err = (launch(u, o) - twin(u, o)).abs().max().item()
+            err = (launch(u, o).float() - twin(u, o).float()).abs().max(
+                ).item()
             times = in_turns({"ms": lambda: launch(u, o),
                               "plain_ms": lambda: twin(u, o)})
             names = set()
@@ -1588,26 +1776,37 @@ def check_image_da_distractor(gen):
                 raise AssertionError(f"image_da {program} issued "
                                      f"{times['kernels_per_call']} kernels "
                                      f"per call: {sorted(names)}")
-            xf = (1.0 - xc.float() / 255.0).reshape(b, 1, h, w).cuda()
+            xf = (1.0 - xc.float() / 255.0).reshape(b, 1, h, w).cuda().to(
+                dtype)
             library_ms = library_warp_ms(xf, p.warp[:, 1])
             flops, iops = pixel_work(program, p, h, w)
-            nbytes = 5 * x.numel() + 4 * (u.numel() + keys.numel()) + (
-                0 if fixed else 8)
+            # a uint8 pixel read, a float32 or bfloat16 one written
+            nbytes = (1 + (2 if bf16 else 4)) * x.numel() + 4 * (
+                u.numel() + keys.numel()) + (0 if fixed else 8)
             t_ops = max(flops / PEAK_F32_FLOPS, iops / PEAK_INT32_OPS)
             t_bytes = nbytes / PEAK_BYTES_PER_S
-            ids = _rows(f"image_da_{program}{call}", f32,
+            ids = _rows(f"image_da_{program}{call}", dtype,
                         "Distractor ANP" + (" fixed" if fixed else ""))
             ids["kernel"] = "image_da"
+            if bf16:
+                # D5 runs program 4 in bfloat16; no path runs program 5 in
+                # bfloat16
+                ids["path"] = "Distractor ANP bf16"
+                if fixed:
+                    ids["path"] = None
+                    ids["off_path"] = ("no path runs program 5 in bfloat16 "
+                                       "(D3 runs it in float32)")
             rows.append(dict(
                 **ids, tol="warp_chain", program=program,
                 shape=f"[20, {x.shape[1]} of 33, 128, 128, 1] uint8 -> "
-                      f"float32, {'fixed order' if fixed else 'order 0'}, "
+                      f"{ids['dtype']}, "
+                      f"{'fixed order' if fixed else 'order 0'}, "
                       f"every gate on",
                 source="wmfml_tpu_torch/csrc/image_da.cu",
                 replaces=("wmfml_tpu/aug/image_aug.py:580" if fixed else
                           "wmfml_tpu/aug/image_aug.py:562"),
-                library="F.grid_sample, bilinear, zeros, Affine's warp, "
-                        "cval 0",
+                library=f"F.grid_sample, bilinear, zeros, Affine's warp, "
+                        f"cval 0, {ids['dtype']}",
                 max_abs_err=err, max_rel_err=None, max_abs_err_orders=worst,
                 **times, library_ms=library_ms,
                 bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -1889,6 +2088,8 @@ def train_phase(card, yaml, overrides, counters):
                                  f"issued {fused.captured_launches[name]}")
     check_launches(trainer, launches)
     replay_trace(trainer, tag)
+    # every K6 launch of the path was one of its program (checked above)
+    launches[f"image_da.{program}"] = launches["image_da"]
     return trainer, launches, nodes
 
 
@@ -2156,18 +2357,28 @@ def call_ms(trainer, calls, loop=False):
     return 1e3 * (time.perf_counter() - t0) / (calls * fused.k)
 
 
-def dtype_turns(pairs, calls):
-    """ms/step of each (float32, bfloat16) trainer pair's graph replays,
-    timed in turns f32, bf16, bf16, f32 on the same card."""
+def dtype_turns(pairs, calls, profile=False):
+    """ms/step and tasks/s of each (float32, bfloat16) trainer pair's graph
+    replays, timed in turns f32, bf16, bf16, f32 on the same card; with
+    ``profile``, the card's busy share of one call of each."""
     out = {}
     for name, (f32, bf16) in pairs.items():
         runs = [call_ms(tr, calls) for tr in (f32, bf16, bf16, f32)]
-        out[name] = dict(f32_ms=(runs[0] + runs[3]) / 2,
-                         bf16_ms=(runs[1] + runs[2]) / 2, turns_ms=runs)
-        log(f"turns: {name}: float32 {out[name]['f32_ms']} ms/step, bfloat16 "
-            f"{out[name]['bf16_ms']} ms/step (f32, bf16, bf16, f32: {runs}; "
-            f"{calls} calls of {f32.train_step.k} and "
-            f"{bf16.train_step.k} steps each)")
+        row = out[name] = dict(f32_ms=(runs[0] + runs[3]) / 2,
+                               bf16_ms=(runs[1] + runs[2]) / 2, turns_ms=runs)
+        t_ = f32.config.tasks_per_batch
+        busy = ""
+        if profile:
+            row.update({f"{k}_profile": profile_calls(tr, f"{name} {k}")
+                        for k, tr in (("f32", f32), ("bf16", bf16))})
+            busy = (f"; busy share f32 {row['f32_profile']['busy_share']}, "
+                    f"bf16 {row['bf16_profile']['busy_share']}")
+        log(f"turns: {name}: float32 {row['f32_ms']} ms/step "
+            f"({t_ * 1e3 / row['f32_ms']} tasks/s), bfloat16 "
+            f"{row['bf16_ms']} ms/step ({t_ * 1e3 / row['bf16_ms']} tasks/s), "
+            f"bf16 / f32 {row['bf16_ms'] / row['f32_ms']} (f32, bf16, bf16, "
+            f"f32: {runs}; {calls} calls of {f32.train_step.k} and "
+            f"{bf16.train_step.k} steps each){busy}")
     return out
 
 
@@ -2642,6 +2853,27 @@ def main(argv):
              check_favor_wide(proj, gen_s, 30, 25, "favor_attention_wide_s4",
                               "ShapeNet3D eval"),
              *check_image_da_rgb(gen_s)]
+    # the bfloat16 LargeCNP paths' kernels (phase 17): K2's wide form in
+    # bfloat16 at D5's (Nq 18, Nk 15) and S6's (Nq 15, Nk 15) shapes, K6's
+    # programs 4 and 5 in bfloat16 at D1's two DA calls and 6 and 7 at
+    # S1's, reading bfloat16 RGBA; then K2 wide at 100 rows an item (Nq 50,
+    # Nk 50: two row groups, 32 + 32-row chunks), float32 and bfloat16, a
+    # shape no shipped configuration reaches (no launches on any path)
+    gen_b = torch.Generator(device="cuda").manual_seed(8)
+    rows += [check_favor_wide(proj, gen_b, 15, 15,
+                              "favor_attention_wide_s1_bf16",
+                              "ShapeNet3D ANP bf16", bf),
+             *check_image_da_rgb(gen_b, bf)]
+    proj = build_model(Config(DISTRACTOR_YAML, DISTRACTOR_OVERRIDES,
+                              make_dirs=False)).attn.projection_matrix.cuda()
+    rows += [check_favor_wide(proj, gen_b, 18, 15, "favor_attention_wide_bf16",
+                              "Distractor ANP bf16", bf),
+             *check_image_da_distractor(gen_b, bf),
+             *(check_favor_wide(proj, gen_b, 50, 50,
+                                "favor_attention_wide_R100" + suffix, None,
+                                dt, off_path="no path runs Nq + Nk > 64 (D4 "
+                                "and S4 reach 61 and 55)")
+               for dt, suffix in ((None, ""), (bf, "_bf16")))]
     floor = floor_ms()
     log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
         f"time, the least any launch takes on this card")
@@ -2655,7 +2887,8 @@ def main(argv):
         if "library" in r:
             extra = (f"; library = {r['library']}; {r['flops']} float and "
                      f"{r['int_ops']} integer operations")
-        rule = ("the bfloat16 rule" if r["dtype"] == "bfloat16" else
+        rule = ("the bfloat16 rule" if r["dtype"] == "bfloat16"
+                and r.get("tol") != "favor_attention_wide" else
                 f"atol, rtol {TOL[r.get('tol', r['name'])]}")
         log(f"kernel: {r['name']} ({r['shape']}): max abs err "
             f"{r['max_abs_err']}, max rel err {r['max_rel_err']} ({rule}); "
@@ -2760,6 +2993,24 @@ def main(argv):
     s4_launches = check_large_evaluation(
         "S4", S3D_EVAL_YAML, S3D_EVAL_OVERRIDES, [(s1trainer, [])])
 
+    # phase 17: LargeCNP in bfloat16 (K2 wide and K6's programs 4 and 6 in
+    # bfloat16): S5 the ShapeNet3D perf YAML as shipped, S6 S1 in bfloat16,
+    # D5 D1 in bfloat16
+    s5trainer, s5_launches, s5_nodes = train_phase(
+        card, S3D_PERF_YAML, S5_OVERRIDES, da_kernels)
+    check_bf16_validation(s5trainer)
+    s6trainer, s6_launches, s6_nodes = train_phase(
+        card, S3D_YAML, S3D_OVERRIDES + BF16, d_anp_kernels)
+    check_bf16_validation(s6trainer)
+    d5trainer, d5_launches, d5_nodes = train_phase(
+        card, DISTRACTOR_YAML, DISTRACTOR_OVERRIDES + BF16, d_anp_kernels)
+    check_bf16_validation(d5trainer)
+    dtype_turns({"Distractor ANP (D1, D5)": (d1trainer, d5trainer),
+                 "ShapeNet3D ANP (S1, S6)": (s1trainer, s6trainer),
+                 "ShapeNet3D CondNeuralProcess (S2, S5)": (s2trainer,
+                                                           s5trainer)},
+                calls=2, profile="--profile" in argv)
+
     # graph replays against the same steps issued from the host
     for yaml, overrides in ((MAIN_YAML, TRAIN_OVERRIDES),
                             (MAIN_YAML, BF16_OVERRIDES),
@@ -2769,7 +3020,8 @@ def main(argv):
                             (PERF_ANP_YAML, PERF_ANP_OVERRIDES),
                             (PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES),
                             (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES),
-                            (S3D_YAML, S3D_OVERRIDES)):
+                            (S3D_YAML, S3D_OVERRIDES),
+                            (S3D_PERF_YAML, S5_OVERRIDES)):
         graph_equals_loop(yaml, overrides)
     graph_loop_turns(
         {"ANPShapeNet1D": trainer, "ANPShapeNet1D bf16": btrainer,
@@ -2779,14 +3031,19 @@ def main(argv):
          "ANPShapeNet1D fixed bf16 T40": f40trainer,
          "ANPDistractor": d1trainer, "CNPDistractor": d2trainer,
          "ANP ShapeNet3D": s1trainer,
-         "CondNeuralProcess ShapeNet3D": s2trainer},
+         "CondNeuralProcess ShapeNet3D": s2trainer,
+         "CondNeuralProcess ShapeNet3D bf16 (S5)": s5trainer,
+         "ANP ShapeNet3D bf16 (S6)": s6trainer,
+         "ANPDistractor bf16 (D5)": d5trainer},
         calls={"ANPShapeNet1D": 4, "ANPShapeNet1D bf16": 2,
                "MAMLShapeNet1D": 2, "MAMLShapeNet1D bf16": 2,
                "ANPVanillaPascal1D": 4, "VanillaMAML Pascal1D": 2,
                "ANPShapeNet1D fixed bf16": 2,
                "ANPShapeNet1D fixed bf16 T40": 1, "ANPDistractor": 2,
                "CNPDistractor": 2, "ANP ShapeNet3D": 2,
-               "CondNeuralProcess ShapeNet3D": 2},
+               "CondNeuralProcess ShapeNet3D": 2,
+               "CondNeuralProcess ShapeNet3D bf16 (S5)": 1,
+               "ANP ShapeNet3D bf16 (S6)": 2, "ANPDistractor bf16 (D5)": 2},
         nodes={"ANPShapeNet1D": anp_nodes, "ANPShapeNet1D bf16": anp_bf16_nodes,
                "MAMLShapeNet1D": maml_nodes,
                "MAMLShapeNet1D bf16": maml_bf16_nodes,
@@ -2796,7 +3053,10 @@ def main(argv):
                "ANPShapeNet1D fixed bf16 T40": anp_fixed40_nodes,
                "ANPDistractor": d1_nodes, "CNPDistractor": d2_nodes,
                "ANP ShapeNet3D": s1_nodes,
-               "CondNeuralProcess ShapeNet3D": s2_nodes},
+               "CondNeuralProcess ShapeNet3D": s2_nodes,
+               "CondNeuralProcess ShapeNet3D bf16 (S5)": s5_nodes,
+               "ANP ShapeNet3D bf16 (S6)": s6_nodes,
+               "ANPDistractor bf16 (D5)": d5_nodes},
         profile="--profile" in argv)
     # cuDNN's determinism: its cost a step on four paths (ROADMAP.md C2)
     determinism_turns(
@@ -2817,15 +3077,24 @@ def main(argv):
                 "Distractor eval": {"favor_attention": d4_launches},
                 "ShapeNet3D ANP": s1_launches, "ShapeNet3D CNP": s2_launches,
                 "ShapeNet3D ANP fixed": s3_launches,
-                "ShapeNet3D eval": {"favor_attention": s4_launches}}
+                "ShapeNet3D eval": {"favor_attention": s4_launches},
+                "ShapeNet3D CNP bf16": s5_launches,
+                "ShapeNet3D ANP bf16": s6_launches,
+                "Distractor ANP bf16": d5_launches}
     for r in rows:
-        r["launches"] = launches[r["path"]][r["kernel"]]
+        if r.get("off_path"):
+            r["launches"] = 0
+            continue
+        # a K6 row counts its own program's launches on its path
+        key = r["kernel"] + (f".{r['program']}" if "program" in r else "")
+        r["launches"] = launches[r["path"]].get(key, 0)
         if r["launches"] <= 0:
-            raise AssertionError(f"{r['name']}: no launch on the {r['path']} "
-                                 f"path")
+            raise AssertionError(f"{r['name']}: no {key} launch on the "
+                                 f"{r['path']} path")
     log(f"profile: {TRACES['taken']} traces of torch.profiler, "
         f"{TRACES['empty']} holding no device event, {TRACES['short']} "
-        f"fewer device events than their kernels imply")
+        f"fewer device events than their kernels imply; "
+        f"{TRACES['graph']} calls measured from a CUDA graph instead")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,9 @@ of the twin, an element below 2^-8 of the twin's largest measured in the
 spacing at that size (where a sum cancels, two float32 orders differ by
 about 2^-20 of its largest term, more than an ulp of the small result).
 K6 in bfloat16: parameters and masks bit for bit, values within 2 bfloat16
-ulps of each element, with no floor.
+ulps of each element, with no floor; its programs 4-7 (LargeCNP's) within
+``LARGE_BF16_ULPS`` of each element, programs 6 and 7 differing on at most
+``RGB_BF16_SHARE`` of the elements, beside the rule above.
 
 K2's wide form (LargeCNP's heads, d = e = 256, m = 1419) at D1's, D4's,
 S1's and S4's shapes, K6's Distractor programs 4 and 5 (the inverted image)
@@ -151,10 +153,15 @@ def test_favor_kernel_matches_plain(dev, t, h, nq, nk, d, m):
 @pytest.mark.parametrize("t,h,nq,nk,d,m", [
     (20, 8, 18, 15, 256, 1419), (20, 8, 36, 25, 256, 1419),
     (2, 3, 5, 4, 68, 300), (3, 2, 40, 24, 128, 700),
-    (20, 8, 15, 15, 256, 1419), (20, 8, 30, 25, 256, 1419)])
+    (20, 8, 15, 15, 256, 1419), (20, 8, 30, 25, 256, 1419),
+    (4, 8, 50, 50, 256, 1419), (2, 3, 70, 10, 256, 1419),
+    (2, 3, 9, 75, 256, 1419), (2, 2, 130, 3, 68, 300)])
 def test_favor_wide_kernel_matches_plain(dev, t, h, nq, nk, d, m):
-    """The last two are S1 (ANP ShapeNet3D training: Nq 15, Nk 15) and S4
-    (its evaluation: Nq 30, Nk 25, R = 55)."""
+    """S1 (ANP ShapeNet3D training: Nq 15, Nk 15) and S4 (its evaluation:
+    Nq 30, Nk 25, R = 55); then more than 64 rows an item, where phase 2
+    takes chunks of 32 q and 32 k rows: R = 100 (two row groups in phase
+    1), many q rows against few k rows and the reverse, and R = 133 (three
+    row groups)."""
     q, k, v, proj, mask = _favor_inputs(dev, t, h, nq, nk, d, m, seed=nq)
     mask[1] = torch.arange(nk, device=dev) < 1
     assert favor.is_wide(d, m)
@@ -206,16 +213,19 @@ def test_favor_wide_kernel_phase_clock_orders_its_phases(dev):
 
 
 def test_favor_wide_kernel_refuses_what_it_does_not_take(dev):
-    q, k, v, proj, mask = _favor_inputs(dev, 2, 2, 40, 30, 256, 1419)
-    with pytest.raises(ValueError, match="Nq \\+ Nk <= 64"):
-        favor.favor_launch(q, k, v, proj, mask)
+    """Heads wider than 256 and q, k, v of mixed types raise; Nq + Nk > 64
+    rows and bfloat16 q, k, v are taken (they raised before the row groups
+    and the bfloat16 read)."""
     q, k, v, proj, mask = _favor_inputs(dev, 2, 2, 4, 4, 260, 1419)
     with pytest.raises(ValueError, match="d <= 256"):
         favor.favor_launch(q, k, v, proj, mask)
-    q, k, v, proj, mask = _favor_inputs(dev, 2, 2, 4, 4, 256, 1419)
-    with pytest.raises(ValueError, match="float32"):
-        favor.favor_launch(q.bfloat16(), k.bfloat16(), v.bfloat16(), proj,
-                           mask)
+    q, k, v, proj, mask = _favor_inputs(dev, 2, 2, 40, 30, 256, 1419)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        favor.favor_launch(q.bfloat16(), k, v, proj, mask)
+    assert favor.favor_launch(q, k, v, proj, mask).shape == (2, 2, 40, 256)
+    got = favor.favor_launch(q.bfloat16(), k.bfloat16(), v.bfloat16(), proj,
+                             mask)
+    assert got.dtype == torch.float32
 
 
 def _block_views(dev, t=10, h=8, n=15, d=64, m=266, seed=5):
@@ -669,8 +679,9 @@ def test_image_da_wrapper_raises_on_what_the_kernel_does_not_take(dev):
 BF16 = torch.bfloat16
 
 
-def _bf16_close(got, want, want_f32):
-    """The module docstring's bfloat16 rule."""
+def _bf16_close(got, want, want_f32, element_ulps=True):
+    """The module docstring's bfloat16 rule (``element_ulps`` false leaves
+    out the per-element ulp bound)."""
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
     g, w, f = got.float(), want.float(), want_f32.float()
@@ -680,7 +691,7 @@ def _bf16_close(got, want, want_f32):
     assert float(err.max()) <= bound, (float(err.max()), bound)
     assert float(err.mean()) <= float(own.mean()), (float(err.mean()),
                                                     float(own.mean()))
-    if got.dtype == BF16:
+    if got.dtype == BF16 and element_ulps:
         ulps = _ulps(got, want, 2.0 ** -8 * float(w.abs().max()))
         assert float(ulps.max()) <= 2.0, float(ulps.max())
 
@@ -721,6 +732,40 @@ def test_favor_bf16_kernel_matches_its_twin(dev, t):
     _bf16_close(got, favor.favor_plain(q, k, v, proj, mask),
                 favor.favor_plain(q.float(), k.float(), v.float(), proj,
                                   mask))
+
+
+# K2 wide in bfloat16: D5 (ANPDistractor: Nq 18, Nk 15), S6 (ANP
+# ShapeNet3D: Nq 15, Nk 15), D4's evaluation (Nq 36, Nk 25) and R = 100
+@pytest.mark.parametrize("t,nq,nk", [(20, 18, 15), (20, 15, 15),
+                                     (20, 36, 25), (4, 50, 50)])
+def test_favor_wide_bf16_kernel_matches_its_twin(dev, t, nq, nk):
+    """bfloat16 q, k, v as the attention block hands them over ([T, N, H,
+    d] transposed), ANPDistractor's width (d = e = 256, m = 1419), shots 1
+    .. Nk: float32 out; two calls bit-equal; the wrapper counts a bfloat16
+    wide launch. At d = 256 the normalizer 256^-1/4 = 1/4 is exact, so dn
+    x rounds nothing and bfloat16 moves only the diagonal term: the twin's
+    own distance from float32 lies below float32's summation noise, and
+    the kernel is held to the bfloat16 twin within the float32 tolerance
+    (atol 1e-5, rtol 1e-4), far inside the bfloat16 rule's bound."""
+    g = torch.Generator(device=dev).manual_seed(nq + nk)
+    h, d, m = 8, 256, 1419
+    proj = torch.randn((m, d), generator=g, device=dev)
+    q = torch.randn((t, nq, h, d), generator=g, device=dev).to(
+        BF16).transpose(1, 2)
+    k, v = (torch.randn((t, nk, h, d), generator=g, device=dev).to(
+        BF16).transpose(1, 2) for _ in range(2))
+    shots = torch.randint(1, nk + 1, (t, 1), generator=g, device=dev)
+    mask = torch.arange(nk, device=dev)[None] < shots
+    got = favor.favor_launch(q, k, v, proj, mask)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, favor.favor_launch(q, k, v, proj, mask))
+    _close(got, favor.favor_plain(q, k, v, proj, mask), 1e-5, 1e-4)
+    before = (favor.favor_attention.bf16_launches,
+              favor.favor_attention.wide_launches)
+    favor.favor_attention(q, k, v, proj, mask)
+    assert (favor.favor_attention.bf16_launches,
+            favor.favor_attention.wide_launches) == (before[0] + 1,
+                                                     before[1] + 1)
 
 
 @pytest.mark.parametrize("masked", [True, False])
@@ -1140,13 +1185,18 @@ def test_image_da_rgb_with_every_gate_off_is_the_image(dev, program):
 
 
 def test_image_da_rgb_programs_take_only_float32_rgba(dev):
-    """bfloat16 output, uint8 input and a dense RGB tensor (pixels 3 floats
-    apart) raise; nothing falls back."""
+    """RGBA of the dtype they write, float32 or bfloat16: float32 images
+    into bfloat16 output (or the reverse), uint8 input and a dense RGB
+    tensor (pixels 3 elements apart) raise; nothing falls back. (The name
+    is from when the programs took float32 only.)"""
     x = _rgba(dev, (4, 32, 32))
     for program in RGB_PROGRAMS:
         u, keys, order = _rgb_draw(dev, program, 4)
-        with pytest.raises(TypeError, match="float32"):
+        with pytest.raises(TypeError, match="the dtype they write"):
             image_da.image_da(x[..., :3], u, keys, order, BF16, program)
+        with pytest.raises(TypeError, match="the dtype they write"):
+            image_da.image_da(x.to(BF16)[..., :3], u, keys, order,
+                              program=program)
         with pytest.raises(TypeError):
             image_da.image_da(_images(dev, (4, 32, 32, 3)), u, keys, order,
                               program=program)
@@ -1252,11 +1302,16 @@ def test_image_da_distractor_with_every_gate_off_is_the_inverted_image(
 
 
 def test_image_da_distractor_programs_are_float32_only(dev):
+    """They write float32 or bfloat16 (compute_dtype: bfloat16) and raise
+    on any other output type. (The name is from when they wrote float32
+    only.)"""
     x = _images(dev, (4, 32, 32, 1))
     for program in DISTRACTOR_PROGRAMS:
         u, keys, order = _program_draw(dev, program, 4)
-        with pytest.raises(TypeError, match="float32"):
-            image_da.image_da(x, u, keys, order, BF16, program)
+        with pytest.raises(TypeError, match="writes one of"):
+            image_da.image_da(x, u, keys, order, torch.float16, program)
+        assert image_da.image_da(x, u, keys, order, BF16,
+                                 program).dtype == BF16
 
 
 def test_distractor_augmenter_is_one_launch_reading_nothing_back(dev):
@@ -1275,6 +1330,109 @@ def test_distractor_augmenter_is_one_launch_reading_nothing_back(dev):
     assert image_da.image_da.program_launches["distractor"] == before + 1
 
 
+# -- programs 4-7 in bfloat16 (compute_dtype: bfloat16) -----------------------
+
+LARGE_PROGRAMS = DISTRACTOR_PROGRAMS + RGB_PROGRAMS
+# bfloat16 ulps from the twin, each element: Distractor's programs round once
+# (Affine); ShapeNet3D's six rounding ops carry a flipped value on and can
+# widen it (gamma's exponent up to 2, the blur's sums rounded at every add),
+# on a few elements only
+LARGE_BF16_ULPS = {"distractor": 1.0, "distractor_fixed": 1.0,
+                   "shapenet_3d": 4.0, "shapenet_3d_fixed": 4.0}
+RGB_BF16_SHARE = 1e-4
+
+
+def _large_call(dev, program, b=300, seed=0, on=True):
+    """A DA call of ``program`` at its path's shape: D5's 300 uint8 images
+    of 128 x 128, or S5's and S6's RGB of 300 bfloat16 RGBA images of 64 x
+    64, read through their strides; its draw and the orders to run
+    (program 4: both and 3, read as 1; program 6: ten of the 720)."""
+    if program in RGB_PROGRAMS:
+        x = _rgba(dev, (20, b // 20, 64, 64), seed=seed).to(BF16)[..., :3]
+        u, keys, _ = _rgb_draw(dev, program, b, seed=seed, on=on)
+        orders = _rgb_orders(dev, program)
+    else:
+        x = _images(dev, (20, b // 20, 128, 128, 1), seed=seed + 1)
+        u, keys, _ = _program_draw(dev, program, b, seed=seed, on=on)
+        orders = _distractor_orders(dev, program)
+    return x, u, keys, orders
+
+
+@pytest.mark.parametrize("program", LARGE_PROGRAMS)
+def test_image_da_large_programs_bf16_match_their_twins(dev, program):
+    """Every gate on, in each order: parameters bit for bit; bfloat16 out
+    against the bfloat16 twin on the card and on the CPU, within the module
+    docstring's bfloat16 rule and within ``LARGE_BF16_ULPS`` of each
+    element (programs 6 and 7 differing on at most ``RGB_BF16_SHARE`` of
+    them). Each op rounds at the points the twin rounds, after float32 sums
+    in another order (and the card's powf), so a value near a rounding
+    boundary can round the other way."""
+    x, u, keys, orders = _large_call(dev, program, seed=4)
+    share = RGB_BF16_SHARE if program in RGB_PROGRAMS else 1.0
+    for o in orders:
+        params = torch.empty((x.shape[0] * x.shape[1],
+                              image_da.nparams(program)), device=dev)
+        got = image_da.image_da_launch(x, u, keys, o, BF16, params_out=params,
+                                       program=program)
+        assert got.dtype == BF16 and got.shape == x.shape
+        want_p = image_aug.params_row(image_aug.params_for(
+            program, u, keys, o, x.shape[-3], x.shape[-2]))
+        torch.cuda.synchronize()
+        assert torch.equal(params.view(torch.int32), want_p.view(torch.int32))
+        cpu = [a.cpu() for a in (x, u, keys)] + [
+            None if o is None else o.cpu()]
+        for g, args in ((got, (x, u, keys, o)), (got.cpu(), cpu)):
+            want = image_da.image_da_plain(*args, BF16, program)
+            assert float(_ulps(g, want).max()) <= LARGE_BF16_ULPS[program]
+            assert float((g != want).double().mean()) <= share
+            _bf16_close(g, want, image_da.image_da_plain(
+                *args, torch.float32, program), element_ulps=False)
+
+
+@pytest.mark.parametrize("pick", [0.25, 0.75])    # Dropout, CoarseDropout
+@pytest.mark.parametrize("program", LARGE_PROGRAMS)
+def test_image_da_large_programs_bf16_masks_equal_the_twin_bit_for_bit(
+        dev, program, pick):
+    """Every op off but the dropout op: in bfloat16 the output is the
+    twice-rounded 1 - x / 255 (Distractor) or the bfloat16 image
+    (ShapeNet3D) masked, bit for bit, in each order."""
+    x, u, keys, orders = _large_call(dev, program, seed=9, on=False)
+    u[:, 16], u[:, 17] = 0.25, pick
+    u[:, 10], u[:, 11] = 5.0, 9.0                # rates ~.46 and .45
+    for o in orders[:3]:
+        got = image_da.image_da_launch(x, u, keys, o, BF16,
+                                       program=program).cpu()
+        want = image_da.image_da_plain(x.cpu(), u.cpu(), keys.cpu(),
+                                       None if o is None else o.cpu(), BF16,
+                                       program)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert bool((got == 0).any()) and bool((got != 0).any())
+    if program in DISTRACTOR_PROGRAMS:          # every gate off: the table
+        u[:, 16] = 0.75
+        got = image_da.image_da_launch(x, u, keys, orders[0], BF16,
+                                       program=program).cpu()
+        assert torch.equal(got, image_aug.program_input(program, x.cpu(),
+                                                        BF16))
+
+
+@pytest.mark.parametrize("task", ["distractor", "shapenet_3d"])
+def test_large_bf16_augmenters_are_one_launch_reading_nothing_back(dev, task):
+    aug = image_aug.build_augmenter(task, BF16)
+    x, _, _, _ = _large_call(dev, aug.program)
+    g = torch.Generator(device=dev).manual_seed(0)
+    before = (image_da.image_da.bf16_launches,
+              image_da.image_da.program_launches[task])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = aug(x, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == x.shape and out.dtype == BF16
+    assert (image_da.image_da.bf16_launches,
+            image_da.image_da.program_launches[task]) == (before[0] + 1,
+                                                          before[1] + 1)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")
 PERF_MAML_YAML = os.path.join(REPO, "cfg", "train", "perf",
@@ -1285,6 +1443,8 @@ PASCAL_ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_Pascal1D.yaml")
 DISTRACTOR_ANP_YAML = os.path.join(REPO, "cfg", "train",
                                    "ANP_DA+TA_Distractor.yaml")
 S3D_ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet3D.yaml")
+S3D_PERF_YAML = os.path.join(REPO, "cfg", "train", "perf",
+                             "CondNeuralProcess_DA+TA_ShapeNet3D_tpu.yaml")
 # a kernel wrapper -> the kernel function whose graph nodes count its
 # launches (K3's call also packs its weights and runs one conv_kernel a layer)
 GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
@@ -1375,7 +1535,8 @@ def _assert_equal_states(a, b):
 
 @pytest.mark.parametrize("path", ["anp_f32", "anp_bf16", "maml_bf16",
                                   "pascal_anp", "anp_fixed_bf16",
-                                  "distractor_anp", "s3d_anp"])
+                                  "distractor_anp", "s3d_anp",
+                                  "s3d_cnp_bf16", "distractor_anp_bf16"])
 def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
                                                         pascal_data,
                                                         distractor_data,
@@ -1408,9 +1569,16 @@ def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
                                       ["steps_per_call=4"]),
                    # S1 as shipped (ANP ShapeNet3D: backgrounds composited
                    # per batch, program 6, pose noise, K2 wide)
-                   "s3d_anp": (S3D_ANP_YAML, ["steps_per_call=4"])}[path]
+                   "s3d_anp": (S3D_ANP_YAML, ["steps_per_call=4"]),
+                   # S5 (the ShapeNet3D perf YAML: bf16, compositing on
+                   # bf16 backgrounds) and D5 (D1 in bf16: K2 wide bf16)
+                   "s3d_cnp_bf16": (S3D_PERF_YAML, ["steps_per_call=4"]),
+                   "distractor_anp_bf16": (DISTRACTOR_ANP_YAML,
+                                           ["steps_per_call=4",
+                                            "compute_dtype=bfloat16"])}[path]
     data = {"pascal_anp": pascal_data, "distractor_anp": distractor_data,
-            "s3d_anp": s3d_data}.get(path, graph_data)
+            "distractor_anp_bf16": distractor_data, "s3d_anp": s3d_data,
+            "s3d_cnp_bf16": s3d_data}.get(path, graph_data)
     torch.use_deterministic_algorithms(True)
     try:
         first, graph, loop = (train_cli.build_trainer(

@@ -558,9 +558,16 @@ def test_shipped_distractor_yaml_builds_a_cpu_trainer(name, distractor_dir,
 
 
 def test_distractor_config_rules():
+    """bfloat16 builds (ROADMAP.md A24: the model computes in bfloat16,
+    its parameters float32); the ``s2d`` trunk stem and FCL raise."""
     yaml = os.path.join(TRAIN, "ANP_DA+TA_Distractor.yaml")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A24"):
-        Config(yaml, ["compute_dtype=bfloat16"], make_dirs=False)
+    cfg = Config(yaml, ["compute_dtype=bfloat16", "device=cpu"],
+                 make_dirs=False)
+    model = build_model(cfg)
+    assert isinstance(model, LargeCNP) and cfg.compute_dtype == "bfloat16"
+    assert model.img_encoder.compute_dtype == torch.bfloat16
+    assert model.decoder.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP.md B8b"):
         Config(yaml, ["trunk_stem=s2d"], make_dirs=False)
     with pytest.raises(NotImplementedError, match="A13"):

@@ -119,9 +119,9 @@ def test_fixed_order_perf_yaml_raises_instead_of_running_random_order():
     """``aug_random_order: false`` selects the JAX package's fused
     fixed-order pipeline: the perf YAML's train step runs the fixed
     program, never the random-order one in its place; Distractor's and
-    ShapeNet3D's fixed programs build in float32, and in bfloat16 (the
-    perf YAML's) the config raises naming ROADMAP.md A24 (LargeCNP in
-    bfloat16). (The name is from when every task raised; it is kept so
+    ShapeNet3D's fixed programs build in float32, and ShapeNet3D's in
+    bfloat16 too (the perf YAML's; ROADMAP.md A24), config and model.
+    (The name is from when every task raised; it is kept so
     that the test's record runs on.)"""
     yaml = os.path.join(REPO, "cfg", "train", "perf",
                         "ANP_DA+TA_ShapeNet1D_tpu.yaml")
@@ -140,8 +140,14 @@ def test_fixed_order_perf_yaml_raises_instead_of_running_random_order():
     assert build_episode_processor(
         cfg.task, cfg.aug_list, train=True,
         aug_random_order=False).augment.program == "distractor_fixed"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A24"):
-        Config(yaml, ["task=shapenet_3d"], make_dirs=False)
+    cfg = Config(yaml, ["task=shapenet_3d", "device=cpu"], make_dirs=False)
+    assert cfg.compute_dtype == "bfloat16"
+    assert build_model(cfg) is not None
+    augment = build_episode_processor(
+        cfg.task, cfg.aug_list, train=True, dtype=torch.bfloat16,
+        aug_random_order=cfg.aug_random_order).augment
+    assert (augment.program, augment.dtype) == ("shapenet_3d_fixed",
+                                                torch.bfloat16)
     cfg = Config(yaml, ["task=shapenet_3d", "compute_dtype=float32"],
                  make_dirs=False)
     assert build_episode_processor(

@@ -510,7 +510,7 @@ def test_rgb_programs_draw_and_count_as_the_kernel_reads_them():
     for program, orders in (("shapenet_3d", 720), ("shapenet_3d_fixed", 1)):
         assert kda.PROGRAM_NU[program] == kda.NU_RGB == 25
         assert kda.PROGRAM_ORDERS[program] == orders
-        assert program in kda.FLOAT32_ONLY and program in kda.RGB
+        assert program in kda.RGB
         assert kda.nparams(program) == 25
     assert "shapenet_3d_fixed" in kda.GEOMETRIC
     gen = torch.Generator().manual_seed(3)
@@ -528,6 +528,10 @@ def test_rgb_programs_draw_and_count_as_the_kernel_reads_them():
         before = kda.image_da.launches
         out = kda.image_da(x, u, keys, order, program=program)
         assert out.shape == x.shape and kda.image_da.launches == before
+        out = kda.image_da(x.bfloat16(), u, keys, order, torch.bfloat16,
+                           program)
+        assert (out.shape, out.dtype) == (x.shape, torch.bfloat16)
+        assert kda.image_da.launches == before
         u[:, 13:17] = 0.75
         u[:, [19, 21, 23]] = 0.75
         if program == "shapenet_3d_fixed":   # geometric at the identity
@@ -793,10 +797,14 @@ def test_shipped_shapenet3d_yaml_builds_a_config_and_a_model(path):
 
 
 def test_shapenet3d_config_rules():
-    """The perf YAML (bfloat16) raises naming A24; the segmentation task
-    has a shape and no loader; the fixed order and ``gen_bg`` read."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A24"):
-        Config(PERF_YAML, [], make_dirs=False)
+    """The perf YAML builds as shipped, in bfloat16 (ROADMAP.md A24), and
+    in float32; the segmentation task has a shape and no loader; the fixed
+    order and ``gen_bg`` read."""
+    cfg = Config(PERF_YAML, ["device=cpu"], make_dirs=False)
+    assert cfg.compute_dtype == "bfloat16"
+    model = build_model(cfg)
+    assert isinstance(model, LargeCNP)
+    assert model.img_encoder.compute_dtype == torch.bfloat16
     cfg = Config(PERF_YAML, ["compute_dtype=float32", "device=cpu"],
                  make_dirs=False)
     assert (cfg.gen_bg, cfg.bg_gen_freq, cfg.steps_per_call) == (True, 1000,

@@ -164,13 +164,14 @@ def to_unit(x: torch.Tensor) -> torch.Tensor:
 def program_input(program: str, x: torch.Tensor,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The float image a program starts from: x / 255 in ``dtype``, for
-    Distractor's programs 1 - x / 255 in float32 (the JAX package inverts
-    before DA: ``1.0 - _to_float(x)``), and ShapeNet3D's float images cast
-    to ``dtype``."""
+    Distractor's programs 1 - x / 255 in ``dtype`` (the JAX package inverts
+    before DA: ``1.0 - _to_float(x, dtype)``; in bfloat16 the quotient
+    rounds, then the difference), and ShapeNet3D's float images cast to
+    ``dtype``."""
     if x.is_floating_point():
         return x.to(dtype)
     if program.startswith("distractor"):
-        return 1.0 - to_unit(x)
+        return 1.0 - to_unit(x).to(dtype)
     return to_unit(x).to(dtype)
 
 
@@ -686,8 +687,9 @@ class Augmenter:
     ``program`` (``kernels/image_da.py:PROGRAMS``); each call draws its raw
     draw and issues one K6 launch. Images come out in ``dtype``, float32
     or bfloat16: as in the JAX package, x / 255 and the end of every op
-    (or ShapeNet1D's warp chain) round to it (the masks are exact).
-    Distractor's and ShapeNet3D's programs write float32 only."""
+    (or ShapeNet1D's warp chain) round to it (the masks are exact);
+    Distractor's x / 255 and 1 - x / 255 each round. ShapeNet3D's
+    programs read float RGB of ``dtype``."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
                  program: str = "shapenet_1d"):

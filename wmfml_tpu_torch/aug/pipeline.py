@@ -11,9 +11,13 @@ model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` (ShapeNet1D),
   * uint8 images -> x / 255 in the compute dtype ``dtype`` (float32 or
     bfloat16, rounded from the float32 quotient as JAX's
     ``x.astype(dtype) / 255.0`` rounds it), in the augmenter when image DA
-    is on; labels and task augmentation stay float32; Distractor's images
-    are inverted first, 1 - x / 255 in float32 (in the augmenter's
-    program when image DA is on);
+    is on; float images (ShapeNet3D's) cast to it; labels and task
+    augmentation stay float32 (ShapeNet3D's integer pose noise too: JAX
+    casts it to the compute dtype, exactly, and it meets the float32
+    quaternions); Distractor's images are inverted first, 1 - x / 255 in
+    ``dtype`` (in bfloat16 the quotient rounds, then the difference, as
+    JAX's ``1.0 - _to_float(x, dtype)``; in the augmenter's program when
+    image DA is on);
   * image data augmentation (train only, ``data_aug`` in ``aug_list``):
     two augmenter calls on the raw uint8 images, context then query, each
     with its own draw (``aug/image_aug.py``: one K6 launch a call on the
@@ -96,7 +100,8 @@ def build_episode_processor(task: str, aug_list, train: bool,
 
     def to_input(x):
         if task == "distractor":        # inverted before any DA
-            return 1.0 - to_unit(x) if x.dtype == torch.uint8 else 1.0 - x
+            return 1.0 - (to_unit(x).to(dtype) if x.dtype == torch.uint8
+                          else x.to(dtype))
         return _to_float(x, dtype)
 
     def strip_alpha(x):

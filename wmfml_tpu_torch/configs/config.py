@@ -26,9 +26,6 @@ Port-specific rules:
   * ``trunk_stem`` (the ResNet trunk's stem lowering): only ``conv``, the
     stock convolution; the JAX package's phase-layout ``s2d`` stem is not
     ported (ROADMAP.md B8b) and raises.
-  * Distractor's and ShapeNet3D's methods (LargeCNP) compute in float32
-    only: ``compute_dtype: bfloat16`` with one of them raises (ROADMAP.md
-    A24).
   * ShapeNet3D's backgrounds: ``gen_bg`` (default true) recomposites the
     host splits when training starts and composites every training batch
     on the device; ``bg_gen_freq`` (default 1000) is read and kept, as in
@@ -76,9 +73,6 @@ DEFAULT_QUERY_NUM = {
 DEVICE_ALIASES = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-# the tasks whose methods run LargeCNP, float32 only until ROADMAP.md A24
-LARGE_CNP_TASKS = ("distractor", "shapenet_3d")
 
 
 def _parse_override(value: str) -> Any:
@@ -182,11 +176,6 @@ class Config:
             raise NotImplementedError(
                 f"trunk_stem={self.trunk_stem!r}: only the stock 'conv' stem "
                 "is ported (ROADMAP.md B8b)")
-        if self.task in LARGE_CNP_TASKS and self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r} for {self.method!r}: "
-                f"{self.task}'s methods (LargeCNP) compute in float32 only "
-                "(ROADMAP.md A24)")
         self.prng_impl = get("prng_impl", "threefry")
         self.data_path = get("data_path", None)
         self.synthetic_data = get("synthetic_data", False)

@@ -700,13 +700,13 @@ extern "C" int wmfml_favor_fwd(const void* q, const void* k, const void* v,
 
 // -- K2 wide: heads too wide for the kernel above ------------------------------
 //
-// The same computation for d <= 256 and any m, Nq + Nk <= 64 rows an item,
-// float32: LargeCNP's full-width heads (d = e = 256, m = int(256 ln 256) =
-// 1419; ANPDistractor at Nq = 18, Nk = 15 in training and Nq = 36, Nk <= 25
-// in evaluation). The features of an item alone take (Nq + Nk) m floats,
-// 347 KB at R = 61, so nothing here holds a whole item's features: dash
-// goes to the scratch tensor, and the features stream through shared memory
-// in chunks of FT columns.
+// The same computation for d <= 256, any m and any Nq, Nk, float32 or
+// bfloat16 q, k, v: LargeCNP's full-width heads (d = e = 256, m = int(256
+// ln 256) = 1419; ANPDistractor at Nq = 18, Nk = 15 in training and Nq = 36,
+// Nk <= 25 in evaluation). The features of an item alone take (Nq + Nk) m
+// floats, 347 KB at R = 61, so nothing here holds a whole item's features:
+// dash goes to the scratch tensor, and the features stream through shared
+// memory in chunks of FT columns.
 //
 // Bound: the dash products, 2 (Nq + Nk) m d a (task, head) item (3.84 GFLOP
 // at T = 20, H = 8, Nq + Nk = 33: 0.023 ms in 3xTF32 at the tensor cores'
@@ -716,25 +716,34 @@ extern "C" int wmfml_favor_fwd(const void* q, const void* k, const void* v,
 //   * Phase 1, units of (feature tile of FT = 128, item), feature-tile major,
 //     each block a contiguous run of units, so that a block restages the
 //     projection tile [128 x d] only where its run crosses into the next
-//     tile and the item's rows [Nq + Nk x d] every unit. dash of the tile =
+//     tile and the item's rows every unit. The rows go through in groups of
+//     RMAX = 64 (one group at every shipped shape): dash of the tile =
 //     (d^-1/4 rows) P_tile^T on the tensor cores in 3xTF32 (mma.sync
 //     m16n8k8: small*big, big*small, big*big a k-step, as above), operands
 //     split as they are read from shared memory, whose rows are padded to
 //     d + 4 floats so that a fragment's 32 reads hit 32 banks. Eight warps:
-//     four 16-row tiles of the item's rows by two halves of the feature
-//     tile. The tile goes to dash in global memory, with each row's max over
-//     its real features (< m); the tile's key max (masked rows included)
-//     goes to kmax[item][tile]; the unit of tile 0 also writes each row's
-//     diagonal term |x|^2 / 2 d^-1/2.
+//     four 16-row tiles of the group by two halves of the feature tile. The
+//     tile goes to dash in global memory, with each row's max over its real
+//     features (< m); the tile's key max (masked rows included) goes to
+//     kmax[item][tile]; the unit of tile 0 also writes each row's diagonal
+//     term |x|^2 / 2 d^-1/2.
 //   * grid.sync().
 //   * Phase 2, an item a block at a time: the global key max (every block
 //     reduces all kmax: a max is exact in any order, so each block holds
-//     the same bits), the query stabilisers (each q row's max over its
-//     tiles), v, the key mask; then per chunk of FT features, dash read back
-//     and turned into q' or k' (0 past m) as it is stored, and A = q' k'^T
-//     accumulated over the chunks by the same warp tiles of 2 q rows x 4 k
-//     rows as above (each entry of A added to by one lane, chunk after
-//     chunk: the sum's order is fixed); out = A v / rowsum(A).
+//     the same bits). The item's q rows and k rows go in chunks of qc and
+//     kc rows: all of them at once where Nq + Nk <= RMAX, else RMAX / 2
+//     each:
+//     for each pair of chunks, the query stabilisers (each q row's max over
+//     its tiles), the v rows, the key mask; then per chunk of FT features,
+//     dash read back and turned into q' or k' (0 past m) as it is stored,
+//     and the block of A = q' k'^T accumulated over the feature chunks by
+//     warp tiles of 2 q rows x 4 k rows (each entry of A added to by one
+//     lane, chunk after chunk: the sum's order is fixed); then each q row's
+//     sum of A and its numerators A v carried on from the previous k chunk
+//     (the numerators in the output, the sums in shared memory), in the
+//     order of the k rows, and divided at the last k chunk. A row's sums run
+//     over the k rows in order whatever the chunks, so one chunk or several
+//     give the same bits.
 // Every global read is latency-bound, so each stage issues its loads in
 // rounds (batched), all of a round in flight before the first store. No
 // atomics: two calls give the same bits. The backward stays on the twin.
@@ -742,6 +751,13 @@ extern "C" int wmfml_favor_fwd(const void* q, const void* k, const void* v,
 // end, a row a block) shows where the call's time goes; on the H100 phase
 // 1 takes most of it, its 3xTF32 products on mma.sync, whose TF32 rate is
 // a fraction of wgmma's (PERF.md).
+//
+// bfloat16 q, k, v (favor_kernel_wide<__nv_bfloat16>), with the narrow
+// kernel's rounding points: the rows are read four values (8 bytes) a load
+// and widened exactly; dn x rounds to bfloat16 (dn rounded), so its small
+// part is 0 and dash takes two TF32 products a k-step, not three; the
+// diagonal term is bf16(bf16(sum of bf16(x^2)) / 2 dn^2); v is widened;
+// everything after is float32, and so is the output.
 
 namespace {
 namespace wide {
@@ -750,15 +766,16 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int DW = 256;        // the widest head: d <= 256
 constexpr int EW = 256;        // the widest v row: e <= 256
-constexpr int RMAX = 64;       // Nq + Nk <= 64: four 16-row mma tiles
+constexpr int RMAX = 64;       // rows a group and a chunk pair: four 16-row
+                               // mma tiles
 constexpr int FT = 128;        // features a phase-1 unit and a phase-2 chunk
 constexpr int LD = DW + 4;     // the staged rows' stride: conflict-free reads
 constexpr int DLD = FT + 4;    // the dash tile's row stride
-// Shared memory, phase 1: the projection tile [FT][LD] | the item's rows
+// Shared memory, phase 1: the projection tile [FT][LD] | the group's rows
 // [RMAX][LD], whose room the dash tile [RMAX][DLD] takes after the
 // products | the tile's row maxima [RMAX] | red [WARPS]. Phase 2: features
-// [RMAX][FT] | v [RMAX][EW] | A [Nq Nk <= RMAX^2 / 4] | diag, stab, keep
-// [RMAX each], below red.
+// [RMAX][FT] | v [RMAX][EW] | A [qc kc <= RMAX^2 / 4] | diag, stab, keep,
+// the q rows' sums of A [RMAX each], below red.
 constexpr int P1_X = FT * LD;
 constexpr int P1_RMX = P1_X + RMAX * LD;
 constexpr int RED = P1_RMX + RMAX;
@@ -768,23 +785,25 @@ constexpr int P2_A = P2_V + RMAX * EW;
 constexpr int P2_DIAG = P2_A + RMAX * RMAX / 4;
 constexpr int P2_STAB = P2_DIAG + RMAX;
 constexpr int P2_KEEP = P2_STAB + RMAX;
-static_assert(P2_KEEP + RMAX <= RED, "phase 2 fits in phase 1's room");
+constexpr int P2_DEN = P2_KEEP + RMAX;
+static_assert(P2_DEN + RMAX <= RED, "phase 2 fits in phase 1's room");
 static_assert(DLD * RMAX <= LD * RMAX, "the dash tile fits the rows' room");
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;                    // float or __nv_bfloat16, as the kernel's T
+  const void* k;
+  const void* v;
   const float* proj;
   const unsigned char* mask;        // [T, Nk] bytes 0/1, or null: all real
   float* dash;                      // scratch [items][R][MPW]
-  float* rowmax;                    // scratch [items][mtiles][RMAX]
+  float* rowmax;                    // scratch [items][mtiles][R]
   float* kmax;                      // scratch [items][mtiles]
-  float* diag;                      // scratch [items][RMAX]
+  float* diag;                      // scratch [items][R]
   float* out;                       // [items][Nq][e]
   long long* stamps;                // [gridDim][STAMPS] or null
   long long qs_t, qs_h, qs_n, ks_t, ks_h, ks_n, vs_t, vs_h, vs_n, ms_t, ms_n;
   int items, H, Nq, Nk, d, e, m, mtiles, MPW;
+  int qc, kc;                       // phase 2's chunks of q and k rows
   float dn, dn2, ratio, eps;
 };
 
@@ -835,10 +854,12 @@ __device__ inline float4 features4(const Params& p, float4 x, int c,
   return make_float4(y[0], y[1], y[2], y[3]);
 }
 
-// Phase 1 unit: dash of feature tile ft for the item's rows, into dash,
-// rowmax, kmax (and diag at ft = 0).
+// Phase 1 unit: dash of feature tile ft for the item's rows, a group of
+// RMAX at a time, into dash, rowmax, kmax (and diag at ft = 0).
+template <class T>
 __device__ void dash_unit(const Params& p, float* smem, int ft, int item,
                           bool stage_proj) {
+  constexpr bool kBF = sizeof(T) == 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = p.Nq + p.Nk, t = item / p.H, h = item - t * p.H;
   float* Pt = smem;
@@ -857,96 +878,115 @@ __device__ void dash_unit(const Params& p, float* smem, int ft, int item,
                                     : zero;
         },
         [&](int i, float4 x) { store4(Pt + i / D4 * LD + i % D4 * 4, x); });
-  // the rows of the active 16-row tiles, zero past R and past d
-  batched<8, THREADS>(
-      (R + 15) / 16 * 16 * D4,
-      [&](int i) {
-        const int r = i / D4, c = (i - r * D4) * 4;
-        if (r >= R || c >= p.d) return zero;
-        return r < p.Nq
-                   ? ldg4(p.q + t * p.qs_t + h * p.qs_h + r * p.qs_n + c)
-                   : ldg4(p.k + t * p.ks_t + h * p.ks_h +
-                          (r - p.Nq) * p.ks_n + c);
-      },
-      [&](int i, float4 x) { store4(X + i / D4 * LD + i % D4 * 4, x); });
-  __syncthreads();
-  if (ft == 0)                      // the rows' diagonal terms, once an item
-    for (int r = warp; r < R; r += WARPS) {
-      float s = 0.f;
-      for (int c = lane; c < p.d; c += 32) s = fmaf(X[r * LD + c], X[r * LD + c], s);
-      s = warp_sum(s);
-      if (lane == 0) p.diag[(size_t)item * RMAX + r] = s / 2.0f * p.dn2;
-    }
+  float km = -INFINITY;             // the tile's key max (thread 0's)
+  for (int r0 = 0; r0 < R; r0 += RMAX) {
+    const int rn = min(RMAX, R - r0);
+    if (r0) __syncthreads();        // the previous group's reads are done
+    // the group's rows of the active 16-row tiles, zero past R and past d
+    batched<8, THREADS>(
+        (rn + 15) / 16 * 16 * D4,
+        [&](int i) {
+          const int r = i / D4 + r0, c = (i - i / D4 * D4) * 4;
+          if (r >= R || c >= p.d) return zero;
+          return r < p.Nq
+                     ? ld4(qkv<T>(p.q) + t * p.qs_t + h * p.qs_h +
+                           r * p.qs_n + c)
+                     : ld4(qkv<T>(p.k) + t * p.ks_t + h * p.ks_h +
+                           (r - p.Nq) * p.ks_n + c);
+        },
+        [&](int i, float4 x) { store4(X + i / D4 * LD + i % D4 * 4, x); });
+    __syncthreads();
+    if (ft == 0)                    // the rows' diagonal terms, once an item
+      for (int r = warp; r < rn; r += WARPS) {
+        float s = 0.f;
+        for (int c = lane; c < p.d; c += 32) {
+          const float x = X[r * LD + c];
+          if constexpr (kBF)
+            s += tc::bf16r(x * x);
+          else
+            s = fmaf(x, x, s);
+        }
+        s = warp_sum(s);
+        if (lane == 0)
+          p.diag[(size_t)item * R + r0 + r] =
+              kBF ? tc::bf16r(tc::bf16r(s) / 2.0f * p.dn2) : s / 2.0f * p.dn2;
+      }
 
-  // dash^T fragments: warp (mt, ng) computes rows 16 mt .. + 15 against
-  // features 64 ng .. + 63 of the tile, eight m16n8 tiles
-  const int mt = warp & 3, ng = warp >> 2, g = lane >> 2, tq = lane & 3;
-  float acc[8][4];
+    // dash^T fragments: warp (mt, ng) computes rows 16 mt .. + 15 against
+    // features 64 ng .. + 63 of the tile, eight m16n8 tiles
+    const int mt = warp & 3, ng = warp >> 2, g = lane >> 2, tq = lane & 3;
+    float acc[8][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-  const bool active = mt * 16 < R;
-  if (active) {
-    const float* xa = X + (mt * 16 + g) * LD + tq;
-    const float* pb = Pt + (ng * 64 + g) * LD + tq;
-    const int ksteps = (p.d + 7) / 8;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const int o = ks * 8;
-      const float av[4] = {xa[o], xa[8 * LD + o], xa[o + 4], xa[8 * LD + o + 4]};
-      uint32_t ab[4], as[4];
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    const bool active = mt * 16 < rn;
+    if (active) {
+      const float* xa = X + (mt * 16 + g) * LD + tq;
+      const float* pb = Pt + (ng * 64 + g) * LD + tq;
+      const int ksteps = (p.d + 7) / 8;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        const int o = ks * 8;
+        const float av[4] = {xa[o], xa[8 * LD + o], xa[o + 4],
+                             xa[8 * LD + o + 4]};
+        uint32_t ab[4], as[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) tc::split(p.dn * av[i], ab[i], as[i]);
+        for (int i = 0; i < 4; ++i) {
+          // bfloat16: dn x rounded as the reference rounds it, exact in TF32
+          const float a = kBF ? tc::bf16r(p.dn * av[i]) : p.dn * av[i];
+          tc::split(a, ab[i], as[i]);
+        }
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float* b = pb + nt * 8 * LD + o;
-        uint32_t bb0, bs0, bb1, bs1;
-        tc::split(b[0], bb0, bs0);
-        tc::split(b[4], bb1, bs1);
-        mma_tf32(acc[nt], as, bb0, bb1);
-        mma_tf32(acc[nt], ab, bs0, bs1);
-        mma_tf32(acc[nt], ab, bb0, bb1);
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* b = pb + nt * 8 * LD + o;
+          uint32_t bb0, bs0, bb1, bs1;
+          tc::split(b[0], bb0, bs0);
+          tc::split(b[4], bb1, bs1);
+          if constexpr (!kBF) mma_tf32(acc[nt], as, bb0, bb1);
+          mma_tf32(acc[nt], ab, bs0, bs1);
+          mma_tf32(acc[nt], ab, bb0, bb1);
+        }
       }
     }
-  }
-  __syncthreads();                  // X is read: the dash tile takes its room
-  if (active)
+    __syncthreads();                // X is read: the dash tile takes its room
+    if (active)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = ng * 64 + nt * 8 + 2 * tq;
-      float* r0 = D + (mt * 16 + g) * DLD + col;
-      r0[0] = acc[nt][0];
-      r0[1] = acc[nt][1];
-      r0[8 * DLD] = acc[nt][2];
-      r0[8 * DLD + 1] = acc[nt][3];
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = ng * 64 + nt * 8 + 2 * tq;
+        float* rw = D + (mt * 16 + g) * DLD + col;
+        rw[0] = acc[nt][0];
+        rw[1] = acc[nt][1];
+        rw[8 * DLD] = acc[nt][2];
+        rw[8 * DLD + 1] = acc[nt][3];
+      }
+    __syncthreads();
+    // the tile to dash, and each row's max over its real features
+    float* dst = p.dash + ((size_t)item * R + r0) * p.MPW + ft * FT;
+    for (int r = warp; r < rn; r += WARPS) {
+      const float4 x = *reinterpret_cast<const float4*>(D + r * DLD + lane * 4);
+      __stcg(reinterpret_cast<float4*>(dst + (size_t)r * p.MPW) + lane, x);
+      const int j = ft * FT + lane * 4;
+      float mx = -INFINITY;
+      if (j < p.m) mx = x.x;
+      if (j + 1 < p.m) mx = fmaxf(mx, x.y);
+      if (j + 2 < p.m) mx = fmaxf(mx, x.z);
+      if (j + 3 < p.m) mx = fmaxf(mx, x.w);
+      mx = warp_max(mx);
+      if (lane == 0) {
+        p.rowmax[((size_t)item * p.mtiles + ft) * R + r0 + r] = mx;
+        rmx[r] = mx;
+      }
     }
-  __syncthreads();
-  // the tile to dash, and each row's max over its real features
-  float* dst = p.dash + (size_t)item * R * p.MPW + ft * FT;
-  for (int r = warp; r < R; r += WARPS) {
-    const float4 x = *reinterpret_cast<const float4*>(D + r * DLD + lane * 4);
-    __stcg(reinterpret_cast<float4*>(dst + (size_t)r * p.MPW) + lane, x);
-    const int j = ft * FT + lane * 4;
-    float mx = -INFINITY;
-    if (j < p.m) mx = x.x;
-    if (j + 1 < p.m) mx = fmaxf(mx, x.y);
-    if (j + 2 < p.m) mx = fmaxf(mx, x.z);
-    if (j + 3 < p.m) mx = fmaxf(mx, x.w);
-    mx = warp_max(mx);
-    if (lane == 0) {
-      p.rowmax[((size_t)item * p.mtiles + ft) * RMAX + r] = mx;
-      rmx[r] = mx;
-    }
+    __syncthreads();
+    if (tid == 0)                   // key rows, masked rows included
+      for (int r = max(p.Nq - r0, 0); r < rn; ++r) km = fmaxf(km, rmx[r]);
   }
-  __syncthreads();
-  if (tid == 0) {                   // the tile's key max, masked rows included
-    float km = -INFINITY;
-    for (int r = p.Nq; r < R; ++r) km = fmaxf(km, rmx[r]);
-    p.kmax[(size_t)item * p.mtiles + ft] = km;
-  }
+  if (tid == 0) p.kmax[(size_t)item * p.mtiles + ft] = km;
 }
 
-// Phase 2 for one item: features chunk by chunk, A, out.
+// Phase 2 for one item: per pair of q and k chunks, features chunk by
+// chunk, the block of A, then the q rows' sums and numerators; out.
+template <class T>
 __device__ void attend(const Params& p, float* smem, int item, float gmax) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = p.Nq + p.Nk, t = item / p.H, h = item - t * p.H;
@@ -957,102 +997,124 @@ __device__ void attend(const Params& p, float* smem, int item, float gmax) {
   float* diag = smem + P2_DIAG;
   float* stab = smem + P2_STAB;
   float* keep = smem + P2_KEEP;
+  float* den = smem + P2_DEN;
   constexpr int C4 = FT / 4;
-  __syncthreads();                  // the previous item's reads are done
   const int e4 = p.e / 4;
-  batched<4, THREADS>(
-      p.Nk * e4,
-      [&](int i) {
-        return ldg4(p.v + t * p.vs_t + h * p.vs_h + i / e4 * p.vs_n +
-                    i % e4 * 4);
-      },
-      [&](int i, float4 x) { store4(V + i * 4, x); });
-  for (int r = tid; r < R; r += THREADS) {
-    diag[r] = __ldcg(p.diag + (size_t)item * RMAX + r);
-    if (r < p.Nq) {
-      float s = -INFINITY;
-      for (int ft = 0; ft < p.mtiles; ++ft)
-        s = fmaxf(s, __ldcg(p.rowmax + ((size_t)item * p.mtiles + ft) * RMAX + r));
-      stab[r] = s;
-    } else {
-      const int n = r - p.Nq;
-      keep[n] = p.mask == nullptr || p.mask[t * p.ms_t + n * p.ms_n] ? 1.f : 0.f;
-    }
-  }
-  for (int i = tid; i < p.Nq * p.Nk; i += THREADS) A[i] = 0.f;
-  __syncthreads();
-
   const float* src = p.dash + (size_t)item * R * p.MPW;
-  const int tk = (p.Nk + 3) / 4, ntiles = (p.Nq + 1) / 2 * tk;
-  for (int ft = 0; ft < p.mtiles; ++ft) {
-    if (ft) __syncthreads();        // the previous chunk's reads of F are done
-    batched<8, THREADS>(
-        R * C4,
-        [&](int i) {
-          return __ldcg(reinterpret_cast<const float4*>(
-                            src + (size_t)(i / C4) * p.MPW + ft * FT) +
-                        i % C4);
-        },
-        [&](int i, float4 x) {
-          const int r = i / C4;
-          const bool isq = r < p.Nq;
-          F4[i] = features4(p, x, ft * FT + i % C4 * 4, diag[r],
-                            isq ? stab[r] : gmax, isq ? 1.f : keep[r - p.Nq]);
-        });
-    __syncthreads();
-    // A += q' k'^T over the chunk: a warp per tile of 2 q rows x 4 k rows,
-    // lane l the chunk's columns 4 l .. 4 l + 3
-    for (int tile = warp; tile < ntiles; tile += WARPS) {
-      const int i0 = tile / tk * 2, n0 = tile % tk * 4;
-      float4 x[2], y[4];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) x[a] = F4[min(i0 + a, p.Nq - 1) * C4 + lane];
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        y[b] = F4[(p.Nq + min(n0 + b, p.Nk - 1)) * C4 + lane];
-      float acc[8];
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          float s = x[a].x * y[b].x;
-          s = fmaf(x[a].y, y[b].y, s);
-          s = fmaf(x[a].z, y[b].z, s);
-          acc[a * 4 + b] = fmaf(x[a].w, y[b].w, s);
-        }
-      const float sum = warp_sum8(acc);
-      const int i = i0 + (lane >> 4), n = n0 + ((lane >> 2) & 3);
-      if ((lane & 3) == 0 && i < p.Nq && n < p.Nk) A[i * p.Nk + n] += sum;
-    }
-  }
-  __syncthreads();
-
-  // out = A v / rowsum(A): four outputs a thread, their sums interleaved
   float* ob = p.out + (size_t)item * p.Nq * p.e;
-  const int no = p.Nq * p.e;
-  for (int o0 = tid; o0 < no; o0 += 4 * THREADS) {
-    float num[4] = {0.f, 0.f, 0.f, 0.f}, den[4] = {0.f, 0.f, 0.f, 0.f};
-    int ii[4], cc[4];
+  for (int q0 = 0; q0 < p.Nq; q0 += p.qc) {
+    const int nq = min(p.qc, p.Nq - q0);
+    for (int k0 = 0; k0 < p.Nk; k0 += p.kc) {
+      const int nk = min(p.kc, p.Nk - k0), rn = nq + nk;
+      // the chunk's rows: q rows q0.. at 0.., k rows k0.. at nq..
+      const auto row = [&](int r) { return r < nq ? q0 + r : p.Nq + k0 + r - nq; };
+      __syncthreads();              // the previous chunk's reads are done
+      batched<4, THREADS>(
+          nk * e4,
+          [&](int i) {
+            return ld4(qkv<T>(p.v) + t * p.vs_t + h * p.vs_h +
+                       (k0 + i / e4) * p.vs_n + i % e4 * 4);
+          },
+          [&](int i, float4 x) { store4(V + i * 4, x); });
+      for (int r = tid; r < rn; r += THREADS) {
+        diag[r] = __ldcg(p.diag + (size_t)item * R + row(r));
+        if (r < nq) {
+          float s = -INFINITY;
+          for (int ft = 0; ft < p.mtiles; ++ft)
+            s = fmaxf(s, __ldcg(p.rowmax + ((size_t)item * p.mtiles + ft) * R +
+                                q0 + r));
+          stab[r] = s;
+          if (k0 == 0) den[r] = 0.f;
+        } else {
+          const int n = k0 + r - nq;
+          keep[r - nq] =
+              p.mask == nullptr || p.mask[t * p.ms_t + n * p.ms_n] ? 1.f : 0.f;
+        }
+      }
+      for (int i = tid; i < nq * nk; i += THREADS) A[i] = 0.f;
+      __syncthreads();
+
+      const int tk = (nk + 3) / 4, ntiles = (nq + 1) / 2 * tk;
+      for (int ft = 0; ft < p.mtiles; ++ft) {
+        if (ft) __syncthreads();    // the previous chunk's reads of F are done
+        batched<8, THREADS>(
+            rn * C4,
+            [&](int i) {
+              return __ldcg(reinterpret_cast<const float4*>(
+                                src + (size_t)row(i / C4) * p.MPW + ft * FT) +
+                            i % C4);
+            },
+            [&](int i, float4 x) {
+              const int r = i / C4;
+              const bool isq = r < nq;
+              F4[i] = features4(p, x, ft * FT + i % C4 * 4, diag[r],
+                                isq ? stab[r] : gmax, isq ? 1.f : keep[r - nq]);
+            });
+        __syncthreads();
+        // A += q' k'^T over the chunk: a warp per tile of 2 q rows x 4 k
+        // rows, lane l the chunk's columns 4 l .. 4 l + 3
+        for (int tile = warp; tile < ntiles; tile += WARPS) {
+          const int i0 = tile / tk * 2, n0 = tile % tk * 4;
+          float4 x[2], y[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int o = min(o0 + u * THREADS, no - 1);
-      ii[u] = o / p.e;
-      cc[u] = o % p.e;
-    }
-    for (int n = 0; n < p.Nk; ++n) {
+          for (int a = 0; a < 2; ++a) x[a] = F4[min(i0 + a, nq - 1) * C4 + lane];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float a = A[ii[u] * p.Nk + n];
-        num[u] = fmaf(a, V[n * p.e + cc[u]], num[u]);
-        den[u] += a;
+          for (int b = 0; b < 4; ++b)
+            y[b] = F4[(nq + min(n0 + b, nk - 1)) * C4 + lane];
+          float acc[8];
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              float s = x[a].x * y[b].x;
+              s = fmaf(x[a].y, y[b].y, s);
+              s = fmaf(x[a].z, y[b].z, s);
+              acc[a * 4 + b] = fmaf(x[a].w, y[b].w, s);
+            }
+          const float sum = warp_sum8(acc);
+          const int i = i0 + (lane >> 4), n = n0 + ((lane >> 2) & 3);
+          if ((lane & 3) == 0 && i < nq && n < nk) A[i * nk + n] += sum;
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < nq; i += THREADS) {   // the rows' sums of A
+        float s = den[i];
+        for (int n = 0; n < nk; ++n) s += A[i * nk + n];
+        den[i] = s;
+      }
+      __syncthreads();
+
+      // the numerators A v, carried in the output from the previous k chunk
+      // (each by the thread that wrote it), divided at the last: four
+      // outputs a thread, their sums interleaved
+      const bool last = k0 + nk == p.Nk;
+      const int no = nq * p.e;
+      float* oc = ob + (size_t)q0 * p.e;
+      for (int o0 = tid; o0 < no; o0 += 4 * THREADS) {
+        float num[4];
+        int ii[4], cc[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int o = min(o0 + u * THREADS, no - 1);
+          ii[u] = o / p.e;
+          cc[u] = o % p.e;
+          num[u] = k0 == 0 ? 0.f : oc[o];
+        }
+        for (int n = 0; n < nk; ++n) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            num[u] = fmaf(A[ii[u] * nk + n], V[n * p.e + cc[u]], num[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (o0 + u * THREADS < no)
+            oc[o0 + u * THREADS] = last ? num[u] / den[ii[u]] : num[u];
       }
     }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (o0 + u * THREADS < no) ob[o0 + u * THREADS] = num[u] / den[u];
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(THREADS, 1) favor_kernel_wide(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int units = p.mtiles * p.items;
@@ -1061,7 +1123,7 @@ __global__ void __launch_bounds__(THREADS, 1) favor_kernel_wide(const Params p) 
   stamp(p, 0);
   for (int u = u0; u < u1; ++u) {
     const int ft = u / p.items;
-    dash_unit(p, smem, ft, u - ft * p.items, u == u0 || u % p.items == 0);
+    dash_unit<T>(p, smem, ft, u - ft * p.items, u == u0 || u % p.items == 0);
   }
   stamp(p, 1);
   cg::this_grid().sync();
@@ -1070,11 +1132,22 @@ __global__ void __launch_bounds__(THREADS, 1) favor_kernel_wide(const Params p) 
   for (int i = threadIdx.x; i < units; i += THREADS) g = fmaxf(g, __ldcg(p.kmax + i));
   const float gmax = block_max(g, smem + RED);
   for (int item = blockIdx.x; item < p.items; item += gridDim.x)
-    attend(p, smem, item, gmax);
+    attend<T>(p, smem, item, gmax);
   if (p.stamps != nullptr) {
     __syncthreads();
     stamp(p, 3);
   }
+}
+
+// blocks of favor_kernel_wide<T> an SM (the dynamic shared memory set)
+template <class T>
+cudaError_t per_sm_blocks(int& per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      favor_kernel_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, favor_kernel_wide<T>, THREADS, SMEM_BYTES);
 }
 
 int coresident[MAX_DEVICES];
@@ -1083,51 +1156,51 @@ int coresident[MAX_DEVICES];
 }  // namespace
 
 // Co-resident blocks of the wide kernel on the current device (queried
-// once per device), or a negative cudaError_t.
+// once per device, the fewer of the two element types' kernels), or a
+// negative cudaError_t.
 extern "C" int wmfml_favor_wide_coresident() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
   if (dev >= MAX_DEVICES) return -(int)cudaErrorInvalidDevice;
   if (wide::coresident[dev] == 0) {
-    int sms = 0, per_sm = 0;
+    int sms = 0, per_f32 = 0, per_bf16 = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return -(int)err;
-    err = cudaFuncSetAttribute(wide::favor_kernel_wide,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               wide::SMEM_BYTES);
-    if (err != cudaSuccess) return -(int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, wide::favor_kernel_wide, wide::THREADS, wide::SMEM_BYTES);
-    if (err != cudaSuccess) return -(int)err;
+    if ((err = wide::per_sm_blocks<float>(per_f32)) != cudaSuccess)
+      return -(int)err;
+    if ((err = wide::per_sm_blocks<__nv_bfloat16>(per_bf16)) != cudaSuccess)
+      return -(int)err;
+    const int per_sm = per_f32 < per_bf16 ? per_f32 : per_bf16;
     if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
     wide::coresident[dev] = per_sm * sms;
   }
   return wide::coresident[dev];
 }
 
-// Floats of the wide kernel's scratch tensor for T * H = items: dash
-// [items][Nq + Nk][MPW], then the row maxima [items][mtiles][64], the key
-// maxima [items][mtiles] and the diagonal terms [items][64], with mtiles =
-// ceil(m / 128) and MPW = 128 mtiles.
+// Floats of the wide kernel's scratch tensor for T * H = items, R = Nq + Nk
+// rows an item: dash [items][R][MPW], then the row maxima [items][mtiles][R],
+// the key maxima [items][mtiles] and the diagonal terms [items][R], with
+// mtiles = ceil(m / 128) and MPW = 128 mtiles.
 extern "C" long long wmfml_favor_wide_scratch_floats(int items, int Nq, int Nk,
                                                     int m) {
-  const long long mt = (m + wide::FT - 1) / wide::FT;
-  return (long long)items * ((Nq + Nk) * mt * wide::FT + mt * wide::RMAX + mt +
-                             wide::RMAX);
+  const long long mt = (m + wide::FT - 1) / wide::FT, R = Nq + Nk;
+  return (long long)items * (R * mt * wide::FT + mt * R + mt + R);
 }
 
-// q [T,H,Nq,d], k [T,H,Nk,d], v [T,H,Nk,e] float32 at element strides (t,
-// h, n), each a multiple of 4, unit stride along the last axis and aligned
-// to four elements; proj [m, d] contiguous and 16-byte aligned; d and e
-// multiples of 4 with d <= 256, e <= 256, Nq + Nk <= 64; mask [T, Nk] bytes
-// at strides (t, n), or null; scratch of wmfml_favor_wide_scratch_floats
-// floats, 16-byte aligned; out [T,H,Nq,e] contiguous; stamps null, or
-// [min(T * H * ceil(m / 128), co-resident blocks), 4] int64 for the phase
-// clock. One cooperative launch on `stream`. Returns its cudaError_t, or -1
-// when the shape does not fit the kernel.
-extern "C" int wmfml_favor_wide_fwd(const float* q, const float* k,
-                                    const float* v, const float* proj,
+// q [T,H,Nq,d], k [T,H,Nk,d], v [T,H,Nk,e] at element strides (t, h, n),
+// each a multiple of 4, unit stride along the last axis and aligned to four
+// elements; float32, or bfloat16 with bf16 set (then dn and dn2 the
+// bfloat16-rounded normalizers); proj [m, d] contiguous and 16-byte
+// aligned; d and e multiples of 4 with d <= 256, e <= 256; mask [T, Nk]
+// bytes at strides (t, n), or null; scratch of
+// wmfml_favor_wide_scratch_floats floats, 16-byte aligned; out [T,H,Nq,e]
+// float32 contiguous; stamps null, or [min(T * H * ceil(m / 128),
+// co-resident blocks), 4] int64 for the phase clock. One cooperative
+// launch on `stream`. Returns its cudaError_t, or -1 when the shape does
+// not fit the kernel.
+extern "C" int wmfml_favor_wide_fwd(const void* q, const void* k,
+                                    const void* v, const float* proj,
                                     const unsigned char* mask, float* scratch,
                                     float* out, long long* stamps,
                                     long long qs_t, long long qs_h,
@@ -1136,26 +1209,31 @@ extern "C" int wmfml_favor_wide_fwd(const float* q, const float* k,
                                     long long vs_t, long long vs_h,
                                     long long vs_n, long long ms_t,
                                     long long ms_n, int T, int H, int Nq,
-                                    int Nk, int d, int e, int m, float dn,
-                                    float dn2, float ratio, float eps,
-                                    void* stream) {
+                                    int Nk, int d, int e, int m, int bf16,
+                                    float dn, float dn2, float ratio,
+                                    float eps, void* stream) {
   if (d < 1 || d > wide::DW || d % 4 || e < 4 || e > wide::EW || e % 4 ||
-      Nq < 1 || Nk < 1 || Nq + Nk > wide::RMAX || m < 1)
+      Nq < 1 || Nk < 1 || m < 1)
     return -1;
   const int items = T * H;
   if (items == 0) return 0;
   const int blocks = wmfml_favor_wide_coresident();
   if (blocks < 0) return -blocks;
   const int mtiles = (m + wide::FT - 1) / wide::FT, MPW = mtiles * wide::FT;
+  // phase 2's chunks: every row at once where they fit, else half each
+  const bool whole = Nq + Nk <= wide::RMAX;
+  const int qc = whole ? Nq : wide::RMAX / 2;
+  const int kc = whole ? Nk : wide::RMAX / 2;
   const size_t nd = (size_t)items * (Nq + Nk) * MPW;
   float* rowmax = scratch + nd;
-  float* kmax = rowmax + (size_t)items * mtiles * wide::RMAX;
+  float* kmax = rowmax + (size_t)items * mtiles * (Nq + Nk);
   float* diag = kmax + (size_t)items * mtiles;
   const wide::Params p{q,     k,    v,    proj,   mask, scratch, rowmax,
                        kmax,  diag, out,  stamps, qs_t, qs_h,    qs_n,
                        ks_t,  ks_h, ks_n, vs_t,   vs_h, vs_n,    ms_t,
                        ms_n,  items, H,   Nq,     Nk,   d,       e,
-                       m,     mtiles, MPW, dn,    dn2,  ratio,   eps};
+                       m,     mtiles, MPW, qc,    kc,   dn,      dn2,
+                       ratio, eps};
   const int units = mtiles * items;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
@@ -1167,7 +1245,9 @@ extern "C" int wmfml_favor_wide_fwd(const float* q, const float* k,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, wide::favor_kernel_wide, p);
+  const cudaError_t err =
+      bf16 ? cudaLaunchKernelEx(&cfg, wide::favor_kernel_wide<__nv_bfloat16>, p)
+           : cudaLaunchKernelEx(&cfg, wide::favor_kernel_wide<float>, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

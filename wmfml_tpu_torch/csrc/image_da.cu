@@ -114,15 +114,25 @@
 // applies to the inverted image), then Affine alone from f into the output
 // with the mask applied as it writes (Affine first), or the mask in place on
 // f and Affine from f into the output (the mask first); Affine's gate off,
-// the masked copy. They write float32 only.
+// the masked copy. In bfloat16 the JAX package computes 1.0 -
+// x.astype(bf16) / 255.0: the quotient rounds to bfloat16, then the
+// difference rounds again, so the table holds bf16(1 - bf16(i / 255)), and
+// Affine's output rounds as it is stored (the mask multiplies by 0 or 1:
+// rounding then masking is masking then rounding). Bound in bfloat16: 1 B
+// read and 2 B written a pixel.
 //
-// Programs 6 and 7 (ShapeNet3D, run_rgb_program) read float32 RGBA and
-// write float32 RGB, [B, H, W, 3]. Bound: the bytes, 16 read and 12 written
-// a pixel (34.4 MB for 300 images of 64 x 64, 10.3 us at 3.35 TB/s). There
-// is no uint8 stage and no quotient table: the threads load each pixel as
-// one float4 (the image's rows are contiguous, 16 bytes a pixel) and keep
-// its three channels in f as three planes, so the lanes of a warp read and
-// write neighbouring words of a plane. Each op is one pass from f into g or
+// Programs 6 and 7 (ShapeNet3D, run_rgb_program) read RGBA and write RGB,
+// [B, H, W, 3], both float32 or both bfloat16 (compute_dtype: bfloat16,
+// whose sampler keeps the split in bfloat16). Bound: the bytes, 16 read
+// and 12 written a pixel in float32 (34.4 MB for 300 images of 64 x 64,
+// 10.3 us at 3.35 TB/s), 8 and 6 in bfloat16 (5.1 us). There is no uint8
+// stage and no quotient table: the threads load each pixel as one float4
+// (the image's rows are contiguous, 16 bytes a pixel; bfloat16: one uint2 of
+// 8 bytes, widened in registers) and keep its three channels in f as three
+// float32 planes, so the lanes of a warp read and write neighbouring words
+// of a plane. In bfloat16 each op's result rounds to bfloat16 where the JAX
+// op returns img.dtype: as it is stored into the other plane set or the
+// output, and AverageBlur's sums at every add, as programs 1-3 round. Each op is one pass from f into g or
 // in place (a warp: its one-stage tap table, then the taps of all three
 // planes from one table entry; AverageBlur from one image into the other;
 // GammaContrast, AddToBrightness and the mask in place), the last one
@@ -201,7 +211,7 @@ __host__ __device__ constexpr int program_nparams(int prog) {
   return prog == SHAPENET1D ? NPARAMS
                             : rgb(prog) ? NPARAMS_RGB : NPARAMS_PIXEL;
 }
-// Distractor's programs: the inverted image, float32 output only
+// Distractor's programs: the inverted image
 __host__ __device__ constexpr bool inverted(int prog) {
   return prog == DISTRACTOR || prog == DISTRACTOR_FIXED;
 }
@@ -249,7 +259,8 @@ __host__ __device__ inline Layout layout(int H, int W, int prog) {
 }
 
 struct Args {
-  const void* x;             // uint8 images, or float32 RGBA (programs 6, 7)
+  const void* x;             // uint8 images, or float32 or bfloat16 RGBA
+                             // (programs 6, 7: the output's type)
   long long st, ss;          // bytes between tasks and between images
   int S;                     // images per task
   const float* u;            // [B, program_nu]: 19 (programs 0, 2, 4,
@@ -257,7 +268,7 @@ struct Args {
   const int* keys;           // [B, 2]
   const long long* order;    // [1]; null for the fixed programs
   void* out;                 // [B, H, W] float32, or bfloat16 when bf16
-                             // ([B, H, W, 3] float32: programs 6, 7)
+                             // ([B, H, W, 3]: programs 6, 7)
   float* params_out;         // [B, program_nparams] or null
   long long* stamps;         // [B, STAMPS] or null
   int H, W;
@@ -752,6 +763,21 @@ struct OutRGB {
     p[i * RGB_C + c] = v;
   }
 };
+// bfloat16: the planes hold float32 values rounded to bfloat16, the output
+// is bfloat16
+struct PlanesRounded {
+  float* p;
+  int HW;
+  __device__ __forceinline__ void operator()(int c, int i, float v) const {
+    p[c * HW + i] = bf16_round(v);
+  }
+};
+struct OutRGBBF16 {
+  __nv_bfloat16* p;
+  __device__ __forceinline__ void operator()(int c, int i, float v) const {
+    p[i * RGB_C + c] = __float2bfloat16_rn(v);
+  }
+};
 
 // One warp stage alone (_affine_warp) on the three planes of src: a warp
 // walks rows, lane l owns columns l + 32 k (k < NCOL), and each tap's
@@ -886,10 +912,11 @@ __device__ __forceinline__ bool rgb_on(int op, const Shared* P,
 
 // ShapeNet3D's op `op` on the planes of src into dst (the other image for a
 // warp or the blur, src itself otherwise, or the output); an op that is off
-// is a copy.
-template <class Dst>
+// is a copy. Round rounds the blur's sums (bfloat16: at every add).
+template <class Dst, class Round>
 __device__ void rgb_op(int op, const Shared* P, Axis* tab, int H, int W,
-                       const float* src, Dst dst, const Mask& mask) {
+                       const float* src, Dst dst, const Mask& mask,
+                       Round round) {
   const int HW = H * W;
   const auto load = [&](int i, float (&v)[RGB_C]) {
 #pragma unroll
@@ -920,8 +947,7 @@ __device__ void rgb_op(int op, const Shared* P, Axis* tab, int H, int W,
              [&](int, int y, int x, float (&v)[RGB_C]) {
 #pragma unroll
                for (int c = 0; c < RGB_C; ++c)
-                 v[c] = da::blur_px(src + c * HW, H, W, y, x, k,
-                                    da::RoundF32{});
+                 v[c] = da::blur_px(src + c * HW, H, W, y, x, k, round);
              });
   } else {
     rgb_pass(H, W, dst, mask, true, copy);
@@ -932,11 +958,12 @@ __device__ void rgb_op(int op, const Shared* P, Axis* tab, int H, int W,
 // program 6's drawn order of the six ops, or program 7's fixed one
 // (geometric, the warp of row 0 with its gate set, then GammaContrast,
 // AddToBrightness, AverageBlur and the fixed-grid mask); the last op writes
-// the output.
-template <int PROG>
+// the output (Out), the others the planes (Mid: Planes, or PlanesRounded in
+// bfloat16).
+template <int PROG, class Mid, class Out, class Round>
 __device__ void run_rgb_program(const Shared* P, Axis* tab, int H, int W,
-                                float* f, float* g, const Mask& mask,
-                                float* out) {
+                                float* f, float* g, const Mask& mask, Out out,
+                                Round round) {
   const int FIXED[5] = {S_CROP, S_GAMMA, S_BRIGHT, S_BLUR, S_DROP};
   constexpr int n = PROG == SHAPENET3D_FIXED ? 5 : NRGB;
   float* cur = f;
@@ -945,10 +972,10 @@ __device__ void run_rgb_program(const Shared* P, Axis* tab, int H, int W,
     const int op = PROG == SHAPENET3D_FIXED ? FIXED[s] : P->perm[s];
     const bool moves = op == S_CROP || op == S_AFFINE || op == S_BLUR;
     if (s == n - 1) {
-      rgb_op(op, P, tab, H, W, cur, OutRGB{out}, mask);
+      rgb_op(op, P, tab, H, W, cur, out, mask, round);
     } else if (rgb_on(op, P, mask)) {
-      rgb_op(op, P, tab, H, W, cur, Planes{moves ? other : cur, H * W},
-             mask);
+      rgb_op(op, P, tab, H, W, cur, Mid{moves ? other : cur, H * W}, mask,
+             round);
       if (moves) {
         float* t = cur;
         cur = other;
@@ -1077,23 +1104,45 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
     const Mask mask = build_mask(P, H, W, fixed_order(PROG), L.cap, frow,
                                  fcol, cell, RGB_C);
     stamp(a, 1);
-    // the RGBA image's first three channels into f's three planes
-    const float4* x4 = reinterpret_cast<const float4*>(image);
-    for (int i = tid; i < HW; i += THREADS) {
-      const float4 v = x4[i];
-      fbuf[i] = v.x;
-      fbuf[HW + i] = v.y;
-      fbuf[2 * HW + i] = v.z;
+    // the RGBA image's first three channels into f's three planes: a float4
+    // a pixel, or in bfloat16 a uint2 widened (R in the low half of .x)
+    if (a.bf16) {
+      const uint2* x2 = reinterpret_cast<const uint2*>(image);
+      for (int i = tid; i < HW; i += THREADS) {
+        const uint2 v = x2[i];
+        fbuf[i] = __uint_as_float(v.x << 16);
+        fbuf[HW + i] = __uint_as_float(v.x & 0xFFFF0000u);
+        fbuf[2 * HW + i] = __uint_as_float(v.y << 16);
+      }
+    } else {
+      const float4* x4 = reinterpret_cast<const float4*>(image);
+      for (int i = tid; i < HW; i += THREADS) {
+        const float4 v = x4[i];
+        fbuf[i] = v.x;
+        fbuf[HW + i] = v.y;
+        fbuf[2 * HW + i] = v.z;
+      }
     }
     __syncthreads();
     stamp(a, 2);
     stamp(a, 3);
-    run_rgb_program<PROG>(P, tab, H, W, fbuf, gbuf, mask,
-                          static_cast<float*>(a.out) + (size_t)b * HW * RGB_C);
+    const size_t o = (size_t)b * HW * RGB_C;
+    if (a.bf16)
+      run_rgb_program<PROG, PlanesRounded>(
+          P, tab, H, W, fbuf, gbuf, mask,
+          OutRGBBF16{static_cast<__nv_bfloat16*>(a.out) + o}, da::RoundBF16{});
+    else
+      run_rgb_program<PROG, Planes>(P, tab, H, W, fbuf, gbuf, mask,
+                                    OutRGB{static_cast<float*>(a.out) + o},
+                                    da::RoundF32{});
   } else {
     for (int i = tid; i < 256; i += THREADS) {
       const float q = __fdiv_rn((float)i, 255.f);
-      lut[i] = inverted(PROG) ? __fsub_rn(1.f, q) : a.bf16 ? bf16_round(q) : q;
+      if (inverted(PROG))           // 1 - x / 255, in bfloat16 rounded twice
+        lut[i] = a.bf16 ? bf16_round(__fsub_rn(1.f, bf16_round(q)))
+                        : __fsub_rn(1.f, q);
+      else
+        lut[i] = a.bf16 ? bf16_round(q) : q;
     }
     const Mask mask = build_mask(P, H, W, fixed_order(PROG), L.cap, frow,
                                  fcol, cell);
@@ -1147,13 +1196,14 @@ extern "C" int wmfml_image_da_smem_bytes(int program, int H, int W) {
 }
 
 // x: uint8 images, image (t, s) at x + t st + s ss (bytes), each H x W x 1
-// contiguous and 16-byte aligned (programs 6 and 7: float32 RGBA, H x W x 4
-// contiguous), B = T S of them with S per task; u [B, 19] f32 ([B, 23] for
+// contiguous and 16-byte aligned (programs 6 and 7: RGBA of the output's
+// type, float32 or bfloat16, H x W x 4 contiguous), B = T S of them with S
+// per task; u [B, 19] f32 ([B, 23] for
 // the Pascal programs, [B, 25] for ShapeNet3D's; column 12 in [0, 1)), keys
 // [B, 2] i32, order [1] i64 (read modulo 6, 120 for Pascal1D, 2 for
 // Distractor or 720 for ShapeNet3D; null for the fixed programs), out [B,
-// H, W] f32 (bf16 = 0) or bf16 (bf16 = 1; not for programs 4-7; programs 6
-// and 7 write [B, H, W, 3] f32), all contiguous on the current device;
+// H, W] f32 (bf16 = 0) or bf16 (bf16 = 1; programs 6 and 7 write [B, H, W,
+// 3]), all contiguous on the current device;
 // params_out null or [B, 19] f32 for program 0, [B, 25] for programs 6 and
 // 7, [B, 23] for the others (the parameters the kernel computed: warp [2,
 // 7], drop [5], then the pixel ops' [4] and brightness's [2]); stamps null
@@ -1176,7 +1226,6 @@ extern "C" int wmfml_image_da_fwd(const void* x, long long st,
       (H % da::fixed_cells(H) || W % da::fixed_cells(W)))
     return -1;
   if (!fixed_order(program) && order == nullptr) return -1;
-  if ((inverted(program) || rgb(program)) && bf16) return -1;
   const int smem = layout(H, W, program).total;
   if (smem > MAX_SMEM) return -1;
   int dev = 0;

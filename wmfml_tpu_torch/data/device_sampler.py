@@ -24,7 +24,13 @@ set-up. Semantics of the JAX package's sampler
     drawn for it (``composite``: ``randint(0, 200, [T, N])`` from the
     generator, the context's draw, then the queries'), with the bank
     resident on the card, as ``wmfml_tpu/data/device_sampler.py:96-110``
-    composites it; plain elementwise work inside the captured step.
+    composites it; plain elementwise work inside the captured step;
+  * a float split (ShapeNet3D's) and its backgrounds are kept in the
+    compute dtype: bfloat16 under ``compute_dtype: bfloat16``, as
+    ``wmfml_tpu/data/device_sampler.py:53-60`` stores them (236 MB for the
+    synthetic split), so compositing runs in bfloat16 (exact: each pixel
+    is the image's or the background's) and the batch reaches K6 in the
+    dtype it writes; uint8 splits stay uint8.
 
 The draws differ from the JAX package's (Philox against threefry); the
 distribution is the same.
@@ -45,23 +51,28 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from wmfml_tpu_torch.configs.config import torch_dtype
+
 
 class DeviceEpisodeSampler:
     """Wraps a dense train split [groups, instances, ...] on ``device``."""
 
     def __init__(self, x: np.ndarray, y: np.ndarray, max_ctx: int, query: int,
                  shot_min: int, label_scale: float, device,
-                 bg: Optional[np.ndarray] = None):
+                 bg: Optional[np.ndarray] = None,
+                 store_dtype: torch.dtype = torch.float32):
         self.max_ctx, self.query, self.shot_min = max_ctx, query, shot_min
         self.label_scale = label_scale
         self.n_groups, self.n_inst = x.shape[0], x.shape[1]
         if self.n_inst < max_ctx + query:
             raise ValueError(f"need {max_ctx + query} instances per class, "
                              f"have {self.n_inst}")
-        self.x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        x = torch.from_numpy(np.ascontiguousarray(x))
+        self.x = (x.to(store_dtype) if x.is_floating_point() else x).to(device)
         self.y = torch.from_numpy(np.asarray(y, np.float32)).to(device)
         self.bg = (None if bg is None else
-                   torch.from_numpy(np.asarray(bg, np.float32)).to(device))
+                   torch.from_numpy(np.asarray(bg, np.float32)).to(
+                       device, store_dtype))
 
     # task -> (shot_min, label_scale); shot_min None is max_ctx_num
     TASKS = {"shapenet_1d": (3, 2.0 * np.pi), "pascal_1d": (None, 1.0),
@@ -80,7 +91,8 @@ class DeviceEpisodeSampler:
                    query=config.query_num,
                    shot_min=config.max_ctx_num if shot_min is None
                    else shot_min, label_scale=label_scale, device=device,
-                   bg=data.bg_imgs if gen_bg else None)
+                   bg=data.bg_imgs if gen_bg else None,
+                   store_dtype=torch_dtype(config))
 
     def composite(self, images: torch.Tensor,
                   idx: torch.Tensor) -> torch.Tensor:

@@ -9,10 +9,10 @@ products and the rest).
 K2 has two forms, both in ``csrc/favor.cu``, one cooperative launch each:
 the narrow kernel for heads of d <= 64 with m <= 512 features (SmallCNP's,
 d = 64, m = 266), whose item's features stay in shared memory, and the wide
-kernel for d <= 256 at any m (LargeCNP's full-width heads, d = 256, m =
-1419), whose features stream through shared memory in chunks, float32
-only, Nq + Nk <= 64. ``favor_launch`` picks the form by d and m; a shape
-neither takes raises.
+kernel for d <= 256 at any m and any Nq, Nk (LargeCNP's full-width heads,
+d = 256, m = 1419), whose features stream through shared memory in chunks
+and whose rows go through in groups of 64. ``favor_launch`` picks the form
+by d and m; a shape neither takes raises.
 
 ``favor_attention`` is the wrapper the attention block calls. A CPU tensor
 takes the plain twin (the JAX math, op for op); a CUDA tensor launches the
@@ -27,7 +27,7 @@ promotes. Two roundings happen in bfloat16 before that, and the twin and
 the kernel both take them: ``data_normalizer * data`` (the scalar rounded
 to bfloat16 first, as JAX casts a Python scalar) and the diagonal term
 ``sum(data**2) / 2 * normalizer**2`` (each square, the sum and the product
-rounded). The kernel reads the bfloat16 rows through their strides (no
+rounded). Both forms read the bfloat16 rows through their strides (no
 float32 copy); their values are exact in TF32, so dash needs no small part
 for them.
 """
@@ -46,7 +46,6 @@ EPS = 1e-4
 MAX_D = 64             # widest head the narrow kernel takes (padded to 64)
 MAX_MP = 512           # most features it takes, m rounded up to 16
 WIDE_MAX_D = 256       # the wide kernel: widest head and widest v row
-WIDE_MAX_ROWS = 64     # and most rows an item, Nq + Nk
 # the kernel's phase clock (csrc/favor.cu: stamp)
 PHASES = ("start", "staged", "dash_done", "phase1_done", "barrier_passed",
           "loaded", "features_done", "a_done", "end")
@@ -118,7 +117,7 @@ def _kernel_wide():
         lib = build.load("favor")
         fn = lib.wmfml_favor_wide_fwd
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 11
-                       + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+                       + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         size = lib.wmfml_favor_wide_scratch_floats
@@ -199,18 +198,19 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     # mask, and neither is copied
     q, k, v = (_aligned(a) for a in (q, k, v))
     proj = _aligned(projection)
-    if wide:
-        return _wide_launch(q, k, v, proj, mask, stamps)
-    # dash [T*H, Nq+Nk, m rounded up to 16], then the items' key maxima
-    mp = -(-m // 16) * 16
-    scratch = torch.empty(t * h * ((nq + nk) * mp + 1),
-                          device=q.device, dtype=torch.float32)
     out = torch.empty((t, h, nq, e), device=q.device, dtype=torch.float32)
     mask_args = ((0, 0, 0) if mask is None
                  else (mask.data_ptr(), *mask.stride()))
     bf16 = q.dtype == torch.bfloat16
     # bfloat16: the kernel scales by the rounded normalizers and rounds
     dn, dn2 = _normalizers(d, q.dtype) if bf16 else (d ** -0.25, d ** -0.5)
+    if wide:
+        return _wide_launch(q, k, v, proj, mask_args, stamps, out, bf16, dn,
+                            dn2)
+    # dash [T*H, Nq+Nk, m rounded up to 16], then the items' key maxima
+    mp = -(-m // 16) * 16
+    scratch = torch.empty(t * h * ((nq + nk) * mp + 1),
+                          device=q.device, dtype=torch.float32)
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
         mask_args[0], scratch.data_ptr(), out.data_ptr(),
@@ -226,27 +226,24 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     return out
 
 
-def _wide_launch(q, k, v, proj, mask, stamps):
-    """The wide kernel (``favor_launch``'s checks done, q, k, v aligned)."""
+def _wide_launch(q, k, v, proj, mask_args, stamps, out, bf16, dn, dn2):
+    """The wide kernel (``favor_launch``'s checks done, q, k, v aligned,
+    ``out`` allocated)."""
     t, h, nq, d = q.shape
     nk, e, m = k.shape[2], v.shape[3], proj.shape[0]
-    if (q.dtype != torch.float32 or d > WIDE_MAX_D or e > WIDE_MAX_D
-            or nq + nk > WIDE_MAX_ROWS):
+    if d > WIDE_MAX_D or e > WIDE_MAX_D:
         raise ValueError(
-            f"the wide FAVOR kernel takes float32 heads of d <= {WIDE_MAX_D}, "
-            f"e <= {WIDE_MAX_D} and Nq + Nk <= {WIDE_MAX_ROWS}; got "
-            f"{q.dtype}, d={d}, e={e}, Nq={nq}, Nk={nk}")
+            f"the wide FAVOR kernel takes heads of d <= {WIDE_MAX_D} and "
+            f"e <= {WIDE_MAX_D}; got d={d}, e={e}")
     fwd, size = _kernel_wide()
     scratch = torch.empty(size(t * h, nq, nk, m), device=q.device,
                           dtype=torch.float32)
-    out = torch.empty((t, h, nq, e), device=q.device, dtype=torch.float32)
-    mask_args = ((0, 0, 0) if mask is None
-                 else (mask.data_ptr(), *mask.stride()))
     err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
               mask_args[0], scratch.data_ptr(), out.data_ptr(),
-              0 if stamps is None else stamps.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-              *mask_args[1:], t, h, nq, nk, d, e, m, d ** -0.25, d ** -0.5,
-              m ** -0.5, EPS, torch.cuda.current_stream(q.device).cuda_stream)
+              0 if stamps is None else stamps.data_ptr(), *q.stride()[:3],
+              *k.stride()[:3], *v.stride()[:3], *mask_args[1:], t, h, nq, nk,
+              d, e, m, int(bf16), dn, dn2, m ** -0.5, EPS,
+              torch.cuda.current_stream(q.device).cuda_stream)
     if err == -1:
         raise ValueError(f"the wide FAVOR kernel does not take Nq={nq}, "
                          f"Nk={nk}, d={d}, e={e}, m={m}")

@@ -2,11 +2,12 @@
 
 Replaces ``wmfml_tpu/aug/pipeline.py:_to_float`` and the augmenters of
 ``wmfml_tpu/aug/image_aug.py`` for one call: uint8 images in (ShapeNet3D's:
-float32 RGB, the RGB channels of the sampler's RGBA batch), float32 images
-out, the op order and every image's parameters computed on the card from
-the call's raw draws. The images come out in float32 or, for
-``compute_dtype: bfloat16``, in bfloat16, rounded where the JAX package
-rounds them: x / 255 and the end of every op (or run of adjacent warps)
+float RGB, the RGB channels of the sampler's RGBA batch, in the output's
+dtype), float images out, the op order and every image's parameters
+computed on the card from the call's raw draws. The images come out in
+float32 or, for ``compute_dtype: bfloat16``, in bfloat16, rounded where the
+JAX package rounds them: x / 255 (Distractor's 1 - x / 255: the quotient,
+then the difference) and the end of every op (or run of adjacent warps)
 that returns ``img.dtype``; the masks are exact. ``csrc/image_da.cu`` says
 what bounds the kernel and how its block of one image stages the image,
 builds its tap and mask tables and runs its op program.
@@ -20,17 +21,18 @@ The op programs (``PROGRAMS``; ``aug/image_aug.py`` has each one's twin):
   * ``distractor``: Distractor's two ops (Affine alone, the dropout op) in
     one of 2! drawn orders, on the inverted image 1 - x / 255;
     ``distractor_fixed``: Affine, then the fixed-grid dropout op, on the
-    inverted image. Both write float32 only (ROADMAP.md A24);
+    inverted image;
   * ``shapenet_3d``: ShapeNet3D's six ops (CropAndPad, GammaContrast,
     AddToBrightness, AverageBlur, Affine, the dropout op) in one of 6!
     drawn orders on float RGB, each op alone; ``shapenet_3d_fixed``:
     geometric, GammaContrast, AddToBrightness, AverageBlur, then the
-    fixed-grid dropout op. Both write float32 only (ROADMAP.md A24).
+    fixed-grid dropout op. Both read RGBA of the dtype they write.
 
 ``image_da(x, u, keys, order, dtype, program)`` is the wrapper the
 augmenters call: ``x`` uint8 [B, H, W, 1] or [T, S, H, W, 1] (read through
-its T and S strides, not copied; ShapeNet3D's programs: float32 [..., H, W,
-3], the RGB view of an RGBA tensor, pixels 4 floats apart), ``u`` float32
+its T and S strides, not copied; ShapeNet3D's programs: float32 or
+bfloat16 [..., H, W, 3] of ``dtype``, the RGB view of an RGBA tensor, pixels
+4 elements apart), ``u`` float32
 [B, NU[program]] (the
 uniforms of the program's ``params_from_draw``; column 12, which sizes the
 CoarseDropout grid, in [0, 1)), ``keys`` int32 [B, 2], ``order`` int64 [1]
@@ -74,8 +76,6 @@ PROGRAM_ORDERS = {"shapenet_1d": 6, "pascal_1d": 120,
 GEOMETRIC = ("shapenet_1d_fixed", "pascal_1d_fixed", "shapenet_3d_fixed")
 # the programs on float RGB (ShapeNet3D's: C = 3, read from RGBA)
 RGB = ("shapenet_3d", "shapenet_3d_fixed")
-# the programs that take float32 output only (Distractor's, ShapeNet3D's)
-FLOAT32_ONLY = ("distractor", "distractor_fixed") + RGB
 NPARAMS = 2 * 7 + 5     # the kernel's parameter row: warp [2, 7], drop [5]
 NPARAMS_PIXEL = NPARAMS + 4    # then the pixel ops' [4] (programs 1-5)
 NPARAMS_RGB = NPARAMS_PIXEL + 2    # and brightness's [2] (programs 6, 7)
@@ -84,7 +84,7 @@ PHASES = ("start", "tables_built", "image_staged", "mask_or_first_pass_done",
           "end")
 STAMPS = len(PHASES)
 UNSUPPORTED = ("image DA kernel takes uint8 [B, H, W, 1] or [T, S, H, W, 1] "
-               "images (ShapeNet3D's programs: float32 [..., H, W, 3], the "
+               "images (ShapeNet3D's programs: float [..., H, W, 3], the "
                "RGB channels of an RGBA tensor) with W a multiple of 4 (at "
                "most 128), H W a multiple of 16 and the image in one "
                "block's shared memory (the fixed programs: H and W "
@@ -150,18 +150,18 @@ def image_da_launch(x, u, keys, order, dtype=torch.float32,
         raise ValueError(f"image DA program {program!r} takes "
                          f"{'no' if fixed else 'an'} order")
     rgb = program in RGB
-    if (not x.is_cuda or x.dtype != (torch.float32 if rgb else torch.uint8)
+    if dtype not in DTYPES:
+        raise TypeError(f"image DA program {program!r} writes one of "
+                        f"{DTYPES}; got {dtype}")
+    if (not x.is_cuda or x.dtype != (dtype if rgb else torch.uint8)
             or any(t.device != x.device for t in (u, keys))
             or u.dtype != torch.float32 or keys.dtype != torch.int32
             or (order is not None and (order.device != x.device
                                        or order.dtype != torch.int64))):
         raise TypeError("image DA kernel takes uint8 images (ShapeNet3D's "
-                        "programs: float32), float32 uniforms, int32 keys "
-                        "and an int64 order, all on one CUDA device")
-    dtypes = (torch.float32,) if program in FLOAT32_ONLY else DTYPES
-    if dtype not in dtypes:
-        raise TypeError(f"image DA program {program!r} writes one of "
-                        f"{dtypes}; got {dtype}")
+                        "programs: RGBA of the dtype they write, float32 or "
+                        "bfloat16), float32 uniforms, int32 keys and an "
+                        "int64 order, all on one CUDA device")
     if x.dim() == 4:
         t_, s_, st, ss = x.shape[0], 1, x.stride(0), 0
     elif x.dim() == 5:
@@ -171,7 +171,7 @@ def image_da_launch(x, u, keys, order, dtype=torch.float32,
     h, w, c = x.shape[-3:]
     b = t_ * s_
     # element strides of a pixel, a row and an image: uint8 C = 1 dense, or
-    # RGB read from RGBA, 4 floats a pixel
+    # RGB read from RGBA, 4 elements a pixel
     pix = 4 if rgb else 1
     st, ss = st * x.element_size(), ss * x.element_size()
     if (c != (3 if rgb else 1) or w % 4 or w > 128 or (h * w) % 16

@@ -35,7 +35,14 @@ With attention the context and query images go through the encoder trunk
 as one batch (``MERGE_CTX_QRY``). Keys: ``img_encoder.{conv1,resnet.*}``,
 ``transform_y``, ``task_encoder.{0,2,4}``, ``mu``, ``latent_mu`` /
 ``latent_var`` (baco), the attention block's layers at the top level and
-``decoder.{conv1,resnet.*,fc_mu.{0,2,4}}``. It computes in float32.
+``decoder.{conv1,resnet.*,fc_mu.{0,2,4}}``. In ``compute_dtype`` bfloat16
+(``wmfml_tpu/models/registry.py:86-91`` passes the dtype to every
+LargeCNP) both trunks, the label embedding, the task encoder, the
+aggregation (baco's heads included), the attention block's projections,
+``mu`` and the decoder's head compute in bfloat16, as ``SmallCNP`` does;
+ShapeNet3D's raw float32 labels meet the bfloat16 trunk features in one
+concatenation that promotes to float32, and the task encoder's first layer
+rounds both, as JAX's ``jnp.concatenate`` and ``Dense(dtype=...)`` do.
 """
 
 from __future__ import annotations

@@ -31,7 +31,12 @@ max / baco -> ``adaptive_max_pool`` to 2 x 2 (256), reshape -> the whole map
 CHW, as the reference flattens them (the JAX package flattens HWC:
 ``ckpt/jax_params.py`` permutes every consumer). These are plain dense
 convolutions, which the JAX package leaves to XLA outside any Pallas
-kernel; here cuDNN runs them, in float32. ``load_pretrained_resnet`` copies
+kernel; here cuDNN runs them. The trunk computes in ``compute_dtype`` as
+the JAX package's ``ResNetTrunk(dtype=...)`` does: every convolution
+through ``ops/cast.py:conv2d`` (the images and the float32 weights cast to
+it, the product rounded, then conv1's bias added), the residual add, the
+ReLUs and the pooling in that dtype; the parameters stay float32, so the
+weight carry is the same in both. ``load_pretrained_resnet`` copies
 a torchvision-style ResNet's compatible block convolutions into a trunk
 from a ``state_dict`` the caller has loaded; nothing is fetched.
 """
@@ -137,10 +142,17 @@ def _kaiming_conv(c_in: int, c_out: int, k: int, stride: int,
     return conv
 
 
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` on x in x's dtype (``ops/cast.py:conv2d``)."""
+    return conv2d(x, conv.weight, conv.bias, stride=conv.stride,
+                  padding=conv.padding)
+
+
 class BasicBlockNoBN(nn.Module):
     """ResNet BasicBlock without batch norm (``BasicBlockNoBN``):
     relu(conv2(relu(conv1(x))) + downsample(x)), conv1 3x3 at ``stride``,
-    the downsample a 1x1 conv at ``stride`` (``downsample.0``)."""
+    the downsample a 1x1 conv at ``stride`` (``downsample.0``), in x's
+    dtype (the trunk's ``compute_dtype``)."""
 
     def __init__(self, planes: int = 64, stride: int = 2):
         super().__init__()
@@ -150,12 +162,15 @@ class BasicBlockNoBN(nn.Module):
                                                       stride))
 
     def forward(self, x):
-        out = F.relu(self.conv1(x))
-        return F.relu(self.conv2(out) + self.downsample(x))
+        out = F.relu(_conv(self.conv1, x))
+        return F.relu(_conv(self.conv2, out) + _conv(self.downsample[0], x))
 
 
 class ResNetTrunk(nn.Module):
-    """[B, H, W, C] images -> [B, trunk_feature_dim] features."""
+    """[B, H, W, C] images -> [B, trunk_feature_dim] features in
+    ``compute_dtype``."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, img_agg: str = "max", in_ch: int = 1):
         super().__init__()
@@ -169,7 +184,8 @@ class ResNetTrunk(nn.Module):
                                    nn.Sequential(BasicBlockNoBN(64, 2)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.conv1(x.permute(0, 3, 1, 2)))
+        x = F.relu(_conv(self.conv1,
+                         x.permute(0, 3, 1, 2).to(self.compute_dtype)))
         for i in range(1, 5):
             x = getattr(self.resnet, f"layer{i}")(x)
         if self.img_agg == "mean":

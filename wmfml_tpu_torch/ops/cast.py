@@ -11,6 +11,8 @@ port makes without them.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -33,12 +35,15 @@ def bmm_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return torch.bmm(x, w.to(x.dtype).transpose(1, 2)) + b.to(x.dtype)[:, None]
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, **kw):
-    """``F.conv2d`` (NCHW) in x's dtype (``nn.Conv``)."""
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+           **kw):
+    """``F.conv2d`` (NCHW) in x's dtype (``nn.Conv``): the product rounded
+    to it, then the bias added where there is one (``b`` None:
+    ``use_bias=False``)."""
     if x.dtype == F32:
         return F.conv2d(x, w, b, **kw)
     y = F.conv2d(x, w.to(x.dtype), None, **kw)
-    return y + b.to(x.dtype)[:, None, None]
+    return y if b is None else y + b.to(x.dtype)[:, None, None]
 
 
 def rounded(value: float, dtype: torch.dtype) -> float:
