@@ -174,6 +174,34 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      ``--profile`` each one's busy share); graph against loop bit for bit
      on S5 (phase 12's check) and S5's, S6's and D5's graph and loop
      ms/step in turns;
+ 18. MR and FCL (ROADMAP.md A13), each through ``train_phase`` (launches
+     on the card as the code says, graph nodes, one replay's trace) at full
+     width as shipped but for depth: M1 ``cfg/train/ANPMR_DA+TA_ShapeNet1D
+     .yaml`` (the BBB encoder's samples drawn inside the graph: K1 twice a
+     step and a validation episode, query and context apart, K2, K6
+     program 0), 32 steps, 8 a call; M2 ``MAMLMR_DA+TA_ShapeNet1D.yaml``
+     (second order, a sample per task and inner step: K1 per task 6 times
+     a step, K3, K6), 8 steps, 4 a call; M3 ``ANPMR_ShapeNet3D.yaml``
+     (``aug_list: []``: the BBB trunk on cuDNN over the context, then the
+     queries, K2 wide; no K6), 16 steps; F1
+     ``contrastive/FCLCNP_DA+TA_ShapeNet1D.yaml`` (K1 merged, no K2, the
+     two-view NT-Xent), 32 steps; F2 ``contrastive/FCLANP_DA+TA_ShapeNet3D
+     .yaml`` (K2 wide, K6 program 6, NT-Xent over 300 query reps at t =
+     0.007), 16 steps; F3 ``contrastive/FCLCNP_contrastive_max_DA_
+     Distractor.yaml`` (660 trunk images a step, K6 program 4), 16 steps.
+     MR validation losses on one episode, card against CPU, with the
+     card's draws replayed on the CPU (``EpsFeed``); FCL's as phase 14's.
+     On M1 and M2 two more replays of the captured graph draw different
+     BBB weights (a tap on the encoder's first layer); M2's second-order
+     gradient against float64 (phase 8's check, the same draws in every
+     precision, on a fresh seeded trainer under deterministic
+     algorithms); graph against loop bit for bit on M1 and F2; E1
+     ``evaluation_cli`` with ``cfg/evaluation/CNP_FCL_max_Distractor.yaml``
+     over F3's checkpoint and with ``cfg/evaluation/ANP_ShapeNet1D.yaml``
+     as ANPMRShapeNet1D over M1's (stochastic, as the reference: two sweeps
+     equal, one point card against CPU on the same draws); graph and loop
+     ms/step in turns on every new path. Phase 3 also holds K1 on BBB
+     samples at M1's (150 images a pass) and M2's (per task) shapes;
  15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Phase 3 also holds the Distractor paths' kernels: K2's wide form at D1's
@@ -234,6 +262,7 @@ repository around it.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -321,6 +350,26 @@ S3D_PERF_YAML = os.path.join(HERE, "cfg", "train", "perf",
 S5_OVERRIDES = ["synthetic_data=true", "iterations=192", "val_freq=1000",
                 "val_iters=1", "device=cuda"]
 BF16 = ["compute_dtype=bfloat16"]
+# MR and FCL (phase 18), as shipped but for their depth: M1 ANPMRShapeNet1D
+# and F1 FCLCNPShapeNet1D as the ANP path (32 steps, 8 a call), M2
+# MAMLMRShapeNet1D (8 steps, 4 a call), M3 ANPMRShapeNet3D, F2 FCLANP and
+# F3 FCLCNPDistractor (16 steps, 8 a call); E1 the FCL evaluation YAML over
+# F3's checkpoint and the ShapeNet1D one as ANPMRShapeNet1D over M1's
+MR_ANP_YAML = os.path.join(HERE, "cfg", "train", "ANPMR_DA+TA_ShapeNet1D.yaml")
+MR_MAML_YAML = os.path.join(HERE, "cfg", "train",
+                            "MAMLMR_DA+TA_ShapeNet1D.yaml")
+MR_MAML_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=8",
+                     "val_freq=1000", "val_iters=1", "steps_per_call=4",
+                     "device=cuda"]
+MR_3D_YAML = os.path.join(HERE, "cfg", "train", "ANPMR_ShapeNet3D.yaml")
+FCL_CNP_YAML = os.path.join(HERE, "cfg", "train", "contrastive",
+                            "FCLCNP_DA+TA_ShapeNet1D.yaml")
+FCL_ANP_YAML = os.path.join(HERE, "cfg", "train", "contrastive",
+                            "FCLANP_DA+TA_ShapeNet3D.yaml")
+FCL_DISTRACTOR_YAML = os.path.join(HERE, "cfg", "train", "contrastive",
+                                   "FCLCNP_contrastive_max_DA_Distractor.yaml")
+FCL_EVAL_YAML = os.path.join(HERE, "cfg", "evaluation",
+                             "CNP_FCL_max_Distractor.yaml")
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -390,8 +439,16 @@ BF16_K6_SHARE = 1e-4
 VAL_TOL = 1e-3
 
 
+T0 = time.perf_counter()
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+def stamp(what):
+    """The host seconds since the start, at the end of ``what``."""
+    log(f"time: {what} done at {time.perf_counter() - T0:.1f} s")
 
 
 def card_line() -> str:
@@ -1912,17 +1969,17 @@ def launches_per_step(trainer):
     """What the code says each kernel launches: per training step, and per
     validation episode (both splits are swept)."""
     cfg = trainer.config
+    da = {"image_da": 2} if "data_aug" in cfg.aug_list else {}
     if "MAML" in cfg.method:
         inner, test = cfg.num_steps + 1, cfg.test_num_steps + 1
-        return ({"literature_stem": inner, "maml_features": inner,
-                 "image_da": 2},
+        return ({"literature_stem": inner, "maml_features": inner, **da},
                 {"literature_stem": test, "maml_features": test})
+    attention = {"favor_attention": 1} if cfg.agg_mode == "attention" else {}
     if cfg.task in ("distractor", "shapenet_3d"):   # LargeCNP: cuDNN trunk
-        attention = {"favor_attention": 1} if cfg.method.startswith(
-            "ANP") else {}
-        return {**attention, "image_da": 2}, attention
-    return ({"literature_stem": 1, "favor_attention": 1, "image_da": 2},
-            {"literature_stem": 1, "favor_attention": 1})
+        return {**attention, **da}, attention
+    # a BBB encoder (MR) samples apart for the query and the context pass
+    stem = {"literature_stem": 2 if "MR" in cfg.method else 1}
+    return {**stem, **attention, **da}, {**stem, **attention}
 
 
 def card_launches(trainer, issued):
@@ -1985,7 +2042,7 @@ def replay_trace(trainer, tag):
                          f"of the capture {want}")
 
 
-def train_phase(card, yaml, overrides, counters):
+def train_phase(card, yaml, overrides, counters, tap=False):
     """Drive one path through ``train_cli``'s trainer, which trains through
     CUDA graph replays (``FusedSteps``); return (trainer, launches per
     kernel on the card in that run, the graph's nodes). In ``compute_dtype: bfloat16`` every
@@ -1993,7 +2050,9 @@ def train_phase(card, yaml, overrides, counters):
     path's program (its task's, ``_fixed`` for ``aug_random_order:
     false``). The captured graph's DOT must hold as many nodes of each
     kernel as the capture issued, and a trace of one more replay must show
-    them."""
+    them. With ``tap`` (an MR path) the BBB encoder's first layer is
+    tapped before the capture, and two more replays must draw different
+    weights (``check_replays_draw_anew``)."""
     import tempfile
 
     import torch
@@ -2012,6 +2071,7 @@ def train_phase(card, yaml, overrides, counters):
     t0 = time.perf_counter()
     trainer = train_cli.build_trainer(config)
     fused = trainer.train_step
+    seen = tap_sample(trainer) if tap else None
     with tempfile.TemporaryDirectory() as tmp:
         fused.dot_path = os.path.join(tmp, "step.dot")
         trainer.train()
@@ -2035,11 +2095,12 @@ def train_phase(card, yaml, overrides, counters):
                                  f"{issued['favor_attention']} K2 launches "
                                  f"wide, the path says {want_wide}")
     program = config.task + ("" if config.aug_random_order else "_fixed")
-    by_program = counters["image_da"].program_launches
-    if by_program[program] != issued["image_da"]:
-        raise AssertionError(f"{config.method}: K6 launches by program "
-                             f"{by_program}, {issued['image_da']} in all; the "
-                             f"path's program is {program}")
+    if "image_da" in counters:
+        by_program = counters["image_da"].program_launches
+        if by_program[program] != issued["image_da"]:
+            raise AssertionError(f"{config.method}: K6 launches by program "
+                                 f"{by_program}, {issued['image_da']} in all; "
+                                 f"the path's program is {program}")
 
     with open(os.path.join(config.save_path, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
@@ -2063,8 +2124,9 @@ def train_phase(card, yaml, overrides, counters):
         "" if config.aug_random_order else " fixed order") + (
         f" T={config.tasks_per_batch}" if config.tasks_per_batch != 10
         else "")
-    log(f"train {tag}: K6 program {program}, {by_program[program]} "
-        f"host-issued launches")
+    if "image_da" in counters:
+        log(f"train {tag}: K6 program {program}, {by_program[program]} "
+            f"host-issued launches")
     log(f"train {tag}: {trainer.step} steps in {wall:.3f} s wall, "
         f"{fused.k} a call: {fused.warm_calls} eager warm-up call(s), the "
         f"capture, {fused.replays} replay(s); {ms_step} ms/step, "
@@ -2088,9 +2150,61 @@ def train_phase(card, yaml, overrides, counters):
                                  f"issued {fused.captured_launches[name]}")
     check_launches(trainer, launches)
     replay_trace(trainer, tag)
+    if seen is not None:
+        check_replays_draw_anew(trainer, seen, tag)
     # every K6 launch of the path was one of its program (checked above)
-    launches[f"image_da.{program}"] = launches["image_da"]
+    if "image_da" in launches:
+        launches[f"image_da.{program}"] = launches["image_da"]
     return trainer, launches, nodes
+
+
+def bbb_encoder(model):
+    """The BBB encoder of an MR model (SmallCNP's ``encoder_w0``,
+    MAMLRegressor's ``encoder_w``, LargeCNP's ``img_encoder``)."""
+    for name in ("encoder_w0", "encoder_w", "img_encoder"):
+        if hasattr(model, name):
+            return getattr(model, name)
+    raise AttributeError(f"{type(model).__name__} has no BBB encoder")
+
+
+def tap_sample(trainer):
+    """Keep the last weight sample the BBB encoder's first layer draws;
+    once the graph is captured it is the graph's static tensor, which each
+    replay writes anew."""
+    layer = bbb_encoder(trainer.model).net.layer1.conv
+    seen, sample = {}, layer.sample
+
+    def tapped(noise, lead=()):
+        out = sample(noise, lead)
+        seen["w"] = out[0]
+        return out
+
+    layer.sample = tapped
+    seen["layer"] = layer
+    return seen
+
+
+def check_replays_draw_anew(trainer, seen, tag):
+    """Two more replays of the captured graph: the tapped BBB layer's
+    sample after each must differ (the trainer's generator is registered
+    with the graph, so each replay draws from where the last one left it);
+    both finite."""
+    import torch
+
+    fused = trainer.train_step
+    samples = []
+    for _ in range(2):
+        fused(trainer.generator)
+        torch.cuda.synchronize()
+        samples.append(seen["w"].clone())
+    del seen["layer"].sample         # the class's own sample again
+    differ = (samples[0] != samples[1]).float().mean().item()
+    log(f"train {tag}: two replays' samples of the BBB encoder's first "
+        f"layer {tuple(samples[0].shape)}: {differ} of the entries differ")
+    if differ < 0.99 or not all(bool(torch.isfinite(s).all())
+                                for s in samples):
+        raise AssertionError(f"{tag}: two replays drew the same BBB weights "
+                             f"({differ} of the entries differ)")
 
 
 def check_da_batch(trainer):
@@ -2590,7 +2704,8 @@ def second_order_errors(trainer, gen, jitter=None):
     kernels' and the twins' distance from float64, the kernels' from the
     twins, and the second-order part of the gradient. ``jitter``, a seed,
     moves a random half of the augmented images' nonzero pixels one ulp
-    (``grad_spread``)."""
+    (``grad_spread``). A BBB encoder (MAMLMR) draws its samples once, from
+    ``gen``, and every gradient below replays those draws (``EpsFeed``)."""
     import copy
 
     import torch
@@ -2599,6 +2714,7 @@ def second_order_errors(trainer, gen, jitter=None):
     from wmfml_tpu_torch.kernels import features, stem
     from wmfml_tpu_torch.models import maml as maml_model
     from wmfml_tpu_torch.nn import encoders
+    from wmfml_tpu_torch.nn.bbb import EpsFeed
     from wmfml_tpu_torch.train.maml import build_maml_outer
 
     cfg = trainer.config
@@ -2621,6 +2737,12 @@ def second_order_errors(trainer, gen, jitter=None):
                 x, torch.where(up, 2.0, -1.0)), x)
     cfg = copy.copy(cfg)
     cfg.aug_list = [a for a in cfg.aug_list if a != "data_aug"]
+    draws = None
+    if trainer.model.bbb:
+        rec = EpsFeed(generator=gen)
+        build_maml_outer(trainer.model, cfg, int(cfg.num_steps),
+                         train=False, test=False)(batch, noise=rec)
+        draws = rec.draws
 
     def grads(model, first_order=False, plain=False, shuffled=False):
         saved = (cfg.first_order, encoders.literature_stem,
@@ -2640,7 +2762,11 @@ def second_order_errors(trainer, gen, jitter=None):
             outer = build_maml_outer(model, cfg, int(cfg.num_steps),
                                      train=True, test=False)
             names, params = zip(*model.named_parameters())
-            g = torch.autograd.grad(outer(batch)[0], params)
+            noise = None if draws is None else EpsFeed(draws)
+            # task augmentation (MR's DA + TA YAML) draws the same offsets
+            # in every call
+            ta = torch.Generator(device="cuda").manual_seed(0)
+            g = torch.autograd.grad(outer(batch, ta, noise=noise)[0], params)
         finally:
             (cfg.first_order, encoders.literature_stem,
              maml_model.maml_features, pipeline._to_float) = saved
@@ -2756,6 +2882,189 @@ def profile_calls(trainer, tag, loop=False, calls=1):
                 kernels_per_step=len(kernels) / steps)
 
 
+def check_stem_bbb(model, gen, per_task=False):
+    """K1 on Bayes-by-Backprop samples (mu + eps softplus(rho), drawn on the
+    card) at the MR paths' shapes: ANPMRShapeNet1D's one sample for a pass
+    of 150 images (query and context go through the encoder apart), or
+    MAMLMRShapeNet1D's one sample per task, 10 x 15 images; against
+    ``stem_plain`` on the same samples (task by task for the per-task
+    form). The row reports the MR path's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from wmfml_tpu_torch.kernels import stem
+    from wmfml_tpu_torch.nn.bbb import EpsFeed
+
+    enc = bbb_encoder(model)
+    t_, n, h, w = 10, 15, 128, 128
+    lead = (t_,) if per_task else ()
+    with torch.no_grad():
+        (w0, b0, _), (w1, b1, _) = (
+            layer.sample(EpsFeed(generator=gen), lead)
+            for layer in (enc.net.layer1.conv, enc.net.layer2.conv))
+    x = torch.rand((t_ * n, h, w, 1), generator=gen, device="cuda")
+    args = (x, w0, b0, w1, b1)
+
+    def plain(*a):
+        if not per_task:
+            return stem.stem_plain(*a)
+        return torch.cat([stem.stem_plain(a[0][i * n:(i + 1) * n],
+                                          *(p[i] for p in a[1:]))
+                          for i in range(t_)])
+
+    got = stem.stem_launch(*args)
+    want = plain(*args)
+    err, rel = check_kernel("literature_stem", got, want, None)
+    if per_task:
+        xg = x.reshape(t_, n, h, w).transpose(0, 1).contiguous()
+        groups, wl = t_, [a.flatten(0, 1) if a.dim() == 5 else a.flatten()
+                          for a in (w0, b0, w1, b1)]
+    else:
+        xg, groups, wl = x.reshape(t_ * n, 1, h, w), 1, [w0, b0, w1, b1]
+
+    def library():      # cuDNN, NCHW; never called by the port
+        a = F.relu(F.conv2d(xg, wl[0], wl[1], stride=2, padding=1,
+                            groups=groups))
+        a = F.relu(F.conv2d(a, wl[2], wl[3], stride=2, padding=1,
+                            groups=groups))
+        return F.max_pool2d(a, 2)
+
+    times = in_turns({"ms": lambda: stem.stem_launch(*args),
+                      "plain_ms": lambda: stem.stem_plain(*args),
+                      "library_ms": library})
+    times.update(device_profile(lambda: stem.stem_launch(*args)))
+    nbytes = x.element_size() * (x.numel() + got.numel() + sum(
+        a.numel() for a in (w0, b0, w1, b1)))
+    row = _rows("literature_stem", None, "MR MAML" if per_task else "MR ANP")
+    row.update(name=("literature_stem_per_task_bbb" if per_task
+                     else "literature_stem_bbb"), tol="literature_stem")
+    return dict(**row,
+                shape=(f"BBB samples per task, [10 x 15, 128, 128, 1]"
+                       if per_task else
+                       "a BBB sample, [150, 128, 128, 1] (one pass)"),
+                source="wmfml_tpu_torch/csrc/stem.cu",
+                replaces="wmfml_tpu/nn/encoders.py:230",
+                max_abs_err=err, max_rel_err=rel, **times,
+                **stem_bound(t_ * n, h, w, nbytes))
+
+
+def check_mr_validation(trainer):
+    """An MR model's validation loss on one episode (MAMLMR: after 20
+    inner steps), the card against the CPU on the same BBB draws: drawn on
+    the card once (``EpsFeed`` recording), moved, and replayed on the CPU
+    (plain twins)."""
+    import copy
+
+    import torch
+
+    from wmfml_tpu_torch.nn.bbb import EpsFeed
+    from wmfml_tpu_torch.train.maml import build_maml_eval_step
+    from wmfml_tpu_torch.train.steps import build_eval_step
+    from wmfml_tpu_torch.train.trainer import episode_to_device
+
+    cfg, data = trainer.config, trainer.data
+    data.reset_eval("validation", seed=42)
+    raw = data.get_batch("validation", cfg.tasks_per_batch, cfg.max_ctx_num)
+    rec = EpsFeed(generator=torch.Generator(device="cuda").manual_seed(
+        int(cfg.seed)))
+    got = float(trainer.eval_step(episode_to_device(raw, "cuda"), rec))
+    build = build_maml_eval_step if "MAML" in cfg.method else build_eval_step
+    cpu_step = build(copy.deepcopy(trainer.model).cpu(), cfg)
+    want = float(cpu_step(episode_to_device(raw, "cpu"),
+                          EpsFeed([d.cpu() for d in rec.draws])))
+    err = abs(got - want)
+    log(f"output: {cfg.method} ({cfg.task}) validation loss on one episode, "
+        f"{len(rec.draws)} BBB draws replayed on the CPU: card {got}, CPU "
+        f"{want}; abs err {err} (tolerance {VAL_TOL} x |CPU| + {VAL_TOL})")
+    if not math.isfinite(got) or err > VAL_TOL * (abs(want) + 1.0):
+        raise AssertionError(f"{cfg.method} validation loss: card {got}, CPU "
+                             f"{want}")
+
+
+def check_mr_evaluation(trainer):
+    """E1's MR sweep: ``evaluation_cli`` with ``cfg/evaluation/ANP_ShapeNet1D
+    .yaml`` as ANPMRShapeNet1D over M1's final checkpoint, 25 points x 2
+    episodes x 2 splits. The BBB encoder samples at evaluation, as in the
+    reference, from a generator reseeded from the config's seed at each
+    point: a second sweep must write the same numbers. K1 launches twice
+    an episode (query, context) and K2 once. The last point's validation
+    loss, card against CPU on the card's draws replayed."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from wmfml_tpu_torch.cli import evaluation_cli
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.data.factory import build_data
+    from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
+    from wmfml_tpu_torch.kernels.favor import favor_attention
+    from wmfml_tpu_torch.kernels.stem import literature_stem
+    from wmfml_tpu_torch.models.registry import build_model
+    from wmfml_tpu_torch.nn.bbb import EpsFeed
+
+    ckpt = trainer.ckpt.path(f"model_end_{trainer.config.iterations}")
+    overrides = EVAL_OVERRIDES + ["val_iters=2", "method=ANPMRShapeNet1D",
+                                  f"checkpoint={ckpt}"]
+    literature_stem.launches = favor_attention.launches = 0
+    t0 = time.perf_counter()
+    sweeps = [evaluation_cli.evaluate(Config(EVAL_YAML, overrides))
+              for _ in range(2)]
+    wall = (time.perf_counter() - t0) / 2
+    config = Config(EVAL_YAML, overrides, make_dirs=False)
+    n, episodes = config.max_ctx_num, 2 * config.max_ctx_num * 2 * 2
+    launches = {"literature_stem": literature_stem.launches,
+                "favor_attention": favor_attention.launches}
+    if launches != {"literature_stem": 2 * episodes,
+                    "favor_attention": episodes}:
+        raise AssertionError(f"E1 MR sweep: launches {launches} over "
+                             f"{episodes} episodes")
+    if sweeps[0] != sweeps[1] or not np.isfinite(sweeps[0][0]).all():
+        raise AssertionError(f"E1 MR sweeps differ: {sweeps}")
+    evals = {}
+    for dev in ("cuda", "cpu"):
+        cfg = copy.copy(config)
+        cfg.device = dev
+        evals[dev] = ModelEvaluator(build_model(cfg), cfg, build_data(cfg))
+    rec = EpsFeed(generator=torch.Generator(device="cuda").manual_seed(0))
+    card_step, cpu_step = evals["cuda"].eval_step, evals["cpu"].eval_step
+    evals["cuda"].eval_step = lambda b, g: card_step(b, rec)
+    got, _ = evals["cuda"]._validate_iter("validation", n)
+    replay = EpsFeed([d.cpu() for d in rec.draws])
+    evals["cpu"].eval_step = lambda b, g: cpu_step(b, replay)
+    want, _ = evals["cpu"]._validate_iter("validation", n)
+    err = abs(got - want)
+    log(f"eval: E1 ANPMRShapeNet1D over {ckpt}, ctx 1..{n}, 2 episodes a "
+        f"point, validation and test, {wall} s a sweep, two sweeps equal; "
+        f"launches {launches}; validation loss {sweeps[0][0]}; test loss "
+        f"{sweeps[0][1]}; at ctx {n} on the card's draws: card {got}, CPU "
+        f"{want}, abs err {err} (tolerance {VAL_TOL} x |CPU| + {VAL_TOL})")
+    if err > VAL_TOL * (abs(want) + 1.0):
+        raise AssertionError(f"E1 MR evaluation: card {got}, CPU {want}")
+    return launches
+
+
+def check_mr_second_order():
+    """Phase 8's check on M2: the second-order outer gradient of one
+    full-width MAMLMRShapeNet1D batch (5 inner steps, a BBB sample per task
+    and step, the same draws in every precision) through K1 and K3 against
+    plain autograd through the twins in float32 and float64, on a fresh
+    trainer from the config's seed under deterministic algorithms (a state
+    and sums that are the same on every run)."""
+    import torch
+
+    from wmfml_tpu_torch.cli import train_cli
+    from wmfml_tpu_torch.configs import Config
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainer = train_cli.build_trainer(Config(MR_MAML_YAML,
+                                                 MR_MAML_OVERRIDES))
+        check_second_order_grad(trainer)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def main(argv):
     import torch
 
@@ -2812,6 +3121,7 @@ def main(argv):
     rows = [check_stem(anp, gen), check_favor(anp, gen),
             check_stem_per_task(maml, gen), check_features(maml, gen),
             *check_image_da(gen)]
+    stamp("phase 3: K1, K2, K3, K6 in float32")
     # the batch phase 8 drew before it took the config's seed
     after_phase3 = torch.Generator(device="cuda")
     after_phase3.set_state(gen.get_state())
@@ -2822,15 +3132,18 @@ def main(argv):
              check_stem_per_task(maml, gen_bf16, bf),
              check_features(maml, gen_bf16, bf),
              *check_image_da(gen_bf16, bf)]
+    stamp("phase 3: bfloat16")
     # K6's programs 1-3, from a generator of their own
     rows += check_image_da_programs(torch.Generator(device="cuda")
                                     .manual_seed(2))
+    stamp("phase 3: K6 programs 1-3")
     # P3 at T = 40: K1, K2 and K6's ShapeNet1D fixed program in bfloat16 at
     # that path's shapes (1,200 images, T = 40, 600 images a DA call)
     gen_t40 = torch.Generator(device="cuda").manual_seed(4)
     rows += [check_stem(anp, gen_t40, bf, 40, "ANP fixed T40"),
              check_favor(anp, gen_t40, bf, 40, "ANP fixed T40"),
              *check_image_da_programs(gen_t40, ("shapenet_1d_fixed",), 40)]
+    stamp("phase 3: T = 40")
     # the Distractor paths' kernels: K2's wide form at D1's shape (Nq 18, Nk
     # 15) and D4's (Nq 36, Nk 25) with ANPDistractor's projection, K6's
     # programs 4 and 5 at D1's two DA calls (300 and 360 images)
@@ -2842,6 +3155,7 @@ def main(argv):
              check_favor_wide(proj, gen_d, 36, 25, "favor_attention_wide_eval",
                               "Distractor eval"),
              *check_image_da_distractor(gen_d)]
+    stamp("phase 3: Distractor")
     # the ShapeNet3D paths' kernels: K2's wide form at S1's shape (Nq 15, Nk
     # 15) and S4's (Nq 30, Nk 25) with ANP's projection, K6's programs 6 and
     # 7 at S1's two DA calls (300 images each)
@@ -2853,6 +3167,7 @@ def main(argv):
              check_favor_wide(proj, gen_s, 30, 25, "favor_attention_wide_s4",
                               "ShapeNet3D eval"),
              *check_image_da_rgb(gen_s)]
+    stamp("phase 3: ShapeNet3D")
     # the bfloat16 LargeCNP paths' kernels (phase 17): K2's wide form in
     # bfloat16 at D5's (Nq 18, Nk 15) and S6's (Nq 15, Nk 15) shapes, K6's
     # programs 4 and 5 in bfloat16 at D1's two DA calls and 6 and 7 at
@@ -2874,6 +3189,17 @@ def main(argv):
                                 dt, off_path="no path runs Nq + Nk > 64 (D4 "
                                 "and S4 reach 61 and 55)")
                for dt, suffix in ((None, ""), (bf, "_bf16")))]
+    stamp("phase 3: LargeCNP in bfloat16")
+    # the MR paths' K1: on BBB samples drawn on the card, M1's pass of 150
+    # images with one sample, M2's per-task samples
+    gen_mr = torch.Generator(device="cuda").manual_seed(9)
+    rows += [check_stem_bbb(build_model(Config(
+                 MR_ANP_YAML, TRAIN_OVERRIDES, make_dirs=False)).cuda(),
+                 gen_mr),
+             check_stem_bbb(build_model(Config(
+                 MR_MAML_YAML, MR_MAML_OVERRIDES, make_dirs=False)).cuda(),
+                 gen_mr, per_task=True)]
+    stamp("phase 3, the kernels against their twins")
     floor = floor_ms()
     log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
         f"time, the least any launch takes on this card")
@@ -2914,6 +3240,7 @@ def main(argv):
     check_da_batch(trainer)
     check_evaluation(trainer)
 
+    stamp("phases 4-6, ANP")
     mtrainer, maml_launches, maml_nodes = train_phase(
         card, MAML_YAML, MAML_OVERRIDES, maml_kernels)
     check_validation_loss(mtrainer)
@@ -2933,6 +3260,7 @@ def main(argv):
     finally:
         torch.use_deterministic_algorithms(False)
 
+    stamp("phases 7-8, MAML")
     # bfloat16: bench.py's headline configuration and the MAML perf YAML
     btrainer, anp_bf16, anp_bf16_nodes = train_phase(
         card, MAIN_YAML, BF16_OVERRIDES, anp_kernels)
@@ -2943,6 +3271,7 @@ def main(argv):
     dtype_turns({"ANPShapeNet1D": (trainer, btrainer),
                  "MAMLShapeNet1D": (mtrainer, bmtrainer)}, calls=2)
 
+    stamp("phases 9-11, bf16")
     # phase 13: the Pascal1D and fixed-order paths (K6's programs 1-3)
     ptrainer, pascal_launches, pascal_nodes = train_phase(
         card, PASCAL_YAML, PASCAL_OVERRIDES, anp_kernels)
@@ -2961,6 +3290,7 @@ def main(argv):
         card, PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES, anp_kernels)
     check_bf16_validation(f40trainer)
 
+    stamp("phase 13, Pascal1D and fixed order")
     # phase 14: the Distractor paths (LargeCNP on the ResNet trunk, K2's
     # wide form, K6's programs 4 and 5)
     d_anp_kernels = {"favor_attention": favor_attention, **da_kernels}
@@ -2978,6 +3308,7 @@ def main(argv):
         [(d2trainer, []),
          (d1trainer, ["method=ANPDistractor", "agg_mode=attention"])])
 
+    stamp("phase 14, Distractor")
     # phase 16: the ShapeNet3D paths (LargeCNP on RGB, backgrounds
     # composited per batch on the card, K2's wide form, K6's programs 6 and
     # 7)
@@ -2993,6 +3324,7 @@ def main(argv):
     s4_launches = check_large_evaluation(
         "S4", S3D_EVAL_YAML, S3D_EVAL_OVERRIDES, [(s1trainer, [])])
 
+    stamp("phase 16, ShapeNet3D")
     # phase 17: LargeCNP in bfloat16 (K2 wide and K6's programs 4 and 6 in
     # bfloat16): S5 the ShapeNet3D perf YAML as shipped, S6 S1 in bfloat16,
     # D5 D1 in bfloat16
@@ -3011,7 +3343,12 @@ def main(argv):
                                                            s5trainer)},
                 calls=2, profile="--profile" in argv)
 
-    # graph replays against the same steps issued from the host
+    stamp("phase 17, LargeCNP in bf16")
+    # graph replays against the same steps issued from the host, bit for
+    # bit, on fresh trainers (phase 18's M1 and F2 among them), before
+    # phase 18 builds its trainers: the process's earlier state is the one
+    # these checks have always run in (cuDNN picks its bf16 MAML engines
+    # from it)
     for yaml, overrides in ((MAIN_YAML, TRAIN_OVERRIDES),
                             (MAIN_YAML, BF16_OVERRIDES),
                             (MAML_YAML, MAML_OVERRIDES),
@@ -3021,8 +3358,41 @@ def main(argv):
                             (PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES),
                             (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES),
                             (S3D_YAML, S3D_OVERRIDES),
-                            (S3D_PERF_YAML, S5_OVERRIDES)):
+                            (S3D_PERF_YAML, S5_OVERRIDES),
+                            (MR_ANP_YAML, TRAIN_OVERRIDES),
+                            (FCL_ANP_YAML, DISTRACTOR_SHORT_OVERRIDES)):
         graph_equals_loop(yaml, overrides)
+    stamp("graph against loop, bit for bit")
+    # phase 18: MR and FCL (ROADMAP.md A13): M1-M3, F1-F3, E1
+    m1trainer, m1_launches, m1_nodes = train_phase(
+        card, MR_ANP_YAML, TRAIN_OVERRIDES, anp_kernels, tap=True)
+    check_mr_validation(m1trainer)
+    m2trainer, m2_launches, m2_nodes = train_phase(
+        card, MR_MAML_YAML, MR_MAML_OVERRIDES, maml_kernels, tap=True)
+    check_mr_validation(m2trainer)
+    stamp("phase 18: M1, M2")
+    check_mr_second_order()
+    stamp("phase 18: M2's second-order gradient")
+    m3trainer, m3_launches, m3_nodes = train_phase(
+        card, MR_3D_YAML, DISTRACTOR_SHORT_OVERRIDES,
+        {"favor_attention": favor_attention})
+    check_mr_validation(m3trainer)
+    f1trainer, f1_launches, f1_nodes = train_phase(
+        card, FCL_CNP_YAML, TRAIN_OVERRIDES,
+        {"literature_stem": literature_stem, **da_kernels})
+    check_validation_loss(f1trainer)
+    f2trainer, f2_launches, f2_nodes = train_phase(
+        card, FCL_ANP_YAML, DISTRACTOR_SHORT_OVERRIDES, d_anp_kernels)
+    check_validation_loss(f2trainer)
+    f3trainer, f3_launches, f3_nodes = train_phase(
+        card, FCL_DISTRACTOR_YAML, DISTRACTOR_SHORT_OVERRIDES, da_kernels)
+    check_validation_loss(f3trainer)
+    stamp("phase 18: M3, F1-F3")
+    check_large_evaluation("E1", FCL_EVAL_YAML, DISTRACTOR_EVAL_OVERRIDES,
+                           [(f3trainer, [])])
+    e1_launches = check_mr_evaluation(m1trainer)
+
+    stamp("phase 18, MR and FCL")
     graph_loop_turns(
         {"ANPShapeNet1D": trainer, "ANPShapeNet1D bf16": btrainer,
          "MAMLShapeNet1D": mtrainer, "MAMLShapeNet1D bf16": bmtrainer,
@@ -3034,16 +3404,24 @@ def main(argv):
          "CondNeuralProcess ShapeNet3D": s2trainer,
          "CondNeuralProcess ShapeNet3D bf16 (S5)": s5trainer,
          "ANP ShapeNet3D bf16 (S6)": s6trainer,
-         "ANPDistractor bf16 (D5)": d5trainer},
-        calls={"ANPShapeNet1D": 4, "ANPShapeNet1D bf16": 2,
-               "MAMLShapeNet1D": 2, "MAMLShapeNet1D bf16": 2,
-               "ANPVanillaPascal1D": 4, "VanillaMAML Pascal1D": 2,
-               "ANPShapeNet1D fixed bf16": 2,
-               "ANPShapeNet1D fixed bf16 T40": 1, "ANPDistractor": 2,
-               "CNPDistractor": 2, "ANP ShapeNet3D": 2,
-               "CondNeuralProcess ShapeNet3D": 2,
+         "ANPDistractor bf16 (D5)": d5trainer,
+         "ANPMRShapeNet1D (M1)": m1trainer,
+         "MAMLMRShapeNet1D (M2)": m2trainer,
+         "ANPMRShapeNet3D (M3)": m3trainer,
+         "FCLCNPShapeNet1D (F1)": f1trainer, "FCLANP (F2)": f2trainer,
+         "FCLCNPDistractor (F3)": f3trainer},
+        calls={"ANPShapeNet1D": 2, "ANPShapeNet1D bf16": 1,
+               "MAMLShapeNet1D": 1, "MAMLShapeNet1D bf16": 1,
+               "ANPVanillaPascal1D": 2, "VanillaMAML Pascal1D": 1,
+               "ANPShapeNet1D fixed bf16": 1,
+               "ANPShapeNet1D fixed bf16 T40": 1, "ANPDistractor": 1,
+               "CNPDistractor": 1, "ANP ShapeNet3D": 1,
+               "CondNeuralProcess ShapeNet3D": 1,
                "CondNeuralProcess ShapeNet3D bf16 (S5)": 1,
-               "ANP ShapeNet3D bf16 (S6)": 2, "ANPDistractor bf16 (D5)": 2},
+               "ANP ShapeNet3D bf16 (S6)": 1, "ANPDistractor bf16 (D5)": 1,
+               "ANPMRShapeNet1D (M1)": 2, "MAMLMRShapeNet1D (M2)": 1,
+               "ANPMRShapeNet3D (M3)": 1, "FCLCNPShapeNet1D (F1)": 2,
+               "FCLANP (F2)": 1, "FCLCNPDistractor (F3)": 1},
         nodes={"ANPShapeNet1D": anp_nodes, "ANPShapeNet1D bf16": anp_bf16_nodes,
                "MAMLShapeNet1D": maml_nodes,
                "MAMLShapeNet1D bf16": maml_bf16_nodes,
@@ -3056,17 +3434,29 @@ def main(argv):
                "CondNeuralProcess ShapeNet3D": s2_nodes,
                "CondNeuralProcess ShapeNet3D bf16 (S5)": s5_nodes,
                "ANP ShapeNet3D bf16 (S6)": s6_nodes,
-               "ANPDistractor bf16 (D5)": d5_nodes},
+               "ANPDistractor bf16 (D5)": d5_nodes,
+               "ANPMRShapeNet1D (M1)": m1_nodes,
+               "MAMLMRShapeNet1D (M2)": m2_nodes,
+               "ANPMRShapeNet3D (M3)": m3_nodes,
+               "FCLCNPShapeNet1D (F1)": f1_nodes, "FCLANP (F2)": f2_nodes,
+               "FCLCNPDistractor (F3)": f3_nodes},
         profile="--profile" in argv)
+    stamp("graph against loop, in turns")
+    # phase 18's graphs and their pools (about 14 GB) go before the
+    # determinism check builds its fresh trainers
+    del m1trainer, m2trainer, m3trainer, f1trainer, f2trainer, f3trainer
+    gc.collect()
+    torch.cuda.empty_cache()
     # cuDNN's determinism: its cost a step on four paths (ROADMAP.md C2)
     determinism_turns(
         {"ANPShapeNet1D": (MAIN_YAML, TRAIN_OVERRIDES),
          "MAMLShapeNet1D": (MAML_YAML, MAML_OVERRIDES),
          "ANPDistractor": (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES),
          "ANP ShapeNet3D": (S3D_YAML, S3D_OVERRIDES)},
-        calls={"ANPShapeNet1D": 4, "MAMLShapeNet1D": 2, "ANPDistractor": 2,
-               "ANP ShapeNet3D": 2})
+        calls={"ANPShapeNet1D": 2, "MAMLShapeNet1D": 1, "ANPDistractor": 1,
+               "ANP ShapeNet3D": 1})
 
+    stamp("cuDNN's determinism")
     launches = {"ANP": anp_launches, "MAML": maml_launches,
                 "ANP bf16": anp_bf16, "MAML bf16": maml_bf16,
                 "Pascal ANP": pascal_launches, "Pascal ANP fixed": pascal_fixed,
@@ -3080,7 +3470,11 @@ def main(argv):
                 "ShapeNet3D eval": {"favor_attention": s4_launches},
                 "ShapeNet3D CNP bf16": s5_launches,
                 "ShapeNet3D ANP bf16": s6_launches,
-                "Distractor ANP bf16": d5_launches}
+                "Distractor ANP bf16": d5_launches,
+                "MR ANP": m1_launches, "MR MAML": m2_launches,
+                "MR ShapeNet3D": m3_launches, "FCL CNP": f1_launches,
+                "FCL ANP": f2_launches, "FCL Distractor": f3_launches,
+                "MR eval": e1_launches}
     for r in rows:
         if r.get("off_path"):
             r["launches"] = 0

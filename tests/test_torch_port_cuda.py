@@ -1447,6 +1447,10 @@ S3D_PERF_YAML = os.path.join(REPO, "cfg", "train", "perf",
                              "CondNeuralProcess_DA+TA_ShapeNet3D_tpu.yaml")
 # a kernel wrapper -> the kernel function whose graph nodes count its
 # launches (K3's call also packs its weights and runs one conv_kernel a layer)
+MR_ANP_YAML = os.path.join(REPO, "cfg", "train", "ANPMR_DA+TA_ShapeNet1D.yaml")
+MAMLMR_YAML = os.path.join(REPO, "cfg", "train", "MAMLMR_DA+TA_ShapeNet1D.yaml")
+FCLANP_YAML = os.path.join(REPO, "cfg", "train", "contrastive",
+                           "FCLANP_DA+TA_ShapeNet3D.yaml")
 GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
               "favor_attention": "favor_kernel",
               "maml_features": "bn_relu_kernel",
@@ -1536,7 +1540,8 @@ def _assert_equal_states(a, b):
 @pytest.mark.parametrize("path", ["anp_f32", "anp_bf16", "maml_bf16",
                                   "pascal_anp", "anp_fixed_bf16",
                                   "distractor_anp", "s3d_anp",
-                                  "s3d_cnp_bf16", "distractor_anp_bf16"])
+                                  "s3d_cnp_bf16", "distractor_anp_bf16",
+                                  "mr_anp", "mamlmr", "fcl_anp"])
 def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
                                                         pascal_data,
                                                         distractor_data,
@@ -1575,10 +1580,17 @@ def test_graph_replays_equal_the_eager_loop_bit_for_bit(dev, graph_data,
                    "s3d_cnp_bf16": (S3D_PERF_YAML, ["steps_per_call=4"]),
                    "distractor_anp_bf16": (DISTRACTOR_ANP_YAML,
                                            ["steps_per_call=4",
-                                            "compute_dtype=bfloat16"])}[path]
+                                            "compute_dtype=bfloat16"]),
+                   # M1 (ANPMRShapeNet1D: BBB encoder samples drawn inside
+                   # the graph), M2 (MAMLMRShapeNet1D, second order, per
+                   # task and step), F2 (FCLANP: NT-Xent at t = 0.007)
+                   "mr_anp": (MR_ANP_YAML, ["steps_per_call=4"]),
+                   "mamlmr": (MAMLMR_YAML, ["steps_per_call=4"]),
+                   "fcl_anp": (FCLANP_YAML, ["steps_per_call=4"])}[path]
     data = {"pascal_anp": pascal_data, "distractor_anp": distractor_data,
             "distractor_anp_bf16": distractor_data, "s3d_anp": s3d_data,
-            "s3d_cnp_bf16": s3d_data}.get(path, graph_data)
+            "s3d_cnp_bf16": s3d_data, "fcl_anp": s3d_data}.get(path,
+                                                               graph_data)
     torch.use_deterministic_algorithms(True)
     try:
         first, graph, loop = (train_cli.build_trainer(
@@ -1752,3 +1764,113 @@ def test_capturable_adam_matches_optax_within_float32_tolerance(dev):
         opt.step()
         np.testing.assert_allclose(p.detach().cpu().numpy(), want,
                                    rtol=1e-5, atol=1e-5)
+
+
+# -- MR (Bayes-by-Backprop) and FCL ---------------------------------------------
+
+@pytest.mark.parametrize("per_task", [False, True])
+def test_stem_on_bbb_samples_matches_plain(dev, per_task):
+    """K1 on weights sampled as mu + eps softplus(rho) (ANPMR: one sample
+    for 300 images; MAMLMR: one per task, 10 x 15 images) against
+    ``stem_plain`` on the same samples; the gradients on the stem's
+    posteriors through ``create_graph``, and a second derivative through
+    K1's backward (its twin recomputed under ``create_graph``)."""
+    from wmfml_tpu_torch.nn.bbb import BBBLiteratureEncoder, EpsFeed
+    from wmfml_tpu_torch.nn.init import init_parameters
+
+    enc = BBBLiteratureEncoder(196, (128, 128, 1))
+    init_parameters(enc, torch.Generator().manual_seed(0))
+    enc = enc.to(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((150 if per_task else 300, 128, 128, 1), generator=g,
+                   device=dev)
+    lead = (10,) if per_task else ()
+    layers = (enc.net.layer1.conv, enc.net.layer2.conv)
+    rec = EpsFeed(generator=g)
+
+    def run(fn, noise):
+        (w0, b0, _), (w1, b1, _) = (layer.sample(noise, lead)
+                                    for layer in layers)
+        return fn(x, w0, b0, w1, b1)
+
+    before = stem.literature_stem.launches
+    got = run(stem.literature_stem, rec)
+    want = run(stem.stem_plain, EpsFeed(rec.draws))
+    assert stem.literature_stem.launches == before + 1
+    _close(got, want, 1e-4, 1e-4)
+    params = [p for layer in layers for p in (layer.W_mu, layer.W_rho,
+                                              layer.bias_mu, layer.bias_rho)]
+    grads = [torch.autograd.grad(y.square().sum(), params, create_graph=True)
+             for y in (got, want)]
+    second = [torch.autograd.grad(sum(gr.square().sum() for gr in gs),
+                                  [layers[0].W_mu, layers[1].W_rho])
+              for gs in grads]
+    for a, b in zip(grads[0] + second[0], grads[1] + second[1]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+def test_nt_xent_on_the_card_matches_the_cpu(dev):
+    """FCLANP's NT-Xent over 300 query reps of width 256 at t = 0.007, one
+    task saturated (its reps one direction) and one row zero, and the
+    two-view form at t = 0.07: value and gradient, card against CPU."""
+    from wmfml_tpu_torch.losses.losses import (contrastive_loss,
+                                               contrastive_loss_anp)
+
+    z = torch.randn((20, 15, 256), generator=torch.Generator().manual_seed(0))
+    z[3] = 100.0 * z[3, :1]
+    z[5, 2] = 0.0
+    for fn in (lambda a: contrastive_loss_anp(a, 0.007),
+               lambda a: contrastive_loss(a[:, 0], a[:, 1], 0.07)):
+        cpu, card = z.clone().requires_grad_(True), z.to(dev).requires_grad_(True)
+        losses = [fn(a) for a in (cpu, card)]
+        for loss in losses:
+            loss.backward()
+        got, want = card.grad.cpu(), cpu.grad
+        assert bool(torch.isfinite(losses[1])) and bool(torch.isfinite(got).all())
+        assert abs(float(losses[1]) - float(losses[0])) <= 1e-5 * (
+            abs(float(losses[0])) + 1.0)
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max()) + 1e-7
+
+
+def _tap(layer):
+    """Keep the last weight sample ``layer`` drew (a captured graph's static
+    tensor once the capture ran)."""
+    seen, sample = {}, layer.sample
+
+    def tapped(noise, lead=()):
+        out = sample(noise, lead)
+        seen["w"] = out[0]
+        return out
+
+    layer.sample = tapped
+    return seen
+
+
+@pytest.mark.parametrize("path", ["mr_anp", "mamlmr"])
+def test_captured_mr_replays_draw_new_weights(dev, graph_data, tmp_path,
+                                              monkeypatch, path):
+    """The trainer's generator is registered with the graph, so each replay
+    of a captured MR step draws new BBB weights: the stem's sample after
+    two replays differs (the graph = loop check above holds them to what
+    the loop draws)."""
+    monkeypatch.chdir(tmp_path)
+    yaml = {"mr_anp": MR_ANP_YAML, "mamlmr": MAMLMR_YAML}[path]
+    trainer = train_cli.build_trainer(_graph_config(graph_data, yaml,
+                                                    "steps_per_call=4"))
+    model = trainer.model
+    enc = model.encoder_w if path == "mamlmr" else model.encoder_w0
+    seen = _tap(enc.net.layer1.conv)
+    fused = trainer.train_step
+    for _ in range(fused.warm_calls):
+        fused(trainer.generator)
+    samples = []
+    for _ in range(2):
+        fused(trainer.generator)
+        torch.cuda.synchronize()
+        samples.append(seen["w"].clone())
+    assert fused.replays == 2 and fused.graph is not None
+    assert samples[0].shape == ((10, 32, 1, 3, 3) if path == "mamlmr"
+                                else (32, 1, 3, 3))
+    assert bool(torch.isfinite(samples[0]).all())
+    assert not torch.equal(*samples)

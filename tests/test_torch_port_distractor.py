@@ -570,8 +570,16 @@ def test_distractor_config_rules():
     assert all(p.dtype == torch.float32 for p in model.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP.md B8b"):
         Config(yaml, ["trunk_stem=s2d"], make_dirs=False)
-    with pytest.raises(NotImplementedError, match="A13"):
-        LargeCNP(fcl=True)
+    # FCL (ROADMAP.md A13, done: it raised here before) builds, and gives
+    # its views in training only
+    fcl = LargeCNP(fcl=True, label_embed_dim=16,
+                   generator=torch.Generator().manual_seed(0))
+    x, y = torch.rand(2, 2, 128, 128, 1), torch.rand(2, 2, 2)
+    with torch.no_grad():
+        views = fcl.train()(x, y, x, qry_y=y).extras
+        plain = fcl.eval()(x, y, x, qry_y=y).extras
+    assert {"z_ctx_view", "z_qry_view"} <= set(views)
+    assert not {"z_ctx_view", "z_qry_view"} & set(plain)
     assert Config(yaml, ["aug_random_order=false"],
                   make_dirs=False).aug_random_order is False
 

@@ -186,6 +186,12 @@ def test_fixed_order_perf_yaml_raises_naming_a20_with_bf16_accepted():
     ("agg_mode=max", TypeError),
 ])
 def test_unported_options_raise(override, error):
+    """(MAMLMRShapeNet1D, ROADMAP.md A13, is done and builds; its case is
+    kept so that the case's record runs on.)"""
+    if override == "method=MAMLMRShapeNet1D":
+        model = build_model(_config("device=cpu", override))
+        assert type(model).__name__ == "MAMLRegressor" and model.bbb
+        return
     with pytest.raises(error):
         build_model(_config("device=cpu", override))
 
@@ -195,16 +201,50 @@ def test_unported_options_raise(override, error):
     ("MMAMLShapeNet1D", "A16"), ("ANP", "A12"), ("SingleTaskShapeNet1D", "A14"),
 ])
 def test_unported_methods_name_their_roadmap_item(method, item):
-    """(The case of ANP, whose slice, A12c, is done, now builds ShapeNet3D's
-    ANP; it is kept so that the case's record runs on.)"""
+    """(The cases of ANP, whose slice, A12c, is done, and of the A13
+    methods, done, now build ShapeNet3D's ANP and the MR methods and run
+    them; they are kept so that the cases' records run on.)"""
     if method == "ANP":
         yaml = os.path.join(REPO, "cfg", "train", "ANP_ShapeNet3D.yaml")
         model = build_model(Config(yaml, ["device=cpu"], make_dirs=False))
         assert type(model).__name__ == "LargeCNP"
         assert model.agg_mode == "attention"
         return
+    if item == "A13":
+        _builds_and_runs_mr(method)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         build_model(_config("device=cpu", f"method={method}"))
+
+
+def _builds_and_runs_mr(method):
+    """A13's MR methods from their shipped YAMLs: one forward on the CPU at
+    the YAML's width (a 32x32 image size, T = 2), finite, with a kl; two
+    generators of one seed draw the same weights."""
+    from wmfml_tpu_torch.nn.bbb import EpsFeed
+
+    task = "pascal_1d" if method in ("MAMLMR", "ANPMR") else "shapenet_1d"
+    name = {"MAMLMR": "MAMLMR_Pascal1D.yaml", "ANPMR": "ANPMR_Pascal1D.yaml",
+            "MAMLMRShapeNet1D": "MAMLMR_ShapeNet1D.yaml"}[method]
+    cfg = Config(os.path.join(REPO, "cfg", "train", name), ["device=cpu"],
+                 make_dirs=False)
+    assert (cfg.method, cfg.task) == (method, task)
+    cfg.img_size = [32, 32, 1]
+    model = build_model(cfg)
+    x = torch.rand(2, 3, 32, 32, 1)
+    y = torch.rand(2, 3, cfg.input_dim)
+    outs = []
+    for _ in range(2):
+        gen = EpsFeed(generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            if method.startswith("MAML"):
+                mu, kl = model.forward_with_kl(x, None, None, gen)
+            else:
+                out = model(x, y, x, generator=gen)
+                mu, kl = out.mu, out.kl
+        outs.append(mu)
+        assert bool(torch.isfinite(mu).all()) and float(kl) > 0
+    assert torch.equal(*outs) and gen.draws
 
 
 def test_unported_maml_options_raise(tmp_path, monkeypatch):

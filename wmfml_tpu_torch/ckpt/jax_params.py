@@ -27,7 +27,16 @@ rules:
     ``encoder_w/fc`` -> ``encoder_w.linear``, ``features_{i}_conv`` and
     ``features_{i}_bn_{scale,bias}`` -> ``features.layer{i}.{conv,norm}``,
     ``regressor`` -> ``regressor.regressor`` / ``regressor``; step sizes
-    keyed ``"encoder_w/conv0/kernel"`` go to ``step_size.<port name>``.
+    keyed ``"encoder_w/conv0/kernel"`` go to ``step_size.<port name>``;
+  * Bayes-by-Backprop layers (MR): ``W_mu`` and ``W_rho`` take the conv or
+    dense rule of their layer (the literature encoder's ``fc`` the
+    flatten permutation), ``bias_mu`` / ``bias_rho`` as they are; the
+    encoder's ``conv{0,1,2}`` / ``fc`` go to ``net.layer{1,2,3}.conv`` /
+    ``net.linear`` (SmallCNP's ``encoder_w0``, MAMLMR's ``encoder_w``,
+    whose Tanh regressor is ``regressor.linear``), the BBB trunk's
+    ``conv1`` / ``layer{i}_{conv1,conv2,down}`` to ``net.layer1.conv`` /
+    ``net.layer{i+1}.{conv1,conv2,downsample.0}``
+    (``wmfml_tpu/ckpt/torch_import.py:165-215``).
 """
 
 from __future__ import annotations
@@ -80,8 +89,9 @@ def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = kernel(node["kernel"])
         sd[f"{prefix}.bias"] = _t(node["bias"])
 
-    for key, value in encoder_state_dict(
-            p["encoder_w0"], model.encoder_w0.flatten_chw).items():
+    encoder = bbb_encoder_state_dict if model.bbb else encoder_state_dict
+    for key, value in encoder(p["encoder_w0"],
+                              model.encoder_w0.flatten_chw).items():
         sd[f"encoder_w0.{key}"] = value
     dense("transform_y", p["transform_y"]["Dense_0"])
     mlp0 = p["encoder_r"]["MLP_0"]
@@ -97,6 +107,38 @@ def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
         sd.update(attention_state_dict(
             p["cross_attn"], variables["favor"]["cross_attn"]["favor"]["projection"],
             n_heads=len(model._W_k)))
+    return sd
+
+
+def _bbb(node, kernel=_conv) -> Dict[str, torch.Tensor]:
+    """A BBB layer's posterior, its weights by ``kernel``."""
+    return {"W_mu": kernel(node["W_mu"]), "W_rho": kernel(node["W_rho"]),
+            "bias_mu": _t(node["bias_mu"]), "bias_rho": _t(node["bias_rho"])}
+
+
+def _prefixed(prefix: str, sd) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def bbb_encoder_state_dict(params, chw) -> Dict[str, torch.Tensor]:
+    """``BBBLiteratureEncoder`` params -> the port encoder's ``state_dict``;
+    ``chw`` is the (C, h, w) map the fc reads."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(3):
+        sd.update(_prefixed(f"net.layer{i + 1}.conv", _bbb(params[f"conv{i}"])))
+    sd.update(_prefixed("net.linear", _bbb(
+        params["fc"], lambda k: _dense_after_flatten(k, chw))))
+    return sd
+
+
+def bbb_trunk_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``BBBResNetTrunk`` params -> the port trunk's ``state_dict``."""
+    sd = _prefixed("net.layer1.conv", _bbb(params["conv1"]))
+    for i in range(1, 5):
+        for jax_name, name in (("conv1", "conv1"), ("conv2", "conv2"),
+                               ("down", "downsample.0")):
+            sd.update(_prefixed(f"net.layer{i + 1}.{name}",
+                                _bbb(params[f"layer{i}_{jax_name}"])))
     return sd
 
 
@@ -125,10 +167,9 @@ def large_cnp_state_dict(model, variables) -> Dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = _dense_after_flatten(node["kernel"], chw)
         sd[f"{prefix}.bias"] = _t(node["bias"])
 
-    for prefix, params in (("img_encoder", p["img_encoder"]),
-                           ("decoder", p["decoder"]["trunk"])):
-        sd.update({f"{prefix}.{k}": v
-                   for k, v in trunk_state_dict(params).items()})
+    encoder = bbb_trunk_state_dict if model.bbb else trunk_state_dict
+    sd.update(_prefixed("img_encoder", encoder(p["img_encoder"])))
+    sd.update(_prefixed("decoder", trunk_state_dict(p["decoder"]["trunk"])))
     if model.transform_y is not None:
         dense("transform_y", p["transform_y"]["Dense_0"])
     for i in range(3):
@@ -162,10 +203,14 @@ def encoder_state_dict(params, chw: Tuple[int, int, int]) -> Dict[str, torch.Ten
 
 
 def _maml_layers(model):
-    """(port module, JAX path, kind) of each MAMLRegressor layer."""
-    layers = [(f"encoder_w.layer{i + 1}.conv", ("encoder_w", f"conv{i}"), "conv")
-              for i in range(3)]
-    layers.append(("encoder_w.linear", ("encoder_w", "fc", "Dense_0"), "fc"))
+    """(port module, JAX path, kind) of each MAMLRegressor layer but a BBB
+    encoder."""
+    layers = []
+    if not model.bbb:
+        layers = [(f"encoder_w.layer{i + 1}.conv", ("encoder_w", f"conv{i}"),
+                   "conv") for i in range(3)]
+        layers.append(("encoder_w.linear", ("encoder_w", "fc", "Dense_0"),
+                       "fc"))
     layers += [(f"features.layer{i}.conv", (f"features_{i}_conv",), "conv")
                for i in range(1, 5)]
     layers.append((model.reg_name, ("regressor", "Dense_0"), "dense"))
@@ -190,6 +235,9 @@ def maml_state_dict(model, variables) -> Dict[str, torch.Tensor]:
         sd[f"{prefix}.bias"] = _t(node["bias"])
         jax_names["/".join(path + ("kernel",))] = f"{prefix}.weight"
         jax_names["/".join(path + ("bias",))] = f"{prefix}.bias"
+    if model.bbb:
+        sd.update(_prefixed("encoder_w", bbb_encoder_state_dict(
+            net["encoder_w"], chw)))
     for i in range(1, 5):
         sd[f"features.layer{i}.norm.weight"] = _t(net[f"features_{i}_bn_scale"])
         sd[f"features.layer{i}.norm.bias"] = _t(net[f"features_{i}_bn_bias"])

@@ -141,6 +141,10 @@ class Config:
         self.dim_r = get("dim_r", None)
         self.dim_z = get("dim_z", None)
         self.beta = get("beta", 0)
+        # FCL (wmfml_tpu/configs/config.py:114-116)
+        self.contrastive = get("contrastive", False)
+        self.contrastive_rate = get("contrastive_rate", 1)
+        self.temperature = get("temperature", 0.07)
         # MAML family (wmfml_tpu/configs/config.py:126-140, 192)
         self.num_steps = get("num_updates", None)
         self.test_num_steps = get("test_num_updates", None)

@@ -16,6 +16,12 @@ ddof = 1, ``%1.4f``), saves the model as ``models/model.pt`` and draws
 ``loss_vs_ctx_num.png`` where matplotlib is installed (where it is not, it
 logs that no plot was written; the numbers are in the text files).
 
+A Bayes-by-Backprop (MR) model samples its weights at evaluation too, as
+in the reference: the sweep is stochastic, but its draws come from a
+generator on the device reseeded with ``seed + 20_000_000`` before every
+point (the JAX evaluator's ``fold_in(base_key, 20_000_000 + v)``), so two
+sweeps of one checkpoint give the same numbers.
+
 The model is restored from ``config.checkpoint`` (a port checkpoint or a
 bare reference ``state_dict``) when it names one. Episodes go to the
 card one by one; the JAX package's one-dispatch device sweep
@@ -25,6 +31,7 @@ card one by one; the JAX package's one-dispatch device sweep
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from wmfml_tpu_torch.ckpt.checkpoint import CheckpointManager
 from wmfml_tpu_torch.cli.common import set_numerics
@@ -41,6 +48,7 @@ class ModelEvaluator:
         self.device = require_device(config.device)
         set_numerics()
         self.model = model.to(self.device)
+        self.generator = torch.Generator(device=self.device)
         self.ckpt = CheckpointManager(config.save_path)
         self.step = 0
         if config.checkpoint:
@@ -57,9 +65,10 @@ class ModelEvaluator:
         with ``ctx_num`` context rows, from the reseeded stream."""
         cfg = self.config
         self.data.reset_eval(source, seed=42)
+        self.generator.manual_seed(int(cfg.seed) + 20_000_000)
         losses = [self.eval_step(episode_to_device(
             self.data.get_batch(source, cfg.tasks_per_batch, ctx_num),
-            self.device)) for _ in range(cfg.val_iters)]
+            self.device), self.generator) for _ in range(cfg.val_iters)]
         losses = np.asarray([float(x) for x in losses], np.float64)
         loss = float(losses.mean())
         std = float(losses.std(ddof=1)) if len(losses) > 1 else 0.0

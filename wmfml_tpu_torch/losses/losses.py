@@ -9,7 +9,10 @@
                           test alike;
   * shapenet_3d         — L1 between the label quaternion and the unit-
                           normalised prediction, the smaller over the
-                          prediction's two signs, train and test alike.
+                          prediction's two signs, train and test alike;
+  * NT-Xent (``nt_xent``, ``contrastive_loss``, ``contrastive_loss_anp``)
+                          for the FCL methods, with the JAX package's
+                          numerics (``wmfml_tpu/losses/losses.py:90-146``).
 
 As in the JAX package, ``degree_loss`` clips cos into [-1, 1] before acos.
 """
@@ -69,6 +72,55 @@ def mean_square_loss(q_gt, q_pr, mask=None):
     return _masked_mean(se, None if mask is None else mask[..., None])
 
 
+# --- contrastive (NT-Xent), pytorch_metric_learning's NTXentLoss ------------
+
+
+def nt_xent(z: torch.Tensor, labels: torch.Tensor,
+            temperature: float = 0.07) -> torch.Tensor:
+    """NT-Xent over embeddings ``z`` [N, D] with integer ``labels`` [N]:
+    cosine similarity over ``temperature``; for each ordered positive pair
+    (a, p) -log(exp(s_ap) / (exp(s_ap) + sum_n exp(s_an))), n over the
+    rows of another label than a; the mean over the positive pairs.
+
+    The JAX package's numerics, each of which keeps saturated embeddings
+    at t = 0.007 (|s| up to 1 / t ~ 143) finite, forward and backward: the
+    squared norm is clamped before the sqrt (a zero row has no infinite
+    derivative); excluded entries are set to -inf before the exp (their
+    exp and its gradient are 0); every pair is shifted by
+    m = max(max over its row's negatives, s_ap)."""
+    n = z.shape[0]
+    z = z / torch.sqrt(torch.clamp((z * z).sum(-1, keepdim=True), min=1e-24))
+    sim = (z @ z.T) / temperature                            # [N, N]
+    same = labels[:, None] == labels[None, :]
+    eye = torch.eye(n, dtype=torch.bool, device=z.device)
+    pos_mask = same & ~eye                                   # ordered pairs
+    neg_sim = torch.where(~same, sim, float("-inf"))
+    neg_max = neg_sim.amax(1, keepdim=True)
+    neg_max = torch.where(torch.isfinite(neg_max), neg_max, 0.0)
+    neg_sum = torch.exp(neg_sim - neg_max).sum(1, keepdim=True)
+    m = torch.maximum(neg_max, sim)
+    per_pair = -(sim - m) + torch.log(torch.exp(sim - m)
+                                      + neg_sum * torch.exp(neg_max - m))
+    num_pos = torch.clamp(pos_mask.sum(), min=1)
+    return torch.where(pos_mask, per_pair, 0.0).sum() / num_pos
+
+
+def contrastive_loss(z1: torch.Tensor, z2: torch.Tensor,
+                     t: float = 0.07) -> torch.Tensor:
+    """Two-view NT-Xent: z1[i] and z2[i] are views of one instance."""
+    labels = torch.cat([torch.arange(z1.shape[0], device=z1.device),
+                        torch.arange(z2.shape[0], device=z2.device)])
+    return nt_xent(torch.cat([z1, z2]), labels, temperature=t)
+
+
+def contrastive_loss_anp(z: torch.Tensor, t: float = 0.07) -> torch.Tensor:
+    """Per-task NT-Xent over query representations z [T, Q, D]: a task's
+    queries are one another's positives."""
+    tasks, q, d = z.shape
+    labels = torch.arange(tasks, device=z.device).repeat_interleave(q)
+    return nt_xent(z.reshape(tasks * q, d), labels, temperature=t)
+
+
 class LossFunc:
     """Task-dispatch loss, API-compatible with the reference's LossFunc."""
 
@@ -92,3 +144,7 @@ class LossFunc:
             return (degree_loss(gt_y, pr_mu, mask) if test
                     else azimuth_loss(gt_y, pr_mu, mask))
         return mean_square_loss(gt_y, pr_mu, mask)
+
+    # the reference's surface (``wmfml_tpu/losses/losses.py:177-178``)
+    contrastive_loss = staticmethod(contrastive_loss)
+    contrastive_loss_ANP = staticmethod(contrastive_loss_anp)

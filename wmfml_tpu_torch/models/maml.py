@@ -22,8 +22,18 @@ Parameter names are the reference's torchmeta keys
 ``encoder_w.linear``, ``features.layer{i}.{conv,norm}``, then
 ``regressor.regressor`` (MAMLShapeNet1D) or ``regressor`` (VanillaMAML).
 The inner loop adapts everything but the BN scale/bias (``adaptable``), as
-torchmeta does. With ``learn_step_size`` the inner step sizes are
-parameters too: ``step_size`` (one scalar) or, per parameter,
+torchmeta does.
+
+``bbb_encoder`` (MAMLMR, MAMLMRShapeNet1D; ``networks/MAMLMR.py:50-63``,
+``wmfml_tpu/ckpt/torch_import.py:380-399``): the encoder is
+``nn/bbb.py:BBBLiteratureEncoder`` (``encoder_w.net.layer{1,2,3}.conv``,
+``encoder_w.net.linear``), frozen in the inner loop, and each forward draws
+one sample of it per task (K1 per task on the samples); the Tanh variant's
+regressor is ``regressor.linear``. ``forward_with_kl`` returns the kl of
+the encoder's posterior beside the output (0.0 without BBB).
+
+With ``learn_step_size`` the inner step sizes are parameters too:
+``step_size`` (one scalar) or, per parameter,
 ``step_size.<name with / for .>``.
 """
 
@@ -37,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wmfml_tpu_torch.kernels.features import maml_features, masked_batch_norm
+from wmfml_tpu_torch.nn.bbb import BBBLiteratureEncoder
 from wmfml_tpu_torch.nn.encoders import PerTaskLiteratureEncoder
 from wmfml_tpu_torch.nn.init import init_parameters
 from wmfml_tpu_torch.ops.cast import bmm_bias, conv2d
@@ -71,13 +82,16 @@ class MAMLRegressor(nn.Module):
                  img_size: Sequence[int] = (128, 128, 1),
                  learn_step_size: bool = False,
                  per_param_step_size: bool = False, update_lr: float = 0.0,
+                 bbb_encoder: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.side = math.isqrt(dim_w)
         if self.side ** 2 != dim_w:
             raise ValueError(f"dim_w={dim_w} is not a square")
         self.tanh_out = tanh_out
-        self.encoder_w = PerTaskLiteratureEncoder(dim_w, img_size)
+        self.bbb = bbb_encoder
+        self.encoder_w = (BBBLiteratureEncoder if bbb_encoder
+                          else PerTaskLiteratureEncoder)(dim_w, img_size)
         self.features = nn.Module()
         for i in range(1, 5):
             self.features.add_module(f"layer{i}", _Block(1 if i == 1 else dim_hidden,
@@ -85,8 +99,9 @@ class MAMLRegressor(nn.Module):
         linear = nn.Linear(dim_hidden, output_dim)
         if tanh_out:          # MetaSequential(MetaLinear) in the reference
             self.regressor = nn.Module()
-            self.regressor.regressor = linear
-            self.reg_name = "regressor.regressor"
+            child = "linear" if bbb_encoder else "regressor"
+            self.regressor.add_module(child, linear)
+            self.reg_name = f"regressor.{child}"
         else:
             self.regressor = linear
             self.reg_name = "regressor"
@@ -100,10 +115,11 @@ class MAMLRegressor(nn.Module):
             else:
                 self.step_size = nn.Parameter(lr)
 
-    @staticmethod
-    def adaptable(name: str) -> bool:
-        """True for the parameters the inner loop updates."""
-        return not (".norm." in name or name.startswith("step_size"))
+    def adaptable(self, name: str) -> bool:
+        """True for the parameters the inner loop updates (a BBB encoder
+        stays at its meta values, ``wmfml_tpu/models/maml.py:127-141``)."""
+        return not (".norm." in name or name.startswith("step_size")
+                    or (self.bbb and name.startswith("encoder_w.")))
 
     def task_params(self, t: int) -> Dict[str, torch.Tensor]:
         """Every network parameter, the adapted ones as per-task copies
@@ -113,20 +129,35 @@ class MAMLRegressor(nn.Module):
                 if not k.startswith("step_size")}
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                params: Optional[Dict[str, torch.Tensor]] = None):
+                params: Optional[Dict[str, torch.Tensor]] = None,
+                generator=None):
         """x [T, N, H, W, C]; mask [T, N] bool (BN over real rows) or None;
-        params as from ``task_params`` (default: the module's own).
-        Returns [T, N, output_dim]."""
+        params as from ``task_params`` (default: the module's own);
+        ``generator`` (a ``torch.Generator`` or an ``nn/bbb.py:EpsFeed``)
+        draws a BBB encoder's per-task samples. Returns [T, N, output_dim]."""
+        return self.forward_with_kl(x, mask, params, generator)[0]
+
+    def forward_with_kl(self, x: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None,
+                        params: Optional[Dict[str, torch.Tensor]] = None,
+                        generator=None):
+        """``forward``'s output and the BBB encoder's kl (0.0 without)."""
         t, n = x.shape[:2]
         p = self.task_params(t) if params is None else params
         d = self.compute_dtype
         if d != torch.float32:
-            x = x.to(d)
-            p = {k: v.to(d) for k, v in p.items()}
-        enc = {k[len("encoder_w."):]: v for k, v in p.items()
-               if k.startswith("encoder_w.")}
+            x = x.to(d)       # a BBB encoder casts its samples itself
+            p = {k: v if self.bbb and k.startswith("encoder_w.") else v.to(d)
+                 for k, v in p.items()}
         s = self.side
-        h = self.encoder_w(x, enc).reshape(t, n, s, s)        # the 1-channel map
+        kl = 0.0
+        if self.bbb:
+            h, kl = self.encoder_w.per_task(x, generator)
+        else:
+            h = self.encoder_w(x, {k[len("encoder_w."):]: v
+                                   for k, v in p.items()
+                                   if k.startswith("encoder_w.")})
+        h = h.reshape(t, n, s, s)                             # the 1-channel map
         # layer 1, the 1 -> C lift: grouped conv + masked BN + ReLU
         w1 = p["features.layer1.conv.weight"]                 # [T, C, 1, 3, 3]
         h = conv2d(h.transpose(0, 1), w1.flatten(0, 1),
@@ -147,4 +178,4 @@ class MAMLRegressor(nn.Module):
         h = h.mean((2, 3))                                    # [T, N, C]
         out = bmm_bias(h, p[f"{self.reg_name}.weight"],
                        p[f"{self.reg_name}.bias"])
-        return torch.tanh(out) if self.tanh_out else out
+        return (torch.tanh(out) if self.tanh_out else out), kl

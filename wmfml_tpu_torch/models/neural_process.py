@@ -17,6 +17,16 @@ As in the JAX package:
     every layer and the aggregation compute in bfloat16 and ``mu`` is
     bfloat16; the caller takes its loss on ``mu.float()``.
 
+MR and FCL (``wmfml_tpu/models/neural_process.py:94-173``): with
+``bbb_encoder`` the encoder is ``nn/bbb.py:BBBLiteratureEncoder``
+(``encoder_w0.net.layer{1,2,3}.conv``, ``encoder_w0.net.linear``); the
+query images go through it first, then the context images, each pass with
+its own sample (two stem launches a forward), and the kl is the query
+pass's. With ``fcl``, in training (``self.training``) and where a latent
+z_0 exists (not attention), the query reps built with their labels
+(``qry_y``) give z_q = r_to_z(max over the queries), and ``extras`` carry
+``z_ctx_view`` (z_0) and ``z_qry_view`` (z_q) for NT-Xent.
+
 Parameter names follow the reference torch models (``encoder_w0.{0,2,5,8}``,
 ``transform_y``, ``encoder_r.layers.{0,2,4}``, ``r_to_z``,
 ``decoder0.{0,2,4}``, ``rs_to_mu``/``rs_to_var`` for baco and the attention
@@ -35,7 +45,15 @@ With attention the context and query images go through the encoder trunk
 as one batch (``MERGE_CTX_QRY``). Keys: ``img_encoder.{conv1,resnet.*}``,
 ``transform_y``, ``task_encoder.{0,2,4}``, ``mu``, ``latent_mu`` /
 ``latent_var`` (baco), the attention block's layers at the top level and
-``decoder.{conv1,resnet.*,fc_mu.{0,2,4}}``. In ``compute_dtype`` bfloat16
+``decoder.{conv1,resnet.*,fc_mu.{0,2,4}}``. With ``bbb_trunk``
+(ANPMRShapeNet3D) the encoder trunk is ``nn/bbb.py:BBBResNetTrunk``
+(``img_encoder.net.*``), over the context, then the queries, each with its
+own sample, the kl the query pass's; the decoder's trunk stays plain. With
+``fcl`` in training the queries go through the encoder trunk too (one
+batch with the context, as attention does) and ``extras`` carry
+``qry_rep`` (attention: the gated per-query latent) or ``z_ctx_view`` and
+``z_qry_view`` (the aggregate of the query reps built with their
+labels). In ``compute_dtype`` bfloat16
 (``wmfml_tpu/models/registry.py:86-91`` passes the dtype to every
 LargeCNP) both trunks, the label embedding, the task encoder, the
 aggregation (baco's heads included), the attention block's projections,
@@ -55,6 +73,7 @@ from torch import nn
 
 from wmfml_tpu_torch.models.base import ModelOutput
 from wmfml_tpu_torch.nn.attention import MultiheadFavorCrossAttention
+from wmfml_tpu_torch.nn.bbb import BBBLiteratureEncoder, BBBResNetTrunk
 from wmfml_tpu_torch.nn.encoders import (LiteratureEncoder, ResNetTrunk,
                                          trunk_feature_dim)
 from wmfml_tpu_torch.nn.init import init_parameters
@@ -85,12 +104,15 @@ class SmallCNP(nn.Module):
                  dim_r: int = 100, dim_z: int = 64, y_dim: int = 2,
                  label_dim: int = 3, agg_mode: str = "max",
                  tanh_out: bool = True, img_size: Sequence[int] = (128, 128, 1),
+                 bbb_encoder: bool = False, fcl: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if agg_mode not in AGG_MODES:
             raise TypeError(f"agg_mode is not applicable, choose from {list(AGG_MODES)}")
         self.agg_mode = agg_mode
-        self.encoder_w0 = LiteratureEncoder(dim_w, img_size)
+        self.bbb, self.fcl = bbb_encoder, fcl
+        self.encoder_w0 = (BBBLiteratureEncoder if bbb_encoder
+                           else LiteratureEncoder)(dim_w, img_size)
         self.transform_y = Linear(label_dim, dim_w // 4)
         self.encoder_r = EncoderFC(dim_w + dim_w // 4, n_hidden_units_r, dim_r)
         if agg_mode == "baco":
@@ -110,14 +132,30 @@ class SmallCNP(nn.Module):
             object.__setattr__(self, "cross_attn", attn)
         init_parameters(self, generator)
 
-    def forward(self, ctx_x, ctx_y, qry_x, ctx_mask=None) -> ModelOutput:
+    def _encode(self, x, generator):
+        """BBB: [T, N, ...] images -> ([T, N, dim_w], kl), one sample."""
+        t, n = x.shape[:2]
+        feats, kl = self.encoder_w0(x.flatten(0, 1), generator)
+        return feats.reshape(t, n, -1), kl
+
+    def forward(self, ctx_x, ctx_y, qry_x, ctx_mask=None, qry_y=None,
+                generator=None) -> ModelOutput:
+        """``qry_y`` feeds FCL's query view (training only); ``generator``
+        (a ``torch.Generator`` or an ``nn/bbb.py:EpsFeed``) draws the BBB
+        encoder's weights."""
         t, s = ctx_x.shape[:2]
         q = qry_x.shape[1]
-        both = torch.cat([ctx_x, qry_x], 1)          # one encoder batch
-        feats = self.encoder_w0(both.flatten(0, 1)).reshape(t, s + q, -1)
-        x_ctx, x_qry = feats[:, :s], feats[:, s:]
+        kl = 0.0
+        if self.bbb:       # the query pass first: its sample gives the kl
+            x_qry, kl = self._encode(qry_x, generator)
+            x_ctx, _ = self._encode(ctx_x, generator)
+        else:
+            both = torch.cat([ctx_x, qry_x], 1)      # one encoder batch
+            feats = self.encoder_w0(both.flatten(0, 1)).reshape(t, s + q, -1)
+            x_ctx, x_qry = feats[:, :s], feats[:, s:]
 
         rs = self.encoder_r(torch.cat([x_ctx, self.transform_y(ctx_y)], -1))
+        z_0 = None
         if self.agg_mode == "attention":
             z = self.r_to_z(self.cross_attn(x_ctx, rs, x_qry, mask=ctx_mask))
         else:
@@ -128,10 +166,17 @@ class SmallCNP(nn.Module):
             else:
                 var = 1e-5 + F.softplus(self.rs_to_var(rs))
                 r, _ = baco(self.rs_to_mu(rs), var, ctx_mask)
-            z = self.r_to_z(r)[:, None, :].expand(t, q, -1)
+            z_0 = self.r_to_z(r)
+            z = z_0[:, None, :].expand(t, q, -1)
         z = _gate_zero_ctx(z, ctx_mask)
+        extras = {"qry_feat": x_qry, "z": z}
+        if self.fcl and self.training and qry_y is not None and z_0 is not None:
+            # the query view: max over the query reps built with their labels
+            rq = self.encoder_r(torch.cat([x_qry, self.transform_y(qry_y)], -1))
+            extras["z_ctx_view"] = z_0
+            extras["z_qry_view"] = self.r_to_z(rq.amax(1))
         mu = self.decoder0(torch.cat([x_qry, z], -1))
-        return ModelOutput(mu=mu, extras={"qry_feat": x_qry, "z": z})
+        return ModelOutput(mu=mu, kl=kl, extras=extras)
 
 
 class NPDecoder(ResNetTrunk):
@@ -158,15 +203,13 @@ class LargeCNP(nn.Module):
         super().__init__()
         if agg_mode not in AGG_MODES:
             raise TypeError(f"agg_mode is not applicable, choose from {list(AGG_MODES)}")
-        if bbb_trunk or fcl:
-            raise NotImplementedError(
-                "LargeCNP's BBB trunk and FCL views are not ported yet "
-                "(ROADMAP.md A13)")
         self.agg_mode = agg_mode
+        self.bbb, self.fcl = bbb_trunk, fcl
         h, (hw, _, c) = h_dim, img_size
         self.img_hw = hw
         trunk = trunk_feature_dim(img_agg, hw)
-        self.img_encoder = ResNetTrunk(img_agg, c)
+        self.img_encoder = (BBBResNetTrunk if bbb_trunk
+                            else ResNetTrunk)(img_agg, c)
         self.transform_y = (Linear(label_dim, label_embed_dim)
                             if label_embed_dim else None)
         self.task_encoder = mlp(trunk + (label_embed_dim or label_dim),
@@ -182,29 +225,56 @@ class LargeCNP(nn.Module):
         self.decoder = NPDecoder(img_agg, c, trunk + h, y_dim)
         init_parameters(self, generator)
 
-    def forward(self, ctx_x, ctx_y, qry_x, ctx_mask=None) -> ModelOutput:
+    def _aggregate(self, reps, mask):
+        """mean / max / baco latent over a set, then ``mu``."""
+        if self.agg_mode == "mean":
+            r = masked_mean(reps, mask)
+        elif self.agg_mode == "max":
+            r = masked_max(reps, mask)
+        else:
+            var = 1e-5 + F.softplus(self.latent_var(reps))
+            r, _ = baco(self.latent_mu(reps), var, mask)
+        return self.mu(r)
+
+    def forward(self, ctx_x, ctx_y, qry_x, ctx_mask=None, qry_y=None,
+                generator=None) -> ModelOutput:
+        """``qry_y`` feeds FCL's query view (training only); ``generator``
+        (a ``torch.Generator`` or an ``nn/bbb.py:EpsFeed``) draws the BBB
+        trunk's weights."""
         t, s = ctx_x.shape[:2]
         q = qry_x.shape[1]
-        if self.agg_mode == "attention":     # one trunk batch, ctx + qry
+        kl = 0.0
+        need_qry = self.agg_mode == "attention" or (self.fcl and self.training)
+        x_qry = None
+        if self.bbb:       # ctx, then qry, each with its own sample
+            x_ctx, _ = self.img_encoder(ctx_x.flatten(0, 1), generator)
+            x_ctx = x_ctx.reshape(t, s, -1)
+            if need_qry:   # the query pass gives the kl
+                x_qry, kl = self.img_encoder(qry_x.flatten(0, 1), generator)
+                x_qry = x_qry.reshape(t, q, -1)
+        elif need_qry:     # one trunk batch, ctx + qry
             both = torch.cat([ctx_x, qry_x], 1)
             feats = self.img_encoder(both.flatten(0, 1)).reshape(t, s + q, -1)
             x_ctx, x_qry = feats[:, :s], feats[:, s:]
         else:
             x_ctx = self.img_encoder(ctx_x.flatten(0, 1)).reshape(t, s, -1)
-        y_in = ctx_y if self.transform_y is None else self.transform_y(ctx_y)
-        reps = self.task_encoder(torch.cat([x_ctx, y_in], -1))
+        embed = (lambda y: y) if self.transform_y is None else self.transform_y
+        reps = self.task_encoder(torch.cat([x_ctx, embed(ctx_y)], -1))
+        z_0 = None
         if self.agg_mode == "attention":
             sample = self.mu(self.cross_attn(x_ctx, reps, x_qry,
                                              mask=ctx_mask))
         else:
-            if self.agg_mode == "mean":
-                r = masked_mean(reps, ctx_mask)
-            elif self.agg_mode == "max":
-                r = masked_max(reps, ctx_mask)
-            else:
-                var = 1e-5 + F.softplus(self.latent_var(reps))
-                r, _ = baco(self.latent_mu(reps), var, ctx_mask)
-            sample = self.mu(r)[:, None, :].expand(t, q, -1)
+            z_0 = self._aggregate(reps, ctx_mask)
+            sample = z_0[:, None, :].expand(t, q, -1)
         sample = _gate_zero_ctx(sample, ctx_mask)
+        extras = {"sample_features": sample}
+        if self.fcl and self.training:
+            if self.agg_mode == "attention":
+                extras["qry_rep"] = sample               # FCLANP's views
+            elif qry_y is not None:                      # FCL-CNP's two views
+                rq = self.task_encoder(torch.cat([x_qry, embed(qry_y)], -1))
+                extras["z_ctx_view"] = z_0
+                extras["z_qry_view"] = self._aggregate(rq, None)
         mu = self.decoder(qry_x, sample)
-        return ModelOutput(mu=mu, extras={"sample_features": sample})
+        return ModelOutput(mu=mu, kl=kl, extras=extras)

@@ -107,19 +107,27 @@ class PerTaskLiteratureEncoder(nn.Module):
                 params: Dict[str, torch.Tensor]) -> torch.Tensor:
         """x [T, N, H, W, C]; ``params`` maps each parameter name to its
         per-task value [T, ...]. Returns [T, N, dim_w]."""
-        t, n = x.shape[:2]
-        h = literature_stem(x.flatten(0, 1), *(params[k].to(x.dtype) for k in (
-            "layer1.conv.weight", "layer1.conv.bias", "layer2.conv.weight",
-            "layer2.conv.bias")))                             # [T*N, h, w, 48]
-        _, h8, w8, c1 = h.shape
-        h = h.reshape(t, n, h8, w8, c1).permute(1, 0, 4, 2, 3).reshape(
-            n, t * c1, h8, w8)
-        w2 = params["layer3.conv.weight"]
-        h = F.relu(conv2d(h, w2.flatten(0, 1),
-                          params["layer3.conv.bias"].flatten(), stride=2,
-                          padding=1, groups=t))               # [N, T*64, h/2, w/2]
-        h = h.reshape(n, t, -1).transpose(0, 1)               # CHW flatten
-        return bmm_bias(h, params["linear.weight"], params["linear.bias"])
+        return per_task_literature(x, params)
+
+
+def per_task_literature(x: torch.Tensor,
+                        params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The literature stack with per-task weights (``layer{1,2,3}.conv``,
+    ``linear``, each [T, ...]) over x [T, N, H, W, C], in x's dtype:
+    [T, N, dim_w]."""
+    t, n = x.shape[:2]
+    h = literature_stem(x.flatten(0, 1), *(params[k].to(x.dtype) for k in (
+        "layer1.conv.weight", "layer1.conv.bias", "layer2.conv.weight",
+        "layer2.conv.bias")))                                 # [T*N, h, w, 48]
+    _, h8, w8, c1 = h.shape
+    h = h.reshape(t, n, h8, w8, c1).permute(1, 0, 4, 2, 3).reshape(
+        n, t * c1, h8, w8)
+    w2 = params["layer3.conv.weight"]
+    h = F.relu(conv2d(h, w2.flatten(0, 1),
+                      params["layer3.conv.bias"].flatten(), stride=2,
+                      padding=1, groups=t))                   # [N, T*64, h/2, w/2]
+    h = h.reshape(n, t, -1).transpose(0, 1)                   # CHW flatten
+    return bmm_bias(h, params["linear.weight"], params["linear.bias"])
 
 
 def adaptive_max_pool(x: torch.Tensor, out_hw: int = 2) -> torch.Tensor:

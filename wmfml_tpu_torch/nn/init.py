@@ -8,7 +8,9 @@ The same distributions as the reference torch models and the JAX package
     bias;
   * the ResNet trunk's block convolutions (``kaiming_fan_out`` set):
     W ~ N(0, sqrt(2 / fan_out)), the reference ResNet's kaiming_normal
-    (the JAX package truncates it at two standard deviations).
+    (the JAX package truncates it at two standard deviations);
+  * Bayes-by-Backprop layers: mu ~ N(0, 0.1), rho ~ -3 + N(0, 0.1)
+    (``nn/bbb.py:init_bbb``).
 
 Modules are built on the CPU, initialised here from a seeded CPU generator
 and then moved, so one seed gives the same weights on every device.
@@ -21,6 +23,7 @@ import math
 import torch
 from torch import nn
 
+from wmfml_tpu_torch.nn.bbb import BBBLayer, init_bbb
 from wmfml_tpu_torch.nn.mlp import Linear
 
 
@@ -38,9 +41,12 @@ class AttnLinear(nn.Module):
 
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator):
-    """Re-draw every Linear/Conv2d (and AttnLinear) parameter of ``module``."""
+    """Re-draw every Linear/Conv2d (and AttnLinear, BBB) parameter of
+    ``module``."""
     for m in module.modules():
-        if getattr(m, "kaiming_fan_out", False):       # bias-free
+        if isinstance(m, BBBLayer):
+            init_bbb(m, generator)
+        elif getattr(m, "kaiming_fan_out", False):     # bias-free
             fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
             m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
                              generator=generator)

@@ -13,8 +13,14 @@ are a Python loop:
     ``first_order`` takes it without a graph (FOMAML);
   * step sizes: ``update_lr``, or the model's learnable ``step_size``
     (one scalar, or one per adapted parameter) when ``learn_step_size``;
-  * outer loss = mean over tasks of (query loss + beta * kl), kl = 0 here
-    (no Bayes-by-Backprop encoder); the query loss is taken in float32;
+  * outer loss = mean over tasks of (query loss + beta * kl), the query
+    loss taken in float32; kl is the Bayes-by-Backprop encoder's (MAMLMR)
+    from the query pass, 0 without one. A BBB encoder draws one sample per
+    task in every inner step and in the query pass, from the step's
+    generator (the JAX package gives each task and step its own key,
+    ``wmfml_tpu/train/maml.py:110-150``); it stays frozen in the inner
+    loop, and the outer gradient reaches its ``W_mu`` / ``W_rho`` through
+    K1's backward;
   * in ``compute_dtype`` bfloat16 the episode's images and the forward are
     bfloat16 while the per-task copies, their inner SGD steps and every
     gradient stay float32; the inner loss meets float32 labels and so is
@@ -53,10 +59,11 @@ def task_losses(loss_func: LossFunc, out, y, test: bool = False, mask=None):
 
 def build_maml_outer(model, config, num_steps: int, train: bool,
                      test: bool) -> Callable:
-    """Return ``outer(batch, generator=None, ta_idx=None, da_params=None)
-    -> (outer_loss, pre_loss)`` over a raw episode, processed once (image
-    and task augmentation in training only); its inner steps need grad
-    enabled."""
+    """Return ``outer(batch, generator=None, ta_idx=None, da_params=None,
+    noise=None) -> (outer_loss, pre_loss)`` over a raw episode, processed
+    once (image and task augmentation in training only); its inner steps
+    need grad enabled. A BBB encoder draws from ``noise`` (an
+    ``nn/bbb.py:EpsFeed``), else from ``generator``."""
     loss_func = LossFunc(config.loss_type, config.task)
     process = build_episode_processor(config.task,
                                       config.aug_list if train else [],
@@ -76,13 +83,15 @@ def build_maml_outer(model, config, num_steps: int, train: bool,
 
     def outer(batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator] = None,
-              ta_idx: Optional[torch.Tensor] = None, da_params=None):
+              ta_idx: Optional[torch.Tensor] = None, da_params=None,
+              noise=None):
         pbatch = process(batch, generator, ta_idx, da_params)
+        noise = generator if noise is None else noise
         mask = pbatch["ctx_mask"]
         params = model.task_params(pbatch["ctx_x"].shape[0])
         names = [k for k in params if model.adaptable(k)]
         for _ in range(num_steps):
-            out = model(pbatch["ctx_x"], mask, params)
+            out = model(pbatch["ctx_x"], mask, params, noise)
             inner = task_losses(loss_func, out, pbatch["ctx_y"],
                                 mask=mask).sum()
             grads = torch.autograd.grad(inner, [params[k] for k in names],
@@ -91,10 +100,10 @@ def build_maml_outer(model, config, num_steps: int, train: bool,
             for k, g in zip(names, grads):
                 params[k] = params[k] - step_size(k) * g
         with torch.set_grad_enabled(train):
-            out = model(pbatch["qry_x"], None, params)
+            out, kl = model.forward_with_kl(pbatch["qry_x"], None, params,
+                                            noise)
             losses = task_losses(loss_func, out.float(), pbatch["qry_y"],
                                  test=test)
-        kl = 0.0     # no Bayes-by-Backprop encoder here (MAMLMR: ROADMAP A13)
         return (losses + beta * kl).mean(), losses.mean()
 
     return outer
@@ -151,10 +160,12 @@ def build_maml_eval_step(model, config) -> Callable:
     outer = build_maml_outer(model, config, _num_steps(config)[1],
                              train=False, test=True)
 
-    def eval_step(batch) -> torch.Tensor:
+    def eval_step(batch, generator=None) -> torch.Tensor:
+        """The query loss before the kl; a BBB encoder draws from
+        ``generator`` (a ``torch.Generator`` or an ``EpsFeed``)."""
         model.eval()
         with torch.enable_grad():        # the inner steps take gradients
-            return outer(batch)[1].detach()
+            return outer(batch, noise=generator)[1].detach()
 
     return eval_step
 

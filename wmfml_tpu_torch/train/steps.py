@@ -2,11 +2,15 @@
 
 A train step processes the raw episode on the device (normalise, image and
 task augmentation, label encoding), runs the model, and takes one optimizer
-step on ``total = task_loss + beta * kl``, the task loss taken on
-``mu.float()`` whatever the compute dtype (the JAX package's
-``out.mu.astype(float32)``). It returns the loss as a device
-tensor: the trainer reads it on the host only at its validation cadence,
-so the host never waits on the card in between.
+step on ``total = task_loss + beta * kl [+ contrastive_rate * contra]``,
+the task loss taken on ``mu.float()`` whatever the compute dtype (the JAX
+package's ``out.mu.astype(float32)``); kl is a Bayes-by-Backprop model's
+(MR), contra FCL's NT-Xent over the model's views (``contra_term``, with
+``contrastive: true``). The step's generator draws the BBB weights too,
+so a CUDA graph replay draws new ones; an eval step takes a generator for
+them (BBB samples at evaluation, as in the reference). A step returns the
+loss as a device tensor: the trainer reads it on the host only at its
+validation cadence, so the host never waits on the card in between.
 
 ``build_device_data_train_step`` runs ``steps_per_call`` such steps on
 episodes sampled on the device as one call (``FusedSteps``), the JAX
@@ -30,7 +34,8 @@ from wmfml_tpu_torch.kernels.favor import favor_attention
 from wmfml_tpu_torch.kernels.features import maml_features
 from wmfml_tpu_torch.kernels.image_da import image_da
 from wmfml_tpu_torch.kernels.stem import literature_stem
-from wmfml_tpu_torch.losses.losses import LossFunc
+from wmfml_tpu_torch.losses.losses import (LossFunc, contrastive_loss,
+                                           contrastive_loss_anp)
 from wmfml_tpu_torch.models.registry import build_model
 
 
@@ -49,9 +54,25 @@ def init_model(config, device=None):
     return build_model(config).to(require_device(device or config.device))
 
 
-def _apply(model, batch: Dict[str, torch.Tensor]):
+def _apply(model, batch: Dict[str, torch.Tensor], generator=None):
     return model(batch["ctx_x"], batch["ctx_y"], batch["qry_x"],
-                 ctx_mask=batch["ctx_mask"])
+                 ctx_mask=batch["ctx_mask"], qry_y=batch["qry_y"],
+                 generator=generator)
+
+
+def contra_term(config, out):
+    """FCL's contrastive term (``wmfml_tpu/train/steps.py:55-65``): NT-Xent
+    over the two views (FCL-CNP) or over the query reps by task (FCLANP);
+    0.0 without ``contrastive`` or without views (evaluation)."""
+    if not config.contrastive:
+        return 0.0
+    ex = out.extras
+    if "z_ctx_view" in ex and "z_qry_view" in ex:
+        return contrastive_loss(ex["z_ctx_view"], ex["z_qry_view"],
+                                t=config.temperature)
+    if "qry_rep" in ex:
+        return contrastive_loss_anp(ex["qry_rep"], t=config.temperature)
+    return 0.0
 
 
 def build_train_step(model, optimizer, config) -> Callable:
@@ -60,15 +81,18 @@ def build_train_step(model, optimizer, config) -> Callable:
         aug_random_order=config.aug_random_order)
     loss_func = LossFunc(config.loss_type, config.task)
     beta = float(config.beta or 0.0)
+    rate = float(config.contrastive_rate or 0.0)
 
     def train_step(batch, generator: Optional[torch.Generator] = None,
                    ta_idx: Optional[torch.Tensor] = None,
                    da_params=None) -> torch.Tensor:
         model.train()
         pbatch = process(batch, generator, ta_idx, da_params)
-        out = _apply(model, pbatch)
+        out = _apply(model, pbatch, generator)
         loss = loss_func.calc_loss(out.mu.float(), out.var, pbatch["qry_y"])
         loss = loss + beta * out.kl
+        if config.contrastive:
+            loss = loss + rate * contra_term(config, out)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
@@ -211,10 +235,12 @@ def build_eval_step(model, config) -> Callable:
     loss_func = LossFunc(config.loss_type, config.task)
 
     @torch.no_grad()
-    def eval_step(batch) -> torch.Tensor:
+    def eval_step(batch, generator=None) -> torch.Tensor:
+        """The test metric on one episode; a BBB model draws its weights
+        from ``generator`` (a ``torch.Generator`` or an ``EpsFeed``)."""
         model.eval()
         pbatch = process(batch)
-        out = _apply(model, pbatch)
+        out = _apply(model, pbatch, generator)
         return loss_func.calc_loss(out.mu.float(), out.var, pbatch["qry_y"],
                                    test=True)
 

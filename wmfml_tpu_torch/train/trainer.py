@@ -14,9 +14,13 @@
   * NaN guard: the loss (a clone of the call's mean loss: the next replay
     overwrites the graph's outputs) stays on the device and is read at the
     validation cadence; a non-finite loss raises ``NonFiniteLossError``;
-  * one random generator on the device draws every episode, DA and TA draw
-    of training; checkpoints hold its state, so a run resumed from one
-    draws what an unbroken run would have drawn;
+  * one random generator on the device draws every episode, DA, TA and
+    Bayes-by-Backprop (MR) draw of training; checkpoints hold its state,
+    so a run resumed from one draws what an unbroken run would have drawn;
+    validation's BBB draws come from a second generator, reseeded with
+    ``seed + 10_000_000`` before every sweep (the JAX trainer's
+    ``fold_in(base_key, 10_000_000 + v)``), so a sweep is repeatable and
+    does not move training's stream;
   * ShapeNet3D with ``gen_bg``: ``train()`` first composites new
     backgrounds into the host splits (``data.gen_bg``), after the device
     sampler took the train split in ``__init__``, as the JAX trainer
@@ -61,6 +65,7 @@ class ModelTrainer:
                                                          self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(config.seed))
+        self.eval_generator = torch.Generator(device=self.device)
         self.steps_per_call = max(int(config.steps_per_call or 1), 1)
         self.train_step, self.eval_step = self._build_steps()
         self.writer = MetricsWriter(config.save_path)
@@ -123,9 +128,10 @@ class ModelTrainer:
         """One deterministic sweep of ``val_iters`` episodes."""
         cfg = self.config
         self.data.reset_eval(source, seed=42)
+        self.eval_generator.manual_seed(int(cfg.seed) + 10_000_000)
         losses = [self.eval_step(episode_to_device(
             self.data.get_batch(source, cfg.tasks_per_batch, cfg.max_ctx_num),
-            self.device)) for _ in range(cfg.val_iters)]
+            self.device), self.eval_generator) for _ in range(cfg.val_iters)]
         loss = float(np.mean([float(x) for x in losses]))
         self.writer.add_scalar(f"Loss/{source}", loss, it)
         self.logger.info(f"[{source}] iteration {it}: loss {loss:.4f}")
