@@ -202,6 +202,33 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      equal, one point card against CPU on the same draws); graph and loop
      ms/step in turns on every new path. Phase 3 also holds K1 on BBB
      samples at M1's (150 images a pass) and M2's (per task) shapes;
+ 19. SingleTask and refinement (ROADMAP.md A14), every kernel counter
+     zeroed before each path and read after it: T1
+     ``cfg/train/SingleTask_DA+TA_ShapeNet1D.yaml`` (K1 once a step on the
+     150 query images alone, K6 program 0 twice, no K2), 32 steps, 8 a
+     call; T2 ``SingleTask_DA+TA_Distractor.yaml`` (two trunks on the
+     queries, K6 program 4 twice, no K1, no K2) and T3
+     ``SingleTask_DA+TA_ShapeNet3D.yaml`` (K6 program 6 twice, no K2), 16
+     steps each, all through ``train_phase``, with the validation loss card
+     against CPU and the encoders' input on a validation episode the
+     queries alone; R1, R2 ``refinement_cli`` with
+     ``cfg/refinement/Refine_DA_{ShapeNet1D,Distractor}.yaml`` over T1's
+     and T2's checkpoints (all 25 counts, iterations 0..2, 2 validation
+     and 2 test sweeps of 2 episodes a count; eager refine steps, K6 twice
+     each; ``loss_vs_ctx.txt`` 25 rows; each count's iteration-0 loss
+     equal to a fresh evaluator's, every count of R1, 3 of R2; an
+     iteration's host and device ms); O1, O2 ``eval_one_task_cli`` with
+     ``cfg/evaluation/eval_one_task/{ANP_ShapeNet1D,CNP_max_Distractor}
+     .yaml`` over phase 4's and D2's checkpoints (``test_losses.txt`` 25
+     rows, flat, std 0; K2 narrow at one task); Q1-Q3 ``eval_and_plot_cli``
+     with ``cfg/evaluation/eval_and_plot/{ANP_ShapeNet1D,ANP_ShapeNet3D,
+     CNP_max_Distractor}.yaml`` over phase 4's, S1's and D2's
+     (``losses_all.txt`` 2 rows, the plots where matplotlib is installed,
+     Distractor's test split cut to 04530566); each evaluation's first
+     number against the CPU; graph and loop ms/step in turns on T1-T3.
+     Phase 3 also holds K1 at R1's 25 images, K2's narrow form at O1's
+     single task (Nq = Nk = 25) and K2's wide form at Q2's shape (Nq 30,
+     Nk 15);
  15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Phase 3 also holds the Distractor paths' kernels: K2's wide form at D1's
@@ -370,6 +397,24 @@ FCL_DISTRACTOR_YAML = os.path.join(HERE, "cfg", "train", "contrastive",
                                    "FCLCNP_contrastive_max_DA_Distractor.yaml")
 FCL_EVAL_YAML = os.path.join(HERE, "cfg", "evaluation",
                              "CNP_FCL_max_Distractor.yaml")
+# SingleTask and refinement (phase 19), as shipped but for their depth: T1
+# SingleTask_DA+TA_ShapeNet1D as the ANP path (32 steps, 8 a call), T2
+# SingleTask_DA+TA_Distractor and T3 SingleTask_DA+TA_ShapeNet3D (16 steps,
+# 8 a call); R1, R2 the refinement YAMLs over T1's and T2's checkpoints
+# (all 25 counts, 3 iterations each: 0..2); O1, O2 the single-task
+# evaluation YAMLs over phase 4's and D2's checkpoints; Q1-Q3 the
+# evaluate-and-plot YAMLs over phase 4's, S1's and D2's; 2 episodes a point
+ST_YAMLS = {task: os.path.join(HERE, "cfg", "train",
+                               f"SingleTask_DA+TA_{task}.yaml")
+            for task in ("ShapeNet1D", "Distractor", "ShapeNet3D")}
+REFINE_YAMLS = {task: os.path.join(HERE, "cfg", "refinement",
+                                   f"Refine_DA_{task}.yaml")
+                for task in ("ShapeNet1D", "Distractor")}
+REFINE_OVERRIDES = ["synthetic_data=true", "device=cuda", "iterations=2",
+                    "val_freq=2", "val_iters=2"]
+ONE_TASK_DIR = os.path.join(HERE, "cfg", "evaluation", "eval_one_task")
+PLOT_DIR = os.path.join(HERE, "cfg", "evaluation", "eval_and_plot")
+ONE_PLOT_OVERRIDES = ["synthetic_data=true", "device=cuda", "val_iters=2"]
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -718,9 +763,11 @@ def _rows(name, dtype, path, tasks=10):
                 path=path + (" bf16" if bf16 else ""), route="cuda")
 
 
-def check_stem(model, gen, dtype=None, tasks=10, path="ANP"):
+def check_stem(model, gen, dtype=None, tasks=10, path="ANP", images=None,
+               name=None):
     """K1 at the ANP path's shape: the merged ctx+qry batch, 30 images a
-    task (300 at T = 10, 1,200 at ``tasks`` = 40), in float32 or
+    task (300 at T = 10, 1,200 at ``tasks`` = 40), or ``images`` images
+    (refinement's 25 context images, row ``name``), in float32 or
     (``dtype``) bfloat16; the row reports ``path``'s launches."""
     import torch
     import torch.nn.functional as F
@@ -731,7 +778,7 @@ def check_stem(model, gen, dtype=None, tasks=10, path="ANP"):
     enc = model.encoder_w0
     w0, b0, w1, b1 = (p.detach().to(dtype) for p in (
         enc[0].weight, enc[0].bias, enc[2].weight, enc[2].bias))
-    b, h, w = tasks * 30, 128, 128
+    b, h, w = images or tasks * 30, 128, 128
     x = torch.rand((b, h, w, 1), generator=gen, device="cuda").to(dtype)
     args = (x, w0, b0, w1, b1)
     got = stem.stem_launch(*args)
@@ -752,31 +799,35 @@ def check_stem(model, gen, dtype=None, tasks=10, path="ANP"):
     times.update(device_profile(lambda: stem.stem_launch(*args)))
     nbytes = x.element_size() * (x.numel() + got.numel() + sum(
         t.numel() for t in (w0, b0, w1, b1)))
-    return dict(**_rows("literature_stem", dtype, path, tasks),
-                shape=f"shared weights, [{b}, 128, 128, 1]",
+    ids = _rows("literature_stem", dtype, path, tasks)
+    if name is not None:
+        ids.update(name=name, tol="literature_stem")
+    return dict(**ids, shape=f"shared weights, [{b}, 128, 128, 1]",
                 source="wmfml_tpu_torch/csrc/stem.cu",
                 replaces="wmfml_tpu/nn/encoders.py:230",
                 max_abs_err=err, max_rel_err=rel, **times,
                 **stem_bound(b, h, w, nbytes, dtype == torch.bfloat16))
 
 
-def check_favor(model, gen, dtype=None, tasks=10, path="ANP"):
+def check_favor(model, gen, dtype=None, tasks=10, path="ANP", n=15):
     """K2 at the ANP path's shape, T = ``tasks`` (10, or 40: more (task,
     head) items than co-resident blocks), with shots 3..15 across the
-    tasks; q, k, v are [T, N, H, d] transposed to [T, H, N, d], as the
-    attention block hands them over, float32 or (``dtype``) bfloat16. One
-    call must issue one kernel. The row reports ``path``'s launches."""
+    tasks, or T = 1 with all ``n`` rows real (single-task evaluation: 8
+    (task, head) items, Nq = Nk = 25); q, k, v are [T, N, H, d] transposed
+    to [T, H, N, d], as the attention block hands them over, float32 or
+    (``dtype``) bfloat16. One call must issue one kernel. The row reports
+    ``path``'s launches."""
     import torch
 
     from wmfml_tpu_torch.kernels import favor
 
     dtype = dtype or torch.float32
     proj = model.attn.projection_matrix
-    t_, h, n, d = tasks, 8, 15, proj.shape[1]
+    t_, h, d = tasks, 8, proj.shape[1]
     q, k, v = (torch.randn((t_, n, h, d), generator=gen, device="cuda").to(
         dtype).transpose(1, 2) for _ in range(3))
-    shots = torch.tensor([3 + (12 * i) // (t_ - 1) for i in range(t_)],
-                         device="cuda")
+    shots = torch.tensor([3 + (12 * i) // (t_ - 1) if t_ > 1 else n
+                          for i in range(t_)], device="cuda")
     mask = torch.arange(n, device="cuda")[None, :] < shots[:, None]
     got = favor.favor_launch(q, k, v, proj, mask)
     want = favor.favor_plain(q, k, v, proj, mask)
@@ -806,7 +857,9 @@ def check_favor(model, gen, dtype=None, tasks=10, path="ANP"):
     nbytes = (q.element_size() * 3 * q.numel() + 4 * (q.numel() + proj.numel())
               + mask.numel())
     return dict(**_rows("favor_attention", dtype, path, tasks),
-                shape=f"q, k, v [{t_}, 8, 15, 64], m 266, shots 3..15",
+                tol="favor_attention",
+                shape=f"q, k, v [{t_}, 8, {n}, 64], m 266, shots "
+                + ("3..15" if t_ > 1 else f"{n}"),
                 source="wmfml_tpu_torch/csrc/favor.cu",
                 replaces="wmfml_tpu/nn/attention.py:93",
                 max_abs_err=err, max_rel_err=rel, **times, library_ms=None,
@@ -2044,8 +2097,9 @@ def replay_trace(trainer, tag):
 
 def train_phase(card, yaml, overrides, counters, tap=False):
     """Drive one path through ``train_cli``'s trainer, which trains through
-    CUDA graph replays (``FusedSteps``); return (trainer, launches per
-    kernel on the card in that run, the graph's nodes). In ``compute_dtype: bfloat16`` every
+    CUDA graph replays (``FusedSteps``), every kernel counter zeroed just
+    before; return (trainer, launches per kernel of ``counters`` on the
+    card in that run, the graph's nodes). In ``compute_dtype: bfloat16`` every
     launch must have been a bfloat16 one, and every K6 launch one of the
     path's program (its task's, ``_fixed`` for ``aug_random_order:
     false``). The captured graph's DOT must hold as many nodes of each
@@ -2061,12 +2115,7 @@ def train_phase(card, yaml, overrides, counters, tap=False):
     from wmfml_tpu_torch.configs import Config
 
     config = Config(yaml, overrides)
-    for fn in counters.values():
-        fn.launches = fn.bf16_launches = 0
-        if hasattr(fn, "wide_launches"):
-            fn.wide_launches = 0
-        if hasattr(fn, "program_launches"):
-            fn.program_launches = dict.fromkeys(fn.program_launches, 0)
+    zero_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = train_cli.build_trainer(config)
@@ -3065,6 +3114,329 @@ def check_mr_second_order():
         torch.use_deterministic_algorithms(False)
 
 
+def zero_counters():
+    """Every kernel wrapper's counters to 0 (``train/steps.py:KERNELS``)."""
+    from wmfml_tpu_torch.train.steps import KERNELS
+
+    for fn in KERNELS.values():
+        fn.launches = fn.bf16_launches = 0
+        if hasattr(fn, "wide_launches"):
+            fn.wide_launches = 0
+        if hasattr(fn, "program_launches"):
+            fn.program_launches = dict.fromkeys(fn.program_launches, 0)
+
+
+def read_counters():
+    """Every kernel wrapper's host-issued launches, K2's wide ones as
+    ``favor_attention.wide`` and K6's by program as ``image_da.<program>``
+    (those of a run issued from the host: nothing here is captured)."""
+    from wmfml_tpu_torch.kernels.favor import favor_attention
+    from wmfml_tpu_torch.kernels.image_da import image_da
+    from wmfml_tpu_torch.train.steps import KERNELS
+
+    out = {name: fn.launches for name, fn in KERNELS.items()}
+    out["favor_attention.wide"] = favor_attention.wide_launches
+    out.update({f"image_da.{p}": n
+                for p, n in image_da.program_launches.items() if n})
+    return out
+
+
+def check_counters(tag, got, want):
+    """``got`` (``read_counters``) holds ``want``'s counts and nothing else
+    but zeros."""
+    extra = {k: n for k, n in got.items() if n and k not in want}
+    if extra or any(got.get(k, 0) != n for k, n in want.items()):
+        raise AssertionError(f"{tag}: launches {got}; the code says {want} "
+                             f"and no other")
+    log(f"{tag}: launches {dict((k, got.get(k, 0)) for k in want)} as the "
+        f"code says, no other kernel launched")
+
+
+def images_of(x):
+    """Images in a [..., H, W, C] batch (a tensor or an array)."""
+    return math.prod(x.shape[:-3])
+
+
+def single_task_phase(card, yaml, overrides, counters):
+    """A SingleTask path through ``train_phase`` (which zeroes every kernel
+    counter first): the kernels it does not name launch no time (T1 no K2, T2
+    and T3 neither K1 nor K2); the validation loss on one episode, card
+    against CPU; and on that episode the image encoder (K1's literature
+    encoder, or both ResNet trunks) reads the query images alone, T x Q."""
+    from wmfml_tpu_torch.train.steps import KERNELS
+    from wmfml_tpu_torch.train.trainer import episode_to_device
+
+    trainer, launches, nodes = train_phase(card, yaml, overrides, counters)
+    others = {n: fn.launches for n, fn in KERNELS.items() if n not in counters}
+    if any(others.values()):
+        raise AssertionError(f"{trainer.config.method}: launches {others} "
+                             f"off the path")
+    check_validation_loss(trainer)
+    cfg, model = trainer.config, trainer.model
+    encoders = ([model.encoder_w0] if hasattr(model, "encoder_w0")
+                else [model.img_encoder, model.decoder])
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: seen.append(images_of(args[0]))) for m in encoders]
+    try:
+        trainer.data.reset_eval("validation", seed=42)
+        raw = trainer.data.get_batch("validation", cfg.tasks_per_batch,
+                                     cfg.max_ctx_num)
+        trainer.eval_step(episode_to_device(raw, "cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    want = [images_of(raw["qry_x"])] * len(encoders)
+    log(f"train {cfg.method}: the encoder passes of one validation episode "
+        f"read {seen} images, its queries {want} ({raw['ctx_x'].shape[1]} "
+        f"context rows ignored)")
+    if seen != want:
+        raise AssertionError(f"{cfg.method}: encoders read {seen} images, "
+                             f"the queries are {want}")
+    return trainer, launches, nodes
+
+
+def fresh_refinement(config, base, ctx_num):
+    """A new evaluator of ``ctx_num``'s frozen task over
+    ``config.checkpoint``, as ``refinement_cli`` builds one (its model built
+    from the seed and restored, its optimizer built and restored)."""
+    from wmfml_tpu_torch.data.refinement import RefinementSampler
+    from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
+    from wmfml_tpu_torch.models.registry import build_model
+
+    data = RefinementSampler(base, ctx_num=ctx_num, seed=42, source="test")
+    config.query_num = data.task_qry_x.shape[0]
+    return ModelEvaluator(build_model(config), config, data)
+
+
+def check_refinement(tag, yaml, trainer, program, counts):
+    """R1 / R2: ``refinement_cli`` with ``yaml`` (``max_ctx_num`` 25 as
+    shipped, all 25 counts; iterations 2, ``val_freq`` 2, ``val_iters`` 2)
+    over ``trainer``'s final checkpoint. ``loss_vs_ctx.txt`` holds 25 finite
+    rows, the best test losses returned; each count ran 3 eager refine
+    steps (K6 twice each, program ``program``; ShapeNet1D's K1 once) and 2
+    validation and 2 test sweeps of 2 episodes (K1 once each), and nothing
+    else launched. Each count of ``counts`` started from the checkpoint:
+    its iteration-0 training loss (``metrics.jsonl``) equals the first
+    refine step of a fresh evaluator of that count on the card. Then the
+    host ms of an iteration at count 25 (batch, copy, step; synchronised)
+    and the step's device ms (torch.profiler). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from wmfml_tpu_torch.cli import refinement_cli
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.data.factory import build_data
+    from wmfml_tpu_torch.train.trainer import episode_to_device
+
+    ckpt = trainer.ckpt.path(f"model_end_{trainer.config.iterations}")
+    config = Config(yaml, REFINE_OVERRIDES + [f"checkpoint={ckpt}"])
+    zero_counters()
+    t0 = time.perf_counter()
+    best = refinement_cli.refine(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    n, its = config.max_ctx_num, config.iterations + 1
+    sweeps = sum(1 for it in range(its) if it % config.val_freq == 0)
+    episodes = 2 * sweeps * config.val_iters
+    want = {"image_da": 2 * n * its, f"image_da.{program}": 2 * n * its}
+    if config.task == "shapenet_1d":
+        want["literature_stem"] = n * (its + episodes)
+    check_counters(f"refine {tag} {config.method}", launches, want)
+    table = np.loadtxt(os.path.join(config.save_path, "loss_vs_ctx.txt"))
+    if table.shape != (n,) or not np.isfinite(table).all() or np.abs(
+            table - np.asarray(best)).max() > 1e-4 * (1 + np.abs(table).max()):
+        raise AssertionError(f"{tag} loss_vs_ctx.txt {table}, best {best}")
+    with open(os.path.join(config.save_path, "metrics.jsonl")) as f:
+        first = [json.loads(line) for line in f]
+    first = [r["value"] for r in first
+             if r["tag"] == "Loss/train" and r["step"] == 0]
+    if len(first) != n:
+        raise AssertionError(f"{tag}: {len(first)} iteration-0 losses")
+    base = build_data(config, mode="eval")
+    diffs, ev = {}, None
+    for c in counts:
+        ev = fresh_refinement(config, base, c)
+        batch = episode_to_device(ev.data.get_batch(
+            "refine_train", config.tasks_per_batch, n), "cuda")
+        got = float(ev.refine_step(batch, ev.refine_generator))
+        diffs[c] = got - first[c - 1]
+        if abs(diffs[c]) > 1e-6 * (abs(got) + 1.0):
+            raise AssertionError(f"{tag} count {c}: iteration-0 loss "
+                                 f"{first[c - 1]} in the run, {got} from a "
+                                 f"fresh evaluator")
+    # one iteration at count n (``ev`` is count n's)
+    gen = ev.refine_generator
+
+    def iteration():
+        return ev.refine_step(episode_to_device(ev.data.get_batch(
+            "refine_train", config.tasks_per_batch, n), "cuda"), gen)
+
+    batch = episode_to_device(ev.data.get_batch(
+        "refine_train", config.tasks_per_batch, n), "cuda")
+    iteration()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        iteration()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t1) / 20
+    dev = device_profile(lambda: ev.refine_step(batch, gen), iters=10)
+    log(f"refine {tag} {config.method} over {ckpt}: counts 1..{n}, "
+        f"{its} eager refine steps and {sweeps} validation and test sweeps "
+        f"of {config.val_iters} episodes each, in {wall} s on {card_line()}; "
+        f"best test loss by count {best}; iteration-0 loss, run against a "
+        f"fresh evaluator, at counts {list(counts)}: differences {diffs}; "
+        f"an iteration at count {n} (1 task x {n} images; batch, copy, step) "
+        f"{host_ms} ms host-timed, its step {dev['device_ms']} ms on the "
+        f"device in {dev['kernels_per_call']} kernels")
+    return launches
+
+
+def check_one_task(tag, yaml, trainer, cpu_check=True):
+    """O1 / O2: ``eval_one_task_cli`` with ``yaml`` (``val_iters`` 2) over
+    ``trainer``'s final checkpoint: ``test_losses.txt`` 25 x 3, finite,
+    flat (the frozen batch at every point, as in the JAX package) with std
+    0; K1 (ShapeNet1D) and K2 (attention) once an episode, K2's narrow form
+    at one task, no K6; the last point against the same sweep on the
+    CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from wmfml_tpu_torch.cli import eval_one_task_cli
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.data.factory import build_data
+    from wmfml_tpu_torch.data.refinement import RefinementSampler
+    from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
+    from wmfml_tpu_torch.models.registry import build_model
+
+    ckpt = trainer.ckpt.path(f"model_end_{trainer.config.iterations}")
+    config = Config(yaml, ONE_PLOT_OVERRIDES + [f"checkpoint={ckpt}"])
+    zero_counters()
+    t0 = time.perf_counter()
+    losses = eval_one_task_cli.evaluate(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = config.max_ctx_num
+    episodes = n * config.val_iters
+    want = {}
+    if config.task == "shapenet_1d":
+        want["literature_stem"] = episodes
+    if config.agg_mode == "attention":
+        want["favor_attention"] = episodes
+    launches = read_counters()
+    check_counters(f"eval_one_task {tag} {config.method}", launches, want)
+    table = np.loadtxt(os.path.join(config.save_path, "test_losses.txt"))
+    if (table.shape != (n, 3) or not np.isfinite(table).all()
+            or list(table[:, 0]) != list(range(1, n + 1))
+            or table[:, 2].any() or max(losses) - min(losses)
+            > 1e-6 * (abs(losses[0]) + 1.0)):
+        raise AssertionError(f"{tag} test_losses.txt {table}")
+    err = want_loss = None
+    if cpu_check:
+        cpu_cfg = copy.copy(config)
+        cpu_cfg.device = "cpu"
+        data = RefinementSampler(build_data(cpu_cfg, mode="eval"),
+                                 ctx_num=n, seed=42, source="test")
+        want_loss, _ = ModelEvaluator(build_model(cpu_cfg), cpu_cfg,
+                                      data)._validate_iter("test", n)
+        err = abs(losses[-1] - want_loss)
+        if err > VAL_TOL * (abs(want_loss) + 1.0):
+            raise AssertionError(f"{tag}: card {losses[-1]}, CPU {want_loss}")
+    log(f"eval_one_task {tag} {config.method} over {ckpt}: ctx 1..{n}, "
+        f"{config.val_iters} episodes a point of 1 task x "
+        f"{config.query_num} queries, in {wall} s; test loss (flat) "
+        f"{losses[0]}; at ctx {n}: card {losses[-1]}, CPU {want_loss}, abs "
+        f"err {err}")
+    return launches
+
+
+def check_plot(tag, yaml, trainer):
+    """Q1-Q3: ``eval_and_plot_cli`` with ``yaml`` (``val_iters`` 2) over
+    ``trainer``'s final checkpoint: ``losses_all.txt`` 2 finite rows, the
+    losses returned; K1 (ShapeNet1D) and K2 (attention; wide on
+    LargeCNP) once an episode, no K6; the plots written where matplotlib
+    is installed, none where it is not; Distractor's test split cut to
+    category 04530566; the first episode against the same function on the
+    CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from wmfml_tpu_torch.cli import eval_and_plot_cli
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.eval import plotting
+
+    ckpt = trainer.ckpt.path(f"model_end_{trainer.config.iterations}")
+    config = Config(yaml, ONE_PLOT_OVERRIDES + [f"checkpoint={ckpt}"])
+    seen = {}
+    real = plotting.build_data
+
+    def recorded(cfg, mode="train", test_categ=None):
+        data = real(cfg, mode=mode, test_categ=test_categ)
+        seen.update(mode=mode, test_categ=test_categ,
+                    query_num=data.query_num)
+        if cfg.task == "distractor":
+            seen["test_items"] = data.splits["test"]["n_items"]
+        return data
+
+    plotting.build_data = recorded
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        losses = eval_and_plot_cli.evaluate(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        cpu_cfg = copy.copy(config)
+        cpu_cfg.device, cpu_cfg.val_iters = "cpu", 1
+        cpu_cfg.save_path = config.save_path + "_cpu"
+        os.makedirs(cpu_cfg.save_path)
+        want_loss = plotting.evaluate_and_plot(
+            cpu_cfg, ctx_num=min(15, config.max_ctx_num))[0]
+    finally:
+        plotting.build_data = real
+    want = {}
+    if config.task == "shapenet_1d":
+        want["literature_stem"] = config.val_iters
+    if config.agg_mode == "attention":
+        want["favor_attention"] = config.val_iters
+        if config.task != "shapenet_1d":
+            want["favor_attention.wide"] = config.val_iters
+    check_counters(f"eval_and_plot {tag} {config.method}", launches, want)
+    table = np.atleast_1d(np.loadtxt(os.path.join(config.save_path,
+                                                  "losses_all.txt")))
+    if table.shape != (config.val_iters,) or not np.isfinite(table).all():
+        raise AssertionError(f"{tag} losses_all.txt {table}")
+    plot_dir = os.path.join(config.save_path, "plots")
+    plots = len(os.listdir(plot_dir)) if os.path.isdir(plot_dir) else 0
+    try:
+        import matplotlib  # noqa: F401
+        want_plots = config.val_iters
+    except ImportError:
+        want_plots = 0
+    if plots != want_plots:
+        raise AssertionError(f"{tag}: {plots} plots written, {want_plots} "
+                             f"expected")
+    if config.task == "distractor" and seen.get("test_categ") != ["04530566"]:
+        raise AssertionError(f"{tag}: test split {seen}")
+    err = abs(losses[0] - want_loss)
+    log(f"eval_and_plot {tag} {config.method} over {ckpt}: "
+        f"{config.val_iters} test episodes of {config.tasks_per_batch} tasks "
+        f"x {seen['query_num']} queries at ctx {min(15, config.max_ctx_num)}"
+        f" ({seen}), in {wall} s; losses {losses}; {plots} plots written "
+        f"(matplotlib {'present' if want_plots else 'missing'}); first "
+        f"episode: "
+        f"card {losses[0]}, CPU {want_loss}, abs err {err}")
+    if err > VAL_TOL * (abs(want_loss) + 1.0):
+        raise AssertionError(f"{tag}: card {losses[0]}, CPU {want_loss}")
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -3199,6 +3571,23 @@ def main(argv):
              check_stem_bbb(build_model(Config(
                  MR_MAML_YAML, MR_MAML_OVERRIDES, make_dirs=False)).cuda(),
                  gen_mr, per_task=True)]
+    # the SingleTask and refinement paths' K1 and K2 (phase 19): K1 on R1's
+    # refine batch of 25 images (count 25: one task's 25 context images as
+    # the queries), K2's narrow form at O1's single task (T = 1: 8 (task,
+    # head) items, Nq = Nk = 25, every row real), K2's wide form at Q2's
+    # shape (all 30 views as queries, Nk 15) with Q2's projection
+    gen_st = torch.Generator(device="cuda").manual_seed(10)
+    proj = build_model(Config(os.path.join(PLOT_DIR, "ANP_ShapeNet3D.yaml"),
+                              ONE_PLOT_OVERRIDES, make_dirs=False)
+                       ).attn.projection_matrix.cuda()
+    rows += [check_stem(build_model(Config(ST_YAMLS["ShapeNet1D"],
+                                           TRAIN_OVERRIDES,
+                                           make_dirs=False)).cuda(),
+                        gen_st, path="Refine ShapeNet1D", images=25,
+                        name="literature_stem_R1"),
+             check_favor(anp, gen_st, tasks=1, path="One task ANP", n=25),
+             check_favor_wide(proj, gen_st, 30, 15, "favor_attention_wide_q2",
+                              "Plot ANP ShapeNet3D")]
     stamp("phase 3, the kernels against their twins")
     floor = floor_ms()
     log(f"kernel: floor: a one-element torch.add takes {floor} ms of device "
@@ -3393,6 +3782,34 @@ def main(argv):
     e1_launches = check_mr_evaluation(m1trainer)
 
     stamp("phase 18, MR and FCL")
+    # phase 19: SingleTask and refinement (ROADMAP.md A14): T1-T3, R1, R2,
+    # O1, O2, Q1-Q3
+    t1trainer, t1_launches, t1_nodes = single_task_phase(
+        card, ST_YAMLS["ShapeNet1D"], TRAIN_OVERRIDES,
+        {"literature_stem": literature_stem, **da_kernels})
+    t2trainer, t2_launches, t2_nodes = single_task_phase(
+        card, ST_YAMLS["Distractor"], DISTRACTOR_SHORT_OVERRIDES, da_kernels)
+    t3trainer, t3_launches, t3_nodes = single_task_phase(
+        card, ST_YAMLS["ShapeNet3D"], S3D_SHORT_OVERRIDES, da_kernels)
+    stamp("phase 19: T1-T3")
+    r1_launches = check_refinement("R1", REFINE_YAMLS["ShapeNet1D"],
+                                   t1trainer, "shapenet_1d", range(1, 26))
+    r2_launches = check_refinement("R2", REFINE_YAMLS["Distractor"],
+                                   t2trainer, "distractor", (1, 13, 25))
+    stamp("phase 19: R1, R2")
+    o1_launches = check_one_task(
+        "O1", os.path.join(ONE_TASK_DIR, "ANP_ShapeNet1D.yaml"), trainer)
+    o2_launches = check_one_task(
+        "O2", os.path.join(ONE_TASK_DIR, "CNP_max_Distractor.yaml"),
+        d2trainer)
+    q1_launches = check_plot(
+        "Q1", os.path.join(PLOT_DIR, "ANP_ShapeNet1D.yaml"), trainer)
+    q2_launches = check_plot(
+        "Q2", os.path.join(PLOT_DIR, "ANP_ShapeNet3D.yaml"), s1trainer)
+    q3_launches = check_plot(
+        "Q3", os.path.join(PLOT_DIR, "CNP_max_Distractor.yaml"), d2trainer)
+
+    stamp("phase 19, SingleTask and refinement")
     graph_loop_turns(
         {"ANPShapeNet1D": trainer, "ANPShapeNet1D bf16": btrainer,
          "MAMLShapeNet1D": mtrainer, "MAMLShapeNet1D bf16": bmtrainer,
@@ -3409,7 +3826,10 @@ def main(argv):
          "MAMLMRShapeNet1D (M2)": m2trainer,
          "ANPMRShapeNet3D (M3)": m3trainer,
          "FCLCNPShapeNet1D (F1)": f1trainer, "FCLANP (F2)": f2trainer,
-         "FCLCNPDistractor (F3)": f3trainer},
+         "FCLCNPDistractor (F3)": f3trainer,
+         "SingleTaskShapeNet1D (T1)": t1trainer,
+         "SingleTaskDistractor (T2)": t2trainer,
+         "SingleTaskShapeNet3D (T3)": t3trainer},
         calls={"ANPShapeNet1D": 2, "ANPShapeNet1D bf16": 1,
                "MAMLShapeNet1D": 1, "MAMLShapeNet1D bf16": 1,
                "ANPVanillaPascal1D": 2, "VanillaMAML Pascal1D": 1,
@@ -3421,7 +3841,10 @@ def main(argv):
                "ANP ShapeNet3D bf16 (S6)": 1, "ANPDistractor bf16 (D5)": 1,
                "ANPMRShapeNet1D (M1)": 2, "MAMLMRShapeNet1D (M2)": 1,
                "ANPMRShapeNet3D (M3)": 1, "FCLCNPShapeNet1D (F1)": 2,
-               "FCLANP (F2)": 1, "FCLCNPDistractor (F3)": 1},
+               "FCLANP (F2)": 1, "FCLCNPDistractor (F3)": 1,
+               "SingleTaskShapeNet1D (T1)": 1,
+               "SingleTaskDistractor (T2)": 1,
+               "SingleTaskShapeNet3D (T3)": 1},
         nodes={"ANPShapeNet1D": anp_nodes, "ANPShapeNet1D bf16": anp_bf16_nodes,
                "MAMLShapeNet1D": maml_nodes,
                "MAMLShapeNet1D bf16": maml_bf16_nodes,
@@ -3439,12 +3862,16 @@ def main(argv):
                "MAMLMRShapeNet1D (M2)": m2_nodes,
                "ANPMRShapeNet3D (M3)": m3_nodes,
                "FCLCNPShapeNet1D (F1)": f1_nodes, "FCLANP (F2)": f2_nodes,
-               "FCLCNPDistractor (F3)": f3_nodes},
+               "FCLCNPDistractor (F3)": f3_nodes,
+               "SingleTaskShapeNet1D (T1)": t1_nodes,
+               "SingleTaskDistractor (T2)": t2_nodes,
+               "SingleTaskShapeNet3D (T3)": t3_nodes},
         profile="--profile" in argv)
     stamp("graph against loop, in turns")
-    # phase 18's graphs and their pools (about 14 GB) go before the
-    # determinism check builds its fresh trainers
+    # phase 18's and 19's graphs and their pools (about 20 GB) go before
+    # the determinism check builds its fresh trainers
     del m1trainer, m2trainer, m3trainer, f1trainer, f2trainer, f3trainer
+    del t1trainer, t2trainer, t3trainer
     gc.collect()
     torch.cuda.empty_cache()
     # cuDNN's determinism: its cost a step on four paths (ROADMAP.md C2)
@@ -3474,7 +3901,19 @@ def main(argv):
                 "MR ANP": m1_launches, "MR MAML": m2_launches,
                 "MR ShapeNet3D": m3_launches, "FCL CNP": f1_launches,
                 "FCL ANP": f2_launches, "FCL Distractor": f3_launches,
-                "MR eval": e1_launches}
+                "MR eval": e1_launches,
+                "SingleTask ShapeNet1D": t1_launches,
+                "SingleTask Distractor": t2_launches,
+                "SingleTask ShapeNet3D": t3_launches,
+                "Refine ShapeNet1D": r1_launches,
+                "Refine Distractor": r2_launches,
+                "One task ANP": o1_launches,
+                "One task CNP Distractor": o2_launches,
+                "Plot ANP ShapeNet1D": q1_launches,
+                "Plot ANP ShapeNet3D": q2_launches,
+                "Plot CNP Distractor": q3_launches}
+    log("launches on the new paths (phase 19): " + json.dumps(
+        {k: launches[k] for k in list(launches)[-10:]}))
     for r in rows:
         if r.get("off_path"):
             r["launches"] = 0

@@ -496,22 +496,34 @@ def test_validation_batches_reach_the_trunks_in_bf16():
 
 def test_shipped_yamls_build_or_name_their_roadmap_item():
     """``Config`` + ``build_model`` on ``device=cpu`` over every shipped YAML:
-    57 of the 63 build, the ShapeNet3D perf YAML (bfloat16) and the 14 MR
-    and FCL YAMLs (A13) among them; the other 6 raise naming their ROADMAP
-    item: A14 (SingleTask and refinement) 5, A16 (MMAML) 1."""
+    62 of the 63 build, the ShapeNet3D perf YAML (bfloat16), the 14 MR
+    and FCL YAMLs (A13) and the 5 SingleTask and refinement YAMLs (A14)
+    among them; the other one raises naming its ROADMAP item, A16 (MMAML).
+    The A14 models run one forward at their YAMLs' image sizes."""
     paths = sorted(glob.glob(os.path.join(REPO, "cfg", "**", "*.yaml"),
                              recursive=True))
-    built, raised = [], {}
+    built, raised, single_task = [], {}, 0
     for path in paths:
         try:
-            build_model(Config(path, ["device=cpu"], make_dirs=False))
+            cfg = Config(path, ["device=cpu"], make_dirs=False)
+            model = build_model(cfg)
             built.append(os.path.relpath(path, REPO))
         except NotImplementedError as e:
             item = re.search(r"ROADMAP\.md (A\d+)", str(e))
             assert item, (path, str(e))
             raised[item.group(1)] = raised.get(item.group(1), 0) + 1
+            continue
+        if cfg.method.startswith("SingleTask"):
+            single_task += 1
+            h, w, c = cfg.img_size
+            qry = torch.rand(1, 2, h, w, c - (cfg.task == "shapenet_3d"))
+            with torch.no_grad():
+                mu = model(None, None, qry).mu
+            assert tuple(mu.shape) == (1, 2, cfg.output_dim), path
+            assert bool(torch.isfinite(mu).all()), path
     assert len(paths) == 63
-    assert len(built) == 57, built
-    assert raised == {"A14": 5, "A16": 1}
+    assert len(built) == 62, built
+    assert raised == {"A16": 1}
+    assert single_task == 5
     assert os.path.join("cfg", "train", "perf",
                         "CondNeuralProcess_DA+TA_ShapeNet3D_tpu.yaml") in built

@@ -201,9 +201,10 @@ def test_unported_options_raise(override, error):
     ("MMAMLShapeNet1D", "A16"), ("ANP", "A12"), ("SingleTaskShapeNet1D", "A14"),
 ])
 def test_unported_methods_name_their_roadmap_item(method, item):
-    """(The cases of ANP, whose slice, A12c, is done, and of the A13
-    methods, done, now build ShapeNet3D's ANP and the MR methods and run
-    them; they are kept so that the cases' records run on.)"""
+    """(The cases of ANP, whose slice, A12c, is done, of the A13 methods
+    and of SingleTaskShapeNet1D (A14), done, now build ShapeNet3D's ANP,
+    the MR methods and the SingleTask baseline and run them; they are kept
+    so that the cases' records run on.)"""
     if method == "ANP":
         yaml = os.path.join(REPO, "cfg", "train", "ANP_ShapeNet3D.yaml")
         model = build_model(Config(yaml, ["device=cpu"], make_dirs=False))
@@ -212,6 +213,9 @@ def test_unported_methods_name_their_roadmap_item(method, item):
         return
     if item == "A13":
         _builds_and_runs_mr(method)
+        return
+    if item == "A14":
+        _builds_and_runs_single_task(method)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         build_model(_config("device=cpu", f"method={method}"))
@@ -245,6 +249,27 @@ def _builds_and_runs_mr(method):
         outs.append(mu)
         assert bool(torch.isfinite(mu).all()) and float(kl) > 0
     assert torch.equal(*outs) and gen.draws
+
+
+def _builds_and_runs_single_task(method):
+    """A14's SingleTask baseline from its shipped YAML: one forward on the
+    CPU at the YAML's width (a 32x32 image size, T = 2), finite, the
+    prediction from the query images alone (another context changes
+    nothing), kl 0."""
+    cfg = Config(os.path.join(REPO, "cfg", "train",
+                              "SingleTask_DA+TA_ShapeNet1D.yaml"),
+                 ["device=cpu"], make_dirs=False)
+    assert cfg.method == method
+    cfg.img_size = [32, 32, 1]
+    model = build_model(cfg)
+    qry = torch.rand(2, 3, 32, 32, 1)
+    with torch.no_grad():
+        outs = [model(torch.rand(2, 4, 32, 32, 1), torch.rand(2, 4, 3), qry,
+                      ctx_mask=torch.ones(2, 4, dtype=torch.bool))
+                for _ in range(2)]
+    assert tuple(outs[0].mu.shape) == (2, 3, 2) and outs[0].kl == 0.0
+    assert bool(torch.isfinite(outs[0].mu).all())
+    assert torch.equal(outs[0].mu, outs[1].mu)
 
 
 def test_unported_maml_options_raise(tmp_path, monkeypatch):
@@ -289,3 +314,28 @@ def test_unported_task_raises(tmp_path):
         build_episode_processor("shapenet_3d_segmentation", [], train=False)
     assert build_episode_processor("shapenet_3d", [], train=False).augment \
         is None
+
+
+def test_package_data_ships_every_file_the_kernel_build_reads():
+    """Every source ``kernels/build.py`` compiles (``csrc/<name>.cu``) and
+    every header it hashes and the sources include (``csrc/*.cuh``)
+    matches a ``[tool.setuptools.package-data]`` glob of
+    ``wmfml_tpu_torch``, so an installed (wheel, non-editable) package can
+    build its kernels."""
+    import fnmatch
+    import tomllib
+
+    from wmfml_tpu_torch.kernels import build
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "wmfml_tpu_torch"]
+    pkg = os.path.dirname(build.CSRC_DIR)
+    read = [os.path.join(build.CSRC_DIR, f"{n}.cu") for n in build.SOURCES]
+    read += [os.path.join(build.CSRC_DIR, f) for f in os.listdir(build.CSRC_DIR)
+             if f.endswith(".cuh")]
+    assert len(read) > len(build.SOURCES)
+    for path in read:
+        assert os.path.exists(path), path
+        rel = os.path.relpath(path, pkg)
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)

@@ -10,9 +10,11 @@ literature-encoder methods (CNPShapeNet1D, ANPShapeNet1D,
 CNPVanillaPascal1D, ANPVanillaPascal1D) and second-order MAML
 (MAMLShapeNet1D, VanillaMAML), in float32 or bf16; Distractor's and
 ShapeNet3D's LargeCNP methods (CNPDistractor, ANPDistractor,
-CondNeuralProcess, ANP) in float32; image augmentation in random or fixed
-order and task augmentation for all four tasks, and the statistical
-evaluation CLI. ROADMAP.md lists what is still to port.
+CondNeuralProcess, ANP) in float32 or bf16; the MR and FCL methods; the
+SingleTask baselines; image augmentation in random or fixed order and task
+augmentation for all four tasks; the statistical evaluation, single-task
+refinement, single-task evaluation and evaluate-and-plot CLIs. ROADMAP.md
+lists what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -12,10 +12,12 @@ CUDA graph replays the generator's state holds the offsets the replays
 drew (each replay moves it), and a capturable Adam's state (its step
 counts on the card) saves as any other tensor.
 
-A restored optimizer keeps its own ``capturable`` flag, whichever device
-wrote the checkpoint: capturable on the card, where the fused step
-captures it, and not on the CPU (``train/state.py``); its step counts go
-where that flag puts them.
+A restored optimizer takes the checkpoint's moments and step counts and
+keeps its own hyperparameters, as an optax state carries no learning rate:
+the current config's ``lr`` (refinement's YAML, say) and its own
+``capturable`` flag, whichever device wrote the checkpoint (capturable on
+the card, where the fused step captures it, and not on the CPU,
+``train/state.py``); its step counts go where that flag puts them.
 """
 
 from __future__ import annotations
@@ -58,8 +60,7 @@ class CheckpointManager:
             saved = payload["optimizer"]
             for group, live in zip(saved["param_groups"],
                                    optimizer.param_groups):
-                if "capturable" in live:
-                    group["capturable"] = live["capturable"]
+                group.update({k: v for k, v in live.items() if k != "params"})
             optimizer.load_state_dict(saved)
         if generator is not None and payload.get("generator") is not None:
             generator.set_state(payload["generator"].cpu())

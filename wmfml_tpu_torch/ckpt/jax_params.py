@@ -2,7 +2,8 @@
 ``wmfml_tpu/ckpt/torch_import.py:import_small_cnp`` and ``import_maml``.
 
 ``load_jax_variables(model, variables)`` takes a SmallCNP's or a
-LargeCNP's JAX variables ``{"params": ..., ["favor": ...]}`` or a
+LargeCNP's JAX variables ``{"params": ..., ["favor": ...]}``, a
+SingleTaskSmall's or SingleTaskLarge's ``{"params": ...}`` or a
 MAMLRegressor's ``{"params": ...}``
 (``{"params": {"net": ..., "step_size": ...}}`` with learnable step sizes)
 as nested dicts of numpy arrays and fills the port's model in place. Layout
@@ -12,6 +13,8 @@ rules:
   * dense kernels: flax [in, out] -> torch [out, in];
   * the fc after the flatten reads an HWC-flattened map in JAX and a
     CHW-flattened one here; (C, h, w) comes from the model's image size;
+  * SingleTaskSmall: SmallCNP's rules without the label embedding;
+    SingleTaskLarge: LargeCNP's without label embedding or aggregation;
   * LargeCNP: every consumer of the ResNet trunk's flattened features
     (``task_encoder.0``, the attention block's ``W_k`` and ``W_q``,
     ``decoder.fc_mu.0``) reads them HWC in JAX and CHW here, its trailing
@@ -48,6 +51,7 @@ import torch
 
 from wmfml_tpu_torch.models.maml import MAMLRegressor, step_size_key
 from wmfml_tpu_torch.models.neural_process import LargeCNP
+from wmfml_tpu_torch.models.single_task import SingleTaskLarge
 from wmfml_tpu_torch.nn.encoders import trunk_chw
 
 
@@ -80,7 +84,7 @@ def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
     """The port ``state_dict`` that ``variables`` describe for ``model``."""
     if isinstance(model, MAMLRegressor):
         return maml_state_dict(model, variables)
-    if isinstance(model, LargeCNP):
+    if isinstance(model, (LargeCNP, SingleTaskLarge)):
         return large_cnp_state_dict(model, variables)
     p = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
@@ -89,21 +93,24 @@ def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = kernel(node["kernel"])
         sd[f"{prefix}.bias"] = _t(node["bias"])
 
-    encoder = bbb_encoder_state_dict if model.bbb else encoder_state_dict
+    bbb = getattr(model, "bbb", False)
+    encoder = bbb_encoder_state_dict if bbb else encoder_state_dict
     for key, value in encoder(p["encoder_w0"],
                               model.encoder_w0.flatten_chw).items():
         sd[f"encoder_w0.{key}"] = value
-    dense("transform_y", p["transform_y"]["Dense_0"])
+    if "transform_y" in p:                        # not in SingleTaskSmall
+        dense("transform_y", p["transform_y"]["Dense_0"])
     mlp0 = p["encoder_r"]["MLP_0"]
     for i in range(len(mlp0)):
         dense(f"encoder_r.layers.{2 * i}", mlp0[f"Dense_{i}"]["Dense_0"])
     dense("r_to_z", p["r_to_z"]["Dense_0"])
     for i in range(len(p["decoder0"])):
         dense(f"decoder0.{2 * i}", p["decoder0"][f"Dense_{i}"]["Dense_0"])
-    if model.agg_mode == "baco":
+    agg_mode = getattr(model, "agg_mode", None)
+    if agg_mode == "baco":
         dense("rs_to_mu", p["rs_to_mu"]["Dense_0"])
         dense("rs_to_var", p["rs_to_var"]["Dense_0"])
-    if model.agg_mode == "attention":
+    if agg_mode == "attention":
         sd.update(attention_state_dict(
             p["cross_attn"], variables["favor"]["cross_attn"]["favor"]["projection"],
             n_heads=len(model._W_k)))
@@ -156,8 +163,9 @@ def trunk_state_dict(params) -> Dict[str, torch.Tensor]:
 
 
 def large_cnp_state_dict(model, variables) -> Dict[str, torch.Tensor]:
-    """LargeCNP variables (``wmfml_tpu/models/neural_process.py``) -> the
-    port model's ``state_dict``."""
+    """LargeCNP or SingleTaskLarge variables
+    (``wmfml_tpu/models/neural_process.py``, ``single_task.py``) -> the port
+    model's ``state_dict``."""
     p = variables["params"]
     trunk = model.img_encoder
     chw = trunk_chw(trunk.img_agg, model.img_hw)
@@ -167,10 +175,12 @@ def large_cnp_state_dict(model, variables) -> Dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = _dense_after_flatten(node["kernel"], chw)
         sd[f"{prefix}.bias"] = _t(node["bias"])
 
-    encoder = bbb_trunk_state_dict if model.bbb else trunk_state_dict
+    agg_mode = getattr(model, "agg_mode", None)
+    encoder = (bbb_trunk_state_dict if getattr(model, "bbb", False)
+               else trunk_state_dict)
     sd.update(_prefixed("img_encoder", encoder(p["img_encoder"])))
     sd.update(_prefixed("decoder", trunk_state_dict(p["decoder"]["trunk"])))
-    if model.transform_y is not None:
+    if getattr(model, "transform_y", None) is not None:
         dense("transform_y", p["transform_y"]["Dense_0"])
     for i in range(3):
         dense(f"task_encoder.{2 * i}",
@@ -179,10 +189,10 @@ def large_cnp_state_dict(model, variables) -> Dict[str, torch.Tensor]:
               p["decoder"]["fc_mu"][f"Dense_{i}"]["Dense_0"],
               chw if i == 0 else None)
     dense("mu", p["mu"]["Dense_0"])
-    if model.agg_mode == "baco":
+    if agg_mode == "baco":
         dense("latent_mu", p["latent_mu"]["Dense_0"])
         dense("latent_var", p["latent_var"]["Dense_0"])
-    if model.agg_mode == "attention":
+    if agg_mode == "attention":
         sd.update(attention_state_dict(
             p["cross_attn"],
             variables["favor"]["cross_attn"]["favor"]["projection"],

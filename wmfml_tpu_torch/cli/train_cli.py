@@ -8,8 +8,8 @@ Usage::
         'aug_list=[]' [key=value ...]
 
 MAML methods train with ``MAMLTrainer`` (second-order inner loop), the
-others with ``ModelTrainer``; methods not ported yet (MMAML, MAMLMR, ...)
-raise in the registry, before any data is touched.
+others with ``ModelTrainer``; a method not ported yet (MMAML) raises in
+the registry, before any data is touched.
 
 Runs on ``cuda`` (the YAMLs' ``device: tpu`` maps there); ``device=cpu``
 runs on the CPU. TF32 is off and cuDNN's determinism set as

@@ -38,8 +38,9 @@ Port-specific rules:
     distribution changes.
   * Evaluation reads the same keys as training (``checkpoint``,
     ``max_ctx_num``, ``val_iters``, ``tasks_per_batch``); ``mode`` (``eval``
-    in the shipped evaluation YAMLs) names the results directory, as in the
-    JAX package.
+    in the shipped evaluation YAMLs; ``refinement``, ``eval_one_task`` and
+    ``eval_and_plot`` in the refinement, single-task and plot YAMLs) names
+    the results directory, ``results/{mode}/...``, as in the JAX package.
 """
 
 from __future__ import annotations

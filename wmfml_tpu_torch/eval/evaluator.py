@@ -1,4 +1,5 @@
-"""Statistical evaluator (``wmfml_tpu/eval/evaluator.py:ModelEvaluator``).
+"""Statistical evaluator and single-task refinement
+(``wmfml_tpu/eval/evaluator.py:ModelEvaluator``).
 
 ``evaluate()`` sweeps the loss against the context count: for ctx in
 1..``max_ctx_num`` it scores ``val_iters`` validation episodes (and test
@@ -26,17 +27,51 @@ The model is restored from ``config.checkpoint`` (a port checkpoint or a
 bare reference ``state_dict``) when it names one. Episodes go to the
 card one by one; the JAX package's one-dispatch device sweep
 (``data/device_eval.py``) is not ported.
+
+``evaluate_one_task()`` is the sweep over the test split alone, written to
+``test_losses.txt`` (over a ``data/refinement.py:RefinementSampler``: one
+frozen task, the same batch at every point, so a flat curve, as in JAX).
+
+``refine()`` (``mode: refinement``) fine-tunes the model on
+``refine_train`` batches of a ``RefinementSampler`` (``:178-245``; JAX's
+ShapeNet3D ``gen_bg`` there calls the sampler's no-op, so none is made
+here): iterations ``0..iterations``, one eager refine step each
+(``train/steps.py:build_refine_step``: one host batch, DA on both image
+sets, the loss against the context labels), and after the step, whenever ``it % val_freq == 0``, a validation and a test
+sweep of ``max_ctx_num`` context rows; a new best test loss saves
+``models/best_test_model.pt`` and appends to ``best_test_error.txt``, and
+``models/model_end_{iterations}.pt`` is saved at the end. In that mode
+the evaluator builds the optimizer from the config (``lr`` of the
+refinement YAML) before it restores the checkpoint, once; a port
+checkpoint restores Adam's moments and step counts with the weights, as a
+JAX checkpoint restores its ``TrainState``, and a bare ``state_dict``
+starts Adam fresh. The step's draws (DA, TA, BBB) come from a generator
+seeded with ``seed`` when the evaluator is built, so every evaluator draws
+the same stream, as every JAX evaluator keys iteration ``it`` with
+``fold_in(PRNGKey(seed), it)``. An evaluator's model is refined in place:
+a new evaluator needs a model built or restored anew
+(``cli/refinement_cli.py`` builds one per context count).
+
+Unlike the JAX evaluator, which builds its optimizer even to evaluate (so
+``cfg/evaluation/eval_and_plot/CNP_max_Distractor.yaml``, ``optimizer:
+''``, raises there), this one builds it only to refine.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from wmfml_tpu_torch.ckpt.checkpoint import CheckpointManager
 from wmfml_tpu_torch.cli.common import set_numerics
+from wmfml_tpu_torch.obs.guards import check_finite
+from wmfml_tpu_torch.obs.metrics import MetricsWriter
 from wmfml_tpu_torch.train.maml import build_maml_eval_step
-from wmfml_tpu_torch.train.steps import build_eval_step, require_device
+from wmfml_tpu_torch.train.state import build_optimizer
+from wmfml_tpu_torch.train.steps import (build_eval_step, build_refine_step,
+                                         require_device)
 from wmfml_tpu_torch.train.trainer import episode_to_device
 
 
@@ -49,10 +84,20 @@ class ModelEvaluator:
         set_numerics()
         self.model = model.to(self.device)
         self.generator = torch.Generator(device=self.device)
+        self.refine_generator = torch.Generator(device=self.device)
+        self.refine_generator.manual_seed(int(config.seed))
         self.ckpt = CheckpointManager(config.save_path)
+        self.writer = MetricsWriter(config.save_path)
+        self.best_loss = {"validation": 10000.0, "test": 10000.0}
+        self.optimizer = self.refine_step = None
+        if config.mode == "refinement":
+            self.optimizer = build_optimizer(config, self.model.parameters())
+            self.refine_step = build_refine_step(self.model, self.optimizer,
+                                                 config)
         self.step = 0
-        if config.checkpoint:
+        if config.checkpoint:  # with Adam's moments and counts, where it has them
             self.step = self.ckpt.restore(config.checkpoint, self.model,
+                                          self.optimizer,
                                           map_location=self.device)
             self.logger.info(f"loaded checkpoint {config.checkpoint}")
         if "MAML" in config.method:
@@ -101,6 +146,55 @@ class ModelEvaluator:
         self.logger.info("================= Evaluation finished =================")
         return val_losses, test_losses
 
+    def evaluate_one_task(self):
+        """The test split's sweep alone -> ``test_losses.txt``."""
+        cfg = self.config
+        test_losses, test_std = self._sweep_source("test")
+        index = list(range(1, cfg.max_ctx_num + 1))
+        np.savetxt(f"{cfg.save_path}/test_losses.txt",
+                   np.column_stack((index, test_losses, test_std)),
+                   fmt="%1.4f")
+        self.ckpt.save("model", self.step, self.model)
+        self._plot_loss_vs_ctx(index, None, None, test_losses, test_std)
+        return test_losses
+
+    def refine(self):
+        """(best test loss, its iteration) of single-task refinement."""
+        cfg = self.config
+        if self.refine_step is None:
+            raise ValueError(f"refine() needs mode: refinement, not "
+                             f"{cfg.mode!r}")
+        best_step = -1
+        for it in range(cfg.iterations + 1):
+            batch = episode_to_device(self.data.get_batch(
+                "refine_train", cfg.tasks_per_batch, cfg.max_ctx_num),
+                self.device)
+            loss = self.refine_step(batch, self.refine_generator)
+            self.step += 1
+            if it % cfg.val_freq == 0:
+                self.writer.add_scalar("Loss/train",
+                                       check_finite(loss, it, self.logger), it)
+                self._validate_iter("validation", cfg.max_ctx_num)
+                if cfg.task != "pascal_1d":
+                    test_loss, std = self._validate_iter("test",
+                                                         cfg.max_ctx_num)
+                    if test_loss < self.best_loss["test"]:
+                        self.best_loss["test"] = test_loss
+                        best_step = it
+                        self._save_refined("best_test_model")
+                        with open(os.path.join(cfg.save_path,
+                                               "best_test_error.txt"),
+                                  "a") as f:
+                            f.write(f"Best Step: {it} \n")
+                            f.write(f"Best test Loss: \n{test_loss}\n")
+                            f.write(f"Best test Loss std: \n{std}\n")
+        self._save_refined(f"model_end_{cfg.iterations}")
+        return self.best_loss["test"], best_step
+
+    def _save_refined(self, name: str):
+        self.ckpt.save(name, self.step, self.model, self.optimizer,
+                       self.refine_generator)
+
     def _plot_loss_vs_ctx(self, index, val_losses, val_std, test_losses,
                           test_std):
         try:
@@ -112,9 +206,10 @@ class ModelEvaluator:
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 
-        v, s = np.asarray(val_losses), np.asarray(val_std)
-        plt.plot(index, v, label="val")
-        plt.fill_between(index, v - s, v + s, alpha=0.1)
+        if val_losses is not None:
+            v, s = np.asarray(val_losses), np.asarray(val_std)
+            plt.plot(index, v, label="val")
+            plt.fill_between(index, v - s, v + s, alpha=0.1)
         if test_losses:
             t, s = np.asarray(test_losses), np.asarray(test_std)
             plt.plot(index, t, label="test")

@@ -3,8 +3,9 @@
 The four literature-encoder methods of ``wmfml_tpu/models/registry.py:60-81``,
 ShapeNet3D's CondNeuralProcess / ANP and CNPDistractor / ANPDistractor
 (``:86-111``), the MR and FCL methods (``:116-177``), MAMLShapeNet1D /
-VanillaMAML and MAMLMR / MAMLMRShapeNet1D (``:182-212``) are ported;
-every other method raises and names the ROADMAP item that ports it.
+VanillaMAML and MAMLMR / MAMLMRShapeNet1D (``:182-212``) and the SingleTask
+baselines (``:238-259``) are ported; MMAML raises and names the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -16,14 +17,12 @@ import torch
 from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.models.maml import MAMLRegressor
 from wmfml_tpu_torch.models.neural_process import LargeCNP, SmallCNP
+from wmfml_tpu_torch.models.single_task import SingleTaskLarge, SingleTaskSmall
 from wmfml_tpu_torch.ops.cast import set_compute_dtype
 
 _REGISTRY: Dict[str, Callable] = {}
 
-NOT_PORTED = {
-    "MMAMLShapeNet1D": "A16", "SingleTaskShapeNet1D": "A14",
-    "SingleTaskShapeNet3D": "A14", "SingleTaskDistractor": "A14",
-}
+NOT_PORTED = {"MMAMLShapeNet1D": "A16"}
 
 
 def register(name: str):
@@ -91,17 +90,20 @@ def _(config, generator):
     return _small(config, "attention", False, generator)
 
 
-def _large(config, agg_mode, generator, label_embed=None, **options):
-    """LargeCNP on the task's images; ShapeNet3D's alpha is stripped before
-    the model (``aug/pipeline.py``), so its trunk reads 3 channels of 4.
-    ``options``: ``bbb_trunk`` (MR), ``fcl``."""
+def _trunk_input(config):
+    """The trunk's input size: ShapeNet3D's alpha is stripped before the
+    model (``aug/pipeline.py``), so its trunk reads 3 channels of 4."""
     h, w, c = config.img_size
-    if config.task == "shapenet_3d":
-        c -= 1
+    return (h, w, c - 1) if config.task == "shapenet_3d" else (h, w, c)
+
+
+def _large(config, agg_mode, generator, label_embed=None, **options):
+    """LargeCNP on the task's images. ``options``: ``bbb_trunk`` (MR),
+    ``fcl``."""
     return LargeCNP(
         img_agg=config.img_agg, agg_mode=agg_mode, y_dim=config.output_dim,
         label_dim=config.input_dim, label_embed_dim=label_embed,
-        img_size=(h, w, c), generator=generator, **options)
+        img_size=_trunk_input(config), generator=generator, **options)
 
 
 @register("CondNeuralProcess")
@@ -196,3 +198,22 @@ def _(config, generator):
 @register("MAMLMRShapeNet1D")
 def _(config, generator):
     return _maml(config, True, generator, bbb=True)
+
+
+# -- the SingleTask baselines (context ignored) ---------------------------------
+
+@register("SingleTaskShapeNet1D")
+def _(config, generator):
+    return SingleTaskSmall(
+        dim_w=config.dim_w, n_hidden_units_r=tuple(config.n_hidden_units_r),
+        dim_r=config.dim_r, dim_z=config.dim_z, y_dim=config.output_dim,
+        img_size=config.img_size, generator=generator)
+
+
+def _single_large(config, generator):
+    return SingleTaskLarge(img_agg=config.img_agg, y_dim=config.output_dim,
+                           img_size=_trunk_input(config), generator=generator)
+
+
+register("SingleTaskShapeNet3D")(_single_large)
+register("SingleTaskDistractor")(_single_large)

@@ -75,30 +75,61 @@ def contra_term(config, out):
     return 0.0
 
 
-def build_train_step(model, optimizer, config) -> Callable:
+def _build_update(model, optimizer, config, objective) -> Callable:
+    """A step on one raw episode: process it on the device (DA on both
+    image sets, TA where ``aug_list`` says), run the model in train mode,
+    and take one optimizer step on the first of ``objective(out,
+    pbatch)``'s (total, reported) losses; returns the reported one, a
+    device tensor."""
     process = build_episode_processor(
         config.task, config.aug_list, train=True, dtype=torch_dtype(config),
         aug_random_order=config.aug_random_order)
+
+    def step(batch, generator: Optional[torch.Generator] = None,
+             ta_idx: Optional[torch.Tensor] = None,
+             da_params=None) -> torch.Tensor:
+        model.train()
+        pbatch = process(batch, generator, ta_idx, da_params)
+        total, reported = objective(_apply(model, pbatch, generator), pbatch)
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        optimizer.step()
+        return reported.detach()
+
+    return step
+
+
+def build_train_step(model, optimizer, config) -> Callable:
     loss_func = LossFunc(config.loss_type, config.task)
     beta = float(config.beta or 0.0)
     rate = float(config.contrastive_rate or 0.0)
 
-    def train_step(batch, generator: Optional[torch.Generator] = None,
-                   ta_idx: Optional[torch.Tensor] = None,
-                   da_params=None) -> torch.Tensor:
-        model.train()
-        pbatch = process(batch, generator, ta_idx, da_params)
-        out = _apply(model, pbatch, generator)
+    def objective(out, pbatch):
         loss = loss_func.calc_loss(out.mu.float(), out.var, pbatch["qry_y"])
         loss = loss + beta * out.kl
         if config.contrastive:
             loss = loss + rate * contra_term(config, out)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        return loss, loss
 
-    return train_step
+    return _build_update(model, optimizer, config, objective)
+
+
+def build_refine_step(model, optimizer, config) -> Callable:
+    """Single-task refinement's step (``wmfml_tpu/eval/evaluator.py:
+    202-215``): the train step on ``loss + beta * kl``, the loss taken on
+    ``mu.float()`` against ``qry_y`` masked by ``ctx_mask`` (the context
+    set's rows; no contrastive term), so K6 launches twice. Returns the
+    loss without the kl. It runs eagerly, one host batch a call
+    (``eval/evaluator.py:ModelEvaluator.refine``)."""
+    loss_func = LossFunc(config.loss_type, config.task)
+    beta = float(config.beta or 0.0)
+
+    def objective(out, pbatch):
+        loss = loss_func.calc_loss(out.mu.float(), out.var, pbatch["qry_y"],
+                                   mask=pbatch["ctx_mask"])
+        return loss + beta * out.kl, loss
+
+    return _build_update(model, optimizer, config, objective)
 
 
 # the kernel wrappers whose launch counters a capture reads
