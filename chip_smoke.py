@@ -1728,8 +1728,8 @@ def check_favor_wide(proj, gen, nq, nk, name, path, dtype=None,
     # dash in split TF32 on the tensor cores (bfloat16 rows are exact in
     # TF32: two products, not three); A, A v and the row sums on the CUDA
     # cores; the bytes: each input read once, the output written once (the
-    # kernel's round trip of dash through global memory is its own choice,
-    # not the function's)
+    # kernel's per-tile partials in global memory are its own choice, not
+    # the function's)
     split_flops = 2 * items * r * m * d
     flops = 2 * items * (nq * nk * m + nq * nk * e + nq * nk)
     nbytes = (q.element_size() * (q.numel() + k.numel() + v.numel())
@@ -1769,8 +1769,11 @@ def favor_wide_phases(q, k, v, proj, mask, runs=10):
         s = st.cpu().double()
         row = {name: float(s[:, j].max() - s[:, 0].min()) / 1e3
                for j, name in enumerate(favor.WIDE_PHASES) if j}
-        row["phase1_mean"] = float((s[:, 1] - s[:, 0]).mean()) / 1e3
-        row["phase2_mean"] = float((s[:, 3] - s[:, 2]).mean()) / 1e3
+        at = {name: j for j, name in enumerate(favor.WIDE_PHASES)}
+        row["phase1_mean"] = float((s[:, at["phase1_done"]]
+                                    - s[:, at["start"]]).mean()) / 1e3
+        row["phase2_mean"] = float((s[:, at["end"]]
+                                    - s[:, at["barrier_passed"]]).mean()) / 1e3
         per_run.append(row)
     return {k: statistics.median(r[k] for r in per_run) for k in per_run[0]}
 

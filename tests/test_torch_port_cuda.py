@@ -155,13 +155,18 @@ def test_favor_kernel_matches_plain(dev, t, h, nq, nk, d, m):
     (2, 3, 5, 4, 68, 300), (3, 2, 40, 24, 128, 700),
     (20, 8, 15, 15, 256, 1419), (20, 8, 30, 25, 256, 1419),
     (4, 8, 50, 50, 256, 1419), (2, 3, 70, 10, 256, 1419),
-    (2, 3, 9, 75, 256, 1419), (2, 2, 130, 3, 68, 300)])
+    (2, 3, 9, 75, 256, 1419), (2, 2, 130, 3, 68, 300),
+    (2, 3, 40, 24, 256, 1345), (2, 3, 33, 32, 256, 1419),
+    (3, 2, 5, 3, 256, 65)])
 def test_favor_wide_kernel_matches_plain(dev, t, h, nq, nk, d, m):
     """S1 (ANP ShapeNet3D training: Nq 15, Nk 15) and S4 (its evaluation:
-    Nq 30, Nk 25, R = 55); then more than 64 rows an item, where phase 2
-    takes chunks of 32 q and 32 k rows: R = 100 (two row groups in phase
-    1), many q rows against few k rows and the reverse, and R = 133 (three
-    row groups)."""
+    Nq 30, Nk 25, R = 55); then more than 64 rows an item, where the
+    kernel takes pairs of q and k row chunks (kc = min(Nk, max(64 - Nq,
+    32)) k rows, 64 - kc q rows): R = 100 (32 + 32), many q rows against
+    few k rows and the reverse, and R = 133 (three q chunks); then the
+    design's edges: R = 64 (one product of n64) with m = 21 * 64 + 1 (the
+    last 64-feature tile one feature deep), R = 65 (one row past: two q
+    chunks), and m = 65 with R = 8 (n8)."""
     q, k, v, proj, mask = _favor_inputs(dev, t, h, nq, nk, d, m, seed=nq)
     mask[1] = torch.arange(nk, device=dev) < 1
     assert favor.is_wide(d, m)
@@ -199,7 +204,7 @@ def test_favor_wide_kernel_phase_clock_orders_its_phases(dev):
     points in order, the output as without the clock."""
     q, k, v, proj, mask = _favor_inputs(dev, 4, 8, 18, 15, 256, 1419)
     rows = favor.wide_grid(32, 1419)
-    assert rows == min(32 * 12, torch.cuda.get_device_properties(
+    assert rows == min(32 * 23, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     st = torch.full((rows, len(favor.WIDE_PHASES)), -1, dtype=torch.int64,
                     device=dev)
@@ -210,6 +215,24 @@ def test_favor_wide_kernel_phase_clock_orders_its_phases(dev):
         q, k, v, proj, mask).nan_to_num())
     with pytest.raises(ValueError, match="stamps"):
         favor.favor_launch(q, k, v, proj, mask, stamps=st[:, :3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_wide_kernel_where_beta_underflows(dev, dtype):
+    """The last task's keys x 30: its dash_k reaches several hundred, so
+    every other item's key maxima lie more than 100 below gmax, their
+    beta = e^(c_k - gmax) underflows to 0 and their k' is eps ratio on every
+    real row, as in the twin (bf16 against its bf16 twin)."""
+    q, k, v, proj, mask = _favor_inputs(dev, 6, 4, 18, 15, 256, 1419, seed=5)
+    k[-1] *= 30.0
+    q, k, v = (a.to(dtype) for a in (q, k, v))
+    dn = 256 ** -0.25
+    dash_k = (dn * k.float()) @ proj.t()
+    assert float(dash_k[:-1].amax()) < float(dash_k[-1].amax()) - 100.0
+    got = favor.favor_launch(q, k, v, proj, mask)
+    assert torch.equal(got.nan_to_num(),
+                       favor.favor_launch(q, k, v, proj, mask).nan_to_num())
+    _close(got, favor.favor_plain(q, k, v, proj, mask), 1e-5, 1e-4)
 
 
 def test_favor_wide_kernel_refuses_what_it_does_not_take(dev):

@@ -700,57 +700,86 @@ extern "C" int wmfml_favor_fwd(const void* q, const void* k, const void* v,
 
 // -- K2 wide: heads too wide for the kernel above ------------------------------
 //
-// The same computation for d <= 256, any m and any Nq, Nk, float32 or
-// bfloat16 q, k, v: LargeCNP's full-width heads (d = e = 256, m = int(256
-// ln 256) = 1419; ANPDistractor at Nq = 18, Nk = 15 in training and Nq = 36,
-// Nk <= 25 in evaluation). The features of an item alone take (Nq + Nk) m
-// floats, 347 KB at R = 61, so nothing here holds a whole item's features:
-// dash goes to the scratch tensor, and the features stream through shared
-// memory in chunks of FT columns.
+// The same function for d <= 256, any m and any Nq, Nk, float32 or bfloat16
+// q, k, v: LargeCNP's full-width heads (d = e = 256, m = int(256 ln 256) =
+// 1419; ANPDistractor at Nq = 18, Nk = 15 in training and Nq = 36, Nk <= 25
+// in evaluation; ANP on ShapeNet3D at 15 + 15 and 30 + 25). An item's
+// features take (Nq + Nk) m floats, 347 KB at R = Nq + Nk = 61: no block
+// holds them, and this form never writes them out either.
 //
-// Bound: the dash products, 2 (Nq + Nk) m d a (task, head) item (3.84 GFLOP
-// at T = 20, H = 8, Nq + Nk = 33: 0.023 ms in 3xTF32 at the tensor cores'
-// rate), and the bytes, dash written and read back once (30 MB there).
+// Bound: the dash products, 2 R m d an item (3.84 GFLOP at T = 20, H = 8,
+// R = 33: 0.023 ms in 3xTF32 at the tensor cores' rate), against about
+// 7 MB of inputs and output (0.002 ms at 3.35 TB/s): the products bound it.
 //
-// Design, one cooperative launch on a persistent grid (one block an SM):
-//   * Phase 1, units of (feature tile of FT = 128, item), feature-tile major,
-//     each block a contiguous run of units, so that a block restages the
-//     projection tile [128 x d] only where its run crosses into the next
-//     tile and the item's rows every unit. The rows go through in groups of
-//     RMAX = 64 (one group at every shipped shape): dash of the tile =
-//     (d^-1/4 rows) P_tile^T on the tensor cores in 3xTF32 (mma.sync
-//     m16n8k8: small*big, big*small, big*big a k-step, as above), operands
-//     split as they are read from shared memory, whose rows are padded to
-//     d + 4 floats so that a fragment's 32 reads hit 32 banks. Eight warps:
-//     four 16-row tiles of the group by two halves of the feature tile. The
-//     tile goes to dash in global memory, with each row's max over its real
-//     features (< m); the tile's key max (masked rows included) goes to
-//     kmax[item][tile]; the unit of tile 0 also writes each row's diagonal
-//     term |x|^2 / 2 d^-1/2.
+// What held the earlier wide form back (0.363 device ms at D1, 16x its
+// bound; phase 1 256 of 360 us): mma.sync m16n8k8 at a fraction of wgmma's
+// TF32 rate, the projection split again by every warp at every k-step, rows
+// in 16-row tiles (48 rows computed at R = 33), each unit restaging its rows
+// with no overlap, dash written to and read back from global memory (30 MB
+// each way at D1), and after the grid barrier one item a block walking 12
+// feature chunks in series.
+//
+// Design, one cooperative launch on a persistent grid (one block of four
+// warpgroups an SM; grid min(items x feature tiles, co-resident blocks)):
+//   * Phase 1, units of (feature tile of FT = 64, item, row pair), tile
+//     major, each block a contiguous run of units: the projection tile is
+//     split into big and small once when the run enters it and stays in
+//     shared memory across the run's items. A row pair is the item's rows
+//     when R <= 64 (every shipped shape), else a chunk of q rows and a chunk
+//     of k rows (kc = min(Nk, max(64 - Nq, 32)) k rows, 64 - kc q rows).
+//     - Warpgroups 0 and 1 stage and multiply. dash^T = P_tile (dn rows)^T
+//       as wgmma m64nNk8 .tf32 with both operands in shared memory, N = the
+//       rows rounded up to 8 (n40 at R = 33; past 40 rows two products,
+//       n40 + n24 at R = 61), split-K over the two warpgroups and the two
+//       partial tiles added in a fixed order. Per k-step small*big,
+//       big*small, big*big (bfloat16 rows: small part 0, two products).
+//       The rows are split once a unit: each thread loads the next
+//       product's rows into registers while the current one runs, then
+//       scales, splits and stores them in the core-matrix order the
+//       descriptors read (K halves 128 B apart, row groups 256 B apart).
+//     - Warpgroups 2 and 3 run each unit's epilogue while 0 and 1 stage and
+//       multiply the next unit (named barriers hand the dash tile over):
+//       per (item, tile) the stabilisers c_q[i] = max over the tile's real
+//       features of dash_q[i] and c_k = max over the tile and the pair's k
+//       rows (masked rows included) of dash_k; E = exp(dash - c) (0 past
+//       m); the partials S[i][n] = sum_j Eq[i][j] Ek[n][j], Q[i] =
+//       sum_j Eq[i][j], K[n] = sum_j Ek[n][j] to the scratch tensor (about
+//       5 MB at D1, against dash's 30 MB), c_k to its own array. The
+//       diagonal terms are a factor of each row (e^-diag), so they leave
+//       the tiles: the units of tile 0 write them for phase 2.
+//     - L2 traffic of the order: at D1, 3,680 (tile, item) units restage
+//       33 rows x 1 KB = 121 MB of rows over the phase, and each block
+//       reads its one or two projection tiles (64 KB each) once.
 //   * grid.sync().
-//   * Phase 2, an item a block at a time: the global key max (every block
-//     reduces all kmax: a max is exact in any order, so each block holds
-//     the same bits). The item's q rows and k rows go in chunks of qc and
-//     kc rows: all of them at once where Nq + Nk <= RMAX, else RMAX / 2
-//     each:
-//     for each pair of chunks, the query stabilisers (each q row's max over
-//     its tiles), the v rows, the key mask; then per chunk of FT features,
-//     dash read back and turned into q' or k' (0 past m) as it is stored,
-//     and the block of A = q' k'^T accumulated over the feature chunks by
-//     warp tiles of 2 q rows x 4 k rows (each entry of A added to by one
-//     lane, chunk after chunk: the sum's order is fixed); then each q row's
-//     sum of A and its numerators A v carried on from the previous k chunk
-//     (the numerators in the output, the sums in shared memory), in the
-//     order of the k rows, and divided at the last k chunk. A row's sums run
-//     over the k rows in order whatever the chunks, so one chunk or several
-//     give the same bits.
-// Every global read is latency-bound, so each stage issues its loads in
-// rounds (batched), all of a round in flight before the first store. No
-// atomics: two calls give the same bits. The backward stays on the twin.
-// An optional phase clock (stamps: start, phase 1 done, barrier passed,
-// end, a row a block) shows where the call's time goes; on the H100 phase
-// 1 takes most of it, its 3xTF32 products on mma.sync, whose TF32 rate is
-// a fraction of wgmma's (PERF.md).
+//   * Phase 2, units of (item, slice of q rows) over every block: the one
+//     key max gmax = max of all c_k (a max is exact in any order: every
+//     block holds the same bits), stab_i = max_t c_q[i][t], alpha =
+//     e^(c_q - stab_i - diag_i), beta = e^(c_k - gmax - diag_n) (the
+//     reference's e^(dash - diag - stab) split at the tile's max), and
+//       A[i][n] = ratio^2 keep_n sum_t (alpha beta S_t + eps alpha Q_t[i]
+//                 + eps beta K_t[n] + eps^2 cnt_t),
+//     summed over the tiles in order (cnt_t the tile's real features): q'
+//     k'^T with the + eps terms expanded, the same function reassociated.
+//     The unit's partials, v and the mask come in one round of loads; out =
+//     (A v) / rowsum(A), k rows in phase 1's chunks, the sums carried in
+//     order. The slices per item follow the grid: one at D1's 160 items,
+//     four at R100's 32.
+//   The reassociated sums hold TOL["favor_attention_wide"] (atol 1e-5, rtol
+//   1e-4) against the reference at every shape the tests hold (a float32
+//   emulation of this order in tests/test_torch_port_favor_wide.py against
+//   the JAX function, and the kernel against its twin on the card), so the
+//   features are never formed.
+//   Where it departs from a plain Hopper pipeline, and why (PERF.md):
+//   the projection's A fragments held in registers (128 a thread at two
+//   warpgroups) left no room and had ptxas fence the products; shared
+//   memory (232,448 bytes a block) holds A split (128 KB), B for 40 rows
+//   split (80 KB) and the dash tile (17 KB), with no room for a second B or
+//   a staging buffer, so the rows wait in registers and the products wait
+//   for their staging; a warpgroup issuing wgmma blocks until the products
+//   run, so the epilogue has warpgroups of its own.
+// No atomics: two calls give the same bits. The backward stays on the twin.
+// An optional phase clock (stamps: start, first unit staged, phase 1 done,
+// barrier passed, end, a row a block) shows where the call's time goes.
 //
 // bfloat16 q, k, v (favor_kernel_wide<__nv_bfloat16>), with the narrow
 // kernel's rounding points: the rows are read four values (8 bytes) a load
@@ -762,32 +791,75 @@ extern "C" int wmfml_favor_fwd(const void* q, const void* k, const void* v,
 namespace {
 namespace wide {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;        // four warpgroups: 0 and 1 stage the
+                                    // rows and run the products, 2 and 3
+                                    // the epilogues beside them
 constexpr int WARPS = THREADS / 32;
-constexpr int DW = 256;        // the widest head: d <= 256
-constexpr int EW = 256;        // the widest v row: e <= 256
-constexpr int RMAX = 64;       // rows a group and a chunk pair: four 16-row
-                               // mma tiles
-constexpr int FT = 128;        // features a phase-1 unit and a phase-2 chunk
-constexpr int LD = DW + 4;     // the staged rows' stride: conflict-free reads
-constexpr int DLD = FT + 4;    // the dash tile's row stride
-// Shared memory, phase 1: the projection tile [FT][LD] | the group's rows
-// [RMAX][LD], whose room the dash tile [RMAX][DLD] takes after the
-// products | the tile's row maxima [RMAX] | red [WARPS]. Phase 2: features
-// [RMAX][FT] | v [RMAX][EW] | A [qc kc <= RMAX^2 / 4] | diag, stab, keep,
-// the q rows' sums of A [RMAX each], below red.
-constexpr int P1_X = FT * LD;
-constexpr int P1_RMX = P1_X + RMAX * LD;
-constexpr int RED = P1_RMX + RMAX;
+constexpr int MT = 256;             // the product warpgroups' threads
+constexpr int HT = THREADS - MT;    // the epilogue warpgroups' threads
+// named barriers: 1 the dash tile is free (epilogue done), 2 it is written
+// (all threads); 3 the product warpgroups; 4 the epilogue warpgroups
+constexpr int BAR_FREE = 1, BAR_READY = 2, BAR_MMA = 3, BAR_EPI = 4;
+constexpr int DW = 256;             // the widest head: d <= 256
+constexpr int EW = 256;             // the widest v row: e <= 256
+constexpr int FT = 64;              // features a tile: the wgmma M
+constexpr int RG = 64;              // rows a row pair at most
+constexpr int RB = 40;              // rows a product at most: its N
+constexpr int GB = RB / 8;          // B's row groups
+constexpr int KS = DW / 8 / 2;      // k-steps a warpgroup takes at most
+constexpr int DLD = FT + 4;         // the dash tile's row stride
+constexpr int QB = 64;              // phase 2: q rows a unit at most
+// Shared memory (floats). Phase 1: A big, A small (the projection tile,
+// FT x DW each) | B big, B small (RB x DW each; both in the core-matrix
+// order the descriptors read: float4 ((s G + g) 2 + half) 8 + r holds row
+// 8 g + r, columns 8 s + 4 half .. + 3, G = 8 for A and GB for B) | dash
+// tile [RG][DLD] | the rows' sums of squares in two halves [2][RB] | row
+// maxima [RG] | red [WARPS]. Phase 2: v [RG][EW] | A [QB][RG] | keep [RG]
+// | den, stab, the q rows' diagonal terms [QB each] | the k rows' [RG] |
+// the tile chunk's partials, below red.
+constexpr int P1_AS = FT * DW;
+constexpr int P1_B = 2 * FT * DW;
+constexpr int P1_BS = P1_B + RB * DW;
+constexpr int P1_D = P1_B + 2 * RB * DW;
+constexpr int P1_SSQ = P1_D + RG * DLD;
+constexpr int P1_RMX = P1_SSQ + 2 * RB;
+constexpr int RED = P1_RMX + RG;
 constexpr int SMEM_BYTES = (RED + WARPS) * 4;
-constexpr int P2_V = RMAX * FT;
-constexpr int P2_A = P2_V + RMAX * EW;
-constexpr int P2_DIAG = P2_A + RMAX * RMAX / 4;
-constexpr int P2_STAB = P2_DIAG + RMAX;
-constexpr int P2_KEEP = P2_STAB + RMAX;
-constexpr int P2_DEN = P2_KEEP + RMAX;
-static_assert(P2_DEN + RMAX <= RED, "phase 2 fits in phase 1's room");
-static_assert(DLD * RMAX <= LD * RMAX, "the dash tile fits the rows' room");
+constexpr int P2_A = RG * EW;
+constexpr int P2_KEEP = P2_A + QB * RG;
+constexpr int P2_DEN = P2_KEEP + RG;
+constexpr int P2_STAB = P2_DEN + QB;
+constexpr int P2_DQ = P2_STAB + QB;
+constexpr int P2_DK = P2_DQ + QB;
+constexpr int P2_T = P2_DK + RG;
+static_assert(P2_T % 4 == 0 && P1_B % 4 == 0 && P1_D % 4 == 0,
+              "float4 regions");
+static_assert(SMEM_BYTES <= 232448, "one block an SM");
+// phase clock points per block: start, first unit staged, phase 1 done,
+// barrier passed, end
+constexpr int STAMPS = 5;
+
+__host__ __device__ inline int round_up(int x, int n) { return (x + n - 1) / n * n; }
+
+// Phase 2's partials of a chunk of tb tiles, qr q rows and a k chunk of
+// kcp (a multiple of 4) columns: S [tb][qr][kcp] | Q, alpha [tb][qr] each |
+// K, beta [tb][kcp] each | c_k [tb]
+__host__ __device__ inline int p2_q(int tb, int qr, int kcp) { return tb * qr * kcp; }
+__host__ __device__ inline int p2_al(int tb, int qr, int kcp) {
+  return p2_q(tb, qr, kcp) + tb * qr;
+}
+__host__ __device__ inline int p2_k(int tb, int qr, int kcp) {
+  return round_up(p2_al(tb, qr, kcp) + tb * qr, 4);
+}
+__host__ __device__ inline int p2_be(int tb, int qr, int kcp) {
+  return p2_k(tb, qr, kcp) + tb * kcp;
+}
+__host__ __device__ inline int p2_ck(int tb, int qr, int kcp) {
+  return p2_be(tb, qr, kcp) + tb * kcp;
+}
+__host__ __device__ inline int p2_floats(int tb, int qr, int kcp) {
+  return p2_ck(tb, qr, kcp) + tb;
+}
 
 struct Params {
   const void* q;                    // float or __nv_bfloat16, as the kernel's T
@@ -795,20 +867,24 @@ struct Params {
   const void* v;
   const float* proj;
   const unsigned char* mask;        // [T, Nk] bytes 0/1, or null: all real
-  float* dash;                      // scratch [items][R][MPW]
-  float* rowmax;                    // scratch [items][mtiles][R]
-  float* kmax;                      // scratch [items][mtiles]
-  float* diag;                      // scratch [items][R]
+  float* part;                      // scratch [items][per_item]: the partials
+  float* ck;                        // scratch [items][tiles][kchunks]: c_k
+  float* diag;                      // scratch [items][Nq + Nk]
   float* out;                       // [items][Nq][e]
   long long* stamps;                // [gridDim][STAMPS] or null
   long long qs_t, qs_h, qs_n, ks_t, ks_h, ks_n, vs_t, vs_h, vs_n, ms_t, ms_n;
-  int items, H, Nq, Nk, d, e, m, mtiles, MPW;
-  int qc, kc;                       // phase 2's chunks of q and k rows
+  int items, H, Nq, Nk, d, e, m;
+  int tiles, ksteps;                // feature tiles, k-steps (d / 8 rounded
+                                    // up to even)
+  int qc, kc, qchunks, kchunks;     // the row pairs: q and k chunks
+  int kcp;                          // kc rounded up to 4
+  int oQ, oCQ, oK, per_item;        // an item's partials: S [tiles][Nq]
+                                    // [kchunks][kcp] | Q, c_q [tiles][Nq] |
+                                    // K [tiles][kchunks][kcp]
+  int qr, qslices, tb;              // phase 2: q rows a unit, units an item,
+                                    // tiles a chunk
   float dn, dn2, ratio, eps;
 };
-
-// phase clock points per block: start, phase 1 done, barrier passed, end
-constexpr int STAMPS = 4;
 
 __device__ inline void stamp(const Params& p, int j) {
   if (p.stamps != nullptr && threadIdx.x == 0) {
@@ -829,313 +905,638 @@ __device__ float block_max(float v, float* red) {
   return r;
 }
 
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void store4(float* dst, float4 x) {
   *reinterpret_cast<float4*>(dst) = x;
 }
 
-// q' or k' of four consecutive columns c.. of a row
-__device__ inline float4 features4(const Params& p, float4 x, int c,
-                                   float diag, float stab, float keep) {
-  float y[4] = {x.x, x.y, x.z, x.w};
+// n scalar copies, load(i) then store(i, x), U loads in flight per thread
+template <int U, class Load, class Store>
+__device__ __forceinline__ void batched1(int n, Load load, Store store) {
+  for (int base = threadIdx.x; base < n; base += THREADS * U) {
+    float x[U];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    y[j] = c + j < p.m
-               ? p.ratio * (expf(y[j] - diag - stab) + p.eps) * keep
-               : 0.f;
-  return make_float4(y[0], y[1], y[2], y[3]);
-}
-
-// Phase 1 unit: dash of feature tile ft for the item's rows, a group of
-// RMAX at a time, into dash, rowmax, kmax (and diag at ft = 0).
-template <class T>
-__device__ void dash_unit(const Params& p, float* smem, int ft, int item,
-                          bool stage_proj) {
-  constexpr bool kBF = sizeof(T) == 2;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int R = p.Nq + p.Nk, t = item / p.H, h = item - t * p.H;
-  float* Pt = smem;
-  float* X = smem + P1_X;
-  float* D = X;
-  float* rmx = smem + P1_RMX;
-  constexpr int D4 = DW / 4;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();                  // the previous unit's reads are done
-  if (stage_proj)
-    batched<8, THREADS>(
-        FT * D4,
-        [&](int i) {
-          const int r = i / D4, c = (i - r * D4) * 4, j = ft * FT + r;
-          return j < p.m && c < p.d ? ldg4(p.proj + (size_t)j * p.d + c)
-                                    : zero;
-        },
-        [&](int i, float4 x) { store4(Pt + i / D4 * LD + i % D4 * 4, x); });
-  float km = -INFINITY;             // the tile's key max (thread 0's)
-  for (int r0 = 0; r0 < R; r0 += RMAX) {
-    const int rn = min(RMAX, R - r0);
-    if (r0) __syncthreads();        // the previous group's reads are done
-    // the group's rows of the active 16-row tiles, zero past R and past d
-    batched<8, THREADS>(
-        (rn + 15) / 16 * 16 * D4,
-        [&](int i) {
-          const int r = i / D4 + r0, c = (i - i / D4 * D4) * 4;
-          if (r >= R || c >= p.d) return zero;
-          return r < p.Nq
-                     ? ld4(qkv<T>(p.q) + t * p.qs_t + h * p.qs_h +
-                           r * p.qs_n + c)
-                     : ld4(qkv<T>(p.k) + t * p.ks_t + h * p.ks_h +
-                           (r - p.Nq) * p.ks_n + c);
-        },
-        [&](int i, float4 x) { store4(X + i / D4 * LD + i % D4 * 4, x); });
-    __syncthreads();
-    if (ft == 0)                    // the rows' diagonal terms, once an item
-      for (int r = warp; r < rn; r += WARPS) {
-        float s = 0.f;
-        for (int c = lane; c < p.d; c += 32) {
-          const float x = X[r * LD + c];
-          if constexpr (kBF)
-            s += tc::bf16r(x * x);
-          else
-            s = fmaf(x, x, s);
-        }
-        s = warp_sum(s);
-        if (lane == 0)
-          p.diag[(size_t)item * R + r0 + r] =
-              kBF ? tc::bf16r(tc::bf16r(s) / 2.0f * p.dn2) : s / 2.0f * p.dn2;
-      }
-
-    // dash^T fragments: warp (mt, ng) computes rows 16 mt .. + 15 against
-    // features 64 ng .. + 63 of the tile, eight m16n8 tiles
-    const int mt = warp & 3, ng = warp >> 2, g = lane >> 2, tq = lane & 3;
-    float acc[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-    const bool active = mt * 16 < rn;
-    if (active) {
-      const float* xa = X + (mt * 16 + g) * LD + tq;
-      const float* pb = Pt + (ng * 64 + g) * LD + tq;
-      const int ksteps = (p.d + 7) / 8;
-      for (int ks = 0; ks < ksteps; ++ks) {
-        const int o = ks * 8;
-        const float av[4] = {xa[o], xa[8 * LD + o], xa[o + 4],
-                             xa[8 * LD + o + 4]};
-        uint32_t ab[4], as[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // bfloat16: dn x rounded as the reference rounds it, exact in TF32
-          const float a = kBF ? tc::bf16r(p.dn * av[i]) : p.dn * av[i];
-          tc::split(a, ab[i], as[i]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const float* b = pb + nt * 8 * LD + o;
-          uint32_t bb0, bs0, bb1, bs1;
-          tc::split(b[0], bb0, bs0);
-          tc::split(b[4], bb1, bs1);
-          if constexpr (!kBF) mma_tf32(acc[nt], as, bb0, bb1);
-          mma_tf32(acc[nt], ab, bs0, bs1);
-          mma_tf32(acc[nt], ab, bb0, bb1);
-        }
-      }
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * THREADS;
+      x[u] = i < n ? load(i) : 0.f;
     }
-    __syncthreads();                // X is read: the dash tile takes its room
-    if (active)
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = ng * 64 + nt * 8 + 2 * tq;
-        float* rw = D + (mt * 16 + g) * DLD + col;
-        rw[0] = acc[nt][0];
-        rw[1] = acc[nt][1];
-        rw[8 * DLD] = acc[nt][2];
-        rw[8 * DLD + 1] = acc[nt][3];
-      }
-    __syncthreads();
-    // the tile to dash, and each row's max over its real features
-    float* dst = p.dash + ((size_t)item * R + r0) * p.MPW + ft * FT;
-    for (int r = warp; r < rn; r += WARPS) {
-      const float4 x = *reinterpret_cast<const float4*>(D + r * DLD + lane * 4);
-      __stcg(reinterpret_cast<float4*>(dst + (size_t)r * p.MPW) + lane, x);
-      const int j = ft * FT + lane * 4;
-      float mx = -INFINITY;
-      if (j < p.m) mx = x.x;
-      if (j + 1 < p.m) mx = fmaxf(mx, x.y);
-      if (j + 2 < p.m) mx = fmaxf(mx, x.z);
-      if (j + 3 < p.m) mx = fmaxf(mx, x.w);
-      mx = warp_max(mx);
-      if (lane == 0) {
-        p.rowmax[((size_t)item * p.mtiles + ft) * R + r0 + r] = mx;
-        rmx[r] = mx;
-      }
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * THREADS;
+      if (i < n) store(i, x[u]);
     }
-    __syncthreads();
-    if (tid == 0)                   // key rows, masked rows included
-      for (int r = max(p.Nq - r0, 0); r < rn; ++r) km = fmaxf(km, rmx[r]);
   }
-  if (tid == 0) p.kmax[(size_t)item * p.mtiles + ft] = km;
 }
 
-// Phase 2 for one item: per pair of q and k chunks, features chunk by
-// chunk, the block of A, then the q rows' sums and numerators; out.
+// Four elements of q, k or the projection as they are read: float4, or
+// four bfloat16 in a uint2
 template <class T>
-__device__ void attend(const Params& p, float* smem, int item, float gmax) {
+struct Vec4 {
+  using type = float4;
+};
+template <>
+struct Vec4<__nv_bfloat16> {
+  using type = uint2;
+};
+__device__ inline float4 ldvec(const float* p) { return ldg4(p); }
+__device__ inline uint2 ldvec(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ inline float4 widen(float4 x) { return x; }
+__device__ inline float4 widen(uint2 r) {
+  return make_float4(tc::bf16_lo(r.x), tc::bf16_hi(r.x), tc::bf16_lo(r.y),
+                     tc::bf16_hi(r.y));
+}
+template <class V>
+__device__ inline V zero_vec() {
+  if constexpr (sizeof(V) == 16)
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  else
+    return make_uint2(0u, 0u);
+}
+
+// Rows of an operand in flight through registers: task x is row 8 (x >>
+// 6) + (x & 7) at the float4 columns cb + 8 k, k < 8, cb = (x >> 3) & 7.
+// Eight neighbouring lanes hold eight rows of one row group, so their
+// stores to the core-matrix order hit 128 contiguous bytes.
+template <class T>
+struct Staged {
+  typename Vec4<T>::type x[2][8];   // tasks threadIdx.x and + MT
+};
+
+// task x of rows [0, nrows) from row(r) (zero past nrows and past d)
+template <class T, class Row>
+__device__ __forceinline__ void load_staged(typename Vec4<T>::type (&st)[8],
+                                            int x, int nrows, int d, Row row) {
+  using V = typename Vec4<T>::type;
+  const int r = 8 * (x >> 6) + (x & 7), cb = (x >> 3) & 7;
+  const bool ok = r < nrows;
+  const T* src = row(ok ? r : 0);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int c = 4 * (cb + 8 * k);
+    st[k] = ok && c < d ? ldvec(src + c) : zero_vec<V>();
+  }
+}
+
+// Task x of the staged rows, times scale (rounded to bfloat16 where
+// kRound), split into big and small (small only where kSmall) at the
+// operand's G row groups. With ssq, the row's sum of squares of the
+// unscaled values (bfloat16 rows: of their bfloat16 squares), in two
+// halves: ssq[h * RB + r], h the half of the columns.
+template <class T, bool kSmall, bool kRound>
+__device__ __forceinline__ void store_staged(
+    const typename Vec4<T>::type (&st)[8], int x, int G, float scale,
+    float* big, float* small, float* ssq) {
+  constexpr bool kBF = sizeof(T) == 2;
+  float4* b4 = reinterpret_cast<float4*>(big);
+  float4* s4 = reinterpret_cast<float4*>(small);
+  const int r8 = x & 7, cb = (x >> 3) & 7, g = x >> 6;
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float4 v = widen(st[k]);
+    if (ssq != nullptr) {
+      if constexpr (kBF) {
+        ss += tc::bf16r(v.x * v.x);
+        ss += tc::bf16r(v.y * v.y);
+        ss += tc::bf16r(v.z * v.z);
+        ss += tc::bf16r(v.w * v.w);
+      } else {
+        ss = fmaf(v.x, v.x, ss);
+        ss = fmaf(v.y, v.y, ss);
+        ss = fmaf(v.z, v.z, ss);
+        ss = fmaf(v.w, v.w, ss);
+      }
+    }
+    float y[4] = {scale * v.x, scale * v.y, scale * v.z, scale * v.w};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (kRound) y[i] = tc::bf16r(y[i]);
+      tc::split(y[i], hi[i], lo[i]);
+    }
+    const int c4 = cb + 8 * k, f = (((c4 >> 1) * G + g) * 2 + (c4 & 1)) * 8 + r8;
+    b4[f] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                        __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+    if constexpr (kSmall)
+      s4[f] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                          __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+  }
+  if (ssq != nullptr) {
+    // the four column blocks of this row in this warp (lanes r8 + 8 j),
+    // then a half: (cb >> 2) is the warp's parity
+    ss += __shfl_xor_sync(0xffffffffu, ss, 8);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 16);
+    if ((threadIdx.x & 31) < 8) ssq[(cb >> 2) * RB + 8 * g + r8] = ss;
+  }
+}
+
+// A unit of phase 1: feature tile, item, the pair's q rows q0.. (nq) and k
+// rows k0.. (nk), its chunk indices qi, ki
+struct Unit {
+  int tile, item, qi, ki, q0, nq, k0, nk;
+};
+
+__device__ inline Unit unit_of(const Params& p, int u) {
+  const int pairs = p.qchunks * p.kchunks, per_tile = p.items * pairs;
+  Unit w;
+  w.tile = u / per_tile;
+  const int rem = u - w.tile * per_tile;
+  w.item = rem / pairs;
+  const int pr = rem - w.item * pairs;
+  w.qi = pr / p.kchunks;
+  w.ki = pr - w.qi * p.kchunks;
+  w.q0 = w.qi * p.qc;
+  w.nq = min(p.qc, p.Nq - w.q0);
+  w.k0 = w.ki * p.kc;
+  w.nk = min(p.kc, p.Nk - w.k0);
+  return w;
+}
+
+// The pair's row r: its row in the item (q rows, then k rows)
+__device__ inline int item_row(const Params& p, const Unit& w, int r) {
+  return r < w.nq ? w.q0 + r : p.Nq + w.k0 + r - w.nq;
+}
+
+// The pair's rows off .. off + n into registers, this thread's task
+template <class T>
+__device__ __forceinline__ void load_rows(const Params& p, Staged<T>& st,
+                                          const Unit& w, int off, int n) {
+  const int t = w.item / p.H, h = w.item - t * p.H;
+  const T* qb = qkv<T>(p.q) + t * p.qs_t + h * p.qs_h + w.q0 * p.qs_n;
+  const T* kb = qkv<T>(p.k) + t * p.ks_t + h * p.ks_h + w.k0 * p.ks_n;
+  const auto row = [&](int r) {
+    r += off;
+    return r < w.nq ? qb + r * p.qs_n : kb + (r - w.nq) * p.ks_n;
+  };
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+    load_staged<T>(st.x[a], threadIdx.x + a * MT, n, p.d, row);
+}
+
+// The projection tile into A: big and small, rows past m zero (512 tasks)
+__device__ void stage_tile(const Params& p, float* smem, int tile) {
+  const int j0 = tile * FT, rows = min(FT, p.m - j0);
+  Staged<float> st;
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+    load_staged<float>(st.x[a], threadIdx.x + a * MT, rows, p.d,
+                       [&](int r) { return p.proj + (size_t)(j0 + r) * p.d; });
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+    store_staged<float, true, false>(st.x[a], threadIdx.x + a * MT, 8,
+                                     1.f, smem, smem + P1_AS, nullptr);
+}
+
+// The dash tile of the pair's rows off .. off + N, on the product
+// warpgroups: each one's product over its half of the k-steps from s0
+// (m64nNk8, A and B through descriptors; per k-step small*big, big*small,
+// big*big, bfloat16 rows two), then, once the epilogue warpgroups are done
+// with the previous unit's tile (off = 0), warpgroup 0's partial +
+// warpgroup 1's, in that order, into rows off .. of the dash tile. kFull
+// (d > 248): the k-steps known to the compiler.
+template <bool kBF, int N, bool kFull>
+__device__ __forceinline__ void dash_tile(const Params& p, float* smem,
+                                          int s0, int off) {
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  const float* abig = smem;
+  const float* asmall = smem + P1_AS;
+  const float* bbig = smem + P1_B;
+  const float* bsmall = smem + P1_BS;
+  const int ns = p.ksteps / 2;
+  tc::fence();
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    if (kFull || s < ns) {
+      const int ks = s0 + s;
+      const uint64_t ab = tc::desc_b(abig + ks * 8 * 64, 128, 256);
+      const uint64_t bb = tc::desc_b(bbig + ks * GB * 64, 128, 256);
+      tc::mma_ss<N>(acc, tc::desc_b(asmall + ks * 8 * 64, 128, 256), bb);
+      if constexpr (!kBF)
+        tc::mma_ss<N>(acc, ab, tc::desc_b(bsmall + ks * GB * 64, 128, 256));
+      tc::mma_ss<N>(acc, ab, bb);
+    }
+  }
+  tc::commit();
+  tc::wait<0>();
+  tc::pin(acc);
+  tc::named_sync(BAR_MMA, MT);      // both products are done: B is free
+  if (off == 0) tc::named_sync(BAR_FREE, THREADS);
+  // acc holds dash at feature 16 w + g (+ 8) of the tile, row 8 jj + 2 t
+  // (+ 1) of the product
+  const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3;
+  const int j0 = wl * 16 + (lane >> 2), tq = lane & 3;
+  const bool second = threadIdx.x >= 128;
+  float* D = smem + P1_D + off * DLD;
+  if (second)
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        D[(8 * jj + 2 * tq + (e & 1)) * DLD + j0 + (e >> 1) * 8] =
+            acc[4 * jj + e];
+  tc::named_sync(BAR_MMA, MT);
+  if (!second)
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = D[(8 * jj + 2 * tq + (e & 1)) * DLD + j0 + (e >> 1) * 8];
+        x = acc[4 * jj + e] + x;
+      }
+}
+
+// dash_tile at the width of the product's rows rounded up to 8
+template <bool kBF, bool kFull>
+__device__ __forceinline__ void product(const Params& p, float* smem, int s0,
+                                        int off, int n8) {
+  switch (n8 / 8) {
+    case 1: dash_tile<kBF, 8, kFull>(p, smem, s0, off); break;
+    case 2: dash_tile<kBF, 16, kFull>(p, smem, s0, off); break;
+    case 3: dash_tile<kBF, 24, kFull>(p, smem, s0, off); break;
+    case 4: dash_tile<kBF, 32, kFull>(p, smem, s0, off); break;
+    default: dash_tile<kBF, 40, kFull>(p, smem, s0, off); break;
+  }
+}
+
+// The epilogue of a unit, on the epilogue warpgroups while the product
+// warpgroups stage and multiply the next unit: the stabilisers, E = exp(dash
+// - c) in place (the diagonal terms are a factor of each row and wait for
+// phase 2), and the partials S, Q, K, c_q, c_k to the scratch tensor. Each
+// thread carries several independent chains: a half-warp takes its rows
+// hw, hw + 16, .. together (hw = 2 warp + half), and each sum of S runs in
+// four parts.
+__device__ void epilogue(const Params& p, float* smem, const Unit& w) {
+  constexpr int HW = HT / 32;
+  constexpr int RPH = RG / (2 * HW);      // rows a half-warp at most
+  const int tid = threadIdx.x - MT, lane = tid & 31, warp = tid >> 5;
+  const int hl = lane & 15, hw = 2 * warp + (lane >> 4);
+  const int rn = w.nq + w.nk;
+  float* D = smem + P1_D;
+  float* rmx = smem + P1_RMX;
+  const int j = w.tile * FT + 4 * hl;     // the lane's four features
+  const bool real[4] = {j < p.m, j + 1 < p.m, j + 2 < p.m, j + 3 < p.m};
+  float4 x[RPH];
+  float mx[RPH];
+#pragma unroll
+  for (int k = 0; k < RPH; ++k) {
+    const int r = min(hw + 2 * HW * k, rn - 1);
+    x[k] = *reinterpret_cast<const float4*>(D + r * DLD + 4 * hl);
+    mx[k] = real[0] ? x[k].x : -INFINITY;
+    if (real[1]) mx[k] = fmaxf(mx[k], x[k].y);
+    if (real[2]) mx[k] = fmaxf(mx[k], x[k].z);
+    if (real[3]) mx[k] = fmaxf(mx[k], x[k].w);
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < RPH; ++k)
+      mx[k] = fmaxf(mx[k], __shfl_xor_sync(0xffffffffu, mx[k], o));
+#pragma unroll
+  for (int k = 0; k < RPH; ++k) {
+    const int r = hw + 2 * HW * k;
+    if (hl == 0 && r < rn) rmx[r] = mx[k];
+  }
+  tc::named_sync(BAR_EPI, HT);
+  float ck = -INFINITY;                   // the k rows' max, masked rows in
+  for (int r = w.nq + lane; r < rn; r += 32) ck = fmaxf(ck, rmx[r]);
+  ck = warp_max(ck);
+  float sum[RPH];
+#pragma unroll
+  for (int k = 0; k < RPH; ++k) {
+    const int r = hw + 2 * HW * k;
+    const float c = r < w.nq ? mx[k] : ck;
+    const float4 y = make_float4(real[0] ? expf(x[k].x - c) : 0.f,
+                                 real[1] ? expf(x[k].y - c) : 0.f,
+                                 real[2] ? expf(x[k].z - c) : 0.f,
+                                 real[3] ? expf(x[k].w - c) : 0.f);
+    x[k] = y;
+    sum[k] = (y.x + y.y) + (y.z + y.w);
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < RPH; ++k)
+      sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], o);
+  float* part = p.part + (size_t)w.item * p.per_item;
+#pragma unroll
+  for (int k = 0; k < RPH; ++k) {
+    const int r = hw + 2 * HW * k;
+    if (r < rn) {
+      *reinterpret_cast<float4*>(D + r * DLD + 4 * hl) = x[k];
+      if (hl == 0) {
+        if (r < w.nq) {
+          if (w.ki == 0) {
+            const int o = w.tile * p.Nq + w.q0 + r;
+            part[p.oQ + o] = sum[k];
+            part[p.oCQ + o] = mx[k];
+          }
+        } else if (w.qi == 0) {
+          part[p.oK + (w.tile * p.kchunks + w.ki) * p.kcp + r - w.nq] = sum[k];
+        }
+      }
+    }
+  }
+  if (tid == 0 && w.qi == 0)
+    p.ck[((size_t)w.item * p.tiles + w.tile) * p.kchunks + w.ki] = ck;
+  tc::named_sync(BAR_EPI, HT);
+  // S = Eq Ek^T over the tile's 64 features: a thread per (q row, k row),
+  // each sum in four parts (columns 4 c + i), added in a fixed order
+  for (int i = tid; i < w.nq * w.nk; i += HT) {
+    const int a = i / w.nk, n = i - a * w.nk;
+    const float4* xa = reinterpret_cast<const float4*>(D + a * DLD);
+    const float4* yn = reinterpret_cast<const float4*>(D + (w.nq + n) * DLD);
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+    for (int c = 0; c < FT / 4; ++c) {
+      const float4 u = xa[c], v = yn[c];
+      s0 = fmaf(u.x, v.x, s0);
+      s1 = fmaf(u.y, v.y, s1);
+      s2 = fmaf(u.z, v.z, s2);
+      s3 = fmaf(u.w, v.w, s3);
+    }
+    part[(((size_t)w.tile * p.Nq + w.q0 + a) * p.kchunks + w.ki) * p.kcp + n] =
+        (s0 + s1) + (s2 + s3);
+  }
+}
+
+// Phase 2 for one unit: the q rows i0 .. of item `item` (slice sl).
+template <class T>
+__device__ void attend(const Params& p, float* smem, int item, int sl,
+                       float gmax) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int R = p.Nq + p.Nk, t = item / p.H, h = item - t * p.H;
-  float* F = smem;
-  float4* F4 = reinterpret_cast<float4*>(F);
-  float* V = smem + P2_V;
+  const int i0 = sl * p.qr, nr = min(p.qr, p.Nq - i0);
+  if (nr <= 0) return;
+  const int t = item / p.H, h = item - t * p.H;
+  const int qr = p.qr, kcp = p.kcp, k4 = kcp / 4, e4 = p.e / 4;
+  float* V = smem;
   float* A = smem + P2_A;
-  float* diag = smem + P2_DIAG;
-  float* stab = smem + P2_STAB;
   float* keep = smem + P2_KEEP;
   float* den = smem + P2_DEN;
-  constexpr int C4 = FT / 4;
-  const int e4 = p.e / 4;
-  const float* src = p.dash + (size_t)item * R * p.MPW;
-  float* ob = p.out + (size_t)item * p.Nq * p.e;
-  for (int q0 = 0; q0 < p.Nq; q0 += p.qc) {
-    const int nq = min(p.qc, p.Nq - q0);
-    for (int k0 = 0; k0 < p.Nk; k0 += p.kc) {
-      const int nk = min(p.kc, p.Nk - k0), rn = nq + nk;
-      // the chunk's rows: q rows q0.. at 0.., k rows k0.. at nq..
-      const auto row = [&](int r) { return r < nq ? q0 + r : p.Nq + k0 + r - nq; };
-      __syncthreads();              // the previous chunk's reads are done
+  float* stab = smem + P2_STAB;
+  float* dq = smem + P2_DQ;
+  float* dk = smem + P2_DK;
+  float* Ss = smem + P2_T;
+  float* Qs = Ss + p2_q(p.tb, qr, kcp);
+  float* ALs = Ss + p2_al(p.tb, qr, kcp);
+  float* Ks = Ss + p2_k(p.tb, qr, kcp);
+  float* BEs = Ss + p2_be(p.tb, qr, kcp);
+  float* CKs = Ss + p2_ck(p.tb, qr, kcp);
+  const float* part = p.part + (size_t)item * p.per_item;
+  const float* dg = p.diag + (size_t)item * (p.Nq + p.Nk);
+  const T* vb = qkv<T>(p.v) + t * p.vs_t + h * p.vs_h;
+  float* ob = p.out + ((size_t)item * p.Nq + i0) * p.e;
+  const float r2 = p.ratio * p.ratio, e2 = p.eps * p.eps;
+  __syncthreads();                  // the block's previous unit is done
+  for (int r = warp; r < nr; r += WARPS) {   // stab_i: a warp per row
+    float s = -INFINITY;
+    for (int tt = lane; tt < p.tiles; tt += 32)
+      s = fmaxf(s, __ldcg(part + p.oCQ + tt * p.Nq + i0 + r));
+    s = warp_max(s);
+    if (lane == 0) {
+      stab[r] = s;
+      dq[r] = __ldcg(dg + i0 + r);
+    }
+  }
+  for (int ki = 0; ki < p.kchunks; ++ki) {
+    const int k0 = ki * p.kc, nk = min(p.kc, p.Nk - k0);
+    for (int t0 = 0; t0 < p.tiles; t0 += p.tb) {
+      const int tb = min(p.tb, p.tiles - t0);
+      __syncthreads();              // the last reads are done
+      // one round of loads: S and K of the chunk's tiles and, at its first
+      // tile chunk, the k chunk's v rows; then Q, c_q, c_k, the k rows'
+      // diagonal terms and the mask
+      const int nS = tb * nr * k4, nK = tb * k4, nV = t0 == 0 ? nk * e4 : 0;
       batched<4, THREADS>(
-          nk * e4,
+          nS + nK + nV,
           [&](int i) {
-            return ld4(qkv<T>(p.v) + t * p.vs_t + h * p.vs_h +
-                       (k0 + i / e4) * p.vs_n + i % e4 * 4);
-          },
-          [&](int i, float4 x) { store4(V + i * 4, x); });
-      for (int r = tid; r < rn; r += THREADS) {
-        diag[r] = __ldcg(p.diag + (size_t)item * R + row(r));
-        if (r < nq) {
-          float s = -INFINITY;
-          for (int ft = 0; ft < p.mtiles; ++ft)
-            s = fmaxf(s, __ldcg(p.rowmax + ((size_t)item * p.mtiles + ft) * R +
-                                q0 + r));
-          stab[r] = s;
-          if (k0 == 0) den[r] = 0.f;
-        } else {
-          const int n = k0 + r - nq;
-          keep[r - nq] =
-              p.mask == nullptr || p.mask[t * p.ms_t + n * p.ms_n] ? 1.f : 0.f;
-        }
-      }
-      for (int i = tid; i < nq * nk; i += THREADS) A[i] = 0.f;
-      __syncthreads();
-
-      const int tk = (nk + 3) / 4, ntiles = (nq + 1) / 2 * tk;
-      for (int ft = 0; ft < p.mtiles; ++ft) {
-        if (ft) __syncthreads();    // the previous chunk's reads of F are done
-        batched<8, THREADS>(
-            rn * C4,
-            [&](int i) {
+            if (i < nS) {
+              const int tt = i / (nr * k4), rem = i - tt * nr * k4;
+              const int r = rem / k4, c = rem - r * k4;
               return __ldcg(reinterpret_cast<const float4*>(
-                                src + (size_t)row(i / C4) * p.MPW + ft * FT) +
-                            i % C4);
-            },
-            [&](int i, float4 x) {
-              const int r = i / C4;
-              const bool isq = r < nq;
-              F4[i] = features4(p, x, ft * FT + i % C4 * 4, diag[r],
-                                isq ? stab[r] : gmax, isq ? 1.f : keep[r - nq]);
-            });
-        __syncthreads();
-        // A += q' k'^T over the chunk: a warp per tile of 2 q rows x 4 k
-        // rows, lane l the chunk's columns 4 l .. 4 l + 3
-        for (int tile = warp; tile < ntiles; tile += WARPS) {
-          const int i0 = tile / tk * 2, n0 = tile % tk * 4;
-          float4 x[2], y[4];
-#pragma unroll
-          for (int a = 0; a < 2; ++a) x[a] = F4[min(i0 + a, nq - 1) * C4 + lane];
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            y[b] = F4[(nq + min(n0 + b, nk - 1)) * C4 + lane];
-          float acc[8];
-#pragma unroll
-          for (int a = 0; a < 2; ++a)
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              float s = x[a].x * y[b].x;
-              s = fmaf(x[a].y, y[b].y, s);
-              s = fmaf(x[a].z, y[b].z, s);
-              acc[a * 4 + b] = fmaf(x[a].w, y[b].w, s);
+                                part + (((size_t)(t0 + tt) * p.Nq + i0 + r) *
+                                            p.kchunks + ki) * kcp) + c);
             }
-          const float sum = warp_sum8(acc);
-          const int i = i0 + (lane >> 4), n = n0 + ((lane >> 2) & 3);
-          if ((lane & 3) == 0 && i < nq && n < nk) A[i * nk + n] += sum;
+            i -= nS;
+            if (i < nK) {
+              const int tt = i / k4, c = i - tt * k4;
+              return __ldcg(reinterpret_cast<const float4*>(
+                                part + p.oK +
+                                ((size_t)(t0 + tt) * p.kchunks + ki) * kcp) + c);
+            }
+            i -= nK;
+            const int n = i / e4, c = i - n * e4;
+            return ld4(vb + (size_t)(k0 + n) * p.vs_n + c * 4);
+          },
+          [&](int i, float4 x) {
+            if (i < nS) {
+              const int tt = i / (nr * k4), rem = i - tt * nr * k4;
+              const int r = rem / k4, c = rem - r * k4;
+              store4(Ss + (tt * qr + r) * kcp + 4 * c, x);
+              return;
+            }
+            i -= nS;
+            if (i < nK) {
+              const int tt = i / k4, c = i - tt * k4;
+              store4(Ks + tt * kcp + 4 * c, x);
+              return;
+            }
+            i -= nK;
+            const int n = i / e4, c = i - n * e4;
+            store4(V + n * p.e + 4 * c, x);
+          });
+      const int nq2 = tb * nr, nk2 = t0 == 0 ? 2 * nk : 0;
+      batched1<4>(
+          2 * nq2 + tb + nk2,
+          [&](int i) {
+            if (i < 2 * nq2) {
+              const int j = i < nq2 ? i : i - nq2, tt = j / nr, r = j - tt * nr;
+              return __ldcg(part + (i < nq2 ? p.oQ : p.oCQ) +
+                            (t0 + tt) * p.Nq + i0 + r);
+            }
+            i -= 2 * nq2;
+            if (i < tb)
+              return __ldcg(p.ck + ((size_t)item * p.tiles + t0 + i) * p.kchunks +
+                            ki);
+            i -= tb;
+            if (i < nk) return __ldcg(dg + p.Nq + k0 + i);
+            i -= nk;
+            return p.mask == nullptr || p.mask[t * p.ms_t + (k0 + i) * p.ms_n]
+                       ? 1.f
+                       : 0.f;
+          },
+          [&](int i, float x) {
+            if (i < 2 * nq2) {
+              const int j = i < nq2 ? i : i - nq2, tt = j / nr, r = j - tt * nr;
+              (i < nq2 ? Qs : ALs)[tt * qr + r] = x;
+              return;
+            }
+            i -= 2 * nq2;
+            if (i < tb) {
+              CKs[i] = x;
+              return;
+            }
+            i -= tb;
+            if (i < nk) {
+              dk[i] = x;
+              return;
+            }
+            keep[i - nk] = x;
+          });
+      __syncthreads();
+      // alpha = e^(c_q - stab_i - diag_i), beta = e^(c_k - gmax - diag_n):
+      // the reference's e^(dash - diag - stab) split at the tile's max
+      for (int i = tid; i < tb * (nr + nk); i += THREADS) {
+        if (i < tb * nr) {
+          const int tt = i / nr, r = i - tt * nr;
+          ALs[tt * qr + r] = expf(ALs[tt * qr + r] - stab[r] - dq[r]);
+        } else {
+          const int j = i - tb * nr, tt = j / nk, n = j - tt * nk;
+          BEs[tt * kcp + n] = expf(CKs[tt] - gmax - dk[n]);
         }
       }
       __syncthreads();
-      for (int i = tid; i < nq; i += THREADS) {   // the rows' sums of A
-        float s = den[i];
-        for (int n = 0; n < nk; ++n) s += A[i * nk + n];
-        den[i] = s;
+      // A over the chunk's tiles, in tile order, carried in A
+      const bool last_t = t0 + tb == p.tiles;
+      for (int i = tid; i < nr * nk; i += THREADS) {
+        const int r = i / nk, n = i - r * nk;
+        float a = t0 == 0 ? 0.f : A[r * RG + n];
+        for (int tt = 0; tt < tb; ++tt) {
+          const float al = ALs[tt * qr + r], be = BEs[tt * kcp + n];
+          const float cnt = (float)min(FT, p.m - (t0 + tt) * FT);
+          a += al * be * Ss[(tt * qr + r) * kcp + n] +
+               p.eps * al * Qs[tt * qr + r] + p.eps * be * Ks[tt * kcp + n] +
+               e2 * cnt;
+        }
+        A[r * RG + n] = last_t ? r2 * keep[n] * a : a;
       }
-      __syncthreads();
-
-      // the numerators A v, carried in the output from the previous k chunk
-      // (each by the thread that wrote it), divided at the last: four
-      // outputs a thread, their sums interleaved
-      const bool last = k0 + nk == p.Nk;
-      const int no = nq * p.e;
-      float* oc = ob + (size_t)q0 * p.e;
-      for (int o0 = tid; o0 < no; o0 += 4 * THREADS) {
-        float num[4];
-        int ii[4], cc[4];
+    }
+    __syncthreads();
+    for (int r = tid; r < nr; r += THREADS) {   // the rows' sums of A
+      float s = ki == 0 ? 0.f : den[r];
+      for (int n = 0; n < nk; ++n) s += A[r * RG + n];
+      den[r] = s;
+    }
+    __syncthreads();
+    // the numerators A v, carried in the output from the previous k chunk
+    // (each by the thread that wrote it), divided at the last: four
+    // outputs a thread, their sums interleaved
+    const bool last = ki + 1 == p.kchunks;
+    const int no = nr * p.e;
+    for (int o0 = tid; o0 < no; o0 += 4 * THREADS) {
+      float num[4];
+      int rr[4], cc[4];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int o = min(o0 + u * THREADS, no - 1);
-          ii[u] = o / p.e;
-          cc[u] = o % p.e;
-          num[u] = k0 == 0 ? 0.f : oc[o];
-        }
-        for (int n = 0; n < nk; ++n) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            num[u] = fmaf(A[ii[u] * nk + n], V[n * p.e + cc[u]], num[u]);
-        }
+      for (int u = 0; u < 4; ++u) {
+        const int o = min(o0 + u * THREADS, no - 1);
+        rr[u] = o / p.e;
+        cc[u] = o - rr[u] * p.e;
+        num[u] = ki == 0 ? 0.f : ob[o];
+      }
+      for (int n = 0; n < nk; ++n) {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          if (o0 + u * THREADS < no)
-            oc[o0 + u * THREADS] = last ? num[u] / den[ii[u]] : num[u];
+          num[u] = fmaf(A[rr[u] * RG + n], V[n * p.e + cc[u]], num[u]);
       }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (o0 + u * THREADS < no)
+          ob[o0 + u * THREADS] = last ? num[u] / den[rr[u]] : num[u];
     }
   }
 }
 
 template <class T>
 __global__ void __launch_bounds__(THREADS, 1) favor_kernel_wide(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int units = p.mtiles * p.items;
+  constexpr bool kBF = sizeof(T) == 2;
+  extern __shared__ __align__(128) float smem[];
+  const int pairs = p.qchunks * p.kchunks;
+  const int units = p.tiles * p.items * pairs;
   const int u0 = (int)((long long)units * blockIdx.x / gridDim.x);
   const int u1 = (int)((long long)units * (blockIdx.x + 1) / gridDim.x);
+  // the warpgroup's index through a shuffle, so that the compiler knows it
+  // is the same across the warp (the descriptors depend on it)
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  float* ssq = smem + P1_SSQ;
   stamp(p, 0);
-  for (int u = u0; u < u1; ++u) {
-    const int ft = u / p.items;
-    dash_unit<T>(p, smem, ft, u - ft * p.items, u == u0 || u % p.items == 0);
+
+  // -- phase 1: dash tiles on the tensor cores, the partials -----------------
+  // Products of at most RB rows, the next product's rows in flight through
+  // the current one; each unit's epilogue on warpgroups 2 and 3 beside the
+  // next unit's staging and products. The units of tile 0 also take each
+  // row's diagonal term.
+  if (wg < 2) {
+    // split-K: warpgroup w the k-steps w ksteps / 2 ..
+    const int s0 = wg * (p.ksteps / 2);
+    const bool full = p.ksteps == 2 * KS;
+    Staged<T> st;
+    if (u0 < u1) {
+      const Unit w = unit_of(p, u0);
+      load_rows<T>(p, st, w, 0, min(RB, w.nq + w.nk));
+    }
+    int tile = -1;
+    for (int u = u0; u < u1; ++u) {
+      const Unit w = unit_of(p, u);
+      const int rn = w.nq + w.nk;
+      if (w.tile != tile) {         // the run enters a tile: split it once
+        tile = w.tile;
+        stage_tile(p, smem, tile);
+      }
+      for (int off = 0; off < rn; off += RB) {
+        const int nsub = min(RB, rn - off), n8 = (nsub + 7) / 8 * 8;
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+          if (threadIdx.x + a * MT < n8 * 8)  // warp-uniform
+            store_staged<T, !kBF, kBF>(st.x[a], threadIdx.x + a * MT, GB,
+                                       p.dn, smem + P1_B, smem + P1_BS,
+                                       tile == 0 ? ssq : nullptr);
+        tc::fence_async_smem();     // A and B, for wgmma's reads
+        tc::named_sync(BAR_MMA, MT);
+        if (tile == 0 && threadIdx.x < nsub) {  // the rows' diagonal terms
+          const float s = ssq[threadIdx.x] + ssq[RB + threadIdx.x];
+          p.diag[(size_t)w.item * (p.Nq + p.Nk) +
+                 item_row(p, w, off + threadIdx.x)] =
+              kBF ? tc::bf16r(tc::bf16r(s) / 2.0f * p.dn2) : s / 2.0f * p.dn2;
+        }
+        if (off + RB < rn) {
+          load_rows<T>(p, st, w, off + RB, min(RB, rn - off - RB));
+        } else if (u + 1 < u1) {
+          const Unit nx = unit_of(p, u + 1);
+          load_rows<T>(p, st, nx, 0, min(RB, nx.nq + nx.nk));
+        }
+        if (u == u0 && off == 0) stamp(p, 1);
+        if (full)
+          product<kBF, true>(p, smem, s0, off, n8);
+        else
+          product<kBF, false>(p, smem, s0, off, n8);
+      }
+      tc::named_sync(BAR_READY, THREADS);   // the tile is written
+    }
+  } else if (u0 < u1) {
+    tc::named_sync(BAR_FREE, THREADS);       // the tile is free at first
+    for (int u = u0; u < u1; ++u) {
+      tc::named_sync(BAR_READY, THREADS);
+      epilogue(p, smem, unit_of(p, u));
+      if (u + 1 < u1) tc::named_sync(BAR_FREE, THREADS);
+    }
   }
-  stamp(p, 1);
-  cg::this_grid().sync();
+  __syncthreads();
   stamp(p, 2);
+  cg::this_grid().sync();
+  stamp(p, 3);
+
+  // -- phase 2: the one key max, A, out -------------------------------------
   float g = -INFINITY;
-  for (int i = threadIdx.x; i < units; i += THREADS) g = fmaxf(g, __ldcg(p.kmax + i));
+  const int nck = p.items * p.tiles * p.kchunks;
+  for (int i = threadIdx.x; i < nck; i += THREADS) g = fmaxf(g, __ldcg(p.ck + i));
   const float gmax = block_max(g, smem + RED);
-  for (int item = blockIdx.x; item < p.items; item += gridDim.x)
-    attend<T>(p, smem, item, gmax);
+  for (int w = blockIdx.x; w < p.items * p.qslices; w += gridDim.x)
+    attend<T>(p, smem, w / p.qslices, w % p.qslices, gmax);
   if (p.stamps != nullptr) {
     __syncthreads();
-    stamp(p, 3);
+    stamp(p, 4);
   }
 }
 
@@ -1151,6 +1552,27 @@ cudaError_t per_sm_blocks(int& per_sm) {
 }
 
 int coresident[MAX_DEVICES];
+
+// The row pairs and the partials' layout (Params' fields from tiles to
+// per_item), for items of Nq + Nk rows and m features
+void layout(Params& p, int Nq, int Nk, int d, int m) {
+  p.tiles = (m + FT - 1) / FT;
+  p.ksteps = round_up((d + 7) / 8, 2);  // even: half a warpgroup, 0 past d
+  if (Nq + Nk <= RG) {
+    p.qc = Nq;
+    p.kc = Nk;
+  } else {
+    p.kc = min(Nk, max(RG - Nq, RG / 2));
+    p.qc = min(Nq, RG - p.kc);
+  }
+  p.qchunks = (Nq + p.qc - 1) / p.qc;
+  p.kchunks = (Nk + p.kc - 1) / p.kc;
+  p.kcp = round_up(p.kc, 4);
+  p.oQ = p.tiles * Nq * p.kchunks * p.kcp;
+  p.oCQ = p.oQ + p.tiles * Nq;
+  p.oK = round_up(p.oCQ + p.tiles * Nq, 4);
+  p.per_item = p.oK + p.tiles * p.kchunks * p.kcp;
+}
 
 }  // namespace wide
 }  // namespace
@@ -1178,27 +1600,28 @@ extern "C" int wmfml_favor_wide_coresident() {
   return wide::coresident[dev];
 }
 
-// Floats of the wide kernel's scratch tensor for T * H = items, R = Nq + Nk
-// rows an item: dash [items][R][MPW], then the row maxima [items][mtiles][R],
-// the key maxima [items][mtiles] and the diagonal terms [items][R], with
-// mtiles = ceil(m / 128) and MPW = 128 mtiles.
+// Floats of the wide kernel's scratch tensor for T * H = items, Nq + Nk
+// rows an item and m features: each item's partials (per (64-feature tile,
+// q row, k row) S, per (tile, q row) Q and c_q, per (tile, k row) K), the
+// key stabilisers c_k [items][tiles][k chunks], then the rows' diagonal
+// terms [items][Nq + Nk].
 extern "C" long long wmfml_favor_wide_scratch_floats(int items, int Nq, int Nk,
                                                     int m) {
-  const long long mt = (m + wide::FT - 1) / wide::FT, R = Nq + Nk;
-  return (long long)items * (R * mt * wide::FT + mt * R + mt + R);
+  wide::Params p{};
+  wide::layout(p, Nq, Nk, 8, m);
+  return (long long)items * (p.per_item + p.tiles * p.kchunks + Nq + Nk);
 }
 
 // q [T,H,Nq,d], k [T,H,Nk,d], v [T,H,Nk,e] at element strides (t, h, n),
 // each a multiple of 4, unit stride along the last axis and aligned to four
 // elements; float32, or bfloat16 with bf16 set (then dn and dn2 the
-// bfloat16-rounded normalizers); proj [m, d] contiguous and 16-byte
-// aligned; d and e multiples of 4 with d <= 256, e <= 256; mask [T, Nk]
-// bytes at strides (t, n), or null; scratch of
-// wmfml_favor_wide_scratch_floats floats, 16-byte aligned; out [T,H,Nq,e]
-// float32 contiguous; stamps null, or [min(T * H * ceil(m / 128),
-// co-resident blocks), 4] int64 for the phase clock. One cooperative
-// launch on `stream`. Returns its cudaError_t, or -1 when the shape does
-// not fit the kernel.
+// bfloat16-rounded normalizers); proj [m, d] contiguous; d and e multiples
+// of 4 with d <= 256, e <= 256; mask [T, Nk] bytes at strides (t, n), or
+// null; scratch of wmfml_favor_wide_scratch_floats floats, 16-byte
+// aligned; out [T,H,Nq,e] float32 contiguous; stamps null, or
+// [min(T * H * ceil(m / 64), co-resident blocks), 5] int64 for the phase
+// clock. One cooperative launch on `stream`. Returns its cudaError_t, or
+// -1 when the shape does not fit the kernel.
 extern "C" int wmfml_favor_wide_fwd(const void* q, const void* k,
                                     const void* v, const float* proj,
                                     const unsigned char* mask, float* scratch,
@@ -1219,27 +1642,43 @@ extern "C" int wmfml_favor_wide_fwd(const void* q, const void* k,
   if (items == 0) return 0;
   const int blocks = wmfml_favor_wide_coresident();
   if (blocks < 0) return -blocks;
-  const int mtiles = (m + wide::FT - 1) / wide::FT, MPW = mtiles * wide::FT;
-  // phase 2's chunks: every row at once where they fit, else half each
-  const bool whole = Nq + Nk <= wide::RMAX;
-  const int qc = whole ? Nq : wide::RMAX / 2;
-  const int kc = whole ? Nk : wide::RMAX / 2;
-  const size_t nd = (size_t)items * (Nq + Nk) * MPW;
-  float* rowmax = scratch + nd;
-  float* kmax = rowmax + (size_t)items * mtiles * (Nq + Nk);
-  float* diag = kmax + (size_t)items * mtiles;
-  const wide::Params p{q,     k,    v,    proj,   mask, scratch, rowmax,
-                       kmax,  diag, out,  stamps, qs_t, qs_h,    qs_n,
-                       ks_t,  ks_h, ks_n, vs_t,   vs_h, vs_n,    ms_t,
-                       ms_n,  items, H,   Nq,     Nk,   d,       e,
-                       m,     mtiles, MPW, qc,    kc,   dn,      dn2,
-                       ratio, eps};
-  const int units = mtiles * items;
+  wide::Params p{q,    k,    v,    proj, mask, scratch, nullptr, nullptr,
+                 out,  stamps, qs_t, qs_h, qs_n, ks_t, ks_h, ks_n, vs_t,
+                 vs_h, vs_n, ms_t, ms_n, items, H, Nq, Nk, d, e, m};
+  wide::layout(p, Nq, Nk, d, m);
+  p.ck = scratch + (size_t)items * p.per_item;
+  p.diag = p.ck + (size_t)items * p.tiles * p.kchunks;
+  const int grid = (long long)items * p.tiles < blocks ? items * p.tiles : blocks;
+  // phase 2: q slices per item where they shorten the rounds of units over
+  // the grid (a unit's time taken as one round of loads plus its share of
+  // the item's work)
+  int best = 1;
+  double cost = 1e30;
+  for (int s = 1; s <= (Nq < 8 ? Nq : 8); ++s) {
+    const int qr = (Nq + s - 1) / s;
+    const double rounds = ((long long)items * ((Nq + qr - 1) / qr) + grid - 1) / grid;
+    const double c = rounds * (1.0 + 1.0 / s);
+    if (c < cost) {
+      cost = c;
+      best = s;
+    }
+  }
+  p.qr = (Nq + best - 1) / best;
+  if (p.qr > wide::QB) p.qr = wide::QB;
+  p.qslices = (Nq + p.qr - 1) / p.qr;
+  const int room = wide::RED - wide::P2_T;
+  for (p.tb = p.tiles; p.tb > 1 && wide::p2_floats(p.tb, p.qr, p.kcp) > room;)
+    --p.tb;
+  if (wide::p2_floats(p.tb, p.qr, p.kcp) > room) return -1;
+  p.dn = dn;
+  p.dn2 = dn2;
+  p.ratio = ratio;
+  p.eps = eps;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(units < blocks ? units : blocks);
+  cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(wide::THREADS);
   cfg.dynamicSmemBytes = wide::SMEM_BYTES;
   cfg.stream = (cudaStream_t)stream;

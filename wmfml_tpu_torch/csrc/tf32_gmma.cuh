@@ -12,14 +12,15 @@
 // longer cancel.
 //
 // wgmma .tf32 is K-major for both operands. A (64 x 8 per instruction) comes
-// from registers: warp w of the warpgroup holds rows 16w..16w+15, lane l
-// holds a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4)
-// with g = l / 4, t = l % 4. The f32 accumulator of an m64nN product: lane l
-// of warp w holds, for each 8-column chunk j, d[4j] = (16w + g, 8j + 2t),
-// d[4j + 1] = (16w + g, 8j + 2t + 1), d[4j + 2] = (16w + g + 8, 8j + 2t),
-// d[4j + 3] = (16w + g + 8, 8j + 2t + 1). B (N x 8) comes from shared
-// memory through a descriptor without swizzle, in the core-matrix order of
-// kernels/tf32.py:gmma_b_layout.
+// from registers (mma_nN) or, like B, from shared memory (mma_ss_nN, K2's
+// wide form). From registers, warp w of the warpgroup holds rows
+// 16w..16w+15, lane l holds a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4),
+// a3 = (g + 8, t + 4) with g = l / 4, t = l % 4. The f32 accumulator of an
+// m64nN product: lane l of warp w holds, for each 8-column chunk j, d[4j] =
+// (16w + g, 8j + 2t), d[4j + 1] = (16w + g, 8j + 2t + 1), d[4j + 2] =
+// (16w + g + 8, 8j + 2t), d[4j + 3] = (16w + g + 8, 8j + 2t + 1). B (N x 8)
+// comes from shared memory through a descriptor without swizzle, in the
+// core-matrix order of kernels/tf32.py:gmma_b_layout.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -123,6 +124,87 @@ __device__ __forceinline__ void mma_n32(float (&d)[16], uint32_t a0,
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d += A * B^T, m64n8k8, A and B from shared memory
+__device__ __forceinline__ void mma_ss_n8(float (&d)[4], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A * B^T, m64n16k8, A and B from shared memory
+__device__ __forceinline__ void mma_ss_n16(float (&d)[8], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A * B^T, m64n24k8, A and B from shared memory
+__device__ __forceinline__ void mma_ss_n24(float (&d)[12], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, "
+      "1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A * B^T, m64n32k8, A and B from shared memory
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A * B^T, m64n40k8, A and B from shared memory
+__device__ __forceinline__ void mma_ss_n40(float (&d)[20], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19}, %20, %21, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A * B^T at m64nNk8, N a multiple of 8 up to 40, both operands from
+// shared memory through descriptors (K2's wide form: N its rows rounded up
+// to 8)
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b) {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 40, "m64nNk8: N = 8, 16, .., 40");
+  if constexpr (N == 8) mma_ss_n8(d, a, b);
+  else if constexpr (N == 16) mma_ss_n16(d, a, b);
+  else if constexpr (N == 24) mma_ss_n24(d, a, b);
+  else if constexpr (N == 32) mma_ss_n32(d, a, b);
+  else mma_ss_n40(d, a, b);
 }
 
 // Makes this thread's generic-proxy shared-memory writes visible to the

@@ -10,9 +10,11 @@ K2 has two forms, both in ``csrc/favor.cu``, one cooperative launch each:
 the narrow kernel for heads of d <= 64 with m <= 512 features (SmallCNP's,
 d = 64, m = 266), whose item's features stay in shared memory, and the wide
 kernel for d <= 256 at any m and any Nq, Nk (LargeCNP's full-width heads,
-d = 256, m = 1419), whose features stream through shared memory in chunks
-and whose rows go through in groups of 64. ``favor_launch`` picks the form
-by d and m; a shape neither takes raises.
+d = 256, m = 1419), whose features are never formed: its products run
+on ``wgmma`` tile by tile of 64 features, and each tile's epilogue leaves
+per-tile partial sums of q' k'^T that the blocks combine after the grid
+barrier. ``favor_launch`` picks the form by d and m; a shape neither takes
+raises.
 
 ``favor_attention`` is the wrapper the attention block calls. A CPU tensor
 takes the plain twin (the JAX math, op for op); a CUDA tensor launches the
@@ -51,7 +53,8 @@ PHASES = ("start", "staged", "dash_done", "phase1_done", "barrier_passed",
           "loaded", "features_done", "a_done", "end")
 STAMPS = len(PHASES)
 # the wide kernel's phase clock (csrc/favor.cu: wide::stamp)
-WIDE_PHASES = ("start", "phase1_done", "barrier_passed", "end")
+WIDE_PHASES = ("start", "staged", "phase1_done", "barrier_passed", "end")
+WIDE_TILE = 64         # features a tile of the wide kernel's phase 1
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -133,13 +136,13 @@ def is_wide(d: int, m: int) -> bool:
 
 
 def wide_grid(items: int, m: int) -> int:
-    """The wide kernel's grid: its phase-1 units (items x 128-feature
-    tiles), at most the co-resident blocks."""
+    """The wide kernel's grid: items x feature tiles of ``WIDE_TILE``, at
+    most the co-resident blocks."""
     blocks = build.load("favor").wmfml_favor_wide_coresident()
     if blocks < 0:
         raise RuntimeError(f"FAVOR wide occupancy query failed: cudaError "
                            f"{-blocks}")
-    return min(items * -(-m // 128), blocks)
+    return min(items * -(-m // WIDE_TILE), blocks)
 
 
 def _aligned(a):
@@ -160,7 +163,7 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     clock: block b writes the global timer (ns) to row b at the points
     ``PHASES`` names (those after the grid barrier at its last item); rows
     past the grid are left as they are. The wide kernel's clock is
-    ``stamps`` int64 [``wide_grid``, 4], one row a block, at
+    ``stamps`` int64 [``wide_grid``, 5], one row a block, at
     ``WIDE_PHASES``."""
     if (any(not t.is_cuda for t in (q, k, v, projection))
             or q.dtype not in DTYPES or k.dtype != q.dtype
