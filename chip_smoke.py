@@ -68,9 +68,13 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      of 64 filters, 5 inner steps at update_lr 0.002, 20 at validation), 12
      steps, 4 a call (a warm-up call, then a graph of 4 second-order steps),
      and one validation; K1 and K3 must have launched exactly as often
-     as the code says, K6 twice a step; the trained
-     model's validation loss on one episode must agree between the card and
-     the CPU;
+     as the code says, K6 twice a step; the trained model's validation
+     loss on one episode must agree between the card and the CPU within
+     VAL_TOL, or come within GRAD_FACTOR times the CPU's own distance from
+     the same loss in float64 (``check_validation_loss(exact=True)``): the
+     card's distance from the CPU moves from run to run with cuDNN's
+     default algorithms (0.0046 and 0.0225 degrees on two runs on an H100,
+     against a VAL_TOL of 0.0223);
   8. the second-order outer gradient of one full-width MAML batch (the
      replayed training's first, augmented once through K6: DA has no
      gradient) through the kernels against
@@ -92,21 +96,20 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      twice a step; the validation loss on one episode's first tasks, card
      against the CPU, within the bfloat16 rule;
  11. ms/step of each path's graph replays in float32 and in bfloat16, timed
-     in turns (float32, bfloat16, bfloat16, float32) on the trained
-     trainers;
+     float32 then bfloat16 on the trained trainers;
  12. graph against loop: for each of the training configurations, two
      trainers from one seed under deterministic algorithms, one calling
      the fused step three times (warm-up, capture and replay, replay), the
      other issuing the same steps from the host: every call's metrics, the
      weights, Adam's state and the generator's state equal bit for bit.
      Then, on phases 4, 7, 9 and 10's trainers, ms/step and tasks/s of graph
-     replays against the loop, timed in turns (graph, loop, loop, graph),
+     replays against the loop, timed graph then loop,
      with the graph's nodes, its capture's and instantiation's host seconds
      and its memory pool's bytes; with ``--profile`` the card's busy share
      of a call of each. Then cuDNN's determinism (ROADMAP.md C2): on ANP
-     f32, MAML f32, D1 and S1, two fresh trainers each, one capturing its
+     f32 and D1, two fresh trainers each, one capturing its
      graph with ``torch.backends.cudnn.deterministic`` off, one with it on,
-     their replays timed in turns (off, on, on, off);
+     their replays timed off, then on;
  13. the Pascal1D and fixed-order paths (K6's programs 1-3), each through
      ``train_phase`` as phase 4 (launches on the card as the code says, all
      of K6's of the path's program, graph nodes, one replay's trace) and
@@ -139,7 +142,7 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      then with ``method=ANPDistractor agg_mode=attention`` over D1's (K2
      wide at Nq 36, Nk 25), both loss files, one point again on the CPU;
      graph against loop bit for bit on D1 (phase 12's check) and D1's and
-     D2's graph and loop ms/step in turns;
+     D2's graph and loop ms/step;
  16. the ShapeNet3D paths (LargeCNP on RGB, 64 x 64, ``img_agg: reshape``:
      the trunk's 64 x 2 x 2 = 256 features; quaternion labels and loss;
      backgrounds composited on the card per batch; K6's programs 6 and 7;
@@ -157,7 +160,7 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      (25 points x 2 episodes x 2 splits, all 30 views as queries: K2 wide
      at Nq 30, Nk 25) over S1's checkpoint, both loss files, one point on
      the CPU; graph against loop bit for bit on S1 (phase 12's check) and
-     S1's and S2's graph and loop ms/step in turns;
+     S1's and S2's graph and loop ms/step;
  17. LargeCNP in bfloat16 (K2's wide form and K6's programs 4 and 6 in
      bfloat16, the trunks' convolutions on cuDNN in bfloat16), each through
      ``train_phase`` (launches on the card as the code says, every K6
@@ -170,10 +173,10 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      backgrounds kept in bfloat16 on the card), 192 steps; S6 S1 with
      ``compute_dtype=bfloat16``, 32 steps, 8 a call; D5 D1 with
      ``compute_dtype=bfloat16``, 32 steps; then float32 against bfloat16
-     graph ms/step and tasks/s in turns on D1/D5, S1/S6 and S2/S5 (with
+     graph ms/step and tasks/s on D1/D5, S1/S6 and S2/S5 (with
      ``--profile`` each one's busy share); graph against loop bit for bit
      on S5 (phase 12's check) and S5's, S6's and D5's graph and loop
-     ms/step in turns;
+     ms/step;
  18. MR and FCL (ROADMAP.md A13), each through ``train_phase`` (launches
      on the card as the code says, graph nodes, one replay's trace) at full
      width as shipped but for depth: M1 ``cfg/train/ANPMR_DA+TA_ShapeNet1D
@@ -200,7 +203,7 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      over F3's checkpoint and with ``cfg/evaluation/ANP_ShapeNet1D.yaml``
      as ANPMRShapeNet1D over M1's (stochastic, as the reference: two sweeps
      equal, one point card against CPU on the same draws); graph and loop
-     ms/step in turns on every new path. Phase 3 also holds K1 on BBB
+     ms/step on every new path. Phase 3 also holds K1 on BBB
      samples at M1's (150 images a pass) and M2's (per task) shapes;
  19. SingleTask and refinement (ROADMAP.md A14), every kernel counter
      zeroed before each path and read after it: T1
@@ -225,10 +228,25 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      CNP_max_Distractor}.yaml`` over phase 4's, S1's and D2's
      (``losses_all.txt`` 2 rows, the plots where matplotlib is installed,
      Distractor's test split cut to 04530566); each evaluation's first
-     number against the CPU; graph and loop ms/step in turns on T1-T3.
+     number against the CPU; graph and loop ms/step on T1-T3.
      Phase 3 also holds K1 at R1's 25 images, K2's narrow form at O1's
      single task (Nq = Nk = 25) and K2's wide form at Q2's shape (Nq 30,
      Nk 15);
+ 20. MMAML (ROADMAP.md A16): ``cfg/train/MMAML_ShapeNet1D_DA+TA.yaml``
+     (MMAMLShapeNet1D at full width: the gated net's 32-256 channels, the
+     embedding net, 5 second-order inner steps, 10 at validation) through
+     ``train_phase``, 8 steps, 4 a call: K6 program 0 twice a step, graph
+     nodes included, and K1, K2 and K3 no time, every counter zeroed
+     before and read after; two more replays draw new DA (a tap on K6's
+     output); the validation loss on one episode (its first three tasks),
+     card against CPU; the outer loss and both networks' second-order
+     outer gradients of the first three tasks of one seeded batch under
+     deterministic algorithms, card against float64 on the CPU, within
+     GRAD_FACTOR times the float32 CPU's own distance
+     (``check_mmaml_grad``); graph and loop ms/step with the card's busy
+     share, graph nodes, capture and instantiation seconds and pool bytes;
+     graph against loop bit for bit (phase 12's check), which holds the
+     captured per-group clip and two-group Adam against the eager ones;
  15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Phase 3 also holds the Distractor paths' kernels: K2's wide form at D1's
@@ -289,6 +307,7 @@ repository around it.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -415,6 +434,13 @@ REFINE_OVERRIDES = ["synthetic_data=true", "device=cuda", "iterations=2",
 ONE_TASK_DIR = os.path.join(HERE, "cfg", "evaluation", "eval_one_task")
 PLOT_DIR = os.path.join(HERE, "cfg", "evaluation", "eval_and_plot")
 ONE_PLOT_OVERRIDES = ["synthetic_data=true", "device=cuda", "val_iters=2"]
+# MMAML (phase 20), as shipped but for its depth: 8 steps, 4 a call (an
+# eager warm-up call, the capture and its replay), one validation sweep of
+# one episode a split (10 inner steps each)
+MMAML_YAML = os.path.join(HERE, "cfg", "train", "MMAML_ShapeNet1D_DA+TA.yaml")
+MMAML_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=8",
+                   "val_freq=1000", "val_iters=1", "steps_per_call=4",
+                   "device=cuda"]
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -519,6 +545,25 @@ def cuda_ms(fn, iters=30, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# host seconds spent in each timing and checking helper over the run
+# (``spent``; logged at the end), to say where the script's time goes
+SPENT = {}
+
+
+def spent(fn):
+    """Add the host seconds of each call of ``fn`` to ``SPENT``."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            SPENT[fn.__name__] = (SPENT.get(fn.__name__, 0.0)
+                                  + time.perf_counter() - t0)
+    return wrapped
+
+
+@spent
 def in_turns(fns, rounds=2):
     """Mean ms of each function, timed in turns a, b, c, c, b, a, ..."""
     times = {k: [] for k in fns}
@@ -536,6 +581,21 @@ def in_turns(fns, rounds=2):
 TRACES = {"taken": 0, "empty": 0, "short": 0, "graph": 0}
 
 
+def device_events(prof):
+    """The device events of a finished torch.profiler run, as (name, start
+    us, end us), read from its raw results: the profiler's own event list
+    (``prof.events()``) builds an object an event, about 65 us each on the
+    host, seconds for a MAML replay's 58k events."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_user_annotation()
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
+@spent
 def device_profile(fn, iters=20, names=None):
     """Device time of one call (ms), the summed durations of the kernels it
     launches, and the number of kernels it launches, from torch.profiler.
@@ -563,8 +623,7 @@ def device_profile(fn, iters=20, names=None):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_events(prof)
         TRACES["taken"] += 1
         if kernels:
             break
@@ -575,8 +634,8 @@ def device_profile(fn, iters=20, names=None):
         TRACES["graph"] += 1
         return graph_profile(fn, iters, names)
     by_name = {}
-    for e in kernels:
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, start, end in kernels:
+        by_name.setdefault(name, []).append(end - start)
     per_call = {n: max(1, round(len(v) / iters)) for n, v in by_name.items()}
     us = sum(per_call[n] * sum(v) / len(v) for n, v in by_name.items())
     implied = iters * sum(per_call.values())
@@ -763,6 +822,7 @@ def _rows(name, dtype, path, tasks=10):
                 path=path + (" bf16" if bf16 else ""), route="cuda")
 
 
+@spent
 def check_stem(model, gen, dtype=None, tasks=10, path="ANP", images=None,
                name=None):
     """K1 at the ANP path's shape: the merged ctx+qry batch, 30 images a
@@ -809,6 +869,7 @@ def check_stem(model, gen, dtype=None, tasks=10, path="ANP", images=None,
                 **stem_bound(b, h, w, nbytes, dtype == torch.bfloat16))
 
 
+@spent
 def check_favor(model, gen, dtype=None, tasks=10, path="ANP", n=15):
     """K2 at the ANP path's shape, T = ``tasks`` (10, or 40: more (task,
     head) items than co-resident blocks), with shots 3..15 across the
@@ -867,6 +928,7 @@ def check_favor(model, gen, dtype=None, tasks=10, path="ANP", n=15):
                         split_products=3 if dtype == torch.float32 else 2))
 
 
+@spent
 def favor_phases(q, k, v, proj, mask, runs=10):
     """K2's phase clock (the global timer, ns, read by each block's first
     thread; ``favor.PHASES``): microseconds from the first block's start
@@ -897,6 +959,7 @@ def per_task(w, tasks, gen, scale=0.05):
     return (w.unsqueeze(0) + scale * w.abs().mean() * noise).contiguous()
 
 
+@spent
 def check_stem_per_task(model, gen, dtype=None):
     """K1 with per-task weights at the MAML path's shape: 10 tasks x 15
     images, against ``stem_plain`` applied task by task; float32 or
@@ -948,6 +1011,7 @@ def check_stem_per_task(model, gen, dtype=None):
                 **stem_bound(t_ * n, h, w, nbytes, dtype == torch.bfloat16))
 
 
+@spent
 def check_features(model, gen, dtype=None):
     """K3 at the MAML path's shape [10, 15, 14, 14, 64], masked with shots
     3..15 across the tasks (the context passes) and unmasked (the query
@@ -1068,6 +1132,7 @@ def da_work(p, order, h, w):
     return flops, iops
 
 
+@spent
 def da_phases(x, u, keys, order, runs=10):
     """K6's phase clock (the global timer, ns, read by each block's first
     thread; ``image_da.PHASES``): the mean over the blocks of the time from
@@ -1103,6 +1168,7 @@ def bf16_ulps(got, want, floor=0.0):
     return ((got.float() - want.float()).abs() / gap).max().item()
 
 
+@spent
 def check_image_da(gen, dtype=None):
     """K6 at the DA call's shape: the context slice of a [10, 30, 128, 128,
     1] uint8 batch (150 images, read through its strides), every gate on,
@@ -1345,6 +1411,7 @@ def pixel_work(program, p, h, w, c=1):
     return flops, iops
 
 
+@spent
 def check_image_da_programs(gen, programs=("pascal_1d", "shapenet_1d_fixed",
                                            "pascal_1d_fixed"), tasks=10):
     """K6's ``programs`` at the DA call's shape (the context slice of a [T,
@@ -1516,6 +1583,7 @@ def rgba_batch(gen, shape):
     return x
 
 
+@spent
 def check_image_da_rgb(gen, dtype=None):
     """K6's ShapeNet3D programs at S1's (and S3's) two DA calls: the RGB
     channels of the context and query slices of a [20, 30, 64, 64, 4]
@@ -1525,8 +1593,8 @@ def check_image_da_rgb(gen, dtype=None):
     with every other op off and the dropout op on (Dropout, then
     CoarseDropout, per channel where drawn), its masks bit for bit against
     the twin on the card and on the CPU, in two orders; its output against
-    the card twin and the CPU twin in ten orders (program 6: the identity,
-    the reverse and 8 drawn of the 720; float32 within
+    the card twin in ten orders (program 6: the identity, the reverse and 8
+    drawn of the 720) and the CPU twin in the first two (float32 within
     ``TOL["pixel_ops"]``; bfloat16 within ``BF16_K6_ULPS`` of each element,
     differing on at most ``BF16_K6_SHARE`` of them, and within
     ``check_bf16``'s rule); timed in the identity or the fixed order,
@@ -1596,9 +1664,10 @@ def check_image_da_rgb(gen, dtype=None):
                                       - (xc == 0).double().mean())
             worst = {"card twin": 0.0, "CPU twin": 0.0}
             differ = dict(worst)
-            for o in orders:
+            for i, o in enumerate(orders):
                 got = launch(u, o)
-                for where in ("card twin", "CPU twin"):
+                # the CPU twin in the first two orders (as programs 1-3)
+                for where in ("card twin", "CPU twin")[:2 if i < 2 else 1]:
                     cpu = where == "CPU twin"
                     g, want = (got.cpu() if cpu else got), twin(u, o, cpu)
                     if not bf16:
@@ -1683,6 +1752,7 @@ def check_image_da_rgb(gen, dtype=None):
     return rows
 
 
+@spent
 def check_favor_wide(proj, gen, nq, nk, name, path, dtype=None,
                      off_path=None):
     """K2's wide form at a Distractor path's shape: T = 20, 8 heads of d = e
@@ -1749,6 +1819,7 @@ def check_favor_wide(proj, gen, nq, nk, name, path, dtype=None,
                         split_products=3 if dtype == torch.float32 else 2))
 
 
+@spent
 def favor_wide_phases(q, k, v, proj, mask, runs=10):
     """K2 wide's phase clock (``favor.WIDE_PHASES``, the global timer read
     by each block's first thread): microseconds from the first block's
@@ -1778,6 +1849,7 @@ def favor_wide_phases(q, k, v, proj, mask, runs=10):
     return {k: statistics.median(r[k] for r in per_run) for k in per_run[0]}
 
 
+@spent
 def check_image_da_distractor(gen, dtype=None):
     """K6's Distractor programs at D1's (and D3's) two DA calls: the context
     slice of a [20, 33, 128, 128, 1] uint8 batch (300 images) and its query
@@ -1929,6 +2001,7 @@ def check_image_da_distractor(gen, dtype=None):
     return rows
 
 
+@spent
 def check_large_evaluation(tag, yaml, overrides, runs):
     """An evaluation sweep of a LargeCNP path: ``evaluation_cli`` with
     ``yaml`` over each (trainer's final checkpoint, extra overrides) of
@@ -2024,9 +2097,14 @@ def graph_nodes(dot_path):
 def launches_per_step(trainer):
     """What the code says each kernel launches: per training step, and per
     validation episode (both splits are swept)."""
+    from wmfml_tpu_torch.models.registry import method_family
+
     cfg = trainer.config
     da = {"image_da": 2} if "data_aug" in cfg.aug_list else {}
-    if "MAML" in cfg.method:
+    family = method_family(cfg.method)
+    if family == "mmaml":             # its convolutions all run on cuDNN
+        return da, {}
+    if family == "maml":
         inner, test = cfg.num_steps + 1, cfg.test_num_steps + 1
         return ({"literature_stem": inner, "maml_features": inner, **da},
                 {"literature_stem": test, "maml_features": test})
@@ -2070,6 +2148,7 @@ def check_launches(trainer, launches):
                              f"{want} and {captured}")
 
 
+@spent
 def replay_trace(trainer, tag):
     """One replay of the trained path's graph under torch.profiler: each
     kernel the capture holds shows in its trace, no more often than
@@ -2085,8 +2164,7 @@ def replay_trace(trainer, tag):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fused(trainer.generator)
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [name for name, _, _ in device_events(prof)]
         got = {k: sum(GRAPH_NODE[k] in n for n in names) for k in want}
         TRACES["taken"] += 1
         log(f"train {tag}: one replay's trace: {len(names)} device events, "
@@ -2098,7 +2176,8 @@ def replay_trace(trainer, tag):
                          f"of the capture {want}")
 
 
-def train_phase(card, yaml, overrides, counters, tap=False):
+@spent
+def train_phase(card, yaml, overrides, counters, tap=None):
     """Drive one path through ``train_cli``'s trainer, which trains through
     CUDA graph replays (``FusedSteps``), every kernel counter zeroed just
     before; return (trainer, launches per kernel of ``counters`` on the
@@ -2107,9 +2186,10 @@ def train_phase(card, yaml, overrides, counters, tap=False):
     path's program (its task's, ``_fixed`` for ``aug_random_order:
     false``). The captured graph's DOT must hold as many nodes of each
     kernel as the capture issued, and a trace of one more replay must show
-    them. With ``tap`` (an MR path) the BBB encoder's first layer is
-    tapped before the capture, and two more replays must draw different
-    weights (``check_replays_draw_anew``)."""
+    them. With ``tap`` (``tap_sample``: an MR path's BBB encoder's first
+    layer; ``tap_da``: K6's output) a tensor the graph draws anew is tapped
+    before the capture, and two more replays must draw it differently
+    (``check_replays_draw_anew``)."""
     import tempfile
 
     import torch
@@ -2123,7 +2203,7 @@ def train_phase(card, yaml, overrides, counters, tap=False):
     t0 = time.perf_counter()
     trainer = train_cli.build_trainer(config)
     fused = trainer.train_step
-    seen = tap_sample(trainer) if tap else None
+    seen = tap(trainer) if tap else None
     with tempfile.TemporaryDirectory() as tmp:
         fused.dot_path = os.path.join(tmp, "step.dot")
         trainer.train()
@@ -2222,7 +2302,7 @@ def bbb_encoder(model):
 def tap_sample(trainer):
     """Keep the last weight sample the BBB encoder's first layer draws;
     once the graph is captured it is the graph's static tensor, which each
-    replay writes anew."""
+    replay writes anew. Every entry of a new sample differs."""
     layer = bbb_encoder(trainer.model).net.layer1.conv
     seen, sample = {}, layer.sample
 
@@ -2232,15 +2312,35 @@ def tap_sample(trainer):
         return out
 
     layer.sample = tapped
-    seen["layer"] = layer
+    seen.update(what="samples of the BBB encoder's first layer", share=0.99,
+                undo=lambda: delattr(layer, "sample"))
+    return seen
+
+
+def tap_da(trainer):
+    """Keep the output of the last K6 launch of a step (the query images'
+    DA), the graph's static tensor once captured. A new draw warps and
+    drops out every object anew, but leaves most of the empty background
+    as it was: at least 1% of the pixels must differ."""
+    from wmfml_tpu_torch.aug import image_aug
+
+    seen, launch = {}, image_aug.image_da
+
+    def tapped(*args, **kwargs):
+        seen["w"] = launch(*args, **kwargs)
+        return seen["w"]
+
+    image_aug.image_da = tapped
+    seen.update(what="K6 outputs (a step's query images)", share=0.01,
+                undo=lambda: setattr(image_aug, "image_da", launch))
     return seen
 
 
 def check_replays_draw_anew(trainer, seen, tag):
-    """Two more replays of the captured graph: the tapped BBB layer's
-    sample after each must differ (the trainer's generator is registered
-    with the graph, so each replay draws from where the last one left it);
-    both finite."""
+    """Two more replays of the captured graph: the tapped tensor after each
+    must differ in at least ``seen["share"]`` of its entries (the trainer's
+    generator is registered with the graph, so each replay draws from where
+    the last one left it); both finite."""
     import torch
 
     fused = trainer.train_step
@@ -2249,14 +2349,15 @@ def check_replays_draw_anew(trainer, seen, tag):
         fused(trainer.generator)
         torch.cuda.synchronize()
         samples.append(seen["w"].clone())
-    del seen["layer"].sample         # the class's own sample again
+    seen["undo"]()
     differ = (samples[0] != samples[1]).float().mean().item()
-    log(f"train {tag}: two replays' samples of the BBB encoder's first "
-        f"layer {tuple(samples[0].shape)}: {differ} of the entries differ")
-    if differ < 0.99 or not all(bool(torch.isfinite(s).all())
-                                for s in samples):
-        raise AssertionError(f"{tag}: two replays drew the same BBB weights "
-                             f"({differ} of the entries differ)")
+    log(f"train {tag}: two replays' {seen['what']} "
+        f"{tuple(samples[0].shape)}: {differ} of the entries differ")
+    if differ < seen["share"] or not all(bool(torch.isfinite(s).all())
+                                         for s in samples):
+        raise AssertionError(f"{tag}: two replays drew the same "
+                             f"{seen['what']} ({differ} of the entries "
+                             f"differ)")
 
 
 def check_da_batch(trainer):
@@ -2395,30 +2496,79 @@ def check_trained_output(trainer):
         raise AssertionError(f"card and CPU outputs differ by {err}")
 
 
-def check_validation_loss(trainer):
-    """The trained model's validation loss on one episode (MAML: after 20
-    inner steps; ShapeNet1D in degrees, Pascal1D's MSE of labels x 10): the
-    card (kernels) against the CPU (plain twins)."""
+def eval_step_for(method):
+    """The eval-step factory of ``method``'s family
+    (``models/registry.py:method_family``)."""
+    from wmfml_tpu_torch.models.registry import method_family
+    from wmfml_tpu_torch.train.maml import build_maml_eval_step
+    from wmfml_tpu_torch.train.mmaml import build_mmaml_eval_step
+    from wmfml_tpu_torch.train.steps import build_eval_step
+
+    return {"mmaml": build_mmaml_eval_step, "maml": build_maml_eval_step,
+            "np": build_eval_step}[method_family(method)]
+
+
+@spent
+def check_validation_loss(trainer, tasks=None, exact=False):
+    """The trained model's validation loss on one episode (its first
+    ``tasks`` tasks; MAML: after 20 inner steps; ShapeNet1D in degrees,
+    Pascal1D's MSE of labels x 10): the card (kernels) against the CPU
+    (plain twins), within VAL_TOL. With ``exact`` the loss is also taken in
+    float64 (on the card, through the plain twins), and the card may
+    instead come within GRAD_FACTOR times the CPU's own distance from it,
+    as phase 8 holds the gradient: MAML's one-pass BN cancels in each of
+    the 20 inner steps, and the card's distance from the CPU moves from run
+    to run with cuDNN's default algorithms (0.0046 and 0.0225 degrees on
+    two runs on an H100)."""
     import copy
 
-    from wmfml_tpu_torch.train.maml import build_maml_eval_step
-    from wmfml_tpu_torch.train.steps import build_eval_step
+    import torch
+
+    from wmfml_tpu_torch.aug import pipeline
+    from wmfml_tpu_torch.kernels import features, stem
+    from wmfml_tpu_torch.models import maml as maml_model
+    from wmfml_tpu_torch.nn import encoders
+    from wmfml_tpu_torch.ops.cast import set_compute_dtype
     from wmfml_tpu_torch.train.trainer import episode_to_device
 
     cfg, data = trainer.config, trainer.data
     data.reset_eval("validation", seed=42)
     raw = data.get_batch("validation", cfg.tasks_per_batch, cfg.max_ctx_num)
+    raw = {k: v[:tasks] for k, v in raw.items()}
     got = float(trainer.eval_step(episode_to_device(raw, "cuda")))
-    build = build_maml_eval_step if "MAML" in cfg.method else build_eval_step
-    cpu_step = build(copy.deepcopy(trainer.model).cpu(), cfg)
+    t0 = time.perf_counter()
+    cpu_step = eval_step_for(cfg.method)(copy.deepcopy(trainer.model).cpu(),
+                                        cfg)
     want = float(cpu_step(episode_to_device(raw, "cpu")))
-    err = abs(got - want)
-    log(f"output: {cfg.method} ({cfg.task}) validation loss on one episode: "
-        f"card {got}, CPU {want}; abs err {err} (tolerance {VAL_TOL} x |CPU| "
-        f"+ {VAL_TOL})")
-    if not math.isfinite(got) or err > VAL_TOL * (abs(want) + 1.0):
+    cpu_s = time.perf_counter() - t0
+    err, limit = abs(got - want), VAL_TOL * (abs(want) + 1.0)
+    line = (f"output: {cfg.method} ({cfg.task}) validation loss on one "
+            f"episode ({len(raw['ctx_x'])} tasks): card {got}, CPU {want} "
+            f"({cpu_s:.1f} s); abs err {err} (tolerance {VAL_TOL} x |CPU| + "
+            f"{VAL_TOL})")
+    if exact:
+        f64 = torch.float64
+        model = set_compute_dtype(copy.deepcopy(trainer.model).to(f64), f64)
+        saved = (encoders.literature_stem, maml_model.maml_features,
+                 pipeline._to_float)
+        encoders.literature_stem = stem.stem_plain
+        maml_model.maml_features = features.features_plain
+        pipeline._to_float = lambda x, _=None: saved[2](x).to(f64)
+        try:
+            ref = float(eval_step_for(cfg.method)(model, cfg)(
+                episode_to_device(raw, "cuda")))
+        finally:
+            (encoders.literature_stem, maml_model.maml_features,
+             pipeline._to_float) = saved
+        err, err_cpu = abs(got - ref), abs(want - ref)
+        limit = max(VAL_TOL * (abs(ref) + 1.0), GRAD_FACTOR * err_cpu)
+        line += (f"; float64 {ref}: card {err} from it, CPU {err_cpu} "
+                 f"(limit max({VAL_TOL} x |float64| + {VAL_TOL}, "
+                 f"{GRAD_FACTOR} x the CPU's) = {limit})")
+    log(line)
+    if not math.isfinite(got) or err > limit:
         raise AssertionError(f"{cfg.method} validation loss: card {got}, CPU "
-                             f"{want}")
+                             f"{want}" + (f", float64 {ref}" if exact else ""))
 
 
 def check_pascal_evaluation(trainer):
@@ -2467,6 +2617,7 @@ def check_pascal_evaluation(trainer):
                              f"{want}")
 
 
+@spent
 def check_bf16_validation(trainer, tasks=None):
     """The bfloat16 model's validation loss on one episode (its first
     ``tasks`` tasks): the card (kernels, bfloat16) against the CPU (plain
@@ -2477,8 +2628,6 @@ def check_bf16_validation(trainer, tasks=None):
 
     from wmfml_tpu_torch.configs import torch_dtype
     from wmfml_tpu_torch.ops.cast import set_compute_dtype
-    from wmfml_tpu_torch.train.maml import build_maml_eval_step
-    from wmfml_tpu_torch.train.steps import build_eval_step
     from wmfml_tpu_torch.train.trainer import episode_to_device
 
     cfg, data = trainer.config, trainer.data
@@ -2486,7 +2635,7 @@ def check_bf16_validation(trainer, tasks=None):
     raw = data.get_batch("validation", cfg.tasks_per_batch, cfg.max_ctx_num)
     raw = {k: v[:tasks] for k, v in raw.items()}
     got = float(trainer.eval_step(episode_to_device(raw, "cuda")))
-    build = build_maml_eval_step if "MAML" in cfg.method else build_eval_step
+    build = eval_step_for(cfg.method)
     cpu = {}
     for dtype in ("bfloat16", "float32"):
         c = copy.copy(cfg)
@@ -2506,15 +2655,18 @@ def check_bf16_validation(trainer, tasks=None):
                              f"CPU {cpu}")
 
 
+@spent
 def call_ms(trainer, calls, loop=False):
     """ms/step of ``calls`` calls of the trainer's fused step, graph replays
     or (``loop``) the same steps issued from the host: host clock over the
-    calls, ending in a device sync, after one untimed call."""
+    calls, ending in a device sync, after one untimed call (none before
+    replays of a graph that has been replayed)."""
     import torch
 
     fused = trainer.train_step
     fn = fused.loop if loop else fused
-    fn(trainer.generator)
+    if loop or not fused.replays:
+        fn(trainer.generator)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
@@ -2523,15 +2675,15 @@ def call_ms(trainer, calls, loop=False):
     return 1e3 * (time.perf_counter() - t0) / (calls * fused.k)
 
 
+@spent
 def dtype_turns(pairs, calls, profile=False):
     """ms/step and tasks/s of each (float32, bfloat16) trainer pair's graph
-    replays, timed in turns f32, bf16, bf16, f32 on the same card; with
+    replays, timed f32 then bf16 on the same card; with
     ``profile``, the card's busy share of one call of each."""
     out = {}
     for name, (f32, bf16) in pairs.items():
-        runs = [call_ms(tr, calls) for tr in (f32, bf16, bf16, f32)]
-        row = out[name] = dict(f32_ms=(runs[0] + runs[3]) / 2,
-                               bf16_ms=(runs[1] + runs[2]) / 2, turns_ms=runs)
+        runs = [call_ms(tr, calls) for tr in (f32, bf16)]
+        row = out[name] = dict(f32_ms=runs[0], bf16_ms=runs[1], turns_ms=runs)
         t_ = f32.config.tasks_per_batch
         busy = ""
         if profile:
@@ -2542,23 +2694,27 @@ def dtype_turns(pairs, calls, profile=False):
         log(f"turns: {name}: float32 {row['f32_ms']} ms/step "
             f"({t_ * 1e3 / row['f32_ms']} tasks/s), bfloat16 "
             f"{row['bf16_ms']} ms/step ({t_ * 1e3 / row['bf16_ms']} tasks/s), "
-            f"bf16 / f32 {row['bf16_ms'] / row['f32_ms']} (f32, bf16, bf16, "
-            f"f32: {runs}; {calls} calls of {f32.train_step.k} and "
+            f"bf16 / f32 {row['bf16_ms'] / row['f32_ms']} ({calls} calls of "
+            f"{f32.train_step.k} and "
             f"{bf16.train_step.k} steps each){busy}")
     return out
 
 
+@spent
 def graph_equals_loop(yaml, overrides, calls=3):
     """Two trainers from one seed under deterministic algorithms: one takes
     ``calls`` fused calls (an eager warm-up, the capture and its replay,
     replays), the other the same steps issued from the host (``loop``).
     Every call's metrics, the weights, Adam's state and the generator's
-    state must be equal bit for bit."""
+    state must be equal bit for bit: the last call shows that a replay
+    carries on from the one before (the generator's offset, the capturable
+    optimizer's step, the static inputs written anew)."""
     import torch
 
     from wmfml_tpu_torch.cli import train_cli
     from wmfml_tpu_torch.configs import Config
 
+    t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True)
     try:
         graph, loop = (train_cli.build_trainer(Config(yaml, overrides))
@@ -2588,25 +2744,26 @@ def graph_equals_loop(yaml, overrides, calls=3):
         f" T={cfg.tasks_per_batch}" if cfg.tasks_per_batch != 10 else "")
     log(f"graph vs loop {tag}: {calls} calls of {fused.k} steps ({fused.replays} "
         f"replays): metrics, {len(tensors[0]) - 1} weight and Adam tensors and "
-        f"the generator state, {differ} of them differ")
-    if differ or fused.replays < 1 or len(tensors[0]) != len(tensors[1]):
+        f"the generator state, {differ} of them differ "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if (differ or fused.replays < calls - fused.warm_calls
+            or len(tensors[0]) != len(tensors[1])):
         raise AssertionError(f"{tag}: the graph path left {differ} tensors "
                              f"unlike the loop's")
 
 
+@spent
 def graph_loop_turns(trainers, calls, nodes, profile):
     """ms/step of graph replays against the same steps issued from the host
-    (``loop``), timed in turns graph, loop, loop, graph on each trained
-    trainer (``calls`` calls each), beside the graph's size, its capture's
-    and instantiation's host seconds and its pool's bytes; with
+    (``loop``), timed graph, then loop, on each trained trainer (``calls``
+    calls each, after an untimed one), beside the graph's size, its
+    capture's and instantiation's host seconds and its pool's bytes; with
     ``profile``, the card's busy share of one call of each."""
     out = {}
     for tag, trainer in trainers.items():
         fused = trainer.train_step
-        runs = [call_ms(trainer, calls[tag], loop=lp)
-                for lp in (False, True, True, False)]
-        row = dict(graph_ms=(runs[0] + runs[3]) / 2,
-                   loop_ms=(runs[1] + runs[2]) / 2, turns_ms=runs,
+        runs = [call_ms(trainer, calls[tag], loop=lp) for lp in (False, True)]
+        row = dict(graph_ms=runs[0], loop_ms=runs[1], turns_ms=runs,
                    steps_per_call=fused.k, **fused.graph_stats,
                    **nodes[tag])
         if profile:
@@ -2617,19 +2774,20 @@ def graph_loop_turns(trainers, calls, nodes, profile):
         log(f"graph vs loop {tag}: graph {row['graph_ms']} ms/step "
             f"({t_ * 1e3 / row['graph_ms']} tasks/s), loop {row['loop_ms']} "
             f"ms/step ({t_ * 1e3 / row['loop_ms']} tasks/s), "
-            f"{row['loop_ms'] / row['graph_ms']}x (graph, loop, loop, graph: "
-            f"{runs}; {calls[tag]} calls of {fused.k} steps each); "
+            f"{row['loop_ms'] / row['graph_ms']}x ({calls[tag]} calls of "
+            f"{fused.k} steps each); "
             f"{json.dumps({k: v for k, v in row.items() if k not in ('turns_ms', 'graph_ms', 'loop_ms')})}")
         out[tag] = row
     return out
 
 
+@spent
 def determinism_turns(paths, calls):
     """ROADMAP.md C2: what ``torch.backends.cudnn.deterministic`` costs a
     graph replay. For each path (yaml, overrides), two fresh trainers: one
     runs its eager warm-up calls and captures its graph with the flag off,
     the other with it on (the algorithms are chosen then, and the graph
-    keeps them); their replays are timed in turns off, on, on, off. The
+    keeps them); their replays are timed off, then on. The
     port's setting is restored at the end."""
     import torch
 
@@ -2648,15 +2806,13 @@ def determinism_turns(paths, calls):
                     tr.train_step(tr.generator)
                 torch.cuda.synchronize()
                 trainers[det] = tr
-            runs = [call_ms(trainers[det], calls[tag])
-                    for det in (False, True, True, False)]
-            off, on = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+            off, on = runs = [call_ms(trainers[det], calls[tag])
+                              for det in (False, True)]
             out[tag] = dict(graph_ms=off, deterministic_ms=on,
                             cost=on / off - 1.0, turns_ms=runs)
             log(f"determinism {tag}: graph {off} ms/step with cuDNN's "
                 f"default algorithms, {on} ms/step with "
-                f"torch.backends.cudnn.deterministic (off, on, on, off: "
-                f"{runs}; {calls[tag]} calls of "
+                f"torch.backends.cudnn.deterministic ({calls[tag]} calls of "
                 f"{trainers[False].train_step.k} steps each): "
                 f"{100 * (on / off - 1.0)}% a step")
             del trainers, tr
@@ -2751,6 +2907,7 @@ def grad_spread(trainer, gens, jitters=3):
             f"above GRAD_FACTOR {GRAD_FACTOR}")
 
 
+@spent
 def second_order_errors(trainer, gen, jitter=None):
     """Phase 8's comparison on ``trainer``'s model and one batch: the
     kernels' and the twins' distance from float64, the kernels' from the
@@ -2881,6 +3038,7 @@ def shuffled_twin(plain_fn, kernel_fn):
     return fn
 
 
+@spent
 def profile_calls(trainer, tag, loop=False, calls=1):
     """torch.profiler over ``calls`` calls of the trainer's fused step (graph
     replays, or with ``loop`` the same steps issued from the host): the
@@ -2900,25 +3058,22 @@ def profile_calls(trainer, tag, loop=False, calls=1):
             fn(trainer.generator)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("Optimizer.")]
+    kernels = [e for e in device_events(prof)
+               if not e[0].startswith("Optimizer.")]
     busy_us, last_end = 0.0, float("-inf")       # union of kernel intervals
-    for start, end in sorted((e.time_range.start, e.time_range.end)
-                             for e in kernels):
+    for start, end in sorted(e[1:] for e in kernels):
         busy_us += max(0.0, end - max(start, last_end))
         last_end = max(last_end, end)
     log(f"profile {tag}: {steps} steps, {wall_us / steps} us/step wall, "
         f"device busy {busy_us / steps} us/step = {busy_us / wall_us} of the "
         f"wall time ({len(kernels) / steps} kernels/step)")
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, start, end in kernels:
+        by_name[name] = by_name.get(name, 0.0) + end - start
     # K6 launches twice a step; its events' mean, as device_profile takes
     # it, since the profiler may drop some of them
-    k6 = [e.time_range.elapsed_us() for e in kernels
-          if "image_da_kernel" in e.name]
+    k6 = [end - start for name, start, end in kernels
+          if "image_da_kernel" in name]
     da_us = 2 * steps * sum(k6) / max(len(k6), 1)
     log(f"profile {tag}: K6 (DA) {da_us / steps} us/step of device time "
         f"= {da_us / max(busy_us, 1e-9)} of the busy time ({len(k6)} of "
@@ -3010,8 +3165,6 @@ def check_mr_validation(trainer):
     import torch
 
     from wmfml_tpu_torch.nn.bbb import EpsFeed
-    from wmfml_tpu_torch.train.maml import build_maml_eval_step
-    from wmfml_tpu_torch.train.steps import build_eval_step
     from wmfml_tpu_torch.train.trainer import episode_to_device
 
     cfg, data = trainer.config, trainer.data
@@ -3020,8 +3173,8 @@ def check_mr_validation(trainer):
     rec = EpsFeed(generator=torch.Generator(device="cuda").manual_seed(
         int(cfg.seed)))
     got = float(trainer.eval_step(episode_to_device(raw, "cuda"), rec))
-    build = build_maml_eval_step if "MAML" in cfg.method else build_eval_step
-    cpu_step = build(copy.deepcopy(trainer.model).cpu(), cfg)
+    cpu_step = eval_step_for(cfg.method)(copy.deepcopy(trainer.model).cpu(),
+                                        cfg)
     want = float(cpu_step(episode_to_device(raw, "cpu"),
                           EpsFeed([d.cpu() for d in rec.draws])))
     err = abs(got - want)
@@ -3115,6 +3268,145 @@ def check_mr_second_order():
         check_second_order_grad(trainer)
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def mmaml_phase(card):
+    """Phase 20: MMAMLShapeNet1D (``cfg/train/MMAML_ShapeNet1D_DA+TA.yaml``)
+    through ``train_phase``: K6 program 0 twice a step, graph nodes
+    included, and K1, K2 and K3 no time (every counter zeroed before and
+    read after); two more replays draw new DA (``tap_da``); the validation
+    loss on one episode (10 inner steps), card against CPU; the outer
+    gradient against float64 (``check_mmaml_grad``); graph and loop ms/step
+    with the card's busy share. Both CPU checks take the episode's first
+    three tasks (each task's loss depends on its own rows only). Returns
+    (trainer, launches)."""
+    from wmfml_tpu_torch.kernels.image_da import image_da
+    from wmfml_tpu_torch.train.steps import KERNELS
+
+    trainer, launches, nodes = train_phase(
+        card, MMAML_YAML, MMAML_OVERRIDES, {"image_da": image_da}, tap=tap_da)
+    others = {n: fn.launches for n, fn in KERNELS.items() if n != "image_da"}
+    log(f"train {trainer.config.method}: launches off the path {others}")
+    if any(others.values()):
+        raise AssertionError(f"{trainer.config.method}: launches {others} "
+                             f"off the path")
+    check_validation_loss(trainer, tasks=3)
+    check_mmaml_grad(trainer)
+    graph_loop_turns({"MMAMLShapeNet1D (P20)": trainer},
+                     {"MMAMLShapeNet1D (P20)": 1},
+                     {"MMAMLShapeNet1D (P20)": nodes}, profile=True)
+    return trainer, launches
+
+
+@spent
+def check_mmaml_grad(trainer, tasks=3):
+    """Phase 20's gradient check, as phase 8's: the first ``tasks`` tasks
+    of one full-width training batch (drawn and augmented through K6 from a
+    generator seeded with the config's seed, the TA offsets drawn once and
+    fed to every run; a task's loss and its gradient's share depend on its
+    own rows only, so fewer tasks cut the CPU's time, not the check) and
+    the bundle as the config's seed builds it; the outer loss and both
+    networks' second-order outer gradients under deterministic algorithms
+    on the card, in float32 on the CPU and in float64 on the CPU. Each
+    network's largest relative error on the card must come within GRAD_TOL
+    of float64, or within GRAD_FACTOR times the float32 CPU's: the one-pass
+    BN of every inner step (E[x^2] - E[x]^2) cancels, as MAML's does. The
+    second-order part (the card's first-order gradient against float64)
+    must be well above the error, or the check is blind."""
+    import copy
+
+    import torch
+
+    from wmfml_tpu_torch.aug import pipeline
+    from wmfml_tpu_torch.models.registry import build_model
+    from wmfml_tpu_torch.ops.cast import set_compute_dtype
+    from wmfml_tpu_torch.train.mmaml import build_mmaml_outer
+
+    cfg, card = copy.copy(trainer.config), trainer.device
+    gen = torch.Generator(device=card).manual_seed(int(cfg.seed))
+    batch = trainer.sampler.sample(cfg.tasks_per_batch, gen)
+    augment = pipeline.build_episode_processor(cfg.task, cfg.aug_list,
+                                               train=True).augment
+    batch = dict(batch, **{k: augment(batch[k], gen)
+                           for k in ("ctx_x", "qry_x")})
+    ta_idx = torch.randint(0, 15, (cfg.tasks_per_batch,), generator=gen,
+                           device=card)[:tasks]
+    batch = {k: v[:tasks] for k, v in batch.items()}
+    cfg.aug_list = [a for a in cfg.aug_list if a != "data_aug"]
+    fresh = build_model(cfg)
+
+    def grads(device, dtype, first_order=False):
+        c = copy.copy(cfg)
+        c.first_order = first_order
+        model = set_compute_dtype(copy.deepcopy(fresh).to(device, dtype),
+                                  dtype)
+        saved = pipeline._to_float
+        pipeline._to_float = lambda x, _=None: saved(x).to(dtype)
+        try:
+            outer = build_mmaml_outer(model, c, int(c.num_steps), train=True,
+                                      test=False)
+            loss = outer({k: v.to(device) for k, v in batch.items()},
+                         ta_idx=ta_idx.to(device))
+            names, params = zip(*model.named_parameters())
+            g = torch.autograd.grad(loss, params)
+        finally:
+            pipeline._to_float = saved
+        return loss.item(), {n: v.double().cpu() for n, v in zip(names, g)}
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        card_loss, on_card = grads(card, torch.float32)
+        _, first = grads(card, torch.float32, first_order=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t1 = time.perf_counter()
+    cpu_loss, cpu = grads("cpu", torch.float32)
+    exact_loss, exact = grads("cpu", torch.float64)
+    t2 = time.perf_counter()
+
+    # a conv bias that feeds a batch norm has true gradient 0 (BN removes
+    # any per-channel shift): held against its network's largest entry
+    nets = {"model": "model.", "embedding_model": "embedding_model."}
+    scale = {net: max(g.abs().max().item() for n, g in exact.items()
+                      if n.startswith(p)) for net, p in nets.items()}
+
+    def worst(a, b, net):
+        errs = []
+        for n in exact:
+            if not n.startswith(nets[net]):
+                continue
+            shift_free = n.endswith(".bias") and ("_conv." in n
+                                                  or ".conv.conv" in n)
+            den = scale[net] if shift_free else b[n].abs().max().item()
+            errs.append(((a[n] - b[n]).abs().max().item() / den, n))
+        errs.sort(reverse=True)
+        return errs[0][0], errs[:3]
+
+    rel_loss = {k: abs(v - exact_loss) / abs(exact_loss)
+                for k, v in (("card", card_loss), ("cpu", cpu_loss))}
+    log(f"grad: MMAML, {tasks} of the batch's {cfg.tasks_per_batch} tasks, "
+        f"shots {batch['ctx_mask'].sum(1).tolist()}: outer loss card "
+        f"{card_loss}, CPU float32 {cpu_loss}, "
+        f"float64 {exact_loss} (rel err {rel_loss}); card {t1 - t0} s, CPU "
+        f"float32 + float64 {t2 - t1} s")
+    if not rel_loss["card"] <= max(GRAD_TOL, GRAD_FACTOR * rel_loss["cpu"]):
+        raise AssertionError(f"MMAML outer loss: card {card_loss}, float64 "
+                             f"{exact_loss}, CPU float32 {cpu_loss}")
+    for net in nets:
+        err, top = worst(on_card, exact, net)
+        err_cpu, top_cpu = worst(cpu, exact, net)
+        second, _ = worst(exact, first, net)
+        log(f"grad: MMAML {net}: second-order outer gradient, max rel err "
+            f"against float64: card {err} ({top}), CPU float32 {err_cpu} "
+            f"({top_cpu}); second-order part {second}")
+        if not err <= max(GRAD_TOL, GRAD_FACTOR * err_cpu):
+            raise AssertionError(f"MMAML {net}: the card's gradient is {err} "
+                                 f"from float64, the CPU's {err_cpu}")
+        if not second > 10 * err:
+            raise AssertionError(f"MMAML {net}: second-order part {second} "
+                                 f"is not above the error {err}: the check "
+                                 f"is blind")
 
 
 def zero_counters():
@@ -3635,7 +3927,7 @@ def main(argv):
     stamp("phases 4-6, ANP")
     mtrainer, maml_launches, maml_nodes = train_phase(
         card, MAML_YAML, MAML_OVERRIDES, maml_kernels)
-    check_validation_loss(mtrainer)
+    check_validation_loss(mtrainer, exact=True)
     torch.use_deterministic_algorithms(True)
     try:
         replayed = replay_maml()
@@ -3757,10 +4049,11 @@ def main(argv):
     stamp("graph against loop, bit for bit")
     # phase 18: MR and FCL (ROADMAP.md A13): M1-M3, F1-F3, E1
     m1trainer, m1_launches, m1_nodes = train_phase(
-        card, MR_ANP_YAML, TRAIN_OVERRIDES, anp_kernels, tap=True)
+        card, MR_ANP_YAML, TRAIN_OVERRIDES, anp_kernels, tap=tap_sample)
     check_mr_validation(m1trainer)
     m2trainer, m2_launches, m2_nodes = train_phase(
-        card, MR_MAML_YAML, MR_MAML_OVERRIDES, maml_kernels, tap=True)
+        card, MR_MAML_YAML, MR_MAML_OVERRIDES, maml_kernels,
+        tap=tap_sample)
     check_mr_validation(m2trainer)
     stamp("phase 18: M1, M2")
     check_mr_second_order()
@@ -3870,21 +4163,26 @@ def main(argv):
                "SingleTaskDistractor (T2)": t2_nodes,
                "SingleTaskShapeNet3D (T3)": t3_nodes},
         profile="--profile" in argv)
-    stamp("graph against loop, in turns")
+    stamp("graph against loop, timed")
     # phase 18's and 19's graphs and their pools (about 20 GB) go before
     # the determinism check builds its fresh trainers
     del m1trainer, m2trainer, m3trainer, f1trainer, f2trainer, f3trainer
     del t1trainer, t2trainer, t3trainer
     gc.collect()
     torch.cuda.empty_cache()
-    # cuDNN's determinism: its cost a step on four paths (ROADMAP.md C2)
+    # phase 20: MMAML (ROADMAP.md A16)
+    mmtrainer, mmaml_launches = mmaml_phase(card)
+    del mmtrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_equals_loop(MMAML_YAML, MMAML_OVERRIDES)
+    stamp("phase 20, MMAML")
+    # cuDNN's determinism: its cost a step on two paths (ROADMAP.md C2
+    # records MAML's and S1's from earlier runs)
     determinism_turns(
         {"ANPShapeNet1D": (MAIN_YAML, TRAIN_OVERRIDES),
-         "MAMLShapeNet1D": (MAML_YAML, MAML_OVERRIDES),
-         "ANPDistractor": (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES),
-         "ANP ShapeNet3D": (S3D_YAML, S3D_OVERRIDES)},
-        calls={"ANPShapeNet1D": 2, "MAMLShapeNet1D": 1, "ANPDistractor": 1,
-               "ANP ShapeNet3D": 1})
+         "ANPDistractor": (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES)},
+        calls={"ANPShapeNet1D": 2, "ANPDistractor": 1})
 
     stamp("cuDNN's determinism")
     launches = {"ANP": anp_launches, "MAML": maml_launches,
@@ -3914,9 +4212,10 @@ def main(argv):
                 "One task CNP Distractor": o2_launches,
                 "Plot ANP ShapeNet1D": q1_launches,
                 "Plot ANP ShapeNet3D": q2_launches,
-                "Plot CNP Distractor": q3_launches}
-    log("launches on the new paths (phase 19): " + json.dumps(
-        {k: launches[k] for k in list(launches)[-10:]}))
+                "Plot CNP Distractor": q3_launches,
+                "MMAML": mmaml_launches}
+    log("launches on the new paths (phases 19, 20): " + json.dumps(
+        {k: launches[k] for k in list(launches)[-11:]}))
     for r in rows:
         if r.get("off_path"):
             r["launches"] = 0
@@ -3927,6 +4226,9 @@ def main(argv):
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']}: no {key} launch on the "
                                  f"{r['path']} path")
+    log("time: host seconds in each helper over the run (nested calls "
+        "counted in each): " + json.dumps({k: round(v, 1) for k, v in
+                                           SPENT.items()}))
     log(f"profile: {TRACES['taken']} traces of torch.profiler, "
         f"{TRACES['empty']} holding no device event, {TRACES['short']} "
         f"fewer device events than their kernels imply; "

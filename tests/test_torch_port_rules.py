@@ -186,11 +186,17 @@ def test_fixed_order_perf_yaml_raises_naming_a20_with_bf16_accepted():
     ("agg_mode=max", TypeError),
 ])
 def test_unported_options_raise(override, error):
-    """(MAMLMRShapeNet1D, ROADMAP.md A13, is done and builds; its case is
-    kept so that the case's record runs on.)"""
+    """(MAMLMRShapeNet1D, ROADMAP.md A13, and MMAMLShapeNet1D, A16, are
+    done and build; their cases are kept so that the cases' records run
+    on.)"""
     if override == "method=MAMLMRShapeNet1D":
         model = build_model(_config("device=cpu", override))
         assert type(model).__name__ == "MAMLRegressor" and model.bbb
+        return
+    if override == "method=MMAMLShapeNet1D":
+        model = build_model(_config("device=cpu", override))
+        assert type(model).__name__ == "MMAMLBundle"
+        assert model.model.condition_type == "affine"
         return
     with pytest.raises(error):
         build_model(_config("device=cpu", override))
@@ -201,10 +207,11 @@ def test_unported_options_raise(override, error):
     ("MMAMLShapeNet1D", "A16"), ("ANP", "A12"), ("SingleTaskShapeNet1D", "A14"),
 ])
 def test_unported_methods_name_their_roadmap_item(method, item):
-    """(The cases of ANP, whose slice, A12c, is done, of the A13 methods
-    and of SingleTaskShapeNet1D (A14), done, now build ShapeNet3D's ANP,
-    the MR methods and the SingleTask baseline and run them; they are kept
-    so that the cases' records run on.)"""
+    """(The cases of ANP, whose slice, A12c, is done, of the A13 methods,
+    of SingleTaskShapeNet1D (A14) and of MMAMLShapeNet1D (A16), done, now
+    build ShapeNet3D's ANP, the MR methods, the SingleTask baseline and
+    MMAML and run them; they are kept so that the cases' records run
+    on.)"""
     if method == "ANP":
         yaml = os.path.join(REPO, "cfg", "train", "ANP_ShapeNet3D.yaml")
         model = build_model(Config(yaml, ["device=cpu"], make_dirs=False))
@@ -216,6 +223,9 @@ def test_unported_methods_name_their_roadmap_item(method, item):
         return
     if item == "A14":
         _builds_and_runs_single_task(method)
+        return
+    if item == "A16":
+        _builds_and_runs_mmaml(method)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         build_model(_config("device=cpu", f"method={method}"))
@@ -251,6 +261,27 @@ def _builds_and_runs_mr(method):
     assert torch.equal(*outs) and gen.draws
 
 
+def _builds_and_runs_mmaml(method):
+    """A16's MMAML from its shipped YAML: the full-width bundle, one
+    forward on the CPU of a 32x32 episode (T = 2, 3 context images, one
+    padded), finite, in [-1, 1] (Tanh), moved by the modulation."""
+    cfg = Config(os.path.join(REPO, "cfg", "train",
+                              "MMAML_ShapeNet1D_DA+TA.yaml"), ["device=cpu"],
+                 make_dirs=False)
+    assert cfg.method == method and not cfg.rnn_aggregation
+    model = build_model(cfg)
+    x = torch.rand(2, 3, 32, 32, 1)
+    mask = torch.tensor([[True, True, True], [True, True, False]])
+    with torch.no_grad():
+        embs = model.embedding_model(x, mask)
+        out = model.model(x, embs, mask)
+        plain = model.model(x, None, mask)
+    assert [tuple(e.shape) for e in embs] == [(2, d)
+                                               for d in (64, 128, 256, 512)]
+    assert tuple(out.shape) == (2, 3, 2) and bool(torch.isfinite(out).all())
+    assert float(out.abs().max()) <= 1.0 and not torch.equal(out, plain)
+
+
 def _builds_and_runs_single_task(method):
     """A14's SingleTask baseline from its shipped YAML: one forward on the
     CPU at the YAML's width (a 32x32 image size, T = 2), finite, the
@@ -273,13 +304,48 @@ def _builds_and_runs_single_task(method):
 
 
 def test_unported_maml_options_raise(tmp_path, monkeypatch):
+    """``maml_remat`` (A19) raises, for MMAML too. (MMAML, A16, is done:
+    ``train_cli`` now builds an ``MMAMLTrainer`` for it, not the
+    ``MAMLTrainer`` that a substring test of "MAML" would pick, and the
+    evaluator refuses it; the case is kept so that its record runs on.)"""
+    from wmfml_tpu_torch.data.synthetic import generate_shapenet1d
+    from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
+    from wmfml_tpu_torch.train.maml import MAMLTrainer
+    from wmfml_tpu_torch.train.mmaml import MMAMLTrainer
+
     with pytest.raises(NotImplementedError, match="A19"):
         _config("device=cpu", "maml_remat=step")
+    with pytest.raises(NotImplementedError, match="A19"):
+        _config("device=cpu", "method=MMAMLShapeNet1D", "maml_remat=dots")
+    data = str(tmp_path / "sn1d")
+    generate_shapenet1d(data, seed=0, instances=7, val_classes=3,
+                        test_classes=2)
     monkeypatch.chdir(tmp_path)
-    cfg = _config("device=cpu", "method=MMAMLShapeNet1D")
-    with pytest.raises(NotImplementedError, match="A16"):
-        train_cli.build_trainer(cfg)
-    assert not os.listdir(tmp_path)          # raised before touching data
+    cfg = Config(os.path.join(REPO, "cfg", "train",
+                              "MMAML_ShapeNet1D_DA+TA.yaml"),
+                 ["device=cpu", f"data_path={data}", "data_size=small",
+                  "tasks_per_batch=2", "max_ctx_num=3"], make_dirs=False)
+    trainer = train_cli.build_trainer(cfg)
+    assert type(trainer) is MMAMLTrainer and not isinstance(trainer,
+                                                            MAMLTrainer)
+    assert [g["name"] for g in trainer.optimizer.param_groups] == [
+        "model", "embedding"]
+    with pytest.raises(NotImplementedError, match="MMAML has no evaluator"):
+        ModelEvaluator(trainer.model, cfg, trainer.data)
+
+
+@pytest.mark.parametrize("method,family", [
+    ("MMAMLShapeNet1D", "mmaml"), ("MAMLShapeNet1D", "maml"),
+    ("VanillaMAML", "maml"), ("MAMLMRShapeNet1D", "maml"),
+    ("ANPShapeNet1D", "np"), ("SingleTaskShapeNet1D", "np"),
+])
+def test_methods_dispatch_by_family(method, family):
+    """Every entry point routes a method through ``method_family``: MMAML
+    is tested before MAML, whose name is a substring of its own."""
+    from wmfml_tpu_torch.models.registry import available_methods, method_family
+
+    assert method in available_methods()
+    assert method_family(method) == family
 
 
 def test_maml_yaml_builds_a_second_order_cuda_trainer_config(monkeypatch,

@@ -3,10 +3,11 @@
 
 ``load_jax_variables(model, variables)`` takes a SmallCNP's or a
 LargeCNP's JAX variables ``{"params": ..., ["favor": ...]}``, a
-SingleTaskSmall's or SingleTaskLarge's ``{"params": ...}`` or a
+SingleTaskSmall's or SingleTaskLarge's ``{"params": ...}``, a
 MAMLRegressor's ``{"params": ...}``
 (``{"params": {"net": ..., "step_size": ...}}`` with learnable step sizes)
-as nested dicts of numpy arrays and fills the port's model in place. Layout
+or an MMAMLBundle's ``{"params": {"model": ..., "embedding": ...}}`` as
+nested dicts of numpy arrays and fills the port's model in place. Layout
 rules:
 
   * conv kernels: flax HWIO -> torch OIHW;
@@ -39,7 +40,19 @@ rules:
     whose Tanh regressor is ``regressor.linear``), the BBB trunk's
     ``conv1`` / ``layer{i}_{conv1,conv2,down}`` to ``net.layer1.conv`` /
     ``net.layer{i+1}.{conv1,conv2,downsample.0}``
-    (``wmfml_tpu/ckpt/torch_import.py:165-215``).
+    (``wmfml_tpu/ckpt/torch_import.py:165-215``);
+  * MMAML (``wmfml_tpu/ckpt/torch_import.py:401-433``, reversed): the gated
+    net's ``layer{i}_conv`` and ``classifier`` go to
+    ``model.features.layer{i}_conv`` and ``model.classifier.
+    fully_connected``; the embedding net's ``conv{i}``, ``bn{i}_{scale,
+    bias}``, ``linear`` and ``embedding_{i}`` to ``embedding_model.conv.
+    conv{i}``, ``embedding_model.conv.bn{i}.{weight,bias}``,
+    ``embedding_model.linear`` and ``embedding_model._embeddings.{i}``;
+    the GRU's ``gru_l{l}_{fwd,bwd}/cell`` Dense layers ``i{r,z,n}`` and
+    ``h{r,z,n}`` stack, gate order r, z, n, into ``_rnn.weight_ih_l{l}`` /
+    ``weight_hh_l{l}`` (``_reverse`` for bwd), ``bias_ih_l{l}`` from
+    ``i{r,z,n}``'s biases and ``bias_hh_l{l}`` = (0, 0, ``hn``'s bias):
+    Flax's GRUCell has no bias on the hidden-to-hidden r and z products.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import numpy as np
 import torch
 
 from wmfml_tpu_torch.models.maml import MAMLRegressor, step_size_key
+from wmfml_tpu_torch.models.mmaml_nets import MMAMLBundle
 from wmfml_tpu_torch.models.neural_process import LargeCNP
 from wmfml_tpu_torch.models.single_task import SingleTaskLarge
 from wmfml_tpu_torch.nn.encoders import trunk_chw
@@ -84,6 +98,8 @@ def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
     """The port ``state_dict`` that ``variables`` describe for ``model``."""
     if isinstance(model, MAMLRegressor):
         return maml_state_dict(model, variables)
+    if isinstance(model, MMAMLBundle):
+        return mmaml_state_dict(variables)
     if isinstance(model, (LargeCNP, SingleTaskLarge)):
         return large_cnp_state_dict(model, variables)
     p = variables["params"]
@@ -258,6 +274,53 @@ def maml_state_dict(model, variables) -> Dict[str, torch.Tensor]:
                 sd[f"step_size.{step_size_key(jax_names[key])}"] = _t(value)
         else:
             sd["step_size"] = _t(ss)
+    return sd
+
+
+def _dense_into(sd, prefix, node):
+    sd[f"{prefix}.weight"] = _dense(node["kernel"])
+    sd[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def _conv_into(sd, prefix, node):
+    sd[f"{prefix}.weight"] = _conv(node["kernel"])
+    sd[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def mmaml_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """MMAMLBundle variables (``wmfml_tpu/models/mmaml_nets.py``) -> the
+    port bundle's ``state_dict``."""
+    gated, embed = variables["params"]["model"], variables["params"]["embedding"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, 5):
+        _conv_into(sd, f"model.features.layer{i}_conv", gated[f"layer{i}_conv"])
+        _conv_into(sd, f"embedding_model.conv.conv{i}", embed[f"conv{i}"])
+        sd[f"embedding_model.conv.bn{i}.weight"] = _t(embed[f"bn{i}_scale"])
+        sd[f"embedding_model.conv.bn{i}.bias"] = _t(embed[f"bn{i}_bias"])
+    _dense_into(sd, "model.classifier.fully_connected",
+                gated["classifier"]["Dense_0"])
+    if "linear" in embed:
+        _dense_into(sd, "embedding_model.linear", embed["linear"]["Dense_0"])
+    heads = sorted(int(k.split("_")[1]) for k in embed
+                   if k.startswith("embedding_"))
+    for i in heads:
+        _dense_into(sd, f"embedding_model._embeddings.{i}",
+                    embed[f"embedding_{i}"]["Dense_0"])
+    layers = sorted({int(k.split("_")[1][1:]) for k in embed
+                     if k.startswith("gru_l")})
+    for layer in layers:
+        for dname, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            cell = embed[f"gru_l{layer}_{dname}"]["cell"]
+            key = f"embedding_model._rnn.{{}}_l{layer}{suffix}"
+            sd[key.format("weight_ih")] = torch.cat(
+                [_dense(cell[g]["kernel"]) for g in ("ir", "iz", "in")])
+            sd[key.format("weight_hh")] = torch.cat(
+                [_dense(cell[g]["kernel"]) for g in ("hr", "hz", "hn")])
+            sd[key.format("bias_ih")] = torch.cat(
+                [_t(cell[g]["bias"]) for g in ("ir", "iz", "in")])
+            hn = _t(cell["hn"]["bias"])
+            sd[key.format("bias_hh")] = torch.cat(
+                [torch.zeros_like(hn), torch.zeros_like(hn), hn])
     return sd
 
 

@@ -7,9 +7,9 @@ Usage::
     python -m wmfml_tpu_torch.cli.train_cli --config cfg/train/MAML_DA_ShapeNet1D.yaml \
         'aug_list=[]' [key=value ...]
 
-MAML methods train with ``MAMLTrainer`` (second-order inner loop), the
-others with ``ModelTrainer``; a method not ported yet (MMAML) raises in
-the registry, before any data is touched.
+MMAML trains with ``MMAMLTrainer``, the other MAML methods with
+``MAMLTrainer`` (second-order inner loops), the rest with ``ModelTrainer``
+(``models/registry.py:method_family``).
 
 Runs on ``cuda`` (the YAMLs' ``device: tpu`` maps there); ``device=cpu``
 runs on the CPU. TF32 is off and cuDNN's determinism set as
@@ -23,9 +23,10 @@ import sys
 from wmfml_tpu_torch.cli.common import parse_args, set_numerics
 from wmfml_tpu_torch.configs import Config
 from wmfml_tpu_torch.data.factory import build_data
-from wmfml_tpu_torch.models.registry import build_model
+from wmfml_tpu_torch.models.registry import build_model, method_family
 from wmfml_tpu_torch.obs.guards import NonFiniteLossError
 from wmfml_tpu_torch.train.maml import MAMLTrainer
+from wmfml_tpu_torch.train.mmaml import MMAMLTrainer
 from wmfml_tpu_torch.train.steps import require_device
 from wmfml_tpu_torch.train.trainer import ModelTrainer
 
@@ -33,7 +34,8 @@ from wmfml_tpu_torch.train.trainer import ModelTrainer
 def build_trainer(config: Config) -> ModelTrainer:
     require_device(config.device)        # before any data is generated
     set_numerics()
-    cls = MAMLTrainer if "MAML" in config.method else ModelTrainer
+    cls = {"mmaml": MMAMLTrainer, "maml": MAMLTrainer,
+           "np": ModelTrainer}[method_family(config.method)]
     return cls(build_model(config), config, build_data(config))
 
 

@@ -20,6 +20,9 @@ Port-specific rules:
     package's pool lowering, whose forward is the same for every choice and
     whose gradients differ only at ties, which sit at ReLU zeros where the
     gradient is 0: the port always pools in K1.
+  * ``rnn_aggregation`` (default false): MMAML's task encoder aggregates
+    its instances with a bidirectional GRU instead of the average, as in
+    the JAX package (``models/mmaml_nets.py``).
   * ``aug_random_order`` (default true, imgaug's per-batch random op order);
     ``false`` selects the JAX package's fused fixed-order pipeline
     (``FUSED_PIPELINES``), ported for every task with a loader.
@@ -154,6 +157,8 @@ class Config:
         self.update_lr = get("update_lr", None)
         self.learn_step_size = get("learn_step_size", False)
         self.per_param_step_size = get("per_param_step_size", False)
+        # MMAML's task encoder (wmfml_tpu/configs/config.py:168-171)
+        self.rnn_aggregation = get("rnn_aggregation", False)
         self.maml_remat = get("maml_remat", "none")
         if self.maml_remat != "none":
             raise NotImplementedError(

@@ -55,6 +55,11 @@ a new evaluator needs a model built or restored anew
 Unlike the JAX evaluator, which builds its optimizer even to evaluate (so
 ``cfg/evaluation/eval_and_plot/CNP_max_Distractor.yaml``, ``optimizer:
 ''``, raises there), this one builds it only to refine.
+
+MMAML has no evaluator: the JAX evaluator builds ``build_eval_step``
+(``wmfml_tpu/eval/evaluator.py:65``), which has no MMAML form, and no
+evaluation YAML names MMAML, so an MMAML method raises here (its
+validation runs in ``train/mmaml.py:MMAMLTrainer``).
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ import torch
 
 from wmfml_tpu_torch.ckpt.checkpoint import CheckpointManager
 from wmfml_tpu_torch.cli.common import set_numerics
+from wmfml_tpu_torch.models.registry import method_family
 from wmfml_tpu_torch.obs.guards import check_finite
 from wmfml_tpu_torch.obs.metrics import MetricsWriter
 from wmfml_tpu_torch.train.maml import build_maml_eval_step
@@ -77,6 +83,12 @@ from wmfml_tpu_torch.train.trainer import episode_to_device
 
 class ModelEvaluator:
     def __init__(self, model, config, data):
+        family = method_family(config.method)
+        if family == "mmaml":
+            raise NotImplementedError(
+                f"method {config.method!r}: MMAML has no evaluator, in the "
+                "JAX package either (no MMAML form of build_eval_step); its "
+                "validation runs in the trainer")
         self.config = config
         self.data = data
         self.logger = config.logger
@@ -100,7 +112,7 @@ class ModelEvaluator:
                                           self.optimizer,
                                           map_location=self.device)
             self.logger.info(f"loaded checkpoint {config.checkpoint}")
-        if "MAML" in config.method:
+        if family == "maml":
             self.eval_step = build_maml_eval_step(self.model, config)
         else:
             self.eval_step = build_eval_step(self.model, config)

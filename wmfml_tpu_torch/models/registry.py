@@ -3,9 +3,12 @@
 The four literature-encoder methods of ``wmfml_tpu/models/registry.py:60-81``,
 ShapeNet3D's CondNeuralProcess / ANP and CNPDistractor / ANPDistractor
 (``:86-111``), the MR and FCL methods (``:116-177``), MAMLShapeNet1D /
-VanillaMAML and MAMLMR / MAMLMRShapeNet1D (``:182-212``) and the SingleTask
-baselines (``:238-259``) are ported; MMAML raises and names the ROADMAP
-item that ports it.
+VanillaMAML and MAMLMR / MAMLMRShapeNet1D (``:182-212``), MMAMLShapeNet1D
+(``:217-233``) and the SingleTask baselines (``:238-259``): all 24 are
+ported, and ``NOT_PORTED`` is empty.
+
+``method_family`` says which trainer and eval step a method takes; every
+entry point dispatches through it.
 """
 
 from __future__ import annotations
@@ -16,13 +19,23 @@ import torch
 
 from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.models.maml import MAMLRegressor
+from wmfml_tpu_torch.models.mmaml_nets import MMAMLBundle
 from wmfml_tpu_torch.models.neural_process import LargeCNP, SmallCNP
 from wmfml_tpu_torch.models.single_task import SingleTaskLarge, SingleTaskSmall
 from wmfml_tpu_torch.ops.cast import set_compute_dtype
 
 _REGISTRY: Dict[str, Callable] = {}
 
-NOT_PORTED = {"MMAMLShapeNet1D": "A16"}
+NOT_PORTED: Dict[str, str] = {}
+
+
+def method_family(method: str) -> str:
+    """``"mmaml"``, ``"maml"`` or ``"np"`` (the neural processes and the
+    SingleTask baselines). MMAML is tested first: "MAML" is a substring of
+    its name (the JAX CLI's order, ``wmfml_tpu/cli/train_cli.py:27-34``)."""
+    if method.startswith("MMAML"):
+        return "mmaml"
+    return "maml" if "MAML" in method else "np"
 
 
 def register(name: str):
@@ -198,6 +211,20 @@ def _(config, generator):
 @register("MAMLMRShapeNet1D")
 def _(config, generator):
     return _maml(config, True, generator, bbb=True)
+
+
+# -- MMAML ----------------------------------------------------------------------
+
+@register("MMAMLShapeNet1D")
+def _(config, generator):
+    # networks/MMAMLShapeNet1D.py:52-84: num_channels=32, affine FiLM
+    # conditioning, embedding dims 2x the modulated channels
+    return MMAMLBundle(
+        output_dim=config.output_dim, num_channels=32,
+        condition_type="affine", embedding_dims=(64, 128, 256, 512),
+        hidden_size=128, embedding_pooling="avg",
+        rnn_aggregation=bool(config.rnn_aggregation),
+        in_channels=_trunk_input(config)[2], generator=generator)
 
 
 # -- the SingleTask baselines (context ignored) ---------------------------------

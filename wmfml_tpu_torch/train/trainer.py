@@ -1,6 +1,7 @@
 """Meta-training loop for the CNP/ANP family (``wmfml_tpu/train/trainer.py``);
 ``train/maml.py:MAMLTrainer`` runs the same loop with MAML steps
-(``_build_steps``).
+(``_build_steps``), ``train/mmaml.py:MMAMLTrainer`` with MMAML's steps and
+its two-group optimizer (``_build_optimizer``).
 
   * iteration loop; each pass of the loop is one call of the fused step
     (``train/steps.py:FusedSteps``): ``steps_per_call`` steps on episodes
@@ -60,7 +61,7 @@ class ModelTrainer:
         self.device = require_device(config.device)
         set_numerics()
         self.model = model.to(self.device)
-        self.optimizer = build_optimizer(config, self.model.parameters())
+        self.optimizer = self._build_optimizer()
         self.sampler = DeviceEpisodeSampler.from_dataset(data, config,
                                                          self.device)
         self.generator = torch.Generator(device=self.device)
@@ -79,6 +80,9 @@ class ModelTrainer:
                                           map_location=self.device,
                                           generator=self.generator)
             self.logger.info(f"resumed from {config.checkpoint} at step {self.step}")
+
+    def _build_optimizer(self):
+        return build_optimizer(self.config, self.model.parameters())
 
     def _build_steps(self):
         """(the fused K-step train call, eval_step) of this model family."""
