@@ -247,6 +247,29 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      share, graph nodes, capture and instantiation seconds and pool bytes;
      graph against loop bit for bit (phase 12's check), which holds the
      captured per-group clip and two-group Adam against the eager ones;
+ 21. the ``device_data`` switch both ways (ROADMAP.md A21, A26): H1 phase
+     4's YAML with ``device_data=false`` (32 steps, 8 a call: host episodes
+     drawn by the prefetch thread, copied into the graph's static buffers
+     each call), its first call's episodes against ``get_batch`` from a
+     freshly seeded copy of the data, graph = loop on the same host batches
+     under deterministic algorithms, ms/step and the card's busy share
+     beside phase 4's device-sampled path and the queue's empty waits; H2
+     S1's YAML with ``device_data=false`` and ``bg_gen_freq=16`` (24
+     steps, 8 a call: one recomposite of the train split on the prefetch
+     thread, its pixels changed), ms/step against S1's, over training and
+     with no recomposite, and the thread's ms a call; V1 the validation sweep on the device
+     (10 episodes, the shipped ``val_iters``; MAML 5) of phase 4's ANP,
+     phase 7's MAML and M1's trainers: each batch's loss against the host
+     sweep's on fresh sweeps under deterministic algorithms, the graph
+     sweep's, the eager device sweep's (ANP, M1) and the host sweep's
+     times and the capture's; V2 ``evaluation_cli``'s device sweep
+     against its host sweep (``device_data=false``) over phase 6's, P4's,
+     D4's ANPDistractor and S4's checkpoints: each point's mean and std
+     within rtol 1e-4 / atol 1e-5 (stds rtol 1e-3 / atol 1e-4), the times
+     (and without graphs on the ANP sweep); the kernels line gives each
+     row the launches
+     of the phase 21 paths that run its kernel at its shapes
+     (``phase21_launches``);
  15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Phase 3 also holds the Distractor paths' kernels: K2's wide form at D1's
@@ -307,6 +330,7 @@ repository around it.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -441,6 +465,15 @@ MMAML_YAML = os.path.join(HERE, "cfg", "train", "MMAML_ShapeNet1D_DA+TA.yaml")
 MMAML_OVERRIDES = ["data_size=large", "synthetic_data=true", "iterations=8",
                    "val_freq=1000", "val_iters=1", "steps_per_call=4",
                    "device=cuda"]
+
+# the device_data switch both ways (phase 21): H1 phase 4's path with its
+# episodes streamed from the host, H2 S1's (24 steps, 8 a call) with one
+# recomposite of the train split inside the run (at iteration 16); V1
+# validation sweeps of the shipped val_iters on the device
+HOST_OVERRIDES = TRAIN_OVERRIDES + ["device_data=false"]
+H2_OVERRIDES = S3D_SHORT_OVERRIDES + ["iterations=24", "device_data=false",
+                                      "bg_gen_freq=16"]
+V1_ITERS = 10
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -2031,8 +2064,15 @@ def check_large_evaluation(tag, yaml, overrides, runs):
         config = Config(yaml, overrides + extra + [f"checkpoint={ckpt}"])
         favor_attention.launches = favor_attention.wide_launches = 0
         t0 = time.perf_counter()
-        val, test = evaluation_cli.evaluate(config)
+        evaluator = evaluation_cli.build_evaluator(config)
+        val, test = evaluator.evaluate()
         wall = time.perf_counter() - t0
+        sweeps = [sw for sw in evaluator.sweeps.values() if sw]
+        got = graph_launches(sweeps, {
+            "favor_attention": favor_attention.launches,
+            "wide": favor_attention.wide_launches})
+        got["wide"] += sum(sw.captured_launches.get("favor_attention", 0)
+                           * max(sw.replays - 1, 0) for sw in sweeps)
         n = config.max_ctx_num
         for name in ("val_losses.txt", "test_losses.txt"):
             arr = np.loadtxt(os.path.join(config.save_path, name))
@@ -2041,14 +2081,11 @@ def check_large_evaluation(tag, yaml, overrides, runs):
                 raise AssertionError(f"{name}: {arr.shape}, {arr}")
         attention = config.agg_mode == "attention"
         want = 2 * n * config.val_iters if attention else 0
-        if (favor_attention.launches, favor_attention.wide_launches) != (
-                want, want):
-            raise AssertionError(f"{tag} {config.method}: K2 launches "
-                                 f"{favor_attention.launches}, wide "
-                                 f"{favor_attention.wide_launches}; the "
-                                 f"sweep says {want}")
+        if (got["favor_attention"], got["wide"]) != (want, want):
+            raise AssertionError(f"{tag} {config.method}: K2 launches on "
+                                 f"the card {got}; the sweep says {want}")
         if attention:
-            launches = favor_attention.launches
+            launches = got["favor_attention"]
         cpu_cfg = copy.copy(config)
         cpu_cfg.device = "cpu"
         cpu_eval = ModelEvaluator(build_model(cpu_cfg), cpu_cfg,
@@ -2058,8 +2095,9 @@ def check_large_evaluation(tag, yaml, overrides, runs):
         log(f"eval: {tag} {config.method} over {ckpt}, ctx 1..{n}, "
             f"{config.val_iters} episodes a point of {config.tasks_per_batch} "
             f"tasks x {cpu_eval.data.query_num} queries, validation and "
-            f"test, in {wall} s; K2 wide "
-            f"launches {favor_attention.wide_launches}; validation loss "
+            f"test, in {wall} s (device sweeps: {len(sweeps)}, "
+            f"{[sw.replays for sw in sweeps]} replays); K2 wide "
+            f"launches on the card {got['wide']}; validation loss "
             f"{val}; test loss {test}; at ctx {n}: card "
             f"{val[n - 1]}, CPU {want_loss}, abs err {err} (tolerance "
             f"{VAL_TOL} x |CPU| + {VAL_TOL})")
@@ -2116,12 +2154,22 @@ def launches_per_step(trainer):
     return {**stem, **attention, **da}, {**stem, **attention}
 
 
-def card_launches(trainer, issued):
-    """Launches on the card from those the host issued (the counters): each
+def graph_launches(graphs, issued):
+    """Launches on the card from those the host issued (the counters) and
+    the CUDA graphs (``FusedSteps``, ``DeviceSweep``) of the run: each
     captured launch was issued once and ran once per replay."""
-    fused = trainer.train_step
-    return {k: n + fused.captured_launches.get(k, 0) * (fused.replays - 1)
-            for k, n in issued.items()}
+    out = dict(issued)
+    for g in graphs:
+        for k in out:
+            out[k] += g.captured_launches.get(k, 0) * max(g.replays - 1, 0)
+    return out
+
+
+def card_launches(trainer, issued):
+    """A trainer's launches on the card: its fused step's graph and its
+    validation sweeps' (``trainer.device_eval``)."""
+    return graph_launches([trainer.train_step, *(trainer.device_eval or {})
+                           .values()], issued)
 
 
 def check_launches(trainer, launches):
@@ -2720,6 +2768,9 @@ def graph_equals_loop(yaml, overrides, calls=3):
         graph, loop = (train_cli.build_trainer(Config(yaml, overrides))
                        for _ in range(2))
         for i in range(calls):
+            if graph.streamed:      # the same host batch into both
+                for tr in (graph, loop):
+                    tr.sampler.load(tr._put_train_batch(tr._sample_train()))
             got = {k: v.clone() if torch.is_tensor(v) else v
                    for k, v in graph.train_step(graph.generator).items()}
             want = loop.train_step.loop(loop.generator)
@@ -3213,13 +3264,16 @@ def check_mr_evaluation(trainer):
                                   f"checkpoint={ckpt}"]
     literature_stem.launches = favor_attention.launches = 0
     t0 = time.perf_counter()
-    sweeps = [evaluation_cli.evaluate(Config(EVAL_YAML, overrides))
-              for _ in range(2)]
+    evaluators = [evaluation_cli.build_evaluator(Config(EVAL_YAML, overrides))
+                  for _ in range(2)]
+    sweeps = [ev.evaluate() for ev in evaluators]
     wall = (time.perf_counter() - t0) / 2
     config = Config(EVAL_YAML, overrides, make_dirs=False)
     n, episodes = config.max_ctx_num, 2 * config.max_ctx_num * 2 * 2
-    launches = {"literature_stem": literature_stem.launches,
-                "favor_attention": favor_attention.launches}
+    launches = graph_launches(
+        [sw for ev in evaluators for sw in ev.sweeps.values() if sw],
+        {"literature_stem": literature_stem.launches,
+         "favor_attention": favor_attention.launches})
     if launches != {"literature_stem": 2 * episodes,
                     "favor_attention": episodes}:
         raise AssertionError(f"E1 MR sweep: launches {launches} over "
@@ -3732,6 +3786,353 @@ def check_plot(tag, yaml, trainer):
     return launches
 
 
+def tap_first_load(trainer):
+    """Keep a CPU copy of the first host batch a host-path trainer loads
+    (``trainer.first_batch``); no tensor to watch across replays."""
+    load, first = trainer.sampler.load, []
+
+    def recording(batch):
+        if not first:
+            first.append({k: v.clone() for k, v in batch.items()})
+        load(batch)
+
+    trainer.sampler.load = recording
+    trainer.first_batch = first
+
+
+def tap_gen_bg(trainer):
+    """Record each recomposite of the train split during the run: whether
+    its pixels changed (a strided sample of them, before and after)."""
+    import numpy as np
+
+    ds, changed = trainer.data, []
+    gen_bg = ds.gen_bg
+
+    def sample():
+        return ds.splits["train"]["images"][:, :, ::7, ::7].copy()
+
+    def recording(config, data="all"):
+        before = sample() if data == "train" else None
+        gen_bg(config, data)
+        if before is not None:
+            changed.append(not np.array_equal(before, sample()))
+
+    ds.gen_bg = recording
+    trainer.recomposites = changed
+
+
+def host_loop_ms(trainer, calls, profile=False, start=None):
+    """ms/step of ``calls`` calls of the host path as ``train()`` issues
+    them (the prefetch thread drawing the batches, each loaded into the
+    graph's buffers, then one replay), after an untimed one; with
+    ``profile``, also the card's busy share of that wall time; the
+    batches are those of iterations ``start`` on (default: the run's last
+    ``calls`` + 1 calls). Returns
+    (ms/step, busy share or None, the queue's empty waits, the prefetch
+    thread's ms a call drawing and pinning)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from wmfml_tpu_torch.train.trainer import Prefetcher
+
+    cfg, fused = trainer.config, trainer.train_step
+    if start is None:
+        start = cfg.iterations - (calls + 1) * fused.k
+    spent_s = {"draw": 0.0, "pin": 0.0}
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            spent_s[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    pf = Prefetcher(timed("draw", trainer._host_batches(start).__next__),
+                    timed("pin", trainer._put_train_batch),
+                    depth=cfg.prefetch)
+    try:
+        trainer.sampler.load(next(pf))
+        fused(trainer.generator)
+        torch.cuda.synchronize()
+        waits = pf.empty_waits
+        with (tprofile(activities=[ProfilerActivity.CUDA]) if profile
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                trainer.sampler.load(next(pf))
+                fused(trainer.generator)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy = None
+        if profile:
+            busy_us, last_end = 0.0, float("-inf")
+            for _, start_us, end_us in sorted(device_events(prof),
+                                              key=lambda e: e[1]):
+                busy_us += max(0.0, end_us - max(start_us, last_end))
+                last_end = max(last_end, end_us)
+            busy = busy_us / wall_us
+        return (wall_us / 1e3 / (calls * fused.k), busy,
+                pf.empty_waits - waits,
+                {k: 1e3 * v / (calls + 1) for k, v in spent_s.items()})
+    finally:
+        pf.close()
+
+
+@spent
+def host_stream_phase(card, trainer, counters):
+    """H1: phase 4's path with ``device_data=false`` through ``train_phase``
+    (its launches, graph nodes and trace as every training phase's); its
+    first call's K episodes equal ``get_batch("train")``'s from a freshly
+    seeded copy of the data; graph = loop on the same host batches; ms/step
+    and busy share of the host loop against phase 4's graph replays
+    (``trainer``), on this card. Returns (the H1 trainer, its launches)."""
+    import numpy as np
+
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.data.factory import build_data
+
+    htrainer, launches, _ = train_phase(card, MAIN_YAML, HOST_OVERRIDES,
+                                        counters, tap=tap_first_load)
+    cfg = htrainer.config
+    if not htrainer.streamed or trainer.streamed:
+        raise AssertionError("H1 must stream from the host and phase 4 not")
+    fresh = build_data(Config(MAIN_YAML, HOST_OVERRIDES, make_dirs=False))
+    eps = [fresh.get_batch("train", cfg.tasks_per_batch, cfg.max_ctx_num)
+           for _ in range(htrainer.steps_per_call)]
+    first = htrainer.first_batch[0]
+    for key, got in first.items():
+        if not np.array_equal(got.numpy(), np.stack([e[key] for e in eps])):
+            raise AssertionError(f"H1: the first call's {key} is not "
+                                 f"get_batch's from a fresh copy")
+    log(f"stream: H1 first call: {htrainer.steps_per_call} host episodes "
+        f"({', '.join(f'{k} {tuple(v.shape)} {v.dtype}' for k, v in first.items())}) "
+        f"equal get_batch('train') from a freshly seeded copy; prefetch "
+        f"{htrainer.prefetch_stats}")
+    graph_equals_loop(MAIN_YAML, HOST_OVERRIDES)
+    calls = 3
+    device_ms = call_ms(trainer, calls)
+    device_busy = profile_calls(trainer, "ANP device-sampled (phase 4)",
+                                calls=calls)["busy_share"]
+    host_ms, _, waits, thread_ms = host_loop_ms(htrainer, calls)
+    _, host_busy, pwaits, _ = host_loop_ms(htrainer, calls, profile=True)
+    t_ = cfg.tasks_per_batch
+    log(f"stream: ANPShapeNet1D f32 on {card}: device-sampled graph "
+        f"{device_ms} ms/step ({t_ * 1e3 / device_ms} tasks/s), busy "
+        f"{device_busy}; host-streamed (H1) {host_ms} ms/step "
+        f"({t_ * 1e3 / host_ms} tasks/s), busy {host_busy}, host / device "
+        f"{host_ms / device_ms}; {calls} calls of {htrainer.steps_per_call} "
+        f"steps each; the prefetch queue ({cfg.prefetch} deep) was empty at "
+        f"{waits} of {calls} calls ({pwaits} under the profiler); the "
+        f"thread's ms a call {thread_ms} (draw: get_batch; pin: the "
+        f"stack into pinned memory), the card's {device_ms * htrainer.steps_per_call}"
+        f"; over training {htrainer.prefetch_stats}; H1 training "
+        f"{1e3 * htrainer.timing['seconds'] / htrainer.timing['steps']} "
+        f"ms/step over {htrainer.timing['steps']} timed steps")
+    return htrainer, launches
+
+
+@spent
+def shapenet3d_stream_phase(card, s1trainer, counters):
+    """H2: S1's path with ``device_data=false`` and ``bg_gen_freq=16``:
+    one recomposite of the train split on the prefetch thread inside the
+    24 steps, its pixels changed; the steps finite (``train_phase``'s
+    metrics); ms/step over training and of the host loop with no
+    recomposite (its thread's draw and pin ms), against S1's graph
+    replays. Returns (trainer, launches)."""
+    htrainer, launches, _ = train_phase(card, S3D_YAML, H2_OVERRIDES,
+                                        counters, tap=tap_gen_bg)
+    if not htrainer.streamed or htrainer.recomposites != [True]:
+        raise AssertionError(f"H2: streamed {htrainer.streamed}, train "
+                             f"split recomposites {htrainer.recomposites} "
+                             "(one that changes the pixels expected)")
+    ms = {tag: 1e3 * tr.timing["seconds"] / tr.timing["steps"]
+          for tag, tr in (("S1", s1trainer), ("H2", htrainer))}
+    s1_ms = call_ms(s1trainer, 1)
+    loop_ms, _, waits, thread_ms = host_loop_ms(htrainer, 1, start=0)
+    log(f"stream: ANP ShapeNet3D f32 on {card}: over training, S1 "
+        f"device-sampled {ms['S1']} ms/step, H2 host-streamed {ms['H2']} "
+        f"ms/step (the recomposite's call among H2's timed ones), H2 / S1 "
+        f"{ms['H2'] / ms['S1']}; one recomposite of the train split "
+        f"(pixels changed); prefetch {htrainer.prefetch_stats}; with no "
+        f"recomposite: S1 graph {s1_ms} ms/step, H2 host loop {loop_ms} "
+        f"ms/step ({loop_ms / s1_ms} x), the queue empty at {waits} of 1 "
+        f"call, the thread's ms a call {thread_ms}, the card's "
+        f"{s1_ms * htrainer.steps_per_call}")
+    return htrainer, launches
+
+
+def host_sweep(trainer, source):
+    """The trainer's host sweep of ``source`` (``validate``'s host path),
+    each batch's loss."""
+    import numpy as np
+
+    from wmfml_tpu_torch.train.trainer import episode_to_device
+
+    cfg = trainer.config
+    trainer.data.reset_eval(source, seed=42)
+    trainer.eval_generator.manual_seed(int(cfg.seed) + 10_000_000)
+    losses = [trainer.eval_step(episode_to_device(trainer.data.get_batch(
+        source, cfg.tasks_per_batch, cfg.max_ctx_num), "cuda"),
+        trainer.eval_generator) for _ in range(cfg.val_iters)]
+    return np.asarray([float(x) for x in losses])
+
+
+@spent
+def check_device_validation(trainer, tag, episodes=V1_ITERS, eager=True):
+    """V1: the trainer's validation sweep on the device at ``episodes``
+    episodes. Under deterministic algorithms, on fresh sweeps: the graph
+    sweep's losses (three eager batches, the capture, replays; then all
+    replays) against the host sweep's, batch for batch, rtol 1e-5; then in
+    the port's settings the times of a graph sweep, an eager device sweep
+    (with ``eager``) and the host sweep, and the capture's. Returns the
+    launches on the card of the two timed graph sweeps."""
+    import numpy as np
+    import torch
+
+    from wmfml_tpu_torch.data.device_eval import DeviceSweep
+    from wmfml_tpu_torch.train.steps import KERNELS
+
+    cfg = trainer.config
+    saved = cfg.val_iters, trainer.device_eval
+    split = saved[1]["validation"].split
+
+    def sweep_s(sweep, n=1):
+        trainer.device_eval = {"validation": sweep}
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = trainer._device_validate("validation")
+            out.append((time.perf_counter() - t0, losses))
+        return out
+
+    cfg.val_iters = episodes
+    try:
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs = sweep_s(trainer._make_device_sweep(split), 2)
+            want = host_sweep(trainer, "validation")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rel = max(float(np.max(np.abs(got - want) / np.abs(want)))
+                  for _, got in runs)
+        log(f"sweep: V1 {tag}: {episodes} validation episodes, device "
+            f"sweep (graph) {list(runs[1][1])}, host {list(want)}; max "
+            f"rel err {rel} (rtol 1e-5); first sweep = second: "
+            f"{np.array_equal(runs[0][1], runs[1][1])}")
+        if rel > 1e-5 or not np.array_equal(runs[0][1], runs[1][1]):
+            raise AssertionError(f"V1 {tag}: device sweep {runs}, host "
+                                 f"{want}")
+        zero_counters()
+        graph = trainer._make_device_sweep(split)
+        timed = sweep_s(graph, 2)
+        launches = {k: n for k, n in graph_launches(
+            [graph], read_counters()).items() if n and k in KERNELS}
+        eager = sweep_s(DeviceSweep(trainer.eval_step, split,
+                                    trainer.eval_generator, graph=False)
+                        ) if eager else [(None, None)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_sweep(trainer, "validation")
+        host_s = time.perf_counter() - t0
+    finally:
+        cfg.val_iters, trainer.device_eval = saved
+    log(f"sweep: V1 {tag} on {card_line()}: {episodes} episodes, graph "
+        f"sweep {timed[1][0]} s (the first, with 3 eager batches and the "
+        f"capture, {timed[0][0]} s; capture {graph.graph_stats}), eager "
+        f"device sweep {eager[0][0]} s, host sweep {host_s} s; host / graph "
+        f"{host_s / timed[1][0]}; {graph.replays} replays; launches on the "
+        f"card {launches}")
+    return launches
+
+
+@spent
+def check_device_evaluation(tag, yaml, overrides, trainer, no_graph=False):
+    """V2: ``evaluation_cli`` over ``trainer``'s final checkpoint with the
+    device sweep (graphs, and with ``no_graph`` also without) and with the
+    host sweep (``device_data=false``): each split's per-point means and
+    stds agree as ``tests/test_eval_device_cli.py`` holds them (rtol 1e-4
+    / atol 1e-5, stds rtol 1e-3 / atol 1e-4) and both write the same files
+    to their printed digits; the wall times. Returns the graph sweep's
+    launches on the card."""
+    import numpy as np
+    import torch
+
+    from wmfml_tpu_torch.cli import evaluation_cli
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.train.steps import KERNELS
+
+    ckpt = trainer.ckpt.path(f"model_end_{trainer.config.iterations}")
+    # the host sweep first: every later run finds cuDNN's kernels loaded
+    modes = [("host", "false", None), ("graph", "auto", True)] + (
+        [("eager", "auto", False)] if no_graph else [])
+    runs, launches = {}, {}
+    for name, device_data, graphs in modes:
+        config = Config(yaml, overrides + [f"checkpoint={ckpt}",
+                                           f"device_data={device_data}"])
+        zero_counters()
+        ev = evaluation_cli.build_evaluator(config)
+        if graphs is not None:
+            ev.sweep_graphs = graphs
+        points = {}
+        sweep_source = ev._sweep_source
+
+        def recording(source, sweep_source=sweep_source, points=points):
+            points[source] = sweep_source(source)
+            return points[source]
+
+        ev._sweep_source = recording
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev.evaluate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sweeps = [sw for sw in ev.sweeps.values() if sw]
+        if (name == "host") == bool(sweeps):
+            raise AssertionError(f"V2 {tag} {name}: sweeps {ev.sweeps}")
+        if name == "graph":
+            launches = {k: n for k, n in graph_launches(
+                sweeps, read_counters()).items() if n and k in KERNELS}
+        files = {n: np.loadtxt(os.path.join(config.save_path, n))
+                 for n in ("val_losses.txt", "test_losses.txt")
+                 if os.path.exists(os.path.join(config.save_path, n))}
+        runs[name] = dict(wall=wall, points=points, files=files,
+                          capture=[sw.graph_stats for sw in sweeps],
+                          replays=[sw.replays for sw in sweeps])
+        del ev, sweeps, sweep_source, recording
+        gc.collect()
+        torch.cuda.empty_cache()
+    host = runs["host"]
+    for name, run in runs.items():
+        if name == "host":
+            continue
+        for source, (means, stds) in host["points"].items():
+            got = run["points"][source]
+            np.testing.assert_allclose(got[0], means, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"V2 {tag} {name} {source}")
+            np.testing.assert_allclose(got[1], stds, rtol=1e-3, atol=1e-4,
+                                       err_msg=f"V2 {tag} {name} {source}")
+        for n, arr in host["files"].items():
+            np.testing.assert_allclose(run["files"][n], arr, atol=1.01e-4,
+                                       err_msg=f"V2 {tag} {name} {n}")
+        if sorted(run["files"]) != sorted(host["files"]):
+            raise AssertionError(f"V2 {tag}: files {sorted(run['files'])}")
+    err = max(float(np.max(np.abs(np.subtract(run["points"][s][0],
+                                              host["points"][s][0]))
+                           / np.abs(host["points"][s][0])))
+              for name, run in runs.items() if name != "host"
+              for s in host["points"])
+    log(f"sweep: V2 {tag} on {card_line()}: " + "; ".join(
+        f"{name} {run['wall']} s" + (
+            f" (replays {run['replays']}, capture {run['capture']})"
+            if run["capture"] else "") for name, run in runs.items())
+        + f"; host / graph {host['wall'] / runs['graph']['wall']}; max rel "
+        f"err of the means, device against host, {err}; launches on the "
+        f"card (graph) {launches}")
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -4165,9 +4566,46 @@ def main(argv):
         profile="--profile" in argv)
     stamp("graph against loop, timed")
     # phase 18's and 19's graphs and their pools (about 20 GB) go before
-    # the determinism check builds its fresh trainers
-    del m1trainer, m2trainer, m3trainer, f1trainer, f2trainer, f3trainer
+    # phase 21 and the determinism check build their trainers (M1's after
+    # phase 21's validation sweeps)
+    del m2trainer, m3trainer, f1trainer, f2trainer, f3trainer
     del t1trainer, t2trainer, t3trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"memory: {torch.cuda.memory_reserved() / 2 ** 30} GiB reserved "
+        f"before phase 21")
+    # phase 21: the device_data switch both ways (ROADMAP.md A21, A26)
+    h1trainer, h1_launches = host_stream_phase(card, trainer, anp_kernels)
+    del h1trainer
+    h2trainer, h2_launches = shapenet3d_stream_phase(card, s1trainer,
+                                                     d_anp_kernels)
+    del h2trainer
+    stamp("phase 21: H1, H2")
+    v1_launches = {
+        "ANP device validation": check_device_validation(trainer, "ANP"),
+        "MAML device validation": check_device_validation(
+            mtrainer, "MAML", episodes=5, eager=False),
+        "MR ANP device validation": check_device_validation(m1trainer,
+                                                            "M1")}
+    stamp("phase 21: V1")
+    v2_launches = {
+        "ANP eval sweep": check_device_evaluation(
+            "ANPShapeNet1D", EVAL_YAML, EVAL_OVERRIDES, trainer,
+            no_graph=True),
+        "Pascal eval sweep": check_device_evaluation(
+            "P4", PASCAL_YAML, PASCAL_EVAL_OVERRIDES + ["val_iters=2"],
+            ptrainer),
+        "Distractor eval sweep": check_device_evaluation(
+            "D4 ANPDistractor", DISTRACTOR_EVAL_YAML,
+            DISTRACTOR_EVAL_OVERRIDES + ["method=ANPDistractor",
+                                         "agg_mode=attention"], d1trainer),
+        "ShapeNet3D eval sweep": check_device_evaluation(
+            "S4", S3D_EVAL_YAML, S3D_EVAL_OVERRIDES, s1trainer)}
+    log(f"memory: {torch.cuda.max_memory_reserved() / 2 ** 30} GiB "
+        f"reserved at most so far, {torch.cuda.memory_reserved() / 2 ** 30} "
+        f"GiB now")
+    stamp("phase 21, the device_data switch")
+    del m1trainer
     gc.collect()
     torch.cuda.empty_cache()
     # phase 20: MMAML (ROADMAP.md A16)
@@ -4216,6 +4654,19 @@ def main(argv):
                 "MMAML": mmaml_launches}
     log("launches on the new paths (phases 19, 20): " + json.dumps(
         {k: launches[k] for k in list(launches)[-11:]}))
+    # phase 21's paths, each beside the row path whose shapes it runs
+    phase21 = {"ANP host-streamed (H1)": ("ANP", h1_launches),
+               "ShapeNet3D host-streamed (H2)": ("ShapeNet3D ANP",
+                                                 h2_launches),
+               **{f"{k} (V1)": (k.replace(" device validation", ""), v)
+                  for k, v in v1_launches.items()},
+               "Distractor eval device sweep (V2)": (
+                   "Distractor eval", v2_launches["Distractor eval sweep"]),
+               "ShapeNet3D eval device sweep (V2)": (
+                   "ShapeNet3D eval", v2_launches["ShapeNet3D eval sweep"])}
+    log("launches on phase 21's paths: " + json.dumps(
+        {**{k: v for k, (_, v) in phase21.items()},
+         **{f"{k} (V2)": v for k, v in v2_launches.items()}}))
     for r in rows:
         if r.get("off_path"):
             r["launches"] = 0
@@ -4226,6 +4677,15 @@ def main(argv):
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']}: no {key} launch on the "
                                  f"{r['path']} path")
+        # phase 21's paths that run this kernel at this row's shapes (the
+        # same model and data as the row's path, in the row's dtype)
+        new = {name: got.get(key, 0) for name, (path, got) in phase21.items()
+               if path == r["path"] and got.get(r["kernel"], 0) > 0}
+        if new:
+            r["phase21_launches"] = new
+            if min(new.values()) <= 0:
+                raise AssertionError(f"{r['name']}: no {key} launch on "
+                                     f"phase 21's {new}")
     log("time: host seconds in each helper over the run (nested calls "
         "counted in each): " + json.dumps({k: round(v, 1) for k, v in
                                            SPENT.items()}))

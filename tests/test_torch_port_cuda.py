@@ -1897,3 +1897,84 @@ def test_captured_mr_replays_draw_new_weights(dev, graph_data, tmp_path,
                                 else (32, 1, 3, 3))
     assert bool(torch.isfinite(samples[0]).all())
     assert not torch.equal(*samples)
+
+
+@pytest.mark.parametrize("path", ["anp", "mr_anp", "maml"])
+def test_device_sweep_graph_equals_loop_and_host(dev, graph_data, tmp_path,
+                                                 monkeypatch, path):
+    """The trainer's validation sweep on the device at 6 episodes a split:
+    graph replays (3 eager batches, the capture, replays; then replays
+    only) against the same sweep issued eagerly (``graph=False``) and
+    against the host sweep, bit for bit under deterministic algorithms;
+    M1's BBB weights drawn from the reseeded generator alike."""
+    from wmfml_tpu_torch.data.device_eval import DeviceSweep, WARM_BATCHES
+    from wmfml_tpu_torch.train.trainer import episode_to_device
+
+    monkeypatch.chdir(tmp_path)
+    yaml = {"anp": ANP_YAML, "mr_anp": MR_ANP_YAML,
+            "maml": PERF_MAML_YAML}[path]
+    extra = ["compute_dtype=float32"] if path == "maml" else []
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainer = train_cli.build_trainer(_graph_config(graph_data, yaml,
+                                                        *extra))
+        trainer.config.val_iters = 6
+        trainer.device_eval = trainer._setup_device_eval()
+        graph = trainer.device_eval["validation"]
+        got = [trainer._device_validate("validation") for _ in range(2)]
+        assert graph.graph is not None and graph.replays == 6 + 6 - WARM_BATCHES
+        trainer.device_eval["validation"] = DeviceSweep(
+            trainer.eval_step, graph.split, trainer.eval_generator,
+            graph=False)
+        eager = trainer._device_validate("validation")
+        cfg = trainer.config
+        trainer.data.reset_eval("validation", seed=42)
+        trainer.eval_generator.manual_seed(int(cfg.seed) + 10_000_000)
+        host = [float(trainer.eval_step(episode_to_device(
+            trainer.data.get_batch("validation", cfg.tasks_per_batch,
+                                   cfg.max_ctx_num), "cuda"),
+            trainer.eval_generator)) for _ in range(6)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    np.testing.assert_array_equal(got[0], got[1])
+    np.testing.assert_array_equal(got[0], eager)
+    np.testing.assert_array_equal(got[0], host)
+    assert len(set(host)) == 6
+
+
+@pytest.mark.parametrize("path", ["anp_f32", "maml_bf16"])
+def test_host_batch_replays_equal_the_loop(dev, graph_data, tmp_path,
+                                           monkeypatch, path):
+    """The host-streamed call (``device_data=false``): three calls, each on
+    a new host batch copied into the graph's static buffers (an eager
+    warm-up, the capture and its replay, a replay; MAML one step a call,
+    warm-up calls until three steps ran), against the same steps issued
+    from the host on the same batches, under deterministic algorithms:
+    metrics, weights, Adam and generator state bit for bit."""
+    monkeypatch.chdir(tmp_path)
+    yaml, extra = {"anp_f32": (ANP_YAML, ["steps_per_call=4"]),
+                   "maml_bf16": (PERF_MAML_YAML, [])}[path]
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, graph, loop = (train_cli.build_trainer(_graph_config(
+            graph_data, yaml, "device_data=false", *extra))
+            for _ in range(3))
+        first.sampler.load(first._put_train_batch(first._sample_train()))
+        first.train_step.loop(first.generator)
+        assert graph.streamed and graph.train_step.k == (
+            4 if path == "anp_f32" else 1)
+        calls = graph.train_step.warm_calls + 2
+        for _ in range(calls):
+            for tr in (graph, loop):
+                tr.sampler.load(tr._put_train_batch(tr._sample_train()))
+            got = {k: v.clone() if torch.is_tensor(v) else v
+                   for k, v in graph.train_step(graph.generator).items()}
+            want = loop.train_step.loop(loop.generator)
+            torch.cuda.synchronize()
+            for k in want:
+                assert torch.equal(torch.as_tensor(got[k]),
+                                   torch.as_tensor(want[k])), k
+        assert graph.train_step.replays == 2
+        _assert_equal_states(_train_state(graph), _train_state(loop))
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -29,13 +29,17 @@ from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.steps import require_device
 
 
-def evaluate(config: Config):
-    """(validation losses, test losses) over ctx = 1..max_ctx_num."""
+def build_evaluator(config: Config) -> ModelEvaluator:
+    """The evaluator over eval-mode data, its checkpoint restored."""
     require_device(config.device)        # before any data is generated
     set_numerics()
-    model = build_model(config)
-    return ModelEvaluator(model, config,
-                          build_data(config, mode="eval")).evaluate()
+    return ModelEvaluator(build_model(config), config,
+                          build_data(config, mode="eval"))
+
+
+def evaluate(config: Config):
+    """(validation losses, test losses) over ctx = 1..max_ctx_num."""
+    return build_evaluator(config).evaluate()
 
 
 def main(argv=None):

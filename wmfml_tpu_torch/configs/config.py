@@ -35,6 +35,13 @@ Port-specific rules:
     the JAX package, whose device sampler does not use it either.
   * ``shapenet_3d_segmentation`` has a shape here, as in the JAX package,
     and no loader or model there either: building its data raises.
+  * ``device_data`` (default ``auto``) and ``prefetch`` (default 2), as
+    in the JAX package: ``auto`` or ``true`` keeps the train split on the
+    device when ``data/device_sampler.py:from_dataset`` takes it, and
+    validation then sweeps splits that live on the device
+    (``data/device_eval.py``); any other value, or a split that
+    ``from_dataset`` declines, trains from host episodes streamed by a
+    prefetch thread ``prefetch`` batches deep (``train/trainer.py``).
   * ``prng_impl`` is read and kept, but the port's random stream is
     PyTorch's Philox whatever it says: the JAX package's ``threefry`` and
     ``rbg`` differ in their bits only, and so does Philox, so no
@@ -95,6 +102,13 @@ def torch_dtype(config) -> torch.dtype:
     parameters stay float32; each layer casts its input and its weights to
     this dtype and returns it, and losses and metrics are taken in float32."""
     return COMPUTE_DTYPES[config.compute_dtype]
+
+
+def device_data_on(config) -> bool:
+    """Whether ``device_data`` asks for device-resident splits: ``auto``
+    or true, as the JAX package reads it; any other value is the host
+    path."""
+    return config.device_data in ("auto", True, "true")
 
 
 def resolve_device(name: str) -> str:
@@ -192,6 +206,11 @@ class Config:
         # training steps per call of the trainer loop (a Python loop of K
         # steps; validation cadence follows it as in the JAX package)
         self.steps_per_call = get("steps_per_call", 1)
+        # where the train split and the eval splits live
+        # (wmfml_tpu/configs/config.py:161,224): "auto"/true on the device
+        # when they fit, else host episodes through a prefetch thread
+        self.prefetch = get("prefetch", 2)
+        self.device_data = get("device_data", "auto")
 
         if self.task not in TASK_SHAPES:
             raise TypeError(f"{self.task} is not implemented in this experiments!")

@@ -53,6 +53,39 @@ import torch
 
 from wmfml_tpu_torch.configs.config import torch_dtype
 
+# the JAX package's rule for a split the device takes
+# (wmfml_tpu/data/device_sampler.py:33): a split of more bytes on the host
+# is streamed; both packages apply it to the host array, so they choose the
+# same path
+DEVICE_DATA_BYTES_LIMIT = 2_000_000_000
+
+
+def split_refusal(x: np.ndarray, need: int) -> Optional[str]:
+    """Why a dense split [groups, instances, ...] cannot live on the
+    device, or None: more than ``DEVICE_DATA_BYTES_LIMIT`` bytes on the
+    host, or fewer than ``need`` instances a group."""
+    if x.nbytes > DEVICE_DATA_BYTES_LIMIT:
+        return (f"the split holds {x.nbytes} bytes on the host, over "
+                f"DEVICE_DATA_BYTES_LIMIT = {DEVICE_DATA_BYTES_LIMIT}")
+    if x.shape[1] < need:
+        return f"{x.shape[1]} instances a class, fewer than {need}"
+    return None
+
+
+def refusal(data, config) -> Optional[str]:
+    """Why ``from_dataset`` declines ``data``'s train split, or None
+    (``wmfml_tpu/data/device_sampler.py:113-152``): an unknown task, a
+    missing train split, or ``split_refusal`` at ``max_ctx_num +
+    query_num`` instances a class."""
+    task = getattr(data, "task_name", None)
+    if task not in DeviceEpisodeSampler.TASKS:
+        return f"no device sampler for task {task!r}"
+    try:
+        x = data.x_train
+    except AttributeError:
+        return "the dataset has no dense train split"
+    return split_refusal(x, config.max_ctx_num + config.query_num)
+
 
 class DeviceEpisodeSampler:
     """Wraps a dense train split [groups, instances, ...] on ``device``."""
@@ -79,14 +112,15 @@ class DeviceEpisodeSampler:
              "distractor": (1, 1.0), "shapenet_3d": (1, 1.0)}
 
     @classmethod
-    def from_dataset(cls, data, config, device) -> "DeviceEpisodeSampler":
-        task = getattr(data, "task_name", None)
-        if task not in cls.TASKS:
-            raise NotImplementedError(
-                f"device sampling is ported for {sorted(cls.TASKS)}; got "
-                f"{task!r}")
-        shot_min, label_scale = cls.TASKS[task]
-        gen_bg = task == "shapenet_3d" and config.gen_bg
+    def from_dataset(cls, data, config,
+                     device) -> Optional["DeviceEpisodeSampler"]:
+        """The sampler over ``data``'s train split on ``device``, or None
+        exactly where the JAX package's ``from_dataset`` gives None
+        (``refusal``); the trainer then streams host episodes."""
+        if refusal(data, config) is not None:
+            return None
+        shot_min, label_scale = cls.TASKS[data.task_name]
+        gen_bg = data.task_name == "shapenet_3d" and config.gen_bg
         return cls(data.x_train, data.y_train, max_ctx=config.max_ctx_num,
                    query=config.query_num,
                    shot_min=config.max_ctx_num if shot_min is None
@@ -123,3 +157,6 @@ class DeviceEpisodeSampler:
                 for x in (ctx_x, qry_x))
         return dict(ctx_x=ctx_x, ctx_y=ys[:, :s], ctx_mask=mask,
                     qry_x=qry_x, qry_y=ys[:, s:])
+
+
+from_dataset = DeviceEpisodeSampler.from_dataset

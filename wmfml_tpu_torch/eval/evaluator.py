@@ -24,9 +24,22 @@ point (the JAX evaluator's ``fold_in(base_key, 20_000_000 + v)``), so two
 sweeps of one checkpoint give the same numbers.
 
 The model is restored from ``config.checkpoint`` (a port checkpoint or a
-bare reference ``state_dict``) when it names one. Episodes go to the
-card one by one; the JAX package's one-dispatch device sweep
-(``data/device_eval.py``) is not ported.
+bare reference ``state_dict``) when it names one.
+
+With ``device_data`` auto or true (the default) and a split that
+``data/device_eval.py:split_from_dataset`` takes, a split's whole sweep
+runs on the device (``_device_sweep``, the JAX evaluator's,
+``wmfml_tpu/eval/evaluator.py:70-126``): the host draws every point's
+indices from the stream reset to RandomState 42 before the point, pads the
+context indices to ``max_ctx_num`` by repeating the last real one and
+masks the padding, takes all the views as queries on eval-mode data
+(``query_all``), and one ``DeviceSweep`` of ``max_ctx_num x val_iters``
+batches scores them, reseeding the generator before each point as the
+host sweep does (CUDA graph replays on the card unless ``sweep_graphs``
+is False); means and stds (ddof 1) are taken as the host path takes them,
+and the log says "sweep ran device-resident". Otherwise, and for a sampler
+without ``get_batch_indices`` (``RefinementSampler``), episodes go to the
+card one by one.
 
 ``evaluate_one_task()`` is the sweep over the test split alone, written to
 ``test_losses.txt`` (over a ``data/refinement.py:RefinementSampler``: one
@@ -71,6 +84,9 @@ import torch
 
 from wmfml_tpu_torch.ckpt.checkpoint import CheckpointManager
 from wmfml_tpu_torch.cli.common import set_numerics
+from wmfml_tpu_torch.configs.config import device_data_on
+from wmfml_tpu_torch.data.device_eval import (build_device_eval_ctx_sweep,
+                                              split_from_dataset)
 from wmfml_tpu_torch.models.registry import method_family
 from wmfml_tpu_torch.obs.guards import check_finite
 from wmfml_tpu_torch.obs.metrics import MetricsWriter
@@ -116,6 +132,49 @@ class ModelEvaluator:
             self.eval_step = build_maml_eval_step(self.model, config)
         else:
             self.eval_step = build_eval_step(self.model, config)
+        self.sweeps = {}             # source -> DeviceSweep, or None
+        self.sweep_graphs = True
+
+    def _device_sweep(self, source: str):
+        """(means, stds) over ctx 1..max_ctx_num of ``source`` from one
+        device sweep, or None where the split stays on the host."""
+        cfg = self.config
+        if not device_data_on(cfg) or not hasattr(self.data,
+                                                  "get_batch_indices"):
+            return None
+        eval_mode = getattr(self.data, "mode", None) == "eval"
+        if source not in self.sweeps:
+            split = split_from_dataset(self.data, cfg, source, self.device,
+                                       query_all=eval_mode)
+            self.sweeps[source] = None if split is None else \
+                build_device_eval_ctx_sweep(self.eval_step, split,
+                                            self.generator,
+                                            graph=self.sweep_graphs)
+        sweep = self.sweeps[source]
+        if sweep is None:
+            return None
+        s, q, vi = cfg.max_ctx_num, cfg.query_num, cfg.val_iters
+        cls, ctx, shots, qry = [], [], [], []
+        for ctx_num in range(1, s + 1):
+            self.data.reset_eval(source, seed=42)
+            for _ in range(vi):
+                groups, take, shot = self.data.get_batch_indices(
+                    source, cfg.tasks_per_batch, ctx_num)
+                assert shot == ctx_num, "eval shot must equal the ctx point"
+                cls.append(groups)
+                ctx.append(np.pad(take[:, :shot], ((0, 0), (0, s - shot)),
+                                  mode="edge"))
+                shots.append(shot)
+                qry.append(take if eval_mode else take[:, shot:shot + q])
+        seeds = ([int(cfg.seed) + 20_000_000] + [None] * (vi - 1)) * s
+        losses = sweep(np.stack(cls), np.stack(ctx), np.stack(qry), seeds,
+                       shots=np.asarray(shots))
+        per_ctx = losses.cpu().numpy().astype(np.float64).reshape(s, vi)
+        means = [float(m) for m in per_ctx.mean(axis=1)]
+        stds = [float(r.std(ddof=1)) if vi > 1 else 0.0 for r in per_ctx]
+        for m, r in zip(means, stds):
+            self.logger.info(f"{source} loss: {m:.4f}\n{source} std: {r:.4f}")
+        return means, stds
 
     def _validate_iter(self, source: str, ctx_num: int):
         """Mean and std (ddof 1) of the loss over ``val_iters`` episodes
@@ -133,6 +192,13 @@ class ModelEvaluator:
         return loss, std
 
     def _sweep_source(self, source: str):
+        """(losses, stds) over ctx 1..max_ctx_num: the device sweep, else
+        the host's."""
+        dev = self._device_sweep(source)
+        if dev is not None:
+            self.logger.info(f"[{source}] sweep ran device-resident (one "
+                             f"index upload, one read)")
+            return dev
         points = [self._validate_iter(source, n)
                   for n in range(1, self.config.max_ctx_num + 1)]
         return [p[0] for p in points], [p[1] for p in points]

@@ -30,7 +30,13 @@ are a Python loop:
   * training runs ``steps_per_call`` outer steps a call
     (``build_maml_device_train_step``, the JAX package's
     ``build_maml_device_train_step``): on the card one CUDA graph replay
-    (``train/steps.py:FusedSteps``), the second-order inner loop included.
+    (``train/steps.py:FusedSteps``), the second-order inner loop included;
+    on the host-streamed path (``train/trainer.py``) one step a call, as
+    the JAX package's host path (``wmfml_tpu/train/maml.py:250-289``);
+  * validation after training on the device path sweeps the val/test
+    splits on the device (``data/device_eval.py``, the trainer's
+    ``_make_device_sweep`` over this eval step: the JAX package's
+    ``build_outer_device_sweep``).
 """
 
 from __future__ import annotations
@@ -142,8 +148,8 @@ def build_maml_train_step(model, optimizer, config) -> Callable:
 def build_maml_device_train_step(model, optimizer, config, sampler,
                                  steps_per_call: int) -> FusedSteps:
     """``steps_per_call`` of ``build_maml_train_step``'s outer steps per
-    call, on episodes drawn on the device, each step drawing its own
-    (``FusedSteps``); a call returns the JAX step's metrics
+    call, each step drawing its own episode from ``sampler`` (on the
+    device, or ``HostEpisodes``; ``FusedSteps``); a call returns the JAX step's metrics
     (``wmfml_tpu/train/maml.py:192-196``): ``loss``, the mean of the K
     losses, and ``task_loss``, ``kl`` and ``contra`` of the K-th step."""
     step = build_maml_train_step(model, optimizer, config)
@@ -174,6 +180,8 @@ class MAMLTrainer(ModelTrainer):
     """The port's trainer loop with MAML steps underneath."""
 
     def _build_steps(self):
+        if self.streamed:       # the host path: one step a call, as in JAX
+            self.steps_per_call = 1
         return (build_maml_device_train_step(self.model, self.optimizer,
                                              self.config, self.sampler,
                                              self.steps_per_call),

@@ -25,9 +25,11 @@
   * ``build_mmaml_device_train_step``: ``steps_per_call`` outer steps a
     call (``train/steps.py:FusedSteps``; on the card one CUDA graph
     replay), returning the JAX step's metrics: ``loss`` (the mean of the
-    K), ``task_loss`` (the K-th), ``kl`` and ``contra`` 0.
+    K), ``task_loss`` (the K-th), ``kl`` and ``contra`` 0; one step a call
+    on the host-streamed path (``wmfml_tpu/train/mmaml.py:211-248``).
   * ``build_mmaml_eval_step``: ``test_num_steps`` inner steps under
-    ``enable_grad``, the degree metric (``test=True``).
+    ``enable_grad``, the degree metric (``test=True``); the trainer's
+    device sweep runs it over the splits on the device.
 """
 
 from __future__ import annotations
@@ -128,7 +130,7 @@ def build_mmaml_train_step(model, optimizer, config) -> Callable:
 def build_mmaml_device_train_step(model, optimizer, config, sampler,
                                   steps_per_call: int) -> FusedSteps:
     """``steps_per_call`` of ``build_mmaml_train_step``'s outer steps per
-    call, on episodes drawn on the device (``FusedSteps``)."""
+    call, on episodes drawn by ``sampler`` (``FusedSteps``)."""
 
     def reduce(losses):
         return {"loss": torch.stack(losses).mean(), "task_loss": losses[-1],
@@ -166,6 +168,8 @@ class MMAMLTrainer(ModelTrainer):
         return build_mmaml_optimizer(self.model, self.config)
 
     def _build_steps(self):
+        if self.streamed:       # the host path: one step a call, as in JAX
+            self.steps_per_call = 1
         return (build_mmaml_device_train_step(self.model, self.optimizer,
                                               self.config, self.sampler,
                                               self.steps_per_call),

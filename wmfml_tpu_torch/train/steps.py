@@ -12,10 +12,14 @@ them (BBB samples at evaluation, as in the reference). A step returns the
 loss as a device tensor: the trainer reads it on the host only at its
 validation cadence, so the host never waits on the card in between.
 
-``build_device_data_train_step`` runs ``steps_per_call`` such steps on
-episodes sampled on the device as one call (``FusedSteps``), the JAX
-package's fused dispatch (``wmfml_tpu/train/steps.py:166-232``): on the card
-one CUDA graph replay, on the CPU a loop.
+``build_device_data_train_step`` runs ``steps_per_call`` such steps as one
+call (``FusedSteps``), the JAX package's fused dispatch: on the card one
+CUDA graph replay, on the CPU a loop. The episodes are sampled on the
+device (``data/device_sampler.py``; ``wmfml_tpu/train/steps.py:166-232``),
+or, on the host-streamed path, loaded from the host (``HostEpisodes``: the
+K host episodes of a call copied into static device buffers, the JAX
+package's ``build_multi_train_step``, ``:113-163``); either way DA and TA
+are drawn on the device from the trainer's generator inside the step.
 
 ``init_model`` builds ``config.method`` with weights drawn from
 ``config.seed`` and moves it to the config's device.
@@ -213,32 +217,78 @@ class FusedSteps:
 
     def _capture(self, generator: torch.Generator):
         self.optimizer.zero_grad(set_to_none=True)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        graph.register_generator_state(generator)
-        if self.dot_path is not None:
-            graph.enable_debug_mode()
-        before = {name: fn.launches for name, fn in KERNELS.items()}
-        mode = torch.cuda.get_sync_debug_mode()
-        with torch.cuda.graph(graph, stream=self.stream):
-            t0 = time.perf_counter()
-            reserved = torch.cuda.memory_reserved(self.device)
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                out = self.loop(generator)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-            t1 = time.perf_counter()
-        t2 = time.perf_counter()
-        graph.instantiate()
-        self.graph_stats = dict(
-            capture_s=t1 - t0, end_capture_s=t2 - t1,
-            instantiate_s=time.perf_counter() - t2,
-            pool_bytes=torch.cuda.memory_reserved(self.device) - reserved)
-        self.captured_launches = {name: fn.launches - before[name]
-                                  for name, fn in KERNELS.items()}
-        if self.dot_path is not None:
-            graph.debug_dump(self.dot_path)
-        self.graph, self.out = graph, out
+        (self.graph, self.out, self.captured_launches,
+         self.graph_stats) = capture_graph(lambda: self.loop(generator),
+                                           self.stream, generator,
+                                           self.dot_path)
+
+
+def capture_graph(fn: Callable, stream, generator: torch.Generator,
+                  dot_path: Optional[str] = None):
+    """Capture ``fn()`` into a ``torch.cuda.CUDAGraph`` on ``stream``, with
+    ``generator`` registered (a replay draws from its offset at that
+    moment what ``fn`` would draw, and moves it as far) and the host's
+    syncs made errors, and instantiate it. Returns (graph, fn's output: the
+    graph's static tensors, each kernel counter's launches in the capture,
+    {capture_s, end_capture_s, instantiate_s, pool_bytes}); with
+    ``dot_path`` the graph is written there as DOT."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.register_generator_state(generator)
+    if dot_path is not None:
+        graph.enable_debug_mode()
+    before = {name: fn_.launches for name, fn_ in KERNELS.items()}
+    mode = torch.cuda.get_sync_debug_mode()
+    device = stream.device
+    with torch.cuda.graph(graph, stream=stream):
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
+    graph.instantiate()
+    stats = dict(capture_s=t1 - t0, end_capture_s=t2 - t1,
+                 instantiate_s=time.perf_counter() - t2,
+                 pool_bytes=torch.cuda.memory_reserved(device) - reserved)
+    captured = {name: fn_.launches - before[name]
+                for name, fn_ in KERNELS.items()}
+    if dot_path is not None:
+        graph.debug_dump(dot_path)
+    return graph, out, captured, stats
+
+
+class HostEpisodes:
+    """The host-streamed path's sampler: ``load(batch)`` copies a call's K
+    host episodes, stacked [K, T, ...] (pinned on the card's path), into
+    static device buffers with ``non_blocking=True``, on the current
+    stream, so after the previous call's reads and before this call's;
+    ``sample`` hands the call's steps their episodes in turn, as views of
+    those buffers, so a captured graph reads whatever the last ``load``
+    wrote. The buffers are made at the first ``load``; every later batch
+    has its shapes and dtypes."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.buffers: Optional[Dict[str, torch.Tensor]] = None
+        self.next = 0
+
+    def load(self, batch: Dict[str, torch.Tensor]):
+        if self.buffers is None:
+            self.buffers = {k: torch.empty_like(v, device=self.device)
+                            for k, v in batch.items()}
+        for k, v in batch.items():
+            self.buffers[k].copy_(v, non_blocking=True)
+        self.next = 0
+
+    def sample(self, tasks_per_batch: int,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+        episode = {k: v[self.next] for k, v in self.buffers.items()}
+        self.next += 1
+        return episode
 
 
 def anp_metrics(losses: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -249,8 +299,9 @@ def anp_metrics(losses: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
 def build_device_data_train_step(model, optimizer, config, sampler,
                                  steps_per_call: int) -> FusedSteps:
     """``steps_per_call`` of ``build_train_step``'s steps per call, on
-    episodes drawn on the device (``FusedSteps``); a call returns
-    ``{"loss": mean of the K losses, "last_loss": the K-th}``.
+    episodes drawn by ``sampler`` (``FusedSteps``: a ``DeviceEpisodeSampler``
+    on the device, or ``HostEpisodes``); a call returns ``{"loss": mean of
+    the K losses, "last_loss": the K-th}``.
 
     The JAX step draws its K episodes in one ``vmap`` ahead of its scan;
     here each step draws its own, in the eager loop's order, so that a
