@@ -269,8 +269,40 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      (and without graphs on the ANP sweep); the kernels line gives each
      row the launches
      of the phase 21 paths that run its kernel at its shapes
-     (``phase21_launches``);
+     (``phase21_launches``). H3 D1's YAML with ``device_data=false`` (16
+     steps, 8 a call). H1, H2 and H3 draw their episodes through the
+     native episode core (``data/episode_core.py``): H2's and H3's first
+     calls equal the numpy twins' from a freshly seeded copy bit for bit
+     (``check_first_call_twin``), H3's host loop is timed against D1's
+     graph replays with the thread's ms a call and the queue's empty
+     waits, and the gather of a call at H2's and H3's shapes is timed on
+     the host, the core against the numpy twin (``native_gather_ms``);
+ 22. ``maml_remat`` (ROADMAP.md A19): phase 7's MAML YAML (8 steps, 4 a
+     call) and phase 20's MMAML YAML, each with ``maml_remat=step`` and
+     ``dots``, through ``train_phase`` (K1 and K3 twice an inner step in
+     training, as the code says; K6 program 0 twice a step); each one's
+     second-order outer loss and gradients of one seeded batch against
+     ``none``'s on the same trainer, bit for bit under deterministic
+     algorithms (``check_remat_grad``); graph ms/step of none (phase 7's
+     and phase 20's trainers), step and dots in turns, each one's busy
+     share, pool bytes, peak allocated memory above its phase's start,
+     capture and instantiation seconds and graph nodes (``remat_phase``);
+ 23. MMAML in bfloat16 (ROADMAP.md A27): phase 20's YAML with
+     ``compute_dtype=bfloat16`` through ``train_phase`` (every K6 launch a
+     bfloat16 one, K1-K3 none); its validation loss on one episode, card
+     against CPU, within the bfloat16 rule; the outer loss and both nets'
+     second-order gradients against float64 within the bfloat16 rule
+     (``check_mmaml_grad_bf16``); float32 against bfloat16 graph ms/step
+     in turns with busy shares, pool bytes and graph nodes. The kernels
+     line gives each row the launches of phases 20, 22 and 23 at its
+     shapes (``phase22_launches``);
  15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+
+Depth cuts against the time limit: graph = loop (phase 12) checks the
+paths that take 64 steps a call with graphs of 8 steps
+(``GRAPH_LOOP_K8``), and K6's ShapeNet3D and Distractor programs meet
+their CPU twin on the first ``CPU_TWIN_TASKS`` tasks of a call (their card
+twin on all 20).
 
 Phase 3 also holds the Distractor paths' kernels: K2's wide form at D1's
 shape (q [20, 8, 18, 256], k, v [20, 8, 15, 256], m 1419, shots 1..15) and
@@ -474,6 +506,15 @@ HOST_OVERRIDES = TRAIN_OVERRIDES + ["device_data=false"]
 H2_OVERRIDES = S3D_SHORT_OVERRIDES + ["iterations=24", "device_data=false",
                                       "bg_gen_freq=16"]
 V1_ITERS = 10
+# H3 (phase 21): D1's path streamed from the host (16 steps, 8 a call)
+H3_OVERRIDES = DISTRACTOR_SHORT_OVERRIDES + ["device_data=false"]
+# the remat rows (phase 22): phase 7's MAML YAML at 8 steps, 4 a call, and
+# phase 20's MMAML overrides, each with maml_remat step and dots
+MAML_REMAT_OVERRIDES = [o for o in MAML_OVERRIDES
+                        if not o.startswith("iterations=")] + ["iterations=8"]
+# graph = loop on the paths that take 64 steps a call checks graphs of 8
+# steps: the same code (FusedSteps), an eighth of the steps
+GRAPH_LOOP_K8 = ["steps_per_call=8"]
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -537,6 +578,11 @@ BF16_ULPS, BF16_FLOOR = 2.0, 2.0 ** -8
 BF16_K6_ULPS = {"distractor": 1.0, "distractor_fixed": 1.0,
                 "shapenet_3d": 4.0, "shapenet_3d_fixed": 4.0}
 BF16_K6_SHARE = 1e-4
+# K6's ShapeNet3D and Distractor programs against their CPU twin: on the
+# first CPU_TWIN_TASKS tasks of a call (every image has its own draws and
+# keys, so a task's outputs depend on its images alone); the card twin
+# holds all 20
+CPU_TWIN_TASKS = 2
 # validation degree loss after 20 inner steps, card against CPU: float32
 # sums in another order move each adapted weight a little at every step;
 # |card - CPU| <= VAL_TOL * (|CPU| + 1) degrees
@@ -1625,9 +1671,10 @@ def check_image_da_rgb(gen, dtype=None):
     call: its parameters bit for bit against ``params_for`` on the card;
     with every other op off and the dropout op on (Dropout, then
     CoarseDropout, per channel where drawn), its masks bit for bit against
-    the twin on the card and on the CPU, in two orders; its output against
-    the card twin in ten orders (program 6: the identity, the reverse and 8
-    drawn of the 720) and the CPU twin in the first two (float32 within
+    the twin on the card and on the CPU (the first ``CPU_TWIN_TASKS``
+    tasks), in two orders; its output against the card twin in ten orders
+    (program 6: the identity, the reverse and 8 drawn of the 720) and the
+    CPU twin in the first two (float32 within
     ``TOL["pixel_ops"]``; bfloat16 within ``BF16_K6_ULPS`` of each element,
     differing on at most ``BF16_K6_SHARE`` of them, and within
     ``check_bf16``'s rule); timed in the identity or the fixed order,
@@ -1662,9 +1709,10 @@ def check_image_da_rgb(gen, dtype=None):
                                            program=program, **kw)
 
             def twin(uu, o, cpu=False, dt=f32):
-                if cpu:
+                if cpu:         # the first CPU_TWIN_TASKS tasks' images
+                    n = CPU_TWIN_TASKS * s_
                     return kda.image_da_plain(
-                        xc, uu.cpu(), keys.cpu(),
+                        xc[:CPU_TWIN_TASKS], uu[:n].cpu(), keys[:n].cpu(),
                         None if o is None else on_card[o].cpu(), dt, program)
                 return kda.image_da_plain(x, uu, keys, on_card[o], dt,
                                           program)
@@ -1688,11 +1736,12 @@ def check_image_da_rgb(gen, dtype=None):
                 for o in orders[:2]:
                     got = launch(um, o).cpu()
                     for want in (twin(um, o).cpu(), twin(um, o, cpu=True)):
-                        if not torch.equal(got.view(bits), want.view(bits)):
+                        g = got[:len(want)]
+                        if not torch.equal(g.view(bits), want.view(bits)):
                             raise AssertionError(
                                 f"image_da {program} ({kind}, order {o}): the "
                                 f"mask differs from the twin's at "
-                                f"{int((got != want).sum())} elements")
+                                f"{int((g != want).sum())} elements")
                 dropped[kind] = float((got == 0).double().mean()
                                       - (xc == 0).double().mean())
             worst = {"card twin": 0.0, "CPU twin": 0.0}
@@ -1702,7 +1751,8 @@ def check_image_da_rgb(gen, dtype=None):
                 # the CPU twin in the first two orders (as programs 1-3)
                 for where in ("card twin", "CPU twin")[:2 if i < 2 else 1]:
                     cpu = where == "CPU twin"
-                    g, want = (got.cpu() if cpu else got), twin(u, o, cpu)
+                    g = got[:CPU_TWIN_TASKS].cpu() if cpu else got
+                    want = twin(u, o, cpu)
                     if not bf16:
                         err = check_close("pixel_ops", g, want)[0]
                     else:
@@ -1891,8 +1941,9 @@ def check_image_da_distractor(gen, dtype=None):
     for bit against ``params_for`` on the card; with Affine off and the
     dropout op on (Dropout, then CoarseDropout), its masks on 1 - x / 255
     (in bfloat16 the twice-rounded 1 - bf16(x / 255)) bit for bit against
-    the twin on the card and on the CPU, in each order; its output against
-    both twins in each order (program 4: 2; float32 within
+    the twin on the card and on the CPU (the first ``CPU_TWIN_TASKS``
+    tasks), in each order; its output against both twins in each order
+    (program 4: 2; float32 within
     ``TOL["warp_chain"]``, bfloat16 within 1 bfloat16 ulp of each element
     and ``check_bf16``'s rule); timed in order 0 (program 4) or the fixed
     order, with ``library_warp_ms`` of Affine's warp on the inverted images
@@ -1923,9 +1974,10 @@ def check_image_da_distractor(gen, dtype=None):
                                            program=program, **kw)
 
             def twin(uu, o, cpu=False, dt=dtype):
-                if cpu:
+                if cpu:         # the first CPU_TWIN_TASKS tasks' images
+                    n = CPU_TWIN_TASKS * x.shape[1]
                     return kda.image_da_plain(
-                        xc, uu.cpu(), keys.cpu(),
+                        xc[:CPU_TWIN_TASKS], uu[:n].cpu(), keys[:n].cpu(),
                         None if o is None else on_card[o].cpu(), dt, program)
                 return kda.image_da_plain(x, uu, keys, on_card[o], dt,
                                           program)
@@ -1948,11 +2000,12 @@ def check_image_da_distractor(gen, dtype=None):
                 for o in orders:
                     got = launch(um, o).cpu()
                     for want in (twin(um, o).cpu(), twin(um, o, cpu=True)):
-                        if not torch.equal(got.view(bits), want.view(bits)):
+                        g = got[:len(want)]
+                        if not torch.equal(g.view(bits), want.view(bits)):
                             raise AssertionError(
                                 f"image_da {program} ({kind}, order {o}): the "
                                 f"mask differs from the twin's at "
-                                f"{int((got != want).sum())} elements")
+                                f"{int((g != want).sum())} elements")
                 dropped[kind] = float((got == 0).double().mean()
                                       - (xc == 255).double().mean())
             worst = {"card twin": 0.0, "CPU twin": 0.0}
@@ -1960,7 +2013,8 @@ def check_image_da_distractor(gen, dtype=None):
                 got = launch(u, o)
                 for where, want in (("card twin", twin(u, o)),
                                     ("CPU twin", twin(u, o, cpu=True))):
-                    g = got if where == "card twin" else got.cpu()
+                    g = (got if where == "card twin"
+                         else got[:CPU_TWIN_TASKS].cpu())
                     if not bf16:
                         err = check_close("warp_chain", g, want)[0]
                     else:
@@ -2136,6 +2190,7 @@ def launches_per_step(trainer):
     """What the code says each kernel launches: per training step, and per
     validation episode (both splits are swept)."""
     from wmfml_tpu_torch.models.registry import method_family
+    from wmfml_tpu_torch.train.maml import remat_mode
 
     cfg = trainer.config
     da = {"image_da": 2} if "data_aug" in cfg.aug_list else {}
@@ -2143,7 +2198,10 @@ def launches_per_step(trainer):
     if family == "mmaml":             # its convolutions all run on cuDNN
         return da, {}
     if family == "maml":
-        inner, test = cfg.num_steps + 1, cfg.test_num_steps + 1
+        # a rematerialised inner step runs its forward twice in training
+        # (train/maml.py:rematerialised); evaluation never rematerialises
+        remat = 2 if remat_mode(cfg) != "none" else 1
+        inner, test = remat * cfg.num_steps + 1, cfg.test_num_steps + 1
         return ({"literature_stem": inner, "maml_features": inner, **da},
                 {"literature_stem": test, "maml_features": test})
     attention = {"favor_attention": 1} if cfg.agg_mode == "attention" else {}
@@ -2247,6 +2305,7 @@ def train_phase(card, yaml, overrides, counters, tap=None):
 
     config = Config(yaml, overrides)
     zero_counters()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = train_cli.build_trainer(config)
@@ -2260,6 +2319,7 @@ def train_phase(card, yaml, overrides, counters, tap=None):
         issued = {name: fn.launches for name, fn in counters.items()}
         nodes = graph_nodes(fused.dot_path)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer.peak_bytes = torch.cuda.max_memory_allocated() - base
     launches = card_launches(trainer, issued)
     bf16 = config.compute_dtype == "bfloat16"
     in_bf16 = {name: fn.bf16_launches for name, fn in counters.items()}
@@ -2312,7 +2372,8 @@ def train_phase(card, yaml, overrides, counters, tap=None):
         f"capture, {fused.replays} replay(s); {ms_step} ms/step, "
         f"{config.tasks_per_batch * 1e3 / ms_step} tasks/s over {steps} "
         f"timed steps (the capture included) on {card}; peak device memory "
-        f"{peak_gib} GiB")
+        f"{peak_gib} GiB ({trainer.peak_bytes / 2 ** 30} GiB above the "
+        f"phase's start)")
     log(f"train {tag}: graph of {fused.k} steps: {nodes['nodes']} nodes, "
         f"{nodes['kernel_nodes']} kernel nodes ({nodes['kernel_nodes'] / fused.k} "
         f"a step); capture {fused.graph_stats}")
@@ -3333,7 +3394,7 @@ def mmaml_phase(card):
     gradient against float64 (``check_mmaml_grad``); graph and loop ms/step
     with the card's busy share. Both CPU checks take the episode's first
     three tasks (each task's loss depends on its own rows only). Returns
-    (trainer, launches)."""
+    (trainer, launches, graph nodes)."""
     from wmfml_tpu_torch.kernels.image_da import image_da
     from wmfml_tpu_torch.train.steps import KERNELS
 
@@ -3349,32 +3410,165 @@ def mmaml_phase(card):
     graph_loop_turns({"MMAMLShapeNet1D (P20)": trainer},
                      {"MMAMLShapeNet1D (P20)": 1},
                      {"MMAMLShapeNet1D (P20)": nodes}, profile=True)
-    return trainer, launches
+    return trainer, launches, nodes
 
 
 @spent
-def check_mmaml_grad(trainer, tasks=3):
-    """Phase 20's gradient check, as phase 8's: the first ``tasks`` tasks
-    of one full-width training batch (drawn and augmented through K6 from a
-    generator seeded with the config's seed, the TA offsets drawn once and
-    fed to every run; a task's loss and its gradient's share depend on its
-    own rows only, so fewer tasks cut the CPU's time, not the check) and
-    the bundle as the config's seed builds it; the outer loss and both
-    networks' second-order outer gradients under deterministic algorithms
-    on the card, in float32 on the CPU and in float64 on the CPU. Each
-    network's largest relative error on the card must come within GRAD_TOL
-    of float64, or within GRAD_FACTOR times the float32 CPU's: the one-pass
-    BN of every inner step (E[x^2] - E[x]^2) cancels, as MAML's does. The
-    second-order part (the card's first-order gradient against float64)
-    must be well above the error, or the check is blind."""
+def check_remat_grad(trainer):
+    """The trainer's ``maml_remat`` against ``none`` on the card: the
+    second-order outer loss and every parameter's gradient of one seeded
+    batch (drawn from the trainer's device sampler, augmented with one seed
+    in both runs) on the trained weights, under deterministic algorithms:
+    equal bit for bit (the recompute runs the same kernels on the same
+    values). Returns the largest absolute difference (0.0)."""
+    import copy
+
+    import torch
+
+    from wmfml_tpu_torch.models.registry import method_family
+    from wmfml_tpu_torch.train.maml import build_maml_outer
+    from wmfml_tpu_torch.train.mmaml import build_mmaml_outer
+
+    cfg, model = trainer.config, trainer.model
+    seed = int(cfg.seed)
+    batch = trainer.sampler.sample(
+        cfg.tasks_per_batch, torch.Generator(device="cuda").manual_seed(seed))
+    build = (build_mmaml_outer if method_family(cfg.method) == "mmaml"
+             else build_maml_outer)
+    params = list(model.parameters())
+    out = {}
+    model.train()
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("none", cfg.maml_remat):
+            c = copy.copy(cfg)
+            c.maml_remat = mode
+            loss = build(model, c, int(c.num_steps), train=True, test=False)(
+                batch, torch.Generator(device="cuda").manual_seed(seed + 1))
+            loss = loss[0] if isinstance(loss, tuple) else loss
+            out[mode] = [loss.detach()] + list(torch.autograd.grad(
+                loss, params))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want, got = out["none"], out[cfg.maml_remat]
+    diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"remat: {cfg.method} maml_remat={cfg.maml_remat} against none, one "
+        f"seeded batch ({cfg.num_steps} second-order inner steps, "
+        f"deterministic algorithms): loss {got[0].item()} and "
+        f"{len(params)} gradients {'equal bit for bit' if equal else 'differ'}"
+        f" (max abs difference {diff}); {time.perf_counter() - t0:.1f} s")
+    if not equal:
+        raise AssertionError(f"{cfg.method} maml_remat={cfg.maml_remat}: "
+                             f"gradient differs from none's by {diff}")
+    return diff
+
+
+@spent
+def remat_phase(card, paths):
+    """Phase 22 (A19): for each path (``family: (yaml, overrides, kernel
+    counters, the trained none trainer, its graph nodes)``), ``maml_remat``
+    step and dots through ``train_phase`` (launches as the code says: K1
+    and K3 twice an inner step in training; graph nodes; a replay's
+    trace), the remat gradient against none's (``check_remat_grad``), then
+    graph ms/step of none, step and dots in turns (none, step, dots, dots,
+    step, none), each one's busy share, pool bytes, peak allocated memory
+    above its phase's start, capture and instantiation seconds and graph
+    nodes. Returns {path tag: launches}."""
+    import torch
+
+    launches = {}
+    for family, (yaml, overrides, counters, none, none_nodes) in paths.items():
+        trainers, nodes = {"none": none}, {"none": none_nodes}
+        for mode in ("step", "dots"):
+            tr, got, nodes[mode] = train_phase(
+                card, yaml, overrides + [f"maml_remat={mode}"], counters)
+            check_remat_grad(tr)
+            trainers[mode] = tr
+            launches[f"{family} remat {mode}"] = got
+        order = list(trainers)
+        ms = {m: [] for m in order}
+        for r in range(2):
+            for m in (order if r == 0 else order[::-1]):
+                ms[m].append(call_ms(trainers[m], 1))
+        rows = {}
+        for m, tr in trainers.items():
+            fused = tr.train_step
+            busy = profile_calls(tr, f"{family} remat {m}")["busy_share"]
+            step_ms = sum(ms[m]) / len(ms[m])
+            rows[m] = dict(ms_step=step_ms, turns_ms=ms[m], busy_share=busy,
+                           pool_bytes=fused.graph_stats["pool_bytes"],
+                           peak_bytes=tr.peak_bytes,
+                           capture_s=fused.graph_stats["capture_s"],
+                           instantiate_s=fused.graph_stats["instantiate_s"],
+                           nodes=nodes[m]["nodes"],
+                           kernel_nodes=nodes[m]["kernel_nodes"])
+            log(f"remat: {family} maml_remat={m} on {card}: graph {step_ms} "
+                f"ms/step ({tr.config.tasks_per_batch * 1e3 / step_ms} "
+                f"tasks/s; turns {ms[m]}), busy {busy}; pool "
+                f"{rows[m]['pool_bytes'] / 2 ** 30} GiB, peak allocated "
+                f"{rows[m]['peak_bytes'] / 2 ** 30} GiB above the phase's "
+                f"start; capture {rows[m]['capture_s']} s, instantiate "
+                f"{rows[m]['instantiate_s']} s; {rows[m]['nodes']} graph "
+                f"nodes ({rows[m]['kernel_nodes']} kernel nodes, "
+                f"{fused.k} steps)")
+        log(f"remat: {family}: " + json.dumps(rows))
+        del trainers, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+@spent
+def mmaml_bf16_phase(card, f32trainer, f32nodes):
+    """Phase 23 (A27): ``cfg/train/MMAML_ShapeNet1D_DA+TA.yaml`` with
+    ``compute_dtype=bfloat16`` through ``train_phase`` (8 steps, 4 a call;
+    every K6 launch a bfloat16 one of program 0, K1-K3 no time); its
+    validation loss on one episode, card against CPU, within the bfloat16
+    rule (``check_bf16_validation``; phase 20 holds float32's); the outer
+    loss and both nets' second-order gradients in bfloat16 against float64
+    (``check_mmaml_grad_bf16``); graph ms/step of float32 (phase 20's
+    trainer) and bfloat16 in turns with their busy shares, pool bytes and
+    graph nodes. Returns (trainer, launches)."""
+    from wmfml_tpu_torch.kernels.image_da import image_da
+    from wmfml_tpu_torch.train.steps import KERNELS
+
+    trainer, launches, nodes = train_phase(card, MMAML_YAML,
+                                           MMAML_OVERRIDES + BF16,
+                                           {"image_da": image_da})
+    others = {n: fn.launches for n, fn in KERNELS.items() if n != "image_da"}
+    if any(others.values()):
+        raise AssertionError(f"MMAML bf16: launches {others} off the path")
+    check_bf16_validation(trainer, tasks=3)
+    check_mmaml_grad_bf16(trainer)
+    turns = dtype_turns({"MMAMLShapeNet1D (P20, P23)": (f32trainer, trainer)},
+                        calls=1, profile=True)
+    for tag, tr, n in (("float32", f32trainer, f32nodes),
+                       ("bfloat16", trainer, nodes)):
+        log(f"turns: MMAMLShapeNet1D {tag}: pool "
+            f"{tr.train_step.graph_stats['pool_bytes'] / 2 ** 30} GiB, "
+            f"{n['nodes']} graph nodes ({n['kernel_nodes']} kernel nodes, "
+            f"{tr.train_step.k} steps), capture {tr.train_step.graph_stats}")
+    log("turns: MMAMLShapeNet1D f32 / bf16: " + json.dumps(turns))
+    return trainer, launches
+
+
+def mmaml_grad_inputs(trainer, tasks):
+    """The inputs of phase 20's and 23's gradient checks: (the config
+    without DA, the card, the first ``tasks`` tasks of one full-width
+    training batch drawn and augmented through K6 from a generator seeded
+    with the config's seed, the TA offsets drawn once and fed to every
+    run, the bundle as the config's seed builds it). A task's loss and its
+    gradient's share depend on its own rows only, so fewer tasks cut the
+    CPU's time, not the check."""
     import copy
 
     import torch
 
     from wmfml_tpu_torch.aug import pipeline
     from wmfml_tpu_torch.models.registry import build_model
-    from wmfml_tpu_torch.ops.cast import set_compute_dtype
-    from wmfml_tpu_torch.train.mmaml import build_mmaml_outer
 
     cfg, card = copy.copy(trainer.config), trainer.device
     gen = torch.Generator(device=card).manual_seed(int(cfg.seed))
@@ -3387,25 +3581,69 @@ def check_mmaml_grad(trainer, tasks=3):
                            device=card)[:tasks]
     batch = {k: v[:tasks] for k, v in batch.items()}
     cfg.aug_list = [a for a in cfg.aug_list if a != "data_aug"]
-    fresh = build_model(cfg)
+    return cfg, card, batch, ta_idx, build_model(cfg)
+
+
+def mmaml_grads(cfg, fresh, batch, ta_idx, device, dtype, first_order=False):
+    """The outer loss and both networks' second-order gradients (float64,
+    on the CPU, by name) of a copy of ``fresh`` computing in ``dtype`` on
+    ``device``, the episode's images cast to ``dtype``."""
+    import copy
+
+    import torch
+
+    from wmfml_tpu_torch.aug import pipeline
+    from wmfml_tpu_torch.ops.cast import set_compute_dtype
+    from wmfml_tpu_torch.train.mmaml import build_mmaml_outer
+
+    c = copy.copy(cfg)
+    c.first_order = first_order
+    model = copy.deepcopy(fresh).to(device)
+    if dtype != torch.bfloat16:     # bfloat16 keeps float32 parameters
+        model = model.to(dtype)
+    set_compute_dtype(model, dtype)
+    saved = pipeline._to_float
+    pipeline._to_float = lambda x, _=None: saved(x).to(dtype)
+    try:
+        outer = build_mmaml_outer(model, c, int(c.num_steps), train=True,
+                                  test=False)
+        loss = outer({k: v.to(device) for k, v in batch.items()},
+                     ta_idx=ta_idx.to(device))
+        names, params = zip(*model.named_parameters())
+        g = torch.autograd.grad(loss, params)
+    finally:
+        pipeline._to_float = saved
+    return loss.item(), {n: v.double().cpu() for n, v in zip(names, g)}
+
+
+# a conv bias that feeds a batch norm has true gradient 0 (BN removes any
+# per-channel shift): the MMAML checks hold it against its network's
+# largest entry
+MMAML_NETS = {"model": "model.", "embedding_model": "embedding_model."}
+
+
+def shift_free(name):
+    return name.endswith(".bias") and ("_conv." in name or ".conv.conv" in name)
+
+
+@spent
+def check_mmaml_grad(trainer, tasks=3):
+    """Phase 20's gradient check, as phase 8's: the outer loss and both
+    networks' second-order outer gradients of ``mmaml_grad_inputs``' batch
+    under deterministic algorithms on the card, in float32 on the CPU and
+    in float64 on the CPU. Each network's largest relative error on the
+    card must come within GRAD_TOL of float64, or within GRAD_FACTOR times
+    the float32 CPU's: the one-pass BN of every inner step (E[x^2] -
+    E[x]^2) cancels, as MAML's does. The second-order part (the card's
+    first-order gradient against float64) must be well above the error, or
+    the check is blind."""
+    import torch
+
+    cfg, card, batch, ta_idx, fresh = mmaml_grad_inputs(trainer, tasks)
 
     def grads(device, dtype, first_order=False):
-        c = copy.copy(cfg)
-        c.first_order = first_order
-        model = set_compute_dtype(copy.deepcopy(fresh).to(device, dtype),
-                                  dtype)
-        saved = pipeline._to_float
-        pipeline._to_float = lambda x, _=None: saved(x).to(dtype)
-        try:
-            outer = build_mmaml_outer(model, c, int(c.num_steps), train=True,
-                                      test=False)
-            loss = outer({k: v.to(device) for k, v in batch.items()},
-                         ta_idx=ta_idx.to(device))
-            names, params = zip(*model.named_parameters())
-            g = torch.autograd.grad(loss, params)
-        finally:
-            pipeline._to_float = saved
-        return loss.item(), {n: v.double().cpu() for n, v in zip(names, g)}
+        return mmaml_grads(cfg, fresh, batch, ta_idx, device, dtype,
+                           first_order)
 
     t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True)
@@ -3419,20 +3657,15 @@ def check_mmaml_grad(trainer, tasks=3):
     exact_loss, exact = grads("cpu", torch.float64)
     t2 = time.perf_counter()
 
-    # a conv bias that feeds a batch norm has true gradient 0 (BN removes
-    # any per-channel shift): held against its network's largest entry
-    nets = {"model": "model.", "embedding_model": "embedding_model."}
     scale = {net: max(g.abs().max().item() for n, g in exact.items()
-                      if n.startswith(p)) for net, p in nets.items()}
+                      if n.startswith(p)) for net, p in MMAML_NETS.items()}
 
     def worst(a, b, net):
         errs = []
         for n in exact:
-            if not n.startswith(nets[net]):
+            if not n.startswith(MMAML_NETS[net]):
                 continue
-            shift_free = n.endswith(".bias") and ("_conv." in n
-                                                  or ".conv.conv" in n)
-            den = scale[net] if shift_free else b[n].abs().max().item()
+            den = scale[net] if shift_free(n) else b[n].abs().max().item()
             errs.append(((a[n] - b[n]).abs().max().item() / den, n))
         errs.sort(reverse=True)
         return errs[0][0], errs[:3]
@@ -3447,7 +3680,7 @@ def check_mmaml_grad(trainer, tasks=3):
     if not rel_loss["card"] <= max(GRAD_TOL, GRAD_FACTOR * rel_loss["cpu"]):
         raise AssertionError(f"MMAML outer loss: card {card_loss}, float64 "
                              f"{exact_loss}, CPU float32 {cpu_loss}")
-    for net in nets:
+    for net in MMAML_NETS:
         err, top = worst(on_card, exact, net)
         err_cpu, top_cpu = worst(cpu, exact, net)
         second, _ = worst(exact, first, net)
@@ -3461,6 +3694,62 @@ def check_mmaml_grad(trainer, tasks=3):
             raise AssertionError(f"MMAML {net}: second-order part {second} "
                                  f"is not above the error {err}: the check "
                                  f"is blind")
+
+
+@spent
+def check_mmaml_grad_bf16(trainer, tasks=2):
+    """Phase 23's gradient check: the bfloat16 MMAML's outer loss and both
+    networks' second-order gradients of ``mmaml_grad_inputs``' batch (its
+    first ``tasks`` tasks) under deterministic algorithms on the card in
+    bfloat16, against float64 on the CPU within the bfloat16 rule, the
+    CPU's bfloat16 run setting bfloat16's own effect: per tensor, max
+    |card - float64| <= 2 max |CPU bf16 - float64| + 2^-7 max |float64|
+    (a BN-fed conv bias: 2^-7 of its network's largest entry), and the
+    loss likewise. Parameters and gradients stay float32 (``ops/cast.py``);
+    the images and every layer compute in bfloat16."""
+    import torch
+
+    cfg, card, batch, ta_idx, fresh = mmaml_grad_inputs(trainer, tasks)
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        card_loss, on_card = mmaml_grads(cfg, fresh, batch, ta_idx, card, bf)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t1 = time.perf_counter()
+    cpu_loss, cpu = mmaml_grads(cfg, fresh, batch, ta_idx, "cpu", bf)
+    exact_loss, exact = mmaml_grads(cfg, fresh, batch, ta_idx, "cpu",
+                                    torch.float64)
+    t2 = time.perf_counter()
+    scale = {net: max(g.abs().max().item() for n, g in exact.items()
+                      if n.startswith(p)) for net, p in MMAML_NETS.items()}
+    limit = 2 * abs(cpu_loss - exact_loss) + 2.0 ** -7 * abs(exact_loss)
+    log(f"grad: MMAML bf16, {tasks} of the batch's {cfg.tasks_per_batch} "
+        f"tasks: outer loss card {card_loss}, CPU bfloat16 {cpu_loss}, "
+        f"float64 {exact_loss}; |card - float64| "
+        f"{abs(card_loss - exact_loss)} (limit {limit}); card {t1 - t0} s, "
+        f"CPU bfloat16 + float64 {t2 - t1} s")
+    if not abs(card_loss - exact_loss) <= limit:
+        raise AssertionError(f"MMAML bf16 outer loss: card {card_loss}, "
+                             f"CPU bf16 {cpu_loss}, float64 {exact_loss}")
+    for net, prefix in MMAML_NETS.items():
+        ratios = []
+        for n, want in exact.items():
+            if not n.startswith(prefix):
+                continue
+            floor = 2.0 ** -7 * (scale[net] if shift_free(n)
+                                 else want.abs().max().item())
+            bound = 2 * (cpu[n] - want).abs().max().item() + floor
+            err = (on_card[n] - want).abs().max().item()
+            ratios.append((err / bound, n, err, bound))
+        ratios.sort(reverse=True)
+        log(f"grad: MMAML bf16 {net}: second-order outer gradient against "
+            f"float64, the worst |card - float64| / limit: {ratios[:3]}")
+        if ratios[0][0] > 1.0:
+            raise AssertionError(f"MMAML bf16 {net}: {ratios[0][1]} lies "
+                                 f"{ratios[0][2]} from float64, limit "
+                                 f"{ratios[0][3]}")
 
 
 def zero_counters():
@@ -3821,23 +4110,22 @@ def tap_gen_bg(trainer):
     trainer.recomposites = changed
 
 
-def host_loop_ms(trainer, calls, profile=False, start=None):
+def host_loop_ms(trainer, calls, profile=False, warm=1):
     """ms/step of ``calls`` calls of the host path as ``train()`` issues
     them (the prefetch thread drawing the batches, each loaded into the
-    graph's buffers, then one replay), after an untimed one; with
-    ``profile``, also the card's busy share of that wall time; the
-    batches are those of iterations ``start`` on (default: the run's last
-    ``calls`` + 1 calls). Returns
-    (ms/step, busy share or None, the queue's empty waits, the prefetch
-    thread's ms a call drawing and pinning)."""
+    graph's buffers, then one replay), after ``warm`` untimed ones (the
+    pinned allocator has cached a block for each batch in flight after a
+    few); with ``profile``, also the card's busy share of that wall time.
+    The batches are ``_sample_train``'s, drawn on from where training
+    left the stream, with no recomposite. Returns (ms/step, busy share or
+    None, the queue's empty waits, the prefetch thread's ms a call drawing
+    and putting into pinned memory, over the timed calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from wmfml_tpu_torch.train.trainer import Prefetcher
 
-    cfg, fused = trainer.config, trainer.train_step
-    if start is None:
-        start = cfg.iterations - (calls + 1) * fused.k
+    fused = trainer.train_step
     spent_s = {"draw": 0.0, "pin": 0.0}
 
     def timed(name, fn):
@@ -3848,14 +4136,16 @@ def host_loop_ms(trainer, calls, profile=False, start=None):
             return out
         return call
 
-    pf = Prefetcher(timed("draw", trainer._host_batches(start).__next__),
+    pf = Prefetcher(timed("draw", trainer._sample_train),
                     timed("pin", trainer._put_train_batch),
-                    depth=cfg.prefetch)
+                    depth=trainer.config.prefetch)
     try:
-        trainer.sampler.load(next(pf))
-        fused(trainer.generator)
+        for _ in range(warm):
+            trainer.sampler.load(next(pf))
+            fused(trainer.generator)
         torch.cuda.synchronize()
-        waits = pf.empty_waits
+        waits, before = pf.empty_waits, dict(spent_s)
+        host0 = torch.cuda.host_memory_stats()
         with (tprofile(activities=[ProfilerActivity.CUDA]) if profile
               else contextlib.nullcontext()) as prof:
             t0 = time.perf_counter()
@@ -3872,9 +4162,17 @@ def host_loop_ms(trainer, calls, profile=False, start=None):
                 busy_us += max(0.0, end_us - max(start_us, last_end))
                 last_end = max(last_end, end_us)
             busy = busy_us / wall_us
+        host1 = torch.cuda.host_memory_stats()
+        # the thread runs ahead of the timed calls by up to the queue's depth;
+        # new pinned blocks (cudaHostAlloc) taken meanwhile, and their ms
+        thread = {k: 1e3 * (v - before[k]) / calls for k, v in spent_s.items()}
+        thread["pinned_allocs"] = (host1.get("num_host_alloc", 0)
+                                   - host0.get("num_host_alloc", 0))
+        thread["pinned_alloc_ms"] = 1e-3 * (
+            host1.get("host_alloc_time.total", 0)
+            - host0.get("host_alloc_time.total", 0))
         return (wall_us / 1e3 / (calls * fused.k), busy,
-                pf.empty_waits - waits,
-                {k: 1e3 * v / (calls + 1) for k, v in spent_s.items()})
+                pf.empty_waits - waits, thread)
     finally:
         pf.close()
 
@@ -3940,8 +4238,10 @@ def shapenet3d_stream_phase(card, s1trainer, counters):
     metrics); ms/step over training and of the host loop with no
     recomposite (its thread's draw and pin ms), against S1's graph
     replays. Returns (trainer, launches)."""
-    htrainer, launches, _ = train_phase(card, S3D_YAML, H2_OVERRIDES,
-                                        counters, tap=tap_gen_bg)
+    htrainer, launches, _ = train_phase(
+        card, S3D_YAML, H2_OVERRIDES, counters,
+        tap=lambda tr: tap_gen_bg(tr) or tap_first_load(tr))
+    check_first_call_twin("H2", htrainer, S3D_YAML, H2_OVERRIDES)
     if not htrainer.streamed or htrainer.recomposites != [True]:
         raise AssertionError(f"H2: streamed {htrainer.streamed}, train "
                              f"split recomposites {htrainer.recomposites} "
@@ -3949,17 +4249,161 @@ def shapenet3d_stream_phase(card, s1trainer, counters):
     ms = {tag: 1e3 * tr.timing["seconds"] / tr.timing["steps"]
           for tag, tr in (("S1", s1trainer), ("H2", htrainer))}
     s1_ms = call_ms(s1trainer, 1)
-    loop_ms, _, waits, thread_ms = host_loop_ms(htrainer, 1, start=0)
+    loop_ms, _, waits, thread_ms = host_loop_ms(htrainer, 2, warm=6)
     log(f"stream: ANP ShapeNet3D f32 on {card}: over training, S1 "
         f"device-sampled {ms['S1']} ms/step, H2 host-streamed {ms['H2']} "
         f"ms/step (the recomposite's call among H2's timed ones), H2 / S1 "
         f"{ms['H2'] / ms['S1']}; one recomposite of the train split "
         f"(pixels changed); prefetch {htrainer.prefetch_stats}; with no "
         f"recomposite: S1 graph {s1_ms} ms/step, H2 host loop {loop_ms} "
-        f"ms/step ({loop_ms / s1_ms} x), the queue empty at {waits} of 1 "
-        f"call, the thread's ms a call {thread_ms}, the card's "
+        f"ms/step ({loop_ms / s1_ms} x; 2 calls after 6), the queue empty "
+        f"at {waits} of 2 calls, the thread's ms a call {thread_ms} (draw: "
+        f"the draws and "
+        f"labels; pin: the image rows gathered by the native core into "
+        f"pinned memory), the card's "
         f"{s1_ms * htrainer.steps_per_call}")
+    native_gather_ms("H2", htrainer)
     return htrainer, launches
+
+
+@spent
+def distractor_stream_phase(card, d1trainer, counters):
+    """H3: D1's path with ``device_data=false`` (16 steps, 8 a call)
+    through ``train_phase``; its first call's episodes against the numpy
+    twin's (``check_first_call_twin``); ms/step of the host loop against
+    D1's graph replays, the queue's empty waits and the prefetch thread's
+    ms a call; the native gather's host ms a call against the twin's
+    (``native_gather_ms``). Returns (trainer, launches)."""
+    htrainer, launches, _ = train_phase(card, DISTRACTOR_YAML, H3_OVERRIDES,
+                                        counters, tap=tap_first_load)
+    if not htrainer.streamed or d1trainer.streamed:
+        raise AssertionError("H3 must stream from the host and D1 not")
+    check_first_call_twin("H3", htrainer, DISTRACTOR_YAML, H3_OVERRIDES)
+    calls = 2
+    d1_ms = call_ms(d1trainer, calls)
+    loop_ms, _, waits, thread_ms = host_loop_ms(htrainer, 2, warm=6)
+    log(f"stream: ANPDistractor f32 on {card}: D1 device-sampled graph "
+        f"{d1_ms} ms/step, H3 host-streamed {loop_ms} ms/step (2 calls "
+        f"after 6; H3 / D1 {loop_ms / d1_ms}); over training H3 "
+        f"{1e3 * htrainer.timing['seconds'] / htrainer.timing['steps']} "
+        f"ms/step, prefetch {htrainer.prefetch_stats}; the host loop's "
+        f"queue empty at {waits} of 2 calls, the thread's ms a call "
+        f"{thread_ms} (draw: the episodes' draws and labels; pin: their "
+        f"image rows gathered by the native core into pinned memory), the "
+        f"card's {d1_ms * htrainer.steps_per_call}")
+    native_gather_ms("H3", htrainer)
+    return htrainer, launches
+
+
+def check_first_call_twin(tag, trainer, yaml, overrides):
+    """A host-path trainer's first call (``tap_first_load``) against the
+    same call drawn by the numpy twins: a freshly seeded copy of the data,
+    its gather (and ShapeNet3D's compositing, ``train()``'s recomposite of
+    every split first) replaced by ``assemble_episode_plain`` and
+    ``composite_backgrounds_plain``: bit for bit."""
+    import numpy as np
+
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.data import episode_core as core
+    from wmfml_tpu_torch.data import shapenet_3d
+    from wmfml_tpu_torch.data.factory import build_data
+
+    def plain_gather(data, items, perm, shot, query, query_offset=0,
+                     n_threads=None, out=None):
+        return core.assemble_episode_plain(data, items, perm, shot, query,
+                                           query_offset)
+
+    cfg = Config(yaml, overrides, make_dirs=False)
+    fresh = build_data(cfg)
+    saved = core.assemble_episode, shapenet_3d.composite_backgrounds
+    core.assemble_episode = plain_gather
+    shapenet_3d.composite_backgrounds = core.composite_backgrounds_plain
+    try:
+        if cfg.task == "shapenet_3d" and cfg.gen_bg:
+            fresh.gen_bg(cfg)
+        eps = [fresh.get_batch("train", cfg.tasks_per_batch, cfg.max_ctx_num)
+               for _ in range(trainer.steps_per_call)]
+    finally:
+        core.assemble_episode, shapenet_3d.composite_backgrounds = saved
+    first = trainer.first_batch[0]
+    for key, got in first.items():
+        if not np.array_equal(got.numpy(), np.stack([e[key] for e in eps])):
+            raise AssertionError(f"{tag}: the first call's {key} is not the "
+                                 f"numpy twin's")
+    log(f"stream: {tag} first call: {trainer.steps_per_call} host episodes "
+        f"({', '.join(f'{k} {tuple(v.shape)} {v.dtype}' for k, v in first.items())}) "
+        f"through the native core equal the numpy twins' from a freshly "
+        f"seeded copy, bit for bit")
+
+
+@spent
+def native_gather_ms(tag, trainer, calls=5):
+    """Host ms a call (``steps_per_call`` episodes of the trainer's train
+    split, at its shapes) of the image gather: the native core over the
+    padded views (``data/episode_core.py``, ``threads()`` threads, and one;
+    into new arrays, and into arrays written before, as the host path's
+    reused pinned stack) against the numpy twin (fancy indexing, then
+    ``make_episode``'s padding: the host path before the core), on the
+    same draws, the outputs equal bit for bit; median of ``calls``
+    calls."""
+    import numpy as np
+
+    from wmfml_tpu_torch.data import episode_core as core
+    from wmfml_tpu_torch.data.episode import make_episode
+
+    data, cfg = trainer.data, trainer.config
+    split = data.splits["train"]
+    images, s, q = split["images"], data.max_ctx, data.query_num
+    draws = [data._draw("train", cfg.tasks_per_batch, cfg.max_ctx_num)
+             for _ in range(trainer.steps_per_call)]
+
+    reused = [tuple(np.empty((cfg.tasks_per_batch, n) + images.shape[2:],
+                             images.dtype) for n in (s, q)) for _ in draws]
+
+    def native(threads, into=None):
+        return [core.assemble_episode(images, items,
+                                      core.padded_views(perm, shot, s, q),
+                                      s, q, n_threads=threads,
+                                      out=None if into is None else into[i])
+                for i, (items, perm, shot) in enumerate(draws)]
+
+    def twin():
+        out = []
+        for items, perm, shot in draws:
+            ctx, qry = core.assemble_episode_plain(images, items, perm, shot,
+                                                   q)
+            pad = make_episode(ctx, np.zeros(ctx.shape[:2] + (1,)), qry,
+                               np.zeros(qry.shape[:2] + (1,)), max_ctx=s,
+                               shot=shot)
+            out.append((pad["ctx_x"], pad["qry_x"]))
+        return out
+
+    fns = {"native": lambda: native(None), "native_1_thread":
+           lambda: native(1), "native_reused": lambda: native(None, reused),
+           "numpy_twin": twin}
+    for (a, b), (c, d) in zip(fns["native"](), fns["numpy_twin"]()):
+        if not (np.array_equal(a, c) and np.array_equal(b, d)):
+            raise AssertionError(f"{tag}: the native gather differs from "
+                                 f"the numpy twin's")
+    ms = {}
+    for name, fn in fns.items():
+        runs = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        ms[name] = sorted(runs)[calls // 2]
+    nbytes = sum(images.itemsize * (s + q) * cfg.tasks_per_batch
+                 * int(np.prod(images.shape[2:])) for _ in draws)
+    log(f"native: {tag} gather of a call ({len(draws)} episodes, "
+        f"{nbytes / 2 ** 20} MiB of {images.dtype} image rows, "
+        f"{images.shape[2:]} each): native core {ms['native']} ms "
+        f"({core.threads()} threads), one thread {ms['native_1_thread']} ms, "
+        f"into buffers written before (as the pinned stack the host path "
+        f"reuses) {ms['native_reused']} ms, numpy twin {ms['numpy_twin']} "
+        f"ms (twin / core {ms['numpy_twin'] / ms['native']}), median of "
+        f"{calls}; equal bit for bit")
+    return ms
 
 
 def host_sweep(trainer, source):
@@ -4435,15 +4879,16 @@ def main(argv):
     # these checks have always run in (cuDNN picks its bf16 MAML engines
     # from it)
     for yaml, overrides in ((MAIN_YAML, TRAIN_OVERRIDES),
-                            (MAIN_YAML, BF16_OVERRIDES),
+                            (MAIN_YAML, BF16_OVERRIDES + GRAPH_LOOP_K8),
                             (MAML_YAML, MAML_OVERRIDES),
                             (PERF_MAML_YAML, PERF_MAML_OVERRIDES),
                             (PASCAL_YAML, PASCAL_OVERRIDES),
-                            (PERF_ANP_YAML, PERF_ANP_OVERRIDES),
-                            (PERF_ANP_T40_YAML, PERF_ANP_OVERRIDES),
+                            (PERF_ANP_YAML, PERF_ANP_OVERRIDES + GRAPH_LOOP_K8),
+                            (PERF_ANP_T40_YAML,
+                             PERF_ANP_OVERRIDES + GRAPH_LOOP_K8),
                             (DISTRACTOR_YAML, DISTRACTOR_OVERRIDES),
                             (S3D_YAML, S3D_OVERRIDES),
-                            (S3D_PERF_YAML, S5_OVERRIDES),
+                            (S3D_PERF_YAML, S5_OVERRIDES + GRAPH_LOOP_K8),
                             (MR_ANP_YAML, TRAIN_OVERRIDES),
                             (FCL_ANP_YAML, DISTRACTOR_SHORT_OVERRIDES)):
         graph_equals_loop(yaml, overrides)
@@ -4580,7 +5025,10 @@ def main(argv):
     h2trainer, h2_launches = shapenet3d_stream_phase(card, s1trainer,
                                                      d_anp_kernels)
     del h2trainer
-    stamp("phase 21: H1, H2")
+    h3trainer, h3_launches = distractor_stream_phase(card, d1trainer,
+                                                     d_anp_kernels)
+    del h3trainer
+    stamp("phase 21: H1, H2, H3")
     v1_launches = {
         "ANP device validation": check_device_validation(trainer, "ANP"),
         "MAML device validation": check_device_validation(
@@ -4605,16 +5053,32 @@ def main(argv):
         f"reserved at most so far, {torch.cuda.memory_reserved() / 2 ** 30} "
         f"GiB now")
     stamp("phase 21, the device_data switch")
-    del m1trainer
+    # every trainer but phase 7's (the remat rows' none) has done its work
+    del m1trainer, trainer, btrainer, bmtrainer, ptrainer, pftrainer
+    del pmtrainer, ftrainer, f40trainer, d1trainer, d2trainer, d3trainer
+    del d5trainer, s1trainer, s2trainer, s3trainer, s5trainer, s6trainer
     gc.collect()
     torch.cuda.empty_cache()
     # phase 20: MMAML (ROADMAP.md A16)
-    mmtrainer, mmaml_launches = mmaml_phase(card)
-    del mmtrainer
+    mmtrainer, mmaml_launches, mmaml_nodes = mmaml_phase(card)
+    stamp("phase 20, MMAML")
+    # phase 22: maml_remat step and dots on MAML and MMAML (ROADMAP.md A19)
+    remat_launches = remat_phase(card, {
+        "MAMLShapeNet1D": (MAML_YAML, MAML_REMAT_OVERRIDES, maml_kernels,
+                           mtrainer, maml_nodes),
+        "MMAMLShapeNet1D": (MMAML_YAML, MMAML_OVERRIDES, da_kernels,
+                            mmtrainer, mmaml_nodes)})
+    del mtrainer
+    stamp("phase 22, maml_remat")
+    # phase 23: MMAML in bfloat16 (ROADMAP.md A27)
+    mbtrainer, mmaml_bf16_launches = mmaml_bf16_phase(card, mmtrainer,
+                                                      mmaml_nodes)
+    del mbtrainer, mmtrainer
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("phase 23, MMAML in bf16")
     graph_equals_loop(MMAML_YAML, MMAML_OVERRIDES)
-    stamp("phase 20, MMAML")
+    stamp("phase 20, MMAML graph = loop")
     # cuDNN's determinism: its cost a step on two paths (ROADMAP.md C2
     # records MAML's and S1's from earlier runs)
     determinism_turns(
@@ -4651,19 +5115,26 @@ def main(argv):
                 "Plot ANP ShapeNet1D": q1_launches,
                 "Plot ANP ShapeNet3D": q2_launches,
                 "Plot CNP Distractor": q3_launches,
-                "MMAML": mmaml_launches}
-    log("launches on the new paths (phases 19, 20): " + json.dumps(
-        {k: launches[k] for k in list(launches)[-11:]}))
+                "MMAML": mmaml_launches,
+                "MMAML bf16": mmaml_bf16_launches,
+                **remat_launches}
+    log("launches on the new paths (phases 20, 22, 23): " + json.dumps(
+        {k: launches[k] for k in list(launches)[-6:]}))
     # phase 21's paths, each beside the row path whose shapes it runs
     phase21 = {"ANP host-streamed (H1)": ("ANP", h1_launches),
                "ShapeNet3D host-streamed (H2)": ("ShapeNet3D ANP",
                                                  h2_launches),
+               "Distractor host-streamed (H3)": ("Distractor ANP",
+                                                 h3_launches),
                **{f"{k} (V1)": (k.replace(" device validation", ""), v)
                   for k, v in v1_launches.items()},
                "Distractor eval device sweep (V2)": (
                    "Distractor eval", v2_launches["Distractor eval sweep"]),
                "ShapeNet3D eval device sweep (V2)": (
                    "ShapeNet3D eval", v2_launches["ShapeNet3D eval sweep"])}
+    later = {"MMAML (P20)": ("MAML", mmaml_launches),
+             "MMAML bf16 (P23)": ("MAML bf16", mmaml_bf16_launches),
+             **{f"{k} (P22)": ("MAML", v) for k, v in remat_launches.items()}}
     log("launches on phase 21's paths: " + json.dumps(
         {**{k: v for k, (_, v) in phase21.items()},
          **{f"{k} (V2)": v for k, v in v2_launches.items()}}))
@@ -4686,6 +5157,15 @@ def main(argv):
             if min(new.values()) <= 0:
                 raise AssertionError(f"{r['name']}: no {key} launch on "
                                      f"phase 21's {new}")
+        # phases 20, 22 and 23: MMAML's K6 at the MAML path's shapes (f32
+        # and bf16), the remat paths' K1, K3 and K6
+        new = {name: got.get(key, 0) for name, (path, got) in later.items()
+               if path == r["path"] and got.get(r["kernel"], 0) > 0}
+        if new:
+            r["phase22_launches"] = new
+            if min(new.values()) <= 0:
+                raise AssertionError(f"{r['name']}: no {key} launch on "
+                                     f"{new}")
     log("time: host seconds in each helper over the run (nested calls "
         "counted in each): " + json.dumps({k: round(v, 1) for k, v in
                                            SPENT.items()}))

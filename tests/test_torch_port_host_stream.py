@@ -34,7 +34,7 @@ from wmfml_tpu.train.trainer import ModelTrainer as JaxModelTrainer
 from wmfml_tpu_torch.ckpt.jax_params import load_jax_variables
 from wmfml_tpu_torch.cli.train_cli import build_trainer
 from wmfml_tpu_torch.configs import Config
-from wmfml_tpu_torch.data import device_sampler, synthetic
+from wmfml_tpu_torch.data import device_sampler, episode_core, synthetic
 from wmfml_tpu_torch.data.factory import build_data
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.steps import HostEpisodes
@@ -211,27 +211,38 @@ def test_shapenet3d_recomposites_at_the_jax_cadence_in_order(
     trainer = build_trainer(cfg)
     assert trainer.streamed
     events, data = [], trainer.data
-    gen_bg, get_batch = data.gen_bg, data.get_batch
+    gen_bg, draw_batch = data.gen_bg, data.draw_batch
+    gather = episode_core.Rows.gather
 
     def logged_gen_bg(config, data="all"):
         events.append(("gen_bg", data))
         gen_bg(config, data)
 
-    def logged_get_batch(source, *a):
+    def logged_draw_batch(source, *a):
         events.append(("batch", source))
-        return get_batch(source, *a)
+        return draw_batch(source, *a)
 
-    data.gen_bg, data.get_batch = logged_gen_bg, logged_get_batch
+    def logged_gather(rows, out=None):
+        events.append(("gather", rows.shape[1]))
+        return gather(rows, out)
+
+    data.gen_bg, data.draw_batch = logged_gen_bg, logged_draw_batch
+    monkeypatch.setattr(episode_core.Rows, "gather", logged_gather)
     pixels = data.splits["train"]["images"].copy()
     trainer.train_step = lambda generator: {"loss": torch.zeros(())}
     trainer.validate = lambda it, source: 0.0
     trainer._save = lambda name: None
     trainer.train()
+    # a call's episodes are drawn, then their image rows gathered (the
+    # context rows of each, then the query rows), after every recomposite
+    # at iterations <= its own and before the next
     expected = [("gen_bg", "all")]
     for it in range(0, 10, k):
         if it > 0 and it % freq < k:
             expected.append(("gen_bg", "train"))
         expected += [("batch", "train")] * k
+        expected += ([("gather", cfg.max_ctx_num)] * k
+                     + [("gather", cfg.query_num)] * k)
     assert events == expected
     assert [e[1] for e in events if e[0] == "gen_bg"] == want
     assert want.count("train") >= 2

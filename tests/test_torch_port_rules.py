@@ -304,23 +304,31 @@ def _builds_and_runs_single_task(method):
 
 
 def test_unported_maml_options_raise(tmp_path, monkeypatch):
-    """``maml_remat`` (A19) raises, for MMAML too. (MMAML, A16, is done:
-    ``train_cli`` now builds an ``MMAMLTrainer`` for it, not the
-    ``MAMLTrainer`` that a substring test of "MAML" would pick, and the
-    evaluator refuses it; the case is kept so that its record runs on.)"""
+    """Every MAML option is ported now: ``maml_remat`` ``step`` and
+    ``dots`` (A19, no longer refused) build an ``MAMLTrainer`` and an
+    ``MMAMLTrainer`` that keep the mode (``tests/test_torch_port_remat.py``
+    holds what they compute). MMAML (A16): ``train_cli`` builds an
+    ``MMAMLTrainer`` for it, not the ``MAMLTrainer`` that a substring test
+    of "MAML" would pick, and the evaluator refuses it."""
     from wmfml_tpu_torch.data.synthetic import generate_shapenet1d
     from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
-    from wmfml_tpu_torch.train.maml import MAMLTrainer
+    from wmfml_tpu_torch.train.maml import MAMLTrainer, remat_mode
     from wmfml_tpu_torch.train.mmaml import MMAMLTrainer
 
-    with pytest.raises(NotImplementedError, match="A19"):
-        _config("device=cpu", "maml_remat=step")
-    with pytest.raises(NotImplementedError, match="A19"):
-        _config("device=cpu", "method=MMAMLShapeNet1D", "maml_remat=dots")
     data = str(tmp_path / "sn1d")
     generate_shapenet1d(data, seed=0, instances=7, val_classes=3,
                         test_classes=2)
     monkeypatch.chdir(tmp_path)
+    small = ["device=cpu", f"data_path={data}", "data_size=small",
+             "tasks_per_batch=2", "max_ctx_num=3"]
+    for yaml, cls in (("MAML_DA_ShapeNet1D.yaml", MAMLTrainer),
+                      ("MMAML_ShapeNet1D_DA+TA.yaml", MMAMLTrainer)):
+        for mode in ("step", "dots"):
+            built = train_cli.build_trainer(Config(
+                os.path.join(REPO, "cfg", "train", yaml),
+                small + [f"maml_remat={mode}"], make_dirs=False))
+            assert type(built) is cls, (yaml, mode)
+            assert remat_mode(built.config) == mode
     cfg = Config(os.path.join(REPO, "cfg", "train",
                               "MMAML_ShapeNet1D_DA+TA.yaml"),
                  ["device=cpu", f"data_path={data}", "data_size=small",

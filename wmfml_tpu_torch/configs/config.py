@@ -14,8 +14,9 @@ Port-specific rules:
     the JAX package reads it as float32.
   * MAML keys as in the JAX package (``num_updates`` -> ``num_steps``,
     ``test_num_updates`` -> ``test_num_steps``, ``num_filters`` ->
-    ``dim_hidden``). ``maml_remat`` takes only ``none`` (rematerialisation
-    is not ported). Accepted and ignored: ``maml_unroll``, an XLA scheduling
+    ``dim_hidden``). ``maml_remat`` as the JAX package reads it
+    (``train/maml.py:remat_mode``: ``none``, ``dots``, any other value
+    ``step``). Accepted and ignored: ``maml_unroll``, an XLA scheduling
     knob with no effect on results, and ``maml_pool_impl``, the JAX
     package's pool lowering, whose forward is the same for every choice and
     whose gradients differ only at ties, which sit at ReLU zeros where the
@@ -173,11 +174,9 @@ class Config:
         self.per_param_step_size = get("per_param_step_size", False)
         # MMAML's task encoder (wmfml_tpu/configs/config.py:168-171)
         self.rnn_aggregation = get("rnn_aggregation", False)
+        # the MAML inner loop's rematerialisation (wmfml_tpu/configs/
+        # config.py:136-138), read by train/maml.py:remat_mode
         self.maml_remat = get("maml_remat", "none")
-        if self.maml_remat != "none":
-            raise NotImplementedError(
-                f"maml_remat={self.maml_remat!r}: only 'none' is ported "
-                "(ROADMAP.md A19)")
         self.lr = cfg["lr"]
         self.weight_decay = get("weight_decay", False)
         self.optimizer = get("optimizer", "Adam")

@@ -19,11 +19,18 @@ follows the JAX package draw for draw, one ``RandomState`` a split:
     all 30 views of the permutation, from its first (the context views
     among them).
 
+``get_batch`` gathers an episode's image rows, padded to ``max_ctx``,
+through the native episode core (``data/episode_core.py:NativeEpisodes``,
+as the JAX package's ``_native.assemble_episode``); the labels are numpy
+indexing. ``draw_batch`` is the same draw with the rows not gathered yet,
+for the host path's trainer to gather into pinned memory.
 ``gen_bg(config, data)`` composites new random backgrounds into the splits
-in place (all of them, or ``data="train"``) from a stream of its own,
-``RandomState(seed + 7919)``, so it never moves the episode streams: a
-pixel with alpha < 1 is foreground and keeps its colour, every other one
-takes background ``idx % 200``'s. The device sampler composites every
+in place (all of them, or ``data="train"``) through the core's
+``composite_backgrounds``, from a stream of its own, ``RandomState(seed +
+7919)``, so it never moves the episode streams: a pixel with alpha < 1 is
+foreground and keeps its colour, every other one takes background ``idx %
+200``'s. A lock keeps a recomposite and a gather of the same split apart
+(the JAX package's ``_bg_lock``). The device sampler composites every
 training batch on the card instead (``data/device_sampler.py``).
 """
 
@@ -31,25 +38,17 @@ from __future__ import annotations
 
 import os
 import pickle
+import threading
 from typing import List, Optional
 
 import numpy as np
 
 from wmfml_tpu_torch.data.basedata import BaseData
-from wmfml_tpu_torch.data.episode import EpisodeBatch, make_episode
+from wmfml_tpu_torch.data.episode_core import (NativeEpisodes,
+                                               composite_backgrounds)
 
 
-def composite(images: np.ndarray, bg: np.ndarray,
-              idx: np.ndarray) -> np.ndarray:
-    """RGBA ``images`` [..., H, W, 4] on backgrounds ``bg[idx % len(bg)]``
-    ([..., H, W, 3]), in float32: ``rgb fg + bg (1 - fg)`` with fg = alpha
-    < 1, alpha kept."""
-    fg = (images[..., 3:4] < 1.0).astype(np.float32)
-    rgb = images[..., :3] * fg + bg[idx % bg.shape[0]] * (1.0 - fg)
-    return np.concatenate([rgb, images[..., 3:4]], axis=-1)
-
-
-class ShapeNet3DData(BaseData):
+class ShapeNet3DData(NativeEpisodes, BaseData):
     raw_label_dim = 4
     task_name = "shapenet_3d"
 
@@ -69,6 +68,7 @@ class ShapeNet3DData(BaseData):
             bg_path = os.path.join(os.path.dirname(path.rstrip("/")),
                                    "bg_images.npy")
         self.bg_imgs = np.load(bg_path).astype(np.float32)
+        self._bg_lock = threading.Lock()
 
         names = [("validation", "val"), ("test", "test")]
         if mode != "eval":
@@ -137,24 +137,12 @@ class ShapeNet3DData(BaseData):
         items, perm, shot = self._draw(source, tasks_per_batch, shot)
         return items, perm[:, :shot + self.query_num], shot
 
-    def get_batch(self, source: str, tasks_per_batch: int,
-                  shot: int) -> EpisodeBatch:
-        split = self.splits[source]
-        items, perm, shot = self._draw(source, tasks_per_batch, shot)
-        q0 = 0 if self.mode == "eval" else shot
-        take = perm[:, q0:q0 + self.query_num]
-        images, quats = split["images"], split["Q"]
-        return make_episode(
-            images[items[:, None], perm[:, :shot]],
-            quats[items[:, None], perm[:, :shot]],
-            images[items[:, None], take], quats[items[:, None], take],
-            max_ctx=self.max_ctx, shot=shot)
-
     def _composite_split(self, name: str, rng: np.random.RandomState):
         images = self.splits[name]["images"]
         flat = images.reshape(-1, *images.shape[2:])
         idx = rng.randint(0, self.bg_imgs.shape[0], size=flat.shape[0])
-        flat[...] = composite(flat, self.bg_imgs, idx)
+        with self._bg_lock:
+            composite_backgrounds(flat, self.bg_imgs, idx)
 
     def gen_bg(self, config, data: str = "all"):
         """New backgrounds for every split (``data="all"``) or the train

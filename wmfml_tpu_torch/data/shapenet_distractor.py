@@ -21,8 +21,11 @@ follows the JAX package draw for draw, from one ``RandomState`` a split:
   * labels stay raw pixel centres; the episode processor inverts the
     images and adds task augmentation's shift (``aug/pipeline.py``).
 
-The JAX package gathers the views natively (``_native.assemble_episode``);
-here numpy indexing gathers them, with the semantics of its fallback.
+The image rows of an episode, padded to ``max_ctx``, are gathered by the
+native episode core (``data/episode_core.py:NativeEpisodes``: ``get_batch``,
+and ``draw_batch`` with the rows not gathered yet), as the JAX package
+gathers them (``_native.assemble_episode``); the centres are numpy
+indexing.
 """
 
 from __future__ import annotations
@@ -33,14 +36,15 @@ from typing import List, Optional
 import numpy as np
 
 from wmfml_tpu_torch.data.basedata import BaseData
-from wmfml_tpu_torch.data.episode import EpisodeBatch, make_episode
+from wmfml_tpu_torch.data.episode_core import NativeEpisodes
 from wmfml_tpu_torch.data.synthetic import (DISTRACTOR_TEST_CATEGS,
                                             DISTRACTOR_TRAIN_CATEGS)
 
 
-class ShapeNetDistractor(BaseData):
+class ShapeNetDistractor(NativeEpisodes, BaseData):
     raw_label_dim = 2
     task_name = "distractor"
+    LABELS = "centers"
 
     def __init__(self, path: str, img_size, seed: int,
                  num_instances_per_item: int = 36,
@@ -133,16 +137,3 @@ class ShapeNetDistractor(BaseData):
         shot), consuming the split's stream exactly as ``get_batch`` does."""
         items, perm, shot = self._draw(source, tasks_per_batch, shot)
         return items, perm[:, :shot + self.query_num], shot
-
-    def get_batch(self, source: str, tasks_per_batch: int,
-                  shot: int) -> EpisodeBatch:
-        split = self.splits[source]
-        items, perm, shot = self._draw(source, tasks_per_batch, shot)
-        q0 = 0 if self.mode == "eval" else shot
-        take = perm[:, q0:q0 + self.query_num]
-        images, cents = split["images"], split["centers"]
-        return make_episode(
-            images[items[:, None], perm[:, :shot]],
-            cents[items[:, None], perm[:, :shot]],
-            images[items[:, None], take], cents[items[:, None], take],
-            max_ctx=self.max_ctx, shot=shot)

@@ -25,6 +25,25 @@ are a Python loop:
     bfloat16 while the per-task copies, their inner SGD steps and every
     gradient stay float32; the inner loss meets float32 labels and so is
     float32, as in the JAX package (``train/maml.py:129``);
+  * ``maml_remat`` (``remat_mode``): ``step`` recomputes each inner step
+    (the forward, the inner gradient, the update) in the outer backward
+    instead of keeping what autograd saved in it, as the JAX package's
+    ``jax.checkpoint`` of the step (``wmfml_tpu/train/maml.py:69-78``):
+    ``rematerialised`` runs the step under saved-tensor hooks that drop
+    its saved tensors when it returns and recompute them all, once, at the
+    outer backward's first read (``_RematFrame``). The step's BBB draws
+    are kept from its first run and replayed by the recompute
+    (``StepDraws``, as JAX hands the step its key), so the recompute,
+    eager or inside a CUDA graph, sees the same sample and the generator
+    is never read or set; K1 and K3 launch twice an inner step. ``dots``
+    is JAX's ``dots_with_no_batch_dims_saveable`` policy, which saves
+    nothing more than ``step`` at these shapes: under ``vmap`` every
+    product of the step has a batch dimension (per-task weights, per-task
+    BBB samples) and convolutions are never saved, so its residuals are
+    ``step``'s and ``dots`` runs ``step`` here
+    (``tests/test_torch_port_remat.py`` holds JAX's residual lists). Only
+    a training outer call rematerialises: evaluation takes no outer
+    gradient, so there is nothing to recompute;
   * validation adapts with ``test_num_steps`` steps, so it needs autograd
     (without a graph of the gradient), and reports the degree metric;
   * training runs ``steps_per_call`` outer steps a call
@@ -41,6 +60,7 @@ are a Python loop:
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -49,6 +69,7 @@ from wmfml_tpu_torch.aug.pipeline import build_episode_processor
 from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.losses.losses import LossFunc
 from wmfml_tpu_torch.models.maml import step_size_key
+from wmfml_tpu_torch.nn.bbb import draw_normal
 from wmfml_tpu_torch.train.steps import FusedSteps
 from wmfml_tpu_torch.train.trainer import ModelTrainer
 
@@ -61,6 +82,106 @@ def task_losses(loss_func: LossFunc, out, y, test: bool = False, mask=None):
     return torch.func.vmap(
         lambda o, g, m: loss_func.calc_loss(o, None, g, test=test, mask=m))(
             out, y, mask)
+
+
+def remat_mode(config) -> str:
+    """``maml_remat`` as the JAX package reads it (``wmfml_tpu/train/
+    maml.py:69-78, 100``): ``none`` (also unset or empty), ``dots``, and
+    any other value ``step``."""
+    mode = str(config.maml_remat or "none")
+    return mode if mode in ("none", "dots") else "step"
+
+
+class StepDraws:
+    """A rematerialised inner step's BBB draws: the step's first run draws
+    from ``noise`` (a generator or an ``EpsFeed``) and keeps each draw; a
+    run after ``rewind`` (the recompute) hands the same draws out again."""
+
+    def __init__(self, noise):
+        self.noise, self.draws, self.used = noise, [], 0
+
+    def rewind(self):
+        self.used = 0
+
+    def normal(self, shape, device) -> torch.Tensor:
+        if self.used == len(self.draws):
+            self.draws.append(draw_normal(self.noise, shape, device))
+        self.used += 1
+        return self.draws[self.used - 1]
+
+
+class _RematFrame:
+    """One call of a rematerialised step. While the step runs, every tensor
+    autograd saves is kept in ``saved`` under its index in the order of
+    saving, and the graph holds only the index; the step's own inner
+    backward reads them from there. When the step returns they are
+    dropped. The first read after that (the outer backward's) runs the
+    step once more on its inputs, detached, which saves the same tensors
+    in the same order (shapes and dtypes checked); each is then handed out
+    once and dropped. Every graph task reads the one recompute, so the
+    step runs twice in all, as under ``jax.checkpoint``.
+    (``torch.utils.checkpoint`` recomputes once per graph task that reads
+    a dropped tensor: the inner gradient's, and that of each K1 and K3
+    backward's ``autograd.grad`` on its twin, five runs of a MAML step.)"""
+
+    def __init__(self, step: Callable, inputs):
+        self.step, self.inputs = step, inputs
+        self.saved: Dict[int, torch.Tensor] = {}
+        self.meta = []
+        self.packed: Optional[int] = None      # next index while running
+
+    def run(self, inputs, first: bool):
+        self.packed = 0
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(
+                    functools.partial(self._pack, first), self._unpack):
+                out = self.step(*inputs)
+        finally:
+            count, self.packed = self.packed, None
+        if count != len(self.meta):
+            raise RuntimeError(f"a recompute of a rematerialised step saved "
+                               f"{count} tensors, its first run "
+                               f"{len(self.meta)}")
+        return out
+
+    def _pack(self, first: bool, x: torch.Tensor) -> int:
+        i = self.packed
+        self.packed += 1
+        if first:
+            self.meta.append((x.shape, x.dtype))
+        elif self.meta[i] != (x.shape, x.dtype):
+            raise RuntimeError(f"a recompute of a rematerialised step saved "
+                               f"{tuple(x.shape)} {x.dtype} as tensor {i}, "
+                               f"its first run {self.meta[i]}")
+        self.saved[i] = x if first else x.detach()
+        return i
+
+    def _unpack(self, i: int) -> torch.Tensor:
+        if self.packed is not None:             # the step's own backward
+            return self.saved[i]
+        if i not in self.saved:
+            with torch.enable_grad():
+                self.run([x.detach().requires_grad_(x.requires_grad)
+                          for x in self.inputs], first=False)
+        return self.saved.pop(i)
+
+
+def rematerialised(step: Callable, mode: str) -> Callable:
+    """``step(*tensors) -> tuple of tensors`` as it is (``none``), or
+    recomputed in the outer backward (``step``; ``dots`` saves nothing
+    more at the MAML family's shapes, see the module docstring) through
+    ``_RematFrame``'s saved-tensor hooks. No random state is saved or
+    restored: the draws are the step's own (``StepDraws``)."""
+    if mode == "none":
+        return step
+
+    def run(*inputs):
+        frame = _RematFrame(step, inputs)
+        out = frame.run(inputs, first=True)
+        frame.saved.clear()
+        return out
+
+    return run
 
 
 def build_maml_outer(model, config, num_steps: int, train: bool,
@@ -76,6 +197,7 @@ def build_maml_outer(model, config, num_steps: int, train: bool,
                                       train=train, dtype=torch_dtype(config),
                                       aug_random_order=config.aug_random_order)
     create_graph = train and not config.first_order
+    remat = remat_mode(config) if train else "none"
     beta = float(config.beta or 0.0)
     update_lr = float(config.update_lr)
     learned = getattr(model, "step_size", None)
@@ -96,15 +218,28 @@ def build_maml_outer(model, config, num_steps: int, train: bool,
         mask = pbatch["ctx_mask"]
         params = model.task_params(pbatch["ctx_x"].shape[0])
         names = [k for k in params if model.adaptable(k)]
+        frozen = {k: v for k, v in params.items() if k not in names}
+
+        def inner_step(draws):
+            """One inner SGD step of the adapted copies, drawing from
+            ``draws``."""
+            def step(*adapted):
+                if isinstance(draws, StepDraws):
+                    draws.rewind()
+                p = dict(frozen, **dict(zip(names, adapted)))
+                out = model(pbatch["ctx_x"], mask, p, draws)
+                inner = task_losses(loss_func, out, pbatch["ctx_y"],
+                                    mask=mask).sum()
+                grads = torch.autograd.grad(inner, adapted,
+                                            create_graph=create_graph)
+                return tuple(a - step_size(k) * g
+                             for k, a, g in zip(names, adapted, grads))
+            return rematerialised(step, remat)
+
         for _ in range(num_steps):
-            out = model(pbatch["ctx_x"], mask, params, noise)
-            inner = task_losses(loss_func, out, pbatch["ctx_y"],
-                                mask=mask).sum()
-            grads = torch.autograd.grad(inner, [params[k] for k in names],
-                                        create_graph=create_graph)
-            params = dict(params)
-            for k, g in zip(names, grads):
-                params[k] = params[k] - step_size(k) * g
+            step = inner_step(noise if remat == "none" else StepDraws(noise))
+            params = dict(params, **dict(zip(
+                names, step(*(params[k] for k in names)))))
         with torch.set_grad_enabled(train):
             out, kl = model.forward_with_kl(pbatch["qry_x"], None, params,
                                             noise)

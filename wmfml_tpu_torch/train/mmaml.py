@@ -12,7 +12,10 @@
     each task its own gradient. Second order unless ``first_order``: then
     the inner gradients carry no graph (JAX's ``stop_gradient(grads)``),
     and the outer gradient still reaches the embedding net through the
-    modulation of every inner step and of the query pass.
+    modulation of every inner step and of the query pass. ``maml_remat``
+    recomputes each inner step (the forward, the clamped gradient, the
+    update) in the outer backward, as MAML's (``train/maml.py:
+    rematerialised``; ``dots`` is ``step`` at these shapes too).
   * ``build_mmaml_optimizer``: one Adam(``lr``) over two parameter groups,
     ``model`` and ``embedding`` (optax's ``multi_transform`` of two
     ``clip_by_global_norm(2.0)`` + Adam chains); the YAML's ``optimizer``
@@ -41,7 +44,8 @@ import torch
 from wmfml_tpu_torch.aug.pipeline import build_episode_processor
 from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.losses.losses import LossFunc
-from wmfml_tpu_torch.train.maml import _num_steps, task_losses
+from wmfml_tpu_torch.train.maml import (_num_steps, rematerialised,
+                                        remat_mode, task_losses)
 from wmfml_tpu_torch.train.steps import FusedSteps
 from wmfml_tpu_torch.train.trainer import ModelTrainer
 
@@ -60,6 +64,7 @@ def build_mmaml_outer(model, config, num_steps: int, train: bool,
                                       train=train, dtype=torch_dtype(config),
                                       aug_random_order=config.aug_random_order)
     create_graph = train and not config.first_order
+    remat = remat_mode(config) if train else "none"
     fast_lr = float(config.update_lr)
     gated = model.model
 
@@ -70,15 +75,21 @@ def build_mmaml_outer(model, config, num_steps: int, train: bool,
         ctx_x, mask = pbatch["ctx_x"], pbatch["ctx_mask"]
         embeddings = model.embedding_model(ctx_x, mask)
         params = gated.task_params(ctx_x.shape[0])
-        for _ in range(num_steps):
-            out = gated(ctx_x, embeddings, mask, params)
+        names = list(params)
+
+        def inner_step(*adapted):
+            out = gated(ctx_x, embeddings, mask, dict(zip(names, adapted)))
             inner = task_losses(loss_func, out, pbatch["ctx_y"],
                                 mask=mask).sum()
-            grads = torch.autograd.grad(inner, list(params.values()),
+            grads = torch.autograd.grad(inner, adapted,
                                         create_graph=create_graph)
-            params = {k: p - fast_lr * g.clamp(-INNER_GRAD_CLIP,
+            return tuple(p - fast_lr * g.clamp(-INNER_GRAD_CLIP,
                                                INNER_GRAD_CLIP)
-                      for (k, p), g in zip(params.items(), grads)}
+                         for p, g in zip(adapted, grads))
+
+        step = rematerialised(inner_step, remat)
+        for _ in range(num_steps):
+            params = dict(zip(names, step(*params.values())))
         with torch.set_grad_enabled(train):
             out = gated(pbatch["qry_x"], embeddings, None, params)
             losses = task_losses(loss_func, out.float(), pbatch["qry_y"],

@@ -12,8 +12,10 @@ its two-group optimizer (``_build_optimizer``).
     step samples its episode on the device; otherwise (``device_data``
     off, or a split ``from_dataset`` declines: too large, a short class, an
     unknown task) the host path: a ``Prefetcher`` thread draws each call's
-    K host episodes (``data.get_batch("train")``) and stacks them into
-    pinned memory ``prefetch`` calls ahead, and the call copies them into the static
+    K host episodes (``data.get_batch("train")``; ShapeNet3D's and
+    Distractor's ``draw_batch``, whose image rows the native episode core
+    gathers straight into the stack) and stacks them into pinned memory
+    ``prefetch`` calls ahead, and the call copies them into the static
     buffers its graph reads (``train/steps.py:HostEpisodes``). MAML and
     MMAML take one step a call there, as in the JAX package;
   * validation when ``it % val_freq < K`` on the validation AND test splits
@@ -72,6 +74,7 @@ from wmfml_tpu_torch.data.device_eval import (DeviceSweep,
                                               build_device_eval_sweep,
                                               split_from_dataset)
 from wmfml_tpu_torch.data.device_sampler import from_dataset, refusal
+from wmfml_tpu_torch.data.episode_core import Rows
 from wmfml_tpu_torch.obs.guards import check_finite
 from wmfml_tpu_torch.obs.metrics import MetricsWriter
 from wmfml_tpu_torch.train.state import build_optimizer
@@ -229,29 +232,39 @@ class ModelTrainer:
             yield self._sample_train()
 
     def _sample_train(self):
-        """A call's K host episodes."""
+        """A call's K host episodes; from a sampler that draws episodes
+        with their image rows not gathered yet (``draw_batch``: ShapeNet3D,
+        Distractor), those, for ``_put_train_batch`` to gather."""
         cfg = self.config
-        return [self.data.get_batch("train", cfg.tasks_per_batch,
-                                    cfg.max_ctx_num)
+        draw = getattr(self.data, "draw_batch", self.data.get_batch)
+        return [draw("train", cfg.tasks_per_batch, cfg.max_ctx_num)
                 for _ in range(self.steps_per_call)]
 
     def _put_train_batch(self, episodes):
         """K host episodes stacked [K, T, ...] into CPU tensors for
-        ``HostEpisodes.load``, each episode copied once, straight into
-        pinned memory when the trainer runs on the card (the pinned
-        allocator reuses the blocks of earlier calls); float images in the
-        compute dtype, as the device sampler keeps a float split."""
+        ``HostEpisodes.load``, straight into pinned memory when the trainer
+        runs on the card (the pinned allocator reuses the blocks of earlier
+        calls): rows not gathered yet (``data/episode_core.py:Rows``) are
+        gathered there by the native core, anything else copied once;
+        float images in the compute dtype, as the device sampler keeps a
+        float split."""
         pin = self.device.type == "cuda"
         out = {}
         for k, first in episodes[0].items():
-            dtype = torch.as_tensor(first).dtype
+            native = torch.from_numpy(np.empty(0, first.dtype)).dtype
+            dtype = native
             if k in ("ctx_x", "qry_x") and dtype.is_floating_point:
                 dtype = torch_dtype(self.config)
             out[k] = torch.empty((len(episodes), *first.shape), dtype=dtype,
                                  pin_memory=pin)
             for i, episode in enumerate(episodes):
-                out[k][i].copy_(torch.from_numpy(
-                    np.ascontiguousarray(episode[k])))
+                v = episode[k]
+                if isinstance(v, Rows) and dtype == native:
+                    v.gather(out=out[k][i].numpy())
+                    continue
+                if isinstance(v, Rows):
+                    v = v.gather()
+                out[k][i].copy_(torch.from_numpy(np.ascontiguousarray(v)))
         return out
 
     def train(self):
