@@ -284,7 +284,7 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      second-order outer loss and gradients of one seeded batch against
      ``none``'s on the same trainer, bit for bit under deterministic
      algorithms (``check_remat_grad``); graph ms/step of none (phase 7's
-     and phase 20's trainers), step and dots in turns, each one's busy
+     and phase 20's trainers), step and dots in one round, each one's busy
      share, pool bytes, peak allocated memory above its phase's start,
      capture and instantiation seconds and graph nodes (``remat_phase``);
  23. MMAML in bfloat16 (ROADMAP.md A27): phase 20's YAML with
@@ -296,13 +296,39 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      in turns with busy shares, pool bytes and graph nodes. The kernels
      line gives each row the launches of phases 20, 22 and 23 at its
      shapes (``phase22_launches``);
+ 24. the phase-layout trunk stem (ROADMAP.md B8b, ``trunk_stem: s2d``):
+     D1, D5 and S6 with ``trunk_stem=s2d`` (16 steps each, 8 a call)
+     through ``train_phase`` (K2 wide and K6 programs 4 and 6 as the code
+     says, in bfloat16 where the path is); validation on one episode, card
+     against CPU (float32 tolerance, the bfloat16 rule); graph = loop bit
+     for bit under deterministic algorithms; graph ms/step against phases
+     14's and 17's stock-stem trainers of the same configuration, in turns
+     stock, s2d, s2d, stock, and one call of each profiled (busy share, top
+     kernels) (``s2d_phase``);
+ 25. data parallelism over the task axis (ROADMAP.md A18) on a one-rank
+     NCCL group: ``cfg/train/ANP_DA+TA_ShapeNet1D.yaml`` with
+     ``mesh_shape={data: 1}`` through ``train_cli``'s ``start_mesh`` and
+     ``train_phase`` (16 steps, 8 a call): the gradient all-reduce is a
+     node of the captured graph (``graph_nodes``' ``all_reduce``), loss,
+     weights, Adam's state and the generator equal the same run's without
+     a group bit for bit under deterministic algorithms
+     (``group_equals_plain``), graph ms/step with the group against phase
+     4's trainer without, in turns, and ``obs/profile.py:profile_trace``
+     of one replay writes a trace naming K1, K2, K6 and the all-reduce;
+     K2 with an outer key max (``favor_launch(kmax=...)``, what a mesh of
+     more ranks passes it) against its twin with the same max, narrow and
+     wide (``check_favor_kmax``). The kernels line gives each row the
+     launches of phases 24 and 25 at its shapes (``phase24_launches``);
  15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Depth cuts against the time limit: graph = loop (phase 12) checks the
 paths that take 64 steps a call with graphs of 8 steps
-(``GRAPH_LOOP_K8``), and K6's ShapeNet3D and Distractor programs meet
+(``GRAPH_LOOP_K8``), K6's ShapeNet3D and Distractor programs meet
 their CPU twin on the first ``CPU_TWIN_TASKS`` tasks of a call (their card
-twin on all 20).
+twin on all 20), a replay's trace is taken on the first path of each set
+of captured kernels only (``TRACED``; every path still holds its graph's
+nodes and its launches), and phase 22 times none, step and dots in one
+round.
 
 Phase 3 also holds the Distractor paths' kernels: K2's wide form at D1's
 shape (q [20, 8, 18, 256], k, v [20, 8, 15, 256], m 1419, shots 1..15) and
@@ -515,6 +541,13 @@ MAML_REMAT_OVERRIDES = [o for o in MAML_OVERRIDES
 # graph = loop on the paths that take 64 steps a call checks graphs of 8
 # steps: the same code (FusedSteps), an eighth of the steps
 GRAPH_LOOP_K8 = ["steps_per_call=8"]
+# phase 24 (ROADMAP.md B8b): the phase-layout trunk stem on D1, D5 and S6
+S2D = ["trunk_stem=s2d"]
+# phase 25 (ROADMAP.md A18): the ANP path on a one-rank NCCL group
+DP_OVERRIDES = TRAIN_OVERRIDES + ["iterations=16", "mesh_shape={data: 1}"]
+# the NCCL kernel of the gradient all-reduce in a graph's DOT or a trace
+# (one rank: NCCL's own average, ``oneRankReduce``; more: its ring kernels)
+NCCL_KERNEL = r"nccl|oneRankReduce"
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3 rate
@@ -2183,7 +2216,9 @@ def graph_nodes(dot_path):
     kernels = [n for n in nodes if 'label="{KERNEL' in n]
     return dict(nodes=len(nodes), kernel_nodes=len(kernels),
                 **{k: sum(name in n for n in kernels)
-                   for k, name in GRAPH_NODE.items()})
+                   for k, name in GRAPH_NODE.items()},
+                all_reduce=sum(bool(re.search(NCCL_KERNEL, n, re.I))
+                               for n in kernels))
 
 
 def launches_per_step(trainer):
@@ -2254,6 +2289,10 @@ def check_launches(trainer, launches):
                              f"{want} and {captured}")
 
 
+# the sets of captured kernels whose replay ``train_phase`` has traced
+TRACED = set()
+
+
 @spent
 def replay_trace(trainer, tag):
     """One replay of the trained path's graph under torch.profiler: each
@@ -2291,7 +2330,8 @@ def train_phase(card, yaml, overrides, counters, tap=None):
     launch must have been a bfloat16 one, and every K6 launch one of the
     path's program (its task's, ``_fixed`` for ``aug_random_order:
     false``). The captured graph's DOT must hold as many nodes of each
-    kernel as the capture issued, and a trace of one more replay must show
+    kernel as the capture issued, and, on the first path of its set of
+    captured kernels (``TRACED``), a trace of one more replay must show
     them. With ``tap`` (``tap_sample``: an MR path's BBB encoder's first
     layer; ``tap_da``: K6's output) a tensor the graph draws anew is tapped
     before the capture, and two more replays must draw it differently
@@ -2304,6 +2344,9 @@ def train_phase(card, yaml, overrides, counters, tap=None):
     from wmfml_tpu_torch.configs import Config
 
     config = Config(yaml, overrides)
+    if config.mesh_shape:           # phase 25: on the process group's mesh
+        from wmfml_tpu_torch.cli.common import start_mesh
+        start_mesh(config)
     zero_counters()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2390,7 +2433,12 @@ def train_phase(card, yaml, overrides, counters, tap=None):
                                  f"{GRAPH_NODE[name]} nodes, the capture "
                                  f"issued {fused.captured_launches[name]}")
     check_launches(trainer, launches)
-    replay_trace(trainer, tag)
+    # a replay's trace for the first path of each set of kernels the run
+    # captures (a depth cut: later paths of the same set skip it)
+    captured = frozenset(k for k, n in fused.captured_launches.items() if n)
+    if captured not in TRACED:
+        TRACED.add(captured)
+        replay_trace(trainer, tag)
     if seen is not None:
         check_replays_draw_anew(trainer, seen, tag)
     # every K6 launch of the path was one of its program (checked above)
@@ -3473,8 +3521,8 @@ def remat_phase(card, paths):
     step and dots through ``train_phase`` (launches as the code says: K1
     and K3 twice an inner step in training; graph nodes; a replay's
     trace), the remat gradient against none's (``check_remat_grad``), then
-    graph ms/step of none, step and dots in turns (none, step, dots, dots,
-    step, none), each one's busy share, pool bytes, peak allocated memory
+    graph ms/step of none, step and dots in one round (none, step, dots; a
+    depth cut), each one's busy share, pool bytes, peak allocated memory
     above its phase's start, capture and instantiation seconds and graph
     nodes. Returns {path tag: launches}."""
     import torch
@@ -3488,11 +3536,7 @@ def remat_phase(card, paths):
             check_remat_grad(tr)
             trainers[mode] = tr
             launches[f"{family} remat {mode}"] = got
-        order = list(trainers)
-        ms = {m: [] for m in order}
-        for r in range(2):
-            for m in (order if r == 0 else order[::-1]):
-                ms[m].append(call_ms(trainers[m], 1))
+        ms = {m: [call_ms(tr, 1)] for m, tr in trainers.items()}
         rows = {}
         for m, tr in trainers.items():
             fused = tr.train_step
@@ -4577,6 +4621,233 @@ def check_device_evaluation(tag, yaml, overrides, trainer, no_graph=False):
     return launches
 
 
+@spent
+def s2d_phase(card, stock, counters):
+    """Phase 24 (ROADMAP.md B8b): D1, D5 and S6 with ``trunk_stem=s2d``
+    through ``train_phase``, their validation card against CPU, graph =
+    loop bit for bit, and graph ms/step against ``stock``'s trainer of the
+    same configuration, in turns stock, s2d, s2d, stock, and one call of
+    each under torch.profiler (busy share, top kernels); returns the
+    launches on the card of each."""
+    paths = {"D1": (DISTRACTOR_YAML, DISTRACTOR_SHORT_OVERRIDES,
+                    check_validation_loss),
+             "D5": (DISTRACTOR_YAML, DISTRACTOR_SHORT_OVERRIDES + BF16,
+                    check_bf16_validation),
+             "S6": (S3D_YAML, S3D_SHORT_OVERRIDES + BF16,
+                    check_bf16_validation)}
+    out = {}
+    for tag, (yaml, overrides, check) in paths.items():
+        trainer, out[tag], nodes = train_phase(card, yaml, overrides + S2D,
+                                               counters)
+        model = trainer.model
+        if not (model.img_encoder.trunk_stem == model.decoder.trunk_stem
+                == "s2d"):
+            raise AssertionError(f"{tag} s2d: the trunks run "
+                                 f"{model.img_encoder.trunk_stem}")
+        check(trainer)
+        graph_equals_loop(yaml, overrides + S2D)
+        runs = {"stock": [], "s2d": []}
+        trainers = {"stock": stock[tag], "s2d": trainer}
+        for key in ("stock", "s2d", "s2d", "stock"):
+            runs[key].append(call_ms(trainers[key], 2))
+        ms = {k: sum(v) / len(v) for k, v in runs.items()}
+        t_ = trainer.config.tasks_per_batch
+        busy = {k: profile_calls(tr, f"{tag} {k} stem")["busy_share"]
+                for k, tr in trainers.items()}
+        log(f"s2d: {tag} graph ms/step: stock stem {ms['stock']} "
+            f"({t_ * 1e3 / ms['stock']} tasks/s), s2d {ms['s2d']} "
+            f"({t_ * 1e3 / ms['s2d']} tasks/s), s2d / stock "
+            f"{ms['s2d'] / ms['stock']} (turns {json.dumps(runs)}, 2 calls "
+            f"of 8 steps each; busy share {busy}); s2d graph "
+            f"{nodes['kernel_nodes']} kernel "
+            f"nodes, capture {trainer.train_step.graph_stats}; on {card}")
+        del trainer, trainers
+        gc.collect()
+    return out
+
+
+@contextlib.contextmanager
+def on_mesh(ctx):
+    """Run the block with ``ctx`` as the process's mesh (None: none)."""
+    from wmfml_tpu_torch.parallel import mesh
+
+    before = mesh.use(ctx)
+    try:
+        yield
+    finally:
+        mesh.use(before)
+
+
+@spent
+def group_equals_plain(yaml, overrides, ctx, calls=3):
+    """Two trainers from one seed under deterministic algorithms, one on the
+    one-rank group ``ctx``, one on none: every call's metrics (an eager
+    warm-up, the capture and its replay, a replay), the weights, Adam's
+    state and the generator's state equal bit for bit."""
+    import torch
+
+    from wmfml_tpu_torch.cli import train_cli
+    from wmfml_tpu_torch.configs import Config
+
+    t0 = time.perf_counter()
+    meshes = {"group": ctx, "plain": None}
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainers = {}
+        for name, m in meshes.items():
+            with on_mesh(m):
+                trainers[name] = train_cli.build_trainer(Config(yaml,
+                                                                overrides))
+        for i in range(calls):
+            got = {}
+            for name, m in meshes.items():
+                tr = trainers[name]
+                with on_mesh(m):
+                    got[name] = {k: v.clone() if torch.is_tensor(v) else v
+                                 for k, v in tr.train_step(
+                                     tr.generator).items()}
+            torch.cuda.synchronize()
+            if got["group"].keys() != got["plain"].keys() or any(
+                    not torch.equal(torch.as_tensor(got["group"][k]),
+                                    torch.as_tensor(got["plain"][k]))
+                    for k in got["plain"]):
+                raise AssertionError(f"call {i}: with the group {got['group']}"
+                                     f", without {got['plain']}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    tensors = []
+    for tr in trainers.values():
+        state = tr.optimizer.state_dict()["state"]
+        tensors.append([p.detach() for p in tr.model.parameters()]
+                       + [v for s in state.values() for v in s.values()]
+                       + [tr.generator.get_state()])
+    differ = sum(not torch.equal(a, b) for a, b in zip(*tensors))
+    fused = trainers["group"].train_step
+    log(f"dp: group vs none: {calls} calls of {fused.k} steps "
+        f"({fused.replays} replays): metrics, {len(tensors[0]) - 1} weight "
+        f"and Adam tensors and the generator state, {differ} of them differ "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if differ or fused.replays < 1 or len(tensors[0]) != len(tensors[1]):
+        raise AssertionError(f"the one-rank group left {differ} tensors "
+                             f"unlike the run without one")
+
+
+@spent
+def check_profile_trace(trainer, tag):
+    """``obs/profile.py:profile_trace`` around one replay of the trainer's
+    graph: the file exists and names K1, K2, K6 and the all-reduce (taken
+    again, up to three times, where the profiler lost an event)."""
+    import re
+    import tempfile
+
+    from wmfml_tpu_torch.obs.profile import TRACE_NAME, profile_trace
+
+    want = [GRAPH_NODE[k] for k in ("literature_stem", "favor_attention",
+                                    "image_da")]
+    for attempt in range(3):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile_trace(tmp):
+                trainer.train_step(trainer.generator)
+            path = os.path.join(tmp, TRACE_NAME)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"}
+        found = {k: any(k in n for n in names) for k in want}
+        found["all_reduce"] = any(re.search(NCCL_KERNEL, n, re.I)
+                                  for n in names)
+        TRACES["taken"] += 1
+        log(f"dp: {tag}: profile_trace of one replay: {len(events)} events, "
+            f"{len(names)} kernel names; found {found} (attempt "
+            f"{attempt + 1} of 3)")
+        if all(found.values()):
+            return
+        TRACES["short"] += 1
+    raise AssertionError(f"{tag}: no profile_trace named every kernel and "
+                         f"the all-reduce")
+
+
+@spent
+def check_favor_kmax(gen, projections):
+    """K2 with an outer key max (``favor_launch(kmax=...)``: what a mesh of
+    n ranks passes it, the max over every rank's keys) against its twin
+    with the same max: the keys' own max, and one 2 above it (another
+    rank's keys reaching higher), at the ANP path's narrow shape and D1's
+    wide shape with their paths' projections (``projections``: the row
+    name's), q, k, v as the attention block hands them over, shots
+    1..Nk."""
+    import torch
+
+    from wmfml_tpu_torch.kernels import favor
+
+    shapes = {"favor_attention": (10, 15, 15),
+              "favor_attention_wide": (20, 18, 15)}
+    for name, proj in projections.items():
+        t, nq, nk = shapes[name]
+        d = proj.shape[1]
+        q, k, v = (torch.randn((t, n, 8, d), generator=gen, device="cuda"
+                               ).transpose(1, 2) for n in (nq, nk, nk))
+        shots = torch.tensor([1 + ((nk - 1) * i) // (t - 1)
+                              for i in range(t)], device="cuda")
+        mask = torch.arange(nk, device="cuda")[None, :] < shots[:, None]
+        own = favor.dash(k, proj).amax()
+        for label, kmax in (("own", own), ("raised", own + 2.0)):
+            got = favor.favor_launch(q, k, v, proj, mask, kmax=kmax)
+            want = favor.favor_plain(q, k, v, proj, mask, kmax=kmax)
+            err, rel = check_close(name, got, want)
+            log(f"dp: {name} with kmax = the keys' {label} max "
+                f"({kmax.item()}): max abs err {err}, max rel err {rel} "
+                f"(atol, rtol {TOL[name]})")
+
+
+@spent
+def dp_phase(card, plain, counters):
+    """Phase 25 (ROADMAP.md A18): the ANP path on a one-rank NCCL group
+    (``start_mesh``, as the CLIs start it), through ``train_phase``; the
+    all-reduce in the captured graph, group = none bit for bit, graph
+    ms/step against ``plain`` (phase 4's trainer: the same configuration
+    without a group) in turns plain, group, group, plain, and
+    ``profile_trace`` of a replay; then the process group ends. Returns
+    the launches on the card."""
+    import torch
+
+    from wmfml_tpu_torch.cli.common import stop_mesh
+    from wmfml_tpu_torch.parallel import mesh
+
+    trainer, launches, nodes = train_phase(card, MAIN_YAML, DP_OVERRIDES,
+                                           counters)
+    ctx = mesh.current()
+    try:
+        if ctx is None or ctx.group is None or ctx.n != 1:
+            raise AssertionError(f"phase 25 ran without a one-rank group: "
+                                 f"{ctx}")
+        backend = torch.distributed.get_backend(ctx.group)
+        log(f"dp: one-rank {backend} group; the captured graph of "
+            f"{trainer.train_step.k} steps holds {nodes['all_reduce']} "
+            f"all-reduce kernel nodes ({NCCL_KERNEL})")
+        if backend != "nccl" or nodes["all_reduce"] != trainer.train_step.k:
+            raise AssertionError(f"the graph holds {nodes['all_reduce']} "
+                                 f"all-reduce nodes, one a step wanted")
+        group_equals_plain(MAIN_YAML, DP_OVERRIDES, ctx)
+        runs = {"plain": [], "group": []}
+        trainers = {"plain": plain, "group": trainer}
+        for key in ("plain", "group", "group", "plain"):
+            with on_mesh(ctx if key == "group" else None):
+                runs[key].append(call_ms(trainers[key], 2))
+        ms = {k: sum(v) / len(v) for k, v in runs.items()}
+        log(f"dp: ANPShapeNet1D graph ms/step: without a group "
+            f"{ms['plain']}, one-rank NCCL group {ms['group']}, group / none "
+            f"{ms['group'] / ms['plain']} (turns {json.dumps(runs)}, 2 calls "
+            f"of 8 steps each) on {card}")
+        check_profile_trace(trainer, "ANPShapeNet1D one-rank group")
+    finally:
+        del trainer
+        gc.collect()
+        torch.cuda.synchronize()
+        stop_mesh(ctx)
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -4873,6 +5144,17 @@ def main(argv):
                 calls=2, profile="--profile" in argv)
 
     stamp("phase 17, LargeCNP in bf16")
+    # phase 24: the phase-layout trunk stem (ROADMAP.md B8b)
+    p24_launches = s2d_phase(card, {"D1": d1trainer, "D5": d5trainer,
+                                    "S6": s6trainer}, d_anp_kernels)
+    stamp("phase 24, trunk_stem s2d")
+    # phase 25: data parallelism on a one-rank NCCL group (ROADMAP.md A18)
+    p25_launches = dp_phase(card, trainer, anp_kernels)
+    check_favor_kmax(torch.Generator(device="cuda").manual_seed(11),
+                     {"favor_attention": anp.attn.projection_matrix,
+                      "favor_attention_wide":
+                      d1trainer.model.attn.projection_matrix})
+    stamp("phase 25, the data axis on one rank")
     # graph replays against the same steps issued from the host, bit for
     # bit, on fresh trainers (phase 18's M1 and F2 among them), before
     # phase 18 builds its trainers: the process's earlier state is the one
@@ -5135,6 +5417,14 @@ def main(argv):
     later = {"MMAML (P20)": ("MAML", mmaml_launches),
              "MMAML bf16 (P23)": ("MAML bf16", mmaml_bf16_launches),
              **{f"{k} (P22)": ("MAML", v) for k, v in remat_launches.items()}}
+    # phases 24 and 25's paths, each beside the row path whose shapes it
+    # runs
+    slice19 = {"D1 s2d (P24)": ("Distractor ANP", p24_launches["D1"]),
+               "D5 s2d (P24)": ("Distractor ANP bf16", p24_launches["D5"]),
+               "S6 s2d (P24)": ("ShapeNet3D ANP bf16", p24_launches["S6"]),
+               "ANP one-rank NCCL (P25)": ("ANP", p25_launches)}
+    log("launches on phases 24 and 25's paths: " + json.dumps(
+        {k: v for k, (_, v) in slice19.items()}))
     log("launches on phase 21's paths: " + json.dumps(
         {**{k: v for k, (_, v) in phase21.items()},
          **{f"{k} (V2)": v for k, v in v2_launches.items()}}))
@@ -5163,6 +5453,15 @@ def main(argv):
                if path == r["path"] and got.get(r["kernel"], 0) > 0}
         if new:
             r["phase22_launches"] = new
+            if min(new.values()) <= 0:
+                raise AssertionError(f"{r['name']}: no {key} launch on "
+                                     f"{new}")
+        # phases 24 and 25: the s2d trunk paths' K2 wide and K6, the
+        # one-rank group's K1, K2 and K6
+        new = {name: got.get(key, 0) for name, (path, got) in slice19.items()
+               if path == r["path"] and got.get(r["kernel"], 0) > 0}
+        if new:
+            r["phase24_launches"] = new
             if min(new.values()) <= 0:
                 raise AssertionError(f"{r['name']}: no {key} launch on "
                                      f"{new}")

@@ -559,7 +559,8 @@ def test_shipped_distractor_yaml_builds_a_cpu_trainer(name, distractor_dir,
 
 def test_distractor_config_rules():
     """bfloat16 builds (ROADMAP.md A24: the model computes in bfloat16,
-    its parameters float32); the ``s2d`` trunk stem and FCL raise."""
+    its parameters float32); the ``s2d`` trunk stem (ROADMAP.md B8b) and
+    FCL (A13) build; both raised before they were ported."""
     yaml = os.path.join(TRAIN, "ANP_DA+TA_Distractor.yaml")
     cfg = Config(yaml, ["compute_dtype=bfloat16", "device=cpu"],
                  make_dirs=False)
@@ -568,8 +569,9 @@ def test_distractor_config_rules():
     assert model.img_encoder.compute_dtype == torch.bfloat16
     assert model.decoder.compute_dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B8b"):
-        Config(yaml, ["trunk_stem=s2d"], make_dirs=False)
+    s2d = build_model(Config(yaml, ["trunk_stem=s2d", "device=cpu"],
+                             make_dirs=False))
+    assert s2d.img_encoder.trunk_stem == s2d.decoder.trunk_stem == "s2d"
     # FCL (ROADMAP.md A13, done: it raised here before) builds, and gives
     # its views in training only
     fcl = LargeCNP(fcl=True, label_embed_dim=16,

@@ -51,9 +51,23 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     sources = list(_port_sources())
     assert len(sources) > 30
+    for part in (("parallel", "mesh.py"), ("obs", "profile.py"),
+                 ("models", "meta_models.py"), ("utils", "misc.py")):
+        assert os.path.join(PKG, *part) in sources, part
     for path in sources:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
+
+
+def test_trunk_stem_s2d_builds():
+    """``trunk_stem: s2d`` (ROADMAP.md B8b, done) builds both trunks of a
+    LargeCNP in phase layout; any value the JAX package takes builds."""
+    yaml = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet3D.yaml")
+    for stem in ("s2d", "conv", "other"):
+        cfg = Config(yaml, ["device=cpu", f"trunk_stem={stem}"],
+                     make_dirs=False)
+        model = build_model(cfg)
+        assert model.img_encoder.trunk_stem == model.decoder.trunk_stem == stem
 
 
 def _config(*overrides):

@@ -70,8 +70,10 @@ Parameters of one augmenter call (``DAParams``), per image b:
 
 The draws come from the caller's generator on the images' device (Philox on
 the card: the JAX package's threefry bits are not reproduced, their
-distribution is), the order too, so the host reads none of them. Tests
-inject JAX's own draws as ``DAParams``, on the CPU.
+distribution is), the order too, so the host reads none of them. Under a
+data-parallel mesh (``parallel/mesh.py``) a call draws for the whole
+batch's images and keeps its own tasks' rows. Tests inject JAX's own draws
+as ``DAParams``, on the CPU.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ import torch
 
 from wmfml_tpu_torch.kernels import image_da as kda
 from wmfml_tpu_torch.kernels.image_da import image_da
+from wmfml_tpu_torch.parallel import mesh
 
 # reference declaration order (dataset/shapenet_1d.py:34-71)
 CROP, AFFINE, DROP = 0, 1, 2
@@ -735,8 +738,12 @@ class Augmenter:
             flat = images.reshape((-1,) + tuple(images.shape[-3:]))
             return apply_program(self.program, program_input(
                 self.program, flat, self.dtype), params).reshape(images.shape)
-        u, keys, order = self.sample(math.prod(images.shape[:-3]), generator,
-                                     images.device)
+        n = math.prod(images.shape[:-3])
+        ctx = mesh.sharded()
+        u, keys, order = self.sample(n if ctx is None else ctx.widen(n),
+                                     generator, images.device)
+        if ctx is not None:       # the whole batch's draw, this rank's rows
+            u, keys = ctx.local(u), ctx.local(keys)
         return image_da(images, u, keys, order, self.dtype, self.program)
 
 

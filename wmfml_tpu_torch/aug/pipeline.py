@@ -38,6 +38,10 @@ model-facing batch, as ``wmfml_tpu/aug/pipeline.py:58-76`` (ShapeNet1D),
   * labels: ShapeNet1D's -> ``[cos a, sin a, a]``; Pascal1D's x 10;
     Distractor's stay pixel centres, ShapeNet3D's quaternions; in training
     and in evaluation alike.
+
+Under a data-parallel mesh (``parallel/mesh.py``) the episode holds this
+rank's tasks: the TA offsets (and the augmenter's draws) are drawn for the
+whole batch and sliced, so every rank draws what one process draws.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from wmfml_tpu_torch.aug.image_aug import TASKS, build_augmenter, to_unit
+from wmfml_tpu_torch.parallel import mesh
 from wmfml_tpu_torch.utils.quaternion import task_augment_quat
 
 
@@ -66,12 +71,17 @@ def _pose_noise(ctx_y, qry_y, azimuth_only, generator, ta_idx):
     drawn on the labels' device unless given."""
     t = ctx_y.shape[0]
     if ta_idx is None:
+        ctx = mesh.sharded()
+        if ctx is not None:             # the whole batch's, then this rank's
+            t = ctx.widen(t)
         ele = (torch.zeros((t,), dtype=torch.int64, device=ctx_y.device)
                if azimuth_only else
                torch.randint(-5, 10, (t,), device=ctx_y.device,
                              generator=generator))
         azi = torch.randint(-10, 20, (t,), device=ctx_y.device,
                             generator=generator)
+        if ctx is not None:
+            ele, azi = ctx.local(ele), ctx.local(azi)
     else:
         ele, azi = ta_idx.to(ctx_y.device).unbind(-1)
     ele, azi = ele.to(ctx_y.dtype), azi.to(ctx_y.dtype)
@@ -133,9 +143,14 @@ def build_episode_processor(task: str, aug_list, train: bool,
             shape = ((ctx_y.shape[0], 1, 2) if task == "distractor"
                      else (ctx_y.shape[0],))
             if ta_idx is None:
-                ta_idx = torch.randint(0, n_offsets, shape,
+                ctx = mesh.sharded()
+                whole = shape if ctx is None else (ctx.widen(shape[0]),
+                                                   *shape[1:])
+                ta_idx = torch.randint(0, n_offsets, whole,
                                        device=ctx_y.device,
                                        generator=generator)
+                if ctx is not None:
+                    ta_idx = ctx.local(ta_idx)
             idx = ta_idx.to(ctx_y.device)
             if task == "distractor":
                 noise = idx.to(torch.float32)

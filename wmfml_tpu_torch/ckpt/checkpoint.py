@@ -118,7 +118,6 @@ def load_reference_state_dict(model, sd: Dict[str, torch.Tensor]):
 class CheckpointManager:
     def __init__(self, run_dir: str):
         self.models_dir = os.path.abspath(os.path.join(run_dir, "models"))
-        os.makedirs(self.models_dir, exist_ok=True)
 
     def path(self, name: str) -> str:
         return os.path.join(self.models_dir, f"{name}.pt")
@@ -128,6 +127,8 @@ class CheckpointManager:
         payload = {"step": int(step), "model": model.state_dict(),
                    "optimizer": optimizer.state_dict() if optimizer else None,
                    "generator": generator.get_state() if generator else None}
+        # made at the first save: a rank that never saves makes no directory
+        os.makedirs(self.models_dir, exist_ok=True)
         tmp = self.path(name) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self.path(name))

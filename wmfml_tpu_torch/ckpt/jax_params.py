@@ -52,7 +52,14 @@ rules:
     ``h{r,z,n}`` stack, gate order r, z, n, into ``_rnn.weight_ih_l{l}`` /
     ``weight_hh_l{l}`` (``_reverse`` for bwd), ``bias_ih_l{l}`` from
     ``i{r,z,n}``'s biases and ``bias_hh_l{l}`` = (0, 0, ``hn``'s bias):
-    Flax's GRUCell has no bias on the hidden-to-hidden r and z products.
+    Flax's GRUCell has no bias on the hidden-to-hidden r and z products;
+  * the surface modules: ``MetaConvModel``'s ``layer{i}_conv`` and
+    ``layer{i}_bn_{scale,bias}`` -> ``features.layer{i}.{conv,norm}``,
+    ``classifier`` (the flatten permutation); ``MetaMLPModel``'s
+    ``layer{i}`` -> ``features.layer{i}.linear``, ``classifier``;
+    ``Bottleneck``'s ``conv{1,2,3}``, ``bn{i}_{scale,bias}`` and
+    ``downsample`` -> ``conv{1,2,3}``, ``bn{i}.{weight,bias}``,
+    ``downsample.0`` (``bottleneck_state_dict``).
 """
 
 from __future__ import annotations
@@ -63,10 +70,11 @@ import numpy as np
 import torch
 
 from wmfml_tpu_torch.models.maml import MAMLRegressor, step_size_key
+from wmfml_tpu_torch.models.meta_models import MetaConvModel, MetaMLPModel
 from wmfml_tpu_torch.models.mmaml_nets import MMAMLBundle
 from wmfml_tpu_torch.models.neural_process import LargeCNP
 from wmfml_tpu_torch.models.single_task import SingleTaskLarge
-from wmfml_tpu_torch.nn.encoders import trunk_chw
+from wmfml_tpu_torch.nn.encoders import Bottleneck, trunk_chw
 
 
 def _t(a) -> torch.Tensor:
@@ -102,6 +110,10 @@ def jax_to_state_dict(model, variables) -> Dict[str, torch.Tensor]:
         return mmaml_state_dict(variables)
     if isinstance(model, (LargeCNP, SingleTaskLarge)):
         return large_cnp_state_dict(model, variables)
+    if isinstance(model, (MetaConvModel, MetaMLPModel)):
+        return meta_model_state_dict(model, variables["params"])
+    if isinstance(model, Bottleneck):
+        return bottleneck_state_dict(variables["params"])
     p = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
 
@@ -346,6 +358,39 @@ def attention_state_dict(params, projection, n_heads: int = 8,
         w.reshape(out, n_heads, hd // n_heads).transpose(0, 2, 1).reshape(out, hd))
     sd["_W.linear.bias"] = _t(params["W_out"]["bias"])
     sd["attn.projection_matrix"] = _t(projection)
+    return sd
+
+
+def meta_model_state_dict(model, params) -> Dict[str, torch.Tensor]:
+    """MetaConvModel or MetaMLPModel params -> the port model's
+    ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    head = params["classifier"]["Dense_0"]
+    if isinstance(model, MetaMLPModel):
+        for i in range(1, model.depth + 1):
+            _dense_into(sd, f"features.layer{i}.linear",
+                        params[f"layer{i}"]["Dense_0"])
+        _dense_into(sd, "classifier", head)
+        return sd
+    for i in range(1, 5):
+        _conv_into(sd, f"features.layer{i}.conv", params[f"layer{i}_conv"])
+        sd[f"features.layer{i}.norm.weight"] = _t(params[f"layer{i}_bn_scale"])
+        sd[f"features.layer{i}.norm.bias"] = _t(params[f"layer{i}_bn_bias"])
+    sd["classifier.weight"] = _dense_after_flatten(head["kernel"],
+                                                   model.flatten_chw)
+    sd["classifier.bias"] = _t(head["bias"])
+    return sd
+
+
+def bottleneck_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``Bottleneck`` params -> the port block's ``state_dict``."""
+    sd = {f"conv{i}.weight": _conv(params[f"conv{i}"]["kernel"])
+          for i in (1, 2, 3)}
+    for i in (1, 2, 3):
+        sd[f"bn{i}.weight"] = _t(params[f"bn{i}_scale"])
+        sd[f"bn{i}.bias"] = _t(params[f"bn{i}_bias"])
+    if "downsample" in params:
+        sd["downsample.0.weight"] = _conv(params["downsample"]["kernel"])
     return sd
 
 

@@ -16,12 +16,16 @@ reference ``state_dict``. The data are built in eval mode, as the JAX
 package builds them (``build_data(config, mode="eval")``): Distractor's
 validation split then comes from its test categories and its queries are
 all 36 views. Runs on ``cuda``; ``device=cpu`` runs on the CPU. Methods the
-port lacks raise, as in training.
+port lacks raise, as in training. Under ``torchrun`` (or with
+``mesh_shape``) each sweep shards its task axis over the ranks and averages
+their losses, as the JAX package's sharded ``eval_step`` does; rank 0
+writes the files.
 """
 
 from __future__ import annotations
 
-from wmfml_tpu_torch.cli.common import parse_args, set_numerics
+from wmfml_tpu_torch.cli.common import (launch_rank, parse_args,
+                                        set_numerics, start_mesh, stop_mesh)
 from wmfml_tpu_torch.configs import Config
 from wmfml_tpu_torch.data.factory import build_data
 from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
@@ -44,10 +48,16 @@ def evaluate(config: Config):
 
 def main(argv=None):
     args = parse_args("statistical evaluation (PyTorch port)", argv)
-    config = Config(args.config, overrides=args.overrides)
+    config = Config(args.config, overrides=args.overrides,
+                    make_dirs=launch_rank() == 0)
     if not config.mode or config.mode == "train":
         config.mode = "evaluation"
-    return evaluate(config)
+    ctx = start_mesh(config)
+    try:
+        if ctx is None or ctx.active:
+            return evaluate(config)
+    finally:
+        stop_mesh(ctx)
 
 
 if __name__ == "__main__":

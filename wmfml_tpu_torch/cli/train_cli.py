@@ -14,13 +14,23 @@ MMAML trains with ``MMAMLTrainer``, the other MAML methods with
 Runs on ``cuda`` (the YAMLs' ``device: tpu`` maps there); ``device=cpu``
 runs on the CPU. TF32 is off and cuDNN's determinism set as
 ``cli/common.py:set_numerics`` says. Exits 1 on a non-finite loss.
+
+On n cards, data parallel over the task axis (``parallel/mesh.py``)::
+
+    torchrun --standalone --nproc_per_node=4 -m wmfml_tpu_torch.cli.train_cli \
+        --config cfg/train/ANP_DA+TA_ShapeNet1D.yaml [mesh_shape='{data: 4}']
+
+Each rank runs on ``cuda:LOCAL_RANK``; rank 0 writes the run directory.
+Ranks left over where ``tasks_per_batch`` does not divide the world sit
+out (a warning says so).
 """
 
 from __future__ import annotations
 
 import sys
 
-from wmfml_tpu_torch.cli.common import parse_args, set_numerics
+from wmfml_tpu_torch.cli.common import (launch_rank, parse_args,
+                                        set_numerics, start_mesh, stop_mesh)
 from wmfml_tpu_torch.configs import Config
 from wmfml_tpu_torch.data.factory import build_data
 from wmfml_tpu_torch.models.registry import build_model, method_family
@@ -47,12 +57,18 @@ def train(config: Config) -> ModelTrainer:
 
 def main(argv=None):
     args = parse_args("meta-training (PyTorch port)", argv)
-    config = Config(args.config, overrides=args.overrides)
+    config = Config(args.config, overrides=args.overrides,
+                    make_dirs=launch_rank() == 0)
+    ctx = start_mesh(config)
     try:
+        if ctx is not None and not ctx.active:
+            return
         train(config)
     except NonFiniteLossError as e:
         config.logger.error(str(e))
         sys.exit(1)
+    finally:
+        stop_mesh(ctx)
 
 
 if __name__ == "__main__":

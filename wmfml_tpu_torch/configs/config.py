@@ -27,9 +27,10 @@ Port-specific rules:
   * ``aug_random_order`` (default true, imgaug's per-batch random op order);
     ``false`` selects the JAX package's fused fixed-order pipeline
     (``FUSED_PIPELINES``), ported for every task with a loader.
-  * ``trunk_stem`` (the ResNet trunk's stem lowering): only ``conv``, the
-    stock convolution; the JAX package's phase-layout ``s2d`` stem is not
-    ported (ROADMAP.md B8b) and raises.
+  * ``trunk_stem`` (the ResNet trunk's stem lowering, default ``conv``):
+    ``s2d`` computes conv1 and layer1 in phase layout
+    (``nn/encoders.py:s2d_trunk_stem``), any other value the stock
+    stack, as in the JAX package.
   * ShapeNet3D's backgrounds: ``gen_bg`` (default true) recomposites the
     host splits when training starts and composites every training batch
     on the device; ``bg_gen_freq`` (default 1000) is read and kept, as in
@@ -43,6 +44,12 @@ Port-specific rules:
     (``data/device_eval.py``); any other value, or a split that
     ``from_dataset`` declines, trains from host episodes streamed by a
     prefetch thread ``prefetch`` batches deep (``train/trainer.py``).
+  * ``mesh_shape`` (default none): ``{data: n}`` shards the task axis over
+    n ranks started by ``torchrun``, one card each (``parallel/mesh.py``;
+    the CLIs start the process group when it is set or ``WORLD_SIZE`` is
+    above 1); without it, a process group's whole world is the data axis,
+    shrunk to a divisor of ``tasks_per_batch``. A ``model`` axis above 1
+    raises (ROADMAP.md A18c).
   * ``prng_impl`` is read and kept, but the port's random stream is
     PyTorch's Philox whatever it says: the JAX package's ``threefry`` and
     ``rbg`` differ in their bits only, and so does Philox, so no
@@ -195,10 +202,7 @@ class Config:
         self.gen_bg = get("gen_bg", True)
         self.bg_gen_freq = get("bg_gen_freq", 1000)
         self.trunk_stem = get("trunk_stem", "conv")
-        if self.trunk_stem != "conv":
-            raise NotImplementedError(
-                f"trunk_stem={self.trunk_stem!r}: only the stock 'conv' stem "
-                "is ported (ROADMAP.md B8b)")
+        self.mesh_shape = get("mesh_shape", None)
         self.prng_impl = get("prng_impl", "threefry")
         self.data_path = get("data_path", None)
         self.synthetic_data = get("synthetic_data", False)

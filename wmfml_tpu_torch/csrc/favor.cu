@@ -128,6 +128,8 @@ struct Params {
   long long qs_t, qs_h, qs_n, ks_t, ks_h, ks_n, vs_t, vs_h, vs_n, ms_t, ms_n;
   int items, H, Nq, Nk, d, e, m, MP;
   float dn, dn2, ratio, eps;
+  const float* kmax;                // [1] the key max to take, or null: the
+                                    // keys' own (a data-parallel mesh's)
 };
 
 __host__ __device__ inline int m_pad(int m) { return (m + 15) / 16 * 16; }
@@ -495,6 +497,7 @@ __global__ void __launch_bounds__(THREADS, 1) favor_kernel(const Params p) {
       for (int i = tid + THREADS; i < p.items; i += THREADS)
         g = fmaxf(g, __ldcg(p.maxima + i));
       gmax = block_max(g, red);
+      if (p.kmax != nullptr) gmax = __ldg(p.kmax);
     } else {
       __syncthreads();
     }
@@ -654,12 +657,15 @@ extern "C" int wmfml_favor_coresident() {
 // mask [T, Nk] bytes at strides (t, n), or null; scratch
 // [T*H * ((Nq + Nk) * MP + 1)] floats, 16-byte aligned, with MP = m rounded
 // up to 16, m <= 512 (dash, then the items' key maxima); out [T,H,Nq,e]
-// contiguous; stamps null, or [T*H, 9] int64 for the phase clock. One
+// contiguous; stamps null, or [T*H, 9] int64 for the phase clock; kmax
+// null, or one float on the card taken as the key max in place of the
+// keys' own (a data-parallel mesh's max over every rank's keys). One
 // cooperative launch on `stream`. Returns its cudaError_t, or -1 when the
 // shape does not fit the kernel.
 extern "C" int wmfml_favor_fwd(const void* q, const void* k, const void* v,
                                const float* proj, const unsigned char* mask,
                                float* scratch, float* out, long long* stamps,
+                               const float* kmax,
                                long long qs_t, long long qs_h, long long qs_n,
                                long long ks_t, long long ks_h, long long ks_n,
                                long long vs_t, long long vs_h, long long vs_n,
@@ -680,7 +686,7 @@ extern "C" int wmfml_favor_fwd(const void* q, const void* k, const void* v,
   const Params p{q,    k,    v,    proj, mask, scratch, maxima, out,
                  stamps, qs_t, qs_h, qs_n, ks_t, ks_h, ks_n, vs_t, vs_h,
                  vs_n, ms_t, ms_n, items, H, Nq, Nk, d, e, m, MP,
-                 dn,   dn2,  ratio, eps};
+                 dn,   dn2,  ratio, eps, kmax};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
@@ -884,6 +890,8 @@ struct Params {
   int qr, qslices, tb;              // phase 2: q rows a unit, units an item,
                                     // tiles a chunk
   float dn, dn2, ratio, eps;
+  const float* kmax;                // [1] the key max to take, or null: the
+                                    // keys' own (a data-parallel mesh's)
 };
 
 __device__ inline void stamp(const Params& p, int j) {
@@ -1531,7 +1539,8 @@ __global__ void __launch_bounds__(THREADS, 1) favor_kernel_wide(const Params p) 
   float g = -INFINITY;
   const int nck = p.items * p.tiles * p.kchunks;
   for (int i = threadIdx.x; i < nck; i += THREADS) g = fmaxf(g, __ldcg(p.ck + i));
-  const float gmax = block_max(g, smem + RED);
+  float gmax = block_max(g, smem + RED);
+  if (p.kmax != nullptr) gmax = __ldg(p.kmax);
   for (int w = blockIdx.x; w < p.items * p.qslices; w += gridDim.x)
     attend<T>(p, smem, w / p.qslices, w % p.qslices, gmax);
   if (p.stamps != nullptr) {
@@ -1620,12 +1629,14 @@ extern "C" long long wmfml_favor_wide_scratch_floats(int items, int Nq, int Nk,
 // null; scratch of wmfml_favor_wide_scratch_floats floats, 16-byte
 // aligned; out [T,H,Nq,e] float32 contiguous; stamps null, or
 // [min(T * H * ceil(m / 64), co-resident blocks), 5] int64 for the phase
-// clock. One cooperative launch on `stream`. Returns its cudaError_t, or
-// -1 when the shape does not fit the kernel.
+// clock; kmax as wmfml_favor_fwd takes it. One cooperative launch on
+// `stream`. Returns its cudaError_t, or -1 when the shape does not fit the
+// kernel.
 extern "C" int wmfml_favor_wide_fwd(const void* q, const void* k,
                                     const void* v, const float* proj,
                                     const unsigned char* mask, float* scratch,
                                     float* out, long long* stamps,
+                                    const float* kmax,
                                     long long qs_t, long long qs_h,
                                     long long qs_n, long long ks_t,
                                     long long ks_h, long long ks_n,
@@ -1674,6 +1685,7 @@ extern "C" int wmfml_favor_wide_fwd(const void* q, const void* k,
   p.dn2 = dn2;
   p.ratio = ratio;
   p.eps = eps;
+  p.kmax = kmax;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;

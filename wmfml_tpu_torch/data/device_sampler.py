@@ -41,7 +41,10 @@ step draws its K episodes in one ``vmap`` ahead of its ``scan``
 (``train/steps.py:FusedSteps``) captures K steps, each drawing as the eager
 loop draws, so that a CUDA graph replay draws exactly what K eager steps
 draw from the same generator state. ``sample`` reads nothing back to the
-host, so it can be captured.
+host, so it can be captured. Under a data-parallel mesh
+(``parallel/mesh.py``) every rank draws the whole batch's classes,
+uniforms and backgrounds from the same generator state and gathers its
+own tasks' rows only.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import numpy as np
 import torch
 
 from wmfml_tpu_torch.configs.config import torch_dtype
+from wmfml_tpu_torch.parallel import mesh
 
 # the JAX package's rule for a split the device takes
 # (wmfml_tpu/data/device_sampler.py:33): a split of more bytes on the host
@@ -140,20 +144,24 @@ class DeviceEpisodeSampler:
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
         t, s, q = tasks_per_batch, self.max_ctx, self.query
         dev = self.x.device
+        ctx = mesh.sharded()
+        local = (lambda a: a) if ctx is None else ctx.local
         cls = torch.randint(0, self.n_groups, (t,), device=dev,
                             generator=generator)
         u = torch.rand((t, self.n_inst), device=dev, generator=generator)
+        cls, u = local(cls), local(u)                          # this rank's
         take = torch.argsort(u, dim=-1)[:, :s + q]             # [T, S+Q]
         xs = self.x[cls[:, None], take]                        # [T, S+Q, H, W, C]
         ys = self.y[cls[:, None], take] * self.label_scale     # [T, S+Q, Dy]
         shot = torch.randint(self.shot_min, s + 1, (), device=dev,
                              generator=generator)
-        mask = (torch.arange(s, device=dev)[None, :] < shot).expand(t, s)
+        mask = (torch.arange(s, device=dev)[None, :] < shot).expand(
+            cls.shape[0], s)
         ctx_x, qry_x = xs[:, :s], xs[:, s:]
         if self.bg is not None:
             n_bg = self.bg.shape[0]
-            ctx_x, qry_x = (self.composite(x, torch.randint(
-                0, n_bg, x.shape[:2], device=dev, generator=generator))
+            ctx_x, qry_x = (self.composite(x, local(torch.randint(
+                0, n_bg, (t, x.shape[1]), device=dev, generator=generator)))
                 for x in (ctx_x, qry_x))
         return dict(ctx_x=ctx_x, ctx_y=ys[:, :s], ctx_mask=mask,
                     qry_x=qry_x, qry_y=ys[:, s:])

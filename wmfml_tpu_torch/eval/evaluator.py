@@ -94,6 +94,7 @@ from wmfml_tpu_torch.train.maml import build_maml_eval_step
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import (build_eval_step, build_refine_step,
                                          require_device)
+from wmfml_tpu_torch.parallel import mesh
 from wmfml_tpu_torch.train.trainer import episode_to_device
 
 
@@ -114,8 +115,10 @@ class ModelEvaluator:
         self.generator = torch.Generator(device=self.device)
         self.refine_generator = torch.Generator(device=self.device)
         self.refine_generator.manual_seed(int(config.seed))
+        ctx = mesh.current()
+        self.lead = ctx is None or ctx.lead     # rank 0 writes the files
         self.ckpt = CheckpointManager(config.save_path)
-        self.writer = MetricsWriter(config.save_path)
+        self.writer = MetricsWriter(config.save_path) if self.lead else None
         self.best_loss = {"validation": 10000.0, "test": 10000.0}
         self.optimizer = self.refine_step = None
         if config.mode == "refinement":
@@ -212,6 +215,8 @@ class ModelEvaluator:
             test_losses, test_std = self._sweep_source("test")
 
         index = list(range(1, cfg.max_ctx_num + 1))
+        if not self.lead:
+            return val_losses, test_losses
         np.savetxt(f"{cfg.save_path}/val_losses.txt",
                    np.column_stack((index, val_losses, val_std)), fmt="%1.4f")
         if cfg.task != "pascal_1d":

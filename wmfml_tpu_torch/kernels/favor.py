@@ -32,6 +32,14 @@ to bfloat16 first, as JAX casts a Python scalar) and the diagonal term
 rounded). Both forms read the bfloat16 rows through their strides (no
 float32 copy); their values are exact in TF32, so dash needs no small part
 for them.
+
+Under a data-parallel mesh (``parallel/mesh.py``) the key stabiliser is the
+max over every rank's keys, as it is under the JAX package's SPMD
+partitioning: the twin takes it through ``mesh.global_max`` (its gradient
+splits ties over the whole batch); on the card the keys' dash is formed
+once more by a plain product for that max, and both forms take it in
+place of their own through ``kmax`` (``favor_launch``), while their own
+stays the path without a mesh.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 
 from wmfml_tpu_torch.kernels import build
 from wmfml_tpu_torch.ops.cast import rounded
+from wmfml_tpu_torch.parallel import mesh
 
 EPS = 1e-4
 MAX_D = 64             # widest head the narrow kernel takes (padded to 64)
@@ -64,18 +73,33 @@ def _normalizers(d: int, dtype):
     return rounded(n, dtype), rounded(n ** 2, dtype)
 
 
-def softmax_kernel_features(data, projection, is_query: bool, eps=EPS):
+def dash(data, projection):
+    """The features' products, float32 [..., N, m]: ``data`` scaled by the
+    normalizer (rounded in data's dtype) times the projection."""
+    data_normalizer, _ = _normalizers(data.shape[-1], data.dtype)
+    return torch.matmul((data_normalizer * data).to(projection.dtype),
+                        projection.t())
+
+
+def key_stabiliser(data_dash):
+    """ONE max over the whole key tensor; over every rank's under a mesh."""
+    ctx = mesh.sharded()
+    return data_dash.amax() if ctx is None else ctx.global_max(data_dash)
+
+
+def softmax_kernel_features(data, projection, is_query: bool, eps=EPS,
+                            stab=None):
     """Positive random features; data [..., N, d] (float32 or bfloat16),
-    projection [m, d] float32; returns float32 [..., N, m]."""
-    data_normalizer, normalizer_sq = _normalizers(data.shape[-1], data.dtype)
+    projection [m, d] float32; returns float32 [..., N, m]. ``stab`` gives
+    the keys' stabiliser (else ``key_stabiliser``)."""
+    _, normalizer_sq = _normalizers(data.shape[-1], data.dtype)
     ratio = projection.shape[0] ** -0.5
-    data_dash = torch.matmul((data_normalizer * data).to(projection.dtype),
-                             projection.t())
+    data_dash = dash(data, projection)
     diag_data = (data ** 2).sum(-1, keepdim=True) / 2.0 * normalizer_sq
     if is_query:
         stab = data_dash.amax(-1, keepdim=True)
-    else:
-        stab = data_dash.amax()            # ONE max over the whole key tensor
+    elif stab is None:
+        stab = key_stabiliser(data_dash)
     return ratio * (torch.exp(data_dash - diag_data - stab) + eps)
 
 
@@ -86,11 +110,15 @@ def linear_attention(q_prime, k_prime, v):
     return torch.einsum("...de,...nd,...n->...ne", context, q_prime, d_inv)
 
 
-def favor_plain(q, k, v, projection, mask: Optional[torch.Tensor] = None):
+def favor_plain(q, k, v, projection, mask: Optional[torch.Tensor] = None,
+                kmax: Optional[torch.Tensor] = None):
     """q [T, H, Nq, d], k [T, H, Nk, d], v [T, H, Nk, e], mask [T, Nk] bool
-    (True = real context row, shared by all heads) -> [T, H, Nq, e]."""
+    (True = real context row, shared by all heads) -> [T, H, Nq, e];
+    ``kmax`` the key stabiliser, else the keys' own max (over every rank's
+    under a mesh)."""
     q_prime = softmax_kernel_features(q, projection, is_query=True)
-    k_prime = softmax_kernel_features(k, projection, is_query=False)
+    k_prime = softmax_kernel_features(k, projection, is_query=False,
+                                      stab=kmax)
     if mask is not None:
         k_prime = k_prime * mask[:, None, :, None].to(k_prime.dtype)
     return linear_attention(q_prime, k_prime, v.to(k_prime.dtype))
@@ -105,7 +133,7 @@ def _kernel():
     global _fwd
     if _fwd is None:
         fn = build.load("favor").wmfml_favor_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 11
                        + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -119,7 +147,7 @@ def _kernel_wide():
     if _fwd_wide is None:
         lib = build.load("favor")
         fn = lib.wmfml_favor_wide_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 11
                        + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -156,9 +184,12 @@ def _aligned(a):
 
 
 def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
-                 stamps: Optional[torch.Tensor] = None):
+                 stamps: Optional[torch.Tensor] = None,
+                 kmax: Optional[torch.Tensor] = None):
     """Run the CUDA kernel once (no autograd, no launch count): one
-    cooperative launch, and nothing else on the card. ``stamps`` (int64
+    cooperative launch, and nothing else on the card. ``kmax`` (a float32
+    scalar on the card) is the key stabiliser the kernel takes in place of
+    the keys' own max (a mesh's ``global_max``). ``stamps`` (int64
     [T * H, STAMPS], for ``chip_smoke.py``) turns on the kernel's phase
     clock: block b writes the global timer (ns) to row b at the points
     ``PHASES`` names (those after the grid barrier at its last item); rows
@@ -182,6 +213,9 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     if d % 4 or e % 4:
         raise ValueError(f"FAVOR kernel takes d, e multiples of 4; got "
                          f"d={d}, e={e}")
+    if kmax is not None and (kmax.numel() != 1 or kmax.device != q.device
+                             or kmax.dtype != torch.float32):
+        raise ValueError("FAVOR kmax must be one float32 on the card")
     if mask is not None and (tuple(mask.shape) != (t, nk)
                              or mask.device != q.device
                              or mask.dtype != torch.bool):
@@ -207,9 +241,10 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     bf16 = q.dtype == torch.bfloat16
     # bfloat16: the kernel scales by the rounded normalizers and rounds
     dn, dn2 = _normalizers(d, q.dtype) if bf16 else (d ** -0.25, d ** -0.5)
+    kmax_ptr = 0 if kmax is None else kmax.data_ptr()
     if wide:
         return _wide_launch(q, k, v, proj, mask_args, stamps, out, bf16, dn,
-                            dn2)
+                            dn2, kmax_ptr)
     # dash [T*H, Nq+Nk, m rounded up to 16], then the items' key maxima
     mp = -(-m // 16) * 16
     scratch = torch.empty(t * h * ((nq + nk) * mp + 1),
@@ -217,7 +252,7 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
         mask_args[0], scratch.data_ptr(), out.data_ptr(),
-        0 if stamps is None else stamps.data_ptr(),
+        0 if stamps is None else stamps.data_ptr(), kmax_ptr,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *mask_args[1:],
         t, h, nq, nk, d, e, m, int(bf16), dn, dn2, m ** -0.5, EPS,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -229,7 +264,8 @@ def favor_launch(q, k, v, projection, mask: Optional[torch.Tensor] = None,
     return out
 
 
-def _wide_launch(q, k, v, proj, mask_args, stamps, out, bf16, dn, dn2):
+def _wide_launch(q, k, v, proj, mask_args, stamps, out, bf16, dn, dn2,
+                 kmax_ptr=0):
     """The wide kernel (``favor_launch``'s checks done, q, k, v aligned,
     ``out`` allocated)."""
     t, h, nq, d = q.shape
@@ -243,7 +279,8 @@ def _wide_launch(q, k, v, proj, mask_args, stamps, out, bf16, dn, dn2):
                           dtype=torch.float32)
     err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), proj.data_ptr(),
               mask_args[0], scratch.data_ptr(), out.data_ptr(),
-              0 if stamps is None else stamps.data_ptr(), *q.stride()[:3],
+              0 if stamps is None else stamps.data_ptr(), kmax_ptr,
+              *q.stride()[:3],
               *k.stride()[:3], *v.stride()[:3], *mask_args[1:], t, h, nq, nk,
               d, e, m, int(bf16), dn, dn2, m ** -0.5, EPS,
               torch.cuda.current_stream(q.device).cuda_stream)
@@ -257,9 +294,10 @@ def _wide_launch(q, k, v, proj, mask_args, stamps, out, bf16, dn, dn2):
 
 class _Favor(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, projection, mask):
-        ctx.save_for_backward(q, k, v, projection, mask)
-        out = favor_launch(q, k, v, projection, mask)
+    def forward(ctx, q, k, v, projection, mask, kmax):
+        ctx.save_for_backward(q, k, v, projection, mask, kmax)
+        out = favor_launch(q, k, v, projection, mask,
+                           kmax=None if kmax is None else kmax.detach())
         favor_attention.launches += 1
         favor_attention.bf16_launches += q.dtype == torch.bfloat16
         favor_attention.wide_launches += is_wide(*projection.shape[::-1])
@@ -267,18 +305,25 @@ class _Favor(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, projection, mask = ctx.saved_tensors
+        q, k, v, projection, mask, kmax = ctx.saved_tensors
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = favor_plain(*qkv, projection.detach(), mask)
-        return (*torch.autograd.grad(out, qkv, g), None, None)
+            inputs = qkv + ([] if kmax is None
+                            else [kmax.detach().requires_grad_(True)])
+            out = favor_plain(*qkv, projection.detach(), mask,
+                              None if kmax is None else inputs[3])
+        grads = torch.autograd.grad(out, inputs, g)
+        return (*grads[:3], None, None,
+                None if kmax is None else grads[3])
 
 
 def favor_attention(q, k, v, projection, mask: Optional[torch.Tensor] = None):
     """Masked FAVOR+ attention; shapes as in ``favor_plain``."""
     if q.device.type == "cpu":
         return favor_plain(q, k, v, projection, mask)
-    return _Favor.apply(q, k, v, projection, mask)
+    ctx = mesh.sharded()
+    kmax = None if ctx is None else ctx.global_max(dash(k, projection))
+    return _Favor.apply(q, k, v, projection, mask, kmax)
 
 
 favor_attention.launches = 0          # every launch on the path

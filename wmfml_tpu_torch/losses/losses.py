@@ -15,6 +15,10 @@
                           numerics (``wmfml_tpu/losses/losses.py:90-146``).
 
 As in the JAX package, ``degree_loss`` clips cos into [-1, 1] before acos.
+A masked mean over a batch whose task axis is split over ranks
+(``parallel/mesh.py``) divides by the count of every rank's real rows, and
+its own share is taken n times, as each rank's objective is; inside
+``mesh.per_task`` (MAML's per-task losses) it stays one task's.
 """
 
 from __future__ import annotations
@@ -24,11 +28,17 @@ from typing import Optional
 
 import torch
 
+from wmfml_tpu_torch.parallel import mesh
+
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     if mask is None:
         return x.mean()
     mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
+    ctx = mesh.sharded()
+    if ctx is not None and not mesh.in_per_task():
+        return ctx.n * (x * mask).sum() / ctx.global_count(
+            mask.sum()).clamp_min(1.0)
     return (x * mask).sum() / mask.sum().clamp_min(1.0)
 
 

@@ -183,8 +183,9 @@ class NPDecoder(ResNetTrunk):
     """The query trunk and ``fc_mu`` (``NPDecoder``): [T, Q, H, W, C] query
     images and the latent [T, Q, h] -> mu [T, Q, y_dim]."""
 
-    def __init__(self, img_agg: str, in_ch: int, in_dim: int, y_dim: int):
-        super().__init__(img_agg, in_ch)
+    def __init__(self, img_agg: str, in_ch: int, in_dim: int, y_dim: int,
+                 trunk_stem: str = "conv"):
+        super().__init__(img_agg, in_ch, trunk_stem)
         self.fc_mu = mlp(in_dim, (256, 256), y_dim)
 
     def forward(self, qry_x, sample):
@@ -199,6 +200,7 @@ class LargeCNP(nn.Module):
                  label_embed_dim: Optional[int] = None,
                  img_size: Sequence[int] = (128, 128, 1),
                  bbb_trunk: bool = False, fcl: bool = False,
+                 trunk_stem: str = "conv",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if agg_mode not in AGG_MODES:
@@ -208,8 +210,8 @@ class LargeCNP(nn.Module):
         h, (hw, _, c) = h_dim, img_size
         self.img_hw = hw
         trunk = trunk_feature_dim(img_agg, hw)
-        self.img_encoder = (BBBResNetTrunk if bbb_trunk
-                            else ResNetTrunk)(img_agg, c)
+        self.img_encoder = (BBBResNetTrunk(img_agg, c) if bbb_trunk
+                            else ResNetTrunk(img_agg, c, trunk_stem))
         self.transform_y = (Linear(label_dim, label_embed_dim)
                             if label_embed_dim else None)
         self.task_encoder = mlp(trunk + (label_embed_dim or label_dim),
@@ -222,7 +224,7 @@ class LargeCNP(nn.Module):
         if agg_mode == "attention":
             _register_attention(self, MultiheadFavorCrossAttention(
                 h, h, n_heads=8, generator=generator, kq_dim=trunk))
-        self.decoder = NPDecoder(img_agg, c, trunk + h, y_dim)
+        self.decoder = NPDecoder(img_agg, c, trunk + h, y_dim, trunk_stem)
         init_parameters(self, generator)
 
     def _aggregate(self, reps, mask):

@@ -112,7 +112,12 @@ def _trunk_input(config):
 
 def _large(config, agg_mode, generator, label_embed=None, **options):
     """LargeCNP on the task's images. ``options``: ``bbb_trunk`` (MR),
-    ``fcl``."""
+    ``fcl``. Both trunks take ``trunk_stem``, except with ``bbb_trunk``,
+    as the JAX registry builds them (``wmfml_tpu/models/registry.py:
+    145-149``: ANPMRShapeNet3D's decoder trunk stays on the stock
+    stem)."""
+    if not options.get("bbb_trunk"):
+        options["trunk_stem"] = config.trunk_stem
     return LargeCNP(
         img_agg=config.img_agg, agg_mode=agg_mode, y_dim=config.output_dim,
         label_dim=config.input_dim, label_embed_dim=label_embed,
@@ -239,7 +244,8 @@ def _(config, generator):
 
 def _single_large(config, generator):
     return SingleTaskLarge(img_agg=config.img_agg, y_dim=config.output_dim,
-                           img_size=_trunk_input(config), generator=generator)
+                           img_size=_trunk_input(config),
+                           trunk_stem=config.trunk_stem, generator=generator)
 
 
 register("SingleTaskShapeNet3D")(_single_large)

@@ -58,15 +58,16 @@ class SingleTaskSmall(nn.Module):
 class SingleTaskLarge(nn.Module):
     def __init__(self, img_agg: str = "reshape", y_dim: int = 4,
                  img_size: Sequence[int] = (64, 64, 3),
+                 trunk_stem: str = "conv",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         h, (hw, _, c) = 256, img_size
         self.img_hw = hw
         trunk = trunk_feature_dim(img_agg, hw)
-        self.img_encoder = ResNetTrunk(img_agg, c)
+        self.img_encoder = ResNetTrunk(img_agg, c, trunk_stem)
         self.task_encoder = mlp(trunk, (h, h), h, "relu")
         self.mu = Linear(h, h)
-        self.decoder = NPDecoder(img_agg, c, trunk + h, y_dim)
+        self.decoder = NPDecoder(img_agg, c, trunk + h, y_dim, trunk_stem)
         init_parameters(self, generator)
 
     def forward(self, ctx_x, ctx_y, qry_x, ctx_mask=None, qry_y=None,

@@ -50,6 +50,7 @@ from wmfml_tpu_torch.kernels.stem import literature_stem
 from wmfml_tpu_torch.nn.encoders import (IMG_AGGS, adaptive_max_pool,
                                          per_task_literature)
 from wmfml_tpu_torch.ops.cast import conv2d, linear
+from wmfml_tpu_torch.parallel import mesh
 
 PRIOR_MU = 0.0
 PRIOR_SIGMA = 0.1
@@ -207,8 +208,15 @@ class BBBLiteratureEncoder(nn.Module):
 
     def per_task(self, x: torch.Tensor, noise):
         """x [T, N, H, W, C] in the compute dtype -> ([T, N, dim_w], kl),
-        one sample per task; K1 reads the T samples per task."""
-        samples, kl = self._samples(noise, (x.shape[0],))
+        one sample per task; K1 reads the T samples per task. Under a
+        data-parallel mesh the samples are drawn for the whole batch's
+        tasks and this rank's are kept (``parallel/mesh.py``)."""
+        ctx = mesh.sharded()
+        if ctx is None:
+            samples, kl = self._samples(noise, (x.shape[0],))
+        else:
+            samples, kl = self._samples(noise, (ctx.widen(x.shape[0]),))
+            samples = [ctx.local(s) for s in samples]
         names = ("layer1.conv.weight", "layer1.conv.bias",
                  "layer2.conv.weight", "layer2.conv.bias",
                  "layer3.conv.weight", "layer3.conv.bias", "linear.weight",

@@ -21,8 +21,7 @@ with per-task weights, conv2 is a grouped convolution (``groups=T``), the fc
 a batched matrix product, all in the dtype of the images and parameters it
 is given.
 
-``ResNetTrunk`` is ``wmfml_tpu/nn/encoders.py:ResNetTrunk`` with its stock
-``conv`` stem (the phase-layout ``s2d`` stem is ROADMAP.md B8b): conv5x5 s2
+``ResNetTrunk`` is ``wmfml_tpu/nn/encoders.py:ResNetTrunk``: conv5x5 s2
 (C -> 64) / ReLU, then four ``BasicBlockNoBN`` stages of 64 channels at
 stride 2, then ``img_agg``: mean -> the global average (64 features),
 max / baco -> ``adaptive_max_pool`` to 2 x 2 (256), reshape -> the whole map
@@ -39,10 +38,27 @@ ReLUs and the pooling in that dtype; the parameters stay float32, so the
 weight carry is the same in both. ``load_pretrained_resnet`` copies
 a torchvision-style ResNet's compatible block convolutions into a trunk
 from a ``state_dict`` the caller has loaded; nothing is fetched.
+
+``Bottleneck`` is the JAX package's (1x1 -> 3x3 -> 1x1, expansion 4,
+three batch-statistics norms in float32), which no shipped configuration
+reaches.
+
+``trunk_stem: s2d`` computes conv1, its ReLU and layer1 in phase
+(space-to-depth) layout on the same stored parameters
+(``s2d_trunk_stem``, the JAX package's ``_s2d_trunk_stem``), where H and W
+are multiples of 4; elsewhere, and for any other value, the stock stack
+runs. Four cuDNN convolutions through ``ops/cast.py:conv2d``: a 4x4 conv
+at stride 2 over the phase-major s2d input, a 2x2 conv over the phase
+blocks padded (1, 0) x (1, 0), layer1's 3x3 conv2 and its 1x1 skip on
+phase block (0, 0). Their weights are gathered from the stored ones
+through fixed index maps (``_S2D_SLOTS``; every entry takes at most one
+tap, so the assembly is exact in bfloat16 too), and the
+gradient flows back into ``conv1`` and ``resnet.layer1.0.*``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 import torch
@@ -174,17 +190,155 @@ class BasicBlockNoBN(nn.Module):
         return F.relu(_conv(self.conv2, out) + _conv(self.downsample[0], x))
 
 
+def _s2d_slots0() -> torch.Tensor:
+    """conv1 (5x5, stride 2) over the s2d input as a 4x4 conv at stride 2:
+    for output phase (a, b) and tap (kh, kw), in that order, the slot
+    ((((a * 2 + b) * 2 + dh) * 2 + dw) * 4 + th) * 4 + tw of the [a, b,
+    dh, dw, th, tw] weight table it lands in. Row p = 2i + a reads rows
+    4i + 2a + kh - 2 = 2m + dh: dh = kh mod 2, th = a + (kh - 2 - dh) // 2
+    + 1. No slot takes two taps."""
+    slots = []
+    for a in (0, 1):
+        for b in (0, 1):
+            for kh in range(5):
+                dh, th = kh % 2, a + (kh - 2 - kh % 2) // 2 + 1
+                for kw in range(5):
+                    dw, tw = kw % 2, b + (kw - 2 - kw % 2) // 2 + 1
+                    slots.append(((((a * 2 + b) * 2 + dh) * 2 + dw) * 4
+                                  + th) * 4 + tw)
+    return torch.tensor(slots)
+
+
+def _s2d_slots1() -> torch.Tensor:
+    """layer1's conv1 (3x3, stride 2) over the phase blocks as a 2x2 conv
+    padded (1, 0): for tap (kh, kw), the slot ((a * 2 + b) * 2 + di) * 2
+    + dj of the [a, b, di, dj] table, (di, a) being (0, 1), (1, 0), (1, 1)
+    for kh = 0, 1, 2."""
+    tap = ((0, 1), (1, 0), (1, 1))
+    return torch.tensor([((tap[kh][1] * 2 + tap[kw][1]) * 2 + tap[kh][0]) * 2
+                         + tap[kw][0] for kh in range(3) for kw in range(3)])
+
+
+_S2D_SLOTS = (_s2d_slots0(), _s2d_slots1())
+_S2D_ON: Dict[tuple, torch.Tensor] = {}     # (which, device) -> slots there
+
+
+def _place_taps(w: torch.Tensor, which: int, phases: int,
+                table: Sequence[int]) -> torch.Tensor:
+    """w [O, I, k, k]'s taps, repeated for ``phases`` output phases, put
+    into the zero table ``table`` + [O, I] at ``_S2D_SLOTS[which]``: one
+    ``index_put``, whose gradient is a gather (no accumulation). The slots
+    are copied to the card once, at the first (eager) call."""
+    key = (which, w.device)
+    if key not in _S2D_ON:
+        _S2D_ON[key] = _S2D_SLOTS[which].to(w.device)
+    o, i = w.shape[:2]
+    taps = w.permute(2, 3, 0, 1).reshape(1, -1, o, i).expand(phases, -1, -1,
+                                                             -1)
+    flat = w.new_zeros(math.prod(table), o, i).index_put(
+        (_S2D_ON[key],), taps.reshape(-1, o, i))
+    return flat.reshape(*table, o, i)
+
+
+def s2d(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, 4C, H/2, W/2], phase-major: channel (dh * 2 +
+    dw) * C + c holds x[:, 2i + dh, 2j + dw, c] (the JAX package's
+    ``_s2d``; ``pixel_unshuffle`` is c-major)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).permute(
+        0, 2, 4, 5, 1, 3).reshape(b, 4 * c, h // 2, w // 2)
+
+
+def s2d_trunk_stem(x: torch.Tensor, wc, bc, wa, wb, ws) -> torch.Tensor:
+    """relu(conv1) and layer1 of the trunk in phase layout (the JAX
+    package's ``_s2d_trunk_stem``): x [B, H, W, C] in the compute dtype,
+    the stored float32 weights (conv1's wc [64, C, 5, 5] and bc, layer1's
+    conv1 wa, conv2 wb, downsample ws) cast to it before the assembly;
+    returns [B, 64, H/4, W/4]."""
+    ci, c0 = x.shape[-1], wc.shape[0]
+    wc, bc, wa, wb, ws = (t.to(x.dtype) for t in (wc, bc, wa, wb, ws))
+    k0 = _place_taps(wc, 0, 4, (2, 2, 2, 2, 4, 4)).permute(
+        0, 1, 6, 2, 3, 7, 4, 5).reshape(4 * c0, 4 * ci, 4, 4)
+    a1 = F.relu(conv2d(s2d(x), k0, bc.repeat(4), stride=2, padding=1))
+    k1 = _place_taps(wa, 1, 1, (2, 2, 2, 2)).permute(
+        4, 0, 1, 5, 2, 3).reshape(c0, 4 * c0, 2, 2)
+    h = F.relu(conv2d(F.pad(a1, (1, 0, 1, 0)), k1, None))
+    out = conv2d(h, wb, None, padding=1)
+    return F.relu(out + conv2d(a1[:, :c0], ws, None))   # phase (0, 0)
+
+
+class _BatchNorm(nn.Module):
+    """A batch-statistics norm's learnable scale and bias (``weight``,
+    ``bias``, as ``BatchNorm2d``'s)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        """x [B, C, H, W]: the statistics over (B, H, W) in float32, var
+        clamped at 0, the normalisation, scale and bias in x's dtype."""
+        mean = x.mean((0, 2, 3), dtype=torch.float32)
+        var = (x.square().mean((0, 2, 3), dtype=torch.float32)
+               - mean.square()).clamp_min(0.0)
+        shape = (1, -1, 1, 1)
+        y = ((x - mean.to(x.dtype).reshape(shape))
+             * torch.rsqrt(var + eps).to(x.dtype).reshape(shape))
+        return (y * self.weight.to(x.dtype).reshape(shape)
+                + self.bias.to(x.dtype).reshape(shape))
+
+
+class Bottleneck(nn.Module):
+    """ResNet Bottleneck (``wmfml_tpu/nn/encoders.py:510``, the reference's
+    ``networks/ResNet.py:77-119``): 1x1 -> 3x3 (at ``stride``) -> 1x1 with
+    expansion 4, each conv bias-free and followed by a batch-statistics
+    norm (``bn{1,2,3}``: the reference keeps these three, in training
+    mode), ReLU after the first two, the 1x1 ``downsample.0`` at
+    ``stride`` where the shape changes, then relu(out + identity). x
+    [B, C, H, W] in the compute dtype. No shipped configuration reaches it
+    (only ``BasicBlock`` trunks are built)."""
+
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 base_width: int = 64):
+        super().__init__()
+        width = int(planes * (base_width / 64.0))
+        out = planes * self.expansion
+        self.conv1 = _kaiming_conv(in_planes, width, 1, 1)
+        self.bn1 = _BatchNorm(width)
+        self.conv2 = _kaiming_conv(width, width, 3, stride, 1)
+        self.bn2 = _BatchNorm(width)
+        self.conv3 = _kaiming_conv(width, out, 1, 1)
+        self.bn3 = _BatchNorm(out)
+        self.downsample = (nn.Sequential(_kaiming_conv(in_planes, out, 1,
+                                                       stride))
+                           if stride != 1 or in_planes != out else None)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(_conv(self.conv1, x)))
+        y = F.relu(self.bn2(_conv(self.conv2, y)))
+        y = self.bn3(_conv(self.conv3, y))
+        identity = x if self.downsample is None else _conv(self.downsample[0],
+                                                           x)
+        return F.relu(y + identity)
+
+
 class ResNetTrunk(nn.Module):
     """[B, H, W, C] images -> [B, trunk_feature_dim] features in
-    ``compute_dtype``."""
+    ``compute_dtype``; ``trunk_stem`` ``s2d`` runs conv1 and layer1 through
+    ``s2d_trunk_stem`` where H and W are multiples of 4."""
 
     compute_dtype = torch.float32
 
-    def __init__(self, img_agg: str = "max", in_ch: int = 1):
+    def __init__(self, img_agg: str = "max", in_ch: int = 1,
+                 trunk_stem: str = "conv"):
         super().__init__()
         if img_agg not in IMG_AGGS:
             raise ValueError(f"img_agg {img_agg!r} not in {IMG_AGGS}")
         self.img_agg = img_agg
+        self.trunk_stem = trunk_stem
         self.conv1 = nn.Conv2d(in_ch, 64, 5, 2, 2)
         self.resnet = nn.Module()
         for i in range(1, 5):
@@ -192,9 +346,18 @@ class ResNetTrunk(nn.Module):
                                    nn.Sequential(BasicBlockNoBN(64, 2)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(_conv(self.conv1,
-                         x.permute(0, 3, 1, 2).to(self.compute_dtype)))
-        for i in range(1, 5):
+        x = x.to(self.compute_dtype)
+        if (self.trunk_stem == "s2d" and x.shape[1] % 4 == 0
+                and x.shape[2] % 4 == 0):
+            block = self.resnet.layer1[0]
+            x = s2d_trunk_stem(x, self.conv1.weight, self.conv1.bias,
+                               block.conv1.weight, block.conv2.weight,
+                               block.downsample[0].weight)
+            start = 2
+        else:
+            x = F.relu(_conv(self.conv1, x.permute(0, 3, 1, 2)))
+            start = 1
+        for i in range(start, 5):
             x = getattr(self.resnet, f"layer{i}")(x)
         if self.img_agg == "mean":
             return x.mean((2, 3))

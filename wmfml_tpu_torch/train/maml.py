@@ -70,18 +70,23 @@ from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.losses.losses import LossFunc
 from wmfml_tpu_torch.models.maml import step_size_key
 from wmfml_tpu_torch.nn.bbb import draw_normal
-from wmfml_tpu_torch.train.steps import FusedSteps
+from wmfml_tpu_torch.parallel import mesh
+from wmfml_tpu_torch.train.steps import (FusedSteps, local_batch,
+                                         reduce_grads, shard_mean)
 from wmfml_tpu_torch.train.trainer import ModelTrainer
 
 
 def task_losses(loss_func: LossFunc, out, y, test: bool = False, mask=None):
-    """The loss of each task over its own rows, [T]."""
-    if mask is None:
+    """The loss of each task over its own rows, [T] (``mesh.per_task``: no
+    count is reduced across ranks)."""
+    with mesh.per_task():
+        if mask is None:
+            return torch.func.vmap(
+                lambda o, g: loss_func.calc_loss(o, None, g, test=test))(out,
+                                                                          y)
         return torch.func.vmap(
-            lambda o, g: loss_func.calc_loss(o, None, g, test=test))(out, y)
-    return torch.func.vmap(
-        lambda o, g, m: loss_func.calc_loss(o, None, g, test=test, mask=m))(
-            out, y, mask)
+            lambda o, g, m: loss_func.calc_loss(o, None, g, test=test,
+                                                mask=m))(out, y, mask)
 
 
 def remat_mode(config) -> str:
@@ -270,8 +275,9 @@ def build_maml_train_step(model, optimizer, config) -> Callable:
         loss, pre = outer(batch, generator, ta_idx, da_params)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_grads(model)
         optimizer.step()
-        loss, pre = loss.detach(), pre.detach()
+        loss, pre = shard_mean(loss), shard_mean(pre)
         # the JAX step's metrics (train/maml.py:192-196), kept on the device
         train_step.metrics = {"loss": loss, "task_loss": pre,
                               "kl": (loss - pre) * inv_beta, "contra": 0.0}
@@ -306,7 +312,7 @@ def build_maml_eval_step(model, config) -> Callable:
         ``generator`` (a ``torch.Generator`` or an ``EpsFeed``)."""
         model.eval()
         with torch.enable_grad():        # the inner steps take gradients
-            return outer(batch, noise=generator)[1].detach()
+            return shard_mean(outer(local_batch(batch), noise=generator)[1])
 
     return eval_step
 

@@ -46,7 +46,8 @@ from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.losses.losses import LossFunc
 from wmfml_tpu_torch.train.maml import (_num_steps, rematerialised,
                                         remat_mode, task_losses)
-from wmfml_tpu_torch.train.steps import FusedSteps
+from wmfml_tpu_torch.train.steps import (FusedSteps, local_batch,
+                                         reduce_grads, shard_mean)
 from wmfml_tpu_torch.train.trainer import ModelTrainer
 
 INNER_GRAD_CLIP = 20.0
@@ -131,9 +132,10 @@ def build_mmaml_train_step(model, optimizer, config) -> Callable:
         loss = outer(batch, generator, ta_idx, da_params)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_grads(model)             # the clip reads the whole batch's
         clip_groups_(optimizer)
         optimizer.step()
-        return loss.detach()
+        return shard_mean(loss)
 
     return train_step
 
@@ -161,7 +163,7 @@ def build_mmaml_eval_step(model, config) -> Callable:
         nothing: ``generator`` is ignored)."""
         model.eval()
         with torch.enable_grad():        # the inner steps take gradients
-            return outer(batch).detach()
+            return shard_mean(outer(local_batch(batch)))
 
     return eval_step
 

@@ -23,6 +23,14 @@ are drawn on the device from the trainer's generator inside the step.
 
 ``init_model`` builds ``config.method`` with weights drawn from
 ``config.seed`` and moves it to the config's device.
+
+Under a data-parallel mesh (``parallel/mesh.py``) a train step runs on
+this rank's slice of the batch's tasks (the sampler or ``HostEpisodes``
+hands it over), averages the gradients over the ranks before the optimizer
+(``reduce_grads``, inside the captured graph) and reports the loss
+averaged over them (``shard_mean``); FCL's views are gathered from every
+rank; an eval step takes the whole batch, scores its own slice and returns
+the average.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from wmfml_tpu_torch.kernels.stem import literature_stem
 from wmfml_tpu_torch.losses.losses import (LossFunc, contrastive_loss,
                                            contrastive_loss_anp)
 from wmfml_tpu_torch.models.registry import build_model
+from wmfml_tpu_torch.parallel import mesh
 
 
 def require_device(name) -> torch.device:
@@ -64,18 +73,43 @@ def _apply(model, batch: Dict[str, torch.Tensor], generator=None):
                  generator=generator)
 
 
+def reduce_grads(model):
+    """The gradients averaged over the data shards (``parallel/mesh.py``;
+    nothing without a mesh)."""
+    ctx = mesh.current()
+    if ctx is not None:
+        ctx.all_reduce_grads(model.parameters())
+
+
+def shard_mean(x: torch.Tensor) -> torch.Tensor:
+    """A reported value, detached, averaged over the data shards."""
+    ctx = mesh.sharded()
+    return x.detach() if ctx is None else ctx.shard_mean(x)
+
+
+def local_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's tasks of a whole batch."""
+    ctx = mesh.sharded()
+    return batch if ctx is None else ctx.local_batch(batch)
+
+
 def contra_term(config, out):
     """FCL's contrastive term (``wmfml_tpu/train/steps.py:55-65``): NT-Xent
-    over the two views (FCL-CNP) or over the query reps by task (FCLANP);
-    0.0 without ``contrastive`` or without views (evaluation)."""
+    over the two views (FCL-CNP) or over the query reps by task (FCLANP),
+    every rank's gathered under a mesh; 0.0 without ``contrastive`` or
+    without views (evaluation)."""
     if not config.contrastive:
         return 0.0
+    ctx = mesh.sharded()
+    every = (lambda z: z) if ctx is None else ctx.gather
     ex = out.extras
     if "z_ctx_view" in ex and "z_qry_view" in ex:
-        return contrastive_loss(ex["z_ctx_view"], ex["z_qry_view"],
+        return contrastive_loss(every(ex["z_ctx_view"]),
+                                every(ex["z_qry_view"]),
                                 t=config.temperature)
     if "qry_rep" in ex:
-        return contrastive_loss_anp(ex["qry_rep"], t=config.temperature)
+        return contrastive_loss_anp(every(ex["qry_rep"]),
+                                    t=config.temperature)
     return 0.0
 
 
@@ -97,8 +131,9 @@ def _build_update(model, optimizer, config, objective) -> Callable:
         total, reported = objective(_apply(model, pbatch, generator), pbatch)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        reduce_grads(model)
         optimizer.step()
-        return reported.detach()
+        return shard_mean(reported)
 
     return step
 
@@ -276,6 +311,9 @@ class HostEpisodes:
         self.next = 0
 
     def load(self, batch: Dict[str, torch.Tensor]):
+        ctx = mesh.sharded()
+        if ctx is not None:        # this rank's tasks of each episode
+            batch = ctx.local_batch(batch, dim=1)
         if self.buffers is None:
             self.buffers = {k: torch.empty_like(v, device=self.device)
                             for k, v in batch.items()}
@@ -321,9 +359,9 @@ def build_eval_step(model, config) -> Callable:
         """The test metric on one episode; a BBB model draws its weights
         from ``generator`` (a ``torch.Generator`` or an ``EpsFeed``)."""
         model.eval()
-        pbatch = process(batch)
+        pbatch = process(local_batch(batch))
         out = _apply(model, pbatch, generator)
-        return loss_func.calc_loss(out.mu.float(), out.var, pbatch["qry_y"],
-                                   test=True)
+        return shard_mean(loss_func.calc_loss(
+            out.mu.float(), out.var, pbatch["qry_y"], test=True))
 
     return eval_step

@@ -55,6 +55,14 @@ its two-group optimizer (``_build_optimizer``).
 
 ``timing`` holds the training steps and host seconds between the first and
 the last loss read (each read waits for the card), validation excluded.
+
+Under a data-parallel mesh (``parallel/mesh.py``; ``cli/common.py:
+start_mesh``) every rank runs this loop on its slice of each batch's tasks:
+the parameters (and any restored optimizer state) are rank 0's
+(``broadcast_training_state``), every rank draws what one process draws, the
+steps average their gradients and losses, and validation scores each
+rank's tasks and averages; rank 0 alone writes checkpoints, the metrics
+and ``best_{split}_error.txt``, and every rank resumes from the same file.
 """
 
 from __future__ import annotations
@@ -77,6 +85,7 @@ from wmfml_tpu_torch.data.device_sampler import from_dataset, refusal
 from wmfml_tpu_torch.data.episode_core import Rows
 from wmfml_tpu_torch.obs.guards import check_finite
 from wmfml_tpu_torch.obs.metrics import MetricsWriter
+from wmfml_tpu_torch.parallel import mesh
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import (HostEpisodes,
                                          build_device_data_train_step,
@@ -172,7 +181,9 @@ class ModelTrainer:
         # after training on the device path (wmfml_tpu/train/trainer.py:145)
         self.device_eval: Optional[Dict[str, DeviceSweep]] = None
         self.prefetch_stats: Dict[str, int] = {}
-        self.writer = MetricsWriter(config.save_path)
+        self.mesh = mesh.current()
+        self.lead = self.mesh is None or self.mesh.lead
+        self.writer = MetricsWriter(config.save_path) if self.lead else None
         self.ckpt = CheckpointManager(config.save_path)
         self.best_loss = {"validation": 50000.0, "test": 20000.0}
         self.step = 0
@@ -183,6 +194,7 @@ class ModelTrainer:
                                           map_location=self.device,
                                           generator=self.generator)
             self.logger.info(f"resumed from {config.checkpoint} at step {self.step}")
+        mesh.broadcast_training_state(self.mesh, self.model, self.optimizer)
 
     def _build_optimizer(self):
         return build_optimizer(self.config, self.model.parameters())
@@ -217,8 +229,13 @@ class ModelTrainer:
                 build_eval_step(self.model, self.config))
 
     def _save(self, name: str):
-        self.ckpt.save(name, self.step, self.model, self.optimizer,
-                       self.generator)
+        if self.lead:
+            self.ckpt.save(name, self.step, self.model, self.optimizer,
+                           self.generator)
+
+    def _scalar(self, tag: str, value, it: int):
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, it)
 
     def _host_batches(self, start: int):
         """The host path's batches in iteration order, for the prefetch
@@ -289,7 +306,7 @@ class ModelTrainer:
                     train_loss = check_finite(pending[1], it, self.logger)
                     pending = None
                     self._tick(timer)
-                    self.writer.add_scalar("Loss/train", train_loss, it)
+                    self._scalar("Loss/train", train_loss, it)
                     self.logger.info(f"Iteration: {it}, loss: {train_loss:.4f}")
                     self.validate(it, "validation")
                     if cfg.task != "pascal_1d":
@@ -383,10 +400,11 @@ class ModelTrainer:
                 self.eval_generator) for _ in range(cfg.val_iters)]
             losses = [float(x) for x in losses]
         loss = float(np.mean(np.asarray(losses, np.float64)))
-        self.writer.add_scalar(f"Loss/{source}", loss, it)
+        self._scalar(f"Loss/{source}", loss, it)
         self.logger.info(f"[{source}] iteration {it}: loss {loss:.4f}")
         if loss < self.best_loss[source]:
             self.best_loss[source] = loss
             self._save(f"model_best_{source}")
-            self.ckpt.save_best_error(cfg.save_path, source, it, loss)
+            if self.lead:
+                self.ckpt.save_best_error(cfg.save_path, source, it, loss)
         return loss
