@@ -319,6 +319,28 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      more ranks passes it) against its twin with the same max, narrow and
      wide (``check_favor_kmax``). The kernels line gives each row the
      launches of phases 24 and 25 at its shapes (``phase24_launches``);
+ 26. ``conv_bwd: phase`` (ROADMAP.md B8a): K1b, the stem's backward kernel
+     (``csrc/stem_bwd.cu``), against its twin ``stem_backward_phase_plain``
+     at ANP's [300, 128, 128, 1] in float32 (on dyadic inputs, every
+     forward sum exact, so both take the same ReLU and pool decisions:
+     each gradient within BWD_GRAD_FACTOR times the float32 twin's own
+     distance from float64, or BWD_TOL of its largest; on uniform images
+     and the model's weights logged) and in bfloat16 (``check_bf16``'s
+     rule), and at P3 T40's [1,200, 128, 128, 1] in bfloat16 (off_path);
+     card, device, plain, bound and library (today's backward: autodiff of
+     the twin on cuDNN) ms (``check_stem_backward``). Then
+     ``cfg/train/ANP_DA+TA_ShapeNet1D.yaml`` with ``conv_bwd=phase`` (16
+     steps, 8 a call) in float32 and bfloat16 through ``train_phase`` (K1b
+     once a step, graph nodes included), card against CPU validation,
+     graph = loop bit for bit, graph ms/step against ``xla`` in turns
+     (``phase_bwd_phase``);
+ 27. the tensor-parallel "model" axis (ROADMAP.md A18c): two ranks of a
+     gloo world on this card (this script again, ``--tp-worker``), S1 at
+     full width with ``mesh_shape={data: 1, model: 2}``, TP_STEPS eager TP
+     steps against one process's from the same state and batches under
+     deterministic algorithms (``tp_phase``). The kernels line gives each
+     row the launches of phases 26 and 27 at its shapes
+     (``phase26_launches``, ``phase27_launches``, each rank's);
  15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Depth cuts against the time limit: graph = loop (phase 12) checks the
@@ -545,6 +567,18 @@ GRAPH_LOOP_K8 = ["steps_per_call=8"]
 S2D = ["trunk_stem=s2d"]
 # phase 25 (ROADMAP.md A18): the ANP path on a one-rank NCCL group
 DP_OVERRIDES = TRAIN_OVERRIDES + ["iterations=16", "mesh_shape={data: 1}"]
+# phase 26 (ROADMAP.md B8a): the ANP path with the stem's backward through
+# K1b, 16 steps, 8 a call
+PHASE_BWD = ["iterations=16", "conv_bwd=phase"]
+# K1b against its twin in float32 (``check_stem_backward``): the gradients
+# sum up to 1.2M products (dW0 at 300 images) in another order than the
+# twin's, so each is held within BWD_GRAD_FACTOR times the float32 twin's
+# own distance from the twin in float64, or BWD_TOL of its largest element
+BWD_TOL, BWD_GRAD_FACTOR = 1e-5, 3.0
+# phase 27 (ROADMAP.md A18c): S1 on {data: 1, model: 2}, TP_STEPS eager
+# steps with SGD (``tp_phase``)
+TP_STEPS = 4
+TP_OVERRIDES = S3D_SHORT_OVERRIDES + ["optimizer=SGD"]
 # the NCCL kernel of the gradient all-reduce in a graph's DOT or a trace
 # (one rank: NCCL's own average, ``oneRankReduce``; more: its ring kernels)
 NCCL_KERNEL = r"nccl|oneRankReduce"
@@ -708,7 +742,7 @@ def device_events(prof):
 
 
 @spent
-def device_profile(fn, iters=20, names=None):
+def device_profile(fn, iters=20, names=None, breakdown=False):
     """Device time of one call (ms), the summed durations of the kernels it
     launches, and the number of kernels it launches, from torch.profiler.
     Beside ``cuda_ms``, which also counts the gaps while the host enqueues,
@@ -758,15 +792,21 @@ def device_profile(fn, iters=20, names=None):
             f"is the mean of its recorded events")
     if names is not None:
         names.update(by_name)
-    return dict(device_ms=us / 1e3, kernels_per_call=sum(per_call.values()),
-                events_recorded=len(kernels), events_implied=implied,
-                device_ms_by="torch.profiler")
+    out = dict(device_ms=us / 1e3, kernels_per_call=sum(per_call.values()),
+               events_recorded=len(kernels), events_implied=implied,
+               device_ms_by="torch.profiler")
+    if breakdown:       # device ms a call of each kernel
+        out["device_ms_by_kernel"] = {
+            n: per_call[n] * sum(v) / len(v) / 1e3 for n, v in by_name.items()}
+    return out
 
 
 # kernel names a graph's DOT is searched for (``graph_profile``); the longer
 # of two that overlap comes first
 DOT_KERNELS = ("favor_kernel_wide", "favor_kernel", "image_da_kernel",
-               "stem_fwd_kernel", "bn_relu_kernel")
+               "stem_fwd_kernel", "stem_bwd_route_kernel",
+               "stem_bwd_input_kernel", "stem_bwd_reduce_kernel",
+               "bn_relu_kernel")
 
 
 def graph_profile(fn, iters=20, names=None):
@@ -2198,6 +2238,7 @@ def check_large_evaluation(tag, yaml, overrides, runs):
 # (and events in a trace) count its launches: K3's call also packs its
 # weights and runs one conv_kernel a layer, then one bn_relu_kernel
 GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
+              "literature_stem_backward": "stem_bwd_route_kernel",
               "favor_attention": "favor_kernel",
               "maml_features": "bn_relu_kernel",
               "image_da": "image_da_kernel"}
@@ -2244,7 +2285,12 @@ def launches_per_step(trainer):
         return {**attention, **da}, attention
     # a BBB encoder (MR) samples apart for the query and the context pass
     stem = {"literature_stem": 2 if "MR" in cfg.method else 1}
-    return {**stem, **attention, **da}, {**stem, **attention}
+    # conv_bwd: phase: K1b once a training step (the backward), never in
+    # evaluation
+    k1b = ({"literature_stem_backward": 1}
+           if getattr(trainer.model.encoder_w0, "conv_bwd", "") == "phase"
+           else {})
+    return {**stem, **k1b, **attention, **da}, {**stem, **attention}
 
 
 def graph_launches(graphs, issued):
@@ -2708,7 +2754,7 @@ def check_validation_loss(trainer, tasks=None, exact=False):
         model = set_compute_dtype(copy.deepcopy(trainer.model).to(f64), f64)
         saved = (encoders.literature_stem, maml_model.maml_features,
                  pipeline._to_float)
-        encoders.literature_stem = stem.stem_plain
+        encoders.literature_stem = lambda *a, **_: stem.stem_plain(*a)
         maml_model.maml_features = features.features_plain
         pipeline._to_float = lambda x, _=None: saved[2](x).to(f64)
         try:
@@ -3118,7 +3164,7 @@ def second_order_errors(trainer, gen, jitter=None):
                  maml_model.maml_features, pipeline._to_float)
         cfg.first_order = first_order
         if plain:
-            encoders.literature_stem = stem.stem_plain
+            encoders.literature_stem = lambda *a, **_: stem.stem_plain(*a)
             maml_model.maml_features = features.features_plain
         if shuffled:
             encoders.literature_stem = shuffled_twin(stem.stem_plain,
@@ -4666,6 +4712,391 @@ def s2d_phase(card, stock, counters):
     return out
 
 
+def stem_backward_inputs(model, gen, b, dtype, dyadic):
+    """K1b's inputs at ``b`` images of 128 x 128 x 1 in ``dtype``: the
+    pooled map's gradient g ~ N(0, 1) and, with ``dyadic``, images in {0,
+    1/8, ..., 1} and weights on grids of 1/8, 1/64 (conv0's weight and
+    bias), 1/64 and 1/4096 (conv1's): conv0's sums are then multiples of
+    2^-6 below 3 and conv1's multiples of 2^-12 below 2^6, exact in float32
+    whatever the order, so every implementation takes the same ReLU masks
+    and pool routes (first maxima among exact ties included); else uniform
+    images and ``model``'s stem weights."""
+    import torch
+
+    def grid(lo, hi, shape, step):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device="cuda").float() * step
+
+    if dyadic:
+        x = grid(0, 8, (b, 128, 128, 1), 1 / 8)
+        w = (grid(-2, 2, (32, 1, 3, 3), 1 / 8), grid(-2, 2, (32,), 1 / 64),
+             grid(-4, 4, (48, 32, 3, 3), 1 / 64),
+             grid(-64, 64, (48,), 1 / 4096))
+    else:
+        enc = model.encoder_w0
+        x = torch.rand((b, 128, 128, 1), generator=gen, device="cuda")
+        w = tuple(p.detach() for p in (enc[0].weight, enc[0].bias,
+                                       enc[2].weight, enc[2].bias))
+    g = torch.randn((b, 16, 16, 48), generator=gen, device="cuda")
+    return tuple(a.to(dtype) for a in (x, *w, g))
+
+
+def stem_backward_bound(args):
+    """``bound`` of K1b on ``args`` (x, w0, b0, w1, b1, g): the forward
+    again (conv0, conv1), then what this data needs of the backward: each
+    pooled value routed to a positive maximum scatters into 9 taps x 32
+    channels of conv1's input gradient and adds 288 products to dW1; each
+    conv0 value with its ReLU on adds 9 Ci products to dW0. In float32
+    conv0's products on the CUDA cores and conv1's three on the tensor
+    cores in 3xTF32 (as K1's bound counts them), in bfloat16 all at the
+    bfloat16 tensor-core rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from wmfml_tpu_torch.kernels import stem
+    from wmfml_tpu_torch.ops.cast import conv2d
+
+    x, w0, b0, w1, b1, g = args
+    b, h, w, ci = x.shape
+    xn = x.permute(0, 3, 1, 2)
+    a0 = F.relu(conv2d(xn, w0, b0, stride=2, padding=1))
+    a1 = F.relu(conv2d(a0, w1, b1, stride=2, padding=1))
+    routed = int(torch.count_nonzero(stem._first_max_routes(
+        a1, g.permute(0, 3, 1, 2).ne(0).to(a1.dtype))))
+    live0 = int(torch.count_nonzero(a0))
+    conv0 = 2 * b * (h // 2) * (w // 2) * 32 * 9 * ci
+    conv1 = 2 * b * (h // 4) * (w // 4) * 48 * 9 * 32
+    back1 = 2 * 2 * routed * 9 * 32
+    back0 = 2 * live0 * 9 * ci
+    nbytes = sum(a.numel() for a in args) * x.element_size() + sum(
+        a.numel() for a in (w0, b0, w1, b1)) * x.element_size()
+    if x.dtype == torch.bfloat16:
+        out = bound(0.0, nbytes, bf16_flops=conv0 + conv1 + back1 + back0)
+    else:
+        out = bound(conv0 + back0, nbytes, split_flops=conv1 + back1)
+    return dict(out, routed=routed, conv0_live=live0)
+
+
+STEM_GRADS = ("dW0", "db0", "dW1", "db1")
+
+
+@spent
+def check_stem_backward(model, gen, dtype=None, tasks=10, path="ANP phase",
+                        off_path=False):
+    """K1b (``conv_bwd: phase``, ROADMAP.md B8a) against its plain twin
+    ``stem_backward_phase_plain`` at the ANP path's shape (30 images a task,
+    300 at T = 10, 1,200 at ``tasks`` = 40). float32: on dyadic inputs
+    (``stem_backward_inputs``), each gradient within BWD_GRAD_FACTOR times
+    the float32 twin's own distance from the twin in float64 or BWD_TOL of
+    its largest element; then on uniform images and ``model``'s weights,
+    logged, not held: there a conv0 or conv1 value within float32 rounding
+    of 0 or of its window's maximum can take the other ReLU or pool
+    decision in another summation order, and one such decision moves a
+    gradient by g times a patch. bfloat16, on uniform images and the
+    model's weights: ``check_bf16``'s rule against the bfloat16 twin. Times:
+    K1b, the twin, and the library's way, today's backward (``conv_bwd:
+    xla``: autodiff of the stem's plain twin on cuDNN, the forward
+    recomputed with grad)."""
+    import torch
+
+    from wmfml_tpu_torch.kernels import stem
+
+    dtype = dtype or torch.float32
+    b = tasks * 30
+    f32 = dtype == torch.float32
+    args = stem_backward_inputs(model, gen, b, dtype, dyadic=f32)
+    got = stem.stem_backward_launch(*args)
+    want = stem.stem_backward_phase_plain(*args)
+    torch.cuda.synchronize()
+    errs, notes = [], []
+    if f32:
+        ref = stem.stem_backward_phase_plain(*(a.double() for a in args))
+        for name, k, t, r in zip(STEM_GRADS, got, want, ref):
+            err_k = (k.double() - r).abs().max().item()
+            err_t = (t.double() - r).abs().max().item()
+            limit = max(BWD_TOL * r.abs().max().item(),
+                        BWD_GRAD_FACTOR * err_t)
+            errs.append((k - t).abs().max().item())
+            notes.append(f"{name} kernel {err_k} / twin {err_t} from float64 "
+                         f"(limit {limit})")
+            if not err_k <= limit or not bool(torch.isfinite(k).all()):
+                raise AssertionError(f"literature_stem_backward {name}: "
+                                     f"kernel {err_k} from float64, the "
+                                     f"float32 twin {err_t} (limit {limit})")
+        real = stem_backward_inputs(model, gen, b, dtype, dyadic=False)
+        got_r = stem.stem_backward_launch(*real)
+        want_r = stem.stem_backward_phase_plain(*real)
+        notes.append("uniform images and the model's weights (logged): " + (
+            ", ".join(f"{n} max abs err {(k - t).abs().max().item()} of "
+                      f"{t.abs().max().item()}"
+                      for n, k, t in zip(STEM_GRADS, got_r, want_r))))
+    else:
+        want_f32 = stem.stem_backward_phase_plain(*(a.float() for a in args))
+        for name, k, t, t32 in zip(STEM_GRADS, got, want, want_f32):
+            err, _ = check_bf16(f"literature_stem_backward {name}", k, t, t32,
+                                element_ulps=False)
+            errs.append(err)
+    log(f"kernel: literature_stem_backward [{b}, 128, 128, 1] "
+        f"{'float32, dyadic inputs' if f32 else 'bfloat16'}: "
+        + "; ".join(notes) + f"; max abs err against the twin {errs}")
+    x, w0, b0, w1, b1, g = args
+    leaves = [a.clone().requires_grad_() for a in (w0, b0, w1, b1)]
+
+    def library():      # today's backward (conv_bwd: xla); not K1b's path
+        y = stem.stem_plain(x, *leaves)
+        return torch.autograd.grad(y, leaves, g)
+
+    times = in_turns({"ms": lambda: stem.stem_backward_launch(*args),
+                      "plain_ms": lambda: stem.stem_backward_phase_plain(
+                          *args),
+                      "library_ms": library})
+    times.update(device_profile(lambda: stem.stem_backward_launch(*args),
+                                breakdown=True))
+    ids = _rows("literature_stem_backward", dtype, path, tasks)
+    row = dict(**ids, shape=f"shared weights, [{b}, 128, 128, 1], g "
+               f"[{b}, 16, 16, 48]" + (", dyadic inputs" if f32 else ""),
+               source="wmfml_tpu_torch/csrc/stem_bwd.cu",
+               replaces="wmfml_tpu/nn/encoders.py:117",
+               max_abs_err=max(errs), **times, **stem_backward_bound(args))
+    if off_path:
+        row["off_path"] = True
+    return row
+
+
+def warm_trainer(yaml, overrides):
+    """A trainer built as ``train_cli`` builds it, its fused step past the
+    warm-up and the capture (one replay run), ready for ``call_ms``."""
+    from wmfml_tpu_torch.cli import train_cli
+    from wmfml_tpu_torch.configs import Config
+
+    trainer = train_cli.build_trainer(Config(yaml, overrides))
+    while not trainer.train_step.replays:
+        trainer.train_step(trainer.generator)
+    return trainer
+
+
+@spent
+def phase_bwd_phase(card, stock):
+    """Phase 26 (ROADMAP.md B8a): ANPShapeNet1D as shipped with
+    ``conv_bwd=phase``, 16 steps, 8 a call, in float32 and bfloat16,
+    through ``train_phase`` (K1b once a step, graph nodes included); the
+    trained model's output (float32) and validation loss card against
+    CPU; graph = loop bit for bit; graph
+    ms/step against the default ``xla`` in turns xla, phase, phase, xla
+    (float32: ``stock``, phase 4's trainer; bfloat16: a fresh trainer at 8
+    steps a call). Returns the launches on the card of each."""
+    import torch
+
+    from wmfml_tpu_torch.kernels.favor import favor_attention
+    from wmfml_tpu_torch.kernels.image_da import image_da
+    from wmfml_tpu_torch.kernels.stem import (literature_stem,
+                                              literature_stem_backward)
+
+    counters = {"literature_stem": literature_stem,
+                "literature_stem_backward": literature_stem_backward,
+                "favor_attention": favor_attention, "image_da": image_da}
+    out = {}
+    for tag, extra, check in (("f32", [], check_validation_loss),
+                              ("bf16", BF16, check_bf16_validation)):
+        overrides = TRAIN_OVERRIDES + PHASE_BWD + extra
+        trainer, out[tag], nodes = train_phase(card, MAIN_YAML, overrides,
+                                               counters)
+        if trainer.model.encoder_w0.conv_bwd != "phase":
+            raise AssertionError("phase 26 ran without conv_bwd: phase")
+        if tag == "f32":
+            check_trained_output(trainer)
+        check(trainer)
+        graph_equals_loop(MAIN_YAML, overrides)
+        xla = stock if tag == "f32" else warm_trainer(
+            MAIN_YAML, TRAIN_OVERRIDES + extra + ["iterations=16"])
+        runs = {"xla": [], "phase": []}
+        trainers = {"xla": xla, "phase": trainer}
+        for key in ("xla", "phase", "phase", "xla"):
+            runs[key].append(call_ms(trainers[key], 2))
+        ms = {k: sum(v) / len(v) for k, v in runs.items()}
+        log(f"phase: ANPShapeNet1D {tag} graph ms/step: conv_bwd xla "
+            f"{ms['xla']}, phase {ms['phase']}, phase / xla "
+            f"{ms['phase'] / ms['xla']} (turns {json.dumps(runs)}, 2 calls "
+            f"of 8 steps each); phase graph {nodes['kernel_nodes']} kernel "
+            f"nodes, capture {trainer.train_step.graph_stats}; on {card}")
+        del trainer, trainers, xla
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _allclose_report(got, want, rtol, atol):
+    """The largest excess over |got - want| <= atol + rtol |want| among the
+    tensors of two dicts (<= 0: every element within), and its key."""
+    worst, where = -math.inf, None
+    for k, w in want.items():
+        g = got[k].double()
+        excess = ((g - w.double()).abs() - atol - rtol * w.double().abs()
+                  ).max().item()
+        if excess > worst:
+            worst, where = excess, k
+    return worst, where
+
+
+def tp_worker(rank: int, port: str, outdir: str) -> int:
+    """Phase 27's rank ``rank`` of a 2-rank gloo world on cuda:0 (started
+    by ``tp_phase`` as ``chip_smoke.py --tp-worker <rank> <port> <dir>``):
+    S1's model and TP_STEPS host batches of its train split, the same on
+    both ranks; TP_STEPS eager steps without a mesh (one process), then the
+    same from the same state and batches on ``{data: 1, model: 2}``
+    (``parallel/mesh.py:shard_state``, ``train/steps.py:build_train_step
+    (state_sharding=...)``), both under deterministic algorithms; writes
+    ``rank<r>.json``: each step's loss, the largest excess of the gathered
+    parameters over the tolerance, the keys split and the JAX leaves they
+    are, K2's wide and K6's launches on this rank, ms a step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from wmfml_tpu_torch.ckpt.jax_params import full_state_dict
+    from wmfml_tpu_torch.cli.common import set_numerics
+    from wmfml_tpu_torch.configs import Config
+    from wmfml_tpu_torch.data.factory import build_data
+    from wmfml_tpu_torch.kernels.favor import favor_attention
+    from wmfml_tpu_torch.kernels.image_da import image_da
+    from wmfml_tpu_torch.parallel import mesh
+    from wmfml_tpu_torch.train.state import build_optimizer
+    from wmfml_tpu_torch.train.steps import build_train_step, init_model
+    from wmfml_tpu_torch.train.trainer import episode_to_device
+
+    set_numerics()
+    torch.cuda.set_device(0)
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    config = Config(S3D_YAML, TP_OVERRIDES, make_dirs=False)
+    data = build_data(config)
+    batches = [episode_to_device(data.get_batch(
+        "train", config.tasks_per_batch, config.max_ctx_num), "cuda")
+        for _ in range(TP_STEPS)]
+
+    def run(ctx):
+        mesh.use(ctx)
+        try:
+            model = init_model(config)
+            placement = None if ctx is None else mesh.shard_state(ctx, model)
+            opt = build_optimizer(config, model.parameters())
+            step = build_train_step(model, opt, config,
+                                    state_sharding=placement)
+            gen = torch.Generator(device="cuda").manual_seed(config.seed)
+            zero_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [float(step(b, gen)) for b in batches]
+            ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+            launches = {"favor_attention": favor_attention.launches,
+                        "favor_attention.wide": favor_attention.wide_launches,
+                        "image_da": image_da.launches,
+                        f"image_da.{config.task}":
+                        image_da.program_launches[config.task]}
+            params = {k: v.detach().cpu()
+                      for k, v in full_state_dict(model).items()}
+            return losses, params, launches, placement, ms
+        finally:
+            mesh.use(None)
+
+    one = run(None)
+    ctx = mesh.MeshContext.create({"data": 1, "model": 2})
+    two = run(ctx)
+    split = sorted(k for k, d in two[3].items() if d is not None)
+    leaves = sorted({mesh._HEAD.sub(r"\1\2", k) for k in split})
+    excess, where = _allclose_report(two[1], one[1], 1e-4, 1e-6)
+    loss_err = max(abs(a - b) for a, b in zip(one[0], two[0]))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(rank=rank, index=ctx.index, model_rank=ctx.model_rank,
+                       losses_one=one[0], losses_tp=two[0],
+                       loss_err=loss_err, param_excess=excess,
+                       param_worst=where, split_keys=len(split),
+                       jax_leaves=len(leaves), jax_leaf_names=leaves,
+                       params=len(one[1]), launches=two[2],
+                       launches_one=one[2], ms_one=one[4], ms_tp=two[4],
+                       finite=bool(np.isfinite(two[0]).all())), f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+@spent
+def tp_phase(card):
+    """Phase 27 (ROADMAP.md A18c): a 2-rank gloo world on this card (NCCL
+    takes one rank a card), ``tp_worker`` on each, S1
+    (``cfg/train/ANP_DA+TA_ShapeNet3D.yaml`` at full width: T = 20, 64 x 64
+    RGB, K2 wide, K6 program 6) with ``mesh_shape={data: 1, model: 2}``,
+    TP_STEPS eager steps through the TP step against one process's from
+    the same state and batches, under deterministic algorithms: each
+    step's loss within 1e-5, the gathered parameters within rtol 1e-4 /
+    atol 1e-6 (``tests/test_torch_port_dp.py``'s tolerances; SGD, as that
+    test steps ANP: Adam's first step divides ANP's near-zero key-bias
+    gradients by their own size), K2 wide and K6 launched on each rank.
+    Both processes are waited for and killed before it returns. Returns
+    each rank's launches."""
+    import socket
+    import tempfile
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=compute_mode",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+    log(f"tp: compute mode {mode} (two processes on one card need Default)")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-worker",
+             str(r), port, tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"tp worker {r} failed (rc "
+                                     f"{p.returncode}):\n{out[-4000:]}")
+        results = []
+        for r in (0, 1):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    out = {}
+    for res in results:
+        r = res["rank"]
+        launches = res["launches"]
+        log(f"tp: S1 rank {r} (data {res['index']}, model "
+            f"{res['model_rank']}): {TP_STEPS} eager steps, losses one "
+            f"process {res['losses_one']}, TP {res['losses_tp']}, max "
+            f"|diff| {res['loss_err']}; gathered parameters' largest excess "
+            f"over rtol 1e-4 / atol 1e-6 {res['param_excess']} "
+            f"({res['param_worst']}; <= 0 within); {res['split_keys']} of "
+            f"{res['params']} parameters split, the JAX rule's "
+            f"{res['jax_leaves']} leaves ({res['jax_leaf_names']}); launches "
+            f"{launches} (one process {res['launches_one']}); ms a step: one "
+            f"process {res['ms_one']}, TP {res['ms_tp']}; on {card}")
+        if not (res["finite"] and res["loss_err"] < 1e-5
+                and res["param_excess"] <= 0 and res["split_keys"] > 0
+                and launches["favor_attention.wide"] == TP_STEPS
+                and launches["favor_attention"] == TP_STEPS
+                and launches["image_da.shapenet_3d"] == 2 * TP_STEPS):
+            raise AssertionError(f"phase 27 rank {r}: {res}")
+        out[f"ShapeNet3D ANP TP rank {r} (P27)"] = {
+            "favor_attention": launches["favor_attention"],
+            "image_da": launches["image_da"],
+            "image_da.shapenet_3d": launches["image_da.shapenet_3d"]}
+    if sorted((res["index"], res["model_rank"]) for res in results) != [
+            (0, 0), (0, 1)]:
+        raise AssertionError(f"phase 27: mesh positions {results}")
+    log(f"tp: phase 27 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 @contextlib.contextmanager
 def on_mesh(ctx):
     """Run the block with ``ctx`` as the process's mesh (None: none)."""
@@ -4855,6 +5286,8 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if argv[:1] == ["--tp-worker"]:          # phase 27's ranks
+        return tp_worker(int(argv[1]), argv[2], argv[3])
     from wmfml_tpu_torch.cli.common import set_numerics
     from wmfml_tpu_torch.configs import Config
     from wmfml_tpu_torch.kernels import build
@@ -4878,7 +5311,10 @@ def main(argv):
     log(f"build: {', '.join(build.SOURCES)} in {time.perf_counter() - t0} s")
     log(f"build: dynamic shared memory per block: stem "
         f"{libs['stem'].wmfml_stem_smem_bytes(1, 2)} B (Ci = 1, two "
-        f"warpgroups), features conv "
+        f"warpgroups), stem backward (K1b) "
+        f"{libs['stem_bwd'].wmfml_stem_bwd_smem_bytes(0, 1)} B (route) and "
+        f"{libs['stem_bwd'].wmfml_stem_bwd_smem_bytes(1, 1)} B (input), "
+        f"features conv "
         f"{libs['features'].wmfml_features_smem_bytes(14)} B (W = 14), "
         f"favor {libs['favor'].wmfml_favor_smem_bytes(15, 15, 64, 266)} B used "
         f"of the 231424 B it requests (Nq = Nk = 15, m = 266); favor "
@@ -5155,6 +5591,23 @@ def main(argv):
                       "favor_attention_wide":
                       d1trainer.model.attn.projection_matrix})
     stamp("phase 25, the data axis on one rank")
+    # phase 26: conv_bwd phase, K1b (ROADMAP.md B8a)
+    gen_k1b = torch.Generator(device="cuda").manual_seed(26)
+    k1b_rows = [check_stem_backward(anp, gen_k1b),
+                check_stem_backward(anp, gen_k1b, torch.bfloat16),
+                check_stem_backward(anp, gen_k1b, torch.bfloat16, tasks=40,
+                                    off_path=True)]
+    for r in k1b_rows:
+        r["floor_ms"] = floor
+        if r.get("off_path"):
+            r["off_path"] = ("no shipped configuration runs conv_bwd: phase "
+                             "at T = 40 (P3 T40 runs xla)")
+    rows += k1b_rows
+    p26_launches = phase_bwd_phase(card, trainer)
+    stamp("phase 26, conv_bwd phase (K1b)")
+    # phase 27: the tensor-parallel model axis on two ranks (ROADMAP.md A18c)
+    p27_launches = tp_phase(card)
+    stamp("phase 27, the model axis on two ranks")
     # graph replays against the same steps issued from the host, bit for
     # bit, on fresh trainers (phase 18's M1 and F2 among them), before
     # phase 18 builds its trainers: the process's earlier state is the one
@@ -5399,7 +5852,9 @@ def main(argv):
                 "Plot CNP Distractor": q3_launches,
                 "MMAML": mmaml_launches,
                 "MMAML bf16": mmaml_bf16_launches,
-                **remat_launches}
+                **remat_launches,
+                "ANP phase": p26_launches["f32"],
+                "ANP phase bf16": p26_launches["bf16"]}
     log("launches on the new paths (phases 20, 22, 23): " + json.dumps(
         {k: launches[k] for k in list(launches)[-6:]}))
     # phase 21's paths, each beside the row path whose shapes it runs
@@ -5425,6 +5880,15 @@ def main(argv):
                "ANP one-rank NCCL (P25)": ("ANP", p25_launches)}
     log("launches on phases 24 and 25's paths: " + json.dumps(
         {k: v for k, (_, v) in slice19.items()}))
+    # phases 26 and 27's paths, each beside the row path whose shapes it
+    # runs (phase 27 on each of its ranks)
+    slice20 = {"phase26_launches": {
+        "ANP conv_bwd phase (P26)": ("ANP", p26_launches["f32"]),
+        "ANP conv_bwd phase bf16 (P26)": ("ANP bf16", p26_launches["bf16"])},
+        "phase27_launches": {name: ("ShapeNet3D ANP", got)
+                             for name, got in p27_launches.items()}}
+    log("launches on phases 26 and 27's paths: " + json.dumps(
+        {k: {n: v for n, (_, v) in d.items()} for k, d in slice20.items()}))
     log("launches on phase 21's paths: " + json.dumps(
         {**{k: v for k, (_, v) in phase21.items()},
          **{f"{k} (V2)": v for k, v in v2_launches.items()}}))
@@ -5465,6 +5929,17 @@ def main(argv):
             if min(new.values()) <= 0:
                 raise AssertionError(f"{r['name']}: no {key} launch on "
                                      f"{new}")
+        # phases 26 and 27: conv_bwd phase's K1, K2 and K6, and each TP
+        # rank's K2 wide and K6 program 6
+        for field, paths in slice20.items():
+            new = {name: got.get(key, 0) for name, (path, got)
+                   in paths.items()
+                   if path == r["path"] and got.get(r["kernel"], 0) > 0}
+            if new:
+                r[field] = new
+                if min(new.values()) <= 0:
+                    raise AssertionError(f"{r['name']}: no {key} launch on "
+                                         f"{new}")
     log("time: host seconds in each helper over the run (nested calls "
         "counted in each): " + json.dumps({k: round(v, 1) for k, v in
                                            SPENT.items()}))

@@ -12,7 +12,7 @@ whose masks differ between the ranks (the refinement objective); the eval
 steps of ANP and MAML on a whole batch; the JAX
 package's 8-device step's configuration on its batch and weights; a run
 saved and resumed on 2 ranks against an unbroken one; the shrink warning;
-a ``model`` axis above 1.
+the groups of a ``model`` axis of 2.
 
     python tests/_torch_dp_worker.py <rank> <world> <port> <workdir>
 """
@@ -260,11 +260,11 @@ def main():
     logging.getLogger("wmfml_tpu_torch").addHandler(records)
     shrunk = mesh.MeshContext.create(batch_divisor=3)
     out["shrink"] = (shrunk.n, shrunk.active, records.messages)
-    try:
-        mesh.MeshContext.create({"data": 1, "model": 2})
-        out["model_axis"] = None
-    except NotImplementedError as e:
-        out["model_axis"] = str(e)
+    tp_ctx = mesh.MeshContext.create({"data": 1, "model": 2})
+    out["model_axis"] = (tp_ctx.n, tp_ctx.model, tp_ctx.index,
+                         tp_ctx.model_rank, tp_ctx.active,
+                         dist.get_world_size(tp_ctx.group),
+                         dist.get_world_size(tp_ctx.model_group))
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.barrier()

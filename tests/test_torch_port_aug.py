@@ -41,6 +41,7 @@ from wmfml_tpu_torch.kernels import image_da as kda
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import build_train_step
+from torch_port_common import one_torch_thread  # noqa: F401
 
 PERMS = list(itertools.permutations(range(3)))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -75,6 +75,7 @@ from wmfml_tpu_torch.kernels import stem as kstem
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.maml import build_maml_outer
 from wmfml_tpu_torch.train.steps import build_train_step
+from torch_port_common import one_torch_thread  # noqa: F401
 
 BF16, F32 = jnp.bfloat16, jnp.float32
 

@@ -23,6 +23,7 @@ import torch
 from wmfml_tpu_torch.ckpt.checkpoint import CheckpointManager
 from wmfml_tpu_torch.models.maml import MAMLRegressor
 from wmfml_tpu_torch.models.mmaml_nets import MMAMLBundle
+from torch_port_common import one_torch_thread  # noqa: F401
 
 
 def _bundle(seed):

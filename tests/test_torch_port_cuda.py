@@ -123,6 +123,59 @@ def test_stem_wrapper_counts_launches_and_backpropagates(dev):
         _close(a.grad, b.grad, 1e-4, 1e-4)
 
 
+def _dyadic_stem(dev, b, h, w, seed):
+    """K1b's inputs with every forward sum exact in float32 (images and
+    weights on grids of 1/8, 1/64, 1/4096; ``chip_smoke.py:
+    stem_backward_inputs``): both sides take the same ReLU and pool
+    decisions, ties included."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def grid(lo, hi, shape, step):
+        return torch.randint(lo, hi + 1, shape, generator=g,
+                             device=dev).float() * step
+
+    return (grid(0, 8, (b, h, w, 1), 1 / 8), grid(-2, 2, (32, 1, 3, 3), 1 / 8),
+            grid(-2, 2, (32,), 1 / 64), grid(-4, 4, (48, 32, 3, 3), 1 / 64),
+            grid(-64, 64, (48,), 1 / 4096),
+            torch.randn((b, h // 8, w // 8, 48), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", [(3, 40, 32), (12, 128, 128)])
+def test_stem_backward_kernel_matches_plain(dev, dtype, b, h, w):
+    """K1b (``conv_bwd: phase``) against its twin, partial tiles included
+    (40 x 32: 5 x 4 pooled values): float32 within 1e-4 of each gradient's
+    largest, bfloat16 within 2^-6 of it (each gradient rounds once)."""
+    args = [a.to(dtype) for a in _dyadic_stem(dev, b, h, w, b)]
+    got = stem.stem_backward_launch(*args)
+    want = stem.stem_backward_phase_plain(*args)
+    scale = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, r in zip(got, want):
+        assert a.dtype == r.dtype == dtype and a.shape == r.shape
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= scale * r.float().abs().max().item(), err
+
+
+def test_stem_phase_wrapper_counts_k1b_and_raises_where_not_ported(dev):
+    x, *ws, g = _dyadic_stem(dev, 4, 32, 32, 0)
+    ws = [w.requires_grad_(True) for w in ws]
+    before = (stem.literature_stem.launches,
+              stem.literature_stem_backward.launches)
+    y = stem.literature_stem(x, *ws, conv_bwd="phase")
+    grads = torch.autograd.grad(y, ws, g)
+    assert (stem.literature_stem.launches,
+            stem.literature_stem_backward.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    for a, r in zip(grads, stem.stem_backward_phase_plain(
+            x, *(w.detach() for w in ws), g)):
+        _close(a, r, 1e-4 * r.abs().max().item(), 1e-4)
+    with pytest.raises(NotImplementedError, match="per-task"):
+        stem.literature_stem(x, *(w[None] for w in ws), conv_bwd="phase")
+    y = stem.literature_stem(x, *ws, conv_bwd="phase")
+    with pytest.raises(NotImplementedError, match="create_graph"):
+        torch.autograd.grad(y.sum(), ws, create_graph=True)
+
+
 def _favor_inputs(dev, t, h, nq, nk, d, m, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((t, h, nq, d), generator=g, device=dev)

@@ -51,6 +51,7 @@ from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.steps import build_eval_step
 from wmfml_tpu_torch.train.trainer import episode_to_device
+from torch_port_common import one_torch_thread  # noqa: F401
 
 TASKS = ("shapenet_1d", "pascal_1d", "distractor", "shapenet_3d")
 BASE = dict(checkpoint="", loss_type="mse", tasks_per_batch=2, max_ctx_num=3,

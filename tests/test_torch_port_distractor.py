@@ -66,6 +66,7 @@ from wmfml_tpu_torch.models.neural_process import LargeCNP
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.nn.encoders import ResNetTrunk
 from wmfml_tpu_torch.train.steps import build_train_step
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = os.path.join(REPO, "cfg", "train")

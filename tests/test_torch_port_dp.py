@@ -12,9 +12,9 @@ stabiliser), FCLCNPShapeNet1D (NT-Xent), second-order MAML, a masked loss
 whose masks differ between the ranks, ANP's and MAML's eval steps, the JAX
 8-device step's
 configuration, a run saved and resumed on 2 ranks, the shrink warning and
-a ``model`` axis above 1. Beside the loss and the parameters after the
-step, each path's averaged gradients are held within 1e-5 of the step's
-largest gradient (ANP's parameters after an SGD step: its key-projection
+the groups of a ``model`` axis of 2. Beside the loss and the parameters
+after the step, each path's averaged gradients are held within 1e-5 of the
+step's largest gradient (ANP's parameters after an SGD step: its key-projection
 bias gradients are about 5e-9, where Adam's first step turns float32
 reordering into a tenth of the learning rate; ``_torch_dp_worker.py``).
 """
@@ -207,11 +207,15 @@ def test_shrink_warning_and_idle_ranks(dp_results):
 
 
 def test_model_axis_raises_naming_a18c(dp_results):
+    """(Named when a ``model`` axis above 1 raised, naming ROADMAP.md A18c;
+    A18c is done.) ``{data: 1, model: 2}`` on the 2-rank world builds its
+    groups: one data slice, both ranks active, rank r the r-th of a model
+    group of 2 and alone in its data group; a shape that does not fill
+    the world still raises JAX's error."""
     ranks, _ = dp_results
-    for out in ranks:
-        assert out["model_axis"] and "ROADMAP.md A18c" in out["model_axis"]
-    with pytest.raises(NotImplementedError, match="A18c"):
-        mesh.data_shards(2, {"data": 1, "model": 2})
+    for rank, out in enumerate(ranks):
+        assert out["model_axis"] == (1, 2, 0, rank, True, 1, 2), out
+    assert mesh.data_shards(2, {"data": 1, "model": 2}) == 1
     with pytest.raises(ValueError, match="!= #devices"):
         mesh.data_shards(2, {"data": 4})
 

@@ -37,6 +37,7 @@ from wmfml_tpu_torch.data.synthetic import generate_shapenet1d
 from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.trainer import episode_to_device
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from wmfml_tpu.nn.attention import favor_attention as jax_favor
+from torch_port_common import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-4                # TOL["favor_attention_wide"]
 EPS = 1e-4

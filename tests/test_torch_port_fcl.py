@@ -37,6 +37,7 @@ from wmfml_tpu_torch.losses import losses as plosses
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import build_train_step, contra_term
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T_, S_, Q_ = 2, 3, 2

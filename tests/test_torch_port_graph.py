@@ -39,6 +39,7 @@ from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import (FusedSteps, anp_metrics,
                                          build_device_data_train_step,
                                          build_train_step)
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ANP_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")

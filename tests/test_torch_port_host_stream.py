@@ -39,6 +39,7 @@ from wmfml_tpu_torch.data.factory import build_data
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.steps import HostEpisodes
 from wmfml_tpu_torch.train.trainer import ModelTrainer, Prefetcher
+from torch_port_common import one_torch_thread  # noqa: F401
 
 BASE = dict(method="CNPShapeNet1D", task="shapenet_1d", agg_mode="max",
             checkpoint="", loss_type="mse", tasks_per_batch=2, max_ctx_num=3,

@@ -33,6 +33,7 @@ from wmfml_tpu_torch.kernels import features as kfeatures
 from wmfml_tpu_torch.kernels import stem as kstem
 from wmfml_tpu_torch.nn.attention import MultiheadFavorCrossAttention
 from wmfml_tpu_torch.nn.encoders import LiteratureEncoder
+from torch_port_common import one_torch_thread  # noqa: F401
 
 
 # -- K1: stem ----------------------------------------------------------------

@@ -78,6 +78,7 @@ from wmfml_tpu_torch.ops.cast import set_compute_dtype
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import (build_device_data_train_step,
                                          build_eval_step, build_train_step)
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16, F32 = jnp.bfloat16, jnp.float32

@@ -36,6 +36,7 @@ from wmfml_tpu_torch.kernels import features as kfeatures
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.nn.encoders import PerTaskLiteratureEncoder
 from wmfml_tpu_torch.train.maml import build_maml_outer
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T_, S_, Q_, HW = 2, 3, 2, 32

@@ -44,6 +44,7 @@ from wmfml_tpu_torch.train.mmaml import (OUTER_GRAD_NORM_CLIP,
                                          build_mmaml_eval_step,
                                          build_mmaml_optimizer,
                                          build_mmaml_outer, clip_groups_)
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(REPO, "cfg", "train", "MMAML_ShapeNet1D_DA+TA.yaml")

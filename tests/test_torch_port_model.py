@@ -17,6 +17,7 @@ from wmfml_tpu.ckpt.torch_import import (import_torch_checkpoint,
                                          state_dict_to_numpy)
 from wmfml_tpu.losses.losses import azimuth_loss as jax_azimuth_loss
 from wmfml_tpu_torch.losses.losses import azimuth_loss
+from torch_port_common import one_torch_thread  # noqa: F401
 
 AGG_MODES = ["mean", "max", "baco", "attention"]
 

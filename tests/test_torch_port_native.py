@@ -25,6 +25,7 @@ from wmfml_tpu.data.shapenet_distractor import ShapeNetDistractor as JaxDistract
 from wmfml_tpu_torch.data import episode_core as core
 from wmfml_tpu_torch.data import shapenet_3d, shapenet_distractor, synthetic
 from wmfml_tpu_torch.data.episode import make_episode
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW = 16

@@ -53,6 +53,7 @@ from wmfml_tpu_torch.eval.evaluator import ModelEvaluator
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import build_train_step
+from torch_port_common import one_torch_thread  # noqa: F401
 
 MAX_CTX = 3
 FILE_TOL = 1e-4

@@ -23,6 +23,7 @@ from wmfml_tpu_torch.configs import Config, resolve_device
 from wmfml_tpu_torch.data.factory import build_data
 from wmfml_tpu_torch.models.registry import build_model
 from wmfml_tpu_torch.train.steps import build_train_step, init_model
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "wmfml_tpu_torch")

@@ -77,6 +77,7 @@ from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import (build_device_data_train_step,
                                          build_train_step)
 from wmfml_tpu_torch.utils import quaternion as pq
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = os.path.join(REPO, "cfg", "train")

@@ -44,6 +44,7 @@ from wmfml_tpu_torch.models.single_task import SingleTaskLarge, SingleTaskSmall
 from wmfml_tpu_torch.ops.cast import set_compute_dtype
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import build_train_step
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T_, S_, Q_ = 2, 3, 2

@@ -14,6 +14,7 @@ import torch
 from wmfml_tpu_torch.kernels import features as kfeatures
 from wmfml_tpu_torch.kernels import stem as kstem
 from wmfml_tpu_torch.kernels.tf32 import gmma_b_layout, tf32_round, tf32_split
+from torch_port_common import one_torch_thread  # noqa: F401
 
 
 def _values(seed=0, n=20000):

@@ -41,6 +41,7 @@ from wmfml_tpu_torch.ops import setops as psetops
 from wmfml_tpu_torch.train.state import build_optimizer
 from wmfml_tpu_torch.train.steps import build_eval_step, build_train_step
 from wmfml_tpu_torch.train.trainer import episode_to_device
+from torch_port_common import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAIN_YAML = os.path.join(REPO, "cfg", "train", "ANP_DA+TA_ShapeNet1D.yaml")

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from wmfml_tpu.models.neural_process import SmallCNP as JaxSmallCNP
@@ -26,6 +27,20 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 # small widths: T tasks, S context rows (padded), Q queries, HW x HW images
 T, S, Q, HW = 2, 4, 3, 32
 WIDTHS = dict(dim_w=16, n_hidden_units_r=(10, 10), dim_r=12, dim_z=8)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for each test of a module that imports this
+    fixture: under ``pytest -n 6`` the workers' threads share the host's
+    cores, and at these sizes torch's threads only add synchronisation (a
+    ShapeNet3D fused-call test takes 16.7 s alone on one thread and 17.7 s
+    on eight, 142 s under six workers of eight threads each); the previous
+    count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_numpy(tree):

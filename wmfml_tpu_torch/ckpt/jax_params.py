@@ -60,6 +60,10 @@ rules:
     ``Bottleneck``'s ``conv{1,2,3}``, ``bn{i}_{scale,bias}`` and
     ``downsample`` -> ``conv{1,2,3}``, ``bn{i}.{weight,bias}``,
     ``downsample.0`` (``bottleneck_state_dict``).
+
+A model placed over the tensor-parallel "model" axis loads each shard's
+rows (``load_jax_variables``) and exports its whole ``state_dict`` by
+gathering over the model group (``full_state_dict``).
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ from wmfml_tpu_torch.models.mmaml_nets import MMAMLBundle
 from wmfml_tpu_torch.models.neural_process import LargeCNP
 from wmfml_tpu_torch.models.single_task import SingleTaskLarge
 from wmfml_tpu_torch.nn.encoders import Bottleneck, trunk_chw
+from wmfml_tpu_torch.parallel import tp
 
 
 def _t(a) -> torch.Tensor:
@@ -395,7 +400,28 @@ def bottleneck_state_dict(params) -> Dict[str, torch.Tensor]:
 
 
 def load_jax_variables(model, variables):
-    """Fill ``model`` (any device) with the JAX ``variables``; strict."""
+    """Fill ``model`` (any device) with the JAX ``variables``; strict. A
+    model placed over the "model" axis (``parallel/mesh.py:shard_state``)
+    takes each shard's rows of the whole weight."""
     sd = jax_to_state_dict(model, variables)
+    for name, p in model.named_parameters():
+        shard = tp.shard_of(p)
+        if shard is not None:
+            ctx, dim, _ = shard
+            rows = sd[name].shape[dim] // ctx.model
+            sd[name] = sd[name].narrow(dim, ctx.model_rank * rows, rows)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+@torch.no_grad()
+def full_state_dict(model) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` with every model shard gathered whole over its
+    model group (``parallel/tp.py``): what ``import_torch_checkpoint`` and
+    the checkpoint forms read, on every rank of the group."""
+    sd = model.state_dict()
+    for name, p in model.named_parameters():
+        shard = tp.shard_of(p)
+        if shard is not None:
+            sd[name] = tp.gather(p.detach(), shard[0], shard[1])
+    return sd

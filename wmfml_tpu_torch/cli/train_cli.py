@@ -22,7 +22,9 @@ On n cards, data parallel over the task axis (``parallel/mesh.py``)::
 
 Each rank runs on ``cuda:LOCAL_RANK``; rank 0 writes the run directory.
 Ranks left over where ``tasks_per_batch`` does not divide the world sit
-out (a warning says so).
+out (a warning says so). ``mesh_shape='{data: 2, model: 2}'`` runs as the
+JAX trainer runs a model axis: the state whole on every rank, the task
+axis over the data groups, the model ranks of a data group alike.
 """
 
 from __future__ import annotations

@@ -27,6 +27,17 @@ Port-specific rules:
   * ``aug_random_order`` (default true, imgaug's per-batch random op order);
     ``false`` selects the JAX package's fused fixed-order pipeline
     (``FUSED_PIPELINES``), ported for every task with a loader.
+  * ``conv_bwd`` (default ``xla``): ``phase`` takes the literature
+    stem's backward through K1b (``kernels/stem.py``, conv1's input
+    gradient by the JAX package's phase form, ``conv3x3_s2_phase``), any
+    other value the stock backward, as in the JAX package
+    (``wmfml_tpu/nn/encoders.py:461``). The four methods that the JAX
+    package's ``_small`` builds read it (CNPShapeNet1D, ANPShapeNet1D,
+    CNPVanillaPascal1D, ANPVanillaPascal1D; not MR, FCL or MAML). The
+    JAX package applies it only with ``stem_impl: conv``, its other stems
+    having their own backward; the port's stem is K1 whatever
+    ``stem_impl`` says, so ``phase`` selects K1b whatever ``stem_impl``
+    says. The gradients agree up to rounding either way.
   * ``trunk_stem`` (the ResNet trunk's stem lowering, default ``conv``):
     ``s2d`` computes conv1 and layer1 in phase layout
     (``nn/encoders.py:s2d_trunk_stem``), any other value the stock
@@ -48,8 +59,12 @@ Port-specific rules:
     n ranks started by ``torchrun``, one card each (``parallel/mesh.py``;
     the CLIs start the process group when it is set or ``WORLD_SIZE`` is
     above 1); without it, a process group's whole world is the data axis,
-    shrunk to a divisor of ``tasks_per_batch``. A ``model`` axis above 1
-    raises (ROADMAP.md A18c).
+    shrunk to a divisor of ``tasks_per_batch``. ``{data: d, model: m}``
+    (d x m = the world, ranks in the key order, as the JAX package places
+    devices): the trainer keeps the state whole on every rank and the m
+    ranks of a data index compute the same slice, as the JAX trainer does;
+    ``parallel/mesh.py:shard_state`` and ``train/steps.py:
+    build_train_step(state_sharding=...)`` take the tensor-parallel step.
   * ``prng_impl`` is read and kept, but the port's random stream is
     PyTorch's Philox whatever it says: the JAX package's ``threefry`` and
     ``rbg`` differ in their bits only, and so does Philox, so no
@@ -202,6 +217,7 @@ class Config:
         self.gen_bg = get("gen_bg", True)
         self.bg_gen_freq = get("bg_gen_freq", 1000)
         self.trunk_stem = get("trunk_stem", "conv")
+        self.conv_bwd = get("conv_bwd", "xla")
         self.mesh_shape = get("mesh_shape", None)
         self.prng_impl = get("prng_impl", "threefry")
         self.data_path = get("data_path", None)

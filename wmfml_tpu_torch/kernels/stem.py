@@ -32,6 +32,20 @@ gradient is differentiable again, as second-order MAML needs.
 ``F.max_pool2d`` routes a pool gradient to the first maximum in raster
 order; JAX's ``slice`` pool routes ties elsewhere, but ties sit at ReLU
 zeros, where the gradient is 0 either way.
+
+``conv_bwd: phase`` (the JAX package's ``conv3x3_s2_phase``,
+``wmfml_tpu/nn/encoders.py:117``): the backward is K1b
+(``csrc/stem_bwd.cu``), a kernel of its own that returns the four weight
+and bias gradients for the pooled map's gradient, conv1's input gradient
+taken by the phase form. Its plain twin, ``stem_backward_phase_plain``,
+recomputes the forward, routes the pool's gradient to the first maximum in
+raster order, applies the ReLU masks and takes conv1's input gradient by
+the same form (``conv3x3_s2_phase_input_grad``); the CPU runs it. K1b
+covers what the four small CNP/ANP methods that read the option run:
+weights shared by the batch, images without a gradient, a first-order
+backward. Per-task weights, an image gradient and a backward under
+``create_graph`` raise, naming the case. ``literature_stem_backward``
+counts K1b's launches as ``literature_stem`` counts K1's.
 """
 
 from __future__ import annotations
@@ -145,6 +159,183 @@ def stem_launch(x, w0, b0, w1, b1):
     return out
 
 
+def conv3x3_s2_phase_input_grad(g, w, size=None):
+    """The input gradient of a 3x3, stride-2, pad-1 convolution by the
+    phase form (``wmfml_tpu/nn/encoders.py:140-174``): g [B, Co, Ho, Wo]
+    (NCHW), w [Co, Ci, 3, 3] (OIHW) -> [B, Ci, 2 Ho, 2 Wo], in g's dtype.
+    One stride-1 2x2 convolution over g padded by one at the bottom and
+    the right, with a [4 Ci, Co, 2, 2] kernel whose output channel block p
+    = 2a + b is the input parity (a, b) and whose entries each take one
+    tap of w or zero (even parity: tap 1 at offset 0; odd: tap 2 at offset
+    0 and tap 0 at offset 1), then depth-to-space in that order. ``size``,
+    the input's (H, W), where it is not (2 Ho, 2 Wo) (an odd size): there,
+    as in JAX, the dilated form."""
+    co, ci = w.shape[:2]
+    b, _, ho, wo = g.shape
+    if size is not None and tuple(size) != (2 * ho, 2 * wo):
+        return torch.nn.grad.conv2d_input((b, ci, *size), w.to(g.dtype), g,
+                                          stride=2, padding=1)
+    w = w.to(g.dtype)
+    zero = torch.zeros_like(w[:, :, 0, 0])
+    taps = {(0, 0): 1, (1, 0): 2, (1, 1): 0}      # (parity, offset) -> tap
+    blocks = []
+    for a in (0, 1):
+        for b_ in (0, 1):
+            rows = [[w[:, :, taps[(a, di)], taps[(b_, dj)]]
+                     if (a, di) in taps and (b_, dj) in taps else zero
+                     for dj in (0, 1)] for di in (0, 1)]
+            blocks.append(torch.stack([torch.stack(r, -1) for r in rows],
+                                      -2))                # [Co, Ci, 2, 2]
+    kern = torch.stack(blocks, 0).permute(0, 2, 1, 3, 4).reshape(
+        4 * ci, co, 2, 2)
+    ph = conv2d(F.pad(g, (0, 1, 0, 1)), kern, None)       # [B, 4 Ci, Ho, Wo]
+    return ph.reshape(b, 2, 2, ci, ho, wo).permute(0, 3, 4, 1, 5, 2).reshape(
+        b, ci, 2 * ho, 2 * wo)
+
+
+def _first_max_routes(a1, g):
+    """The pool's gradient at conv1's outputs a1 [B, C, h, w] (post-ReLU):
+    each window's ``g`` [B, C, h/2, w/2] at its first maximum in raster
+    order, where that maximum is positive (the ReLU's mask), else 0."""
+    b, c, h, w = a1.shape
+    win = a1.reshape(b, c, h // 2, 2, w // 2, 2).permute(
+        0, 1, 2, 4, 3, 5).reshape(b, c, h // 2, w // 2, 4)
+    top = win.amax(-1, keepdim=True)
+    hit = win == top
+    first = hit & (hit.cumsum(-1) == 1) & (top > 0)
+    out = torch.where(first, g[..., None], torch.zeros((), dtype=g.dtype))
+    return out.reshape(b, c, h // 2, w // 2, 2, 2).permute(
+        0, 1, 2, 4, 3, 5).reshape(b, c, h, w)
+
+
+def _weight_grad(x, shape, gy):
+    """A 3x3, stride-2, pad-1 convolution's weight gradient, in x's dtype."""
+    return torch.nn.grad.conv2d_weight(x, shape, gy, stride=2, padding=1)
+
+
+@torch.no_grad()
+def stem_backward_phase_plain(x, w0, b0, w1, b1, g):
+    """K1b's plain twin: (dW0, db0, dW1, db1) of the stem (weights shared
+    by the batch, as ``stem_plain`` takes them) for the pooled map's
+    gradient g [B, H/8, W/8, 48], in x's dtype. It recomputes the forward
+    (each convolution rounded as ``ops/cast.py:conv2d`` rounds it), routes
+    g to each window's first maximum in raster order (``F.max_pool2d``'s
+    rule, over the rounded values in bfloat16), applies conv1's and conv0's
+    ReLU masks and takes conv1's input gradient by the phase form
+    (``conv3x3_s2_phase_input_grad``)."""
+    xn = x.permute(0, 3, 1, 2)
+    a0 = F.relu(conv2d(xn, w0, b0, stride=2, padding=1))
+    a1 = F.relu(conv2d(a0, w1.to(x.dtype), b1, stride=2, padding=1))
+    gy1 = _first_max_routes(a1, g.to(x.dtype).permute(0, 3, 1, 2))
+    dx1 = conv3x3_s2_phase_input_grad(gy1, w1)
+    gy0 = torch.where(a0 > 0, dx1, torch.zeros((), dtype=dx1.dtype))
+    return (_weight_grad(xn, w0.shape, gy0), gy0.sum((0, 2, 3)),
+            _weight_grad(a0, w1.shape, gy1), gy1.sum((0, 2, 3)))
+
+
+def _check_phase(x, w0):
+    if w0.dim() == 5:
+        raise NotImplementedError(
+            "conv_bwd: phase (K1b) takes weights shared by the batch; "
+            "per-task weights (MAML, which does not read conv_bwd) are not "
+            "ported to it")
+
+
+_GRID = {}
+
+
+def _grid(lib, which, ci, bf16):
+    key = (torch.cuda.current_device(), which, ci, bf16)
+    if key not in _GRID:
+        out = ctypes.c_int(0)
+        fn = lib.wmfml_stem_bwd_grid
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(which, ci, bf16, ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"stem backward grid: cudaError {err}")
+        _GRID[key] = out.value
+    return _GRID[key]
+
+
+def stem_backward_launch(x, w0, b0, w1, b1, g):
+    """Run K1b once (no launch count): (dW0, db0, dW1, db1) in x's dtype."""
+    _check(x, w0, b0, w1, b1)
+    _check_phase(x, w0)
+    lib = build.load("stem_bwd")
+    b, h, w, ci = x.shape
+    if not 1 <= ci <= lib.wmfml_stem_bwd_max_ci():
+        raise ValueError(f"stem backward kernel takes 1 to "
+                         f"{lib.wmfml_stem_bwd_max_ci()} input channels, "
+                         f"got {ci}")
+    if tuple(g.shape) != (b, h // 8, w // 8, C1):
+        raise ValueError(f"stem backward: g {tuple(g.shape)} for images "
+                         f"{tuple(x.shape)}")
+    bf16 = int(x.dtype == torch.bfloat16)
+    x, w0, b0, w1, b1 = (a.contiguous() for a in (x, w0, b0, w1, b1))
+    g = g.to(x.dtype).contiguous()
+    na, nb = _grid(lib, 0, ci, bf16), _grid(lib, 1, ci, bf16)
+    dev = x.device
+    route = torch.empty(g.shape, device=dev, dtype=torch.uint8)
+    pa = torch.empty((na, lib.wmfml_stem_bwd_partials(0, ci)), device=dev)
+    pb = torch.empty((nb, lib.wmfml_stem_bwd_partials(1, ci)), device=dev)
+    outs = [torch.empty_like(a) for a in (w0, b0, w1, b1)]
+    fn = lib.wmfml_stem_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(a.data_ptr() for a in (x, w0, b0, w1, b1, g, route, pa, pb,
+                                       *outs)),
+             b, h, w, ci, na, nb, bf16,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stem backward launch failed: cudaError {err}")
+    return tuple(outs)
+
+
+def literature_stem_backward(x, w0, b0, w1, b1, g):
+    """(dW0, db0, dW1, db1) for the pooled map's gradient g: on a CPU
+    tensor the twin ``stem_backward_phase_plain``, on a CUDA tensor K1b,
+    which it counts."""
+    if x.device.type == "cpu":
+        _check_phase(x, w0)
+        return stem_backward_phase_plain(x, w0, b0, w1, b1, g)
+    out = stem_backward_launch(x, w0, b0, w1, b1, g)
+    literature_stem_backward.launches += 1
+    literature_stem_backward.bf16_launches += x.dtype == torch.bfloat16
+    return out
+
+
+literature_stem_backward.launches = 0        # every K1b launch on the path
+literature_stem_backward.bf16_launches = 0   # those in bfloat16
+
+
+class _PhaseStem(torch.autograd.Function):
+    """The stem with ``conv_bwd: phase``: K1 (or, on the CPU, its twin)
+    forward, K1b (or its twin) backward."""
+
+    @staticmethod
+    def forward(ctx, x, w0, b0, w1, b1):
+        ctx.save_for_backward(x, w0, b0, w1, b1)
+        if x.device.type == "cpu":
+            return stem_plain(x, w0, b0, w1, b1)
+        out = stem_launch(x, w0, b0, w1, b1)
+        literature_stem.launches += 1
+        literature_stem.bf16_launches += x.dtype == torch.bfloat16
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "conv_bwd: phase (K1b) has no backward under create_graph: "
+                "a second-order gradient through the stem is not ported to "
+                "it")
+        # no image gradient: ``literature_stem`` refuses images that want one
+        return (None, *literature_stem_backward(*ctx.saved_tensors, g))
+
+
 class _FusedStem(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w0, b0, w1, b1):
@@ -166,9 +357,18 @@ class _FusedStem(torch.autograd.Function):
         return tuple(next(grads) if n else None for n in need)
 
 
-def literature_stem(x, w0, b0, w1, b1):
+def literature_stem(x, w0, b0, w1, b1, conv_bwd="xla"):
     """conv0 (s2) + ReLU + conv1 (s2) + ReLU + 2x2 max pool, NHWC in/out;
-    weights shared or per task, as in ``stem_plain``."""
+    weights shared or per task, as in ``stem_plain``. ``conv_bwd``
+    ``phase``: the backward through K1b (on the CPU its twin); any other
+    value: autodiff of the plain twin (on the card after K1's forward)."""
+    if conv_bwd == "phase":
+        _check_phase(x, w0)
+        if x.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "conv_bwd: phase (K1b) returns no image gradient: the "
+                "images it is ported for are leaves (after image DA)")
+        return _PhaseStem.apply(x, w0, b0, w1, b1)
     if x.device.type == "cpu":
         return stem_plain(x, w0, b0, w1, b1)
     return _FusedStem.apply(x, w0, b0, w1, b1)

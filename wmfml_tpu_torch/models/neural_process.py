@@ -105,14 +105,15 @@ class SmallCNP(nn.Module):
                  label_dim: int = 3, agg_mode: str = "max",
                  tanh_out: bool = True, img_size: Sequence[int] = (128, 128, 1),
                  bbb_encoder: bool = False, fcl: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 conv_bwd: str = "xla"):
         super().__init__()
         if agg_mode not in AGG_MODES:
             raise TypeError(f"agg_mode is not applicable, choose from {list(AGG_MODES)}")
         self.agg_mode = agg_mode
         self.bbb, self.fcl = bbb_encoder, fcl
-        self.encoder_w0 = (BBBLiteratureEncoder if bbb_encoder
-                           else LiteratureEncoder)(dim_w, img_size)
+        self.encoder_w0 = (BBBLiteratureEncoder(dim_w, img_size) if bbb_encoder
+                           else LiteratureEncoder(dim_w, img_size, conv_bwd))
         self.transform_y = Linear(label_dim, dim_w // 4)
         self.encoder_r = EncoderFC(dim_w + dim_w // 4, n_hidden_units_r, dim_r)
         if agg_mode == "baco":

@@ -68,7 +68,9 @@ def build_model(config, generator: Optional[torch.Generator] = None):
 
 
 def _small(config, agg_mode, tanh_out, generator, **options):
-    """SmallCNP; ``options``: ``bbb_encoder`` (MR), ``fcl``."""
+    """SmallCNP; ``options``: ``bbb_encoder`` (MR), ``fcl``, ``conv_bwd``
+    (the four methods the JAX package's ``_small`` builds pass it, as
+    there: ``wmfml_tpu/models/registry.py:49-57``)."""
     return SmallCNP(
         dim_w=config.dim_w, n_hidden_units_r=tuple(config.n_hidden_units_r),
         dim_r=config.dim_r, dim_z=config.dim_z, y_dim=config.output_dim,
@@ -83,24 +85,28 @@ def _attention_only(config):
 
 @register("CNPShapeNet1D")
 def _(config, generator):
-    return _small(config, config.agg_mode, True, generator)
+    return _small(config, config.agg_mode, True, generator,
+                  conv_bwd=config.conv_bwd)
 
 
 @register("ANPShapeNet1D")
 def _(config, generator):
     _attention_only(config)
-    return _small(config, "attention", True, generator)
+    return _small(config, "attention", True, generator,
+                  conv_bwd=config.conv_bwd)
 
 
 @register("CNPVanillaPascal1D")
 def _(config, generator):
-    return _small(config, config.agg_mode, False, generator)
+    return _small(config, config.agg_mode, False, generator,
+                  conv_bwd=config.conv_bwd)
 
 
 @register("ANPVanillaPascal1D")
 def _(config, generator):
     _attention_only(config)
-    return _small(config, "attention", False, generator)
+    return _small(config, "attention", False, generator,
+                  conv_bwd=config.conv_bwd)
 
 
 def _trunk_input(config):

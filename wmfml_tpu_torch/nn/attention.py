@@ -28,6 +28,7 @@ from torch import nn
 
 from wmfml_tpu_torch.kernels.favor import favor_attention
 from wmfml_tpu_torch.nn.init import AttnLinear
+from wmfml_tpu_torch.parallel import tp
 
 
 def gaussian_orthogonal_random_matrix(nb_rows: int, nb_columns: int,
@@ -71,11 +72,20 @@ class FastAttention(nn.Module):
 
 def _stacked(heads: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
     """All heads' projections in one matmul, in the heads' compute dtype:
-    [T, N, in] -> [T, H, N, d]."""
+    [T, N, in] -> [T, H, N, d]. Heads split over the model axis
+    (``parallel/tp.py``) compute d / model features of every head, gathered
+    per head in rank order."""
     dtype = heads[0].linear.compute_dtype
     w = torch.cat([m.linear.weight for m in heads], 0).to(dtype)  # [H*d, in]
     b = torch.cat([m.linear.bias for m in heads], 0).to(dtype)
-    y = torch.matmul(x.to(dtype), w.t()) + b
+    shard = tp.shard_of(heads[0].linear.weight)
+    if shard is None:
+        y = torch.matmul(x.to(dtype), w.t()) + b
+    else:
+        y = torch.matmul(tp.to_model(x, shard[0]).to(dtype), w.t())
+        t, n = y.shape[:2]
+        y = tp.gather(y.reshape(t, n, len(heads), -1), shard[0], -1)
+        y = y.reshape(t, n, -1) + b
     t, n = y.shape[:2]
     return y.reshape(t, n, len(heads), -1).transpose(1, 2)
 

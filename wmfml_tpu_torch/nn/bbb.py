@@ -50,7 +50,7 @@ from wmfml_tpu_torch.kernels.stem import literature_stem
 from wmfml_tpu_torch.nn.encoders import (IMG_AGGS, adaptive_max_pool,
                                          per_task_literature)
 from wmfml_tpu_torch.ops.cast import conv2d, linear
-from wmfml_tpu_torch.parallel import mesh
+from wmfml_tpu_torch.parallel import mesh, tp
 
 PRIOR_MU = 0.0
 PRIOR_SIGMA = 0.1
@@ -120,12 +120,19 @@ class BBBLayer(nn.Module):
         posterior (the same for every sample)."""
         w_sig, b_sig = F.softplus(self.W_rho), F.softplus(self.bias_rho)
         lead = tuple(lead)
-        w = self.W_mu + draw_normal(noise, lead + tuple(self.W_mu.shape),
-                                    self.W_mu.device) * w_sig
+        # a model shard (parallel/tp.py) draws for the whole weight and
+        # keeps its rows; its KL sums over the model group
+        shard = tp.shard_of(self.W_mu)
+        whole = tuple(self.W_mu.shape) if shard is None else shard[2]
+        eps = tp.sample_rows(draw_normal(noise, lead + whole,
+                                         self.W_mu.device), self.W_mu)
+        w = tp.mark(self.W_mu + eps * w_sig, self.W_mu)
         b = self.bias_mu + draw_normal(noise, lead + tuple(self.bias_mu.shape),
                                        self.bias_mu.device) * b_sig
-        return w, b, gaussian_kl(self.W_mu, w_sig) + gaussian_kl(
-            self.bias_mu, b_sig)
+        kl_w = gaussian_kl(self.W_mu, w_sig)
+        if shard is not None:
+            kl_w = tp.model_sum(kl_w, shard[0])
+        return w, b, kl_w + gaussian_kl(self.bias_mu, b_sig)
 
 
 class BBBLinear(BBBLayer):
@@ -201,7 +208,8 @@ class BBBLiteratureEncoder(nn.Module):
         """x [B, H, W, C] -> ([B, dim_w], kl), one sample for the batch."""
         (w0, b0, w1, b1, w2, b2, wf, bf), kl = self._samples(noise)
         d = self.compute_dtype
-        h = literature_stem(*(a.to(d) for a in (x, w0, b0, w1, b1)))
+        h = literature_stem(*(a.to(d) for a in (x, tp.full(w0), b0,
+                                                tp.full(w1), b1)))
         h = F.relu(conv2d(h.permute(0, 3, 1, 2), w2, b2, stride=2,
                           padding=1))                         # [B, 64, H/16, W/16]
         return linear(h.flatten(1), wf, bf, d), kl

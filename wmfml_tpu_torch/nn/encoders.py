@@ -68,14 +68,21 @@ from torch import nn
 from wmfml_tpu_torch.kernels.stem import literature_stem
 from wmfml_tpu_torch.nn.mlp import Linear
 from wmfml_tpu_torch.ops.cast import bmm_bias, conv2d
+from wmfml_tpu_torch.parallel import tp
 
 IMG_AGGS = ("mean", "max", "baco", "reshape")
 
 
 class LiteratureEncoder(nn.Sequential):
+    """``conv_bwd``: ``phase`` takes the stem's backward through K1b
+    (``kernels/stem.py``: conv1's input gradient by the phase form, the JAX
+    package's ``conv3x3_s2_phase``); any other value autodiff of K1's plain
+    twin, as the JAX package reads it (``encoders.py:461``)."""
+
     compute_dtype = torch.float32
 
-    def __init__(self, dim_w: int, img_size: Sequence[int]):
+    def __init__(self, dim_w: int, img_size: Sequence[int],
+                 conv_bwd: str = "xla"):
         h, w, c = img_size
         if h % 16 or w % 16:
             raise ValueError(f"literature encoder needs H, W % 16 == 0; "
@@ -86,13 +93,14 @@ class LiteratureEncoder(nn.Sequential):
             nn.Conv2d(48, 64, 3, 2, 1), nn.ReLU(), nn.Flatten(),
             Linear(64 * (h // 16) * (w // 16), dim_w))
         self.flatten_chw = (64, h // 16, w // 16)   # what the fc consumes
+        self.conv_bwd = conv_bwd
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # [B, H, W, C]
         conv0, conv1, conv2, fc = self[0], self[2], self[5], self[8]
         d = self.compute_dtype
         h = literature_stem(*(a.to(d) for a in (
-            x, conv0.weight, conv0.bias, conv1.weight,
-            conv1.bias)))                                     # [B, H/8, W/8, 48]
+            x, tp.full(conv0.weight), conv0.bias, tp.full(conv1.weight),
+            conv1.bias)), conv_bwd=self.conv_bwd)             # [B, H/8, W/8, 48]
         h = F.relu(conv2d(h.permute(0, 3, 1, 2), conv2.weight, conv2.bias,
                           stride=2, padding=1))               # [B, 64, H/16, W/16]
         return fc(h.flatten(1))
@@ -350,9 +358,10 @@ class ResNetTrunk(nn.Module):
         if (self.trunk_stem == "s2d" and x.shape[1] % 4 == 0
                 and x.shape[2] % 4 == 0):
             block = self.resnet.layer1[0]
-            x = s2d_trunk_stem(x, self.conv1.weight, self.conv1.bias,
-                               block.conv1.weight, block.conv2.weight,
-                               block.downsample[0].weight)
+            x = s2d_trunk_stem(x, tp.full(self.conv1.weight),
+                               self.conv1.bias, tp.full(block.conv1.weight),
+                               tp.full(block.conv2.weight),
+                               tp.full(block.downsample[0].weight))
             start = 2
         else:
             x = F.relu(_conv(self.conv1, x.permute(0, 3, 1, 2)))

@@ -16,12 +16,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from wmfml_tpu_torch.parallel import tp
+
 F32 = torch.float32
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            dtype: torch.dtype = F32) -> torch.Tensor:
-    """``x @ w.T + b`` in ``dtype`` (``nn.Dense``); w [out, in]."""
+    """``x @ w.T + b`` in ``dtype`` (``nn.Dense``); w [out, in]. On a
+    model shard ``w`` (``parallel/tp.py``) column-parallel: this rank's
+    output features, gathered, then the bias."""
+    if tp.shard_of(w) is not None:
+        if dtype == F32 and x.dtype == F32:
+            return tp.column(F.linear, x, w, b, -1)
+        return tp.column(lambda x_, w_: torch.matmul(
+            x_.to(dtype), w_.to(dtype).t()), x, w, b.to(dtype), -1)
     if dtype == F32 and x.dtype == F32:
         return F.linear(x, w, b)
     return torch.matmul(x.to(dtype), w.to(dtype).t()) + b.to(dtype)
@@ -39,7 +48,13 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
            **kw):
     """``F.conv2d`` (NCHW) in x's dtype (``nn.Conv``): the product rounded
     to it, then the bias added where there is one (``b`` None:
-    ``use_bias=False``)."""
+    ``use_bias=False``). On a model shard ``w`` column-parallel: this
+    rank's output channels, gathered, then the bias."""
+    if tp.shard_of(w) is not None:
+        return tp.column(lambda x_, w_: F.conv2d(x_, w_.to(x.dtype), None,
+                                                 **kw), x, w,
+                         None if b is None else b.to(x.dtype)[:, None, None],
+                         1)
     if x.dtype == F32:
         return F.conv2d(x, w, b, **kw)
     y = F.conv2d(x, w.to(x.dtype), None, **kw)

@@ -8,6 +8,11 @@ On CUDA parameters Adam and AdamW are ``capturable``: their step count
 lives on the card and the bias corrections are computed there in float32,
 as optax computes them, so that a CUDA graph can hold the update
 (``train/steps.py:FusedSteps``). On the CPU they keep PyTorch's default.
+
+On a model placed over the "model" axis (``parallel/mesh.py:shard_state``)
+the optimizer holds the local shards: its moments are created on them (or
+cut to them by ``shard_state``), so they are the shards of the whole
+moments, as JAX's Adam state follows its kernels' placement.
 """
 
 from __future__ import annotations

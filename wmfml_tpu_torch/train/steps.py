@@ -30,7 +30,11 @@ hands it over), averages the gradients over the ranks before the optimizer
 (``reduce_grads``, inside the captured graph) and reports the loss
 averaged over them (``shard_mean``); FCL's views are gathered from every
 rank; an eval step takes the whole batch, scores its own slice and returns
-the average.
+the average. With a "model" axis the state stays whole on every rank and
+the model ranks of a data group run the same slice, as the JAX trainer
+does; ``build_train_step(state_sharding=...)`` instead takes one eager step
+on a model placed over it (``parallel/mesh.py:shard_state``), the JAX
+package's tensor-parallel step.
 """
 
 from __future__ import annotations
@@ -45,11 +49,12 @@ from wmfml_tpu_torch.configs.config import torch_dtype
 from wmfml_tpu_torch.kernels.favor import favor_attention
 from wmfml_tpu_torch.kernels.features import maml_features
 from wmfml_tpu_torch.kernels.image_da import image_da
-from wmfml_tpu_torch.kernels.stem import literature_stem
+from wmfml_tpu_torch.kernels.stem import (literature_stem,
+                                          literature_stem_backward)
 from wmfml_tpu_torch.losses.losses import (LossFunc, contrastive_loss,
                                            contrastive_loss_anp)
 from wmfml_tpu_torch.models.registry import build_model
-from wmfml_tpu_torch.parallel import mesh
+from wmfml_tpu_torch.parallel import mesh, tp
 
 
 def require_device(name) -> torch.device:
@@ -138,7 +143,21 @@ def _build_update(model, optimizer, config, objective) -> Callable:
     return step
 
 
-def build_train_step(model, optimizer, config) -> Callable:
+def build_train_step(model, optimizer, config,
+                     state_sharding: Optional[Dict[str, Optional[int]]] = None
+                     ) -> Callable:
+    """One eager train step (``wmfml_tpu/train/steps.py:68-110``).
+    ``state_sharding``: the placement ``parallel/mesh.py:shard_state``
+    gave ``model`` (the JAX package's ``state_sharding=``); the step then
+    runs on those shards through the column-parallel layers
+    (``parallel/tp.py``), its gradients averaged over the data group.
+    Captured steps (``FusedSteps``) take no placement."""
+    if state_sharding is not None:
+        placed = {name: tp.shard_of(p)[1] if tp.shard_of(p) else None
+                  for name, p in model.named_parameters()}
+        if placed != dict(state_sharding):
+            raise ValueError("state_sharding is not the model's placement: "
+                             "place it with parallel/mesh.py:shard_state")
     loss_func = LossFunc(config.loss_type, config.task)
     beta = float(config.beta or 0.0)
     rate = float(config.contrastive_rate or 0.0)
@@ -172,8 +191,10 @@ def build_refine_step(model, optimizer, config) -> Callable:
 
 
 # the kernel wrappers whose launch counters a capture reads
-KERNELS = {fn.__name__: fn for fn in (literature_stem, favor_attention,
-                                      maml_features, image_da)}
+KERNELS = {fn.__name__: fn for fn in (literature_stem,
+                                      literature_stem_backward,
+                                      favor_attention, maml_features,
+                                      image_da)}
 
 
 class FusedSteps:
@@ -251,6 +272,11 @@ class FusedSteps:
         return self.metrics
 
     def _capture(self, generator: torch.Generator):
+        if any(tp.shard_of(p) is not None
+               for g in self.optimizer.param_groups for p in g["params"]):
+            raise NotImplementedError(
+                "a step on model shards (tensor parallel) runs eagerly: "
+                "capturing its collectives is ROADMAP.md A18d")
         self.optimizer.zero_grad(set_to_none=True)
         (self.graph, self.out, self.captured_launches,
          self.graph_stats) = capture_graph(lambda: self.loop(generator),

@@ -63,6 +63,10 @@ the parameters (and any restored optimizer state) are rank 0's
 steps average their gradients and losses, and validation scores each
 rank's tasks and averages; rank 0 alone writes checkpoints, the metrics
 and ``best_{split}_error.txt``, and every rank resumes from the same file.
+With a "model" axis the state stays whole on every rank and the model
+ranks of a data index run the same slice (the JAX trainer's
+``wmfml_tpu/train/trainer.py:97``); collectives over the task axis run
+over the data group.
 """
 
 from __future__ import annotations
