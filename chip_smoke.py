@@ -361,8 +361,9 @@ within ``TOL["warp_chain"]`` of the card twin and the CPU twin; each timed.
 
 Phase 3 also holds the ShapeNet3D paths' kernels: K2's wide form at S1's
 shape (q, k, v [20, 8, 15, 256], shots 1..15) and S4's (Nq 30, Nk 25), and
-K6's programs 6 (ten of its 720 orders: the identity, the reverse and 8
-drawn) and 7 at S1's two DA calls (300 and 300 images, the RGB channels of
+K6's programs 6 (eleven of its 720 orders: the identity, the reverse and
+those that put each pointwise op after each moving op and after the load)
+and 7 at S1's two DA calls (300 and 300 images, the RGB channels of
 a float32 RGBA batch read through their strides): parameters bit for bit,
 masks bit for bit with every other op off, values within
 ``TOL["pixel_ops"]`` of the card twin (and of the CPU twin in two orders);
@@ -386,13 +387,16 @@ its own program's launches on its path.
 
 Phase 3 also holds K6's programs 1-3 at full width (150 uint8 images, every
 gate on) against their twins on the card: Pascal1D's chain in 12 of its 120
-orders (the identity and the reverse among them), 2 of them again against
-the CPU twin, in float32 within ``TOL["pixel_ops"]`` and in two orders in
-bfloat16 within ``check_bf16``'s rule; both fixed programs in float32 and
-bfloat16 (ShapeNet1D's, one warp and the mask, also within 2 bfloat16
-ulps of each element, as program 0); every program's parameters and, with
-the warps and pixel ops off, its masks bit for bit; each timed (card,
-device, plain, library ms and bound). At P3's T = 40 shapes it holds K1
+orders (the identity, the reverse, those that put each pointwise op after
+each moving op and after the load, and drawn ones), 2 of them again
+against the CPU twin, in float32 within ``TOL["pixel_ops"]`` and in two
+orders in bfloat16 within ``check_bf16``'s rule; both fixed programs in
+float32 and bfloat16 (ShapeNet1D's, one warp and the mask, also within 2
+bfloat16 ulps of each element, as program 0); every program's parameters
+and, with the warps and pixel ops off, its masks bit for bit; each timed
+(card, device, plain, library ms, bound and the phase clock: a stamp after
+the draw, the tables, the load and each pass), Pascal1D's programs in
+bfloat16 too, off every path. At P3's T = 40 shapes it holds K1
 (1,200 images), K2 (T = 40) and ShapeNet1D's fixed program (600 images)
 again in bfloat16, as rows of their own (``_T40``) that report the T = 40
 path's launches.
@@ -1284,12 +1288,40 @@ def da_work(p, order, h, w):
     return flops, iops
 
 
+def image_da_geometry():
+    """K6's launch geometry by program and output type, from the library
+    (``image_da.kernel_geometry``), held against the host's mirror
+    (``image_da.launch_geometry``), with the waves each path's images take
+    (150 a Pascal1D or ShapeNet1D call, 300 a ShapeNet3D or Distractor
+    context call)."""
+    from wmfml_tpu_torch.kernels import image_da as kda
+
+    out = {}
+    for program in kda.PROGRAMS:
+        hw, images = ((64, 300) if program in kda.RGB else
+                      (128, 300 if "distractor" in program else 150))
+        for dtype in kda.DTYPES:
+            got = kda.kernel_geometry(program, hw, hw, dtype)
+            want = kda.launch_geometry(program, hw, hw, dtype, images)
+            if got != (want["threads"], want["smem"], want["min_blocks"]):
+                raise AssertionError(f"image_da geometry of {program} "
+                                     f"{dtype}: library {got}, host mirror "
+                                     f"{want}")
+            out[f"{program} {str(dtype)[6:]}"] = [
+                want["threads"], want["smem"], want["blocks_per_sm"],
+                want["waves"]]
+    return out
+
+
 @spent
-def da_phases(x, u, keys, order, runs=10):
+def da_phases(x, u, keys, order, runs=10, dtype=None,
+              program="shapenet_1d"):
     """K6's phase clock (the global timer, ns, read by each block's first
-    thread; ``image_da.PHASES``): the mean over the blocks of the time from
-    a block's start to each point, and the span from the first block's start
-    to the last block's end, in microseconds; medians over ``runs``."""
+    thread after a barrier; ``image_da.PHASES``: the draw, the tables, the
+    load and each pass): the mean over the blocks of each phase's length
+    (from the point before it; a program's unused passes read 0), of a
+    block's life, and the span from the first block's start to the last
+    block's end, in microseconds; medians over ``runs``."""
     import statistics
 
     import torch
@@ -1300,10 +1332,12 @@ def da_phases(x, u, keys, order, runs=10):
     for _ in range(runs):
         stamps = torch.full((u.shape[0], kda.STAMPS), -1, dtype=torch.int64,
                             device="cuda")
-        kda.image_da_launch(x, u, keys, order, stamps=stamps)
+        kda.image_da_launch(x, u, keys, order, dtype or torch.float32,
+                            stamps=stamps, program=program)
         s = stamps.cpu().double()
-        row = {name: float((s[:, j] - s[:, 0]).mean()) / 1e3
+        row = {name: float((s[:, j] - s[:, j - 1]).mean()) / 1e3
                for j, name in enumerate(kda.PHASES) if j}
+        row["life"] = float((s[:, -1] - s[:, 0]).mean()) / 1e3
         row["span"] = float(s[:, -1].max() - s[:, 0].min()) / 1e3
         per_run.append(row)
     return {k: statistics.median(r[k] for r in per_run) for k in per_run[0]}
@@ -1573,14 +1607,17 @@ def check_image_da_programs(gen, programs=("pascal_1d", "shapenet_1d_fixed",
     ``params_from_draw`` (``params_for``) on the card; with the warps and
     pixel ops off and the dropout op on (Dropout, then CoarseDropout), its
     masks bit for bit against the twin on the card and on the CPU, float32
-    and bfloat16; Pascal1D's chain in 12 orders (the identity, the reverse
-    and 10 drawn) against the card twin and in 2 of them against the CPU
-    twin (``TOL["pixel_ops"]``), and in bfloat16 in 2 orders
-    (``check_bf16``); each fixed program against both twins in float32 and
-    bfloat16. Timed: Pascal1D's chain in its identity order and Pascal1D's
-    fixed program in float32 (P1's and its fixed twin's dtype), ShapeNet1D's
-    fixed program in bfloat16 (P3's); the library yardstick is
-    ``library_warp_ms`` of the program's first warp."""
+    and bfloat16; Pascal1D's chain in 12 orders (``covered_orders``: the
+    identity, the reverse, those that put each pointwise op after each
+    moving op and after the load, and drawn ones) against the card twin
+    and in 2 of them against the CPU twin (``TOL["pixel_ops"]``), and in
+    bfloat16 in 2 orders (``check_bf16``); each fixed program against both
+    twins in float32 and bfloat16. Timed (``time_program``, with the phase
+    clock): Pascal1D's chain in its identity order and Pascal1D's fixed
+    program in float32 (P1's and its fixed twin's dtype) and in bfloat16
+    (off every path), ShapeNet1D's fixed program in bfloat16 (P3's); the
+    library yardstick is ``library_warp_ms`` of the program's first
+    warp."""
     import torch
 
     from wmfml_tpu_torch.aug import image_aug
@@ -1599,8 +1636,7 @@ def check_image_da_programs(gen, programs=("pascal_1d", "shapenet_1d_fixed",
         fixed = kda.PROGRAM_ORDERS[program] == 1
         u, keys = program_draw(program, gen, b)
         uc, kc = u.cpu(), keys.cpu()
-        orders = ([None] if fixed else
-                  [0, 119] + [int(o) + 1 for o in drawn[:10]])
+        orders = [None] if fixed else covered_orders(program, drawn, 12)
 
         def order_t(o, dev="cuda"):
             return None if o is None else torch.tensor([o], device=dev)
@@ -1677,47 +1713,100 @@ def check_image_da_programs(gen, programs=("pascal_1d", "shapenet_1d_fixed",
             f"{TOL['pixel_ops']}); bfloat16 in {orders[:2]}: max abs err "
             f"{bf16_err} (the bfloat16 rule)")
 
-        dtype = bf16 if program == "shapenet_1d_fixed" else f32
-        o = orders[0]
-        got = launch(u, o, dtype)
-        want = twin(u, o, dtype)
-        err = (got.float() - want.float()).abs().max().item()
-        times = in_turns({"ms": lambda: launch(u, o, dtype),
-                          "plain_ms": lambda: twin(u, o, dtype)})
-        names = set()
-        times.update(device_profile(lambda: launch(u, o, dtype),
-                                    names=names))
-        if len(names) != 1 or times["kernels_per_call"] != 1:
-            raise AssertionError(f"image_da {program} issued "
-                                 f"{times['kernels_per_call']} kernels per "
-                                 f"call: {sorted(names)}")
-        xf = (xc.float() / 255.0).reshape(b, 1, h, w).cuda().to(dtype)
-        library_ms = library_warp_ms(xf, p.warp[:, 0])
-        flops, iops = pixel_work(program, p, h, w)
-        nbytes = (1 + xf.element_size()) * x.numel() + 4 * (
-            u.numel() + keys.numel()) + (0 if fixed else 8)
-        t_ops = max(flops / PEAK_F32_FLOPS, iops / PEAK_INT32_OPS)
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        order_txt = ("fixed order" if fixed else
-                     f"order {image_aug.PASCAL_ORDERS[o]}")
-        ids = _rows(f"image_da_{program}", dtype, PROGRAM_PATHS[program]
-                    + ("" if tasks == 10 else f" T{tasks}"), tasks)
-        ids["kernel"] = "image_da"
-        rows.append(dict(
-            **ids, tol="pixel_ops", program=program,
-            shape=f"[{t_}, 15 of 30, 128, 128, 1] uint8 -> {dtype}, "
-                  f"{order_txt}, every gate on",
-            source="wmfml_tpu_torch/csrc/image_da.cu",
-            replaces=("wmfml_tpu/aug/image_aug.py:578" if fixed else
-                      "wmfml_tpu/aug/image_aug.py:569"),
-            library="F.grid_sample, bilinear, zeros, one warp stage, cval 0",
-            max_abs_err=err, max_rel_err=None, max_abs_err_orders=worst,
-            **times, library_ms=library_ms,
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            bound_f32_ms=max(t_ops, t_bytes) * 1e3, flops=flops,
-            int_ops=iops, dropped_share=dropped))
+        # timed: Pascal1D's programs in float32 (P1's and its fixed twin's
+        # dtype) and, off every path, bfloat16; ShapeNet1D's fixed program
+        # in bfloat16 (P3's)
+        for dtype in ((bf16,) if program == "shapenet_1d_fixed"
+                      else (f32, bf16)):
+            rows.append(time_program(program, x, xc, u, keys, orders[0],
+                                     dtype, on_card, p, tasks, dropped,
+                                     worst))
     return rows
+
+
+def covered_orders(program, drawn, count):
+    """The orders a check of ``program`` runs: the identity, the last, the
+    orders that put each pointwise op after each moving op and after the
+    load (``image_da.covering_orders``), then drawn ones (``drawn``, a
+    permutation of 1 .. n - 2 less one) up to ``count``."""
+    from wmfml_tpu_torch.kernels import image_da as kda
+
+    n = kda.PROGRAM_ORDERS[program]
+    orders = [0, n - 1] + [o for o in kda.covering_orders(program)
+                           if o not in (0, n - 1)]
+    for o in drawn.tolist():
+        if len(orders) >= count:
+            break
+        if o + 1 not in orders:
+            orders.append(o + 1)
+    return orders
+
+
+def time_program(program, x, xc, u, keys, o, dtype, on_card, p, tasks,
+                 dropped, worst):
+    """The timed row of K6's ``program`` (1-3) on the uint8 images ``x`` in
+    order ``o``, writing ``dtype``: card, device, plain and library ms,
+    bound, the engine's phase clock (Pascal1D's programs); Pascal1D's
+    bfloat16 rows are off every path."""
+    import torch
+
+    from wmfml_tpu_torch.aug import image_aug
+    from wmfml_tpu_torch.kernels import image_da as kda
+
+    fixed = kda.PROGRAM_ORDERS[program] == 1
+    b, h, w = u.shape[0], x.shape[-3], x.shape[-2]
+    t_ = b // 15
+
+    def launch():
+        return kda.image_da_launch(x, u, keys, on_card[o], dtype,
+                                   program=program)
+
+    def twin():
+        return kda.image_da_plain(x, u, keys, on_card[o], dtype, program)
+
+    err = (launch().float() - twin().float()).abs().max().item()
+    # the twin (no yardstick of speed, and 100 times the kernel's time)
+    # timed on fewer calls
+    times = dict(ms=cuda_ms(launch), plain_ms=cuda_ms(twin, iters=3,
+                                                      warmup=1))
+    names = set()
+    times.update(device_profile(launch, names=names))
+    if len(names) != 1 or times["kernels_per_call"] != 1:
+        raise AssertionError(f"image_da {program} issued "
+                             f"{times['kernels_per_call']} kernels per "
+                             f"call: {sorted(names)}")
+    if program in kda.ENGINE:
+        times["phase_us"] = da_phases(x, u, keys, on_card[o], dtype=dtype,
+                                      program=program)
+    xf = (xc.float() / 255.0).reshape(b, 1, h, w).cuda().to(dtype)
+    library_ms = library_warp_ms(xf, p.warp[:, 0])
+    flops, iops = pixel_work(program, p, h, w)
+    nbytes = (1 + xf.element_size()) * x.numel() + 4 * (
+        u.numel() + keys.numel()) + (0 if fixed else 8)
+    t_ops = max(flops / PEAK_F32_FLOPS, iops / PEAK_INT32_OPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    order_txt = ("fixed order" if fixed else
+                 f"order {image_aug.PASCAL_ORDERS[o]}")
+    ids = _rows(f"image_da_{program}", dtype, PROGRAM_PATHS[program]
+                + ("" if tasks == 10 else f" T{tasks}"), tasks)
+    ids["kernel"] = "image_da"
+    if dtype == torch.bfloat16 and program != "shapenet_1d_fixed":
+        ids.update(path=None, off_path="no path runs Pascal1D in bfloat16 "
+                                       "(P1 and P2 run it in float32)")
+    return dict(
+        **ids, tol="pixel_ops", program=program,
+        shape=f"[{t_}, 15 of 30, 128, 128, 1] uint8 -> {dtype}, "
+              f"{order_txt}, every gate on",
+        source="wmfml_tpu_torch/csrc/image_da.cu",
+        replaces=("wmfml_tpu/aug/image_aug.py:578" if fixed else
+                  "wmfml_tpu/aug/image_aug.py:569"),
+        library="F.grid_sample, bilinear, zeros, one warp stage, cval 0",
+        max_abs_err=err, max_rel_err=None, max_abs_err_orders=worst,
+        **times, library_ms=library_ms,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_f32_ms=max(t_ops, t_bytes) * 1e3, flops=flops,
+        int_ops=iops, dropped_share=dropped)
 
 
 def rgba_batch(gen, shape):
@@ -1745,14 +1834,15 @@ def check_image_da_rgb(gen, dtype=None):
     with every other op off and the dropout op on (Dropout, then
     CoarseDropout, per channel where drawn), its masks bit for bit against
     the twin on the card and on the CPU (the first ``CPU_TWIN_TASKS``
-    tasks), in two orders; its output against the card twin in ten orders
-    (program 6: the identity, the reverse and 8 drawn of the 720) and the
-    CPU twin in the first two (float32 within
+    tasks), in two orders; its output against the card twin in eleven
+    orders (program 6: ``covered_orders``, the identity, the reverse and
+    those that put each pointwise op after each moving op and after the
+    load) and the CPU twin in the first two (float32 within
     ``TOL["pixel_ops"]``; bfloat16 within ``BF16_K6_ULPS`` of each element,
     differing on at most ``BF16_K6_SHARE`` of them, and within
-    ``check_bf16``'s rule); timed in the identity or the fixed order,
-    with ``library_warp_ms`` of CropAndPad's (or geometric's) warp on [300,
-    3, 64, 64] as the library yardstick."""
+    ``check_bf16``'s rule); timed in the identity or the fixed order, with
+    the phase clock, and ``library_warp_ms`` of CropAndPad's (or
+    geometric's) warp on [300, 3, 64, 64] as the library yardstick."""
     import torch
 
     from wmfml_tpu_torch.aug import image_aug
@@ -1767,8 +1857,7 @@ def check_image_da_rgb(gen, dtype=None):
     rows = []
     for program in ("shapenet_3d", "shapenet_3d_fixed"):
         fixed = program == "shapenet_3d_fixed"
-        orders = ([None] if fixed else
-                  [0, 719] + [int(o) + 1 for o in drawn[:8]])
+        orders = ([None] if fixed else covered_orders(program, drawn, 11))
         on_card = {o: None if o is None else torch.tensor([o], device="cuda")
                    for o in orders}
         for call, x in (("", batch[:, :s_, ..., :3]),
@@ -1868,6 +1957,8 @@ def check_image_da_rgb(gen, dtype=None):
                 raise AssertionError(f"image_da {program} issued "
                                      f"{times['kernels_per_call']} kernels "
                                      f"per call: {sorted(names)}")
+            times["phase_us"] = da_phases(x, u, keys, on_card[o], dtype=f32,
+                                          program=program)
             xf = x.permute(0, 1, 4, 2, 3).reshape(b, 3, h, w).contiguous()
             library_ms = library_warp_ms(xf, p.warp[:, 0])
             flops, iops = pixel_work(program, p, h, w, c=3)
@@ -5293,7 +5384,7 @@ def main(argv):
     from wmfml_tpu_torch.kernels import build
     from wmfml_tpu_torch.kernels.favor import favor_attention
     from wmfml_tpu_torch.kernels.features import maml_features
-    from wmfml_tpu_torch.kernels.image_da import PROGRAMS, RGB, image_da
+    from wmfml_tpu_torch.kernels.image_da import image_da
     from wmfml_tpu_torch.kernels.stem import literature_stem
     from wmfml_tpu_torch.models.registry import build_model
 
@@ -5319,13 +5410,10 @@ def main(argv):
         f"favor {libs['favor'].wmfml_favor_smem_bytes(15, 15, 64, 266)} B used "
         f"of the 231424 B it requests (Nq = Nk = 15, m = 266); favor "
         f"co-resident blocks {libs['favor'].wmfml_favor_coresident()}, wide "
-        f"form {libs['favor'].wmfml_favor_wide_coresident()}, "
-        f"image_da (128 x 128) " + ", ".join(
-            f"{p} {libs['image_da'].wmfml_image_da_smem_bytes(i, 128, 128)} B"
-            for i, p in enumerate(PROGRAMS) if p not in RGB)
-        + "; image_da (64 x 64) " + ", ".join(
-            f"{p} {libs['image_da'].wmfml_image_da_smem_bytes(i, 64, 64)} B"
-            for i, p in enumerate(PROGRAMS) if p in RGB))
+        f"form {libs['favor'].wmfml_favor_wide_coresident()}")
+    log("build: image_da launch geometry (threads, shared memory, blocks "
+        "an SM holds, waves at the path's images; 128 x 128 uint8, "
+        "ShapeNet3D's 64 x 64 RGB): " + json.dumps(image_da_geometry()))
     for name, text in build.ptxas_log.items():
         for line in text.splitlines():
             if any(k in line for k in ("entry function", "registers",

@@ -1491,6 +1491,155 @@ def test_image_da_large_programs_bf16_masks_equal_the_twin_bit_for_bit(
                                                         BF16))
 
 
+# -- K6's pass engine: programs 1, 3, 6 and 7 ---------------------------------
+
+ENGINE_CHAINS = ("pascal_1d", "shapenet_3d")
+ENGINE_PROGRAMS = ("pascal_1d", "pascal_1d_fixed", "shapenet_3d",
+                   "shapenet_3d_fixed")
+# the uniform that gates each op (u < 0.5: on); crop_and_pad's is also
+# geometric's CropAndPad part in the fixed programs
+GATE_COLUMN = {"crop_and_pad": 13, "affine": 14, "one_of_dropout": 16,
+               "gamma_contrast": 19, "average_blur": 21, "brightness": 23}
+
+
+def _engine_call(dev, program, b, dtype=torch.float32, seed=0, on=True):
+    """``b`` images at ``program``'s path shape (uint8 128 x 128, or the
+    RGB of 64 x 64 RGBA in ``dtype``, read through its strides) and a draw
+    with every gate on (the blur at k = 3 and 2 by turns) or off."""
+    if program in RGB_PROGRAMS:
+        x = _rgba(dev, (b, 64, 64), seed=seed).to(dtype)[..., :3]
+        u, keys, _ = _rgb_draw(dev, program, b, seed=seed, on=on)
+    else:
+        x = _images(dev, (b, 128, 128, 1), seed=seed)
+        u, keys, _ = _program_draw(dev, program, b, seed=seed, on=on)
+    return x, u, keys
+
+
+def _engine_check(got, x, u, keys, o, dtype, program):
+    """The kernel's output against the card twin: float32 within
+    ``PIXEL_TOL``; bfloat16 within the module docstring's rule and, for
+    ShapeNet3D, within ``LARGE_BF16_ULPS`` of each element on at most
+    ``RGB_BF16_SHARE`` of them."""
+    want = image_da.image_da_plain(x, u, keys, o, dtype, program)
+    if dtype == torch.float32:
+        _close(got, want, *PIXEL_TOL)
+        return
+    if program in RGB_PROGRAMS:
+        assert float(_ulps(got, want).max()) <= LARGE_BF16_ULPS[program]
+        assert float((got != want).double().mean()) <= RGB_BF16_SHARE
+    _bf16_close(got, want, image_da.image_da_plain(x, u, keys, o,
+                                                   torch.float32, program),
+                element_ulps=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("program", ENGINE_CHAINS)
+def test_image_da_engine_matches_the_twin_in_every_order(dev, program,
+                                                         dtype):
+    """Every gate on, four images (the blur at k = 3 and 2), in all 720
+    orders of program 6 and all 120 of program 1: the engine groups each
+    order's pointwise ops with the moving op before them, and its output
+    is the card twin's, which applies each op alone."""
+    x, u, keys = _engine_call(dev, program, 4, dtype, seed=11)
+    for o in range(image_da.PROGRAM_ORDERS[program]):
+        order = _pascal_order(dev, o)
+        got = image_da.image_da_launch(x, u, keys, order, dtype,
+                                       program=program)
+        _engine_check(got, x, u, keys, order, dtype, program)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("program", ENGINE_PROGRAMS)
+def test_image_da_engine_gate_patterns_match_the_twin(dev, program, dtype):
+    """One image for each set of gates (2^5, 2^6, 2^4 or 2^5 of them: a
+    pointwise op first, last, right after each moving op, two and three in
+    a run, every gate off), in the orders that put each pointwise op after
+    each moving op and after the load, and the reverse: against the card
+    twin; the image whose gates are all off is the program's input, bit
+    for bit."""
+    ops = (image_da.FIXED_SEQUENCES.get(program)
+           or image_da.op_sequence(program, 0))
+    b = 2 ** len(ops)
+    x, u, keys = _engine_call(dev, program, b, dtype, seed=13)
+    bits = torch.arange(b, device=dev)
+    for i, op in enumerate(ops):
+        u[:, GATE_COLUMN[op]] = torch.where((bits >> i) & 1 == 1, 0.25, 0.75)
+    if program in image_da.FIXED_SEQUENCES:   # geometric: CropAndPad, Affine
+        u[:, GATE_COLUMN["affine"]] = u[:, GATE_COLUMN["crop_and_pad"]]
+        orders = [None]
+    else:
+        n = image_da.PROGRAM_ORDERS[program]
+        orders = [_pascal_order(dev, o)
+                  for o in image_da.covering_orders(program) + (n - 1,)]
+    for order in orders:
+        got = image_da.image_da_launch(x, u, keys, order, dtype,
+                                       program=program)
+        _engine_check(got, x, u, keys, order, dtype, program)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:1], image_aug.program_input(program, x[:1],
+                                                            dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 131, 133, 300, 600])
+@pytest.mark.parametrize("program", ENGINE_CHAINS)
+def test_image_da_engine_at_partial_waves(dev, program, b, dtype):
+    """Batches that fill no whole wave (one image; one more and one less
+    than the 132 SMs; S1's 300; P3 T = 40's 600 a call), gates drawn but
+    the first image's all on, in the identity and one covering order:
+    parameters bit for bit against ``params_for``, the output against the
+    card twin, two calls equal bit for bit."""
+    x, u, keys = _engine_call(dev, program, b, dtype, seed=b)
+    g = torch.Generator(device=dev).manual_seed(b)
+    u = torch.where(torch.rand(u.shape, generator=g, device=dev) < 0.5, u,
+                    torch.rand(u.shape, generator=g, device=dev))
+    u[0, [c for c in GATE_COLUMN.values() if c < u.shape[1]]] = 0.25
+    for o in (0, image_da.covering_orders(program)[3]):
+        order = _pascal_order(dev, o)
+        params = torch.empty((b, image_da.nparams(program)), device=dev)
+        got = image_da.image_da_launch(x, u, keys, order, dtype,
+                                       params_out=params, program=program)
+        again = image_da.image_da_launch(x, u, keys, order, dtype,
+                                         program=program)
+        want_p = image_aug.params_row(image_aug.params_for(
+            program, u, keys, order, x.shape[-3], x.shape[-2]))
+        torch.cuda.synchronize()
+        assert torch.equal(params.view(torch.int32), want_p.view(torch.int32))
+        assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+        _engine_check(got, x, u, keys, order, dtype, program)
+
+
+def test_image_da_geometry_is_the_kernels(dev):
+    """The library's launch geometry (threads, shared memory, the launch
+    bounds' blocks an SM) equals the host's mirror, which the CPU tests
+    hold at every path's shape, for every program and type."""
+    for program in image_da.PROGRAMS:
+        for h, w in ((128, 128), (64, 64), (32, 24), (40, 96)):
+            for dtype in image_da.DTYPES:
+                want = image_da.launch_geometry(program, h, w, dtype)
+                assert image_da.kernel_geometry(program, h, w, dtype) == (
+                    want["threads"], want["smem"], want["min_blocks"]), (
+                    program, h, w, dtype)
+
+
+@pytest.mark.parametrize("program", ENGINE_PROGRAMS)
+def test_image_da_engine_phase_clock_counts_its_passes(dev, program):
+    """The phase clock in order (start, draw, tables, load, each pass,
+    end), every point set; an image's pass points after its last pass
+    read the end."""
+    x, u, keys = _engine_call(dev, program, 12, seed=5)
+    order = None if program in image_da.FIXED_SEQUENCES else _pascal_order(
+        dev, 0)
+    st = torch.full((12, image_da.STAMPS), -1, dtype=torch.int64, device=dev)
+    image_da.image_da_launch(x, u, keys, order, stamps=st, program=program)
+    st = st.cpu()
+    assert bool((st >= 0).all())
+    assert bool((st[:, 1:] >= st[:, :-1]).all())
+    passes = len(image_da.engine_passes(program, 0 if order is not None
+                                        else None)) - 1
+    assert bool((st[:, 4 + passes:] == st[:, -1:]).all())
+
+
 @pytest.mark.parametrize("task", ["distractor", "shapenet_3d"])
 def test_large_bf16_augmenters_are_one_launch_reading_nothing_back(dev, task):
     aug = image_aug.build_augmenter(task, BF16)
@@ -1528,6 +1677,7 @@ MAMLMR_YAML = os.path.join(REPO, "cfg", "train", "MAMLMR_DA+TA_ShapeNet1D.yaml")
 FCLANP_YAML = os.path.join(REPO, "cfg", "train", "contrastive",
                            "FCLANP_DA+TA_ShapeNet3D.yaml")
 GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
+              "literature_stem_backward": "stem_bwd_route_kernel",
               "favor_attention": "favor_kernel",
               "maml_features": "bn_relu_kernel",
               "image_da": "image_da_kernel"}
@@ -1797,10 +1947,12 @@ def test_captured_launches_match_the_graphs_kernel_nodes(dev, graph_data,
     trainer.train()
     nodes = _kernel_nodes(fused.dot_path)
     assert fused.replays == 1 and nodes == fused.captured_launches
-    per_step = {"anp": {"literature_stem": 1, "favor_attention": 1,
-                        "maml_features": 0, "image_da": 2},
-                "maml": {"literature_stem": 6, "favor_attention": 0,
-                         "maml_features": 6, "image_da": 2}}[path]
+    per_step = {"anp": {"literature_stem": 1, "literature_stem_backward": 0,
+                        "favor_attention": 1, "maml_features": 0,
+                        "image_da": 2},
+                "maml": {"literature_stem": 6, "literature_stem_backward": 0,
+                         "favor_attention": 0, "maml_features": 6,
+                         "image_da": 2}}[path]
     assert fused.captured_launches == {k: n * fused.k
                                        for k, n in per_step.items()}
     warm = fused.warm_calls * fused.k

@@ -49,7 +49,7 @@
 // us at 64 INT32 lanes per SM); the taps are a few tens of float
 // operations a pixel.
 //
-// Design: one block of 256 threads per image.
+// Design of programs 0, 2, 4 and 5: one block of 256 threads per image.
 //   * Thread 0 starts a bulk copy (TMA without a tensor map) of the image's
 //     H W bytes into shared memory and, while it runs, computes the image's
 //     parameters from its uniforms with the formulas of
@@ -97,16 +97,10 @@
 // SMs (18 of them hold two). No atomics, nothing allocated: two calls give
 // the same bits.
 //
-// Programs 1-3 (run_pixel_program) run their ops one at a time on f and a
-// second float32 image g in shared memory: x / 255 into f, then each op a
-// pass (a warp or a blur from one image into the other, gamma and the
-// mask in place), the last op writing the output. A warp op builds its
-// one-stage tap table first and fills with _affine_warp's cval (1 - ry rx);
-// GammaContrast and AverageBlur are csrc/pixel_ops.cuh. In bfloat16 each
-// op's result rounds to bfloat16 where the JAX op returns img.dtype (the
-// blur's sums at every add). The fixed programs' CoarseDropout keeps one
-// hashed bit per cell of the fixed grid (pixel_ops.cuh). With g the Pascal
-// programs take 171 KB of shared memory at 128 x 128: one block an SM.
+// Program 2 (run_pixel_program): geometric's one warp from f = x / 255 into
+// the output, the fixed-grid mask applied as it writes. The fixed programs'
+// CoarseDropout keeps one hashed bit per cell of the fixed grid
+// (pixel_ops.cuh).
 //
 // Programs 4 and 5 (Distractor) need no g: x / 255 comes from the table of
 // inverted quotients 1 - i / 255 (the correctly rounded quotient, then the
@@ -121,34 +115,73 @@
 // rounding then masking is masking then rounding). Bound in bfloat16: 1 B
 // read and 2 B written a pixel.
 //
-// Programs 6 and 7 (ShapeNet3D, run_rgb_program) read RGBA and write RGB,
-// [B, H, W, 3], both float32 or both bfloat16 (compute_dtype: bfloat16,
-// whose sampler keeps the split in bfloat16). Bound: the bytes, 16 read
-// and 12 written a pixel in float32 (34.4 MB for 300 images of 64 x 64,
-// 10.3 us at 3.35 TB/s), 8 and 6 in bfloat16 (5.1 us). There is no uint8
-// stage and no quotient table: the threads load each pixel as one float4
-// (the image's rows are contiguous, 16 bytes a pixel; bfloat16: one uint2 of
-// 8 bytes, widened in registers) and keep its three channels in f as three
-// float32 planes, so the lanes of a warp read and write neighbouring words
-// of a plane. In bfloat16 each op's result rounds to bfloat16 where the JAX
-// op returns img.dtype: as it is stored into the other plane set or the
-// output, and AverageBlur's sums at every add, as programs 1-3 round. Each op is one pass from f into g or
-// in place (a warp: its one-stage tap table, then the taps of all three
-// planes from one table entry; AverageBlur from one image into the other;
-// GammaContrast, AddToBrightness and the mask in place), the last one
-// writing the output, interleaved. A thread holds a pixel's three
-// channels, which brightness needs: V = max(R, G, B), then every channel
-// scaled by clip(V + b, 0, 1) / V in float32, or, where V <= 1e-6, the gray
-// clip(max(b, 0), 0, 1), as the twin computes it. With three channels the
-// masks are per channel where the draw says so: Dropout hashes y W + x,
-// times 3 plus the channel; CoarseDropout keeps a bit for each (cell,
-// channel), the cell's id times 3 plus the channel; the fixed grid one bit
-// a cell for all three. Shared memory at 64 x 64: f and g 48 KB each, one
-// tap table and the cells' bits: about 104 KB, two blocks an SM.
+// Programs 6 and 7 (ShapeNet3D) read RGBA and write RGB, [B, H, W, 3], both
+// float32 or both bfloat16 (compute_dtype: bfloat16, whose sampler keeps
+// the split in bfloat16). Bound: the bytes, 16 read and 12 written a pixel
+// in float32 (34.4 MB for 300 images of 64 x 64, 10.3 us at 3.35 TB/s), 8
+// and 6 in bfloat16 (5.1 us). Brightness needs a pixel's three channels:
+// V = max(R, G, B), then every channel scaled by clip(V + b, 0, 1) / V in
+// float32, or, where V <= 1e-6, the gray clip(max(b, 0), 0, 1), as the twin
+// computes it. With three channels the masks are per channel where the
+// draw says so: Dropout hashes y W + x, times 3 plus the channel;
+// CoarseDropout keeps a bit for each (cell, channel), the cell's id times 3
+// plus the channel; the fixed grid one bit a cell for all three.
+//
+// Programs 1, 3, 6 and 7: the pass engine (engine below). The JAX package
+// applies each op alone, rounded to the image's type at its end, in the
+// drawn order (the per-step switch chain); on the card the time goes to
+// the ops' arithmetic (GammaContrast's powf, AverageBlur's window) and to
+// one shared-memory pass and barrier an op. The engine:
+//   * one block an image: 1024 threads (Pascal1D in float32: two float32
+//     images and the uint8 one, 171 KB, one block an SM, so 150 images take
+//     two waves) or 512 (Pascal1D in bfloat16 and ShapeNet3D in float32,
+//     two blocks an SM; ShapeNet3D in bfloat16, three, so 300 images take
+//     one wave), the registers capped by the launch bounds to fit them
+//     (engine_threads, engine_blocks; kernels/image_da.py:launch_geometry
+//     mirrors them); one kernel a family (Pascal1D's programs, ShapeNet3D's)
+//     and output type, the fixed order chosen at run time, each pass
+//     instantiated once for any destination (shared-memory planes or the
+//     output): few instances keep nvcc's build short;
+//   * warp 0 reads the uniforms and keys (a lane each), lane 0 issues the
+//     image's bulk copy (uint8, or the RGBA rows into the tail of f and g)
+//     and the warp draws the parameters while it runs; warp 1 reads and
+//     decodes the order meanwhile;
+//   * a plan of passes from the order and the gates (make_plan; host
+//     mirror kernels/image_da.py:engine_passes): each moving op that is on
+//     (CropAndPad or geometric, AverageBlur, Affine) is a pass, and each
+//     pointwise op that is on (GammaContrast, AddToBrightness, the dropout
+//     op) rides in registers with the pass before it: the load, or the
+//     moving op's store. Each op is applied in the drawn order with its own
+//     rounding, so each element sees the ops the twin's chain applies, in
+//     its order, and at most three passes run, whatever the order: one
+//     launch;
+//   * the tap tables of both warps, the mask's tables and the quotient
+//     table are built together behind one barrier, before the load;
+//   * the load: x / 255 through the quotient table (Pascal1D), or the
+//     staged RGBA read a chunk of rows at a time (each chunk read, a
+//     barrier, then written into f's planes, whose last one the staging
+//     shares), through the load's pointwise ops; the moving passes then go
+//     f -> g -> f, the last into the output;
+//   * a warp walks rows and lane l owns columns l + 32 k: a warp pass keeps
+//     its column taps in registers, serves every channel from one row entry
+//     and sums rows first, then columns, as the twin's einsum contracts, so
+//     its float32 sums are the card twin's bit for bit (the per-op chain
+//     it replaced summed columns first: one float32 ulp apart on about a
+//     third of the elements, and a bfloat16 rounding the other way now and
+//     then); a blur pass issues its window's K K loads (K a template
+//     constant) before summing them in the JAX order;
+//   * in bfloat16 f and g hold bfloat16 (each value is one an op rounded),
+//     which halves them.
+// Against the per-op chain it replaced (same shapes, every gate on, PERF.md
+// section 6) the passes fall from up to six to at most three and the blur
+// from about 20 to about 4 us a block; GammaContrast's powf (about a third
+// of a block's life) is what remains.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hash_mask.cuh"
 #include "pixel_ops.cuh"
@@ -173,7 +206,7 @@ constexpr int NPARAMS = 2 * NP + ND;   // the debug output's row
 constexpr int NPARAMS_PIXEL = NPARAMS + NX;
 constexpr int NPARAMS_RGB = NPARAMS_PIXEL + NB;
 constexpr int RGB_C = 3;               // channels of programs 6 and 7
-constexpr int STAMPS = 5;
+constexpr int STAMPS = 11;             // the phase clock's points
 constexpr int DROP = 2;
 constexpr int MAX_SMEM = 232448;       // shared memory a block may use
 
@@ -221,6 +254,35 @@ __host__ __device__ constexpr bool inverted(int prog) {
 __constant__ int ORDERS[6][3] = {{0, 1, 2}, {0, 2, 1}, {1, 0, 2},
                                  {1, 2, 0}, {2, 0, 1}, {2, 1, 0}};
 
+struct Mask {
+  bool on, pick;
+  bool per_channel;          // RGB: Dropout and CoarseDropout per channel
+  bool fixed;                // the fixed grid: one bit a cell
+  float p;
+  uint32_t k0, k1;
+  int W, wl;
+  const int* frow;
+  const int* fcol;
+  const uint8_t* cell;
+};
+
+// the engine's pointwise ops' parameters
+struct Pointwise {
+  float gamma, bright;
+  Mask mask;
+};
+
+constexpr int MAX_MOVES = 3;           // moving ops of an engine program
+
+// The engine programs' passes (make_plan): the moving ops that are on, in
+// order, and the pointwise ops after the load (pw[0]) and after each moving
+// op (pw[m + 1]), 4 bits an op (EngineOp + 1), the first in the low bits.
+struct Plan {
+  int moves;
+  int move[MAX_MOVES];
+  uint32_t pw[MAX_MOVES + 1];
+};
+
 struct Shared {
   float warp[2][NP];
   float drop[ND];
@@ -228,31 +290,30 @@ struct Shared {
   uint32_t k0, k1;
   int order;
   int perm[NRGB];
+  Plan plan;
+  float u[NU_RGB];             // the engine's copy of the image's uniforms
+  Pointwise pw;                // and of its pointwise ops' parameters
 };
 
 struct Layout {
-  int f, g, tab, lut, frow, fcol, cell, cap, par, bar, total;
+  int f, tab, lut, frow, fcol, cell, cap, par, bar, total;
 };
 
-// The dynamic shared memory of a block of program prog: the uint8 image
-// (not for the RGB programs, which load their pixels straight into f), f,
-// for the Pascal and RGB programs a second image g, the tap tables (two
-// chains for program 0, one warp for the others), the quotient table, the
-// coarse grid's rows, columns and cells (a bit for each (cell, channel) in
-// RGB), the parameters and the barrier.
-__host__ __device__ inline Layout layout(int H, int W, int prog) {
+// The dynamic shared memory of a block of programs 0, 2, 4 and 5: the
+// uint8 image, f, the tap tables (two chains for program 0, one warp for
+// the others), the quotient table, the coarse grid's rows, columns and
+// cells, the parameters and the barrier. (The engine's: engine_layout.)
+__host__ __device__ inline Layout layout(int H, int W) {
   Layout L;
   const int HW = H * W;
-  const int planes = rgb(prog) ? RGB_C : 1;
-  L.f = rgb(prog) ? 0 : (HW + 15) & ~15;       // the uint8 image at 0
-  L.g = L.f + 4 * planes * HW;
-  L.tab = L.g + (pixel_ops(prog) ? 4 * planes * HW : 0);
-  L.lut = L.tab + (rgb(prog) ? 1 : 2) * (H + W) * (int)sizeof(Axis);
+  L.f = (HW + 15) & ~15;                      // the uint8 image at 0
+  L.tab = L.f + 4 * HW;
+  L.lut = L.tab + 2 * (H + W) * (int)sizeof(Axis);
   L.frow = L.lut + 4 * 256;
   L.fcol = L.frow + 4 * H;
   L.cell = L.fcol + 4 * W;
   L.cap = (H / 4 + 1) * (W / 4 + 1);          // CoarseDropout's largest grid
-  L.par = (L.cell + planes * L.cap + 15) & ~15;
+  L.par = (L.cell + L.cap + 15) & ~15;
   L.bar = L.par + (((int)sizeof(Shared) + 15) & ~15);
   L.total = L.bar + 16;
   return L;
@@ -273,13 +334,17 @@ struct Args {
   long long* stamps;         // [B, STAMPS] or null
   int H, W;
   int bf16;                  // the output type: 0 float32, 1 bfloat16
+  int program;               // Program
 };
 
-__device__ inline void stamp(const Args& a, int j) {
+// The phase clock: thread 0 reads the global timer into points j .. end - 1
+// (one read: a program's points after its last pass read the end).
+__device__ inline void stamp(const Args& a, int j, int end = -1) {
   if (a.stamps != nullptr && threadIdx.x == 0) {
     long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    a.stamps[blockIdx.x * STAMPS + j] = t;
+    for (int k = j; k < (end < 0 ? j + 1 : end); ++k)
+      a.stamps[blockIdx.x * STAMPS + k] = t;
   }
 }
 
@@ -361,18 +426,6 @@ __device__ void draw_bright(const float* u, Shared* P) {
   P->pixel[NX + 1] = __fadd_rn(__fmul_rn(u[24], (float)(60.0 / 255.0)),
                                (float)(-30.0 / 255.0));
 }
-
-struct Mask {
-  bool on, pick;
-  bool per_channel;          // RGB: Dropout and CoarseDropout per channel
-  bool fixed;                // the fixed grid: one bit a cell
-  float p;
-  uint32_t k0, k1;
-  int W, wl;
-  const int* frow;
-  const int* fcol;
-  const uint8_t* cell;
-};
 
 // the id CoarseDropout hashes for cell (fy, fx): fy W + fx in float32
 __device__ __forceinline__ uint32_t cell_id(int fy, int fx, int W) {
@@ -538,17 +591,17 @@ __device__ void run_order(const Args& a, const int (&n)[2],
   if (n[1] == 0) {                      // A, then the mask
     to_float(src8, lut, fbuf, H, W, mask, false);
     __syncthreads();
-    stamp(a, 3);
+    stamp(a, 4);
     run_any(nt[0], A, H, W, xf, out, mask, true);
   } else if (n[0] == 0) {               // the mask, then B
     to_float(src8, lut, fbuf, H, W, mask, mask.on);
     __syncthreads();
-    stamp(a, 3);
+    stamp(a, 4);
     run_any(nt[1], B, H, W, xf, out, mask, false);
   } else {                              // A, the mask, B
     run_any(nt[0], A, H, W, x8, mid, mask, true);
     __syncthreads();
-    stamp(a, 3);
+    stamp(a, 4);
     run_any(nt[1], B, H, W, xf, out, mask, false);
   }
 }
@@ -558,6 +611,7 @@ __device__ void run_order(const Args& a, const int (&n)[2],
 // the keep bit of every cell: the random-size grid (programs 0, 1, 4, 6) or
 // the fixed grid (programs 2, 3, 5, 7). With C = 3 channels and the draw's
 // per-channel bit, the random grid keeps a bit for each (cell, channel).
+template <int TH = THREADS>
 __device__ Mask build_mask(const Shared* P, int H, int W, bool fixed,
                            int cap, int* frow, int* fcol, uint8_t* cell,
                            int C = 1) {
@@ -578,13 +632,13 @@ __device__ Mask build_mask(const Shared* P, int H, int W, bool fixed,
     const int gh = da::fixed_cells(H), gw = da::fixed_cells(W);
     mask.wl = gw;
     if (mask.on && !mask.pick) {
-      for (int e = tid; e < H + W; e += THREADS) {
+      for (int e = tid; e < H + W; e += TH) {
         if (e < H)
           frow[e] = e / (H / gh);
         else
           fcol[e - H] = (e - H) / (W / gw);
       }
-      for (int e = tid; e < gh * gw; e += THREADS)
+      for (int e = tid; e < gh * gw; e += TH)
         cell[e] = da::hash_keep(mask.k0, mask.k1, (uint32_t)e, mask.p);
     }
     return mask;
@@ -593,7 +647,7 @@ __device__ Mask build_mask(const Shared* P, int H, int W, bool fixed,
   const float wl = da::coarse_size(W, P->drop[3]);
   mask.wl = (int)wl;
   if (mask.on && !mask.pick) {
-    for (int e = tid; e < H + W; e += THREADS) {
+    for (int e = tid; e < H + W; e += TH) {
       if (e < H)
         frow[e] = da::coarse_cell(e, hl, H);
       else
@@ -602,7 +656,7 @@ __device__ Mask build_mask(const Shared* P, int H, int W, bool fixed,
     // min: a size column outside [0, 1) breaks the contract, not the block
     const int cells = min((int)hl * mask.wl, cap);
     const int nc = mask.per_channel ? C : 1;
-    for (int e = tid; e < cells * nc; e += THREADS) {
+    for (int e = tid; e < cells * nc; e += TH) {
       const int ce = e / nc, ch = e - ce * nc;
       const int cy = ce / mask.wl, cx = ce - cy * mask.wl;
       const uint32_t id = cell_id(cy, cx, W);
@@ -613,7 +667,7 @@ __device__ Mask build_mask(const Shared* P, int H, int W, bool fixed,
   return mask;
 }
 
-// -- programs 1-3: one op a pass over the float32 images f and g ------------
+// -- programs 2, 4 and 5: one op a pass over the float32 image f ----------
 
 // One warp stage st alone (_affine_warp): its tap table, then src -> dst,
 // masked where apply_mask.
@@ -648,52 +702,11 @@ __device__ void pixel_pass(int H, int W, Dst dst, const Mask& mask,
   }
 }
 
-// Whether Pascal1D's op `op` changes the image: its Sometimes gate is on
-// (and, for the blur, k > 1).
-__device__ __forceinline__ bool pascal_on(int op, const Shared* P,
-                                          const Mask& mask) {
-  switch (op) {
-    case P_CROP: return P->warp[0][6] > 0.5f;
-    case P_GAMMA: return P->pixel[0] > 0.5f;
-    case P_BLUR: return P->pixel[2] > 0.5f && P->pixel[3] > 1.5f;
-    case P_AFFINE: return P->warp[1][6] > 0.5f;
-    default: return mask.on;
-  }
-}
-
-// Pascal1D's op `op` on src, into dst (the other image for a warp or the
-// blur, src itself otherwise, or the output). An op that is off is the
-// identity: a copy.
-template <class Dst, class Round>
-__device__ void pascal_op(int op, const Shared* P, Axis* tab, int H, int W,
-                          const float* src, Dst dst, const Mask& mask,
-                          Round round) {
-  const int k = (int)P->pixel[3];
-  if (!pascal_on(op, P, mask)) {
-    pixel_pass(H, W, dst, mask, false,
-               [&](int y, int x) { return src[y * W + x]; });
-  } else if (op == P_CROP || op == P_AFFINE) {
-    warp_op(P->warp[op == P_AFFINE], tab, H, W, src, dst, mask, false);
-  } else if (op == P_GAMMA) {
-    const float g = P->pixel[1];
-    pixel_pass(H, W, dst, mask, false,
-               [&](int y, int x) { return da::gamma_px(src[y * W + x], g); });
-  } else if (op == P_BLUR) {
-    pixel_pass(H, W, dst, mask, false, [&](int y, int x) {
-      return da::blur_px(src, H, W, y, x, k, round);
-    });
-  } else {
-    pixel_pass(H, W, dst, mask, true,
-               [&](int y, int x) { return src[y * W + x]; });
-  }
-}
-
-// Programs 1-3 on f = x / 255 (with g the second image): Out writes the
-// output, Mid an image in shared memory (rounded to bfloat16 in bfloat16).
-template <int PROG, class Out, class Mid, class Round>
+// Programs 2, 4 and 5 on f = x / 255 (Distractor's 1 - x / 255): Out
+// writes the output, Mid f (rounded to bfloat16 in bfloat16).
+template <int PROG, class Out, class Mid>
 __device__ void run_pixel_program(const Args& a, const Shared* P, Axis* tab,
-                                  float* f, float* g, const Mask& mask,
-                                  Out out, Round round) {
+                                  float* f, const Mask& mask, Out out) {
   const int H = a.H, W = a.W;
   if constexpr (PROG == SHAPENET1D_FIXED) {     // geometric, then the mask
     warp_op(P->warp[0], tab, H, W, f, out, mask, true);
@@ -709,171 +722,6 @@ __device__ void run_pixel_program(const Args& a, const Shared* P, Axis* tab,
         __syncthreads();
       }
       warp_op(P->warp[1], tab, H, W, f, out, mask, false);
-    }
-  } else if constexpr (PROG == PASCAL_FIXED) {  // geometric, gamma, blur,
-    warp_op(P->warp[0], tab, H, W, f, Mid{g}, mask, false);    // the mask
-    __syncthreads();
-    if (P->pixel[0] > 0.5f) {
-      const float gm = P->pixel[1];
-      pixel_pass(H, W, Mid{g}, mask, false,
-                 [&](int y, int x) { return da::gamma_px(g[y * W + x], gm); });
-      __syncthreads();
-    }
-    const int k = (int)P->pixel[3];
-    const bool blur = P->pixel[2] > 0.5f && k > 1;
-    pixel_pass(H, W, out, mask, mask.on, [&](int y, int x) {
-      return blur ? da::blur_px(g, H, W, y, x, k, round) : g[y * W + x];
-    });
-  } else {                                      // Pascal1D, drawn order
-    float* cur = f;
-    float* other = g;
-    for (int s = 0; s < NPASCAL; ++s) {
-      const int op = P->perm[s];
-      const bool moves = op == P_CROP || op == P_AFFINE || op == P_BLUR;
-      if (s == NPASCAL - 1) {
-        pascal_op(op, P, tab, H, W, cur, out, mask, round);
-      } else if (pascal_on(op, P, mask)) {
-        pascal_op(op, P, tab, H, W, cur, Mid{moves ? other : cur}, mask,
-                  round);
-        if (moves) {
-          float* t = cur;
-          cur = other;
-          other = t;
-        }
-        __syncthreads();
-      }
-    }
-  }
-}
-
-// -- programs 6 and 7: float RGB, three planes in f and g ---------------------
-
-// Where an RGB pass writes channel c of pixel i = y W + x: a plane of an
-// image in shared memory, or the output, interleaved.
-struct Planes {
-  float* p;
-  int HW;
-  __device__ __forceinline__ void operator()(int c, int i, float v) const {
-    p[c * HW + i] = v;
-  }
-};
-struct OutRGB {
-  float* p;
-  __device__ __forceinline__ void operator()(int c, int i, float v) const {
-    p[i * RGB_C + c] = v;
-  }
-};
-// bfloat16: the planes hold float32 values rounded to bfloat16, the output
-// is bfloat16
-struct PlanesRounded {
-  float* p;
-  int HW;
-  __device__ __forceinline__ void operator()(int c, int i, float v) const {
-    p[c * HW + i] = bf16_round(v);
-  }
-};
-struct OutRGBBF16 {
-  __nv_bfloat16* p;
-  __device__ __forceinline__ void operator()(int c, int i, float v) const {
-    p[i * RGB_C + c] = __float2bfloat16_rn(v);
-  }
-};
-
-// One warp stage alone (_affine_warp) on the three planes of src: a warp
-// walks rows, lane l owns columns l + 32 k (k < NCOL), and each tap's
-// table entry serves all three channels.
-template <int NT, int NCOL, class Dst>
-__device__ void warp_rgb_pass(const Axis* tab, float cval, int H, int W,
-                              const float* src, Dst dst) {
-  const int lane = threadIdx.x & 31, HW = H * W;
-  const Axis* rows = tab;
-  const Axis* cols = tab + H;
-  int ci[NCOL][NT];
-  float cw[NCOL][NT], cr[NCOL];
-#pragma unroll
-  for (int k = 0; k < NCOL; ++k) {
-    const int col = min(lane + 32 * k, W - 1);
-    const Axis& e = cols[col];
-#pragma unroll
-    for (int q = 0; q < NT; ++q) {
-      ci[k][q] = e.idx[q];
-      cw[k][q] = e.w[q];
-    }
-    cr[k] = e.r;
-  }
-  for (int y = threadIdx.x >> 5; y < H; y += THREADS / 32) {
-    const Axis& ay = rows[y];
-    float acc[NCOL][RGB_C] = {};
-#pragma unroll
-    for (int a = 0; a < NT; ++a) {
-      const int base = ay.idx[a] * W;
-      const float wa = ay.w[a];
-#pragma unroll
-      for (int k = 0; k < NCOL; ++k) {
-#pragma unroll
-        for (int c = 0; c < RGB_C; ++c) {
-          float s = 0.f;
-#pragma unroll
-          for (int q = 0; q < NT; ++q)
-            s = fmaf(cw[k][q], src[c * HW + base + ci[k][q]], s);
-          acc[k][c] = fmaf(wa, s, acc[k][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < NCOL; ++k) {
-      const int x = lane + 32 * k;
-      if (x >= W) break;
-      const float fill =
-          da::chain_fill(ay.r, 0.f, cr[k], 0.f, cval, 0.f, da::AFFINE);
-#pragma unroll
-      for (int c = 0; c < RGB_C; ++c)
-        dst(c, y * W + x, __fadd_rn(acc[k][c], fill));
-    }
-  }
-}
-
-// Warp stage st alone: its tap table (H rows, then W columns), then src ->
-// dst.
-template <class Dst>
-__device__ void warp_rgb(const float* st, Axis* tab, int H, int W,
-                         const float* src, Dst dst) {
-  const int nt = da::stage_taps(st);
-  for (int e = threadIdx.x; e < H + W; e += THREADS) {
-    if (e < H)
-      da::axis_entry(e, H, st, nullptr, 1, nt, &tab[e]);
-    else
-      da::axis_entry(e - H, W, st, nullptr, 0, nt, &tab[e]);
-  }
-  __syncthreads();
-  if (W <= 64) {
-    if (nt == 1)
-      warp_rgb_pass<1, 2>(tab, st[4], H, W, src, dst);
-    else
-      warp_rgb_pass<2, 2>(tab, st[4], H, W, src, dst);
-  } else {
-    if (nt == 1)
-      warp_rgb_pass<1, COLS>(tab, st[4], H, W, src, dst);
-    else
-      warp_rgb_pass<2, COLS>(tab, st[4], H, W, src, dst);
-  }
-}
-
-// A pixel op on RGB: op(i, y, x, v) gives pixel i's three channels, which
-// dst writes (times the mask's keep bits where apply_mask). A thread holds
-// one pixel; the lanes of a warp take neighbouring pixels.
-template <class Dst, class Op>
-__device__ void rgb_pass(int H, int W, Dst dst, const Mask& mask,
-                         bool apply_mask, Op op) {
-  for (int i = threadIdx.x; i < H * W; i += THREADS) {
-    const int y = i / W, x = i - y * W;
-    float v[RGB_C];
-    op(i, y, x, v);
-#pragma unroll
-    for (int c = 0; c < RGB_C; ++c) {
-      float o = v[c];
-      if (apply_mask) o = __fmul_rn(o, keep_rgb(mask, y, x, c) ? 1.f : 0.f);
-      dst(c, i, o);
     }
   }
 }
@@ -896,94 +744,581 @@ __device__ __forceinline__ void bright_px(const float (&x)[RGB_C], float b,
   }
 }
 
-// Whether ShapeNet3D's op `op` changes the image: its Sometimes gate is on
-// (the blur's with k > 1; program 7's geometric has its gate set).
-__device__ __forceinline__ bool rgb_on(int op, const Shared* P,
-                                       const Mask& mask) {
-  switch (op) {
-    case S_CROP: return P->warp[0][6] > 0.5f;
-    case S_GAMMA: return P->pixel[0] > 0.5f;
-    case S_BRIGHT: return P->pixel[NX] > 0.5f;
-    case S_BLUR: return P->pixel[2] > 0.5f && P->pixel[3] > 1.5f;
-    case S_AFFINE: return P->warp[1][6] > 0.5f;
-    default: return mask.on;
-  }
+// -- programs 1, 3, 6 and 7: the pass engine (the header's "Programs 1, 3, 6
+// and 7") --------------------------------------------------------------------
+
+// The engine's ops; Pascal1D's and ShapeNet3D's op ids map onto them. The
+// first three move pixels, the others are pointwise.
+enum EngineOp { E_CROP = 0, E_AFFINE = 1, E_BLUR = 2, E_GAMMA = 3,
+                E_BRIGHT = 4, E_DROP = 5 };
+
+// a block's threads and the blocks an SM holds (its launch bounds), by
+// family (R: ShapeNet3D's RGB programs, else Pascal1D's) and output type:
+// the Pascal programs' float32 block (two float32 images of 128 x 128 and
+// the uint8 one, 171 KB) is alone on its SM; the others fit two (Pascal in
+// bfloat16, RGB in float32) or three (RGB in bfloat16)
+__host__ __device__ constexpr int engine_threads(bool R, bool bf16) {
+  return R || bf16 ? 512 : 1024;
+}
+__host__ __device__ constexpr int engine_blocks(bool R, bool bf16) {
+  return R ? (bf16 ? 3 : 2) : (bf16 ? 2 : 1);
 }
 
-// ShapeNet3D's op `op` on the planes of src into dst (the other image for a
-// warp or the blur, src itself otherwise, or the output); an op that is off
-// is a copy. Round rounds the blur's sums (bfloat16: at every add).
-template <class Dst, class Round>
-__device__ void rgb_op(int op, const Shared* P, Axis* tab, int H, int W,
-                       const float* src, Dst dst, const Mask& mask,
-                       Round round) {
-  const int HW = H * W;
-  const auto load = [&](int i, float (&v)[RGB_C]) {
-#pragma unroll
-    for (int c = 0; c < RGB_C; ++c) v[c] = src[c * HW + i];
-  };
-  const auto copy = [&](int i, int, int, float (&v)[RGB_C]) { load(i, v); };
-  if (!rgb_on(op, P, mask)) {
-    rgb_pass(H, W, dst, mask, false, copy);
-  } else if (op == S_CROP || op == S_AFFINE) {
-    warp_rgb(P->warp[op == S_AFFINE], tab, H, W, src, dst);
-  } else if (op == S_GAMMA) {
-    const float g = P->pixel[1];
-    rgb_pass(H, W, dst, mask, false, [&](int i, int, int, float (&v)[RGB_C]) {
-      load(i, v);
-#pragma unroll
-      for (int c = 0; c < RGB_C; ++c) v[c] = da::gamma_px(v[c], g);
-    });
-  } else if (op == S_BRIGHT) {
-    const float b = P->pixel[NX + 1];
-    rgb_pass(H, W, dst, mask, false, [&](int i, int, int, float (&v)[RGB_C]) {
-      float x[RGB_C];
-      load(i, x);
-      bright_px(x, b, v);
-    });
-  } else if (op == S_BLUR) {
-    const int k = (int)P->pixel[3];
-    rgb_pass(H, W, dst, mask, false,
-             [&](int, int y, int x, float (&v)[RGB_C]) {
-#pragma unroll
-               for (int c = 0; c < RGB_C; ++c)
-                 v[c] = da::blur_px(src + c * HW, H, W, y, x, k, round);
-             });
-  } else {
-    rgb_pass(H, W, dst, mask, true, copy);
-  }
+struct EngineLayout {
+  int f, g, stage, tab, lut, frow, fcol, cell, cap, par, bar, total;
+};
+
+// The dynamic shared memory of an engine block: the uint8 image (Pascal),
+// f and g (C planes each, of the output's type: bfloat16 holds every value
+// an op rounds to exactly; RGB: the RGBA image staged in their tail), the
+// two warps' tap tables, the quotient table (Pascal), the coarse grid's
+// rows, columns and cells, the parameters and the barrier.
+__host__ __device__ inline EngineLayout engine_layout(int H, int W, bool R,
+                                                      bool bf16) {
+  EngineLayout L;
+  const int HW = H * W, C = R ? RGB_C : 1;
+  const int plane = ((bf16 ? 2 : 4) * C * HW + 15) & ~15;
+  L.f = R ? 0 : (HW + 15) & ~15;               // the uint8 image at 0
+  L.g = L.f + plane;
+  // RGB: the RGBA image's bulk copy ends where g does (from f's last plane)
+  L.stage = L.g + plane - (bf16 ? 8 : 16) * HW;
+  L.tab = L.g + plane;
+  L.lut = L.tab + 2 * (H + W) * (int)sizeof(Axis);
+  L.frow = L.lut + (R ? 0 : 4 * 256);
+  L.fcol = L.frow + 4 * H;
+  L.cell = L.fcol + 4 * W;
+  L.cap = (H / 4 + 1) * (W / 4 + 1);
+  L.par = (L.cell + C * L.cap + 15) & ~15;
+  L.bar = L.par + (((int)sizeof(Shared) + 15) & ~15);
+  L.total = L.bar + 16;
+  return L;
 }
 
-// Programs 6 and 7 on f (the image's three planes), with g the second image:
-// program 6's drawn order of the six ops, or program 7's fixed one
-// (geometric, the warp of row 0 with its gate set, then GammaContrast,
-// AddToBrightness, AverageBlur and the fixed-grid mask); the last op writes
-// the output (Out), the others the planes (Mid: Planes, or PlanesRounded in
-// bfloat16).
-template <int PROG, class Mid, class Out, class Round>
-__device__ void run_rgb_program(const Shared* P, Axis* tab, int H, int W,
-                                float* f, float* g, const Mask& mask, Out out,
-                                Round round) {
-  const int FIXED[5] = {S_CROP, S_GAMMA, S_BRIGHT, S_BLUR, S_DROP};
-  constexpr int n = PROG == SHAPENET3D_FIXED ? 5 : NRGB;
-  float* cur = f;
-  float* other = g;
-  for (int s = 0; s < n; ++s) {
-    const int op = PROG == SHAPENET3D_FIXED ? FIXED[s] : P->perm[s];
-    const bool moves = op == S_CROP || op == S_AFFINE || op == S_BLUR;
-    if (s == n - 1) {
-      rgb_op(op, P, tab, H, W, cur, out, mask, round);
-    } else if (rgb_on(op, P, mask)) {
-      rgb_op(op, P, tab, H, W, cur, Mid{moves ? other : cur, H * W}, mask,
-             round);
-      if (moves) {
-        float* t = cur;
-        cur = other;
-        other = t;
-      }
-      __syncthreads();
+__device__ __forceinline__ int engine_op(bool R, int op) {
+  if (R) {
+    switch (op) {
+      case S_CROP: return E_CROP;
+      case S_GAMMA: return E_GAMMA;
+      case S_BRIGHT: return E_BRIGHT;
+      case S_BLUR: return E_BLUR;
+      case S_AFFINE: return E_AFFINE;
+      default: return E_DROP;
     }
   }
+  switch (op) {
+    case P_CROP: return E_CROP;
+    case P_GAMMA: return E_GAMMA;
+    case P_BLUR: return E_BLUR;
+    case P_AFFINE: return E_AFFINE;
+    default: return E_DROP;
+  }
+}
+
+// Whether op e changes the image: its Sometimes gate is on (the blur's with
+// k > 1; geometric, the fixed programs' CropAndPad, has its gate set). An
+// op that is off is the identity, exactly, and takes no pass.
+__device__ __forceinline__ bool engine_on(int e, const Shared* P) {
+  switch (e) {
+    case E_CROP: return P->warp[0][6] > 0.5f;
+    case E_AFFINE: return P->warp[1][6] > 0.5f;
+    case E_BLUR: return P->pixel[2] > 0.5f && P->pixel[3] > 1.5f;
+    case E_GAMMA: return P->pixel[0] > 0.5f;
+    case E_BRIGHT: return P->pixel[NX] > 0.5f;
+    default: return P->drop[0] > 0.5f;
+  }
+}
+
+// da::axis_entry for one stage (st1 null) in registers: the tent row of
+// output index i's sample position, its taps in order, r their sum from 0,
+// padded to nt taps with the first tap's index and weight 0 (no array
+// indexed at run time, so nothing in local memory).
+__device__ __forceinline__ void axis_entry1(int i, int n, const float* st,
+                                            int axis, int nt, Axis* e) {
+  const float src = da::stage_src(i, (float)(n - 1) * 0.5f, st, axis);
+  const float f = floorf(src);
+  const float j0 = __fadd_rn(f, 0.f), j1 = __fadd_rn(f, 1.f);
+  const float w0 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(src, j0))));
+  const float w1 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(src, j1))));
+  const bool v0 = w0 > 0.f && j0 >= 0.f && j0 < (float)n;
+  const bool v1 = w1 > 0.f && j1 >= 0.f && j1 < (float)n;
+  // the taps that count, first to last: (ia, wa) then (ib, wb)
+  const int ia = v0 ? (int)j0 : v1 ? (int)j1 : 0;
+  const float wa = v0 ? w0 : v1 ? w1 : 0.f;
+  const int ib = v0 && v1 ? (int)j1 : ia;
+  const float wb = v0 && v1 ? w1 : 0.f;
+  float r = 0.f;
+  if (v0 || v1) r = __fadd_rn(r, wa);
+  if (v0 && v1) r = __fadd_rn(r, wb);
+  e->idx[0] = ia;
+  e->w[0] = wa;
+  if (nt > 1) {
+    e->idx[1] = ib;
+    e->w[1] = wb;
+  }
+  e->r = r;
+  e->p = 0.f;
+}
+
+// The plan of one image from its drawn order (or the fixed one) and gates:
+// each moving op that is on is a pass; the pointwise ops that are on ride
+// with the pass before them (the load's, before the first moving op), in
+// their order.
+template <bool R>
+__device__ void make_plan(Shared* P, bool fixed) {
+  const int n = R ? (fixed ? 5 : (int)NRGB) : (fixed ? 4 : (int)NPASCAL);
+  // the fixed programs: geometric (the warp of row 0), GammaContrast,
+  // (AddToBrightness,) AverageBlur, then the fixed-grid mask
+  const int pascal_fixed[4] = {P_CROP, P_GAMMA, P_BLUR, P_DROP};
+  const int rgb_fixed[5] = {S_CROP, S_GAMMA, S_BRIGHT, S_BLUR, S_DROP};
+  Plan& pl = P->plan;
+  int moves = 0, npw = 0;      // pointwise ops in the current group
+  uint32_t code = 0;
+  for (int s = 0; s < n; ++s) {
+    const int op = !fixed ? P->perm[s] : R ? rgb_fixed[s] : pascal_fixed[s];
+    const int e = engine_op(R, op);
+    if (!engine_on(e, P)) continue;
+    if (e <= E_BLUR) {
+      pl.pw[moves] = code;
+      pl.move[moves++] = e;
+      code = 0;
+      npw = 0;
+    } else {
+      code |= (uint32_t)(e + 1) << (4 * npw++);
+    }
+  }
+  pl.pw[moves] = code;
+  for (int g = moves + 1; g <= MAX_MOVES; ++g) pl.pw[g] = 0;
+  pl.moves = moves;
+}
+
+// Warp 0 reads the draw's inputs first, one lane each (the uniforms, the
+// keys), issues the image's bulk copy (uint8, or RGBA into the tail of f
+// and g), which runs while it draws, then draws the image's parameters, two
+// lanes side by side, each with the single-thread formulas (the bits do
+// not depend on who computes them): lane 0 the warps and the dropout op
+// (draw_params, then geometric's warp), lane 1 the pixel ops. Warp 1 reads
+// and decodes the order meanwhile.
+template <bool R>
+__device__ void draw_engine(const Args& a, Shared* P, const EngineLayout& L,
+                            bool fixed) {
+  constexpr int nu = R ? NU_RGB : NU_PIXEL;
+  const int tid = threadIdx.x, lane = tid & 31, b = blockIdx.x;
+  if (tid >= 32) {                      // warp 1, lane 0: the order
+    if (fixed || lane != 0) return;
+    if (R) {
+      P->order = (int)(((a.order[0] % 720) + 720) % 720);
+      da::decode_order(P->order, NRGB, P->perm);
+    } else {
+      P->order = (int)(((a.order[0] % 120) + 120) % 120);
+      da::decode_order(P->order, NPASCAL, P->perm);
+    }
+    return;
+  }
+  if (lane < nu) {
+    P->u[lane] = a.u[(size_t)b * nu + lane];
+  } else if (lane == nu) {
+    P->k0 = (uint32_t)a.keys[2 * b];
+    P->k1 = (uint32_t)a.keys[2 * b + 1];
+  }
+  __syncwarp();
+  if (lane == 0) {
+    const int HW = a.H * a.W, t = b / a.S, s = b - t * a.S;
+    const char* image = static_cast<const char*>(a.x) + t * a.st + s * a.ss;
+    unsigned char* smem = reinterpret_cast<unsigned char*>(P) - L.par;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+    tc::bar_init(bar, 1);
+    tc::bar_init_fence();
+    if (R)
+      tc::bulk_load(smem + L.stage, image, HW * (a.bf16 ? 8 : 16), bar);
+    else
+      tc::bulk_load(smem, image, HW, bar);
+    const float* u = P->u;
+    draw_params(u, a.H, a.W, P);
+    if (fixed) draw_geometric(u, a.H, a.W, P);   // geometric's one warp
+  } else if (lane == 1) {
+    draw_pixel(P->u, P);
+    if (R) draw_bright(P->u, P);
+  }
+}
+
+// plane elements: float32, or bfloat16 (exact: each value is one an op has
+// rounded to bfloat16)
+__device__ __forceinline__ float ldv(const float* p, int i) { return p[i]; }
+__device__ __forceinline__ float ldv(const __nv_bfloat16* p, int i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void stv(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void stv(__nv_bfloat16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// Where a pass writes pixel (y, x)'s C channels: the planes of an image in
+// shared memory, or (to_out) the output, channels interleaved.
+template <class T, int C>
+struct Dest {
+  T* planes;
+  T* out;
+  int W, HW;
+  bool to_out;
+  __device__ __forceinline__ void operator()(int y, int x,
+                                             const float (&v)[C]) const {
+    if (to_out) {
+      const size_t i = ((size_t)y * W + x) * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) stv(out, i + c, v[c]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) stv(planes, c * HW + y * W + x, v[c]);
+    }
+  }
+};
+
+// The pointwise ops of `code` (4 bits an op, EngineOp + 1, the first in the
+// low bits) on pixel (y, x)'s channels in registers, in order, each rounded
+// as its JAX op rounds (Round: bfloat16 where it returns img.dtype; the
+// masks multiply by 0 or 1, exactly).
+template <int C, class Round>
+__device__ __forceinline__ void pointwise(uint32_t code, float (&v)[C], int y,
+                                          int x, const Pointwise& pw,
+                                          Round round) {
+  for (; code != 0; code >>= 4) {
+    const int e = (int)(code & 15u) - 1;
+    if (e == E_GAMMA) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = round(da::gamma_px(v[c], pw.gamma));
+    } else if (e == E_BRIGHT) {
+      if constexpr (C == RGB_C) {
+        float o[RGB_C];
+        bright_px(v, pw.bright, o);
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] = round(o[c]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const bool k = C == 1 ? keep(pw.mask, y, x)
+                              : keep_rgb(pw.mask, y, x, c);
+        v[c] = __fmul_rn(v[c], k ? 1.f : 0.f);
+      }
+    }
+  }
+}
+
+// A warp op alone (_affine_warp) from src's planes, then the pointwise ops
+// of `code`, into dst. A warp walks rows; lane l owns columns l + 32 k (k <
+// NCOL), their table entries in registers, so the lanes of a tap read
+// neighbouring elements of a plane; one row entry serves every channel.
+// Each column tap's sum over the row taps comes first, then the sum over
+// the column taps, each an FMA chain from 0 in index order: the grouping
+// and order of the twin's einsum (rows, then columns), whose zero weights
+// add nothing, so the sums equal the card twin's bit for bit.
+template <int TH, int NT, int NCOL, int C, class T, class Dst, class Round>
+__device__ void warp_pass(const Axis* tab, float cval, int H, int W,
+                          const T* src, Dst dst, uint32_t code,
+                          const Pointwise& pw, Round round) {
+  const int lane = threadIdx.x & 31, HW = H * W;
+  const Axis* cols = tab + H;
+  int ci[NCOL][NT];
+  float cw[NCOL][NT], cr[NCOL];
+#pragma unroll
+  for (int k = 0; k < NCOL; ++k) {
+    const Axis& col = cols[min(lane + 32 * k, W - 1)];
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      ci[k][q] = col.idx[q];
+      cw[k][q] = col.w[q];
+    }
+    cr[k] = col.r;
+  }
+  for (int y = threadIdx.x >> 5; y < H; y += TH / 32) {
+    const Axis& ay = tab[y];
+    float acc[NCOL][C] = {};
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+#pragma unroll
+      for (int k = 0; k < NCOL; ++k) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float t = 0.f;
+#pragma unroll
+          for (int a = 0; a < NT; ++a)
+            t = fmaf(ay.w[a], ldv(src, c * HW + ay.idx[a] * W + ci[k][q]), t);
+          acc[k][c] = fmaf(cw[k][q], t, acc[k][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NCOL; ++k) {
+      const int x = lane + 32 * k;
+      if (x >= W) break;
+      const float fill =
+          da::chain_fill(ay.r, 0.f, cr[k], 0.f, cval, 0.f, da::AFFINE);
+      float v[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = round(__fadd_rn(acc[k][c], fill));
+      pointwise(code, v, y, x, pw, round);
+      dst(y, x, v);
+    }
+  }
+}
+
+// AverageBlur's K x K window of plane s at rows ry (times W) and columns cx
+// (edge-clamped), summed in the JAX order (da::blur_px: dy-major, from the
+// first term, each add rounded), then divided: the K K loads issue before
+// the first add.
+template <int K, class T, class Round>
+__device__ __forceinline__ float blur_sum(const T* s, const int (&ry)[K],
+                                          const int (&cx)[K], Round round) {
+  float t[K * K];
+#pragma unroll
+  for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < K; ++dx) t[dy * K + dx] = ldv(s, ry[dy] + cx[dx]);
+  float acc = t[0];
+#pragma unroll
+  for (int j = 1; j < K * K; ++j) acc = round(__fadd_rn(acc, t[j]));
+  return __fdiv_rn(acc, (float)(K * K));
+}
+
+// AverageBlur (k = K) from src's planes, then the pointwise ops of `code`,
+// into dst; the warps and lanes as warp_pass's.
+template <int TH, int K, int NCOL, int C, class T, class Dst, class Round>
+__device__ void blur_pass(int H, int W, const T* src, Dst dst, uint32_t code,
+                          const Pointwise& pw, Round round) {
+  const int lane = threadIdx.x & 31, HW = H * W;
+  int cx[NCOL][K];
+#pragma unroll
+  for (int k = 0; k < NCOL; ++k)
+#pragma unroll
+    for (int d = 0; d < K; ++d)
+      cx[k][d] = min(max(lane + 32 * k + d - 1, 0), W - 1);
+  for (int y = threadIdx.x >> 5; y < H; y += TH / 32) {
+    int ry[K];
+#pragma unroll
+    for (int d = 0; d < K; ++d) ry[d] = min(max(y + d - 1, 0), H - 1) * W;
+#pragma unroll
+    for (int k = 0; k < NCOL; ++k) {
+      const int x = lane + 32 * k;
+      if (x >= W) break;
+      float v[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        v[c] = round(blur_sum<K>(src + c * HW, ry, cx[k], round));
+      pointwise(code, v, y, x, pw, round);
+      dst(y, x, v);
+    }
+  }
+}
+
+// One moving pass: op e from src into dst, then the pointwise ops of `code`.
+template <int TH, int NCOL, int C, class T, class Dst, class Round>
+__device__ void move_pass(int e, const Shared* P, const Axis* tab, int H,
+                          int W, const T* src, Dst dst, uint32_t code,
+                          const Pointwise& pw, Round round) {
+  if (e == E_BLUR) {
+    if (P->pixel[3] > 2.5f)
+      blur_pass<TH, 3, NCOL, C>(H, W, src, dst, code, pw, round);
+    else
+      blur_pass<TH, 2, NCOL, C>(H, W, src, dst, code, pw, round);
+    return;
+  }
+  const float* st = P->warp[e == E_AFFINE];
+  const Axis* t = tab + (e == E_AFFINE) * (H + W);
+  if (da::stage_taps(st) == 1)
+    warp_pass<TH, 1, NCOL, C>(t, st[4], H, W, src, dst, code, pw, round);
+  else
+    warp_pass<TH, 2, NCOL, C>(t, st[4], H, W, src, dst, code, pw, round);
+}
+
+// The moving passes of the plan: f -> g -> f ..., the last into the output;
+// a barrier between two, and the phase clock after each.
+template <int TH, int NCOL, int C, class T, class Round>
+__device__ void move_passes(const Args& a, const Shared* P, const Axis* tab,
+                            T* f, T* g, T* out, const Pointwise& pw,
+                            Round round) {
+  const int H = a.H, W = a.W, HW = H * W;
+  const int moves = P->plan.moves;
+  T* src = f;
+  T* dst = g;
+  for (int m = 0; m < moves; ++m) {
+    const bool last = m == moves - 1;
+    move_pass<TH, NCOL, C>(P->plan.move[m], P, tab, H, W, src,
+                           Dest<T, C>{dst, out, W, HW, last},
+                           P->plan.pw[m + 1], pw, round);
+    if (!last || a.stamps != nullptr) __syncthreads();
+    T* t = src;
+    src = dst;
+    dst = t;
+    stamp(a, 4 + m);
+  }
+}
+
+// The uint8 image (in shared memory) through the quotient table, then the
+// load's pointwise ops, into dst: a warp takes a row, 4 pixels a lane.
+template <int TH, class Dst, class Round>
+__device__ void load_u8(const uint8_t* img, const float* lut, int H, int W,
+                        Dst dst, uint32_t code, const Pointwise& pw,
+                        Round round) {
+  const int x0 = (threadIdx.x & 31) * 4;
+  if (x0 >= W) return;
+  for (int y = threadIdx.x >> 5; y < H; y += TH / 32) {
+    const uint32_t q = *reinterpret_cast<const uint32_t*>(img + y * W + x0);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float v[1] = {lut[(q >> (8 * c)) & 0xFFu]};
+      pointwise(code, v, y, x0 + c, pw, round);
+      dst(y, x0 + c, v);
+    }
+  }
+}
+
+// an RGBA pixel's first three channels: a float4, or a bfloat16 uint2
+// widened (R in the low half of .x)
+__device__ __forceinline__ void rgb_of(const float4& p, float (&v)[RGB_C]) {
+  v[0] = p.x;
+  v[1] = p.y;
+  v[2] = p.z;
+}
+__device__ __forceinline__ void rgb_of(const uint2& p, float (&v)[RGB_C]) {
+  v[0] = __uint_as_float(p.x << 16);
+  v[1] = __uint_as_float(p.x & 0xFFFF0000u);
+  v[2] = __uint_as_float(p.y << 16);
+}
+
+// The staged RGBA image (bulk-copied into the tail of f and g, from the
+// start of f's last plane) into dst, through the load's pointwise ops:
+// warp w takes rows w + TH / 32 r, lane l columns l + 32 k, in chunks of
+// 4 / NCOL rows a warp (4 pixels a lane); each lane reads its pixels of a
+// chunk, then (after a barrier) writes them. A pixel's last channel,
+// written into the plane the staging starts at, overwrites the staging of
+// the pixel a quarter of its index: one this chunk or an earlier one has
+// read. The next chunk's pixels lie beyond any write of this one.
+template <int TH, int NCOL, class V, class Dst, class Round>
+__device__ void load_rgba(const V* stg, int H, int W, Dst dst, uint32_t code,
+                          const Pointwise& pw, Round round) {
+  constexpr int PR = 4 / NCOL, NW = TH / 32;
+  const int lane = threadIdx.x & 31, w0 = threadIdx.x >> 5;
+  for (int y0 = 0; y0 < H; y0 += PR * NW) {
+    V v[PR][NCOL];
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+      const int y = y0 + w0 + r * NW;
+#pragma unroll
+      for (int k = 0; k < NCOL; ++k) {
+        const int x = lane + 32 * k;
+        if (y < H && x < W) v[r][k] = stg[y * W + x];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+      const int y = y0 + w0 + r * NW;
+#pragma unroll
+      for (int k = 0; k < NCOL; ++k) {
+        const int x = lane + 32 * k;
+        if (y < H && x < W) {
+          float c[RGB_C];
+          rgb_of(v[r][k], c);
+          pointwise(code, c, y, x, pw, round);
+          dst(y, x, c);
+        }
+      }
+    }
+  }
+}
+
+// Programs 1, 3, 6 and 7 (the header's "Programs 1, 3, 6 and 7").
+template <bool R, bool BF16, int NCOL>
+__device__ void engine(const Args& a, unsigned char* smem) {
+  constexpr int TH = engine_threads(R, BF16);
+  constexpr int C = R ? RGB_C : 1;
+  const bool fixed = fixed_order(a.program);
+  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  using V = typename std::conditional<BF16, uint2, float4>::type;
+  using Round = typename std::conditional<BF16, da::RoundBF16,
+                                          da::RoundF32>::type;
+  const Round round{};
+  const int H = a.H, W = a.W, HW = H * W, tid = threadIdx.x, b = blockIdx.x;
+  const EngineLayout L = engine_layout(H, W, R, BF16);
+  const uint8_t* src8 = smem;           // Pascal: the uint8 image
+  T* f = reinterpret_cast<T*>(smem + L.f);
+  T* g = reinterpret_cast<T*>(smem + L.g);
+  Axis* tab = reinterpret_cast<Axis*>(smem + L.tab);  // CropAndPad, Affine
+  float* lut = reinterpret_cast<float*>(smem + L.lut);
+  int* frow = reinterpret_cast<int*>(smem + L.frow);
+  int* fcol = reinterpret_cast<int*>(smem + L.fcol);
+  uint8_t* cell = smem + L.cell;
+  Shared* P = reinterpret_cast<Shared*>(smem + L.par);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  T* out = static_cast<T*>(a.out) + (size_t)b * HW * C;
+
+  stamp(a, 0);
+  if (tid < 64) draw_engine<R>(a, P, L, fixed);
+  __syncthreads();
+  stamp(a, 1);
+  // the last thread (which builds no tap entry at the paths' shapes) makes
+  // the plan, read after the tables' barrier
+  if (tid == TH - 1) make_plan<R>(P, fixed);
+
+  if (a.params_out != nullptr) {        // warp, drop, pixel: one float row
+    const int width = R ? NPARAMS_RGB : NPARAMS_PIXEL;
+    const float* row = &P->warp[0][0];
+    for (int i = tid; i < width; i += TH)
+      a.params_out[(size_t)b * width + i] = row[i];
+  }
+  // the tap tables of the warp ops that are on, [H] rows then [W] columns
+  for (int e = tid; e < 2 * (H + W); e += TH) {
+    const int w = e >= H + W;
+    const int i = e - w * (H + W);
+    const float* st = P->warp[w];
+    if (!(st[6] > 0.5f)) continue;
+    const int nt = da::stage_taps(st);
+    if (i < H)
+      axis_entry1(i, H, st, 1, nt, &tab[e]);
+    else
+      axis_entry1(i - H, W, st, 0, nt, &tab[e]);
+  }
+  if constexpr (!R) {
+    for (int i = tid; i < 256; i += TH) {
+      const float q = __fdiv_rn((float)i, 255.f);
+      lut[i] = BF16 ? bf16_round(q) : q;
+    }
+  }
+  const Mask mask = build_mask<TH>(P, H, W, fixed, L.cap, frow, fcol, cell,
+                                   C);
+  if (tid == TH - 1)
+    P->pw = Pointwise{P->pixel[1], R ? P->pixel[NX + 1] : 0.f, mask};
+  __syncthreads();
+  stamp(a, 2);
+  const Pointwise& pw = P->pw;     // read from shared memory where used
+
+  // the load, then the moving passes
+  const uint32_t code = P->plan.pw[0];
+  const bool direct = P->plan.moves == 0;     // the load writes the output
+  tc::bar_wait(bar, 0);
+  const Dest<T, C> to{f, out, W, HW, direct};
+  if constexpr (R)
+    load_rgba<TH, NCOL>(reinterpret_cast<const V*>(smem + L.stage), H, W, to,
+                        code, pw, round);
+  else
+    load_u8<TH>(src8, lut, H, W, to, code, pw, round);
+  if (!direct || a.stamps != nullptr) __syncthreads();
+  stamp(a, 3);
+  move_passes<TH, NCOL, C>(a, P, tab, f, g, out, pw, round);
+  stamp(a, 4 + P->plan.moves, STAMPS);
+}
+
+// Programs 1 and 3 (R false) or 6 and 7 (R true); a lane owns 4 columns of
+// Pascal1D's images and 2 or 4 of ShapeNet3D's.
+template <bool R, bool BF16>
+__global__ void __launch_bounds__(engine_threads(R, BF16),
+                                  engine_blocks(R, BF16))
+    image_da_kernel_engine(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (R && a.W <= 64)
+    engine<R, BF16, 2>(a, smem);
+  else
+    engine<R, BF16, 4>(a, smem);
 }
 
 // Program 0 after the staging (the header's "Design").
@@ -1021,9 +1356,9 @@ __device__ void run_shapenet1d(const Args& a, const Layout& L, Shared* P,
   }
   const Mask mask = build_mask(P, H, W, false, L.cap, frow, fcol, cell);
   __syncthreads();
-  stamp(a, 1);
-  tc::bar_wait(bar, 0);
   stamp(a, 2);
+  tc::bar_wait(bar, 0);
+  stamp(a, 3);
 
   const Chain A{tab, n[0] ? st[0][0][4] : 0.f,
                 n[0] == 2 ? st[0][1][4] : 0.f, n[0] == 2};
@@ -1044,10 +1379,9 @@ template <int PROG>
 __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = a.H, W = a.W, HW = H * W;
-  const Layout L = layout(H, W, PROG);
+  const Layout L = layout(H, W);
   uint8_t* src8 = smem;
   float* fbuf = reinterpret_cast<float*>(smem + L.f);
-  float* gbuf = reinterpret_cast<float*>(smem + L.g);
   Axis* tab = reinterpret_cast<Axis*>(smem + L.tab);   // chain A, chain B
   float* lut = reinterpret_cast<float*>(smem + L.lut);
   int* frow = reinterpret_cast<int*>(smem + L.frow);
@@ -1061,29 +1395,17 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
   const char* image = static_cast<const char*>(a.x) + t * a.st + s * a.ss;
   stamp(a, 0);
   if (tid == 0) {
-    if constexpr (!rgb(PROG)) {
-      tc::bar_init(bar, 1);
-      tc::bar_init_fence();
-      tc::bulk_load(src8, image, HW, bar);
-    }
+    tc::bar_init(bar, 1);
+    tc::bar_init_fence();
+    tc::bulk_load(src8, image, HW, bar);
     const float* u = a.u + (size_t)b * program_nu(PROG);
     draw_params(u, H, W, P);
     if (geometric(PROG)) draw_geometric(u, H, W, P);
-    if (pixel_ops(PROG)) draw_pixel(u, P);
-    if (rgb(PROG)) draw_bright(u, P);
     P->k0 = (uint32_t)a.keys[2 * b];
     P->k1 = (uint32_t)a.keys[2 * b + 1];
     if (PROG == SHAPENET1D)
       P->order = (int)(((a.order[0] % 6) + 6) % 6);   // as the twin reads it
-    if (PROG == PASCAL) {
-      P->order = (int)(((a.order[0] % 120) + 120) % 120);
-      da::decode_order(P->order, NPASCAL, P->perm);
-    }
     if (PROG == DISTRACTOR) P->order = (int)(((a.order[0] % 2) + 2) % 2);
-    if (PROG == SHAPENET3D) {
-      P->order = (int)(((a.order[0] % 720) + 720) % 720);
-      da::decode_order(P->order, NRGB, P->perm);
-    }
     if (a.params_out != nullptr) {
       const int width = program_nparams(PROG);
       float* o = a.params_out + (size_t)b * width;
@@ -1092,50 +1414,15 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
         o[NP + i] = P->warp[1][i];
       }
       for (int i = 0; i < ND; ++i) o[2 * NP + i] = P->drop[i];
-      for (int i = NPARAMS; i < width; ++i)
-        o[i] = pixel_ops(PROG) ? P->pixel[i - NPARAMS] : 0.f;
+      for (int i = NPARAMS; i < width; ++i) o[i] = 0.f;
     }
   }
   __syncthreads();
+  stamp(a, 1);
 
   if constexpr (PROG == SHAPENET1D) {
     run_shapenet1d(a, L, P, src8, fbuf, tab, lut, frow, fcol, cell, bar);
-  } else if constexpr (rgb(PROG)) {
-    const Mask mask = build_mask(P, H, W, fixed_order(PROG), L.cap, frow,
-                                 fcol, cell, RGB_C);
-    stamp(a, 1);
-    // the RGBA image's first three channels into f's three planes: a float4
-    // a pixel, or in bfloat16 a uint2 widened (R in the low half of .x)
-    if (a.bf16) {
-      const uint2* x2 = reinterpret_cast<const uint2*>(image);
-      for (int i = tid; i < HW; i += THREADS) {
-        const uint2 v = x2[i];
-        fbuf[i] = __uint_as_float(v.x << 16);
-        fbuf[HW + i] = __uint_as_float(v.x & 0xFFFF0000u);
-        fbuf[2 * HW + i] = __uint_as_float(v.y << 16);
-      }
-    } else {
-      const float4* x4 = reinterpret_cast<const float4*>(image);
-      for (int i = tid; i < HW; i += THREADS) {
-        const float4 v = x4[i];
-        fbuf[i] = v.x;
-        fbuf[HW + i] = v.y;
-        fbuf[2 * HW + i] = v.z;
-      }
-    }
-    __syncthreads();
-    stamp(a, 2);
-    stamp(a, 3);
-    const size_t o = (size_t)b * HW * RGB_C;
-    if (a.bf16)
-      run_rgb_program<PROG, PlanesRounded>(
-          P, tab, H, W, fbuf, gbuf, mask,
-          OutRGBBF16{static_cast<__nv_bfloat16*>(a.out) + o}, da::RoundBF16{});
-    else
-      run_rgb_program<PROG, Planes>(P, tab, H, W, fbuf, gbuf, mask,
-                                    OutRGB{static_cast<float*>(a.out) + o},
-                                    da::RoundF32{});
-  } else {
+  } else {                                    // programs 2, 4 and 5
     for (int i = tid; i < 256; i += THREADS) {
       const float q = __fdiv_rn((float)i, 255.f);
       if (inverted(PROG))           // 1 - x / 255, in bfloat16 rounded twice
@@ -1147,32 +1434,33 @@ __global__ void __launch_bounds__(THREADS, 2) image_da_kernel(const Args a) {
     const Mask mask = build_mask(P, H, W, fixed_order(PROG), L.cap, frow,
                                  fcol, cell);
     __syncthreads();
-    stamp(a, 1);
-    tc::bar_wait(bar, 0);
     stamp(a, 2);
+    tc::bar_wait(bar, 0);
+    stamp(a, 3);
     to_float(src8, lut, fbuf, H, W, mask, false);
     __syncthreads();
-    stamp(a, 3);
+    stamp(a, 4);
     if (a.bf16)
       run_pixel_program<PROG, OutBF16, OutRounded>(
-          a, P, tab, fbuf, gbuf, mask,
-          OutBF16{static_cast<__nv_bfloat16*>(a.out) + (size_t)b * HW},
-          da::RoundBF16{});
+          a, P, tab, fbuf, mask,
+          OutBF16{static_cast<__nv_bfloat16*>(a.out) + (size_t)b * HW});
     else
       run_pixel_program<PROG, OutF32, OutF32>(
-          a, P, tab, fbuf, gbuf, mask,
-          OutF32{static_cast<float*>(a.out) + (size_t)b * HW},
-          da::RoundF32{});
+          a, P, tab, fbuf, mask,
+          OutF32{static_cast<float*>(a.out) + (size_t)b * HW});
   }
   if (a.stamps != nullptr) {
     __syncthreads();
-    stamp(a, 4);
+    stamp(a, 5, STAMPS);
   }
 }
 
 constexpr int MAX_DEVICES = 64;
 // the attribute set on each program's kernel on each device so far
 int configured_smem[NPROGRAMS][MAX_DEVICES];
+
+// and on each engine kernel (float32, bfloat16; Pascal1D, ShapeNet3D)
+int configured_engine[2][2][MAX_DEVICES];
 
 template <int PROG>
 cudaError_t launch(const Args& a, int B, int smem, int dev,
@@ -1188,11 +1476,48 @@ cudaError_t launch(const Args& a, int B, int smem, int dev,
   return cudaGetLastError();
 }
 
+template <bool R, bool BF16>
+cudaError_t launch_engine(const Args& a, int B, int smem, int dev,
+                          cudaStream_t stream) {
+  if (smem > configured_engine[BF16][R][dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        image_da_kernel_engine<R, BF16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured_engine[BF16][R][dev] = smem;
+  }
+  image_da_kernel_engine<R, BF16>
+      <<<B, engine_threads(R, BF16), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool R>
+cudaError_t launch_engine_any(const Args& a, int B, int smem, int dev,
+                              cudaStream_t stream) {
+  return a.bf16 ? launch_engine<R, true>(a, B, smem, dev, stream)
+                : launch_engine<R, false>(a, B, smem, dev, stream);
+}
+
+// the dynamic shared memory of program prog's block
+int smem_bytes(int prog, int H, int W, bool bf16) {
+  return pixel_ops(prog) ? engine_layout(H, W, rgb(prog), bf16).total
+                         : layout(H, W).total;
+}
+
 }  // namespace
 
-// the dynamic shared memory a block of ``program`` takes for H x W images
-extern "C" int wmfml_image_da_smem_bytes(int program, int H, int W) {
-  return layout(H, W, program).total;
+// A launch's geometry for ``program`` on H x W images writing float32 (bf16
+// = 0) or bfloat16: out[0] the threads of a block, out[1] its dynamic
+// shared memory, out[2] the blocks an SM holds by its launch bounds. -1 for
+// a program the kernel does not have.
+extern "C" int wmfml_image_da_geometry(int program, int H, int W, int bf16,
+                                       int* out) {
+  if (program < 0 || program >= NPROGRAMS) return -1;
+  const bool passes = pixel_ops(program);
+  out[0] = passes ? engine_threads(rgb(program), bf16 != 0) : THREADS;
+  out[1] = smem_bytes(program, H, W, bf16 != 0);
+  out[2] = passes ? engine_blocks(rgb(program), bf16 != 0) : 2;
+  return 0;
 }
 
 // x: uint8 images, image (t, s) at x + t st + s ss (bytes), each H x W x 1
@@ -1207,10 +1532,10 @@ extern "C" int wmfml_image_da_smem_bytes(int program, int H, int W) {
 // params_out null or [B, 19] f32 for program 0, [B, 25] for programs 6 and
 // 7, [B, 23] for the others (the parameters the kernel computed: warp [2,
 // 7], drop [5], then the pixel ops' [4] and brightness's [2]); stamps null
-// or [B, 5] i64 (the phase clock); program 0-7 (Program). W a multiple of 4
-// and at most 128, H W a multiple of 16, the image in one block's shared
-// memory; the fixed programs also need H and W multiples of their grid's
-// cells.
+// or [B, STAMPS] i64 (the phase clock); program 0-7 (Program). W a multiple
+// of 4 and at most 128, H W a multiple of 16, the image in one block's
+// shared memory; the fixed programs also need H and W multiples of their
+// grid's cells.
 // Returns the cudaError_t of the launch, or -1 for a shape or program the
 // kernel does not take.
 extern "C" int wmfml_image_da_fwd(const void* x, long long st,
@@ -1226,28 +1551,28 @@ extern "C" int wmfml_image_da_fwd(const void* x, long long st,
       (H % da::fixed_cells(H) || W % da::fixed_cells(W)))
     return -1;
   if (!fixed_order(program) && order == nullptr) return -1;
-  const int smem = layout(H, W, program).total;
+  const int smem = smem_bytes(program, H, W, bf16 != 0);
   if (smem > MAX_SMEM) return -1;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   const Args a{x,   st,         ss,     S, u, keys, order,
-               out, params_out, stamps, H, W, bf16 != 0};
+               out, params_out, stamps, H, W, bf16 != 0, program};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (program) {
     case SHAPENET1D: err = launch<SHAPENET1D>(a, B, smem, dev, s); break;
-    case PASCAL: err = launch<PASCAL>(a, B, smem, dev, s); break;
     case SHAPENET1D_FIXED:
       err = launch<SHAPENET1D_FIXED>(a, B, smem, dev, s);
       break;
-    case PASCAL_FIXED: err = launch<PASCAL_FIXED>(a, B, smem, dev, s); break;
     case DISTRACTOR: err = launch<DISTRACTOR>(a, B, smem, dev, s); break;
     case DISTRACTOR_FIXED:
       err = launch<DISTRACTOR_FIXED>(a, B, smem, dev, s);
       break;
-    case SHAPENET3D: err = launch<SHAPENET3D>(a, B, smem, dev, s); break;
-    default: err = launch<SHAPENET3D_FIXED>(a, B, smem, dev, s); break;
+    default:                  // the engine: 1 and 3, or 6 and 7
+      err = rgb(program) ? launch_engine_any<true>(a, B, smem, dev, s)
+                         : launch_engine_any<false>(a, B, smem, dev, s);
+      break;
   }
   return (int)err;
 }

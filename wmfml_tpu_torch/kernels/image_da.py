@@ -43,12 +43,17 @@ tensor takes the plain twin ``image_da_plain`` (the program's
 kernel or raises. Each launch counts in ``image_da.launches`` and in
 ``image_da.program_launches[program]``. Augmentation is not
 differentiated, so there is no backward.
+
+Programs 1, 3, 6 and 7 run on the kernel's pass engine: ``engine_passes``
+mirrors the passes it plans for an image, ``launch_geometry`` its blocks
+(``kernel_geometry`` reads the library's own), and the card checks draw
+``covering_orders``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -79,9 +84,12 @@ RGB = ("shapenet_3d", "shapenet_3d_fixed")
 NPARAMS = 2 * 7 + 5     # the kernel's parameter row: warp [2, 7], drop [5]
 NPARAMS_PIXEL = NPARAMS + 4    # then the pixel ops' [4] (programs 1-5)
 NPARAMS_RGB = NPARAMS_PIXEL + 2    # and brightness's [2] (programs 6, 7)
-# the kernel's phase clock (csrc/image_da.cu: stamp)
-PHASES = ("start", "tables_built", "image_staged", "mask_or_first_pass_done",
-          "end")
+# the kernel's phase clock (csrc/image_da.cu: stamp): each block's first
+# thread reads the global timer after the draw, the tables, the load (the
+# image in shared memory, its first pointwise ops applied) and each pass;
+# a program's unused pass points read the end
+PHASES = ("start", "drawn", "tables_built", "image_staged", "pass_1",
+          "pass_2", "pass_3", "pass_4", "pass_5", "pass_6", "end")
 STAMPS = len(PHASES)
 UNSUPPORTED = ("image DA kernel takes uint8 [B, H, W, 1] or [T, S, H, W, 1] "
                "images (ShapeNet3D's programs: float [..., H, W, 3], the "
@@ -94,6 +102,148 @@ UNSUPPORTED = ("image DA kernel takes uint8 [B, H, W, 1] or [T, S, H, W, 1] "
 
 
 DTYPES = (torch.float32, torch.bfloat16)
+
+# -- the pass engine of programs 1, 3, 6 and 7 (csrc/image_da.cu) -----------
+
+ENGINE = ("pascal_1d", "pascal_1d_fixed", "shapenet_3d", "shapenet_3d_fixed")
+# the ops that move pixels: each is a pass; the others are pointwise
+MOVING = ("crop_and_pad", "average_blur", "affine")
+# the fixed programs' sequences; crop_and_pad is geometric (warp row 0)
+FIXED_SEQUENCES = {
+    "pascal_1d_fixed": ("crop_and_pad", "gamma_contrast", "average_blur",
+                        "one_of_dropout"),
+    "shapenet_3d_fixed": ("crop_and_pad", "gamma_contrast", "brightness",
+                          "average_blur", "one_of_dropout")}
+
+
+def op_sequence(program: str, order: Optional[int] = None) -> tuple:
+    """The op names an engine program applies, in order: the order index
+    read modulo the program's count, or the fixed program's sequence."""
+    from wmfml_tpu_torch.aug import image_aug
+
+    if program in FIXED_SEQUENCES:
+        return FIXED_SEQUENCES[program]
+    if program == "pascal_1d":
+        ops, orders = image_aug.PASCAL_OPS, image_aug.PASCAL_ORDERS
+    elif program == "shapenet_3d":
+        ops, orders = image_aug.SHAPENET3D_OPS, image_aug.SHAPENET3D_ORDERS
+    else:
+        raise ValueError(f"{program!r} is not an engine program: {ENGINE}")
+    return tuple(ops[i] for i in orders[int(order) % len(orders)])
+
+
+def engine_passes(program: str, order: Optional[int] = None,
+                  on: Optional[Sequence[str]] = None) -> tuple:
+    """The passes the engine runs on one image (``csrc/image_da.cu:
+    make_plan``): the load, then one per moving op whose gate is on, each
+    with the pointwise ops that are on and come after it, in order; ``on``
+    the names of the ops that are on (None: all). Returns ((op or "load",
+    (pointwise ops, ...)), ...)."""
+    passes = [("load", [])]
+    for op in op_sequence(program, order):
+        if on is not None and op not in on:
+            continue
+        if op in MOVING:
+            passes.append((op, []))
+        else:
+            passes[-1][1].append(op)
+    return tuple((op, tuple(pw)) for op, pw in passes)
+
+
+def covering_orders(program: str) -> tuple:
+    """Orders of ``program`` (every gate on) in which, together, each
+    pointwise op rides with each moving op, and one pointwise op rides with
+    the load: the first order of the program's list that adds a pair,
+    until every pair is in."""
+    from wmfml_tpu_torch.aug import image_aug
+
+    ops = (image_aug.SHAPENET3D_OPS if program == "shapenet_3d"
+           else image_aug.PASCAL_OPS)
+    want = {(m, p) for m in MOVING + ("load",) for p in ops
+            if p not in MOVING}
+    picked = []
+    for order in range(PROGRAM_ORDERS[program]):
+        pairs = {(m, p) for m, pw in engine_passes(program, order)
+                 for p in pw} & want
+        if pairs:
+            picked.append(order)
+            want -= pairs
+        if not want:
+            return tuple(picked)
+    raise AssertionError(f"{program}: no orders put {sorted(want)}")
+
+
+# -- the launch's geometry (csrc/image_da.cu: layout, engine_layout,
+# engine_threads, engine_blocks), mirrored for the host --------------------
+
+SMS = 132                 # an H100 SXM's streaming multiprocessors
+SM_SMEM = 233472          # the shared memory an SM holds (228 KB)
+BLOCK_RESERVED = 1024     # what the runtime keeps of it for each block
+MAX_SMEM = 232448         # the most a block may take (227 KB)
+SM_THREADS = 2048
+AXIS_BYTES = 40           # csrc/warp.cuh: Axis
+SHARED_BYTES = 328        # csrc/image_da.cu: Shared
+# (float32, bfloat16): the engine's threads a block, and the blocks an SM
+# holds by its launch bounds (the registers are capped to fit them)
+ENGINE_THREADS = {"pascal": (1024, 512), "rgb": (512, 512)}
+ENGINE_BLOCKS = {"pascal": (1, 2), "rgb": (2, 3)}
+THREADS = 256             # programs 0, 2, 4 and 5: two blocks an SM
+
+
+def kernel_geometry(program: str, h: int, w: int,
+                    dtype=torch.float32) -> tuple:
+    """The library's own geometry for ``program`` (``csrc/image_da.cu:
+    wmfml_image_da_geometry``): (threads a block, its dynamic shared
+    memory, the blocks an SM holds by its launch bounds). Builds the
+    kernel; for holding ``launch_geometry`` against it on the card."""
+    fn = build.load("image_da").wmfml_image_da_geometry
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    if fn(PROGRAMS.index(program), h, w, int(dtype == torch.bfloat16),
+          ctypes.addressof(out)) != 0:
+        raise ValueError(f"image DA has no program {program!r}")
+    return tuple(out)
+
+
+def _up16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def smem_bytes(program: str, h: int, w: int, dtype=torch.float32) -> int:
+    """The dynamic shared memory of one block of ``program`` on h x w
+    images writing ``dtype``."""
+    hw, cap = h * w, (h // 4 + 1) * (w // 4 + 1)
+    if program in ENGINE:
+        c = 3 if program in RGB else 1
+        plane = _up16((2 if dtype == torch.bfloat16 else 4) * c * hw)
+        tab = (0 if program in RGB else _up16(hw)) + 2 * plane
+        lut = 0 if program in RGB else 4 * 256
+    else:
+        c, tab, lut = 1, _up16(hw) + 4 * hw, 4 * 256
+    cell = tab + 2 * (h + w) * AXIS_BYTES + lut + 4 * (h + w)
+    return _up16(cell + c * cap) + _up16(SHARED_BYTES) + 16
+
+
+def launch_geometry(program: str, h: int, w: int, dtype=torch.float32,
+                    images: int = 1) -> dict:
+    """One launch of ``program`` on ``images`` h x w images: its block's
+    threads and shared memory, the blocks an SM holds (by shared memory
+    and threads; the launch bounds' count, ``min_blocks``, is what the
+    registers are capped to fit), and the waves the images take on
+    ``SMS`` SMs."""
+    if program in ENGINE:
+        family = "rgb" if program in RGB else "pascal"
+        i = int(dtype == torch.bfloat16)
+        threads = ENGINE_THREADS[family][i]
+        min_blocks = ENGINE_BLOCKS[family][i]
+    else:
+        threads, min_blocks = THREADS, 2
+    smem = smem_bytes(program, h, w, dtype)
+    blocks = min(SM_SMEM // (smem + BLOCK_RESERVED), SM_THREADS // threads)
+    return dict(threads=threads, smem=smem, blocks_per_sm=blocks,
+                min_blocks=min_blocks,
+                waves=-(-images // (SMS * blocks)) if blocks else None)
 
 
 def nparams(program: str) -> int:
