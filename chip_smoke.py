@@ -75,13 +75,15 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      card's distance from the CPU moves from run to run with cuDNN's
      default algorithms (0.0046 and 0.0225 degrees on two runs on an H100,
      against a VAL_TOL of 0.0223);
-  8. the second-order outer gradient of one full-width MAML batch (the
-     replayed training's first, augmented once through K6: DA has no
-     gradient) through the kernels against
-     the same gradient by plain autograd through the twins (no custom
-     autograd Function at all), on the card, on phase 7's training replayed
-     under deterministic algorithms, so that its state, its sums and its
-     verdict are the same on every run;
+  8. the second-order outer gradient of four full-width MAML batches (the
+     replayed training's first, then three drawn from the seeds after it,
+     each augmented once through K6: DA has no gradient) through the
+     kernels against the same gradient by plain autograd through the twins
+     (no custom autograd Function at all), on the card, on phase 7's
+     training replayed under deterministic algorithms, so that its state,
+     its sums and its verdict are the same on every run: the first within
+     GRAD_FACTOR times the twins' error, the others by their own rounding
+     spread (``SPREAD_BATCHES``);
   9. the bfloat16 ANP path (``compute_dtype: bfloat16``, ``bench.py``'s
      headline configuration, as ``bench.py`` runs it: 64 steps a call):
      ``ANP_DA+TA_ShapeNet1D.yaml`` with ``compute_dtype=bfloat16``, 192
@@ -320,15 +322,19 @@ Phases, each fatal on failure (nothing is caught and reported as ok):
      wide (``check_favor_kmax``). The kernels line gives each row the
      launches of phases 24 and 25 at its shapes (``phase24_launches``);
  26. ``conv_bwd: phase`` (ROADMAP.md B8a): K1b, the stem's backward kernel
-     (``csrc/stem_bwd.cu``), against its twin ``stem_backward_phase_plain``
-     at ANP's [300, 128, 128, 1] in float32 (on dyadic inputs, every
-     forward sum exact, so both take the same ReLU and pool decisions:
-     each gradient within BWD_GRAD_FACTOR times the float32 twin's own
-     distance from float64, or BWD_TOL of its largest; on uniform images
-     and the model's weights logged) and in bfloat16 (``check_bf16``'s
-     rule), and at P3 T40's [1,200, 128, 128, 1] in bfloat16 (off_path);
-     card, device, plain, bound and library (today's backward: autodiff of
-     the twin on cuDNN) ms (``check_stem_backward``). Then
+     (``csrc/stem_bwd.cu``) on the pool's routes of K1's forward, against
+     its twin ``stem_backward_phase_plain`` at ANP's [300, 128, 128, 1] in
+     float32 (on dyadic inputs, every forward sum exact, so K1's routes
+     are the twin's: each gradient within BWD_GRAD_FACTOR times the
+     float32 twin's own distance from float64, or BWD_TOL of its largest;
+     on uniform images and the model's weights, each gradient against the
+     twin fed the decisions K1b took, at the same limits, and the
+     decisions that differ from the twin's own logged) and in bfloat16
+     (``check_bf16``'s rule), and at P3 T40's [1,200, 128, 128, 1] in
+     bfloat16 (off_path); card, device (by kernel), plain, bound and
+     library (today's backward: autodiff of the twin on cuDNN) ms
+     (``check_stem_backward``); K1 with the routes against K1 without
+     (outputs bit for bit, ms in turns; ``check_stem(route=True)``). Then
      ``cfg/train/ANP_DA+TA_ShapeNet1D.yaml`` with ``conv_bwd=phase`` (16
      steps, 8 a call) in float32 and bfloat16 through ``train_phase`` (K1b
      once a step, graph nodes included), card against CPU validation,
@@ -623,6 +629,16 @@ TOL = {"literature_stem": (1e-4, 1e-4), "favor_attention": (1e-5, 1e-4),
 # GRAD_FACTOR times the error of the plain float32 twins (two float32 sums in
 # another order err about equally)
 GRAD_TOL, GRAD_FACTOR = 1e-3, 3.0
+# phase 8 also holds SPREAD_BATCHES more batches, drawn from generators
+# seeded seed + 1 .. seed + SPREAD_BATCHES: float32's error there swings
+# from batch to batch with the rounding alone (``--grad-spread`` has read
+# 6x the twins' on one batch in eight), so each added batch is held
+# against its own rounding spread, read from the twins alone: the batch
+# and SPREAD_JITTERS copies of it with half the nonzero pixels moved one
+# ulp (every rounding after them moves, no true gradient does) give as
+# many samples of float32's error, and the kernels' largest error over
+# them must come within GRAD_FACTOR times the twins' largest (or GRAD_TOL)
+SPREAD_BATCHES, SPREAD_JITTERS = 3, 1
 # bfloat16 (check_bf16): the kernel and its bfloat16 twin round at the same
 # points after float32 sums taken in another order, so a sum near a rounding
 # boundary can round the other way and carry one ulp on. A kernel passes when
@@ -808,8 +824,7 @@ def device_profile(fn, iters=20, names=None, breakdown=False):
 # kernel names a graph's DOT is searched for (``graph_profile``); the longer
 # of two that overlap comes first
 DOT_KERNELS = ("favor_kernel_wide", "favor_kernel", "image_da_kernel",
-               "stem_fwd_kernel", "stem_bwd_route_kernel",
-               "stem_bwd_input_kernel", "stem_bwd_reduce_kernel",
+               "stem_fwd_kernel", "stem_bwd_kernel", "stem_bwd_reduce_kernel",
                "bn_relu_kernel")
 
 
@@ -980,11 +995,15 @@ def _rows(name, dtype, path, tasks=10):
 
 @spent
 def check_stem(model, gen, dtype=None, tasks=10, path="ANP", images=None,
-               name=None):
+               name=None, route=False):
     """K1 at the ANP path's shape: the merged ctx+qry batch, 30 images a
     task (300 at T = 10, 1,200 at ``tasks`` = 40), or ``images`` images
     (refinement's 25 context images, row ``name``), in float32 or
-    (``dtype``) bfloat16; the row reports ``path``'s launches."""
+    (``dtype``) bfloat16; the row reports ``path``'s launches. ``route``:
+    K1 as ``conv_bwd: phase`` launches it, writing the pool's routes for
+    K1b (row ``literature_stem_route``): its output must equal K1's
+    without the routes bit for bit, and both are timed in turns
+    (``ms_no_route``, ``device_ms_no_route``)."""
     import torch
     import torch.nn.functional as F
 
@@ -999,6 +1018,15 @@ def check_stem(model, gen, dtype=None, tasks=10, path="ANP", images=None,
     args = (x, w0, b0, w1, b1)
     got = stem.stem_launch(*args)
     want = stem.stem_plain(*args)
+    if route:
+        with_route, routes = stem.stem_launch(*args, route=True)
+        torch.cuda.synchronize()
+        if not torch.equal(with_route, got):
+            raise AssertionError("literature_stem: the output with the "
+                                 "pool's routes differs from the output "
+                                 "without them")
+        if not bool((routes <= 4).all()):
+            raise AssertionError("literature_stem: a route outside 0-4")
     f32 = None if dtype == torch.float32 else (
         lambda: stem.stem_plain(*(a.float() for a in args)))
     err, rel = check_kernel("literature_stem", got, want, f32)
@@ -1009,15 +1037,32 @@ def check_stem(model, gen, dtype=None, tasks=10, path="ANP", images=None,
         a = F.relu(F.conv2d(a, w1, b1, stride=2, padding=1))
         return F.max_pool2d(a, 2)
 
-    times = in_turns({"ms": lambda: stem.stem_launch(*args),
-                      "plain_ms": lambda: stem.stem_plain(*args),
-                      "library_ms": library})
-    times.update(device_profile(lambda: stem.stem_launch(*args)))
+    def launch():
+        return stem.stem_launch(*args, route=route)
+
+    fns = {"ms": launch, "plain_ms": lambda: stem.stem_plain(*args),
+           "library_ms": library}
+    if route:
+        fns["ms_no_route"] = lambda: stem.stem_launch(*args)
+    times = in_turns(fns)
+    times.update(device_profile(launch))
     nbytes = x.element_size() * (x.numel() + got.numel() + sum(
         t.numel() for t in (w0, b0, w1, b1)))
     ids = _rows("literature_stem", dtype, path, tasks)
     if name is not None:
         ids.update(name=name, tol="literature_stem")
+    if route:
+        nbytes += got.numel()
+        times["device_ms_no_route"] = device_profile(
+            lambda: stem.stem_launch(*args))["device_ms"]
+        ids.update(name=ids["name"].replace("literature_stem",
+                                            "literature_stem_route"),
+                   tol="literature_stem")
+        log(f"kernel: literature_stem with the pool's routes ({ids['dtype']}"
+            f", {b} images): output = without, bit for bit; device ms "
+            f"{times['device_ms']} with, {times['device_ms_no_route']} "
+            f"without ({times['device_ms'] / times['device_ms_no_route']}"
+            f"x); card ms {times['ms']} with, {times['ms_no_route']} without")
     return dict(**ids, shape=f"shared weights, [{b}, 128, 128, 1]",
                 source="wmfml_tpu_torch/csrc/stem.cu",
                 replaces="wmfml_tpu/nn/encoders.py:230",
@@ -2329,7 +2374,7 @@ def check_large_evaluation(tag, yaml, overrides, runs):
 # (and events in a trace) count its launches: K3's call also packs its
 # weights and runs one conv_kernel a layer, then one bn_relu_kernel
 GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
-              "literature_stem_backward": "stem_bwd_route_kernel",
+              "literature_stem_backward": "stem_bwd_kernel",
               "favor_attention": "favor_kernel",
               "maml_features": "bn_relu_kernel",
               "image_da": "image_da_kernel"}
@@ -3135,28 +3180,47 @@ def replay_maml():
     return train_cli.train(Config(MAML_YAML, MAML_OVERRIDES))
 
 
-def check_second_order_grad(trainer):
-    """One full-width MAML training batch: the second-order outer gradient
+def check_second_order_grad(trainer, batches=1 + SPREAD_BATCHES):
+    """Full-width MAML training batches: the second-order outer gradient
     through K1 and K3 against plain autograd through the twins, which never
     enters a custom autograd Function (a backward that dropped its
     second-order terms would show here), in float32 and in float64. The
     first-order gradient says how large the second-order terms are.
-    ``trainer`` is ``replay_maml``'s. The batch is the replayed training's
-    first one: drawn and augmented from a generator seeded with the
-    config's seed, as the trainer draws its first step, so that no other
-    phase's draws move it."""
+    ``trainer`` is ``replay_maml``'s. The first batch is the replayed
+    training's first one: drawn and augmented from a generator seeded with
+    the config's seed, as the trainer draws its first step, so that no
+    other phase's draws move it; it is held within GRAD_FACTOR times the
+    twins' error (or GRAD_TOL). The ``batches`` - 1 more batches are held
+    by their own rounding spread, which the twins alone set
+    (``SPREAD_BATCHES``). Every batch's second-order part must stand above
+    the kernels' error."""
     import torch
 
-    first_batch = torch.Generator(device="cuda").manual_seed(
-        int(trainer.config.seed))
-    err, err_plain, _, second_share = second_order_errors(trainer,
-                                                          first_batch)
-    if not err <= max(GRAD_TOL, GRAD_FACTOR * err_plain):
-        raise AssertionError(f"second-order gradient through the kernels is "
-                             f"{err} from float64, the twins' {err_plain}")
-    if not second_share > 10 * err:
-        raise AssertionError(f"second-order part {second_share} is not "
-                             f"above the error {err}: the check is blind")
+    seed = int(trainer.config.seed)
+    for i in range(batches):
+        gen = torch.Generator(device="cuda").manual_seed(seed + i)
+        state = gen.get_state()
+        err, err_plain, _, second_share = second_order_errors(trainer, gen)
+        kernels, twins = [err], [err_plain]
+        for jitter in range(SPREAD_JITTERS if i else 0):
+            gen.set_state(state)
+            err_j, plain_j, _, _ = second_order_errors(trainer, gen, jitter)
+            kernels.append(err_j)
+            twins.append(plain_j)
+        limit = max(GRAD_TOL, GRAD_FACTOR * max(twins))
+        log(f"grad: batch {i} (seed {seed + i}): kernels {kernels}, twins "
+            f"{twins} from float64 (the batch"
+            + (", then its one-ulp copies" if i else "") + f"); kernels / "
+            f"twins {err / err_plain}; limit {limit} (GRAD_FACTOR x the "
+            f"twins' largest, or GRAD_TOL)")
+        if not max(kernels) <= limit:
+            raise AssertionError(f"second-order gradient through the kernels "
+                                 f"is {kernels} from float64 on batch {i}, "
+                                 f"the twins' {twins} (limit {limit})")
+        if not second_share > 10 * err:
+            raise AssertionError(f"second-order part {second_share} is not "
+                                 f"above the error {err} on batch {i}: the "
+                                 f"check is blind")
 
 
 def grad_spread(trainer, gens, jitters=3):
@@ -3208,9 +3272,11 @@ def grad_spread(trainer, gens, jitters=3):
 def second_order_errors(trainer, gen, jitter=None):
     """Phase 8's comparison on ``trainer``'s model and one batch: the
     kernels' and the twins' distance from float64, the kernels' from the
-    twins, and the second-order part of the gradient. ``jitter``, a seed,
-    moves a random half of the augmented images' nonzero pixels one ulp
-    (``grad_spread``). A BBB encoder (MAMLMR) draws its samples once, from
+    twins (with ``jitter``: the shuffled twins' from float64,
+    ``shuffled_twin``), and the second-order part of the gradient.
+    ``jitter``, a seed, moves a random half of the augmented images'
+    nonzero pixels one ulp (``grad_spread``, phase 8's added batches). A
+    BBB encoder (MAMLMR) draws its samples once, from
     ``gen``, and every gradient below replays those draws (``EpsFeed``)."""
     import copy
 
@@ -3565,7 +3631,7 @@ def check_mr_second_order():
     try:
         trainer = train_cli.build_trainer(Config(MR_MAML_YAML,
                                                  MR_MAML_OVERRIDES))
-        check_second_order_grad(trainer)
+        check_second_order_grad(trainer, batches=1)
     finally:
         torch.use_deterministic_algorithms(False)
 
@@ -4832,62 +4898,90 @@ def stem_backward_inputs(model, gen, b, dtype, dyadic):
     return tuple(a.to(dtype) for a in (x, *w, g))
 
 
-def stem_backward_bound(args):
-    """``bound`` of K1b on ``args`` (x, w0, b0, w1, b1, g): the forward
-    again (conv0, conv1), then what this data needs of the backward: each
-    pooled value routed to a positive maximum scatters into 9 taps x 32
-    channels of conv1's input gradient and adds 288 products to dW1; each
-    conv0 value with its ReLU on adds 9 Ci products to dW0. In float32
-    conv0's products on the CUDA cores and conv1's three on the tensor
-    cores in 3xTF32 (as K1's bound counts them), in bfloat16 all at the
-    bfloat16 tensor-core rate."""
+def stem_backward_bound(args, route):
+    """``bound`` of K1b on ``args`` (x, w0, b0, w1, b1, g) and the pool's
+    routes ``route`` of K1's forward (K1b's input: no conv1 again): conv0
+    again (the patch dW1 reads and conv0's ReLU mask), then what this
+    data needs of the backward: each pooled value routed to a positive
+    maximum scatters into 9 taps x 32 channels of conv1's input gradient
+    and adds 288 products to dW1; each conv0 value with its ReLU on adds 9
+    Ci products to dW0. In float32 conv0's products on the CUDA cores and
+    conv1's in 3xTF32 on the tensor cores, in bfloat16 all at the bfloat16
+    tensor-core rate. ``bound_with_forward_ms``: the same with conv1 run
+    again, as the bound counted the backward before K1 wrote the routes
+    (K1b recomputed conv1 then)."""
     import torch
     import torch.nn.functional as F
 
-    from wmfml_tpu_torch.kernels import stem
     from wmfml_tpu_torch.ops.cast import conv2d
 
     x, w0, b0, w1, b1, g = args
     b, h, w, ci = x.shape
-    xn = x.permute(0, 3, 1, 2)
-    a0 = F.relu(conv2d(xn, w0, b0, stride=2, padding=1))
-    a1 = F.relu(conv2d(a0, w1, b1, stride=2, padding=1))
-    routed = int(torch.count_nonzero(stem._first_max_routes(
-        a1, g.permute(0, 3, 1, 2).ne(0).to(a1.dtype))))
+    a0 = F.relu(conv2d(x.permute(0, 3, 1, 2), w0, b0, stride=2, padding=1))
+    routed = int(torch.count_nonzero((route < 4) & (g != 0)))
     live0 = int(torch.count_nonzero(a0))
     conv0 = 2 * b * (h // 2) * (w // 2) * 32 * 9 * ci
     conv1 = 2 * b * (h // 4) * (w // 4) * 48 * 9 * 32
     back1 = 2 * 2 * routed * 9 * 32
     back0 = 2 * live0 * 9 * ci
     nbytes = sum(a.numel() for a in args) * x.element_size() + sum(
-        a.numel() for a in (w0, b0, w1, b1)) * x.element_size()
+        a.numel() for a in (w0, b0, w1, b1)) * x.element_size() + route.numel()
     if x.dtype == torch.bfloat16:
-        out = bound(0.0, nbytes, bf16_flops=conv0 + conv1 + back1 + back0)
+        out = bound(0.0, nbytes, bf16_flops=conv0 + back1 + back0)
+        old = bound(0.0, nbytes, bf16_flops=conv0 + conv1 + back1 + back0)
     else:
-        out = bound(conv0 + back0, nbytes, split_flops=conv1 + back1)
-    return dict(out, routed=routed, conv0_live=live0)
+        out = bound(conv0 + back0, nbytes, split_flops=back1)
+        old = bound(conv0 + back0, nbytes, split_flops=conv1 + back1)
+    return dict(out, routed=routed, conv0_live=live0,
+                bound_with_forward_ms=old["bound_ms"])
 
 
 STEM_GRADS = ("dW0", "db0", "dW1", "db1")
 
 
+def hold_f64(name, got, want, ref):
+    """K1b's float32 gradients ``got`` against the float32 twin ``want`` and
+    the twin in float64 ``ref`` (the same decisions): each within
+    BWD_GRAD_FACTOR times the float32 twin's own distance from float64, or
+    BWD_TOL of its largest element. Returns the notes and |got - want|."""
+    import torch
+
+    notes, errs = [], []
+    for grad, k, t, r in zip(STEM_GRADS, got, want, ref):
+        err_k = (k.double() - r).abs().max().item()
+        err_t = (t.double() - r).abs().max().item()
+        limit = max(BWD_TOL * r.abs().max().item(), BWD_GRAD_FACTOR * err_t)
+        errs.append((k - t).abs().max().item())
+        notes.append(f"{grad} kernel {err_k} / twin {err_t} from float64 "
+                     f"(limit {limit})")
+        if not err_k <= limit or not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"literature_stem_backward {name} {grad}: "
+                                 f"kernel {err_k} from float64, the float32 "
+                                 f"twin {err_t} (limit {limit})")
+    return notes, errs
+
+
 @spent
 def check_stem_backward(model, gen, dtype=None, tasks=10, path="ANP phase",
                         off_path=False):
-    """K1b (``conv_bwd: phase``, ROADMAP.md B8a) against its plain twin
-    ``stem_backward_phase_plain`` at the ANP path's shape (30 images a task,
-    300 at T = 10, 1,200 at ``tasks`` = 40). float32: on dyadic inputs
-    (``stem_backward_inputs``), each gradient within BWD_GRAD_FACTOR times
-    the float32 twin's own distance from the twin in float64 or BWD_TOL of
-    its largest element; then on uniform images and ``model``'s weights,
-    logged, not held: there a conv0 or conv1 value within float32 rounding
-    of 0 or of its window's maximum can take the other ReLU or pool
-    decision in another summation order, and one such decision moves a
-    gradient by g times a patch. bfloat16, on uniform images and the
-    model's weights: ``check_bf16``'s rule against the bfloat16 twin. Times:
-    K1b, the twin, and the library's way, today's backward (``conv_bwd:
-    xla``: autodiff of the stem's plain twin on cuDNN, the forward
-    recomputed with grad)."""
+    """K1b (``conv_bwd: phase``, ROADMAP.md B8a) on the pool's routes of
+    K1's forward (``stem_launch(..., route=True)``, as the path runs them)
+    against its plain twin ``stem_backward_phase_plain`` at the ANP path's
+    shape (30 images a task, 300 at T = 10, 1,200 at ``tasks`` = 40).
+    float32: on dyadic inputs (``stem_backward_inputs``: every forward sum
+    exact, so K1's routes must be the twin's own, checked), each gradient
+    within BWD_GRAD_FACTOR times the float32 twin's own distance from the
+    twin in float64 or BWD_TOL of its largest element; then on uniform
+    images and ``model``'s weights, where a value within float32 rounding
+    of 0 or of its window's maximum can take the other decision in
+    another summation order, each gradient against the twin fed the
+    decisions K1b took (``debug=True``: K1's routes and conv0's mask) at
+    the same limits, and how many of those differ from the twin's own
+    decisions logged. bfloat16, on uniform images and the model's weights:
+    ``check_bf16``'s rule against the bfloat16 twin. Two calls equal bit
+    for bit. Times: K1b, the twin, and the library's way, today's backward
+    (``conv_bwd: xla``: autodiff of the stem's plain twin on cuDNN, the
+    forward recomputed with grad)."""
     import torch
 
     from wmfml_tpu_torch.kernels import stem
@@ -4896,37 +4990,48 @@ def check_stem_backward(model, gen, dtype=None, tasks=10, path="ANP phase",
     b = tasks * 30
     f32 = dtype == torch.float32
     args = stem_backward_inputs(model, gen, b, dtype, dyadic=f32)
-    got = stem.stem_backward_launch(*args)
+    route = stem.stem_launch(*args[:5], route=True)[1]
+    got = stem.stem_backward_launch(*args, route)
+    again = stem.stem_backward_launch(*args, route)
     want = stem.stem_backward_phase_plain(*args)
     torch.cuda.synchronize()
-    errs, notes = [], []
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise AssertionError("literature_stem_backward: two calls differ")
+    notes = []
+    own_route, own_mask = stem.stem_decisions_plain(*args[:5])
     if f32:
+        if not torch.equal(route, own_route):
+            raise AssertionError(
+                f"literature_stem: on dyadic inputs K1's routes differ from "
+                f"the twin's first maxima at "
+                f"{int((route != own_route).sum())} pooled values")
         ref = stem.stem_backward_phase_plain(*(a.double() for a in args))
-        for name, k, t, r in zip(STEM_GRADS, got, want, ref):
-            err_k = (k.double() - r).abs().max().item()
-            err_t = (t.double() - r).abs().max().item()
-            limit = max(BWD_TOL * r.abs().max().item(),
-                        BWD_GRAD_FACTOR * err_t)
-            errs.append((k - t).abs().max().item())
-            notes.append(f"{name} kernel {err_k} / twin {err_t} from float64 "
-                         f"(limit {limit})")
-            if not err_k <= limit or not bool(torch.isfinite(k).all()):
-                raise AssertionError(f"literature_stem_backward {name}: "
-                                     f"kernel {err_k} from float64, the "
-                                     f"float32 twin {err_t} (limit {limit})")
+        held, errs = hold_f64("dyadic", got, want, ref)
+        notes += held
         real = stem_backward_inputs(model, gen, b, dtype, dyadic=False)
-        got_r = stem.stem_backward_launch(*real)
-        want_r = stem.stem_backward_phase_plain(*real)
-        notes.append("uniform images and the model's weights (logged): " + (
-            ", ".join(f"{n} max abs err {(k - t).abs().max().item()} of "
-                      f"{t.abs().max().item()}"
-                      for n, k, t in zip(STEM_GRADS, got_r, want_r))))
+        got_r, (route_r, mask_r) = stem.stem_backward_launch(
+            *real, stem.stem_launch(*real[:5], route=True)[1], debug=True)
+        fed = stem.stem_backward_phase_plain(*real, route=route_r,
+                                             mask0=mask_r)
+        ref_r = stem.stem_backward_phase_plain(
+            *(a.double() for a in real), route=route_r, mask0=mask_r)
+        own_r, own_m = stem.stem_decisions_plain(*real[:5])
+        held, _ = hold_f64("uniform, fed K1b's decisions", got_r, fed, ref_r)
+        notes.append(
+            "uniform images and the model's weights, against the twin fed "
+            "K1b's decisions: " + "; ".join(held) + f"; decisions that "
+            f"differ from the twin's own: routes "
+            f"{int((route_r != own_r).sum())} of {route_r.numel()}, conv0 "
+            f"mask {int((mask_r.bool() != own_m).sum())} of {mask_r.numel()}")
     else:
         want_f32 = stem.stem_backward_phase_plain(*(a.float() for a in args))
+        errs = []
         for name, k, t, t32 in zip(STEM_GRADS, got, want, want_f32):
             err, _ = check_bf16(f"literature_stem_backward {name}", k, t, t32,
                                 element_ulps=False)
             errs.append(err)
+        notes.append(f"K1's routes differ from the twin's own at "
+                     f"{int((route != own_route).sum())} of {route.numel()}")
     log(f"kernel: literature_stem_backward [{b}, 128, 128, 1] "
         f"{'float32, dyadic inputs' if f32 else 'bfloat16'}: "
         + "; ".join(notes) + f"; max abs err against the twin {errs}")
@@ -4937,18 +5042,21 @@ def check_stem_backward(model, gen, dtype=None, tasks=10, path="ANP phase",
         y = stem.stem_plain(x, *leaves)
         return torch.autograd.grad(y, leaves, g)
 
-    times = in_turns({"ms": lambda: stem.stem_backward_launch(*args),
+    times = in_turns({"ms": lambda: stem.stem_backward_launch(*args, route),
                       "plain_ms": lambda: stem.stem_backward_phase_plain(
                           *args),
                       "library_ms": library})
-    times.update(device_profile(lambda: stem.stem_backward_launch(*args),
+    times.update(device_profile(lambda: stem.stem_backward_launch(*args,
+                                                                  route),
                                 breakdown=True))
     ids = _rows("literature_stem_backward", dtype, path, tasks)
     row = dict(**ids, shape=f"shared weights, [{b}, 128, 128, 1], g "
-               f"[{b}, 16, 16, 48]" + (", dyadic inputs" if f32 else ""),
+               f"[{b}, 16, 16, 48], K1's routes"
+               + (", dyadic inputs" if f32 else ""),
                source="wmfml_tpu_torch/csrc/stem_bwd.cu",
                replaces="wmfml_tpu/nn/encoders.py:117",
-               max_abs_err=max(errs), **times, **stem_backward_bound(args))
+               max_abs_err=max(errs), **times,
+               **stem_backward_bound(args, route))
     if off_path:
         row["off_path"] = True
     return row
@@ -5403,8 +5511,8 @@ def main(argv):
     log(f"build: dynamic shared memory per block: stem "
         f"{libs['stem'].wmfml_stem_smem_bytes(1, 2)} B (Ci = 1, two "
         f"warpgroups), stem backward (K1b) "
-        f"{libs['stem_bwd'].wmfml_stem_bwd_smem_bytes(0, 1)} B (route) and "
-        f"{libs['stem_bwd'].wmfml_stem_bwd_smem_bytes(1, 1)} B (input), "
+        f"{libs['stem_bwd'].wmfml_stem_bwd_smem_bytes(1, 0)} B (Ci = 1) "
+        f"and {libs['stem_bwd'].wmfml_stem_bwd_smem_bytes(1, 1)} B (bf16), "
         f"features conv "
         f"{libs['features'].wmfml_features_smem_bytes(14)} B (W = 14), "
         f"favor {libs['favor'].wmfml_favor_smem_bytes(15, 15, 64, 266)} B used "
@@ -5684,7 +5792,10 @@ def main(argv):
     k1b_rows = [check_stem_backward(anp, gen_k1b),
                 check_stem_backward(anp, gen_k1b, torch.bfloat16),
                 check_stem_backward(anp, gen_k1b, torch.bfloat16, tasks=40,
-                                    off_path=True)]
+                                    off_path=True),
+                check_stem(anp, gen_k1b, path="ANP phase", route=True),
+                check_stem(anp, gen_k1b, torch.bfloat16, path="ANP phase",
+                           route=True)]
     for r in k1b_rows:
         r["floor_ms"] = floor
         if r.get("off_path"):

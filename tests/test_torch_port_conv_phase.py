@@ -14,7 +14,11 @@ against the JAX package's ``conv3x3_s2_phase`` on the CPU.
     ``tests/test_torch_port_train.py`` holds the default;
   * the option read for the four methods that the JAX package's ``_small``
     builds and no other, and the three cases K1b is not ported for
-    raising: per-task weights, an image gradient, ``create_graph``.
+    raising: per-task weights, an image gradient, ``create_graph``;
+  * the twin fed decisions (``route``, ``mask0``: those K1b took, from
+    K1's forward): fed its own (``stem_decisions_plain``) it is the default
+    bit for bit; fed a route that differs at one window, it moves only
+    that window's terms.
 """
 
 import jax
@@ -210,3 +214,61 @@ def test_twin_routes_ties_to_the_first_maximum():
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+def _decision_args(dtype, seed=11):
+    rng = np.random.RandomState(seed)
+    x = t(rng.rand(3, 24, 32, 1).astype(np.float32)).to(dtype)
+    w = [t((rng.randn(*s) * f).astype(np.float32)).to(dtype)
+         for s, f in (((32, 1, 3, 3), 0.3), ((32,), 0.1),
+                      ((48, 32, 3, 3), 0.06), ((48,), 0.1))]
+    g = t(rng.randn(3, 3, 4, 48).astype(np.float32)).to(dtype)
+    return x, w, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_twin_fed_its_own_decisions_equals_the_default_bit_for_bit(dtype):
+    x, w, g = _decision_args(dtype)
+    route, mask0 = kstem.stem_decisions_plain(x, *w)
+    assert route.dtype == torch.uint8 and tuple(route.shape) == (3, 3, 4, 48)
+    assert tuple(mask0.shape) == (3, 12, 16, 32)
+    assert int((route < 4).sum()) > 0 and int((route == 4).sum()) > 0
+    want = kstem.stem_backward_phase_plain(x, *w, g)
+    for fed in (kstem.stem_backward_phase_plain(x, *w, g, route=route),
+                kstem.stem_backward_phase_plain(x, *w, g, route=route,
+                                                mask0=mask0),
+                kstem.literature_stem_backward(x, *w, g, route)):
+        for a, b in zip(fed, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_twin_fed_a_route_that_differs_at_one_window_moves_only_its_terms():
+    """Another first maximum for one window and channel (b, i, j, c): dW1
+    moves in row c alone and db1 not at all (the gradient is routed, only
+    elsewhere), and in float64 each gradient moves by exactly the
+    difference the window's own gradient makes routed the one way and the
+    other (the twin is linear in g for fixed decisions)."""
+    x, w, g = _decision_args(torch.float32)
+    route, mask0 = kstem.stem_decisions_plain(x, *w)
+    b_, i, j, c = (int(v) for v in (route < 4).nonzero()[7])
+    moved = route.clone()
+    moved[b_, i, j, c] = (int(route[b_, i, j, c]) + 1) % 4
+    base = kstem.stem_backward_phase_plain(x, *w, g, route, mask0)
+    other = kstem.stem_backward_phase_plain(x, *w, g, moved, mask0)
+    rows = torch.arange(48) != c
+    assert torch.equal(other[2][rows], base[2][rows])
+    assert not torch.equal(other[2][c], base[2][c])
+    assert torch.equal(other[3], base[3])
+    one = torch.zeros_like(g)
+    one[b_, i, j, c] = g[b_, i, j, c]
+    xd, wd, gd, od = x.double(), [v.double() for v in w], g.double(), \
+        one.double()
+    for got_a, got_b, win_a, win_b in zip(
+            kstem.stem_backward_phase_plain(xd, *wd, gd, moved, mask0),
+            kstem.stem_backward_phase_plain(xd, *wd, gd, route, mask0),
+            kstem.stem_backward_phase_plain(xd, *wd, od, moved, mask0),
+            kstem.stem_backward_phase_plain(xd, *wd, od, route, mask0)):
+        np.testing.assert_allclose((got_a - got_b).numpy(),
+                                   (win_a - win_b).numpy(), rtol=0,
+                                   atol=1e-12)

@@ -123,37 +123,159 @@ def test_stem_wrapper_counts_launches_and_backpropagates(dev):
         _close(a.grad, b.grad, 1e-4, 1e-4)
 
 
-def _dyadic_stem(dev, b, h, w, seed):
+def _dyadic_stem(dev, b, h, w, seed, ci=1):
     """K1b's inputs with every forward sum exact in float32 (images and
     weights on grids of 1/8, 1/64, 1/4096; ``chip_smoke.py:
     stem_backward_inputs``): both sides take the same ReLU and pool
-    decisions, ties included."""
+    decisions, ties included (in bfloat16 both round the same exact
+    sums)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def grid(lo, hi, shape, step):
         return torch.randint(lo, hi + 1, shape, generator=g,
                              device=dev).float() * step
 
-    return (grid(0, 8, (b, h, w, 1), 1 / 8), grid(-2, 2, (32, 1, 3, 3), 1 / 8),
+    return (grid(0, 8, (b, h, w, ci), 1 / 8),
+            grid(-2, 2, (32, ci, 3, 3), 1 / 8),
             grid(-2, 2, (32,), 1 / 64), grid(-4, 4, (48, 32, 3, 3), 1 / 64),
             grid(-64, 64, (48,), 1 / 4096),
             torch.randn((b, h // 8, w // 8, 48), generator=g, device=dev))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w", [(3, 40, 32), (12, 128, 128)])
-def test_stem_backward_kernel_matches_plain(dev, dtype, b, h, w):
-    """K1b (``conv_bwd: phase``) against its twin, partial tiles included
-    (40 x 32: 5 x 4 pooled values): float32 within 1e-4 of each gradient's
-    largest, bfloat16 within 2^-6 of it (each gradient rounds once)."""
-    args = [a.to(dtype) for a in _dyadic_stem(dev, b, h, w, b)]
-    got = stem.stem_backward_launch(*args)
+def _k1b_matches(args, dtype):
+    """K1b on K1's routes against its twin: float32 within 1e-4 of each
+    gradient's largest, bfloat16 within 2^-6 of it (each gradient rounds
+    once)."""
+    route = stem.stem_launch(*args[:5], route=True)[1]
+    got = stem.stem_backward_launch(*args, route)
     want = stem.stem_backward_phase_plain(*args)
     scale = 1e-4 if dtype == torch.float32 else 2.0 ** -6
     for a, r in zip(got, want):
         assert a.dtype == r.dtype == dtype and a.shape == r.shape
         err = (a.float() - r.float()).abs().max().item()
         assert err <= scale * r.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", [(3, 40, 32), (12, 128, 128)])
+def test_stem_backward_kernel_matches_plain(dev, dtype, b, h, w):
+    """K1b (``conv_bwd: phase``) against its twin, partial tiles included
+    (40 x 32: 5 x 4 pooled values)."""
+    _k1b_matches([a.to(dtype) for a in _dyadic_stem(dev, b, h, w, b)], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_backward_kernel_takes_four_input_channels(dev, dtype):
+    """Ci = 4 (K1b's widest) at partial tiles (40 x 48: 5 x 6 pooled)."""
+    _k1b_matches([a.to(dtype) for a in _dyadic_stem(dev, 4, 40, 48, 4, 4)],
+                 dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_backward_kernel_at_1200_images(dev, dtype):
+    """P3 T40's batch, 1,200 images: 19,200 tiles over the persistent grid."""
+    _k1b_matches([a.to(dtype) for a in _dyadic_stem(dev, 1200, 128, 128, 40)],
+                 dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_backward_kernel_is_bit_reproducible(dev, dtype):
+    args = [a.to(dtype) for a in _dyadic_stem(dev, 300, 128, 128, 2)]
+    route = stem.stem_launch(*args[:5], route=True)[1]
+    first = stem.stem_backward_launch(*args, route)
+    for a, b in zip(first, stem.stem_backward_launch(*args, route)):
+        assert torch.equal(a, b)
+
+
+def _block_images(dev, dtype):
+    """Dyadic images of flat 8 x 8 blocks: equal patches inside a block, so
+    pooled windows hold exact positive ties
+    (``tests/test_torch_port_conv_phase.py:
+    test_twin_routes_ties_to_the_first_maximum``)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def grid(lo, hi, shape, step):
+        return torch.randint(lo, hi + 1, shape, generator=g,
+                             device=dev).float() * step
+
+    x = grid(0, 2, (6, 4, 4, 1), 1 / 2).repeat_interleave(
+        8, 1).repeat_interleave(8, 2)
+    w = [grid(-2, 2, (32, 1, 3, 3), 1 / 8), grid(-2, 2, (32,), 1 / 64),
+         grid(-1, 1, (48, 32, 3, 3), 1 / 64), grid(-4, 4, (48,), 1 / 4096)]
+    return [a.to(dtype) for a in (x, *w)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_routes_are_the_twins_first_maxima_on_dyadic_inputs(dev, dtype):
+    """Where every summation order gives the same sums, K1's routes are
+    the twin's (``_first_max_route``: the first maximum in raster order,
+    bfloat16 over the rounded values, 4 where not positive), exact ties
+    included."""
+    cases = [[a.to(dtype) for a in _dyadic_stem(dev, *shape, seed=5)][:5]
+             for shape in ((12, 128, 128), (3, 40, 32))]
+    cases.append(_block_images(dev, dtype))
+    for args in cases:
+        route = stem.stem_launch(*args, route=True)[1]
+        want = stem.stem_decisions_plain(*args)[0]
+        assert route.dtype == torch.uint8 and torch.equal(route, want), \
+            int((route != want).sum())
+    flat = _block_images(dev, dtype)
+    assert int((stem.stem_decisions_plain(*flat)[0] < 4).sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["shared", "per_task"])
+def test_stem_output_is_the_same_with_the_routes(dev, dtype, lead):
+    """Writing the routes moves none of K1's output bits."""
+    args = [a.to(dtype) for a in _stem_weights(dev, lead, 3)]
+    x = torch.rand((20, 40, 32, 1), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev).to(dtype)
+    out = stem.stem_launch(x, *args)
+    with_route, route = stem.stem_launch(x, *args, route=True)
+    assert torch.equal(out, with_route)
+    assert tuple(route.shape) == tuple(out.shape) and int(route.max()) <= 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_backward_takes_the_forwards_decisions(dev, dtype):
+    """On uniform images (no exact sums) K1b routes by K1's routes and masks
+    by conv0 recomputed with K1's device code: the decisions it reports
+    (``debug=True``) are the routes K1 wrote, its gradients the twin's fed
+    those decisions (float32 within 1e-4 of each gradient's largest,
+    bfloat16 within 2^-6), and its conv0 mask the twin's wherever conv0's
+    value is farther from 0 than two orders' sums can move it across
+    (float32 1e-5; bfloat16 2^-5, where the sum is rounded before the
+    bias add)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.rand((30, 128, 128, 1), generator=g, device=dev).to(dtype)
+    w0, b0, w1, b1 = (a.to(dtype) for a in _stem_weights(dev, (), 4))
+    dy = torch.randn((30, 16, 16, 48), generator=g, device=dev).to(dtype)
+    route = stem.stem_launch(x, w0, b0, w1, b1, route=True)[1]
+    got, (used, mask) = stem.stem_backward_launch(x, w0, b0, w1, b1, dy,
+                                                  route, debug=True)
+    assert torch.equal(used, route)
+    want = stem.stem_backward_phase_plain(x, w0, b0, w1, b1, dy, route=used,
+                                          mask0=mask)
+    scale = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, r in zip(got, want):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= scale * r.float().abs().max().item(), err
+    a0 = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2),
+                                    w0.float(), b0.float(), 2, 1)
+    near = 1e-5 if dtype == torch.float32 else 2.0 ** -5
+    far = (a0.abs() > near).permute(0, 2, 3, 1)
+    own = stem.stem_decisions_plain(x, w0, b0, w1, b1)[1]
+    assert torch.equal(mask.bool()[far], own[far])
+
+
+def test_k1b_wrapper_takes_the_forwards_routes_on_the_card(dev):
+    x, *ws, g = _dyadic_stem(dev, 4, 32, 32, 1)
+    with pytest.raises(ValueError, match="routes"):
+        stem.literature_stem_backward(x, *ws, g)
+    route = stem.stem_launch(x, *ws, route=True)[1]
+    for a, r in zip(stem.literature_stem_backward(x, *ws, g, route),
+                    stem.stem_backward_launch(x, *ws, g, route)):
+        assert torch.equal(a, r)
 
 
 def test_stem_phase_wrapper_counts_k1b_and_raises_where_not_ported(dev):
@@ -1677,7 +1799,7 @@ MAMLMR_YAML = os.path.join(REPO, "cfg", "train", "MAMLMR_DA+TA_ShapeNet1D.yaml")
 FCLANP_YAML = os.path.join(REPO, "cfg", "train", "contrastive",
                            "FCLANP_DA+TA_ShapeNet3D.yaml")
 GRAPH_NODE = {"literature_stem": "stem_fwd_kernel",
-              "literature_stem_backward": "stem_bwd_route_kernel",
+              "literature_stem_backward": "stem_bwd_kernel",
               "favor_attention": "favor_kernel",
               "maml_features": "bn_relu_kernel",
               "image_da": "image_da_kernel"}

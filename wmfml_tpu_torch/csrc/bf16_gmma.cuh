@@ -1,4 +1,5 @@
-// bfloat16 warpgroup MMA for K1 (stem.cu) and K3 (features.cu) under
+// bfloat16 warpgroup MMA for K1 (stem.cu), K1b (stem_bwd.cu) and K3
+// (features.cu) under
 // compute_dtype: bfloat16, beside the 3xTF32 helpers of tf32_gmma.cuh
 // (whose descriptors, fences and waits these share), and the element-type
 // helpers through which each of those kernels keeps one body for float and
@@ -91,6 +92,22 @@ __device__ __forceinline__ void mma_bf16_n48(float (&d)[24], uint32_t a0,
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d += A * B^T, m64n32k16 bf16 (K1b's input gradient)
+__device__ __forceinline__ void mma_bf16_n32(float (&d)[16], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 

@@ -63,25 +63,26 @@
 // float32, which the tensor cores do at 989 TFLOP/s (the kernel runs conv0,
 // one input channel, on the CUDA cores all the same): 0.0093 ms, against
 // ~17 MB moved (0.005 ms): operations.
+//
+// The pool's routes (conv_bwd: phase, for K1b): where the caller passes a
+// route buffer, each pooled value's window position of its first maximum
+// in raster order (among the float32 sums, or in bfloat16 among the
+// rounded values the pool compares, which tie), or 4 where the output is
+// not positive: one byte a pooled value, 3.7 MB at 300 images. The
+// epilogue notes what they need (Pool), and route_flush derives and
+// stores them, branch-free, while the next tile's conv1 products run.
+// The output's bits do not depend on it. conv0 is conv0_patch
+// (stem_tile.cuh), which K1b runs for conv0's ReLU mask.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "bf16_gmma.cuh"
+#include "stem_tile.cuh"
 #include "tf32_gmma.cuh"
 
 namespace {
 
-constexpr int C0 = 32;             // conv0 output channels
-constexpr int C1 = 48;             // conv1 output channels
-constexpr int TP = 4;              // pool outputs per tile side
-constexpr int T1 = 2 * TP;         // conv1 outputs per tile side (8)
-constexpr int T0 = 2 * T1 + 1;     // conv0 outputs per tile side (17)
-constexpr int TX = 2 * T0 + 1;     // input pixels per tile side (35)
-constexpr int PH = (T0 + 1) / 2;   // side of one conv0 phase plane (9)
-constexpr int PS = C0 + 4;         // patch position stride (floats)
-constexpr int PATCH = 4 * PH * PH * PS;
-constexpr int K1 = 9 * C0;         // conv1 depth (288)
-constexpr int W1 = C1 * K1;        // conv1 weights, one part (floats)
 constexpr int MAX_SMEM = 232448;
 
 __host__ __device__ inline int smem_floats(int ci, int wgs) {
@@ -89,10 +90,8 @@ __host__ __device__ inline int smem_floats(int ci, int wgs) {
   return 2 * W1 + ci * 9 * C0 + C0 + C1 + wgs * (PATCH + 2 * ci * TX * TX);
 }
 
-// bfloat16 path: patch stride (values) and shared memory (bytes): w1 | w0,
-// b0, b1 as floats | per warpgroup a bfloat16 patch and one float input
-constexpr int PSB = C0 + 8;
-constexpr int PATCH_B = 4 * PH * PH * PSB;
+// bfloat16 path, shared memory (bytes): w1 | w0, b0, b1 as floats | per
+// warpgroup a bfloat16 patch and one float input
 __host__ __device__ inline int wg_bytes_bf16(int ci) {   // 16-byte aligned
   return (2 * PATCH_B + 4 * ci * TX * TX + 15) & ~15;
 }
@@ -160,28 +159,6 @@ __host__ __device__ inline int stem_smem_bytes(int ci, int wgs) {
   return sizeof(T) == 4 ? smem_floats(ci, wgs) * 4 : smem_bytes_bf16(ci, wgs);
 }
 
-// conv0's output at one position and channel: the float32 sum (the bias
-// already in it) through ReLU; bfloat16: the sum rounded, the bias add
-// rounded, ReLU
-__device__ inline float conv0_out(float a, float, float) {
-  return fmaxf(a, 0.f);
-}
-__device__ inline float conv0_out(float a, float b, __nv_bfloat16) {
-  return fmaxf(tc::bf16r(tc::bf16r(a) + b), 0.f);
-}
-
-// eight channels of a conv0 position into the patch
-__device__ inline void store_patch8(float* p, const float (&a)[8]) {
-  float4* dst = reinterpret_cast<float4*>(p);
-  dst[0] = make_float4(a[0], a[1], a[2], a[3]);
-  dst[1] = make_float4(a[4], a[5], a[6], a[7]);
-}
-__device__ inline void store_patch8(__nv_bfloat16* p, const float (&a)[8]) {
-  *reinterpret_cast<uint4*>(p) =
-      make_uint4(tc::pack_bf16(a[0], a[1]), tc::pack_bf16(a[2], a[3]),
-                 tc::pack_bf16(a[4], a[5]), tc::pack_bf16(a[6], a[7]));
-}
-
 // One tap of conv1 into acc, the rows' A read from the patch at pa (row r)
 // and pa + one phase-plane row (r + 8). 3xTF32: four k8 steps, A split
 // big/small as it is loaded, small*big, big*small, big*big each.
@@ -244,18 +221,157 @@ __device__ inline float conv1_out(float m, float b, __nv_bfloat16) {
   return fmaxf(tc::bf16r(tc::bf16r(m) + b), 0.f);
 }
 
+// The pool's route of a window and channel (conv_bwd: phase): the first
+// maximum in raster order of the values the pool compares, or 4 where the
+// pooled output is not positive (ReLU passes no gradient). float32 pools
+// the sums (the bias added after), bfloat16 the sums rounded, the bias
+// added and rounded again, as the twin pools the rounded values (equal
+// roundings tie there). The lane with g even holds window positions 0 (row
+// r) and 2 (row r + 8), the lane l ^ 4 positions 1 and 3. A tile's
+// epilogue notes what its routes need (Pool); route_flush derives and
+// stores them while the next tile's conv1 runs on the tensor cores, where
+// the CUDA cores wait.
+template <class T>
+struct Pool;
+// float32: bits 2 j + e of whether this lane's top (T) and bottom (B) sum
+// is the window's maximum, and whether the pooled output is positive
+template <>
+struct Pool<float> {
+  uint32_t top, bottom, pos;
+};
+// bfloat16: the keys round(round(s) + bias) of this lane's top and bottom
+// and the pooled outputs, channel pairs as bfloat162 words
+template <>
+struct Pool<__nv_bfloat16> {
+  uint32_t top[6], bottom[6], out[6];
+};
+
+// float32: the pooling epilogue of channel pair j (acc rows r, r + 8 of
+// columns 8 j + 2 tq + e) as it always ran, plus the route's bits
+__device__ inline void pool_pair(const float (&acc)[24], int j, float b0,
+                                 float b1, uint32_t, float (&m)[2],
+                                 Pool<float>& p, bool route) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float t = acc[4 * j + e], b = acc[4 * j + 2 + e];
+    const float v = fmaxf(t, b);
+    const float top = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+    m[e] = conv1_out(top, e ? b1 : b0, float());
+    if (route) {
+      const int bit = 2 * j + e;
+      p.top |= (uint32_t)(t == top) << bit;
+      p.bottom |= (uint32_t)(b == top) << bit;
+      p.pos |= (uint32_t)(m[e] > 0.f) << bit;
+    }
+  }
+}
+// bfloat16 without the routes: as it always ran. With them: the keys
+// of the top and bottom values two at a time in bfloat162 (bias2 the
+// pair's biases, exact in bfloat16; the sum of two bfloat16 values rounds
+// once to what their float sum rounds to, so each key equals the float
+// path's), the window's maximum key and the output from them (the maximum
+// of the rounded values is the rounded maximum: the same bits)
+__device__ inline void pool_pair(const float (&acc)[24], int j, float b0,
+                                 float b1, uint32_t bias2, float (&m)[2],
+                                 Pool<__nv_bfloat16>& p, bool route) {
+  if (!route) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v = fmaxf(acc[4 * j + e], acc[4 * j + 2 + e]);
+      m[e] = conv1_out(fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4)),
+                       e ? b1 : b0, __nv_bfloat16());
+    }
+    return;
+  }
+  const __nv_bfloat162 c = *reinterpret_cast<const __nv_bfloat162*>(&bias2);
+  const __nv_bfloat162 kt =
+      __hadd2(__floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]), c);
+  const __nv_bfloat162 kb =
+      __hadd2(__floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]), c);
+  const __nv_bfloat162 own = __hmax2(kt, kb);
+  const uint32_t own_w = *reinterpret_cast<const uint32_t*>(&own);
+  const uint32_t par_w = __shfl_xor_sync(0xffffffffu, own_w, 4);
+  const __nv_bfloat162 top =
+      __hmax2(own, *reinterpret_cast<const __nv_bfloat162*>(&par_w));
+  m[0] = fmaxf(__low2float(top), 0.f);
+  m[1] = fmaxf(__high2float(top), 0.f);
+  p.top[j] = *reinterpret_cast<const uint32_t*>(&kt);
+  p.bottom[j] = *reinterpret_cast<const uint32_t*>(&kb);
+  p.out[j] = tc::pack_bf16(m[0], m[1]);
+}
+
+// the bits of either form
+__device__ inline void pool_bits(const Pool<float>& p, uint32_t& top,
+                                 uint32_t& bottom, uint32_t& pos) {
+  top = p.top;
+  bottom = p.bottom;
+  pos = p.pos;
+}
+__device__ inline void pool_bits(const Pool<__nv_bfloat16>& p, uint32_t& top,
+                                 uint32_t& bottom, uint32_t& pos) {
+  top = bottom = pos = 0;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const float t[2] = {tc::bf16_lo(p.top[j]), tc::bf16_hi(p.top[j])};
+    const float b[2] = {tc::bf16_lo(p.bottom[j]), tc::bf16_hi(p.bottom[j])};
+    const float o[2] = {tc::bf16_lo(p.out[j]), tc::bf16_hi(p.out[j])};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      // where the output is positive it is the window's maximum key
+      top |= (uint32_t)(t[e] == o[e]) << (2 * j + e);
+      bottom |= (uint32_t)(b[e] == o[e]) << (2 * j + e);
+      pos |= (uint32_t)(o[e] > 0.f) << (2 * j + e);
+    }
+  }
+}
+
+// A tile's routes (every lane of the warp calls it; one shuffle): the
+// first maximum in raster order is this lane's top (0), else the partner's
+// top (1), else this lane's bottom (2), else the partner's bottom (3); the
+// lane with g even and its window in the image stores its 12 (j, e)
+// routes at p + 8 j + e.
+template <class T>
+__device__ inline void route_flush(uint8_t* p, bool store, const Pool<T>& pl) {
+  uint32_t top, bottom, pos;
+  pool_bits(pl, top, bottom, pos);
+  const uint32_t partner = __shfl_xor_sync(0xffffffffu, top, 4);
+  // route bits: 1 (r0), 2 (r1), 4 (r2: no gradient)
+  const uint32_t r0 = pos & ~top & (partner | ~bottom);
+  const uint32_t r1 = pos & ~top & ~partner;
+  const uint32_t r2 = ~pos;
+  if (store) {
+    // bits 4 k .. 4 k + 3 of a mask to the low bit of bytes 0-3 of word k
+    // ((j, e) = (2 k, 0), (2 k, 1), (2 k + 1, 0), (2 k + 1, 1))
+    auto spread = [](uint32_t m, int k) {
+      return (((m >> (4 * k)) & 0xfu) * 0x204081u) & 0x01010101u;
+    };
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const uint32_t w = spread(r0, k) | (spread(r1, k) << 1) |
+                         (spread(r2, k) << 2);
+      *reinterpret_cast<uint16_t*>(p + 16 * k) = (uint16_t)w;
+      *reinterpret_cast<uint16_t*>(p + 16 * k + 8) = (uint16_t)(w >> 16);
+    }
+  }
+}
+
 // The stem for T = float (3xTF32) or __nv_bfloat16. kOne: one input
 // channel, and each thread keeps the conv0 weights of its 8 channels in
 // registers for the whole run. In float32 the next tile's input window
 // arrives by cp.async into the second of two buffers while this tile
 // computes; in bfloat16 each warpgroup stages its tile's window itself,
-// converted to float32 (cp.async moves 4 bytes at least).
+// converted to float32 (cp.async moves 4 bytes at least). route, where not
+// null ([B, H/8, W/8, 48] uint8; conv_bwd: phase), gets each pooled
+// value's route for K1b, which then recomputes no conv1: a tile's epilogue
+// notes pool_bits, and route_flush stores them while the next tile's
+// conv1 products run on the tensor cores (the CUDA cores wait there).
 template <class T, bool kOne>
 __global__ void __launch_bounds__(256, 1)
 stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0,
                 const T* __restrict__ b0, const T* __restrict__ w1,
-                const T* __restrict__ b1, T* __restrict__ out, int H, int W,
-                int Ci, int n_per_task, int blocks_per_task) {
+                const T* __restrict__ b1, T* __restrict__ out,
+                uint8_t* __restrict__ route, int H, int W, int Ci,
+                int n_per_task, int blocks_per_task) {
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int PST = kF32 ? PS : PSB;     // patch position stride
   extern __shared__ __align__(128) unsigned char smem[];
@@ -345,6 +461,15 @@ stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0,
     if (tile < last) window(tile, xbuf);
     tc::cp_async_commit();
   }
+  // the previous tile's routes, stored during this tile's conv1; bfloat16:
+  // the channel pairs' biases as bfloat162 words
+  Pool<T> pool;
+  uint8_t* route_at = nullptr;
+  bool pending = false, route_store = false;
+  uint32_t bias2[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+    bias2[j] = tc::pack_bf16(b1s[8 * j + 2 * tq], b1s[8 * j + 2 * tq + 1]);
   for (int i = 0; tile < last; ++i, tile += wgs) {
     if constexpr (kF32) {
       if (tile + wgs < last)
@@ -366,40 +491,10 @@ stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0,
     const float* xs = xbuf + (kF32 ? (i & 1) * Ci * TX * TX : 0);
     const int r0 = 2 * ty * T1 - 1, s0 = 2 * tx * T1 - 1;   // first conv0 row / col
 
-    // conv0 + bias + ReLU over the 17x17 patch: item (position, group of 8
-    // channels); the group is this thread's for every item (128 % 4 == 0).
-    // float32 starts the sum at the bias, bfloat16 adds it after rounding
-    for (int item = lt; item < T0 * T0 * 4; item += 128) {
-      const int pos = item >> 2;
-      const int ly = pos / T0, lx = pos % T0;
-      const int gy = r0 + ly, gx = s0 + lx;
-      float a[8];
-      if (gy >= 0 && gy < H0 && gx >= 0 && gx < W0) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) a[c] = kF32 ? b0s[8 * cg + c] : 0.f;
-        for (int ci = 0; ci < (kOne ? 1 : Ci); ++ci) {
-          const float* xp = xs + (ci * TX + 2 * ly) * TX + 2 * lx;
-#pragma unroll
-          for (int k = 0; k < 9; ++k) {
-            const float v = xp[(k / 3) * TX + k % 3];
-#pragma unroll
-            for (int c = 0; c < 8; ++c) {
-              if constexpr (kOne)
-                a[c] = fmaf(v, w0r[8 * k + c], a[c]);
-              else
-                a[c] = fmaf(v, w0s[(ci * 9 + k) * C0 + 8 * cg + c], a[c]);
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < 8; ++c) a[c] = conv0_out(a[c], b0s[8 * cg + c], T());
-      } else {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) a[c] = 0.f;   // conv1's zero padding
-      }
-      store_patch8(patch + (((ly & 1) * 2 + (lx & 1)) * PH * PH + (ly >> 1) * PH +
-                            (lx >> 1)) * PST + 8 * cg, a);
-    }
+    // conv0 + bias + ReLU over the 17x17 patch (stem_tile.cuh; K1b runs
+    // the same function for its masks)
+    conv0_patch<T, kOne>(xs, patch, w0s, b0s, w0r, Ci, r0, s0, H0, W0, lt,
+                         128);
     tc::named_sync(bar_id, 128);
 
     // conv1: row r = 16 warp + g is pixel (2 warp, g), row r + 8 is
@@ -414,6 +509,10 @@ stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0,
       conv1_tap(acc, patch + (((kh & 1) * 2 + (kw & 1)) * PH * PH +
                               (2 * warp + (kh >> 1)) * PH + g + (kw >> 1)) * PST,
                 w1s, tap, tq);
+      if (tap == 0 && pending) {
+        route_flush(route_at, route_store, pool);
+        pending = false;
+      }
     }
     tc::wait<0>();
     tc::pin(acc);
@@ -422,19 +521,23 @@ stem_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0,
     // in lanes l, l ^ 4
     const int oy = ty * TP + warp, ox = tx * TP + (g >> 1);
     const bool store = (g & 1) == 0 && oy < Ho && ox < Wo;
-    T* o = out + ((size_t)(b * Ho + oy) * Wo + ox) * C1 + 2 * tq;
+    const size_t at = ((size_t)(b * Ho + oy) * Wo + ox) * C1 + 2 * tq;
+    T* o = out + at;
+    if (route != nullptr) pool = Pool<T>{};   // the bits are or-ed in
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
       float m[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float v = fmaxf(acc[4 * j + e], acc[4 * j + 2 + e]);
-        m[e] = conv1_out(fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4)),
-                         b1s[8 * j + 2 * tq + e], T());
-      }
+      pool_pair(acc, j, b1s[8 * j + 2 * tq], b1s[8 * j + 2 * tq + 1],
+                bias2[j], m, pool, route != nullptr);
       if (store) tc::store2(o + 8 * j, m[0], m[1]);
     }
+    if (route != nullptr) {
+      route_at = route + at;
+      route_store = store;
+      pending = true;
+    }
   }
+  if (pending) route_flush(route_at, route_store, pool);
   if constexpr (kF32) tc::cp_async_wait<0>();
 }
 
@@ -464,13 +567,15 @@ extern "C" int wmfml_stem_pack(const void* w1, void* dst, int T, int bf16,
 
 // x [B,H,W,Ci]; with T = B / n_per_task tasks: w0 [T,32,Ci,3,3]; b0 [T,32];
 // w1 [T,48,32,3,3]; b1 [T,48] (torch OIHW; T = 1, n_per_task = B for
-// weights shared by the batch); out [B,H/8,W/8,48]. All contiguous on the
+// weights shared by the batch); out [B,H/8,W/8,48]; route null, or
+// [B,H/8,W/8,48] uint8 for the pool's routes. All contiguous on the
 // device, f32, or bf16 when bf16 is set. Returns the cudaError_t of the
 // launch.
 template <class T, class Kernel>
 int launch_stem(Kernel kernel, int smem, int wgs, const T* x, const T* w0,
-                const T* b0, const T* w1, const T* b1, T* out, int B, int H,
-                int W, int Ci, int n_per_task, cudaStream_t stream) {
+                const T* b0, const T* w1, const T* b1, T* out, uint8_t* route,
+                int B, int H, int W, int Ci, int n_per_task,
+                cudaStream_t stream) {
   const int threads = 128 * wgs;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -487,8 +592,8 @@ int launch_stem(Kernel kernel, int smem, int wgs, const T* x, const T* w0,
   const int tiles = n_per_task * ((H / 8 + TP - 1) / TP) * ((W / 8 + TP - 1) / TP);
   int bpt = per_sm * sms / tasks;
   bpt = bpt < 1 ? 1 : (bpt > tiles ? tiles : bpt);
-  kernel<<<tasks * bpt, threads, smem, stream>>>(x, w0, b0, w1, b1, out, H,
-                                                  W, Ci, n_per_task, bpt);
+  kernel<<<tasks * bpt, threads, smem, stream>>>(
+      x, w0, b0, w1, b1, out, route, H, W, Ci, n_per_task, bpt);
   return (int)cudaGetLastError();
 }
 
@@ -496,22 +601,24 @@ int launch_stem(Kernel kernel, int smem, int wgs, const T* x, const T* w0,
 // shared memory fits, else one
 template <class T>
 int run_stem(const void* x, const void* w0, const void* b0, const void* w1,
-             const void* b1, void* out, int B, int H, int W, int Ci,
-             int n_per_task, cudaStream_t s) {
+             const void* b1, void* out, void* route, int B, int H, int W,
+             int Ci, int n_per_task, cudaStream_t s) {
   const int wgs = stem_smem_bytes<T>(Ci, 2) <= MAX_SMEM ? 2 : 1;
   return launch_stem(Ci == 1 ? stem_fwd_kernel<T, true> : stem_fwd_kernel<T, false>,
                      stem_smem_bytes<T>(Ci, wgs), wgs, static_cast<const T*>(x),
                      static_cast<const T*>(w0), static_cast<const T*>(b0),
                      static_cast<const T*>(w1), static_cast<const T*>(b1),
-                     static_cast<T*>(out), B, H, W, Ci, n_per_task, s);
+                     static_cast<T*>(out), static_cast<uint8_t*>(route), B, H,
+                     W, Ci, n_per_task, s);
 }
 
 extern "C" int wmfml_stem_fwd(const void* x, const void* w0, const void* b0,
                               const void* w1, const void* b1, void* out,
-                              int B, int H, int W, int Ci, int n_per_task,
-                              int bf16, void* stream) {
+                              void* route, int B, int H, int W, int Ci,
+                              int n_per_task, int bf16, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) return run_stem<__nv_bfloat16>(x, w0, b0, w1, b1, out, B, H, W,
-                                           Ci, n_per_task, s);
-  return run_stem<float>(x, w0, b0, w1, b1, out, B, H, W, Ci, n_per_task, s);
+  if (bf16) return run_stem<__nv_bfloat16>(x, w0, b0, w1, b1, out, route, B,
+                                           H, W, Ci, n_per_task, s);
+  return run_stem<float>(x, w0, b0, w1, b1, out, route, B, H, W, Ci,
+                         n_per_task, s);
 }

@@ -1,5 +1,5 @@
-// Hopper building blocks shared by K1 (stem.cu), K2 (favor.cu), K3
-// (features.cu) and K6 (image_da.cu, the bulk copy only):
+// Hopper building blocks shared by K1 (stem.cu), K1b (stem_bwd.cu), K2
+// (favor.cu), K3 (features.cu) and K6 (image_da.cu, the bulk copy only):
 // 3xTF32 operand splitting, warpgroup MMA (wgmma) with A from registers and
 // B from shared memory, and the asynchronous copies that feed it.
 //

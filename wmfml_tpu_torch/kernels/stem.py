@@ -37,15 +37,21 @@ zeros, where the gradient is 0 either way.
 ``wmfml_tpu/nn/encoders.py:117``): the backward is K1b
 (``csrc/stem_bwd.cu``), a kernel of its own that returns the four weight
 and bias gradients for the pooled map's gradient, conv1's input gradient
-taken by the phase form. Its plain twin, ``stem_backward_phase_plain``,
-recomputes the forward, routes the pool's gradient to the first maximum in
-raster order, applies the ReLU masks and takes conv1's input gradient by
-the same form (``conv3x3_s2_phase_input_grad``); the CPU runs it. K1b
-covers what the four small CNP/ANP methods that read the option run:
-weights shared by the batch, images without a gradient, a first-order
-backward. Per-task weights, an image gradient and a backward under
-``create_graph`` raise, naming the case. ``literature_stem_backward``
-counts K1b's launches as ``literature_stem`` counts K1's.
+taken by the phase form, its products on the tensor cores. K1's forward
+writes the pool's routes for it (``stem_launch(..., route=True)``: each
+pooled value's first maximum in raster order, or 4 where it is not
+positive), so the gradient follows the forward's own decisions and K1b
+recomputes only conv0, with K1's device code (its ReLU mask is K1's). Its
+plain twin, ``stem_backward_phase_plain``, recomputes the forward, routes
+the pool's gradient to the first maximum in raster order, applies the ReLU
+masks and takes conv1's input gradient by the same form
+(``conv3x3_s2_phase_input_grad``); fed given decisions (``route``,
+``mask0``) it follows those instead; the CPU runs it. K1b covers what the
+four small CNP/ANP methods that read the option run: weights shared by the
+batch, images without a gradient, a first-order backward. Per-task
+weights, an image gradient and a backward under ``create_graph`` raise,
+naming the case. ``literature_stem_backward`` counts K1b's launches as
+``literature_stem`` counts K1's.
 """
 
 from __future__ import annotations
@@ -137,8 +143,12 @@ def pack_conv1_launch(w1, tasks):
     return out
 
 
-def stem_launch(x, w0, b0, w1, b1):
-    """Run the CUDA kernel once (no autograd, no launch count)."""
+def stem_launch(x, w0, b0, w1, b1, route=False):
+    """Run the CUDA kernel once (no autograd, no launch count). ``route``:
+    also return the pool's routes, uint8 [B, H/8, W/8, 48]: each pooled
+    value's window position (0-3, raster order) of its first maximum, or 4
+    where the pooled value is not positive (``_first_max_route``'s rule,
+    taken on the kernel's own sums; K1b's input)."""
     _check(x, w0, b0, w1, b1)
     lib = build.load("stem")
     x = x.contiguous()
@@ -147,16 +157,19 @@ def stem_launch(x, w0, b0, w1, b1):
     w0, b0, w1, b1 = (a.contiguous() for a in (w0, b0, w1, b1))
     out = torch.empty((b, h // 8, w // 8, C1), device=x.device,
                       dtype=x.dtype)
+    routes = torch.empty(out.shape, device=x.device,
+                         dtype=torch.uint8) if route else None
     fn = lib.wmfml_stem_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-             b1.data_ptr(), out.data_ptr(), b, h, w, ci, b // tasks,
-             int(x.dtype == torch.bfloat16),
+             b1.data_ptr(), out.data_ptr(),
+             None if routes is None else routes.data_ptr(), b, h, w, ci,
+             b // tasks, int(x.dtype == torch.bfloat16),
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused stem launch failed: cudaError {err}")
-    return out
+    return (out, routes) if route else out
 
 
 def conv3x3_s2_phase_input_grad(g, w, size=None):
@@ -193,19 +206,36 @@ def conv3x3_s2_phase_input_grad(g, w, size=None):
         b, ci, 2 * ho, 2 * wo)
 
 
-def _first_max_routes(a1, g):
-    """The pool's gradient at conv1's outputs a1 [B, C, h, w] (post-ReLU):
-    each window's ``g`` [B, C, h/2, w/2] at its first maximum in raster
-    order, where that maximum is positive (the ReLU's mask), else 0."""
+def _first_max_route(a1):
+    """The pool's routes at conv1's outputs a1 [B, C, h, w] (post-ReLU):
+    uint8 [B, C, h/2, w/2], each window's first maximum in raster order
+    (0-3), or 4 where that maximum is not positive (the ReLU's mask)."""
     b, c, h, w = a1.shape
     win = a1.reshape(b, c, h // 2, 2, w // 2, 2).permute(
         0, 1, 2, 4, 3, 5).reshape(b, c, h // 2, w // 2, 4)
     top = win.amax(-1, keepdim=True)
     hit = win == top
-    first = hit & (hit.cumsum(-1) == 1) & (top > 0)
-    out = torch.where(first, g[..., None], torch.zeros((), dtype=g.dtype))
-    return out.reshape(b, c, h // 2, w // 2, 2, 2).permute(
-        0, 1, 2, 4, 3, 5).reshape(b, c, h, w)
+    first = (hit & (hit.cumsum(-1) == 1)).to(torch.uint8).argmax(-1)
+    return torch.where(top[..., 0] > 0, first.to(torch.uint8),
+                       torch.full((), 4, dtype=torch.uint8))
+
+
+def _routed(route, g):
+    """The pool's gradient at conv1's outputs: each window's ``g`` [B, C,
+    h/2, w/2] at the position ``route`` [B, C, h/2, w/2] names, 0 at the
+    others (and at all four where the route is 4)."""
+    b, c, hh, ww = g.shape
+    pick = route[..., None].long() == torch.arange(4, device=route.device)
+    out = torch.where(pick, g[..., None], torch.zeros((), dtype=g.dtype))
+    return out.reshape(b, c, hh, ww, 2, 2).permute(
+        0, 1, 2, 4, 3, 5).reshape(b, c, 2 * hh, 2 * ww)
+
+
+def _first_max_routes(a1, g):
+    """The pool's gradient at conv1's outputs a1 [B, C, h, w] (post-ReLU):
+    each window's ``g`` [B, C, h/2, w/2] at its first maximum in raster
+    order, where that maximum is positive (the ReLU's mask), else 0."""
+    return _routed(_first_max_route(a1), g)
 
 
 def _weight_grad(x, shape, gy):
@@ -213,8 +243,25 @@ def _weight_grad(x, shape, gy):
     return torch.nn.grad.conv2d_weight(x, shape, gy, stride=2, padding=1)
 
 
+def _forward_maps(x, w0, b0, w1, b1):
+    """The twin's conv0 and conv1 outputs, NCHW, post-ReLU, each
+    convolution rounded as ``ops/cast.py:conv2d`` rounds it."""
+    a0 = F.relu(conv2d(x.permute(0, 3, 1, 2), w0, b0, stride=2, padding=1))
+    return a0, F.relu(conv2d(a0, w1.to(x.dtype), b1, stride=2, padding=1))
+
+
 @torch.no_grad()
-def stem_backward_phase_plain(x, w0, b0, w1, b1, g):
+def stem_decisions_plain(x, w0, b0, w1, b1):
+    """The twin's own decisions on its recomputed forward: the pool's
+    routes, uint8 [B, H/8, W/8, 48] (``_first_max_route``), and conv0's
+    ReLU mask, bool [B, H/2, W/2, 32] (NHWC, as the images)."""
+    a0, a1 = _forward_maps(x, w0, b0, w1, b1)
+    return (_first_max_route(a1).permute(0, 2, 3, 1).contiguous(),
+            (a0 > 0).permute(0, 2, 3, 1).contiguous())
+
+
+@torch.no_grad()
+def stem_backward_phase_plain(x, w0, b0, w1, b1, g, route=None, mask0=None):
     """K1b's plain twin: (dW0, db0, dW1, db1) of the stem (weights shared
     by the batch, as ``stem_plain`` takes them) for the pooled map's
     gradient g [B, H/8, W/8, 48], in x's dtype. It recomputes the forward
@@ -222,13 +269,24 @@ def stem_backward_phase_plain(x, w0, b0, w1, b1, g):
     g to each window's first maximum in raster order (``F.max_pool2d``'s
     rule, over the rounded values in bfloat16), applies conv1's and conv0's
     ReLU masks and takes conv1's input gradient by the phase form
-    (``conv3x3_s2_phase_input_grad``)."""
+    (``conv3x3_s2_phase_input_grad``).
+
+    ``route`` (uint8 [B, H/8, W/8, 48], 0-3 or 4 for none) and ``mask0``
+    (conv0's ReLU mask, [B, H/2, W/2, 32]) replace the twin's own decisions
+    with given ones (those K1b took: ``stem_backward_launch(...,
+    debug=True)``); given its own (``stem_decisions_plain``), the result is
+    the default's bit for bit."""
     xn = x.permute(0, 3, 1, 2)
-    a0 = F.relu(conv2d(xn, w0, b0, stride=2, padding=1))
-    a1 = F.relu(conv2d(a0, w1.to(x.dtype), b1, stride=2, padding=1))
-    gy1 = _first_max_routes(a1, g.to(x.dtype).permute(0, 3, 1, 2))
+    gn = g.to(x.dtype).permute(0, 3, 1, 2)
+    if route is None:
+        a0, a1 = _forward_maps(x, w0, b0, w1, b1)
+        gy1 = _first_max_routes(a1, gn)
+    else:
+        a0 = F.relu(conv2d(xn, w0, b0, stride=2, padding=1))
+        gy1 = _routed(route.permute(0, 3, 1, 2), gn)
     dx1 = conv3x3_s2_phase_input_grad(gy1, w1)
-    gy0 = torch.where(a0 > 0, dx1, torch.zeros((), dtype=dx1.dtype))
+    live = a0 > 0 if mask0 is None else mask0.permute(0, 3, 1, 2).bool()
+    gy0 = torch.where(live, dx1, torch.zeros((), dtype=dx1.dtype))
     return (_weight_grad(xn, w0.shape, gy0), gy0.sum((0, 2, 3)),
             _weight_grad(a0, w1.shape, gy1), gy1.sum((0, 2, 3)))
 
@@ -244,23 +302,26 @@ def _check_phase(x, w0):
 _GRID = {}
 
 
-def _grid(lib, which, ci, bf16):
-    key = (torch.cuda.current_device(), which, ci, bf16)
+def _grid(lib, ci, bf16):
+    key = (torch.cuda.current_device(), ci, bf16)
     if key not in _GRID:
         out = ctypes.c_int(0)
         fn = lib.wmfml_stem_bwd_grid
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(which, ci, bf16, ctypes.addressof(out))
+        err = fn(ci, bf16, ctypes.addressof(out))
         if err != 0:
             raise RuntimeError(f"stem backward grid: cudaError {err}")
         _GRID[key] = out.value
     return _GRID[key]
 
 
-def stem_backward_launch(x, w0, b0, w1, b1, g):
-    """Run K1b once (no launch count): (dW0, db0, dW1, db1) in x's dtype."""
+def stem_backward_launch(x, w0, b0, w1, b1, g, route, debug=False):
+    """Run K1b once (no launch count): (dW0, db0, dW1, db1) in x's dtype.
+    ``route``: the pool's routes of K1's forward (``stem_launch(...,
+    route=True)``). ``debug``: also return the decisions K1b used, (route,
+    conv0's ReLU mask as uint8 [B, H/2, W/2, 32]), as
+    ``stem_backward_phase_plain`` takes them."""
     _check(x, w0, b0, w1, b1)
     _check_phase(x, w0)
     lib = build.load("stem_bwd")
@@ -272,36 +333,46 @@ def stem_backward_launch(x, w0, b0, w1, b1, g):
     if tuple(g.shape) != (b, h // 8, w // 8, C1):
         raise ValueError(f"stem backward: g {tuple(g.shape)} for images "
                          f"{tuple(x.shape)}")
+    if (route.dtype != torch.uint8 or route.shape != g.shape
+            or route.device != x.device):
+        raise ValueError(f"stem backward: route must be uint8 "
+                         f"{tuple(g.shape)} on {x.device}")
     bf16 = int(x.dtype == torch.bfloat16)
-    x, w0, b0, w1, b1 = (a.contiguous() for a in (x, w0, b0, w1, b1))
+    x, w0, b0, w1, route = (a.contiguous() for a in (x, w0, b0, w1, route))
     g = g.to(x.dtype).contiguous()
-    na, nb = _grid(lib, 0, ci, bf16), _grid(lib, 1, ci, bf16)
+    blocks = _grid(lib, ci, bf16)
     dev = x.device
-    route = torch.empty(g.shape, device=dev, dtype=torch.uint8)
-    pa = torch.empty((na, lib.wmfml_stem_bwd_partials(0, ci)), device=dev)
-    pb = torch.empty((nb, lib.wmfml_stem_bwd_partials(1, ci)), device=dev)
+    partial = torch.empty((blocks, lib.wmfml_stem_bwd_partials(ci)),
+                          device=dev)
+    mask = torch.zeros((b, h // 2, w // 2, C0), device=dev,
+                       dtype=torch.uint8) if debug else None
     outs = [torch.empty_like(a) for a in (w0, b0, w1, b1)]
     fn = lib.wmfml_stem_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*(a.data_ptr() for a in (x, w0, b0, w1, b1, g, route, pa, pb,
-                                       *outs)),
-             b, h, w, ci, na, nb, bf16,
+    err = fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+             g.data_ptr(), route.data_ptr(),
+             None if mask is None else mask.data_ptr(), partial.data_ptr(),
+             *(a.data_ptr() for a in outs), b, h, w, ci, blocks, bf16,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stem backward launch failed: cudaError {err}")
-    return tuple(outs)
+    return (tuple(outs), (route, mask)) if debug else tuple(outs)
 
 
-def literature_stem_backward(x, w0, b0, w1, b1, g):
+def literature_stem_backward(x, w0, b0, w1, b1, g, route=None):
     """(dW0, db0, dW1, db1) for the pooled map's gradient g: on a CPU
-    tensor the twin ``stem_backward_phase_plain``, on a CUDA tensor K1b,
-    which it counts."""
+    tensor the twin ``stem_backward_phase_plain`` (fed ``route`` where
+    given), on a CUDA tensor K1b on the pool's routes of K1's forward
+    (``route``, required there), which it counts."""
     if x.device.type == "cpu":
         _check_phase(x, w0)
-        return stem_backward_phase_plain(x, w0, b0, w1, b1, g)
-    out = stem_backward_launch(x, w0, b0, w1, b1, g)
+        return stem_backward_phase_plain(x, w0, b0, w1, b1, g, route)
+    if route is None:
+        raise ValueError("K1b takes the pool's routes of K1's forward "
+                         "(stem_launch(..., route=True))")
+    out = stem_backward_launch(x, w0, b0, w1, b1, g, route)
     literature_stem_backward.launches += 1
     literature_stem_backward.bf16_launches += x.dtype == torch.bfloat16
     return out
@@ -317,10 +388,16 @@ class _PhaseStem(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w0, b0, w1, b1):
-        ctx.save_for_backward(x, w0, b0, w1, b1)
         if x.device.type == "cpu":
+            ctx.save_for_backward(x, w0, b0, w1, b1)
             return stem_plain(x, w0, b0, w1, b1)
-        out = stem_launch(x, w0, b0, w1, b1)
+        # the pool's routes, for K1b, only where a gradient is wanted
+        if any(ctx.needs_input_grad):
+            out, route = stem_launch(x, w0, b0, w1, b1, route=True)
+            ctx.save_for_backward(x, w0, b0, w1, b1, route)
+        else:
+            out = stem_launch(x, w0, b0, w1, b1)
+            ctx.save_for_backward(x, w0, b0, w1, b1)
         literature_stem.launches += 1
         literature_stem.bf16_launches += x.dtype == torch.bfloat16
         return out
@@ -332,8 +409,10 @@ class _PhaseStem(torch.autograd.Function):
                 "conv_bwd: phase (K1b) has no backward under create_graph: "
                 "a second-order gradient through the stem is not ported to "
                 "it")
+        x, w0, b0, w1, b1, *route = ctx.saved_tensors
         # no image gradient: ``literature_stem`` refuses images that want one
-        return (None, *literature_stem_backward(*ctx.saved_tensors, g))
+        return (None, *literature_stem_backward(x, w0, b0, w1, b1, g,
+                                                *route))
 
 
 class _FusedStem(torch.autograd.Function):
